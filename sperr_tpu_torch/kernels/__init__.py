@@ -1,0 +1,204 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a): build, load and wrappers.
+
+The ``.cu`` sources beside this file are compiled with ``nvcc`` at first use
+into ``_build/`` and loaded with ``ctypes`` (a plain C interface: pointers
+from ``tensor.data_ptr()``, the stream from
+``torch.cuda.current_stream().cuda_stream``).  The library is rebuilt when a
+source is newer than it; builds go to a per-pid temp file that is renamed
+into place, so concurrent builders never see a partial library.
+
+There is no fallback.  A missing ``nvcc``, a failed build or load, a device
+that is not compute capability 9.0, or a refused launch raises.  The plain
+PyTorch versions live beside the callers (``ops/quantize.py``,
+``ops/cdf97.py``) and run only for tensors on the CPU.
+
+Each wrapper adds one to ``launches[name]`` when it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+import os
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_DIR, "_build")
+SOURCES = tuple(os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu"))
+_LIB_NAME = "libsperr_torch_kernels.so"
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+# Shared memory a lifting block may use without opting in to more.
+LIFT_MAX_SHARED_BYTES = 48 * 1024
+
+launches = {"quantize": 0, "cdf97_lift": 0}
+# nvcc's output of the last build (register and shared-memory use per kernel)
+build_log = ""
+
+_lock = threading.Lock()
+_lib: Optional[ct.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _find_nvcc() -> str:
+    # torch's own search: $CUDA_HOME or $CUDA_PATH, nvcc on PATH, then the
+    # toolkit's default install location
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else ""
+    if not os.path.isfile(nvcc):
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, CUDA_PATH, PATH): the sperr_tpu_torch "
+            "CUDA kernels cannot be built"
+        )
+    return nvcc
+
+
+def build(out_dir: str = BUILD_DIR) -> str:
+    """Compile the kernel sources into ``out_dir`` if the library is missing
+    or older than a source; return the library's path."""
+    global build_log
+    lib = os.path.join(out_dir, _LIB_NAME)
+    if os.path.exists(lib) and all(
+        os.path.getmtime(lib) >= os.path.getmtime(s) for s in SOURCES
+    ):
+        return lib
+    nvcc = _find_nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, *SOURCES, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ct.CDLL:
+    """Build (if needed) and load the kernel library; check the device."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ct.CDLL(build())
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the kernels need an sm_90 GPU")
+        cap = torch.cuda.get_device_capability()
+        if cap != (9, 0):
+            raise RuntimeError(
+                f"the kernels are built for compute capability 9.0 (sm_90a); "
+                f"{torch.cuda.get_device_name()} has {cap[0]}.{cap[1]}"
+            )
+        lib.sperr_quantize.restype = ct.c_int
+        lib.sperr_quantize.argtypes = [
+            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+            ct.c_longlong, ct.c_longlong, ct.c_void_p,
+        ]
+        lib.sperr_cdf97_lift.restype = ct.c_int
+        lib.sperr_cdf97_lift.argtypes = [
+            ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
+            ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+            ct.POINTER(ct.c_float), ct.c_void_p,
+        ]
+        lib.sperr_cuda_error_string.restype = ct.c_char_p
+        lib.sperr_cuda_error_string.argtypes = [ct.c_int]
+        _lib = lib
+        return lib
+
+
+def _check(lib: ct.CDLL, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.sperr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}: {msg}")
+
+
+def _require_cuda_f32(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(
+            f"{what} must be a contiguous float32 CUDA tensor; got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
+    """K1: coeffs (B, n) f32, inv_q (B,) f32 on one CUDA device ->
+    (mags i32 (B, n), signs bool (B, n), maxmag i32 (B,))."""
+    _require_cuda_f32(coeffs, "coeffs")
+    _require_cuda_f32(inv_q, "inv_q")
+    if coeffs.dim() != 2 or inv_q.shape != (coeffs.shape[0],):
+        raise ValueError(
+            f"coeffs must be (B, n) and inv_q (B,); got {tuple(coeffs.shape)} "
+            f"and {tuple(inv_q.shape)}"
+        )
+    if inv_q.device != coeffs.device:
+        raise ValueError("coeffs and inv_q are on different devices")
+    B, n = coeffs.shape
+    if B > 65535:
+        raise ValueError(f"at most 65535 rows per launch; got {B}")
+    lib = load()
+    mags = torch.empty((B, n), dtype=torch.int32, device=coeffs.device)
+    signs = torch.empty((B, n), dtype=torch.bool, device=coeffs.device)
+    maxmag = torch.zeros((B,), dtype=torch.int32, device=coeffs.device)
+    with torch.cuda.device(coeffs.device):
+        err = lib.sperr_quantize(
+            coeffs.data_ptr(), inv_q.data_ptr(), mags.data_ptr(),
+            signs.data_ptr(), maxmag.data_ptr(), B, n, _stream(coeffs),
+        )
+    _check(lib, err, "quantize")
+    launches["quantize"] += 1
+    return mags, signs, maxmag
+
+
+def cdf97_lift(
+    x: torch.Tensor,
+    axis: int,
+    box: Tuple[int, int, int],
+    inverse: bool,
+    consts: np.ndarray,
+) -> None:
+    """One lifting level along ``axis`` (-1 x, -2 y, -3 z) of the sub-box
+    ``box`` = (lz, ly, lx) at the origin of x (B, nz, ny, nx), in place.
+    ``consts``: f32 {alpha, beta, gamma, delta, epsilon, inv_epsilon}."""
+    _require_cuda_f32(x, "x")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, nz, ny, nx); got {tuple(x.shape)}")
+    B, nz, ny, nx = x.shape
+    lz, ly, lx = (int(v) for v in box)
+    if not (1 <= lz <= nz and 1 <= ly <= ny and 1 <= lx <= nx):
+        raise ValueError(f"box {box} does not fit in {(nz, ny, nx)}")
+    if axis not in (-1, -2, -3):
+        raise ValueError(f"axis must be -1, -2 or -3; got {axis}")
+    L = {-1: lx, -2: ly, -3: lz}[axis]
+    if L < 2:
+        raise ValueError(f"a lifting line needs at least 2 samples; got {L}")
+    if 4 * L > LIFT_MAX_SHARED_BYTES:
+        raise ValueError(
+            f"a line of {L} samples needs {4 * L} bytes of shared memory; "
+            f"the lifting kernel holds at most {LIFT_MAX_SHARED_BYTES}"
+        )
+    lib = load()
+    k = np.ascontiguousarray(consts, dtype=np.float32)
+    with torch.cuda.device(x.device):
+        err = lib.sperr_cdf97_lift(
+            x.data_ptr(), B, nz, ny, nx, lz, ly, lx, axis, int(bool(inverse)),
+            k.ctypes.data_as(ct.POINTER(ct.c_float)), _stream(x),
+        )
+    _check(lib, err, "cdf97_lift")
+    launches["cdf97_lift"] += 1
