@@ -7,13 +7,21 @@ Run from the root of a checkout, with one GPU visible:
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. device: name, compute capability, nvidia-smi's name and power limit;
-  2. build: compile and load both CUDA kernels from the sources in the checkout;
+  2. build: compile and load the CUDA kernels from the sources in the checkout;
   3. each kernel against its plain PyTorch version on the card (K1 quantize
-     bit for bit; the CDF 9/7 lifting kernel through dwt3d/idwt3d);
-  4. the main path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
+     bit for bit; the CDF 9/7 lifting kernel through dwt3d/idwt3d; the
+     whole-plane kernels K2/K3 bit for bit against dwt2d_ref/idwt2d_ref and
+     the per-axis lifting driver, level by level against the full inverse);
+  4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D, checked against the host f64
      decoder, with the kernels' launch counters read around the run;
-  5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk.
+  5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
+  6. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
+     TorchCompressor2D and TorchDecompressor2D, checked against the host f64
+     decoder, with the launch counters read around the run;
+  7. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
+     its multi-resolution decode, and the 3D multi-resolution decode of
+     phase 5's stream, each against the host f64 decoder.
 The line before the last is a JSON object with each kernel's launches, error
 and time; the last line is {"ok": true, "device": {...}}.  Without a CUDA
 device, or without the repository beside it, the script prints no result and
@@ -56,6 +64,27 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _turbulence_like(ny: int, nx: int, seed: int):
+    """A Turbulence1024-like 2D field: 24 random separable sine modes plus
+    0.001 noise (the recipe of sperr_tpu/runtime/device_bench.py wave2d_stage,
+    one generator per field)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, max(nx, ny), dtype=np.float32)
+    f = np.zeros((ny, nx), np.float32)
+    for _ in range(24):
+        fx, fy = rng.uniform(0.5, 8.0, 2)
+        px, py = rng.uniform(0, 2 * np.pi, 2)
+        a = np.float32(rng.normal(scale=0.4))
+        f += a * (
+            np.sin(2 * np.pi * fy * t[:ny] + py)[:, None]
+            * np.sin(2 * np.pi * fx * t[:nx] + px)[None, :]
+        )
+    f += rng.normal(scale=0.001, size=f.shape).astype(np.float32)
+    return f
+
+
 def main() -> int:
     import torch
 
@@ -65,13 +94,16 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from sperr_tpu.codec.speck_flt import SpeckFloatCodec
     from sperr_tpu.parallel.chunked3d import Sperr3DDecompressor
     from sperr_tpu.runtime.engine import default_engine
     from sperr_tpu.stream import tools
+    from sperr_tpu.utils.dims import coarsened_resolutions, num_of_xforms
     from sperr_tpu.utils.testdata import smooth_field_3d
     from sperr_tpu_torch import kernels
     from sperr_tpu_torch.ops import cdf97, quantize
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
 
     # -- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -85,7 +117,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load()
-    print(f"[build] both kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
@@ -148,7 +180,47 @@ def main() -> int:
         print(f"[kernels] {fn.__name__} {shape}: max|card - CPU plain| {d:.3e}")
         _check(d <= 2e-5 * float(xh.abs().max()), f"{fn.__name__} off its plain version at {shape}")
 
-    # -- 4. the main path: 512^3, 8 chunks of 256^3, PWE 1e-2 --------------
+    # K2/K3: bit for bit against the plain version and the per-axis lifting
+    # driver; the level-by-level inverse against the full one
+    plane_ms = {}
+    plane_err = {"K2": 0.0, "K3": 0.0}
+    for shape in ((16, 1024, 1024), (1, 1800, 3600), (3, 127, 127), (2, 19, 27)):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        fwd = cdf97.dwt2d(x)
+        inv = cdf97.idwt2d(fwd)
+        steps = fwd.clone()
+        for lev in range(num_of_xforms(min(shape[1:])), 0, -1):
+            cdf97.idwt2d_(steps, lev, lev - 1)
+        geometry = dict(kernels.last_geometry)
+        for what, a, b in (
+            ("K2 = dwt2d_ref", fwd, cdf97.dwt2d_ref(x)),
+            ("K2 = lift driver", fwd, cdf97.dwt2d_ref(x, lift=cdf97.lift_axis)),
+            ("K3 = idwt2d_ref", inv, cdf97.idwt2d_ref(fwd)),
+            ("K3 = lift driver", inv, cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis)),
+            ("K3 level by level = K3", steps, inv),
+        ):
+            plane_err[what[:2]] = max(plane_err[what[:2]], float((a - b).abs().max()))
+            _check(torch.equal(a, b), f"{what} fails at {shape}")
+        d_rt = float((inv - x).abs().max())
+        print(f"[kernels] K2/K3 {shape}: equal to dwt2d_ref/idwt2d_ref and to the lift "
+              f"driver bit for bit, level by level = full; max|round trip - x| {d_rt:.3e}; "
+              f"grid, blocks/SM, shared bytes, threads: {geometry}")
+        _check(d_rt <= 2e-5 * float(x.abs().max()), f"K2/K3 round trip at {shape}")
+        if shape[1] >= 1024:
+            t = plane_ms[shape] = {
+                "K2": _time_ms(lambda: cdf97.dwt2d(x), 20),
+                "K2 plain": _time_ms(lambda: cdf97.dwt2d_ref(x), 3),
+                "K2 lift driver": _time_ms(lambda: cdf97.dwt2d_ref(x, lift=cdf97.lift_axis), 20),
+                "K3": _time_ms(lambda: cdf97.idwt2d(fwd), 20),
+                "K3 plain": _time_ms(lambda: cdf97.idwt2d_ref(fwd), 3),
+                "K3 lift driver": _time_ms(lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20),
+            }
+            print(f"[kernels] {shape} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+                  + f" -- {smi}")
+        del x, fwd, inv, steps
+    k23 = plane_ms[(16, 1024, 1024)]
+
+    # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
     engine = default_engine()
     print(f"[main] host engine: {type(engine).__name__}")
     _check(type(engine).__name__ == "NativeEngine", "the C++ host engine did not load")
@@ -173,9 +245,9 @@ def main() -> int:
     dec_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[main] launches during the main path: {launches}")
-    for name, cnt in launches.items():
-        _check(cnt > 0, f"kernel {name} was not launched on the main path")
+    print(f"[main] launches during the 3D path: {launches}")
+    for name in ("quantize", "cdf97_lift"):
+        _check(launches[name] > 0, f"kernel {name} was not launched on the 3D path")
     _check(stream2 == stream, "two compressions of one volume differ")
     _check(dims == (512, 512, 512), f"decoded dims {dims}")
     _check(comp.last_uncertified_chunks == 0, f"uncertified chunks {comp.last_uncertified_ids}")
@@ -200,8 +272,9 @@ def main() -> int:
     vol = smooth_field_3d(256, seed=11)
     vrange = float(vol.max() - vol.min())
     one_chunk = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda")
+    streams5 = {}
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
-        s = one_chunk.compress(vol, mode, quality)
+        s = streams5[mode] = one_chunk.compress(vol, mode, quality)
         ours, _ = dec.decompress(s)
         host, _ = Sperr3DDecompressor().decompress(s)
         host = host.reshape(vol.shape)
@@ -219,6 +292,105 @@ def main() -> int:
         else:
             _check(psnr >= quality - 0.5, f"PSNR {psnr} far below its target {quality}")
 
+
+    # -- 6. the 2D path: 16 x 1024^2, PWE 1e-2 -----------------------------
+    nx2 = ny2 = 1024
+    t0 = time.perf_counter()
+    fields = np.stack([_turbulence_like(ny2, nx2, seed) for seed in range(16)])
+    print(f"[2d] 16 Turbulence1024-like fields made in {time.perf_counter() - t0:.2f} s")
+    comp2 = TorchCompressor2D((nx2, ny2), device="cuda")
+    dec2 = TorchDecompressor2D((nx2, ny2), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    streams = comp2.compress_batch(fields, "pwe", tol)  # warm-up
+    dec2.decompress_batch(streams)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams2 = comp2.compress_batch(fields, "pwe", tol)
+    torch.cuda.synchronize()
+    enc2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs2 = dec2.decompress_batch(streams2)
+    torch.cuda.synchronize()
+    dec2_s = time.perf_counter() - t0
+    launches2 = dict(kernels.launches)
+    peak2 = torch.cuda.max_memory_allocated()
+    print(f"[2d] launches during the 2D path: {launches2}")
+    for name in ("dwt2d_full", "idwt2d_full", "quantize"):
+        _check(launches2[name] > 0, f"kernel {name} was not launched on the 2D path")
+    _check(launches2["cdf97_lift"] == 0, "the 2D path launched the per-axis lifting kernel")
+    _check(streams2 == streams, "two compressions of one batch differ")
+    _check(comp2.last_uncertified_chunks == 0,
+           f"{comp2.last_uncertified_chunks} uncertified fields")
+    _check(comp2.compress(fields[0], "pwe", tol) == streams2[0],
+           "field 0 compressed alone differs from its stream in the batch")
+    host2 = SpeckFloatCodec(2, (nx2, ny2, 1))
+    err2_port = err2_host = 0.0
+    for f, out, s in zip(fields, outs2, streams2):
+        _check(out.shape == (ny2, nx2) and np.isfinite(out).all(), "2D decode shape or finiteness")
+        err2_port = max(err2_port, float(np.abs(out.astype(np.float64) - f).max()))
+        h, _ = host2.decompress(bytes(s))
+        err2_host = max(err2_host, float(np.abs(h.reshape(ny2, nx2) - f).max()))
+    nbytes2 = sum(len(s) for s in streams2)
+    gb2 = fields.nbytes / 1e9
+    print(f"[2d] {nbytes2} bytes, {8.0 * nbytes2 / fields.size:.5f} bpp; max|err| port decoder "
+          f"{err2_port:.6e}, host f64 decoder {err2_host:.6e} (bound {tol}); uncertified "
+          f"fields {comp2.last_uncertified_chunks} -- {smi}")
+    print(f"[2d] encode {enc2_s:.3f} s ({gb2 / enc2_s:.4f} GB/s), decode {dec2_s:.3f} s "
+          f"({gb2 / dec2_s:.4f} GB/s) after one warm-up, peak device memory {peak2} bytes "
+          f"({peak2 / 2**30:.3f} GiB) -- {smi}")
+    _check(err2_port <= tol, f"2D port decoder misses the PWE bound: {err2_port}")
+    _check(err2_host <= tol, f"2D host f64 decoder misses the PWE bound: {err2_host}")
+    del fields, outs2
+
+    # -- 7. 1800x3600 modes and multi-resolution decodes --------------------
+    nx7, ny7 = 3600, 1800
+    f7 = _turbulence_like(ny7, nx7, 16)
+    r7 = float(f7.max() - f7.min())
+    comp7 = TorchCompressor2D((nx7, ny7), device="cuda")
+    dec7 = TorchDecompressor2D((nx7, ny7), device="cuda")
+    host7 = SpeckFloatCodec(2, (nx7, ny7, 1))
+    for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
+        s = comp7.compress(f7, mode, quality)
+        ours = dec7.decompress(s)
+        h, _ = host7.decompress(bytes(s))
+        h = h.reshape(ny7, nx7)
+        agree = float(np.abs(ours.astype(np.float64) - h).max())
+        psnr = 10 * np.log10(r7 * r7 / float(np.mean((h - f7) ** 2)))
+        print(f"[2d modes] {ny7}x{nx7} {mode} {quality}: {len(s)} bytes, PSNR {psnr:.3f} dB, "
+              f"max|port - host f64| {agree:.3e} (bound {1e-4 * r7:.3e})")
+        _check(agree <= 1e-4 * r7, f"2D {mode}: port and host decodes disagree")
+        if mode == "rate":
+            _check(len(s) == 17 + 9 + int(quality * f7.size) // 8,
+                   f"2D rate stream is {len(s)} bytes")
+            continue
+        _check(psnr >= quality - 0.5, f"2D PSNR {psnr} far below its target {quality}")
+        full = dec7.decompress(s, multi_res=True)
+        h_full, h_hier = host7.decompress(bytes(s), multi_res=True)
+        res = coarsened_resolutions((nx7, ny7, 1))
+        _check(np.array_equal(full, ours), "2D multi-res full output differs from the plain decode")
+        _check(len(dec7.hierarchy[0]) == len(h_hier) == len(res) > 0, "2D hierarchy length")
+        d_hier = 0.0
+        for a, b, r in zip(dec7.hierarchy[0], h_hier, res):
+            _check(a.shape == (r[1], r[0]), f"2D hierarchy shape {a.shape}, expected {(r[1], r[0])}")
+            d_hier = max(d_hier, float(np.abs(a - b.reshape(a.shape)).max()))
+        print(f"[multires] 2D {ny7}x{nx7}: {len(res)} levels {[a.shape for a in dec7.hierarchy[0]]}, "
+              f"max|port - host f64| {d_hier:.3e} (bound {1e-4 * r7:.3e})")
+        _check(d_hier <= 1e-4 * r7, "2D hierarchy disagrees with the host f64 decoder")
+    s5 = streams5["psnr"]
+    ours3, _ = dec.decompress(s5, multi_res=True)
+    host3 = Sperr3DDecompressor()
+    h3, _ = host3.decompress(s5, multi_res=True)
+    _check(len(dec.hierarchy) == len(host3.hierarchy) > 0, "3D hierarchy length")
+    d3 = float(np.abs(ours3.astype(np.float64) - h3.reshape(ours3.shape)).max())
+    for a, b in zip(dec.hierarchy, host3.hierarchy):
+        _check(a.shape == b.shape, f"3D hierarchy shapes {a.shape} and {b.shape}")
+        d3 = max(d3, float(np.abs(a.astype(np.float64) - b).max()))
+    print(f"[multires] 3D 256^3: {len(dec.hierarchy)} levels {[a.shape for a in dec.hierarchy]}, "
+          f"max|port - host f64| {d3:.3e} (bound {1e-4 * vrange:.3e})")
+    _check(d3 <= 1e-4 * vrange, "3D multi-res decode disagrees with the host f64 decoder")
+
     _check("jax" not in sys.modules, "the port imported jax")
     print(json.dumps({"kernels": [
         {"name": "quantize", "route": "cuda", "source": "sperr_tpu_torch/kernels/quantize.cu",
@@ -227,6 +399,12 @@ def main() -> int:
         {"name": "cdf97_lift", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_lift.cu",
          "replaces": "sperr_tpu/ops/cdf97_jax.py:230", "launches": launches["cdf97_lift"],
          "max_abs_err": lift_err, "ms": l_ms, "plain_ms": l_plain_ms},
+        {"name": "dwt2d_full", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_2d.cu",
+         "replaces": "sperr_tpu/ops/pallas_kernels.py:208", "launches": launches2["dwt2d_full"],
+         "max_abs_err": plane_err["K2"], "ms": k23["K2"], "plain_ms": k23["K2 plain"]},
+        {"name": "idwt2d_full", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_2d.cu",
+         "replaces": "sperr_tpu/ops/pallas_kernels.py:227", "launches": launches2["idwt2d_full"],
+         "max_abs_err": plane_err["K3"], "ms": k23["K3"], "plain_ms": k23["K3 plain"]},
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

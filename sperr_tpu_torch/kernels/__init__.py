@@ -26,9 +26,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sperr_tpu.utils.dims import calc_approx_detail_len, num_of_xforms
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = tuple(os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu"))
+SOURCES = tuple(
+    os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu")
+)
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,10 +40,16 @@ NVCC_FLAGS = (
 )
 # Shared memory a lifting block may use without opting in to more.
 LIFT_MAX_SHARED_BYTES = 48 * 1024
+# Shared memory a block of the whole-plane kernels may opt in to; it must
+# hold one line of the longest axis.
+PLANE_MAX_SHARED_BYTES = 227 * 1024
 
-launches = {"quantize": 0, "cdf97_lift": 0}
+launches = {"quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0}
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
+# geometry of the last launch of each whole-plane kernel: grid, blocks per
+# SM, shared bytes per block, threads per block
+last_geometry = {}
 
 _lock = threading.Lock()
 _lib: Optional[ct.CDLL] = None
@@ -112,6 +122,11 @@ def load() -> ct.CDLL:
             ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
             ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
             ct.POINTER(ct.c_float), ct.c_void_p,
+        ]
+        lib.sperr_cdf97_2d.restype = ct.c_int
+        lib.sperr_cdf97_2d.argtypes = [
+            ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+            ct.c_int, ct.POINTER(ct.c_float), ct.POINTER(ct.c_int), ct.c_void_p,
         ]
         lib.sperr_cuda_error_string.restype = ct.c_char_p
         lib.sperr_cuda_error_string.argtypes = [ct.c_int]
@@ -202,3 +217,63 @@ def cdf97_lift(
         )
     _check(lib, err, "cdf97_lift")
     launches["cdf97_lift"] += 1
+
+
+def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.ndarray) -> None:
+    """K2 (forward) or K3 (inverse) on x (B, ny, nx), in place."""
+    name = "idwt2d_full" if inverse else "dwt2d_full"
+    _require_cuda_f32(x, "x")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, ny, nx); got {tuple(x.shape)}")
+    B, ny, nx = x.shape
+    if not 0 <= lev_lo < lev_hi:
+        raise ValueError(f"levels must satisfy 0 <= lev_lo < lev_hi; got {lev_lo}, {lev_hi}")
+    def lengths(lev):
+        return calc_approx_detail_len(ny, lev)[0], calc_approx_detail_len(nx, lev)[0]
+
+    if min(lengths(lev_hi - 1)) < 2:
+        raise ValueError(f"{lev_hi} levels leave lines shorter than 2 samples in {(ny, nx)}")
+    # the longest lines are those of level lev_lo
+    longest = max(lengths(lev_lo))
+    if 4 * longest > PLANE_MAX_SHARED_BYTES:
+        raise ValueError(
+            f"a line of {longest} samples needs {4 * longest} bytes of shared "
+            f"memory; a block holds at most {PLANE_MAX_SHARED_BYTES}"
+        )
+    if B == 0:
+        return
+    lib = load()
+    k = np.ascontiguousarray(consts, dtype=np.float32)
+    info = (ct.c_int * 4)()
+    with torch.cuda.device(x.device):
+        err = lib.sperr_cdf97_2d(
+            x.data_ptr(), B, ny, nx, int(inverse), lev_hi, lev_lo,
+            k.ctypes.data_as(ct.POINTER(ct.c_float)), info, _stream(x),
+        )
+    _check(lib, err, name)
+    launches[name] += 1
+    last_geometry[name] = tuple(info)
+
+
+def _all_levels(x: torch.Tensor) -> int:
+    return num_of_xforms(min(x.shape[-1], x.shape[-2]))
+
+
+def dwt2d_full(x: torch.Tensor, consts: np.ndarray, levels: Optional[int] = None) -> None:
+    """K2: the first ``levels`` (default: all ``num_of_xforms(min(nx, ny))``)
+    levels of the 2D transform of x (B, ny, nx), rows then columns of each
+    level's approximation corner, in place, in one cooperative launch.
+    ``consts`` as for ``cdf97_lift``."""
+    levels = _all_levels(x) if levels is None else levels
+    _plane(x, False, int(levels), 0, consts)
+
+
+def idwt2d_full(
+    x: torch.Tensor, consts: np.ndarray, lev_hi: Optional[int] = None, lev_lo: int = 0
+) -> None:
+    """K3: undo levels ``lev_hi .. lev_lo+1`` (default: all) of the 2D
+    transform of x (B, ny, nx), columns then rows, in place, in one
+    cooperative launch; ``lev_lo = 0`` is the full inverse, one level at a
+    time serves the multi-resolution decode."""
+    lev_hi = _all_levels(x) if lev_hi is None else lev_hi
+    _plane(x, True, int(lev_hi), int(lev_lo), consts)

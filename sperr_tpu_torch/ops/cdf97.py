@@ -8,6 +8,11 @@ version ``lift_axis_ref``, which performs the same operations in the same
 order, each rounded on its own.  ``dwt3d_ref``/``idwt3d_ref`` run the plain
 version on any device, so the kernel can be held against it on the card.
 
+The 2D transforms are the exception: on a CUDA tensor one launch of the
+whole-plane kernel K2 (forward) or K3 (inverse) (kernels/cdf97_2d.cu) runs
+every level of a batch of planes; ``dwt2d_ref``/``idwt2d_ref`` run the same
+levels one lifting pass at a time.
+
 The public transforms return a new tensor and leave their input alone; the
 ``*_`` forms transform a contiguous tensor in place, which the codec uses to
 keep one buffer per chunk.
@@ -235,26 +240,131 @@ def idwt1d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
     return out
 
 
-def dwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
-    """Forward transform of the trailing (ny, nx) planes of x."""
-    out = x.clone(memory_format=torch.contiguous_format)
-    x4 = _as4(out, 2)
-    ny, nx = x4.shape[-2], x4.shape[-1]
-    levels = num_of_xforms(min(nx, ny)) if levels is None else levels
-    for lev in range(levels):
+# ---------------------------------------------------------------------------
+# 2D: on a CUDA tensor one launch of the whole-plane kernels K2/K3
+# (kernels/cdf97_2d.cu) covers every level of a batch of planes; the plain
+# version runs the same levels one lifting pass at a time.
+# ---------------------------------------------------------------------------
+def _as3(x: torch.Tensor) -> torch.Tensor:
+    """View x (..., ny, nx) as (B, ny, nx); x must be contiguous f32."""
+    return _as4(x, 2)[:, 0]
+
+
+def _levels2(x3: torch.Tensor, levels: int | None) -> int:
+    return num_of_xforms(min(x3.shape[-1], x3.shape[-2])) if levels is None else levels
+
+
+def _dwt2d_levels(x3, lev_lo: int, lev_hi: int, lift: LiftFn) -> None:
+    x4 = x3[:, None]
+    ny, nx = x3.shape[-2], x3.shape[-1]
+    for lev in range(lev_lo, lev_hi):
         lx, _ = calc_approx_detail_len(nx, lev)
         ly, _ = calc_approx_detail_len(ny, lev)
-        _dwt2d_level(x4, lx, ly, lift_axis)
-    return out
+        _dwt2d_level(x4, lx, ly, lift)
+
+
+def _idwt2d_levels(x3, lev_hi: int, lev_lo: int, lift: LiftFn) -> None:
+    x4 = x3[:, None]
+    ny, nx = x3.shape[-2], x3.shape[-1]
+    for lev in range(lev_hi, lev_lo, -1):
+        lx, _ = calc_approx_detail_len(nx, lev - 1)
+        ly, _ = calc_approx_detail_len(ny, lev - 1)
+        _idwt2d_level(x4, lx, ly, lift)
+
+
+def dwt2d_(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
+    """Forward transform of the trailing (ny, nx) planes of x, in place: K2
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    x3 = _as3(x)
+    levels = _levels2(x3, levels)
+    if x3.is_cuda:
+        if levels > 0:
+            kernels.dwt2d_full(x3, LIFT_CONSTS, levels)
+    elif x3.device.type == "cpu":
+        _dwt2d_levels(x3, 0, levels, lift_axis_ref)
+    else:
+        raise ValueError(f"no 2D transform kernel for tensors on {x.device}")
+    return x
+
+
+def idwt2d_(x: torch.Tensor, levels: int | None = None, lev_lo: int = 0) -> torch.Tensor:
+    """Undo levels ``levels .. lev_lo+1`` (default: all) of the 2D transform
+    of x, in place: K3 on a CUDA tensor, the plain version on a CPU tensor."""
+    x3 = _as3(x)
+    levels = _levels2(x3, levels)
+    if x3.is_cuda:
+        if levels > lev_lo:
+            kernels.idwt2d_full(x3, LIFT_CONSTS, levels, lev_lo)
+    elif x3.device.type == "cpu":
+        _idwt2d_levels(x3, levels, lev_lo, lift_axis_ref)
+    else:
+        raise ValueError(f"no 2D transform kernel for tensors on {x.device}")
+    return x
+
+
+def dwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
+    return dwt2d_(x.clone(memory_format=torch.contiguous_format), levels)
 
 
 def idwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
+    return idwt2d_(x.clone(memory_format=torch.contiguous_format), levels)
+
+
+def dwt2d_ref(x: torch.Tensor, levels: int | None = None, lift: LiftFn = lift_axis_ref):
+    """``dwt2d`` one lifting pass at a time through ``lift``, on any device:
+    the plain version by default; ``lift=lift_axis`` is the per-axis lifting
+    kernel on a CUDA tensor (2 launches per level)."""
     out = x.clone(memory_format=torch.contiguous_format)
-    x4 = _as4(out, 2)
-    ny, nx = x4.shape[-2], x4.shape[-1]
-    levels = num_of_xforms(min(nx, ny)) if levels is None else levels
-    for lev in range(levels, 0, -1):
+    x3 = _as3(out)
+    _dwt2d_levels(x3, 0, _levels2(x3, levels), lift)
+    return out
+
+
+def idwt2d_ref(x: torch.Tensor, levels: int | None = None, lift: LiftFn = lift_axis_ref):
+    out = x.clone(memory_format=torch.contiguous_format)
+    x3 = _as3(out)
+    _idwt2d_levels(x3, _levels2(x3, levels), 0, lift)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-resolution inverses (cdf97_jax.py:255-293): the hierarchy of coarse
+# approximations, coarsest first, as utils.dims.coarsened_resolutions lists
+# them.  Each level is undone on its own so its corner can be copied out.
+# ---------------------------------------------------------------------------
+def idwt2d_multi_res(x: torch.Tensor):
+    """-> (full inverse of x (..., ny, nx), tuple of coarse approximations);
+    one K3 launch per level on a CUDA tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    ny, nx = out.shape[-2], out.shape[-1]
+    hier = []
+    for lev in range(num_of_xforms(min(nx, ny)), 0, -1):
+        lx, _ = calc_approx_detail_len(nx, lev)
+        ly, _ = calc_approx_detail_len(ny, lev)
+        hier.append(out[..., :ly, :lx].clone())
+        idwt2d_(out, lev, lev - 1)
+    return out, tuple(hier)
+
+
+def idwt3d_multi_res(x: torch.Tensor):
+    """-> (full inverse of x (..., nz, ny, nx), tuple of coarse
+    approximations).  Non-dyadic dims invert as a wavelet packet with an
+    empty hierarchy, as the reference does."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    x4 = _as4(out, 3)
+    _, nz, ny, nx = x4.shape
+    dyadic = can_use_dyadic((nx, ny, nz))
+    if dyadic is None:
+        _idwt3d4(x4, lift_axis)
+        return out, ()
+    hier = []
+    for lev in range(dyadic, 0, -1):
+        lx, _ = calc_approx_detail_len(nx, lev)
+        ly, _ = calc_approx_detail_len(ny, lev)
+        lz, _ = calc_approx_detail_len(nz, lev)
+        hier.append(out[..., :lz, :ly, :lx].clone())
         lx, _ = calc_approx_detail_len(nx, lev - 1)
         ly, _ = calc_approx_detail_len(ny, lev - 1)
-        _idwt2d_level(x4, lx, ly, lift_axis)
-    return out
+        lz, _ = calc_approx_detail_len(nz, lev - 1)
+        _idwt3d_level(x4, lx, ly, lz, lift_axis)
+    return out, tuple(hier)

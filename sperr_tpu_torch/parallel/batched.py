@@ -30,7 +30,7 @@ from sperr_tpu.errors import first_chunk_failure
 from sperr_tpu.ops import condition as cond_host
 from sperr_tpu.runtime.engine import default_engine
 from sperr_tpu.stream import tools
-from sperr_tpu.utils.dims import chunk_volume
+from sperr_tpu.utils.dims import chunk_volume, coarsened_resolutions, coarsened_resolutions_chunked
 from sperr_tpu.utils.packing import pack_8_booleans
 
 from ..ops import cdf97
@@ -59,24 +59,35 @@ def _resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 # Device-side dense stages
 # ---------------------------------------------------------------------------
-def _dense_encode_one(batch: torch.Tensor, mode: str, quality: float, residual: str):
+def _per_row(fn, *rows: torch.Tensor) -> torch.Tensor:
+    """fn applied to each row of the (B, ...) arguments on its own: a float
+    reduction then runs the same way whatever the batch holds."""
+    return torch.cat([fn(*(r[b : b + 1] for r in rows)) for b in range(rows[0].shape[0])])
+
+
+def _dense_encode_rows(batch: torch.Tensor, mode: str, quality: float, residual: str,
+                       forward, inverse_):
+    """The dense front on batch (B, ...): condition -> ``forward`` -> q ->
+    quantize (K1) [PWE: inverse quantize -> ``inverse_`` (in place) ->
+    residual].  Float reductions run row by row; the transforms and K1 take
+    the whole batch, and every line of them is computed on its own."""
     B = batch.shape[0]
-    n = batch.shape[1] * batch.shape[2] * batch.shape[3]
+    n = batch[0].numel()
     flat = batch.reshape(B, n)
     f32 = np.float32
 
     v0 = flat[:, 0:1]
     is_const = torch.all(flat == v0, dim=1)
-    mean = torch.mean(flat, dim=1)
+    mean = _per_row(lambda r: torch.mean(r, dim=1), flat)
     conditioned = flat - mean[:, None]
     if mode == "psnr":
         rng = torch.amax(conditioned, dim=1) - torch.amin(conditioned, dim=1)
 
     # conditioned stays needed by the f32/margin residual, so transform a copy
-    coeffs = cdf97.dwt3d(conditioned.reshape(batch.shape)).reshape(B, n)
+    coeffs = forward(conditioned.reshape(batch.shape)).reshape(B, n)
 
     if mode == "psnr":
-        q = qz.estimate_q_psnr_batched(coeffs, rng, quality)
+        q = _per_row(lambda c, r: qz.estimate_q_psnr_batched(c, r, quality), coeffs, rng)
     elif mode == "pwe":
         q = torch.full((B,), quality * 1.5, dtype=batch.dtype, device=batch.device)
     else:  # rate: magnitudes must stay exactly representable in f32
@@ -91,7 +102,7 @@ def _dense_encode_one(batch: torch.Tensor, mode: str, quality: float, residual: 
     )
     if mode == "pwe" and residual != "none":
         rec = qz.midtread_inv_quantize_batched(mags, signs, q)
-        rec = cdf97.idwt3d_(rec.reshape(batch.shape)).reshape(B, n)
+        rec = inverse_(rec.reshape(batch.shape)).reshape(B, n)
         if residual == "dual":
             # decoder-exact residual (the ops of _dense_decode, in its
             # order: rec + mean, then the difference) plus a guard window
@@ -118,17 +129,37 @@ def _dense_encode(batch: torch.Tensor, mode: str, quality: float, residual: str 
     Runs chunk by chunk, so every result is independent of how chunks are
     grouped (the reference's ``seq`` form): no reduction spans two chunks."""
     outs = [
-        _dense_encode_one(batch[b : b + 1], mode, quality, residual)
+        _dense_encode_rows(batch[b : b + 1], mode, quality, residual, cdf97.dwt3d, cdf97.idwt3d_)
         for b in range(batch.shape[0])
     ]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
-def _dense_decode(mags, signs, q, mean, shape3):
+def _inverse(shape, multi_res: bool):
+    if len(shape) == 3:
+        return cdf97.idwt3d_multi_res if multi_res else cdf97.idwt3d_
+    return cdf97.idwt2d_multi_res if multi_res else cdf97.idwt2d_
+
+
+def _dense_decode(mags, signs, q, mean, shape):
+    """Reconstruction of B chunks (shape (lz, ly, lx)) or planes (shape
+    (ny, nx)): inverse quantize -> inverse transform -> + mean.  The
+    encoder's dual residual simulates exactly these operations."""
     B = mags.shape[0]
     coeffs = qz.midtread_inv_quantize_batched(mags, signs, q)
-    rec = cdf97.idwt3d_(coeffs.reshape((B,) + tuple(shape3)))
-    return rec + mean[:, None, None, None].to(rec.dtype)
+    rec = _inverse(shape, False)(coeffs.reshape((B,) + tuple(shape)))
+    return rec + mean.view((B,) + (1,) * len(shape)).to(rec.dtype)
+
+
+def _dense_decode_multires(mags, signs, q, mean, shape):
+    """``_dense_decode`` plus the hierarchy of coarse reconstructions,
+    coarsest first, each plus the mean but without outlier corrections (the
+    reference's semantics, SPECK_FLT.cpp:592-603)."""
+    B = mags.shape[0]
+    coeffs = qz.midtread_inv_quantize_batched(mags, signs, q)
+    rec, hier = _inverse(shape, True)(coeffs.reshape((B,) + tuple(shape)))
+    m = mean.view((B,) + (1,) * len(shape)).to(rec.dtype)
+    return rec + m, tuple(h + m for h in hier)
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +470,82 @@ class TorchCompressor3D:
         return streams
 
 
+class _HostParse:
+    """SPECK_FLT streams of B chunks or planes of n values, parsed on the
+    host: dense magnitudes and signs, q, mean, the value of each constant
+    stream and the outlier corrections."""
+
+    def __init__(self, B: int, n: int):
+        self.n = n
+        self.mags = np.zeros((B, n), dtype=np.int32)
+        self.signs = np.ones((B, n), dtype=bool)
+        self.qs = np.zeros(B, dtype=np.float64)
+        self.means = np.zeros(B, dtype=np.float64)
+        self.consts: List[Optional[float]] = [None] * B
+        self.outliers: List = [None] * B
+
+    def parse(self, engine, k: int, cs: bytes, ndim: int, dims3) -> None:
+        condi = cs[:17]
+        if cond_host.is_constant(condi[0]):
+            _, val = struct.unpack_from("<Qd", condi, 1)
+            self.consts[k] = val
+            return
+        q = self.qs[k] = cond_host.retrieve_q(condi)
+        (mean,) = struct.unpack_from("<d", condi, 1)
+        self.means[k] = mean
+        if not (q > 0.0 and np.isfinite(q) and np.isfinite(mean)):
+            raise tools.StreamError(f"invalid conditioner q={q}")
+        pos = 17
+        width = sp.uint_width_for_num_bitplanes(cs[pos])
+        full_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
+        speck_len = min(full_len, len(cs) - pos)
+        m, g = engine.decode(ndim, cs[pos : pos + speck_len], dims3, width)
+        self.mags[k] = m.astype(np.int32)
+        self.signs[k] = g
+        pos += speck_len
+        if pos + 9 <= len(cs):
+            o_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
+            if len(cs) - pos == o_len:
+                self.outliers[k] = outlier_mod.decode_outliers(cs[pos : pos + o_len], self.n, q / 1.5)
+
+    def parse_all(self, engine, streams, ids, ndim: int, dims3, num_threads) -> None:
+        """Parse streams[k] into row k on a thread pool; a failure raises as
+        the ChunkError of the smallest id in ``ids``."""
+
+        def parse_i(k):
+            try:
+                self.parse(engine, k, streams[k], ndim, dims3)
+            except Exception as e:  # noqa: BLE001 - reduced below
+                return (ids[k], e)
+
+        with ThreadPoolExecutor(max_workers=num_threads) as pool:
+            first_chunk_failure(pool.map(parse_i, range(len(streams))))
+
+    def reconstruct(self, device, shape, multi_res: bool = False):
+        """The device half: ``_dense_decode`` (or ``_dense_decode_multires``)
+        of every row, as tensors on ``device`` shaped (B,) + shape."""
+        mags = self.mags
+        # narrow the host->device transfer when magnitudes allow
+        if mags.size and mags.max() < 32768:
+            mags = mags.astype(np.int16)
+        args = (
+            torch.from_numpy(mags).to(device),
+            torch.from_numpy(self.signs).to(device),
+            torch.from_numpy(self.qs).to(device, torch.float32),
+            torch.from_numpy(self.means).to(device, torch.float32),
+            tuple(shape),
+        )
+        return _dense_decode_multires(*args) if multi_res else _dense_decode(*args)
+
+    def correct(self, k: int, block: np.ndarray) -> np.ndarray:
+        """Row k's reconstruction with its outlier corrections, in place."""
+        if self.outliers[k] is not None:
+            pos, corr = self.outliers[k]
+            flat = block.reshape(-1)
+            flat[pos] += corr.astype(flat.dtype)
+        return block
+
+
 class TorchDecompressor3D:
     """Chunked 3D decompressor: SPECK parsed on the host, reconstruction on
     ``device`` ("cuda", "cuda:N" or "cpu"; required)."""
@@ -447,11 +554,13 @@ class TorchDecompressor3D:
         self.device = _resolve_device(device)
         self.engine = default_engine()
         self.num_threads = num_threads
+        self.hierarchy: List[np.ndarray] = []
 
     def decompress(
         self,
         stream: bytes,
         to_host: bool = True,
+        multi_res: bool = False,
         only: Optional[Sequence[int]] = None,
     ):
         """Decode a container stream -> (volume, vol_dims).
@@ -459,70 +568,48 @@ class TorchDecompressor3D:
         to_host=True returns a numpy f32 volume (nz, ny, nx).  to_host=False
         returns {(z0, y0, x0, lz, ly, lx): tensor on the device} of chunk
         blocks.  ``only``: chunk ids to decode (with to_host=True the volume
-        outside them is uninitialized)."""
+        outside them is uninitialized).
+
+        multi_res=True also assembles the coarse-resolution hierarchy into
+        ``self.hierarchy``, coarsest first, as
+        utils.dims.coarsened_resolutions_chunked lists it (empty unless the
+        chunks divide the volume and are dyadic).  It needs to_host=True and
+        no ``only``."""
+        if multi_res and not to_host:
+            raise ValueError("multi_res decode requires to_host=True")
+        if multi_res and only is not None:
+            raise ValueError("multi_res decode does not support `only`")
         h = tools.parse_header(stream)
         nx, ny, nz = h.vol_dims
         chunks = chunk_volume(h.vol_dims, h.chunk_dims)
         vol = np.empty((nz, ny, nx), dtype=np.float32) if to_host else {}
         keep = None if only is None else set(int(i) for i in only)
 
+        hierarchy: List[np.ndarray] = []
+        hier_chunks: List = []
+        if multi_res:
+            vol_res = coarsened_resolutions_chunked(h.vol_dims, h.chunk_dims)
+            chunk_res = coarsened_resolutions(h.chunk_dims)
+            hierarchy = [np.empty((r[2], r[1], r[0]), dtype=np.float32) for r in vol_res]
+            hier_chunks = [chunk_volume(vol_res[i], chunk_res[i]) for i in range(len(vol_res))]
+
+        def hier_blocks(gi):
+            for lev, arr in enumerate(hierarchy):
+                hc = hier_chunks[lev][gi]
+                yield lev, arr[hc[4] : hc[4] + hc[5], hc[2] : hc[2] + hc[3], hc[0] : hc[0] + hc[1]]
+
         for (lz, ly, lx), idxs in _group_parts(chunks, _DECODE_ELEM_BUDGET, keep):
-            n = lx * ly * lz
-            B = len(idxs)
-            mags = np.zeros((B, n), dtype=np.int32)
-            signs = np.ones((B, n), dtype=bool)
-            qs = np.zeros(B, dtype=np.float64)
-            means = np.zeros(B, dtype=np.float64)
-            consts: List[Optional[float]] = [None] * B
-            outliers: List = [None] * B
-
-            def decode_one(k: int):
-                gi = idxs[k]
+            hp = _HostParse(len(idxs), lx * ly * lz)
+            streams = []
+            for gi in idxs:
                 off, ln = h.chunk_offsets[gi * 2], h.chunk_offsets[gi * 2 + 1]
-                cs = stream[off : off + ln]
-                condi = cs[:17]
-                if cond_host.is_constant(condi[0]):
-                    _, val = struct.unpack_from("<Qd", condi, 1)
-                    consts[k] = val
-                    return
-                qs[k] = cond_host.retrieve_q(condi)
-                (means[k],) = struct.unpack_from("<d", condi, 1)
-                if not (qs[k] > 0.0 and np.isfinite(qs[k]) and np.isfinite(means[k])):
-                    raise tools.StreamError(f"invalid conditioner q={qs[k]}")
-                pos = 17
-                width = sp.uint_width_for_num_bitplanes(cs[pos])
-                full_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
-                speck_len = min(full_len, len(cs) - pos)
-                m, g = self.engine.decode(3, cs[pos : pos + speck_len], (lx, ly, lz), width)
-                mags[k] = m.astype(np.int32)
-                signs[k] = g
-                pos += speck_len
-                if pos + 9 <= len(cs):
-                    o_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
-                    if len(cs) - pos == o_len:
-                        outliers[k] = outlier_mod.decode_outliers(
-                            cs[pos : pos + o_len], n, qs[k] / 1.5
-                        )
-
-            def decode_i(k):
-                try:
-                    decode_one(k)
-                except Exception as e:  # noqa: BLE001 - reduced below
-                    return (idxs[k], e)
-
-            with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
-                first_chunk_failure(pool.map(decode_i, range(B)))
-
-            # narrow the host->device transfer when magnitudes allow
-            if mags.size and mags.max() < 32768:
-                mags = mags.astype(np.int16)
-            rec = _dense_decode(
-                torch.from_numpy(mags).to(self.device),
-                torch.from_numpy(signs).to(self.device),
-                torch.from_numpy(qs).to(self.device, torch.float32),
-                torch.from_numpy(means).to(self.device, torch.float32),
-                (lz, ly, lx),
-            )
+                streams.append(stream[off : off + ln])
+            hp.parse_all(self.engine, streams, idxs, 3, (lx, ly, lz), self.num_threads)
+            rec = hp.reconstruct(self.device, (lz, ly, lx), multi_res)
+            hier_np = []
+            if multi_res:
+                rec, hier = rec
+                hier_np = [t.cpu().numpy() for t in hier]
 
             if to_host:
                 rech = rec.cpu().numpy()
@@ -531,31 +618,31 @@ class TorchDecompressor3D:
                     zz = slice(c[4], c[4] + c[5])
                     yy = slice(c[2], c[2] + c[3])
                     xx = slice(c[0], c[0] + c[1])
-                    if consts[k] is not None:
-                        vol[zz, yy, xx] = consts[k]
+                    if hp.consts[k] is not None:
+                        vol[zz, yy, xx] = hp.consts[k]
+                        for _, dst in hier_blocks(gi):
+                            dst[...] = hp.consts[k]
                         continue
-                    block = rech[k]
-                    if outliers[k] is not None:
-                        pos, corr = outliers[k]
-                        flat = block.reshape(-1)
-                        flat[pos] += corr.astype(flat.dtype)
-                    vol[zz, yy, xx] = block
+                    vol[zz, yy, xx] = hp.correct(k, rech[k])
+                    for lev, dst in hier_blocks(gi):
+                        dst[...] = hier_np[lev][k]
             else:
                 for k, gi in enumerate(idxs):
                     c = chunks[gi]
                     key = (c[4], c[2], c[0], c[5], c[3], c[1])
-                    if consts[k] is not None:
+                    if hp.consts[k] is not None:
                         vol[key] = torch.full(
-                            (c[5], c[3], c[1]), consts[k], dtype=torch.float32,
+                            (c[5], c[3], c[1]), hp.consts[k], dtype=torch.float32,
                             device=self.device,
                         )
                         continue
                     block = rec[k]
-                    if outliers[k] is not None:
-                        pos, corr = outliers[k]
+                    if hp.outliers[k] is not None:
+                        pos, corr = hp.outliers[k]
                         p = torch.from_numpy(np.asarray(pos, dtype=np.int64)).to(self.device)
                         cv = torch.from_numpy(corr.astype(np.float32)).to(self.device)
                         flat = block.reshape(-1)
                         flat[p] = flat[p] + cv
                     vol[key] = block
+        self.hierarchy = hierarchy
         return vol, h.vol_dims

@@ -27,7 +27,7 @@ def test_no_module_of_the_port_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(sperr_tpu_torch.__path__, 'sperr_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 6, names\n"
+        "assert len(names) >= 7 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -138,4 +138,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.quantize(c, torch.ones(2))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.cdf97_lift(torch.zeros((1, 4, 4, 4)), -1, (4, 4, 4), False, np.ones(6))
-    assert kernels.launches == {"quantize": 0, "cdf97_lift": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.dwt2d_full(torch.zeros((2, 16, 16)), np.ones(6))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.idwt2d_full(torch.zeros((2, 16, 16)), np.ones(6), 1, 0)
+    assert kernels.launches == {"quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0}
+
+
+@pytest.mark.parametrize("fn", ["dwt2d", "idwt2d", "dwt2d_", "idwt2d_"])
+def test_2d_transforms_raise_off_cpu_and_cuda(fn):
+    from sperr_tpu_torch.ops import cdf97
+
+    x = torch.zeros((2, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no 2D transform kernel"):
+        getattr(cdf97, fn)(x)
+
+
+def test_2d_codec_requires_a_device():
+    from sperr_tpu_torch.parallel import batched2d as tb2
+
+    with pytest.raises(TypeError):
+        tb2.TorchCompressor2D((32, 32))
+    with pytest.raises(TypeError):
+        tb2.TorchDecompressor2D((32, 32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tb2.TorchDecompressor2D((32, 32), device="meta")
