@@ -11,15 +11,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
   3. each kernel against its plain PyTorch version on the card (K1 quantize
      bit for bit; the CDF 9/7 lifting kernel through dwt3d/idwt3d; the
      whole-plane kernels K2/K3 bit for bit against dwt2d_ref/idwt2d_ref and
-     the per-axis lifting driver, level by level against the full inverse);
+     the per-axis lifting path, level by level against the full inverse;
+     the bit transpose K10, the masked pack K11 and the flag compaction K12
+     bit for bit on the inputs that one 256^3 chunk's schedule and walk give
+     them, at the first tier and at the widest);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D, checked against the host f64
      decoder, with the kernels' launch counters read around the run;
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
-  6. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
+  6. the device entropy path (entropy="wave"): phase 4's volume, whose
+     container must equal phase 4's byte for byte with every chunk on the
+     device and K1, the lifting kernel, K10, K11 and K12 launched; phase 5's
+     PSNR and rate streams; one noisy 256^3 chunk that drives the tier
+     ladder into its dense tiers;
+  7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
      TorchCompressor2D and TorchDecompressor2D, checked against the host f64
      decoder, with the launch counters read around the run;
-  7. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
+  8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
      its multi-resolution decode, and the 3D multi-resolution decode of
      phase 5's stream, each against the host f64 decoder.
 The line before the last is a JSON object with each kernel's launches, error
@@ -64,6 +72,41 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _capture(module, names):
+    """Record the arguments of every call of module.<name> for each name
+    (a context manager); the calls still run."""
+    import contextlib
+
+    calls = {name: [] for name in names}
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = {name: getattr(module, name) for name in names}
+
+        def wrap(name):
+            def rec(*args):
+                calls[name].append(args)
+                return orig[name](*args)
+            return rec
+
+        for name in names:
+            setattr(module, name, wrap(name))
+        try:
+            yield calls
+        finally:
+            for name in names:
+                setattr(module, name, orig[name])
+
+    return ctx()
+
+
+def _int_err(a, b) -> int:
+    """max |a - b| over integer tensors (int64 arithmetic)."""
+    import torch
+
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
 def _turbulence_like(ny: int, nx: int, seed: int):
     """A Turbulence1024-like 2D field: 24 random separable sine modes plus
     0.001 noise (the recipe of sperr_tpu/runtime/device_bench.py wave2d_stage,
@@ -101,7 +144,8 @@ def main() -> int:
     from sperr_tpu.utils.dims import coarsened_resolutions, num_of_xforms
     from sperr_tpu.utils.testdata import smooth_field_3d
     from sperr_tpu_torch import kernels
-    from sperr_tpu_torch.ops import cdf97, quantize
+    from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual
+    from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
 
@@ -220,6 +264,73 @@ def main() -> int:
         del x, fwd, inv, steps
     k23 = plane_ms[(16, 1024, 1024)]
 
+    # K10-K12: the inputs the wave path gives them on one 256^3 chunk
+    # (smooth_field_3d(256, seed=11), PWE 1e-2): the outlier compaction of
+    # the front and the exposure compaction of the first tier (K12), every
+    # bit transpose and the masked pack of the widest tier (K10, K11)
+    vol11 = smooth_field_3d(256, seed=11)
+    dims256 = (256, 256, 256)
+    li = speck_virtual.virtual_lis_index(dims256, dev)
+    tiers = tb.wave_tiers_for(256**3)
+    with _capture(packemit, ["compact_flags_rows"]) as cap12:
+        front = tb._dense_encode_rows(
+            torch.from_numpy(vol11[None]).to(dev), "pwe", 1e-2, "dual", cdf97.dwt3d,
+            cdf97.idwt3d_, out_cap=max(1024, 256**3 // 1024),
+        )
+        tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li,
+                            tb._wave_caps(li, dims256, tiers[0], 34))
+    wide = tb._wave_caps(li, dims256, tiers[-1], 34)
+    with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack"]) as cap1011:
+        em, fits = tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, wide)
+    print(f"[kernels] wave inputs of one 256^3 chunk: widest tier caps {wide}, fits {bool(fits)}")
+    _check(bool(fits), "the widest tier does not hold the smooth 256^3 chunk")
+    del em, front
+    bit_err = {"transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0}
+    for args in cap1011["transpose_bits32"]:
+        a, b = kernels.transpose_bits32(args[0].contiguous()), packemit.transpose_bits32_ref(args[0])
+        bit_err["transpose_bits32"] = max(bit_err["transpose_bits32"], _int_err(a, b))
+        _check(torch.equal(a, b), f"K10 differs from its plain version at {tuple(args[0].shape)}")
+    for args in cap1011["transpose_bits32_pair"]:
+        a = kernels.transpose_bits32_pair(args[0].contiguous(), args[1].contiguous())
+        b = packemit.transpose_bits32_pair_ref(*args)
+        bit_err["transpose_bits32"] = max(bit_err["transpose_bits32"], _int_err(a, b))
+        _check(torch.equal(a, b), f"K10 pair form differs from its plain version at {tuple(args[0].shape)}")
+    (parts, evb_cap, out_cap_bytes), = cap1011["masked_pack"]
+    a, b = packemit.masked_pack(parts, evb_cap, out_cap_bytes), packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
+    for name, x, y in zip(a._fields, a, b):
+        bit_err["masked_pack"] = max(bit_err["masked_pack"], _int_err(x, y))
+        _check(torch.equal(x, y), f"K11 {name} differs from its plain version")
+    for flags, take in cap12["compact_flags_rows"]:
+        a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
+        for x, y in zip(a, b):
+            bit_err["compact_flags_rows"] = max(bit_err["compact_flags_rows"], _int_err(x, y))
+            _check(torch.equal(x, y), f"K12 differs from its plain version at {tuple(flags.shape)}, take {take}")
+    n_words = sum(v.numel() for v, _ in parts)
+    x_pair = max(cap1011["transpose_bits32_pair"], key=lambda t: t[0].numel())
+    x_one = max(cap1011["transpose_bits32"], key=lambda t: t[0].numel())
+    f_out, f_exp = cap12["compact_flags_rows"][0], cap12["compact_flags_rows"][-1]
+    bits_ms = {
+        "K10 pair": _time_ms(lambda: kernels.transpose_bits32_pair(*x_pair), 20),
+        "K10 pair plain": _time_ms(lambda: packemit.transpose_bits32_pair_ref(*x_pair), 5),
+        "K10": _time_ms(lambda: kernels.transpose_bits32(x_one[0]), 20),
+        "K10 plain": _time_ms(lambda: packemit.transpose_bits32_ref(x_one[0]), 5),
+        "K11": _time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
+        "K11 plain": _time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3),
+        "K12 outliers": _time_ms(lambda: kernels.compact_flags_rows(*f_out), 20),
+        "K12 outliers plain": _time_ms(lambda: packemit.compact_flags_rows_ref(*f_out), 5),
+        "K12 exposure": _time_ms(lambda: kernels.compact_flags_rows(*f_exp), 20),
+        "K12 exposure plain": _time_ms(lambda: packemit.compact_flags_rows_ref(*f_exp), 5),
+    }
+    print(f"[kernels] K10 ({len(cap1011['transpose_bits32_pair'])} pair calls up to "
+          f"{tuple(x_pair[0].shape)} items, {len(cap1011['transpose_bits32'])} calls up to "
+          f"{tuple(x_one[0].shape)}), K11 ({n_words} words per array, evb_cap {evb_cap}, "
+          f"out_cap_bytes {out_cap_bytes}), K12 (outliers {tuple(f_out[0].shape)} take "
+          f"{f_out[1]}, exposure {tuple(f_exp[0].shape)} take {f_exp[1]}): equal to their "
+          f"plain versions bit for bit")
+    print("[kernels] K10-K12 ms: " + ", ".join(f"{k} {v:.4f}" for k, v in bits_ms.items())
+          + f" -- {smi}")
+    del cap1011, cap12, parts, a, b, x_pair, x_one, f_out, f_exp
+
     # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
     engine = default_engine()
     print(f"[main] host engine: {type(engine).__name__}")
@@ -266,7 +377,9 @@ def main() -> int:
           f"({peak / 2**30:.3f} GiB) -- {smi}")
     _check(err_port <= tol, f"port decoder misses the PWE bound: {err_port}")
     _check(err_host <= tol, f"host f64 decoder misses the PWE bound: {err_host}")
-    del vol, out, host
+    d2h_host = comp.last_d2h_bytes
+    vol512 = vol
+    del out, host
 
     # -- 5. PSNR and rate modes, one 256^3 chunk ---------------------------
     vol = smooth_field_3d(256, seed=11)
@@ -293,7 +406,55 @@ def main() -> int:
             _check(psnr >= quality - 0.5, f"PSNR {psnr} far below its target {quality}")
 
 
-    # -- 6. the 2D path: 16 x 1024^2, PWE 1e-2 -----------------------------
+    # -- 6. the device entropy path (entropy="wave") ------------------------
+    wave = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", entropy="wave")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wave.compress(vol512, "pwe", tol)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stream_w = wave.compress(vol512, "pwe", tol)
+    torch.cuda.synchronize()
+    encw_s = time.perf_counter() - t0
+    launches_w = dict(kernels.launches)
+    peak_w = torch.cuda.max_memory_allocated()
+    print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
+    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+        _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
+    _check(stream_w == stream2, "the wave container differs from the host-entropy container")
+    _check(wave.last_wave_chunks == 8, f"{wave.last_wave_chunks} of 8 chunks on the device path")
+    _check(wave.last_uncertified_chunks == 0, f"uncertified chunks {wave.last_uncertified_ids}")
+    print(f"[wave] 512^3 PWE {tol}: container equal to phase 4's byte for byte "
+          f"({len(stream_w)} bytes), {wave.last_wave_chunks} chunks on the device path at "
+          f"tiers {wave.last_wave_tiers}")
+    print(f"[wave] encode {encw_s:.3f} s wave, {enc_s:.3f} s host (phase 4), after one warm-up; "
+          f"device to host {wave.last_d2h_bytes} bytes wave, {d2h_host} bytes host; peak device "
+          f"memory {peak_w} bytes ({peak_w / 2**30:.3f} GiB) wave, {peak} host -- {smi}")
+    del vol512, vol
+    one_w = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", entropy="wave")
+    for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
+        s = one_w.compress(vol11, mode, quality)
+        tiers_used = ["host" if t is None else t for t in one_w.last_wave_tiers]
+        print(f"[wave] 256^3 {mode} {quality}: stream equal to phase 5's: {s == streams5[mode]}, "
+              f"tier {tiers_used}, device to host {one_w.last_d2h_bytes} bytes")
+        _check(s == streams5[mode], f"{mode}: wave and host-entropy streams differ")
+    noisy = np.random.default_rng(3).normal(size=(256, 256, 256)).astype(np.float32)
+    t0 = time.perf_counter()
+    s_host = one_chunk.compress(noisy, "pwe", tol)
+    noisy_host_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s_wave = one_w.compress(noisy, "pwe", tol)
+    noisy_wave_s = time.perf_counter() - t0
+    tiers_used = ["host" if t is None else t for t in one_w.last_wave_tiers]
+    print(f"[wave] noisy 256^3 PWE {tol}: {len(s_wave)} bytes, equal to host entropy: "
+          f"{s_wave == s_host}, tier {tiers_used}, encode {noisy_wave_s:.3f} s wave, "
+          f"{noisy_host_s:.3f} s host, peak device memory {torch.cuda.max_memory_allocated()} bytes")
+    _check(s_wave == s_host, "noisy chunk: wave and host-entropy streams differ")
+    del noisy, vol11
+
+    # -- 7. the 2D path: 16 x 1024^2, PWE 1e-2 -----------------------------
     nx2 = ny2 = 1024
     t0 = time.perf_counter()
     fields = np.stack([_turbulence_like(ny2, nx2, seed) for seed in range(16)])
@@ -344,7 +505,7 @@ def main() -> int:
     _check(err2_host <= tol, f"2D host f64 decoder misses the PWE bound: {err2_host}")
     del fields, outs2
 
-    # -- 7. 1800x3600 modes and multi-resolution decodes --------------------
+    # -- 8. 1800x3600 modes and multi-resolution decodes --------------------
     nx7, ny7 = 3600, 1800
     f7 = _turbulence_like(ny7, nx7, 16)
     r7 = float(f7.max() - f7.min())
@@ -405,6 +566,17 @@ def main() -> int:
         {"name": "idwt2d_full", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_2d.cu",
          "replaces": "sperr_tpu/ops/pallas_kernels.py:227", "launches": launches2["idwt2d_full"],
          "max_abs_err": plane_err["K3"], "ms": k23["K3"], "plain_ms": k23["K3 plain"]},
+        {"name": "transpose_bits32", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
+         "replaces": "sperr_tpu/ops/packemit.py:102", "launches": launches_w["transpose_bits32"],
+         "max_abs_err": bit_err["transpose_bits32"], "ms": bits_ms["K10 pair"],
+         "plain_ms": bits_ms["K10 pair plain"]},
+        {"name": "masked_pack", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
+         "replaces": "sperr_tpu/ops/packemit.py:420", "launches": launches_w["masked_pack"],
+         "max_abs_err": bit_err["masked_pack"], "ms": bits_ms["K11"], "plain_ms": bits_ms["K11 plain"]},
+        {"name": "compact_flags_rows", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
+         "replaces": "sperr_tpu/ops/packemit.py:305", "launches": launches_w["compact_flags_rows"],
+         "max_abs_err": bit_err["compact_flags_rows"], "ms": bits_ms["K12 outliers"],
+         "plain_ms": bits_ms["K12 outliers plain"]},
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ into place, so concurrent builders never see a partial library.
 There is no fallback.  A missing ``nvcc``, a failed build or load, a device
 that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
-``ops/cdf97.py``) and run only for tensors on the CPU.
+``ops/cdf97.py``, ``ops/packemit.py``) and run only for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` when it launches its kernel.
 """
@@ -31,7 +31,7 @@ from sperr_tpu.utils.dims import calc_approx_detail_len, num_of_xforms
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
-    os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu")
+    os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu")
 )
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
@@ -44,7 +44,10 @@ LIFT_MAX_SHARED_BYTES = 48 * 1024
 # hold one line of the longest axis.
 PLANE_MAX_SHARED_BYTES = 227 * 1024
 
-launches = {"quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0}
+launches = {
+    "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
+    "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0,
+}
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
 # geometry of the last launch of each whole-plane kernel: grid, blocks per
@@ -128,6 +131,18 @@ def load() -> ct.CDLL:
             ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
             ct.c_int, ct.POINTER(ct.c_float), ct.POINTER(ct.c_int), ct.c_void_p,
         ]
+        vp, ll = ct.c_void_p, ct.c_longlong
+        for name, args in (
+            ("sperr_transpose_bits32", [vp, vp, ll, vp]),
+            ("sperr_transpose_bits32_pair", [vp, vp, vp, ll, vp]),
+            ("sperr_popcount_words", [vp, vp, ll, vp]),
+            ("sperr_masked_pack_scatter", [vp, vp, vp, vp, ll, ll, vp, ll, vp]),
+            ("sperr_flag_block_counts", [vp, vp, ll, ll, ll, vp]),
+            ("sperr_flag_compact", [vp, vp, vp, ll, ll, ll, ll, vp]),
+        ):
+            fn = getattr(lib, name)
+            fn.restype = ct.c_int
+            fn.argtypes = args
         lib.sperr_cuda_error_string.restype = ct.c_char_p
         lib.sperr_cuda_error_string.argtypes = [ct.c_int]
         _lib = lib
@@ -277,3 +292,129 @@ def idwt2d_full(
     time serves the multi-resolution decode."""
     lev_hi = _all_levels(x) if lev_hi is None else lev_hi
     _plane(x, True, int(lev_hi), int(lev_lo), consts)
+
+
+# ---------------------------------------------------------------------------
+# K10-K12: the bit machinery of the device SPECK encoder (kernels/bits.cu).
+# Words are 32-bit patterns carried in int32 tensors.
+# ---------------------------------------------------------------------------
+def _require_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{what} must be a contiguous {dtype} CUDA tensor; got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def transpose_bits32(x: torch.Tensor) -> torch.Tensor:
+    """K10: x (M,) int32 words, M % 32 == 0 -> (32, M // 32) int32 planes,
+    out[p, w] bit l = x[32 w + l] bit p."""
+    _require_cuda(x, torch.int32, "x")
+    if x.dim() != 1 or x.numel() % 32 or x.numel() == 0:
+        raise ValueError(f"x must be (M,) with M a positive multiple of 32; got {tuple(x.shape)}")
+    W = x.numel() // 32
+    out = torch.empty((32, W), dtype=torch.int32, device=x.device)
+    lib = load()
+    with torch.cuda.device(x.device):
+        err = lib.sperr_transpose_bits32(x.data_ptr(), out.data_ptr(), W, _stream(x))
+    _check(lib, err, "transpose_bits32")
+    launches["transpose_bits32"] += 1
+    return out
+
+
+def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K10, pair form: a, b (M,) int32, M % 16 == 0 -> (32, M // 16) int32,
+    the transpose of the cell stream a_0 b_0 a_1 b_1 ..."""
+    _require_cuda(a, torch.int32, "a")
+    _require_cuda(b, torch.int32, "b")
+    if a.dim() != 1 or a.shape != b.shape or a.numel() % 16 or a.numel() == 0:
+        raise ValueError(
+            f"a and b must be (M,) with M a positive multiple of 16; got "
+            f"{tuple(a.shape)} and {tuple(b.shape)}"
+        )
+    if a.device != b.device:
+        raise ValueError("a and b are on different devices")
+    W = a.numel() // 16
+    out = torch.empty((32, W), dtype=torch.int32, device=a.device)
+    lib = load()
+    with torch.cuda.device(a.device):
+        err = lib.sperr_transpose_bits32_pair(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), W, _stream(a)
+        )
+    _check(lib, err, "transpose_bits32_pair")
+    launches["transpose_bits32"] += 1
+    return out
+
+
+def popcount_words(valid: torch.Tensor) -> torch.Tensor:
+    """K11 pass 1: (n,) int32 words -> (n,) int32 counts of set bits."""
+    _require_cuda(valid, torch.int32, "valid")
+    if valid.dim() != 1 or valid.numel() == 0:
+        raise ValueError(f"valid must be (n,) with n > 0; got {tuple(valid.shape)}")
+    counts = torch.empty_like(valid)
+    lib = load()
+    with torch.cuda.device(valid.device):
+        err = lib.sperr_popcount_words(valid.data_ptr(), counts.data_ptr(), valid.numel(), _stream(valid))
+    _check(lib, err, "popcount_words")
+    launches["masked_pack"] += 1
+    return counts
+
+
+def masked_pack_scatter(
+    valid: torch.Tensor, bits: torch.Tensor, S: torch.Tensor, corr: torch.Tensor,
+    out: torch.Tensor,
+) -> None:
+    """K11 pass 2 over one part, rows of W words: valid, bits (rows, W) int32;
+    S (rows * W,) int64 stream bit offsets of the words before the row
+    corrections corr (rows,) int64; the valid bits of each word are ORed
+    into out (int32 words) from bit S[i] + corr[i // W]."""
+    for t, dt, what in ((valid, torch.int32, "valid"), (bits, torch.int32, "bits"),
+                        (S, torch.int64, "S"), (corr, torch.int64, "corr"),
+                        (out, torch.int32, "out")):
+        _require_cuda(t, dt, what)
+        if t.device != valid.device:
+            raise ValueError(f"{what} is on {t.device}, valid on {valid.device}")
+    if valid.dim() != 2 or bits.shape != valid.shape or valid.numel() == 0:
+        raise ValueError(f"valid and bits must be (rows, W); got {tuple(valid.shape)}, {tuple(bits.shape)}")
+    rows, W = valid.shape
+    if S.shape != (rows * W,) or corr.shape != (rows,):
+        raise ValueError(f"S must be ({rows * W},) and corr ({rows},)")
+    lib = load()
+    with torch.cuda.device(valid.device):
+        err = lib.sperr_masked_pack_scatter(
+            valid.data_ptr(), bits.data_ptr(), S.data_ptr(), corr.data_ptr(),
+            rows * W, W, out.data_ptr(), out.numel(), _stream(valid),
+        )
+    _check(lib, err, "masked_pack_scatter")
+    launches["masked_pack"] += 1
+
+
+_FLAG_BLOCK = 1024  # flags per block of K12 (kFlagBlock in bits.cu)
+
+
+def compact_flags_rows(flags: torch.Tensor, take: int):
+    """K12: flags (B, n) bool -> (idx (B, take) int32, the ascending indices
+    of the set flags with the sentinel n in unused slots; count (B,) int32)."""
+    _require_cuda(flags, torch.bool, "flags")
+    if flags.dim() != 2 or flags.shape[1] == 0 or not 0 < flags.shape[0] <= 65535:
+        raise ValueError(f"flags must be (B, n), 0 < B <= 65535, n > 0; got {tuple(flags.shape)}")
+    take = int(take)
+    if take <= 0:
+        raise ValueError(f"take must be positive; got {take}")
+    B, n = flags.shape
+    nblk = -(-n // _FLAG_BLOCK)
+    bcnt = torch.empty((B, nblk), dtype=torch.int32, device=flags.device)
+    idx = torch.full((B, take), n, dtype=torch.int32, device=flags.device)
+    lib = load()
+    with torch.cuda.device(flags.device):
+        err = lib.sperr_flag_block_counts(flags.data_ptr(), bcnt.data_ptr(), B, n, nblk, _stream(flags))
+        _check(lib, err, "compact_flags_rows (counts)")
+        launches["compact_flags_rows"] += 1
+        incl = torch.cumsum(bcnt, dim=1, dtype=torch.int64)
+        bbase = (incl - bcnt).contiguous()
+        err = lib.sperr_flag_compact(
+            flags.data_ptr(), bbase.data_ptr(), idx.data_ptr(), B, n, nblk, take, _stream(flags)
+        )
+        _check(lib, err, "compact_flags_rows (write)")
+        launches["compact_flags_rows"] += 1
+    return idx, incl[:, -1].to(torch.int32)

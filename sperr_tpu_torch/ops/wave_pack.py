@@ -1,0 +1,239 @@
+"""Device SPECK emission in the prefix-pack form (K9): PyTorch port of
+``wave_emit_3d`` in sperr_tpu/ops/wave_pack.py.
+
+Three dense [pass, position] matrices of (valid, bit) cells hold every SPECK
+bit of a chunk:
+
+  * LIP:        (decision, sign) cell pairs per pixel: a membership bit at
+                every pass in (e, s] and the sign right after the decision
+                that turns the pixel significant;
+  * LIS:        (decision, sign) cell pairs per walk-ordered item, from the
+                set walk's payload words (ops/speck_lis.py);
+  * refinement: magnitude bit (num_bp-1-p) for pixels with s < p.
+
+SPECK's within-pass order is ascending position, so the row-major order of
+each matrix is stream order.  Per-item 32-pass masks become packed per-pass
+words through the bit transpose (K10), and the masked pack (K11) writes the
+byte-aligned (class, pass) segments, class-major, that the host stitches
+into a stream byte-identical to the host engines'.  The optional exposure
+compaction keeps only the exposed 2x2x2 boxes (K12).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import packemit as pe
+from .speck_lis import lis_segments_device
+from .speck_virtual import box_reduce_min
+
+_NEVER = 0x7FFF
+_I32 = torch.int32
+
+
+class WaveEmit(NamedTuple):
+    num_bp: torch.Tensor       # int32 ()
+    seg: torch.Tensor          # uint8 (out_cap_bytes,) packed class-major buffer
+    counts: torch.Tensor       # int32 (3 * P,), P = the num_bp_cap argument
+    total_bytes: torch.Tensor  # int64 ()
+    n_sig: torch.Tensor        # int32 ()
+    overflow: torch.Tensor     # bool () piece, byte or exposure cap exceeded
+    n_nz: torch.Tensor         # int64 () non-empty pieces (occupancy signal)
+    # coefficient view from the exposure compaction (wexp_cap > 0; empty
+    # otherwise): idx ascending with sentinel n, signed quantized values
+    exp_idx: torch.Tensor      # int32 (<= wexp_cap,)
+    exp_ll: torch.Tensor       # int32 (<= wexp_cap,)
+    n_exp: torch.Tensor        # int32 () exposed-pixel count
+
+
+def _pad_cols(a: torch.Tensor, cols: int, fill) -> torch.Tensor:
+    have = a.shape[-1]
+    if have == cols:
+        return a
+    pad = torch.full(a.shape[:-1] + (cols - have,), fill, dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad], dim=-1)
+
+
+def _emit_words(masks_fn, P: int):
+    """Packed (valid, bit) emission words [P, M//32] from per-cell pass
+    masks: ``masks_fn(base)`` returns (mask_v, mask_b) int32 [M] for the pass
+    window [base, base+32)."""
+    vws, bws = [], []
+    for base in range(0, P, 32):
+        mv, mb = masks_fn(base)
+        take = min(32, P - base)
+        vws.append(pe.transpose_bits32(mv)[:take])
+        bws.append(pe.transpose_bits32(mb)[:take])
+    return torch.cat(vws), torch.cat(bws)
+
+
+def _emit_words_pair(masks_fn, P: int):
+    """Pair-class variant: ``masks_fn(base)`` returns per-item masks for the
+    even (decision) and odd (sign) cell lanes (mvA, mbA, mvB, mbB)."""
+    vws, bws = [], []
+    for base in range(0, P, 32):
+        mvA, mbA, mvB, mbB = masks_fn(base)
+        take = min(32, P - base)
+        vws.append(pe.transpose_bits32_pair(mvA, mvB)[:take])
+        bws.append(pe.transpose_bits32_pair(mbA, mbB)[:take])
+    return torch.cat(vws), torch.cat(bws)
+
+
+def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
+                 node_cap: int, evb_cap: int, out_cap_bytes: int,
+                 wexp_cap: int = 0) -> WaveEmit:
+    """Full SPECK bit emission for one power-of-two cube chunk.
+
+    Inputs are the int32 magnitudes, bool signs, the per-pixel schedule
+    (s, e from pixel_schedule_virtual), the per-node significance passes
+    node_s, num_bp (an int32 0-d tensor) and the walk index ``li``.
+    ``wexp_cap`` > 0 (and < n) compacts the exposed boxes first, so the
+    LIP and refinement matrices shrink to the exposed neighbourhood;
+    exposure overflow sets the overflow flag (tier retry)."""
+    if not getattr(li, "uniform_children", False):
+        raise NotImplementedError(
+            "only the virtual (power-of-two cube) forest is ported; the "
+            "non-uniform emission is ROADMAP queue 1, entry 11"
+        )
+    n = mags.shape[0]
+    P = num_bp_cap
+    dev = mags.device
+    mags = mags.to(_I32)
+    sgn = signs.to(_I32)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    ones = torch.full((), pe.ALL_ONES, dtype=_I32, device=dev)
+    never = torch.full((), _NEVER, dtype=_I32, device=dev)
+
+    # shared box-major pixel table: clip(s) | sign << 7 | mag << 8 (mags fit
+    # below bit 31 for bitplane caps <= 23; deeper caps carry them apart)
+    pack_mag = P <= 23
+    compact = bool(wexp_cap) and wexp_cap < n
+    pv = torch.clamp(s, 0, 127) | (sgn << 7)
+    if pack_mag:
+        pv = pv | (torch.clamp(mags, max=(1 << 23) - 1) << 8)
+    pv_bm = li.box_major_pixels(pv)
+    vtab = li.vtab_from(pv_bm, node_s)
+    mg_bm = li.box_major_pixels(mags) if (not pack_mag and compact) else None
+
+    # --- LIS items: the set walk, as walk-ordered payload words ----------
+    pay_s, n_sig = lis_segments_device(
+        node_s, s, signs, num_bp, li, num_bp_cap, node_cap, vtab=vtab,
+    )
+    T = pay_s.shape[0]
+    Tp = -(-T // 128) * 128
+    pay_p = _pad_cols(pay_s, Tp, 0)
+
+    is_ent = (pay_p & 1) == 1
+    lo = (pay_p >> 1) & 63
+    s6 = (pay_p >> 7) & 63
+    sgn_i = (pay_p >> 13) & 1
+    signow = (pay_p >> 14) & 1
+    hs = (pay_p >> 15) & 1
+    dec = (pay_p >> 16) & 1
+    ok = (pay_p >> 17) & 1
+    ent_hi = torch.minimum(s6, num_bp - 1)
+
+    def lis_masks(base):
+        ent_v = torch.where(ok == 1, pe.ones_span32(lo, ent_hi, base), zero)
+        bit_lo = pe.bit_at32(lo, base)
+        row_v0 = torch.where(dec == 1, bit_lo, zero)
+        mvA = torch.where(is_ent, ent_v, row_v0)
+        mbA = torch.where(is_ent, pe.bit_at32(s6, base), torch.where(signow == 1, ones, zero))
+        mvB = torch.where(is_ent, zero, torch.where(hs == 1, bit_lo, zero))
+        mbB = torch.where(sgn_i == 1, ones, zero)
+        return mvA, mbA, mvB, mbB
+
+    # --- exposed-pixel compaction (optional) ------------------------------
+    exp_over = torch.zeros((), dtype=torch.bool, device=dev)
+    exp_idx = torch.zeros(0, dtype=_I32, device=dev)
+    exp_ll = torch.zeros(0, dtype=_I32, device=dev)
+    n_exp = zero
+    if compact:
+        # exposure is a 2x2x2-box property (every pixel's parent is its
+        # aligned box): compact exposed boxes at n/8 scale (K12), fetch their
+        # pixels as rows of the shared box-major table, and restore
+        # ascending-pixel (emission) order with one sort
+        N = li.dims[0]
+        nbox = n // 8
+        e_cell = box_reduce_min(torch.where(s < _NEVER, s, never).reshape(N, N, N)).reshape(-1)
+        take_b = max(1, wexp_cap // 8)
+        idx_box, n_box = pe.compact_flags_rows((e_cell < num_bp)[None, :], take_b)
+        idx_box = idx_box[0]
+        n_exp = (8 * n_box[0]).to(_I32)
+        exp_over = n_box[0] > take_b
+        bok = idx_box < nbox
+        bc = torch.clamp(idx_box, max=nbox - 1)
+        bcl = bc.long()
+        rows_p = pv_bm.reshape(-1, 8)[bcl]     # [take_b, 8] row gathers
+        eb = torch.clamp(torch.where(bok, e_cell[bcl], never), 0, 127)
+        # linear pixel index per (box, slot): box (zb, yb, xb), slot dz dy dx
+        lb = N.bit_length() - 2
+        bz = bc >> (2 * lb)
+        rem = bc & ((1 << (2 * lb)) - 1)
+        by = rem >> lb
+        bx = rem & ((1 << lb) - 1)
+        slot8 = torch.arange(8, dtype=_I32, device=dev)
+        pz = (bz[:, None] << 1) + (slot8[None, :] >> 2)
+        py = (by[:, None] << 1) + ((slot8[None, :] >> 1) & 1)
+        px = (bx[:, None] << 1) + (slot8[None, :] & 1)
+        lin = (pz * N + py) * N + px
+        W8 = take_b * 8
+        key = torch.where(bok[:, None], lin, n).reshape(W8)
+        perm = torch.sort(key, stable=True).indices
+        key_s = key[perm]
+        pv_c = rows_p.reshape(W8)[perm]
+        e_c = eb[:, None].expand(take_b, 8).reshape(W8)[perm]
+        if pack_mag:
+            mag_c = pv_c >> 8
+        else:
+            mag_c = mg_bm.reshape(-1, 8)[bcl].reshape(W8)[perm]
+        npad = -(-wexp_cap // 256) * 256
+        okm = torch.arange(npad, dtype=_I32, device=dev) < n_exp
+        pvp = _pad_cols(pv_c[:wexp_cap], npad, 0)
+        s_p = torch.where(okm, pvp & 127, never)
+        e_p = torch.where(okm, _pad_cols(e_c[:wexp_cap], npad, 0), never)
+        g_i = torch.where(okm, (pvp >> 7) & 1, zero)
+        m_p = torch.where(okm, _pad_cols(mag_c[:wexp_cap], npad, 0), zero)
+        exp_idx = key_s[:wexp_cap]
+        exp_ll = torch.where(okm, torch.where(((pvp >> 7) & 1) == 1, m_p, -m_p), zero)[:wexp_cap]
+    else:
+        npad = -(-n // 256) * 256
+        s_p = _pad_cols(s, npad, _NEVER)
+        e_p = _pad_cols(e, npad, _NEVER)
+        g_i = _pad_cols(sgn, npad, 0)
+        m_p = _pad_cols(mags, npad, 0)
+
+    # --- LIP masks (decision, sign cell lanes over npad items) -----------
+    lip_hi = torch.minimum(s_p, num_bp - 1)
+
+    def lip_masks(base):
+        bit_s = pe.bit_at32(s_p, base)
+        mvA = pe.ones_span32(e_p + 1, lip_hi, base)
+        mvB = torch.where(e_p < s_p, bit_s, zero)
+        mbB = torch.where(g_i == 1, ones, zero)
+        return mvA, bit_s, mvB, mbB
+
+    # --- refinement masks: bit p of the mask is magnitude bit
+    # (num_bp-1-p), a bit reversal of m shifted to the ladder ------------
+    ref_bits = pe._safe_rsh(pe.bitrev32(m_p), (32 - num_bp).to(_I32))
+
+    def ref_masks(base):
+        mv = pe.ones_span32(s_p + 1, num_bp - 1, base)
+        return mv, pe._safe_rsh(ref_bits, base)
+
+    parts = [
+        _emit_words_pair(lip_masks, P),
+        _emit_words_pair(lis_masks, P),
+        _emit_words(ref_masks, P),
+    ]
+    res = pe.masked_pack(parts, evb_cap, out_cap_bytes)
+    return WaveEmit(
+        num_bp.to(_I32), pe.words_to_bytes(res.out_words), res.counts,
+        res.total_bytes, n_sig, res.overflow | exp_over, res.n_nz,
+        exp_idx, exp_ll, n_exp,
+    )
+
+
+__all__ = ["wave_emit_3d", "WaveEmit"]

@@ -2,9 +2,11 @@
 
 The machine with the GPU has no jax, so the port must not import it, even
 indirectly; the host helpers it copies out of sperr_tpu.parallel.batched
-(which imports jax) must equal their originals; and a missing GPU or a
-missing nvcc raises instead of quietly running the plain versions."""
+(which imports jax) must equal their originals, and so must the wave path's
+static caps; and a missing GPU or a missing nvcc raises instead of quietly
+running the plain versions."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -27,7 +29,9 @@ def test_no_module_of_the_port_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(sperr_tpu_torch.__path__, 'sperr_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert len(names) >= 7 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
+        "assert len(names) >= 11 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
+        "for m in ('packemit', 'speck_virtual', 'speck_lis', 'wave_pack'):\n"
+        "    assert 'sperr_tpu_torch.ops.' + m in names, names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -103,6 +107,94 @@ def test_condi_header_copy():
         assert tb._condi_header(*a) == jb._condi_header(*a)
 
 
+def test_wave_tier_tables_copy():
+    assert tb._WAVE_NEVER == jb._WAVE_NEVER
+    assert tb.DEFAULT_WAVE_TIERS == jb.DEFAULT_WAVE_TIERS
+    assert tb.DEFAULT_WAVE_TIERS_BIG == jb.DEFAULT_WAVE_TIERS_BIG
+    for n in (1, 4096, (1 << 21) - 1, 1 << 21, 1 << 24):
+        assert tb.wave_tiers_for(n) == jb.wave_tiers_for(n)
+
+
+def test_wave_fits_copy():
+    t = jb.TpuCompressor3D((16, 16, 16), (16, 16, 16), entropy="wave")
+    p = tb.TorchCompressor3D((16, 16, 16), (16, 16, 16), device="cpu", entropy="wave")
+    for fits in (False, True):
+        for num_bp in (0, 20, 34, 35):
+            wave = {"fits": np.array([fits]), "num_bp": np.array([num_bp])}
+            assert p._wave_fits(wave, 0) == t._wave_fits(wave, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_wave_caps(dims3, tier):
+    """The caps sperr_tpu's _dense_encode_wave hands wave_emit_3d, read by
+    tracing it (no compile, no run) with a recording stand-in."""
+    import jax
+    import jax.numpy as jnp
+    from sperr_tpu.ops import speck_virtual as jsv
+    from sperr_tpu.ops import wave_pack as jwp
+
+    # the index caches device constants: build it outside the trace, as
+    # TpuCompressor3D does, or its cache would keep the trace's tracers
+    jsv.virtual_lis_index(dims3)
+    seen = []
+
+    def record(mags, signs, s, e, node_s, num_bp, li, P, node_cap, evb_cap, out_cap_bytes, wexp_cap=0):
+        seen.append(dict(P=P, node_cap=node_cap, evb_cap=evb_cap, out_cap_bytes=out_cap_bytes,
+                         wexp_cap=wexp_cap))
+        z = jnp.zeros((), jnp.int32)
+        return jwp.WaveEmit(num_bp, jnp.zeros(out_cap_bytes, jnp.uint8), jnp.zeros(3 * P, jnp.int32),
+                            z, z, jnp.zeros((), bool), z, jnp.zeros(0, jnp.int32),
+                            jnp.zeros(0, jnp.int32), z)
+
+    orig = jwp.wave_emit_3d
+    jwp.wave_emit_3d = record
+    try:
+        fn = functools.partial(
+            jb._dense_encode_wave.__wrapped__, mode="pwe", quality=1e-2, out_cap=16384,
+            num_bp_cap=34, dims3=dims3, residual="dual", node_frac=tier[0], evb_frac=tier[1],
+            out_frac=tier[2], bp_cap=tier[3], wexp_frac=tier[4], sparse_view=False, seq=True,
+        )
+        jax.eval_shape(fn, jax.ShapeDtypeStruct((1,) + tuple(dims3[::-1]), jnp.float32))
+    finally:
+        jwp.wave_emit_3d = orig
+    (caps,) = seen
+    return caps
+
+
+# node_cap, T (walk items), words per emission array, evb_cap, out_cap_bytes
+# of each default tier at 256^3
+_CAPS_256 = (
+    (119837, 1917428, 2778832, 43419, 463140),
+    (599185, 7190220, 18537376, 579293, 4634348),
+    (1198370, 11983700, 37149568, 847288, 67108864),
+    (2396740, 21570660, 46736512, 5842064, 134217728),
+    (2396740, 21570660, 99315088, 8388608, 134217728),
+)
+
+
+@pytest.mark.parametrize("t", range(len(jb.DEFAULT_WAVE_TIERS_BIG)))
+def test_wave_caps_equal_jax_at_256(t):
+    from sperr_tpu_torch.ops import speck_virtual as tsv
+
+    dims3 = (256, 256, 256)
+    tier = jb.DEFAULT_WAVE_TIERS_BIG[t]
+    caps = tb._wave_caps(tsv.virtual_lis_index(dims3, "cpu"), dims3, tier, 34)
+    want = _jax_wave_caps(dims3, tier)
+    assert {k: caps[k] for k in want} == want
+    assert (caps["node_cap"], caps["T"], caps["cells"] // 32, caps["evb_cap"],
+            caps["out_cap_bytes"]) == _CAPS_256[t]
+
+
+@pytest.mark.parametrize("dims3,t", [((16, 16, 16), 0), ((16, 16, 16), 1), ((32, 32, 32), 0)])
+def test_wave_caps_equal_jax_small(dims3, t):
+    from sperr_tpu_torch.ops import speck_virtual as tsv
+
+    tier = jb.wave_tiers_for(dims3[0] ** 3)[t]
+    caps = tb._wave_caps(tsv.virtual_lis_index(dims3, "cpu"), dims3, tier, 34)
+    want = _jax_wave_caps(dims3, tier)
+    assert {k: caps[k] for k in want} == want
+
+
 def test_cuda_device_raises_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -142,7 +234,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.dwt2d_full(torch.zeros((2, 16, 16)), np.ones(6))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.idwt2d_full(torch.zeros((2, 16, 16)), np.ones(6), 1, 0)
-    assert kernels.launches == {"quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0}
+    w = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.transpose_bits32(w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.transpose_bits32_pair(w, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.popcount_words(w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.masked_pack_scatter(
+            w.reshape(8, 8), w.reshape(8, 8), torch.zeros(64, dtype=torch.int64),
+            torch.zeros(8, dtype=torch.int64), w,
+        )
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.compact_flags_rows(torch.zeros((1, 64), dtype=torch.bool), 8)
+    assert set(kernels.launches) == {
+        "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
+        "masked_pack", "compact_flags_rows",
+    }
+    assert not any(kernels.launches.values())
+
+
+def test_bit_kernels_raise_off_cpu_and_cuda():
+    from sperr_tpu_torch.ops import packemit as pe
+
+    w = torch.zeros(64, dtype=torch.int32, device="meta")
+    for call in (
+        lambda: pe.transpose_bits32(w),
+        lambda: pe.transpose_bits32_pair(w, w),
+        lambda: pe.compact_flags_rows(torch.zeros((1, 64), dtype=torch.bool, device="meta"), 8),
+        lambda: pe.masked_pack([(w.reshape(8, 8), w.reshape(8, 8))], 8, 1024),
+    ):
+        with pytest.raises(ValueError, match="no .* kernel for tensors on meta"):
+            call()
 
 
 @pytest.mark.parametrize("fn", ["dwt2d", "idwt2d", "dwt2d_", "idwt2d_"])

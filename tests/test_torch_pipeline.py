@@ -179,21 +179,24 @@ def test_device_resident_decode_and_only():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", entropy="wave")
+    with pytest.raises(ValueError, match="entropy"):
+        tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", entropy="events")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", transfer="sparse")
     with pytest.raises(NotImplementedError):
         tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK), "cpu")
-    with pytest.raises(NotImplementedError):
-        tb.TorchCompressor3D.from_jax(
-            jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave", transfer="dense"), "cpu"
-        )
+    with pytest.raises(NotImplementedError, match="entry 15"):
+        tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave"), "cpu")
     with pytest.raises(NotImplementedError):
         tb.TorchCompressor3D.from_jax(
             jb.TpuCompressor3D(DIMS, CHUNK, transfer="dense", mesh=jb.make_chunk_mesh()),
             "cpu",
         )
+    # the dense-transfer wave configuration is ported
+    p = tb.TorchCompressor3D.from_jax(
+        jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave", transfer="dense"), "cpu"
+    )
+    assert p.entropy == "wave"
 
 
 def test_from_jax_copies_settings():
