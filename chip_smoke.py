@@ -30,8 +30,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
   8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
      its multi-resolution decode, and the 3D multi-resolution decode of
      phase 5's stream, each against the host f64 decoder.
-The line before the last is a JSON object with each kernel's launches, error
-and time; the last line is {"ok": true, "device": {...}}.  Without a CUDA
+The line before the last is a JSON object with each kernel's launches, error,
+time, bound and library time; the last line is {"ok": true, "device": {...}}.
+``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
+result line.  Without a CUDA
 device, or without the repository beside it, the script prints no result and
 exits non-zero.
 """
@@ -58,12 +60,19 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, host: bool = False) -> float:
+    """Milliseconds per call of fn on the card, by CUDA events around reps
+    calls after a warm-up.  By default the calls queue up behind a sleep
+    kernel of about 50 ms, so the events see the device run them back to
+    back and not the host's time to issue them; host=True times them as the
+    host issues them, as a caller does."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not host:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -98,6 +107,115 @@ def _capture(module, names):
                 setattr(module, name, orig[name])
 
     return ctx()
+
+
+# HBM rate of one H100 SXM (NVIDIA's data sheet); a kernel's bound is the
+# bytes it must move (each input read once, each output written once) over it
+_HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / _HBM_BYTES_PER_S * 1e3
+
+
+def _lift_per_launch(kernels, cdf97, x, levels: int, smi: str):
+    """Time every launch of the 3D lifting kernel that dwt3d and idwt3d make
+    on x (1, n, n, n), level by level and axis by axis, on a scratch copy;
+    print each beside its bound (the box read and written once).  Returns
+    {(direction, level, axis): (ms, bound_ms)}."""
+    from sperr_tpu_torch.utils.dims import calc_approx_detail_len
+
+    n = x.shape[-1]
+    out = {}
+    boxes = [(L, L, L) for L in (calc_approx_detail_len(n, lev)[0] for lev in range(levels))]
+    for inverse, name in ((False, "dwt3d"), (True, "idwt3d")):
+        y = x.clone()
+        for lev, box in enumerate(boxes):
+            for axis, aname in ((-1, "x"), (-2, "y"), (-3, "z")):
+                ms = _time_ms(lambda: kernels.cdf97_lift(y, axis, box, inverse, cdf97.LIFT_CONSTS), 20)
+                out[(name, lev, aname)] = (ms, _bound_ms(2 * 4 * box[0] ** 3))
+        del y
+    for name in ("dwt3d", "idwt3d"):
+        rows = [(k, v) for k, v in out.items() if k[0] == name]
+        print(f"[kernels] K4 per launch, {name} {n}^3 (level, axis: ms / bound ms): "
+              + ", ".join(f"{k[1]}{k[2]} {v[0]:.4f}/{v[1]:.4f}" for k, v in rows)
+              + f"; sum {sum(v[0] for _, v in rows):.4f} / {sum(v[1] for _, v in rows):.4f} ms"
+              f" -- {smi}")
+    return out
+
+
+def _bits_case(kernels, packemit, calls, smi: str, label: str):
+    """Hold every captured call of K10-K12 against its plain version bit for
+    bit, then time the largest call of each beside its bound and, for K12,
+    beside torch.nonzero on the same flags.  Returns {kernel: stats}."""
+    import torch
+
+    out = {}
+    err = 0
+    for (x,) in calls["transpose_bits32"]:
+        a, b = kernels.transpose_bits32(x.contiguous()), packemit.transpose_bits32_ref(x)
+        err = max(err, _int_err(a, b))
+        _check(torch.equal(a, b), f"K10 differs from its plain version at {tuple(x.shape)} ({label})")
+    for xa, xb in calls["transpose_bits32_pair"]:
+        a = kernels.transpose_bits32_pair(xa.contiguous(), xb.contiguous())
+        b = packemit.transpose_bits32_pair_ref(xa, xb)
+        err = max(err, _int_err(a, b))
+        _check(torch.equal(a, b), f"K10 pair form differs at {tuple(xa.shape)} ({label})")
+    xa, xb = max(calls["transpose_bits32_pair"], key=lambda t: t[0].numel())
+    (x1,) = max(calls["transpose_bits32"], key=lambda t: t[0].numel())
+    out["transpose_bits32"] = dict(
+        max_abs_err=err, shape=f"pair {xa.numel()} items, single {x1.numel()} items",
+        ms=_time_ms(lambda: kernels.transpose_bits32_pair(xa, xb), 20),
+        plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(xa, xb), 5),
+        bound_ms=_bound_ms(2 * 4 * xa.numel() + 8 * xa.numel()),
+        single_ms=_time_ms(lambda: kernels.transpose_bits32(x1), 20),
+        single_bound_ms=_bound_ms(8 * x1.numel()),
+        library_ms=None,
+    )
+    (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
+    a, b = packemit.masked_pack(parts, evb_cap, out_cap_bytes), packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
+    err = 0
+    for name, x, y in zip(a._fields, a, b):
+        err = max(err, _int_err(x, y))
+        _check(torch.equal(x, y), f"K11 {name} differs from its plain version ({label})")
+    words = sum(v.numel() for v, _ in parts)
+    rows = sum(v.shape[0] for v, _ in parts)
+    out["masked_pack"] = dict(
+        max_abs_err=err, shape=f"{words} words per array, {rows} rows, {int(b.total_bytes)} bytes "
+        f"out, overflow {bool(b.overflow)}",
+        ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
+        plain_ms=_time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3),
+        bound_ms=_bound_ms(8 * words + int(b.total_bytes) + 4 * rows),
+        library_ms=None,
+    )
+    err = 0
+    for flags, take in calls["compact_flags_rows"]:
+        a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
+        for x, y in zip(a, b):
+            err = max(err, _int_err(x, y))
+            _check(torch.equal(x, y), f"K12 differs at {tuple(flags.shape)}, take {take} ({label})")
+    for k, (flags, take) in enumerate(calls["compact_flags_rows"]):
+        B, n = flags.shape
+        key = "compact_flags_rows" if k == 0 else f"compact_flags_rows {k}"
+        out[key] = dict(
+            max_abs_err=err, shape=f"({B}, {n}) take {take}",
+            ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20),
+            host_ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, host=True),
+            plain_ms=_time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5),
+            bound_ms=_bound_ms(B * n + 4 * B * take + 4 * B),
+            library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20),
+        )
+    for name, st in out.items():
+        extra = (f", single {st['single_ms']:.4f} ms (bound {st['single_bound_ms']:.4f})"
+                 if "single_ms" in st else "")
+        lib = f", torch.nonzero {st['library_ms']:.4f} ms" if st["library_ms"] is not None else ""
+        if "host_ms" in st:
+            extra += f", {st['host_ms']:.4f} ms as the host issues it"
+        print(f"[kernels] {label} {name} at {st['shape']}: kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms (share "
+              f"{st['bound_ms'] / st['ms']:.3f}){extra}{lib}; equal to the plain version bit for "
+              f"bit -- {smi}")
+    return out
 
 
 def _int_err(a, b) -> int:
@@ -137,17 +255,17 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from sperr_tpu.codec.speck_flt import SpeckFloatCodec
-    from sperr_tpu.parallel.chunked3d import Sperr3DDecompressor
-    from sperr_tpu.runtime.engine import default_engine
-    from sperr_tpu.stream import tools
-    from sperr_tpu.utils.dims import coarsened_resolutions, num_of_xforms
-    from sperr_tpu.utils.testdata import smooth_field_3d
     from sperr_tpu_torch import kernels
+    from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
     from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
+    from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+    from sperr_tpu_torch.runtime.engine import default_engine
+    from sperr_tpu_torch.stream import tools
+    from sperr_tpu_torch.utils.dims import coarsened_resolutions, num_of_xforms
+    from sperr_tpu_torch.utils.testdata import smooth_field_3d
 
     # -- 1. device ---------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -162,8 +280,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.load()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v: each kernel's name, then its registers, shared memory, spills
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry function", "registers", "spill")):
             print(f"[build] {line.strip()}")
 
     # -- 3. kernels against their plain versions ---------------------------
@@ -190,10 +309,14 @@ def main() -> int:
     q_ms = _time_ms(lambda: kernels.quantize(one, inv1), 20)
     q_plain_ms = _time_ms(lambda: quantize.quantize_ref(one, inv1), 20)
     print(f"[kernels] K1 at (1, 256^3): kernel {q_ms:.4f} ms, plain {q_plain_ms:.4f} ms")
+    q_bound = _bound_ms(4 * n + 4 + 4 * n + n + 4)  # coeffs, q in; mags, signs, maxmag out
     del c_d, got, ref
 
     lift_err = 0.0
-    for shape in ((1, 256, 256, 256), (1, 19, 27, 33), (1, 12, 32, 32)):
+    # 256^3: both designs of the kernel; odd lengths; a batch; x lines of 400
+    # samples (eight pairs per lane)
+    for shape in ((1, 256, 256, 256), (1, 19, 27, 33), (1, 12, 32, 32), (1, 31, 29, 30),
+                  (3, 64, 64, 64), (1, 16, 16, 400)):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
         bound = 2e-5 * float(x.abs().max())
         fwd, fwd_ref = cdf97.dwt3d(x), cdf97.dwt3d_ref(x)
@@ -203,17 +326,28 @@ def main() -> int:
         d_inv = float((inv - inv_ref).abs().max())
         d_rt = float((inv - x).abs().max())
         print(f"[kernels] lifting {shape[1:]}: max|dwt3d - plain| {d_fwd:.3e}, "
-              f"max|idwt3d - plain| {d_inv:.3e}, max|round trip - x| {d_rt:.3e}, "
-              f"bound {bound:.3e}")
+              f"max|idwt3d - plain| {d_inv:.3e} (both must be 0), max|round trip - x| "
+              f"{d_rt:.3e}, bound {bound:.3e}")
         _check(max(d_fwd, d_inv, d_rt) <= bound, f"lifting kernel off its plain version at {shape}")
+        _check(torch.equal(fwd, fwd_ref) and torch.equal(inv, inv_ref),
+               f"dwt3d/idwt3d differ from their plain versions at {shape}")
         lift_err = max(lift_err, d_fwd, d_inv)
         if shape[1] == 256:
+            kernels.reset_launch_counts()
+            cdf97.dwt3d(x)
+            per_dwt = kernels.launches["cdf97_lift"]
             l_ms = _time_ms(lambda: cdf97.dwt3d(x), 10)
             l_plain_ms = _time_ms(lambda: cdf97.dwt3d_ref(x), 3)
             li_ms = _time_ms(lambda: cdf97.idwt3d(fwd), 10)
             li_plain_ms = _time_ms(lambda: cdf97.idwt3d_ref(fwd), 3)
-            print(f"[kernels] dwt3d 256^3 (18 launches): kernel {l_ms:.4f} ms, plain "
-                  f"{l_plain_ms:.4f} ms; idwt3d: kernel {li_ms:.4f} ms, plain {li_plain_ms:.4f} ms")
+            l_host_ms = _time_ms(lambda: cdf97.dwt3d(x), 10, host=True)
+            li_host_ms = _time_ms(lambda: cdf97.idwt3d(fwd), 10, host=True)
+            l_bound = _bound_ms(2 * 4 * x.numel())
+            print(f"[kernels] dwt3d 256^3 ({per_dwt} launches): kernel {l_ms:.4f} ms ({l_host_ms:.4f} "
+                  f"as the host issues it), plain {l_plain_ms:.4f} ms; idwt3d: kernel {li_ms:.4f} ms "
+                  f"({li_host_ms:.4f}), plain {li_plain_ms:.4f} ms; bound of the whole transform "
+                  f"{l_bound:.4f} ms -- {smi}")
+            _lift_per_launch(kernels, cdf97, x, num_of_xforms(256), smi)
         del x, fwd, fwd_ref, inv, inv_ref
     # the 1D and 2D drivers, with lines too long for a 32-line tile in shared
     # memory: the kernel on the card against the plain version on the CPU
@@ -264,80 +398,68 @@ def main() -> int:
         del x, fwd, inv, steps
     k23 = plane_ms[(16, 1024, 1024)]
 
-    # K10-K12: the inputs the wave path gives them on one 256^3 chunk
-    # (smooth_field_3d(256, seed=11), PWE 1e-2): the outlier compaction of
-    # the front and the exposure compaction of the first tier (K12), every
-    # bit transpose and the masked pack of the widest tier (K10, K11)
-    vol11 = smooth_field_3d(256, seed=11)
+    # K10-K12: the inputs the wave path gives them.  The headline volume's
+    # first 256^3 chunk (smooth_field_3d(512, seed=7), PWE 1e-2) at tiers 0
+    # and 1, the two tiers its chunks run on the main path; the outlier
+    # compaction of its front (K12); and the widest tier of
+    # smooth_field_3d(256, seed=11), the largest emission of this run
     dims256 = (256, 256, 256)
     li = speck_virtual.virtual_lis_index(dims256, dev)
     tiers = tb.wave_tiers_for(256**3)
-    with _capture(packemit, ["compact_flags_rows"]) as cap12:
-        front = tb._dense_encode_rows(
-            torch.from_numpy(vol11[None]).to(dev), "pwe", 1e-2, "dual", cdf97.dwt3d,
-            cdf97.idwt3d_, out_cap=max(1024, 256**3 // 1024),
-        )
-        tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li,
-                            tb._wave_caps(li, dims256, tiers[0], 34))
-    wide = tb._wave_caps(li, dims256, tiers[-1], 34)
-    with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack"]) as cap1011:
-        em, fits = tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, wide)
-    print(f"[kernels] wave inputs of one 256^3 chunk: widest tier caps {wide}, fits {bool(fits)}")
-    _check(bool(fits), "the widest tier does not hold the smooth 256^3 chunk")
-    del em, front
-    bit_err = {"transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0}
-    for args in cap1011["transpose_bits32"]:
-        a, b = kernels.transpose_bits32(args[0].contiguous()), packemit.transpose_bits32_ref(args[0])
-        bit_err["transpose_bits32"] = max(bit_err["transpose_bits32"], _int_err(a, b))
-        _check(torch.equal(a, b), f"K10 differs from its plain version at {tuple(args[0].shape)}")
-    for args in cap1011["transpose_bits32_pair"]:
-        a = kernels.transpose_bits32_pair(args[0].contiguous(), args[1].contiguous())
-        b = packemit.transpose_bits32_pair_ref(*args)
-        bit_err["transpose_bits32"] = max(bit_err["transpose_bits32"], _int_err(a, b))
-        _check(torch.equal(a, b), f"K10 pair form differs from its plain version at {tuple(args[0].shape)}")
-    (parts, evb_cap, out_cap_bytes), = cap1011["masked_pack"]
-    a, b = packemit.masked_pack(parts, evb_cap, out_cap_bytes), packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
-    for name, x, y in zip(a._fields, a, b):
-        bit_err["masked_pack"] = max(bit_err["masked_pack"], _int_err(x, y))
-        _check(torch.equal(x, y), f"K11 {name} differs from its plain version")
-    for flags, take in cap12["compact_flags_rows"]:
-        a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
-        for x, y in zip(a, b):
-            bit_err["compact_flags_rows"] = max(bit_err["compact_flags_rows"], _int_err(x, y))
-            _check(torch.equal(x, y), f"K12 differs from its plain version at {tuple(flags.shape)}, take {take}")
-    n_words = sum(v.numel() for v, _ in parts)
-    x_pair = max(cap1011["transpose_bits32_pair"], key=lambda t: t[0].numel())
-    x_one = max(cap1011["transpose_bits32"], key=lambda t: t[0].numel())
-    f_out, f_exp = cap12["compact_flags_rows"][0], cap12["compact_flags_rows"][-1]
-    bits_ms = {
-        "K10 pair": _time_ms(lambda: kernels.transpose_bits32_pair(*x_pair), 20),
-        "K10 pair plain": _time_ms(lambda: packemit.transpose_bits32_pair_ref(*x_pair), 5),
-        "K10": _time_ms(lambda: kernels.transpose_bits32(x_one[0]), 20),
-        "K10 plain": _time_ms(lambda: packemit.transpose_bits32_ref(x_one[0]), 5),
-        "K11": _time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
-        "K11 plain": _time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3),
-        "K12 outliers": _time_ms(lambda: kernels.compact_flags_rows(*f_out), 20),
-        "K12 outliers plain": _time_ms(lambda: packemit.compact_flags_rows_ref(*f_out), 5),
-        "K12 exposure": _time_ms(lambda: kernels.compact_flags_rows(*f_exp), 20),
-        "K12 exposure plain": _time_ms(lambda: packemit.compact_flags_rows_ref(*f_exp), 5),
-    }
-    print(f"[kernels] K10 ({len(cap1011['transpose_bits32_pair'])} pair calls up to "
-          f"{tuple(x_pair[0].shape)} items, {len(cap1011['transpose_bits32'])} calls up to "
-          f"{tuple(x_one[0].shape)}), K11 ({n_words} words per array, evb_cap {evb_cap}, "
-          f"out_cap_bytes {out_cap_bytes}), K12 (outliers {tuple(f_out[0].shape)} take "
-          f"{f_out[1]}, exposure {tuple(f_exp[0].shape)} take {f_exp[1]}): equal to their "
-          f"plain versions bit for bit")
-    print("[kernels] K10-K12 ms: " + ", ".join(f"{k} {v:.4f}" for k, v in bits_ms.items())
-          + f" -- {smi}")
-    del cap1011, cap12, parts, a, b, x_pair, x_one, f_out, f_exp
+    t0 = time.perf_counter()
+    vol512 = smooth_field_3d(512, seed=7)
+    vol11 = smooth_field_3d(256, seed=11)
+    print(f"[kernels] smooth_field_3d(512, seed=7) and (256, seed=11) made in {time.perf_counter() - t0:.2f} s")
+    bits = {}
+    for label, field, tier in (("tier 0", vol512, 0), ("tier 1", vol512, 1),
+                               ("widest", vol11, len(tiers) - 1)):
+        chunk = torch.from_numpy(np.ascontiguousarray(field[:256, :256, :256])[None]).to(dev)
+        with _capture(packemit, ["compact_flags_rows"]) as cap_front:
+            front = tb._dense_encode_rows(chunk, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_,
+                                          out_cap=max(1024, 256**3 // 1024))
+        caps = tb._wave_caps(li, dims256, tiers[tier], 34)
+        with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack",
+                                 "compact_flags_rows"]) as calls:
+            em, fits = tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
+        print(f"[kernels] wave inputs, {label}: caps {caps}, fits {bool(fits)}")
+        if label == "widest":
+            _check(bool(fits), "the widest tier does not hold the smooth 256^3 chunk")
+        if label == "tier 0":
+            calls["compact_flags_rows"] += cap_front["compact_flags_rows"]
+        bits[label] = _bits_case(kernels, packemit, calls, smi, label)
+        del chunk, front, em, fits, calls, cap_front
+    bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
+               for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
+    # K12 on ragged shapes: rows that are not whole tiles, several rows, a
+    # short take, empty and full rows, and a view that is not 16-byte aligned
+    flag_rng = np.random.default_rng(12)
+    for shape, density, take in (((3, 100_003), 0.3, 1000), ((3, 100_003), 0.3, 60_000),
+                                 ((2, 17), 0.5, 40), ((4, 40_000), 0.0, 10),
+                                 ((1, 50_000), 1.0, 50_000), ((1, 5_000_001), 0.01, 60_000)):
+        wide = (shape[0], shape[1] + 1)
+        flags = torch.from_numpy(flag_rng.random(wide) < density).to(dev)[:, 1:]
+        for f in (flags.contiguous(), flags.contiguous()[:, 3:]):
+            a = kernels.compact_flags_rows(f.contiguous(), take)
+            b = packemit.compact_flags_rows_ref(f, take)
+            _check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                   f"K12 differs from its plain version at {tuple(f.shape)}, take {take}")
+    print("[kernels] K12 on ragged rows, several rows, short takes, empty and full rows: "
+          "equal to the plain version bit for bit")
+    k23_bound = _bound_ms(2 * 4 * 16 * 1024 * 1024)
+    for name, ms, bound in (("K1 quantize (1, 256^3)", q_ms, q_bound),
+                            ("K4 dwt3d 256^3", l_ms, l_bound), ("K4 idwt3d 256^3", li_ms, l_bound),
+                            ("K2 (16, 1024^2)", k23["K2"], k23_bound),
+                            ("K3 (16, 1024^2)", k23["K3"], k23_bound)):
+        print(f"[kernels] {name}: {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
+    if "--kernels-only" in sys.argv[1:]:
+        print("[kernels] --kernels-only: phases 4-8 skipped, no result line")
+        return 0
 
     # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
     engine = default_engine()
     print(f"[main] host engine: {type(engine).__name__}")
     _check(type(engine).__name__ == "NativeEngine", "the C++ host engine did not load")
-    t0 = time.perf_counter()
-    vol = smooth_field_3d(512, seed=7)
-    print(f"[main] smooth_field_3d(512, seed=7) made in {time.perf_counter() - t0:.2f} s")
+    vol = vol512
     tol = 1e-2
     comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda")
     dec = TorchDecompressor3D(device="cuda")
@@ -382,7 +504,7 @@ def main() -> int:
     del out, host
 
     # -- 5. PSNR and rate modes, one 256^3 chunk ---------------------------
-    vol = smooth_field_3d(256, seed=11)
+    vol = vol11
     vrange = float(vol.max() - vol.min())
     one_chunk = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda")
     streams5 = {}
@@ -553,30 +675,28 @@ def main() -> int:
     _check(d3 <= 1e-4 * vrange, "3D multi-res decode disagrees with the host f64 decoder")
 
     _check("jax" not in sys.modules, "the port imported jax")
+    t1 = bits["tier 1"]
+    rows = [
+        ("quantize", "quantize.cu", "sperr_tpu/ops/pallas_kernels.py:244", launches["quantize"],
+         q_err, q_ms, q_plain_ms, q_bound, None),
+        ("cdf97_lift", "cdf97_lift.cu", "sperr_tpu/ops/cdf97_jax.py:230", launches["cdf97_lift"],
+         lift_err, l_ms, l_plain_ms, l_bound, None),
+        ("dwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:208", launches2["dwt2d_full"],
+         plane_err["K2"], k23["K2"], k23["K2 plain"], k23_bound, None),
+        ("idwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:227", launches2["idwt2d_full"],
+         plane_err["K3"], k23["K3"], k23["K3 plain"], k23_bound, None),
+    ] + [
+        (name, "bits.cu", where, launches_w[name], bit_err[name], t1[name]["ms"],
+         t1[name]["plain_ms"], t1[name]["bound_ms"], t1[name]["library_ms"])
+        for name, where in (("transpose_bits32", "sperr_tpu/ops/packemit.py:102"),
+                            ("masked_pack", "sperr_tpu/ops/packemit.py:420"),
+                            ("compact_flags_rows", "sperr_tpu/ops/packemit.py:305"))
+    ]
     print(json.dumps({"kernels": [
-        {"name": "quantize", "route": "cuda", "source": "sperr_tpu_torch/kernels/quantize.cu",
-         "replaces": "sperr_tpu/ops/pallas_kernels.py:244", "launches": launches["quantize"],
-         "max_abs_err": q_err, "ms": q_ms, "plain_ms": q_plain_ms},
-        {"name": "cdf97_lift", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_lift.cu",
-         "replaces": "sperr_tpu/ops/cdf97_jax.py:230", "launches": launches["cdf97_lift"],
-         "max_abs_err": lift_err, "ms": l_ms, "plain_ms": l_plain_ms},
-        {"name": "dwt2d_full", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_2d.cu",
-         "replaces": "sperr_tpu/ops/pallas_kernels.py:208", "launches": launches2["dwt2d_full"],
-         "max_abs_err": plane_err["K2"], "ms": k23["K2"], "plain_ms": k23["K2 plain"]},
-        {"name": "idwt2d_full", "route": "cuda", "source": "sperr_tpu_torch/kernels/cdf97_2d.cu",
-         "replaces": "sperr_tpu/ops/pallas_kernels.py:227", "launches": launches2["idwt2d_full"],
-         "max_abs_err": plane_err["K3"], "ms": k23["K3"], "plain_ms": k23["K3 plain"]},
-        {"name": "transpose_bits32", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
-         "replaces": "sperr_tpu/ops/packemit.py:102", "launches": launches_w["transpose_bits32"],
-         "max_abs_err": bit_err["transpose_bits32"], "ms": bits_ms["K10 pair"],
-         "plain_ms": bits_ms["K10 pair plain"]},
-        {"name": "masked_pack", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
-         "replaces": "sperr_tpu/ops/packemit.py:420", "launches": launches_w["masked_pack"],
-         "max_abs_err": bit_err["masked_pack"], "ms": bits_ms["K11"], "plain_ms": bits_ms["K11 plain"]},
-        {"name": "compact_flags_rows", "route": "cuda", "source": "sperr_tpu_torch/kernels/bits.cu",
-         "replaces": "sperr_tpu/ops/packemit.py:305", "launches": launches_w["compact_flags_rows"],
-         "max_abs_err": bit_err["compact_flags_rows"], "ms": bits_ms["K12 outliers"],
-         "plain_ms": bits_ms["K12 outliers plain"]},
+        {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
+         "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+         "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+        for name, src, where, nl, err, ms, plain, bound, lib in rows
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

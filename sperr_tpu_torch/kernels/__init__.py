@@ -12,11 +12,12 @@ that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
 ``ops/cdf97.py``, ``ops/packemit.py``) and run only for tensors on the CPU.
 
-Each wrapper adds one to ``launches[name]`` when it launches its kernel.
+Each wrapper adds one to ``launches[name]`` for each kernel it launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes as ct
 import os
 import subprocess
@@ -26,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sperr_tpu.utils.dims import calc_approx_detail_len, num_of_xforms
+from ..utils.dims import calc_approx_detail_len, num_of_xforms
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
@@ -38,8 +39,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-# Shared memory a lifting block may use without opting in to more.
-LIFT_MAX_SHARED_BYTES = 48 * 1024
+# Shared memory a tile of lifting lines may use (opt-in): one line must fit.
+LIFT_MAX_SHARED_BYTES = 96 * 1024
 # Shared memory a block of the whole-plane kernels may opt in to; it must
 # hold one line of the longest axis.
 PLANE_MAX_SHARED_BYTES = 227 * 1024
@@ -103,6 +104,8 @@ def build(out_dir: str = BUILD_DIR) -> str:
 def load() -> ct.CDLL:
     """Build (if needed) and load the kernel library; check the device."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -137,8 +140,7 @@ def load() -> ct.CDLL:
             ("sperr_transpose_bits32_pair", [vp, vp, vp, ll, vp]),
             ("sperr_popcount_words", [vp, vp, ll, vp]),
             ("sperr_masked_pack_scatter", [vp, vp, vp, vp, ll, ll, vp, ll, vp]),
-            ("sperr_flag_block_counts", [vp, vp, ll, ll, ll, vp]),
-            ("sperr_flag_compact", [vp, vp, vp, ll, ll, ll, ll, vp]),
+            ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, ct.c_uint, vp]),
         ):
             fn = getattr(lib, name)
             fn.restype = ct.c_int
@@ -167,6 +169,27 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_device(t: torch.Tensor):
+    """Make t's device current for a launch (no switch when it already is:
+    the switch costs more host time than a small kernel runs)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+_consts_arrays = {}
+
+
+def _consts(consts: np.ndarray):
+    """The lifting constants as a C float array, built once per value."""
+    key = np.ascontiguousarray(consts, dtype=np.float32).tobytes()
+    arr = _consts_arrays.get(key)
+    if arr is None:
+        vals = np.frombuffer(key, dtype=np.float32)
+        arr = _consts_arrays[key] = (ct.c_float * len(vals))(*vals)
+    return arr
+
+
 def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
     """K1: coeffs (B, n) f32, inv_q (B,) f32 on one CUDA device ->
     (mags i32 (B, n), signs bool (B, n), maxmag i32 (B,))."""
@@ -186,7 +209,7 @@ def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
     mags = torch.empty((B, n), dtype=torch.int32, device=coeffs.device)
     signs = torch.empty((B, n), dtype=torch.bool, device=coeffs.device)
     maxmag = torch.zeros((B,), dtype=torch.int32, device=coeffs.device)
-    with torch.cuda.device(coeffs.device):
+    with _on_device(coeffs):
         err = lib.sperr_quantize(
             coeffs.data_ptr(), inv_q.data_ptr(), mags.data_ptr(),
             signs.data_ptr(), maxmag.data_ptr(), B, n, _stream(coeffs),
@@ -224,11 +247,10 @@ def cdf97_lift(
             f"the lifting kernel holds at most {LIFT_MAX_SHARED_BYTES}"
         )
     lib = load()
-    k = np.ascontiguousarray(consts, dtype=np.float32)
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = lib.sperr_cdf97_lift(
             x.data_ptr(), B, nz, ny, nx, lz, ly, lx, axis, int(bool(inverse)),
-            k.ctypes.data_as(ct.POINTER(ct.c_float)), _stream(x),
+            _consts(consts), _stream(x),
         )
     _check(lib, err, "cdf97_lift")
     launches["cdf97_lift"] += 1
@@ -258,12 +280,11 @@ def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.
     if B == 0:
         return
     lib = load()
-    k = np.ascontiguousarray(consts, dtype=np.float32)
     info = (ct.c_int * 4)()
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = lib.sperr_cdf97_2d(
             x.data_ptr(), B, ny, nx, int(inverse), lev_hi, lev_lo,
-            k.ctypes.data_as(ct.POINTER(ct.c_float)), info, _stream(x),
+            _consts(consts), info, _stream(x),
         )
     _check(lib, err, name)
     launches[name] += 1
@@ -315,7 +336,7 @@ def transpose_bits32(x: torch.Tensor) -> torch.Tensor:
     W = x.numel() // 32
     out = torch.empty((32, W), dtype=torch.int32, device=x.device)
     lib = load()
-    with torch.cuda.device(x.device):
+    with _on_device(x):
         err = lib.sperr_transpose_bits32(x.data_ptr(), out.data_ptr(), W, _stream(x))
     _check(lib, err, "transpose_bits32")
     launches["transpose_bits32"] += 1
@@ -337,7 +358,7 @@ def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     W = a.numel() // 16
     out = torch.empty((32, W), dtype=torch.int32, device=a.device)
     lib = load()
-    with torch.cuda.device(a.device):
+    with _on_device(a):
         err = lib.sperr_transpose_bits32_pair(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), W, _stream(a)
         )
@@ -353,7 +374,7 @@ def popcount_words(valid: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"valid must be (n,) with n > 0; got {tuple(valid.shape)}")
     counts = torch.empty_like(valid)
     lib = load()
-    with torch.cuda.device(valid.device):
+    with _on_device(valid):
         err = lib.sperr_popcount_words(valid.data_ptr(), counts.data_ptr(), valid.numel(), _stream(valid))
     _check(lib, err, "popcount_words")
     launches["masked_pack"] += 1
@@ -380,7 +401,7 @@ def masked_pack_scatter(
     if S.shape != (rows * W,) or corr.shape != (rows,):
         raise ValueError(f"S must be ({rows * W},) and corr ({rows},)")
     lib = load()
-    with torch.cuda.device(valid.device):
+    with _on_device(valid):
         err = lib.sperr_masked_pack_scatter(
             valid.data_ptr(), bits.data_ptr(), S.data_ptr(), corr.data_ptr(),
             rows * W, W, out.data_ptr(), out.numel(), _stream(valid),
@@ -389,12 +410,27 @@ def masked_pack_scatter(
     launches["masked_pack"] += 1
 
 
-_FLAG_BLOCK = 1024  # flags per block of K12 (kFlagBlock in bits.cu)
+_FLAG_TILE = 16384  # flags per block of K12 (kFlagTile in bits.cu)
+# K12's look-back status words, kept per (device, stream) and reused with a
+# new epoch for every call, so that no call has to clear them
+_flag_status = {}
+_flag_epoch = 0
+
+
+def _flag_status_words(device: torch.device, words: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _flag_status.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _flag_status[key] = torch.zeros(max(words, 1 << 12), dtype=torch.int64, device=device)
+    return buf
 
 
 def compact_flags_rows(flags: torch.Tensor, take: int):
     """K12: flags (B, n) bool -> (idx (B, take) int32, the ascending indices
-    of the set flags with the sentinel n in unused slots; count (B,) int32)."""
+    of the set flags with the sentinel n in unused slots; count (B,) int32).
+    One pass with a decoupled look-back, then a small launch that writes the
+    sentinels."""
+    global _flag_epoch
     _require_cuda(flags, torch.bool, "flags")
     if flags.dim() != 2 or flags.shape[1] == 0 or not 0 < flags.shape[0] <= 65535:
         raise ValueError(f"flags must be (B, n), 0 < B <= 65535, n > 0; got {tuple(flags.shape)}")
@@ -402,19 +438,19 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     if take <= 0:
         raise ValueError(f"take must be positive; got {take}")
     B, n = flags.shape
-    nblk = -(-n // _FLAG_BLOCK)
-    bcnt = torch.empty((B, nblk), dtype=torch.int32, device=flags.device)
-    idx = torch.full((B, take), n, dtype=torch.int32, device=flags.device)
+    idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
+    count = torch.empty((B,), dtype=torch.int32, device=flags.device)
     lib = load()
-    with torch.cuda.device(flags.device):
-        err = lib.sperr_flag_block_counts(flags.data_ptr(), bcnt.data_ptr(), B, n, nblk, _stream(flags))
-        _check(lib, err, "compact_flags_rows (counts)")
-        launches["compact_flags_rows"] += 1
-        incl = torch.cumsum(bcnt, dim=1, dtype=torch.int64)
-        bbase = (incl - bcnt).contiguous()
-        err = lib.sperr_flag_compact(
-            flags.data_ptr(), bbase.data_ptr(), idx.data_ptr(), B, n, nblk, take, _stream(flags)
+    with _on_device(flags):
+        # two calls must never share an epoch, whatever thread makes them
+        with _lock:
+            status = _flag_status_words(flags.device, B * -(-n // _FLAG_TILE))
+            _flag_epoch = _flag_epoch % ((1 << 30) - 1) + 1
+            epoch = _flag_epoch
+        err = lib.sperr_flag_compact_rows(
+            flags.data_ptr(), idx.data_ptr(), count.data_ptr(), status.data_ptr(),
+            B, n, take, epoch, _stream(flags),
         )
-        _check(lib, err, "compact_flags_rows (write)")
-        launches["compact_flags_rows"] += 1
-    return idx, incl[:, -1].to(torch.int32)
+    _check(lib, err, "compact_flags_rows")
+    launches["compact_flags_rows"] += 2
+    return idx, count

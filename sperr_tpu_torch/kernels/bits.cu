@@ -22,9 +22,13 @@
 //        words never overlap, so the result does not depend on order.  The
 //        TPU's piece merge and piece compaction existed to make its scatter
 //        small; here each word scatters on its own.
-//   K12  pass 1 counts the set flags of each 1024-flag block with ballots;
-//        torch scans the block counts; pass 2 recounts each block in order
-//        and writes the ascending indices from the block's base.
+//   K12  one pass (redesigned for Hopper): each block counts its 16384 flags
+//        from 16-byte loads, scans them in the block, and finds its base by
+//        a decoupled look-back over its predecessors' status words (warp 0,
+//        32 predecessors per step, with ballots); a second, small launch
+//        writes the sentinel past each row's count.  The count-then-write
+//        pair with a torch scan between them took some 7 launches, and lost
+//        to torch.nonzero.
 // No floating point; every result equals the plain versions in
 // sperr_tpu_torch/ops/packemit.py bit for bit.
 
@@ -35,7 +39,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFlagBlock = 1024;  // flags per block of K12
 
 long long grid_for(long long work, long long per_block) {
   long long g = (work + per_block - 1) / per_block;
@@ -140,59 +143,135 @@ __global__ void pack_scatter_kernel(const uint32_t* __restrict__ valid,
   }
 }
 
-// K12 pass 1: set flags per 1024-flag block of each row.
-__global__ void flag_count_kernel(const uint8_t* __restrict__ flags,
-                                  int32_t* __restrict__ bcnt, long long n,
-                                  long long nblk) {
-  const long long row = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __shared__ int part[kWarps];
-  for (long long blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
-    int c = 0;
-    for (int k = threadIdx.x; k < kFlagBlock; k += kThreads) {
-      const long long i = blk * kFlagBlock + k;
-      const bool f = i < n && flags[row * n + i] != 0;
-      c += __popc(__ballot_sync(0xffffffffu, f));
-    }
-    if (lane == 0) part[warp] = c;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int s = 0;
-      for (int j = 0; j < kWarps; ++j) s += part[j];
-      bcnt[row * nblk + blk] = s;
-    }
-    __syncthreads();
-  }
+// K12: one pass over the flags with a decoupled look-back.  Each block takes
+// 16384 flags of one row (64 per thread, four 16-byte loads in flight),
+// scans its counts in registers and shared memory, publishes its
+// aggregate, and warp 0 walks
+// back over its predecessors' status words, 32 at a time, until it meets an
+// inclusive prefix.  Blocks of a row start in order (the usual assumption of
+// single-pass scans), so every wait ends.  A status word is
+//   epoch (30 bits) << 34 | state (2 bits) << 32 | count (32 bits),
+// and the epoch, new for every call, makes a persistent status buffer need
+// no clearing between calls.
+constexpr int kFlagLoads = 4;  // 16-byte loads per thread
+constexpr int kFlagsPerThread = 16 * kFlagLoads;
+constexpr int kFlagTile = kThreads * kFlagsPerThread;
+constexpr unsigned long long kStateAggregate = 1, kStatePrefix = 2;
+
+__device__ __forceinline__ unsigned long long flag_status(unsigned epoch,
+                                                          unsigned long long state,
+                                                          unsigned count) {
+  return ((unsigned long long)epoch << 34) | (state << 32) | count;
 }
 
-// K12 pass 2: each block walks its flags in order and writes the indices of
-// the set ones from its base; slots past `take` are skipped.
-__global__ void flag_write_kernel(const uint8_t* __restrict__ flags,
-                                  const long long* __restrict__ bbase,
-                                  int32_t* __restrict__ idx, long long n,
-                                  long long nblk, long long take) {
-  const long long row = blockIdx.y;
+__global__ void flag_compact_kernel(const uint8_t* __restrict__ flags,
+                                    int32_t* __restrict__ idx,
+                                    int32_t* __restrict__ count,
+                                    unsigned long long* status, long long n,
+                                    long long nblk, long long take,
+                                    unsigned epoch) {
+  const long long row = blockIdx.y, blk = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __shared__ int wsum[kWarps];
-  for (long long blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
-    long long base = bbase[row * nblk + blk];
-    if (base >= take) continue;  // uniform across the block
-    for (int k0 = 0; k0 < kFlagBlock; k0 += kThreads) {
-      const long long i = blk * kFlagBlock + k0 + threadIdx.x;
-      const bool f = i < n && flags[row * n + i] != 0;
-      const uint32_t bal = __ballot_sync(0xffffffffu, f);
-      if (lane == 0) wsum[warp] = __popc(bal);
-      __syncthreads();
-      long long pos = base + __popc(bal & ((1u << lane) - 1u));
-      int total = 0;
-      for (int j = 0; j < kWarps; ++j) {
-        if (j < warp) pos += wsum[j];
-        total += wsum[j];
+  const uint8_t* f = flags + row * n;
+  const long long i0 = blk * kFlagTile + (long long)threadIdx.x * kFlagsPerThread;
+  // bit k of m: flag i0 + k
+  unsigned long long m = 0;
+  if (i0 + kFlagsPerThread <= n && (reinterpret_cast<uintptr_t>(f + i0) & 15) == 0) {
+    uint4 v[kFlagLoads];
+#pragma unroll
+    for (int l = 0; l < kFlagLoads; ++l) v[l] = reinterpret_cast<const uint4*>(f + i0)[l];
+#pragma unroll
+    for (int l = 0; l < kFlagLoads; ++l) {
+      const unsigned w[4] = {v[l].x, v[l].y, v[l].z, v[l].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if ((w[q] >> (8 * b)) & 0xffu) m |= 1ull << (16 * l + 4 * q + b);
+        }
       }
-      if (f && pos < take) idx[row * take + pos] = (int32_t)i;
-      base += total;
-      __syncthreads();
     }
+  } else {
+    for (int k = 0; k < kFlagsPerThread; ++k) {
+      if (i0 + k < n && f[i0 + k] != 0) m |= 1ull << k;
+    }
+  }
+  const int c = __popcll(m);
+  // block scan of the per-thread counts
+  __shared__ int wsum[kWarps];
+  __shared__ long long s_prefix;
+  int x = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kWarps ? wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane < kWarps) wsum[lane] = v;
+  }
+  __syncthreads();
+  const int excl = (warp ? wsum[warp - 1] : 0) + x - c;
+  const int agg = wsum[kWarps - 1];
+  if (warp == 0) {
+    unsigned long long* st = status + row * nblk;
+    long long prefix = 0;
+    if (blk == 0) {
+      if (lane == 0) atomicExch(st, flag_status(epoch, kStatePrefix, (unsigned)agg));
+    } else {
+      if (lane == 0) atomicExch(st + blk, flag_status(epoch, kStateAggregate, (unsigned)agg));
+      for (long long j = blk - 1;; j -= 32) {
+        const long long q = j - lane;  // lane 0 is the nearest predecessor
+        unsigned long long state = kStatePrefix, val = 0;
+        if (q >= 0) {
+          unsigned long long w;
+          do {
+            w = *reinterpret_cast<volatile unsigned long long*>(st + q);
+          } while ((unsigned)(w >> 34) != epoch || ((w >> 32) & 3) == 0);
+          state = (w >> 32) & 3;
+          val = w & 0xffffffffull;
+        }
+        const unsigned pm = __ballot_sync(0xffffffffu, state == kStatePrefix);
+        const int first = pm ? __ffs(pm) - 1 : 32;
+        long long add = lane <= first ? (long long)val : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(0xffffffffu, add, o);
+        prefix += add;
+        if (pm) break;
+      }
+      if (lane == 0) {
+        atomicExch(st + blk, flag_status(epoch, kStatePrefix, (unsigned)(prefix + agg)));
+      }
+    }
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  long long pos = s_prefix + excl;
+  while (m) {
+    const int k = __ffsll((long long)m) - 1;
+    m &= m - 1;
+    if (pos < take) idx[row * take + pos] = (int32_t)(i0 + k);
+    ++pos;
+  }
+  if (blk == nblk - 1 && threadIdx.x == 0) count[row] = (int32_t)(s_prefix + agg);
+}
+
+// K12, second launch: the sentinel n in the slots past each row's count.
+__global__ void flag_fill_kernel(int32_t* __restrict__ idx,
+                                 const int32_t* __restrict__ count, long long n,
+                                 long long take) {
+  const long long row = blockIdx.y;
+  const long long c = count[row];
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < take;
+       s += (long long)gridDim.x * blockDim.x) {
+    if (s >= c) idx[row * take + s] = (int32_t)n;
   }
 }
 
@@ -241,30 +320,28 @@ extern "C" int sperr_masked_pack_scatter(const uint32_t* valid,
   return (int)cudaGetLastError();
 }
 
-// K12 pass 1: flags (B, n) bytes -> bcnt (B, nblk) set flags per block.
-extern "C" int sperr_flag_block_counts(const uint8_t* flags, int32_t* bcnt,
-                                       long long B, long long n,
-                                       long long nblk, cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || n <= 0 ||
-      nblk != (n + kFlagBlock - 1) / kFlagBlock)
+// K12: flags (B, n) bytes -> idx (B, take), the first `take` ascending
+// indices of each row's set flags with n in the unused slots, and count (B,)
+// the set flags of each row.  status: B * ceil(n / 16384) words that hold no
+// word of this epoch (a buffer kept across calls with a new epoch each call,
+// epoch in [1, 2^30)).
+extern "C" int sperr_flag_compact_rows(const uint8_t* flags, int32_t* idx,
+                                       int32_t* count,
+                                       unsigned long long* status, long long B,
+                                       long long n, long long take,
+                                       unsigned epoch, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || n <= 0 || take <= 0 || epoch == 0 ||
+      epoch >= (1u << 30))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)grid_for(nblk, 1), (unsigned)B);
-  flag_count_kernel<<<grid, kThreads, 0, stream>>>(flags, bcnt, n, nblk);
-  return (int)cudaGetLastError();
-}
-
-// K12 pass 2: bbase (B, nblk) exclusive scan of the block counts -> idx
-// (B, take), which the caller fills with n, receives the first `take`
-// ascending indices of each row's set flags.
-extern "C" int sperr_flag_compact(const uint8_t* flags, const long long* bbase,
-                                  int32_t* idx, long long B, long long n,
-                                  long long nblk, long long take,
-                                  cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || n <= 0 || take <= 0 ||
-      nblk != (n + kFlagBlock - 1) / kFlagBlock)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)grid_for(nblk, 1), (unsigned)B);
-  flag_write_kernel<<<grid, kThreads, 0, stream>>>(flags, bbase, idx, n, nblk,
-                                                   take);
+  const long long nblk = (n + kFlagTile - 1) / kFlagTile;
+  if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flag_compact_kernel<<<dim3((unsigned)nblk, (unsigned)B), kThreads, 0, stream>>>(
+      flags, idx, count, status, n, nblk, take, epoch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  long long g = (take + kThreads - 1) / kThreads;
+  if (g > 1024) g = 1024;
+  flag_fill_kernel<<<dim3((unsigned)g, (unsigned)B), kThreads, 0, stream>>>(
+      idx, count, n, take);
   return (int)cudaGetLastError();
 }

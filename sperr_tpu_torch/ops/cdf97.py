@@ -25,10 +25,9 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from sperr_tpu.ops.cdf97_np import ALPHA, BETA, DELTA, EPSILON, GAMMA, INV_EPSILON
-from sperr_tpu.utils.dims import calc_approx_detail_len, can_use_dyadic, num_of_xforms
-
 from .. import kernels
+from ..utils.dims import calc_approx_detail_len, can_use_dyadic, num_of_xforms
+from .cdf97_np import ALPHA, BETA, DELTA, EPSILON, GAMMA, INV_EPSILON
 
 # The lifting constants rounded to f32 exactly as cdf97_jax's dt.type(ALPHA)
 # rounds them, in the order the kernel takes them.

@@ -29,7 +29,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from sperr_tpu.utils.dims import can_use_dyadic
+from ..utils.dims import can_use_dyadic
 
 _NEVER = 0x7FFF
 _I32 = torch.int32

@@ -29,11 +29,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from sperr_tpu.codec import outlier as outlier_mod
-from sperr_tpu.runtime.engine import default_engine
-from sperr_tpu.stream import tools
-
+from ..codec import outlier as outlier_mod
 from ..ops import cdf97
+from ..runtime.engine import default_engine
+from ..stream import tools
 from .batched import (
     _DECODE_ELEM_BUDGET,
     _MODES,

@@ -1,11 +1,15 @@
-"""sperr_tpu_torch stays free of jax and has no silent fallbacks.
+"""sperr_tpu_torch stays free of jax and of sperr_tpu, and has no silent fallbacks.
 
-The machine with the GPU has no jax, so the port must not import it, even
-indirectly; the host helpers it copies out of sperr_tpu.parallel.batched
-(which imports jax) must equal their originals, and so must the wave path's
-static caps; and a missing GPU or a missing nvcc raises instead of quietly
-running the plain versions."""
+The machine with the GPU has no jax, and the port owns copies of the host
+layers it needs, so no file of the port and no line of chip_smoke.py imports
+jax or sperr_tpu, at any depth (an AST scan), and the port encodes and
+decodes with both packages blocked.  The host helpers it copies out of
+sperr_tpu.parallel.batched (which imports jax) must equal their originals,
+and so must the wave path's static caps.  A missing GPU, a missing nvcc or a
+C++ engine that cannot be built raises instead of quietly running something
+slower."""
 
+import ast
 import functools
 import os
 import subprocess
@@ -20,6 +24,124 @@ from sperr_tpu_torch import kernels
 from sperr_tpu_torch.parallel import batched as tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(os.path.join(ROOT, "sperr_tpu_torch"))
+    for f in fs
+    if f.endswith(".py")
+) + ["chip_smoke.py"]
+_BANNED = ("sperr_tpu", "jax", "jaxlib")
+
+
+def _imported_names(path):
+    """Every module name a file imports: import statements at any depth and
+    importlib.import_module / __import__ calls with a constant name."""
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("import_module", "__import__") and isinstance(node.args[0].value, str):
+                yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _PORT_FILES)
+def test_no_file_of_the_port_imports_sperr_tpu_or_jax(path):
+    names = list(_imported_names(path))
+    bad = [n for n in names if n.split(".")[0] in _BANNED]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_scan_sees_the_whole_port():
+    assert len(_PORT_FILES) >= 30
+    for f in ("sperr_tpu_torch/parallel/batched.py", "sperr_tpu_torch/runtime/native/__init__.py",
+              "sperr_tpu_torch/codec/speck_wave.py", "sperr_tpu_torch/parallel/chunked3d.py"):
+        assert f in _PORT_FILES
+    # the scan finds imports inside functions too
+    assert "sperr_tpu_torch.utils.dims" in set(_imported_names("chip_smoke.py"))
+
+
+_BLOCKED_RUN = """
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("sperr_tpu", "jax", "jaxlib"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
+from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
+from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+from sperr_tpu_torch.utils.testdata import smooth_field_3d
+
+tol = 1e-2
+vol = smooth_field_3d(64, seed=5)
+streams = []
+for entropy in ("host", "wave"):
+    comp = TorchCompressor3D((64, 64, 64), (32, 32, 32), device="cpu", entropy=entropy)
+    s = comp.compress(vol, "pwe", tol)
+    out, dims = TorchDecompressor3D(device="cpu").decompress(s)
+    host, _ = Sperr3DDecompressor().decompress(s)
+    assert dims == (64, 64, 64)
+    assert float(np.abs(out.astype(np.float64) - vol).max()) <= tol
+    assert float(np.abs(host.reshape(vol.shape) - vol).max()) <= tol
+    streams.append(s)
+assert streams[0] == streams[1], "wave and host containers differ"
+assert comp.last_wave_chunks == 8, comp.last_wave_tiers
+rng = np.random.default_rng(1)
+fields = np.cumsum(np.cumsum(rng.normal(size=(2, 64, 64)), axis=1), axis=2).astype(np.float32)
+s2 = TorchCompressor2D((64, 64), device="cpu").compress_batch(fields, "pwe", tol)
+outs = TorchDecompressor2D((64, 64), device="cpu").decompress_batch(s2)
+for f, o in zip(fields, outs):
+    assert float(np.abs(o.astype(np.float64) - f).max()) <= tol
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("sperr_tpu", "jax", "jaxlib"))
+assert not bad, bad
+print("ok", len(streams[0]), sum(len(s) for s in s2))
+"""
+
+
+def test_the_port_runs_with_sperr_tpu_and_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=900,
+    )
+    assert proc.returncode == 0 and proc.stdout.startswith("ok"), proc.stdout + proc.stderr
+
+
+def _unbuildable_engine(monkeypatch, tmp_path):
+    from sperr_tpu_torch.runtime import engine, native
+
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(engine, "_default", None)
+    return engine
+
+
+def test_default_engine_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path):
+    engine = _unbuildable_engine(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="failed to build"):
+        engine.default_engine()
+    assert engine._default is None
+    with pytest.raises(RuntimeError, match="failed to build"):
+        tb.TorchDecompressor3D(device="cpu")
+
+
+def test_residual_scan_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path):
+    _unbuildable_engine(monkeypatch, tmp_path)
+    ll, orig = _ll_and_orig(0, (16, 12, 10))
+    with pytest.raises(RuntimeError, match="failed to build"):
+        tb._residual_outliers(ll, (16, 12, 10), 0.003, 0.5, orig, 0.02)
 
 
 def test_no_module_of_the_port_imports_jax():
@@ -32,7 +154,7 @@ def test_no_module_of_the_port_imports_jax():
         "assert len(names) >= 11 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
         "for m in ('packemit', 'speck_virtual', 'speck_lis', 'wave_pack'):\n"
         "    assert 'sperr_tpu_torch.ops.' + m in names, names\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sperr_tpu'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
