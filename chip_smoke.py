@@ -17,7 +17,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      them, at the first tier and at the widest);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D, checked against the host f64
-     decoder, with the kernels' launch counters read around the run;
+     decoder, with the kernels' launch counters set to 0 after a warm-up and
+     read after the timed encode and decode;
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte with every chunk on the
@@ -26,12 +27,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ladder into its dense tiers;
   7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
      TorchCompressor2D and TorchDecompressor2D, checked against the host f64
-     decoder, with the launch counters read around the run;
+     decoder, with the launch counters read around the timed encode and
+     decode, as in phase 4;
   8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
      its multi-resolution decode, and the 3D multi-resolution decode of
      phase 5's stream, each against the host f64 decoder.
-The line before the last is a JSON object with each kernel's launches, error,
-time, bound and library time; the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each kernel's launches on its
+path, error, time on the device (``ms``, the calls queued behind a sleep
+kernel) and as the host issues the calls (``host_ms``), plain version's time,
+bound and library time; the last line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line.  Without a CUDA
 device, or without the repository beside it, the script prints no result and
@@ -166,6 +170,7 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
     out["transpose_bits32"] = dict(
         max_abs_err=err, shape=f"pair {xa.numel()} items, single {x1.numel()} items",
         ms=_time_ms(lambda: kernels.transpose_bits32_pair(xa, xb), 20),
+        host_ms=_time_ms(lambda: kernels.transpose_bits32_pair(xa, xb), 20, host=True),
         plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(xa, xb), 5),
         bound_ms=_bound_ms(2 * 4 * xa.numel() + 8 * xa.numel()),
         single_ms=_time_ms(lambda: kernels.transpose_bits32(x1), 20),
@@ -184,6 +189,7 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
         max_abs_err=err, shape=f"{words} words per array, {rows} rows, {int(b.total_bytes)} bytes "
         f"out, overflow {bool(b.overflow)}",
         ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
+        host_ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10, host=True),
         plain_ms=_time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3),
         bound_ms=_bound_ms(8 * words + int(b.total_bytes) + 4 * rows),
         library_ms=None,
@@ -191,9 +197,10 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
     err = 0
     for flags, take in calls["compact_flags_rows"]:
         a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
-        for x, y in zip(a, b):
+        for x, y, z in zip(a, b, _k12_zeroed(kernels, flags.contiguous(), take)):
             err = max(err, _int_err(x, y))
             _check(torch.equal(x, y), f"K12 differs at {tuple(flags.shape)}, take {take} ({label})")
+            _check(torch.equal(z, y), f"K12 with a zeroed status differs at {tuple(flags.shape)} ({label})")
     for k, (flags, take) in enumerate(calls["compact_flags_rows"]):
         B, n = flags.shape
         key = "compact_flags_rows" if k == 0 else f"compact_flags_rows {k}"
@@ -201,21 +208,45 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
             max_abs_err=err, shape=f"({B}, {n}) take {take}",
             ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20),
             host_ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, host=True),
+            zeroed_ms=_time_ms(lambda: _k12_zeroed(kernels, flags, take), 20),
+            zeroed_host_ms=_time_ms(lambda: _k12_zeroed(kernels, flags, take), 20, host=True),
             plain_ms=_time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5),
             bound_ms=_bound_ms(B * n + 4 * B * take + 4 * B),
-            library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20),
+            library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20, host=True),
         )
     for name, st in out.items():
         extra = (f", single {st['single_ms']:.4f} ms (bound {st['single_bound_ms']:.4f})"
                  if "single_ms" in st else "")
-        lib = f", torch.nonzero {st['library_ms']:.4f} ms" if st["library_ms"] is not None else ""
-        if "host_ms" in st:
-            extra += f", {st['host_ms']:.4f} ms as the host issues it"
+        lib = (f", torch.nonzero {st['library_ms']:.4f} ms (it synchronizes: as the host issues it)"
+               if st["library_ms"] is not None else "")
+        extra += f", {st['host_ms']:.4f} ms as the host issues it"
+        if "zeroed_ms" in st:
+            extra += (f"; with a status zeroed per call {st['zeroed_ms']:.4f} ms "
+                      f"({st['zeroed_host_ms']:.4f} as the host issues it)")
         print(f"[kernels] {label} {name} at {st['shape']}: kernel {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms (share "
               f"{st['bound_ms'] / st['ms']:.3f}){extra}{lib}; equal to the plain version bit for "
               f"bit -- {smi}")
     return out
+
+
+def _k12_zeroed(kernels, flags, take: int):
+    """K12 as its wrapper launches it, but with look-back status words zeroed
+    for the call (epoch 1) in place of the buffer the wrapper keeps across
+    calls: the form the kept buffer's epochs save.  Not counted."""
+    import torch
+
+    lib = kernels.load()
+    B, n = flags.shape
+    idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
+    count = torch.empty((B,), dtype=torch.int32, device=flags.device)
+    status = torch.zeros(B * -(-n // kernels._FLAG_TILE), dtype=torch.int64, device=flags.device)
+    err = lib.sperr_flag_compact_rows(
+        flags.data_ptr(), idx.data_ptr(), count.data_ptr(), status.data_ptr(), B, n, take, 1,
+        torch.cuda.current_stream(flags.device).cuda_stream,
+    )
+    kernels._check(lib, err, "compact_flags_rows")
+    return idx, count
 
 
 def _int_err(a, b) -> int:
@@ -307,8 +338,10 @@ def main() -> int:
     one = c_d[:1].contiguous()
     inv1 = inv_d[:1].contiguous()
     q_ms = _time_ms(lambda: kernels.quantize(one, inv1), 20)
+    q_host_ms = _time_ms(lambda: kernels.quantize(one, inv1), 20, host=True)
     q_plain_ms = _time_ms(lambda: quantize.quantize_ref(one, inv1), 20)
-    print(f"[kernels] K1 at (1, 256^3): kernel {q_ms:.4f} ms, plain {q_plain_ms:.4f} ms")
+    print(f"[kernels] K1 at (1, 256^3): kernel {q_ms:.4f} ms ({q_host_ms:.4f} as the host issues "
+          f"it), plain {q_plain_ms:.4f} ms")
     q_bound = _bound_ms(4 * n + 4 + 4 * n + n + 4)  # coeffs, q in; mags, signs, maxmag out
     del c_d, got, ref
 
@@ -387,9 +420,11 @@ def main() -> int:
         if shape[1] >= 1024:
             t = plane_ms[shape] = {
                 "K2": _time_ms(lambda: cdf97.dwt2d(x), 20),
+                "K2 host": _time_ms(lambda: cdf97.dwt2d(x), 20, host=True),
                 "K2 plain": _time_ms(lambda: cdf97.dwt2d_ref(x), 3),
                 "K2 lift driver": _time_ms(lambda: cdf97.dwt2d_ref(x, lift=cdf97.lift_axis), 20),
                 "K3": _time_ms(lambda: cdf97.idwt2d(fwd), 20),
+                "K3 host": _time_ms(lambda: cdf97.idwt2d(fwd), 20, host=True),
                 "K3 plain": _time_ms(lambda: cdf97.idwt2d_ref(fwd), 3),
                 "K3 lift driver": _time_ms(lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20),
             }
@@ -446,11 +481,13 @@ def main() -> int:
     print("[kernels] K12 on ragged rows, several rows, short takes, empty and full rows: "
           "equal to the plain version bit for bit")
     k23_bound = _bound_ms(2 * 4 * 16 * 1024 * 1024)
-    for name, ms, bound in (("K1 quantize (1, 256^3)", q_ms, q_bound),
-                            ("K4 dwt3d 256^3", l_ms, l_bound), ("K4 idwt3d 256^3", li_ms, l_bound),
-                            ("K2 (16, 1024^2)", k23["K2"], k23_bound),
-                            ("K3 (16, 1024^2)", k23["K3"], k23_bound)):
-        print(f"[kernels] {name}: {ms:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
+    for name, ms, host_ms, bound in (
+            ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
+            ("K4 dwt3d 256^3", l_ms, l_host_ms, l_bound), ("K4 idwt3d 256^3", li_ms, li_host_ms, l_bound),
+            ("K2 (16, 1024^2)", k23["K2"], k23["K2 host"], k23_bound),
+            ("K3 (16, 1024^2)", k23["K3"], k23["K3 host"], k23_bound)):
+        print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
+              f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
         print("[kernels] --kernels-only: phases 4-8 skipped, no result line")
         return 0
@@ -464,10 +501,10 @@ def main() -> int:
     comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda")
     dec = TorchDecompressor3D(device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
     stream = comp.compress(vol, "pwe", tol)  # warm-up
     dec.decompress(stream)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     stream2 = comp.compress(vol, "pwe", tol)
     torch.cuda.synchronize()
@@ -478,7 +515,7 @@ def main() -> int:
     dec_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f"[main] launches during the 3D path: {launches}")
+    print(f"[main] launches during the timed 3D encode and decode: {launches}")
     for name in ("quantize", "cdf97_lift"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 3D path")
     _check(stream2 == stream, "two compressions of one volume differ")
@@ -585,10 +622,10 @@ def main() -> int:
     dec2 = TorchDecompressor2D((nx2, ny2), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
     streams = comp2.compress_batch(fields, "pwe", tol)  # warm-up
     dec2.decompress_batch(streams)
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     streams2 = comp2.compress_batch(fields, "pwe", tol)
     torch.cuda.synchronize()
@@ -599,7 +636,7 @@ def main() -> int:
     dec2_s = time.perf_counter() - t0
     launches2 = dict(kernels.launches)
     peak2 = torch.cuda.max_memory_allocated()
-    print(f"[2d] launches during the 2D path: {launches2}")
+    print(f"[2d] launches during the timed 2D encode and decode: {launches2}")
     for name in ("dwt2d_full", "idwt2d_full", "quantize"):
         _check(launches2[name] > 0, f"kernel {name} was not launched on the 2D path")
     _check(launches2["cdf97_lift"] == 0, "the 2D path launched the per-axis lifting kernel")
@@ -678,15 +715,15 @@ def main() -> int:
     t1 = bits["tier 1"]
     rows = [
         ("quantize", "quantize.cu", "sperr_tpu/ops/pallas_kernels.py:244", launches["quantize"],
-         q_err, q_ms, q_plain_ms, q_bound, None),
+         q_err, q_ms, q_host_ms, q_plain_ms, q_bound, None),
         ("cdf97_lift", "cdf97_lift.cu", "sperr_tpu/ops/cdf97_jax.py:230", launches["cdf97_lift"],
-         lift_err, l_ms, l_plain_ms, l_bound, None),
+         lift_err, l_ms, l_host_ms, l_plain_ms, l_bound, None),
         ("dwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:208", launches2["dwt2d_full"],
-         plane_err["K2"], k23["K2"], k23["K2 plain"], k23_bound, None),
+         plane_err["K2"], k23["K2"], k23["K2 host"], k23["K2 plain"], k23_bound, None),
         ("idwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:227", launches2["idwt2d_full"],
-         plane_err["K3"], k23["K3"], k23["K3 plain"], k23_bound, None),
+         plane_err["K3"], k23["K3"], k23["K3 host"], k23["K3 plain"], k23_bound, None),
     ] + [
-        (name, "bits.cu", where, launches_w[name], bit_err[name], t1[name]["ms"],
+        (name, "bits.cu", where, launches_w[name], bit_err[name], t1[name]["ms"], t1[name]["host_ms"],
          t1[name]["plain_ms"], t1[name]["bound_ms"], t1[name]["library_ms"])
         for name, where in (("transpose_bits32", "sperr_tpu/ops/packemit.py:102"),
                             ("masked_pack", "sperr_tpu/ops/packemit.py:420"),
@@ -694,9 +731,9 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
-         "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-         "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
-        for name, src, where, nl, err, ms, plain, bound, lib in rows
+         "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+         "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+        for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {

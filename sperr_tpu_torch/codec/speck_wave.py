@@ -17,32 +17,16 @@ required.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 
 
-def stitch_3d(
-    pmsb: np.ndarray,
-    signs: np.ndarray,
-    node_max: np.ndarray,
-    dims: Tuple[int, int, int],
-    num_bp: int,
-    lip_segments,
-    ref_segments,
-    budget_bits: int = 0,
-    mags: np.ndarray = None,
-    s_lin: np.ndarray = None,
-    lis_segments=None,
-) -> bytes:
+def stitch_3d(num_bp: int, lip_segments, lis_segments, ref_segments, budget_bits: int = 0) -> bytes:
     """Assemble the final stream from the per-pass 0/1 segments computed on
     a device: a pure per-pass concatenation, no tree data needed.  The
-    signature is the original's; ``pmsb``, ``signs``, ``node_max``, ``mags``
-    and ``s_lin`` are not read."""
-    if lip_segments is None or ref_segments is None or lis_segments is None:
-        raise ValueError(
-            "stitch_3d needs the LIP, LIS and refinement segments of every pass"
-        )
+    original's ``pmsb``, ``signs``, ``node_max``, ``dims``, ``mags`` and
+    ``s_lin`` arguments, which only its host walk reads, are not copied."""
     budget = (budget_bits + 7) // 8 * 8 if budget_bits else None
 
     segments: List[np.ndarray] = []

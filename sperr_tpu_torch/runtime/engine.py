@@ -11,7 +11,8 @@ produce byte-identical streams:
 `default_engine()` is the native engine.  It raises when the C++ library
 cannot be built or loaded: a broken build must not turn into a run that is
 many times slower.  The NumPy engine runs only where a caller names it.
-The original's wavefront engine (codec/speck_wave.py) is not copied.
+The original's wavefront engine (codec/speck_wave.py) and its
+``set_default_engine`` switch are not copied.
 """
 
 from __future__ import annotations
@@ -59,8 +60,3 @@ def default_engine():
 
         _default = NativeEngine()
     return _default
-
-
-def set_default_engine(engine) -> None:
-    global _default
-    _default = engine

@@ -100,11 +100,9 @@ def _segments(seed, num_bp):
 def test_stitch_3d_copy(budget):
     num_bp = 9
     lip, lis, ref = _segments(budget, num_bp)
-    args = (None, None, None, (8, 8, 8), num_bp, lip, ref, budget)
-    assert t_wave.stitch_3d(*args, lis_segments=lis) == j_wave.stitch_3d(*args, lis_segments=lis)
+    want = j_wave.stitch_3d(None, None, None, (8, 8, 8), num_bp, lip, ref, budget, lis_segments=lis)
+    assert t_wave.stitch_3d(num_bp, lip, lis, ref, budget) == want
     assert t_wave._pack_stream(np.empty(0, np.uint8), 0, 0) == j_wave._pack_stream(np.empty(0, np.uint8), 0, 0)
-    with pytest.raises(ValueError, match="segments"):
-        t_wave.stitch_3d(*args)
 
 
 @pytest.mark.parametrize("vol,chunk", [((64, 48, 40), (32, 32, 32)), ((20, 20, 20), (20, 20, 20)),

@@ -135,6 +135,10 @@ def test_default_engine_raises_when_the_library_cannot_be_built(monkeypatch, tmp
     assert engine._default is None
     with pytest.raises(RuntimeError, match="failed to build"):
         tb.TorchDecompressor3D(device="cpu")
+    from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+
+    with pytest.raises(RuntimeError, match="failed to build"):
+        Sperr3DDecompressor()
 
 
 def test_residual_scan_raises_when_the_library_cannot_be_built(monkeypatch, tmp_path):
