@@ -197,10 +197,9 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
     err = 0
     for flags, take in calls["compact_flags_rows"]:
         a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
-        for x, y, z in zip(a, b, _k12_zeroed(kernels, flags.contiguous(), take)):
+        for x, y in zip(a, b):
             err = max(err, _int_err(x, y))
             _check(torch.equal(x, y), f"K12 differs at {tuple(flags.shape)}, take {take} ({label})")
-            _check(torch.equal(z, y), f"K12 with a zeroed status differs at {tuple(flags.shape)} ({label})")
     for k, (flags, take) in enumerate(calls["compact_flags_rows"]):
         B, n = flags.shape
         key = "compact_flags_rows" if k == 0 else f"compact_flags_rows {k}"
@@ -208,8 +207,6 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
             max_abs_err=err, shape=f"({B}, {n}) take {take}",
             ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20),
             host_ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, host=True),
-            zeroed_ms=_time_ms(lambda: _k12_zeroed(kernels, flags, take), 20),
-            zeroed_host_ms=_time_ms(lambda: _k12_zeroed(kernels, flags, take), 20, host=True),
             plain_ms=_time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5),
             bound_ms=_bound_ms(B * n + 4 * B * take + 4 * B),
             library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20, host=True),
@@ -220,33 +217,11 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
         lib = (f", torch.nonzero {st['library_ms']:.4f} ms (it synchronizes: as the host issues it)"
                if st["library_ms"] is not None else "")
         extra += f", {st['host_ms']:.4f} ms as the host issues it"
-        if "zeroed_ms" in st:
-            extra += (f"; with a status zeroed per call {st['zeroed_ms']:.4f} ms "
-                      f"({st['zeroed_host_ms']:.4f} as the host issues it)")
         print(f"[kernels] {label} {name} at {st['shape']}: kernel {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms (share "
               f"{st['bound_ms'] / st['ms']:.3f}){extra}{lib}; equal to the plain version bit for "
               f"bit -- {smi}")
     return out
-
-
-def _k12_zeroed(kernels, flags, take: int):
-    """K12 as its wrapper launches it, but with look-back status words zeroed
-    for the call (epoch 1) in place of the buffer the wrapper keeps across
-    calls: the form the kept buffer's epochs save.  Not counted."""
-    import torch
-
-    lib = kernels.load()
-    B, n = flags.shape
-    idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
-    count = torch.empty((B,), dtype=torch.int32, device=flags.device)
-    status = torch.zeros(B * -(-n // kernels._FLAG_TILE), dtype=torch.int64, device=flags.device)
-    err = lib.sperr_flag_compact_rows(
-        flags.data_ptr(), idx.data_ptr(), count.data_ptr(), status.data_ptr(), B, n, take, 1,
-        torch.cuda.current_stream(flags.device).cuda_stream,
-    )
-    kernels._check(lib, err, "compact_flags_rows")
-    return idx, count
 
 
 def _int_err(a, b) -> int:

@@ -140,7 +140,7 @@ def load() -> ct.CDLL:
             ("sperr_transpose_bits32_pair", [vp, vp, vp, ll, vp]),
             ("sperr_popcount_words", [vp, vp, ll, vp]),
             ("sperr_masked_pack_scatter", [vp, vp, vp, vp, ll, ll, vp, ll, vp]),
-            ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, ct.c_uint, vp]),
+            ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
         ):
             fn = getattr(lib, name)
             fn.restype = ct.c_int
@@ -411,26 +411,13 @@ def masked_pack_scatter(
 
 
 _FLAG_TILE = 16384  # flags per block of K12 (kFlagTile in bits.cu)
-# K12's look-back status words, kept per (device, stream) and reused with a
-# new epoch for every call, so that no call has to clear them
-_flag_status = {}
-_flag_epoch = 0
-
-
-def _flag_status_words(device: torch.device, words: int) -> torch.Tensor:
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _flag_status.get(key)
-    if buf is None or buf.numel() < words:
-        buf = _flag_status[key] = torch.zeros(max(words, 1 << 12), dtype=torch.int64, device=device)
-    return buf
 
 
 def compact_flags_rows(flags: torch.Tensor, take: int):
     """K12: flags (B, n) bool -> (idx (B, take) int32, the ascending indices
     of the set flags with the sentinel n in unused slots; count (B,) int32).
-    One pass with a decoupled look-back, then a small launch that writes the
-    sentinels."""
-    global _flag_epoch
+    One pass with a decoupled look-back over status words zeroed for the
+    call, then a small launch that writes the sentinels."""
     _require_cuda(flags, torch.bool, "flags")
     if flags.dim() != 2 or flags.shape[1] == 0 or not 0 < flags.shape[0] <= 65535:
         raise ValueError(f"flags must be (B, n), 0 < B <= 65535, n > 0; got {tuple(flags.shape)}")
@@ -440,16 +427,12 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     B, n = flags.shape
     idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
     count = torch.empty((B,), dtype=torch.int32, device=flags.device)
+    status = torch.zeros(B * -(-n // _FLAG_TILE), dtype=torch.int64, device=flags.device)
     lib = load()
     with _on_device(flags):
-        # two calls must never share an epoch, whatever thread makes them
-        with _lock:
-            status = _flag_status_words(flags.device, B * -(-n // _FLAG_TILE))
-            _flag_epoch = _flag_epoch % ((1 << 30) - 1) + 1
-            epoch = _flag_epoch
         err = lib.sperr_flag_compact_rows(
             flags.data_ptr(), idx.data_ptr(), count.data_ptr(), status.data_ptr(),
-            B, n, take, epoch, _stream(flags),
+            B, n, take, _stream(flags),
         )
     _check(lib, err, "compact_flags_rows")
     launches["compact_flags_rows"] += 2

@@ -150,26 +150,23 @@ __global__ void pack_scatter_kernel(const uint32_t* __restrict__ valid,
 // back over its predecessors' status words, 32 at a time, until it meets an
 // inclusive prefix.  Blocks of a row start in order (the usual assumption of
 // single-pass scans), so every wait ends.  A status word is
-//   epoch (30 bits) << 34 | state (2 bits) << 32 | count (32 bits),
-// and the epoch, new for every call, makes a persistent status buffer need
-// no clearing between calls.
+//   state (2 bits) << 32 | count (32 bits),
+// state 0 (not yet published) in the buffer the caller zeroes for the call.
 constexpr int kFlagLoads = 4;  // 16-byte loads per thread
 constexpr int kFlagsPerThread = 16 * kFlagLoads;
 constexpr int kFlagTile = kThreads * kFlagsPerThread;
 constexpr unsigned long long kStateAggregate = 1, kStatePrefix = 2;
 
-__device__ __forceinline__ unsigned long long flag_status(unsigned epoch,
-                                                          unsigned long long state,
+__device__ __forceinline__ unsigned long long flag_status(unsigned long long state,
                                                           unsigned count) {
-  return ((unsigned long long)epoch << 34) | (state << 32) | count;
+  return (state << 32) | count;
 }
 
 __global__ void flag_compact_kernel(const uint8_t* __restrict__ flags,
                                     int32_t* __restrict__ idx,
                                     int32_t* __restrict__ count,
                                     unsigned long long* status, long long n,
-                                    long long nblk, long long take,
-                                    unsigned epoch) {
+                                    long long nblk, long long take) {
   const long long row = blockIdx.y, blk = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint8_t* f = flags + row * n;
@@ -224,9 +221,9 @@ __global__ void flag_compact_kernel(const uint8_t* __restrict__ flags,
     unsigned long long* st = status + row * nblk;
     long long prefix = 0;
     if (blk == 0) {
-      if (lane == 0) atomicExch(st, flag_status(epoch, kStatePrefix, (unsigned)agg));
+      if (lane == 0) atomicExch(st, flag_status(kStatePrefix, (unsigned)agg));
     } else {
-      if (lane == 0) atomicExch(st + blk, flag_status(epoch, kStateAggregate, (unsigned)agg));
+      if (lane == 0) atomicExch(st + blk, flag_status(kStateAggregate, (unsigned)agg));
       for (long long j = blk - 1;; j -= 32) {
         const long long q = j - lane;  // lane 0 is the nearest predecessor
         unsigned long long state = kStatePrefix, val = 0;
@@ -234,7 +231,7 @@ __global__ void flag_compact_kernel(const uint8_t* __restrict__ flags,
           unsigned long long w;
           do {
             w = *reinterpret_cast<volatile unsigned long long*>(st + q);
-          } while ((unsigned)(w >> 34) != epoch || ((w >> 32) & 3) == 0);
+          } while (((w >> 32) & 3) == 0);
           state = (w >> 32) & 3;
           val = w & 0xffffffffull;
         }
@@ -247,7 +244,7 @@ __global__ void flag_compact_kernel(const uint8_t* __restrict__ flags,
         if (pm) break;
       }
       if (lane == 0) {
-        atomicExch(st + blk, flag_status(epoch, kStatePrefix, (unsigned)(prefix + agg)));
+        atomicExch(st + blk, flag_status(kStatePrefix, (unsigned)(prefix + agg)));
       }
     }
     if (lane == 0) s_prefix = prefix;
@@ -322,21 +319,19 @@ extern "C" int sperr_masked_pack_scatter(const uint32_t* valid,
 
 // K12: flags (B, n) bytes -> idx (B, take), the first `take` ascending
 // indices of each row's set flags with n in the unused slots, and count (B,)
-// the set flags of each row.  status: B * ceil(n / 16384) words that hold no
-// word of this epoch (a buffer kept across calls with a new epoch each call,
-// epoch in [1, 2^30)).
+// the set flags of each row.  status: B * ceil(n / 16384) words, zeroed by
+// the caller.
 extern "C" int sperr_flag_compact_rows(const uint8_t* flags, int32_t* idx,
                                        int32_t* count,
                                        unsigned long long* status, long long B,
                                        long long n, long long take,
-                                       unsigned epoch, cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || n <= 0 || take <= 0 || epoch == 0 ||
-      epoch >= (1u << 30))
+                                       cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || n <= 0 || take <= 0)
     return (int)cudaErrorInvalidValue;
   const long long nblk = (n + kFlagTile - 1) / kFlagTile;
   if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flag_compact_kernel<<<dim3((unsigned)nblk, (unsigned)B), kThreads, 0, stream>>>(
-      flags, idx, count, status, n, nblk, take, epoch);
+      flags, idx, count, status, n, nblk, take);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   long long g = (take + kThreads - 1) / kThreads;
