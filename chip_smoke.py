@@ -64,25 +64,42 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_SLEEP_CYCLES = 100_000_000
+
+
 def _time_ms(fn, reps: int, host: bool = False) -> float:
     """Milliseconds per call of fn on the card, by CUDA events around reps
     calls after a warm-up.  By default the calls queue up behind a sleep
-    kernel of about 50 ms, so the events see the device run them back to
-    back and not the host's time to issue them; host=True times them as the
-    host issues them, as a caller does."""
+    kernel, so the events see the device run them back to back and not the
+    host's time to issue them: when the device has left a sleep of about 50
+    ms before the host has issued every call, the calls are timed again
+    behind a sleep twice the host's issue time.  A function that
+    synchronizes (the plain versions' loops, K16) cannot hide behind it: its
+    time stays the host-issued one.  host=True times the calls as the host
+    issues them, as a caller does."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if not host:
-        torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = _SLEEP_CYCLES
+    for attempt in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if not host:
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        covered = host or not start.query()
+        torch.cuda.synchronize()
+        if covered or attempt:
+            return start.elapsed_time(end) / reps
+        # cycles per ms of this sleep, from its own events
+        cycles = int(2 * issue_ms * cycles / max(mark.elapsed_time(start), 1e-3)) + 1
 
 
 def _capture(module, names):
@@ -165,17 +182,31 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
         b = packemit.transpose_bits32_pair_ref(xa, xb)
         err = max(err, _int_err(a, b))
         _check(torch.equal(a, b), f"K10 pair form differs at {tuple(xa.shape)} ({label})")
-    xa, xb = max(calls["transpose_bits32_pair"], key=lambda t: t[0].numel())
-    (x1,) = max(calls["transpose_bits32"], key=lambda t: t[0].numel())
+    # the three shapes of one emission: the first 32-plane window of the LIP
+    # pair, the LIS pair and the refinement single form (each called twice,
+    # for the valid and the bit masks)
+    pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
+    k10 = {}
+    for shape, fn, items, per_word in (
+            ("LIP pair", lambda: kernels.transpose_bits32_pair(*pairs[0]), pairs[0][0].numel(), 16),
+            ("LIS pair", lambda: kernels.transpose_bits32_pair(*pairs[len(pairs) // 2]),
+             pairs[len(pairs) // 2][0].numel(), 16),
+            ("REF single", lambda: kernels.transpose_bits32(*singles[0]), singles[0][0].numel(), 32)):
+        inputs = 4 * items * (2 if per_word == 16 else 1)
+        k10[shape] = dict(items=items, ms=_time_ms(fn, 20), host_ms=_time_ms(fn, 20, host=True),
+                          bound_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
+    print(f"[kernels] {label} K10 per shape (items: device ms / host-issued ms / bound ms): "
+          + ", ".join(f"{k} ({v['items']}) {v['ms']:.4f}/{v['host_ms']:.4f}/{v['bound_ms']:.4f}"
+                      for k, v in k10.items())
+          + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
+          f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
+    xa, xb = pairs[len(pairs) // 2]
+    lis = k10["LIS pair"]
     out["transpose_bits32"] = dict(
-        max_abs_err=err, shape=f"pair {xa.numel()} items, single {x1.numel()} items",
-        ms=_time_ms(lambda: kernels.transpose_bits32_pair(xa, xb), 20),
-        host_ms=_time_ms(lambda: kernels.transpose_bits32_pair(xa, xb), 20, host=True),
+        max_abs_err=err, shape=f"LIS pair {xa.numel()} items",
+        ms=lis["ms"], host_ms=lis["host_ms"],
         plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(xa, xb), 5),
-        bound_ms=_bound_ms(2 * 4 * xa.numel() + 8 * xa.numel()),
-        single_ms=_time_ms(lambda: kernels.transpose_bits32(x1), 20),
-        single_bound_ms=_bound_ms(8 * x1.numel()),
-        library_ms=None,
+        bound_ms=lis["bound_ms"], library_ms=None, per_shape=k10,
     )
     (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
     a, b = packemit.masked_pack(parts, evb_cap, out_cap_bytes), packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
@@ -212,15 +243,12 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
             library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20, host=True),
         )
     for name, st in out.items():
-        extra = (f", single {st['single_ms']:.4f} ms (bound {st['single_bound_ms']:.4f})"
-                 if "single_ms" in st else "")
         lib = (f", torch.nonzero {st['library_ms']:.4f} ms (it synchronizes: as the host issues it)"
                if st["library_ms"] is not None else "")
-        extra += f", {st['host_ms']:.4f} ms as the host issues it"
         print(f"[kernels] {label} {name} at {st['shape']}: kernel {st['ms']:.4f} ms, plain "
               f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms (share "
-              f"{st['bound_ms'] / st['ms']:.3f}){extra}{lib}; equal to the plain version bit for "
-              f"bit -- {smi}")
+              f"{st['bound_ms'] / st['ms']:.3f}), {st['host_ms']:.4f} ms as the host issues it"
+              f"{lib}; equal to the plain version bit for bit -- {smi}")
     return out
 
 
@@ -421,6 +449,7 @@ def main() -> int:
     vol11 = smooth_field_3d(256, seed=11)
     print(f"[kernels] smooth_field_3d(512, seed=7) and (256, seed=11) made in {time.perf_counter() - t0:.2f} s")
     bits = {}
+    emit_ms = {}
     for label, field, tier in (("tier 0", vol512, 0), ("tier 1", vol512, 1),
                                ("widest", vol11, len(tiers) - 1)):
         chunk = torch.from_numpy(np.ascontiguousarray(field[:256, :256, :256])[None]).to(dev)
@@ -437,9 +466,31 @@ def main() -> int:
         if label == "tier 0":
             calls["compact_flags_rows"] += cap_front["compact_flags_rows"]
         bits[label] = _bits_case(kernels, packemit, calls, smi, label)
+        if label != "widest":
+            # the whole emission stage of one chunk (schedule, walk, masks,
+            # K10-K12), as the main path runs it at this tier
+            def emit():
+                return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
+            emit_ms[label] = (_time_ms(emit, 3), _time_ms(emit, 3, host=True))
+            print(f"[kernels] {label} _wave_emit_chunk: {emit_ms[label][0]:.4f} ms device, "
+                  f"{emit_ms[label][1]:.4f} ms as the host issues it -- {smi}")
         del chunk, front, em, fits, calls, cap_front
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
+    # K16, the PSNR-mode q search (torch ops; each step synchronizes on its
+    # test, so it is timed as the host issues it): phase 5's chunk at PSNR 80
+    x16 = torch.from_numpy(vol11[None]).to(dev)
+    x16 = x16 - x16.mean()
+    r16 = (x16.max() - x16.min()).reshape(1)
+    c16 = cdf97.dwt3d(x16).reshape(1, -1)
+    q16 = quantize.estimate_q_psnr_batched(c16, r16, 80.0)
+    q_first = 2.0 * np.sqrt(3.0 * float(r16[0]) ** 2 * float(np.float32(1e-8)))
+    k16_evals = 1 + round(np.log(float(q16[0]) / q_first) / np.log(2.0**-0.25))
+    k16_ms = _time_ms(lambda: quantize.estimate_q_psnr_batched(c16, r16, 80.0), 5, host=True)
+    k16_bound = _bound_ms(k16_evals * 4 * c16.numel())  # each step reads the coefficients
+    print(f"[kernels] K16 estimate_q_psnr_batched (1, 256^3), PSNR 80, {k16_evals} steps: "
+          f"{k16_ms:.4f} ms as the host issues it, bound {k16_bound:.4f} ms -- {smi}")
+    del x16, c16
     # K12 on ragged shapes: rows that are not whole tiles, several rows, a
     # short take, empty and full rows, and a view that is not 16-byte aligned
     flag_rng = np.random.default_rng(12)
