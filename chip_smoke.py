@@ -102,6 +102,36 @@ def _time_ms(fn, reps: int, host: bool = False) -> float:
         cycles = int(2 * issue_ms * cycles / max(mark.elapsed_time(start), 1e-3)) + 1
 
 
+def _busy_ms(fn, reps: int):
+    """Device-busy milliseconds per call of fn: the summed device time of its
+    kernels and copies in a torch.profiler trace of reps calls after a
+    warm-up (the host's gaps, and its waits where fn synchronizes, left
+    out), and the number of calls in one run of fn that made the host wait
+    for the device (torch's sync debug mode).  None if the trace holds no
+    device time."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return (us / 1e3 / reps if us > 0 else None), len(caught)
+
+
 def _capture(module, names):
     """Record the arguments of every call of module.<name> for each name
     (a context manager); the calls still run."""
@@ -471,9 +501,12 @@ def main() -> int:
             # K10-K12), as the main path runs it at this tier
             def emit():
                 return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
-            emit_ms[label] = (_time_ms(emit, 3), _time_ms(emit, 3, host=True))
-            print(f"[kernels] {label} _wave_emit_chunk: {emit_ms[label][0]:.4f} ms device, "
-                  f"{emit_ms[label][1]:.4f} ms as the host issues it -- {smi}")
+            busy, syncs = _busy_ms(emit, 3)
+            emit_ms[label] = (busy, _time_ms(emit, 3, host=True))
+            print(f"[kernels] {label} _wave_emit_chunk: device busy "
+                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} (kernels and copies), "
+                  f"{emit_ms[label][1]:.4f} ms as the host issues it, {syncs} host waits for the "
+                  f"device per call -- {smi}")
         del chunk, front, em, fits, calls, cap_front
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
