@@ -203,47 +203,59 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
 
     out = {}
     err = 0
-    for (x,) in calls["transpose_bits32"]:
-        a, b = kernels.transpose_bits32(x.contiguous()), packemit.transpose_bits32_ref(x)
-        err = max(err, _int_err(a, b))
-        _check(torch.equal(a, b), f"K10 differs from its plain version at {tuple(x.shape)} ({label})")
-    for xa, xb in calls["transpose_bits32_pair"]:
-        a = kernels.transpose_bits32_pair(xa.contiguous(), xb.contiguous())
-        b = packemit.transpose_bits32_pair_ref(xa, xb)
-        err = max(err, _int_err(a, b))
-        _check(torch.equal(a, b), f"K10 pair form differs at {tuple(xa.shape)} ({label})")
-    # the three shapes of one emission: the first 32-plane window of the LIP
-    # pair, the LIS pair and the refinement single form (each called twice,
-    # for the valid and the bit masks)
-    pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
-    k10 = {}
-    for shape, fn, items, per_word in (
-            ("LIP pair", lambda: kernels.transpose_bits32_pair(*pairs[0]), pairs[0][0].numel(), 16),
-            ("LIS pair", lambda: kernels.transpose_bits32_pair(*pairs[len(pairs) // 2]),
-             pairs[len(pairs) // 2][0].numel(), 16),
-            ("REF single", lambda: kernels.transpose_bits32(*singles[0]), singles[0][0].numel(), 32)):
-        inputs = 4 * items * (2 if per_word == 16 else 1)
-        k10[shape] = dict(items=items, ms=_time_ms(fn, 20), host_ms=_time_ms(fn, 20, host=True),
-                          bound_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
-    print(f"[kernels] {label} K10 per shape (items: device ms / host-issued ms / bound ms): "
-          + ", ".join(f"{k} ({v['items']}) {v['ms']:.4f}/{v['host_ms']:.4f}/{v['bound_ms']:.4f}"
-                      for k, v in k10.items())
-          + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
-          f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
-    xa, xb = pairs[len(pairs) // 2]
+    default_form = kernels.K10_SHUFFLE
+    k10_forms = {}
+    for form in (False, True):
+        kernels.K10_SHUFFLE = form
+        # K10 writes planes 0 .. take-1 into rows row0 .. of the caller's buffer:
+        # both versions start from the same filler, so a row written out of
+        # place shows too
+        for args in calls["transpose_bits32"] + calls["transpose_bits32_pair"]:
+            *xs, dst, row0, take = args
+            a, b = torch.full_like(dst, -7), torch.full_like(dst, -7)
+            if len(xs) == 1:
+                kernels.transpose_bits32(xs[0].contiguous(), a, row0, take)
+                packemit.transpose_bits32_ref(xs[0], b, row0, take)
+            else:
+                kernels.transpose_bits32_pair(xs[0].contiguous(), xs[1].contiguous(), a, row0, take)
+                packemit.transpose_bits32_pair_ref(xs[0], xs[1], b, row0, take)
+            err = max(err, _int_err(a, b))
+            _check(torch.equal(a, b), f"K10 ({len(xs)} inputs) differs from its plain version at "
+                   f"{tuple(xs[0].shape)}, rows {row0} + {take} of {tuple(dst.shape)} ({label})")
+        # the three shapes of one emission: the first 32-plane window of the LIP
+        # pair, the LIS pair and the refinement single form (each called twice,
+        # for the valid and the bit masks)
+        pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
+        lis_args = pairs[len(pairs) // 2]
+        k10 = k10_forms[form] = {}
+        for shape, fn, args, per_word in (
+                ("LIP pair", kernels.transpose_bits32_pair, pairs[0], 16),
+                ("LIS pair", kernels.transpose_bits32_pair, lis_args, 16),
+                ("REF single", kernels.transpose_bits32, singles[0], 32)):
+            items, take = args[0].numel(), args[-1]
+            inputs = 4 * items * (2 if per_word == 16 else 1)
+            k10[shape] = dict(items=items, take=take, ms=_time_ms(lambda: fn(*args), 20),
+                              host_ms=_time_ms(lambda: fn(*args), 20, host=True),
+                              bound_ms=_bound_ms(inputs + 4 * take * items // per_word),
+                              bound32_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
+        print(f"[kernels] {label} K10 ({'shuffle' if form else 'ballot'} form) per shape (items, planes kept: device ms / host-issued ms / "
+              f"bound ms / bound of all 32 planes ms): "
+              + ", ".join(f"{k} ({v['items']}, {v['take']}) {v['ms']:.4f}/{v['host_ms']:.4f}/"
+                          f"{v['bound_ms']:.4f}/{v['bound32_ms']:.4f}" for k, v in k10.items())
+              + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
+              f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
+    kernels.K10_SHUFFLE = default_form
+    k10 = k10_forms[default_form]
     lis = k10["LIS pair"]
     out["transpose_bits32"] = dict(
-        max_abs_err=err, shape=f"LIS pair {xa.numel()} items",
+        max_abs_err=err, shape=f"LIS pair {lis['items']} items, {lis['take']} planes",
         ms=lis["ms"], host_ms=lis["host_ms"],
-        plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(xa, xb), 5),
+        plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5),
         bound_ms=lis["bound_ms"], library_ms=None, per_shape=k10,
     )
     (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
-    a, b = packemit.masked_pack(parts, evb_cap, out_cap_bytes), packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
-    err = 0
-    for name, x, y in zip(a._fields, a, b):
-        err = max(err, _int_err(x, y))
-        _check(torch.equal(x, y), f"K11 {name} differs from its plain version ({label})")
+    err = _k11_equal(packemit, parts, evb_cap, out_cap_bytes, 8, label)
+    b = packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
     words = sum(v.numel() for v, _ in parts)
     rows = sum(v.shape[0] for v, _ in parts)
     out["masked_pack"] = dict(
@@ -280,6 +292,65 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
               f"{st['bound_ms'] / st['ms']:.3f}), {st['host_ms']:.4f} ms as the host issues it"
               f"{lib}; equal to the plain version bit for bit -- {smi}")
     return out
+
+
+def _k11_equal(packemit, parts, evb_cap: int, out_cap_bytes: int, piece_words: int,
+               label: str) -> int:
+    """K11 against its plain version on every PackResult field, bit for bit;
+    returns the largest difference (0)."""
+    import torch
+
+    a = packemit.masked_pack(parts, evb_cap, out_cap_bytes, piece_words)
+    b = packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes, piece_words)
+    err = 0
+    for name, x, y in zip(a._fields, a, b):
+        err = max(err, _int_err(x, y))
+        _check(x.dtype == y.dtype and torch.equal(x, y),
+               f"K11 {name} differs from its plain version ({label})")
+    return err
+
+
+def _k11_synthetic(packemit, dev) -> None:
+    """K11 on shapes the main path does not give it: rows shorter than a
+    tile (2048 words) and rows that end inside one, odd bit counts, empty
+    rows and parts, all-ones words, 4-word pieces, and overflow by the piece
+    cap and by the byte cap."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+
+    def words(rows, W, k):
+        # each bit set with probability 2^-k (k = 0: all ones; None: none)
+        w = np.full((rows, W), 0 if k is None else 0xFFFFFFFF, np.uint32)
+        for _ in range(k or 0):
+            w &= rng.integers(0, 2**32, (rows, W), dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32)).to(dev)
+
+    def part(rows, W, k):
+        return words(rows, W, k), words(rows, W, 1)
+
+    ragged = [part(3, 520, 3), part(2, 2 * 2048 + 776, 5), part(4, 8, 1)]
+    empty = [part(3, 4096, None), part(0, 64, 2), part(2, 2056, 0), part(1, 16, 2)]
+    empty[0][0][1, 5:9] = -1  # one row of the empty part is not empty
+    quarter = [part(5, 1028, 2), part(3, 3004, 4)]
+    pairs = [part(3, 1030, 2), part(2, 6, 0)]  # rows not on 16-byte boundaries
+    cases = []
+    for name, parts, pw in (("ragged rows", ragged, 8), ("empty rows and parts, all-ones "
+                            "words", empty, 8), ("4-word pieces", quarter, 4),
+                           ("2-word pieces", pairs, 2)):
+        words_n = sum(v.numel() for v, _ in parts)
+        out_cap = ((4 * words_n + sum(v.shape[0] for v, _ in parts) + 7) // 4 + 1) * 4
+        cases.append((name, parts, pw, words_n // pw + 1, out_cap))
+    cases += [("overflow by the piece cap", ragged, 8, 3, cases[0][4]),
+              ("overflow by the byte cap", ragged, 8, cases[0][3], 64)]
+    for name, parts, pw, evb_cap, out_cap in cases:
+        _k11_equal(packemit, parts, evb_cap, out_cap, pw, name)
+        res = packemit.masked_pack_ref(parts, evb_cap, out_cap, pw)
+        _check(bool(res.overflow) == name.startswith("overflow"), f"K11 overflow flag ({name})")
+        print(f"[kernels] K11 {name}: {int(res.total_bytes)} bytes, counts "
+              f"{res.counts.tolist()[:6]}..., {int(res.n_nz)} pieces, overflow "
+              f"{bool(res.overflow)}: equal to the plain version bit for bit")
 
 
 def _int_err(a, b) -> int:
@@ -501,8 +572,9 @@ def main() -> int:
             # K10-K12), as the main path runs it at this tier
             def emit():
                 return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
+            host_ms = _time_ms(emit, 3, host=True)
             busy, syncs = _busy_ms(emit, 3)
-            emit_ms[label] = (busy, _time_ms(emit, 3, host=True))
+            emit_ms[label] = (busy, host_ms)
             print(f"[kernels] {label} _wave_emit_chunk: device busy "
                   f"{'not measured' if busy is None else f'{busy:.4f} ms'} (kernels and copies), "
                   f"{emit_ms[label][1]:.4f} ms as the host issues it, {syncs} host waits for the "
@@ -539,6 +611,7 @@ def main() -> int:
                    f"K12 differs from its plain version at {tuple(f.shape)}, take {take}")
     print("[kernels] K12 on ragged rows, several rows, short takes, empty and full rows: "
           "equal to the plain version bit for bit")
+    _k11_synthetic(packemit, dev)
     k23_bound = _bound_ms(2 * 4 * 16 * 1024 * 1024)
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
@@ -640,6 +713,7 @@ def main() -> int:
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
     for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
+    _check(launches_w["masked_pack"] % 3 == 0, "K11 did not launch three kernels per call")
     _check(stream_w == stream2, "the wave container differs from the host-entropy container")
     _check(wave.last_wave_chunks == 8, f"{wave.last_wave_chunks} of 8 chunks on the device path")
     _check(wave.last_uncertified_chunks == 0, f"uncertified chunks {wave.last_uncertified_ids}")

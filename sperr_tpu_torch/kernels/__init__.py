@@ -136,10 +136,11 @@ def load() -> ct.CDLL:
         ]
         vp, ll = ct.c_void_p, ct.c_longlong
         for name, args in (
-            ("sperr_transpose_bits32", [vp, vp, ll, vp]),
-            ("sperr_transpose_bits32_pair", [vp, vp, vp, ll, vp]),
-            ("sperr_popcount_words", [vp, vp, ll, vp]),
-            ("sperr_masked_pack_scatter", [vp, vp, vp, vp, ll, ll, vp, ll, vp]),
+            ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, ct.c_int, vp]),
+            ("sperr_masked_pack", [
+                ct.c_int, ct.POINTER(vp), ct.POINTER(vp), ct.POINTER(ll), ct.POINTER(ll),
+                ct.c_int, ll, ll, vp, vp, vp, vp, vp,
+            ]),
             ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
         ):
             fn = getattr(lib, name)
@@ -327,25 +328,49 @@ def _require_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         )
 
 
-def transpose_bits32(x: torch.Tensor) -> torch.Tensor:
-    """K10: x (M,) int32 words, M % 32 == 0 -> (32, M // 32) int32 planes,
-    out[p, w] bit l = x[32 w + l] bit p."""
-    _require_cuda(x, torch.int32, "x")
-    if x.dim() != 1 or x.numel() % 32 or x.numel() == 0:
-        raise ValueError(f"x must be (M,) with M a positive multiple of 32; got {tuple(x.shape)}")
-    W = x.numel() // 32
-    out = torch.empty((32, W), dtype=torch.int32, device=x.device)
+# K10's form: five shuffle stages per 32x32 block (True) or one ballot per
+# kept plane (False)
+K10_SHUFFLE = True
+
+
+def _transpose(name: str, a: torch.Tensor, b: Optional[torch.Tensor], per_word: int,
+               out: torch.Tensor, row0: int, take: int) -> torch.Tensor:
+    _require_cuda(out, torch.int32, "out")
+    if out.device != a.device:
+        raise ValueError(f"out is on {out.device}, the items on {a.device}")
+    W = a.numel() // per_word
+    row0, take = int(row0), int(take)
+    if out.dim() != 2 or out.shape[1] != W or not (1 <= take <= 32 and 0 <= row0 <= out.shape[0] - take):
+        raise ValueError(
+            f"out must be (R, {W}) with rows row0 .. row0 + take - 1 inside it and "
+            f"1 <= take <= 32; got {tuple(out.shape)}, row0 {row0}, take {take}"
+        )
     lib = load()
-    with _on_device(x):
-        err = lib.sperr_transpose_bits32(x.data_ptr(), out.data_ptr(), W, _stream(x))
-    _check(lib, err, "transpose_bits32")
+    with _on_device(a):
+        err = lib.sperr_transpose_bits32(
+            a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), W, row0, take,
+            int(K10_SHUFFLE), _stream(a),
+        )
+    _check(lib, err, name)
     launches["transpose_bits32"] += 1
     return out
 
 
-def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K10, pair form: a, b (M,) int32, M % 16 == 0 -> (32, M // 16) int32,
-    the transpose of the cell stream a_0 b_0 a_1 b_1 ..."""
+def transpose_bits32(x: torch.Tensor, out: torch.Tensor, row0: int, take: int) -> torch.Tensor:
+    """K10: x (M,) int32 words, M % 32 == 0; planes 0 .. take-1 of the
+    transpose (plane p, word w: bit l = x[32 w + l] bit p) into rows
+    row0 .. row0+take-1 of out (R, M // 32) int32.  Returns out."""
+    _require_cuda(x, torch.int32, "x")
+    if x.dim() != 1 or x.numel() % 32 or x.numel() == 0:
+        raise ValueError(f"x must be (M,) with M a positive multiple of 32; got {tuple(x.shape)}")
+    return _transpose("transpose_bits32", x, None, 32, out, row0, take)
+
+
+def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, row0: int,
+                          take: int) -> torch.Tensor:
+    """K10, pair form: a, b (M,) int32, M % 16 == 0; planes 0 .. take-1 of
+    the transpose of the cell stream a_0 b_0 a_1 b_1 ... into rows
+    row0 .. row0+take-1 of out (R, M // 16) int32.  Returns out."""
     _require_cuda(a, torch.int32, "a")
     _require_cuda(b, torch.int32, "b")
     if a.dim() != 1 or a.shape != b.shape or a.numel() % 16 or a.numel() == 0:
@@ -355,59 +380,64 @@ def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         )
     if a.device != b.device:
         raise ValueError("a and b are on different devices")
-    W = a.numel() // 16
-    out = torch.empty((32, W), dtype=torch.int32, device=a.device)
-    lib = load()
-    with _on_device(a):
-        err = lib.sperr_transpose_bits32_pair(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), W, _stream(a)
+    return _transpose("transpose_bits32_pair", a, b, 16, out, row0, take)
+
+
+PACK_TILE = 2048  # words per tile of K11 (kPackTile in bits.cu)
+PACK_MAX_PARTS = 4
+
+
+def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
+    """K11: parts, 1 to 4 pairs (valid, bits) of (rows, W) int32 word arrays
+    on one CUDA device, W a multiple of piece_words -> (out_words
+    (out_cap_bytes // 4,) int32, counts (all rows,) int32, total_bytes ()
+    int64, overflow () bool, n_nz () int64), as ops/packemit.masked_pack
+    defines them.  Three launches (count, which also zeroes out_words, scan
+    and pack; no pack when there is no word), no host synchronisation."""
+    if not 1 <= len(parts) <= PACK_MAX_PARTS:
+        raise ValueError(f"1 to {PACK_MAX_PARTS} parts; got {len(parts)}")
+    evb_cap, out_cap_bytes, piece_words = int(evb_cap), int(out_cap_bytes), int(piece_words)
+    if piece_words not in (2, 4, 8, 16) or out_cap_bytes < 0 or out_cap_bytes % 4:
+        raise ValueError(
+            f"piece_words must be 2, 4, 8 or 16 and out_cap_bytes a multiple of 4; got "
+            f"{piece_words}, {out_cap_bytes}"
         )
-    _check(lib, err, "transpose_bits32_pair")
-    launches["transpose_bits32"] += 1
-    return out
-
-
-def popcount_words(valid: torch.Tensor) -> torch.Tensor:
-    """K11 pass 1: (n,) int32 words -> (n,) int32 counts of set bits."""
-    _require_cuda(valid, torch.int32, "valid")
-    if valid.dim() != 1 or valid.numel() == 0:
-        raise ValueError(f"valid must be (n,) with n > 0; got {tuple(valid.shape)}")
-    counts = torch.empty_like(valid)
+    dev = parts[0][0].device
+    shapes = []
+    for k, (v, b) in enumerate(parts):
+        for t, what in ((v, f"valid[{k}]"), (b, f"bits[{k}]")):
+            _require_cuda(t, torch.int32, what)
+            if t.device != dev:
+                raise ValueError(f"{what} is on {t.device}, valid[0] on {dev}")
+        if v.dim() != 2 or b.shape != v.shape or v.shape[1] % piece_words:
+            raise ValueError(
+                f"valid[{k}] and bits[{k}] must be (rows, W) with W a multiple of "
+                f"{piece_words}; got {tuple(v.shape)}, {tuple(b.shape)}"
+            )
+        shapes.append(tuple(v.shape))
+    nrows = sum(r for r, _ in shapes)
+    tiles = sum(r * -(-w // PACK_TILE) for r, w in shapes)
+    take = min(evb_cap, sum(r * w for r, w in shapes) // piece_words)
+    out_words = out_cap_bytes // 4
+    # out, counts and the tile scratch in one int32 buffer; the totals, the
+    # bases and overflow (the last word's first byte) in one int64 buffer
+    i32 = torch.empty(out_words + nrows + 2 * tiles, dtype=torch.int32, device=dev)
+    i64 = torch.empty(3 + tiles + nrows, dtype=torch.int64, device=dev)
+    overflow = i64[-1:].view(torch.bool)[0]
+    n = len(parts)
     lib = load()
-    with _on_device(valid):
-        err = lib.sperr_popcount_words(valid.data_ptr(), counts.data_ptr(), valid.numel(), _stream(valid))
-    _check(lib, err, "popcount_words")
-    launches["masked_pack"] += 1
-    return counts
-
-
-def masked_pack_scatter(
-    valid: torch.Tensor, bits: torch.Tensor, S: torch.Tensor, corr: torch.Tensor,
-    out: torch.Tensor,
-) -> None:
-    """K11 pass 2 over one part, rows of W words: valid, bits (rows, W) int32;
-    S (rows * W,) int64 stream bit offsets of the words before the row
-    corrections corr (rows,) int64; the valid bits of each word are ORed
-    into out (int32 words) from bit S[i] + corr[i // W]."""
-    for t, dt, what in ((valid, torch.int32, "valid"), (bits, torch.int32, "bits"),
-                        (S, torch.int64, "S"), (corr, torch.int64, "corr"),
-                        (out, torch.int32, "out")):
-        _require_cuda(t, dt, what)
-        if t.device != valid.device:
-            raise ValueError(f"{what} is on {t.device}, valid on {valid.device}")
-    if valid.dim() != 2 or bits.shape != valid.shape or valid.numel() == 0:
-        raise ValueError(f"valid and bits must be (rows, W); got {tuple(valid.shape)}, {tuple(bits.shape)}")
-    rows, W = valid.shape
-    if S.shape != (rows * W,) or corr.shape != (rows,):
-        raise ValueError(f"S must be ({rows * W},) and corr ({rows},)")
-    lib = load()
-    with _on_device(valid):
-        err = lib.sperr_masked_pack_scatter(
-            valid.data_ptr(), bits.data_ptr(), S.data_ptr(), corr.data_ptr(),
-            rows * W, W, out.data_ptr(), out.numel(), _stream(valid),
+    with _on_device(parts[0][0]):
+        err = lib.sperr_masked_pack(
+            n, (ct.c_void_p * n)(*(v.data_ptr() for v, _ in parts)),
+            (ct.c_void_p * n)(*(b.data_ptr() for _, b in parts)),
+            (ct.c_longlong * n)(*(r for r, _ in shapes)),
+            (ct.c_longlong * n)(*(w for _, w in shapes)),
+            piece_words, take, out_cap_bytes, i32.data_ptr(), i32[out_words:].data_ptr(),
+            i64.data_ptr(), overflow.data_ptr(), _stream(parts[0][0]),
         )
-    _check(lib, err, "masked_pack_scatter")
-    launches["masked_pack"] += 1
+    _check(lib, err, "masked_pack")
+    launches["masked_pack"] += 3 if tiles else 2
+    return i32[:out_words], i32[out_words : out_words + nrows], i64[0], overflow, i64[1]
 
 
 _FLAG_TILE = 16384  # flags per block of K12 (kFlagTile in bits.cu)

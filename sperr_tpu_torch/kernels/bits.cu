@@ -9,19 +9,40 @@
 //   K12  compact_flags_rows (:305).
 // Words are 32-bit patterns; the torch side carries them in int32 tensors.
 //
-// Bound: device memory.  Each kernel reads its input once and writes its
-// output once, with a few dozen integer operations per word in between:
-//   K10  one warp per 32-item block; lane l holds item l, and
-//        __ballot_sync over bit p of every lane is output word (p, block).
-//        The 32 ballots replace the TPU's five masked-swap stages.
-//   K11  pass 1 counts the valid bits of every word (__popc); torch scans
-//        the counts between the passes (the JAX package computes these
-//        offsets outside any kernel too); pass 2 extracts each word's valid
-//        bits (Hacker's Delight 7-4: the card has no PEXT instruction) and
-//        ORs them into at most two output words with atomicOr.  Bits of two
-//        words never overlap, so the result does not depend on order.  The
-//        TPU's piece merge and piece compaction existed to make its scatter
-//        small; here each word scatters on its own.
+// Bound: device memory.  Each kernel reads its input once (K11 twice) and
+// writes its output once, with a few dozen integer operations per word:
+//   K10  (redesigned for Hopper) one block per 32 consecutive output words.
+//        Each warp loads the items of 4 of them (128-byte loads); lane l
+//        holds item l, and __ballot_sync over bit p of every lane is plane
+//        p's word.  Only the planes the caller keeps (`take`: 14 of 32 at
+//        the first tier, 22 at the second) are balloted and stored.  The
+//        words go through a [32][33] shared tile, so each kept plane leaves
+//        as one 128-byte line of 32 consecutive words, straight into rows
+//        row0 .. row0+take-1 of the caller's (P, W) buffer.  The former
+//        kernel stored lane p's word at out[p * W + w], 4 bytes in each
+//        32-byte sector, and wrote all 32 planes for the caller to slice
+//        and concatenate.
+//   K11  (redesigned for Hopper) three launches over all parts at once, no
+//        torch op between them.  A tile is 2048 words of one row.
+//        count: each block reads its tile's valid words (16-byte loads) and
+//          writes the tile's valid-bit count and its non-empty pieces.
+//        scan: one block of 1024 threads scans the tile counts in order:
+//          each row's count, its byte-aligned base (rows start on a byte,
+//          so a prefix across rows is not a plain sum), each tile's int64
+//          bit base, the total bytes, the non-empty pieces and overflow.
+//        pack: each block re-reads its tile's valid and bits words, scans
+//          the words' counts in the block (two 16-bit fields in one 32-bit
+//          scan), extracts each word's valid bits (Hacker's Delight 7-4:
+//          the card has no PEXT instruction; skipped for empty and full
+//          masks), ORs them into a shared-memory image of the tile's output
+//          words, and stores that image with coalesced stores.  Only its
+//          first and last words, which a neighbouring tile or row may
+//          share, go out with atomicOr.  Words past the caller's cap are
+//          dropped (overflow reports that case).
+//        Reading `valid` twice caps the pack at about 0.66 of the bound of
+//        one read of each input.  The former form (a popcount pass, torch
+//        scans with an int64 offset per word, and a scatter of one or two
+//        global atomicOr per word) moved some 1.4 GB at the second tier.
 //   K12  one pass (redesigned for Hopper): each block counts its 16384 flags
 //        from 16-byte loads, scans them in the block, and finds its base by
 //        a decoupled look-back over its predecessors' status words (warp 0,
@@ -47,50 +68,73 @@ long long grid_for(long long work, long long per_block) {
   return g;
 }
 
-// K10: out[p * W + w] bit l = bit p of item (32 w + l).
-__global__ void transpose_kernel(const uint32_t* __restrict__ x,
-                                 uint32_t* __restrict__ out, long long W) {
-  const int lane = threadIdx.x & 31;
-  for (long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       w < W; w += (long long)gridDim.x * kWarps) {
-    const uint32_t v = x[32 * w + lane];
-    uint32_t mine = 0;
+// K10: planes 0 .. take-1 of the transpose; out[p * W + w] bit l = bit p of
+// item (32 w + l) (single form) or of the cell stream a_0 b_0 a_1 b_1 ...
+// (pair form: word w holds items 16 w .. 16 w + 15, lane l the cell of item
+// 16 w + l / 2 from a (l even) or b (l odd)).  out points at row row0.
+constexpr int kTrWords = 32;                   // output words per block
+constexpr int kTrPerWarp = kTrWords / kWarps;  // 4
+
+// the 32x32 transpose of the warp's words by five shuffle stages: stage j
+// swaps the off-diagonal j-blocks (lanes l, l ^ j; bits with and without
+// bit j of their index set), so lane p ends with bit l = bit p of lane l
+__device__ __forceinline__ uint32_t transpose32_shfl(uint32_t x, int lane) {
+  constexpr uint32_t kMasks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u,
+                                  0x55555555u};
 #pragma unroll
-    for (int p = 0; p < 32; ++p) {
-      const uint32_t b = __ballot_sync(0xffffffffu, (v >> p) & 1u);
-      if (lane == p) mine = b;
-    }
-    out[(long long)lane * W + w] = mine;
+  for (int s = 0; s < 5; ++s) {
+    const int j = 16 >> s;
+    const uint32_t m = kMasks[s];
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y >> j) & m)) : ((x & m) | ((y & m) << j));
   }
+  return x;
 }
 
-// K10, pair form: the cell stream a_0 b_0 a_1 b_1 ...; word w holds items
-// 16 w .. 16 w + 15, lane l the cell of item 16 w + l / 2 from a (l even) or
-// b (l odd).
-__global__ void transpose_pair_kernel(const uint32_t* __restrict__ a,
-                                      const uint32_t* __restrict__ b,
-                                      uint32_t* __restrict__ out, long long W) {
-  const int lane = threadIdx.x & 31;
-  for (long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       w < W; w += (long long)gridDim.x * kWarps) {
-    const long long item = 16 * w + (lane >> 1);
-    const uint32_t v = (lane & 1) ? b[item] : a[item];
-    uint32_t mine = 0;
+template <bool kPair, bool kShfl>
+__global__ void __launch_bounds__(kThreads)
+transpose_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                 uint32_t* __restrict__ out, long long W, int take) {
+  __shared__ uint32_t tile[32][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (long long w0 = (long long)blockIdx.x * kTrWords; w0 < W;
+       w0 += (long long)gridDim.x * kTrWords) {
+    uint32_t v[kTrPerWarp];
 #pragma unroll
-    for (int p = 0; p < 32; ++p) {
-      const uint32_t bb = __ballot_sync(0xffffffffu, (v >> p) & 1u);
-      if (lane == p) mine = bb;
+    for (int i = 0; i < kTrPerWarp; ++i) {
+      const long long w = w0 + warp + i * kWarps;
+      v[i] = 0;
+      if (w < W) {
+        if (kPair) {
+          const long long item = 16 * w + (lane >> 1);
+          v[i] = (lane & 1) ? __ldg(b + item) : __ldg(a + item);
+        } else {
+          v[i] = __ldg(a + 32 * w + lane);
+        }
+      }
     }
-    out[(long long)lane * W + w] = mine;
-  }
-}
-
-// K11 pass 1: valid bits per word.
-__global__ void popcount_kernel(const uint32_t* __restrict__ valid,
-                                int32_t* __restrict__ counts, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    counts[i] = __popc(valid[i]);
+#pragma unroll
+    for (int i = 0; i < kTrPerWarp; ++i) {
+      uint32_t mine = 0;
+      if (kShfl) {
+        mine = transpose32_shfl(v[i], lane);
+      } else {
+#pragma unroll
+        for (int p = 0; p < 32; ++p) {
+          if (p < take) {
+            const uint32_t bb = __ballot_sync(0xffffffffu, (v[i] >> p) & 1u);
+            if (lane == p) mine = bb;
+          }
+        }
+      }
+      tile[lane][warp + i * kWarps] = mine;  // plane lane, word warp + 8 i
+    }
+    __syncthreads();
+    const long long w = w0 + lane;
+    if (w < W) {
+      for (int p = warp; p < take; p += kWarps) out[(long long)p * W + w] = tile[p][lane];
+    }
+    __syncthreads();
   }
 }
 
@@ -115,30 +159,286 @@ __device__ __forceinline__ uint32_t pext32(uint32_t x, uint32_t m) {
   return x;
 }
 
-// K11 pass 2: word i of a part (rows of W words) starts at stream bit
-// S[i] + corr[i / W]; its compacted bits go to out words off / 32 and
-// off / 32 + 1.  Words past out_words are dropped (the caller's byte cap
-// flags that case as an overflow).
-__global__ void pack_scatter_kernel(const uint32_t* __restrict__ valid,
-                                    const uint32_t* __restrict__ bits,
-                                    const long long* __restrict__ S,
-                                    const long long* __restrict__ corr,
-                                    long long n, long long W,
-                                    uint32_t* __restrict__ out,
-                                    long long out_words) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const uint32_t m = valid[i];
-    if (m == 0) continue;
-    const uint32_t cw = pext32(bits[i], m);
-    if (cw == 0) continue;
-    const long long off = S[i] + corr[i / W];
-    const long long w = off >> 5;
-    const int r = (int)(off & 31);
-    if (w < out_words) atomicOr(out + w, cw << r);
-    if (r != 0 && w + 1 < out_words) {
-      const uint32_t hi = cw >> (32 - r);
-      if (hi) atomicOr(out + w + 1, hi);
+// K11.  Parts are (rows, W) word arrays; rows concatenate across parts in
+// order.  Tiles are numbered part by part, row by row; a row of W words has
+// ceil(W / kPackTile) tiles, the last one short when W is not a multiple.
+constexpr int kMaxParts = 4;
+constexpr int kPackTile = 2048;                          // words per tile
+constexpr int kPackGroups = kPackTile / (4 * kThreads);  // uint4 loads per thread
+constexpr int kScanThreads = 1024;
+static_assert(kPackGroups == 2, "the pack kernel scans two 16-bit count fields");
+
+struct PackParts {
+  const uint32_t* valid[kMaxParts];
+  const uint32_t* bits[kMaxParts];
+  long long W[kMaxParts];              // words per row
+  long long tpr[kMaxParts];            // tiles per row
+  long long tile0[kMaxParts + 1];      // first tile of each part; [n] = all tiles
+  long long row0[kMaxParts + 1];       // first row of each part; [n] = all rows
+  int n;
+};
+
+struct TileRef {
+  long long off;  // first word of the tile in its part
+  long long row;  // global row
+  int cnt;        // words in the tile
+  int part;
+};
+
+__device__ __forceinline__ TileRef locate_tile(const PackParts& P, long long t) {
+  int p = 0;
+  while (p + 1 < P.n && t >= P.tile0[p + 1]) ++p;
+  const long long local = t - P.tile0[p];
+  const long long r = local / P.tpr[p], k = local - r * P.tpr[p];
+  const long long left = P.W[p] - k * kPackTile;
+  TileRef ref;
+  ref.off = r * P.W[p] + k * kPackTile;
+  ref.row = P.row0[p] + r;
+  ref.cnt = (int)(left < kPackTile ? left : kPackTile);
+  ref.part = p;
+  return ref;
+}
+
+// words j .. j+3 of a tile of cnt words (zero past cnt)
+__device__ __forceinline__ void load4(const uint32_t* base, int j, int cnt, bool vec,
+                                      uint32_t (&w)[4]) {
+  if (vec && j + 4 <= cnt) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(base + j));
+    w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = j + k < cnt ? __ldg(base + j + k) : 0u;
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K11 count: valid bits and non-empty pieces of each tile, and the zeroed
+// output buffer.  Thread t holds
+// words g * 1024 + 4 t .. + 3 of its tile, so a piece of 8 (16) words spans
+// 2 (4) neighbouring lanes.
+__global__ void __launch_bounds__(kThreads)
+pack_count_kernel(PackParts P, long long ntiles, int piece_words, int32_t* __restrict__ tile_bits,
+                  int32_t* __restrict__ tile_nz, uint32_t* __restrict__ out,
+                  long long out_words) {
+  __shared__ int s_c[kWarps], s_nz[kWarps];
+  // the pack launch ORs into out: zero it here, spread over the grid
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long z = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (aligned16(out)) {
+    for (; z < out_words / 4; z += stride) reinterpret_cast<uint4*>(out)[z] = make_uint4(0, 0, 0, 0);
+    if (blockIdx.x == 0 && threadIdx.x < (out_words & 3)) out[(out_words & ~3LL) + threadIdx.x] = 0;
+  } else {
+    for (; z < out_words; z += stride) out[z] = 0;
+  }
+  const long long t = blockIdx.x;
+  if (t >= ntiles) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TileRef tr = locate_tile(P, t);
+  const uint32_t* vb = P.valid[tr.part] + tr.off;
+  const bool vec = aligned16(vb);
+  uint32_t v[kPackGroups][4];
+#pragma unroll
+  for (int g = 0; g < kPackGroups; ++g)
+    load4(vb, g * 4 * kThreads + 4 * threadIdx.x, tr.cnt, vec, v[g]);
+  const int lanes = piece_words > 4 ? piece_words / 4 : 1;
+  int c = 0, nz = 0;
+#pragma unroll
+  for (int g = 0; g < kPackGroups; ++g) {
+    c += __popc(v[g][0]) + __popc(v[g][1]) + __popc(v[g][2]) + __popc(v[g][3]);
+    if (piece_words == 2) {
+      nz += ((v[g][0] | v[g][1]) != 0) + ((v[g][2] | v[g][3]) != 0);
+    } else {
+      int any = (v[g][0] | v[g][1] | v[g][2] | v[g][3]) != 0;
+      for (int o = 1; o < lanes; o <<= 1) any |= __shfl_xor_sync(0xffffffffu, any, o);
+      if ((lane & (lanes - 1)) == 0) nz += any;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    c += __shfl_xor_sync(0xffffffffu, c, o);
+    nz += __shfl_xor_sync(0xffffffffu, nz, o);
+  }
+  if (lane == 0) s_c[warp] = c, s_nz[warp] = nz;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sc = 0, snz = 0;
+    for (int k = 0; k < kWarps; ++k) sc += s_c[k], snz += s_nz[k];
+    tile_bits[t] = sc;
+    tile_nz[t] = snz;
+  }
+}
+
+// exclusive scan of one int64 per thread over a block of kScanThreads; the
+// block's total in *total (every thread)
+__device__ long long block_scan64(long long x, long long* total, long long* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    long long s = sh[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    sh[lane] = s;
+  }
+  __syncthreads();
+  const long long excl = (warp ? sh[warp - 1] : 0) + inc - x;
+  *total = sh[kScanThreads / 32 - 1];
+  __syncthreads();
+  return excl;
+}
+
+// the part of global row r; its first tile in *first
+__device__ __forceinline__ int row_part(const PackParts& P, long long r, long long* first) {
+  int p = 0;
+  while (p + 1 < P.n && r >= P.row0[p + 1]) ++p;
+  *first = P.tile0[p] + (r - P.row0[p]) * P.tpr[p];
+  return p;
+}
+
+// K11 scan, one block: each thread takes a run of consecutive tiles (and of
+// rows).  tile_base first holds each tile's exclusive prefix over all
+// tiles; a row's count is the difference across its tiles; corr[r] moves
+// the prefixes of row r's tiles to its byte-aligned base.
+__global__ void __launch_bounds__(kScanThreads)
+pack_scan_kernel(PackParts P, const int32_t* __restrict__ tile_bits,
+                 const int32_t* __restrict__ tile_nz, long long ntiles, long long nrows,
+                 long long take, long long out_cap_bytes, int32_t* __restrict__ counts,
+                 long long* __restrict__ stats, long long* tile_base, long long* corr,
+                 uint8_t* __restrict__ overflow) {
+  __shared__ long long sh[kScanThreads / 32];
+  const long long ipt = (ntiles + kScanThreads - 1) / kScanThreads;
+  const long long a0 = min((long long)threadIdx.x * ipt, ntiles), a1 = min(a0 + ipt, ntiles);
+  long long s = 0, nz = 0;
+  for (long long i = a0; i < a1; ++i) s += tile_bits[i], nz += tile_nz[i];
+  long long all_bits, n_nz;
+  long long run = block_scan64(s, &all_bits, sh);
+  block_scan64(nz, &n_nz, sh);
+  for (long long i = a0; i < a1; ++i) {
+    tile_base[i] = run;
+    run += tile_bits[i];
+  }
+  __syncthreads();
+
+  const long long ipr = (nrows + kScanThreads - 1) / kScanThreads;
+  const long long b0 = min((long long)threadIdx.x * ipr, nrows), b1 = min(b0 + ipr, nrows);
+  long long bytes = 0;
+  for (long long r = b0; r < b1; ++r) {
+    long long f;
+    const int p = row_part(P, r, &f);
+    long long c = 0;
+    if (P.tpr[p] > 0) {
+      const long long l = f + P.tpr[p] - 1;
+      c = tile_base[l] + tile_bits[l] - tile_base[f];
+    }
+    counts[r] = (int32_t)c;
+    bytes += (c + 7) >> 3;
+  }
+  long long total_bytes;
+  long long rb = block_scan64(bytes, &total_bytes, sh);
+  for (long long r = b0; r < b1; ++r) {
+    long long f;
+    const int p = row_part(P, r, &f);
+    if (P.tpr[p] > 0) corr[r] = 8 * rb - tile_base[f];
+    rb += ((long long)counts[r] + 7) >> 3;
+  }
+  __syncthreads();
+
+  for (long long i = a0; i < a1; ++i) tile_base[i] += corr[locate_tile(P, i).row];
+  if (threadIdx.x == 0) {
+    stats[0] = total_bytes;
+    stats[1] = n_nz;
+    *overflow = (n_nz > take) || (total_bytes > out_cap_bytes);
+  }
+}
+
+// K11 pack: one tile per block.
+__global__ void __launch_bounds__(kThreads)
+pack_tile_kernel(PackParts P, const long long* __restrict__ tile_base,
+                 uint32_t* __restrict__ out, long long out_words) {
+  __shared__ uint32_t img[kPackTile + 1];  // the tile's output words
+  __shared__ unsigned s_warp[kWarps];
+  const long long t = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TileRef tr = locate_tile(P, t);
+  const uint32_t* vb = P.valid[tr.part] + tr.off;
+  const uint32_t* bb = P.bits[tr.part] + tr.off;
+  const bool vec = aligned16(vb) && aligned16(bb);
+  uint32_t v[kPackGroups][4], x[kPackGroups][4];
+#pragma unroll
+  for (int g = 0; g < kPackGroups; ++g) {
+    load4(vb, g * 4 * kThreads + 4 * threadIdx.x, tr.cnt, vec, v[g]);
+    load4(bb, g * 4 * kThreads + 4 * threadIdx.x, tr.cnt, vec, x[g]);
+  }
+  for (int i = threadIdx.x; i <= kPackTile; i += kThreads) img[i] = 0;
+
+  // counts of the two groups as the low and high 16 bits of one word: each
+  // field's block total is at most 256 * 128 = 32768, so neither carries
+  unsigned cg[kPackGroups];
+#pragma unroll
+  for (int g = 0; g < kPackGroups; ++g)
+    cg[g] = __popc(v[g][0]) + __popc(v[g][1]) + __popc(v[g][2]) + __popc(v[g][3]);
+  const unsigned mine = cg[0] | (cg[1] << 16);
+  unsigned inc = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned s = lane < kWarps ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < kWarps) s_warp[lane] = s;
+  }
+  __syncthreads();
+  const unsigned excl = (warp ? s_warp[warp - 1] : 0) + inc - mine;
+  const unsigned total = s_warp[kWarps - 1];
+  const long long nbits = (long long)(total & 0xffffu) + (total >> 16);
+  if (nbits == 0) return;
+  const long long base = tile_base[t];
+  const int s0 = (int)(base & 31);
+  unsigned e[kPackGroups] = {s0 + (excl & 0xffffu), s0 + (total & 0xffffu) + (excl >> 16)};
+#pragma unroll
+  for (int g = 0; g < kPackGroups; ++g) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t m = v[g][k];
+      if (m == 0) continue;
+      const uint32_t cw = m == 0xffffffffu ? x[g][k] : pext32(x[g][k], m);
+      const unsigned q = e[g];
+      e[g] += __popc(m);
+      if (cw == 0) continue;
+      const int r = q & 31;
+      atomicOr(img + (q >> 5), cw << r);
+      if (r != 0 && (cw >> (32 - r))) atomicOr(img + (q >> 5) + 1, cw >> (32 - r));
+    }
+  }
+  __syncthreads();
+  const long long nout = (s0 + nbits + 31) >> 5;
+  const long long w0 = base >> 5;
+  for (long long i = threadIdx.x; i < nout && w0 + i < out_words; i += kThreads) {
+    const uint32_t val = img[i];
+    if (i == 0 || i == nout - 1) {
+      if (val) atomicOr(out + w0 + i, val);
+    } else {
+      out[w0 + i] = val;
     }
   }
 }
@@ -274,46 +574,73 @@ __global__ void flag_fill_kernel(int32_t* __restrict__ idx,
 
 }  // namespace
 
-// K10: x (32 W) words -> out (32, W).
-extern "C" int sperr_transpose_bits32(const uint32_t* x, uint32_t* out,
-                                      long long W, cudaStream_t stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  transpose_kernel<<<(unsigned)grid_for(W, kWarps), kThreads, 0, stream>>>(
-      x, out, W);
+// K10: x (32 W) items (b null) or the pair a, b (16 W items each) -> planes
+// 0 .. take-1 of the transpose into rows row0 .. row0+take-1 of out, a
+// buffer of rows of W words.
+extern "C" int sperr_transpose_bits32(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                      long long W, long long row0, int take, int shfl,
+                                      cudaStream_t stream) {
+  if (W <= 0 || row0 < 0 || take < 1 || take > 32) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)grid_for(W, kTrWords);
+  uint32_t* dst = out + row0 * W;
+  if (b && shfl)
+    transpose_kernel<true, true><<<grid, kThreads, 0, stream>>>(a, b, dst, W, take);
+  else if (b)
+    transpose_kernel<true, false><<<grid, kThreads, 0, stream>>>(a, b, dst, W, take);
+  else if (shfl)
+    transpose_kernel<false, true><<<grid, kThreads, 0, stream>>>(a, nullptr, dst, W, take);
+  else
+    transpose_kernel<false, false><<<grid, kThreads, 0, stream>>>(a, nullptr, dst, W, take);
   return (int)cudaGetLastError();
 }
 
-// K10 pair form: a, b (16 W) words -> out (32, W).
-extern "C" int sperr_transpose_bits32_pair(const uint32_t* a, const uint32_t* b,
-                                           uint32_t* out, long long W,
-                                           cudaStream_t stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  transpose_pair_kernel<<<(unsigned)grid_for(W, kWarps), kThreads, 0, stream>>>(
-      a, b, out, W);
-  return (int)cudaGetLastError();
-}
-
-// K11 pass 1: counts[i] = popcount(valid[i]) for n words.
-extern "C" int sperr_popcount_words(const uint32_t* valid, int32_t* counts,
-                                    long long n, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  popcount_kernel<<<(unsigned)grid_for(n, kThreads * 4LL), kThreads, 0, stream>>>(
-      valid, counts, n);
-  return (int)cudaGetLastError();
-}
-
-// K11 pass 2 over one part of n words in rows of W: out (out_words), which
-// the caller zeroes, receives the packed bits.
-extern "C" int sperr_masked_pack_scatter(const uint32_t* valid,
-                                         const uint32_t* bits,
-                                         const long long* S,
-                                         const long long* corr, long long n,
-                                         long long W, uint32_t* out,
-                                         long long out_words,
-                                         cudaStream_t stream) {
-  if (n <= 0 || W <= 0 || n % W != 0) return (int)cudaErrorInvalidValue;
-  pack_scatter_kernel<<<(unsigned)grid_for(n, kThreads * 4LL), kThreads, 0,
-                        stream>>>(valid, bits, S, corr, n, W, out, out_words);
+// K11 over nparts parts (valid[p], bits[p]: rows[p] x W[p] words).  out
+// (out_cap_bytes / 4 words) receives the packed bits (the count launch
+// zeroes it).  i32: counts (all rows), then 2 words per tile of scratch;
+// i64: total bytes and non-empty pieces, then one word per tile and one per
+// row of scratch; overflow: one byte.  Launches count, scan and pack (pack
+// only when there is a tile).
+extern "C" int sperr_masked_pack(int nparts, const uint32_t* const* valid,
+                                 const uint32_t* const* bits, const long long* rows,
+                                 const long long* W, int piece_words, long long take,
+                                 long long out_cap_bytes, uint32_t* out, int32_t* i32,
+                                 long long* i64, uint8_t* overflow, cudaStream_t stream) {
+  if (nparts < 1 || nparts > kMaxParts || out_cap_bytes < 0 || out_cap_bytes % 4 ||
+      !(piece_words == 2 || piece_words == 4 || piece_words == 8 || piece_words == 16))
+    return (int)cudaErrorInvalidValue;
+  PackParts P = {};
+  long long tiles = 0, nrows = 0;
+  for (int p = 0; p < nparts; ++p) {
+    if (rows[p] < 0 || W[p] < 0 || W[p] % piece_words) return (int)cudaErrorInvalidValue;
+    P.valid[p] = valid[p];
+    P.bits[p] = bits[p];
+    P.W[p] = W[p];
+    P.tpr[p] = (W[p] + kPackTile - 1) / kPackTile;
+    P.tile0[p] = tiles;
+    P.row0[p] = nrows;
+    tiles += rows[p] * P.tpr[p];
+    nrows += rows[p];
+  }
+  for (int p = nparts; p <= kMaxParts; ++p) P.tile0[p] = tiles, P.row0[p] = nrows;
+  P.n = nparts;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int32_t* counts = i32;
+  int32_t* tile_bits = i32 + nrows;
+  int32_t* tile_nz = tile_bits + tiles;
+  long long* stats = i64;
+  long long* tile_base = i64 + 2;
+  long long* corr = tile_base + tiles;
+  pack_count_kernel<<<(unsigned)(tiles ? tiles : 1), kThreads, 0, stream>>>(
+      P, tiles, piece_words, tile_bits, tile_nz, out, out_cap_bytes / 4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pack_scan_kernel<<<1, kScanThreads, 0, stream>>>(P, tile_bits, tile_nz, tiles, nrows, take,
+                                                   out_cap_bytes, counts, stats, tile_base,
+                                                   corr, overflow);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !tiles) return (int)err;
+  pack_tile_kernel<<<(unsigned)tiles, kThreads, 0, stream>>>(P, tile_base, out,
+                                                             out_cap_bytes / 4);
   return (int)cudaGetLastError();
 }
 

@@ -117,21 +117,35 @@ def _tr32_stages(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def transpose_bits32_ref(x: torch.Tensor) -> torch.Tensor:
+def _planes_into(full: torch.Tensor, out, row0: int, take: int) -> torch.Tensor:
+    """Rows 0 .. take-1 of the 32 planes ``full`` into rows row0 .. row0+take-1
+    of out (a new (take, W) tensor when out is None)."""
+    if out is None:
+        assert row0 == 0
+        return full[:take].contiguous()
+    out[row0 : row0 + take] = full[:take]
+    return out
+
+
+def transpose_bits32_ref(x: torch.Tensor, out=None, row0: int = 0, take: int = 32) -> torch.Tensor:
     """Plain K10: flat int32 x (M % 32 == 0), x[i] bit p = cell (p, i) ->
-    (32, M // 32) planes, out[p, w] bit l = x[32 w + l] bit p."""
+    planes 0 .. take-1 of the (32, M // 32) transpose, out[p, w] bit l =
+    x[32 w + l] bit p, written into rows row0 .. row0+take-1 of out."""
     M = x.shape[0]
-    assert M % 32 == 0
-    return _tr32_stages(x.to(_I32)).reshape(M // 32, 32).T.contiguous()
+    assert M % 32 == 0 and 1 <= take <= 32
+    full = _tr32_stages(x.to(_I32)).reshape(M // 32, 32).T
+    return _planes_into(full, out, row0, take)
 
 
-def transpose_bits32_pair_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def transpose_bits32_pair_ref(a: torch.Tensor, b: torch.Tensor, out=None, row0: int = 0,
+                              take: int = 32) -> torch.Tensor:
     """Plain K10, pair form: the transpose of the interleaved cell array
     v[2i] = a[i], v[2i+1] = b[i] (M % 16 == 0), without building it: stages
     j in {16, 8, 4, 2} act on a and b alone at half the positional
-    distance, the j = 1 stage pairs (a_i, b_i) in place."""
+    distance, the j = 1 stage pairs (a_i, b_i) in place.  Planes 0 ..
+    take-1 go to rows row0 .. row0+take-1 of out."""
     M = a.shape[0]
-    assert M % 16 == 0
+    assert M % 16 == 0 and 1 <= take <= 32
     a = a.to(_I32)
     b = b.to(_I32)
     lane = torch.arange(M, dtype=_I32, device=a.device) & 15
@@ -150,7 +164,7 @@ def transpose_bits32_pair_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b = b ^ t
     ar = a.reshape(M // 16, 16).T
     br = b.reshape(M // 16, 16).T
-    return torch.stack([ar, br], dim=1).reshape(32, M // 16)
+    return _planes_into(torch.stack([ar, br], dim=1).reshape(32, M // 16), out, row0, take)
 
 
 def _dispatch(t: torch.Tensor, what: str) -> bool:
@@ -163,18 +177,28 @@ def _dispatch(t: torch.Tensor, what: str) -> bool:
     return False
 
 
-def transpose_bits32(x: torch.Tensor) -> torch.Tensor:
-    """K10 on a CUDA tensor, the plain version on a CPU tensor."""
+def transpose_bits32(x: torch.Tensor, out=None, row0: int = 0, take: int = 32) -> torch.Tensor:
+    """K10 on a CUDA tensor, the plain version on a CPU tensor: planes 0 ..
+    take-1 of x's transpose into rows row0 .. row0+take-1 of out (a new
+    (take, M // 32) tensor when out is None); returns out."""
     if _dispatch(x, "transpose_bits32"):
-        return kernels.transpose_bits32(x.to(_I32).contiguous())
-    return transpose_bits32_ref(x)
+        if out is None:
+            out = torch.empty((take, x.shape[0] // 32), dtype=_I32, device=x.device)
+        return kernels.transpose_bits32(x.to(_I32).contiguous(), out, row0, take)
+    return transpose_bits32_ref(x, out, row0, take)
 
 
-def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K10, pair form, on a CUDA tensor; the plain version on a CPU tensor."""
+def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor, out=None, row0: int = 0,
+                          take: int = 32) -> torch.Tensor:
+    """K10, pair form, on a CUDA tensor; the plain version on a CPU tensor
+    (arguments as for ``transpose_bits32``, out (R, M // 16))."""
     if _dispatch(a, "transpose_bits32_pair"):
-        return kernels.transpose_bits32_pair(a.to(_I32).contiguous(), b.to(_I32).contiguous())
-    return transpose_bits32_pair_ref(a, b)
+        if out is None:
+            out = torch.empty((take, a.shape[0] // 16), dtype=_I32, device=a.device)
+        return kernels.transpose_bits32_pair(
+            a.to(_I32).contiguous(), b.to(_I32).contiguous(), out, row0, take
+        )
+    return transpose_bits32_pair_ref(a, b, out, row0, take)
 
 
 def untranspose_bits32(planes: torch.Tensor) -> torch.Tensor:
@@ -264,62 +288,96 @@ class PackResult(NamedTuple):
     n_nz: torch.Tensor         # int64 () non-empty pieces (tier-sizing signal)
 
 
-def _pack_scatter_ref(valid, bits, S, corr, out) -> None:
-    """Plain K11 pass 2 (see kernels.masked_pack_scatter), into out in place."""
-    rows, W = valid.shape
-    cw = pext32(bits.reshape(-1), valid.reshape(-1)).to(torch.int64) & 0xFFFFFFFF
-    off = S + corr.repeat_interleave(W)
-    w = off >> 5
-    r = off & 31
-    n_out = out.numel()
-    acc = torch.zeros(n_out + 1, dtype=torch.int64, device=out.device)
-    for d, part in ((0, (cw << r) & 0xFFFFFFFF), (1, cw >> (32 - r))):
-        pos = torch.where(w + d < n_out, w + d, torch.full_like(w, n_out))
-        acc.index_add_(0, pos, part)  # contributions are bit-disjoint: add == or
-    out |= _to_i32(acc[:n_out])
+def _pack_layout(parts, tile: int) -> List[Tuple[int, int, int]]:
+    """(rows, W, tiles per row) of each part: a tile is ``tile`` words of one
+    row, the last tile of a row short when W is not a multiple."""
+    return [(v.shape[0], v.shape[1], -(-v.shape[1] // tile)) for v, _ in parts]
 
 
-def _masked_pack(parts, evb_cap, out_cap_bytes, piece_words, count_fn, scatter_fn) -> PackResult:
+def _tiles(w: torch.Tensor, tpr: int, tile: int) -> torch.Tensor:
+    """(rows, W) words -> (rows * tpr, tile), zero past each row's end."""
+    rows, W = w.shape
+    if tpr * tile != W:
+        w = torch.cat([w, w.new_zeros((rows, tpr * tile - W))], dim=1)
+    return w.reshape(rows * tpr, tile)
+
+
+def pack_count_ref(parts, piece_words: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K11 count: each tile's valid bits and non-empty pieces (runs of
+    piece_words words with a valid bit), int32, in tile order (part by part,
+    row by row)."""
+    assert tile % piece_words == 0
+    bits_l, nz_l = [], []
+    for (v, _), (rows, W, tpr) in zip(parts, _pack_layout(parts, tile)):
+        t = _tiles(v.to(_I32), tpr, tile)
+        bits_l.append(popcount32(t).sum(dim=1, dtype=torch.int32))
+        nz_l.append((t.reshape(-1, tile // piece_words, piece_words) != 0).any(dim=2)
+                    .sum(dim=1, dtype=torch.int32))
+    return torch.cat(bits_l), torch.cat(nz_l)
+
+
+def pack_scan_ref(tile_bits: torch.Tensor, tile_nz: torch.Tensor, layout, take: int,
+                  out_cap_bytes: int):
+    """Plain K11 scan: (counts int32 per row, tile_base int64 per tile: the
+    stream bit of its first valid bit, total_bytes, overflow, n_nz).  Rows
+    start on a byte boundary, in order across parts."""
+    tb = tile_bits.to(torch.int64)
+    counts_l, within_l = [], []
+    t0 = 0
+    for rows, _, tpr in layout:
+        rt = tb[t0 : t0 + rows * tpr].reshape(rows, tpr)
+        counts_l.append(rt.sum(dim=1))
+        within_l.append(torch.cumsum(rt, dim=1) - rt)  # prefix inside the row
+        t0 += rows * tpr
+    counts = torch.cat(counts_l)
+    bc = (counts + 7) >> 3
+    row_base = (torch.cumsum(bc, dim=0) - bc) << 3
+    bases, r0 = [], 0
+    for (rows, _, tpr), within in zip(layout, within_l):
+        bases.append((within + row_base[r0 : r0 + rows, None]).reshape(-1))
+        r0 += rows
+    total_bytes = bc.sum()
+    n_nz = tile_nz.to(torch.int64).sum()
+    overflow = (n_nz > take) | (total_bytes > out_cap_bytes)
+    return counts.to(_I32), torch.cat(bases), total_bytes, overflow, n_nz
+
+
+def pack_tiles_ref(parts, tile_base: torch.Tensor, tile: int, out_cap_bytes: int) -> torch.Tensor:
+    """Plain K11 pack: each word's valid bits (pext32) at its tile's base
+    plus the valid bits of the words before it in the tile, ORed into a
+    zeroed buffer of out_cap_bytes // 4 words; words past it are dropped."""
+    n_out = out_cap_bytes // 4
+    acc = torch.zeros(n_out + 1, dtype=torch.int64, device=tile_base.device)
+    t0 = 0
+    for (v, b), (rows, W, tpr) in zip(parts, _pack_layout(parts, tile)):
+        tv = _tiles(v.to(_I32), tpr, tile)
+        c = popcount32(tv).to(torch.int64)
+        off = (tile_base[t0 : t0 + rows * tpr, None] + torch.cumsum(c, dim=1) - c).reshape(-1)
+        cw = pext32(_tiles(b.to(_I32), tpr, tile), tv).reshape(-1).to(torch.int64) & 0xFFFFFFFF
+        w, r = off >> 5, off & 31
+        for d, part in ((0, (cw << r) & 0xFFFFFFFF), (1, cw >> (32 - r))):
+            pos = torch.where(w + d < n_out, w + d, torch.full_like(w, n_out))
+            acc.index_add_(0, pos, part)  # contributions are bit-disjoint: add == or
+        t0 += rows * tpr
+    return _to_i32(acc[:n_out])
+
+
+def masked_pack_ref(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8,
+                    tile: int = kernels.PACK_TILE) -> PackResult:
+    """Plain K11 (see ``masked_pack``), in the kernel's three stages; the
+    result does not depend on ``tile`` (a multiple of piece_words)."""
     assert out_cap_bytes % 4 == 0
     assert piece_words in (2, 4, 8, 16)
-    dev = parts[0][0].device
-    c_l: List[torch.Tensor] = []
-    for valid_w, bit_w in parts:
-        assert valid_w.dim() == 2 and valid_w.shape == bit_w.shape
-        assert valid_w.shape[1] % piece_words == 0
-        c_l.append(count_fn(valid_w.reshape(-1)))
-    cflat = torch.cat(c_l) if len(c_l) > 1 else c_l[0]
-    incl = torch.cumsum(cflat, dim=0, dtype=torch.int64)
-    S = incl - cflat                      # global exclusive bit offsets, unaligned
-
-    counts = torch.cat(
-        [c.reshape(v.shape[0], v.shape[1]).sum(dim=1) for c, (v, _) in zip(c_l, parts)]
+    for v, b in parts:
+        assert v.dim() == 2 and v.shape == b.shape and v.shape[1] % piece_words == 0
+    layout = _pack_layout(parts, tile)
+    take = min(evb_cap, sum(rows * W for rows, W, _ in layout) // piece_words)
+    tile_bits, tile_nz = pack_count_ref(parts, piece_words, tile)
+    counts, tile_base, total_bytes, overflow, n_nz = pack_scan_ref(
+        tile_bits, tile_nz, layout, take, out_cap_bytes
     )
-    bc = (counts + 7) >> 3
-    base_bits = (torch.cumsum(bc, dim=0) - bc) << 3
-    total_bytes = bc.sum()
-
-    out_wcap = out_cap_bytes // 4
-    out = torch.zeros(out_wcap, dtype=_I32, device=dev)
-    off = r0 = 0
-    for valid_w, bit_w in parts:
-        r, w = valid_w.shape
-        Sp = S[off : off + r * w]
-        corr = base_bits[r0 : r0 + r] - Sp[::w]
-        scatter_fn(valid_w, bit_w, Sp, corr.contiguous(), out)
-        off += r * w
-        r0 += r
-
-    Np = cflat.shape[0] // piece_words
-    take = min(evb_cap, Np)
-    n_nz = (cflat.reshape(Np, piece_words).amax(dim=1) > 0).sum()
-    overflow = (n_nz > take) | (total_bytes > out_cap_bytes)
-    return PackResult(out, counts.to(_I32), total_bytes, overflow, n_nz)
-
-
-def masked_pack_ref(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8) -> PackResult:
-    """Plain K11 (see ``masked_pack``)."""
-    return _masked_pack(parts, evb_cap, out_cap_bytes, piece_words, popcount32, _pack_scatter_ref)
+    out = pack_tiles_ref(parts, tile_base, tile, out_cap_bytes)
+    return PackResult(out, counts, total_bytes, overflow, n_nz)
 
 
 def masked_pack(
@@ -338,15 +396,11 @@ def masked_pack(
     min(evb_cap, pieces) or the bytes exceed ``out_cap_bytes``, exactly as
     in the JAX package; ``out_words`` is valid only when it is False.
 
-    K11 on CUDA tensors (popcount and scatter passes; the scans between
-    them are torch ops, as in the JAX package), the plain version on CPU
-    tensors."""
+    K11 on CUDA tensors (three launches, count, scan and pack, with no torch
+    op between them), the plain version on CPU tensors."""
     if _dispatch(parts[0][0], "masked_pack"):
         parts = [(v.to(_I32).contiguous(), b.to(_I32).contiguous()) for v, b in parts]
-        return _masked_pack(
-            parts, evb_cap, out_cap_bytes, piece_words,
-            kernels.popcount_words, kernels.masked_pack_scatter,
-        )
+        return PackResult(*kernels.masked_pack(parts, evb_cap, out_cap_bytes, piece_words))
     return masked_pack_ref(parts, evb_cap, out_cap_bytes, piece_words)
 
 

@@ -56,29 +56,41 @@ def _pad_cols(a: torch.Tensor, cols: int, fill) -> torch.Tensor:
     return torch.cat([a, pad], dim=-1)
 
 
+def _emit_buffers(first_mask: torch.Tensor, P: int, per_word: int):
+    """The (P, W) valid and bit word buffers that every 32-pass window of
+    an emission writes its planes into (W = items // per_word)."""
+    W = first_mask.shape[0] // per_word
+    return tuple(torch.empty((P, W), dtype=_I32, device=first_mask.device) for _ in range(2))
+
+
 def _emit_words(masks_fn, P: int):
     """Packed (valid, bit) emission words [P, M//32] from per-cell pass
     masks: ``masks_fn(base)`` returns (mask_v, mask_b) int32 [M] for the pass
-    window [base, base+32)."""
-    vws, bws = [], []
+    window [base, base+32).  K10 writes each window's planes straight into
+    the two (P, W) buffers."""
+    vw = bw = None
     for base in range(0, P, 32):
         mv, mb = masks_fn(base)
+        if vw is None:
+            vw, bw = _emit_buffers(mv, P, 32)
         take = min(32, P - base)
-        vws.append(pe.transpose_bits32(mv)[:take])
-        bws.append(pe.transpose_bits32(mb)[:take])
-    return torch.cat(vws), torch.cat(bws)
+        pe.transpose_bits32(mv, vw, base, take)
+        pe.transpose_bits32(mb, bw, base, take)
+    return vw, bw
 
 
 def _emit_words_pair(masks_fn, P: int):
     """Pair-class variant: ``masks_fn(base)`` returns per-item masks for the
     even (decision) and odd (sign) cell lanes (mvA, mbA, mvB, mbB)."""
-    vws, bws = [], []
+    vw = bw = None
     for base in range(0, P, 32):
         mvA, mbA, mvB, mbB = masks_fn(base)
+        if vw is None:
+            vw, bw = _emit_buffers(mvA, P, 16)
         take = min(32, P - base)
-        vws.append(pe.transpose_bits32_pair(mvA, mvB)[:take])
-        bws.append(pe.transpose_bits32_pair(mbA, mbB)[:take])
-    return torch.cat(vws), torch.cat(bws)
+        pe.transpose_bits32_pair(mvA, mvB, vw, base, take)
+        pe.transpose_bits32_pair(mbA, mbB, bw, base, take)
+    return vw, bw
 
 
 def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,

@@ -362,15 +362,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.idwt2d_full(torch.zeros((2, 16, 16)), np.ones(6), 1, 0)
     w = torch.zeros(64, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.transpose_bits32(w)
+        kernels.transpose_bits32(w, torch.zeros((32, 2), dtype=torch.int32), 0, 32)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.transpose_bits32_pair(w, w)
+        kernels.transpose_bits32_pair(w, w, torch.zeros((14, 4), dtype=torch.int32), 0, 14)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.popcount_words(w)
+        kernels.masked_pack([(w.reshape(8, 8), w.reshape(8, 8))], 8, 1024)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.masked_pack_scatter(
-            w.reshape(8, 8), w.reshape(8, 8), torch.zeros(64, dtype=torch.int64),
-            torch.zeros(8, dtype=torch.int64), w,
+        kernels.masked_pack(
+            [(w.reshape(8, 8), w.reshape(8, 8)), (w.reshape(4, 16), w.reshape(4, 16))], 8, 1024, 4,
         )
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.compact_flags_rows(torch.zeros((1, 64), dtype=torch.bool), 8)

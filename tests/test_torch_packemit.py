@@ -232,3 +232,165 @@ def test_masked_pack_overflow_flags(evb_cap, out_cap):
 def test_words_to_bytes_little_endian():
     w = _t(np.asarray([0x04030201, 0xFFFFFFFF], np.uint32))
     assert list(tp.words_to_bytes(w).numpy()) == [1, 2, 3, 4, 255, 255, 255, 255]
+
+
+# ---------------------------------------------------------------------------
+# K10 into the caller's buffer: planes 0 .. take-1 at rows row0 ..
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("row0,take", [(0, 32), (0, 14), (0, 22), (32, 2), (5, 1)])
+def test_transpose_bits32_take_row0_matches_jax_slices(pair, row0, take):
+    rng = np.random.default_rng(row0 * 40 + take + pair)
+    W = 37
+    R = row0 + take + 3
+    if pair:
+        a, b = _words(rng, 16 * W), _words(rng, 16 * W)
+        want = np.asarray(jp.transpose_bits32_pair(jnp.asarray(a), jnp.asarray(b)))
+    else:
+        a = _words(rng, 32 * W)
+        want = np.asarray(jp.transpose_bits32(jnp.asarray(a)))
+    out = torch.full((R, W), -7, dtype=torch.int32)
+    if pair:
+        got = tp.transpose_bits32_pair(_t(a), _t(b), out, row0, take)
+    else:
+        got = tp.transpose_bits32(_t(a), out, row0, take)
+    assert got is out
+    np.testing.assert_array_equal(_u(out[row0 : row0 + take]), want[:take])
+    untouched = torch.cat([out[:row0], out[row0 + take :]])
+    assert (untouched == -7).all()
+    fresh = tp.transpose_bits32_pair(_t(a), _t(b), take=take) if pair else tp.transpose_bits32(_t(a), take=take)
+    np.testing.assert_array_equal(_u(fresh), want[:take])
+
+
+# ---------------------------------------------------------------------------
+# K11 in its three stages (count, scan, pack) on ragged and edge shapes
+# ---------------------------------------------------------------------------
+def _thin_words(rng, shape, k):
+    """u32 words whose bits are set with probability 2^-k (k = 0: all ones;
+    None: all zeros)."""
+    w = np.full(shape, 0 if k is None else 0xFFFFFFFF, np.uint32)
+    for _ in range(k or 0):
+        w &= _words(rng, int(np.prod(shape))).reshape(shape)
+    return w
+
+
+def _pack_case(name):
+    """(parts as u32 (valid, bits) word pairs, evb_cap, out_cap or None for
+    caps that hold everything)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    spec = {
+        # rows shorter than a tile and rows that end mid-tile (tile 16 or 64)
+        "ragged": [(3, 24, 3), (2, 200, 5), (4, 8, 1)],
+        # empty rows, an empty part, all-ones words
+        "empty": [(3, 64, None), (0, 32, 2), (2, 48, 0), (1, 16, 2)],
+        "dense": [(2, 136, 1), (5, 32, 2)],
+        "overflow_pieces": [(3, 24, 3), (2, 200, 5)],
+        "overflow_bytes": [(3, 24, 3), (2, 200, 5)],
+    }[name]
+    parts = [(_thin_words(rng, (r, w), k), _words(rng, r * w).reshape(r, w)) for r, w, k in spec]
+    if name == "empty":
+        parts[0][0][1, 3] = 0x10001  # one row of the empty part holds two bits
+    evb_cap, out_cap = {"overflow_pieces": (3, None), "overflow_bytes": (None, 40)}.get(name, (None, None))
+    return parts, evb_cap, out_cap
+
+
+def _caps(parts, piece_words, evb_cap, out_cap):
+    words = sum(v.size for v, _ in parts)
+    rows = sum(v.shape[0] for v, _ in parts)
+    if out_cap is None:
+        out_cap = ((4 * words + rows + 7) // 4 + 1) * 4
+    if evb_cap is None:
+        evb_cap = words // piece_words + 1
+    return evb_cap, out_cap
+
+
+def _word_cells(w):
+    """(rows, W) u32 words -> (rows, 32 W) 0/1 cells, LSB first."""
+    return np.unpackbits(np.ascontiguousarray(w).view(np.uint8), axis=1, bitorder="little")
+
+
+_PACK_CASES = ["ragged", "empty", "dense", "overflow_pieces", "overflow_bytes"]
+
+
+@pytest.mark.parametrize("tile", [16, 64, 2048])
+@pytest.mark.parametrize("piece_words", [4, 8])
+@pytest.mark.parametrize("name", _PACK_CASES)
+def test_masked_pack_stages_match_jax(name, piece_words, tile):
+    parts, evb_cap, out_cap = _pack_case(name)
+    evb_cap, out_cap = _caps(parts, piece_words, evb_cap, out_cap)
+    tparts = [(_t(v), _t(b)) for v, b in parts]
+    jres = _jax_pack([(jnp.asarray(v), jnp.asarray(b)) for v, b in parts], evb_cap, out_cap, piece_words)
+    jcounts = np.asarray(jres.counts).astype(np.int64)
+
+    # count: per tile, against NumPy, and summed per row against sperr_tpu
+    layout = tp._pack_layout(tparts, tile)
+    tile_bits, tile_nz = tp.pack_count_ref(tparts, piece_words, tile)
+    want_bits, want_nz = [], []
+    for (v, _), (rows, W, tpr) in zip(parts, layout):
+        pad = np.zeros((rows, tpr * tile), np.uint32)
+        pad[:, :W] = v
+        t = pad.reshape(rows * tpr, tile)
+        want_bits.append(np.unpackbits(t.view(np.uint8), axis=1).sum(axis=1))
+        want_nz.append((t.reshape(rows * tpr, tile // piece_words, piece_words) != 0)
+                       .any(axis=2).sum(axis=1))
+    np.testing.assert_array_equal(tile_bits.numpy(), np.concatenate(want_bits))
+    np.testing.assert_array_equal(tile_nz.numpy(), np.concatenate(want_nz))
+    assert int(tile_nz.sum()) == int(jres.n_nz)
+
+    # scan: counts, totals and overflow as sperr_tpu; each tile's base is its
+    # row's byte-aligned base plus the bits of the tiles before it in the row
+    take = min(evb_cap, sum(v.size for v, _ in parts) // piece_words)
+    counts, tile_base, total_bytes, overflow, n_nz = tp.pack_scan_ref(
+        tile_bits, tile_nz, layout, take, out_cap
+    )
+    np.testing.assert_array_equal(counts.numpy(), jcounts)
+    assert int(total_bytes) == int(jres.total_bytes)
+    assert int(n_nz) == int(jres.n_nz)
+    assert bool(overflow) == bool(jres.overflow) == name.startswith("overflow")
+    row_base = 8 * (np.cumsum((jcounts + 7) >> 3) - ((jcounts + 7) >> 3))
+    want_base, t0, r0 = [], 0, 0
+    for rows, _, tpr in layout:
+        tb = tile_bits.numpy()[t0 : t0 + rows * tpr].reshape(rows, tpr).astype(np.int64)
+        want_base.append((np.cumsum(tb, axis=1) - tb + row_base[r0 : r0 + rows, None]).reshape(-1))
+        t0, r0 = t0 + rows * tpr, r0 + rows
+    np.testing.assert_array_equal(tile_base.numpy(), np.concatenate(want_base))
+
+    # pack: the words of sperr_tpu and the bytes of the NumPy oracle
+    out = tp.pack_tiles_ref(tparts, tile_base, tile, out_cap)
+    ref_bytes, ref_counts = tp.masked_pack_reference(
+        [(_word_cells(v), _word_cells(b)) for v, b in parts]
+    )
+    np.testing.assert_array_equal(ref_counts, jcounts)
+    got = tp.words_to_bytes(out).numpy()
+    n = min(ref_bytes.size, got.size)
+    np.testing.assert_array_equal(got[:n], ref_bytes[:n])
+    assert not got[n:].any()
+    if not bool(jres.overflow):
+        np.testing.assert_array_equal(_u(out), np.asarray(jres.out_words))
+
+    # the whole plain K11 is the three stages
+    res = tp.masked_pack_ref(tparts, evb_cap, out_cap, piece_words, tile)
+    for x, y in zip(res, (out, counts, total_bytes, overflow, n_nz)):
+        assert torch.equal(x, y)
+    _assert_same(res, jres)
+
+
+# ---------------------------------------------------------------------------
+# the emission's word buffers: every 32-pass window writes into one (P, W)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("P", [14, 22, 34])
+@pytest.mark.parametrize("pair", [False, True])
+def test_emit_words_into_one_buffer_match_jax(P, pair):
+    from sperr_tpu.ops import wave_pack as jwp
+    from sperr_tpu_torch.ops import wave_pack as twp
+
+    rng = np.random.default_rng(P * 2 + pair)
+    M = (16 if pair else 32) * 37
+    masks = {base: [_words(rng, M) for _ in range(4 if pair else 2)] for base in range(0, P, 32)}
+    jfn = (jwp._emit_words_pair if pair else jwp._emit_words)
+    tfn = (twp._emit_words_pair if pair else twp._emit_words)
+    jv, jb = jfn(lambda base: [jnp.asarray(m) for m in masks[base]], P)
+    tv, tb = tfn(lambda base: [_t(m) for m in masks[base]], P)
+    assert tv.shape == tb.shape == (P, M // (16 if pair else 32))
+    np.testing.assert_array_equal(_u(tv), np.asarray(jv))
+    np.testing.assert_array_equal(_u(tb), np.asarray(jb))
