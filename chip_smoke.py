@@ -106,9 +106,9 @@ def _busy_ms(fn, reps: int):
     """Device-busy milliseconds per call of fn: the summed device time of its
     kernels and copies in a torch.profiler trace of reps calls after a
     warm-up (the host's gaps, and its waits where fn synchronizes, left
-    out), and the number of calls in one run of fn that made the host wait
-    for the device (torch's sync debug mode).  None if the trace holds no
-    device time."""
+    out); the number of calls in one run of fn that made the host wait for
+    the device (torch's sync debug mode); and {kernel name: ms per call}.
+    None for the time if the trace holds no device time."""
     import warnings
 
     import torch
@@ -128,8 +128,16 @@ def _busy_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return (us / 1e3 / reps if us > 0 else None), len(caught)
+    per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+    busy = sum(per_name.values())
+    return (busy if busy > 0 else None), len(caught), per_name
+
+
+def _top(per_name, k: int) -> str:
+    """The k kernels with the most device time, as 'name ms'."""
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:k]
+    return ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
 def _capture(module, names):
@@ -203,49 +211,43 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
 
     out = {}
     err = 0
-    default_form = kernels.K10_SHUFFLE
-    k10_forms = {}
-    for form in (False, True):
-        kernels.K10_SHUFFLE = form
-        # K10 writes planes 0 .. take-1 into rows row0 .. of the caller's buffer:
-        # both versions start from the same filler, so a row written out of
-        # place shows too
-        for args in calls["transpose_bits32"] + calls["transpose_bits32_pair"]:
-            *xs, dst, row0, take = args
-            a, b = torch.full_like(dst, -7), torch.full_like(dst, -7)
-            if len(xs) == 1:
-                kernels.transpose_bits32(xs[0].contiguous(), a, row0, take)
-                packemit.transpose_bits32_ref(xs[0], b, row0, take)
-            else:
-                kernels.transpose_bits32_pair(xs[0].contiguous(), xs[1].contiguous(), a, row0, take)
-                packemit.transpose_bits32_pair_ref(xs[0], xs[1], b, row0, take)
-            err = max(err, _int_err(a, b))
-            _check(torch.equal(a, b), f"K10 ({len(xs)} inputs) differs from its plain version at "
-                   f"{tuple(xs[0].shape)}, rows {row0} + {take} of {tuple(dst.shape)} ({label})")
-        # the three shapes of one emission: the first 32-plane window of the LIP
-        # pair, the LIS pair and the refinement single form (each called twice,
-        # for the valid and the bit masks)
-        pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
-        lis_args = pairs[len(pairs) // 2]
-        k10 = k10_forms[form] = {}
-        for shape, fn, args, per_word in (
-                ("LIP pair", kernels.transpose_bits32_pair, pairs[0], 16),
-                ("LIS pair", kernels.transpose_bits32_pair, lis_args, 16),
-                ("REF single", kernels.transpose_bits32, singles[0], 32)):
-            items, take = args[0].numel(), args[-1]
-            inputs = 4 * items * (2 if per_word == 16 else 1)
-            k10[shape] = dict(items=items, take=take, ms=_time_ms(lambda: fn(*args), 20),
-                              host_ms=_time_ms(lambda: fn(*args), 20, host=True),
-                              bound_ms=_bound_ms(inputs + 4 * take * items // per_word),
-                              bound32_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
-        print(f"[kernels] {label} K10 ({'shuffle' if form else 'ballot'} form) per shape (items, planes kept: device ms / host-issued ms / "
-              f"bound ms / bound of all 32 planes ms): "
-              + ", ".join(f"{k} ({v['items']}, {v['take']}) {v['ms']:.4f}/{v['host_ms']:.4f}/"
-                          f"{v['bound_ms']:.4f}/{v['bound32_ms']:.4f}" for k, v in k10.items())
-              + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
-              f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
-    kernels.K10_SHUFFLE = default_form
-    k10 = k10_forms[default_form]
+    # K10 writes planes 0 .. take-1 into rows row0 .. of the caller's buffer:
+    # both versions start from the same filler, so a row written out of
+    # place shows too
+    for args in calls["transpose_bits32"] + calls["transpose_bits32_pair"]:
+        *xs, dst, row0, take = args
+        a, b = torch.full_like(dst, -7), torch.full_like(dst, -7)
+        if len(xs) == 1:
+            kernels.transpose_bits32(xs[0].contiguous(), a, row0, take)
+            packemit.transpose_bits32_ref(xs[0], b, row0, take)
+        else:
+            kernels.transpose_bits32_pair(xs[0].contiguous(), xs[1].contiguous(), a, row0, take)
+            packemit.transpose_bits32_pair_ref(xs[0], xs[1], b, row0, take)
+        err = max(err, _int_err(a, b))
+        _check(torch.equal(a, b), f"K10 ({len(xs)} inputs) differs from its plain version at "
+               f"{tuple(xs[0].shape)}, rows {row0} + {take} of {tuple(dst.shape)} ({label})")
+    # the three shapes of one emission: the first 32-plane window of the LIP
+    # pair, the LIS pair and the refinement single form (each called twice,
+    # for the valid and the bit masks)
+    pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
+    lis_args = pairs[len(pairs) // 2]
+    k10 = {}
+    for shape, fn, args, per_word in (
+            ("LIP pair", kernels.transpose_bits32_pair, pairs[0], 16),
+            ("LIS pair", kernels.transpose_bits32_pair, lis_args, 16),
+            ("REF single", kernels.transpose_bits32, singles[0], 32)):
+        items, take = args[0].numel(), args[-1]
+        inputs = 4 * items * (2 if per_word == 16 else 1)
+        k10[shape] = dict(items=items, take=take, ms=_time_ms(lambda: fn(*args), 20),
+                          host_ms=_time_ms(lambda: fn(*args), 20, host=True),
+                          bound_ms=_bound_ms(inputs + 4 * take * items // per_word),
+                          bound32_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
+    print(f"[kernels] {label} K10 per shape (items, planes kept: device ms / host-issued ms / "
+          f"bound ms / bound of all 32 planes ms): "
+          + ", ".join(f"{k} ({v['items']}, {v['take']}) {v['ms']:.4f}/{v['host_ms']:.4f}/"
+                      f"{v['bound_ms']:.4f}/{v['bound32_ms']:.4f}" for k, v in k10.items())
+          + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
+          f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
     lis = k10["LIS pair"]
     out["transpose_bits32"] = dict(
         max_abs_err=err, shape=f"LIS pair {lis['items']} items, {lis['take']} planes",
@@ -255,6 +257,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
     )
     (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
     err = _k11_equal(packemit, parts, evb_cap, out_cap_bytes, 8, label)
+    _, _, per_name = _busy_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10)
+    print(f"[kernels] {label} K11 by launch, ms per call: {_top(per_name, 4)} -- {smi}")
     b = packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
     words = sum(v.numel() for v, _ in parts)
     rows = sum(v.shape[0] for v, _ in parts)
@@ -573,12 +577,12 @@ def main() -> int:
             def emit():
                 return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
             host_ms = _time_ms(emit, 3, host=True)
-            busy, syncs = _busy_ms(emit, 3)
+            busy, syncs, per_name = _busy_ms(emit, 3)
             emit_ms[label] = (busy, host_ms)
             print(f"[kernels] {label} _wave_emit_chunk: device busy "
                   f"{'not measured' if busy is None else f'{busy:.4f} ms'} (kernels and copies), "
-                  f"{emit_ms[label][1]:.4f} ms as the host issues it, {syncs} host waits for the "
-                  f"device per call -- {smi}")
+                  f"{host_ms:.4f} ms as the host issues it, {syncs} host waits for the device per "
+                  f"call; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
         del chunk, front, em, fits, calls, cap_front
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}

@@ -136,7 +136,7 @@ def load() -> ct.CDLL:
         ]
         vp, ll = ct.c_void_p, ct.c_longlong
         for name, args in (
-            ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, ct.c_int, vp]),
+            ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, vp]),
             ("sperr_masked_pack", [
                 ct.c_int, ct.POINTER(vp), ct.POINTER(vp), ct.POINTER(ll), ct.POINTER(ll),
                 ct.c_int, ll, ll, vp, vp, vp, vp, vp,
@@ -328,11 +328,6 @@ def _require_cuda(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         )
 
 
-# K10's form: five shuffle stages per 32x32 block (True) or one ballot per
-# kept plane (False)
-K10_SHUFFLE = True
-
-
 def _transpose(name: str, a: torch.Tensor, b: Optional[torch.Tensor], per_word: int,
                out: torch.Tensor, row0: int, take: int) -> torch.Tensor:
     _require_cuda(out, torch.int32, "out")
@@ -349,7 +344,7 @@ def _transpose(name: str, a: torch.Tensor, b: Optional[torch.Tensor], per_word: 
     with _on_device(a):
         err = lib.sperr_transpose_bits32(
             a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), W, row0, take,
-            int(K10_SHUFFLE), _stream(a),
+            _stream(a),
         )
     _check(lib, err, name)
     launches["transpose_bits32"] += 1
@@ -419,11 +414,11 @@ def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
     tiles = sum(r * -(-w // PACK_TILE) for r, w in shapes)
     take = min(evb_cap, sum(r * w for r, w in shapes) // piece_words)
     out_words = out_cap_bytes // 4
-    # out, counts and the tile scratch in one int32 buffer; the totals, the
-    # bases and overflow (the last word's first byte) in one int64 buffer
+    # out, counts and the tile scratch in one int32 buffer; the totals and
+    # the bases in one int64 buffer
     i32 = torch.empty(out_words + nrows + 2 * tiles, dtype=torch.int32, device=dev)
-    i64 = torch.empty(3 + tiles + nrows, dtype=torch.int64, device=dev)
-    overflow = i64[-1:].view(torch.bool)[0]
+    i64 = torch.empty(2 + tiles + nrows, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
     n = len(parts)
     lib = load()
     with _on_device(parts[0][0]):

@@ -12,16 +12,19 @@
 // Bound: device memory.  Each kernel reads its input once (K11 twice) and
 // writes its output once, with a few dozen integer operations per word:
 //   K10  (redesigned for Hopper) one block per 32 consecutive output words.
-//        Each warp loads the items of 4 of them (128-byte loads); lane l
-//        holds item l, and __ballot_sync over bit p of every lane is plane
-//        p's word.  Only the planes the caller keeps (`take`: 14 of 32 at
-//        the first tier, 22 at the second) are balloted and stored.  The
-//        words go through a [32][33] shared tile, so each kept plane leaves
-//        as one 128-byte line of 32 consecutive words, straight into rows
+//        Each warp loads the items of 4 of them (128-byte loads), lane l
+//        item l, and transposes each 32x32 bit block in registers with five
+//        shuffle stages, so lane p holds plane p's word.  The words go
+//        through a [32][33] shared tile, and each plane the caller keeps
+//        (`take`: 14 of 32 at the first tier, 22 at the second) leaves as
+//        one 128-byte line of 32 consecutive words, straight into rows
 //        row0 .. row0+take-1 of the caller's (P, W) buffer.  The former
-//        kernel stored lane p's word at out[p * W + w], 4 bytes in each
-//        32-byte sector, and wrote all 32 planes for the caller to slice
-//        and concatenate.
+//        kernel made each plane with a __ballot_sync (32 per block of 32
+//        items, about 3 SM cycles each: compute, not bytes, bound it),
+//        stored lane p's word at out[p * W + w], 4 bytes in each 32-byte
+//        sector, and wrote all 32 planes for the caller to slice and
+//        concatenate.  A ballot per kept plane with the coalesced stores
+//        ran 4x slower than the shuffles at the second tier.
 //   K11  (redesigned for Hopper) three launches over all parts at once, no
 //        torch op between them.  A tile is 2048 words of one row.
 //        count: each block reads its tile's valid words (16-byte loads) and
@@ -91,7 +94,7 @@ __device__ __forceinline__ uint32_t transpose32_shfl(uint32_t x, int lane) {
   return x;
 }
 
-template <bool kPair, bool kShfl>
+template <bool kPair>
 __global__ void __launch_bounds__(kThreads)
 transpose_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                  uint32_t* __restrict__ out, long long W, int take) {
@@ -114,21 +117,8 @@ transpose_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       }
     }
 #pragma unroll
-    for (int i = 0; i < kTrPerWarp; ++i) {
-      uint32_t mine = 0;
-      if (kShfl) {
-        mine = transpose32_shfl(v[i], lane);
-      } else {
-#pragma unroll
-        for (int p = 0; p < 32; ++p) {
-          if (p < take) {
-            const uint32_t bb = __ballot_sync(0xffffffffu, (v[i] >> p) & 1u);
-            if (lane == p) mine = bb;
-          }
-        }
-      }
-      tile[lane][warp + i * kWarps] = mine;  // plane lane, word warp + 8 i
-    }
+    for (int i = 0; i < kTrPerWarp; ++i)
+      tile[lane][warp + i * kWarps] = transpose32_shfl(v[i], lane);  // plane lane, word warp + 8 i
     __syncthreads();
     const long long w = w0 + lane;
     if (w < W) {
@@ -578,19 +568,15 @@ __global__ void flag_fill_kernel(int32_t* __restrict__ idx,
 // 0 .. take-1 of the transpose into rows row0 .. row0+take-1 of out, a
 // buffer of rows of W words.
 extern "C" int sperr_transpose_bits32(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                                      long long W, long long row0, int take, int shfl,
+                                      long long W, long long row0, int take,
                                       cudaStream_t stream) {
   if (W <= 0 || row0 < 0 || take < 1 || take > 32) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)grid_for(W, kTrWords);
   uint32_t* dst = out + row0 * W;
-  if (b && shfl)
-    transpose_kernel<true, true><<<grid, kThreads, 0, stream>>>(a, b, dst, W, take);
-  else if (b)
-    transpose_kernel<true, false><<<grid, kThreads, 0, stream>>>(a, b, dst, W, take);
-  else if (shfl)
-    transpose_kernel<false, true><<<grid, kThreads, 0, stream>>>(a, nullptr, dst, W, take);
+  if (b)
+    transpose_kernel<true><<<grid, kThreads, 0, stream>>>(a, b, dst, W, take);
   else
-    transpose_kernel<false, false><<<grid, kThreads, 0, stream>>>(a, nullptr, dst, W, take);
+    transpose_kernel<false><<<grid, kThreads, 0, stream>>>(a, nullptr, dst, W, take);
   return (int)cudaGetLastError();
 }
 

@@ -167,6 +167,12 @@ def transpose_bits32_pair_ref(a: torch.Tensor, b: torch.Tensor, out=None, row0: 
     return _planes_into(torch.stack([ar, br], dim=1).reshape(32, M // 16), out, row0, take)
 
 
+def _words32(t: torch.Tensor) -> torch.Tensor:
+    """t as contiguous int32 words (t itself when it already is: the checks
+    cost less host time than the no-op conversions)."""
+    return t if t.dtype == _I32 and t.is_contiguous() else t.to(_I32).contiguous()
+
+
 def _dispatch(t: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (the plain version); any other device raises."""
@@ -184,7 +190,7 @@ def transpose_bits32(x: torch.Tensor, out=None, row0: int = 0, take: int = 32) -
     if _dispatch(x, "transpose_bits32"):
         if out is None:
             out = torch.empty((take, x.shape[0] // 32), dtype=_I32, device=x.device)
-        return kernels.transpose_bits32(x.to(_I32).contiguous(), out, row0, take)
+        return kernels.transpose_bits32(_words32(x), out, row0, take)
     return transpose_bits32_ref(x, out, row0, take)
 
 
@@ -195,9 +201,7 @@ def transpose_bits32_pair(a: torch.Tensor, b: torch.Tensor, out=None, row0: int 
     if _dispatch(a, "transpose_bits32_pair"):
         if out is None:
             out = torch.empty((take, a.shape[0] // 16), dtype=_I32, device=a.device)
-        return kernels.transpose_bits32_pair(
-            a.to(_I32).contiguous(), b.to(_I32).contiguous(), out, row0, take
-        )
+        return kernels.transpose_bits32_pair(_words32(a), _words32(b), out, row0, take)
     return transpose_bits32_pair_ref(a, b, out, row0, take)
 
 
@@ -399,7 +403,7 @@ def masked_pack(
     K11 on CUDA tensors (three launches, count, scan and pack, with no torch
     op between them), the plain version on CPU tensors."""
     if _dispatch(parts[0][0], "masked_pack"):
-        parts = [(v.to(_I32).contiguous(), b.to(_I32).contiguous()) for v, b in parts]
+        parts = [(_words32(v), _words32(b)) for v, b in parts]
         return PackResult(*kernels.masked_pack(parts, evb_cap, out_cap_bytes, piece_words))
     return masked_pack_ref(parts, evb_cap, out_cap_bytes, piece_words)
 
