@@ -414,10 +414,10 @@ def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
     tiles = sum(r * -(-w // PACK_TILE) for r, w in shapes)
     take = min(evb_cap, sum(r * w for r, w in shapes) // piece_words)
     out_words = out_cap_bytes // 4
-    # out, counts and the tile scratch in one int32 buffer; the totals and
-    # the bases in one int64 buffer
-    i32 = torch.empty(out_words + nrows + 2 * tiles, dtype=torch.int32, device=dev)
-    i64 = torch.empty(2 + tiles + nrows, dtype=torch.int64, device=dev)
+    # out and counts in one int32 buffer; the totals and the scratch (two
+    # words per tile, one per row) in one int64 buffer
+    i32 = torch.empty(out_words + nrows, dtype=torch.int32, device=dev)
+    i64 = torch.empty(2 + 2 * tiles + nrows, dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     n = len(parts)
     lib = load()
