@@ -18,21 +18,23 @@
 //        through a [32][33] shared tile, and each plane the caller keeps
 //        (`take`: 14 of 32 at the first tier, 22 at the second) leaves as
 //        one 128-byte line of 32 consecutive words, straight into rows
-//        row0 .. row0+take-1 of the caller's (P, W) buffer.  The former
-//        kernel made each plane with a __ballot_sync (32 per block of 32
-//        items, about 3 SM cycles each: compute, not bytes, bound it),
-//        stored lane p's word at out[p * W + w], 4 bytes in each 32-byte
-//        sector, and wrote all 32 planes for the caller to slice and
-//        concatenate.  A ballot per kept plane with the coalesced stores
-//        ran 4x slower than the shuffles at the second tier.
+//        row0 .. row0+take-1 of the caller's (P, W) buffer.  A
+//        __ballot_sync per plane bounds the kernel by its instructions,
+//        not its bytes: with these stores and only the kept planes it ran
+//        4x slower than the shuffles at the second tier.  Stores of one
+//        word per plane row (out[p * W + w] from lane p) fill 4 bytes of
+//        each 32-byte sector.
 //   K11  (redesigned for Hopper) three launches over all parts at once, no
 //        torch op between them.  A tile is 2048 words of one row.
 //        count: each block reads its tile's valid words (16-byte loads) and
-//          writes the tile's valid-bit count and its non-empty pieces.
-//        scan: one block of 1024 threads scans the tile counts in order:
-//          each tile's int64 prefix, each row's count and byte-aligned base
-//          (rows start on a byte, so a prefix across rows is not a plain
-//          sum), the total bytes, the non-empty pieces and overflow.
+//          writes the tile's valid-bit count and its non-empty pieces; the
+//          grid also zeroes the output buffer.
+//        scan: one block of 1024 threads scans the tile counts in order,
+//          staged through shared memory so that its loads and stores stay
+//          coalesced: each tile's int64 prefix, each row's count and a
+//          correction to its byte-aligned base (rows start on a byte, so a
+//          prefix across rows is not a plain sum), the total bytes, the
+//          non-empty pieces and overflow.
 //        pack: each block re-reads its tile's valid and bits words, scans
 //          the words' counts in the block (two 16-bit fields in one 32-bit
 //          scan), extracts each word's valid bits (Hacker's Delight 7-4:
@@ -42,10 +44,11 @@
 //          first and last words, which a neighbouring tile or row may
 //          share, go out with atomicOr.  Words past the caller's cap are
 //          dropped (overflow reports that case).
-//        Reading `valid` twice caps the pack at about 0.66 of the bound of
-//        one read of each input.  The former form (a popcount pass, torch
-//        scans with an int64 offset per word, and a scatter of one or two
-//        global atomicOr per word) moved some 1.4 GB at the second tier.
+//        Reading `valid` twice caps K11 at about 0.66 of the bound of one
+//        read of each input.  A popcount pass, torch scans with an int64
+//        offset per word and a scatter of one or two global atomicOr per
+//        word would move some 1.4 GB at the second tier, against about
+//        0.23 GB here.
 //   K12  one pass (redesigned for Hopper): each block counts its 16384 flags
 //        from 16-byte loads, scans them in the block, and finds its base by
 //        a decoupled look-back over its predecessors' status words (warp 0,
