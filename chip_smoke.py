@@ -10,8 +10,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
   2. build: compile and load the CUDA kernels from the sources in the checkout;
   3. each kernel against its plain PyTorch version on the card (K1 quantize
      bit for bit; the CDF 9/7 lifting kernel through dwt3d/idwt3d; the
-     whole-plane kernels K2/K3 bit for bit against dwt2d_ref/idwt2d_ref and
-     the per-axis lifting path, level by level against the full inverse;
+     per-level 2D kernels K2/K3 bit for bit against dwt2d_ref/idwt2d_ref and
+     the per-axis lifting path, level by level and partial inverses against
+     the full one, timed per call and per launch at (16, 1024^2) and
+     (1, 1800, 3600);
      the bit transpose K10, the masked pack K11 and the flag compaction K12
      bit for bit on the inputs that one 256^3 chunk's schedule and walk give
      them, at the first tier and at the widest);
@@ -132,6 +134,29 @@ def _busy_ms(fn, reps: int):
                 if e.self_device_time_total > 0}
     busy = sum(per_name.values())
     return (busy if busy > 0 else None), len(caught), per_name
+
+
+def _launch_ms(fn, name: str, n: int, reps: int):
+    """Device milliseconds of each of the n launches of the kernel ``name``
+    that one call of fn makes, averaged over reps calls after a warm-up, from
+    the kernels' own events in a torch.profiler trace; None when the trace
+    does not hold n x reps of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != n * reps:
+        return None
+    return [sum(evs[r * n + i].time_range.elapsed_us() for r in range(reps)) / reps / 1e3
+            for i in range(n)]
 
 
 def _top(per_name, k: int) -> str:
@@ -500,30 +525,53 @@ def main() -> int:
         _check(d <= 2e-5 * float(xh.abs().max()), f"{fn.__name__} off its plain version at {shape}")
 
     # K2/K3: bit for bit against the plain version and the per-axis lifting
-    # driver; the level-by-level inverse against the full one
+    # driver; the level-by-level and a partial inverse against the full one
     plane_ms = {}
     plane_err = {"K2": 0.0, "K3": 0.0}
     for shape in ((16, 1024, 1024), (1, 1800, 3600), (3, 127, 127), (2, 19, 27)):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        x_in = x.clone()
+        levels = num_of_xforms(min(shape[1:]))
+        lo = levels // 2
         fwd = cdf97.dwt2d(x)
+        fwd_in = fwd.clone()
         inv = cdf97.idwt2d(fwd)
+        plans = {name: kernels.last_plan[name] for name in ("dwt2d_full", "idwt2d_full")}
         steps = fwd.clone()
-        for lev in range(num_of_xforms(min(shape[1:])), 0, -1):
+        for lev in range(levels, 0, -1):
             cdf97.idwt2d_(steps, lev, lev - 1)
-        geometry = dict(kernels.last_geometry)
+        part = cdf97.idwt2d(fwd, levels, lo)  # undo levels .. lo+1 only
+        part_ref = fwd.clone()
+        cdf97._idwt2d_levels(part_ref, levels, lo, cdf97.lift_axis_ref)
+        part_in_place = fwd.clone()
+        cdf97.idwt2d_(part_in_place, levels, lo)
+        fwd_in_place = x.clone()
+        cdf97.dwt2d_(fwd_in_place)
+        torch.cuda.synchronize()
         for what, a, b in (
             ("K2 = dwt2d_ref", fwd, cdf97.dwt2d_ref(x)),
             ("K2 = lift driver", fwd, cdf97.dwt2d_ref(x, lift=cdf97.lift_axis)),
+            ("K2 in place = K2", fwd_in_place, fwd),
+            ("K2 leaves its input alone", x, x_in),
             ("K3 = idwt2d_ref", inv, cdf97.idwt2d_ref(fwd)),
             ("K3 = lift driver", inv, cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis)),
+            ("K3 leaves its input alone", fwd, fwd_in),
             ("K3 level by level = K3", steps, inv),
+            (f"K3 partial (levels {levels} .. {lo + 1}) = plain", part, part_ref),
+            ("K3 partial in place = K3 partial", part_in_place, part),
+            ("K3 partial, then the rest = K3", cdf97.idwt2d(part, lo), inv),
         ):
             plane_err[what[:2]] = max(plane_err[what[:2]], float((a - b).abs().max()))
             _check(torch.equal(a, b), f"{what} fails at {shape}")
         d_rt = float((inv - x).abs().max())
-        print(f"[kernels] K2/K3 {shape}: equal to dwt2d_ref/idwt2d_ref and to the lift "
-              f"driver bit for bit, level by level = full; max|round trip - x| {d_rt:.3e}; "
-              f"grid, blocks/SM, shared bytes, threads: {geometry}")
+        print(f"[kernels] K2/K3 {shape}: equal to dwt2d_ref/idwt2d_ref and to the lift driver bit "
+              f"for bit, in place = out of place, inputs untouched, level by level and partial "
+              f"(to level {lo}) then the rest = full; max|round trip - x| {d_rt:.3e}")
+        for name, plan in plans.items():
+            print(f"[kernels]   {name} plan: (level, corner, tiles, grid, shared bytes) "
+                  + ", ".join(f"({r.level}, {r.ly}x{r.lx}, {r.tiles}, {r.grid}, {r.shared_bytes})"
+                              for r in plan.launches)
+                  + f"; scratch {4 * plan.scratch_floats} bytes")
         _check(d_rt <= 2e-5 * float(x.abs().max()), f"K2/K3 round trip at {shape}")
         if shape[1] >= 1024:
             t = plane_ms[shape] = {
@@ -536,9 +584,30 @@ def main() -> int:
                 "K3 plain": _time_ms(lambda: cdf97.idwt2d_ref(fwd), 3),
                 "K3 lift driver": _time_ms(lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20),
             }
+            # the persistent form: a grid the card holds at once, each block
+            # walking tiles with the next one's copies in flight
+            kernels.plane_persistent = True
+            try:
+                _check(torch.equal(cdf97.dwt2d(x), fwd) and torch.equal(cdf97.idwt2d(fwd), inv),
+                       f"the persistent K2/K3 differ at {shape}")
+                t["K2 persistent"] = _time_ms(lambda: cdf97.dwt2d(x), 20)
+                t["K3 persistent"] = _time_ms(lambda: cdf97.idwt2d(fwd), 20)
+            finally:
+                kernels.plane_persistent = False
+            t["bound"] = _bound_ms(2 * 4 * x.numel())
             print(f"[kernels] {shape} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
                   + f" -- {smi}")
-        del x, fwd, inv, steps
+            for name, kname, fn in (("K2", "dwt2d_level", lambda: cdf97.dwt2d(x)),
+                                    ("K3", "idwt2d_level", lambda: cdf97.idwt2d(fwd))):
+                runs = plans["idwt2d_full" if name == "K3" else "dwt2d_full"].launches
+                per = _launch_ms(fn, kname, len(runs), 10)
+                bounds = [_bound_ms(2 * 4 * shape[0] * r.ly * r.lx) for r in runs]
+                print(f"[kernels] {name} {shape} per launch (level: device ms / bound ms): "
+                      + ("not measured (the trace does not hold one event per launch)" if per is None
+                         else ", ".join(f"{r.level} {m:.4f}/{b:.4f}" for r, m, b in zip(runs, per, bounds))
+                         + f"; sum {sum(per):.4f}")
+                      + f" -- {smi}")
+        del x, x_in, fwd, fwd_in, inv, steps, part, part_ref, part_in_place, fwd_in_place
     k23 = plane_ms[(16, 1024, 1024)]
 
     # K10-K12: the inputs the wave path gives them.  The headline volume's
@@ -616,12 +685,12 @@ def main() -> int:
     print("[kernels] K12 on ragged rows, several rows, short takes, empty and full rows: "
           "equal to the plain version bit for bit")
     _k11_synthetic(packemit, dev)
-    k23_bound = _bound_ms(2 * 4 * 16 * 1024 * 1024)
+    k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
             ("K4 dwt3d 256^3", l_ms, l_host_ms, l_bound), ("K4 idwt3d 256^3", li_ms, li_host_ms, l_bound),
-            ("K2 (16, 1024^2)", k23["K2"], k23["K2 host"], k23_bound),
-            ("K3 (16, 1024^2)", k23["K3"], k23["K3 host"], k23_bound)):
+            *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
+              for shape, t in plane_ms.items() for k in ("K2", "K3"))):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
@@ -855,9 +924,9 @@ def main() -> int:
          q_err, q_ms, q_host_ms, q_plain_ms, q_bound, None),
         ("cdf97_lift", "cdf97_lift.cu", "sperr_tpu/ops/cdf97_jax.py:230", launches["cdf97_lift"],
          lift_err, l_ms, l_host_ms, l_plain_ms, l_bound, None),
-        ("dwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:208", launches2["dwt2d_full"],
+        ("dwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:217", launches2["dwt2d_full"],
          plane_err["K2"], k23["K2"], k23["K2 host"], k23["K2 plain"], k23_bound, None),
-        ("idwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:227", launches2["idwt2d_full"],
+        ("idwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:231", launches2["idwt2d_full"],
          plane_err["K3"], k23["K3"], k23["K3 host"], k23["K3 plain"], k23_bound, None),
     ] + [
         (name, "bits.cu", where, launches_w[name], bit_err[name], t1[name]["ms"], t1[name]["host_ms"],

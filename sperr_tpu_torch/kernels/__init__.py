@@ -22,7 +22,7 @@ import ctypes as ct
 import os
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,19 +41,14 @@ NVCC_FLAGS = (
 )
 # Shared memory a tile of lifting lines may use (opt-in): one line must fit.
 LIFT_MAX_SHARED_BYTES = 96 * 1024
-# Shared memory a block of the whole-plane kernels may opt in to; it must
-# hold one line of the longest axis.
-PLANE_MAX_SHARED_BYTES = 227 * 1024
-
 launches = {
     "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
-# geometry of the last launch of each whole-plane kernel: grid, blocks per
-# SM, shared bytes per block, threads per block
-last_geometry = {}
+# the plan of the last call of each 2D transform kernel (plane_plan)
+last_plan = {}
 
 _lock = threading.Lock()
 _lib: Optional[ct.CDLL] = None
@@ -131,9 +126,11 @@ def load() -> ct.CDLL:
         ]
         lib.sperr_cdf97_2d.restype = ct.c_int
         lib.sperr_cdf97_2d.argtypes = [
-            ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-            ct.c_int, ct.POINTER(ct.c_float), ct.POINTER(ct.c_int), ct.c_void_p,
+            ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_longlong,
+            ct.POINTER(ct.c_float), ct.c_void_p,
         ]
+        lib.sperr_cdf97_2d_resident.restype = ct.c_int
+        lib.sperr_cdf97_2d_resident.argtypes = [ct.POINTER(ct.c_int)]
         vp, ll = ct.c_void_p, ct.c_longlong
         for name, args in (
             ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, vp]),
@@ -257,63 +254,181 @@ def cdf97_lift(
     launches["cdf97_lift"] += 1
 
 
-def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.ndarray) -> None:
-    """K2 (forward) or K3 (inverse) on x (B, ny, nx), in place."""
+# ---------------------------------------------------------------------------
+# K2/K3: the 2D transforms (kernels/cdf97_2d.cu), one launch per level, out
+# of place.  A block owns a tile of PLANE_TILE x PLANE_TILE output pairs and
+# loads it with a halo of two pairs on each side into one shared buffer
+# (two when a persistent grid walks several tiles per block).
+# ---------------------------------------------------------------------------
+PLANE_TILE = 28
+PLANE_BUFFER_BYTES = 2 * 32 * 81 * 4
+PLANE_MAX_GRID = 2**31 - 1
+# False: one block per tile.  True: a grid of the blocks the card holds at
+# once, each walking tiles with the next one's copies in flight.
+plane_persistent = False
+
+
+class PlaneLaunch(NamedTuple):
+    level: int         # forward: the level done; inverse: the level undone
+    ly: int            # the level's corner (ly, lx)
+    lx: int
+    tiles: int
+    grid: int
+    shared_bytes: int  # per block
+
+
+class PlaneScratch(NamedTuple):
+    """An approximation passed from one launch to the next: B planes of
+    (ly, pitch) floats at ``offset`` in the scratch, lx of each row used."""
+    ly: int
+    lx: int
+    pitch: int
+    offset: int
+
+
+class PlanePlan(NamedTuple):
+    launches: Tuple[PlaneLaunch, ...]
+    scratch: Tuple[PlaneScratch, ...]  # between launch k and k + 1
+    scratch_floats: int
+
+
+def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int = 0,
+               keep: bool = False, max_blocks: Optional[int] = None) -> PlanePlan:
+    """The launches of one K2 (forward levels 0 .. lev_hi-1) or K3 (undo
+    levels lev_hi .. lev_lo+1) call on (B, ny, nx) planes, and the scratch
+    that carries each approximation to the next launch: two regions used in
+    turn, or with ``keep`` one per approximation (the multi-resolution
+    decode reads them all).  Rows of the scratch are padded to 16 bytes.
+    ``max_blocks``: the grid of a persistent launch (None: one block per
+    tile)."""
+    B, ny, nx, lev_hi, lev_lo = (int(v) for v in (B, ny, nx, lev_hi, lev_lo))
+    if B < 0 or ny < 1 or nx < 1:
+        raise ValueError(f"planes must be (B >= 0, ny >= 1, nx >= 1); got {(B, ny, nx)}")
+    if not 0 <= lev_lo < lev_hi:
+        raise ValueError(f"levels must satisfy 0 <= lev_lo < lev_hi; got {lev_lo}, {lev_hi}")
+    if not inverse and lev_lo:
+        raise ValueError(f"the forward transform starts at level 0; got lev_lo {lev_lo}")
+
+    def corner(lev):
+        return calc_approx_detail_len(ny, lev)[0], calc_approx_detail_len(nx, lev)[0]
+
+    if min(corner(lev_hi - 1)) < 2:
+        raise ValueError(f"{lev_hi} levels leave lines shorter than 2 samples in {(ny, nx)}")
+    levels = range(lev_hi, lev_lo, -1) if inverse else range(lev_lo, lev_hi)
+    runs = []
+    for lev in levels:
+        ly, lx = corner(lev - 1 if inverse else lev)
+        tiles = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2) // PLANE_TILE)
+        grid = tiles if max_blocks is None else min(tiles, int(max_blocks))
+        if grid > PLANE_MAX_GRID:
+            raise ValueError(
+                f"level {lev} of {(B, ny, nx)} needs {grid} blocks; a launch takes at most "
+                f"{PLANE_MAX_GRID}"
+            )
+        nbuf = 2 if grid < tiles else 1
+        runs.append(PlaneLaunch(lev, ly, lx, tiles, grid, nbuf * PLANE_BUFFER_BYTES))
+    mids = [corner(lev - 1 if inverse else lev + 1) for lev in levels][:-1]
+    sizes = [B * ly * (-(-lx // 4) * 4) for ly, lx in mids]
+    if keep:
+        offsets = [sum(sizes[:m]) for m in range(len(sizes))]
+        total = sum(sizes)
+    else:
+        region = [max(sizes[0::2], default=0), max(sizes[1::2], default=0)]
+        offsets = [region[0] * (m % 2) for m in range(len(sizes))]
+        total = sum(region)
+    scratch = tuple(
+        PlaneScratch(ly, lx, -(-lx // 4) * 4, off) for (ly, lx), off in zip(mids, offsets)
+    )
+    return PlanePlan(tuple(runs), scratch, total)
+
+
+_resident_blocks = {}
+
+
+def _resident(lib: ct.CDLL, dev: torch.device) -> int:
+    n = _resident_blocks.get(dev.index)
+    if n is None:
+        out = ct.c_int()
+        with torch.cuda.device(dev):
+            _check(lib, lib.sperr_cdf97_2d_resident(ct.byref(out)), "cdf97_2d occupancy")
+        n = _resident_blocks[dev.index] = out.value
+    return n
+
+
+def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.ndarray,
+           keep: bool):
+    """K2 (forward) or K3 (inverse) of x (B, ny, nx) -> (out, the scratch's
+    approximations as (B, ly, lx) views).  out is (B, ny, nx) for the
+    forward, the (B, ly, lx) corner of level lev_lo for the inverse.  One
+    ctypes call issues every launch."""
     name = "idwt2d_full" if inverse else "dwt2d_full"
     _require_cuda_f32(x, "x")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, ny, nx); got {tuple(x.shape)}")
     B, ny, nx = x.shape
-    if not 0 <= lev_lo < lev_hi:
-        raise ValueError(f"levels must satisfy 0 <= lev_lo < lev_hi; got {lev_lo}, {lev_hi}")
-    def lengths(lev):
-        return calc_approx_detail_len(ny, lev)[0], calc_approx_detail_len(nx, lev)[0]
-
-    if min(lengths(lev_hi - 1)) < 2:
-        raise ValueError(f"{lev_hi} levels leave lines shorter than 2 samples in {(ny, nx)}")
-    # the longest lines are those of level lev_lo
-    longest = max(lengths(lev_lo))
-    if 4 * longest > PLANE_MAX_SHARED_BYTES:
-        raise ValueError(
-            f"a line of {longest} samples needs {4 * longest} bytes of shared "
-            f"memory; a block holds at most {PLANE_MAX_SHARED_BYTES}"
-        )
+    lib = load() if B and plane_persistent else None
+    plan = plane_plan(B, ny, nx, inverse, lev_hi, lev_lo, keep,
+                      _resident(lib, x.device) if lib is not None else None)
+    oy, ox = (
+        (calc_approx_detail_len(ny, lev_lo)[0], calc_approx_detail_len(nx, lev_lo)[0])
+        if inverse else (ny, nx)
+    )
+    out = torch.empty((B, oy, ox), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=x.device)
+    lls = [
+        scratch[s.offset : s.offset + B * s.ly * s.pitch].view(B, s.ly, s.pitch)[:, :, : s.lx]
+        for s in plan.scratch
+    ]
     if B == 0:
-        return
+        return out, lls
     lib = load()
-    info = (ct.c_int * 4)()
+    # the approximations in launch order: the input, the scratch, the output
+    chain = (
+        [(x.data_ptr(), nx, ny * nx)]
+        + [(scratch.data_ptr() + 4 * s.offset, s.pitch, s.ly * s.pitch) for s in plan.scratch]
+        + [(out.data_ptr(), ox, oy * ox)]
+    )
+    det = x if inverse else out
+    desc = []
+    for k, run in enumerate(plan.launches):
+        desc += [*chain[k], *chain[k + 1], det.data_ptr(), nx, ny * nx, run.ly, run.lx, run.grid]
     with _on_device(x):
         err = lib.sperr_cdf97_2d(
-            x.data_ptr(), B, ny, nx, int(inverse), lev_hi, lev_lo,
-            _consts(consts), info, _stream(x),
+            int(inverse), len(plan.launches), (ct.c_longlong * len(desc))(*desc), B,
+            _consts(consts), _stream(x),
         )
     _check(lib, err, name)
-    launches[name] += 1
-    last_geometry[name] = tuple(info)
+    launches[name] += len(plan.launches)
+    last_plan[name] = plan
+    return out, lls
 
 
 def _all_levels(x: torch.Tensor) -> int:
     return num_of_xforms(min(x.shape[-1], x.shape[-2]))
 
 
-def dwt2d_full(x: torch.Tensor, consts: np.ndarray, levels: Optional[int] = None) -> None:
+def dwt2d_full(x: torch.Tensor, consts: np.ndarray, levels: Optional[int] = None) -> torch.Tensor:
     """K2: the first ``levels`` (default: all ``num_of_xforms(min(nx, ny))``)
     levels of the 2D transform of x (B, ny, nx), rows then columns of each
-    level's approximation corner, in place, in one cooperative launch.
-    ``consts`` as for ``cdf97_lift``."""
+    level's approximation corner, into a new (B, ny, nx) tensor; x is left
+    alone.  One launch per level.  ``consts`` as for ``cdf97_lift``."""
     levels = _all_levels(x) if levels is None else levels
-    _plane(x, False, int(levels), 0, consts)
+    return _plane(x, False, int(levels), 0, consts, False)[0]
 
 
 def idwt2d_full(
-    x: torch.Tensor, consts: np.ndarray, lev_hi: Optional[int] = None, lev_lo: int = 0
-) -> None:
+    x: torch.Tensor, consts: np.ndarray, lev_hi: Optional[int] = None, lev_lo: int = 0,
+    hierarchy: bool = False,
+):
     """K3: undo levels ``lev_hi .. lev_lo+1`` (default: all) of the 2D
-    transform of x (B, ny, nx), columns then rows, in place, in one
-    cooperative launch; ``lev_lo = 0`` is the full inverse, one level at a
-    time serves the multi-resolution decode."""
+    transform of x (B, ny, nx), columns then rows, one launch per level; x
+    is left alone.  Returns the (B, ly, lx) approximation corner of level
+    ``lev_lo`` (the whole plane for ``lev_lo = 0``); with ``hierarchy``
+    also the approximations of levels lev_hi-1 .. lev_lo+1, coarsest first,
+    as (B, ly, lx) views of the launches' own outputs."""
     lev_hi = _all_levels(x) if lev_hi is None else lev_hi
-    _plane(x, True, int(lev_hi), int(lev_lo), consts)
+    out, lls = _plane(x, True, int(lev_hi), int(lev_lo), consts, hierarchy)
+    return (out, lls) if hierarchy else out
 
 
 # ---------------------------------------------------------------------------

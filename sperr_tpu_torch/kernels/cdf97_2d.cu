@@ -1,338 +1,384 @@
-// Whole-plane CDF 9/7 transforms for Hopper: every level and both axes of a
-// batch of 2D planes in one launch.
+// Per-level CDF 9/7 transforms of a batch of 2D planes for Hopper: one fused
+// pass (rows and columns) over each level's corner, out of place.
 //
-// Replaces the Pallas kernels K2 and K3 of sperr_tpu/ops/pallas_kernels.py:
-//   dwt2d_full  <- dwt2d_pallas  / _dwt2d_full_kernel  (:168-224)
-//   idwt2d_full <- idwt2d_pallas / _idwt2d_full_kernel (:194-238)
-// which compute what sperr_tpu/ops/cdf97_jax.py dwt2d/idwt2d compute.
+// Replaces the Pallas kernels K2 and K3 of sperr_tpu/ops/pallas_kernels.py
+// (:168-238):
+//   dwt2d_level  <- dwt2d_pallas  / _dwt2d_full_kernel  (pallas_call :217)
+//   idwt2d_level <- idwt2d_pallas / _idwt2d_full_kernel (pallas_call :231)
+// which compute what sperr_tpu/ops/cdf97_jax.py dwt2d/idwt2d compute: the
+// forward level lev lifts the rows (x) of the (ly, lx) approximation corner,
+// then its columns (y); the inverse undoes levels in reverse, columns then
+// rows.  Each line is one lifting level in the order of operations of the
+// plain version (sperr_tpu_torch/ops/cdf97.py _analysis/_synthesis), with
+// the clamped neighbours of _neighbors at the edges of the corner:
+// even[min(j+1, el-1)], odd[max(i-1, 0)], odd[min(i, ol-1)].
 //
-// Data: a contiguous f32 tensor (B, ny, nx), transformed in place.  Forward
-// level lev lifts the rows (x) of the (ly, lx) approximation corner, then its
-// columns (y), with lx, ly = calc_approx_detail_len(n, lev); the inverse
-// undoes levels lev_hi .. lev_lo+1 in reverse, columns then rows.  Each line
-// is one lifting level of sperr_tpu_torch/kernels/cdf97_lift.cu: gather,
-// the alpha, beta, gamma and delta/epsilon steps in the plain version's
-// order of operations (sperr_tpu_torch/ops/cdf97.py lift_axis_ref), and the
-// clamped neighbours of _lift_neighbors for even and odd lengths.
+// Data flow, one launch per level, in stream order:
+//   forward level k reads the corner LL_{k-1} (the input plane at k = 0),
+//     writes its three detail bands to their final places in the output and
+//     its approximation LL_k to a compact scratch plane (to the output's
+//     corner at the last level);
+//   inverse level k reads LL_k (the coefficients' corner at the first level
+//     of the call, the scratch after that) and level k's detail bands from
+//     the coefficients, and writes LL_{k-1} to the scratch (at the last level
+//     to the caller's output).
+// No launch reads what it writes, so blocks need no barrier across the grid.
 //
-// Bound: device memory.  A 1024^2 plane is 4 MiB, more than a block's shared
-// memory, so the plane stays in device memory (L2 for a few planes) between
-// passes.  The kernel is persistent and cooperative: a grid no larger than
-// the card holds at once walks tiles with grid-stride loops, and a grid-wide
-// barrier separates the row pass from the column pass and one level from the
-// next.  One launch replaces the 2 x levels launches of the per-axis driver.
-// A tile keeps its lines in shared memory for all four lifting steps:
-//   rows:    R neighbouring rows, each one contiguous line;
-//   columns: W neighbouring columns, so each row of the tile is one
-//            contiguous access (W a multiple of 8: whole 32-byte sectors).
-// Built with --fmad=false and without fast math.  Each line is done by one
-// block and no float reduction spans lines or planes, so the result equals
-// the plain version bit for bit whatever B is and however tiles fall on
-// blocks.
+// Bound: device memory.  A level reads its corner once and writes it once,
+// with ~20 flops per sample.  A block owns a tile of 28 x 28 output pairs
+// (56 x 56 samples) and loads it with a halo of two pairs on each side
+// (64 x 64 samples): a forward even output depends on x[2i-4 .. 2i+4], an
+// odd one on x[2j-2 .. 2j+4]; an inverse output pair on the input pairs
+// i-2 .. i+2 of both halves.  The halo is lifted again by each tile that
+// loads it, from the same inputs by the same operations, so it gets the same
+// bits as in the tile that owns it; only the owned pairs are stored.
+//   load:    4-byte cp.async straight into shared memory, split into even
+//            and odd halves on both axes on the way (rows of the tile at
+//            [y half][y pair], samples at [x half * 48 + x pair]; the row
+//            pitch is 81 floats, so a walk down a column and the split
+//            writes of a warp are free of bank conflicts);
+//   lift:    one warp per line, lane = pair: the four lifting steps run in
+//            registers, and each clamped neighbour is one __shfl_sync from
+//            the lane that holds it; rows then columns (forward), columns
+//            then rows (inverse), each written back in place;
+//   store:   coalesced rows of each band (forward) or of the interleaved
+//            plane (inverse).
+// A block of a persistent grid (fewer blocks than tiles) walks tiles and
+// double-buffers them: the next tile's cp.async is in flight while the
+// current one is lifted.
+// Built with --fmad=false and without fast math: each product and sum rounds
+// on its own as in the plain version, and nothing sums across lines, so the
+// result equals the plain version bit for bit whatever B is and however tiles
+// fall on blocks.
+//
+// The design this replaced (PR 2): one cooperative launch for all levels, a
+// row pass and a column pass over the whole corner per level through device
+// memory, grid.sync() between passes, 64 KB tiles of whole lines loaded with
+// scalar accesses: 0.6453 ms (K2) and 0.6594 ms (K3) at (16, 1024^2), 0.062
+// of the bound, slower than the per-axis driver on the 3D lifting kernel
+// (0.2702 / 0.2918 ms).  PERF.md has the times of this design and of each
+// form tried.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxW = 32;
-// A tile of W columns stops growing at this much shared memory, so that a
-// few blocks fit on each SM; a single line longer than this still gets a
-// block of its own, up to the card's opt-in maximum.
-constexpr int kTargetShared = 64 * 1024;
-constexpr int kMaxShared = 227 * 1024;
-constexpr int kDefaultShared = 48 * 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kN = 32;                 // pairs per tile axis, halo included: one per lane
+constexpr int kHalo = 2;               // halo pairs on each side
+constexpr int kT = kN - 2 * kHalo;     // output pairs per tile axis
+constexpr int kOdd = 48;               // the odd half of a shared row starts here
+constexpr int kPitch = 81;             // shared row pitch, in floats
+constexpr int kBuf = 2 * kN * kPitch;  // floats of one tile buffer (64 rows)
+constexpr int kDescWords = 12;         // long longs per launch descriptor
 
 struct Lift {
   float alpha, beta, gamma, delta, epsilon, inv_epsilon;
 };
 
-struct Args {
-  float* x;
-  long long B;
-  int ny, nx;
-  int lev_hi, lev_lo;  // forward: levels [lev_lo, lev_hi); inverse: lev_hi .. lev_lo+1
-  int cap;             // shared memory of a block, in floats
-  Lift k;
+// One launch: the level's corner (ly, lx).  Forward: src is LL_{k-1} (the
+// corner), dst receives LL_k, det the three detail bands.  Inverse: src is
+// LL_k, det holds the detail bands, dst receives the corner.  Pitches and
+// plane strides in floats.
+struct Level {
+  const float* src;
+  long long src_pitch, src_plane;
+  float* dst;
+  long long dst_pitch, dst_plane;
+  float* det;
+  long long det_pitch, det_plane;
+  int ly, lx;
+  int tiles_x, tiles_y;
+  long long ntiles;
 };
 
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+struct Tile {
+  long long b;
+  int i0, j0;  // first output pair along x and y
+};
 
-__host__ __device__ inline int approx_len(int n, int lev) {
-  for (int i = 0; i < lev; ++i) n -= n / 2;
-  return n;
+__device__ __forceinline__ Tile tile_of(const Level& L, long long t) {
+  const long long per = (long long)L.tiles_x * L.tiles_y;
+  Tile r;
+  r.b = t / per;
+  const int u = (int)(t - r.b * per);
+  r.j0 = (u / L.tiles_x) * kT;
+  r.i0 = (u % L.tiles_x) * kT;
+  return r;
 }
 
-// Rows per row tile and columns per column tile at one level.
-__host__ __device__ inline int rows_per_tile(int cap, int lx, int ly) {
-  return imax(1, imin(cap / lx, ly));
+// Lanes of the clamped neighbours along a line of n samples whose tile
+// starts at output pair p0 (lane p holds pair p0 - kHalo + p):
+// even[min(p+1, el-1)], odd[min(p, ol-1)], odd[max(p-1, 0)].  Lanes whose
+// pair lies outside the line compute values that no owned pair reads.
+struct Clamp {
+  int e_lim, o_lim, o_lo;
+};
+
+__device__ __forceinline__ Clamp clamp_of(int n, int p0) {
+  const int g0 = p0 - kHalo, el = n - n / 2, ol = n / 2;
+  Clamp c;
+  c.e_lim = min(el - 1 - g0, kN - 1);
+  c.o_lim = min(ol - 1 - g0, kN - 1);
+  c.o_lo = max(-g0, 0);
+  return c;
 }
 
-__host__ __device__ inline int cols_per_tile(int cap, int lx, int ly) {
-  int w = imin(kMaxW, cap / ly);
-  if (w >= 8) w &= ~7;
-  return imax(1, imin(w, lx));
+// One forward lifting level on the pair (e, o) of lane p.
+__device__ __forceinline__ void forward_pair(float& e, float& o, int p, const Clamp& c, const Lift& k) {
+  const int er = min(p + 1, c.e_lim), ol = max(p - 1, c.o_lo), orr = min(p, c.o_lim);
+  o = o + k.alpha * (e + __shfl_sync(kFull, e, er));
+  e = e + k.beta * (__shfl_sync(kFull, o, ol) + __shfl_sync(kFull, o, orr));
+  o = o + k.gamma * (e + __shfl_sync(kFull, e, er));
+  e = k.epsilon * (e + k.delta * (__shfl_sync(kFull, o, ol) + __shfl_sync(kFull, o, orr)));
+  o = o * (-k.inv_epsilon);
 }
 
-// Tile element (w, p): line w, sample p.  Consecutive threads take
-// consecutive w for column tiles and consecutive p for row tiles, so the
-// device-memory and the shared-memory accesses of a warp are contiguous.
-template <bool kCols>
-__device__ __forceinline__ void split(int idx, int n, int wn, int& w, int& p) {
-  if (kCols) {
-    w = idx % wn;
-    p = idx / wn;
-  } else {
-    p = idx % n;
-    w = idx / n;
-  }
+// One inverse lifting level on the pair (even[p], odd[p]) of lane p.
+__device__ __forceinline__ void inverse_pair(float& e, float& o, int p, const Clamp& c, const Lift& k) {
+  const int er = min(p + 1, c.e_lim), ol = max(p - 1, c.o_lo), orr = min(p, c.o_lim);
+  o = o * (-k.epsilon);
+  e = e * k.inv_epsilon - k.delta * (__shfl_sync(kFull, o, ol) + __shfl_sync(kFull, o, orr));
+  o = o - k.gamma * (e + __shfl_sync(kFull, e, er));
+  e = e - k.beta * (__shfl_sync(kFull, o, ol) + __shfl_sync(kFull, o, orr));
+  o = o - k.alpha * (e + __shfl_sync(kFull, e, er));
 }
 
-template <bool kCols>
-__device__ __forceinline__ int sidx(int w, int p, int wn, int L) {
-  return kCols ? p * wn + w : w * L + p;
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g));
 }
 
-// One forward lifting level on wn lines of length L; sample p of line w is
-// g[w * gw + p * gp].  Shared samples [0, el) hold the even half, [el, L)
-// the odd half.
-template <bool kCols>
-__device__ void forward_tile(float* g, long long gw, long long gp, int wn, int L,
-                             float* s, const Lift& k) {
-  const int el = L - L / 2, ol = L / 2;
-#define S(w, p) s[sidx<kCols>((w), (p), wn, L)]
-  for (int idx = threadIdx.x; idx < wn * L; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, L, wn, w, i);
-    const int p = (i & 1) ? el + (i >> 1) : (i >> 1);
-    S(w, p) = g[w * gw + i * gp];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * ol; idx += blockDim.x) {
-    int w, j;
-    split<kCols>(idx, ol, wn, w, j);
-    S(w, el + j) = S(w, el + j) + k.alpha * (S(w, j) + S(w, imin(j + 1, el - 1)));
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * el; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, el, wn, w, i);
-    S(w, i) = S(w, i) + k.beta * (S(w, el + imax(i - 1, 0)) + S(w, el + imin(i, ol - 1)));
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * ol; idx += blockDim.x) {
-    int w, j;
-    split<kCols>(idx, ol, wn, w, j);
-    S(w, el + j) = S(w, el + j) + k.gamma * (S(w, j) + S(w, imin(j + 1, el - 1)));
-  }
-  __syncthreads();
-  // delta and epsilon on the even half, -1/epsilon on the odd half, stored
-  // straight back as [even | odd]
-  for (int idx = threadIdx.x; idx < wn * L; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, L, wn, w, i);
-    float r;
-    if (i < el) {
-      r = k.epsilon *
-          (S(w, i) + k.delta * (S(w, el + imax(i - 1, 0)) + S(w, el + imin(i, ol - 1))));
-    } else {
-      r = S(w, i) * (-k.inv_epsilon);
-    }
-    g[w * gw + i * gp] = r;
-  }
-#undef S
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <bool kCols>
-__device__ void inverse_tile(float* g, long long gw, long long gp, int wn, int L,
-                             float* s, const Lift& k) {
-  const int el = L - L / 2, ol = L / 2;
-#define S(w, p) s[sidx<kCols>((w), (p), wn, L)]
-  // load [even | odd]; the first synthesis step scales the odd half
-  for (int idx = threadIdx.x; idx < wn * L; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, L, wn, w, i);
-    const float v = g[w * gw + i * gp];
-    S(w, i) = i < el ? v : v * (-k.epsilon);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * el; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, el, wn, w, i);
-    S(w, i) = S(w, i) * k.inv_epsilon -
-              k.delta * (S(w, el + imax(i - 1, 0)) + S(w, el + imin(i, ol - 1)));
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * ol; idx += blockDim.x) {
-    int w, j;
-    split<kCols>(idx, ol, wn, w, j);
-    S(w, el + j) = S(w, el + j) - k.gamma * (S(w, j) + S(w, imin(j + 1, el - 1)));
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < wn * el; idx += blockDim.x) {
-    int w, i;
-    split<kCols>(idx, el, wn, w, i);
-    S(w, i) = S(w, i) - k.beta * (S(w, el + imax(i - 1, 0)) + S(w, el + imin(i, ol - 1)));
-  }
-  __syncthreads();
-  // last alpha step on the odd half, written interleaved: position 2h takes
-  // even[h], position 2h+1 takes odd[h]
-  for (int idx = threadIdx.x; idx < wn * L; idx += blockDim.x) {
-    int w, p;
-    split<kCols>(idx, L, wn, w, p);
-    const int h = p >> 1;
-    float r;
-    if (p & 1) {
-      r = S(w, el + h) - k.alpha * (S(w, h) + S(w, imin(h + 1, el - 1)));
-    } else {
-      r = S(w, h);
-    }
-    g[w * gw + p * gp] = r;
-  }
-#undef S
-}
-
-// One pass over the (ly, lx) corner of every plane: rows (lines along x) or
-// columns (lines along y), tiles walked grid-stride.
-template <bool kCols, bool kInverse>
-__device__ void pass(const Args& a, int lx, int ly, float* s) {
-  const long long plane = (long long)a.ny * a.nx;
-  int per, span, L;
-  long long gw, gp, step;
-  if (kCols) {
-    span = cols_per_tile(a.cap, lx, ly);
-    per = (lx + span - 1) / span;
-    L = ly;
-    gw = 1;
-    gp = a.nx;
-    step = 1;  // tile t starts span columns further along x
-  } else {
-    span = rows_per_tile(a.cap, lx, ly);
-    per = (ly + span - 1) / span;
-    L = lx;
-    gw = a.nx;
-    gp = 1;
-    step = a.nx;  // and span rows further along y
-  }
-  const int extent = kCols ? lx : ly;
-  const long long ntiles = a.B * per;
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long b = t / per;
-    const int u0 = (int)(t % per) * span;
-    const int wn = imin(span, extent - u0);
-    float* g = a.x + b * plane + (long long)u0 * step;
-    __syncthreads();  // the previous tile's last step still reads s
-    if (kInverse) {
-      inverse_tile<kCols>(g, gw, gp, wn, L, s, a.k);
-    } else {
-      forward_tile<kCols>(g, gw, gp, wn, L, s, a.k);
+// ---------------------------------------------------------------------------
+// Forward: the tile's 64 x 64 input samples from rows 2 (j0 - 2) .. and
+// columns 2 (i0 - 2) .. of the corner.  Input row r goes to shared row
+// (r & 1) * kN + r / 2, sample c to (c & 1) * kOdd + c / 2.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void forward_load(float* s, const Level& L, const Tile& t) {
+  const int r0 = 2 * (t.j0 - kHalo), c0 = 2 * (t.i0 - kHalo);
+  const float* base = L.src + t.b * L.src_plane;
+  for (int idx = threadIdx.x; idx < 4 * kN * kN; idx += kThreads) {
+    const int r = idx >> 6, c = idx & 63;
+    const int gr = r0 + r, gc = c0 + c;
+    if (gr >= 0 && gr < L.ly && gc >= 0 && gc < L.lx) {
+      cp_async4(s + ((r & 1) * kN + (r >> 1)) * kPitch + (c & 1) * kOdd + (c >> 1),
+                base + (long long)gr * L.src_pitch + gc);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) dwt2d_full(Args a) {
-  extern __shared__ float s[];
-  cg::grid_group grid = cg::this_grid();
-  for (int lev = a.lev_lo; lev < a.lev_hi; ++lev) {
-    const int lx = approx_len(a.nx, lev), ly = approx_len(a.ny, lev);
-    pass<false, false>(a, lx, ly, s);  // rows (x) first
-    grid.sync();
-    pass<true, false>(a, lx, ly, s);   // then columns (y)
-    if (lev + 1 < a.lev_hi) grid.sync();
+__device__ __forceinline__ void forward_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
+  // rows (x): every loaded row
+  const Clamp cx = clamp_of(L.lx, t.i0);
+  for (int row = warp; row < 2 * kN; row += kWarps) {
+    const int hy = row / kN, gy = t.j0 - kHalo + row % kN;
+    if (gy < 0 || gy >= (hy ? oly : ely)) continue;
+    float* r = s + row * kPitch;
+    float e = r[lane], o = r[kOdd + lane];
+    forward_pair(e, o, lane, cx, k);
+    r[lane] = e;
+    r[kOdd + lane] = o;
+  }
+  __syncthreads();
+  // columns (y): the owned columns of both x halves
+  const Clamp cy = clamp_of(L.ly, t.j0);
+  for (int col = warp; col < 2 * kT; col += kWarps) {
+    const int hx = col / kT, px = col % kT;
+    if (t.i0 + px >= (hx ? olx : elx)) continue;
+    float* c = s + hx * kOdd + kHalo + px;
+    float e = c[lane * kPitch], o = c[(kN + lane) * kPitch];
+    forward_pair(e, o, lane, cy, k);
+    c[lane * kPitch] = e;
+    c[(kN + lane) * kPitch] = o;
+  }
+  __syncthreads();
+  // the four bands of the owned pairs: LL to dst, the details to det
+  const long long dst0 = t.b * L.dst_plane, det0 = t.b * L.det_plane;
+  for (int idx = threadIdx.x; idx < 4 * kT * kT; idx += kThreads) {
+    const int r = idx / (2 * kT), c = idx % (2 * kT);
+    const int hy = r / kT, py = r % kT, hx = c / kT, px = c % kT;
+    const int gy = t.j0 + py, gx = t.i0 + px;
+    if (gy >= (hy ? oly : ely) || gx >= (hx ? olx : elx)) continue;
+    const float v = s[(hy * kN + kHalo + py) * kPitch + hx * kOdd + kHalo + px];
+    if (hy | hx) {
+      L.det[det0 + (long long)(hy ? ely + gy : gy) * L.det_pitch + (hx ? elx + gx : gx)] = v;
+    } else {
+      L.dst[dst0 + (long long)gy * L.dst_pitch + gx] = v;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) idwt2d_full(Args a) {
-  extern __shared__ float s[];
-  cg::grid_group grid = cg::this_grid();
-  for (int lev = a.lev_hi; lev > a.lev_lo; --lev) {
-    const int lx = approx_len(a.nx, lev - 1), ly = approx_len(a.ny, lev - 1);
-    pass<true, true>(a, lx, ly, s);    // columns (y) first
-    grid.sync();
-    pass<false, true>(a, lx, ly, s);   // then rows (x)
-    if (lev - 1 > a.lev_lo) grid.sync();
+// ---------------------------------------------------------------------------
+// Inverse: input pairs j0 - 2 .. j0 + 29 and i0 - 2 .. i0 + 29 of both
+// halves; (y half, y pair) -> shared row hy * kN + py, (x half, x pair) ->
+// hx * kOdd + px.  The even-even quarter comes from src, the rest from det.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void inverse_load(float* s, const Level& L, const Tile& t) {
+  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
+  const float* src = L.src + t.b * L.src_plane;
+  const float* det = L.det + t.b * L.det_plane;
+  for (int idx = threadIdx.x; idx < 4 * kN * kN; idx += kThreads) {
+    const int r = idx >> 6, c = idx & 63;
+    const int hy = r >> 5, hx = c >> 5;
+    const int gy = t.j0 - kHalo + (r & 31), gx = t.i0 - kHalo + (c & 31);
+    if (gy < 0 || gy >= (hy ? oly : ely) || gx < 0 || gx >= (hx ? olx : elx)) continue;
+    const float* g = (hy | hx) ? det + (long long)(hy ? ely + gy : gy) * L.det_pitch + (hx ? elx + gx : gx)
+                               : src + (long long)gy * L.src_pitch + gx;
+    cp_async4(s + r * kPitch + hx * kOdd + (c & 31), g);
   }
+}
+
+__device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
+  // columns (y) first: every loaded column, since the rows need the x halo
+  const Clamp cy = clamp_of(L.ly, t.j0);
+  for (int col = warp; col < 2 * kN; col += kWarps) {
+    const int hx = col / kN, gx = t.i0 - kHalo + col % kN;
+    if (gx < 0 || gx >= (hx ? olx : elx)) continue;
+    float* c = s + hx * kOdd + col % kN;
+    float e = c[lane * kPitch], o = c[(kN + lane) * kPitch];
+    inverse_pair(e, o, lane, cy, k);
+    c[lane * kPitch] = e;
+    c[(kN + lane) * kPitch] = o;
+  }
+  __syncthreads();
+  // then rows (x): the owned rows of both y halves
+  const Clamp cx = clamp_of(L.lx, t.i0);
+  for (int row = warp; row < 2 * kT; row += kWarps) {
+    const int hy = row / kT, py = row % kT;
+    if (t.j0 + py >= (hy ? oly : ely)) continue;
+    float* r = s + (hy * kN + kHalo + py) * kPitch;
+    float e = r[lane], o = r[kOdd + lane];
+    inverse_pair(e, o, lane, cx, k);
+    r[lane] = e;
+    r[kOdd + lane] = o;
+  }
+  __syncthreads();
+  // the owned 56 x 56 samples, interleaved: sample (2 gy + hy, 2 gx + hx)
+  const long long dst0 = t.b * L.dst_plane;
+  for (int idx = threadIdx.x; idx < 4 * kT * kT; idx += kThreads) {
+    const int r = idx / (2 * kT), c = idx % (2 * kT);
+    const int Y = 2 * t.j0 + r, X = 2 * t.i0 + c;
+    if (Y >= L.ly || X >= L.lx) continue;
+    L.dst[dst0 + (long long)Y * L.dst_pitch + X] =
+        s[((r & 1) * kN + kHalo + (r >> 1)) * kPitch + (c & 1) * kOdd + kHalo + (c >> 1)];
+  }
+}
+
+// Tiles t = blockIdx.x, + gridDim.x, ...  With two buffers (a persistent
+// grid) the next tile's copies are in flight while this one is lifted.
+template <bool kInverse>
+__device__ __forceinline__ void walk(float* smem, const Level& L, const Lift& k, int two) {
+  long long t = blockIdx.x;
+  if (t >= L.ntiles) return;
+  const long long G = gridDim.x;
+  if (kInverse) inverse_load(smem, L, tile_of(L, t)); else forward_load(smem, L, tile_of(L, t));
+  cp_commit();
+  for (int it = 0; t < L.ntiles; t += G, ++it) {
+    float* s = smem + (two ? (it & 1) * kBuf : 0);
+    const long long tn = t + G;
+    if (two && tn < L.ntiles) {
+      float* s2 = smem + ((it + 1) & 1) * kBuf;
+      if (kInverse) inverse_load(s2, L, tile_of(L, tn)); else forward_load(s2, L, tile_of(L, tn));
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const Tile tt = tile_of(L, t);
+    if (kInverse) inverse_tile(s, L, tt, k); else forward_tile(s, L, tt, k);
+    __syncthreads();
+    if (!two && tn < L.ntiles) {
+      if (kInverse) inverse_load(s, L, tile_of(L, tn)); else forward_load(s, L, tile_of(L, tn));
+      cp_commit();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dwt2d_level(Level L, Lift k, int two) {
+  extern __shared__ __align__(16) float smem[];
+  walk<false>(smem, L, k, two);
+}
+
+__global__ void __launch_bounds__(kThreads) idwt2d_level(Level L, Lift k, int two) {
+  extern __shared__ __align__(16) float smem[];
+  walk<true>(smem, L, k, two);
 }
 
 }  // namespace
 
-// x: contiguous f32 (B, ny, nx) on the current device, transformed in place.
-// inverse = 0: forward levels [lev_lo, lev_hi); inverse = 1: undo levels
-// lev_hi .. lev_lo+1.  consts: host {alpha, beta, gamma, delta, epsilon,
-// inv_epsilon}.  info (host, 4 ints) receives the grid, the blocks per SM,
-// the shared bytes per block and the threads per block.  Returns the
-// cudaError_t of the launch (0 on success); a grid the card cannot hold at
-// once is refused by the cooperative launch, never split.
-extern "C" int sperr_cdf97_2d(float* x, long long B, int ny, int nx, int inverse,
-                              int lev_hi, int lev_lo, const float* consts, int* info,
-                              cudaStream_t stream) {
-  if (B <= 0 || ny < 1 || nx < 1 || lev_lo < 0 || lev_hi <= lev_lo) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // every line of every level needs two samples; the longest lines are
-  // those of level lev_lo (forward: its own level; inverse: the last undone)
-  const int lx0 = approx_len(nx, lev_lo), ly0 = approx_len(ny, lev_lo);
-  if (approx_len(nx, lev_hi - 1) < 2 || approx_len(ny, lev_hi - 1) < 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  long long cap = ly0 * (long long)kMaxW;
-  if (cap * 4 > kTargetShared) cap = kTargetShared / 4;
-  cap = cap > lx0 ? cap : lx0;
-  cap = cap > ly0 ? cap : ly0;
-  if (cap * 4 > kMaxShared) return (int)cudaErrorInvalidValue;
-  const size_t shmem = (size_t)cap * sizeof(float);
-  const void* fn = inverse ? (const void*)idwt2d_full : (const void*)dwt2d_full;
-
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if (shmem > kDefaultShared) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+// Every level of one 2D transform of B planes, one launch per level in
+// stream order.  desc: n launch descriptors of 12 long longs each:
+//   src pointer, src pitch, src plane stride, dst pointer, dst pitch, dst
+//   plane stride, det pointer, det pitch, det plane stride, ly, lx, grid
+// (pointers as integers; pitches and strides in floats; (ly, lx) the
+// level's corner; grid the blocks of the launch: one per tile, or fewer for
+// a persistent grid that double-buffers its tiles).  inverse = 0: forward
+// levels (src the corner LL_{k-1}, dst LL_k, det the detail bands written);
+// inverse = 1: src LL_k, det the detail bands read, dst the corner.  consts:
+// host {alpha, beta, gamma, delta, epsilon, inv_epsilon}.  Returns the
+// cudaError_t of the first launch that failed, or 0.
+extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, long long B,
+                              const float* consts, cudaStream_t stream) {
+  if (n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  const Lift k = {consts[0], consts[1], consts[2], consts[3], consts[4], consts[5]};
+  for (int i = 0; i < n; ++i) {
+    const long long* d = desc + (long long)i * kDescWords;
+    Level L;
+    L.src = reinterpret_cast<const float*>(d[0]);
+    L.src_pitch = d[1];
+    L.src_plane = d[2];
+    L.dst = reinterpret_cast<float*>(d[3]);
+    L.dst_pitch = d[4];
+    L.dst_plane = d[5];
+    L.det = reinterpret_cast<float*>(d[6]);
+    L.det_pitch = d[7];
+    L.det_plane = d[8];
+    L.ly = (int)d[9];
+    L.lx = (int)d[10];
+    const long long grid = d[11];
+    if (L.ly < 2 || L.lx < 2 || grid <= 0 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    L.tiles_x = (L.lx - L.lx / 2 + kT - 1) / kT;
+    L.tiles_y = (L.ly - L.ly / 2 + kT - 1) / kT;
+    L.ntiles = B * L.tiles_x * L.tiles_y;
+    const int two = grid < L.ntiles;
+    const size_t shmem = (size_t)(two ? 2 : 1) * kBuf * sizeof(float);
+    if (inverse) {
+      idwt2d_level<<<(unsigned)grid, kThreads, shmem, stream>>>(L, k, two);
+    } else {
+      dwt2d_level<<<(unsigned)grid, kThreads, shmem, stream>>>(L, k, two);
+    }
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, shmem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return 0;
+}
 
-  // no more blocks than the largest pass has tiles
-  long long tiles = 1;
-  for (int lev = lev_lo; lev < lev_hi; ++lev) {
-    const int lx = approx_len(nx, lev), ly = approx_len(ny, lev);
-    const int c = (int)cap;
-    const long long rt = B * ((ly + rows_per_tile(c, lx, ly) - 1) / rows_per_tile(c, lx, ly));
-    const long long ct = B * ((lx + cols_per_tile(c, lx, ly) - 1) / cols_per_tile(c, lx, ly));
-    tiles = tiles > rt ? tiles : rt;
-    tiles = tiles > ct ? tiles : ct;
+// The blocks of a persistent grid: blocks of two tile buffers that the card
+// holds at once.  Returns the cudaError_t (0 on success).
+extern "C" int sperr_cdf97_2d_resident(int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwt2d_level, kThreads,
+                                                        2 * kBuf * sizeof(float));
   }
-  long long grid = (long long)per_sm * sms;
-  if (grid > tiles) grid = tiles;
-
-  Args a;
-  a.x = x;
-  a.B = B;
-  a.ny = ny;
-  a.nx = nx;
-  a.lev_hi = lev_hi;
-  a.lev_lo = lev_lo;
-  a.cap = (int)cap;
-  a.k = Lift{consts[0], consts[1], consts[2], consts[3], consts[4], consts[5]};
-  void* params[] = {&a};
-  if (info) {
-    info[0] = (int)grid;
-    info[1] = per_sm;
-    info[2] = (int)shmem;
-    info[3] = kThreads;
-  }
-  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)grid), dim3(kThreads), params, shmem,
-                                    stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  *blocks = per_sm * sms;
+  return 0;
 }

@@ -8,10 +8,10 @@ version ``lift_axis_ref``, which performs the same operations in the same
 order, each rounded on its own.  ``dwt3d_ref``/``idwt3d_ref`` run the plain
 version on any device, so the kernel can be held against it on the card.
 
-The 2D transforms are the exception: on a CUDA tensor one launch of the
-whole-plane kernel K2 (forward) or K3 (inverse) (kernels/cdf97_2d.cu) runs
-every level of a batch of planes; ``dwt2d_ref``/``idwt2d_ref`` run the same
-levels one lifting pass at a time.
+The 2D transforms are the exception: on a CUDA tensor the kernels K2
+(forward) and K3 (inverse) (kernels/cdf97_2d.cu) run every level of a batch
+of planes, one fused launch per level, out of place; ``dwt2d_ref``/
+``idwt2d_ref`` run the same levels one lifting pass at a time.
 
 The public transforms return a new tensor and leave their input alone; the
 ``*_`` forms transform a contiguous tensor in place, which the codec uses to
@@ -240,9 +240,9 @@ def idwt1d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# 2D: on a CUDA tensor one launch of the whole-plane kernels K2/K3
-# (kernels/cdf97_2d.cu) covers every level of a batch of planes; the plain
-# version runs the same levels one lifting pass at a time.
+# 2D: on a CUDA tensor the kernels K2/K3 (kernels/cdf97_2d.cu) run every
+# level of a batch of planes, one launch per level, out of place; the plain
+# version runs the same levels one lifting pass at a time, in place.
 # ---------------------------------------------------------------------------
 def _as3(x: torch.Tensor) -> torch.Tensor:
     """View x (..., ny, nx) as (B, ny, nx); x must be contiguous f32."""
@@ -251,6 +251,14 @@ def _as3(x: torch.Tensor) -> torch.Tensor:
 
 def _levels2(x3: torch.Tensor, levels: int | None) -> int:
     return num_of_xforms(min(x3.shape[-1], x3.shape[-2])) if levels is None else levels
+
+
+def _no_kernel(x: torch.Tensor) -> ValueError:
+    return ValueError(f"no 2D transform kernel for tensors on {x.device}")
+
+
+def _corner(x: torch.Tensor, lev: int) -> Tuple[int, int]:
+    return (calc_approx_detail_len(x.shape[-2], lev)[0], calc_approx_detail_len(x.shape[-1], lev)[0])
 
 
 def _dwt2d_levels(x3, lev_lo: int, lev_hi: int, lift: LiftFn) -> None:
@@ -271,42 +279,70 @@ def _idwt2d_levels(x3, lev_hi: int, lev_lo: int, lift: LiftFn) -> None:
         _idwt2d_level(x4, lx, ly, lift)
 
 
+def dwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
+    """Forward transform of the trailing (ny, nx) planes of x into a new
+    tensor, x left alone: K2 on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.is_cuda:
+        x3 = _as3(x.contiguous())
+        levels = _levels2(x3, levels)
+        if levels == 0:
+            return x.clone(memory_format=torch.contiguous_format)
+        return kernels.dwt2d_full(x3, LIFT_CONSTS, levels).view(x.shape)
+    if x.device.type != "cpu":
+        raise _no_kernel(x)
+    return dwt2d_(x.clone(memory_format=torch.contiguous_format), levels)
+
+
 def dwt2d_(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
-    """Forward transform of the trailing (ny, nx) planes of x, in place: K2
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    """``dwt2d`` in place on a contiguous x; on a CUDA tensor K2 writes a
+    new tensor that is copied back."""
     x3 = _as3(x)
-    levels = _levels2(x3, levels)
     if x3.is_cuda:
-        if levels > 0:
-            kernels.dwt2d_full(x3, LIFT_CONSTS, levels)
+        if _levels2(x3, levels) > 0:
+            x3.copy_(dwt2d(x3, levels))
     elif x3.device.type == "cpu":
-        _dwt2d_levels(x3, 0, levels, lift_axis_ref)
+        _dwt2d_levels(x3, 0, _levels2(x3, levels), lift_axis_ref)
     else:
-        raise ValueError(f"no 2D transform kernel for tensors on {x.device}")
+        raise _no_kernel(x)
     return x
 
 
-def idwt2d_(x: torch.Tensor, levels: int | None = None, lev_lo: int = 0) -> torch.Tensor:
+def idwt2d(x: torch.Tensor, levels: int | None = None, lev_lo: int = 0) -> torch.Tensor:
     """Undo levels ``levels .. lev_lo+1`` (default: all) of the 2D transform
-    of x, in place: K3 on a CUDA tensor, the plain version on a CPU tensor."""
+    of x into a new tensor, x left alone: K3 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if x.is_cuda:
+        x3 = _as3(x.contiguous())
+        levels = _levels2(x3, levels)
+        if levels <= lev_lo:
+            return x.clone(memory_format=torch.contiguous_format)
+        corner = kernels.idwt2d_full(x3, LIFT_CONSTS, levels, lev_lo)
+        if lev_lo == 0:
+            return corner.view(x.shape)
+        out = x3.clone()
+        ly, lx = corner.shape[-2:]
+        out[:, :ly, :lx] = corner
+        return out.view(x.shape)
+    if x.device.type != "cpu":
+        raise _no_kernel(x)
+    return idwt2d_(x.clone(memory_format=torch.contiguous_format), levels, lev_lo)
+
+
+def idwt2d_(x: torch.Tensor, levels: int | None = None, lev_lo: int = 0) -> torch.Tensor:
+    """``idwt2d`` in place on a contiguous x; on a CUDA tensor K3 writes the
+    corner of level ``lev_lo`` out of place and it is copied back."""
     x3 = _as3(x)
     levels = _levels2(x3, levels)
     if x3.is_cuda:
         if levels > lev_lo:
-            kernels.idwt2d_full(x3, LIFT_CONSTS, levels, lev_lo)
+            ly, lx = _corner(x3, lev_lo)
+            x3[:, :ly, :lx].copy_(kernels.idwt2d_full(x3, LIFT_CONSTS, levels, lev_lo))
     elif x3.device.type == "cpu":
         _idwt2d_levels(x3, levels, lev_lo, lift_axis_ref)
     else:
-        raise ValueError(f"no 2D transform kernel for tensors on {x.device}")
+        raise _no_kernel(x)
     return x
-
-
-def dwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
-    return dwt2d_(x.clone(memory_format=torch.contiguous_format), levels)
-
-
-def idwt2d(x: torch.Tensor, levels: int | None = None) -> torch.Tensor:
-    return idwt2d_(x.clone(memory_format=torch.contiguous_format), levels)
 
 
 def dwt2d_ref(x: torch.Tensor, levels: int | None = None, lift: LiftFn = lift_axis_ref):
@@ -329,17 +365,26 @@ def idwt2d_ref(x: torch.Tensor, levels: int | None = None, lift: LiftFn = lift_a
 # ---------------------------------------------------------------------------
 # Multi-resolution inverses (cdf97_jax.py:255-293): the hierarchy of coarse
 # approximations, coarsest first, as utils.dims.coarsened_resolutions lists
-# them.  Each level is undone on its own so its corner can be copied out.
+# them.
 # ---------------------------------------------------------------------------
 def idwt2d_multi_res(x: torch.Tensor):
-    """-> (full inverse of x (..., ny, nx), tuple of coarse approximations);
-    one K3 launch per level on a CUDA tensor."""
+    """-> (full inverse of x (..., ny, nx), tuple of coarse approximations).
+    On a CUDA tensor one K3 call whose launches each keep their output, from
+    which the approximations are taken; on a CPU tensor the plain version
+    undoes one level at a time and copies each corner out."""
+    ny, nx = x.shape[-2], x.shape[-1]
+    levels = num_of_xforms(min(nx, ny))
+    lead = x.shape[:-2]
+    if x.is_cuda and levels > 0:
+        x3 = _as3(x.contiguous())
+        out, lls = kernels.idwt2d_full(x3, LIFT_CONSTS, levels, 0, hierarchy=True)
+        ly, lx = _corner(x3, levels)
+        hier = [x3[:, :ly, :lx].clone()] + lls
+        return out.view(x.shape), tuple(h.reshape(lead + h.shape[-2:]) for h in hier)
     out = x.clone(memory_format=torch.contiguous_format)
-    ny, nx = out.shape[-2], out.shape[-1]
     hier = []
-    for lev in range(num_of_xforms(min(nx, ny)), 0, -1):
-        lx, _ = calc_approx_detail_len(nx, lev)
-        ly, _ = calc_approx_detail_len(ny, lev)
+    for lev in range(levels, 0, -1):
+        ly, lx = _corner(out, lev)
         hier.append(out[..., :ly, :lx].clone())
         idwt2d_(out, lev, lev - 1)
     return out, tuple(hier)

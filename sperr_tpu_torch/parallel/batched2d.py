@@ -55,7 +55,7 @@ def _dense_encode2(batch: torch.Tensor, mode: str, quality: float, residual: str
     The means and the PSNR search run field by field and K2, K1 and K3 take
     the whole batch, computing each line on its own, so a field's results
     do not depend on the batch it came in."""
-    return _dense_encode_rows(batch, mode, quality, residual, cdf97.dwt2d, cdf97.idwt2d_)
+    return _dense_encode_rows(batch, mode, quality, residual, cdf97.dwt2d, cdf97.idwt2d)
 
 
 def _resid_mode(mode: str, pwe_strict) -> str:
