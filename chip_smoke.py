@@ -568,8 +568,8 @@ def main() -> int:
               f"for bit, in place = out of place, inputs untouched, level by level and partial "
               f"(to level {lo}) then the rest = full; max|round trip - x| {d_rt:.3e}")
         for name, plan in plans.items():
-            print(f"[kernels]   {name} plan: (level, corner, tiles, grid, shared bytes) "
-                  + ", ".join(f"({r.level}, {r.ly}x{r.lx}, {r.tiles}, {r.grid}, {r.shared_bytes})"
+            print(f"[kernels]   {name} plan: (level, corner, blocks, shared bytes) "
+                  + ", ".join(f"({r.level}, {r.ly}x{r.lx}, {r.grid}, {r.shared_bytes})"
                               for r in plan.launches)
                   + f"; scratch {4 * plan.scratch_floats} bytes")
         _check(d_rt <= 2e-5 * float(x.abs().max()), f"K2/K3 round trip at {shape}")
@@ -584,16 +584,6 @@ def main() -> int:
                 "K3 plain": _time_ms(lambda: cdf97.idwt2d_ref(fwd), 3),
                 "K3 lift driver": _time_ms(lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20),
             }
-            # the persistent form: a grid the card holds at once, each block
-            # walking tiles with the next one's copies in flight
-            kernels.plane_persistent = True
-            try:
-                _check(torch.equal(cdf97.dwt2d(x), fwd) and torch.equal(cdf97.idwt2d(fwd), inv),
-                       f"the persistent K2/K3 differ at {shape}")
-                t["K2 persistent"] = _time_ms(lambda: cdf97.dwt2d(x), 20)
-                t["K3 persistent"] = _time_ms(lambda: cdf97.idwt2d(fwd), 20)
-            finally:
-                kernels.plane_persistent = False
             t["bound"] = _bound_ms(2 * 4 * x.numel())
             print(f"[kernels] {shape} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
                   + f" -- {smi}")

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes as ct
+import functools
 import os
 import subprocess
 import threading
@@ -129,8 +130,6 @@ def load() -> ct.CDLL:
             ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_longlong,
             ct.POINTER(ct.c_float), ct.c_void_p,
         ]
-        lib.sperr_cdf97_2d_resident.restype = ct.c_int
-        lib.sperr_cdf97_2d_resident.argtypes = [ct.POINTER(ct.c_int)]
         vp, ll = ct.c_void_p, ct.c_longlong
         for name, args in (
             ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, vp]),
@@ -256,24 +255,19 @@ def cdf97_lift(
 
 # ---------------------------------------------------------------------------
 # K2/K3: the 2D transforms (kernels/cdf97_2d.cu), one launch per level, out
-# of place.  A block owns a tile of PLANE_TILE x PLANE_TILE output pairs and
-# loads it with a halo of two pairs on each side into one shared buffer
-# (two when a persistent grid walks several tiles per block).
+# of place.  One block per tile of PLANE_TILE x PLANE_TILE output pairs,
+# which it loads with a halo of two pairs on each side into shared memory.
 # ---------------------------------------------------------------------------
 PLANE_TILE = 28
-PLANE_BUFFER_BYTES = 2 * 32 * 81 * 4
+PLANE_SHARED_BYTES = 2 * 32 * 81 * 4
 PLANE_MAX_GRID = 2**31 - 1
-# False: one block per tile.  True: a grid of the blocks the card holds at
-# once, each walking tiles with the next one's copies in flight.
-plane_persistent = False
 
 
 class PlaneLaunch(NamedTuple):
     level: int         # forward: the level done; inverse: the level undone
     ly: int            # the level's corner (ly, lx)
     lx: int
-    tiles: int
-    grid: int
+    grid: int          # blocks: one per tile
     shared_bytes: int  # per block
 
 
@@ -292,15 +286,16 @@ class PlanePlan(NamedTuple):
     scratch_floats: int
 
 
+@functools.lru_cache(maxsize=256)
 def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int = 0,
-               keep: bool = False, max_blocks: Optional[int] = None) -> PlanePlan:
+               keep: bool = False) -> PlanePlan:
     """The launches of one K2 (forward levels 0 .. lev_hi-1) or K3 (undo
     levels lev_hi .. lev_lo+1) call on (B, ny, nx) planes, and the scratch
     that carries each approximation to the next launch: two regions used in
     turn, or with ``keep`` one per approximation (the multi-resolution
     decode reads them all).  Rows of the scratch are padded to 16 bytes.
-    ``max_blocks``: the grid of a persistent launch (None: one block per
-    tile)."""
+    Raises ValueError for what the kernels cannot take: lines shorter than 2
+    samples, or a level with more tiles than a launch's grid holds."""
     B, ny, nx, lev_hi, lev_lo = (int(v) for v in (B, ny, nx, lev_hi, lev_lo))
     if B < 0 or ny < 1 or nx < 1:
         raise ValueError(f"planes must be (B >= 0, ny >= 1, nx >= 1); got {(B, ny, nx)}")
@@ -318,15 +313,13 @@ def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int
     runs = []
     for lev in levels:
         ly, lx = corner(lev - 1 if inverse else lev)
-        tiles = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2) // PLANE_TILE)
-        grid = tiles if max_blocks is None else min(tiles, int(max_blocks))
+        grid = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2) // PLANE_TILE)
         if grid > PLANE_MAX_GRID:
             raise ValueError(
                 f"level {lev} of {(B, ny, nx)} needs {grid} blocks; a launch takes at most "
                 f"{PLANE_MAX_GRID}"
             )
-        nbuf = 2 if grid < tiles else 1
-        runs.append(PlaneLaunch(lev, ly, lx, tiles, grid, nbuf * PLANE_BUFFER_BYTES))
+        runs.append(PlaneLaunch(lev, ly, lx, grid, PLANE_SHARED_BYTES))
     mids = [corner(lev - 1 if inverse else lev + 1) for lev in levels][:-1]
     sizes = [B * ly * (-(-lx // 4) * 4) for ly, lx in mids]
     if keep:
@@ -342,17 +335,30 @@ def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int
     return PlanePlan(tuple(runs), scratch, total)
 
 
-_resident_blocks = {}
+@functools.lru_cache(maxsize=256)
+def _plane_desc(plan: PlanePlan, ny: int, nx: int, oy: int, ox: int, inverse: bool) -> np.ndarray:
+    """The launch descriptors of a plan (kernels/cdf97_2d.cu
+    sperr_cdf97_2d) with every pointer an offset in bytes; row 0, 1 and 2
+    of the result say which offsets are relative to x, the scratch and the
+    output."""
+    # the approximations in launch order: the input, the scratch, the output
+    chain = (
+        [(0, 0, nx, ny * nx)]
+        + [(1, 4 * s.offset, s.pitch, s.ly * s.pitch) for s in plan.scratch]
+        + [(2, 0, ox, oy * ox)]
+    )
+    det = 0 if inverse else 2
+    rows = []
+    for k, run in enumerate(plan.launches):
+        (ks, os_, *src), (kd, od, *dst) = chain[k], chain[k + 1]
+        rows.append([os_, *src, od, *dst, 0, nx, ny * nx, run.ly, run.lx, run.grid])
+        rows.append([ks, 0, 0, kd, 0, 0, det, 0, 0, 0, 0, 0])
+    d = np.array(rows, dtype=np.int64).reshape(-1, 2, 12)
+    return np.stack([d[:, 0], (d[:, 1] == 0) & _PTR, (d[:, 1] == 1) & _PTR, (d[:, 1] == 2) & _PTR])
 
 
-def _resident(lib: ct.CDLL, dev: torch.device) -> int:
-    n = _resident_blocks.get(dev.index)
-    if n is None:
-        out = ct.c_int()
-        with torch.cuda.device(dev):
-            _check(lib, lib.sperr_cdf97_2d_resident(ct.byref(out)), "cdf97_2d occupancy")
-        n = _resident_blocks[dev.index] = out.value
-    return n
+_PTR = np.zeros(12, dtype=bool)
+_PTR[[0, 3, 6]] = True
 
 
 def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.ndarray,
@@ -366,9 +372,7 @@ def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.
     if x.dim() != 3:
         raise ValueError(f"x must be (B, ny, nx); got {tuple(x.shape)}")
     B, ny, nx = x.shape
-    lib = load() if B and plane_persistent else None
-    plan = plane_plan(B, ny, nx, inverse, lev_hi, lev_lo, keep,
-                      _resident(lib, x.device) if lib is not None else None)
+    plan = plane_plan(B, ny, nx, bool(inverse), int(lev_hi), int(lev_lo), bool(keep))
     oy, ox = (
         (calc_approx_detail_len(ny, lev_lo)[0], calc_approx_detail_len(nx, lev_lo)[0])
         if inverse else (ny, nx)
@@ -378,23 +382,17 @@ def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.
     lls = [
         scratch[s.offset : s.offset + B * s.ly * s.pitch].view(B, s.ly, s.pitch)[:, :, : s.lx]
         for s in plan.scratch
-    ]
+    ] if keep else []
     if B == 0:
         return out, lls
     lib = load()
-    # the approximations in launch order: the input, the scratch, the output
-    chain = (
-        [(x.data_ptr(), nx, ny * nx)]
-        + [(scratch.data_ptr() + 4 * s.offset, s.pitch, s.ly * s.pitch) for s in plan.scratch]
-        + [(out.data_ptr(), ox, oy * ox)]
+    base, on_x, on_s, on_o = _plane_desc(plan, ny, nx, oy, ox, bool(inverse))
+    desc = np.ascontiguousarray(
+        base + on_x * x.data_ptr() + on_s * scratch.data_ptr() + on_o * out.data_ptr()
     )
-    det = x if inverse else out
-    desc = []
-    for k, run in enumerate(plan.launches):
-        desc += [*chain[k], *chain[k + 1], det.data_ptr(), nx, ny * nx, run.ly, run.lx, run.grid]
     with _on_device(x):
         err = lib.sperr_cdf97_2d(
-            int(inverse), len(plan.launches), (ct.c_longlong * len(desc))(*desc), B,
+            int(inverse), len(plan.launches), desc.ctypes.data_as(ct.POINTER(ct.c_longlong)), B,
             _consts(consts), _stream(x),
         )
     _check(lib, err, name)

@@ -32,20 +32,22 @@
 // i-2 .. i+2 of both halves.  The halo is lifted again by each tile that
 // loads it, from the same inputs by the same operations, so it gets the same
 // bits as in the tile that owns it; only the owned pairs are stored.
-//   load:    4-byte cp.async straight into shared memory, split into even
-//            and odd halves on both axes on the way (rows of the tile at
-//            [y half][y pair], samples at [x half * 48 + x pair]; the row
-//            pitch is 81 floats, so a walk down a column and the split
-//            writes of a warp are free of bank conflicts);
+//   load:    16-byte loads where the rows are aligned (4-byte ones where
+//            not) staged through registers and split into even and odd
+//            halves on both axes on the way to shared memory (rows of the
+//            tile at [y half][y pair], samples at [x half * 48 + x pair];
+//            the row pitch is 81 floats, so a walk down a column is free of
+//            bank conflicts);
 //   lift:    one warp per line, lane = pair: the four lifting steps run in
-//            registers, and each clamped neighbour is one __shfl_sync from
-//            the lane that holds it; rows then columns (forward), columns
-//            then rows (inverse), each written back in place;
-//   store:   coalesced rows of each band (forward) or of the interleaved
-//            plane (inverse).
-// A block of a persistent grid (fewer blocks than tiles) walks tiles and
-// double-buffers them: the next tile's cp.async is in flight while the
-// current one is lifted.
+//            registers, each clamped neighbour is one __shfl_sync from the
+//            lane that holds it, and each warp lifts its 7 or 8 lines at
+//            once so that their shuffles overlap; rows then columns
+//            (forward), columns then rows (inverse), written back in place;
+//   store:   16-byte stores of each band's rows (forward) or of the
+//            interleaved plane (inverse) where aligned.
+// One block per tile: 20.7 KB of shared memory and 64 registers a thread
+// let four blocks share an SM, so one block's loads overlap another's
+// lifting.
 // Built with --fmad=false and without fast math: each product and sum rounds
 // on its own as in the plain version, and nothing sums across lines, so the
 // result equals the plain version bit for bit whatever B is and however tiles
@@ -147,75 +149,128 @@ __device__ __forceinline__ void inverse_pair(float& e, float& o, int p, const Cl
   o = o - k.alpha * (e + __shfl_sync(kFull, e, er));
 }
 
-__device__ __forceinline__ void cp_async4(float* s, const float* g) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g));
+// Every lane of a warp lifts R lines at once (independent chains, so their
+// shuffles overlap): line i's pair p sits at s[off(i) + p * step], its odd
+// partner `odd` floats further.  Lines whose pairs lie outside the level
+// are lifted too: they hold values no owned pair reads.
+template <int R, bool kInverse, typename Off>
+__device__ __forceinline__ void lift_lines(float* s, Off off, int step, int odd, const Clamp& c,
+                                           const Lift& k) {
+  const int lane = threadIdx.x & 31;
+  float e[R], o[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float* b = s + off(i) + lane * step;
+    e[i] = b[0];
+    o[i] = b[odd];
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (kInverse) inverse_pair(e[i], o[i], lane, c, k); else forward_pair(e[i], o[i], lane, c, k);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float* b = s + off(i) + lane * step;
+    b[0] = e[i];
+    b[odd] = o[i];
+  }
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// 16-byte accesses need the pointer, the pitch and the plane stride on
+// 16-byte boundaries.
+__device__ __forceinline__ bool aligned(const float* p, long long pitch, long long plane) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && (pitch & 3) == 0 && (plane & 3) == 0;
+}
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// Four samples from row p, columns g .. g+3; those outside [0, n) read as 0.
+__device__ __forceinline__ float4 load4(const float* p, int g, int n, bool vec) {
+  if (vec && g >= 0 && g + 4 <= n) return *reinterpret_cast<const float4*>(p + g);
+  float v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = (g + t >= 0 && g + t < n) ? p[g + t] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Four samples to row p, columns g .. g+3 (g >= 0); those at or past n are
+// dropped.
+__device__ __forceinline__ void store4(float* p, int g, int n, bool vec, float4 v) {
+  if (vec && g + 4 <= n) {
+    *reinterpret_cast<float4*>(p + g) = v;
+    return;
+  }
+  const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (g + t < n) p[g + t] = w[t];
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Forward: the tile's 64 x 64 input samples from rows 2 (j0 - 2) .. and
-// columns 2 (i0 - 2) .. of the corner.  Input row r goes to shared row
+// columns 2 (i0 - 2) .. of the corner, 16 bytes at a time (the first column
+// is 56 tx - 4, a multiple of 4).  Input row r goes to shared row
 // (r & 1) * kN + r / 2, sample c to (c & 1) * kOdd + c / 2.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void forward_load(float* s, const Level& L, const Tile& t) {
-  const int r0 = 2 * (t.j0 - kHalo), c0 = 2 * (t.i0 - kHalo);
-  const float* base = L.src + t.b * L.src_plane;
-  for (int idx = threadIdx.x; idx < 4 * kN * kN; idx += kThreads) {
-    const int r = idx >> 6, c = idx & 63;
-    const int gr = r0 + r, gc = c0 + c;
-    if (gr >= 0 && gr < L.ly && gc >= 0 && gc < L.lx) {
-      cp_async4(s + ((r & 1) * kN + (r >> 1)) * kPitch + (c & 1) * kOdd + (c >> 1),
-                base + (long long)gr * L.src_pitch + gc);
+__device__ __forceinline__ void forward_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
+  const int warp = threadIdx.x >> 5;
+  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
+  {
+    const int r0 = 2 * (t.j0 - kHalo), c0 = 2 * (t.i0 - kHalo);
+    const float* base = L.src + t.b * L.src_plane;
+    const bool vec = aligned(L.src, L.src_pitch, L.src_plane);
+    float4 v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = threadIdx.x + q * kThreads, gr = r0 + (idx >> 4);
+      v[q] = (gr >= 0 && gr < L.ly)
+                 ? load4(base + (long long)gr * L.src_pitch, c0 + 4 * (idx & 15), L.lx, vec)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = threadIdx.x + q * kThreads, r = idx >> 4, p = 2 * (idx & 15);
+      float* row = s + ((r & 1) * kN + (r >> 1)) * kPitch;
+      row[p] = v[q].x;
+      row[kOdd + p] = v[q].y;
+      row[p + 1] = v[q].z;
+      row[kOdd + p + 1] = v[q].w;
     }
   }
-}
-
-__device__ __forceinline__ void forward_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
-  // rows (x): every loaded row
-  const Clamp cx = clamp_of(L.lx, t.i0);
-  for (int row = warp; row < 2 * kN; row += kWarps) {
-    const int hy = row / kN, gy = t.j0 - kHalo + row % kN;
-    if (gy < 0 || gy >= (hy ? oly : ely)) continue;
-    float* r = s + row * kPitch;
-    float e = r[lane], o = r[kOdd + lane];
-    forward_pair(e, o, lane, cx, k);
-    r[lane] = e;
-    r[kOdd + lane] = o;
-  }
   __syncthreads();
-  // columns (y): the owned columns of both x halves
-  const Clamp cy = clamp_of(L.ly, t.j0);
-  for (int col = warp; col < 2 * kT; col += kWarps) {
-    const int hx = col / kT, px = col % kT;
-    if (t.i0 + px >= (hx ? olx : elx)) continue;
-    float* c = s + hx * kOdd + kHalo + px;
-    float e = c[lane * kPitch], o = c[(kN + lane) * kPitch];
-    forward_pair(e, o, lane, cy, k);
-    c[lane * kPitch] = e;
-    c[(kN + lane) * kPitch] = o;
-  }
+  // rows (x): every loaded row, 8 per warp
+  lift_lines<2 * kN / kWarps, false>(
+      s, [&](int i) { return (warp + kWarps * i) * kPitch; }, 1, kOdd, clamp_of(L.lx, t.i0), k);
   __syncthreads();
-  // the four bands of the owned pairs: LL to dst, the details to det
-  const long long dst0 = t.b * L.dst_plane, det0 = t.b * L.det_plane;
-  for (int idx = threadIdx.x; idx < 4 * kT * kT; idx += kThreads) {
-    const int r = idx / (2 * kT), c = idx % (2 * kT);
-    const int hy = r / kT, py = r % kT, hx = c / kT, px = c % kT;
-    const int gy = t.j0 + py, gx = t.i0 + px;
-    if (gy >= (hy ? oly : ely) || gx >= (hx ? olx : elx)) continue;
-    const float v = s[(hy * kN + kHalo + py) * kPitch + hx * kOdd + kHalo + px];
+  // columns (y): the owned columns of both x halves, 7 per warp
+  lift_lines<2 * kT / kWarps, false>(
+      s,
+      [&](int i) {
+        const int col = warp + kWarps * i;
+        return (col / kT) * kOdd + kHalo + col % kT;
+      },
+      kPitch, kN * kPitch, clamp_of(L.ly, t.j0), k);
+  __syncthreads();
+  // the four bands of the owned pairs, 16 bytes at a time where aligned
+  // (i0 = 28 tx is a multiple of 4): LL to dst, the details to det
+  const bool vdst = aligned(L.dst, L.dst_pitch, L.dst_plane);
+  const bool vdet = aligned(L.det, L.det_pitch, L.det_plane);
+  const bool vdet1 = vdet && (elx & 3) == 0;  // the odd x half starts at elx
+  for (int idx = threadIdx.x; idx < 2 * kT * 2 * (kT / 4); idx += kThreads) {
+    const int r = idx / (kT / 2), u = idx % (kT / 2);  // u: x half and quad
+    const int hy = r / kT, py = r % kT, hx = u / (kT / 4), q = u % (kT / 4);
+    const int gy = t.j0 + py, gx = t.i0 + 4 * q;
+    if (gy >= (hy ? oly : ely)) continue;
+    const float* v = s + (hy * kN + kHalo + py) * kPitch + hx * kOdd + kHalo + 4 * q;
+    const float4 w = make_float4(v[0], v[1], v[2], v[3]);
     if (hy | hx) {
-      L.det[det0 + (long long)(hy ? ely + gy : gy) * L.det_pitch + (hx ? elx + gx : gx)] = v;
+      float* row = L.det + t.b * L.det_plane + (long long)(hy ? ely + gy : gy) * L.det_pitch;
+      if (hx) {
+        store4(row + elx, gx, olx, vdet1, w);
+      } else {
+        store4(row, gx, elx, vdet, w);
+      }
     } else {
-      L.dst[dst0 + (long long)gy * L.dst_pitch + gx] = v;
+      store4(L.dst + t.b * L.dst_plane + (long long)gy * L.dst_pitch, gx, elx, vdst, w);
     }
   }
 }
@@ -224,114 +279,94 @@ __device__ __forceinline__ void forward_tile(float* s, const Level& L, const Til
 // Inverse: input pairs j0 - 2 .. j0 + 29 and i0 - 2 .. i0 + 29 of both
 // halves; (y half, y pair) -> shared row hy * kN + py, (x half, x pair) ->
 // hx * kOdd + px.  The even-even quarter comes from src, the rest from det.
+// Each (row, x half) is read as 9 quads from pair i0 - 4 (a multiple of 4).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void inverse_load(float* s, const Level& L, const Tile& t) {
-  const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
-  const float* src = L.src + t.b * L.src_plane;
-  const float* det = L.det + t.b * L.det_plane;
-  for (int idx = threadIdx.x; idx < 4 * kN * kN; idx += kThreads) {
-    const int r = idx >> 6, c = idx & 63;
-    const int hy = r >> 5, hx = c >> 5;
-    const int gy = t.j0 - kHalo + (r & 31), gx = t.i0 - kHalo + (c & 31);
-    if (gy < 0 || gy >= (hy ? oly : ely) || gx < 0 || gx >= (hx ? olx : elx)) continue;
-    const float* g = (hy | hx) ? det + (long long)(hy ? ely + gy : gy) * L.det_pitch + (hx ? elx + gx : gx)
-                               : src + (long long)gy * L.src_pitch + gx;
-    cp_async4(s + r * kPitch + hx * kOdd + (c & 31), g);
-  }
-}
-
 __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
+  {
+    const bool vsrc = aligned(L.src, L.src_pitch, L.src_plane);
+    const bool vdet = aligned(L.det, L.det_pitch, L.det_plane);
+    const bool vdet1 = vdet && (elx & 3) == 0;  // the odd x half starts at elx
+    constexpr int kQuads = 2 * kN * 2 * 9;
+    for (int idx = threadIdx.x; idx < kQuads; idx += kThreads) {
+      const int r = idx / 18, u = idx % 18, hx = u / 9, q = u % 9;
+      const int hy = r / kN, gy = t.j0 - kHalo + r % kN;
+      const int g = t.i0 - 2 * kHalo + 4 * q;  // first pair of the quad in its x half
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (gy >= 0 && gy < (hy ? oly : ely)) {
+        if (hy | hx) {
+          const float* row = L.det + t.b * L.det_plane + (long long)(hy ? ely + gy : gy) * L.det_pitch;
+          v = hx ? load4(row + elx, g, olx, vdet1) : load4(row, g, elx, vdet);
+        } else {
+          v = load4(L.src + t.b * L.src_plane + (long long)gy * L.src_pitch, g, elx, vsrc);
+        }
+      }
+      float* row = s + r * kPitch + hx * kOdd;
+      const int p = 4 * q - kHalo;  // shared pair of v.x
+      const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (p + i >= 0 && p + i < kN) row[p + i] = w[i];
+      }
+    }
+  }
+  __syncthreads();
   // columns (y) first: every loaded column, since the rows need the x halo
-  const Clamp cy = clamp_of(L.ly, t.j0);
-  for (int col = warp; col < 2 * kN; col += kWarps) {
-    const int hx = col / kN, gx = t.i0 - kHalo + col % kN;
-    if (gx < 0 || gx >= (hx ? olx : elx)) continue;
-    float* c = s + hx * kOdd + col % kN;
-    float e = c[lane * kPitch], o = c[(kN + lane) * kPitch];
-    inverse_pair(e, o, lane, cy, k);
-    c[lane * kPitch] = e;
-    c[(kN + lane) * kPitch] = o;
-  }
+  lift_lines<2 * kN / kWarps, true>(
+      s,
+      [&](int i) {
+        const int col = warp + kWarps * i;
+        return (col / kN) * kOdd + col % kN;
+      },
+      kPitch, kN * kPitch, clamp_of(L.ly, t.j0), k);
   __syncthreads();
-  // then rows (x): the owned rows of both y halves
-  const Clamp cx = clamp_of(L.lx, t.i0);
-  for (int row = warp; row < 2 * kT; row += kWarps) {
-    const int hy = row / kT, py = row % kT;
-    if (t.j0 + py >= (hy ? oly : ely)) continue;
-    float* r = s + (hy * kN + kHalo + py) * kPitch;
-    float e = r[lane], o = r[kOdd + lane];
-    inverse_pair(e, o, lane, cx, k);
-    r[lane] = e;
-    r[kOdd + lane] = o;
-  }
+  // then rows (x): the owned rows of both y halves, 7 per warp
+  lift_lines<2 * kT / kWarps, true>(
+      s,
+      [&](int i) {
+        const int row = warp + kWarps * i;
+        return ((row / kT) * kN + kHalo + row % kT) * kPitch;
+      },
+      1, kOdd, clamp_of(L.lx, t.i0), k);
   __syncthreads();
-  // the owned 56 x 56 samples, interleaved: sample (2 gy + hy, 2 gx + hx)
-  const long long dst0 = t.b * L.dst_plane;
-  for (int idx = threadIdx.x; idx < 4 * kT * kT; idx += kThreads) {
-    const int r = idx / (2 * kT), c = idx % (2 * kT);
-    const int Y = 2 * t.j0 + r, X = 2 * t.i0 + c;
-    if (Y >= L.ly || X >= L.lx) continue;
-    L.dst[dst0 + (long long)Y * L.dst_pitch + X] =
-        s[((r & 1) * kN + kHalo + (r >> 1)) * kPitch + (c & 1) * kOdd + kHalo + (c >> 1)];
+  // the owned 56 x 56 samples, interleaved, 16 bytes at a time where
+  // aligned (2 i0 = 56 tx): sample (2 gy + hy, 2 gx + hx)
+  const bool vdst = aligned(L.dst, L.dst_pitch, L.dst_plane);
+  for (int idx = threadIdx.x; idx < 2 * kT * (kT / 2); idx += kThreads) {
+    const int r = idx / (kT / 2), q = idx % (kT / 2);
+    const int Y = 2 * t.j0 + r;
+    if (Y >= L.ly) continue;
+    const float* v = s + ((r & 1) * kN + kHalo + (r >> 1)) * kPitch + kHalo + 2 * q;
+    store4(L.dst + t.b * L.dst_plane + (long long)Y * L.dst_pitch, 2 * t.i0 + 4 * q, L.lx, vdst,
+           make_float4(v[0], v[kOdd], v[1], v[kOdd + 1]));
   }
 }
 
-// Tiles t = blockIdx.x, + gridDim.x, ...  With two buffers (a persistent
-// grid) the next tile's copies are in flight while this one is lifted.
-template <bool kInverse>
-__device__ __forceinline__ void walk(float* smem, const Level& L, const Lift& k, int two) {
-  long long t = blockIdx.x;
-  if (t >= L.ntiles) return;
-  const long long G = gridDim.x;
-  if (kInverse) inverse_load(smem, L, tile_of(L, t)); else forward_load(smem, L, tile_of(L, t));
-  cp_commit();
-  for (int it = 0; t < L.ntiles; t += G, ++it) {
-    float* s = smem + (two ? (it & 1) * kBuf : 0);
-    const long long tn = t + G;
-    if (two && tn < L.ntiles) {
-      float* s2 = smem + ((it + 1) & 1) * kBuf;
-      if (kInverse) inverse_load(s2, L, tile_of(L, tn)); else forward_load(s2, L, tile_of(L, tn));
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const Tile tt = tile_of(L, t);
-    if (kInverse) inverse_tile(s, L, tt, k); else forward_tile(s, L, tt, k);
-    __syncthreads();
-    if (!two && tn < L.ntiles) {
-      if (kInverse) inverse_load(s, L, tile_of(L, tn)); else forward_load(s, L, tile_of(L, tn));
-      cp_commit();
-    }
-  }
+__global__ void __launch_bounds__(kThreads, 4) dwt2d_level(Level L, Lift k) {
+  __shared__ float s[kBuf];
+  forward_tile(s, L, tile_of(L, blockIdx.x), k);
 }
 
-__global__ void __launch_bounds__(kThreads) dwt2d_level(Level L, Lift k, int two) {
-  extern __shared__ __align__(16) float smem[];
-  walk<false>(smem, L, k, two);
-}
-
-__global__ void __launch_bounds__(kThreads) idwt2d_level(Level L, Lift k, int two) {
-  extern __shared__ __align__(16) float smem[];
-  walk<true>(smem, L, k, two);
+__global__ void __launch_bounds__(kThreads, 4) idwt2d_level(Level L, Lift k) {
+  __shared__ float s[kBuf];
+  inverse_tile(s, L, tile_of(L, blockIdx.x), k);
 }
 
 }  // namespace
 
 // Every level of one 2D transform of B planes, one launch per level in
-// stream order.  desc: n launch descriptors of 12 long longs each:
+// stream order, one block per tile.  desc: n launch descriptors of 12 long
+// longs each:
 //   src pointer, src pitch, src plane stride, dst pointer, dst pitch, dst
 //   plane stride, det pointer, det pitch, det plane stride, ly, lx, grid
 // (pointers as integers; pitches and strides in floats; (ly, lx) the
-// level's corner; grid the blocks of the launch: one per tile, or fewer for
-// a persistent grid that double-buffers its tiles).  inverse = 0: forward
-// levels (src the corner LL_{k-1}, dst LL_k, det the detail bands written);
-// inverse = 1: src LL_k, det the detail bands read, dst the corner.  consts:
-// host {alpha, beta, gamma, delta, epsilon, inv_epsilon}.  Returns the
-// cudaError_t of the first launch that failed, or 0.
+// level's corner; grid the launch's blocks, which must be its tiles).
+// inverse = 0: forward levels (src the corner LL_{k-1}, dst LL_k, det the
+// detail bands written); inverse = 1: src LL_k, det the detail bands read,
+// dst the corner.  consts: host {alpha, beta, gamma, delta, epsilon,
+// inv_epsilon}.  Returns the cudaError_t of the first launch that failed,
+// or 0.
 extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, long long B,
                               const float* consts, cudaStream_t stream) {
   if (n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
@@ -350,35 +385,19 @@ extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, long lo
     L.det_plane = d[8];
     L.ly = (int)d[9];
     L.lx = (int)d[10];
-    const long long grid = d[11];
-    if (L.ly < 2 || L.lx < 2 || grid <= 0 || grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     L.tiles_x = (L.lx - L.lx / 2 + kT - 1) / kT;
     L.tiles_y = (L.ly - L.ly / 2 + kT - 1) / kT;
     L.ntiles = B * L.tiles_x * L.tiles_y;
-    const int two = grid < L.ntiles;
-    const size_t shmem = (size_t)(two ? 2 : 1) * kBuf * sizeof(float);
+    if (L.ly < 2 || L.lx < 2 || d[11] != L.ntiles || L.ntiles > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
     if (inverse) {
-      idwt2d_level<<<(unsigned)grid, kThreads, shmem, stream>>>(L, k, two);
+      idwt2d_level<<<(unsigned)L.ntiles, kThreads, 0, stream>>>(L, k);
     } else {
-      dwt2d_level<<<(unsigned)grid, kThreads, shmem, stream>>>(L, k, two);
+      dwt2d_level<<<(unsigned)L.ntiles, kThreads, 0, stream>>>(L, k);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return 0;
-}
-
-// The blocks of a persistent grid: blocks of two tile buffers that the card
-// holds at once.  Returns the cudaError_t (0 on success).
-extern "C" int sperr_cdf97_2d_resident(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dwt2d_level, kThreads,
-                                                        2 * kBuf * sizeof(float));
-  }
-  if (err != cudaSuccess) return (int)err;
-  *blocks = per_sm * sms;
   return 0;
 }
