@@ -313,7 +313,9 @@ def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int
     runs = []
     for lev in levels:
         ly, lx = corner(lev - 1 if inverse else lev)
-        grid = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2) // PLANE_TILE)
+        # the inverse's tiles start at x pair -2 (aligned loads, cdf97_2d.cu)
+        shift = 2 if inverse else 0
+        grid = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2 + shift) // PLANE_TILE)
         if grid > PLANE_MAX_GRID:
             raise ValueError(
                 f"level {lev} of {(B, ny, nx)} needs {grid} blocks; a launch takes at most "

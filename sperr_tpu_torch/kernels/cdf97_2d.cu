@@ -94,6 +94,7 @@ struct Level {
   long long det_pitch, det_plane;
   int ly, lx;
   int tiles_x, tiles_y;
+  int shift;  // the first tile's first pair along x is -shift
   long long ntiles;
 };
 
@@ -108,7 +109,7 @@ __device__ __forceinline__ Tile tile_of(const Level& L, long long t) {
   r.b = t / per;
   const int u = (int)(t - r.b * per);
   r.j0 = (u / L.tiles_x) * kT;
-  r.i0 = (u % L.tiles_x) * kT;
+  r.i0 = (u % L.tiles_x) * kT - L.shift;
   return r;
 }
 
@@ -279,7 +280,9 @@ __device__ __forceinline__ void forward_tile(float* s, const Level& L, const Til
 // Inverse: input pairs j0 - 2 .. j0 + 29 and i0 - 2 .. i0 + 29 of both
 // halves; (y half, y pair) -> shared row hy * kN + py, (x half, x pair) ->
 // hx * kOdd + px.  The even-even quarter comes from src, the rest from det.
-// Each (row, x half) is read as 9 quads from pair i0 - 4 (a multiple of 4).
+// The tiles start at x pair -2 (i0 = 28 tx - 2), so each (row, x half) is 8
+// quads from pair i0 - 2, a multiple of 4, and the interleaved output row
+// from sample 2 i0, also one.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
   const int warp = threadIdx.x >> 5;
@@ -288,27 +291,29 @@ __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Til
     const bool vsrc = aligned(L.src, L.src_pitch, L.src_plane);
     const bool vdet = aligned(L.det, L.det_pitch, L.det_plane);
     const bool vdet1 = vdet && (elx & 3) == 0;  // the odd x half starts at elx
-    constexpr int kQuads = 2 * kN * 2 * 9;
-    for (int idx = threadIdx.x; idx < kQuads; idx += kThreads) {
-      const int r = idx / 18, u = idx % 18, hx = u / 9, q = u % 9;
-      const int hy = r / kN, gy = t.j0 - kHalo + r % kN;
-      const int g = t.i0 - 2 * kHalo + 4 * q;  // first pair of the quad in its x half
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = threadIdx.x + q * kThreads, r = idx >> 4, hx = (idx >> 3) & 1;
+      const int hy = r / kN, gy = t.j0 - kHalo + r % kN, g = t.i0 - kHalo + 4 * (idx & 7);
+      v[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (gy >= 0 && gy < (hy ? oly : ely)) {
         if (hy | hx) {
           const float* row = L.det + t.b * L.det_plane + (long long)(hy ? ely + gy : gy) * L.det_pitch;
-          v = hx ? load4(row + elx, g, olx, vdet1) : load4(row, g, elx, vdet);
+          v[q] = hx ? load4(row + elx, g, olx, vdet1) : load4(row, g, elx, vdet);
         } else {
-          v = load4(L.src + t.b * L.src_plane + (long long)gy * L.src_pitch, g, elx, vsrc);
+          v[q] = load4(L.src + t.b * L.src_plane + (long long)gy * L.src_pitch, g, elx, vsrc);
         }
       }
-      float* row = s + r * kPitch + hx * kOdd;
-      const int p = 4 * q - kHalo;  // shared pair of v.x
-      const float w[4] = {v.x, v.y, v.z, v.w};
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (p + i >= 0 && p + i < kN) row[p + i] = w[i];
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int idx = threadIdx.x + q * kThreads;
+      float* row = s + (idx >> 4) * kPitch + ((idx >> 3) & 1) * kOdd + 4 * (idx & 7);
+      row[0] = v[q].x;
+      row[1] = v[q].y;
+      row[2] = v[q].z;
+      row[3] = v[q].w;
     }
   }
   __syncthreads();
@@ -331,14 +336,14 @@ __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Til
       1, kOdd, clamp_of(L.lx, t.i0), k);
   __syncthreads();
   // the owned 56 x 56 samples, interleaved, 16 bytes at a time where
-  // aligned (2 i0 = 56 tx): sample (2 gy + hy, 2 gx + hx)
+  // aligned: sample (2 gy + hy, 2 gx + hx)
   const bool vdst = aligned(L.dst, L.dst_pitch, L.dst_plane);
   for (int idx = threadIdx.x; idx < 2 * kT * (kT / 2); idx += kThreads) {
     const int r = idx / (kT / 2), q = idx % (kT / 2);
-    const int Y = 2 * t.j0 + r;
-    if (Y >= L.ly) continue;
+    const int Y = 2 * t.j0 + r, X = 2 * t.i0 + 4 * q;
+    if (Y >= L.ly || X < 0) continue;
     const float* v = s + ((r & 1) * kN + kHalo + (r >> 1)) * kPitch + kHalo + 2 * q;
-    store4(L.dst + t.b * L.dst_plane + (long long)Y * L.dst_pitch, 2 * t.i0 + 4 * q, L.lx, vdst,
+    store4(L.dst + t.b * L.dst_plane + (long long)Y * L.dst_pitch, X, L.lx, vdst,
            make_float4(v[0], v[kOdd], v[1], v[kOdd + 1]));
   }
 }
@@ -385,7 +390,8 @@ extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, long lo
     L.det_plane = d[8];
     L.ly = (int)d[9];
     L.lx = (int)d[10];
-    L.tiles_x = (L.lx - L.lx / 2 + kT - 1) / kT;
+    L.shift = inverse ? kHalo : 0;
+    L.tiles_x = (L.lx - L.lx / 2 + L.shift + kT - 1) / kT;
     L.tiles_y = (L.ly - L.ly / 2 + kT - 1) / kT;
     L.ntiles = B * L.tiles_x * L.tiles_y;
     if (L.ly < 2 || L.lx < 2 || d[11] != L.ntiles || L.ntiles > 0x7fffffffLL) {
