@@ -127,8 +127,8 @@ def load() -> ct.CDLL:
         ]
         lib.sperr_cdf97_2d.restype = ct.c_int
         lib.sperr_cdf97_2d.argtypes = [
-            ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_longlong,
-            ct.POINTER(ct.c_float), ct.c_void_p,
+            ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_void_p, ct.c_void_p,
+            ct.c_void_p, ct.c_longlong, ct.POINTER(ct.c_float), ct.c_void_p,
         ]
         vp, ll = ct.c_void_p, ct.c_longlong
         for name, args in (
@@ -338,29 +338,22 @@ def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int
 
 
 @functools.lru_cache(maxsize=256)
-def _plane_desc(plan: PlanePlan, ny: int, nx: int, oy: int, ox: int, inverse: bool) -> np.ndarray:
-    """The launch descriptors of a plan (kernels/cdf97_2d.cu
-    sperr_cdf97_2d) with every pointer an offset in bytes; row 0, 1 and 2
-    of the result say which offsets are relative to x, the scratch and the
-    output."""
-    # the approximations in launch order: the input, the scratch, the output
+def _plane_desc(plan: PlanePlan, ny: int, nx: int, oy: int, ox: int, inverse: bool):
+    """The launch descriptors of a plan as kernels/cdf97_2d.cu
+    sperr_cdf97_2d takes them (a ctypes array, built once per plan)."""
+    # the approximations in launch order: the input (0), the scratch (1),
+    # the output (2), each as (base, byte offset, pitch, plane stride)
     chain = (
         [(0, 0, nx, ny * nx)]
         + [(1, 4 * s.offset, s.pitch, s.ly * s.pitch) for s in plan.scratch]
         + [(2, 0, ox, oy * ox)]
     )
     det = 0 if inverse else 2
-    rows = []
+    words = []
     for k, run in enumerate(plan.launches):
-        (ks, os_, *src), (kd, od, *dst) = chain[k], chain[k + 1]
-        rows.append([os_, *src, od, *dst, 0, nx, ny * nx, run.ly, run.lx, run.grid])
-        rows.append([ks, 0, 0, kd, 0, 0, det, 0, 0, 0, 0, 0])
-    d = np.array(rows, dtype=np.int64).reshape(-1, 2, 12)
-    return np.stack([d[:, 0], (d[:, 1] == 0) & _PTR, (d[:, 1] == 1) & _PTR, (d[:, 1] == 2) & _PTR])
-
-
-_PTR = np.zeros(12, dtype=bool)
-_PTR[[0, 3, 6]] = True
+        (ks, *src), (kd, *dst) = chain[k], chain[k + 1]
+        words += [*src, *dst, 0, nx, ny * nx, run.ly, run.lx, run.grid, ks, kd, det]
+    return (ct.c_longlong * len(words))(*words)
 
 
 def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.ndarray,
@@ -388,14 +381,10 @@ def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.
     if B == 0:
         return out, lls
     lib = load()
-    base, on_x, on_s, on_o = _plane_desc(plan, ny, nx, oy, ox, bool(inverse))
-    desc = np.ascontiguousarray(
-        base + on_x * x.data_ptr() + on_s * scratch.data_ptr() + on_o * out.data_ptr()
-    )
     with _on_device(x):
         err = lib.sperr_cdf97_2d(
-            int(inverse), len(plan.launches), desc.ctypes.data_as(ct.POINTER(ct.c_longlong)), B,
-            _consts(consts), _stream(x),
+            int(inverse), len(plan.launches), _plane_desc(plan, ny, nx, oy, ox, bool(inverse)),
+            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, _consts(consts), _stream(x),
         )
     _check(lib, err, name)
     launches[name] += len(plan.launches)

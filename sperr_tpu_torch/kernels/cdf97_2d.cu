@@ -75,7 +75,7 @@ constexpr int kT = kN - 2 * kHalo;     // output pairs per tile axis
 constexpr int kOdd = 48;               // the odd half of a shared row starts here
 constexpr int kPitch = 81;             // shared row pitch, in floats
 constexpr int kBuf = 2 * kN * kPitch;  // floats of one tile buffer (64 rows)
-constexpr int kDescWords = 12;         // long longs per launch descriptor
+constexpr int kDescWords = 15;         // long longs per launch descriptor
 
 struct Lift {
   float alpha, beta, gamma, delta, epsilon, inv_epsilon;
@@ -361,31 +361,38 @@ __global__ void __launch_bounds__(kThreads, 4) idwt2d_level(Level L, Lift k) {
 }  // namespace
 
 // Every level of one 2D transform of B planes, one launch per level in
-// stream order, one block per tile.  desc: n launch descriptors of 12 long
+// stream order, one block per tile.  desc: n launch descriptors of 15 long
 // longs each:
-//   src pointer, src pitch, src plane stride, dst pointer, dst pitch, dst
-//   plane stride, det pointer, det pitch, det plane stride, ly, lx, grid
-// (pointers as integers; pitches and strides in floats; (ly, lx) the
-// level's corner; grid the launch's blocks, which must be its tiles).
-// inverse = 0: forward levels (src the corner LL_{k-1}, dst LL_k, det the
-// detail bands written); inverse = 1: src LL_k, det the detail bands read,
-// dst the corner.  consts: host {alpha, beta, gamma, delta, epsilon,
-// inv_epsilon}.  Returns the cudaError_t of the first launch that failed,
-// or 0.
-extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, long long B,
-                              const float* consts, cudaStream_t stream) {
+//   src offset, src pitch, src plane stride, dst offset, dst pitch, dst
+//   plane stride, det offset, det pitch, det plane stride, ly, lx, grid,
+//   src base, dst base, det base
+// (offsets in bytes from the base that the last three words name: 0 x, 1
+// scratch, 2 out; pitches and strides in floats; (ly, lx) the level's
+// corner; grid the launch's blocks, which must be its tiles).  inverse = 0:
+// forward levels (src the corner LL_{k-1}, dst LL_k, det the detail bands
+// written); inverse = 1: src LL_k, det the detail bands read, dst the
+// corner.  consts: host {alpha, beta, gamma, delta, epsilon, inv_epsilon}.
+// Returns the cudaError_t of the first launch that failed, or 0.
+extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, const float* x,
+                              float* scratch, float* out, long long B, const float* consts,
+                              cudaStream_t stream) {
   if (n <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   const Lift k = {consts[0], consts[1], consts[2], consts[3], consts[4], consts[5]};
+  char* const bases[3] = {reinterpret_cast<char*>(const_cast<float*>(x)),
+                          reinterpret_cast<char*>(scratch), reinterpret_cast<char*>(out)};
   for (int i = 0; i < n; ++i) {
     const long long* d = desc + (long long)i * kDescWords;
+    if (d[12] < 0 || d[12] > 2 || d[13] < 0 || d[13] > 2 || d[14] < 0 || d[14] > 2) {
+      return (int)cudaErrorInvalidValue;
+    }
     Level L;
-    L.src = reinterpret_cast<const float*>(d[0]);
+    L.src = reinterpret_cast<const float*>(bases[d[12]] + d[0]);
     L.src_pitch = d[1];
     L.src_plane = d[2];
-    L.dst = reinterpret_cast<float*>(d[3]);
+    L.dst = reinterpret_cast<float*>(bases[d[13]] + d[3]);
     L.dst_pitch = d[4];
     L.dst_plane = d[5];
-    L.det = reinterpret_cast<float*>(d[6]);
+    L.det = reinterpret_cast<float*>(bases[d[14]] + d[6]);
     L.det_pitch = d[7];
     L.det_plane = d[8];
     L.ly = (int)d[9];
