@@ -45,21 +45,29 @@
 //            (forward), columns then rows (inverse), written back in place;
 //   store:   16-byte stores of each band's rows (forward) or of the
 //            interleaved plane (inverse) where aligned.
-// One block per tile: 20.7 KB of shared memory and 64 registers a thread
-// let four blocks share an SM, so one block's loads overlap another's
-// lifting.
+// One block per tile: 20.7 KB of shared memory and at most 40 registers a
+// thread (__launch_bounds__ asks for six blocks per SM; no spills) let six
+// blocks share an SM, so one block's loads overlap another's lifting.
 // Built with --fmad=false and without fast math: each product and sum rounds
 // on its own as in the plain version, and nothing sums across lines, so the
 // result equals the plain version bit for bit whatever B is and however tiles
 // fall on blocks.
 //
-// The design this replaced (PR 2): one cooperative launch for all levels, a
-// row pass and a column pass over the whole corner per level through device
-// memory, grid.sync() between passes, 64 KB tiles of whole lines loaded with
-// scalar accesses: 0.6453 ms (K2) and 0.6594 ms (K3) at (16, 1024^2), 0.062
-// of the bound, slower than the per-axis driver on the 3D lifting kernel
-// (0.2702 / 0.2918 ms).  PERF.md has the times of this design and of each
-// form tried.
+// Forms tried on one H100 80GB HBM3 at 700 W, (16, 1024^2), K2 / K3 device
+// ms (chip_smoke.py phase 3; PERF.md has every run):
+//   the design this replaced: one cooperative launch for all levels, a row
+//     and a column pass over the whole corner per level through device
+//     memory, grid.sync() between passes, 64 KB tiles of whole lines with
+//     scalar accesses: 0.6455 / 0.6597 (the per-axis driver on the 3D
+//     lifting kernel: 0.2686 / 0.2903);
+//   4-byte cp.async loads, one line per warp at a time, a persistent grid
+//     double-buffering its tiles: 0.2210 / 0.2216; one block per tile
+//     0.2061 / 0.2066 (dropped: the persistent grid lost);
+//   16-byte loads and stores staged through registers, each warp's lines
+//     lifted together: 0.1137 / 0.1432; the inverse's tiles shifted to
+//     x pair -2 (aligned loads): 0.1141 / 0.1166;
+//   at most 48 registers (five blocks per SM): 0.1080 / 0.1114; at most 40
+//     (six): 0.1065 / 0.1100, kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -348,12 +356,12 @@ __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Til
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 4) dwt2d_level(Level L, Lift k) {
+__global__ void __launch_bounds__(kThreads, 6) dwt2d_level(Level L, Lift k) {
   __shared__ float s[kBuf];
   forward_tile(s, L, tile_of(L, blockIdx.x), k);
 }
 
-__global__ void __launch_bounds__(kThreads, 4) idwt2d_level(Level L, Lift k) {
+__global__ void __launch_bounds__(kThreads, 6) idwt2d_level(Level L, Lift k) {
   __shared__ float s[kBuf];
   inverse_tile(s, L, tile_of(L, blockIdx.x), k);
 }
