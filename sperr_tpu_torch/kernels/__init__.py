@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 )
 # Shared memory a tile of lifting lines may use (opt-in): one line must fit.
 LIFT_MAX_SHARED_BYTES = 96 * 1024
+
 launches = {
     "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0,
@@ -259,7 +260,7 @@ def cdf97_lift(
 # which it loads with a halo of two pairs on each side into shared memory.
 # ---------------------------------------------------------------------------
 PLANE_TILE = 28
-PLANE_SHARED_BYTES = 2 * 32 * 81 * 4
+PLANE_SHARED_BYTES = 2 * 32 * 81 * 4  # a tile of 64 rows, pitch 81 floats
 PLANE_MAX_GRID = 2**31 - 1
 
 
@@ -310,11 +311,11 @@ def plane_plan(B: int, ny: int, nx: int, inverse: bool, lev_hi: int, lev_lo: int
     if min(corner(lev_hi - 1)) < 2:
         raise ValueError(f"{lev_hi} levels leave lines shorter than 2 samples in {(ny, nx)}")
     levels = range(lev_hi, lev_lo, -1) if inverse else range(lev_lo, lev_hi)
+    # the inverse's tiles start at x pair -2 (aligned loads, cdf97_2d.cu)
+    shift = 2 if inverse else 0
     runs = []
     for lev in levels:
         ly, lx = corner(lev - 1 if inverse else lev)
-        # the inverse's tiles start at x pair -2 (aligned loads, cdf97_2d.cu)
-        shift = 2 if inverse else 0
         grid = B * -(-(ly - ly // 2) // PLANE_TILE) * -(-(lx - lx // 2 + shift) // PLANE_TILE)
         if grid > PLANE_MAX_GRID:
             raise ValueError(

@@ -79,8 +79,9 @@ def _dense_encode_rows(batch: torch.Tensor, mode: str, quality: float, residual:
                        forward, inverse_, out_cap: Optional[int] = None):
     """The dense front on batch (B, ...): condition -> ``forward`` -> q ->
     quantize (K1) [PWE: inverse quantize -> ``inverse_`` (its result is
-    used; it may transform in place or out of place) -> residual].  Float reductions run row by row; the transforms and K1 take
-    the whole batch, and every line of them is computed on its own.
+    used; it may transform in place or out of place) -> residual].  Float
+    reductions run row by row; the transforms and K1 take the whole batch,
+    and every line of them is computed on its own.
 
     ``out_cap`` set is the wave program's front (sperr_tpu
     ``_encode_core_wave``): the "margin" residual scans at max(tol - eta, 0)
