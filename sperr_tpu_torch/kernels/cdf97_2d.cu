@@ -185,6 +185,17 @@ __device__ __forceinline__ void lift_lines(float* s, Off off, int step, int odd,
   }
 }
 
+// Levels after the first are launched with programmatic stream
+// serialization: their blocks may become resident while the previous level
+// still runs, and wait here until it has finished and its writes are
+// visible.  Each block lets the next level's launch begin as soon as it
+// starts, so that launch overlaps the previous level's last wave.  Both are
+// no-ops for a launch without the attribute.
+__device__ __forceinline__ void after_previous_level() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // 16-byte accesses need the pointer, the pitch and the plane stride on
 // 16-byte boundaries.
 __device__ __forceinline__ bool aligned(const float* p, long long pitch, long long plane) {
@@ -221,6 +232,7 @@ __device__ __forceinline__ void store4(float* p, int g, int n, bool vec, float4 
 // (r & 1) * kN + r / 2, sample c to (c & 1) * kOdd + c / 2.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void forward_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
+  after_previous_level();
   const int warp = threadIdx.x >> 5;
   const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
   {
@@ -293,6 +305,7 @@ __device__ __forceinline__ void forward_tile(float* s, const Level& L, const Til
 // from sample 2 i0, also one.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void inverse_tile(float* s, const Level& L, const Tile& t, const Lift& k) {
+  after_previous_level();
   const int warp = threadIdx.x >> 5;
   const int ely = L.ly - L.ly / 2, oly = L.ly / 2, elx = L.lx - L.lx / 2, olx = L.lx / 2;
   {
@@ -412,12 +425,17 @@ extern "C" int sperr_cdf97_2d(int inverse, int n, const long long* desc, const f
     if (L.ly < 2 || L.lx < 2 || d[11] != L.ntiles || L.ntiles > 0x7fffffffLL) {
       return (int)cudaErrorInvalidValue;
     }
-    if (inverse) {
-      idwt2d_level<<<(unsigned)L.ntiles, kThreads, 0, stream>>>(L, k);
-    } else {
-      dwt2d_level<<<(unsigned)L.ntiles, kThreads, 0, stream>>>(L, k);
-    }
-    const cudaError_t err = cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)L.ntiles);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cudaLaunchAttribute pdl[1];
+    pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = pdl;
+    cfg.numAttrs = i > 0 ? 1 : 0;  // the first level waits for the stream as usual
+    cudaError_t err = cudaLaunchKernelEx(&cfg, inverse ? idwt2d_level : dwt2d_level, L, k);
+    if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
