@@ -592,7 +592,11 @@ def main() -> int:
                 runs = plans["idwt2d_full" if name == "K3" else "dwt2d_full"].launches
                 per = _launch_ms(fn, kname, len(runs), 10)
                 bounds = [_bound_ms(2 * 4 * shape[0] * r.ly * r.lx) for r in runs]
-                print(f"[kernels] {name} {shape} per launch (level: device ms / bound ms): "
+                # levels after the first are programmatic dependent launches:
+                # each becomes resident while the previous level runs and
+                # waits for it, so its span in the trace includes that wait
+                print(f"[kernels] {name} {shape} per launch (level: device ms / bound ms; after "
+                      f"the first, spans include the wait for the previous level): "
                       + ("not measured (the trace does not hold one event per launch)" if per is None
                          else ", ".join(f"{r.level} {m:.4f}/{b:.4f}" for r, m, b in zip(runs, per, bounds))
                          + f"; sum {sum(per):.4f}")

@@ -22,7 +22,9 @@
 //     of the call, the scratch after that) and level k's detail bands from
 //     the coefficients, and writes LL_{k-1} to the scratch (at the last level
 //     to the caller's output).
-// No launch reads what it writes, so blocks need no barrier across the grid.
+// No launch reads what it writes, so blocks need no barrier across the grid;
+// a level waits for the previous one at griddepcontrol.wait (programmatic
+// dependent launch), which lets its launch overlap the previous level's end.
 //
 // Bound: device memory.  A level reads its corner once and writes it once,
 // with ~20 flops per sample.  A block owns a tile of 28 x 28 output pairs
@@ -67,7 +69,11 @@
 //     lifted together: 0.1137 / 0.1432; the inverse's tiles shifted to
 //     x pair -2 (aligned loads): 0.1141 / 0.1166;
 //   at most 48 registers (five blocks per SM): 0.1080 / 0.1114; at most 40
-//     (six): 0.1065 / 0.1100, kept.
+//     (six): 0.1065 / 0.1100, kept;
+//   the levels after the first as programmatic dependent launches (their
+//     blocks become resident during the previous level's last wave):
+//     0.1022-0.1032 / 0.1020-0.1024 against 0.1065-0.1070 / 0.1097-0.1102
+//     without, in the same call; kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
