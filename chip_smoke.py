@@ -525,7 +525,7 @@ def main() -> int:
         _check(d <= 2e-5 * float(xh.abs().max()), f"{fn.__name__} off its plain version at {shape}")
 
     # K2/K3: bit for bit against the plain version and the per-axis lifting
-    # driver; the level-by-level and a partial inverse against the full one
+    # kernel's path; the level-by-level and a partial inverse against the full one
     plane_ms = {}
     plane_err = {"K2": 0.0, "K3": 0.0}
     for shape in ((16, 1024, 1024), (1, 1800, 3600), (3, 127, 127), (2, 19, 27)):
@@ -564,7 +564,7 @@ def main() -> int:
             plane_err[what[:2]] = max(plane_err[what[:2]], float((a - b).abs().max()))
             _check(torch.equal(a, b), f"{what} fails at {shape}")
         d_rt = float((inv - x).abs().max())
-        print(f"[kernels] K2/K3 {shape}: equal to dwt2d_ref/idwt2d_ref and to the lift driver bit "
+        print(f"[kernels] K2/K3 {shape}: equal to dwt2d_ref/idwt2d_ref and to the per-axis lift bit "
               f"for bit, in place = out of place, inputs untouched, level by level and partial "
               f"(to level {lo}) then the rest = full; max|round trip - x| {d_rt:.3e}")
         for name, plan in plans.items():

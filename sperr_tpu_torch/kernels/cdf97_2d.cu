@@ -60,7 +60,7 @@
 //   the design this replaced: one cooperative launch for all levels, a row
 //     and a column pass over the whole corner per level through device
 //     memory, grid.sync() between passes, 64 KB tiles of whole lines with
-//     scalar accesses: 0.6455 / 0.6597 (the per-axis driver on the 3D
+//     scalar accesses: 0.6455 / 0.6597 (the per-axis path through the 3D
 //     lifting kernel: 0.2686 / 0.2903);
 //   4-byte cp.async loads, one line per warp at a time, a persistent grid
 //     double-buffering its tiles: 0.2210 / 0.2216; one block per tile
