@@ -16,11 +16,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (1, 1800, 3600);
      the bit transpose K10, the masked pack K11 and the flag compaction K12
      bit for bit on the inputs that one 256^3 chunk's schedule and walk give
-     them, at the first tier and at the widest);
+     them, at the first tier and at the widest; the hybrid decode's K13 bit
+     for bit on the control parse of one 256^3 chunk's stream, that stream
+     truncated, an all-zero chunk, and a stream past a small active-word
+     cap);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
-     TorchCompressor3D and TorchDecompressor3D, checked against the host f64
+     TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
+     parse on the host, K13 on the card), checked against the host f64
      decoder, with the kernels' launch counters set to 0 after a warm-up and
-     read after the timed encode and decode;
+     read after the timed encode and decode; then the full-parse decode
+     (hybrid=False), timed after its own warm-up and alternating twice with
+     the hybrid one, must equal it element for element; each route's time
+     by stage; and K13 held against its plain version on the decode's own
+     input;
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte with every chunk on the
@@ -33,7 +41,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      decode, as in phase 4;
   8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
      its multi-resolution decode, and the 3D multi-resolution decode of
-     phase 5's stream, each against the host f64 decoder.
+     phase 5's stream (through the hybrid decode), each against the host f64
+     decoder.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time,
@@ -157,6 +166,63 @@ def _launch_ms(fn, name: str, n: int, reps: int):
         return None
     return [sum(evs[r * n + i].time_range.elapsed_us() for r in range(reps)) / reps / 1e3
             for i in range(n)]
+
+
+def _kernel_means(fn, name: str, reps: int):
+    """{kernel: (device ms per launch, launches seen)} of the kernels whose
+    name holds ``name``, over reps calls of fn after a warm-up, from each
+    launch's own event in a torch.profiler trace (a trace that drops events
+    still gives each kernel's mean)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    acc = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name:
+            key = e.name.split("(", 2)[1].split(")::")[-1] if e.name.startswith("(") else e.name
+            tot, cnt = acc.get(key, (0.0, 0))
+            acc[key] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    return {k: (tot / cnt, cnt) for k, (tot, cnt) in acc.items()}
+
+
+def _stage_times(cls, names):
+    """Time every call of cls.<name> for each name, the device synchronized
+    after each call (a context manager yielding {name: seconds summed})."""
+    import contextlib
+
+    import torch
+
+    spent = {name: 0.0 for name in names}
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = {name: getattr(cls, name) for name in names}
+
+        def wrap(name):
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                out = orig[name](*args, **kw)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                return out
+            return timed
+
+        for name in names:
+            setattr(cls, name, wrap(name))
+        try:
+            yield spent
+        finally:
+            for name in names:
+                setattr(cls, name, orig[name])
+
+    return ctx()
 
 
 def _top(per_name, k: int) -> str:
@@ -382,6 +448,71 @@ def _k11_synthetic(packemit, dev) -> None:
               f"{bool(res.overflow)}: equal to the plain version bit for bit")
 
 
+def _k13_args(engine, streams, dims, dev):
+    """K13's arguments for the SPECK streams of chunks of dims (nx, ny, nz),
+    as the hybrid decode builds them: each stream's control-only parse
+    (spass, ref_off, ref_avail, num_bp) and its body as words, padded to the
+    longest, on dev; and p_cap."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.codec import speck_int_np as sp
+
+    B = len(streams)
+    n = dims[0] * dims[1] * dims[2]
+    spass = np.empty((B, n), np.uint8)
+    rof = np.zeros((B, 32), np.int32)
+    rav = np.zeros((B, 32), np.int32)
+    nbps = np.zeros(B, np.int32)
+    bodies = [bytes(s[9:]) for s in streams]
+    words = np.zeros((B, max(8, max((len(b) + 11) // 4 for b in bodies))), np.uint32)
+    for j, (s, body) in enumerate(zip(streams, bodies)):
+        sj, _, roff, ravail, nbp, _ = engine.decode3d_control(
+            s, dims, sp.uint_width_for_num_bitplanes(s[0]))
+        spass[j], rof[j, :nbp], rav[j, :nbp], nbps[j] = sj, roff, ravail, nbp
+        w = np.frombuffer(body + b"\0" * ((-len(body)) % 4 + 8), dtype="<u4")
+        words[j, : w.size] = w
+    p_cap = 16 if nbps.max() <= 16 else 32
+    args = [torch.from_numpy(a).to(dev) for a in (spass, words.view(np.int32), rof, rav, nbps)]
+    return args, p_cap
+
+
+def _k13_bound_ms(args) -> float:
+    """K13's bound on its inputs: spass and the body words its refinement
+    bits lie in (each read once), the int32 magnitudes and the flags
+    written once."""
+    spass, _, rof, rav, nbps = args
+    ends = (rof.long() + rav.long()).amax(dim=1)  # bits of each body read
+    words = int(((ends + 31) // 32).sum())
+    return _bound_ms(5 * spass.numel() + 4 * words + 8 * rof.numel() + 5 * nbps.numel())
+
+
+def _k13_check(wup, args, p_cap: int, evw_cap: int, label: str, want=None, overflow=None) -> int:
+    """K13 against its plain version on the card, bit for bit: the overflow
+    flags, and the magnitudes of every chunk the plain version does not
+    flag (a flagged chunk's are not defined: the decoder parses it in full).
+    The kernel has no cap, so all its magnitudes must equal ``want`` (the
+    host's full parse) where given; ``overflow``, where given, is the flag
+    every chunk must carry.  Returns the largest difference (0)."""
+    import torch
+
+    a = wup.reconstruct_mags_batched(*args, p_cap, evw_cap)
+    b = wup.reconstruct_mags_batched_ref(*args, p_cap, evw_cap)
+    torch.cuda.synchronize()
+    _check(torch.equal(a[1], b[1]), f"K13 overflow differs from its plain version ({label})")
+    if overflow is not None:
+        _check(bool((b[1] == overflow).all()), f"K13 overflow {b[1].tolist()}, expected {overflow} ({label})")
+    ok = ~b[1]
+    err = _int_err(a[0][ok], b[0][ok])
+    _check(torch.equal(a[0][ok], b[0][ok]), f"K13 magnitudes differ from their plain version ({label})")
+    if want is not None:
+        _check(torch.equal(a[0].cpu(), want), f"K13 magnitudes differ from the host's full parse ({label})")
+    print(f"[kernels] K13 {label}: {tuple(args[0].shape)}, num_bp {args[4].tolist()}, overflow "
+          f"{a[1].tolist()}: equal to the plain version bit for bit"
+          + ("" if want is None else "; all magnitudes equal to the host's full parse"))
+    return err
+
+
 def _int_err(a, b) -> int:
     """max |a - b| over integer tensors (int64 arithmetic)."""
     import torch
@@ -421,7 +552,7 @@ def main() -> int:
 
     from sperr_tpu_torch import kernels
     from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
-    from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual
+    from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual, wave_unpack
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
@@ -679,10 +810,49 @@ def main() -> int:
     print("[kernels] K12 on ragged rows, several rows, short takes, empty and full rows: "
           "equal to the plain version bit for bit")
     _k11_synthetic(packemit, dev)
+
+    # K13, the hybrid decode's device half: the control parse of the headline
+    # volume's first 256^3 chunk (its SPECK stream as the C++ engine writes
+    # it from the dense front's magnitudes), that stream cut to half its
+    # length, an all-zero chunk, and the first stream past a small cap
+    engine = default_engine()
+    chunk = torch.from_numpy(np.ascontiguousarray(vol512[:256, :256, :256])[None]).to(dev)
+    d0 = tb._dense_encode(chunk, "pwe", 1e-2, "dual")
+    width0 = tb._width_for(int(d0["maxmag"][0]))
+    s0 = engine.encode(3, d0["mags"][0].cpu().numpy(), d0["signs"][0].cpu().numpy(), dims256, width0, 0)
+    del chunk, d0
+    s_half = s0[: len(s0) // 2]
+    s_zero = engine.encode(3, np.zeros(n, np.uint32), np.ones(n, bool), dims256, 8, 0)
+    full = torch.stack([torch.from_numpy(engine.decode(3, s, dims256, width0)[0].astype(np.int32))
+                        for s in (s0, s_half)] + [torch.zeros(n, dtype=torch.int32)])
+    evw = tb._evw_cap(n)
+    args3, p3 = _k13_args(engine, [s0, s_half, s_zero], dims256, dev)
+    k13_err = _k13_check(wave_unpack, args3, p3, evw, "headline chunk 0, cut to half, all zero",
+                         want=full, overflow=False)
+    args1, p1 = _k13_args(engine, [s0], dims256, dev)
+    k13_err = max(k13_err, _k13_check(wave_unpack, args1, p1, evw, "headline chunk 0", want=full[:1],
+                                      overflow=False))
+    _k13_check(wave_unpack, args1, p1, 1000, "headline chunk 0, evw_cap 1000", want=full[:1],
+               overflow=True)
+    k13_one = {
+        "ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20),
+        "host_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20, host=True),
+        "plain_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched_ref(*args1, p1, evw), 3),
+        "bound_ms": _k13_bound_ms(args1),
+    }
+    per_k13 = _kernel_means(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), "k13_", 10)
+    print(f"[kernels] K13 (1, 256^3), headline chunk 0 ({len(s0)} stream bytes, num_bp "
+          f"{int(args1[4][0])}): kernel {k13_one['ms']:.4f} ms ({k13_one['host_ms']:.4f} as the host "
+          f"issues it), plain {k13_one['plain_ms']:.4f} ms, bound {k13_one['bound_ms']:.4f} ms (share "
+          f"{k13_one['bound_ms'] / k13_one['ms']:.3f}); per launch (device ms, launches in a trace of "
+          f"10 calls): " + (", ".join(f"{k} {m:.4f} ({c})" for k, (m, c) in sorted(per_k13.items()))
+                             or "not measured") + f" -- {smi}")
+    del args3, args1, full
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
             ("K4 dwt3d 256^3", l_ms, l_host_ms, l_bound), ("K4 idwt3d 256^3", li_ms, li_host_ms, l_bound),
+            ("K13 reconstruct_mags (1, 256^3)", k13_one["ms"], k13_one["host_ms"], k13_one["bound_ms"]),
             *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
               for shape, t in plane_ms.items() for k in ("K2", "K3"))):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
@@ -692,7 +862,6 @@ def main() -> int:
         return 0
 
     # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
-    engine = default_engine()
     print(f"[main] host engine: {type(engine).__name__}")
     _check(type(engine).__name__ == "NativeEngine", "the C++ host engine did not load")
     vol = vol512
@@ -708,15 +877,20 @@ def main() -> int:
     stream2 = comp.compress(vol, "pwe", tol)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out, dims = dec.decompress(stream2)
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
+    with _capture(wave_unpack, ["reconstruct_mags_batched"]) as k13_calls:
+        t0 = time.perf_counter()
+        out, dims = dec.decompress(stream2)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
     print(f"[main] launches during the timed 3D encode and decode: {launches}")
-    for name in ("quantize", "cdf97_lift"):
+    for name in ("quantize", "cdf97_lift", "reconstruct_mags"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 3D path")
+    _check(dec.last_hybrid_chunks > 0, "no chunk took the hybrid decode")
+    print(f"[main] hybrid decode: {dec.last_hybrid_chunks} of 8 chunks rebuilt on the card (K13), "
+          f"parsed in full on the host: {dec.last_full_parse_chunks or 'none'} (reasons: num_bp = 0 "
+          f"or > 32 bitplanes, evw_cap = more active refinement words than {tb._evw_cap(256**3)})")
     _check(stream2 == stream, "two compressions of one volume differ")
     _check(dims == (512, 512, 512), f"decoded dims {dims}")
     _check(comp.last_uncertified_chunks == 0, f"uncertified chunks {comp.last_uncertified_ids}")
@@ -735,9 +909,53 @@ def main() -> int:
           f"({peak / 2**30:.3f} GiB) -- {smi}")
     _check(err_port <= tol, f"port decoder misses the PWE bound: {err_port}")
     _check(err_host <= tol, f"host f64 decoder misses the PWE bound: {err_host}")
+    # the full host parse, after its own warm-up: the same volume, element
+    # for element; then both routes again, alternating
+    dec_full = TorchDecompressor3D(device="cuda", hybrid=False)
+    dec_full.decompress(stream2)
+    torch.cuda.synchronize()
+    walls = {"hybrid": [dec_s], "full": []}
+    for route, d in (("full", dec_full), ("hybrid", dec), ("full", dec_full), ("hybrid", dec)):
+        t0 = time.perf_counter()
+        o, _ = d.decompress(stream2)
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+        _check(np.array_equal(o, out), f"the {route} decode differs from the first hybrid decode")
+    out_full = o
+    _check(dec_full.last_hybrid_chunks == 0, "hybrid=False rebuilt chunks on the card")
+    print(f"[main] 512^3 decode walls, s (after one warm-up each; in the order run: hybrid, "
+          f"full, hybrid, full, hybrid): hybrid {', '.join(f'{t:.4f}' for t in walls['hybrid'])}; "
+          f"full host parse {', '.join(f'{t:.4f}' for t in walls['full'])}; the outputs equal "
+          f"element for element; host to device {dec.last_h2d_bytes} bytes hybrid, "
+          f"{dec_full.last_h2d_bytes} bytes full parse -- {smi}")
+    # where each route's time goes: one more decode each, the device
+    # synchronized after each stage
+    for route, d in (("hybrid", dec), ("full", dec_full)):
+        with _stage_times(tb._HostParse, ("parse_all", "reconstruct")) as st:
+            t0 = time.perf_counter()
+            d.decompress(stream2)
+            wall = time.perf_counter() - t0
+        print(f"[main] 512^3 {route} decode stages, s: host parse on the pool {st['parse_all']:.4f}, "
+              f"uploads, magnitudes (K13 on the hybrid route) and reconstruction on the card "
+              f"{st['reconstruct']:.4f}, the rest (copy to the host, outliers, assembly) "
+              f"{wall - st['parse_all'] - st['reconstruct']:.4f}; wall {wall:.4f} -- {smi}")
+    # K13 on the decode's own input: the 8 chunks' control parses
+    (k13_main,) = k13_calls["reconstruct_mags_batched"]
+    *k13_args, k13_p, k13_evw = k13_main
+    k13_err = max(k13_err, _k13_check(wave_unpack, k13_args, k13_p, k13_evw, "the 512^3 decode's input"))
+    k13 = {
+        "ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10),
+        "host_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10,
+                            host=True),
+        "plain_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched_ref(*k13_args, k13_p, k13_evw), 2),
+        "bound_ms": _k13_bound_ms(k13_args),
+    }
+    print(f"[main] K13 on the decode's input {tuple(k13_args[0].shape)}: kernel {k13['ms']:.4f} ms "
+          f"({k13['host_ms']:.4f} as the host issues it), plain {k13['plain_ms']:.4f} ms, bound "
+          f"{k13['bound_ms']:.4f} ms (share {k13['bound_ms'] / k13['ms']:.3f}) -- {smi}")
     d2h_host = comp.last_d2h_bytes
     vol512 = vol
-    del out, host
+    del out, host, out_full, k13_calls, k13_main, k13_args
 
     # -- 5. PSNR and rate modes, one 256^3 chunk ---------------------------
     vol = vol11
@@ -907,7 +1125,11 @@ def main() -> int:
     for a, b in zip(dec.hierarchy, host3.hierarchy):
         _check(a.shape == b.shape, f"3D hierarchy shapes {a.shape} and {b.shape}")
         d3 = max(d3, float(np.abs(a.astype(np.float64) - b).max()))
-    print(f"[multires] 3D 256^3: {len(dec.hierarchy)} levels {[a.shape for a in dec.hierarchy]}, "
+    _check(dec.last_hybrid_chunks + sum(dec.last_full_parse_chunks.values()) == 1
+           and "hybrid off" not in dec.last_full_parse_chunks, "the 3D multi-res decode's route")
+    print(f"[multires] 3D 256^3 (hybrid decode: {dec.last_hybrid_chunks} chunk rebuilt on the card, "
+          f"parsed in full: {dec.last_full_parse_chunks or 'none'}): "
+          f"{len(dec.hierarchy)} levels {[a.shape for a in dec.hierarchy]}, "
           f"max|port - host f64| {d3:.3e} (bound {1e-4 * vrange:.3e})")
     _check(d3 <= 1e-4 * vrange, "3D multi-res decode disagrees with the host f64 decoder")
 
@@ -922,6 +1144,8 @@ def main() -> int:
          plane_err["K2"], k23["K2"], k23["K2 host"], k23["K2 plain"], k23_bound, None),
         ("idwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:231", launches2["idwt2d_full"],
          plane_err["K3"], k23["K3"], k23["K3 host"], k23["K3 plain"], k23_bound, None),
+        ("reconstruct_mags", "unpack.cu", "sperr_tpu/ops/wave_unpack.py:82", launches["reconstruct_mags"],
+         k13_err, k13["ms"], k13["host_ms"], k13["plain_ms"], k13["bound_ms"], None),
     ] + [
         (name, "bits.cu", where, launches_w[name], bit_err[name], t1[name]["ms"], t1[name]["host_ms"],
          t1[name]["plain_ms"], t1[name]["bound_ms"], t1[name]["library_ms"])

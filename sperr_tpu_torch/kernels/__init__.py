@@ -10,7 +10,8 @@ into place, so concurrent builders never see a partial library.
 There is no fallback.  A missing ``nvcc``, a failed build or load, a device
 that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
-``ops/cdf97.py``, ``ops/packemit.py``) and run only for tensors on the CPU.
+``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``) and run only
+for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` for each kernel it launches.
 """
@@ -33,19 +34,21 @@ from ..utils.dims import calc_approx_detail_len, num_of_xforms
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
-    os.path.join(_DIR, f) for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu")
+    os.path.join(_DIR, f)
+    for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu")
 )
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
+NVCC_LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 # Shared memory a tile of lifting lines may use (opt-in): one line must fit.
 LIFT_MAX_SHARED_BYTES = 96 * 1024
 
 launches = {
     "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
-    "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0,
+    "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -87,13 +90,31 @@ def build(out_dir: str = BUILD_DIR) -> str:
     nvcc = _find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *SOURCES, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    # one nvcc per source, all at once, then one link
+    objs = [f"{os.path.join(out_dir, os.path.basename(s))}.{os.getpid()}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        for c, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{log}")
+        cmd = [nvcc, *NVCC_LINK_FLAGS, *objs, "-o", tmp]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs) + proc.stdout + proc.stderr
     os.replace(tmp, lib)
     return lib
 
@@ -139,6 +160,7 @@ def load() -> ct.CDLL:
                 ct.c_int, ll, ll, vp, vp, vp, vp, vp,
             ]),
             ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
+            ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
         ):
             fn = getattr(lib, name)
             fn.restype = ct.c_int
@@ -567,3 +589,53 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     _check(lib, err, "compact_flags_rows")
     launches["compact_flags_rows"] += 2
     return idx, count
+
+
+# ---------------------------------------------------------------------------
+# K13: the device half of the hybrid decode (kernels/unpack.cu)
+# ---------------------------------------------------------------------------
+_SEG_PIXELS = 1024  # pixels per warp segment (kSegPixels in unpack.cu)
+
+
+def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Tensor,
+                     ref_avail: torch.Tensor, num_bp: torch.Tensor, p_cap: int, evw_cap: int):
+    """K13: spass (B, n) uint8, words (B, W) int32, ref_off and ref_avail
+    (B, 32) int32, num_bp (B,) int32 with num_bp <= p_cap <= 32 -> (mags
+    int32 (B, n), overflow bool (B,)): more than ``evw_cap`` active (pass,
+    word) slots in a chunk set its overflow, as ops/wave_unpack.py defines
+    it.  Three launches (count, scan, reconstruct), no host
+    synchronisation."""
+    _require_cuda(spass, torch.uint8, "spass")
+    for t, what in ((words, "words"), (ref_off, "ref_off"), (ref_avail, "ref_avail"),
+                    (num_bp, "num_bp")):
+        _require_cuda(t, torch.int32, what)
+        if t.device != spass.device:
+            raise ValueError(f"{what} is on {t.device}, spass on {spass.device}")
+    p_cap, evw_cap = int(p_cap), int(evw_cap)
+    if spass.dim() != 2 or spass.shape[1] == 0 or not 0 < spass.shape[0] <= 65535:
+        raise ValueError(f"spass must be (B, n), 0 < B <= 65535, n > 0; got {tuple(spass.shape)}")
+    B, n = spass.shape
+    if (words.dim() != 2 or words.shape[0] != B or words.shape[1] == 0
+            or ref_off.shape != (B, 32) or ref_avail.shape != (B, 32) or num_bp.shape != (B,)):
+        raise ValueError(
+            f"words must be (B, W > 0), ref_off and ref_avail (B, 32), num_bp (B,) for B = {B}; "
+            f"got {tuple(words.shape)}, {tuple(ref_off.shape)}, {tuple(ref_avail.shape)}, "
+            f"{tuple(num_bp.shape)}"
+        )
+    if not 0 < p_cap <= 32 or evw_cap < 0:
+        raise ValueError(f"p_cap must be in [1, 32] and evw_cap >= 0; got {p_cap}, {evw_cap}")
+    nseg = -(-n // _SEG_PIXELS)
+    take = min(evw_cap, p_cap * (-(-n // 128) * 4))  # the reference's P * Wn slots
+    mags = torch.empty((B, n), dtype=torch.int32, device=spass.device)
+    overflow = torch.empty((B,), dtype=torch.bool, device=spass.device)
+    scratch = torch.empty(B * (32 * nseg + 33), dtype=torch.int32, device=spass.device)
+    lib = load()
+    with _on_device(spass):
+        err = lib.sperr_reconstruct_mags(
+            spass.data_ptr(), words.data_ptr(), words.shape[1], ref_off.data_ptr(),
+            ref_avail.data_ptr(), num_bp.data_ptr(), scratch.data_ptr(), mags.data_ptr(),
+            overflow.data_ptr(), B, n, take, _stream(spass),
+        )
+    _check(lib, err, "reconstruct_mags")
+    launches["reconstruct_mags"] += 3
+    return mags, overflow

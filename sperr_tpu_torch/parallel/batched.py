@@ -1,8 +1,8 @@
 """Chunked 3D codec with the dense stages on a torch device.
 
 PyTorch port of the dense-transfer paths of sperr_tpu/parallel/batched.py
-(``TpuCompressor3D(entropy="host" | "wave", transfer="dense")`` and the full
-host-parse branch of ``TpuDecompressor3D``).  Per chunk, the device runs
+(``TpuCompressor3D(entropy="host" | "wave", transfer="dense")`` and
+``TpuDecompressor3D``, both of its branches).  Per chunk, the device runs
 
     condition (mean) -> dwt3d -> q -> fused midtread quantize (K1)
     [PWE: inverse quantize -> idwt3d -> residual scan]
@@ -12,9 +12,12 @@ the shared C++ engine encodes each chunk on a thread pool.  With
 ``entropy="wave"`` the device also computes every SPECK bit of each
 power-of-two cube chunk (ops/speck_virtual.py, speck_lis.py, wave_pack.py)
 through a ladder of capacity tiers, and the host only stitches the packed
-segments; both write the same bytes.  The decoder parses every chunk on the
-host and reconstructs on the device through the same functions that the
-encoder's residual scan simulates, so that scan certifies this decoder.
+segments; both write the same bytes.  The decoder parses each chunk on the
+host, in full or (the hybrid split, on a CUDA device by default) its control
+bits only, with the refinement bits spread and the magnitudes rebuilt on the
+device (ops/wave_unpack.py, K13); it reconstructs on the device through the
+same functions that the encoder's residual scan simulates, so that scan
+certifies this decoder.
 
 Streams are SPERR format, as the reference's.  Arithmetic is f32.
 """
@@ -39,6 +42,7 @@ from ..ops import quantize as qz
 from ..ops import speck_lis as sl
 from ..ops import speck_virtual as svirt
 from ..ops import wave_pack as wp
+from ..ops import wave_unpack as wup
 from ..runtime.engine import default_engine
 from ..runtime.native import residual_outliers as _native_residual_outliers
 from ..stream import tools
@@ -762,12 +766,27 @@ class _Group:
         self.tiers = tiers if tiers is not None else [None] * B
 
 
+def _evw_cap(n: int) -> int:
+    """The hybrid decode's cap on a chunk's active (pass, word) refinement
+    slots, as the reference sets it (sperr_tpu TpuDecompressor3D): a chunk
+    past it is parsed in full on the host."""
+    return max(1 << 16, n // 64)
+
+
 class _HostParse:
     """SPECK_FLT streams of B chunks or planes of n values, parsed on the
     host: dense magnitudes and signs, q, mean, the value of each constant
-    stream and the outlier corrections."""
+    stream and the outlier corrections.
 
-    def __init__(self, B: int, n: int):
+    With ``control`` (3D only, the hybrid decode) the host runs the C++
+    engine's control-only parse of each stream of 1 to 32 bitplanes, and
+    ``device_mags`` rebuilds those rows' magnitudes on the device (K13).
+    ``route[k]`` says how row k was parsed: None (a constant stream),
+    "control", or the reason for a full parse: "hybrid off", "num_bp" (0 or
+    more than 32 bitplanes) or "evw_cap" (more active refinement words than
+    ``_evw_cap``).  ``h2d_bytes`` counts the bytes copied to the device."""
+
+    def __init__(self, B: int, n: int, control: bool = False):
         self.n = n
         self.mags = np.zeros((B, n), dtype=np.int32)
         self.signs = np.ones((B, n), dtype=bool)
@@ -775,6 +794,12 @@ class _HostParse:
         self.means = np.zeros(B, dtype=np.float64)
         self.consts: List[Optional[float]] = [None] * B
         self.outliers: List = [None] * B
+        self.control = control
+        self.spass = np.empty((B, n), dtype=np.uint8) if control else None
+        # per control-parsed row: (ref_off, ref_avail, num_bp, SPECK stream)
+        self.ctl: List[Optional[tuple]] = [None] * B
+        self.route: List[Optional[str]] = [None] * B
+        self.h2d_bytes = 0
 
     def parse(self, engine, k: int, cs: bytes, ndim: int, dims3) -> None:
         condi = cs[:17]
@@ -788,17 +813,31 @@ class _HostParse:
         if not (q > 0.0 and np.isfinite(q) and np.isfinite(mean)):
             raise tools.StreamError(f"invalid conditioner q={q}")
         pos = 17
-        width = sp.uint_width_for_num_bitplanes(cs[pos])
+        num_bp = cs[pos]
+        width = sp.uint_width_for_num_bitplanes(num_bp)
         full_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
         speck_len = min(full_len, len(cs) - pos)
-        m, g = engine.decode(ndim, cs[pos : pos + speck_len], dims3, width)
-        self.mags[k] = m.astype(np.int32)
-        self.signs[k] = g
+        sbuf = cs[pos : pos + speck_len]
+        if self.control and 0 < num_bp <= 32:
+            # control-only parse: refinement segments skipped, their bits
+            # spread on the device (device_mags)
+            spass, g, roff, ravail, nbp, _ = engine.decode3d_control(sbuf, dims3, width)
+            self.spass[k] = spass
+            self.signs[k] = g
+            self.ctl[k] = (roff, ravail, nbp, sbuf)
+            self.route[k] = "control"
+        else:
+            m, g = engine.decode(ndim, sbuf, dims3, width)
+            self.mags[k] = m.astype(np.int32)
+            self.signs[k] = g
+            self.route[k] = "num_bp" if self.control else "hybrid off"
         pos += speck_len
         if pos + 9 <= len(cs):
             o_len = sp.speck_int_stream_full_len(cs[pos : pos + 9])
             if len(cs) - pos == o_len:
-                self.outliers[k] = outlier_mod.decode_outliers(cs[pos : pos + o_len], self.n, q / 1.5)
+                self.outliers[k] = outlier_mod.decode_outliers(
+                    cs[pos : pos + o_len], self.n, q / 1.5, engine=engine
+                )
 
     def parse_all(self, engine, streams, ids, ndim: int, dims3, num_threads) -> None:
         """Parse streams[k] into row k on a thread pool; a failure raises as
@@ -813,18 +852,76 @@ class _HostParse:
         with ThreadPoolExecutor(max_workers=num_threads) as pool:
             first_chunk_failure(pool.map(parse_i, range(len(streams))))
 
-    def reconstruct(self, device, shape, multi_res: bool = False):
+    def _up(self, arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+        """A host array on the device, its bytes counted."""
+        self.h2d_bytes += arr.nbytes
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dtype)
+
+    def device_mags(self, engine, device, dims3) -> torch.Tensor:
+        """The (B, n) magnitudes on the device.  Rows parsed in full ship
+        from the host (int16 when every magnitude allows); control-parsed
+        rows are rebuilt on the device (ops/wave_unpack.py, K13 on a CUDA
+        device), and a row whose active refinement words exceed
+        ``_evw_cap`` is parsed in full on the host after all (the
+        reference's route, sperr_tpu/parallel/batched.py:1747-1759)."""
+        B, n = self.mags.shape
+        rows = [k for k in range(B) if self.ctl[k] is not None]
+        if not rows:
+            mags = self.mags
+            if mags.size and mags.max() < 32768:
+                mags = mags.astype(np.int16)
+            return self._up(mags, device)
+        Bh = len(rows)
+        # the plain version's pass window: most streams run <= 16 bitplanes
+        p_cap = 16 if max(self.ctl[k][2] for k in rows) <= 16 else 32
+        rof = np.zeros((Bh, 32), np.int32)
+        rav = np.zeros((Bh, 32), np.int32)
+        nbps = np.zeros(Bh, np.int32)
+        bodies = [bytes(self.ctl[k][3][9:]) for k in rows]
+        wmat = np.zeros((Bh, max(8, max((len(b) + 11) // 4 for b in bodies))), np.uint32)
+        for j, k in enumerate(rows):
+            roff, ravail, nbp, _ = self.ctl[k]
+            rof[j, :nbp] = roff.astype(np.int64)
+            rav[j, :nbp] = ravail.astype(np.int64)
+            nbps[j] = nbp
+            body = bodies[j]
+            wrd = np.frombuffer(body + b"\0" * ((-len(body)) % 4 + 8), dtype="<u4")
+            wmat[j, : wrd.size] = wrd
+        rec, ovf = wup.reconstruct_mags_batched(
+            self._up(self.spass if Bh == B else self.spass[rows], device),
+            self._up(wmat.view(np.int32), device), self._up(rof, device),
+            self._up(rav, device), self._up(nbps, device), p_cap, _evw_cap(n),
+        )
+        for j in np.flatnonzero(ovf.cpu().numpy()):
+            k = rows[j]
+            _, _, nbp, sbuf = self.ctl[k]
+            m, g = engine.decode(3, sbuf, dims3, sp.uint_width_for_num_bitplanes(nbp))
+            self.mags[k] = m.astype(np.int32)
+            self.signs[k] = g
+            self.ctl[k] = None
+            self.route[k] = "evw_cap"
+        live = [j for j, k in enumerate(rows) if self.ctl[k] is not None]
+        if len(live) == B:
+            return rec
+        # merge: rows parsed in full ship up, device rows stay put
+        out = torch.zeros((B, n), dtype=torch.int32, device=device)
+        host = [k for k in range(B) if self.route[k] not in (None, "control")]
+        if host:
+            out[host] = self._up(self.mags[host], device)
+        if live:
+            out[[rows[j] for j in live]] = rec[live]
+        return out
+
+    def reconstruct(self, device, shape, multi_res: bool = False, engine=None, dims3=None):
         """The device half: ``_dense_decode`` (or ``_dense_decode_multires``)
-        of every row, as tensors on ``device`` shaped (B,) + shape."""
-        mags = self.mags
-        # narrow the host->device transfer when magnitudes allow
-        if mags.size and mags.max() < 32768:
-            mags = mags.astype(np.int16)
+        of every row, as tensors on ``device`` shaped (B,) + shape.
+        ``engine`` and ``dims3`` serve the full parse of control-parsed rows
+        that the device sends back."""
         args = (
-            torch.from_numpy(mags).to(device),
-            torch.from_numpy(self.signs).to(device),
-            torch.from_numpy(self.qs).to(device, torch.float32),
-            torch.from_numpy(self.means).to(device, torch.float32),
+            self.device_mags(engine, device, dims3),
+            self._up(self.signs, device),
+            self._up(self.qs, device, torch.float32),
+            self._up(self.means, device, torch.float32),
             tuple(shape),
         )
         return _dense_decode_multires(*args) if multi_res else _dense_decode(*args)
@@ -840,13 +937,42 @@ class _HostParse:
 
 class TorchDecompressor3D:
     """Chunked 3D decompressor: SPECK parsed on the host, reconstruction on
-    ``device`` ("cuda", "cuda:N" or "cpu"; required)."""
+    ``device`` ("cuda", "cuda:N" or "cpu"; required).
 
-    def __init__(self, *, device, num_threads: Optional[int] = None):
+    ``hybrid``: how the chunks' SPECK streams are consumed.
+      None (auto): on a CUDA device, the hybrid split of sperr_tpu's
+        TpuDecompressor3D: the host runs the C++ engine's control-only parse
+        (LIP/LIS bits walked, refinement segments skipped) and the device
+        spreads the refinement bits and rebuilds the magnitudes
+        (ops/wave_unpack.py, K13).  On the CPU the full host parse runs.
+      True / False: force the split (on the CPU with K13's plain version) /
+        the full host parse.
+    Chunks of 0 or more than 32 bitplanes, and chunks with more active
+    refinement words than ``_evw_cap``, are parsed in full on the host, as
+    in the reference; the output is the same either way.  After each
+    decompress, ``last_hybrid_chunks`` counts the chunks rebuilt on the
+    device, ``last_full_parse_chunks`` the chunks parsed in full by reason
+    ("hybrid off", "num_bp", "evw_cap"), and ``last_h2d_bytes`` the bytes
+    copied to the device."""
+
+    def __init__(self, *, device, num_threads: Optional[int] = None,
+                 hybrid: Optional[bool] = None):
         self.device = _resolve_device(device)
         self.engine = default_engine()
         self.num_threads = num_threads
+        self.hybrid = hybrid
         self.hierarchy: List[np.ndarray] = []
+        self.last_hybrid_chunks = 0
+        self.last_full_parse_chunks: Dict[str, int] = {}
+        self.last_h2d_bytes = 0
+
+    def _hybrid_enabled(self) -> bool:
+        if self.hybrid is None:
+            return self.device.type == "cuda" and hasattr(self.engine, "decode3d_control")
+        if self.hybrid and not hasattr(self.engine, "decode3d_control"):
+            raise ValueError(f"hybrid=True needs an engine with decode3d_control; "
+                             f"{type(self.engine).__name__} has none")
+        return bool(self.hybrid)
 
     def decompress(
         self,
@@ -890,14 +1016,24 @@ class TorchDecompressor3D:
                 hc = hier_chunks[lev][gi]
                 yield lev, arr[hc[4] : hc[4] + hc[5], hc[2] : hc[2] + hc[3], hc[0] : hc[0] + hc[1]]
 
+        control = self._hybrid_enabled()
+        self.last_hybrid_chunks = 0
+        self.last_full_parse_chunks = {}
+        self.last_h2d_bytes = 0
         for (lz, ly, lx), idxs in _group_parts(chunks, _DECODE_ELEM_BUDGET, keep):
-            hp = _HostParse(len(idxs), lx * ly * lz)
+            hp = _HostParse(len(idxs), lx * ly * lz, control=control)
             streams = []
             for gi in idxs:
                 off, ln = h.chunk_offsets[gi * 2], h.chunk_offsets[gi * 2 + 1]
                 streams.append(stream[off : off + ln])
             hp.parse_all(self.engine, streams, idxs, 3, (lx, ly, lz), self.num_threads)
-            rec = hp.reconstruct(self.device, (lz, ly, lx), multi_res)
+            rec = hp.reconstruct(self.device, (lz, ly, lx), multi_res, self.engine, (lx, ly, lz))
+            self.last_h2d_bytes += hp.h2d_bytes
+            for r in hp.route:
+                if r == "control":
+                    self.last_hybrid_chunks += 1
+                elif r is not None:
+                    self.last_full_parse_chunks[r] = self.last_full_parse_chunks.get(r, 0) + 1
             hier_np = []
             if multi_res:
                 rec, hier = rec

@@ -156,7 +156,7 @@ def test_no_module_of_the_port_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) >= 11 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
-        "for m in ('packemit', 'speck_virtual', 'speck_lis', 'wave_pack'):\n"
+        "for m in ('packemit', 'speck_virtual', 'speck_lis', 'wave_pack', 'wave_unpack'):\n"
         "    assert 'sperr_tpu_torch.ops.' + m in names, names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sperr_tpu'))\n"
         "print(len(names), bad)\n"
@@ -331,6 +331,26 @@ def test_cuda_device_raises_without_a_gpu(monkeypatch):
         tb.TorchDecompressor3D(device="meta")
 
 
+def test_hybrid_decode_on_cuda_raises_without_a_gpu(monkeypatch):
+    """hybrid=True names the card's K13: without a GPU it raises instead of
+    decoding on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for hybrid in (True, None):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tb.TorchDecompressor3D(device="cuda", hybrid=hybrid)
+    assert tb.TorchDecompressor3D(device="cpu", hybrid=True)._hybrid_enabled()
+    assert not tb.TorchDecompressor3D(device="cpu")._hybrid_enabled()
+
+
+def test_forced_hybrid_needs_the_control_parse(monkeypatch):
+    from sperr_tpu_torch.runtime.engine import NumpyEngine
+
+    dec = tb.TorchDecompressor3D(device="cpu", hybrid=True)
+    dec.engine = NumpyEngine()
+    with pytest.raises(ValueError, match="decode3d_control"):
+        dec._hybrid_enabled()
+
+
 def test_device_is_required():
     with pytest.raises(TypeError):
         tb.TorchCompressor3D((32, 32, 32), (32, 32, 32))
@@ -373,9 +393,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         )
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.compact_flags_rows(torch.zeros((1, 64), dtype=torch.bool), 8)
+    r = torch.zeros((1, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.reconstruct_mags(torch.zeros((1, 64), dtype=torch.uint8), w.reshape(1, 64), r, r,
+                                 torch.zeros(1, dtype=torch.int32), 16, 8)
     assert set(kernels.launches) == {
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
-        "masked_pack", "compact_flags_rows",
+        "masked_pack", "compact_flags_rows", "reconstruct_mags",
     }
     assert not any(kernels.launches.values())
 
