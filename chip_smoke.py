@@ -42,7 +42,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
   8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
      its multi-resolution decode, and the 3D multi-resolution decode of
      phase 5's stream (through the hybrid decode), each against the host f64
-     decoder.
+     decoder;
+  9. chunks that are not power-of-two cubes on the device entropy path:
+     SDRBench Hurricane ISABEL's shape (100 x 500 x 500, cut from phase 4's
+     field) in 256^3 chunks, four wavelet-packet chunks (child-table
+     schedule and table walk, K15), whose wave container must equal the
+     host one byte for byte with K1, the lifting kernel, K10, K11 and K12
+     launched, decoded on both routes; one dyadic chunk, whose pyramid-form
+     schedule must equal the child-table one and whose wave container must
+     equal the host one.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time,
@@ -541,6 +549,179 @@ def _turbulence_like(ny: int, nx: int, seed: int):
     return f
 
 
+def _tensor_bytes(obj) -> int:
+    """Bytes of every tensor an index object holds (its static tables)."""
+    import torch
+
+    total = 0
+    stack = [getattr(obj, name) for name in obj.__slots__ if hasattr(obj, name)]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
+    return total
+
+
+def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> None:
+    """Phase 9: chunks that are not power-of-two cubes on the device entropy
+    path.  ``vol`` (z, y, x) in ``chunk`` chunks, in the smoke run SDRBench
+    Hurricane ISABEL's shape (100 x 500 x 500, cropped from phase 4's field):
+    four wavelet-packet chunks of four shapes; the index builds per shape,
+    the wave container against the host one (after a warm-up each), the
+    kernels launched, both decode routes; the first chunk's schedule and
+    walk (K15) and its emission at tiers 0 and 1, timed.  Then ``pvol``, one
+    dyadic chunk (cut from phase 5's field): the pyramid-form schedule
+    against the child-table one, and its wave container against the host
+    one."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_lis, speck_virtual
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+    from sperr_tpu_torch.utils.dims import chunk_volume
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    nz, ny, nx = vol.shape
+    dims = (nx, ny, nz)
+    chunks = chunk_volume(dims, chunk)
+    shapes = list(dict.fromkeys(c[1::2] for c in chunks))
+    builds = {}
+    for s3 in shapes:
+        t0 = time.perf_counter()
+        li, si = tb._wave_index(s3, dev)
+        builds[s3] = (time.perf_counter() - t0, type(si).__name__, li.nn, li.nrows)
+    print(f"[table] {nz}x{ny}x{nx} (Hurricane ISABEL's shape) in {chunk} chunks: {len(chunks)} chunks; "
+          "index builds on the host (chunk shape: form, nodes, child rows, s): "
+          + ", ".join(f"{s3}: {f}, {nn}, {nr}, {t:.3f}" for s3, (t, f, nn, nr) in builds.items()))
+    _check(len(chunks) == 4 and len(shapes) == 4, f"chunk shapes {shapes}")
+    _check(all(f == "TreeIndex" for _, f, _, _ in builds.values()), "a chunk left the child-table form")
+
+    runs = {}
+    for entropy in ("host", "wave"):
+        comp = tb.TorchCompressor3D(dims, chunk, device=dev, entropy=entropy)
+        comp.compress(vol, "pwe", tol)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = comp.compress(vol, "pwe", tol)
+        torch.cuda.synchronize()
+        runs[entropy] = dict(wall=time.perf_counter() - t0, stream=s, launches=dict(kernels.launches),
+                             peak=torch.cuda.max_memory_allocated(), d2h=comp.last_d2h_bytes, comp=comp)
+        _check(comp.last_uncertified_chunks == 0, f"{entropy}: uncertified chunks {comp.last_uncertified_ids}")
+    w, h = runs["wave"], runs["host"]
+    print(f"[table] launches during the timed wave encode: {w['launches']}")
+    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+        _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
+    _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
+    _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
+    print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
+          f"({8.0 * len(w['stream']) / vol.size:.5f} bpp), wave = host byte for byte, "
+          f"{w['comp'].last_wave_chunks} of 4 chunks on the device at tiers {w['comp'].last_wave_tiers}")
+    print(f"[table] encode (after one warm-up each) {w['wall']:.4f} s wave, {h['wall']:.4f} s host; "
+          f"device to host {w['d2h']} bytes wave, {h['d2h']} host; peak device memory {w['peak']} bytes "
+          f"({w['peak'] / 2**30:.3f} GiB) wave, {h['peak']} host -- {smi}")
+
+    dec = tb.TorchDecompressor3D(device=dev, hybrid=True)
+    dec_full = tb.TorchDecompressor3D(device=dev, hybrid=False)
+    out, out_dims = dec.decompress(w["stream"])
+    out_full, _ = dec_full.decompress(w["stream"])
+    host_out, _ = Sperr3DDecompressor().decompress(w["stream"])
+    _check(out_dims == dims and out.shape == vol.shape and np.isfinite(out).all(), "decode shape")
+    _check(np.array_equal(out, out_full), "the hybrid decode differs from the full host parse")
+    err_port = float(np.abs(out.astype(np.float64) - vol).max())
+    err_host = float(np.abs(host_out.reshape(vol.shape) - vol).max())
+    print(f"[table] decode: hybrid route ({dec.last_hybrid_chunks} chunks rebuilt on the card, parsed "
+          f"in full: {dec.last_full_parse_chunks or 'none'}) = hybrid=False element for element; "
+          f"max|err| port {err_port:.6e}, host f64 {err_host:.6e} (bound {tol})")
+    _check(err_port <= tol and err_host <= tol, f"table-form stream misses the bound: {err_port}, {err_host}")
+    del out, out_full, host_out, runs, w, h
+
+    # the first chunk's schedule and walk (K15) and its whole emission, at
+    # tiers 0 and 1: device time (behind a sleep), as the host issues it,
+    # device-busy time and host waits (profiler, sync debug mode)
+    c = chunks[0]
+    s3 = c[1::2]
+    n = s3[0] * s3[1] * s3[2]
+    x = torch.from_numpy(np.ascontiguousarray(vol[c[4]:c[4] + c[5], c[2]:c[2] + c[3], c[0]:c[0] + c[1]])[None])
+    front = tb._dense_encode_rows(x.to(dev), "pwe", tol, "dual", cdf97.dwt3d, cdf97.idwt3d_,
+                                  out_cap=max(1024, n // 1024))
+    mags, signs = front["mags"][0], front["signs"][0]
+    li, si = tb._wave_index(s3, dev)
+    tiers = tb.wave_tiers_for(n)
+    for t in (0, 1):
+        caps = tb._wave_caps(li, s3, tiers[t], 34)
+
+        def k15():
+            pm = speck_virtual.msbp1_device(mags)
+            num_bp = pm.max()
+            s, e, nm = tb._pixel_schedule(mags, si, num_bp)
+            node_s = torch.where(nm > 0, num_bp - nm, 0x7FFF).to(torch.int32)
+            return speck_lis.lis_segments_device(node_s, s, signs, num_bp, li, caps["P"], caps["node_cap"])
+
+        def emit():
+            return tb._wave_emit_chunk(mags, signs, li, caps, si)
+
+        em, fits = emit()
+        T = speck_lis.lis_item_count(li, caps["node_cap"])
+        # K15's bound: each input read once (the magnitudes, signs and both
+        # indices' static tables), each output written once (s, e, node
+        # maxima, node passes, the T payload words)
+        k15_bytes = (_tensor_bytes(si) + _tensor_bytes(li) + 4 * n + n + 3 * 4 * n + 2 * 4 * li.nn
+                     + 4 * T)
+        for label, fn in (("K15 schedule and table walk", k15), ("_wave_emit_chunk", emit)):
+            ms = _time_ms(fn, 3)
+            host_ms = _time_ms(fn, 3, host=True)
+            busy, syncs, per_name = _busy_ms(fn, 3)
+            bound = f", bound {_bound_ms(k15_bytes):.4f} ms ({k15_bytes} bytes)" if fn is k15 else ""
+            print(f"[table] {s3} tier {t} {label}: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues "
+                  f"it, device busy {'not measured' if busy is None else f'{busy:.4f} ms'}, {syncs} host "
+                  f"waits per call{bound}; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
+        print(f"[table] {s3} tier {t}: caps {caps}, n_sig {int(em.n_sig)}, fits {bool(fits)}, "
+              f"{T} walk items")
+        del em, fits
+    del front, mags, signs, x
+
+    # the pyramid form on the card: one dyadic chunk
+    pz, py, px = pvol.shape
+    pyr_dims = (px, py, pz)
+    t0 = time.perf_counter()
+    li_p, pi = tb._wave_index(pyr_dims, dev)
+    t_pyr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ti = spk.tree_index(pyr_dims, dev)
+    t_tree = time.perf_counter() - t0
+    _check(isinstance(pi, spk.PyramidIndex), f"{pyr_dims} did not take the pyramid form")
+    npx = px * py * pz
+    front = tb._dense_encode_rows(torch.from_numpy(pvol[None]).to(dev), "pwe", tol, "dual", cdf97.dwt3d,
+                                  cdf97.idwt3d_, out_cap=max(1024, npx // 1024))
+    mags = front["mags"][0]
+    num_bp = speck_virtual.msbp1_device(mags).max()
+    a = spk.pixel_schedule_pyramid(mags, pi, num_bp)
+    b = spk.pixel_schedule(mags, ti, num_bp)
+    for name, u, v in zip(("s", "e", "nm"), a, b):
+        _check(torch.equal(u, v), f"pyramid schedule {name} differs from the child-table schedule")
+    pyr_ms = _time_ms(lambda: spk.pixel_schedule_pyramid(mags, pi, num_bp), 5)
+    tree_ms = _time_ms(lambda: spk.pixel_schedule(mags, ti, num_bp), 5)
+    del front, mags, a, b
+    s_host = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev).compress(pvol, "pwe", tol)
+    wave = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, entropy="wave")
+    s_wave = wave.compress(pvol, "pwe", tol)
+    _check(s_wave == s_host, "the pyramid-form wave stream differs from the host one")
+    _check(wave.last_wave_chunks == 1, "the pyramid-form chunk took host entropy")
+    print(f"[table] pyramid form {pyr_dims}: index builds {t_pyr:.3f} s (pyramid with the table walk's), "
+          f"{t_tree:.3f} s (child table); schedule equal to the child-table one element for element, "
+          f"{pyr_ms:.4f} ms pyramid, {tree_ms:.4f} ms child table (device); wave stream = host stream "
+          f"({len(s_wave)} bytes, tier {wave.last_wave_tiers}) -- {smi}")
+    print(f"[table] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -612,8 +793,9 @@ def main() -> int:
     lift_err = 0.0
     # 256^3: both designs of the kernel; odd lengths; a batch; x lines of 400
     # samples (eight pairs per lane)
+    # and a wavelet-packet chunk of SDRBench Hurricane ISABEL (256 x 244 x 100)
     for shape in ((1, 256, 256, 256), (1, 19, 27, 33), (1, 12, 32, 32), (1, 31, 29, 30),
-                  (3, 64, 64, 64), (1, 16, 16, 400)):
+                  (3, 64, 64, 64), (1, 16, 16, 400), (1, 100, 256, 244)):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
         bound = 2e-5 * float(x.abs().max())
         fwd, fwd_ref = cdf97.dwt3d(x), cdf97.dwt3d_ref(x)
@@ -1008,6 +1190,8 @@ def main() -> int:
     print(f"[wave] encode {encw_s:.3f} s wave, {enc_s:.3f} s host (phase 4), after one warm-up; "
           f"device to host {wave.last_d2h_bytes} bytes wave, {d2h_host} bytes host; peak device "
           f"memory {peak_w} bytes ({peak_w / 2**30:.3f} GiB) wave, {peak} host -- {smi}")
+    # phase 9's volume: SDRBench Hurricane ISABEL's shape, 100 x 500 x 500
+    hurricane = np.ascontiguousarray(vol512[:100, :500, :500])
     del vol512, vol
     one_w = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", entropy="wave")
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
@@ -1029,6 +1213,8 @@ def main() -> int:
           f"{s_wave == s_host}, tier {tiers_used}, encode {noisy_wave_s:.3f} s wave, "
           f"{noisy_host_s:.3f} s host, peak device memory {torch.cuda.max_memory_allocated()} bytes")
     _check(s_wave == s_host, "noisy chunk: wave and host-entropy streams differ")
+    # phase 9's dyadic chunk, (97, 128, 118)
+    pyr_chunk = np.ascontiguousarray(vol11[:118, :128, :97])
     del noisy, vol11
 
     # -- 7. the 2D path: 16 x 1024^2, PWE 1e-2 -----------------------------
@@ -1132,6 +1318,9 @@ def main() -> int:
           f"{len(dec.hierarchy)} levels {[a.shape for a in dec.hierarchy]}, "
           f"max|port - host f64| {d3:.3e} (bound {1e-4 * vrange:.3e})")
     _check(d3 <= 1e-4 * vrange, "3D multi-res decode disagrees with the host f64 decoder")
+
+    # -- 9. chunks that are not power-of-two cubes on the wave path ----------
+    _table_phase(kernels, smi, dev, hurricane, pyr_chunk)
 
     _check("jax" not in sys.modules, "the port imported jax")
     t1 = bits["tier 1"]

@@ -1,31 +1,156 @@
-"""Device-side SPECK set walk for power-of-two cube chunks (K8).
+"""Device-side SPECK set walk (K8, and the table walk of K15).
 
-PyTorch port of the virtual-forest part of sperr_tpu/ops/speck_lis_jax.py:
-``lis_item_count``, ``_lis_items_virtual`` and the ``return_events="items"``
-form of ``lis_segments_device``.  With codec/speck_sorted.py's total order
-over tree nodes every LIS bit has a static sort key, so the set-partition
-walk is a few sorts: the result is one payload word per LIS item (list
-entries and child rows) in walk order, from which ops/wave_pack.py builds
-the per-pass emission words.
+PyTorch port of the items form of sperr_tpu/ops/speck_lis_jax.py:
+``lis_item_count``, ``LisIndex`` / ``lis_index``, ``_lis_items_virtual`` and
+the ``return_events="items"`` form of ``lis_segments_device``.  With
+codec/speck_sorted.py's total order over tree nodes every LIS bit has a
+static sort key, so the set-partition walk is a few sorts: the result is one
+payload word per LIS item (list entries and child rows) in walk order, from
+which ops/wave_pack.py builds the per-pass emission words.
 
-Multi-key sorts are one int64 key where the key widths fit, chained stable
-sorts otherwise.  Wherever full keys tie, the tied items emit no bits, so
-the stream does not depend on their order.  The table-form walk (chunk
-shapes that are not power-of-two cubes) is not ported: those chunks take
-host entropy.
+Two indices serve the walk: ``speck_virtual.VirtualLisIndex`` (power-of-two
+cubes: arithmetic children, paths and anchors) and ``LisIndex`` (any dims:
+per-node tables from the partition tree, pointer-doubling anchors and a
+rank-doubling ladder for their string ranks).  Multi-key sorts are one int64
+key where the key widths fit, chained stable sorts otherwise.  Wherever full
+keys tie, the tied items emit no bits, so the stream does not depend on
+their order.  The event form (``_expand_fill``, ``events_to_segments``) is
+not on this path and is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..codec.speck_sorted import sorted_tree
+from ..codec.speck_wave import build_tree
+from . import packemit as pe
 from . import speck_virtual as svirt
 
 _NEVER = 0x7FFF
 _BIG = 2**31 - 1
 _I32 = torch.int32
+
+
+class LisIndex:
+    """Static device tensors of the table walk (cached per dims and device):
+    per node its parent, level, depth and packed path words; the packed
+    child table; the roots with their pre-assigned per-level insertion
+    ranks."""
+
+    __slots__ = (
+        "dims", "device", "nn", "n", "nrows", "max_ch", "depth_max", "nlev", "nroots",
+        "parent", "level", "depth", "pw",
+        "ch_start", "ch_count", "ctab",
+        "root_ids", "root_levels", "O0", "off0", "root_from", "shallow",
+    )
+
+    def __init__(self, dims, device):
+        dev = torch.device(device)
+        tree = build_tree(tuple(int(d) for d in dims))
+        st = sorted_tree(tree)
+        nn = tree.node_ch_start.size
+        self.dims = tree.dims
+        self.device = dev
+        self.nn = nn
+        self.n = tree.n
+        self.nrows = tree.ch_ref.size
+        self.max_ch = int(tree.node_ch_count.max())
+        self.depth_max = int(st.depth.max())
+        lev = tree.node_level.astype(np.int32)
+        self.nlev = int(lev.max()) + 1
+        self.shallow = self.depth_max <= 10
+        self.parent = _i32(st.parent, dev)
+        self.level = _i32(lev, dev)
+        self.depth = _i32(st.depth, dev)
+        # path digits (5 bits each, depth-indexed) re-packed from the host's
+        # two 60-bit halves into 30-bit words: digit d -> word d//6, shift
+        # 5*(5 - d%6); a shallow tree needs the first two words only
+        hi, lo = st.path_hi, st.path_lo
+        m30 = (1 << 30) - 1
+        pw = np.stack([(hi >> 30) & m30, hi & m30, (lo >> 30) & m30, lo & m30], axis=1)
+        self.pw = _i32(pw[:, : 2 if self.shallow else 4], dev)
+        self.ch_start = _i32(tree.node_ch_start, dev)
+        self.ch_count = _i32(tree.node_ch_count, dev)
+        # packed child table: one gather resolves (is_pixel, value index):
+        # pixel rows store the linear pixel id, node rows n + node id; bit 0
+        # is the pixel flag.  The walk's combined (s | node_s) value table is
+        # indexed by the stored id directly.
+        refs = tree.ch_ref
+        ispx = tree.ch_is_pixel
+        resolved = np.where(ispx, tree.px_linear[np.where(ispx, refs, 0)], tree.n + refs).astype(np.int64)
+        self.ctab = _i32((resolved << 1) | ispx.astype(np.int64), dev)
+        # roots: pre-assigned per-level insertion ranks (they sit in their
+        # lists from pass 0, in root_ids order); O and the per-level append
+        # offsets start after them
+        rids = tree.root_ids.astype(np.int32)
+        rlev = tree.root_levels.astype(np.int32)
+        self.nroots = rids.size
+        O0 = np.zeros(nn, dtype=np.int32)
+        off0 = np.zeros(self.nlev, dtype=np.int32)
+        for r, L in zip(rids, rlev):
+            O0[r] = off0[L]
+            off0[L] += 1
+        self.root_ids = _i32(rids, dev)
+        self.root_levels = _i32(rlev, dev)
+        self.O0 = _i32(O0, dev)
+        self.off0 = _i32(off0, dev)
+        self.root_from = torch.zeros(rids.size, dtype=_I32, device=dev)
+
+    # -- walk interface (mirrored by speck_virtual.VirtualLisIndex) ---------
+    def children(self, q, svalid, slot):
+        """Resolve all child slots of compacted parents q via the child
+        table: (cnt [C], rvalid, ispx, isnd [C, MC], vidx [C, MC]); vidx is
+        the combined value index (pixel linear id, or n + node id)."""
+        ql = q.long()
+        cnt = torch.where(svalid, self.ch_count[ql], 0)
+        rvalid = slot[None, :] < cnt[:, None]
+        ridx = torch.clamp(self.ch_start[ql][:, None] + slot[None, :], max=self.nrows - 1)
+        crow = self.ctab[ridx.long()]
+        ispx = ((crow & 1) == 1) & rvalid
+        isnd = ((crow & 1) == 0) & rvalid
+        return cnt, rvalid, ispx, isnd, crow >> 1
+
+    def levels_of(self, ids):
+        return self.level[ids.long()]
+
+    def paths_of(self, ids):
+        pw = self.pw[ids.long()]
+        return [pw[:, k] for k in range(pw.shape[1])]
+
+    def child_paths(self, q, rslot):
+        """Child-slot path words: the parent's path with digit (slot+1) at
+        the parent's depth."""
+        ql = q.long()
+        dq = self.depth[ql]
+        word = dq // 6
+        dig = (rslot + 1) << (5 * (5 - dq % 6))
+        pw = self.pw[ql]
+        zero = torch.zeros_like(dig)
+        return [pw[:, k] + torch.where(word == k, dig, zero) for k in range(pw.shape[1])]
+
+    def O0_full(self):
+        return torch.cat([self.O0, torch.zeros(1, dtype=_I32, device=self.device)])
+
+
+_LIS_INDEXES: Dict[Tuple[Tuple[int, ...], str], LisIndex] = {}
+
+
+def lis_index(dims, device) -> LisIndex:
+    """The table walk's index for ``dims`` on ``device``, made once and
+    cached."""
+    key = (tuple(int(d) for d in dims), str(torch.device(device)))
+    li = _LIS_INDEXES.get(key)
+    if li is None:
+        li = _LIS_INDEXES[key] = LisIndex(key[0], device)
+    return li
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a).astype(np.int32), device=device)
 
 
 def lis_item_count(li, node_cap: int) -> int:
@@ -67,10 +192,8 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     """Walk-ordered emission items for the virtual (power-of-two cube)
-    forest: (payload words [T] int32, n_sig int32).
-
-    Payload bits: 0 is_ent | 1-6 lo | 7-12 s | 13 sign | 14 sig_now |
-    15 has_sign | 16 dec_emitted | 17 ok."""
+    forest: (payload words [T] int32, n_sig int32), the words as
+    ``_walk_order`` lays them out."""
     nn = vf.nn
     MC = 8
     C = node_cap
@@ -160,7 +283,7 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     # per-level totals -> suffix above -> walk ranks: O ranks are dense per
     # level (roots 0.., born off0..), so the walk position (levels desc, O
     # asc) is suffix_total(level) + O
-    counts_lev = torch.bincount(ls_lev.long(), minlength=nlev + 1)[:nlev].to(_I32)
+    counts_lev = _level_counts(ls_lev, nlev)
     totals = vf.off0 + counts_lev
     rev = torch.cumsum(totals.flip(0), dim=0, dtype=_I32)
     suffix_above = torch.cat([rev.flip(0)[1:], torch.zeros(1, dtype=_I32, device=dev)])
@@ -174,55 +297,219 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     w_top = _bcast8(w_buf[anc_c.long()], MC)
 
     # ---- items: entries (born sorted-order ++ roots) ++ child rows ------
-    R = C * MC
     ent_id = torch.cat([bid_s, vf.root_ids])
     ent_ok = torch.cat([bok_s, torch.ones(vf.nroots, dtype=torch.bool, device=dev)])
     ent_from = torch.cat([((k_s >> 5) & 63) + 1, vf.root_from])
     ent_s = torch.cat([s_s, node_s[vf.root_ids.long()]])
     ent_pw = vf.sort_paths_of(torch.clamp(ent_id, max=nn - 1))
     kw_ent = torch.cat([w_born, w_roots])
+    rp = vf.sort_child_paths(_bcast8(q, MC), slot.repeat(C))
+    pay_s = _walk_order(kw_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass,
+                        sig_now, emitted, ispx, row_sign)
+    return pay_s, n_sig
 
-    qb = _bcast8(q, MC)
-    slotb = slot.repeat(C)
-    rp = vf.sort_child_paths(qb, slotb)
-    rowpassf = _bcast8(rowpass, MC)
+
+def _level_counts(lev: torch.Tensor, nlev: int) -> torch.Tensor:
+    """Rows per level, lev in [0, nlev] (nlev marks invalid rows): a count
+    into a fixed nlev + 1 bins, so the host never waits for the device."""
+    bins = torch.zeros(nlev + 1, dtype=_I32, device=lev.device)
+    return bins.scatter_add_(0, lev.long(), torch.ones_like(lev, dtype=_I32))[:nlev]
+
+
+def _walk_order(kw_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass, sig_now, emitted,
+                ispx, row_sign):
+    """The walk's last step, shared by both indices: the payload words of
+    the list entries (one membership bit per pass in [from, s]) and of the
+    child rows (a decision bit at the parent's partition pass when it is
+    not skipped, then the sign when a pixel turns significant), sorted into
+    walk order by (walk rank of the entry or of the row's anchor, path).
+
+    Payload bits: 0 is_ent | 1-6 lo | 7-12 s | 13 sign | 14 sig_now |
+    15 has_sign | 16 dec_emitted | 17 ok."""
+    C, MC = sig_now.shape
+    R = C * MC
     sig_nowf = sig_now.reshape(R).to(_I32)
-    emittedf = emitted.reshape(R).to(_I32)
     ispxf = ispx.reshape(R)
-    row_signf = (row_sign & ispx).reshape(R).to(_I32)
-
     pay_ent = (
         1
         | (torch.clamp(ent_from, 0, 63) << 1)
         | (torch.clamp(ent_s, 0, 63) << 7)
         | (ent_ok.to(_I32) << 17)
     )
-    row_hs = (ispxf & (sig_nowf == 1)).to(_I32)
     pay_row = (
-        (torch.clamp(rowpassf, 0, 63) << 1)
-        | (row_signf << 13)
+        (torch.clamp(_bcast8(rowpass, MC), 0, 63) << 1)
+        | ((row_sign & ispx).reshape(R).to(_I32) << 13)
         | (sig_nowf << 14)
-        | (row_hs << 15)
-        | (emittedf << 16)
+        | ((ispxf & (sig_nowf == 1)).to(_I32) << 15)
+        | (emitted.reshape(R).to(_I32) << 16)
     )
     kw_all = torch.cat([kw_ent, w_top])
     kpath = [torch.cat([e_w, r_w]) for e_w, r_w in zip(ent_pw, rp)]
     pay = torch.cat([pay_ent, pay_row])
     # walk rank and first path word in one key (both below 2^31)
-    return pay[lexsort([_pack2(kw_all, kpath[0])] + kpath[1:])], n_sig
+    return pay[lexsort([_pack2(kw_all, kpath[0])] + kpath[1:])]
+
+
+def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
+    """Walk-ordered emission items for a table-backed tree (``LisIndex``,
+    any dims): (payload words [T] int32, n_sig int32), the words as
+    ``_walk_order`` lays them out.
+
+    Chain anchors by pointer doubling (J = J[J]), their string ranks by a
+    rank-doubling ladder of (rank, rank of next) sorts, the born rows'
+    per-level insertion ranks O by one sort, and the walk ranks of the list
+    entries (levels descending, O ascending) by another.  The compactions of
+    the significant sets and of the born rows are K12 (ascending indices
+    with a sentinel), as the reference's one-key sorts give them."""
+    nn = li.nn
+    MC = li.max_ch
+    C = node_cap
+    nlev = li.nlev
+    dev = node_s.device
+    never = torch.full((), _NEVER, dtype=_I32, device=dev)
+    big = torch.full((), _BIG, dtype=_I32, device=dev)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+
+    # ---- significant sets (the partitioned parents), compacted ----------
+    sid, n_sig = pe.compact_flags_rows((node_s < _NEVER)[None, :], min(C, nn))
+    sid, n_sig = sid[0], n_sig[0]
+    if C > nn:  # caps may exceed the node count; pad with invalid ids
+        sid = torch.cat([sid, torch.full((C - nn,), nn, dtype=_I32, device=dev)])
+    svalid = sid < nn
+    q = torch.clamp(sid, max=nn - 1)
+    ql = q.long()
+    slot = torch.arange(MC, dtype=_I32, device=dev)
+    cnt, rvalid, ispx, isnd, vidx = li.children(q, svalid, slot)
+    rowpass = torch.where(svalid, node_s[ql], never)  # [C] = children's birth
+
+    # combined value table: one gather yields the child's significance pass
+    # (s for pixels, node_s for sets) and the pixel sign in bit 15
+    sval = torch.cat([s_lin | (signs.to(_I32) << 15), node_s])
+    v = sval[torch.where(rvalid, vidx, zero).long()]
+    row_s = torch.where(rvalid, v & _NEVER, never)
+    row_sign = ((v >> 15) & 1) == 1
+    sig_now = (row_s == rowpass[:, None]) & rvalid
+    sig_i = sig_now.to(_I32)
+    prev_any = torch.cumsum(sig_i, dim=1, dtype=_I32) - sig_i
+    last = slot[None, :] == cnt[:, None] - 1
+    emitted = ((prev_any > 0) | ~last) & rvalid
+
+    # ---- anchors and transitive anchor ranks ----------------------------
+    # A node's chain anchor is its topmost ancestor reachable through nodes
+    # partitioning at the same pass; born entries tie-break by the
+    # lexicographic order of the chain's hop-word string
+    #   u(z) = O0(z)                              for roots
+    #        = (1 | bn(z) | 31 - lev(next(z)))    for born nodes
+    # with next(z) = J(parent(z)).  Ranks are only compared between anchors
+    # of the same level (the O sort keys the anchor level first).
+    iota_nn = torch.arange(nn, dtype=_I32, device=dev)
+    par = li.parent
+    is_root = par < 0
+    par_c = torch.clamp(par, min=0).long()
+    ns_par = node_s[par_c]
+    J = torch.where(~is_root & (ns_par == node_s), par_c.to(_I32), iota_nn)
+    hops = max(1, li.depth_max.bit_length())
+    for _ in range(hops):
+        J = J[J.long()]
+    anchor = torch.where(svalid, J[ql], q)
+
+    sentinel = torch.full((1,), nn, dtype=_I32, device=dev)
+    nxt = torch.cat([torch.where(is_root, nn, J[par_c]), sentinel])
+    lev_nxt = li.level[torch.clamp(nxt[:nn], max=nn - 1).long()]
+    u = torch.where(
+        is_root, li.O0, (1 << 11) | (torch.clamp(ns_par, 0, 63) << 5) | (31 - lev_nxt)
+    )
+    R_rank = torch.cat([u, torch.zeros(1, dtype=_I32, device=dev)])
+    for _ in range(hops):
+        nl = nxt.long()
+        ks, idx_s = torch.sort(_pack2(R_rank, R_rank[nl]))
+        diff = torch.cat([torch.zeros(1, dtype=_I32, device=dev), (ks[1:] != ks[:-1]).to(_I32)])
+        R_rank = torch.empty_like(R_rank).scatter_(0, idx_s, torch.cumsum(diff, dim=0, dtype=_I32))
+        nxt = nxt[nl]
+
+    # ---- O: per-level insertion order of born nodes (roots pre-assigned)
+    # The born rows number at most min(all child slots, the node count); a
+    # count past that raises n_sig past any cap (host fallback).
+    R = C * MC
+    CB = min(R, nn)
+    born_idx, n_born = pe.compact_flags_rows(isnd.reshape(1, R), CB)
+    born_idx, n_born = born_idx[0], n_born[0]
+    bok = born_idx < R
+    bi = torch.clamp(born_idx, max=R - 1).long()
+    prow = bi // MC
+    c_bid = torch.where(bok, vidx.reshape(R)[bi] - li.n, nn)
+    c_bn = torch.where(bok, rowpass[prow], big)
+    c_an = torch.where(bok, anchor[prow], nn)
+    bidc = torch.clamp(c_bid, max=nn - 1)
+    c_lev = li.levels_of(bidc)
+    c_pw = li.paths_of(bidc)
+    c_alev5 = 31 - li.levels_of(torch.clamp(c_an, max=nn - 1))
+
+    # O within a level = rank by (level, birth pass, anchor level finer
+    # first, transitive anchor rank, path), in one sort
+    k_lba = torch.where(bok, (c_lev << 11) | (torch.clamp(c_bn, 0, 63) << 5) | c_alev5, big)
+    counts_lev = _level_counts(torch.where(bok, c_lev, nlev), nlev)
+    lstarts = torch.cumsum(counts_lev, dim=0, dtype=_I32) - counts_lev
+    iota_cb = torch.arange(CB, dtype=_I32, device=dev)
+    a_rank = R_rank[torch.clamp(c_an, max=nn).long()]
+    perm = lexsort([_pack2(k_lba, a_rank)] + c_pw)
+    rankpos = torch.empty_like(iota_cb).scatter_(0, perm, iota_cb)
+    lc = c_lev.long()
+    o_val = li.off0[lc] + (rankpos - lstarts[lc])
+    # every row that is not born writes the sentinel slot nn, which no read
+    # below reaches (entries are read at min(id, nn - 1))
+    O_buf = li.O0_full()
+    O_buf[torch.where(bok, c_bid, nn).long()] = o_val
+    n_sig = torch.maximum(n_sig, torch.where(n_born > CB, big, zero))
+
+    # ---- w: walk order over the list entries (levels desc, O asc) -------
+    nroots = li.nroots
+    E = CB + nroots
+    ent_id = torch.cat([c_bid, li.root_ids])
+    ent_ok = torch.cat([bok, torch.ones(nroots, dtype=torch.bool, device=dev)])
+    ent_idc = torch.clamp(ent_id, max=nn - 1).long()
+    ent_lev = torch.cat([c_lev, li.root_levels])
+    # one int64 key: valid first, then levels descending, then O ascending
+    wkey = (
+        ((~ent_ok).to(torch.int64) << 62)
+        | ((nlev - 1 - ent_lev).to(torch.int64) << 32)
+        | O_buf[ent_idc].to(torch.int64)
+    )
+    worder = torch.sort(wkey, stable=True).indices
+    w_of_ent = torch.empty(E, dtype=_I32, device=dev).scatter_(
+        0, worder, torch.arange(E, dtype=_I32, device=dev)
+    )
+    # entries that are not valid all write the sentinel slot nn; anchors
+    # are node ids below nn, so it is never read
+    w_buf = torch.full((nn + 1,), _BIG, dtype=_I32, device=dev)
+    w_buf[torch.where(ent_ok, ent_id, nn).long()] = w_of_ent
+
+    ent_from = torch.cat([c_bn + 1, li.root_from])
+    ent_s = node_s[ent_idc]
+    rz = torch.zeros(nroots, dtype=_I32, device=dev)
+    ent_pw = [torch.cat([w, rz]) for w in c_pw]  # roots have empty paths
+    w_top = _bcast8(w_buf[anchor.long()], MC)
+    rp = li.child_paths(_bcast8(q, MC), slot.repeat(C))
+    pay_s = _walk_order(w_of_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass,
+                        sig_now, emitted, ispx, row_sign)
+    return pay_s, n_sig
 
 
 def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
                         ev_cap=0, cap_total=0, return_events="items", vtab=None):
     """The set walk on the device, in its items form: (walk-ordered payload
-    words, n_sig).  Only the virtual index and ``return_events="items"``
-    are ported."""
-    if return_events != "items" or not getattr(li, "uniform_children", False):
+    words, n_sig).  ``li`` is a ``VirtualLisIndex`` (``vtab``: its combined
+    child value table, if the caller made one) or a ``LisIndex``.  Only
+    ``return_events="items"`` is ported: the event form is ROADMAP queue
+    1, entry 12b."""
+    if return_events != "items":
         raise NotImplementedError(
-            "only the items form of the virtual-forest walk is ported; the "
-            "table-form walk is ROADMAP queue 1, entry 11"
+            "only the items form of the walk is ported; the event form is "
+            "ROADMAP queue 1, entry 12b"
         )
-    return _lis_items_virtual(node_s, s_lin, signs, num_bp, li, node_cap, vtab=vtab)
+    if getattr(li, "uniform_children", False):
+        return _lis_items_virtual(node_s, s_lin, signs, num_bp, li, node_cap, vtab=vtab)
+    return _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap)
 
 
-__all__ = ["lis_item_count", "lis_segments_device", "lexsort"]
+__all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort"]

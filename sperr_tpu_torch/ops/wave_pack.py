@@ -1,5 +1,5 @@
 """Device SPECK emission in the prefix-pack form (K9): PyTorch port of
-``wave_emit_3d`` in sperr_tpu/ops/wave_pack.py.
+``wave_emit_3d`` in sperr_tpu/ops/wave_pack.py, for every chunk shape.
 
 Three dense [pass, position] matrices of (valid, bit) cells hold every SPECK
 bit of a chunk:
@@ -16,7 +16,8 @@ each matrix is stream order.  Per-item 32-pass masks become packed per-pass
 words through the bit transpose (K10), and the masked pack (K11) writes the
 byte-aligned (class, pass) segments, class-major, that the host stitches
 into a stream byte-identical to the host engines'.  The optional exposure
-compaction keeps only the exposed 2x2x2 boxes (K12).
+compaction (K12) keeps only the exposed 2x2x2 boxes of a power-of-two cube,
+or the exposed pixels of any other chunk.
 """
 
 from __future__ import annotations
@@ -96,19 +97,16 @@ def _emit_words_pair(masks_fn, P: int):
 def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
                  node_cap: int, evb_cap: int, out_cap_bytes: int,
                  wexp_cap: int = 0) -> WaveEmit:
-    """Full SPECK bit emission for one power-of-two cube chunk.
+    """Full SPECK bit emission for one chunk.
 
     Inputs are the int32 magnitudes, bool signs, the per-pixel schedule
-    (s, e from pixel_schedule_virtual), the per-node significance passes
-    node_s, num_bp (an int32 0-d tensor) and the walk index ``li``.
-    ``wexp_cap`` > 0 (and < n) compacts the exposed boxes first, so the
-    LIP and refinement matrices shrink to the exposed neighbourhood;
-    exposure overflow sets the overflow flag (tier retry)."""
-    if not getattr(li, "uniform_children", False):
-        raise NotImplementedError(
-            "only the virtual (power-of-two cube) forest is ported; the "
-            "non-uniform emission is ROADMAP queue 1, entry 11"
-        )
+    (s, e from ``pixel_schedule_virtual``, ``pixel_schedule`` or
+    ``pixel_schedule_pyramid``), the per-node significance passes node_s,
+    num_bp (an int32 0-d tensor) and the walk index ``li``
+    (``VirtualLisIndex`` or ``LisIndex``).  ``wexp_cap`` > 0 (and < n)
+    compacts the exposed pixels first, so the LIP and refinement matrices
+    shrink to the exposed neighbourhood; exposure overflow sets the
+    overflow flag (tier retry)."""
     n = mags.shape[0]
     P = num_bp_cap
     dev = mags.device
@@ -117,17 +115,21 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     zero = torch.zeros((), dtype=_I32, device=dev)
     ones = torch.full((), pe.ALL_ONES, dtype=_I32, device=dev)
     never = torch.full((), _NEVER, dtype=_I32, device=dev)
-
-    # shared box-major pixel table: clip(s) | sign << 7 | mag << 8 (mags fit
-    # below bit 31 for bitplane caps <= 23; deeper caps carry them apart)
-    pack_mag = P <= 23
+    uniform = getattr(li, "uniform_children", False)
     compact = bool(wexp_cap) and wexp_cap < n
-    pv = torch.clamp(s, 0, 127) | (sgn << 7)
-    if pack_mag:
-        pv = pv | (torch.clamp(mags, max=(1 << 23) - 1) << 8)
-    pv_bm = li.box_major_pixels(pv)
-    vtab = li.vtab_from(pv_bm, node_s)
-    mg_bm = li.box_major_pixels(mags) if (not pack_mag and compact) else None
+
+    # virtual forest: one box-major pixel table, clip(s) | sign << 7 | mag << 8
+    # (mags fit below bit 31 for bitplane caps <= 23; deeper caps carry them
+    # apart), serves the walk's child values and the exposure compaction
+    pack_mag = P <= 23
+    vtab = pv_bm = mg_bm = None
+    if uniform:
+        pv = torch.clamp(s, 0, 127) | (sgn << 7)
+        if pack_mag:
+            pv = pv | (torch.clamp(mags, max=(1 << 23) - 1) << 8)
+        pv_bm = li.box_major_pixels(pv)
+        vtab = li.vtab_from(pv_bm, node_s)
+        mg_bm = li.box_major_pixels(mags) if (not pack_mag and compact) else None
 
     # --- LIS items: the set walk, as walk-ordered payload words ----------
     pay_s, n_sig = lis_segments_device(
@@ -162,7 +164,7 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     exp_idx = torch.zeros(0, dtype=_I32, device=dev)
     exp_ll = torch.zeros(0, dtype=_I32, device=dev)
     n_exp = zero
-    if compact:
+    if compact and uniform:
         # exposure is a 2x2x2-box property (every pixel's parent is its
         # aligned box): compact exposed boxes at n/8 scale (K12), fetch their
         # pixels as rows of the shared box-major table, and restore
@@ -210,6 +212,26 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
         m_p = torch.where(okm, _pad_cols(mag_c[:wexp_cap], npad, 0), zero)
         exp_idx = key_s[:wexp_cap]
         exp_ll = torch.where(okm, torch.where(((pvp >> 7) & 1) == 1, m_p, -m_p), zero)[:wexp_cap]
+    elif compact:
+        # exposure is per pixel (e < num_bp): K12 gives the exposed pixels'
+        # indices in ascending (emission) order with the sentinel n, and
+        # their count, as the reference's one-key sort over unique keys
+        # does; their values are gathered from those indices
+        idx, cnt = pe.compact_flags_rows((e < num_bp)[None, :], wexp_cap)
+        key_s = idx[0]
+        n_exp = cnt[0]
+        exp_over = n_exp > wexp_cap
+        kc = torch.clamp(key_s, max=n - 1).long()
+        # 256-cell padding: every part's word count must be a multiple of
+        # masked_pack's piece_words (the refinement part is npad/32 words)
+        npad = -(-wexp_cap // 256) * 256
+        okm = torch.arange(npad, dtype=_I32, device=dev) < n_exp
+        s_p = torch.where(okm, _pad_cols(torch.clamp(s, 0, 127)[kc], npad, 0), never)
+        e_p = torch.where(okm, _pad_cols(torch.clamp(e, 0, 127)[kc], npad, 0), never)
+        g_i = torch.where(okm, _pad_cols(sgn[kc], npad, 0), zero)
+        m_p = torch.where(okm, _pad_cols(mags[kc], npad, 0), zero)
+        exp_idx = key_s
+        exp_ll = torch.where(g_i == 1, m_p, -m_p)[:wexp_cap]
     else:
         npad = -(-n // 256) * 256
         s_p = _pad_cols(s, npad, _NEVER)

@@ -9,10 +9,10 @@ PyTorch port of the dense-transfer paths of sperr_tpu/parallel/batched.py
 
 With ``entropy="host"`` the dense quantized arrays return to the host, where
 the shared C++ engine encodes each chunk on a thread pool.  With
-``entropy="wave"`` the device also computes every SPECK bit of each
-power-of-two cube chunk (ops/speck_virtual.py, speck_lis.py, wave_pack.py)
-through a ladder of capacity tiers, and the host only stitches the packed
-segments; both write the same bytes.  The decoder parses each chunk on the
+``entropy="wave"`` the device also computes every SPECK bit of each chunk
+(ops/speck_virtual.py for power-of-two cubes, ops/speck.py for any other
+shape; speck_lis.py, wave_pack.py) through a ladder of capacity tiers, and
+the host only stitches the packed segments; both write the same bytes.  The decoder parses each chunk on the
 host, in full or (the hybrid split, on a CUDA device by default) its control
 bits only, with the refinement bits spread and the magnitudes rebuilt on the
 device (ops/wave_unpack.py, K13); it reconstructs on the device through the
@@ -39,6 +39,7 @@ from ..ops import cdf97
 from ..ops import condition as cond_host
 from ..ops import packemit as pe
 from ..ops import quantize as qz
+from ..ops import speck as spk
 from ..ops import speck_lis as sl
 from ..ops import speck_virtual as svirt
 from ..ops import wave_pack as wp
@@ -341,14 +342,41 @@ def _wave_caps(li, dims3, tier, num_bp_cap: int) -> Dict[str, int]:
                 cells=cells, evb_cap=evb_cap, out_cap_bytes=out_cap_bytes)
 
 
-def _wave_emit_chunk(mags: torch.Tensor, signs: torch.Tensor, li, caps: Dict[str, int]):
-    """The device entropy stage of one power-of-two cube chunk at one tier:
-    K5 -> schedule (K6) -> walk (K7, K8) -> emission (K9-K12).  Returns the
-    WaveEmit and ``fits`` (node cap honoured, no overflow, num_bp <= the
-    tier's bitplane cap), all on the device."""
+def _wave_index(dims3, device):
+    """(walk index, schedule index) of chunks of dims3 on device, as
+    sperr_tpu's ``_dense_encode_wave`` chooses them: the virtual forest for
+    power-of-two cubes (both roles); otherwise the table walk (``LisIndex``)
+    with the pyramid-form schedule where its index builds (dyadic dims), the
+    child-table schedule where it does not.  Each index is made once per
+    (dims, device) and cached."""
+    if svirt._is_pow2_cube(dims3):
+        vf = svirt.virtual_lis_index(dims3, device)
+        return vf, vf
+    try:
+        si = spk.pyramid_index(dims3, device)
+    except ValueError:
+        si = spk.tree_index(dims3, device)
+    return sl.lis_index(dims3, device), si
+
+
+def _pixel_schedule(mags: torch.Tensor, si, num_bp):
+    """(s, e, node maxima) through the schedule that ``si`` serves."""
+    if isinstance(si, svirt.VirtualLisIndex):
+        return svirt.pixel_schedule_virtual(mags, si, num_bp)
+    if isinstance(si, spk.PyramidIndex):
+        return spk.pixel_schedule_pyramid(mags, si, num_bp)
+    return spk.pixel_schedule(mags, si, num_bp)
+
+
+def _wave_emit_chunk(mags: torch.Tensor, signs: torch.Tensor, li, caps: Dict[str, int], si=None):
+    """The device entropy stage of one chunk at one tier: K5 -> schedule (K6
+    for a virtual forest, K15 otherwise; ``si`` is the schedule index, None
+    for ``li`` itself) -> walk (K7 and K8, or K15's table walk) -> emission
+    (K9-K12).  Returns the WaveEmit and ``fits`` (node cap honoured, no
+    overflow, num_bp <= the tier's bitplane cap), all on the device."""
     pm = svirt.msbp1_device(mags)
     num_bp = pm.max()
-    s, e, nm = svirt.pixel_schedule_virtual(mags, li, num_bp)
+    s, e, nm = _pixel_schedule(mags, li if si is None else si, num_bp)
     node_s = torch.where(nm > 0, num_bp - nm, _WAVE_NEVER).to(torch.int32)
     em = wp.wave_emit_3d(
         mags, signs, s, e, node_s, num_bp, li, caps["P"], caps["node_cap"],
@@ -413,13 +441,12 @@ class TorchCompressor3D:
     certifies on the host, the wave path scans on the device at
     max(tol - eta, 0) unless eta > tol/4) or False (f32 scan at tol).
 
-    With ``entropy="wave"`` every SPECK bit of a power-of-two cube chunk is
+    With ``entropy="wave"`` every SPECK bit of a chunk, of any shape, is
     computed on the device through the tier ladder ``wave_tiers`` (None: the
     defaults of ``wave_tiers_for``) and only stream-sized segments (plus the
     dense quantized values, where the host needs them) cross to the host.
-    Other chunk shapes, constant chunks, chunks past the last tier and
-    chunks with num_bp > ``num_bp_cap`` take host entropy; both routes write
-    the same bytes.
+    Constant chunks, chunks past the last tier and chunks with num_bp >
+    ``num_bp_cap`` take host entropy; both routes write the same bytes.
 
     After each compress, ``last_uncertified_chunks`` counts the PWE chunks
     whose f32-decoder bound could not be certified (the f64 bound holds for
@@ -656,17 +683,15 @@ class TorchCompressor3D:
         """Device entropy over one group of chunks, chunk by chunk: the dense
         front (with the wave program's outlier compaction), the emission at
         the first tier, then the retry ladder over the chunks that overflowed
-        a cap (the front is kept, not recomputed).  Chunks that are not
-        power-of-two cubes skip the emission and take host entropy."""
+        a cap (the front is kept, not recomputed)."""
         B = dev.shape[0]
         n = dims3[0] * dims3[1] * dims3[2]
         # the wave program's outlier cap: smooth PWE data has few outliers;
         # chunks with more re-run through the dense front
         wave_out_cap = max(1024, n // 1024)
-        pow2 = svirt._is_pow2_cube(dims3)
         tiers = self.wave_tiers if self.wave_tiers is not None else wave_tiers_for(n)
-        li = svirt.virtual_lis_index(dims3, self.device) if pow2 else None
-        caps = [_wave_caps(li, dims3, t, self.num_bp_cap) for t in tiers] if pow2 else []
+        li, si = _wave_index(dims3, self.device)
+        caps = [_wave_caps(li, dims3, t, self.num_bp_cap) for t in tiers]
 
         fronts = []
         waves: List[Optional[dict]] = [None] * B
@@ -677,11 +702,10 @@ class TorchCompressor3D:
                 out_cap=wave_out_cap,
             )
             fronts.append(o)
-            if pow2:
-                em, fits = _wave_emit_chunk(o["mags"][0], o["signs"][0], li, caps[0])
-                waves[k] = self._fetch_wave(em, fits, caps[0]["P"])
-                tier_of[k] = 0
-                del em, fits
+            em, fits = _wave_emit_chunk(o["mags"][0], o["signs"][0], li, caps[0], si)
+            waves[k] = self._fetch_wave(em, fits, caps[0]["P"])
+            tier_of[k] = 0
+            del em, fits
         # retry ladder: chunks that overflowed a cap re-run at the next, wider
         # tier; only num_bp > num_bp_cap goes straight to host entropy
         for t in range(1, len(caps)):
@@ -693,7 +717,7 @@ class TorchCompressor3D:
             if not bad:
                 break
             for k in bad:
-                em, fits = _wave_emit_chunk(fronts[k]["mags"][0], fronts[k]["signs"][0], li, caps[t])
+                em, fits = _wave_emit_chunk(fronts[k]["mags"][0], fronts[k]["signs"][0], li, caps[t], si)
                 waves[k] = self._fetch_wave(em, fits, caps[t]["P"])
                 tier_of[k] = t
                 del em, fits

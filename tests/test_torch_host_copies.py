@@ -16,9 +16,11 @@ from sperr_tpu import errors as j_errors
 from sperr_tpu.codec import outlier as j_outlier
 from sperr_tpu.codec import speck_flt as j_flt
 from sperr_tpu.codec import speck_int_np as j_sp
+from sperr_tpu.codec import speck_sorted as j_sorted
 from sperr_tpu.codec import speck_wave as j_wave
 from sperr_tpu.ops import cdf97_np as j_cdf
 from sperr_tpu.ops import condition as j_cond
+from sperr_tpu.ops import pyramid as j_pyr
 from sperr_tpu.ops import quantize as j_qz
 from sperr_tpu.parallel import chunked3d as j_chunked
 from sperr_tpu.runtime import native as j_native
@@ -31,9 +33,11 @@ from sperr_tpu_torch import errors as t_errors
 from sperr_tpu_torch.codec import outlier as t_outlier
 from sperr_tpu_torch.codec import speck_flt as t_flt
 from sperr_tpu_torch.codec import speck_int_np as t_sp
+from sperr_tpu_torch.codec import speck_sorted as t_sorted
 from sperr_tpu_torch.codec import speck_wave as t_wave
 from sperr_tpu_torch.ops import cdf97_np as t_cdf
 from sperr_tpu_torch.ops import condition as t_cond
+from sperr_tpu_torch.ops import pyramid as t_pyr
 from sperr_tpu_torch.ops import quantize_np as t_qz
 from sperr_tpu_torch.parallel import chunked3d as t_chunked
 from sperr_tpu_torch.runtime import native as t_native
@@ -103,6 +107,45 @@ def test_stitch_3d_copy(budget):
     want = j_wave.stitch_3d(None, None, None, (8, 8, 8), num_bp, lip, ref, budget, lis_segments=lis)
     assert t_wave.stitch_3d(num_bp, lip, lis, ref, budget) == want
     assert t_wave._pack_stream(np.empty(0, np.uint8), 0, 0) == j_wave._pack_stream(np.empty(0, np.uint8), 0, 0)
+
+
+def _same_arrays(a, b, names):
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype, name
+            np.testing.assert_array_equal(x, y, name)
+        else:
+            assert x == y, name
+
+
+# a wavelet-packet chunk, a dyadic one and a power-of-two cube
+@pytest.mark.parametrize("dims", [(24, 20, 12), (23, 15, 13), (16, 16, 16)])
+def test_partition_tree_and_sorted_keys_copy(dims):
+    assert t_wave._NEVER == j_wave._NEVER
+    t_tree, j_tree = t_wave.build_tree(dims), j_wave.build_tree(dims)
+    assert t_wave.build_tree(dims) is t_tree  # cached
+    _same_arrays(t_tree, j_tree, j_wave.Tree.__slots__)
+    _same_arrays(t_sorted.sorted_tree(t_tree), j_sorted.sorted_tree(j_tree), j_sorted.SortedTree.__slots__)
+    assert t_wave._initial_sets(*dims) == j_wave._initial_sets(*dims)
+
+
+@pytest.mark.parametrize("dims", [(23, 15, 13), (20, 20, 20), (12, 16, 16)])
+def test_pyramid_tables_copy(dims):
+    tp, jp = t_pyr.Pyramid(dims), j_pyr.Pyramid(dims)
+    for axis in ("ax", "ay", "az"):
+        _same_arrays(getattr(tp, axis), getattr(jp, axis), j_pyr.AxisTables.__slots__)
+    assert tp.levels == jp.levels
+    t_perm = t_pyr._build_tree_perm(tp, t_wave.build_tree(dims))
+    j_perm = j_pyr._build_tree_perm(jp, j_wave.build_tree(dims))
+    assert sorted(t_perm) == sorted(j_perm)
+    for d in j_perm:
+        for a, b in zip(t_perm[d], j_perm[d]):
+            np.testing.assert_array_equal(a, b)
+    pmsb = np.random.default_rng(sum(dims)).integers(0, 20, size=dims[0] * dims[1] * dims[2]).astype(np.int16)
+    np.testing.assert_array_equal(t_pyr.exposure_pyramid(tp, pmsb, 20), j_pyr.exposure_pyramid(jp, pmsb, 20))
+    with pytest.raises(ValueError, match="dyadic"):
+        t_pyr._build_tree_perm(t_pyr.Pyramid((24, 20, 12)), t_wave.build_tree((24, 20, 12)))
 
 
 @pytest.mark.parametrize("vol,chunk", [((64, 48, 40), (32, 32, 32)), ((20, 20, 20), (20, 20, 20)),

@@ -211,19 +211,24 @@ def test_noisy_chunk_retries_then_falls_back():
 
 
 def test_constant_chunk_and_non_cube_chunks_take_host_entropy():
+    """A constant chunk takes host entropy; chunks that are not power-of-two
+    cubes now take the table-form device path (tests/test_torch_wave_table.py),
+    with the same bytes."""
     vol = np.zeros((16, 16, 16), dtype=np.float32)
     vol[:8] = 2.5  # one constant chunk, one not
     vol[8:] = _vol((8, 16, 16))
     s_host, s_wave, wave = _pair((16, 16, 16), (16, 16, 8), vol, "pwe", 1e-3)
-    assert s_wave == s_host and wave.last_wave_chunks == 0
+    assert s_wave == s_host and wave.last_wave_chunks == 1
+    assert wave.last_wave_tiers[0] is None and wave.last_wave_tiers[1] is not None
     vol = _vol()
     s_host, s_wave, wave = _pair((16, 16, 32), (16, 16, 16), vol[:, :16, :16].copy(), "pwe", 1e-2)
     assert s_wave == s_host and wave.last_wave_chunks == 2
-    # (23, 31, 29) in 16^3 chunks: no chunk is a power-of-two cube
+    # (23, 31, 29) in 16^3 chunks: no chunk is a power-of-two cube, and all
+    # four are encoded on the device
     odd = vol[:29, :31, :23].copy()
     s_host, s_wave, wave = _pair((23, 31, 29), (16, 16, 16), odd, "pwe", 1e-2)
     assert s_wave == s_host
-    assert wave.last_wave_chunks == 0 and wave.last_wave_tiers == [None] * 4
+    assert wave.last_wave_chunks == 4 and None not in wave.last_wave_tiers
 
 
 def test_wave_stream_decodes_with_the_jax_decoder_and_the_port():
