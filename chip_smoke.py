@@ -50,7 +50,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      host one byte for byte with K1, the lifting kernel, K10, K11 and K12
      launched, decoded on both routes; one dyadic chunk, whose pyramid-form
      schedule must equal the child-table one and whose wave container must
-     equal the host one.
+     equal the host one;
+ 10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
+     streams must equal phase 7's with every field on the device and K1, K2,
+     K3, K10, K11 and K12 launched, decoded within the bound, the encode
+     timed on both routes; one field's device program (device-busy and
+     host-issued time, host waits, its K10-K12 calls bit for bit); phase 8's
+     field at PWE, PSNR and rate and a noisy field that climbs the tier
+     ladder, each wave stream equal to its host one.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time,
@@ -302,14 +309,12 @@ def _lift_per_launch(kernels, cdf97, x, levels: int, smi: str):
     return out
 
 
-def _bits_case(kernels, packemit, calls, smi: str, label: str):
+def _bits_equal(kernels, packemit, calls, label: str):
     """Hold every captured call of K10-K12 against its plain version bit for
-    bit, then time the largest call of each beside its bound and, for K12,
-    beside torch.nonzero on the same flags.  Returns {kernel: stats}."""
+    bit; returns the largest difference of each (0)."""
     import torch
 
-    out = {}
-    err = 0
+    err = {"transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0}
     # K10 writes planes 0 .. take-1 into rows row0 .. of the caller's buffer:
     # both versions start from the same filler, so a row written out of
     # place shows too
@@ -322,9 +327,28 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
         else:
             kernels.transpose_bits32_pair(xs[0].contiguous(), xs[1].contiguous(), a, row0, take)
             packemit.transpose_bits32_pair_ref(xs[0], xs[1], b, row0, take)
-        err = max(err, _int_err(a, b))
+        err["transpose_bits32"] = max(err["transpose_bits32"], _int_err(a, b))
         _check(torch.equal(a, b), f"K10 ({len(xs)} inputs) differs from its plain version at "
                f"{tuple(xs[0].shape)}, rows {row0} + {take} of {tuple(dst.shape)} ({label})")
+    for parts, evb_cap, out_cap_bytes in calls["masked_pack"]:
+        err["masked_pack"] = max(err["masked_pack"],
+                                 _k11_equal(packemit, parts, evb_cap, out_cap_bytes, 8, label))
+    for flags, take in calls["compact_flags_rows"]:
+        a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
+        for x, y in zip(a, b):
+            err["compact_flags_rows"] = max(err["compact_flags_rows"], _int_err(x, y))
+            _check(torch.equal(x, y), f"K12 differs at {tuple(flags.shape)}, take {take} ({label})")
+    return err
+
+
+def _bits_case(kernels, packemit, calls, smi: str, label: str):
+    """Hold every captured call of K10-K12 against its plain version bit for
+    bit, then time the largest call of each beside its bound and, for K12,
+    beside torch.nonzero on the same flags.  Returns {kernel: stats}."""
+    import torch
+
+    out = {}
+    errs = _bits_equal(kernels, packemit, calls, label)
     # the three shapes of one emission: the first 32-plane window of the LIP
     # pair, the LIS pair and the refinement single form (each called twice,
     # for the valid and the bit masks)
@@ -349,20 +373,19 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
           f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
     lis = k10["LIS pair"]
     out["transpose_bits32"] = dict(
-        max_abs_err=err, shape=f"LIS pair {lis['items']} items, {lis['take']} planes",
+        max_abs_err=errs["transpose_bits32"], shape=f"LIS pair {lis['items']} items, {lis['take']} planes",
         ms=lis["ms"], host_ms=lis["host_ms"],
         plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5),
         bound_ms=lis["bound_ms"], library_ms=None, per_shape=k10,
     )
     (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
-    err = _k11_equal(packemit, parts, evb_cap, out_cap_bytes, 8, label)
     _, _, per_name = _busy_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10)
     print(f"[kernels] {label} K11 by launch, ms per call: {_top(per_name, 4)} -- {smi}")
     b = packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
     words = sum(v.numel() for v, _ in parts)
     rows = sum(v.shape[0] for v, _ in parts)
     out["masked_pack"] = dict(
-        max_abs_err=err, shape=f"{words} words per array, {rows} rows, {int(b.total_bytes)} bytes "
+        max_abs_err=errs["masked_pack"], shape=f"{words} words per array, {rows} rows, {int(b.total_bytes)} bytes "
         f"out, overflow {bool(b.overflow)}",
         ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
         host_ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10, host=True),
@@ -370,17 +393,11 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
         bound_ms=_bound_ms(8 * words + int(b.total_bytes) + 4 * rows),
         library_ms=None,
     )
-    err = 0
-    for flags, take in calls["compact_flags_rows"]:
-        a, b = kernels.compact_flags_rows(flags.contiguous(), take), packemit.compact_flags_rows_ref(flags, take)
-        for x, y in zip(a, b):
-            err = max(err, _int_err(x, y))
-            _check(torch.equal(x, y), f"K12 differs at {tuple(flags.shape)}, take {take} ({label})")
     for k, (flags, take) in enumerate(calls["compact_flags_rows"]):
         B, n = flags.shape
         key = "compact_flags_rows" if k == 0 else f"compact_flags_rows {k}"
         out[key] = dict(
-            max_abs_err=err, shape=f"({B}, {n}) take {take}",
+            max_abs_err=errs["compact_flags_rows"], shape=f"({B}, {n}) take {take}",
             ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20),
             host_ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, host=True),
             plain_ms=_time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5),
@@ -722,6 +739,144 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     print(f"[table] phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> None:
+    """Phase 10: the 2D device entropy path (TorchCompressor2D(entropy=
+    "wave"), K14).  Phase 7's 16 fields at PWE 1e-2: the wave streams must
+    equal phase 7's byte for byte with every field on the device, K1, K2,
+    K3 and K10-K12 launched in the first timed wave encode, and decode
+    within the bound under the port's decoder and the host f64 codec; the
+    encode timed on both routes, alternating, three times each.  One field's
+    device program at tier 0, with its K10-K12 calls held against their
+    plain versions: device-busy time, host-issued time, host waits, the ops
+    with the most device time and its bound.  Phase 8's 1800 x 3600 field
+    at PWE 1e-2, PSNR 80 and rate 2.0, and a noisy 256 x 256 field that
+    climbs the tier ladder: every wave stream equal to its host one."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
+    from sperr_tpu_torch.ops import cdf97, packemit
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel import batched2d as tb2
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    B, ny, nx = fields.shape
+    n = nx * ny
+    t0 = time.perf_counter()
+    index = tb2._wave_index2((nx, ny), dev)
+    li2 = index[1]
+    print(f"[wave2d] {ny}x{nx} index build on the host {time.perf_counter() - t0:.3f} s: {li2.nn} nodes, "
+          f"{li2.nrows} child rows, depth {li2.depth_max}, {li2.xf} I levels, {li2.G} groups")
+    comps = {route: tb2.TorchCompressor2D((nx, ny), device=dev, entropy=route) for route in ("host", "wave")}
+    for route, comp in comps.items():  # warm-up
+        _check(comp.compress_batch(fields, "pwe", tol) == streams7, f"{route}: streams differ from phase 7's")
+    walls = {"host": [], "wave": []}
+    peak, d2h = {}, {}
+    launches = None
+    for route in ("wave", "host", "wave", "host", "wave", "host"):
+        comp = comps[route]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = route == "wave" and launches is None
+        if first:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = comp.compress_batch(fields, "pwe", tol)
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+        if first:
+            launches = dict(kernels.launches)
+        peak[route] = max(peak.get(route, 0), torch.cuda.max_memory_allocated())
+        d2h[route] = comp.last_d2h_bytes
+        _check(s == streams7, f"{route}: a timed encode differs from phase 7's streams")
+        _check(comp.last_uncertified_chunks == 0, f"{route}: {comp.last_uncertified_chunks} uncertified fields")
+    wave = comps["wave"]
+    print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
+    for name in ("quantize", "dwt2d_full", "idwt2d_full", "transpose_bits32", "masked_pack",
+                 "compact_flags_rows"):
+        _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
+    _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
+    _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
+    dec = tb2.TorchDecompressor2D((nx, ny), device=dev)
+    host = SpeckFloatCodec(2, (nx, ny, 1))
+    err_port = err_host = 0.0
+    for f, out, st in zip(fields, dec.decompress_batch(s), s):
+        _check(out.shape == (ny, nx) and np.isfinite(out).all(), "2D wave decode shape or finiteness")
+        err_port = max(err_port, float(np.abs(out.astype(np.float64) - f).max()))
+        h, _ = host.decompress(bytes(st))
+        err_host = max(err_host, float(np.abs(h.reshape(ny, nx) - f).max()))
+    _check(err_port <= tol and err_host <= tol, f"2D wave streams miss the bound: {err_port}, {err_host}")
+    nbytes = sum(len(x) for x in s)
+    print(f"[wave2d] {B} x {ny}x{nx} PWE {tol}: {nbytes} bytes, equal to phase 7's byte for byte, "
+          f"{wave.last_wave_chunks} of {B} fields on the device at tiers {wave.last_wave_tiers}; max|err| "
+          f"port decoder {err_port:.6e}, host f64 decoder {err_host:.6e} (bound {tol})")
+    print(f"[wave2d] encode walls, s (after one warm-up each, alternating wave, host, ...): wave "
+          + ", ".join(f"{t:.4f}" for t in walls["wave"]) + "; host " + ", ".join(f"{t:.4f}" for t in walls["host"])
+          + f"; device to host {d2h['wave']} bytes wave, {d2h['host']} host; peak device memory "
+          f"{peak['wave']} bytes wave, {peak['host']} host -- {smi}")
+
+    # one field's device program at tier 0, as the wave encode runs it
+    front = tb._dense_encode_rows(torch.from_numpy(fields[:1]).to(dev), "pwe", tol, "dual", cdf97.dwt2d,
+                                  cdf97.idwt2d, out_cap=n)
+    mags, signs = front["mags"][0], front["signs"][0]
+    caps = tb2._wave_caps2(n, wave.num_bp_cap, li2.nn, max(4096, int(wave.wave_event_tiers[0] * n)))
+
+    def prog():
+        return tb2._wave_emit_field(mags, signs, index, caps, wave.num_bp_cap)
+
+    with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack",
+                             "compact_flags_rows"]) as calls:
+        w = wave._fetch_wave(prog(), caps, n)
+    _check(wave._wave_fits(w, 0, n), "field 0 does not fit tier 0")
+    _bits_equal(kernels, packemit, calls, "2D field 0, tier 0")
+    ncalls = {k: len(v) for k, v in calls.items()}
+    ms = _time_ms(prog, 3)
+    host_ms = _time_ms(prog, 3, host=True)
+    busy, syncs, per_name = _busy_ms(prog, 3)
+    # bound: the magnitudes (int32) and signs read once, the segments written once
+    stream = int(w["px_total"][0]) + int(w["lis_total"][0])
+    bound = _bound_ms(5 * n + stream)
+    print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
+          f"{stream} segment bytes; K10-K12 calls {ncalls}, equal to their plain versions bit for bit")
+    print(f"[wave2d] field 0 device program: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues it, device "
+          f"busy {'not measured' if busy is None else f'{busy:.4f} ms'}, {syncs} host waits per call; bound "
+          f"{bound:.4f} ms ({5 * n + stream} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
+          f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
+    del front, mags, signs, w, calls
+
+    # the CESM-ATM shape at PWE, PSNR and rate, and a noisy field
+    ny7, nx7 = f7.shape
+    t0 = time.perf_counter()
+    tb2._wave_index2((nx7, ny7), dev)
+    build7 = time.perf_counter() - t0
+    host7 = tb2.TorchCompressor2D((nx7, ny7), device=dev)
+    wave7 = tb2.TorchCompressor2D((nx7, ny7), device=dev, entropy="wave")
+    routes = []
+    for mode, quality in (("pwe", tol), ("psnr", 80.0), ("rate", 2.0)):
+        want = streams8.get(mode) or host7.compress(f7, mode, quality)
+        t0 = time.perf_counter()
+        got = wave7.compress(f7, mode, quality)
+        wall = time.perf_counter() - t0
+        _check(got == want, f"{ny7}x{nx7} {mode}: the wave stream differs from the host one")
+        tier = wave7.last_wave_tiers[0]
+        routes.append(f"{mode} {quality}: {len(got)} bytes, {wave7.last_wave_chunks} of 1 field on the device ("
+                      + ("host engine" if tier is None else f"tier {tier}") + f"), wave {wall:.3f} s")
+    _check(wave7.last_wave_tiers[0] is None, "rate 2.0 fit the device (more than 18 bitplanes expected)")
+    print(f"[wave2d] {ny7}x{nx7} (index build {build7:.3f} s): " + "; ".join(routes)
+          + "; every wave stream equal to its host one")
+    noisy = np.random.default_rng(3).normal(size=(256, 256)).astype(np.float32)
+    want = tb2.TorchCompressor2D((256, 256), device=dev).compress(noisy, "pwe", tol)
+    wn = tb2.TorchCompressor2D((256, 256), device=dev, entropy="wave")
+    _check(wn.compress(noisy, "pwe", tol) == want, "noisy 256x256: the wave stream differs from the host one")
+    tier = wn.last_wave_tiers[0]
+    _check(tier is None or tier >= 1, f"the noisy field did not climb the ladder: tier {tier}")
+    print(f"[wave2d] noisy 256x256 PWE {tol}: {len(want)} bytes, equal to the host stream, "
+          + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
+          + f" ({wn.last_wave_chunks} field on the device)")
+    print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1040,7 +1195,7 @@ def main() -> int:
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
-        print("[kernels] --kernels-only: phases 4-8 skipped, no result line")
+        print("[kernels] --kernels-only: phases 4-10 skipped, no result line")
         return 0
 
     # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
@@ -1266,7 +1421,7 @@ def main() -> int:
           f"({peak2 / 2**30:.3f} GiB) -- {smi}")
     _check(err2_port <= tol, f"2D port decoder misses the PWE bound: {err2_port}")
     _check(err2_host <= tol, f"2D host f64 decoder misses the PWE bound: {err2_host}")
-    del fields, outs2
+    del outs2  # phase 10 takes the fields and streams
 
     # -- 8. 1800x3600 modes and multi-resolution decodes --------------------
     nx7, ny7 = 3600, 1800
@@ -1275,8 +1430,9 @@ def main() -> int:
     comp7 = TorchCompressor2D((nx7, ny7), device="cuda")
     dec7 = TorchDecompressor2D((nx7, ny7), device="cuda")
     host7 = SpeckFloatCodec(2, (nx7, ny7, 1))
+    streams8 = {}
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
-        s = comp7.compress(f7, mode, quality)
+        s = streams8[mode] = comp7.compress(f7, mode, quality)
         ours = dec7.decompress(s)
         h, _ = host7.decompress(bytes(s))
         h = h.reshape(ny7, nx7)
@@ -1321,6 +1477,10 @@ def main() -> int:
 
     # -- 9. chunks that are not power-of-two cubes on the wave path ----------
     _table_phase(kernels, smi, dev, hurricane, pyr_chunk)
+
+    # -- 10. the 2D device entropy path --------------------------------------
+    _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
+    del fields, streams2, f7
 
     _check("jax" not in sys.modules, "the port imported jax")
     t1 = bits["tier 1"]

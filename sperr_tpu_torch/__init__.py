@@ -1,8 +1,8 @@
 """sperr_tpu_torch: the PyTorch/CUDA port of sperr_tpu for NVIDIA Hopper.
 
 The dense codec paths (condition -> CDF 9/7 -> midtread quantize -> PWE
-residual, and the matching decode) and the device SPECK encoder run on a
-torch device, with hand-written CUDA kernels for sm_90a on the GPU
+residual, and the matching decode) and the device SPECK encoders (3D and
+2D) run on a torch device, with hand-written CUDA kernels for sm_90a on the GPU
 (``kernels/``) and their plain PyTorch versions on the CPU.  The host layers
 (SPECK entropy coding in C++, the container format, the outlier coder, the
 exact f64 decoders) are the port's own copies of sperr_tpu's
@@ -11,7 +11,8 @@ exact f64 decoders) are the port's own copies of sperr_tpu's
 
 Entry points: ``sperr_tpu_torch.parallel.batched.TorchCompressor3D`` and
 ``TorchDecompressor3D``; ``parallel.batched2d.TorchCompressor2D`` and
-``TorchDecompressor2D``.
+``TorchDecompressor2D``.  Each runs on the card (``device="cuda"``) unless
+the caller names the CPU.
 """
 
 __version__ = "0.1.0"

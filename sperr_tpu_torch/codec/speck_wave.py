@@ -1,8 +1,9 @@
-"""The partition tree and stream assembly of the wavefront SPECK coder (the
+"""The partition trees and stream assembly of the wavefront SPECK coder (the
 port's copy of the parts of sperr_tpu/codec/speck_wave.py that the device
-encoder needs: the static partition tree ``build_tree`` with its helpers,
-and ``stitch_3d`` in the form it takes when the device supplies every
-segment).
+encoders need: the static 3D partition tree ``build_tree`` with its
+helpers, ``stitch_3d`` in the form it takes when the device supplies every
+segment; and the 2D quad/I-set tree ``build_tree2``, ``_iset_maxes`` and
+``stitch_2d`` with the LIP helper it calls).
 
 Every bit the serial coder emits falls in one of three per-pass segments, in
 this order (SPECK_INT.cpp:146-158):
@@ -17,8 +18,11 @@ dims, built once with a vectorized BFS and cached; it reproduces the
 reference's dyadic / wavelet-packet initialization (SPECK3D_INT.cpp:22-97)
 and x-fastest octant order (:214-326), and the device indices of chunks that
 are not power-of-two cubes are made from it (ops/speck.py, ops/speck_lis.py).
-The original's host-side schedule and set walk, which fill in segments that
-are not supplied, are not copied: here all three are required.
+The original's 3D host-side schedule and set walk, which fill in segments
+that are not supplied, are not copied: there all three are required.  The
+2D stitch is copied whole: with all three segment families supplied (the
+device path, ops/speck_lis2.py) it is pure concatenation, and it runs the
+sorted host walk (codec/speck_sorted.py) for the ones that are not.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ..utils.dims import can_use_dyadic, num_of_partitions, num_of_xforms
+from ..utils.dims import calc_approx_detail_len, can_use_dyadic, num_of_partitions, num_of_xforms
 
 _NEVER = 0x7FFF  # "pass" value larger than any real pass (num_bp <= 64)
 
@@ -332,3 +336,260 @@ def _pack_stream(
     packed = np.packbits(bits[:emit], bitorder="little").tobytes()
     header = bytes([num_bp]) + int(total_bits).to_bytes(8, "little")
     return header + packed
+
+
+def _lip_segment(ce, cs, csign, p: int) -> np.ndarray:
+    """Vectorized LIP-walk bits for pass p from the (e, s, sign) cohort:
+    one decision per member, the sign interleaved after each 1."""
+    memb = (ce < p) & (cs >= p)
+    mi = np.flatnonzero(memb)
+    dec = cs[mi] == p
+    pair = np.empty((mi.size, 2), dtype=np.uint8)
+    pair[:, 0] = dec
+    pair[:, 1] = csign[mi]
+    keep = np.empty((mi.size, 2), dtype=bool)
+    keep[:, 0] = True
+    keep[:, 1] = dec
+    return pair.ravel()[keep.ravel()]
+
+
+# ===========================================================================
+# 2D variant: quad partitions + the type-I "everything else" set
+# (reference SPECK2D_INT.cpp:11-218).  Same decomposition as 3D — pixel bits
+# (LIP + refinement) are vectorized from (e, s, sign); only the quad/I-set
+# walk is control flow.  Per-pass segments: LIP ‖ LIS ‖ I-expansion ‖ refine.
+# ===========================================================================
+class Tree2:
+    __slots__ = (
+        "dims", "n", "nlevels", "xf",
+        "node_level", "node_ch_start", "node_ch_count", "node_depth_ranges",
+        "ch_is_pixel", "ch_ref", "px_linear", "px_parent",
+        "root_id", "iset_groups",  # iset_groups[k] = list of node ids (k=xf..1)
+        "iset_regions",  # [k] = (ax, ay) corner excluded from I at level k
+    )
+
+
+def _quad_children(s):
+    """QccPack order: BR, BL, TR, TL (SPECK2D_INT.cpp:60-97)."""
+    sx, sy, lx, ly = s
+    ax, dx = lx - lx // 2, lx // 2
+    ay, dy = ly - ly // 2, ly // 2
+    return [
+        (sx + ax, sy + ay, dx, dy),
+        (sx, sy + ay, ax, dy),
+        (sx + ax, sy, dx, ay),
+        (sx, sy, ax, ay),
+    ]
+
+
+_TREES2: Dict[Tuple[int, int], "Tree2"] = {}
+
+
+def build_tree2(dims: Tuple[int, int]) -> "Tree2":
+    key = (int(dims[0]), int(dims[1]))
+    t = _TREES2.get(key)
+    if t is not None:
+        return t
+    nx, ny = key
+    n = nx * ny
+    xf = num_of_xforms(min(nx, ny))
+
+    a_xf, _ = calc_approx_detail_len(nx, xf)
+    b_xf, _ = calc_approx_detail_len(ny, xf)
+
+    # roots: S0, then I-children groups for k = xf .. 1 (push order BR,TR,BL)
+    roots = [((0, 0, a_xf, b_xf), xf)]
+    iset_groups: List[List[int]] = [[] for _ in range(xf + 1)]
+    iset_regions: List[Tuple[int, int]] = [(0, 0)] * (xf + 1)
+    rid = 1
+    for k in range(xf, 0, -1):
+        ax, dx = calc_approx_detail_len(nx, k)
+        ay, dy = calc_approx_detail_len(ny, k)
+        iset_regions[k] = (ax, ay)
+        for s in ((ax, ay, dx, dy), (ax, 0, dx, ay), (0, ay, ax, dy)):
+            if s[2] * s[3] != 0:
+                roots.append((s, k))
+                iset_groups[k].append(rid)
+                rid += 1
+
+    R = len(roots)
+    node_level = [np.array([lev for _, lev in roots], dtype=np.int16)]
+    depth_ranges: List[Tuple[int, int]] = [(0, R)]
+    ch_is_pixel: List[np.ndarray] = []
+    ch_ref: List[np.ndarray] = []
+    ch_counts: List[np.ndarray] = []
+    px_linear: List[np.ndarray] = []
+    px_parent: List[np.ndarray] = []
+
+    f = np.array([s for s, _ in roots], dtype=np.int64).reshape(R, 4)
+    f_lev = node_level[0].astype(np.int64)
+    f_ids = np.arange(R, dtype=np.int64)
+    n_nodes, n_px = R, 0
+
+    while f_ids.size:
+        K = f_ids.size
+        sx, sy, lx, ly = f[:, 0], f[:, 1], f[:, 2], f[:, 3]
+        ax, dx = lx - lx // 2, lx // 2
+        ay, dy = ly - ly // 2, ly // 2
+        csx = np.stack([sx + ax, sx, sx + ax, sx], axis=1)
+        csy = np.stack([sy + ay, sy + ay, sy, sy], axis=1)
+        clx = np.stack([dx, ax, dx, ax], axis=1)
+        cly = np.stack([dy, dy, ay, ay], axis=1)
+        ne = clx * cly
+        valid = ne > 0
+        flat_valid = valid.ravel()
+        is_px = (ne == 1).ravel()[flat_valid]
+        rows_ref = np.empty(int(flat_valid.sum()), dtype=np.int64)
+
+        lin = (csy * nx + csx).ravel()[flat_valid][is_px]
+        pxpar = np.repeat(f_ids, 4).ravel()[flat_valid][is_px]
+        rows_ref[is_px] = n_px + np.arange(lin.size)
+        px_linear.append(lin)
+        px_parent.append(pxpar)
+        n_px += lin.size
+
+        nd_mask = ~is_px
+        nnd = int(nd_mask.sum())
+        rows_ref[nd_mask] = n_nodes + np.arange(nnd)
+        ch_is_pixel.append(is_px)
+        ch_ref.append(rows_ref)
+        ch_counts.append(valid.sum(axis=1))
+
+        sel = (ne > 1).ravel()
+        nf = np.stack(
+            [csx.ravel()[sel], csy.ravel()[sel], clx.ravel()[sel], cly.ravel()[sel]],
+            axis=1,
+        )
+        nf_lev = (np.repeat(f_lev, 4).ravel()[sel] + 1).astype(np.int64)
+        node_level.append(nf_lev.astype(np.int16))
+        depth_ranges.append((n_nodes, n_nodes + nnd))
+        n_nodes += nnd
+        f, f_lev = nf, nf_lev
+        f_ids = np.arange(n_nodes - nnd, n_nodes, dtype=np.int64)
+
+    t = Tree2()
+    t.dims = key
+    t.n = n
+    t.xf = xf
+    t.nlevels = num_of_partitions(max(nx, ny)) + 1
+    t.node_level = np.concatenate(node_level).astype(np.int16)
+    counts = np.concatenate(ch_counts)
+    t.node_ch_count = counts
+    t.node_ch_start = np.cumsum(counts) - counts
+    t.node_depth_ranges = [r for r in depth_ranges if r[1] > r[0]]
+    t.ch_is_pixel = np.concatenate(ch_is_pixel)
+    t.ch_ref = np.concatenate(ch_ref)
+    t.px_linear = np.concatenate(px_linear) if px_linear else np.empty(0, np.int64)
+    t.px_parent = np.concatenate(px_parent) if px_parent else np.empty(0, np.int64)
+    t.root_id = 0
+    t.iset_groups = iset_groups
+    t.iset_regions = iset_regions
+    _TREES2[key] = t
+    return t
+
+
+def _iset_maxes(tree: Tree2, pmsb2d: np.ndarray) -> np.ndarray:
+    """max msb+1 over the I region at each level k (1..xf); index 0 unused."""
+    nx, ny = tree.dims
+    out = np.zeros(tree.xf + 1, dtype=np.int16)
+    for k in range(1, tree.xf + 1):
+        ax, ay = tree.iset_regions[k]
+        m = 0
+        if ay < ny:
+            m = int(pmsb2d[ay:, :].max()) if pmsb2d[ay:, :].size else 0
+        if ax < nx and ay > 0:
+            m2 = int(pmsb2d[:ay, ax:].max()) if pmsb2d[:ay, ax:].size else 0
+            m = max(m, m2)
+        out[k] = m
+    return out
+
+
+def stitch_2d(
+    pmsb: np.ndarray,
+    signs: np.ndarray,
+    node_max: np.ndarray,
+    dims: Tuple[int, int],
+    num_bp: int,
+    lip_segments,
+    ref_segments,
+    budget_bits: int = 0,
+    mags: np.ndarray = None,
+    s_lin: np.ndarray = None,
+    iset_max: np.ndarray = None,
+    lis_segments=None,
+) -> bytes:
+    """2D analog of stitch_3d: assemble the stream from pixel schedules
+    (device-supplied segments optional) plus the quad/I-set walk.  When
+    all three segment families are supplied (the full device-entropy
+    path, ops/speck_lis2_jax.py), this is pure concatenation."""
+    nx, ny = dims
+    n = nx * ny
+    tree = build_tree2((nx, ny))
+    budget = (budget_bits + 7) // 8 * 8 if budget_bits else None
+
+    if lis_segments is None or lip_segments is None:
+        node_s = np.where(node_max > 0, num_bp - node_max, _NEVER).astype(
+            np.int32
+        )
+    if s_lin is None and pmsb is not None:
+        s_lin = np.where(pmsb > 0, num_bp - pmsb, _NEVER).astype(np.int32)
+    if lip_segments is None:
+        e_lin = np.full(n, _NEVER, dtype=np.int32)
+        e_lin[tree.px_linear] = node_s[tree.px_parent]
+        cand = np.flatnonzero((e_lin < num_bp) & (s_lin > e_lin))
+        ce, cs = e_lin[cand], s_lin[cand]
+        csign = signs[cand]
+    if ref_segments is None:
+        rnz = np.flatnonzero(s_lin < _NEVER)
+        rs = s_lin[rnz]
+        rmag = mags[rnz].astype(np.uint64)
+
+    if lis_segments is not None:
+        lis_all = lis_segments
+    else:
+        if iset_max is None:
+            iset_max = _iset_maxes(tree, pmsb.reshape(ny, nx))
+        iset_s = np.where(
+            iset_max > 0, num_bp - iset_max, _NEVER
+        ).astype(np.int32)
+        # LIS bits: the set walk (quad partitions + I-set) as a
+        # lexicographic sort (codec/speck_sorted.py) — no recursion in the
+        # 2D encoder either.
+        from .speck_sorted import lis_segments_sorted_2d
+
+        lis_all = lis_segments_sorted_2d(
+            tree, node_s, s_lin, signs, num_bp, iset_s
+        )
+
+    segments: List[np.ndarray] = []
+    total = 0
+    stop = False
+    for p in range(num_bp):
+        if lip_segments is not None:
+            lip_bits = lip_segments[p]
+        else:
+            lip_bits = _lip_segment(ce, cs, csign, p)
+        lis_bits = lis_all[p]
+
+        segments.append(lip_bits)
+        segments.append(lis_bits)
+        total += lip_bits.size + lis_bits.size
+        if budget is not None and total >= budget:
+            stop = True
+        if not stop:
+            if ref_segments is not None:
+                rbits = ref_segments[p]
+            else:
+                rm = rs < p
+                rbits = (
+                    (rmag[rm] >> np.uint64(num_bp - 1 - p)) & np.uint64(1)
+                ).astype(np.uint8)
+            segments.append(rbits)
+            total += rbits.size
+            if budget is not None and total >= budget:
+                stop = True
+        if stop:
+            break
+
+    allbits = np.concatenate(segments) if segments else np.empty(0, np.uint8)
+    return _pack_stream(allbits, total, num_bp, budget)

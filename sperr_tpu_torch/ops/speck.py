@@ -1,9 +1,13 @@
-"""Device SPECK schedule for 3D chunks that are not power-of-two cubes (K15).
+"""Device SPECK schedule for 3D chunks that are not power-of-two cubes and
+for 2D fields (K15, K14), and the event form of the emission (K14).
 
-PyTorch port of the table and pyramid half of sperr_tpu/ops/speck_jax.py:
-``TreeIndex`` / ``tree_index``, ``node_max`` and ``pixel_schedule`` (the
-child-table form, any dims), and ``PyramidIndex`` / ``pyramid_index`` and
-``pixel_schedule_pyramid`` (the max-pool form, dyadic dims).  Both give, as
+PyTorch port of the table, pyramid and event parts of
+sperr_tpu/ops/speck_jax.py: ``TreeIndex`` / ``tree_index``, ``node_max``
+and ``pixel_schedule`` (the child-table form, any 3D dims and 2D dims
+through the quad/I-set tree), ``PyramidIndex`` / ``pyramid_index`` and
+``pixel_schedule_pyramid`` (the max-pool form, dyadic dims), and the event
+helpers of the 2D set walk (ops/speck_lis2.py), ``_expand_fill`` and
+``events_to_segments``.  The schedules give, as
 ``speck_virtual.pixel_schedule_virtual`` does for power-of-two cubes:
 
   * s  = the pass at which each pixel becomes significant (NEVER for zero);
@@ -26,7 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..codec.speck_wave import build_tree
+from ..codec.speck_wave import build_tree, build_tree2
 from . import pyramid as pm
 from .speck_virtual import msbp1_device
 
@@ -58,7 +62,8 @@ class TreeIndex:
 
     def __init__(self, dims, device):
         dev = torch.device(device)
-        tree = build_tree(tuple(int(d) for d in dims))
+        key = tuple(int(d) for d in dims)
+        tree = build_tree2(key) if len(key) == 2 else build_tree(key)
         self.dims = tree.dims
         self.device = dev
         self.n = tree.n
@@ -212,6 +217,135 @@ def pixel_schedule_pyramid(mags: torch.Tensor, pi: PyramidIndex, num_bp):
     return s, e, nm
 
 
+# ---------------------------------------------------------------------------
+# Event form (the 2D set walk, ops/speck_lis2.py)
+# ---------------------------------------------------------------------------
+def _expand_fill(ln: torch.Tensor, words, ev_cap: int, widths=None):
+    """Interval expansion by forward fill: item k (in order) contributes
+    ln[k] consecutive events, and each event receives the item's payload
+    ``words`` (int32 [T] each) and its offset within the item's block.
+
+    Returns (filled words, int32 [ev_cap] each; rel int32 [ev_cap], the
+    event's index within its block; ev_ok, the events below the total;
+    ev_total int32).  With ``widths`` (each word's bit width, which its
+    values must fit) the fill is a few cummax passes: each fills (block
+    start << pb | a pb-bit chunk of the payload), and block starts strictly
+    increase over the items that emit, so the running maximum selects the
+    latest start at or before an event and carries its chunk.  Without
+    ``widths``, or when ev_cap leaves no payload bits, the reference's
+    associative scan runs in its direct form: each event takes the row of
+    the last item that starts at or before it (zeros before the first)."""
+    dev = ln.device
+    ln = ln.to(_I32)
+    off = torch.cumsum(ln, dim=0, dtype=_I32) - ln
+    ev_total = ln.sum(dtype=_I32)
+    # items that emit nothing, and starts past the cap, land in the slot
+    # ev_cap, which is dropped (no two emitting items share a start)
+    slot = torch.where(ln > 0, torch.clamp(off, max=ev_cap), ev_cap).long()
+    j = torch.arange(ev_cap, dtype=_I32, device=dev)
+    ev_ok = j < ev_total
+
+    pb = 30 - max(1, (ev_cap - 1).bit_length()) if widths is not None else 0
+    if pb >= 1:
+        # payload words chopped into pb-bit chunks, each filled behind the
+        # (monotone) block-start field
+        chunk_src = []  # (word index, low bit, take)
+        for wi, wd in enumerate(widths):
+            for lo in range(0, int(wd), pb):
+                chunk_src.append((wi, lo, min(pb, int(wd) - lo)))
+        fills = []
+        for wi, lo, take in chunk_src:
+            buf = torch.full((ev_cap + 1,), -1, dtype=_I32, device=dev)
+            buf[slot] = (off << pb) | ((words[wi] >> lo) & ((1 << take) - 1))
+            fills.append(torch.cummax(buf[:ev_cap], dim=0).values)
+        rel = j - (fills[0] >> pb)
+        filled = [torch.zeros(ev_cap, dtype=_I32, device=dev) for _ in words]
+        for (wi, lo, take), f in zip(chunk_src, fills):
+            filled[wi] = filled[wi] | ((f & ((1 << take) - 1)) << lo)
+        return filled, rel, ev_ok, ev_total
+
+    rows = torch.stack([torch.ones_like(ln), off] + [w.to(_I32) for w in words], dim=1)
+    buf = torch.zeros((ev_cap + 1, rows.shape[1]), dtype=_I32, device=dev)
+    buf[slot] = rows
+    buf = buf[:ev_cap]
+    last = torch.cummax(torch.where(buf[:, 0] > 0, j, -1), dim=0).values
+    filled = torch.where((last >= 0)[:, None], buf[torch.clamp(last, min=0).long()], 0)
+    rel = j - filled[:, 1]
+    return [filled[:, 2 + i] for i in range(len(words))], rel, ev_ok, ev_total
+
+
+def _packbits(bits01: torch.Tensor) -> torch.Tensor:
+    """A 0/1 int32 vector (length % 8 == 0) packed LSB-first into bytes."""
+    sh = torch.arange(8, dtype=_I32, device=bits01.device)
+    return (bits01.reshape(-1, 8) << sh).sum(dim=1, dtype=_I32).to(torch.uint8)
+
+
+def events_to_segments(p_key: torch.Tensor, sec_key, bits: torch.Tensor, num_bp_cap: int,
+                       cap_total: int):
+    """Emission events sorted by (pass, within-pass order) into the
+    byte-aligned concatenation of the per-pass segments.
+
+    p_key: int32 pass per event (num_bp_cap or more: invalid); sec_key:
+    int32 within-pass order, or None when the events are already in
+    within-pass order; bits: the events' values.  Returns (buf uint8
+    [cap_total], counts int32 [num_bp_cap], total_bytes int32).  Each pass
+    gets the (-count) mod 8 zero pad events that end its segment on a byte;
+    pads key just after their pass's events, the unused ones past the end,
+    so the sorted bits are the stream itself.  With no ``sec_key`` the sort
+    is over one fused int32 key (key, index, bit) where it fits, else a
+    stable sort of the key; with one, a stable sort of (key, sec_key) as one
+    int64 key.  The per-pass counts are a count into num_bp_cap + 1 bins
+    (invalid keys in the last)."""
+    dev = p_key.device
+    EV = p_key.shape[0]
+    P = num_bp_cap
+    NPAD = 7 * P
+    pvals = torch.arange(P, dtype=_I32, device=dev)
+    valid = (p_key >= 0) & (p_key < P)
+    counts = torch.zeros(P + 1, dtype=_I32, device=dev).scatter_add_(
+        0, torch.where(valid, p_key, P).long(), torch.ones(EV, dtype=_I32, device=dev)
+    )[:P]
+    bc = (counts + 7) // 8
+    total_bytes = bc.sum(dtype=_I32)
+    needed = bc * 8 - counts  # pad events per pass, in [0, 7]
+
+    # combined key: real events at 2p, kept pads at 2p + 1, the rest last
+    big = 2 * P + 2
+    key_real = torch.where(p_key < P, p_key * 2, big)
+    pad_p = pvals.repeat_interleave(7)
+    pad_slot = torch.arange(7, dtype=_I32, device=dev).repeat(P)
+    key_pad = torch.where(pad_slot < needed[pad_p.long()], pad_p * 2 + 1, big)
+    key_all = torch.cat([key_real.to(_I32), key_pad])
+    bit_all = torch.cat([bits.to(_I32), torch.zeros(NPAD, dtype=_I32, device=dev)])
+
+    TT = EV + NPAD
+    jbits = max(1, (TT - 1).bit_length())
+    if sec_key is None and big.bit_length() + jbits + 1 <= 31:
+        # unique keys: the index keeps real events in their order and puts
+        # the pads after them
+        fused = (key_all << (jbits + 1)) | (torch.arange(TT, dtype=_I32, device=dev) << 1) | bit_all
+        bit_sorted = torch.sort(fused).values & 1
+    elif sec_key is None:
+        bit_sorted = bit_all[torch.sort(key_all, stable=True).indices]
+    else:
+        sec_all = torch.cat([sec_key.to(_I32), torch.full((NPAD,), 0x7FFFFFFF, dtype=_I32, device=dev)])
+        k64 = (key_all.to(torch.int64) << 32) | (sec_all.to(torch.int64) + (1 << 31))
+        bit_sorted = bit_all[torch.sort(k64, stable=True).indices]
+
+    # every stream byte is a real event or a kept pad, so at most TT bits
+    # are packed; the bytes are zero-padded to the capacity
+    k_bits = min(cap_total * 8, ((TT + 7) // 8) * 8)
+    if k_bits > TT:
+        bit_sorted = torch.cat([bit_sorted, torch.zeros(k_bits - TT, dtype=_I32, device=dev)])
+    else:
+        bit_sorted = bit_sorted[:k_bits]
+    iota = torch.arange(k_bits, dtype=_I32, device=dev)
+    packed = _packbits(torch.where(iota < total_bytes * 8, bit_sorted, 0))
+    if cap_total > k_bits // 8:
+        packed = torch.cat([packed, torch.zeros(cap_total - k_bits // 8, dtype=torch.uint8, device=dev)])
+    return packed, counts, total_bytes
+
+
 __all__ = [
     "TreeIndex",
     "tree_index",
@@ -220,4 +354,5 @@ __all__ = [
     "PyramidIndex",
     "pyramid_index",
     "pixel_schedule_pyramid",
+    "events_to_segments",
 ]

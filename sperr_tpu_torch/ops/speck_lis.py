@@ -14,13 +14,14 @@ per-node tables from the partition tree, pointer-doubling anchors and a
 rank-doubling ladder for their string ranks).  Multi-key sorts are one int64
 key where the key widths fit, chained stable sorts otherwise.  Wherever full
 keys tie, the tied items emit no bits, so the stream does not depend on
-their order.  The event form (``_expand_fill``, ``events_to_segments``) is
-not on this path and is not ported.
+their order.  The event tail of the reference's 3D walk is not on this path
+and is not ported (only its tests reach it); the 2D walk (ops/speck_lis2.py)
+runs the event form on ``_walk_order``'s items.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -317,12 +318,14 @@ def _level_counts(lev: torch.Tensor, nlev: int) -> torch.Tensor:
 
 
 def _walk_order(kw_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass, sig_now, emitted,
-                ispx, row_sign):
-    """The walk's last step, shared by both indices: the payload words of
+                ispx, row_sign, extra=()):
+    """The walk's last step, shared by every index: the payload words of
     the list entries (one membership bit per pass in [from, s]) and of the
     child rows (a decision bit at the parent's partition pass when it is
     not skipped, then the sign when a pixel turns significant), sorted into
     walk order by (walk rank of the entry or of the row's anchor, path).
+    ``extra``: more items, as (walk ranks, path words, payload words), that
+    join the sort (the 2D walk's I-set items).
 
     Payload bits: 0 is_ent | 1-6 lo | 7-12 s | 13 sign | 14 sig_now |
     15 has_sign | 16 dec_emitted | 17 ok."""
@@ -343,11 +346,137 @@ def _walk_order(kw_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass, sig
         | ((ispxf & (sig_nowf == 1)).to(_I32) << 15)
         | (emitted.reshape(R).to(_I32) << 16)
     )
-    kw_all = torch.cat([kw_ent, w_top])
-    kpath = [torch.cat([e_w, r_w]) for e_w, r_w in zip(ent_pw, rp)]
-    pay = torch.cat([pay_ent, pay_row])
+    kw_all = torch.cat([kw_ent, w_top] + [kw for kw, _, _ in extra])
+    kpath = [torch.cat([e_w, r_w] + [pw[k] for _, pw, _ in extra])
+             for k, (e_w, r_w) in enumerate(zip(ent_pw, rp))]
+    pay = torch.cat([pay_ent, pay_row] + [p for _, _, p in extra])
     # walk rank and first path word in one key (both below 2^31)
     return pay[lexsort([_pack2(kw_all, kpath[0])] + kpath[1:])]
+
+
+class _ParentRows(NamedTuple):
+    """The child rows of the significant sets (the partitioned parents) of a
+    table-backed tree, compacted by K12 and padded to the node cap C with
+    invalid ids."""
+
+    n_sig: torch.Tensor     # int32 (): the significant sets
+    svalid: torch.Tensor    # bool [C]
+    q: torch.Tensor         # int32 [C]: parent ids, clamped below nn
+    slot: torch.Tensor      # int32 [MC]
+    ispx: torch.Tensor      # bool [C, MC]: a valid pixel row
+    isnd: torch.Tensor      # bool [C, MC]: a valid node row
+    vidx: torch.Tensor      # int32 [C, MC]: combined value index
+    rowpass: torch.Tensor   # int32 [C]: the parent's pass = the children's birth
+    row_sign: torch.Tensor  # bool [C, MC]
+    sig_now: torch.Tensor   # bool [C, MC]: the child turns significant with its parent
+    emitted: torch.Tensor   # bool [C, MC]: its decision bit is emitted
+
+
+def _parent_rows(node_s, s_lin, signs, li, C: int) -> _ParentRows:
+    """Compact the significant sets (K12: ascending ids with the sentinel
+    nn, as the reference's one-key sort gives them) and resolve their child
+    rows: the child's pass and the pixel sign from one gather of the
+    combined value table, and the sibling skip rule (a row's decision is
+    emitted unless it is the last slot and no earlier sibling turned
+    significant)."""
+    nn = li.nn
+    dev = node_s.device
+    never = torch.full((), _NEVER, dtype=_I32, device=dev)
+    sid, n_sig = pe.compact_flags_rows((node_s < _NEVER)[None, :], min(C, nn))
+    sid, n_sig = sid[0], n_sig[0]
+    if C > nn:  # caps may exceed the node count; pad with invalid ids
+        sid = torch.cat([sid, torch.full((C - nn,), nn, dtype=_I32, device=dev)])
+    svalid = sid < nn
+    q = torch.clamp(sid, max=nn - 1)
+    slot = torch.arange(li.max_ch, dtype=_I32, device=dev)
+    cnt, rvalid, ispx, isnd, vidx = li.children(q, svalid, slot)
+    rowpass = torch.where(svalid, node_s[q.long()], never)
+    # combined value table: one gather yields the child's significance pass
+    # (s for pixels, node_s for sets) and the pixel sign in bit 15
+    sval = torch.cat([s_lin | (signs.to(_I32) << 15), node_s])
+    v = sval[torch.where(rvalid, vidx, 0).long()]
+    row_s = torch.where(rvalid, v & _NEVER, never)
+    sig_now = (row_s == rowpass[:, None]) & rvalid
+    sig_i = sig_now.to(_I32)
+    prev_any = torch.cumsum(sig_i, dim=1, dtype=_I32) - sig_i
+    last = slot[None, :] == cnt[:, None] - 1
+    emitted = ((prev_any > 0) | ~last) & rvalid
+    return _ParentRows(n_sig, svalid, q, slot, ispx, isnd, vidx, rowpass, ((v >> 15) & 1) == 1,
+                       sig_now, emitted)
+
+
+def _chain_anchors(node_s, parent, hops: int):
+    """Each node's chain top J, its topmost ancestor reachable through
+    parents that partition at the node's own pass (the parent pointer,
+    doubled ``hops`` times); also whether each node has a parent, the
+    clamped parent ids and the parents' passes."""
+    has_par = parent >= 0
+    par_c = torch.clamp(parent, min=0).long()
+    ns_par = node_s[par_c]
+    ids = torch.arange(node_s.shape[0], dtype=_I32, device=node_s.device)
+    J = torch.where(has_par & (ns_par == node_s), par_c.to(_I32), ids)
+    for _ in range(hops):
+        J = J[J.long()]
+    return J, has_par, par_c, ns_par
+
+
+def _string_ranks(words, nxt, hops: int) -> torch.Tensor:
+    """Ranks [nn + 1] of the strings words[z], words[nxt[z]], ... (nxt = nn
+    ends a string; slot nn is the empty string, rank 0) by a rank-doubling
+    ladder of (rank, rank of next) sorts; equal strings get equal ranks."""
+    nn = words.shape[0]
+    dev = words.device
+    nxt = torch.cat([nxt.to(_I32), torch.full((1,), nn, dtype=_I32, device=dev)])
+    rank = torch.cat([words.to(_I32), torch.zeros(1, dtype=_I32, device=dev)])
+    for _ in range(hops):
+        nl = nxt.long()
+        ks, idx_s = torch.sort(_pack2(rank, rank[nl]))
+        diff = torch.cat([torch.zeros(1, dtype=_I32, device=dev), (ks[1:] != ks[:-1]).to(_I32)])
+        rank = torch.empty_like(rank).scatter_(0, idx_s, torch.cumsum(diff, dim=0, dtype=_I32))
+        nxt = nxt[nl]
+    return rank
+
+
+def _born_rows(rows: _ParentRows, anchor, n: int, nn: int):
+    """The node rows born at their parents' partitions, compacted by K12
+    into at most min(child slots, nn) entries: (ok, node id, birth pass,
+    anchor of the parent; invalid entries carry nn, BIG, nn), the born
+    count and the entry cap.  A count past the cap raises n_sig past any
+    node cap (host fallback) in the callers."""
+    C, MC = rows.isnd.shape
+    R = C * MC
+    CB = min(R, nn)
+    born_idx, n_born = pe.compact_flags_rows(rows.isnd.reshape(1, R), CB)
+    born_idx, n_born = born_idx[0], n_born[0]
+    bok = born_idx < R
+    bi = torch.clamp(born_idx, max=R - 1).long()
+    prow = bi // MC
+    c_bid = torch.where(bok, rows.vidx.reshape(R)[bi] - n, nn)
+    c_bn = torch.where(bok, rows.rowpass[prow], _BIG)
+    c_an = torch.where(bok, anchor[prow], nn)
+    return bok, c_bid, c_bn, c_an, n_born, CB
+
+
+def _walk_ranks(ent_ok, ent_id, ent_lev, O_buf, nlev: int):
+    """Walk order over the list entries (valid first, levels descending, O
+    ascending, then input order): each entry's walk rank, and the ranks by
+    node id in a [nn + 1] table whose slot nn collects the invalid entries
+    (anchors are node ids below nn, so it is never read)."""
+    nn = O_buf.shape[0] - 1
+    dev = ent_id.device
+    E = ent_id.shape[0]
+    wkey = (
+        ((~ent_ok).to(torch.int64) << 62)
+        | ((nlev - 1 - ent_lev).to(torch.int64) << 32)
+        | O_buf[torch.clamp(ent_id, max=nn - 1).long()].to(torch.int64)
+    )
+    worder = torch.sort(wkey, stable=True).indices
+    w_of_ent = torch.empty(E, dtype=_I32, device=dev).scatter_(
+        0, worder, torch.arange(E, dtype=_I32, device=dev)
+    )
+    w_buf = torch.full((nn + 1,), _BIG, dtype=_I32, device=dev)
+    w_buf[torch.where(ent_ok, ent_id, nn).long()] = w_of_ent
+    return w_of_ent, w_buf
 
 
 def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
@@ -366,33 +495,7 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
     C = node_cap
     nlev = li.nlev
     dev = node_s.device
-    never = torch.full((), _NEVER, dtype=_I32, device=dev)
-    big = torch.full((), _BIG, dtype=_I32, device=dev)
-    zero = torch.zeros((), dtype=_I32, device=dev)
-
-    # ---- significant sets (the partitioned parents), compacted ----------
-    sid, n_sig = pe.compact_flags_rows((node_s < _NEVER)[None, :], min(C, nn))
-    sid, n_sig = sid[0], n_sig[0]
-    if C > nn:  # caps may exceed the node count; pad with invalid ids
-        sid = torch.cat([sid, torch.full((C - nn,), nn, dtype=_I32, device=dev)])
-    svalid = sid < nn
-    q = torch.clamp(sid, max=nn - 1)
-    ql = q.long()
-    slot = torch.arange(MC, dtype=_I32, device=dev)
-    cnt, rvalid, ispx, isnd, vidx = li.children(q, svalid, slot)
-    rowpass = torch.where(svalid, node_s[ql], never)  # [C] = children's birth
-
-    # combined value table: one gather yields the child's significance pass
-    # (s for pixels, node_s for sets) and the pixel sign in bit 15
-    sval = torch.cat([s_lin | (signs.to(_I32) << 15), node_s])
-    v = sval[torch.where(rvalid, vidx, zero).long()]
-    row_s = torch.where(rvalid, v & _NEVER, never)
-    row_sign = ((v >> 15) & 1) == 1
-    sig_now = (row_s == rowpass[:, None]) & rvalid
-    sig_i = sig_now.to(_I32)
-    prev_any = torch.cumsum(sig_i, dim=1, dtype=_I32) - sig_i
-    last = slot[None, :] == cnt[:, None] - 1
-    emitted = ((prev_any > 0) | ~last) & rvalid
+    rows = _parent_rows(node_s, s_lin, signs, li, C)
 
     # ---- anchors and transitive anchor ranks ----------------------------
     # A node's chain anchor is its topmost ancestor reachable through nodes
@@ -402,44 +505,18 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
     #        = (1 | bn(z) | 31 - lev(next(z)))    for born nodes
     # with next(z) = J(parent(z)).  Ranks are only compared between anchors
     # of the same level (the O sort keys the anchor level first).
-    iota_nn = torch.arange(nn, dtype=_I32, device=dev)
-    par = li.parent
-    is_root = par < 0
-    par_c = torch.clamp(par, min=0).long()
-    ns_par = node_s[par_c]
-    J = torch.where(~is_root & (ns_par == node_s), par_c.to(_I32), iota_nn)
     hops = max(1, li.depth_max.bit_length())
-    for _ in range(hops):
-        J = J[J.long()]
-    anchor = torch.where(svalid, J[ql], q)
-
-    sentinel = torch.full((1,), nn, dtype=_I32, device=dev)
-    nxt = torch.cat([torch.where(is_root, nn, J[par_c]), sentinel])
-    lev_nxt = li.level[torch.clamp(nxt[:nn], max=nn - 1).long()]
+    J, has_par, par_c, ns_par = _chain_anchors(node_s, li.parent, hops)
+    anchor = torch.where(rows.svalid, J[rows.q.long()], rows.q)
+    nxt = torch.where(has_par, J[par_c], nn)
+    lev_nxt = li.level[torch.clamp(nxt, max=nn - 1).long()]
     u = torch.where(
-        is_root, li.O0, (1 << 11) | (torch.clamp(ns_par, 0, 63) << 5) | (31 - lev_nxt)
+        has_par, (1 << 11) | (torch.clamp(ns_par, 0, 63) << 5) | (31 - lev_nxt), li.O0
     )
-    R_rank = torch.cat([u, torch.zeros(1, dtype=_I32, device=dev)])
-    for _ in range(hops):
-        nl = nxt.long()
-        ks, idx_s = torch.sort(_pack2(R_rank, R_rank[nl]))
-        diff = torch.cat([torch.zeros(1, dtype=_I32, device=dev), (ks[1:] != ks[:-1]).to(_I32)])
-        R_rank = torch.empty_like(R_rank).scatter_(0, idx_s, torch.cumsum(diff, dim=0, dtype=_I32))
-        nxt = nxt[nl]
+    R_rank = _string_ranks(u, nxt, hops)
 
     # ---- O: per-level insertion order of born nodes (roots pre-assigned)
-    # The born rows number at most min(all child slots, the node count); a
-    # count past that raises n_sig past any cap (host fallback).
-    R = C * MC
-    CB = min(R, nn)
-    born_idx, n_born = pe.compact_flags_rows(isnd.reshape(1, R), CB)
-    born_idx, n_born = born_idx[0], n_born[0]
-    bok = born_idx < R
-    bi = torch.clamp(born_idx, max=R - 1).long()
-    prow = bi // MC
-    c_bid = torch.where(bok, vidx.reshape(R)[bi] - li.n, nn)
-    c_bn = torch.where(bok, rowpass[prow], big)
-    c_an = torch.where(bok, anchor[prow], nn)
+    bok, c_bid, c_bn, c_an, n_born, CB = _born_rows(rows, anchor, li.n, nn)
     bidc = torch.clamp(c_bid, max=nn - 1)
     c_lev = li.levels_of(bidc)
     c_pw = li.paths_of(bidc)
@@ -447,7 +524,7 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
 
     # O within a level = rank by (level, birth pass, anchor level finer
     # first, transitive anchor rank, path), in one sort
-    k_lba = torch.where(bok, (c_lev << 11) | (torch.clamp(c_bn, 0, 63) << 5) | c_alev5, big)
+    k_lba = torch.where(bok, (c_lev << 11) | (torch.clamp(c_bn, 0, 63) << 5) | c_alev5, _BIG)
     counts_lev = _level_counts(torch.where(bok, c_lev, nlev), nlev)
     lstarts = torch.cumsum(counts_lev, dim=0, dtype=_I32) - counts_lev
     iota_cb = torch.arange(CB, dtype=_I32, device=dev)
@@ -457,42 +534,24 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
     lc = c_lev.long()
     o_val = li.off0[lc] + (rankpos - lstarts[lc])
     # every row that is not born writes the sentinel slot nn, which no read
-    # below reaches (entries are read at min(id, nn - 1))
+    # reaches (entries are read at min(id, nn - 1))
     O_buf = li.O0_full()
     O_buf[torch.where(bok, c_bid, nn).long()] = o_val
-    n_sig = torch.maximum(n_sig, torch.where(n_born > CB, big, zero))
+    n_sig = torch.maximum(rows.n_sig, torch.where(n_born > CB, _BIG, 0).to(_I32))
 
     # ---- w: walk order over the list entries (levels desc, O asc) -------
     nroots = li.nroots
-    E = CB + nroots
     ent_id = torch.cat([c_bid, li.root_ids])
     ent_ok = torch.cat([bok, torch.ones(nroots, dtype=torch.bool, device=dev)])
-    ent_idc = torch.clamp(ent_id, max=nn - 1).long()
-    ent_lev = torch.cat([c_lev, li.root_levels])
-    # one int64 key: valid first, then levels descending, then O ascending
-    wkey = (
-        ((~ent_ok).to(torch.int64) << 62)
-        | ((nlev - 1 - ent_lev).to(torch.int64) << 32)
-        | O_buf[ent_idc].to(torch.int64)
-    )
-    worder = torch.sort(wkey, stable=True).indices
-    w_of_ent = torch.empty(E, dtype=_I32, device=dev).scatter_(
-        0, worder, torch.arange(E, dtype=_I32, device=dev)
-    )
-    # entries that are not valid all write the sentinel slot nn; anchors
-    # are node ids below nn, so it is never read
-    w_buf = torch.full((nn + 1,), _BIG, dtype=_I32, device=dev)
-    w_buf[torch.where(ent_ok, ent_id, nn).long()] = w_of_ent
-
+    w_of_ent, w_buf = _walk_ranks(ent_ok, ent_id, torch.cat([c_lev, li.root_levels]), O_buf, nlev)
     ent_from = torch.cat([c_bn + 1, li.root_from])
-    ent_s = node_s[ent_idc]
+    ent_s = node_s[torch.clamp(ent_id, max=nn - 1).long()]
     rz = torch.zeros(nroots, dtype=_I32, device=dev)
     ent_pw = [torch.cat([w, rz]) for w in c_pw]  # roots have empty paths
     w_top = _bcast8(w_buf[anchor.long()], MC)
-    rp = li.child_paths(_bcast8(q, MC), slot.repeat(C))
-    pay_s = _walk_order(w_of_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass,
-                        sig_now, emitted, ispx, row_sign)
-    return pay_s, n_sig
+    rp = li.child_paths(_bcast8(rows.q, MC), rows.slot.repeat(C))
+    return _walk_order(w_of_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rows.rowpass,
+                       rows.sig_now, rows.emitted, rows.ispx, rows.row_sign), n_sig
 
 
 def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
@@ -500,12 +559,12 @@ def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
     """The set walk on the device, in its items form: (walk-ordered payload
     words, n_sig).  ``li`` is a ``VirtualLisIndex`` (``vtab``: its combined
     child value table, if the caller made one) or a ``LisIndex``.  Only
-    ``return_events="items"`` is ported: the event form is ROADMAP queue
-    1, entry 12b."""
+    ``return_events="items"`` is ported: the 3D event form serves only the
+    reference's tests (ROADMAP queue 1, entry 15)."""
     if return_events != "items":
         raise NotImplementedError(
-            "only the items form of the walk is ported; the event form is "
-            "ROADMAP queue 1, entry 12b"
+            "only the items form of the 3D walk is ported; its event form is "
+            "ROADMAP queue 1, entry 15"
         )
     if getattr(li, "uniform_children", False):
         return _lis_items_virtual(node_s, s_lin, signs, num_bp, li, node_cap, vtab=vtab)

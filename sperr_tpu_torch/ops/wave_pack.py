@@ -94,6 +94,61 @@ def _emit_words_pair(masks_fn, P: int):
     return vw, bw
 
 
+def _compact_exposed(mags, sgn, s, e, num_bp, wexp_cap: int):
+    """The exposed pixels (e < num_bp), the only ones that emit LIP or
+    refinement bits, compacted by K12: their indices in ascending (emission)
+    order with the sentinel n, as the reference's one-key sort over unique
+    keys gives them, their count, the overflow flag, and their (s, e, sign,
+    magnitude) gathered from those indices and padded to 256 cells (every
+    part's word count must be a multiple of masked_pack's piece_words; the
+    refinement part is npad / 32 words)."""
+    n = mags.shape[0]
+    dev = mags.device
+    idx, cnt = pe.compact_flags_rows((e < num_bp)[None, :], wexp_cap)
+    key_s, n_exp = idx[0], cnt[0]
+    kc = torch.clamp(key_s, max=n - 1).long()
+    npad = -(-wexp_cap // 256) * 256
+    okm = torch.arange(npad, dtype=_I32, device=dev) < n_exp
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    never = torch.full((), _NEVER, dtype=_I32, device=dev)
+    s_p = torch.where(okm, _pad_cols(torch.clamp(s, 0, 127)[kc], npad, 0), never)
+    e_p = torch.where(okm, _pad_cols(torch.clamp(e, 0, 127)[kc], npad, 0), never)
+    g_i = torch.where(okm, _pad_cols(sgn[kc], npad, 0), zero)
+    m_p = torch.where(okm, _pad_cols(mags[kc], npad, 0), zero)
+    return key_s, n_exp, n_exp > wexp_cap, s_p, e_p, g_i, m_p
+
+
+def _full_width(mags, sgn, s, e):
+    """Every pixel's (s, e, sign, magnitude), padded to 256 cells."""
+    npad = -(-mags.shape[0] // 256) * 256
+    return (_pad_cols(s, npad, _NEVER), _pad_cols(e, npad, _NEVER), _pad_cols(sgn, npad, 0),
+            _pad_cols(mags, npad, 0))
+
+
+def _pixel_masks(s_p, e_p, g_i, m_p, num_bp):
+    """The LIP and refinement mask functions of the pixel items: LIP
+    (decision, sign) cell lanes, a membership bit per pass in (e, s] and
+    the sign at s; refinement, bit p of the mask is magnitude bit
+    (num_bp-1-p), a bit reversal of m shifted to the ladder."""
+    zero = torch.zeros((), dtype=_I32, device=s_p.device)
+    ones = torch.full((), pe.ALL_ONES, dtype=_I32, device=s_p.device)
+    lip_hi = torch.minimum(s_p, num_bp - 1)
+
+    def lip_masks(base):
+        bit_s = pe.bit_at32(s_p, base)
+        mvA = pe.ones_span32(e_p + 1, lip_hi, base)
+        mvB = torch.where(e_p < s_p, bit_s, zero)
+        mbB = torch.where(g_i == 1, ones, zero)
+        return mvA, bit_s, mvB, mbB
+
+    ref_bits = pe._safe_rsh(pe.bitrev32(m_p), (32 - num_bp).to(_I32))
+
+    def ref_masks(base):
+        return pe.ones_span32(s_p + 1, num_bp - 1, base), pe._safe_rsh(ref_bits, base)
+
+    return lip_masks, ref_masks
+
+
 def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
                  node_cap: int, evb_cap: int, out_cap_bytes: int,
                  wexp_cap: int = 0) -> WaveEmit:
@@ -213,49 +268,11 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
         exp_idx = key_s[:wexp_cap]
         exp_ll = torch.where(okm, torch.where(((pvp >> 7) & 1) == 1, m_p, -m_p), zero)[:wexp_cap]
     elif compact:
-        # exposure is per pixel (e < num_bp): K12 gives the exposed pixels'
-        # indices in ascending (emission) order with the sentinel n, and
-        # their count, as the reference's one-key sort over unique keys
-        # does; their values are gathered from those indices
-        idx, cnt = pe.compact_flags_rows((e < num_bp)[None, :], wexp_cap)
-        key_s = idx[0]
-        n_exp = cnt[0]
-        exp_over = n_exp > wexp_cap
-        kc = torch.clamp(key_s, max=n - 1).long()
-        # 256-cell padding: every part's word count must be a multiple of
-        # masked_pack's piece_words (the refinement part is npad/32 words)
-        npad = -(-wexp_cap // 256) * 256
-        okm = torch.arange(npad, dtype=_I32, device=dev) < n_exp
-        s_p = torch.where(okm, _pad_cols(torch.clamp(s, 0, 127)[kc], npad, 0), never)
-        e_p = torch.where(okm, _pad_cols(torch.clamp(e, 0, 127)[kc], npad, 0), never)
-        g_i = torch.where(okm, _pad_cols(sgn[kc], npad, 0), zero)
-        m_p = torch.where(okm, _pad_cols(mags[kc], npad, 0), zero)
-        exp_idx = key_s
+        exp_idx, n_exp, exp_over, s_p, e_p, g_i, m_p = _compact_exposed(mags, sgn, s, e, num_bp, wexp_cap)
         exp_ll = torch.where(g_i == 1, m_p, -m_p)[:wexp_cap]
     else:
-        npad = -(-n // 256) * 256
-        s_p = _pad_cols(s, npad, _NEVER)
-        e_p = _pad_cols(e, npad, _NEVER)
-        g_i = _pad_cols(sgn, npad, 0)
-        m_p = _pad_cols(mags, npad, 0)
-
-    # --- LIP masks (decision, sign cell lanes over npad items) -----------
-    lip_hi = torch.minimum(s_p, num_bp - 1)
-
-    def lip_masks(base):
-        bit_s = pe.bit_at32(s_p, base)
-        mvA = pe.ones_span32(e_p + 1, lip_hi, base)
-        mvB = torch.where(e_p < s_p, bit_s, zero)
-        mbB = torch.where(g_i == 1, ones, zero)
-        return mvA, bit_s, mvB, mbB
-
-    # --- refinement masks: bit p of the mask is magnitude bit
-    # (num_bp-1-p), a bit reversal of m shifted to the ladder ------------
-    ref_bits = pe._safe_rsh(pe.bitrev32(m_p), (32 - num_bp).to(_I32))
-
-    def ref_masks(base):
-        mv = pe.ones_span32(s_p + 1, num_bp - 1, base)
-        return mv, pe._safe_rsh(ref_bits, base)
+        s_p, e_p, g_i, m_p = _full_width(mags, sgn, s, e)
+    lip_masks, ref_masks = _pixel_masks(s_p, e_p, g_i, m_p, num_bp)
 
     parts = [
         _emit_words_pair(lip_masks, P),
@@ -270,4 +287,32 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     )
 
 
-__all__ = ["wave_emit_3d", "WaveEmit"]
+def wave_emit_2d_pixels(mags, signs, s, e, num_bp, px_bp_cap: int, evb_cap: int,
+                        out_cap_bytes: int, wexp_cap: int = 0):
+    """LIP and refinement emission of one 2D field, prefix-pack form (K14's
+    pixel half).  A pixel's bits do not depend on the set geometry (a
+    membership bit per pass in (e, s], its sign at s, magnitude bits below
+    s), so this is the LIP and refinement part of ``wave_emit_3d``: per-item
+    pass masks through K10, packed by K11.  ``wexp_cap`` > 0 (and < n)
+    compacts the exposed pixels first (K12); exposure overflow sets the
+    overflow flag.
+
+    Returns (seg uint8 [out_cap_bytes], counts int32 [2 * px_bp_cap], the
+    LIP rows then the refinement rows, total_bytes, overflow)."""
+    n = mags.shape[0]
+    P = px_bp_cap
+    dev = mags.device
+    mags = mags.to(_I32)
+    sgn = signs.to(_I32)
+    exp_over = torch.zeros((), dtype=torch.bool, device=dev)
+    if wexp_cap and wexp_cap < n:
+        _, _, exp_over, s_p, e_p, g_i, m_p = _compact_exposed(mags, sgn, s, e, num_bp, wexp_cap)
+    else:
+        s_p, e_p, g_i, m_p = _full_width(mags, sgn, s, e)
+    lip_masks, ref_masks = _pixel_masks(s_p, e_p, g_i, m_p, num_bp)
+    parts = [_emit_words_pair(lip_masks, P), _emit_words(ref_masks, P)]
+    res = pe.masked_pack(parts, evb_cap, out_cap_bytes)
+    return pe.words_to_bytes(res.out_words), res.counts, res.total_bytes, res.overflow | exp_over
+
+
+__all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "WaveEmit"]

@@ -434,8 +434,8 @@ class TorchCompressor3D:
     """Chunked 3D compressor: dense stages on ``device``, SPECK on the host
     (``entropy="host"``) or on the device (``entropy="wave"``).
 
-    ``device`` is required ("cuda", "cuda:N" or "cpu"); "cuda" without a GPU
-    raises.  ``pwe_strict`` selects how the PWE bound is certified, as in
+    ``device``: "cuda" (the default), "cuda:N" or "cpu"; "cuda" without a
+    GPU raises.  ``pwe_strict`` selects how the PWE bound is certified, as in
     ``TpuCompressor3D``: True (dual: exact f64 and this port's f32 decoder),
     "f64" (f64 decoders only), "device" (margin scan; the host-entropy path
     certifies on the host, the wave path scans on the device at
@@ -462,7 +462,7 @@ class TorchCompressor3D:
         vol_dims: Tuple[int, int, int],
         chunk_dims: Tuple[int, int, int] = (256, 256, 256),
         *,
-        device,
+        device="cuda",
         num_threads: Optional[int] = None,
         pwe_strict=True,
         entropy: str = "host",
@@ -961,7 +961,7 @@ class _HostParse:
 
 class TorchDecompressor3D:
     """Chunked 3D decompressor: SPECK parsed on the host, reconstruction on
-    ``device`` ("cuda", "cuda:N" or "cpu"; required).
+    ``device`` ("cuda", the default, "cuda:N" or "cpu").
 
     ``hybrid``: how the chunks' SPECK streams are consumed.
       None (auto): on a CUDA device, the hybrid split of sperr_tpu's
@@ -979,7 +979,7 @@ class TorchDecompressor3D:
     ("hybrid off", "num_bp", "evw_cap"), and ``last_h2d_bytes`` the bytes
     copied to the device."""
 
-    def __init__(self, *, device, num_threads: Optional[int] = None,
+    def __init__(self, *, device="cuda", num_threads: Optional[int] = None,
                  hybrid: Optional[bool] = None):
         self.device = _resolve_device(device)
         self.engine = default_engine()

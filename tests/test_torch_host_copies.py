@@ -130,6 +130,55 @@ def test_partition_tree_and_sorted_keys_copy(dims):
     assert t_wave._initial_sets(*dims) == j_wave._initial_sets(*dims)
 
 
+# 2D (nx, ny): square, odd and wide fields, and one too small for a transform
+@pytest.mark.parametrize("dims", [(32, 32), (33, 57), (128, 41), (7, 5)])
+def test_quad_tree_and_sorted_keys_copy(dims):
+    t_tree, j_tree = t_wave.build_tree2(dims), j_wave.build_tree2(dims)
+    assert t_wave.build_tree2(dims) is t_tree  # cached
+    _same_arrays(t_tree, j_tree, j_wave.Tree2.__slots__)
+    _same_arrays(t_sorted.sorted_tree(t_tree), j_sorted.sorted_tree(j_tree), j_sorted.SortedTree.__slots__)
+    for s in ((0, 0, 7, 5), (3, 2, 1, 4), (5, 9, 2, 1)):
+        assert t_wave._quad_children(s) == j_wave._quad_children(s)
+    nx, ny = dims
+    pmsb = np.random.default_rng(nx * ny).integers(0, 20, size=(ny, nx)).astype(np.int16)
+    pmsb[: ny // 2, : nx // 2] = 0
+    np.testing.assert_array_equal(t_wave._iset_maxes(t_tree, pmsb), j_wave._iset_maxes(j_tree, pmsb))
+
+
+@pytest.mark.parametrize("dims,budget", [((33, 57), 0), ((64, 48), 0), ((64, 48), 2500), ((7, 5), 0)])
+def test_stitch_2d_and_sorted_walk_copy(dims, budget):
+    """The host walk (every segment computed from the schedule), the sorted
+    2D LIS walk, the LIP helper, and the pure concatenation of supplied
+    segments, against the originals."""
+    nx, ny = dims
+    n = nx * ny
+    mags, signs = _coeffs(n + budget, n, 12)
+    tree = j_wave.build_tree2(dims)
+    pmsb = j_wave.msbp1(mags)
+    num_bp = int(pmsb.max())
+    node_max = j_wave.compute_node_max(tree, pmsb)
+    want = j_wave.stitch_2d(pmsb, signs, node_max, dims, num_bp, None, None, budget, mags=mags)
+    assert t_wave.stitch_2d(pmsb, signs, node_max, dims, num_bp, None, None, budget, mags=mags) == want
+    node_s = np.where(node_max > 0, num_bp - node_max, j_wave._NEVER).astype(np.int32)
+    s_lin = np.where(pmsb > 0, num_bp - pmsb, j_wave._NEVER).astype(np.int32)
+    iset_max = j_wave._iset_maxes(tree, pmsb.reshape(ny, nx))
+    iset_s = np.where(iset_max > 0, num_bp - iset_max, j_wave._NEVER).astype(np.int32)
+    lis_j = j_sorted.lis_segments_sorted_2d(tree, node_s, s_lin, signs, num_bp, iset_s)
+    lis_t = t_sorted.lis_segments_sorted_2d(t_wave.build_tree2(dims), node_s, s_lin, signs, num_bp, iset_s)
+    assert len(lis_t) == len(lis_j) == num_bp
+    for a, b in zip(lis_t, lis_j):
+        np.testing.assert_array_equal(a, b)
+    cand = np.flatnonzero(s_lin < j_wave._NEVER)
+    for p in range(num_bp):
+        np.testing.assert_array_equal(
+            t_wave._lip_segment(s_lin[cand] - 1, s_lin[cand], signs[cand], p),
+            j_wave._lip_segment(s_lin[cand] - 1, s_lin[cand], signs[cand], p),
+        )
+    lip, lis, ref = _segments(budget + 1, num_bp)
+    assert t_wave.stitch_2d(None, None, None, dims, num_bp, lip, ref, budget, lis_segments=lis) == \
+        j_wave.stitch_2d(None, None, None, dims, num_bp, lip, ref, budget, lis_segments=lis)
+
+
 @pytest.mark.parametrize("dims", [(23, 15, 13), (20, 20, 20), (12, 16, 16)])
 def test_pyramid_tables_copy(dims):
     tp, jp = t_pyr.Pyramid(dims), j_pyr.Pyramid(dims)

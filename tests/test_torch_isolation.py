@@ -60,7 +60,8 @@ def test_no_file_of_the_port_imports_sperr_tpu_or_jax(path):
 def test_the_scan_sees_the_whole_port():
     assert len(_PORT_FILES) >= 30
     for f in ("sperr_tpu_torch/parallel/batched.py", "sperr_tpu_torch/runtime/native/__init__.py",
-              "sperr_tpu_torch/codec/speck_wave.py", "sperr_tpu_torch/parallel/chunked3d.py"):
+              "sperr_tpu_torch/codec/speck_wave.py", "sperr_tpu_torch/parallel/chunked3d.py",
+              "sperr_tpu_torch/ops/speck_lis2.py", "sperr_tpu_torch/codec/speck_sorted.py"):
         assert f in _PORT_FILES
     # the scan finds imports inside functions too
     assert "sperr_tpu_torch.utils.dims" in set(_imported_names("chip_smoke.py"))
@@ -100,6 +101,9 @@ assert comp.last_wave_chunks == 8, comp.last_wave_tiers
 rng = np.random.default_rng(1)
 fields = np.cumsum(np.cumsum(rng.normal(size=(2, 64, 64)), axis=1), axis=2).astype(np.float32)
 s2 = TorchCompressor2D((64, 64), device="cpu").compress_batch(fields, "pwe", tol)
+w2 = TorchCompressor2D((64, 64), device="cpu", entropy="wave")
+assert w2.compress_batch(fields, "pwe", tol) == s2, "2D wave and host streams differ"
+assert w2.last_wave_chunks == 2, w2.last_wave_tiers
 outs = TorchDecompressor2D((64, 64), device="cpu").decompress_batch(s2)
 for f, o in zip(fields, outs):
     assert float(np.abs(o.astype(np.float64) - f).max()) <= tol
@@ -156,7 +160,7 @@ def test_no_module_of_the_port_imports_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) >= 11 and 'sperr_tpu_torch.parallel.batched2d' in names, names\n"
-        "for m in ('packemit', 'speck_virtual', 'speck_lis', 'wave_pack', 'wave_unpack'):\n"
+        "for m in ('packemit', 'speck_virtual', 'speck_lis', 'speck_lis2', 'wave_pack', 'wave_unpack'):\n"
         "    assert 'sperr_tpu_torch.ops.' + m in names, names\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sperr_tpu'))\n"
         "print(len(names), bad)\n"
@@ -351,10 +355,13 @@ def test_forced_hybrid_needs_the_control_parse(monkeypatch):
         dec._hybrid_enabled()
 
 
-def test_device_is_required():
-    with pytest.raises(TypeError):
+def test_device_is_required(monkeypatch):
+    """The entry points run on the card unless the caller names the CPU:
+    without a GPU, a constructor called without ``device`` raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tb.TorchCompressor3D((32, 32, 32), (32, 32, 32))
-    with pytest.raises(TypeError):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tb.TorchDecompressor3D()
 
 
@@ -427,12 +434,13 @@ def test_2d_transforms_raise_off_cpu_and_cuda(fn):
         getattr(cdf97, fn)(x)
 
 
-def test_2d_codec_requires_a_device():
+def test_2d_codec_requires_a_device(monkeypatch):
     from sperr_tpu_torch.parallel import batched2d as tb2
 
-    with pytest.raises(TypeError):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tb2.TorchCompressor2D((32, 32))
-    with pytest.raises(TypeError):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tb2.TorchDecompressor2D((32, 32))
     with pytest.raises(ValueError, match="unsupported device"):
         tb2.TorchDecompressor2D((32, 32), device="meta")

@@ -253,10 +253,10 @@ def test_3d_multi_res_refuses_device_blocks_and_only():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb2.TorchCompressor2D((NX, NY), device="cpu", entropy="wave")
-    with pytest.raises(NotImplementedError):
-        tb2.TorchCompressor2D.from_jax(jb2.TpuCompressor2D((NX, NY), entropy="wave"), "cpu")
+    with pytest.raises(ValueError, match="entropy"):
+        tb2.TorchCompressor2D((NX, NY), device="cpu", entropy="events")
+    with pytest.raises(ValueError, match="pwe_strict"):
+        tb2.TorchCompressor2D((NX, NY), device="cpu", pwe_strict="device")
     with pytest.raises(NotImplementedError):
         tb2.TorchCompressor2D.from_jax(jb2.TpuCompressor2D((NX, NY), mesh=jb.make_chunk_mesh()), "cpu")
     with pytest.raises(ValueError, match="mode"):
