@@ -57,15 +57,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
      timed on both routes; one field's device program (device-busy and
      host-issued time, host waits, its K10-K12 calls bit for bit); phase 8's
      field at PWE, PSNR and rate and a noisy field that climbs the tier
-     ladder, each wave stream equal to its host one.
+     ladder, each wave stream equal to its host one;
+ 11. the command-line tools (--exec cuda), as new processes: sperr3d on
+     phase 4's volume (container and decode equal to phase 4's),
+     sperr3d_trunc, sperr2d on field 0 of phase 7 (stream equal to the
+     in-process compress); in process, with their kernel launches, the same
+     3D and 2D calls, and sperr2d on phase 8's field with its
+     multi-resolution files; then each function of
+     sperr_tpu_torch.runtime.device_bench once (every stage must read more
+     than 0, the hybrid route must be timed, every tier must fit).
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time,
 bound and library time; the last line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
-result line.  Without a CUDA
-device, or without the repository beside it, the script prints no result and
-exits non-zero.
+result line.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
+Without a CUDA device, or without the repository beside it, the script
+prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -90,74 +99,29 @@ def _smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-_SLEEP_CYCLES = 100_000_000
-
-
 def _time_ms(fn, reps: int, host: bool = False) -> float:
-    """Milliseconds per call of fn on the card, by CUDA events around reps
-    calls after a warm-up.  By default the calls queue up behind a sleep
-    kernel, so the events see the device run them back to back and not the
-    host's time to issue them: when the device has left a sleep of about 50
-    ms before the host has issued every call, the calls are timed again
-    behind a sleep twice the host's issue time.  A function that
-    synchronizes (the plain versions' loops, K16) cannot hide behind it: its
-    time stays the host-issued one.  host=True times the calls as the host
-    issues them, as a caller does."""
-    import torch
+    """Milliseconds per call of fn on the card: the repo's one timer,
+    sperr_tpu_torch.runtime.device_bench.time_ms (CUDA events, by default
+    with the calls queued behind a sleep kernel; host=True as the host
+    issues them)."""
+    from sperr_tpu_torch.runtime.device_bench import time_ms
 
-    fn()
-    torch.cuda.synchronize()
-    cycles = _SLEEP_CYCLES
-    for attempt in range(2):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if not host:
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
-            torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        issue_ms = (time.perf_counter() - t0) * 1e3
-        covered = host or not start.query()
-        torch.cuda.synchronize()
-        if covered or attempt:
-            return start.elapsed_time(end) / reps
-        # cycles per ms of this sleep, from its own events
-        cycles = int(2 * issue_ms * cycles / max(mark.elapsed_time(start), 1e-3)) + 1
+    return time_ms(fn, reps, host)
 
 
 def _busy_ms(fn, reps: int):
     """Device-busy milliseconds per call of fn: the summed device time of its
     kernels and copies in a torch.profiler trace of reps calls after a
-    warm-up (the host's gaps, and its waits where fn synchronizes, left
-    out); the number of calls in one run of fn that made the host wait for
-    the device (torch's sync debug mode); and {kernel name: ms per call}.
-    None for the time if the trace holds no device time."""
-    import warnings
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    warm-up (device_bench.busy_ms; the host's gaps, and its waits where fn
+    synchronizes, left out); the number of calls in one run of fn that made
+    the host wait for the device (torch's sync debug mode); and {kernel
+    name: ms per call}."""
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits
 
     fn()
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_name = {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-                if e.self_device_time_total > 0}
-    busy = sum(per_name.values())
-    return (busy if busy > 0 else None), len(caught), per_name
+    waits = host_waits(fn)
+    busy, per_name = busy_ms(fn, reps)
+    return busy, waits, per_name
 
 
 def _launch_ms(fn, name: str, n: int, reps: int):
@@ -473,35 +437,6 @@ def _k11_synthetic(packemit, dev) -> None:
               f"{bool(res.overflow)}: equal to the plain version bit for bit")
 
 
-def _k13_args(engine, streams, dims, dev):
-    """K13's arguments for the SPECK streams of chunks of dims (nx, ny, nz),
-    as the hybrid decode builds them: each stream's control-only parse
-    (spass, ref_off, ref_avail, num_bp) and its body as words, padded to the
-    longest, on dev; and p_cap."""
-    import numpy as np
-    import torch
-
-    from sperr_tpu_torch.codec import speck_int_np as sp
-
-    B = len(streams)
-    n = dims[0] * dims[1] * dims[2]
-    spass = np.empty((B, n), np.uint8)
-    rof = np.zeros((B, 32), np.int32)
-    rav = np.zeros((B, 32), np.int32)
-    nbps = np.zeros(B, np.int32)
-    bodies = [bytes(s[9:]) for s in streams]
-    words = np.zeros((B, max(8, max((len(b) + 11) // 4 for b in bodies))), np.uint32)
-    for j, (s, body) in enumerate(zip(streams, bodies)):
-        sj, _, roff, ravail, nbp, _ = engine.decode3d_control(
-            s, dims, sp.uint_width_for_num_bitplanes(s[0]))
-        spass[j], rof[j, :nbp], rav[j, :nbp], nbps[j] = sj, roff, ravail, nbp
-        w = np.frombuffer(body + b"\0" * ((-len(body)) % 4 + 8), dtype="<u4")
-        words[j, : w.size] = w
-    p_cap = 16 if nbps.max() <= 16 else 32
-    args = [torch.from_numpy(a).to(dev) for a in (spass, words.view(np.int32), rof, rav, nbps)]
-    return args, p_cap
-
-
 def _k13_bound_ms(args) -> float:
     """K13's bound on its inputs: spass and the body words its refinement
     bits lie in (each read once), the int32 magnitudes and the flags
@@ -698,7 +633,7 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
             busy, syncs, per_name = _busy_ms(fn, 3)
             bound = f", bound {_bound_ms(k15_bytes):.4f} ms ({k15_bytes} bytes)" if fn is k15 else ""
             print(f"[table] {s3} tier {t} {label}: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues "
-                  f"it, device busy {'not measured' if busy is None else f'{busy:.4f} ms'}, {syncs} host "
+                  f"it, device busy {busy:.4f} ms, {syncs} host "
                   f"waits per call{bound}; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
         print(f"[table] {s3} tier {t}: caps {caps}, n_sig {int(em.n_sig)}, fits {bool(fits)}, "
               f"{T} walk items")
@@ -840,7 +775,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
           f"{stream} segment bytes; K10-K12 calls {ncalls}, equal to their plain versions bit for bit")
     print(f"[wave2d] field 0 device program: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues it, device "
-          f"busy {'not measured' if busy is None else f'{busy:.4f} ms'}, {syncs} host waits per call; bound "
+          f"busy {busy:.4f} ms, {syncs} host waits per call; bound "
           f"{bound:.4f} ms ({5 * n + stream} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
           f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
     del front, mags, signs, w, calls
@@ -877,6 +812,166 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _cli(tool: str, *args: str) -> str:
+    """Run ``python -m sperr_tpu_torch.cli.<tool> args`` from the checkout's
+    root; print its wall time and output; return its output."""
+    cmd = [sys.executable, "-m", f"sperr_tpu_torch.cli.{tool}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"{tool} {' '.join(args)} exited {proc.returncode}:\n{proc.stderr}")
+    print(f"[cli] {tool} {' '.join(a if '/' not in a else os.path.basename(a) for a in args)}: "
+          f"{wall:.3f} s wall (a new process: torch import, kernel and engine load)")
+    for line in proc.stdout.splitlines():
+        print(f"[cli]   {line}")
+    return proc.stdout
+
+
+def _launches_of(kernels, run, argv):
+    """The kernel launches of one in-process run(argv) of a tool, and its wall."""
+    import torch
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _check(run(argv) == 0, f"run({argv}) failed")
+    torch.cuda.synchronize()
+    return {k: v for k, v in kernels.launches.items() if v}, time.perf_counter() - t0
+
+
+def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4, field0,
+               stream7_0: bytes, f7, stream8_psnr: bytes, k4_ms, k1_ms) -> None:
+    """Phase 11: the command-line tools on the card, and the stage timer.
+
+    The 3D tool on phase 4's 512^3 volume (its container and decode must
+    equal phase 4's) and sperr3d_trunc on that container, each as a new
+    process, then once in process with the kernel launches counted; the 2D
+    tool on field 0 of phase 7 as a new process (its stream must equal the
+    in-process compress of that field), then in process with the launches
+    counted, and on phase 8's field with its multi-resolution files.  Then
+    each device_bench function once; every stage must read more than 0."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.cli import sperr2d, sperr3d
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
+    from sperr_tpu_torch.runtime import device_bench as db
+    from sperr_tpu_torch.stream import tools
+    from sperr_tpu_torch.utils.dims import coarsened_resolutions
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    path = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+    # -- the 3D tool, 512^3 PWE 1e-2 ----------------------------------------
+    comp_args = ["-c", vol_path, "--exec", "cuda", "--dims", "512", "512", "512", "--pwe", "1e-2"]
+    _cli("sperr3d", *comp_args, "--bitstream", path("v.sperr"), "--print_stats")
+    with open(path("v.sperr"), "rb") as f:
+        s3 = f.read()
+    _check(s3 == stream4, "the 3D tool's container differs from phase 4's")
+    print(f"[cli] 512^3 container of the tool: {len(s3)} bytes, equal to phase 4's byte for byte "
+          "(phase 4 calls TorchCompressor3D((512, 512, 512), (256, 256, 256), device='cuda'), "
+          "as the tool does)")
+    _cli("sperr3d", "-d", path("v.sperr"), "--exec", "cuda", "--decomp_f", path("v.f32"))
+    out = np.fromfile(path("v.f32"), dtype=np.float32).reshape(out4.shape)
+    _check(np.array_equal(out, out4), "the 3D tool's decode differs from phase 4's TorchDecompressor3D")
+    err = float(np.abs(out.astype(np.float64) - np.fromfile(vol_path, np.float32).reshape(out.shape)).max())
+    print(f"[cli] 512^3 decode of the tool: equal to phase 4's element for element, max|err| "
+          f"{err:.6e} (bound {tol})")
+    _check(err <= tol, f"the 3D tool's decode misses the bound: {err}")
+    _cli("sperr3d_trunc", path("v.sperr"), "--pct", "10", "--bitstream", path("t.sperr"),
+         "--compare_f", vol_path)
+    with open(path("t.sperr"), "rb") as f:
+        _check(f.read() == tools.progressive_truncate(stream4, 10), "sperr3d_trunc's stream")
+    lc, wc = _launches_of(kernels, sperr3d.run, comp_args + ["--bitstream", path("w.sperr")])
+    ld, wd = _launches_of(kernels, sperr3d.run, ["-d", path("w.sperr"), "--exec", "cuda",
+                                                 "--decomp_f", path("w.f32")])
+    print(f"[cli] in process, 3D compress run(): {wc:.3f} s, launches {lc}; decompress run(): "
+          f"{wd:.3f} s, launches {ld} -- {smi}")
+    for name in ("quantize", "cdf97_lift"):
+        _check(lc.get(name, 0) > 0, f"the 3D tool's compress did not launch {name}")
+    for name in ("reconstruct_mags", "cdf97_lift"):
+        _check(ld.get(name, 0) > 0, f"the 3D tool's decompress did not launch {name}")
+    for name in ("v.f32", "w.f32"):
+        os.remove(path(name))
+
+    # -- the 2D tool: field 0 of phase 7, phase 8's field ----------------------
+    field0.tofile(path("f0.f32"))
+    comp2 = ["-c", path("f0.f32"), "--exec", "cuda", "--dims", "1024", "1024", "--pwe", "1e-2"]
+    _cli("sperr2d", *comp2, "--bitstream", path("f0.sperr"), "--print_stats")
+    with open(path("f0.sperr"), "rb") as f:
+        s2 = f.read()
+    want = TorchCompressor2D((1024, 1024), device="cuda").compress(field0, "pwe", tol)
+    _check(s2[10:] == want, "the 2D tool's stream differs from TorchCompressor2D.compress of the field")
+    print(f"[cli] 1024^2 field 0: {len(s2)} bytes, equal behind its header to the in-process "
+          f"compress; equal to phase 7's batched stream of that field: {s2[10:] == stream7_0}")
+    l2c, w2c = _launches_of(kernels, sperr2d.run, comp2 + ["--bitstream", path("g0.sperr")])
+    with open(path("g0.sperr"), "rb") as f:
+        _check(f.read() == s2, "the 2D tool's stream differs between a new process and run()")
+    l2d, w2d = _launches_of(kernels, sperr2d.run, ["-d", path("f0.sperr"), "--exec", "cuda",
+                                                   "--decomp_f", path("f0.out")])
+    print(f"[cli] in process, 2D compress run(): {w2c:.3f} s, launches {l2c}; decompress run(): "
+          f"{w2d:.3f} s, launches {l2d} -- {smi}")
+    err2 = float(np.abs(np.fromfile(path("f0.out"), np.float32).astype(np.float64) - field0.ravel()).max())
+    print(f"[cli] 1024^2 decode of the tool (-d --exec cuda): max|err| {err2:.6e} (bound {tol})")
+    _check(err2 <= tol, f"the 2D tool's decode misses the bound: {err2}")
+    for name in ("quantize", "dwt2d_full", "idwt2d_full"):
+        _check(l2c.get(name, 0) > 0, f"the 2D tool's compress did not launch {name}")
+    _check(l2d.get("idwt2d_full", 0) > 0, "the 2D tool's decompress did not launch idwt2d_full")
+    ny7, nx7 = f7.shape
+    f7.tofile(path("f7.f32"))
+    _check(sperr2d.run(["-c", path("f7.f32"), "--exec", "cuda", "--dims", str(nx7), str(ny7),
+                        "--psnr", "80", "--bitstream", path("f7.sperr")]) == 0, "sperr2d -c at PSNR 80")
+    with open(path("f7.sperr"), "rb") as f:
+        s7 = f.read()
+    print(f"[cli] {ny7}x{nx7} PSNR 80, in process: {len(s7)} bytes, equal behind its header to "
+          f"phase 8's stream: {s7[10:] == stream8_psnr}")
+    _check(sperr2d.run(["-d", path("f7.sperr"), "--exec", "cuda", "--decomp_f", path("f7.out"),
+                        "--decomp_lowres_f", path("lr")]) == 0, "sperr2d -d --decomp_lowres_f")
+    dec7 = TorchDecompressor2D((nx7, ny7), device="cuda")
+    full = dec7.decompress(s7[10:], multi_res=True)
+    _check(np.array_equal(np.fromfile(path("f7.out"), np.float32).reshape(ny7, nx7), full),
+           "the 2D tool's full-resolution decode differs from TorchDecompressor2D's")
+    res = coarsened_resolutions((nx7, ny7, 1))
+    for h, r in zip(dec7.hierarchy[0], res):
+        got = np.fromfile(path(f"lr.{r[0]}x{r[1]}"), np.float32)
+        _check(np.array_equal(got, h.ravel()), f"lowres file {r[0]}x{r[1]} differs from the decoder's level")
+    print(f"[cli] {ny7}x{nx7} multi-resolution files of sperr2d -d, in process: "
+          + ", ".join(f"lr.{r[0]}x{r[1]}" for r in res) + ", each equal to TorchDecompressor2D's level")
+
+    # -- the stage timer ----------------------------------------------------------
+    t_bench = time.perf_counter()
+    results = {}
+    for name, kw in (("pipeline_stages", dict(n=256)),
+                     ("container_decode_stages", dict(n=256, chunks=8)),
+                     ("wave_entropy_breakdown", dict(n=256)),
+                     ("wave2d_stage", dict(nx=1024, ny=1024, batch=16)),
+                     ("wave_entropy_stage", dict(n=256, regime="smooth")),
+                     ("wave_entropy_stage", dict(n=256, regime="dense"))):
+        t0 = time.perf_counter()
+        r = getattr(db, name)(**kw)
+        print(f"[bench] {name}({', '.join(f'{k}={v}' for k, v in kw.items())}), "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(r)}")
+        results[name + kw.get("regime", "")] = r
+        stages = {k: v for k, v in r.items() if k.endswith("_s")}
+        stages.update({f"hybrid {k}": v for k, v in r.get("hybrid", {}).items() if k.endswith("_s")})
+        bad = {k: v for k, v in stages.items() if not v > 0}
+        _check(not bad, f"{name}: stages that read <= 0: {bad}")
+        _check(r["device"].startswith(torch.cuda.get_device_name(0)) and "power limit" in r["device"],
+               f"{name}: device {r['device']!r}")
+    _check("reason" not in results["container_decode_stages"]["hybrid"],
+           "the hybrid route was skipped on the 512^3 container")
+    for regime in ("smooth", "dense"):
+        _check(results["wave_entropy_stage" + regime]["fits"], f"wave_entropy_stage {regime}: no tier fits")
+    ps = results["pipeline_stages"]
+    for stage, phase3, kname in (("dwt3d", k4_ms, "K4"), ("quantize", k1_ms, "K1")):
+        ms = ps[stage + "_s"] * 1e3
+        print(f"[bench] pipeline_stages {stage} 256^3: {ms:.4f} ms ({ps['timed'][stage]}); phase 3's "
+              f"{kname} at (1, 256^3): {phase3:.4f} ms, ratio {ms / phase3:.3f} -- {smi}")
+    print(f"[cli] stage timer {time.perf_counter() - t_bench:.1f} s; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -893,6 +988,7 @@ def main() -> int:
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
     from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+    from sperr_tpu_torch.runtime import device_bench
     from sperr_tpu_torch.runtime.engine import default_engine
     from sperr_tpu_torch.stream import tools
     from sperr_tpu_torch.utils.dims import coarsened_resolutions, num_of_xforms
@@ -1111,7 +1207,7 @@ def main() -> int:
             busy, syncs, per_name = _busy_ms(emit, 3)
             emit_ms[label] = (busy, host_ms)
             print(f"[kernels] {label} _wave_emit_chunk: device busy "
-                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} (kernels and copies), "
+                  f"{busy:.4f} ms (kernels and copies), "
                   f"{host_ms:.4f} ms as the host issues it, {syncs} host waits for the device per "
                   f"call; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
         del chunk, front, em, fits, calls, cap_front
@@ -1163,10 +1259,10 @@ def main() -> int:
     full = torch.stack([torch.from_numpy(engine.decode(3, s, dims256, width0)[0].astype(np.int32))
                         for s in (s0, s_half)] + [torch.zeros(n, dtype=torch.int32)])
     evw = tb._evw_cap(n)
-    args3, p3 = _k13_args(engine, [s0, s_half, s_zero], dims256, dev)
+    args3, _, p3 = device_bench._control_inputs(engine, [s0, s_half, s_zero], dims256, dev)
     k13_err = _k13_check(wave_unpack, args3, p3, evw, "headline chunk 0, cut to half, all zero",
                          want=full, overflow=False)
-    args1, p1 = _k13_args(engine, [s0], dims256, dev)
+    args1, _, p1 = device_bench._control_inputs(engine, [s0], dims256, dev)
     k13_err = max(k13_err, _k13_check(wave_unpack, args1, p1, evw, "headline chunk 0", want=full[:1],
                                       overflow=False))
     _k13_check(wave_unpack, args1, p1, 1000, "headline chunk 0, evw_cap 1000", want=full[:1],
@@ -1195,7 +1291,7 @@ def main() -> int:
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
-        print("[kernels] --kernels-only: phases 4-10 skipped, no result line")
+        print("[kernels] --kernels-only: phases 4-11 skipped, no result line")
         return 0
 
     # -- 4. the 3D path: 512^3, 8 chunks of 256^3, PWE 1e-2 ----------------
@@ -1292,6 +1388,11 @@ def main() -> int:
           f"{k13['bound_ms']:.4f} ms (share {k13['bound_ms'] / k13['ms']:.3f}) -- {smi}")
     d2h_host = comp.last_d2h_bytes
     vol512 = vol
+    # phase 11 runs the command-line tools on this volume, container and decode
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    vol_path = os.path.join(tmp.name, "vol512.f32")
+    vol.tofile(vol_path)
+    stream4, out4 = stream2, out
     del out, host, out_full, k13_calls, k13_main, k13_args
 
     # -- 5. PSNR and rate modes, one 256^3 chunk ---------------------------
@@ -1480,7 +1581,12 @@ def main() -> int:
 
     # -- 10. the 2D device entropy path --------------------------------------
     _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
-    del fields, streams2, f7
+
+    # -- 11. the command-line tools and the stage timer ----------------------
+    _cli_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields[0], streams2[0], f7,
+               streams8["psnr"], l_ms, q_ms)
+    tmp.cleanup()
+    del fields, streams2, f7, out4
 
     _check("jax" not in sys.modules, "the port imported jax")
     t1 = bits["tier 1"]

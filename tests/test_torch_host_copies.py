@@ -322,3 +322,116 @@ def test_numpy_engine_copy_matches_original():
     assert TNumpyEngine().encode(3, mags, signs, dims, 16, 0) == s
     for a, b in zip(TNumpyEngine().decode(3, s, dims, 16), JNumpyEngine().decode(3, s, dims, 16)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The flat API, the tools' shared helpers, the numpy stats and host_scaling
+# ---------------------------------------------------------------------------
+def _capi_pair():
+    from sperr_tpu import capi as j_capi
+    from sperr_tpu_torch import capi as t_capi
+
+    return t_capi, j_capi
+
+
+@pytest.mark.parametrize("mode,quality", [(1, 2.0), (2, 70.0), (3, 1e-2)])
+def test_capi_2d_copy(mode, quality):
+    t_capi, j_capi = _capi_pair()
+    nx, ny = 40, 28
+    rng = np.random.default_rng(4)
+    y, x = np.mgrid[0:ny, 0:nx]
+    data = (np.sin(x * 0.2) * np.cos(y * 0.13) + 0.03 * rng.normal(size=(ny, nx))).astype(np.float32)
+    for header in (False, True):
+        s = t_capi.comp_2d(data.ravel(), nx, ny, mode, quality, out_inc_header=header)
+        assert s == j_capi.comp_2d(data.ravel(), nx, ny, mode, quality, out_inc_header=header)
+    assert t_capi.parse_header(s) == j_capi.parse_header(s) == (nx, ny, 1, True)
+    for as_float in (False, True):
+        a = t_capi.decomp_2d(s[10:], nx, ny, output_float=as_float)
+        b = j_capi.decomp_2d(s[10:], nx, ny, output_float=as_float)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode,quality", [(1, 2.0), (2, 60.0), (3, 1e-2)])
+def test_capi_3d_copy(mode, quality):
+    t_capi, j_capi = _capi_pair()
+    nx, ny, nz = 30, 20, 24
+    rng = np.random.default_rng(5)
+    vol = np.sin(np.arange(nx * ny * nz) * 0.01) + 0.1 * rng.normal(size=nx * ny * nz)
+    s = t_capi.comp_3d(vol, nx, ny, nz, 16, 16, 16, mode=mode, quality=quality)
+    assert s == j_capi.comp_3d(vol, nx, ny, nz, 16, 16, 16, mode=mode, quality=quality)
+    assert t_capi.parse_header(s) == j_capi.parse_header(s) == (nx, ny, nz, False)
+    assert t_capi.trunc_3d(s, 40) == j_capi.trunc_3d(s, 40)
+    for as_float in (False, True):
+        (a, da), (b, db) = t_capi.decomp_3d(s, output_float=as_float), j_capi.decomp_3d(s, output_float=as_float)
+        assert da == db and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode,quality", [("pwe", 1e-3), ("psnr", 60.0), ("rate", 1.5),
+                                          ("directq", 5e-3)])
+@pytest.mark.parametrize("precision", [64, 32])
+def test_sperr3d_compressor_copy(mode, quality, precision):
+    vol = j_testdata.smooth_field_3d(32, seed=3)
+    args = ((32, 32, 24), (16, 16, 16))
+    data = vol[:24]
+    s = t_chunked.Sperr3DCompressor(*args, precision=precision).compress(data, mode, quality)
+    assert s == j_chunked.Sperr3DCompressor(*args, precision=precision).compress(data, mode, quality)
+    a, da = t_chunked.Sperr3DDecompressor(precision=precision).decompress(s)
+    b, db = j_chunked.Sperr3DDecompressor(precision=precision).decompress(s)
+    assert da == db and a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+
+
+def test_cli_common_copy(tmp_path, capsys):
+    from sperr_tpu.cli import common as j_common
+    from sperr_tpu_torch.cli import common as t_common
+
+    rng = np.random.default_rng(6)
+    a = rng.normal(size=500).astype(np.float32)
+    b = a + rng.normal(scale=1e-3, size=500).astype(np.float32)
+    for mod, name in ((t_common, "t"), (j_common, "j")):
+        mod.write_array(str(tmp_path / f"{name}.f64"), a.reshape(20, 25), np.float64)
+    assert (tmp_path / "t.f64").read_bytes() == (tmp_path / "j.f64").read_bytes()
+    for ftype in (32, 64):
+        a.astype(np.float32 if ftype == 32 else np.float64).tofile(tmp_path / "x")
+        x, y = t_common.read_floats(str(tmp_path / "x"), ftype), j_common.read_floats(str(tmp_path / "x"), ftype)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    for pair in ((a, b), (a, a)):
+        assert t_common.calc_stats(*pair) == j_common.calc_stats(*pair)
+    printed = []
+    for mod in (t_common, j_common):
+        mod.print_stats(a, b, 321)
+        printed.append(capsys.readouterr().out)
+        with pytest.raises(SystemExit):
+            mod.die("no input")
+        printed.append(capsys.readouterr().err)
+    assert printed[:2] == printed[2:] and "PSNR" in printed[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_stats_copy(seed):
+    from sperr_tpu.utils import stats as j_stats
+    from sperr_tpu_torch.utils import stats as t_stats
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=3000)
+    b = a + rng.normal(scale=1e-3, size=3000)
+    for pair in ((a, b), (a, a), (a.astype(np.float32), b.astype(np.float32))):
+        assert t_stats.calc_stats(*pair) == j_stats.calc_stats(*pair)
+        assert t_stats.accuracy_gain(*pair, 777) == j_stats.accuracy_gain(*pair, 777)
+    assert t_stats.calc_mean_var(a) == j_stats.calc_mean_var(a)
+
+
+def test_host_scaling_copy():
+    from sperr_tpu.runtime import host_scaling as j_hs
+    from sperr_tpu_torch.runtime import host_scaling as t_hs
+
+    a = t_hs.parse_scaling_evidence(n=16, chunks=2)
+    b = j_hs.parse_scaling_evidence(n=16, chunks=2)
+    assert set(a) == set(b)
+    for k in ("n", "chunks", "host_cores", "extrapolation"):
+        assert a[k] == b[k]
+    assert len(a["per_chunk_parse_ms"]) == 2 and a["serial_sum_s"] > 0
+    assert a["gil_released"] in (True, False)

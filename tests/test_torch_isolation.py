@@ -61,7 +61,9 @@ def test_the_scan_sees_the_whole_port():
     assert len(_PORT_FILES) >= 30
     for f in ("sperr_tpu_torch/parallel/batched.py", "sperr_tpu_torch/runtime/native/__init__.py",
               "sperr_tpu_torch/codec/speck_wave.py", "sperr_tpu_torch/parallel/chunked3d.py",
-              "sperr_tpu_torch/ops/speck_lis2.py", "sperr_tpu_torch/codec/speck_sorted.py"):
+              "sperr_tpu_torch/ops/speck_lis2.py", "sperr_tpu_torch/codec/speck_sorted.py",
+              "sperr_tpu_torch/cli/sperr3d.py", "sperr_tpu_torch/capi.py",
+              "sperr_tpu_torch/runtime/device_bench.py", "sperr_tpu_torch/utils/stats.py"):
         assert f in _PORT_FILES
     # the scan finds imports inside functions too
     assert "sperr_tpu_torch.utils.dims" in set(_imported_names("chip_smoke.py"))
@@ -107,6 +109,15 @@ assert w2.last_wave_chunks == 2, w2.last_wave_tiers
 outs = TorchDecompressor2D((64, 64), device="cpu").decompress_batch(s2)
 for f, o in zip(fields, outs):
     assert float(np.abs(o.astype(np.float64) - f).max()) <= tol
+import os, tempfile
+from sperr_tpu_torch.cli import sperr3d
+with tempfile.TemporaryDirectory() as tmp:
+    inp, bs = os.path.join(tmp, "in.f32"), os.path.join(tmp, "v.sperr")
+    vol.tofile(inp)
+    assert sperr3d.run(["-c", inp, "--exec", "cpu", "--dims", "64", "64", "64", "--chunks", "32",
+                        "32", "32", "--pwe", str(tol), "--bitstream", bs]) == 0
+    with open(bs, "rb") as f:
+        assert f.read() == streams[0], "the tool's container differs from TorchCompressor3D's"
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("sperr_tpu", "jax", "jaxlib"))
 assert not bad, bad
 print("ok", len(streams[0]), sum(len(s) for s in s2))
