@@ -68,8 +68,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      than 0, the hybrid route must be timed, every tier must fit).
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
-kernel) and as the host issues the calls (``host_ms``), plain version's time,
-bound and library time; the last line is {"ok": true, "device": {...}}.
+kernel) and as the host issues the calls (``host_ms``), plain version's time
+and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
 Without a CUDA device, or without the repository beside it, the script
@@ -97,31 +97,6 @@ def _smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps: int, host: bool = False) -> float:
-    """Milliseconds per call of fn on the card: the repo's one timer,
-    sperr_tpu_torch.runtime.device_bench.time_ms (CUDA events, by default
-    with the calls queued behind a sleep kernel; host=True as the host
-    issues them)."""
-    from sperr_tpu_torch.runtime.device_bench import time_ms
-
-    return time_ms(fn, reps, host)
-
-
-def _busy_ms(fn, reps: int):
-    """Device-busy milliseconds per call of fn: the summed device time of its
-    kernels and copies in a torch.profiler trace of reps calls after a
-    warm-up (device_bench.busy_ms; the host's gaps, and its waits where fn
-    synchronizes, left out); the number of calls in one run of fn that made
-    the host wait for the device (torch's sync debug mode); and {kernel
-    name: ms per call}."""
-    from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits
-
-    fn()
-    waits = host_waits(fn)
-    busy, per_name = busy_ms(fn, reps)
-    return busy, waits, per_name
 
 
 def _launch_ms(fn, name: str, n: int, reps: int):
@@ -252,6 +227,7 @@ def _lift_per_launch(kernels, cdf97, x, levels: int, smi: str):
     on x (1, n, n, n), level by level and axis by axis, on a scratch copy;
     print each beside its bound (the box read and written once).  Returns
     {(direction, level, axis): (ms, bound_ms)}."""
+    from sperr_tpu_torch.runtime.device_bench import time_ms
     from sperr_tpu_torch.utils.dims import calc_approx_detail_len
 
     n = x.shape[-1]
@@ -261,7 +237,8 @@ def _lift_per_launch(kernels, cdf97, x, levels: int, smi: str):
         y = x.clone()
         for lev, box in enumerate(boxes):
             for axis, aname in ((-1, "x"), (-2, "y"), (-3, "z")):
-                ms = _time_ms(lambda: kernels.cdf97_lift(y, axis, box, inverse, cdf97.LIFT_CONSTS), 20)
+                ms = time_ms(lambda: kernels.cdf97_lift(y, axis, box, inverse, cdf97.LIFT_CONSTS), 20,
+                             "device")[0]
                 out[(name, lev, aname)] = (ms, _bound_ms(2 * 4 * box[0] ** 3))
         del y
     for name in ("dwt3d", "idwt3d"):
@@ -311,6 +288,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
     beside torch.nonzero on the same flags.  Returns {kernel: stats}."""
     import torch
 
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
+
     out = {}
     errs = _bits_equal(kernels, packemit, calls, label)
     # the three shapes of one emission: the first 32-plane window of the LIP
@@ -325,8 +304,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
             ("REF single", kernels.transpose_bits32, singles[0], 32)):
         items, take = args[0].numel(), args[-1]
         inputs = 4 * items * (2 if per_word == 16 else 1)
-        k10[shape] = dict(items=items, take=take, ms=_time_ms(lambda: fn(*args), 20),
-                          host_ms=_time_ms(lambda: fn(*args), 20, host=True),
+        k10[shape] = dict(items=items, take=take, ms=time_ms(lambda: fn(*args), 20, "device")[0],
+                          host_ms=time_ms(lambda: fn(*args), 20, "host-issued")[0],
                           bound_ms=_bound_ms(inputs + 4 * take * items // per_word),
                           bound32_ms=_bound_ms(inputs + 4 * 32 * items // per_word))
     print(f"[kernels] {label} K10 per shape (items, planes kept: device ms / host-issued ms / "
@@ -336,43 +315,45 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
           + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
           f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
     lis = k10["LIS pair"]
+    plain = time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5)
     out["transpose_bits32"] = dict(
         max_abs_err=errs["transpose_bits32"], shape=f"LIS pair {lis['items']} items, {lis['take']} planes",
-        ms=lis["ms"], host_ms=lis["host_ms"],
-        plain_ms=_time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5),
+        ms=lis["ms"], host_ms=lis["host_ms"], plain_ms=plain[0], plain_timed=plain[1],
         bound_ms=lis["bound_ms"], library_ms=None, per_shape=k10,
     )
     (parts, evb_cap, out_cap_bytes), = calls["masked_pack"]
-    _, _, per_name = _busy_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10)
+    per_name = busy_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10)[1]
     print(f"[kernels] {label} K11 by launch, ms per call: {_top(per_name, 4)} -- {smi}")
     b = packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes)
     words = sum(v.numel() for v, _ in parts)
     rows = sum(v.shape[0] for v, _ in parts)
+    plain = time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3)
     out["masked_pack"] = dict(
         max_abs_err=errs["masked_pack"], shape=f"{words} words per array, {rows} rows, {int(b.total_bytes)} bytes "
         f"out, overflow {bool(b.overflow)}",
-        ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10),
-        host_ms=_time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10, host=True),
-        plain_ms=_time_ms(lambda: packemit.masked_pack_ref(parts, evb_cap, out_cap_bytes), 3),
+        ms=time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10, "device")[0],
+        host_ms=time_ms(lambda: packemit.masked_pack(parts, evb_cap, out_cap_bytes), 10, "host-issued")[0],
+        plain_ms=plain[0], plain_timed=plain[1],
         bound_ms=_bound_ms(8 * words + int(b.total_bytes) + 4 * rows),
         library_ms=None,
     )
     for k, (flags, take) in enumerate(calls["compact_flags_rows"]):
         B, n = flags.shape
         key = "compact_flags_rows" if k == 0 else f"compact_flags_rows {k}"
+        plain = time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5)
         out[key] = dict(
             max_abs_err=errs["compact_flags_rows"], shape=f"({B}, {n}) take {take}",
-            ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20),
-            host_ms=_time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, host=True),
-            plain_ms=_time_ms(lambda: packemit.compact_flags_rows_ref(flags, take), 5),
+            ms=time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, "device")[0],
+            host_ms=time_ms(lambda: kernels.compact_flags_rows(flags, take), 20, "host-issued")[0],
+            plain_ms=plain[0], plain_timed=plain[1],
             bound_ms=_bound_ms(B * n + 4 * B * take + 4 * B),
-            library_ms=_time_ms(lambda: torch.nonzero(flags[0]), 20, host=True),
+            library_ms=time_ms(lambda: torch.nonzero(flags[0]), 20, "host-issued")[0],
         )
     for name, st in out.items():
         lib = (f", torch.nonzero {st['library_ms']:.4f} ms (it synchronizes: as the host issues it)"
                if st["library_ms"] is not None else "")
         print(f"[kernels] {label} {name} at {st['shape']}: kernel {st['ms']:.4f} ms, plain "
-              f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms (share "
+              f"{st['plain_ms']:.4f} ms ({st['plain_timed']}), bound {st['bound_ms']:.4f} ms (share "
               f"{st['bound_ms'] / st['ms']:.3f}), {st['host_ms']:.4f} ms as the host issues it"
               f"{lib}; equal to the plain version bit for bit -- {smi}")
     return out
@@ -535,6 +516,7 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     from sperr_tpu_torch.ops import speck_lis, speck_virtual
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
     from sperr_tpu_torch.utils.dims import chunk_volume
 
     t_phase = time.perf_counter()
@@ -628,11 +610,12 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
         k15_bytes = (_tensor_bytes(si) + _tensor_bytes(li) + 4 * n + n + 3 * 4 * n + 2 * 4 * li.nn
                      + 4 * T)
         for label, fn in (("K15 schedule and table walk", k15), ("_wave_emit_chunk", emit)):
-            ms = _time_ms(fn, 3)
-            host_ms = _time_ms(fn, 3, host=True)
-            busy, syncs, per_name = _busy_ms(fn, 3)
+            ms, how = time_ms(fn, 3)
+            host_ms = time_ms(fn, 3, "host-issued")[0]
+            syncs = host_waits(fn)
+            busy, per_name = busy_ms(fn, 3)
             bound = f", bound {_bound_ms(k15_bytes):.4f} ms ({k15_bytes} bytes)" if fn is k15 else ""
-            print(f"[table] {s3} tier {t} {label}: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues "
+            print(f"[table] {s3} tier {t} {label}: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues "
                   f"it, device busy {busy:.4f} ms, {syncs} host "
                   f"waits per call{bound}; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
         print(f"[table] {s3} tier {t}: caps {caps}, n_sig {int(em.n_sig)}, fits {bool(fits)}, "
@@ -659,8 +642,8 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     b = spk.pixel_schedule(mags, ti, num_bp)
     for name, u, v in zip(("s", "e", "nm"), a, b):
         _check(torch.equal(u, v), f"pyramid schedule {name} differs from the child-table schedule")
-    pyr_ms = _time_ms(lambda: spk.pixel_schedule_pyramid(mags, pi, num_bp), 5)
-    tree_ms = _time_ms(lambda: spk.pixel_schedule(mags, ti, num_bp), 5)
+    pyr_ms, pyr_how = time_ms(lambda: spk.pixel_schedule_pyramid(mags, pi, num_bp), 5)
+    tree_ms, tree_how = time_ms(lambda: spk.pixel_schedule(mags, ti, num_bp), 5)
     del front, mags, a, b
     s_host = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev).compress(pvol, "pwe", tol)
     wave = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, entropy="wave")
@@ -669,7 +652,7 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     _check(wave.last_wave_chunks == 1, "the pyramid-form chunk took host entropy")
     print(f"[table] pyramid form {pyr_dims}: index builds {t_pyr:.3f} s (pyramid with the table walk's), "
           f"{t_tree:.3f} s (child table); schedule equal to the child-table one element for element, "
-          f"{pyr_ms:.4f} ms pyramid, {tree_ms:.4f} ms child table (device); wave stream = host stream "
+          f"{pyr_ms:.4f} ms pyramid ({pyr_how}), {tree_ms:.4f} ms child table ({tree_how}); wave stream = host stream "
           f"({len(s_wave)} bytes, tier {wave.last_wave_tiers}) -- {smi}")
     print(f"[table] phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
@@ -693,6 +676,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     from sperr_tpu_torch.ops import cdf97, packemit
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel import batched2d as tb2
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
 
     t_phase = time.perf_counter()
     tol = 1e-2
@@ -766,15 +750,16 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     _check(wave._wave_fits(w, 0, n), "field 0 does not fit tier 0")
     _bits_equal(kernels, packemit, calls, "2D field 0, tier 0")
     ncalls = {k: len(v) for k, v in calls.items()}
-    ms = _time_ms(prog, 3)
-    host_ms = _time_ms(prog, 3, host=True)
-    busy, syncs, per_name = _busy_ms(prog, 3)
+    ms, how = time_ms(prog, 3)
+    host_ms = time_ms(prog, 3, "host-issued")[0]
+    syncs = host_waits(prog)
+    busy, per_name = busy_ms(prog, 3)
     # bound: the magnitudes (int32) and signs read once, the segments written once
     stream = int(w["px_total"][0]) + int(w["lis_total"][0])
     bound = _bound_ms(5 * n + stream)
     print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
           f"{stream} segment bytes; K10-K12 calls {ncalls}, equal to their plain versions bit for bit")
-    print(f"[wave2d] field 0 device program: {ms:.4f} ms device, {host_ms:.4f} ms as the host issues it, device "
+    print(f"[wave2d] field 0 device program: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues it, device "
           f"busy {busy:.4f} ms, {syncs} host waits per call; bound "
           f"{bound:.4f} ms ({5 * n + stream} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
           f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
@@ -957,6 +942,9 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
         stages.update({f"hybrid {k}": v for k, v in r.get("hybrid", {}).items() if k.endswith("_s")})
         bad = {k: v for k, v in stages.items() if not v > 0}
         _check(not bad, f"{name}: stages that read <= 0: {bad}")
+        if name != "pipeline_stages" and name != "wave2d_stage":
+            # stages compared or subtracted (the breakdown's deltas among them)
+            _check(isinstance(r["timed"], str), f"{name}: stages timed by more than one method")
         _check(r["device"].startswith(torch.cuda.get_device_name(0)) and "power limit" in r["device"],
                f"{name}: device {r['device']!r}")
     _check("reason" not in results["container_decode_stages"]["hybrid"],
@@ -989,6 +977,7 @@ def main() -> int:
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
     from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
     from sperr_tpu_torch.runtime import device_bench
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
     from sperr_tpu_torch.runtime.engine import default_engine
     from sperr_tpu_torch.stream import tools
     from sperr_tpu_torch.utils.dims import coarsened_resolutions, num_of_xforms
@@ -1013,6 +1002,9 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     # -- 3. kernels against their plain versions ---------------------------
+    # each kernel is timed on the device alone ("device": the sleep must
+    # cover its calls); its plain version as the repo's timer finds it can be
+    plain_timed = {}
     rng = np.random.default_rng(0)
     n = 256**3
     coeffs = np.empty((9, n), dtype=np.float32)
@@ -1033,11 +1025,11 @@ def main() -> int:
     print("[kernels] K1 quantize (8, 256^3) plus a row of ties: mags, signs, maxmag equal")
     one = c_d[:1].contiguous()
     inv1 = inv_d[:1].contiguous()
-    q_ms = _time_ms(lambda: kernels.quantize(one, inv1), 20)
-    q_host_ms = _time_ms(lambda: kernels.quantize(one, inv1), 20, host=True)
-    q_plain_ms = _time_ms(lambda: quantize.quantize_ref(one, inv1), 20)
+    q_ms = time_ms(lambda: kernels.quantize(one, inv1), 20, "device")[0]
+    q_host_ms = time_ms(lambda: kernels.quantize(one, inv1), 20, "host-issued")[0]
+    q_plain_ms, plain_timed["quantize"] = time_ms(lambda: quantize.quantize_ref(one, inv1), 20)
     print(f"[kernels] K1 at (1, 256^3): kernel {q_ms:.4f} ms ({q_host_ms:.4f} as the host issues "
-          f"it), plain {q_plain_ms:.4f} ms")
+          f"it), plain {q_plain_ms:.4f} ms ({plain_timed['quantize']})")
     q_bound = _bound_ms(4 * n + 4 + 4 * n + n + 4)  # coeffs, q in; mags, signs, maxmag out
     del c_d, got, ref
 
@@ -1066,16 +1058,16 @@ def main() -> int:
             kernels.reset_launch_counts()
             cdf97.dwt3d(x)
             per_dwt = kernels.launches["cdf97_lift"]
-            l_ms = _time_ms(lambda: cdf97.dwt3d(x), 10)
-            l_plain_ms = _time_ms(lambda: cdf97.dwt3d_ref(x), 3)
-            li_ms = _time_ms(lambda: cdf97.idwt3d(fwd), 10)
-            li_plain_ms = _time_ms(lambda: cdf97.idwt3d_ref(fwd), 3)
-            l_host_ms = _time_ms(lambda: cdf97.dwt3d(x), 10, host=True)
-            li_host_ms = _time_ms(lambda: cdf97.idwt3d(fwd), 10, host=True)
+            l_ms = time_ms(lambda: cdf97.dwt3d(x), 10, "device")[0]
+            l_plain_ms, plain_timed["cdf97_lift"] = time_ms(lambda: cdf97.dwt3d_ref(x), 3)
+            li_ms = time_ms(lambda: cdf97.idwt3d(fwd), 10, "device")[0]
+            li_plain_ms, li_plain_how = time_ms(lambda: cdf97.idwt3d_ref(fwd), 3)
+            l_host_ms = time_ms(lambda: cdf97.dwt3d(x), 10, "host-issued")[0]
+            li_host_ms = time_ms(lambda: cdf97.idwt3d(fwd), 10, "host-issued")[0]
             l_bound = _bound_ms(2 * 4 * x.numel())
             print(f"[kernels] dwt3d 256^3 ({per_dwt} launches): kernel {l_ms:.4f} ms ({l_host_ms:.4f} "
-                  f"as the host issues it), plain {l_plain_ms:.4f} ms; idwt3d: kernel {li_ms:.4f} ms "
-                  f"({li_host_ms:.4f}), plain {li_plain_ms:.4f} ms; bound of the whole transform "
+                  f"as the host issues it), plain {l_plain_ms:.4f} ms ({plain_timed['cdf97_lift']}); idwt3d: "
+                  f"kernel {li_ms:.4f} ms ({li_host_ms:.4f}), plain {li_plain_ms:.4f} ms ({li_plain_how}); bound of the whole transform "
                   f"{l_bound:.4f} ms -- {smi}")
             _lift_per_launch(kernels, cdf97, x, num_of_xforms(256), smi)
         del x, fwd, fwd_ref, inv, inv_ref
@@ -1090,7 +1082,7 @@ def main() -> int:
 
     # K2/K3: bit for bit against the plain version and the per-axis lifting
     # kernel's path; the level-by-level and a partial inverse against the full one
-    plane_ms = {}
+    plane_ms, plane_timed = {}, {}
     plane_err = {"K2": 0.0, "K3": 0.0}
     for shape in ((16, 1024, 1024), (1, 1800, 3600), (3, 127, 127), (2, 19, 27)):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
@@ -1139,17 +1131,23 @@ def main() -> int:
         _check(d_rt <= 2e-5 * float(x.abs().max()), f"K2/K3 round trip at {shape}")
         if shape[1] >= 1024:
             t = plane_ms[shape] = {
-                "K2": _time_ms(lambda: cdf97.dwt2d(x), 20),
-                "K2 host": _time_ms(lambda: cdf97.dwt2d(x), 20, host=True),
-                "K2 plain": _time_ms(lambda: cdf97.dwt2d_ref(x), 3),
-                "K2 lift driver": _time_ms(lambda: cdf97.dwt2d_ref(x, lift=cdf97.lift_axis), 20),
-                "K3": _time_ms(lambda: cdf97.idwt2d(fwd), 20),
-                "K3 host": _time_ms(lambda: cdf97.idwt2d(fwd), 20, host=True),
-                "K3 plain": _time_ms(lambda: cdf97.idwt2d_ref(fwd), 3),
-                "K3 lift driver": _time_ms(lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20),
+                "K2": time_ms(lambda: cdf97.dwt2d(x), 20, "device")[0],
+                "K2 host": time_ms(lambda: cdf97.dwt2d(x), 20, "host-issued")[0],
+                "K3": time_ms(lambda: cdf97.idwt2d(fwd), 20, "device")[0],
+                "K3 host": time_ms(lambda: cdf97.idwt2d(fwd), 20, "host-issued")[0],
             }
+            # the plain versions and the lift driver, each timed as the
+            # repo's timer finds it can be
+            t_how = plane_timed[shape] = {}
+            t["K2 plain"], t_how["K2 plain"] = time_ms(lambda: cdf97.dwt2d_ref(x), 3)
+            t["K2 lift driver"], t_how["K2 lift driver"] = time_ms(
+                lambda: cdf97.dwt2d_ref(x, lift=cdf97.lift_axis), 20)
+            t["K3 plain"], t_how["K3 plain"] = time_ms(lambda: cdf97.idwt2d_ref(fwd), 3)
+            t["K3 lift driver"], t_how["K3 lift driver"] = time_ms(
+                lambda: cdf97.idwt2d_ref(fwd, lift=cdf97.lift_axis), 20)
             t["bound"] = _bound_ms(2 * 4 * x.numel())
-            print(f"[kernels] {shape} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+            print(f"[kernels] {shape} ms: " + ", ".join(
+                f"{k} {v:.4f}" + (f" ({t_how[k]})" if k in t_how else "") for k, v in t.items())
                   + f" -- {smi}")
             for name, kname, fn in (("K2", "dwt2d_level", lambda: cdf97.dwt2d(x)),
                                     ("K3", "idwt2d_level", lambda: cdf97.idwt2d(fwd))):
@@ -1167,6 +1165,8 @@ def main() -> int:
                       + f" -- {smi}")
         del x, x_in, fwd, fwd_in, inv, steps, part, part_ref, part_in_place, fwd_in_place
     k23 = plane_ms[(16, 1024, 1024)]
+    plain_timed.update({"dwt2d_full": plane_timed[(16, 1024, 1024)]["K2 plain"],
+                        "idwt2d_full": plane_timed[(16, 1024, 1024)]["K3 plain"]})
 
     # K10-K12: the inputs the wave path gives them.  The headline volume's
     # first 256^3 chunk (smooth_field_3d(512, seed=7), PWE 1e-2) at tiers 0
@@ -1203,8 +1203,9 @@ def main() -> int:
             # K10-K12), as the main path runs it at this tier
             def emit():
                 return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
-            host_ms = _time_ms(emit, 3, host=True)
-            busy, syncs, per_name = _busy_ms(emit, 3)
+            host_ms = time_ms(emit, 3, "host-issued")[0]
+            syncs = host_waits(emit)
+            busy, per_name = busy_ms(emit, 3)
             emit_ms[label] = (busy, host_ms)
             print(f"[kernels] {label} _wave_emit_chunk: device busy "
                   f"{busy:.4f} ms (kernels and copies), "
@@ -1222,7 +1223,7 @@ def main() -> int:
     q16 = quantize.estimate_q_psnr_batched(c16, r16, 80.0)
     q_first = 2.0 * np.sqrt(3.0 * float(r16[0]) ** 2 * float(np.float32(1e-8)))
     k16_evals = 1 + round(np.log(float(q16[0]) / q_first) / np.log(2.0**-0.25))
-    k16_ms = _time_ms(lambda: quantize.estimate_q_psnr_batched(c16, r16, 80.0), 5, host=True)
+    k16_ms = time_ms(lambda: quantize.estimate_q_psnr_batched(c16, r16, 80.0), 5, "host-issued")[0]
     k16_bound = _bound_ms(k16_evals * 4 * c16.numel())  # each step reads the coefficients
     print(f"[kernels] K16 estimate_q_psnr_batched (1, 256^3), PSNR 80, {k16_evals} steps: "
           f"{k16_ms:.4f} ms as the host issues it, bound {k16_bound:.4f} ms -- {smi}")
@@ -1268,15 +1269,17 @@ def main() -> int:
     _k13_check(wave_unpack, args1, p1, 1000, "headline chunk 0, evw_cap 1000", want=full[:1],
                overflow=True)
     k13_one = {
-        "ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20),
-        "host_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20, host=True),
-        "plain_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched_ref(*args1, p1, evw), 3),
+        "ms": time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20, "device")[0],
+        "host_ms": time_ms(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), 20, "host-issued")[0],
         "bound_ms": _k13_bound_ms(args1),
     }
+    k13_one["plain_ms"], k13_one["plain_timed"] = time_ms(
+        lambda: wave_unpack.reconstruct_mags_batched_ref(*args1, p1, evw), 3)
     per_k13 = _kernel_means(lambda: wave_unpack.reconstruct_mags_batched(*args1, p1, evw), "k13_", 10)
     print(f"[kernels] K13 (1, 256^3), headline chunk 0 ({len(s0)} stream bytes, num_bp "
           f"{int(args1[4][0])}): kernel {k13_one['ms']:.4f} ms ({k13_one['host_ms']:.4f} as the host "
-          f"issues it), plain {k13_one['plain_ms']:.4f} ms, bound {k13_one['bound_ms']:.4f} ms (share "
+          f"issues it), plain {k13_one['plain_ms']:.4f} ms ({k13_one['plain_timed']}), bound "
+          f"{k13_one['bound_ms']:.4f} ms (share "
           f"{k13_one['bound_ms'] / k13_one['ms']:.3f}); per launch (device ms, launches in a trace of "
           f"10 calls): " + (", ".join(f"{k} {m:.4f} ({c})" for k, (m, c) in sorted(per_k13.items()))
                              or "not measured") + f" -- {smi}")
@@ -1377,14 +1380,16 @@ def main() -> int:
     *k13_args, k13_p, k13_evw = k13_main
     k13_err = max(k13_err, _k13_check(wave_unpack, k13_args, k13_p, k13_evw, "the 512^3 decode's input"))
     k13 = {
-        "ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10),
-        "host_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10,
-                            host=True),
-        "plain_ms": _time_ms(lambda: wave_unpack.reconstruct_mags_batched_ref(*k13_args, k13_p, k13_evw), 2),
+        "ms": time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10, "device")[0],
+        "host_ms": time_ms(lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), 10,
+                           "host-issued")[0],
         "bound_ms": _k13_bound_ms(k13_args),
     }
+    k13["plain_ms"], plain_timed["reconstruct_mags"] = time_ms(
+        lambda: wave_unpack.reconstruct_mags_batched_ref(*k13_args, k13_p, k13_evw), 2)
     print(f"[main] K13 on the decode's input {tuple(k13_args[0].shape)}: kernel {k13['ms']:.4f} ms "
-          f"({k13['host_ms']:.4f} as the host issues it), plain {k13['plain_ms']:.4f} ms, bound "
+          f"({k13['host_ms']:.4f} as the host issues it), plain {k13['plain_ms']:.4f} ms "
+          f"({plain_timed['reconstruct_mags']}), bound "
           f"{k13['bound_ms']:.4f} ms (share {k13['bound_ms'] / k13['ms']:.3f}) -- {smi}")
     d2h_host = comp.last_d2h_bytes
     vol512 = vol
@@ -1608,10 +1613,15 @@ def main() -> int:
                             ("masked_pack", "sperr_tpu/ops/packemit.py:420"),
                             ("compact_flags_rows", "sperr_tpu/ops/packemit.py:305"))
     ]
+    plain_timed.update({name: t1[name]["plain_timed"]
+                        for name in ("transpose_bits32", "masked_pack", "compact_flags_rows")})
+    # "ms" is the device's time alone, "host_ms" as the host issues the
+    # calls; "plain_timed" says how "plain_ms" was timed
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
          "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-         "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
+         "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": lib}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

@@ -7,7 +7,7 @@ on the card (``TorchCompressor3D``, SPECK on the host) and decodes through
 magnitudes rebuilt on the card); without a GPU it raises.  ``--exec cpu``
 runs the same classes on the CPU, with the kernels' plain versions.
 ``--exec host`` is the exact f64 host engine, whose streams are
-byte-identical to the reference; ``--dq`` needs it.
+byte-identical to the reference; ``--dq`` and ``--precision 32`` need it.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--precision", type=int, default=64, choices=(32, 64),
-        help="host pipeline precision: 64 = reference-bit-exact, 32 = fast",
+        help="host pipeline precision (--exec host): 64 = reference-bit-exact, 32 = fast",
     )
     p.add_argument("--bitstream", default="")
     p.add_argument("--decomp_f", default="")
@@ -59,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.precision != 64 and args.exec_mode != "host":
+        die("--precision 32 needs --exec host")
 
     if args.c:
         if not args.dims:

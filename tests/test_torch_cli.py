@@ -275,3 +275,15 @@ def test_dq_needs_exec_host(tmp_path, capsys):
     with pytest.raises(SystemExit):
         t3.run(["-c", inp, "--exec", "cpu", "--dims", "40", "30", "20", "--dq", "0.01"])
     assert "--dq needs --exec host" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("exec_mode", ["cpu", "cuda"])
+@pytest.mark.parametrize("op", ["-c", "-d"])
+def test_precision_32_needs_exec_host(op, exec_mode, tmp_path, capsys):
+    """--precision 32 is the host engine's: the other engines refuse it
+    rather than ignore it, for compression and decompression alike."""
+    inp = _write(tmp_path, "in.f32", _vol3())
+    argv = ["-c", inp, "--dims", "40", "30", "20", "--pwe", "0.01"] if op == "-c" else ["-d", inp]
+    with pytest.raises(SystemExit):
+        t3.run(argv + ["--exec", exec_mode, "--precision", "32"])
+    assert "--precision 32 needs --exec host" in capsys.readouterr().err

@@ -119,7 +119,11 @@ def test_device_bench_keys_and_times(name, monkeypatch):
     extra = {"device", "timed"} | ({"tier"} if name == "wave_entropy_stage" else set())
     assert set(ours) == want | extra
     assert ours["device"] == "cpu"
-    assert ours["timed"] and set(ours["timed"].values()) == {"cpu"}
+    if name in ("container_decode_stages", "wave_entropy_breakdown", "wave_entropy_stage"):
+        # stages compared or subtracted: one method for all
+        assert ours["timed"] == "cpu"
+    else:
+        assert ours["timed"] and set(ours["timed"].values()) == {"cpu"}
     absolute = [k for k in ours if k.endswith("_s") and not (
         name == "wave_entropy_breakdown" and not k.endswith(("_cum_s", "abs_s")))]
     absolute = [k for k in absolute if k != "entropy_stage_s"]
@@ -165,3 +169,46 @@ def test_device_bench_raises_without_a_gpu(name, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(tdb, name)(**_CASES[name])
 
+
+
+def test_time_stage_times_every_run_by_one_method(monkeypatch):
+    """Runs of one stage that came out of different methods (the sleep
+    covered one and not the other) are timed again by one."""
+    asked = []
+
+    def fake_time_ms(fn, calls, how=None):
+        asked.append(how)
+        if how is None:
+            return (1.0, "device") if len(asked) == 1 else (3.0, "device-busy")
+        return 2.0, how
+
+    monkeypatch.setattr(tdb, "_on", lambda x: "cuda")
+    monkeypatch.setattr(tdb, "time_ms", fake_time_ms)
+    assert tdb.time_stage(lambda v: v, torch.ones(1), iters=1, reps=2) == (2e-3, "device-busy")
+    assert asked == [None, None, "device-busy", "device-busy"]
+
+
+@pytest.mark.parametrize("hows,want", [
+    (("device", "device"), "device"),
+    (("device", "device-busy"), "device-busy"),
+    (("device", "host-issued"), "host-issued"),
+    (("device-busy", "host-issued"), "host-issued"),
+])
+def test_compared_stages_share_one_method(hows, want, monkeypatch):
+    """Stages whose times are compared or subtracted come out of one method:
+    where their own methods differ, every stage is timed again by one."""
+
+    def fake_time_stage(fn, x, iters=8, reps=2, how=None):
+        k = fn(x)
+        return (k, hows[k - 1]) if how is None else (10 * k, how)
+
+    monkeypatch.setattr(tdb, "time_stage", fake_time_stage)
+    secs, how = tdb._time_together({"a": lambda x: 1, "b": lambda x: 2}, torch.ones(1), 1)
+    assert how == want
+    # a stage already timed by the one method keeps its time
+    assert secs == {k: (i if hows[i - 1] == want else 10 * i) for k, i in (("a", 1), ("b", 2))}
+
+
+def test_time_ms_names_its_methods():
+    with pytest.raises(ValueError, match="no timer"):
+        tdb.time_ms(lambda: None, 1, how="wall")
