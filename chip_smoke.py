@@ -65,13 +65,24 @@ Phases, in order; any failed check raises and the script exits non-zero:
      3D and 2D calls, and sperr2d on phase 8's field with its
      multi-resolution files; then each function of
      sperr_tpu_torch.runtime.device_bench once (every stage must read more
-     than 0, the hybrid route must be timed, every tier must fit).
+     than 0, the hybrid route must be timed, every tier must fit);
+ 12. more than one device: in one process, the 512^3 volume through
+     TorchCompressor3D(devices=...) with host and wave entropy (containers
+     equal to phase 4's byte for byte), TorchDecompressor3D(devices=...)
+     (decode equal to phase 4's) and phase 7's fields through the 2D
+     classes (streams and decodes equal to phase 7's), ``devices`` every
+     card, or the one card named twice; then two ranks as new processes
+     over a gloo group (``--rank``, below), each loading only its own
+     chunks: rank 0's container over both transports equal to phase 4's,
+     the distributed decode equal to phase 4's, K1's launches over both
+     ranks equal to phase 6's; each rank prints one JSON line.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time
 and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
-result line.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
+result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
+rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
 Without a CUDA device, or without the repository beside it, the script
 prints no result and exits non-zero.
 """
@@ -960,7 +971,251 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def _rank_main(argv) -> int:
+    """One rank of phase 12 (b), started by the script as a new process:
+    ``--rank R --port P --gather-port G --vol PATH --out DIR``.  It joins a
+    gloo group of two, reads only its own chunks of the 512^3 volume through
+    an np.memmap, compresses them twice on its card (the default transport,
+    the torch.distributed all-gather, then the socket gather), decodes its
+    chunks to rank 0 and on its card (to_host=False), and prints one JSON
+    line: rank, card, chunks, walls, peak memory, gathered bytes and
+    launches per kernel of each encode."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from sperr_tpu_torch import kernels
+    from sperr_tpu_torch.parallel import distributed as td
+    from sperr_tpu_torch.parallel.transport import AllgatherTransport, SocketGatherTransport
+    from sperr_tpu_torch.utils.dims import chunk_volume
+
+    opt = dict(zip(argv[0::2], argv[1::2]))
+    rank = int(opt["--rank"])
+    t_start = time.perf_counter()
+    td.initialize(f"127.0.0.1:{opt['--port']}", 2, rank)
+    card = td.own_device()
+    torch.cuda.set_device(card)
+    kernels.load(card)
+    t_ready = time.perf_counter() - t_start
+    dims, cd = (512, 512, 512), (256, 256, 256)
+    mm = np.memmap(opt["--vol"], dtype=np.float32, mode="r", shape=dims)
+    read = []
+
+    def loader(c):
+        read.append(c)
+        return np.asarray(mm[c[4] : c[4] + c[5], c[2] : c[2] + c[3], c[0] : c[0] + c[1]])
+
+    class Counted:
+        """A transport that counts the bytes it ships and receives."""
+
+        def __init__(self, inner):
+            self.inner, self.sent, self.received = inner, 0, 0
+
+        def gather_bytes(self, payload, pid, nprocs):
+            self.sent += len(payload)
+            out = self.inner.gather_bytes(payload, pid, nprocs)
+            self.received += 0 if out is None else sum(len(b) for b in out)
+            return out
+
+    mine = td.local_chunk_ids(len(chunk_volume(dims, cd)), rank, 2)
+    factory = td.device_compressor_factory(cd, entropy="wave")
+    torch.cuda.reset_peak_memory_stats(card)
+    rec = {"rank": rank, "card": str(card), "card_name": torch.cuda.get_device_name(card),
+           "chunks": mine, "ready_s": t_ready, "encode_s": {}, "gathered_bytes": {}, "launches": {}}
+    streams = {}
+    for name, inner in (("allgather", AllgatherTransport()),
+                        ("socket", SocketGatherTransport(f"127.0.0.1:{opt['--gather-port']}", timeout=240.0))):
+        tr = Counted(inner)
+        read.clear()
+        torch.cuda.synchronize(card)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = td.compress_distributed(loader, dims, cd, "pwe", 1e-2, compressor_factory=factory, transport=tr)
+        torch.cuda.synchronize(card)
+        rec["encode_s"][name] = time.perf_counter() - t0
+        rec["launches"][name] = {k: v for k, v in kernels.launches.items() if v}
+        rec["gathered_bytes"][name] = {"sent": tr.sent, "received": tr.received}
+        _check((s is None) == (rank != 0), f"rank {rank}: compress_distributed returned {type(s)}")
+        _check(set(read) == {chunk_volume(dims, cd)[i] for i in mine},
+               f"rank {rank} loaded chunks it does not own, or not all of its own")
+        streams[name] = s
+    out_dir = opt["--out"]
+    if rank == 0:
+        for name, s in streams.items():
+            with open(os.path.join(out_dir, f"{name}.sperr"), "wb") as f:
+                f.write(s)
+    torch.distributed.barrier()
+    with open(os.path.join(out_dir, "allgather.sperr"), "rb") as f:
+        stream = f.read()
+    torch.cuda.synchronize(card)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = td.decompress_distributed(stream)
+    torch.cuda.synchronize(card)
+    rec["decode_s"] = time.perf_counter() - t0
+    rec["decode_launches"] = {k: v for k, v in kernels.launches.items() if v}
+    _check((got is None) == (rank != 0), f"rank {rank}: decompress_distributed returned {type(got)}")
+    if rank == 0:
+        np.save(os.path.join(out_dir, "decode.npy"), got[0])
+    blocks, _ = td.decompress_distributed(stream, to_host=False)
+    chunks = chunk_volume(dims, cd)
+    _check(set(blocks) == {td._key(chunks[i]) for i in mine}, f"rank {rank}: to_host=False blocks")
+    _check(all(isinstance(b, torch.Tensor) and b.device == card for b in blocks.values()),
+           f"rank {rank}: to_host=False blocks are not on {card}")
+    rec["device_blocks"] = len(blocks)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated(card)
+    del blocks
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(rec))
+    return 0
+
+
+def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4, fields,
+                 streams7, outs7, k1_phase6: int, walls: dict) -> None:
+    """Phase 12: more than one device.
+
+    (a) In one process: the 512^3 volume through TorchCompressor3D(devices=)
+    with host and wave entropy (each container must equal phase 4's byte for
+    byte), TorchDecompressor3D(devices=) on the hybrid route (its decode must
+    equal phase 4's element for element), and phase 7's 16 fields through
+    TorchCompressor2D(devices=) and TorchDecompressor2D(devices=) (streams
+    and decodes equal to phase 7's).  ``devs`` is every card where there
+    are two or more, else the one card named twice.
+    (b) Two ranks as new processes over a gloo group (``_rank_main``): rank
+    0's container over both transports must equal phase 4's, its
+    distributed decode phase 4's decode, and K1's launches over both ranks
+    phase 6's."""
+    import numpy as np
+    import socket
+
+    import torch
+
+    from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    n = torch.cuda.device_count()
+    devs = [f"cuda:{i}" for i in range(n)] if n >= 2 else ["cuda:0", "cuda:0"]
+
+    def run(fn, label, need):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in kernels.launches.items() if v}
+        for name in need:
+            _check(launched.get(name, 0) > 0, f"phase 12 {label}: {name} was not launched")
+        print(f"[multi] {label} on {devs}: {wall:.3f} s, launches {launched} -- {smi}")
+        return out, wall
+
+    # -- (a) in one process -------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    for entropy, need in (("host", ("quantize", "cdf97_lift")),
+                          ("wave", ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack",
+                                    "compact_flags_rows"))):
+        comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), devices=devs, entropy=entropy)
+        vol = np.fromfile(vol_path, dtype=np.float32).reshape(512, 512, 512)
+        s, wall = run(lambda: comp.compress(vol, "pwe", tol), f"3D encode, entropy={entropy}", need)
+        _check(s == stream4, f"the {entropy} container over {devs} differs from phase 4's")
+        _check(comp.last_uncertified_chunks == 0, f"uncertified chunks {comp.last_uncertified_ids}")
+        if entropy == "wave":
+            _check(comp.last_wave_chunks == 8, f"{comp.last_wave_chunks} of 8 chunks on the wave path")
+        print(f"[multi] 512^3 {entropy} container over {devs}: {len(s)} bytes, equal to phase 4's byte "
+              f"for byte; {wall:.3f} s against {walls[entropy]:.3f} s on one device; device to host "
+              f"{comp.last_d2h_bytes} bytes -- {smi}")
+        del vol
+    dec = TorchDecompressor3D(devices=devs)
+    (out, _), wall = run(lambda: dec.decompress(stream4), "3D decode (hybrid)", ("reconstruct_mags", "cdf97_lift"))
+    _check(np.array_equal(out, out4), f"the decode over {devs} differs from phase 4's")
+    _check(dec.last_hybrid_chunks > 0, "no chunk took the hybrid decode")
+    print(f"[multi] 512^3 decode over {devs}: equal to phase 4's element for element, {wall:.3f} s "
+          f"against {walls['decode']:.3f} s; {dec.last_hybrid_chunks} of 8 chunks rebuilt on the "
+          f"cards; host to device {dec.last_h2d_bytes} bytes -- {smi}")
+    del out
+    ny2, nx2 = fields.shape[1:]
+    comp2 = TorchCompressor2D((nx2, ny2), devices=devs)
+    s2, wall_e = run(lambda: comp2.compress_batch(fields, "pwe", tol), "2D encode",
+                     ("quantize", "dwt2d_full", "idwt2d_full"))
+    _check(s2 == streams7, f"the 2D streams over {devs} differ from phase 7's")
+    dec2 = TorchDecompressor2D((nx2, ny2), devices=devs)
+    o2, wall_d = run(lambda: dec2.decompress_batch(s2), "2D decode", ("idwt2d_full",))
+    _check(all(np.array_equal(a, b) for a, b in zip(o2, outs7)) and len(o2) == len(outs7),
+           f"the 2D decodes over {devs} differ from phase 7's")
+    print(f"[multi] 16 x {ny2}x{nx2} over {devs}: streams and decodes equal to phase 7's; encode "
+          f"{wall_e:.3f} s, decode {wall_d:.3f} s (phase 7: {walls['enc2']:.3f}, {walls['dec2']:.3f}); "
+          f"peak device memory {torch.cuda.max_memory_allocated()} bytes -- {smi}")
+
+    # -- (b) two ranks ---------------------------------------------------------
+    def free_port():
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    out_dir = tempfile.mkdtemp(prefix="ranks_", dir=tmp)
+    port, gport = free_port(), free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, LOCAL_RANK=str(r))
+        env.pop("SPERR_TPU_GATHER_ADDR", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--port", str(port),
+             "--gather-port", str(gport), "--vol", vol_path, "--out", out_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    logs = []
+    try:
+        deadline = time.monotonic() + 300
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                raise AssertionError("a rank passed its 300 s timeout") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    recs = []
+    for r, (p, (out_s, err_s)) in enumerate(zip(procs, logs)):
+        _check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out_s}\n{err_s[-4000:]}")
+        lines = [ln for ln in out_s.splitlines() if ln.startswith('{"rank"')]
+        _check(len(lines) == 1, f"rank {r} printed {len(lines)} result lines:\n{out_s}")
+        print(lines[0])
+        recs.append(json.loads(lines[0]))
+    for name in ("allgather", "socket"):
+        with open(os.path.join(out_dir, f"{name}.sperr"), "rb") as f:
+            _check(f.read() == stream4, f"rank 0's container over the {name} transport differs from phase 4's")
+        k1 = sum(rec["launches"][name].get("quantize", 0) for rec in recs)
+        _check(k1 == k1_phase6, f"K1 launched {k1} times over both ranks ({name}), phase 6 {k1_phase6}")
+        for rec in recs:
+            for kname in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+                _check(rec["launches"][name].get(kname, 0) > 0, f"rank {rec['rank']} did not launch {kname}")
+    got = np.load(os.path.join(out_dir, "decode.npy"), mmap_mode="r")
+    _check(np.array_equal(got, out4), "the distributed decode differs from phase 4's")
+    for rec in recs:
+        _check(rec["decode_launches"].get("reconstruct_mags", 0) > 0, f"rank {rec['rank']}: no K13 in the decode")
+    print(f"[multi] two ranks over gloo, {wall:.1f} s from start to exit: rank 0's container over both "
+          f"transports equal to phase 4's byte for byte, the distributed decode equal to phase 4's "
+          f"element for element, K1 {k1_phase6} launches over both ranks as in phase 6; encode walls "
+          + "; ".join(f"rank {rec['rank']} {rec['card']} " + ", ".join(f"{k} {v:.3f} s" for k, v in rec["encode_s"].items())
+                      + f", decode {rec['decode_s']:.3f} s, peak {rec['peak_bytes']} bytes" for rec in recs)
+          + f" -- {smi}")
+    print(f"[multi] phase 12 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
+
+
 def main() -> int:
+    if "--rank" in sys.argv[1:]:
+        return _rank_main(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1527,7 +1782,8 @@ def main() -> int:
           f"({peak2 / 2**30:.3f} GiB) -- {smi}")
     _check(err2_port <= tol, f"2D port decoder misses the PWE bound: {err2_port}")
     _check(err2_host <= tol, f"2D host f64 decoder misses the PWE bound: {err2_host}")
-    del outs2  # phase 10 takes the fields and streams
+    outs7 = outs2  # phase 10 takes the fields and streams, phase 12 these decodes
+    del outs2
 
     # -- 8. 1800x3600 modes and multi-resolution decodes --------------------
     nx7, ny7 = 3600, 1800
@@ -1590,8 +1846,13 @@ def main() -> int:
     # -- 11. the command-line tools and the stage timer ----------------------
     _cli_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields[0], streams2[0], f7,
                streams8["psnr"], l_ms, q_ms)
+
+    # -- 12. more than one device ---------------------------------------------
+    _multi_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields, streams2, outs7,
+                 launches_w["quantize"],
+                 {"host": enc_s, "wave": encw_s, "decode": dec_s, "enc2": enc2_s, "dec2": dec2_s})
     tmp.cleanup()
-    del fields, streams2, f7, out4
+    del fields, streams2, f7, out4, outs7
 
     _check("jax" not in sys.modules, "the port imported jax")
     t1 = bits["tier 1"]

@@ -12,7 +12,9 @@ exact f64 decoders) are the port's own copies of sperr_tpu's
 Entry points: ``sperr_tpu_torch.parallel.batched.TorchCompressor3D`` and
 ``TorchDecompressor3D``; ``parallel.batched2d.TorchCompressor2D`` and
 ``TorchDecompressor2D``.  Each runs on the card (``device="cuda"``) unless
-the caller names the CPU.
+the caller names the CPU, or splits its batches over ``devices=[...]``.
+Several processes compress one volume through
+``parallel.distributed.compress_distributed`` (torch.distributed, gloo).
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,9 @@ PyTorch versions live beside the callers (``ops/quantize.py``,
 ``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``) and run only
 for tensors on the CPU.
 
-Each wrapper adds one to ``launches[name]`` for each kernel it launches.
+Each wrapper adds one to ``launches[name]`` for each kernel it launches,
+under a lock: a batch split over devices launches from one host thread per
+device.  ``load`` checks each device a wrapper launches on.
 """
 
 from __future__ import annotations
@@ -57,11 +59,14 @@ last_plan = {}
 
 _lock = threading.Lock()
 _lib: Optional[ct.CDLL] = None
+_capable = set()  # indices of the CUDA devices checked by load()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _find_nvcc() -> str:
@@ -119,56 +124,69 @@ def build(out_dir: str = BUILD_DIR) -> str:
     return lib
 
 
-def load() -> ct.CDLL:
-    """Build (if needed) and load the kernel library; check the device."""
+def load(device=None) -> ct.CDLL:
+    """Build (if needed) and load the kernel library; check that ``device``
+    (default: the current CUDA device) is compute capability 9.0.  Each
+    device is checked once."""
     global _lib
-    if _lib is not None:
+    idx = None if device is None else torch.device(device).index
+    if _lib is not None and idx in _capable:
         return _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ct.CDLL(build())
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the kernels need an sm_90 GPU")
-        cap = torch.cuda.get_device_capability()
-        if cap != (9, 0):
-            raise RuntimeError(
-                f"the kernels are built for compute capability 9.0 (sm_90a); "
-                f"{torch.cuda.get_device_name()} has {cap[0]}.{cap[1]}"
-            )
-        lib.sperr_quantize.restype = ct.c_int
-        lib.sperr_quantize.argtypes = [
-            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-            ct.c_longlong, ct.c_longlong, ct.c_void_p,
-        ]
-        lib.sperr_cdf97_lift.restype = ct.c_int
-        lib.sperr_cdf97_lift.argtypes = [
-            ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
-            ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
-            ct.POINTER(ct.c_float), ct.c_void_p,
-        ]
-        lib.sperr_cdf97_2d.restype = ct.c_int
-        lib.sperr_cdf97_2d.argtypes = [
-            ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_void_p, ct.c_void_p,
-            ct.c_void_p, ct.c_longlong, ct.POINTER(ct.c_float), ct.c_void_p,
-        ]
-        vp, ll = ct.c_void_p, ct.c_longlong
-        for name, args in (
-            ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, vp]),
-            ("sperr_masked_pack", [
-                ct.c_int, ct.POINTER(vp), ct.POINTER(vp), ct.POINTER(ll), ct.POINTER(ll),
-                ct.c_int, ll, ll, vp, vp, vp, vp, vp,
-            ]),
-            ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
-            ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
-        ):
-            fn = getattr(lib, name)
-            fn.restype = ct.c_int
-            fn.argtypes = args
-        lib.sperr_cuda_error_string.restype = ct.c_char_p
-        lib.sperr_cuda_error_string.argtypes = [ct.c_int]
-        _lib = lib
-        return lib
+        if _lib is None:
+            lib = ct.CDLL(build())
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: the kernels need an sm_90 GPU")
+            lib.sperr_quantize.restype = ct.c_int
+            lib.sperr_quantize.argtypes = [
+                ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+                ct.c_longlong, ct.c_longlong, ct.c_void_p,
+            ]
+            lib.sperr_cdf97_lift.restype = ct.c_int
+            lib.sperr_cdf97_lift.argtypes = [
+                ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
+                ct.c_int, ct.c_int, ct.c_int, ct.c_int, ct.c_int,
+                ct.POINTER(ct.c_float), ct.c_void_p,
+            ]
+            lib.sperr_cdf97_2d.restype = ct.c_int
+            lib.sperr_cdf97_2d.argtypes = [
+                ct.c_int, ct.c_int, ct.POINTER(ct.c_longlong), ct.c_void_p, ct.c_void_p,
+                ct.c_void_p, ct.c_longlong, ct.POINTER(ct.c_float), ct.c_void_p,
+            ]
+            vp, ll = ct.c_void_p, ct.c_longlong
+            for name, args in (
+                ("sperr_transpose_bits32", [vp, vp, vp, ll, ll, ct.c_int, vp]),
+                ("sperr_masked_pack", [
+                    ct.c_int, ct.POINTER(vp), ct.POINTER(vp), ct.POINTER(ll), ct.POINTER(ll),
+                    ct.c_int, ll, ll, vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
+                ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
+            ):
+                fn = getattr(lib, name)
+                fn.restype = ct.c_int
+                fn.argtypes = args
+            lib.sperr_cuda_error_string.restype = ct.c_char_p
+            lib.sperr_cuda_error_string.argtypes = [ct.c_int]
+            _lib = lib
+        if idx is None:
+            idx = torch.cuda.current_device()
+        if idx not in _capable:
+            cap = torch.cuda.get_device_capability(idx)
+            if cap != (9, 0):
+                raise RuntimeError(
+                    f"the kernels are built for compute capability 9.0 (sm_90a); "
+                    f"{torch.cuda.get_device_name(idx)} (cuda:{idx}) has {cap[0]}.{cap[1]}"
+                )
+            _capable.add(idx)
+        return _lib
+
+
+def _count(name: str, k: int = 1) -> None:
+    """Add k to ``launches[name]`` (the wrappers run on several host threads
+    when a batch is split over devices)."""
+    with _count_lock:
+        launches[name] += k
 
 
 def _check(lib: ct.CDLL, err: int, name: str) -> None:
@@ -225,7 +243,7 @@ def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
     B, n = coeffs.shape
     if B > 65535:
         raise ValueError(f"at most 65535 rows per launch; got {B}")
-    lib = load()
+    lib = load(coeffs.device)
     mags = torch.empty((B, n), dtype=torch.int32, device=coeffs.device)
     signs = torch.empty((B, n), dtype=torch.bool, device=coeffs.device)
     maxmag = torch.zeros((B,), dtype=torch.int32, device=coeffs.device)
@@ -235,7 +253,7 @@ def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
             signs.data_ptr(), maxmag.data_ptr(), B, n, _stream(coeffs),
         )
     _check(lib, err, "quantize")
-    launches["quantize"] += 1
+    _count("quantize")
     return mags, signs, maxmag
 
 
@@ -266,14 +284,14 @@ def cdf97_lift(
             f"a line of {L} samples needs {4 * L} bytes of shared memory; "
             f"the lifting kernel holds at most {LIFT_MAX_SHARED_BYTES}"
         )
-    lib = load()
+    lib = load(x.device)
     with _on_device(x):
         err = lib.sperr_cdf97_lift(
             x.data_ptr(), B, nz, ny, nx, lz, ly, lx, axis, int(bool(inverse)),
             _consts(consts), _stream(x),
         )
     _check(lib, err, "cdf97_lift")
-    launches["cdf97_lift"] += 1
+    _count("cdf97_lift")
 
 
 # ---------------------------------------------------------------------------
@@ -403,14 +421,14 @@ def _plane(x: torch.Tensor, inverse: bool, lev_hi: int, lev_lo: int, consts: np.
     ] if keep else []
     if B == 0:
         return out, lls
-    lib = load()
+    lib = load(x.device)
     with _on_device(x):
         err = lib.sperr_cdf97_2d(
             int(inverse), len(plan.launches), _plane_desc(plan, ny, nx, oy, ox, bool(inverse)),
             x.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, _consts(consts), _stream(x),
         )
     _check(lib, err, name)
-    launches[name] += len(plan.launches)
+    _count(name, len(plan.launches))
     last_plan[name] = plan
     return out, lls
 
@@ -467,14 +485,14 @@ def _transpose(name: str, a: torch.Tensor, b: Optional[torch.Tensor], per_word: 
             f"out must be (R, {W}) with rows row0 .. row0 + take - 1 inside it and "
             f"1 <= take <= 32; got {tuple(out.shape)}, row0 {row0}, take {take}"
         )
-    lib = load()
+    lib = load(a.device)
     with _on_device(a):
         err = lib.sperr_transpose_bits32(
             a.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), W, row0, take,
             _stream(a),
         )
     _check(lib, err, name)
-    launches["transpose_bits32"] += 1
+    _count("transpose_bits32")
     return out
 
 
@@ -547,7 +565,7 @@ def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
     i64 = torch.empty(2 + 2 * tiles + nrows, dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     n = len(parts)
-    lib = load()
+    lib = load(parts[0][0].device)
     with _on_device(parts[0][0]):
         err = lib.sperr_masked_pack(
             n, (ct.c_void_p * n)(*(v.data_ptr() for v, _ in parts)),
@@ -558,7 +576,7 @@ def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
             i64.data_ptr(), overflow.data_ptr(), _stream(parts[0][0]),
         )
     _check(lib, err, "masked_pack")
-    launches["masked_pack"] += 3 if tiles else 2
+    _count("masked_pack", 3 if tiles else 2)
     return i32[:out_words], i32[out_words : out_words + nrows], i64[0], overflow, i64[1]
 
 
@@ -580,14 +598,14 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
     count = torch.empty((B,), dtype=torch.int32, device=flags.device)
     status = torch.zeros(B * -(-n // _FLAG_TILE), dtype=torch.int64, device=flags.device)
-    lib = load()
+    lib = load(flags.device)
     with _on_device(flags):
         err = lib.sperr_flag_compact_rows(
             flags.data_ptr(), idx.data_ptr(), count.data_ptr(), status.data_ptr(),
             B, n, take, _stream(flags),
         )
     _check(lib, err, "compact_flags_rows")
-    launches["compact_flags_rows"] += 2
+    _count("compact_flags_rows", 2)
     return idx, count
 
 
@@ -629,7 +647,7 @@ def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Te
     mags = torch.empty((B, n), dtype=torch.int32, device=spass.device)
     overflow = torch.empty((B,), dtype=torch.bool, device=spass.device)
     scratch = torch.empty(B * (32 * nseg + 33), dtype=torch.int32, device=spass.device)
-    lib = load()
+    lib = load(spass.device)
     with _on_device(spass):
         err = lib.sperr_reconstruct_mags(
             spass.data_ptr(), words.data_ptr(), words.shape[1], ref_off.data_ptr(),
@@ -637,5 +655,5 @@ def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Te
             overflow.data_ptr(), B, n, take, _stream(spass),
         )
     _check(lib, err, "reconstruct_mags")
-    launches["reconstruct_mags"] += 3
+    _count("reconstruct_mags", 3)
     return mags, overflow

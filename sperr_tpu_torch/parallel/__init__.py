@@ -1,1 +1,2 @@
-"""Chunked drivers over the dense device stages."""
+"""Chunked drivers over the dense device stages, on one device, split over
+several (``devices=``), or across processes (``distributed``)."""

@@ -19,12 +19,22 @@ device (ops/wave_unpack.py, K13); it reconstructs on the device through the
 same functions that the encoder's residual scan simulates, so that scan
 certifies this decoder.
 
+A batch of chunks can be split over several devices (``devices=``, the
+port of the reference's chunk mesh): each sub-batch is cut along its chunk
+axis into one contiguous part per device, each part runs on its device from
+a host thread of its own, and the host stage keeps its one pool.  Every
+device stage computes each chunk on its own, so the bytes and the decodes do
+not depend on the split.
+
 Streams are SPERR format, as the reference's.  Arithmetic is f32.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import struct
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -69,6 +79,74 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def chunk_devices(devices=None) -> List[torch.device]:
+    """The devices a batch is split over (the counterpart of sperr_tpu's
+    ``make_chunk_mesh``): ``devices`` resolved, by default every CUDA
+    device (raises without a GPU).  A list may name a device more than once,
+    and its devices are all CUDA or all CPU."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available: name the devices")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = [_resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("devices is empty")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"devices must all be CUDA or all CPU; got {[str(d) for d in devs]}")
+    return devs
+
+
+def _device_list(device, devices) -> List[torch.device]:
+    """An entry point's ``device`` (default "cuda") or ``devices`` (a list
+    for ``chunk_devices``); naming both raises."""
+    if devices is None:
+        return [_resolve_device("cuda" if device is None else device)]
+    if device is not None:
+        raise ValueError("pass device or devices, not both")
+    if isinstance(devices, (str, torch.device)):
+        raise ValueError(f"devices must be a list of devices; got {devices!r}")
+    return chunk_devices(devices)
+
+
+def _placement(device) -> dict:
+    """``from_jax``'s ``device`` as an entry point's keyword: a list or tuple
+    is ``devices``, anything else ``device``."""
+    if isinstance(device, (list, tuple)):
+        return {"devices": list(device)}
+    return {"device": device}
+
+
+def _split(n: int, parts: int) -> List[Tuple[int, int]]:
+    """[a, b) bounds of ``parts`` contiguous pieces of n items, the first
+    n % parts of them one item longer (a piece may be empty)."""
+    q, r = divmod(n, parts)
+    bounds = [0]
+    for j in range(parts):
+        bounds.append(bounds[-1] + q + (j < r))
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _on_devices(ndev: int, tasks):
+    """Run ``tasks``, a list of (device slot, thunk), the thunks of each slot
+    in order on a host thread of their own (inline for one slot); return
+    their results in the order of ``tasks``.  Every thread ends before the
+    first failure raises."""
+    if ndev == 1:
+        return [fn() for _, fn in tasks]
+    out = [None] * len(tasks)
+
+    def run(j):
+        for t, (slot, fn) in enumerate(tasks):
+            if slot == j:
+                out[t] = fn()
+
+    with ThreadPoolExecutor(max_workers=ndev) as pool:
+        futures = [pool.submit(run, j) for j in range(ndev)]
+    for f in futures:
+        f.result()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +420,18 @@ def _wave_caps(li, dims3, tier, num_bp_cap: int) -> Dict[str, int]:
                 cells=cells, evb_cap=evb_cap, out_cap_bytes=out_cap_bytes)
 
 
+_INDEX_LOCKS: Dict[Tuple[int, ...], threading.Lock] = {}
+_INDEX_LOCKS_GUARD = threading.Lock()
+
+
+def _index_lock(dims) -> threading.Lock:
+    """The lock under which the indexes of chunks or fields of ``dims`` are
+    built and looked up: device threads that need one at once build it once
+    (the host trees under it are shared by every device)."""
+    with _INDEX_LOCKS_GUARD:
+        return _INDEX_LOCKS.setdefault(tuple(int(d) for d in dims), threading.Lock())
+
+
 def _wave_index(dims3, device):
     """(walk index, schedule index) of chunks of dims3 on device, as
     sperr_tpu's ``_dense_encode_wave`` chooses them: the virtual forest for
@@ -349,14 +439,15 @@ def _wave_index(dims3, device):
     with the pyramid-form schedule where its index builds (dyadic dims), the
     child-table schedule where it does not.  Each index is made once per
     (dims, device) and cached."""
-    if svirt._is_pow2_cube(dims3):
-        vf = svirt.virtual_lis_index(dims3, device)
-        return vf, vf
-    try:
-        si = spk.pyramid_index(dims3, device)
-    except ValueError:
-        si = spk.tree_index(dims3, device)
-    return sl.lis_index(dims3, device), si
+    with _index_lock(dims3):
+        if svirt._is_pow2_cube(dims3):
+            vf = svirt.virtual_lis_index(dims3, device)
+            return vf, vf
+        try:
+            si = spk.pyramid_index(dims3, device)
+        except ValueError:
+            si = spk.tree_index(dims3, device)
+        return sl.lis_index(dims3, device), si
 
 
 def _pixel_schedule(mags: torch.Tensor, si, num_bp):
@@ -412,9 +503,11 @@ def _stitch_wave(wave, k: int, dims3, budget: int) -> bytes:
     return sw.stitch_3d(num_bp, lip_segments, lis_segments, ref_segments, budget)
 
 
-def _group_parts(chunks, elem_budget: int, keep=None):
+def _group_parts(chunks, elem_budget: int, keep=None, ndev: int = 1):
     """Chunk indices grouped by shape (lz, ly, lx), each group cut into
-    sub-batches of at most ``elem_budget`` elements (at least one chunk)."""
+    sub-batches of at most ``elem_budget`` elements (at least one chunk),
+    whose size is a multiple of ``ndev`` where it exceeds it (sperr_tpu
+    keeps its sub-batches mesh-divisible the same way)."""
     groups: Dict[Tuple[int, int, int], List[int]] = {}
     for i, c in enumerate(chunks):
         if keep is None or i in keep:
@@ -422,6 +515,8 @@ def _group_parts(chunks, elem_budget: int, keep=None):
     parts = []
     for shape, idxs in groups.items():
         bmax = max(1, int(elem_budget // max(1, shape[0] * shape[1] * shape[2])))
+        if bmax > ndev:
+            bmax -= bmax % ndev
         for s0 in range(0, len(idxs), bmax):
             parts.append((shape, idxs[s0 : s0 + bmax]))
     return parts
@@ -435,7 +530,11 @@ class TorchCompressor3D:
     (``entropy="host"``) or on the device (``entropy="wave"``).
 
     ``device``: "cuda" (the default), "cuda:N" or "cpu"; "cuda" without a
-    GPU raises.  ``pwe_strict`` selects how the PWE bound is certified, as in
+    GPU raises.  ``devices``, in place of ``device``: a list of devices
+    (``chunk_devices``) that each sub-batch is split over, in contiguous
+    parts of its chunks, one host thread per device; a device may appear
+    more than once.  The containers equal a one-device run's byte for byte,
+    and ``loader`` is then called from those threads.  ``pwe_strict`` selects how the PWE bound is certified, as in
     ``TpuCompressor3D``: True (dual: exact f64 and this port's f32 decoder),
     "f64" (f64 decoders only), "device" (margin scan; the host-entropy path
     certifies on the host, the wave path scans on the device at
@@ -454,7 +553,7 @@ class TorchCompressor3D:
     ``last_wave_chunks`` counts the chunks the device entropy path encoded
     and ``last_wave_tiers`` names the tier (0-based) that held each chunk,
     or None where it took host entropy; ``last_d2h_bytes`` counts the bytes
-    copied from the device to the host.
+    copied from the devices to the host.
     """
 
     def __init__(
@@ -462,7 +561,8 @@ class TorchCompressor3D:
         vol_dims: Tuple[int, int, int],
         chunk_dims: Tuple[int, int, int] = (256, 256, 256),
         *,
-        device="cuda",
+        device=None,
+        devices=None,
         num_threads: Optional[int] = None,
         pwe_strict=True,
         entropy: str = "host",
@@ -472,8 +572,8 @@ class TorchCompressor3D:
             raise ValueError(f"entropy must be 'host' or 'wave'; got {entropy!r}")
         if transfer != "dense":
             raise NotImplementedError(
-                f"transfer={transfer!r}: the sparse transfer is ROADMAP "
-                "queue 1, entry 15 (left out unless a measurement asks for it)"
+                f"transfer={transfer!r}: the sparse transfer is not ported yet "
+                "(ROADMAP queue 1, entry 15)"
             )
         if pwe_strict not in (True, False, "f64", "device"):
             raise ValueError(f"pwe_strict must be True, False, 'f64' or 'device'; got {pwe_strict!r}")
@@ -481,11 +581,13 @@ class TorchCompressor3D:
         self.chunk_dims = tuple(
             min(max(1, int(chunk_dims[i])), self.vol_dims[i]) for i in range(3)
         )
-        self.device = _resolve_device(device)
+        self.devices = _device_list(device, devices)
+        self.device = self.devices[0]
         self.engine = default_engine()
         self.num_threads = num_threads
         self.pwe_strict = pwe_strict
         self.entropy = entropy
+        self._count_lock = threading.Lock()
         # device working set bounds, in elements per sub-batch: the dense
         # path keeps ~6x the input bytes on the device; the wave path keeps
         # each chunk's quantized values for the tier retries
@@ -502,18 +604,18 @@ class TorchCompressor3D:
     @classmethod
     def from_jax(cls, tpu_compressor, device) -> "TorchCompressor3D":
         """Settings of a ``sperr_tpu`` ``TpuCompressor3D`` that runs a dense
-        path (``transfer="dense"``, ``entropy`` "host" or "wave", no mesh)."""
+        path (``transfer="dense"``, ``entropy`` "host" or "wave").
+        ``device``: one device, or a list of devices that its chunk mesh,
+        if it has one, maps onto (``devices=``)."""
         t = tpu_compressor
         if t.transfer != "dense":
             raise NotImplementedError(
                 f"transfer={t.transfer!r} is not ported (ROADMAP queue 1, entry 15)"
             )
-        if t.mesh is not None:
-            raise NotImplementedError("a device mesh is not ported (ROADMAP queue 1, entry 13)")
         if np.dtype(t.dtype) != np.float32:
             raise NotImplementedError(f"dtype {np.dtype(t.dtype)} is not ported")
         out = cls(
-            t.vol_dims, t.chunk_dims, device=device, num_threads=t.num_threads,
+            t.vol_dims, t.chunk_dims, **_placement(device), num_threads=t.num_threads,
             pwe_strict=t.pwe_strict, entropy=t.entropy,
         )
         out.dense_elem_budget = t.dense_elem_budget
@@ -528,7 +630,8 @@ class TorchCompressor3D:
         return bool(wave["fits"][k]) and int(wave["num_bp"][k]) <= self.num_bp_cap
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        self.last_d2h_bytes += t.numel() * t.element_size()
+        with self._count_lock:
+            self.last_d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
 
     def compress(self, vol: np.ndarray, mode: str, quality: float) -> bytes:
@@ -569,20 +672,22 @@ class TorchCompressor3D:
         wave_tier: List[Optional[int]] = [None] * len(chunks)
         wave = self.entropy == "wave"
         elem_budget = self.wave_elem_budget if wave else self.dense_elem_budget
-        # the device stages run group by group (the budget bounds the device
-        # working set); the host stage of every chunk then runs in one pool
+        # the device stages run sub-batch by sub-batch (the budget bounds the
+        # device working set), each cut into one part per device; the host
+        # stage of every chunk then runs in one pool
+        ndev = len(self.devices)
+        tasks, parts = [], []
+        for (lz, ly, lx), idxs in _group_parts(chunks, elem_budget, ndev=ndev):
+            for j, (a, b) in enumerate(_split(len(idxs), ndev)):
+                if a < b:
+                    parts.append((idxs[a:b], (lx, ly, lz)))
+                    tasks.append((j, functools.partial(
+                        self._device_stage, self.devices[j], [chunks[i] for i in idxs[a:b]], loader,
+                        (lx, ly, lz), mode, quality, resid_mode,
+                    )))
         jobs = []
-        for (lz, ly, lx), idxs in _group_parts(chunks, elem_budget):
-            batch = np.stack(
-                [np.ascontiguousarray(loader(chunks[i])) for i in idxs]
-            ).astype(np.float32)
-            dev = torch.from_numpy(batch).to(self.device)
-            if wave:
-                g = self._wave_group(dev, (lx, ly, lz), mode, quality, resid_mode)
-            else:
-                g = self._dense_group(dev, mode, quality, resid_mode)
-            del dev
-            jobs += [(g, k, gi, (lx, ly, lz)) for k, gi in enumerate(idxs)]
+        for (idxs, dims3), g in zip(parts, _on_devices(ndev, tasks)):
+            jobs += [(g, k, gi, dims3) for k, gi in enumerate(idxs)]
 
         def encode_one(job) -> bytes:
             g, k, gi, dims3 = job
@@ -646,6 +751,16 @@ class TorchCompressor3D:
         self.last_wave_chunks = sum(t is not None for t in wave_tier)
         return streams
 
+    def _device_stage(self, device, specs, loader, dims3, mode: str, quality: float,
+                      resid_mode: str) -> "_Group":
+        """The device stage of one part of a sub-batch (chunks of one shape)
+        on ``device``."""
+        batch = np.stack([np.ascontiguousarray(loader(c)) for c in specs]).astype(np.float32)
+        dev = torch.from_numpy(batch).to(device)
+        if self.entropy == "wave":
+            return self._wave_group(dev, dims3, mode, quality, resid_mode)
+        return self._dense_group(dev, mode, quality, resid_mode)
+
     def _dense_group(self, dev, mode: str, quality: float, resid_mode: str) -> "_Group":
         """Host entropy: the dense results of every chunk go to the host."""
         dense = {k: self._to_host(v) for k, v in _dense_encode(dev, mode, quality, resid_mode).items()}
@@ -690,7 +805,7 @@ class TorchCompressor3D:
         # chunks with more re-run through the dense front
         wave_out_cap = max(1024, n // 1024)
         tiers = self.wave_tiers if self.wave_tiers is not None else wave_tiers_for(n)
-        li, si = _wave_index(dims3, self.device)
+        li, si = _wave_index(dims3, dev.device)
         caps = [_wave_caps(li, dims3, t, self.num_bp_cap) for t in tiers]
 
         fronts = []
@@ -824,6 +939,16 @@ class _HostParse:
         self.ctl: List[Optional[tuple]] = [None] * B
         self.route: List[Optional[str]] = [None] * B
         self.h2d_bytes = 0
+
+    def rows(self, a: int, b: int) -> "_HostParse":
+        """Rows a .. b-1 as a _HostParse of their own, for one device: its
+        arrays are views of these, its lists copies, ``h2d_bytes`` 0."""
+        part = copy.copy(self)
+        for name in ("mags", "signs", "qs", "means", "spass", "consts", "outliers", "ctl", "route"):
+            v = getattr(self, name)
+            setattr(part, name, None if v is None else v[a:b])
+        part.h2d_bytes = 0
+        return part
 
     def parse(self, engine, k: int, cs: bytes, ndim: int, dims3) -> None:
         condi = cs[:17]
@@ -961,7 +1086,9 @@ class _HostParse:
 
 class TorchDecompressor3D:
     """Chunked 3D decompressor: SPECK parsed on the host, reconstruction on
-    ``device`` ("cuda", the default, "cuda:N" or "cpu").
+    ``device`` ("cuda", the default, "cuda:N" or "cpu"), or split over
+    ``devices`` as ``TorchCompressor3D`` splits its batches (the volume is
+    the same element for element).
 
     ``hybrid``: how the chunks' SPECK streams are consumed.
       None (auto): on a CUDA device, the hybrid split of sperr_tpu's
@@ -979,9 +1106,10 @@ class TorchDecompressor3D:
     ("hybrid off", "num_bp", "evw_cap"), and ``last_h2d_bytes`` the bytes
     copied to the device."""
 
-    def __init__(self, *, device="cuda", num_threads: Optional[int] = None,
+    def __init__(self, *, device=None, devices=None, num_threads: Optional[int] = None,
                  hybrid: Optional[bool] = None):
-        self.device = _resolve_device(device)
+        self.devices = _device_list(device, devices)
+        self.device = self.devices[0]
         self.engine = default_engine()
         self.num_threads = num_threads
         self.hybrid = hybrid
@@ -1044,25 +1172,17 @@ class TorchDecompressor3D:
         self.last_hybrid_chunks = 0
         self.last_full_parse_chunks = {}
         self.last_h2d_bytes = 0
-        for (lz, ly, lx), idxs in _group_parts(chunks, _DECODE_ELEM_BUDGET, keep):
-            hp = _HostParse(len(idxs), lx * ly * lz, control=control)
-            streams = []
-            for gi in idxs:
-                off, ln = h.chunk_offsets[gi * 2], h.chunk_offsets[gi * 2 + 1]
-                streams.append(stream[off : off + ln])
-            hp.parse_all(self.engine, streams, idxs, 3, (lx, ly, lz), self.num_threads)
-            rec = hp.reconstruct(self.device, (lz, ly, lx), multi_res, self.engine, (lx, ly, lz))
-            self.last_h2d_bytes += hp.h2d_bytes
-            for r in hp.route:
-                if r == "control":
-                    self.last_hybrid_chunks += 1
-                elif r is not None:
-                    self.last_full_parse_chunks[r] = self.last_full_parse_chunks.get(r, 0) + 1
+        ndev = len(self.devices)
+
+        def rebuild(hp: _HostParse, device, idxs, dims3) -> _HostParse:
+            # one device's part of a sub-batch: reconstruction, then its
+            # chunks' blocks (disjoint from every other part's)
+            lx, ly, lz = dims3
+            rec = hp.reconstruct(device, (lz, ly, lx), multi_res, self.engine, dims3)
             hier_np = []
             if multi_res:
                 rec, hier = rec
                 hier_np = [t.cpu().numpy() for t in hier]
-
             if to_host:
                 rech = rec.cpu().numpy()
                 for k, gi in enumerate(idxs):
@@ -1084,17 +1204,36 @@ class TorchDecompressor3D:
                     key = (c[4], c[2], c[0], c[5], c[3], c[1])
                     if hp.consts[k] is not None:
                         vol[key] = torch.full(
-                            (c[5], c[3], c[1]), hp.consts[k], dtype=torch.float32,
-                            device=self.device,
+                            (c[5], c[3], c[1]), hp.consts[k], dtype=torch.float32, device=device,
                         )
                         continue
                     block = rec[k]
                     if hp.outliers[k] is not None:
                         pos, corr = hp.outliers[k]
-                        p = torch.from_numpy(np.asarray(pos, dtype=np.int64)).to(self.device)
-                        cv = torch.from_numpy(corr.astype(np.float32)).to(self.device)
+                        p = torch.from_numpy(np.asarray(pos, dtype=np.int64)).to(device)
+                        cv = torch.from_numpy(corr.astype(np.float32)).to(device)
                         flat = block.reshape(-1)
                         flat[p] = flat[p] + cv
                     vol[key] = block
+            return hp
+
+        for (lz, ly, lx), idxs in _group_parts(chunks, _DECODE_ELEM_BUDGET, keep, ndev):
+            hp = _HostParse(len(idxs), lx * ly * lz, control=control)
+            streams = []
+            for gi in idxs:
+                off, ln = h.chunk_offsets[gi * 2], h.chunk_offsets[gi * 2 + 1]
+                streams.append(stream[off : off + ln])
+            hp.parse_all(self.engine, streams, idxs, 3, (lx, ly, lz), self.num_threads)
+            tasks = [
+                (j, functools.partial(rebuild, hp.rows(a, b), self.devices[j], idxs[a:b], (lx, ly, lz)))
+                for j, (a, b) in enumerate(_split(len(idxs), ndev)) if a < b
+            ]
+            for part in _on_devices(ndev, tasks):
+                self.last_h2d_bytes += part.h2d_bytes
+                for r in part.route:
+                    if r == "control":
+                        self.last_hybrid_chunks += 1
+                    elif r is not None:
+                        self.last_full_parse_chunks[r] = self.last_full_parse_chunks.get(r, 0) + 1
         self.hierarchy = hierarchy
         return vol, h.vol_dims

@@ -21,13 +21,16 @@ simulates (K3), so the dual certificate covers it.
 Conventions are the JAX path's: ``dims = (nx, ny)``, fields are (ny, nx),
 the engine codes (nx, ny, 1), and the host's exact f64 residual scans the
 field as the wavelet-packet 3D transform with nz = 1, which is the 2D
-transform.  Streams are reference-format 2D payloads: [10-byte header when
-requested] conditioner (17 B), SPECK, [outliers]
+transform.  A batch can be split over several devices (``devices=``), as
+the 3D drivers split theirs.  Streams are reference-format 2D payloads:
+[10-byte header when requested] conditioner (17 B), SPECK, [outliers]
 (utilities/sperr2d.cpp:278-290).  Arithmetic is f32.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -52,8 +55,12 @@ from .batched import (
     _certify_dual,
     _condi_header,
     _dense_encode_rows,
-    _resolve_device,
+    _device_list,
+    _index_lock,
+    _on_devices,
+    _placement,
     _residual_outliers,
+    _split,
     _width_for,
 )
 
@@ -95,7 +102,8 @@ def _wave_caps2(n: int, num_bp_cap: int, node_cap: int, ev_cap: int) -> Dict[str
 def _wave_index2(dims2, device):
     """(child-table schedule index, walk index, quad/I-set tree) of fields of
     dims2 = (nx, ny) on device, each made once and cached."""
-    return spk.tree_index(dims2, device), sl2.lis2_index(dims2, device), sw.build_tree2(dims2)
+    with _index_lock(dims2):
+        return spk.tree_index(dims2, device), sl2.lis2_index(dims2, device), sw.build_tree2(dims2)
 
 
 def _wave_emit_field(mags: torch.Tensor, signs: torch.Tensor, index, caps: Dict[str, int],
@@ -129,9 +137,12 @@ class TorchCompressor2D:
     (``entropy="host"``) or on the device (``entropy="wave"``).
 
     ``dims``: (nx, ny).  ``device``: "cuda" (the default; raises without a
-    GPU), "cuda:N" or "cpu".  ``pwe_strict``: True (dual certificate: exact
-    f64 decoders and this port's f32 decoder), "f64" (f64 decoders only) or
-    False (f32 scan at tol).  ``with_header`` prefixes each stream with the
+    GPU), "cuda:N" or "cpu"; or ``devices``, a list of devices that each
+    sub-batch is split over in contiguous parts, one host thread per device
+    (a device may appear more than once; the streams are the same).
+    ``pwe_strict``: True (dual certificate: exact f64 decoders and this
+    port's f32 decoder), "f64" (f64 decoders only) or False (f32 scan at
+    tol).  ``with_header`` prefixes each stream with the
     10-byte 2D header.  ``compress_batch`` cuts the batch into sub-batches
     of at most ``elem_budget`` elements.
 
@@ -154,7 +165,8 @@ class TorchCompressor2D:
         self,
         dims: Tuple[int, int],
         *,
-        device="cuda",
+        device=None,
+        devices=None,
         pwe_strict=True,
         with_header: bool = False,
         num_threads: Optional[int] = None,
@@ -165,10 +177,12 @@ class TorchCompressor2D:
         if pwe_strict not in (True, False, "f64"):
             raise ValueError(f"pwe_strict must be True, False or 'f64'; got {pwe_strict!r}")
         self.dims = (int(dims[0]), int(dims[1]))
-        self.device = _resolve_device(device)
+        self.devices = _device_list(device, devices)
+        self.device = self.devices[0]
         self.engine = default_engine()
         self.num_threads = num_threads
         self.pwe_strict = pwe_strict
+        self._count_lock = threading.Lock()
         self.with_header = with_header
         self.entropy = entropy
         # device working set bound, in elements per sub-batch
@@ -183,15 +197,14 @@ class TorchCompressor2D:
 
     @classmethod
     def from_jax(cls, tpu_compressor2d, device) -> "TorchCompressor2D":
-        """Settings of a ``sperr_tpu`` ``TpuCompressor2D`` (either entropy, no
-        mesh, f32)."""
+        """Settings of a ``sperr_tpu`` ``TpuCompressor2D`` (either entropy,
+        f32).  ``device``: one device, or a list of devices that its mesh, if
+        it has one, maps onto (``devices=``)."""
         t = tpu_compressor2d
-        if t.mesh is not None:
-            raise NotImplementedError("a device mesh is not ported (ROADMAP queue 1, entry 13)")
         if np.dtype(t.dtype) != np.float32:
             raise NotImplementedError(f"dtype {np.dtype(t.dtype)} is not ported")
         out = cls(
-            t.dims, device=device, pwe_strict=t.pwe_strict, with_header=t.with_header,
+            t.dims, **_placement(device), pwe_strict=t.pwe_strict, with_header=t.with_header,
             num_threads=t.num_threads, entropy=t.entropy,
         )
         out.elem_budget = t.elem_budget
@@ -200,7 +213,8 @@ class TorchCompressor2D:
         return out
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        self.last_d2h_bytes += t.numel() * t.element_size()
+        with self._count_lock:
+            self.last_d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
 
     def _wave_fits(self, wave, k: int, n: int) -> bool:
@@ -226,6 +240,9 @@ class TorchCompressor2D:
         is_float = fields.dtype == np.float32
         fields = fields.reshape(-1, ny, nx)
         bmax = max(1, self.elem_budget // (nx * ny))
+        ndev = len(self.devices)
+        if bmax > ndev:
+            bmax -= bmax % ndev  # sub-batches that the devices divide
         streams: List[bytes] = []
         uncertified = 0
         tiers: List[Optional[int]] = []
@@ -246,18 +263,22 @@ class TorchCompressor2D:
         B = fields.shape[0]
         batch = np.ascontiguousarray(fields, dtype=np.float32)
         resid_mode = _resid_mode(mode, self.pwe_strict)
-        x = torch.from_numpy(batch).to(self.device)
-        if self.entropy == "wave":
-            g = self._wave_group(x, mode, quality, resid_mode)
-        else:
-            g = self._dense_group(x, mode, quality, resid_mode)
-        del x
+        # one contiguous part of the fields per device; field i is row
+        # i - a of its part's group
+        ndev = len(self.devices)
+        parts = [(j, a, b) for j, (a, b) in enumerate(_split(B, ndev)) if a < b]
+        groups = _on_devices(ndev, [
+            (j, functools.partial(self._device_stage, self.devices[j], batch[a:b], mode, quality, resid_mode))
+            for j, a, b in parts
+        ])
+        row = [(g, i - a) for g, (_, a, b) in zip(groups, parts) for i in range(a, b)]
         budget = int(quality * n) if mode == "rate" else 0
         hdr = tools.generate_2d_header(self.dims, is_float) if self.with_header else b""
         uncertified = [0] * B
         wave_tier: List[Optional[int]] = [None] * B
 
-        def encode_one(k: int) -> bytes:
+        def encode_one(i: int) -> bytes:
+            g, k = row[i]
             if bool(g.small["is_const"][k]):
                 return hdr + _condi_header(True, float(g.small["v0"][k]), n, 0.0, 0.0)
             # strict PWE stores the reference's exact f64 q = 1.5*tol
@@ -266,7 +287,7 @@ class TorchCompressor2D:
             condi = _condi_header(False, 0.0, 0, mean, q)
             wv = g.waves[k]
             if wv is not None and self._wave_fits(wv, 0, n):
-                wave_tier[k] = g.tiers[k]
+                wave_tier[i] = g.tiers[k]
                 body = self._stitch_wave2(wv, 0, budget)
             else:
                 mags, signs = g.mags_signs(k)
@@ -278,7 +299,7 @@ class TorchCompressor2D:
 
             def exact_scan(tol):
                 # the exact f64 decoder-visible residual, on the host
-                orig = np.asarray(batch[k], dtype=np.float64).ravel()
+                orig = np.asarray(batch[i], dtype=np.float64).ravel()
                 return _residual_outliers(g.ll(k), (nx, ny, 1), q, mean, orig, tol)
 
             if resid_mode == "none":
@@ -292,7 +313,7 @@ class TorchCompressor2D:
                     pos64, errs64 = exact_scan(quality - kappa)
                     pos, errs, cert_ok = _certify_dual(pos64, errs64, pos, errs, quality, eta, q)
                     if not (cert_ok and eta <= 0.125 * quality):
-                        uncertified[k] = 1
+                        uncertified[i] = 1
             out_stream = b""
             if len(pos):
                 out_stream = outlier_mod.encode_outliers(pos, errs, n, quality)
@@ -301,6 +322,14 @@ class TorchCompressor2D:
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             streams = list(pool.map(encode_one, range(B)))
         return streams, sum(uncertified), wave_tier
+
+    def _device_stage(self, device, fields: np.ndarray, mode: str, quality: float,
+                      resid_mode: str) -> _Group:
+        """The device stage of one part of a sub-batch on ``device``."""
+        x = torch.from_numpy(fields).to(device)
+        if self.entropy == "wave":
+            return self._wave_group(x, mode, quality, resid_mode)
+        return self._dense_group(x, mode, quality, resid_mode)
 
     def _dense_group(self, x, mode: str, quality: float, resid_mode: str) -> _Group:
         """Host entropy: the dense results of every field go to the host."""
@@ -347,7 +376,7 @@ class TorchCompressor2D:
         n = nx * ny
         front = _dense_encode_rows(x, mode, quality, resid_mode, cdf97.dwt2d, cdf97.idwt2d, out_cap=n)
         mags, signs = front["mags"], front["signs"]
-        index = _wave_index2(self.dims, self.device)
+        index = _wave_index2(self.dims, x.device)
         node_cap = index[1].nn  # exact: the walk never overflows on nodes
         caps = [_wave_caps2(n, self.num_bp_cap, node_cap, max(4096, int(t * n)))
                 for t in self.wave_event_tiers]
@@ -437,15 +466,18 @@ class TorchCompressor2D:
 
 class TorchDecompressor2D:
     """Batched 2D decompressor: SPECK parsed on the host, reconstruction
-    (K3) on ``device`` ("cuda", the default, "cuda:N" or "cpu").
+    (K3) on ``device`` ("cuda", the default, "cuda:N" or "cpu"), or split
+    over ``devices`` as ``TorchCompressor2D`` splits its batches.
 
     After a ``multi_res`` decode, ``hierarchy[k]`` holds field k's coarse
     reconstructions, coarsest first, as utils.dims.coarsened_resolutions
     lists them (with the mean, without outlier corrections)."""
 
-    def __init__(self, dims: Tuple[int, int], *, device="cuda", num_threads: Optional[int] = None):
+    def __init__(self, dims: Tuple[int, int], *, device=None, devices=None,
+                 num_threads: Optional[int] = None):
         self.dims = (int(dims[0]), int(dims[1]))
-        self.device = _resolve_device(device)
+        self.devices = _device_list(device, devices)
+        self.device = self.devices[0]
         self.engine = default_engine()
         self.num_threads = num_threads
         self.hierarchy: List[List[np.ndarray]] = []
@@ -472,17 +504,30 @@ class TorchDecompressor2D:
 
         out: List[np.ndarray] = []
         self.hierarchy = []
+        ndev = len(self.devices)
         bmax = max(1, _DECODE_ELEM_BUDGET // n)
+        if bmax > ndev:
+            bmax -= bmax % ndev
+
+        def rebuild(hp: _HostParse, device, rech: np.ndarray):
+            # one part's fields, rebuilt on its device and copied into rech
+            rec = hp.reconstruct(device, (ny, nx), multi_res)
+            hier = []
+            if multi_res:
+                rec, hier = rec
+            torch.from_numpy(rech).copy_(rec)
+            return [t.cpu().numpy() for t in hier]
+
         for s0 in range(0, len(bodies), bmax):
             part = bodies[s0 : s0 + bmax]
             hp = _HostParse(len(part), n)
             hp.parse_all(self.engine, part, list(range(s0, s0 + len(part))), 2, (nx, ny, 1), self.num_threads)
-            rec = hp.reconstruct(self.device, (ny, nx), multi_res)
-            hier_np = []
-            if multi_res:
-                rec, hier = rec
-                hier_np = [t.cpu().numpy() for t in hier]
-            rech = rec.cpu().numpy()
+            rech = np.empty((len(part), ny, nx), dtype=np.float32)
+            hiers = _on_devices(ndev, [
+                (j, functools.partial(rebuild, hp.rows(a, b), self.devices[j], rech[a:b]))
+                for j, (a, b) in enumerate(_split(len(part), ndev)) if a < b
+            ])
+            hier_np = [np.concatenate(levels) for levels in zip(*hiers)]
             for k in range(len(part)):
                 if hp.consts[k] is not None:
                     out.append(np.full((ny, nx), hp.consts[k], dtype=np.float32))

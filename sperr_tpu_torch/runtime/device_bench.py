@@ -122,20 +122,24 @@ def busy_ms(fn: Callable, calls: int):
     """(device-busy milliseconds per call of fn(), {kernel or copy name: ms
     per call}): the summed device time of its kernels and copies in a
     torch.profiler trace of ``calls`` calls after a warm-up, the gaps
-    between them left out.  Raises if the trace holds no device time."""
+    between them left out.  The profiler can lose a whole trace (seen once
+    on an H100, after some hundred traces in one process): a trace that
+    holds no device time is taken again, twice at most, and then this
+    raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per_name = {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-                if e.self_device_time_total > 0}
-    if not per_name:
-        raise RuntimeError("the profiler's trace holds no device time")
-    return sum(per_name.values()), per_name
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per_name = {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+                    if e.self_device_time_total > 0}
+        if per_name:
+            return sum(per_name.values()), per_name
+    raise RuntimeError("the profiler's trace held no device time, three times")
 
 
 def host_waits(fn: Callable) -> int:
@@ -311,7 +315,7 @@ def pipeline_stages(n: int = 256, batch: int = 1, tol: float = 1e-2,
     and the decode core (invquant -> IDWT -> +mean).  Returns seconds per
     stage plus derived GB/s over the batch bytes.  The JAX module's
     ``encode_core_sparse`` stage is the sparse transfer, which the port
-    leaves out (ROADMAP queue 1, entry 15), so its keys are absent.
+    has not ported yet (ROADMAP queue 1, entry 15), so its keys are absent.
     """
     dev = _resolve_device(device)
     rng = np.random.default_rng(3)

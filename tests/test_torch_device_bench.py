@@ -212,3 +212,34 @@ def test_compared_stages_share_one_method(hows, want, monkeypatch):
 def test_time_ms_names_its_methods():
     with pytest.raises(ValueError, match="no timer"):
         tdb.time_ms(lambda: None, 1, how="wall")
+
+
+@pytest.mark.parametrize("empty,ok", [(1, True), (2, True), (3, False)])
+def test_busy_ms_takes_a_lost_trace_again(empty, ok, monkeypatch):
+    """A profiler trace that holds no device time is taken again, twice at
+    most; the third empty trace raises."""
+    import contextlib
+    import types
+
+    import torch.profiler
+
+    traces = []
+
+    @contextlib.contextmanager
+    def fake_profile(activities):
+        k = len(traces)
+        traces.append(k)
+        ev = types.SimpleNamespace(key="k", self_device_time_total=0 if k < empty else 2000.0)
+        yield types.SimpleNamespace(key_averages=lambda: [ev])
+
+    monkeypatch.setattr(torch.profiler, "profile", fake_profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    if ok:
+        assert tdb.busy_ms(lambda: calls.append(1), 2) == (1.0, {"k": 1.0})
+        assert len(traces) == empty + 1
+    else:
+        with pytest.raises(RuntimeError, match="no device time, three times"):
+            tdb.busy_ms(lambda: calls.append(1), 2)
+        assert len(traces) == 3
+    assert len(calls) == 1 + 2 * len(traces)

@@ -63,7 +63,8 @@ def test_the_scan_sees_the_whole_port():
               "sperr_tpu_torch/codec/speck_wave.py", "sperr_tpu_torch/parallel/chunked3d.py",
               "sperr_tpu_torch/ops/speck_lis2.py", "sperr_tpu_torch/codec/speck_sorted.py",
               "sperr_tpu_torch/cli/sperr3d.py", "sperr_tpu_torch/capi.py",
-              "sperr_tpu_torch/runtime/device_bench.py", "sperr_tpu_torch/utils/stats.py"):
+              "sperr_tpu_torch/runtime/device_bench.py", "sperr_tpu_torch/utils/stats.py",
+              "sperr_tpu_torch/parallel/distributed.py", "sperr_tpu_torch/parallel/transport.py"):
         assert f in _PORT_FILES
     # the scan finds imports inside functions too
     assert "sperr_tpu_torch.utils.dims" in set(_imported_names("chip_smoke.py"))
@@ -118,6 +119,18 @@ with tempfile.TemporaryDirectory() as tmp:
                         "32", "32", "--pwe", str(tol), "--bitstream", bs]) == 0
     with open(bs, "rb") as f:
         assert f.read() == streams[0], "the tool's container differs from TorchCompressor3D's"
+from sperr_tpu_torch.parallel import distributed as td
+from sperr_tpu_torch.parallel.transport import LocalTransport
+
+def loader(c):
+    return vol[c[4] : c[4] + c[5], c[2] : c[2] + c[3], c[0] : c[0] + c[1]]
+
+factory = td.device_compressor_factory((32, 32, 32), devices=["cpu", "cpu"], entropy="wave")
+s = td.compress_distributed(loader, (64, 64, 64), (32, 32, 32), "pwe", tol, compressor_factory=factory,
+                            transport=LocalTransport())
+assert s == streams[0], "the distributed container over two devices differs"
+out, _ = td.decompress_distributed(s, decompressor_factory=lambda: TorchDecompressor3D(devices=["cpu"] * 2))
+assert np.array_equal(out, TorchDecompressor3D(device="cpu").decompress(s)[0])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("sperr_tpu", "jax", "jaxlib"))
 assert not bad, bad
 print("ok", len(streams[0]), sum(len(s) for s in s2))

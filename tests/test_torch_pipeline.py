@@ -187,11 +187,6 @@ def test_unported_options_raise():
         tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK), "cpu")
     with pytest.raises(NotImplementedError, match="entry 15"):
         tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave"), "cpu")
-    with pytest.raises(NotImplementedError):
-        tb.TorchCompressor3D.from_jax(
-            jb.TpuCompressor3D(DIMS, CHUNK, transfer="dense", mesh=jb.make_chunk_mesh()),
-            "cpu",
-        )
     # the dense-transfer wave configuration is ported
     p = tb.TorchCompressor3D.from_jax(
         jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave", transfer="dense"), "cpu"

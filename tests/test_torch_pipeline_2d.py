@@ -257,8 +257,6 @@ def test_unported_options_raise():
         tb2.TorchCompressor2D((NX, NY), device="cpu", entropy="events")
     with pytest.raises(ValueError, match="pwe_strict"):
         tb2.TorchCompressor2D((NX, NY), device="cpu", pwe_strict="device")
-    with pytest.raises(NotImplementedError):
-        tb2.TorchCompressor2D.from_jax(jb2.TpuCompressor2D((NX, NY), mesh=jb.make_chunk_mesh()), "cpu")
     with pytest.raises(ValueError, match="mode"):
         tb2.TorchCompressor2D((NX, NY), device="cpu").compress(_field(NX, NY), "lossless", 1.0)
 
