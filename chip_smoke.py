@@ -16,7 +16,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (1, 1800, 3600);
      the bit transpose K10, the masked pack K11 and the flag compaction K12
      bit for bit on the inputs that one 256^3 chunk's schedule and walk give
-     them, at the first tier and at the widest; the hybrid decode's K13 bit
+     them, at the first tier and at the widest, and K12 at the sparse
+     transfer's shape (that chunk's nonzero flags, take n/2, beside
+     torch.nonzero); the hybrid decode's K13 bit
      for bit on the control parse of one 256^3 chunk's stream, that stream
      truncated, an all-zero chunk, and a stream past a small active-word
      cap);
@@ -75,11 +77,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
      over a gloo group (``--rank``, below), each loading only its own
      chunks: rank 0's container over both transports equal to phase 4's,
      the distributed decode equal to phase 4's, K1's launches over both
-     ranks equal to phase 6's; each rank prints one JSON line.
+     ranks equal to phase 6's; each rank prints one JSON line;
+ 13. the sparse transfer (transfer="sparse", the default; phases 4-12 pass
+     transfer="dense"): phase 4's volume with host and wave entropy, each
+     container equal to phase 4's byte for byte and each decode phase 4's,
+     K1, the lifting kernel and K12 launched (the wave route also K10,
+     K11), the bound under the port's decoder and the host f64 decoder;
+     warm encodes of both transfers alternating on each route with their
+     device to host bytes; every chunk through the dense re-run (container
+     equal to phase 4's); pwe_strict="device" (bound under both decoders).
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time
 and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
+The K12 entry also holds its time at the sparse transfer's shape and its
+launches on that path (``sparse``).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -549,7 +561,7 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
 
     runs = {}
     for entropy in ("host", "wave"):
-        comp = tb.TorchCompressor3D(dims, chunk, device=dev, entropy=entropy)
+        comp = tb.TorchCompressor3D(dims, chunk, device=dev, entropy=entropy, transfer="dense")
         comp.compress(vol, "pwe", tol)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -608,7 +620,8 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
             num_bp = pm.max()
             s, e, nm = tb._pixel_schedule(mags, si, num_bp)
             node_s = torch.where(nm > 0, num_bp - nm, 0x7FFF).to(torch.int32)
-            return speck_lis.lis_segments_device(node_s, s, signs, num_bp, li, caps["P"], caps["node_cap"])
+            return speck_lis.lis_segments_device(node_s, s, signs, num_bp, li, caps["P"], caps["node_cap"],
+                                                 return_events="items")
 
         def emit():
             return tb._wave_emit_chunk(mags, signs, li, caps, si)
@@ -656,8 +669,8 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     pyr_ms, pyr_how = time_ms(lambda: spk.pixel_schedule_pyramid(mags, pi, num_bp), 5)
     tree_ms, tree_how = time_ms(lambda: spk.pixel_schedule(mags, ti, num_bp), 5)
     del front, mags, a, b
-    s_host = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev).compress(pvol, "pwe", tol)
-    wave = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, entropy="wave")
+    s_host = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, transfer="dense").compress(pvol, "pwe", tol)
+    wave = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, entropy="wave", transfer="dense")
     s_wave = wave.compress(pvol, "pwe", tol)
     _check(s_wave == s_host, "the pyramid-form wave stream differs from the host one")
     _check(wave.last_wave_chunks == 1, "the pyramid-form chunk took host entropy")
@@ -866,8 +879,8 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
         s3 = f.read()
     _check(s3 == stream4, "the 3D tool's container differs from phase 4's")
     print(f"[cli] 512^3 container of the tool: {len(s3)} bytes, equal to phase 4's byte for byte "
-          "(phase 4 calls TorchCompressor3D((512, 512, 512), (256, 256, 256), device='cuda'), "
-          "as the tool does)")
+          "(the tool calls TorchCompressor3D((512, 512, 512), (256, 256, 256), device='cuda') with the "
+          "sparse transfer, the default; phase 4 passes transfer='dense')")
     _cli("sperr3d", "-d", path("v.sperr"), "--exec", "cuda", "--decomp_f", path("v.f32"))
     out = np.fromfile(path("v.f32"), dtype=np.float32).reshape(out4.shape)
     _check(np.array_equal(out, out4), "the 3D tool's decode differs from phase 4's TorchDecompressor3D")
@@ -1021,7 +1034,7 @@ def _rank_main(argv) -> int:
             return out
 
     mine = td.local_chunk_ids(len(chunk_volume(dims, cd)), rank, 2)
-    factory = td.device_compressor_factory(cd, entropy="wave")
+    factory = td.device_compressor_factory(cd, entropy="wave", transfer="dense")
     torch.cuda.reset_peak_memory_stats(card)
     rec = {"rank": rank, "card": str(card), "card_name": torch.cuda.get_device_name(card),
            "chunks": mine, "ready_s": t_ready, "encode_s": {}, "gathered_bytes": {}, "launches": {}}
@@ -1120,7 +1133,8 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
     for entropy, need in (("host", ("quantize", "cdf97_lift")),
                           ("wave", ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack",
                                     "compact_flags_rows"))):
-        comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), devices=devs, entropy=entropy)
+        comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), devices=devs, entropy=entropy,
+                                 transfer="dense")
         vol = np.fromfile(vol_path, dtype=np.float32).reshape(512, 512, 512)
         s, wall = run(lambda: comp.compress(vol, "pwe", tol), f"3D encode, entropy={entropy}", need)
         _check(s == stream4, f"the {entropy} container over {devs} differs from phase 4's")
@@ -1211,6 +1225,99 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
                       + f", decode {rec['decode_s']:.3f} s, peak {rec['peak_bytes']} bytes" for rec in recs)
           + f" -- {smi}")
     print(f"[multi] phase 12 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
+
+
+def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense: dict, d2h: dict) -> dict:
+    """13. The sparse transfer (``transfer="sparse"``, the default) on phase
+    4's 512^3 volume at PWE 1e-2, host and wave entropy.  Each route's
+    containers must equal phase 4's byte for byte and their decodes phase
+    4's decode, with K1, the lifting kernel and K12 (the wave route also
+    K10, K11) launched between the counts set to 0 and read; the bound is
+    checked under the port's decoder and the host f64 decoder.  Warm
+    encodes of both transfers alternate on each route (``dense``: phases 4
+    and 6's warm compressors), two timed runs each, with the device to host
+    bytes beside phases 4 and 6's (``d2h``).  Then a sparse_cap_frac that
+    sends every chunk through the dense re-run (container equal to phase
+    4's), and pwe_strict="device" (bound under both decoders).  Returns the
+    host route's launches."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
+    from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    vol = np.fromfile(vol_path, dtype=np.float32).reshape(512, 512, 512)
+    v64 = vol.astype(np.float64)
+    dec = TorchDecompressor3D(device="cuda")
+
+    def bound(stream, label):
+        ours, _ = dec.decompress(stream)
+        host, _ = Sperr3DDecompressor().decompress(stream)
+        e_port = float(np.abs(ours.astype(np.float64) - v64).max())
+        e_host = float(np.abs(host.reshape(vol.shape) - v64).max())
+        print(f"[sparse] {label}: max|err| / tol port decoder {e_port / tol:.6f}, host f64 decoder "
+              f"{e_host / tol:.6f}")
+        _check(e_port <= tol and e_host <= tol, f"{label}: the PWE bound does not hold")
+        return ours
+
+    want = {"host": ("quantize", "cdf97_lift", "compact_flags_rows"),
+            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "transpose_bits32", "masked_pack")}
+    launches = {}
+    walls = {}
+    for entropy, phase in (("host", 4), ("wave", 6)):
+        sp = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", entropy=entropy)
+        _check(sp.transfer == "sparse", "the sparse transfer is not the default")
+        sp.compress(vol, "pwe", tol)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        s = sp.compress(vol, "pwe", tol)
+        torch.cuda.synchronize()
+        launches[entropy] = dict(kernels.launches)
+        for name in want[entropy]:
+            _check(launches[entropy][name] > 0, f"{name} was not launched on the sparse {entropy} route")
+        _check(s == stream4, f"the sparse {entropy} container differs from phase 4's")
+        _check(sp.last_uncertified_chunks == 0, f"uncertified chunks {sp.last_uncertified_ids}")
+        out = bound(s, f"sparse {entropy} entropy, equal to phase 4's container")
+        _check(np.array_equal(out, out4), f"the sparse {entropy} decode differs from phase 4's")
+        print(f"[sparse] {entropy} entropy: container equal to phase 4's byte for byte ({len(s)} bytes), "
+              f"decode equal to phase 4's element for element; launches {launches[entropy]}; device to "
+              f"host {sp.last_d2h_bytes} bytes sparse, {d2h[entropy]} dense (phase {phase}) -- {smi}")
+        walls[entropy] = {"dense": [], "sparse": []}
+        d2h_seen = {}
+        for transfer in ("dense", "sparse", "sparse", "dense"):
+            c = dense[entropy] if transfer == "dense" else sp
+            t0 = time.perf_counter()
+            s = c.compress(vol, "pwe", tol)
+            torch.cuda.synchronize()
+            walls[entropy][transfer].append(time.perf_counter() - t0)
+            d2h_seen[transfer] = c.last_d2h_bytes
+            _check(s == stream4, f"a timed {transfer} {entropy} encode differs from phase 4's container")
+        _check(d2h_seen["sparse"] < d2h_seen["dense"], f"{entropy}: the sparse transfer copied no fewer bytes")
+        print(f"[sparse] {entropy} entropy, warm encode walls, s (in the order run: dense, sparse, sparse, "
+              f"dense): " + "; ".join(f"{t} {', '.join(f'{w:.4f}' for w in ws)} (spread {max(ws) - min(ws):.4f})"
+                                      for t, ws in walls[entropy].items())
+              + f"; device to host {d2h_seen['sparse']} bytes sparse, {d2h_seen['dense']} dense -- {smi}")
+        del sp
+    # every chunk past the nonzero cap: the dense re-run on the card
+    rerun = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda")
+    rerun.sparse_cap_frac = 0.0  # cap = 1024 nonzeros
+    s = rerun.compress(vol, "pwe", tol)
+    _check(s == stream4, "the dense re-run's container differs from phase 4's")
+    print(f"[sparse] sparse_cap_frac 0 (cap 1024, every chunk re-run through the dense front): container "
+          f"equal to phase 4's byte for byte; device to host {rerun.last_d2h_bytes} bytes -- {smi}")
+    # pwe_strict="device": the device scans at tol - eta, the host only where eta > tol/4
+    for entropy in ("host", "wave"):
+        margin = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", entropy=entropy,
+                                   pwe_strict="device")
+        t0 = time.perf_counter()
+        s = margin.compress(vol, "pwe", tol)
+        wall = time.perf_counter() - t0
+        bound(s, f"pwe_strict='device' {entropy} entropy, {len(s)} bytes, encode {wall:.4f} s (first "
+                 f"call), device to host {margin.last_d2h_bytes} bytes")
+    print(f"[sparse] phase 13 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
+    return launches["host"]
 
 
 def main() -> int:
@@ -1509,7 +1616,33 @@ def main() -> int:
     d0 = tb._dense_encode(chunk, "pwe", 1e-2, "dual")
     width0 = tb._width_for(int(d0["maxmag"][0]))
     s0 = engine.encode(3, d0["mags"][0].cpu().numpy(), d0["signs"][0].cpu().numpy(), dims256, width0, 0)
-    del chunk, d0
+    # K12 at the sparse transfer's shape: the same chunk's nonzero flags,
+    # take n/2 (the sparse program's cap at sparse_cap_frac 0.5)
+    nzf = (d0["mags"] != 0).contiguous()
+    take_sp = n // 2
+    got, ref = kernels.compact_flags_rows(nzf, take_sp), packemit.compact_flags_rows_ref(nzf, take_sp)
+    k12s_err = max(_int_err(a, b) for a, b in zip(got, ref))
+    _check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+           "K12 differs from its plain version at the sparse transfer's shape")
+    k12s = {
+        "shape": f"(1, {n}) take {take_sp}, {int(got[1][0])} nonzeros",
+        "ms": time_ms(lambda: kernels.compact_flags_rows(nzf, take_sp), 20, "device")[0],
+        "host_ms": time_ms(lambda: kernels.compact_flags_rows(nzf, take_sp), 20, "host-issued")[0],
+        # flags read, indices and count written
+        "bound_ms": _bound_ms(n + 4 * take_sp + 4),
+        # torch.nonzero synchronizes: timed as the host issues it
+        "library_ms": time_ms(lambda: torch.nonzero(nzf[0]), 20, "host-issued")[0],
+        "max_abs_err": k12s_err,
+    }
+    k12s["plain_ms"], k12s["plain_timed"] = time_ms(
+        lambda: packemit.compact_flags_rows_ref(nzf, take_sp), 5)
+    print(f"[kernels] K12 at the sparse transfer's shape, headline chunk 0's nonzero flags "
+          f"{k12s['shape']}: equal to the plain version bit for bit; kernel {k12s['ms']:.4f} ms "
+          f"({k12s['host_ms']:.4f} as the host issues it), plain {k12s['plain_ms']:.4f} ms "
+          f"({k12s['plain_timed']}), bound {k12s['bound_ms']:.4f} ms (share "
+          f"{k12s['bound_ms'] / k12s['ms']:.3f}), torch.nonzero {k12s['library_ms']:.4f} ms (host-issued) "
+          f"-- {smi}")
+    del chunk, d0, nzf, got, ref
     s_half = s0[: len(s0) // 2]
     s_zero = engine.encode(3, np.zeros(n, np.uint32), np.ones(n, bool), dims256, 8, 0)
     full = torch.stack([torch.from_numpy(engine.decode(3, s, dims256, width0)[0].astype(np.int32))
@@ -1557,7 +1690,7 @@ def main() -> int:
     _check(type(engine).__name__ == "NativeEngine", "the C++ host engine did not load")
     vol = vol512
     tol = 1e-2
-    comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda")
+    comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", transfer="dense")
     dec = TorchDecompressor3D(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     stream = comp.compress(vol, "pwe", tol)  # warm-up
@@ -1658,7 +1791,7 @@ def main() -> int:
     # -- 5. PSNR and rate modes, one 256^3 chunk ---------------------------
     vol = vol11
     vrange = float(vol.max() - vol.min())
-    one_chunk = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda")
+    one_chunk = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", transfer="dense")
     streams5 = {}
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
         s = streams5[mode] = one_chunk.compress(vol, mode, quality)
@@ -1681,7 +1814,8 @@ def main() -> int:
 
 
     # -- 6. the device entropy path (entropy="wave") ------------------------
-    wave = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", entropy="wave")
+    wave = TorchCompressor3D((512, 512, 512), (256, 256, 256), device="cuda", entropy="wave",
+                             transfer="dense")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wave.compress(vol512, "pwe", tol)  # warm-up
@@ -1703,13 +1837,15 @@ def main() -> int:
     print(f"[wave] 512^3 PWE {tol}: container equal to phase 4's byte for byte "
           f"({len(stream_w)} bytes), {wave.last_wave_chunks} chunks on the device path at "
           f"tiers {wave.last_wave_tiers}")
+    d2h_wave = wave.last_d2h_bytes
     print(f"[wave] encode {encw_s:.3f} s wave, {enc_s:.3f} s host (phase 4), after one warm-up; "
           f"device to host {wave.last_d2h_bytes} bytes wave, {d2h_host} bytes host; peak device "
           f"memory {peak_w} bytes ({peak_w / 2**30:.3f} GiB) wave, {peak} host -- {smi}")
     # phase 9's volume: SDRBench Hurricane ISABEL's shape, 100 x 500 x 500
     hurricane = np.ascontiguousarray(vol512[:100, :500, :500])
     del vol512, vol
-    one_w = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", entropy="wave")
+    one_w = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", entropy="wave",
+                              transfer="dense")
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
         s = one_w.compress(vol11, mode, quality)
         tiers_used = ["host" if t is None else t for t in one_w.last_wave_tiers]
@@ -1851,8 +1987,13 @@ def main() -> int:
     _multi_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields, streams2, outs7,
                  launches_w["quantize"],
                  {"host": enc_s, "wave": encw_s, "decode": dec_s, "enc2": enc2_s, "dec2": dec2_s})
+    del fields, streams2, f7, outs7
+
+    # -- 13. the sparse transfer ------------------------------------------------
+    launches_sp = _sparse_phase(kernels, smi, vol_path, stream4, out4, {"host": comp, "wave": wave},
+                                {"host": d2h_host, "wave": d2h_wave})
     tmp.cleanup()
-    del fields, streams2, f7, out4, outs7
+    del out4
 
     _check("jax" not in sys.modules, "the port imported jax")
     t1 = bits["tier 1"]
@@ -1876,13 +2017,15 @@ def main() -> int:
     ]
     plain_timed.update({name: t1[name]["plain_timed"]
                         for name in ("transpose_bits32", "masked_pack", "compact_flags_rows")})
+    # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
+    sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
     # "ms" is the device's time alone, "host_ms" as the host issues the
     # calls; "plain_timed" says how "plain_ms" was timed
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
          "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
          "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
-         "library_ms": lib}
+         "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

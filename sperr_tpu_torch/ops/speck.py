@@ -6,8 +6,8 @@ sperr_tpu/ops/speck_jax.py: ``TreeIndex`` / ``tree_index``, ``node_max``
 and ``pixel_schedule`` (the child-table form, any 3D dims and 2D dims
 through the quad/I-set tree), ``PyramidIndex`` / ``pyramid_index`` and
 ``pixel_schedule_pyramid`` (the max-pool form, dyadic dims), and the event
-helpers of the 2D set walk (ops/speck_lis2.py), ``_expand_fill`` and
-``events_to_segments``.  The schedules give, as
+helpers of the walks' event tail (ops/speck_lis._event_tail), ``_expand_fill``
+and ``events_to_segments``.  The schedules give, as
 ``speck_virtual.pixel_schedule_virtual`` does for power-of-two cubes:
 
   * s  = the pass at which each pixel becomes significant (NEVER for zero);
@@ -218,7 +218,7 @@ def pixel_schedule_pyramid(mags: torch.Tensor, pi: PyramidIndex, num_bp):
 
 
 # ---------------------------------------------------------------------------
-# Event form (the 2D set walk, ops/speck_lis2.py)
+# Event form (the walks' event tail, ops/speck_lis._event_tail)
 # ---------------------------------------------------------------------------
 def _expand_fill(ln: torch.Tensor, words, ev_cap: int, widths=None):
     """Interval expansion by forward fill: item k (in order) contributes

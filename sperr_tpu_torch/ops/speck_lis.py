@@ -1,12 +1,14 @@
 """Device-side SPECK set walk (K8, and the table walk of K15).
 
-PyTorch port of the items form of sperr_tpu/ops/speck_lis_jax.py:
-``lis_item_count``, ``LisIndex`` / ``lis_index``, ``_lis_items_virtual`` and
-the ``return_events="items"`` form of ``lis_segments_device``.  With
+PyTorch port of sperr_tpu/ops/speck_lis_jax.py: ``lis_item_count``,
+``LisIndex`` / ``lis_index``, ``_lis_items_virtual`` and
+``lis_segments_device`` in its three forms (items, events, segments).  With
 codec/speck_sorted.py's total order over tree nodes every LIS bit has a
 static sort key, so the set-partition walk is a few sorts: the result is one
 payload word per LIS item (list entries and child rows) in walk order, from
-which ops/wave_pack.py builds the per-pass emission words.
+which ops/wave_pack.py builds the per-pass emission words, or which the
+event tail (``_event_tail``, shared with the 2D walk) expands into events
+and packs into per-pass segments.
 
 Two indices serve the walk: ``speck_virtual.VirtualLisIndex`` (power-of-two
 cubes: arithmetic children, paths and anchors) and ``LisIndex`` (any dims:
@@ -14,9 +16,7 @@ per-node tables from the partition tree, pointer-doubling anchors and a
 rank-doubling ladder for their string ranks).  Multi-key sorts are one int64
 key where the key widths fit, chained stable sorts otherwise.  Wherever full
 keys tie, the tied items emit no bits, so the stream does not depend on
-their order.  The event tail of the reference's 3D walk is not on this path
-and is not ported (only its tests reach it); the 2D walk (ops/speck_lis2.py)
-runs the event form on ``_walk_order``'s items.
+their order.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from ..codec.speck_sorted import sorted_tree
 from ..codec.speck_wave import build_tree
 from . import packemit as pe
 from . import speck_virtual as svirt
+from .speck import _expand_fill, events_to_segments
 
 _NEVER = 0x7FFF
 _BIG = 2**31 - 1
@@ -554,21 +555,66 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
                        rows.sig_now, rows.emitted, rows.ispx, rows.row_sign), n_sig
 
 
+def _event_tail(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int,
+                return_events=False):
+    """The walk's items in walk order -> emission events -> per-pass
+    segments (the event tail of the reference's walks).
+
+    Each list entry emits a membership bit per pass in [lo, min(s, num_bp -
+    1)], each child row its decision bit and, when a pixel turns
+    significant, its sign; ``_expand_fill`` lays the events out in walk
+    order.  ``return_events`` True returns (p_key, bit_ev, n_sig), the
+    events' passes (num_bp_cap past the total) and bits; False packs them
+    (``events_to_segments``) and returns (buf, counts, total_bytes, n_sig).
+    An overflow of the event cap, or with False of the byte cap, forces
+    n_sig to _BIG, so the caller falls back to the host stitcher."""
+    is_ent = (pay_s & 1) == 1
+    lo = (pay_s >> 1) & 63
+    s6 = (pay_s >> 7) & 63
+    hs = (pay_s >> 15) & 1
+    dec = (pay_s >> 16) & 1
+    ok = (pay_s >> 17) & 1
+    ent_hi = torch.minimum(s6, num_bp - 1)
+    ln = torch.where(
+        is_ent, torch.where((ok == 1) & (lo <= ent_hi), ent_hi - lo + 1, 0), dec + hs
+    )
+    (payf,), rel, ev_ok, ev_total = _expand_fill(ln, [pay_s], ev_cap, widths=[18])
+    is_ent_f = (payf & 1) == 1
+    lo_f = (payf >> 1) & 63
+    s6_f = (payf >> 7) & 63
+    sign_f = (payf >> 13) & 1
+    signow_f = (payf >> 14) & 1
+    dec_f = (payf >> 16) & 1
+    p_ev = torch.where(is_ent_f, lo_f + rel, lo_f)
+    is_sign_ev = (~is_ent_f) & (rel == dec_f)  # a sign follows its decision
+    bit_ev = torch.where(is_ent_f, s6_f == p_ev, torch.where(is_sign_ev, sign_f == 1, signow_f == 1))
+    p_key = torch.where(ev_ok, p_ev, num_bp_cap)
+    if return_events:
+        over = ev_total > ev_cap
+        return p_key, bit_ev, torch.maximum(n_sig, torch.where(over, _BIG, 0).to(_I32))
+    buf, counts, total_bytes = events_to_segments(p_key, None, bit_ev, num_bp_cap, cap_total)
+    over = (ev_total > ev_cap) | (total_bytes > cap_total)
+    return buf, counts, total_bytes, torch.maximum(n_sig, torch.where(over, _BIG, 0).to(_I32))
+
+
 def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
-                        ev_cap=0, cap_total=0, return_events="items", vtab=None):
-    """The set walk on the device, in its items form: (walk-ordered payload
-    words, n_sig).  ``li`` is a ``VirtualLisIndex`` (``vtab``: its combined
-    child value table, if the caller made one) or a ``LisIndex``.  Only
-    ``return_events="items"`` is ported: the 3D event form serves only the
-    reference's tests (ROADMAP queue 1, entry 15)."""
-    if return_events != "items":
-        raise NotImplementedError(
-            "only the items form of the 3D walk is ported; its event form is "
-            "ROADMAP queue 1, entry 15"
-        )
+                        ev_cap=0, cap_total=0, return_events=False, vtab=None):
+    """Every LIS bit of a chunk on the device.  ``li`` is a
+    ``VirtualLisIndex`` (``vtab``: its combined child value table, if the
+    caller made one) or a ``LisIndex``.
+
+    ``return_events="items"`` (the emission's form, ops/wave_pack.py):
+    (walk-ordered payload words, n_sig).  True: (p_key, bit_ev, n_sig), the
+    events of at most ``ev_cap``; False: (buf uint8 [cap_total], counts
+    int32 [num_bp_cap], total_bytes int32, n_sig int32), the byte-aligned
+    per-pass segments, bit for bit codec.speck_sorted's (``_event_tail``)."""
     if getattr(li, "uniform_children", False):
-        return _lis_items_virtual(node_s, s_lin, signs, num_bp, li, node_cap, vtab=vtab)
-    return _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap)
+        pay_s, n_sig = _lis_items_virtual(node_s, s_lin, signs, num_bp, li, node_cap, vtab=vtab)
+    else:
+        pay_s, n_sig = _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap)
+    if return_events == "items":
+        return pay_s, n_sig
+    return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total, return_events)
 
 
 __all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort"]

@@ -10,9 +10,9 @@ with computed ranks after every level-walk item: a pending I(k) membership
 bit per level, each group's arrival bit, and the rows of a group that
 partitions at its own birth pass, re-keyed into the I item space (static
 rank 8 (xf - k) + {0; 1 + 2j; 2 + 2j} for k = xf .. 1).  The items then
-expand into events (``ops/speck._expand_fill``) and pack into byte-aligned
-per-pass segments (``ops/speck.events_to_segments``), byte for byte those
-of codec.speck_sorted.lis_segments_sorted_2d.
+go through the 3D walk's event tail (``ops/speck_lis._event_tail``): they
+expand into events and pack into byte-aligned per-pass segments, byte for
+byte those of codec.speck_sorted.lis_segments_sorted_2d.
 
 As in the table walk, the compactions of the significant sets and of the
 born rows are K12 (ascending indices with a sentinel, as the reference's
@@ -31,10 +31,9 @@ import torch
 
 from ..codec.speck_sorted import sorted_tree
 from ..codec.speck_wave import build_tree2
-from .speck import _expand_fill, events_to_segments
 from .speck_lis import (
-    LisIndex, _bcast8, _born_rows, _chain_anchors, _i32, _level_counts, _pack2, _parent_rows,
-    _string_ranks, _walk_order, _walk_ranks, lexsort,
+    LisIndex, _bcast8, _born_rows, _chain_anchors, _event_tail, _i32, _level_counts, _pack2,
+    _parent_rows, _string_ranks, _walk_order, _walk_ranks, lexsort,
 )
 
 _NEVER = 0x7FFF
@@ -302,32 +301,7 @@ def lis2_segments_device(node_s, s_lin, signs, num_bp, iset_s, li: Lis2Index, nu
     pay_s = _walk_order(w_of_ent, c_pw, ent_from, ent_s, bok, kw_row, rp, rows.rowpass,
                         rows.sig_now, rows.emitted, rows.ispx, rows.row_sign, extra)
 
-    # ---- items -> events -> per-pass segments -----------------------------
-    is_ent = (pay_s & 1) == 1
-    lo = (pay_s >> 1) & 63
-    s6 = (pay_s >> 7) & 63
-    hs = (pay_s >> 15) & 1
-    dec = (pay_s >> 16) & 1
-    ok = (pay_s >> 17) & 1
-    ent_hi = torch.minimum(s6, num_bp - 1)
-    ln = torch.where(
-        is_ent, torch.where((ok == 1) & (lo <= ent_hi), ent_hi - lo + 1, 0), dec + hs
-    )
-    (payf,), rel, ev_ok, ev_total = _expand_fill(ln, [pay_s], ev_cap, widths=[18])
-    is_ent_f = (payf & 1) == 1
-    lo_f = (payf >> 1) & 63
-    s6_f = (payf >> 7) & 63
-    sign_f = (payf >> 13) & 1
-    signow_f = (payf >> 14) & 1
-    dec_f = (payf >> 16) & 1
-    p_ev = torch.where(is_ent_f, lo_f + rel, lo_f)
-    is_sign_ev = (~is_ent_f) & (rel == dec_f)
-    bit_ev = torch.where(is_ent_f, s6_f == p_ev, torch.where(is_sign_ev, sign_f == 1, signow_f == 1))
-    p_key = torch.where(ev_ok, p_ev, num_bp_cap)
-    buf, counts, total_bytes = events_to_segments(p_key, None, bit_ev, num_bp_cap, cap_total)
-    over = (ev_total > ev_cap) | (total_bytes > cap_total)
-    n_sig = torch.maximum(n_sig, torch.where(over, _BIG, 0).to(_I32))
-    return buf, counts, total_bytes, n_sig
+    return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total)
 
 
 __all__ = ["Lis2Index", "lis2_index", "iset_significance_device", "lis2_segments_device"]

@@ -188,7 +188,7 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
 
     # --- LIS items: the set walk, as walk-ordered payload words ----------
     pay_s, n_sig = lis_segments_device(
-        node_s, s, signs, num_bp, li, num_bp_cap, node_cap, vtab=vtab,
+        node_s, s, signs, num_bp, li, num_bp_cap, node_cap, return_events="items", vtab=vtab,
     )
     T = pay_s.shape[0]
     Tp = -(-T // 128) * 128

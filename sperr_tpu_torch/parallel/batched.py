@@ -1,14 +1,16 @@
 """Chunked 3D codec with the dense stages on a torch device.
 
-PyTorch port of the dense-transfer paths of sperr_tpu/parallel/batched.py
-(``TpuCompressor3D(entropy="host" | "wave", transfer="dense")`` and
+PyTorch port of sperr_tpu/parallel/batched.py (``TpuCompressor3D`` with
+``entropy="host" | "wave"`` and ``transfer="sparse" | "dense"``, and
 ``TpuDecompressor3D``, both of its branches).  Per chunk, the device runs
 
     condition (mean) -> dwt3d -> q -> fused midtread quantize (K1)
     [PWE: inverse quantize -> idwt3d -> residual scan]
 
-With ``entropy="host"`` the dense quantized arrays return to the host, where
-the shared C++ engine encodes each chunk on a thread pool.  With
+With ``entropy="host"`` the quantized values return to the host, where the
+shared C++ engine encodes each chunk on a thread pool: the sparse transfer
+compacts the nonzeros and the outliers on the device first (K12) and copies
+only those, the dense transfer copies the dense arrays.  With
 ``entropy="wave"`` the device also computes every SPECK bit of each chunk
 (ops/speck_virtual.py for power-of-two cubes, ops/speck.py for any other
 shape; speck_lis.py, wave_pack.py) through a ladder of capacity tiers, and
@@ -250,6 +252,39 @@ def _dense_encode(batch: torch.Tensor, mode: str, quality: float, residual: str 
         _dense_encode_rows(batch[b : b + 1], mode, quality, residual, cdf97.dwt3d, cdf97.idwt3d_)
         for b in range(batch.shape[0])
     ]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def _nonzeros(mags: torch.Tensor, signs: torch.Tensor, cap: int):
+    """The nonzero compaction of (B, n) quantized values (K12): the
+    ascending indices of each row's first min(cap, n) nonzeros with the
+    sentinel n after them, the signed values there (0 at the sentinel) and
+    each row's nonzero count, which may exceed cap."""
+    n = mags.shape[1]
+    idx, nnz = pe.compact_flags_rows(mags != 0, min(cap, n))
+    ic = torch.clamp(idx, max=n - 1).long()
+    m = torch.gather(mags, 1, ic)
+    vals = torch.where(idx < n, torch.where(torch.gather(signs, 1, ic), m, -m), 0)
+    return idx, vals, nnz
+
+
+def _dense_encode_sparse(batch: torch.Tensor, mode: str, quality: float, cap: int, out_cap: int,
+                         residual: str = "f32"):
+    """The sparse program (sperr_tpu ``_dense_encode_sparse``), chunk by
+    chunk: the wave program's front (``_dense_encode_rows`` with
+    ``out_cap``: the outliers' first min(out_cap, n) indices, their values
+    and ``n_out``; "margin" scans at max(tol - eta, 0)), then the nonzero
+    compaction (``_nonzeros``: ``idx``, ``vals``, ``nnz``) in place of the
+    dense magnitudes and signs, and ``absmax``, max|x| per chunk."""
+    n = batch[0].numel()
+    outs = []
+    for b in range(batch.shape[0]):
+        row = batch[b : b + 1]
+        o = _dense_encode_rows(row, mode, quality, residual, cdf97.dwt3d, cdf97.idwt3d_,
+                               out_cap=min(out_cap, n))
+        o["idx"], o["vals"], o["nnz"] = _nonzeros(o.pop("mags"), o.pop("signs"), cap)
+        o["absmax"] = torch.amax(torch.abs(row.reshape(1, n)), dim=1)
+        outs.append(o)
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -543,9 +578,22 @@ class TorchCompressor3D:
     With ``entropy="wave"`` every SPECK bit of a chunk, of any shape, is
     computed on the device through the tier ladder ``wave_tiers`` (None: the
     defaults of ``wave_tiers_for``) and only stream-sized segments (plus the
-    dense quantized values, where the host needs them) cross to the host.
+    quantized values, where the host needs them) cross to the host.
     Constant chunks, chunks past the last tier and chunks with num_bp >
     ``num_bp_cap`` take host entropy; both routes write the same bytes.
+
+    ``transfer``: how the quantized values reach the host, as in
+    ``TpuCompressor3D``.  "sparse" (the default) compacts the nonzeros (at
+    most ``sparse_cap_frac`` of a chunk) and the outliers on the device
+    (K12) and copies only those; on the wave route the exposure compaction
+    of the tier that held a chunk is its view of the nonzeros.  A chunk past
+    a cap re-runs through the dense front on the device, and its dense
+    results are copied.  "dense" copies the dense arrays.  Both transfers
+    write the same containers, except under ``pwe_strict="device"`` with
+    host entropy: there the sparse transfer keeps the device's scan at
+    max(tol - eta, 0) and rescans on the host only the chunks with eta >
+    tol/4, where the dense transfer rescans every chunk on the host, so the
+    outlier sets may differ (the reference's behaviour).
 
     After each compress, ``last_uncertified_chunks`` counts the PWE chunks
     whose f32-decoder bound could not be certified (the f64 bound holds for
@@ -566,15 +614,12 @@ class TorchCompressor3D:
         num_threads: Optional[int] = None,
         pwe_strict=True,
         entropy: str = "host",
-        transfer: str = "dense",
+        transfer: str = "sparse",
     ):
         if entropy not in ("host", "wave"):
             raise ValueError(f"entropy must be 'host' or 'wave'; got {entropy!r}")
-        if transfer != "dense":
-            raise NotImplementedError(
-                f"transfer={transfer!r}: the sparse transfer is not ported yet "
-                "(ROADMAP queue 1, entry 15)"
-            )
+        if transfer not in ("sparse", "dense"):
+            raise ValueError(f"transfer must be 'sparse' or 'dense'; got {transfer!r}")
         if pwe_strict not in (True, False, "f64", "device"):
             raise ValueError(f"pwe_strict must be True, False, 'f64' or 'device'; got {pwe_strict!r}")
         self.vol_dims = tuple(int(d) for d in vol_dims)
@@ -587,6 +632,9 @@ class TorchCompressor3D:
         self.num_threads = num_threads
         self.pwe_strict = pwe_strict
         self.entropy = entropy
+        self.transfer = transfer
+        # the sparse program's cap on a chunk's nonzeros, a fraction of n
+        self.sparse_cap_frac = 0.5
         self._count_lock = threading.Lock()
         # device working set bounds, in elements per sub-batch: the dense
         # path keeps ~6x the input bytes on the device; the wave path keeps
@@ -603,21 +651,17 @@ class TorchCompressor3D:
 
     @classmethod
     def from_jax(cls, tpu_compressor, device) -> "TorchCompressor3D":
-        """Settings of a ``sperr_tpu`` ``TpuCompressor3D`` that runs a dense
-        path (``transfer="dense"``, ``entropy`` "host" or "wave").
-        ``device``: one device, or a list of devices that its chunk mesh,
-        if it has one, maps onto (``devices=``)."""
+        """Settings of a ``sperr_tpu`` ``TpuCompressor3D`` (either entropy,
+        either transfer).  ``device``: one device, or a list of devices that
+        its chunk mesh, if it has one, maps onto (``devices=``)."""
         t = tpu_compressor
-        if t.transfer != "dense":
-            raise NotImplementedError(
-                f"transfer={t.transfer!r} is not ported (ROADMAP queue 1, entry 15)"
-            )
         if np.dtype(t.dtype) != np.float32:
             raise NotImplementedError(f"dtype {np.dtype(t.dtype)} is not ported")
         out = cls(
             t.vol_dims, t.chunk_dims, **_placement(device), num_threads=t.num_threads,
-            pwe_strict=t.pwe_strict, entropy=t.entropy,
+            pwe_strict=t.pwe_strict, entropy=t.entropy, transfer=t.transfer,
         )
+        out.sparse_cap_frac = t.sparse_cap_frac
         out.dense_elem_budget = t.dense_elem_budget
         out.wave_elem_budget = t.wave_elem_budget
         out.num_bp_cap = t.num_bp_cap
@@ -633,6 +677,33 @@ class TorchCompressor3D:
         with self._count_lock:
             self.last_d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
+
+    def _trim(self, t: torch.Tensor, counts: np.ndarray, capn: int, rows=None) -> np.ndarray:
+        """The first columns of t (B, cap), as many as the largest of
+        ``counts`` rounded up to 1024 and at most ``capn`` (sperr_tpu's
+        ``_trim_rows``), of ``rows`` (None: all), on the host."""
+        m = int(counts.max()) if counts.size else 0
+        t = t[:, : min(capn, -(-m // 1024) * 1024)]
+        return self._to_host(t if rows is None else t[rows])
+
+    def _sparse_caps(self, n: int) -> Tuple[int, int]:
+        """(cap, out_cap) of the sparse program for n-voxel chunks, as the
+        reference sizes them."""
+        return max(1024, int(n * self.sparse_cap_frac)), max(256, n // 64)
+
+    def _dense_rerun(self, row, mode: str, quality: float, resid_mode: str, want_ll: bool = True):
+        """A chunk past a cap of a compaction re-runs through the dense
+        front on the device.  Returns its signed values (None without
+        ``want_ll``) and its outliers (positions and values; None without a
+        device scan), on the host.  In margin mode the dense front scans at
+        tol, as the reference's does."""
+        d = _dense_encode(row, mode, quality, resid_mode)
+        ll = self._to_host(torch.where(d["signs"][0], d["mags"][0], -d["mags"][0])) if want_ll else None
+        scan = None
+        if "outlier_mask" in d:
+            p = torch.nonzero(d["outlier_mask"][0]).flatten()
+            scan = (self._to_host(p), self._to_host(d["diff"][0][p]).astype(np.float64))
+        return ll, scan
 
     def compress(self, vol: np.ndarray, mode: str, quality: float) -> bytes:
         nx, ny, nz = self.vol_dims
@@ -759,6 +830,8 @@ class TorchCompressor3D:
         dev = torch.from_numpy(batch).to(device)
         if self.entropy == "wave":
             return self._wave_group(dev, dims3, mode, quality, resid_mode)
+        if self.transfer == "sparse":
+            return self._sparse_group(dev, mode, quality, resid_mode)
         return self._dense_group(dev, mode, quality, resid_mode)
 
     def _dense_group(self, dev, mode: str, quality: float, resid_mode: str) -> "_Group":
@@ -776,6 +849,48 @@ class TorchCompressor3D:
             dev_scan=dev_scan,
             # the dense path certifies margin mode on the host
             host_resid=lambda k: resid_mode in ("none", "margin"),
+        )
+
+    def _sparse_group(self, dev, mode: str, quality: float, resid_mode: str) -> "_Group":
+        """Host entropy, sparse transfer: the sparse program's scalars, then
+        its compactions trimmed to the rows' largest counts; a chunk past
+        ``cap`` or ``out_cap`` re-runs through the dense front.  The outliers
+        of a margin_bad chunk, whose residual the host scans, are not read."""
+        n = dev[0].numel()
+        cap, out_cap = self._sparse_caps(n)
+        sp = _dense_encode_sparse(dev, mode, quality, cap, out_cap, resid_mode)
+        small = {k: self._to_host(v) for k, v in sp.items() if v.dim() == 1}
+        scanned = "n_out" in small
+        over = small["nnz"] > cap
+        if scanned:
+            if "margin_bad" in small:
+                small["n_out"] = np.where(small["margin_bad"], 0, small["n_out"])
+            over |= small["n_out"] > out_cap
+        views: Dict[int, object] = {}
+        scans: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        good = np.flatnonzero(~over)
+        if good.size:
+            rows = None if good.size == over.size else torch.from_numpy(good).to(dev.device)
+            nnz = small["nnz"][good]
+            idx = self._trim(sp["idx"], nnz, cap, rows)
+            vals = self._trim(sp["vals"], nnz, cap, rows)
+            if scanned:
+                n_out = small["n_out"][good]
+                oi = self._trim(sp["out_idx"], n_out, out_cap, rows)
+                ov = self._trim(sp["out_vals"], n_out, out_cap, rows)
+            for j, k in enumerate(good):
+                views[k] = (idx[j, : nnz[j]], vals[j, : nnz[j]])
+                if scanned:
+                    scans[k] = (oi[j, : n_out[j]].astype(np.int64), ov[j, : n_out[j]].astype(np.float64))
+        del sp
+        for k in np.flatnonzero(over):
+            views[k], scans[k] = self._dense_rerun(dev[k : k + 1], mode, quality, resid_mode)
+        mags_signs, ll = _views(n, views)
+        return _Group(
+            small, mags_signs=mags_signs, ll=ll, dev_scan=scans.__getitem__,
+            # the dense re-run certifies margin mode on the host
+            host_resid=lambda k: resid_mode == "none"
+            or (resid_mode == "margin" and bool(over[k] or small["margin_bad"][k])),
         )
 
     def _fetch_wave(self, em, fits, P: int) -> dict:
@@ -798,12 +913,17 @@ class TorchCompressor3D:
         """Device entropy over one group of chunks, chunk by chunk: the dense
         front (with the wave program's outlier compaction), the emission at
         the first tier, then the retry ladder over the chunks that overflowed
-        a cap (the front is kept, not recomputed)."""
+        a cap (the front is kept, not recomputed).  The host gets a chunk's
+        quantized values where it needs them: the chunks that take host
+        entropy, and PWE chunks whose residual it scans."""
         B = dev.shape[0]
         n = dims3[0] * dims3[1] * dims3[2]
+        sparse = self.transfer == "sparse"
         # the wave program's outlier cap: smooth PWE data has few outliers;
-        # chunks with more re-run through the dense front
+        # chunks with more re-run through the front at the sparse program's
+        # cap, past that through the dense front
         wave_out_cap = max(1024, n // 1024)
+        cap, out_cap = self._sparse_caps(n)
         tiers = self.wave_tiers if self.wave_tiers is not None else wave_tiers_for(n)
         li, si = _wave_index(dims3, dev.device)
         caps = [_wave_caps(li, dims3, t, self.num_bp_cap) for t in tiers]
@@ -811,16 +931,22 @@ class TorchCompressor3D:
         fronts = []
         waves: List[Optional[dict]] = [None] * B
         tier_of: List[Optional[int]] = [None] * B
+        exposed: List[Optional[tuple]] = [None] * B
+
+        def emit(k: int, t: int) -> None:
+            em, fits = _wave_emit_chunk(fronts[k]["mags"][0], fronts[k]["signs"][0], li, caps[t], si)
+            waves[k] = self._fetch_wave(em, fits, caps[t]["P"])
+            tier_of[k] = t
+            # the tier's exposure compaction is a superset of the nonzeros
+            view = sparse and 0 < caps[t]["wexp_cap"] < n
+            exposed[k] = (em.exp_idx, em.exp_ll, em.n_exp) if view else None
+
         for k in range(B):
-            o = _dense_encode_rows(
+            fronts.append(_dense_encode_rows(
                 dev[k : k + 1], mode, quality, resid_mode, cdf97.dwt3d, cdf97.idwt3d_,
                 out_cap=wave_out_cap,
-            )
-            fronts.append(o)
-            em, fits = _wave_emit_chunk(o["mags"][0], o["signs"][0], li, caps[0], si)
-            waves[k] = self._fetch_wave(em, fits, caps[0]["P"])
-            tier_of[k] = 0
-            del em, fits
+            ))
+            emit(k, 0)
         # retry ladder: chunks that overflowed a cap re-run at the next, wider
         # tier; only num_bp > num_bp_cap goes straight to host entropy
         for t in range(1, len(caps)):
@@ -832,10 +958,7 @@ class TorchCompressor3D:
             if not bad:
                 break
             for k in bad:
-                em, fits = _wave_emit_chunk(fronts[k]["mags"][0], fronts[k]["signs"][0], li, caps[t], si)
-                waves[k] = self._fetch_wave(em, fits, caps[t]["P"])
-                tier_of[k] = t
-                del em, fits
+                emit(k, t)
 
         keys = ["is_const", "v0", "mean", "q", "maxmag"]
         if mode == "pwe" and resid_mode != "none":
@@ -846,44 +969,87 @@ class TorchCompressor3D:
             keys.append("margin_bad")
         small = {key: self._to_host(torch.cat([o[key] for o in fronts])) for key in keys}
 
-        ll_h: Dict[int, np.ndarray] = {}
+        views: Dict[int, object] = {}
         scans: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         for k, o in enumerate(fronts):
             if bool(small["is_const"][k]):
                 continue
-            fits = waves[k] is not None and self._wave_fits(waves[k], 0)
+            fits = self._wave_fits(waves[k], 0)
             margin_bad = resid_mode == "margin" and bool(small["margin_bad"][k])
             if not fits or (mode == "pwe" and (resid_mode in ("dual", "none") or margin_bad)):
-                ll = torch.where(o["signs"][0], o["mags"][0], -o["mags"][0])
-                ll_h[k] = self._to_host(ll)
-            if "n_out" not in small:
-                continue
+                views[k] = self._wave_view(o, exposed[k] if fits else None, cap)
+            if "n_out" not in small or margin_bad:
+                continue  # no device scan, or the host scans the residual
             m = int(small["n_out"][k])
-            if m > wave_out_cap:
-                # outlier-cap overflow: the chunk re-runs through the dense
-                # front, whose scan is at tol in margin mode (as in sperr_tpu)
-                d = _dense_encode(dev[k : k + 1], mode, quality, resid_mode)
-                p = torch.nonzero(d["outlier_mask"][0]).flatten()
-                scans[k] = (
-                    self._to_host(p),
-                    self._to_host(d["diff"][0][p]).astype(np.float64),
-                )
-                del d, p
-            else:
+            if m <= wave_out_cap:
                 scans[k] = (
                     self._to_host(o["out_idx"][0, :m]).astype(np.int64),
                     self._to_host(o["out_vals"][0, :m]).astype(np.float64),
                 )
+            elif sparse and m <= out_cap:
+                o2 = _dense_encode_rows(
+                    dev[k : k + 1], mode, quality, resid_mode, cdf97.dwt3d, cdf97.idwt3d_,
+                    out_cap=min(out_cap, n),
+                )
+                scans[k] = (
+                    self._to_host(o2["out_idx"][0, :m]).astype(np.int64),
+                    self._to_host(o2["out_vals"][0, :m]).astype(np.float64),
+                )
+                del o2
+            else:
+                _, scans[k] = self._dense_rerun(dev[k : k + 1], mode, quality, resid_mode, want_ll=False)
+        mags_signs, ll = _views(n, views)
         return _Group(
-            small,
-            mags_signs=lambda k: (np.abs(ll_h[k]), ll_h[k] >= 0),
-            ll=lambda k: ll_h[k].astype(np.int64),
-            dev_scan=scans.__getitem__,
+            small, mags_signs=mags_signs, ll=ll, dev_scan=scans.__getitem__,
             host_resid=lambda k: resid_mode == "none"
             or (resid_mode == "margin" and bool(small["margin_bad"][k])),
             waves=waves,
             tiers=tier_of,
         )
+
+    def _wave_view(self, front, exposed, cap: int):
+        """A wave chunk's quantized values on the host.  Dense transfer: the
+        dense signed row.  Sparse transfer: the exposure compaction of the
+        tier that held the chunk (``exposed``) where it has one, else the
+        nonzeros compacted from the front (K12), and past ``cap`` the dense
+        row."""
+        mags, signs = front["mags"], front["signs"]
+        if self.transfer == "sparse":
+            if exposed is not None:
+                idx, ll, n_exp = exposed
+            else:
+                idx, ll, n_exp = _nonzeros(mags, signs, cap)
+                idx, ll = idx[0], ll[0]
+            m = int(self._to_host(n_exp.reshape(-1))[0])
+            if m <= idx.shape[0]:
+                return self._to_host(idx[:m]), self._to_host(ll[:m])
+        return self._to_host(torch.where(signs[0], mags[0], -mags[0]))
+
+
+def _views(n: int, views: Dict[int, object]):
+    """``mags_signs(k)`` and ``ll(k)`` of chunks whose quantized values
+    reached the host as a dense signed int32 row or as (ascending indices,
+    signed values) of a superset of the nonzeros, rebuilt by scatter."""
+
+    def ll(k) -> np.ndarray:
+        v = views[k]
+        if isinstance(v, np.ndarray):
+            return v.astype(np.int64)
+        out = np.zeros(n, np.int64)
+        out[v[0]] = v[1]
+        return out
+
+    def mags_signs(k):
+        v = views[k]
+        if isinstance(v, np.ndarray):
+            return np.abs(v), v >= 0
+        mags = np.zeros(n, np.int32)
+        signs = np.ones(n, bool)
+        mags[v[0]] = np.abs(v[1])
+        signs[v[0]] = v[1] >= 0
+        return mags, signs
+
+    return mags_signs, ll
 
 
 class _Group:

@@ -165,7 +165,7 @@ def device_compressor_factory(chunk_dims: Tuple[int, int, int], devices=None, **
     process's owned chunks through the device-batched TorchCompressor3D
     pipeline on ``devices`` (default: the process's own card,
     ``own_device``; raises without a GPU).  ``opts`` pass through to
-    TorchCompressor3D (entropy=, pwe_strict=, ...)."""
+    TorchCompressor3D (entropy=, pwe_strict=, transfer=, ...)."""
     devs = [own_device()] if devices is None else list(devices)
 
     def make(mode, quality):

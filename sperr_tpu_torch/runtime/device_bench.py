@@ -48,6 +48,7 @@ from ..parallel.batched import (
     TorchCompressor3D,
     _dense_decode,
     _dense_encode,
+    _dense_encode_sparse,
     _dense_encode_rows,
     _evw_cap,
     _pixel_schedule,
@@ -311,17 +312,18 @@ def pipeline_stages(n: int = 256, batch: int = 1, tol: float = 1e-2,
 
     Stages: fwd DWT and inverse DWT (K4), midtread quantize (K1 on the card;
     ``quantize_kernel`` names the route), the dense encode core (condition
-    -> DWT -> quantize -> decoder-exact dual PWE residual, ``_dense_encode``)
-    and the decode core (invquant -> IDWT -> +mean).  Returns seconds per
-    stage plus derived GB/s over the batch bytes.  The JAX module's
-    ``encode_core_sparse`` stage is the sparse transfer, which the port
-    has not ported yet (ROADMAP queue 1, entry 15), so its keys are absent.
+    -> DWT -> quantize -> decoder-exact dual PWE residual, ``_dense_encode``),
+    the sparse one (the same plus the nonzero and outlier compactions, K12,
+    ``_dense_encode_sparse`` at the reference's caps n/4 and n/64) and the
+    decode core (invquant -> IDWT -> +mean).  Returns seconds per stage plus
+    derived GB/s over the batch bytes.
     """
     dev = _resolve_device(device)
     rng = np.random.default_rng(3)
     vol = rng.normal(size=(batch, n, n, n)).astype(np.float32)
     x = torch.from_numpy(vol).to(dev)
     nbytes = vol.nbytes
+    cap, out_cap = max(1024, n**3 // 4), max(256, n**3 // 64)
     q = torch.full((batch,), 1.5 * tol, dtype=torch.float32, device=dev)
     mean = torch.full((batch,), 0.125, dtype=torch.float32, device=dev)
 
@@ -337,6 +339,7 @@ def pipeline_stages(n: int = 256, batch: int = 1, tol: float = 1e-2,
         "idwt3d": cdf97.idwt3d,
         "quantize": quant,
         "encode_core_dense": lambda y: _dense_encode(y, "pwe", float(tol), "dual"),
+        "encode_core_sparse": lambda y: _dense_encode_sparse(y, "pwe", float(tol), cap, out_cap, "dual"),
         "decode_core": dec_core,
     }
     out: Dict = {"n": n, "batch": batch, "bytes": nbytes, "timed": {}}
@@ -520,7 +523,8 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
 
     def to_items(y):
         mags, signs, s, e, node_s, num_bp = to_sched(y)
-        pay, n_sig = sl.lis_segments_device(node_s, s, signs, num_bp, li, P, caps["node_cap"])
+        pay, n_sig = sl.lis_segments_device(node_s, s, signs, num_bp, li, P, caps["node_cap"],
+                                            return_events="items")
         return mags, signs, s, e, num_bp, pay, n_sig
 
     def to_words(y):

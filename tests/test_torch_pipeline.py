@@ -179,19 +179,21 @@ def test_device_resident_decode_and_only():
 
 
 def test_unported_options_raise():
+    """Unknown options raise; both transfers of either entropy are ported,
+    and only a device dtype other than f32 is not."""
     with pytest.raises(ValueError, match="entropy"):
         tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", entropy="events")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", transfer="sparse")
-    with pytest.raises(NotImplementedError):
-        tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK), "cpu")
-    with pytest.raises(NotImplementedError, match="entry 15"):
-        tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave"), "cpu")
-    # the dense-transfer wave configuration is ported
-    p = tb.TorchCompressor3D.from_jax(
-        jb.TpuCompressor3D(DIMS, CHUNK, entropy="wave", transfer="dense"), "cpu"
-    )
-    assert p.entropy == "wave"
+    with pytest.raises(ValueError, match="transfer"):
+        tb.TorchCompressor3D(DIMS, CHUNK, device="cpu", transfer="packed")
+    assert tb.TorchCompressor3D(DIMS, CHUNK, device="cpu").transfer == "sparse"
+    # sperr_tpu's default configuration (sparse transfer) and both wave ones
+    for kw in ({}, {"entropy": "wave"}, {"entropy": "wave", "transfer": "dense"}):
+        t = jb.TpuCompressor3D(DIMS, CHUNK, **kw)
+        t.sparse_cap_frac = 0.25
+        p = tb.TorchCompressor3D.from_jax(t, "cpu")
+        assert (p.entropy, p.transfer, p.sparse_cap_frac) == (t.entropy, t.transfer, 0.25)
+    with pytest.raises(NotImplementedError, match="dtype"):
+        tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D(DIMS, CHUNK, dtype=np.float64), "cpu")
 
 
 def test_from_jax_copies_settings():

@@ -141,7 +141,8 @@ def _walks(N, mags, sgn, node_cap=None):
     node_st = torch.where(nm_t > 0, nbt - nm_t, _NEVER).to(torch.int32)
     cap = vj.nn if node_cap is None else node_cap
     pj, nsj = _jax_walk(N, cap)(node_sj, sj_, jnp.asarray(sgn), nbj)
-    pt, nst = tsl.lis_segments_device(node_st, st_, torch.from_numpy(sgn), nbt, vt, 34, cap)
+    pt, nst = tsl.lis_segments_device(node_st, st_, torch.from_numpy(sgn), nbt, vt, 34, cap,
+                                      return_events="items")
     assert int(nst) == int(nsj)
     pj, pt = np.asarray(pj), pt.numpy()
     assert pt.shape == pj.shape == (tsl.lis_item_count(vt, cap),)
@@ -189,8 +190,40 @@ def test_lexsort_is_a_stable_multikey_sort():
     np.testing.assert_array_equal(perm, np.lexsort(keys[::-1]))
 
 
-def test_unported_walk_forms_raise():
-    vt = tsv.virtual_lis_index((16, 16, 16), "cpu")
-    z = torch.zeros(vt.nn, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsl.lis_segments_device(z, z, z, 0, vt, 34, vt.nn, return_events=True)
+@functools.lru_cache(maxsize=None)
+def _jax_event_walk(N, cap, ev_cap, cap_total, form):
+    vj = jsv.virtual_lis_index((N, N, N))
+    return jax.jit(
+        lambda node_s, s, sgn, nb: jsl.lis_segments_device(
+            node_s, s, sgn, nb, vj, 34, cap, ev_cap, cap_total, return_events=form
+        )
+    )
+
+
+# the event tail after the virtual walk: events (True) and packed segments
+# (False), array for array; a small ev_cap or cap_total overflows and forces
+# n_sig to _BIG in both packages
+@pytest.mark.parametrize("form", [True, False])
+@pytest.mark.parametrize("seed,density,ev_cap,cap_total", [
+    (7, 0.4, 1 << 16, 1 << 13), (8, 0.05, 1 << 14, 1 << 12), (9, 0.4, 64, 1 << 13),
+    (10, 0.4, 1 << 16, 16),
+])
+def test_walk_event_tail_equals_jax(form, seed, density, ev_cap, cap_total):
+    N = 16
+    n = N**3
+    mags = _mags(n, seed, density)
+    sgn = np.random.default_rng(seed + 100).random(n) < 0.5
+    (vj, nbj, (sj_, _, _), node_sj, _), (vt, nbt, (st_, _, nm_t)) = _schedules(N, mags)
+    node_st = torch.where(nm_t > 0, nbt - nm_t, _NEVER).to(torch.int32)
+    got = tsl.lis_segments_device(node_st, st_, torch.from_numpy(sgn), nbt, vt, 34, vt.nn, ev_cap,
+                                  cap_total, return_events=form)
+    want = _jax_event_walk(N, vj.nn, ev_cap, cap_total, form)(node_sj, sj_, jnp.asarray(sgn), nbj)
+    assert len(got) == len(want) == (3 if form else 4)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    overflow = int(want[-1]) == tsl._BIG
+    assert overflow == (ev_cap == 64 or (not form and cap_total == 16))
+    if not form and not overflow:
+        # the packed bytes are the items form's bits: the sum of the
+        # per-pass byte counts
+        assert int(got[2]) == int(((got[1] + 7) // 8).sum())

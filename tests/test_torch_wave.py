@@ -72,7 +72,8 @@ def _tie_swaps(N, node_s, s, sgn, nb):
     padding rows; XLA's unstable sort may place them either way, which moves
     no stream bit but may move a cell to another piece (n_nz)."""
     vt = tsv.virtual_lis_index((N, N, N), "cpu")
-    pt = tsl.lis_segments_device(node_s, s, torch.from_numpy(sgn), nb, vt, 34, vt.nn)[0].numpy()
+    pt = tsl.lis_segments_device(node_s, s, torch.from_numpy(sgn), nb, vt, 34, vt.nn,
+                                 return_events="items")[0].numpy()
     pj = np.asarray(_jax_walk(N)(jnp.asarray(node_s.numpy()), jnp.asarray(s.numpy()),
                                  jnp.asarray(sgn), jnp.asarray(nb.numpy())))
     d = np.flatnonzero(pt != pj)
@@ -293,5 +294,7 @@ def test_from_jax_takes_the_dense_wave_configuration():
     assert (p.entropy, p.wave_tiers, p.num_bp_cap, p.wave_elem_budget, p.pwe_strict) == (
         "wave", t.wave_tiers, 30, 4096, "f64",
     )
-    with pytest.raises(NotImplementedError, match="entry 15"):
-        tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D((32, 32, 32), (16, 16, 16), entropy="wave"), "cpu")
+    assert p.transfer == "dense"
+    # sperr_tpu's default transfer, the sparse one, is ported too
+    p = tb.TorchCompressor3D.from_jax(jb.TpuCompressor3D((32, 32, 32), (16, 16, 16), entropy="wave"), "cpu")
+    assert (p.entropy, p.transfer) == ("wave", "sparse")

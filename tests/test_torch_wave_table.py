@@ -122,7 +122,8 @@ def _walk_swaps(dims, node_cap, node_s, s, sgn, nb):
     rows they tie with (a child row of the last node); returns the number
     of positions that differ."""
     li = tsl.lis_index(dims, "cpu")
-    pt, nt = tsl.lis_segments_device(node_s, s, torch.from_numpy(sgn), nb, li, 34, node_cap)
+    pt, nt = tsl.lis_segments_device(node_s, s, torch.from_numpy(sgn), nb, li, 34, node_cap,
+                                     return_events="items")
     pj, nj = _jax_walk(dims, node_cap)(jnp.asarray(node_s.numpy()), jnp.asarray(s.numpy()),
                                        jnp.asarray(sgn), jnp.asarray(nb.numpy()))
     pt, pj = pt.numpy(), np.asarray(pj)
@@ -143,6 +144,37 @@ def test_table_walk_equals_jax(dims, seed, density, frac):
     node_cap = max(16, int(nn * frac))
     swaps = _walk_swaps(dims, node_cap, node_s, s, sgn, nb)
     assert swaps <= 2 * tsl.lis_index(dims, "cpu").max_ch
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_event_walk(dims, node_cap, ev_cap, cap_total, form):
+    lj = jsl.lis_index(dims)
+    return jax.jit(
+        lambda ns, s, g, nb: jsl.lis_segments_device(
+            ns, s, g, nb, lj, 34, node_cap, ev_cap, cap_total, return_events=form
+        )
+    )
+
+
+# the event tail after the table walk (child-table and pyramid-schedule
+# chunks): events (True) and packed segments (False), array for array; an
+# event cap of 64 overflows and forces n_sig to _BIG in both packages
+@pytest.mark.parametrize("form", [True, False])
+@pytest.mark.parametrize("dims,seed,density,ev_cap", [
+    ((24, 24, 16), 5, 0.3, 1 << 16), ((23, 15, 13), 6, 0.1, 1 << 15), ((24, 24, 16), 7, 0.3, 64),
+])
+def test_table_walk_event_tail_equals_jax(form, dims, seed, density, ev_cap):
+    _, sgn, nb, s, _, node_s = _walk_inputs(dims, seed, density)
+    li = tsl.lis_index(dims, "cpu")
+    cap_total = 1 << 14
+    got = tsl.lis_segments_device(node_s, s, torch.from_numpy(sgn), nb, li, 34, li.nn, ev_cap,
+                                  cap_total, return_events=form)
+    want = _jax_event_walk(dims, li.nn, ev_cap, cap_total, form)(
+        jnp.asarray(node_s.numpy()), jnp.asarray(s.numpy()), jnp.asarray(sgn), jnp.asarray(nb.numpy()))
+    assert len(got) == len(want) == (3 if form else 4)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (int(want[-1]) == tsl._BIG) == (ev_cap == 64)
 
 
 @functools.lru_cache(maxsize=None)
