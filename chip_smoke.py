@@ -21,7 +21,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      torch.nonzero); the hybrid decode's K13 bit
      for bit on the control parse of one 256^3 chunk's stream, that stream
      truncated, an all-zero chunk, and a stream past a small active-word
-     cap);
+     cap; the schedule kernels of kernels/schedule.cu bit for bit: the cube
+     form (sched_boxmax, sched_virtual: K5 and K6) on chunk 0 of phase 4's
+     quantized field, an all-zero and a 2^31 - 1 256^3 chunk, 16^3 and 2^3
+     cubes, the child-table form (sched_table) on a Hurricane packet chunk
+     (100, 256, 256), a 1024^2 and a 1800x3600 field, the pyramid form
+     (sched_pyramid) on the dyadic (97, 128, 118) chunk, each timed);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
      parse on the host, K13 on the card), checked against the host f64
@@ -33,8 +38,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      input;
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
-     container must equal phase 4's byte for byte with every chunk on the
-     device and K1, the lifting kernel, K10, K11 and K12 launched; phase 5's
+     container must equal phase 4's byte for byte (1,012,155 bytes) with
+     every chunk on the device and K1, the lifting kernel, K10, K11, K12 and
+     the schedule's sched_boxmax and sched_virtual launched; phase 5's
      PSNR and rate streams; one noisy 256^3 chunk that drives the tier
      ladder into its dense tiers;
   7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
@@ -49,13 +55,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      SDRBench Hurricane ISABEL's shape (100 x 500 x 500, cut from phase 4's
      field) in 256^3 chunks, four wavelet-packet chunks (child-table
      schedule and table walk, K15), whose wave container must equal the
-     host one byte for byte with K1, the lifting kernel, K10, K11 and K12
-     launched, decoded on both routes; one dyadic chunk, whose pyramid-form
-     schedule must equal the child-table one and whose wave container must
-     equal the host one;
+     host one byte for byte (87,959 bytes) with K1, the lifting kernel, K10,
+     K11, K12 and sched_table launched, decoded on both routes; one dyadic
+     chunk, whose wave container must equal the host one, with
+     sched_pyramid launched;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
-     streams must equal phase 7's with every field on the device and K1, K2,
-     K3, K10, K11 and K12 launched, decoded within the bound, the encode
+     streams must equal phase 7's (167,627 bytes) with every field on the
+     device and K1, K2, K3, K10, K11, K12 and sched_table launched, decoded
+     within the bound, the encode
      timed on both routes; one field's device program (device-busy and
      host-issued time, host waits, its K10-K12 calls bit for bit); phase 8's
      field at PWE, PSNR and rate and a noisy field that climbs the tier
@@ -82,7 +89,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      transfer="dense"): phase 4's volume with host and wave entropy, each
      container equal to phase 4's byte for byte and each decode phase 4's,
      K1, the lifting kernel and K12 launched (the wave route also K10,
-     K11), the bound under the port's decoder and the host f64 decoder;
+     K11, sched_boxmax and sched_virtual), the bound under the port's
+     decoder and the host f64 decoder;
      warm encodes of both transfers alternating on each route with their
      device to host bytes; every chunk through the dense re-run (container
      equal to phase 4's); pwe_strict="device" (bound under both decoders).
@@ -91,7 +99,9 @@ path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time
 and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
 The K12 entry also holds its time at the sparse transfer's shape and its
-launches on that path (``sparse``).
+launches on that path (``sparse``); sched_virtual's the two cube launches
+together (``fused``: the K5 + K6 function), sched_table's its times on the
+2D fields (``2d``) and its launches in phase 10 (``launches_2d``).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -520,7 +530,7 @@ def _tensor_bytes(obj) -> int:
     return total
 
 
-def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> None:
+def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> dict:
     """Phase 9: chunks that are not power-of-two cubes on the device entropy
     path.  ``vol`` (z, y, x) in ``chunk`` chunks, in the smoke run SDRBench
     Hurricane ISABEL's shape (100 x 500 x 500, cropped from phase 4's field):
@@ -528,15 +538,17 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     the wave container against the host one (after a warm-up each), the
     kernels launched, both decode routes; the first chunk's schedule and
     walk (K15) and its emission at tiers 0 and 1, timed.  Then ``pvol``, one
-    dyadic chunk (cut from phase 5's field): the pyramid-form schedule
-    against the child-table one, and its wave container against the host
-    one."""
+    dyadic chunk (cut from phase 5's field): its wave container against the
+    host one (phase 3 holds its pyramid-form schedule against the
+    child-table one).  The schedule kernels must launch on both paths (sched_table on the
+    packet chunks, sched_pyramid on the dyadic one); returns their
+    launches."""
     import numpy as np
     import torch
 
     from sperr_tpu_torch.ops import cdf97
     from sperr_tpu_torch.ops import speck as spk
-    from sperr_tpu_torch.ops import speck_lis, speck_virtual
+    from sperr_tpu_torch.ops import speck_lis
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.chunked3d import Sperr3DDecompressor
     from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
@@ -574,9 +586,12 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
         _check(comp.last_uncertified_chunks == 0, f"{entropy}: uncertified chunks {comp.last_uncertified_ids}")
     w, h = runs["wave"], runs["host"]
     print(f"[table] launches during the timed wave encode: {w['launches']}")
-    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
+                 "sched_table"):
         _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
+    _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
+    sched_launches = {"sched_table": w["launches"]["sched_table"]}
     _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
     print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
           f"({8.0 * len(w['stream']) / vol.size:.5f} bpp), wave = host byte for byte, "
@@ -616,9 +631,7 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
         caps = tb._wave_caps(li, s3, tiers[t], 34)
 
         def k15():
-            pm = speck_virtual.msbp1_device(mags)
-            num_bp = pm.max()
-            s, e, nm = tb._pixel_schedule(mags, si, num_bp)
+            num_bp, s, e, nm = tb._schedule(mags, si)
             node_s = torch.where(nm > 0, num_bp - nm, 0x7FFF).to(torch.int32)
             return speck_lis.lis_segments_device(node_s, s, signs, num_bp, li, caps["P"], caps["node_cap"],
                                                  return_events="items")
@@ -653,35 +666,26 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> No
     t0 = time.perf_counter()
     li_p, pi = tb._wave_index(pyr_dims, dev)
     t_pyr = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ti = spk.tree_index(pyr_dims, dev)
-    t_tree = time.perf_counter() - t0
     _check(isinstance(pi, spk.PyramidIndex), f"{pyr_dims} did not take the pyramid form")
-    npx = px * py * pz
-    front = tb._dense_encode_rows(torch.from_numpy(pvol[None]).to(dev), "pwe", tol, "dual", cdf97.dwt3d,
-                                  cdf97.idwt3d_, out_cap=max(1024, npx // 1024))
-    mags = front["mags"][0]
-    num_bp = speck_virtual.msbp1_device(mags).max()
-    a = spk.pixel_schedule_pyramid(mags, pi, num_bp)
-    b = spk.pixel_schedule(mags, ti, num_bp)
-    for name, u, v in zip(("s", "e", "nm"), a, b):
-        _check(torch.equal(u, v), f"pyramid schedule {name} differs from the child-table schedule")
-    pyr_ms, pyr_how = time_ms(lambda: spk.pixel_schedule_pyramid(mags, pi, num_bp), 5)
-    tree_ms, tree_how = time_ms(lambda: spk.pixel_schedule(mags, ti, num_bp), 5)
-    del front, mags, a, b
     s_host = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, transfer="dense").compress(pvol, "pwe", tol)
     wave = tb.TorchCompressor3D(pyr_dims, pyr_dims, device=dev, entropy="wave", transfer="dense")
+    wave.compress(pvol, "pwe", tol)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     s_wave = wave.compress(pvol, "pwe", tol)
+    torch.cuda.synchronize()
+    sched_launches["sched_pyramid"] = kernels.launches["sched_pyramid"]
+    _check(sched_launches["sched_pyramid"] > 0, "sched_pyramid was not launched on the pyramid-form wave path")
     _check(s_wave == s_host, "the pyramid-form wave stream differs from the host one")
     _check(wave.last_wave_chunks == 1, "the pyramid-form chunk took host entropy")
-    print(f"[table] pyramid form {pyr_dims}: index builds {t_pyr:.3f} s (pyramid with the table walk's), "
-          f"{t_tree:.3f} s (child table); schedule equal to the child-table one element for element, "
-          f"{pyr_ms:.4f} ms pyramid ({pyr_how}), {tree_ms:.4f} ms child table ({tree_how}); wave stream = host stream "
-          f"({len(s_wave)} bytes, tier {wave.last_wave_tiers}) -- {smi}")
+    print(f"[table] pyramid form {pyr_dims}: index builds {t_pyr:.3f} s (pyramid with the table walk's); "
+          f"wave stream = host stream ({len(s_wave)} bytes, tier {wave.last_wave_tiers}); schedule launches "
+          f"{sched_launches} -- {smi}")
     print(f"[table] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return sched_launches
 
 
-def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> None:
+def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int:
     """Phase 10: the 2D device entropy path (TorchCompressor2D(entropy=
     "wave"), K14).  Phase 7's 16 fields at PWE 1e-2: the wave streams must
     equal phase 7's byte for byte with every field on the device, K1, K2,
@@ -692,7 +696,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     plain versions: device-busy time, host-issued time, host waits, the ops
     with the most device time and its bound.  Phase 8's 1800 x 3600 field
     at PWE 1e-2, PSNR 80 and rate 2.0, and a noisy 256 x 256 field that
-    climbs the tier ladder: every wave stream equal to its host one."""
+    climbs the tier ladder: every wave stream equal to its host one.
+    Returns sched_table's launches in the first timed wave encode."""
     import numpy as np
     import torch
 
@@ -737,7 +742,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
     for name in ("quantize", "dwt2d_full", "idwt2d_full", "transpose_bits32", "masked_pack",
-                 "compact_flags_rows"):
+                 "compact_flags_rows", "sched_table"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
     _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
@@ -751,6 +756,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
         err_host = max(err_host, float(np.abs(h.reshape(ny, nx) - f).max()))
     _check(err_port <= tol and err_host <= tol, f"2D wave streams miss the bound: {err_port}, {err_host}")
     nbytes = sum(len(x) for x in s)
+    _check(nbytes == 167627, f"the 2D wave streams hold {nbytes} bytes, not 167,627")
     print(f"[wave2d] {B} x {ny}x{nx} PWE {tol}: {nbytes} bytes, equal to phase 7's byte for byte, "
           f"{wave.last_wave_chunks} of {B} fields on the device at tiers {wave.last_wave_tiers}; max|err| "
           f"port decoder {err_port:.6e}, host f64 decoder {err_host:.6e} (bound {tol})")
@@ -819,6 +825,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> Non
           + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches["sched_table"]
 
 
 def _cli(tool: str, *args: str) -> str:
@@ -966,9 +973,18 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
         stages.update({f"hybrid {k}": v for k, v in r.get("hybrid", {}).items() if k.endswith("_s")})
         bad = {k: v for k, v in stages.items() if not v > 0}
         _check(not bad, f"{name}: stages that read <= 0: {bad}")
-        if name != "pipeline_stages" and name != "wave2d_stage":
-            # stages compared or subtracted (the breakdown's deltas among them)
+        if name in ("container_decode_stages", "wave_entropy_stage"):
+            # stages compared: one method for all
             _check(isinstance(r["timed"], str), f"{name}: stages timed by more than one method")
+        if name == "wave_entropy_breakdown":
+            # each delta subtracts two chains timed by the one method named for it
+            _check(set(r["timed"]) == {"quantize", "schedule", "lis_items", "full_pack", "ref_words_abs"},
+                   f"{name}: timed {r['timed']}")
+            print(f"[bench] wave_entropy_breakdown 256^3 schedule (K5 + K6 kernels): {r['schedule_s'] * 1e3:.4f} "
+                  f"ms ({r['timed']['schedule']}); quantize {r['quantize_s'] * 1e3:.4f} ms "
+                  f"({r['timed']['quantize']}), LIS items {r['lis_items_s'] * 1e3:.4f} ms "
+                  f"({r['timed']['lis_items']}), the rest of the emission {r['full_pack_s'] * 1e3:.4f} ms "
+                  f"({r['timed']['full_pack']}) -- {smi}")
         _check(r["device"].startswith(torch.cuda.get_device_name(0)) and "power limit" in r["device"],
                f"{name}: device {r['device']!r}")
     _check("reason" not in results["container_decode_stages"]["hybrid"],
@@ -1232,7 +1248,8 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
     4's 512^3 volume at PWE 1e-2, host and wave entropy.  Each route's
     containers must equal phase 4's byte for byte and their decodes phase
     4's decode, with K1, the lifting kernel and K12 (the wave route also
-    K10, K11) launched between the counts set to 0 and read; the bound is
+    K10, K11 and the schedule's sched_boxmax and sched_virtual) launched
+    between the counts set to 0 and read; the bound is
     checked under the port's decoder and the host f64 decoder.  Warm
     encodes of both transfers alternate on each route (``dense``: phases 4
     and 6's warm compressors), two timed runs each, with the device to host
@@ -1263,7 +1280,8 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
         return ours
 
     want = {"host": ("quantize", "cdf97_lift", "compact_flags_rows"),
-            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "transpose_bits32", "masked_pack")}
+            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "transpose_bits32", "masked_pack",
+                     "sched_boxmax", "sched_virtual")}
     launches = {}
     walls = {}
     for entropy, phase in (("host", 4), ("wave", 6)):
@@ -1318,6 +1336,195 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
                  f"call), device to host {margin.last_d2h_bytes} bytes")
     print(f"[sparse] phase 13 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
     return launches["host"]
+
+
+def _morton_pyramid_ref(pm, K: int):
+    """The plain morton max pyramid of a cube's 2x2x2 box maxima (pm: msb+1
+    per pixel), grids 0 .. K-1 concatenated, grid 0 first, as bytes: what
+    sched_boxmax and sched_virtual write."""
+    import torch
+
+    from sperr_tpu_torch.ops import speck_virtual as sv
+
+    N = 1 << K
+    grids = [sv._morton_flatten(sv.box_reduce_max(pm.reshape(N, N, N)), K - 1)]
+    for _ in range(K - 1):
+        grids.append(grids[-1].reshape(-1, 8).amax(dim=1))
+    return torch.cat(grids[::-1]).to(torch.uint8)
+
+
+def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
+    """Phase 3's schedule kernels (kernels/schedule.cu) bit for bit against
+    their plain versions on the card: the cube form (sched_boxmax, then
+    sched_virtual) on chunk 0 of phase 4's quantized 256^3 field, an
+    all-zero 256^3 chunk, a 256^3 chunk with a 2^31 - 1 magnitude, 16^3 and
+    2^3 cubes; each launch alone (the pyramid levels it writes), the fused
+    entry point and a given num_bp; the child-table form (sched_table) on a
+    Hurricane ISABEL packet chunk (100, 256, 256), a 1024^2 and a 1800 x
+    3600 field (with pm, as the 2D route takes it); the pyramid form
+    (sched_pyramid) on the dyadic (97, 128, 118) chunk.  Each kernel timed
+    on the device and as the host issues it, beside its plain version and
+    its bound.  Returns each kernel's row of the result line."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_virtual as sv
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.runtime.device_bench import time_ms
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    i32 = torch.int32
+    err = {k: 0 for k in ("sched_boxmax", "sched_virtual", "sched_table", "sched_pyramid")}
+
+    def equal(name, got, want, what):
+        for k, (a, b) in enumerate(zip(got, want)):
+            err[name] = max(err[name], _int_err(a.reshape(-1), b.reshape(-1)))
+            _check(a.dtype == b.dtype and torch.equal(a.reshape(-1), b.reshape(-1)),
+                   f"{name}: output {k} differs from the plain version on {what}")
+
+    def front(field, two_d=False):
+        x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
+        fwd, inv = (cdf97.dwt2d, cdf97.idwt2d) if two_d else (cdf97.dwt3d, cdf97.idwt3d_)
+        return tb._dense_encode_rows(x, "pwe", 1e-2, "dual", fwd, inv)["mags"][0].reshape(-1).contiguous()
+
+    def plain_virtual(m, vf, nb=None):
+        nb = sv.msbp1_device(m).max() if nb is None else nb
+        return (nb,) + sv.pixel_schedule_virtual_ref(m, vf, nb)
+
+    # -- the cube form -------------------------------------------------------------
+    chunk0 = front(vol512[:256, :256, :256])
+    big = chunk0.clone()
+    big[big.numel() // 2] = 2**31 - 1
+    cubes = [("headline chunk 0, 256^3", chunk0), ("all zero 256^3", torch.zeros_like(chunk0)),
+             ("256^3 with 2^31 - 1", big)]
+    for N in (16, 2):
+        m = rng.integers(0, 1 << 20, N**3) * (rng.random(N**3) < 0.4)
+        cubes.append((f"{N}^3", torch.from_numpy(m.astype(np.int32)).to(dev)))
+    for label, m in cubes:
+        N = round(m.numel() ** (1 / 3))
+        vf = sv.virtual_lis_index((N, N, N), dev)
+        K = vf.K
+        want = plain_virtual(m, vf)
+        pm_ref = sv.msbp1_device(m)
+        pyr = _morton_pyramid_ref(pm_ref, K)
+        lo = kernels.pyramid_cells(max(K - 4, 0))
+        pm8, M, nb = kernels.sched_boxmax(m, K)
+        equal("sched_boxmax", (pm8, nb, M[lo:]), (pm_ref.to(torch.uint8), want[0], pyr[lo:]), label)
+        got = kernels.sched_virtual(pm8, M, nb.reshape(1), vf.nm_segs, K, vf.nn)
+        equal("sched_virtual", got + (M,), want[1:] + (pyr,), label)
+        equal("sched_virtual", sv.schedule_virtual(m, vf), want, f"{label} (fused)")
+        nb2 = want[0] + 2
+        equal("sched_virtual", sv.pixel_schedule_virtual(m, vf, nb2),
+              sv.pixel_schedule_virtual_ref(m, vf, nb2), f"{label}, num_bp + 2")
+        print(f"[kernels] schedule, cube form, {label}: num_bp {int(want[0])}; sched_boxmax (pm, num_bp, "
+              f"grids {max(K - 4, 0)} .. {K - 1}) and sched_virtual (s, e, nm, grids below) equal to the "
+              "plain version bit for bit, alone, fused and with num_bp + 2")
+    vf = sv.virtual_lis_index((256, 256, 256), dev)
+    n, nn, K = vf.n, vf.nn, vf.K
+    pm8, M, nb = kernels.sched_boxmax(chunk0, K)
+    nb1 = nb.reshape(1)
+    segs = vf.nm_segs
+    big_cells = kernels.pyramid_cells(K) - kernels.pyramid_cells(K - 4)
+    rows = {}
+    for name, fn, plain, nbytes in (
+            ("sched_boxmax", lambda: kernels.sched_boxmax(chunk0, K),
+             lambda: (lambda pm: (pm.to(torch.uint8), _morton_pyramid_ref(pm, K), pm.max()))(
+                 sv.msbp1_device(chunk0)),
+             # mags read; pm bytes, the grids it writes and num_bp written
+             4 * n + n + big_cells + 4),
+            ("sched_virtual", lambda: kernels.sched_virtual(pm8, M, nb1, segs, K, nn),
+             lambda: sv.pixel_schedule_virtual_ref(chunk0, vf, nb),
+             # pm bytes, the large grids, the table and num_bp read; s, e, nm and the small grids written
+             n + big_cells + segs.numel() * 4 + 4 + 8 * n + 4 * nn + kernels.pyramid_cells(K - 4))):
+        r = rows[name] = {
+            "ms": time_ms(fn, 20, "device")[0], "host_ms": time_ms(fn, 20, "host-issued")[0],
+            "bound_ms": _bound_ms(nbytes),
+        }
+        r["plain_ms"], r["plain_timed"] = time_ms(plain, 5)
+        print(f"[kernels] {name} 256^3 (headline chunk 0): kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the "
+              f"host issues it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms "
+              f"({nbytes} bytes), share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    fused = (time_ms(lambda: sv.schedule_virtual(chunk0, vf), 20, "device")[0],
+             time_ms(lambda: sv.schedule_virtual(chunk0, vf), 20, "host-issued")[0])
+    fused_plain = time_ms(lambda: plain_virtual(chunk0, vf), 5)
+    # the function K5 + K6 computes: mags read once; s, e, nm and num_bp written once
+    fused_bytes = 4 * n + 8 * n + 4 * nn + 4
+    print(f"[kernels] schedule_virtual 256^3 (K5 + K6, both launches): {fused[0]:.4f} ms ({fused[1]:.4f} as the "
+          f"host issues it), plain {fused_plain[0]:.4f} ms ({fused_plain[1]}); bound {_bound_ms(fused_bytes):.4f} "
+          f"ms ({fused_bytes} bytes), share {_bound_ms(fused_bytes) / fused[0]:.3f} -- {smi}")
+    rows["sched_virtual"]["fused"] = {"ms": fused[0], "host_ms": fused[1], "plain_ms": fused_plain[0],
+                                      "plain_timed": fused_plain[1], "bound_ms": _bound_ms(fused_bytes)}
+    del cubes, big, pm8, M
+
+    # -- the child-table form: a packet chunk, a 1024^2 and a 1800 x 3600 field ----------------
+    def tab_bytes(ti, n_, with_pm):
+        # mags, the child rows, bounds and parents read; num_bp, s, e, nm written, and pm where the
+        # route reads it (the 2D route's iset_significance_device; the 3D route drops it)
+        return (4 * n_ + 4 * ti.ch_src.numel() + 4 * ti.ch_bounds.numel() + 4 * n_ + 4 + 8 * n_
+                + 4 * ti.nn + (4 * n_ if with_pm else 0))
+
+    tables = [("Hurricane packet chunk (100, 256, 256)", (256, 256, 100), front(vol512[:100, :256, :256])),
+              ("1024^2 field", (1024, 1024), front(_turbulence_like(1024, 1024, 0), True)),
+              ("1800x3600 field", (3600, 1800), front(_turbulence_like(1800, 3600, 16), True))]
+    table_times = {}
+    for label, dims, m in tables:
+        with_pm = len(dims) == 2
+        t0 = time.perf_counter()
+        ti = spk.tree_index(dims, dev)
+        build = time.perf_counter() - t0
+        pm = sv.msbp1_device(m)
+        nbm = pm.max()
+        want = (nbm, pm) + spk.pixel_schedule_ref(m, ti, nbm)
+        kernels.reset_launch_counts()
+        got = spk.schedule_table(m, ti)
+        per_call = kernels.launches["sched_table"]
+        equal("sched_table", got, want, label)
+        r = table_times[label] = {
+            "ms": time_ms(lambda: spk.schedule_table(m, ti), 10, "device")[0],
+            "host_ms": time_ms(lambda: spk.schedule_table(m, ti), 10, "host-issued")[0],
+            "bound_ms": _bound_ms(tab_bytes(ti, m.numel(), with_pm)), "launches_per_call": per_call,
+        }
+        r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_ref(m, ti, nbm), 3)
+        print(f"[kernels] sched_table, {label} {dims} (index {build:.3f} s, {ti.nn} nodes, {len(ti.depths)} "
+              f"depths, {per_call} launches per call): equal to the plain version bit for bit (num_bp "
+              f"{int(nbm)}, pm, s, e, nm); kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host issues "
+              f"it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms "
+              f"({tab_bytes(ti, m.numel(), with_pm)} bytes, pm {'counted' if with_pm else 'not counted'}), "
+              f"share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    rows["sched_table"] = dict(table_times[tables[0][0]], **{"2d": {k: v for k, v in table_times.items()
+                                                                     if k != tables[0][0]}})
+    del tables
+
+    # -- the pyramid form: the dyadic chunk ---------------------------------------------------
+    dims = (97, 128, 118)
+    m = front(vol11[:118, :128, :97])
+    pi = spk.pyramid_index(dims, dev)
+    nbm = sv.msbp1_device(m).max()
+    want = (nbm,) + spk.pixel_schedule_pyramid_ref(m, pi, nbm)
+    equal("sched_pyramid", spk.schedule_pyramid(m, pi), want, "(97, 128, 118)")
+    ti = spk.tree_index(dims, dev)
+    equal("sched_pyramid", spk.schedule_pyramid(m, pi), (nbm,) + spk.pixel_schedule_ref(m, ti, nbm),
+          "(97, 128, 118) against the child-table form")
+    npx = m.numel()
+    # mags, deep slots, parent boxes, node boxes read; num_bp, s, e, nm written
+    pyr_bytes = 4 * npx * 3 + 4 * pi.nn + 4 + 8 * npx + 4 * pi.nn
+    r = rows["sched_pyramid"] = {
+        "ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "device")[0],
+        "host_ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "host-issued")[0],
+        "bound_ms": _bound_ms(pyr_bytes),
+    }
+    r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_pyramid_ref(m, pi, nbm), 5)
+    print(f"[kernels] sched_pyramid {dims} ({pi.levels} levels): equal to the plain version and to the "
+          f"child-table form bit for bit; kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the "
+          f"host issues it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms, "
+          f"share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+    print(f"[kernels] schedule kernels took {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -1672,13 +1879,15 @@ def main() -> int:
           f"10 calls): " + (", ".join(f"{k} {m:.4f} ({c})" for k, (m, c) in sorted(per_k13.items()))
                              or "not measured") + f" -- {smi}")
     del args3, args1, full
+    sched = _sched_kernels(kernels, smi, dev, vol512, vol11)
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
             ("K4 dwt3d 256^3", l_ms, l_host_ms, l_bound), ("K4 idwt3d 256^3", li_ms, li_host_ms, l_bound),
             ("K13 reconstruct_mags (1, 256^3)", k13_one["ms"], k13_one["host_ms"], k13_one["bound_ms"]),
             *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
-              for shape, t in plane_ms.items() for k in ("K2", "K3"))):
+              for shape, t in plane_ms.items() for k in ("K2", "K3")),
+            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items())):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
@@ -1828,10 +2037,14 @@ def main() -> int:
     launches_w = dict(kernels.launches)
     peak_w = torch.cuda.max_memory_allocated()
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
-    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
+                 "sched_boxmax", "sched_virtual"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
+    _check(launches_w["sched_boxmax"] == launches_w["sched_virtual"],
+           "the cube schedule's two launches do not pair up")
     _check(launches_w["masked_pack"] % 3 == 0, "K11 did not launch three kernels per call")
     _check(stream_w == stream2, "the wave container differs from the host-entropy container")
+    _check(len(stream_w) == 1012155, f"the 512^3 wave container is {len(stream_w)} bytes, not 1,012,155")
     _check(wave.last_wave_chunks == 8, f"{wave.last_wave_chunks} of 8 chunks on the device path")
     _check(wave.last_uncertified_chunks == 0, f"uncertified chunks {wave.last_uncertified_ids}")
     print(f"[wave] 512^3 PWE {tol}: container equal to phase 4's byte for byte "
@@ -1974,10 +2187,10 @@ def main() -> int:
     _check(d3 <= 1e-4 * vrange, "3D multi-res decode disagrees with the host f64 decoder")
 
     # -- 9. chunks that are not power-of-two cubes on the wave path ----------
-    _table_phase(kernels, smi, dev, hurricane, pyr_chunk)
+    launches_tab = _table_phase(kernels, smi, dev, hurricane, pyr_chunk)
 
     # -- 10. the 2D device entropy path --------------------------------------
-    _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
+    launches_tab["sched_table_2d"] = _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
 
     # -- 11. the command-line tools and the stage timer ----------------------
     _cli_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields[0], streams2[0], f7,
@@ -2017,6 +2230,18 @@ def main() -> int:
     ]
     plain_timed.update({name: t1[name]["plain_timed"]
                         for name in ("transpose_bits32", "masked_pack", "compact_flags_rows")})
+    # the schedule kernels: launches on their paths (phase 6 for the cube form, phase 9 for the
+    # child-table and pyramid forms; phase 10's 2D encode in "launches_2d")
+    for name, where, nl in (
+            ("sched_boxmax", "sperr_tpu/ops/speck_jax.py:86", launches_w["sched_boxmax"]),
+            ("sched_virtual", "sperr_tpu/ops/speck_virtual.py:657", launches_w["sched_virtual"]),
+            ("sched_table", "sperr_tpu/ops/speck_jax.py:111", launches_tab["sched_table"]),
+            ("sched_pyramid", "sperr_tpu/ops/speck_jax.py:638", launches_tab["sched_pyramid"])):
+        r = sched[name]
+        rows.append((name, "schedule.cu", where, nl, r["max_abs_err"], r["ms"], r["host_ms"], r["plain_ms"],
+                     r["bound_ms"], None))
+        plain_timed[name] = r["plain_timed"]
+    sched["sched_table"]["launches_2d"] = launches_tab["sched_table_2d"]
     # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
     sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
     # "ms" is the device's time alone, "host_ms" as the host issues the
@@ -2025,7 +2250,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
          "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
          "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
-         "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {})}
+         "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {}),
+         **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
+            else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

@@ -10,7 +10,8 @@ into place, so concurrent builders never see a partial library.
 There is no fallback.  A missing ``nvcc``, a failed build or load, a device
 that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
-``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``) and run only
+``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``,
+``ops/speck_virtual.py``, ``ops/speck.py``) and run only
 for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` for each kernel it launches,
@@ -37,7 +38,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
     os.path.join(_DIR, f)
-    for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu")
+    for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu",
+              "schedule.cu")
 )
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
@@ -51,6 +53,7 @@ LIFT_MAX_SHARED_BYTES = 96 * 1024
 launches = {
     "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
+    "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -162,6 +165,15 @@ def load(device=None) -> ct.CDLL:
                 ]),
                 ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
                 ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
+                ("sperr_sched_boxmax", [vp, vp, vp, vp, ct.c_int, vp]),
+                ("sperr_sched_virtual", [vp, vp, vp, vp, ct.c_int, vp, vp, vp, ct.c_int, ll, vp]),
+                ("sperr_sched_table", [
+                    vp, ll, vp, vp, ct.POINTER(ll), ct.c_int, vp, vp, vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_sched_pyramid", [
+                    vp, ll, vp, ct.c_int, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, ll, vp, vp,
+                    vp, vp, vp,
+                ]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
@@ -657,3 +669,155 @@ def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Te
     _check(lib, err, "reconstruct_mags")
     _count("reconstruct_mags", 3)
     return mags, overflow
+
+
+# ---------------------------------------------------------------------------
+# K5, K6 and the schedule of K14/K15 (kernels/schedule.cu): integer results,
+# num_bp stays on the device
+# ---------------------------------------------------------------------------
+SCHED_MAX_SEGS = 256  # segments of the cube schedule's nm table (kMaxSegs)
+
+
+def pyramid_cells(K: int) -> int:
+    """Cells of the cube schedule's morton pyramid, grids 0 .. K-1: grid g
+    (8^g cells) starts at (8^g - 1) / 7."""
+    return ((1 << (3 * int(K))) - 1) // 7
+
+
+def sched_boxmax(mags: torch.Tensor, K: int):
+    """Launch 1 of the power-of-two cube schedule: mags ((2^K)^3,) int32,
+    8-byte aligned -> (pm8 (n,) uint8, each pixel's msb+1; M
+    (pyramid_cells(K),) uint8, the morton max pyramid of the 2x2x2 box
+    maxima with grids K-1 .. max(K-4, 0) written; num_bp () int32)."""
+    _require_cuda(mags, torch.int32, "mags")
+    K = int(K)
+    if not 1 <= K <= 10 or mags.dim() != 1 or mags.numel() != 1 << (3 * K):
+        raise ValueError(f"mags must be ((2^K)^3,) for 1 <= K <= 10; got {tuple(mags.shape)}, K {K}")
+    if mags.data_ptr() % 8:
+        raise ValueError("mags must be 8-byte aligned (the kernel loads pixel pairs)")
+    dev = mags.device
+    pm8 = torch.empty(mags.numel(), dtype=torch.uint8, device=dev)
+    M = torch.empty(pyramid_cells(K), dtype=torch.uint8, device=dev)
+    num_bp = torch.zeros((), dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(mags):
+        err = lib.sperr_sched_boxmax(mags.data_ptr(), pm8.data_ptr(), M.data_ptr(), num_bp.data_ptr(),
+                                     K, _stream(mags))
+    _check(lib, err, "sched_boxmax")
+    _count("sched_boxmax")
+    return pm8, M, num_bp
+
+
+def sched_virtual(pm8: torch.Tensor, M: torch.Tensor, num_bp: torch.Tensor, segs: torch.Tensor,
+                  K: int, nn: int):
+    """Launch 2: (s, e (n,) int32, nm (nn,) int32) from ``sched_boxmax``'s
+    pm8 and M (whose small grids it completes) and num_bp (a 1-element
+    int32 tensor); nm through ``segs`` (nseg, 4) int32 rows (grid, lo, hi,
+    output offset) in output order."""
+    K, nn = int(K), int(nn)
+    n = 1 << (3 * K)
+    for t, dtype, what in ((pm8, torch.uint8, "pm8"), (M, torch.uint8, "M"),
+                           (num_bp, torch.int32, "num_bp"), (segs, torch.int32, "segs")):
+        _require_cuda(t, dtype, what)
+        if t.device != pm8.device:
+            raise ValueError(f"{what} is on {t.device}, pm8 on {pm8.device}")
+    if (not 1 <= K <= 10 or pm8.shape != (n,) or M.shape != (pyramid_cells(K),)
+            or num_bp.numel() != 1 or segs.dim() != 2 or segs.shape[1] != 4
+            or not 1 <= segs.shape[0] <= SCHED_MAX_SEGS or nn < 1):
+        raise ValueError(
+            f"pm8 ({n},), M ({pyramid_cells(K)},), one num_bp, segs (1 .. {SCHED_MAX_SEGS}, 4) "
+            f"and nn >= 1 for K {K}; got {tuple(pm8.shape)}, {tuple(M.shape)}, "
+            f"{tuple(num_bp.shape)}, {tuple(segs.shape)}, {nn}"
+        )
+    dev = pm8.device
+    s = torch.empty(n, dtype=torch.int32, device=dev)
+    e = torch.empty(n, dtype=torch.int32, device=dev)
+    nm = torch.empty(nn, dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(pm8):
+        err = lib.sperr_sched_virtual(pm8.data_ptr(), M.data_ptr(), num_bp.data_ptr(), segs.data_ptr(),
+                                      segs.shape[0], s.data_ptr(), e.data_ptr(), nm.data_ptr(), K, nn,
+                                      _stream(pm8))
+    _check(lib, err, "sched_virtual")
+    _count("sched_virtual")
+    return s, e, nm
+
+
+@functools.lru_cache(maxsize=256)
+def _depth_array(depths: Tuple[Tuple[int, int], ...]):
+    flat = [v for lo_hi in depths for v in lo_hi]
+    return (ct.c_longlong * max(1, len(flat)))(*flat)
+
+
+def sched_table(mags: torch.Tensor, ch_src: torch.Tensor, ch_bounds: torch.Tensor,
+                depths: Tuple[Tuple[int, int], ...], px_parent: torch.Tensor):
+    """The child-table schedule: mags (n,) int32; ch_src (rows,) int32, each
+    child row's pixel (its linear index) or node (-(id + 1)); ch_bounds
+    (nn + 1,) int32, node k's rows ch_bounds[k] .. ch_bounds[k+1]-1;
+    depths, node ranges (lo, hi) deepest first that cover 0 .. nn-1;
+    px_parent (n,) int32 -> (num_bp () int32, pm, s, e (n,) int32, nm
+    (nn,) int32).  2 + len(depths) launches."""
+    for t, what in ((mags, "mags"), (ch_src, "ch_src"), (ch_bounds, "ch_bounds"),
+                    (px_parent, "px_parent")):
+        _require_cuda(t, torch.int32, what)
+        if t.device != mags.device:
+            raise ValueError(f"{what} is on {t.device}, mags on {mags.device}")
+    n, nn = mags.numel(), ch_bounds.numel() - 1
+    if mags.dim() != 1 or n == 0 or px_parent.shape != (n,) or nn < 1:
+        raise ValueError(f"mags and px_parent must be (n > 0,), ch_bounds (nn + 1 > 1,); got "
+                         f"{tuple(mags.shape)}, {tuple(px_parent.shape)}, {tuple(ch_bounds.shape)}")
+    depths = tuple((int(lo), int(hi)) for lo, hi in depths)
+    dev = mags.device
+    num_bp = torch.zeros((), dtype=torch.int32, device=dev)
+    pm = torch.empty(n, dtype=torch.int32, device=dev)
+    s = torch.empty(n, dtype=torch.int32, device=dev)
+    e = torch.empty(n, dtype=torch.int32, device=dev)
+    nm = torch.empty(nn, dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(mags):
+        err = lib.sperr_sched_table(
+            mags.data_ptr(), n, ch_src.data_ptr(), ch_bounds.data_ptr(), _depth_array(depths),
+            len(depths), px_parent.data_ptr(), num_bp.data_ptr(), pm.data_ptr(), nm.data_ptr(),
+            s.data_ptr(), e.data_ptr(), _stream(mags),
+        )
+    _check(lib, err, "sched_table")
+    _count("sched_table", 2 + len(depths))
+    return num_bp, pm, s, e, nm
+
+
+def sched_pyramid(mags: torch.Tensor, deep_idx: torch.Tensor, levels: int,
+                  ax_depth: Tuple[int, int, int], e_src: torch.Tensor, nm_src: torch.Tensor):
+    """The pyramid schedule: mags (n,) int32, deep_idx (n,) int32 (each
+    pixel's cell of the deepest level), levels L, ax_depth (az, ay, ax):
+    level d is 2^min(d, az) x 2^min(d, ay) x 2^min(d, ax), the levels
+    concatenated depth 0 first; e_src (n,), nm_src (nn,) int32 cells of that
+    concatenation -> (num_bp () int32, s, e (n,) int32, nm (nn,) int32).
+    2 + L launches."""
+    for t, what in ((mags, "mags"), (deep_idx, "deep_idx"), (e_src, "e_src"), (nm_src, "nm_src")):
+        _require_cuda(t, torch.int32, what)
+        if t.device != mags.device:
+            raise ValueError(f"{what} is on {t.device}, mags on {mags.device}")
+    n, nn, L = mags.numel(), nm_src.numel(), int(levels)
+    az, ay, ax = (int(v) for v in ax_depth)
+    if (mags.dim() != 1 or n == 0 or deep_idx.shape != (n,) or e_src.shape != (n,) or nn == 0
+            or not 0 <= L <= 30 or max(az, ay, ax) > L):
+        raise ValueError(f"mags, deep_idx, e_src (n > 0,), nm_src (nn > 0,), 0 <= depths <= L <= 30; got "
+                         f"{tuple(mags.shape)}, {tuple(deep_idx.shape)}, {tuple(e_src.shape)}, "
+                         f"{tuple(nm_src.shape)}, L {L}, {ax_depth}")
+    dev = mags.device
+    cells = sum(1 << (min(d, az) + min(d, ay) + min(d, ax)) for d in range(L + 1))
+    flat = torch.empty(cells, dtype=torch.uint8, device=dev)
+    num_bp = torch.zeros((), dtype=torch.int32, device=dev)
+    s = torch.empty(n, dtype=torch.int32, device=dev)
+    e = torch.empty(n, dtype=torch.int32, device=dev)
+    nm = torch.empty(nn, dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(mags):
+        err = lib.sperr_sched_pyramid(
+            mags.data_ptr(), n, deep_idx.data_ptr(), L, az, ay, ax, flat.data_ptr(), e_src.data_ptr(),
+            nm_src.data_ptr(), nn, num_bp.data_ptr(), s.data_ptr(), e.data_ptr(), nm.data_ptr(),
+            _stream(mags),
+        )
+    _check(lib, err, "sched_pyramid")
+    _count("sched_pyramid", 2 + L)
+    return num_bp, s, e, nm

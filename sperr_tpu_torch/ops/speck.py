@@ -19,8 +19,14 @@ and ``events_to_segments``.  The schedules give, as
 The indices are static per dims: their host tables come from the partition
 tree (codec/speck_wave.py) and, for the pyramid form, ops/pyramid.py; their
 device tensors are made once per (dims, device) and cached.  Integer results
-equal the JAX package's bit for bit.  Everything runs as torch ops on the
-tensors' device.
+equal the JAX package's bit for bit.  ``schedule_table`` and
+``schedule_pyramid`` (num_bp with the schedule, and pm for the table form)
+run the hand kernels of kernels/schedule.cu (``sched_table``,
+``sched_pyramid``) on a CUDA tensor and their plain versions
+(``pixel_schedule_ref``, ``pixel_schedule_pyramid_ref``) on a CPU tensor;
+``pixel_schedule`` and ``pixel_schedule_pyramid``, which take a given
+num_bp, are those plain versions and take CPU tensors only.  The rest of
+the module runs as torch ops on the tensors' device.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..codec.speck_wave import build_tree, build_tree2
 from . import pyramid as pm
+from .packemit import _dispatch, _words32
 from .speck_virtual import msbp1_device
 
 _NEVER = 0x7FFF
@@ -40,6 +48,10 @@ _I32 = torch.int32
 
 def _long(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64), device=device)
+
+
+def _int(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
 
 def _pixel_parent(tree) -> np.ndarray:
@@ -56,9 +68,12 @@ def _pixel_parent(tree) -> np.ndarray:
 class TreeIndex:
     """Static device tensors of the child-table schedule: per depth (deepest
     first) the child rows' value sources and parent rows, and each pixel's
-    parent node."""
+    parent node; and the int32 tables of the kernel: each child row's source
+    (a pixel's linear index, or -(node id + 1)), each node's first child row
+    (nn + 1 bounds), the depth ranges and each pixel's parent."""
 
-    __slots__ = ("dims", "device", "n", "nn", "depth_slices", "px_parent_lin")
+    __slots__ = ("dims", "device", "n", "nn", "depth_slices", "px_parent_lin", "ch_src", "ch_bounds",
+                 "depths", "px_parent32")
 
     def __init__(self, dims, device):
         dev = torch.device(device)
@@ -84,7 +99,20 @@ class TreeIndex:
                 _long(src_px, dev), _long(src_nd, dev), _long(parent_rows - lo, dev),
                 int(lo), int(hi),
             ))
-        self.px_parent_lin = _long(_pixel_parent(tree), dev)
+        par = _pixel_parent(tree)
+        self.px_parent_lin = _long(par, dev)
+        # the kernel's tables; the depth ranges must cover every node once
+        self.depths = tuple((int(lo), int(hi)) for lo, hi in reversed(tree.node_depth_ranges))
+        rng = sorted(self.depths)
+        if [lo for lo, _ in rng] != [0] + [hi for _, hi in rng[:-1]] or rng[-1][1] != self.nn:
+            raise ValueError(f"the depth ranges of {self.dims} do not cover the nodes")
+        if self.nn + tree.ch_ref.size >= 2**31:
+            raise ValueError(f"the tree of {self.dims} is too large for int32 tables")
+        pix = tree.px_linear[np.where(tree.ch_is_pixel, tree.ch_ref, 0)]
+        self.ch_src = _int(np.where(tree.ch_is_pixel, pix, -(tree.ch_ref + 1)), dev)
+        self.ch_bounds = _int(np.append(tree.node_ch_start, tree.node_ch_start[-1] + tree.node_ch_count[-1]),
+                              dev)
+        self.px_parent32 = _int(par, dev)
 
 
 _INDEXES: Dict[Tuple[Tuple[int, ...], str], TreeIndex] = {}
@@ -110,7 +138,29 @@ def node_max(msbp1: torch.Tensor, ti: TreeIndex) -> torch.Tensor:
     return nm
 
 
+def schedule_table(mags: torch.Tensor, ti: TreeIndex):
+    """(num_bp, pm, s, e, node maxima) of the child-table schedule (any 3D
+    dims and 2D dims), num_bp an int32 0-d tensor on the device and pm the
+    msb+1 of each pixel.  On a CUDA tensor the ``sched_table`` kernels (2 +
+    depths launches); on a CPU tensor the plain version."""
+    if _dispatch(mags, "schedule_table"):
+        return kernels.sched_table(_words32(mags).reshape(-1), ti.ch_src, ti.ch_bounds, ti.depths,
+                                   ti.px_parent32)
+    pm_ = msbp1_device(mags)
+    num_bp = pm_.max()
+    return (num_bp, pm_) + pixel_schedule_ref(mags, ti, num_bp)
+
+
 def pixel_schedule(mags: torch.Tensor, ti: TreeIndex, num_bp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(s, e, node maxima) of the child-table schedule with a given num_bp,
+    for a CPU tensor: the plain version.  A CUDA tensor raises: on the card
+    the schedule is ``schedule_table``."""
+    if _dispatch(mags, "pixel_schedule"):
+        raise ValueError("pixel_schedule takes CPU tensors; on the card call schedule_table")
+    return pixel_schedule_ref(mags, ti, num_bp)
+
+
+def pixel_schedule_ref(mags: torch.Tensor, ti: TreeIndex, num_bp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(s, e, node maxima) in linear pixel order, by child-table segment
     reductions (any dims); num_bp is an int32 0-d tensor."""
     pm_ = msbp1_device(mags)
@@ -128,7 +178,8 @@ class PyramidIndex:
     dims the pyramid cannot serve (wavelet-packet dims), as the original
     does."""
 
-    __slots__ = ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn")
+    __slots__ = ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn",
+                 "deep_idx32", "nm_src32", "e_src32")
 
     def __init__(self, dims, device):
         dev = torch.device(device)
@@ -178,6 +229,12 @@ class PyramidIndex:
                                 | bx[None, None, :])
             e_src[mask] = flat[mask]
         self.e_src = _long(e_src.reshape(-1), dev)
+        # the kernel's int32 copies
+        if off[-1] >= 2**31:
+            raise ValueError(f"the pyramid of {self.dims} is too large for int32 tables")
+        self.deep_idx32 = self.deep_idx.to(torch.int32)
+        self.nm_src32 = self.nm_src.to(torch.int32)
+        self.e_src32 = self.e_src.to(torch.int32)
 
 
 _PYR_INDEXES: Dict[Tuple[Tuple[int, ...], str], PyramidIndex] = {}
@@ -193,9 +250,30 @@ def pyramid_index(dims, device) -> PyramidIndex:
     return pi
 
 
+def schedule_pyramid(mags: torch.Tensor, pi: PyramidIndex):
+    """(num_bp, s, e, node maxima in tree order) of the pyramid schedule (3D
+    dyadic dims), num_bp an int32 0-d tensor on the device.  On a CUDA
+    tensor the ``sched_pyramid`` kernels (2 + levels launches); on a CPU
+    tensor the plain version."""
+    if _dispatch(mags, "schedule_pyramid"):
+        return kernels.sched_pyramid(_words32(mags).reshape(-1), pi.deep_idx32, pi.levels, pi.ax_depth,
+                                     pi.e_src32, pi.nm_src32)
+    num_bp = msbp1_device(mags).max()
+    return (num_bp,) + pixel_schedule_pyramid_ref(mags, pi, num_bp)
+
+
 def pixel_schedule_pyramid(mags: torch.Tensor, pi: PyramidIndex, num_bp):
-    """``pixel_schedule`` by max-pool pyramids (3D dyadic dims): the same
-    (s, e, node maxima in tree order)."""
+    """``pixel_schedule`` by max-pool pyramids with a given num_bp, for a
+    CPU tensor: the plain version.  A CUDA tensor raises: on the card the
+    schedule is ``schedule_pyramid``."""
+    if _dispatch(mags, "pixel_schedule_pyramid"):
+        raise ValueError("pixel_schedule_pyramid takes CPU tensors; on the card call schedule_pyramid")
+    return pixel_schedule_pyramid_ref(mags, pi, num_bp)
+
+
+def pixel_schedule_pyramid_ref(mags: torch.Tensor, pi: PyramidIndex, num_bp):
+    """``pixel_schedule`` by max-pool pyramids (3D dyadic dims), plain
+    version: the same (s, e, node maxima in tree order)."""
     nz_d, ny_d, nx_d = pi.ax_depth
     pm_ = msbp1_device(mags)
     deep = torch.zeros(1 << (nz_d + ny_d + nx_d), dtype=pm_.dtype, device=pm_.device)
@@ -351,8 +429,12 @@ __all__ = [
     "tree_index",
     "node_max",
     "pixel_schedule",
+    "pixel_schedule_ref",
+    "schedule_table",
     "PyramidIndex",
     "pyramid_index",
     "pixel_schedule_pyramid",
+    "pixel_schedule_pyramid_ref",
+    "schedule_pyramid",
     "events_to_segments",
 ]

@@ -17,9 +17,12 @@ level, path digits, child resolution) is arithmetic on the node id:
 the device it was made for (cached per dims and device);
 ``pixel_schedule_virtual`` (K6) gives each pixel's significance pass s, each
 pixel's exposure pass e and each node's maximum nm from one morton max
-pyramid; ``dense_anchor_ranks`` (K7) gives the set walk's chain anchors and
-their string ranks.  Integer results equal the JAX package's bit for bit.
-All of it runs as torch ops on the tensors' device.
+pyramid, and ``schedule_virtual`` (K5 and K6 fused) gives num_bp with them;
+``dense_anchor_ranks`` (K7) gives the set walk's chain anchors and their
+string ranks.  Integer results equal the JAX package's bit for bit.  On a
+CUDA tensor the schedule runs the hand kernels of kernels/schedule.cu
+(``sched_boxmax``, ``sched_virtual``); on a CPU tensor, and everywhere else
+in this module, torch ops run on the tensors' device.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils.dims import can_use_dyadic
+from .packemit import _dispatch, _words32
 
 _NEVER = 0x7FFF
 _I32 = torch.int32
@@ -175,6 +180,30 @@ class VirtualLisIndex:
             starts.append(int(np.argmax(slog >= v)))
         self.h_slog_starts = (int(slog[0]), tuple(starts))
         self._anchor_plan = None
+
+        # nm in BFS-id order as slices of the morton pyramid's grids: rows
+        # (grid g, lo, hi, output offset), one per depth and run of roots of
+        # one side.  A run of 8 is big + the 7 finest octants; a run of 7
+        # drops the (0, 0, 0) corner (it belongs to deeper roots); a single
+        # big root is octant 0 alone.
+        segs = []
+        out = 0
+        for d in range(D + 1):
+            r = int(r0[d])
+            while r < R:
+                r_end = r
+                while r_end < R and slog[r_end] == slog[r]:
+                    r_end += 1
+                blk = 1 << (3 * d)
+                run = r_end - r
+                lo = blk if run == 7 else 0
+                hi = 8 * blk if run in (7, 8) else blk
+                segs.append((K - (int(slog[r]) - d), lo, hi, out))
+                out += hi - lo
+                r = r_end
+        assert out == self.nn
+        self.h_nm_segs = np.asarray(segs, dtype=np.int32).reshape(-1, 4)
+        self.nm_segs = _i32(self.h_nm_segs, dev)
 
     # -- id <-> (root, depth, morton) ---------------------------------------
     def _decode_sums(self, ids):
@@ -576,12 +605,45 @@ def _morton_flatten(box: torch.Tensor, d: int) -> torch.Tensor:
     return out.reshape(-1)
 
 
+def _num_bp_tensor(num_bp, device) -> torch.Tensor:
+    """num_bp (an int or a tensor) as a one-element int32 tensor on device."""
+    if isinstance(num_bp, torch.Tensor):
+        return num_bp.to(device=device, dtype=_I32).reshape(1).contiguous()
+    return torch.tensor([int(num_bp)], dtype=_I32, device=device)
+
+
+def schedule_virtual(mags: torch.Tensor, vf: VirtualLisIndex):
+    """K5 and K6 fused: (num_bp, s, e, nm) of a power-of-two cube, num_bp
+    the largest msb+1 as an int32 0-d tensor on the device (no host wait).
+    On a CUDA tensor two launches (``sched_boxmax``, ``sched_virtual``); on a
+    CPU tensor the plain version, ``msbp1_device(mags).max()`` and then
+    ``pixel_schedule_virtual_ref``."""
+    if _dispatch(mags, "schedule_virtual"):
+        pm8, M, num_bp = kernels.sched_boxmax(_words32(mags).reshape(-1), vf.K)
+        s, e, nm = kernels.sched_virtual(pm8, M, num_bp, vf.nm_segs, vf.K, vf.nn)
+        return num_bp, s, e, nm
+    num_bp = msbp1_device(mags).max()
+    return (num_bp,) + pixel_schedule_virtual_ref(mags, vf, num_bp)
+
+
 def pixel_schedule_virtual(mags: torch.Tensor, vf: VirtualLisIndex, num_bp):
-    """K6: (s, e, node_max in BFS-id order) for a power-of-two cube, from one
-    morton pyramid.  The 8 morton children of a cell are consecutive in the
-    finer grid's morton order, so the pyramid is one morton flatten of the
-    half-grid box maxima followed by reshape(-1, 8) max reductions, and every
-    root's depth-d node block is a contiguous slice of its grid's array."""
+    """K6 with a given num_bp (an int or an int32 tensor): (s, e, node_max
+    in BFS-id order).  On a CUDA tensor the kernels of ``schedule_virtual``
+    (their own num_bp is not read); on a CPU tensor the plain version."""
+    if _dispatch(mags, "pixel_schedule_virtual"):
+        pm8, M, _ = kernels.sched_boxmax(_words32(mags).reshape(-1), vf.K)
+        return kernels.sched_virtual(pm8, M, _num_bp_tensor(num_bp, mags.device), vf.nm_segs,
+                                     vf.K, vf.nn)
+    return pixel_schedule_virtual_ref(mags, vf, num_bp)
+
+
+def pixel_schedule_virtual_ref(mags: torch.Tensor, vf: VirtualLisIndex, num_bp):
+    """K6, plain version: (s, e, node_max in BFS-id order) for a power-of-two
+    cube, from one morton pyramid.  The 8 morton children of a cell are
+    consecutive in the finer grid's morton order, so the pyramid is one
+    morton flatten of the half-grid box maxima followed by reshape(-1, 8)
+    max reductions, and every root's depth-d node block is a contiguous
+    slice of its grid's array."""
     N = vf.dims[0]
     K = vf.K
     pm = msbp1_device(mags)
@@ -626,6 +688,8 @@ __all__ = [
     "VirtualLisIndex",
     "virtual_lis_index",
     "pixel_schedule_virtual",
+    "pixel_schedule_virtual_ref",
+    "schedule_virtual",
     "dense_anchor_ranks",
     "msbp1_device",
     "_is_pow2_cube",

@@ -485,24 +485,26 @@ def _wave_index(dims3, device):
         return sl.lis_index(dims3, device), si
 
 
-def _pixel_schedule(mags: torch.Tensor, si, num_bp):
-    """(s, e, node maxima) through the schedule that ``si`` serves."""
+def _schedule(mags: torch.Tensor, si):
+    """(num_bp, s, e, node maxima) through the schedule that ``si`` serves,
+    num_bp on the device: K5 and K6 fused for a virtual forest, K15's
+    pyramid or child-table form otherwise."""
     if isinstance(si, svirt.VirtualLisIndex):
-        return svirt.pixel_schedule_virtual(mags, si, num_bp)
+        return svirt.schedule_virtual(mags, si)
     if isinstance(si, spk.PyramidIndex):
-        return spk.pixel_schedule_pyramid(mags, si, num_bp)
-    return spk.pixel_schedule(mags, si, num_bp)
+        return spk.schedule_pyramid(mags, si)
+    num_bp, _, s, e, nm = spk.schedule_table(mags, si)
+    return num_bp, s, e, nm
 
 
 def _wave_emit_chunk(mags: torch.Tensor, signs: torch.Tensor, li, caps: Dict[str, int], si=None):
-    """The device entropy stage of one chunk at one tier: K5 -> schedule (K6
-    for a virtual forest, K15 otherwise; ``si`` is the schedule index, None
-    for ``li`` itself) -> walk (K7 and K8, or K15's table walk) -> emission
-    (K9-K12).  Returns the WaveEmit and ``fits`` (node cap honoured, no
-    overflow, num_bp <= the tier's bitplane cap), all on the device."""
-    pm = svirt.msbp1_device(mags)
-    num_bp = pm.max()
-    s, e, nm = _pixel_schedule(mags, li if si is None else si, num_bp)
+    """The device entropy stage of one chunk at one tier: schedule (K5 and
+    K6 for a virtual forest, K15 otherwise; ``si`` is the schedule index,
+    None for ``li`` itself) -> walk (K7 and K8, or K15's table walk) ->
+    emission (K9-K12).  Returns the WaveEmit and ``fits`` (node cap
+    honoured, no overflow, num_bp <= the tier's bitplane cap), all on the
+    device."""
+    num_bp, s, e, nm = _schedule(mags, li if si is None else si)
     node_s = torch.where(nm > 0, num_bp - nm, _WAVE_NEVER).to(torch.int32)
     em = wp.wave_emit_3d(
         mags, signs, s, e, node_s, num_bp, li, caps["P"], caps["node_cap"],

@@ -42,7 +42,6 @@ from ..codec import speck_wave as sw
 from ..ops import cdf97
 from ..ops import speck as spk
 from ..ops import speck_lis2 as sl2
-from ..ops import speck_virtual as svirt
 from ..ops import wave_pack as wp
 from ..runtime.engine import default_engine
 from ..stream import tools
@@ -109,15 +108,14 @@ def _wave_index2(dims2, device):
 def _wave_emit_field(mags: torch.Tensor, signs: torch.Tensor, index, caps: Dict[str, int],
                      num_bp_cap: int) -> Dict[str, torch.Tensor]:
     """The 2D device entropy program of one field at one tier (sperr_tpu's
-    ``_dense_encode2_wave`` per field): K5 -> child-table schedule -> LIP
+    ``_dense_encode2_wave`` per field): the child-table schedule with num_bp
+    and pm (``sched_table``) -> LIP
     and refinement emission (K10, K11) -> I-set significance -> quad/I-set
     walk (K12 compactions).  Every result stays on the device; ``px_over``
     includes num_bp past the pixel classes' bitplane cap."""
     ti, li2, tree2 = index
     nx, ny = tree2.dims
-    pm = svirt.msbp1_device(mags)
-    num_bp = pm.max()
-    s, e, nm = spk.pixel_schedule(mags, ti, num_bp)
+    num_bp, pm, s, e, nm = spk.schedule_table(mags, ti)
     px, px_c, px_total, px_over = wp.wave_emit_2d_pixels(
         mags, signs, s, e, num_bp, caps["px_bp"], caps["px_evb"], caps["px_out"], caps["wexp_px"]
     )

@@ -15,9 +15,9 @@ carries ``"device"`` (the card's name and power limit, or "cpu") and
 ``"timed"``: how each stage was timed ("device", "device-busy",
 "host-issued", "wall" for ``time_stage_coarse``, or "cpu" for the host
 clock on the CPU), by stage, or as one method where the stages' times are
-compared or subtracted (``container_decode_stages``,
-``wave_entropy_breakdown``, ``wave_entropy_stage``): those are all timed by
-one method.
+compared (``container_decode_stages``, ``wave_entropy_stage``): those are
+all timed by one method.  ``wave_entropy_breakdown`` subtracts adjacent
+chains and names, by substage, the one method of the two chains.
 
 Every function takes ``device="cuda"`` and raises without a GPU;
 ``device="cpu"`` runs the kernels' plain versions and is for tests: a CPU
@@ -40,7 +40,6 @@ from ..ops import cdf97, cdf97_np
 from ..ops import packemit as pe
 from ..ops import quantize as qz
 from ..ops import speck_lis as sl
-from ..ops import speck_virtual as svirt
 from ..ops import wave_pack as wp
 from ..ops import wave_unpack as wup
 from ..parallel.batched import (
@@ -51,8 +50,8 @@ from ..parallel.batched import (
     _dense_encode_sparse,
     _dense_encode_rows,
     _evw_cap,
-    _pixel_schedule,
     _resolve_device,
+    _schedule,
     _wave_caps,
     _wave_emit_chunk,
     _wave_index,
@@ -487,14 +486,16 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
                            device="cuda") -> Dict:
     """Per-substage device seconds for the wave-entropy encode of one n^3
     chunk at the compressor's first tier: cumulative chains are timed (every
-    chain re-runs all earlier substages), all by one method (``"timed"``),
-    and the reported per-substage cost is the delta between adjacent
-    chains.
+    chain re-runs all earlier substages), and the reported per-substage cost
+    is the delta between adjacent chains, both timed by one method:
+    ``"timed"`` names it per substage ("device" where the sleep kernel
+    covers both chains, as it does up to the schedule).
 
-    Substages: quantize (condition -> DWT -> K1) -> pixel schedule
-    (``_pixel_schedule``: the virtual forest's, or ``ops/speck.py``'s for a
-    chunk that is not a power-of-two cube) -> the set walk's LIS items ->
-    the full emission (``wave_emit_3d``: masks, K10, K11).
+    Substages: quantize (condition -> DWT -> K1) -> schedule (``_schedule``:
+    num_bp, s, e and node maxima by the virtual forest's kernels, or
+    ``ops/speck.py``'s for a chunk that is not a power-of-two cube) -> the
+    set walk's LIS items -> the full emission (``wave_emit_3d``: masks, K10,
+    K11).
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
     the walk plus the refinement class's masks, bit transposes (K10), pext
     and popcounts."""
@@ -516,8 +517,7 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
 
     def to_sched(y):
         mags, signs = to_ll(y)
-        num_bp = svirt.msbp1_device(mags).max()
-        s, e, nm = _pixel_schedule(mags, si, num_bp)
+        num_bp, s, e, nm = _schedule(mags, si)
         node_s = torch.where(nm > 0, num_bp - nm, _WAVE_NEVER).to(torch.int32)
         return mags, signs, s, e, node_s, num_bp
 
@@ -547,16 +547,23 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
         "lis_items": to_items,
         "full_pack": to_full,
     }
-    # the chains, and the fold beside them, are timed by one method: each
-    # substage is a difference of two chains
-    secs, how = _time_together({**chains, "ref_words_abs": to_words}, x, iters)
-    out: Dict = {"n": n, "timed": how}
-    prev = 0.0
-    for name in chains:
-        out[name + "_cum_s"] = secs[name]
-        out[name + "_s"] = secs[name] - prev
-        prev = secs[name]
-    out["ref_words_abs_s"] = secs["ref_words_abs"]
+    # each substage is the difference of two adjacent chains timed by one
+    # method
+    out: Dict = {"n": n}
+    timed: Dict[str, str] = {}
+    names = list(chains)
+    for i, name in enumerate(names):
+        if i == 0:
+            cum, timed[name] = time_stage(chains[name], x, iters)
+            prev = 0.0
+        else:
+            pair = {names[i - 1]: chains[names[i - 1]], name: chains[name]}
+            secs, timed[name] = _time_together(pair, x, iters)
+            cum, prev = secs[name], secs[names[i - 1]]
+        out[name + "_cum_s"] = cum
+        out[name + "_s"] = cum - prev
+    out["ref_words_abs_s"], timed["ref_words_abs"] = time_stage(to_words, x, iters)
+    out["timed"] = timed
     out["device"] = device_label(dev)
     return out
 

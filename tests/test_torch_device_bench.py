@@ -119,11 +119,14 @@ def test_device_bench_keys_and_times(name, monkeypatch):
     extra = {"device", "timed"} | ({"tier"} if name == "wave_entropy_stage" else set())
     assert set(ours) == want | extra
     assert ours["device"] == "cpu"
-    if name in ("container_decode_stages", "wave_entropy_breakdown", "wave_entropy_stage"):
-        # stages compared or subtracted: one method for all
+    if name in ("container_decode_stages", "wave_entropy_stage"):
+        # stages compared: one method for all (the breakdown names one per
+        # substage, the method of the two chains its delta subtracts)
         assert ours["timed"] == "cpu"
     else:
         assert ours["timed"] and set(ours["timed"].values()) == {"cpu"}
+    if name == "wave_entropy_breakdown":
+        assert set(ours["timed"]) == {"quantize", "schedule", "lis_items", "full_pack", "ref_words_abs"}
     absolute = [k for k in ours if k.endswith("_s") and not (
         name == "wave_entropy_breakdown" and not k.endswith(("_cum_s", "abs_s")))]
     absolute = [k for k in absolute if k != "entropy_stage_s"]

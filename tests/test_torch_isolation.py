@@ -430,7 +430,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                  torch.zeros(1, dtype=torch.int32), 16, 8)
     assert set(kernels.launches) == {
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
-        "masked_pack", "compact_flags_rows", "reconstruct_mags",
+        "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
+        "sched_table", "sched_pyramid",
     }
     assert not any(kernels.launches.values())
 
