@@ -26,7 +26,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      quantized field, an all-zero and a 2^31 - 1 256^3 chunk, 16^3 and 2^3
      cubes, the child-table form (sched_table) on a Hurricane packet chunk
      (100, 256, 256), a 1024^2 and a 1800x3600 field, the pyramid form
-     (sched_pyramid) on the dyadic (97, 128, 118) chunk, each timed);
+     (sched_pyramid) on the dyadic (97, 128, 118) chunk, each timed; the
+     walk kernels of kernels/walk.cu bit for bit: the child value table
+     (walk_vtab), K7 (anchor_ranks), the whole 3D walk (walk_rows and the
+     key kernels, payload words padding included) and every radix sort it
+     ran (against torch.sort(stable=True)) on headline chunk 0 at tiers 0,
+     1 and the widest, an all-zero, a one-pixel and a 2^31 - 1 256^3 chunk,
+     16^3 and 2^3 cubes, and lexsort (the radix sort) against the chained
+     torch.sort on a table walk's and a 2D walk's keys; the table, K7, the
+     walk at tiers 0 and 1 and the tier-1 walk sort timed, the sort beside
+     torch.sort);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
      parse on the host, K13 on the card), checked against the host f64
@@ -39,8 +48,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte (1,012,155 bytes) with
-     every chunk on the device and K1, the lifting kernel, K10, K11, K12 and
-     the schedule's sched_boxmax and sched_virtual launched; phase 5's
+     every chunk on the device and K1, the lifting kernel, K10, K11, K12,
+     the schedule's sched_boxmax and sched_virtual and the walk's
+     walk_vtab, anchor_ranks, walk_rows and radix sort launched; phase 5's
      PSNR and rate streams; one noisy 256^3 chunk that drives the tier
      ladder into its dense tiers;
   7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
@@ -56,12 +66,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      field) in 256^3 chunks, four wavelet-packet chunks (child-table
      schedule and table walk, K15), whose wave container must equal the
      host one byte for byte (87,959 bytes) with K1, the lifting kernel, K10,
-     K11, K12 and sched_table launched, decoded on both routes; one dyadic
+     K11, K12, sched_table and the radix sort launched, decoded on both
+     routes; one dyadic
      chunk, whose wave container must equal the host one, with
      sched_pyramid launched;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
      streams must equal phase 7's (167,627 bytes) with every field on the
-     device and K1, K2, K3, K10, K11, K12 and sched_table launched, decoded
+     device and K1, K2, K3, K10, K11, K12, sched_table and the radix sort
+     launched, decoded
      within the bound, the encode
      timed on both routes; one field's device program (device-busy and
      host-issued time, host waits, its K10-K12 calls bit for bit); phase 8's
@@ -89,7 +101,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      transfer="dense"): phase 4's volume with host and wave entropy, each
      container equal to phase 4's byte for byte and each decode phase 4's,
      K1, the lifting kernel and K12 launched (the wave route also K10,
-     K11, sched_boxmax and sched_virtual), the bound under the port's
+     K11, sched_boxmax, sched_virtual and the walk kernels), the bound
+     under the port's
      decoder and the host f64 decoder;
      warm encodes of both transfers alternating on each route with their
      device to host bytes; every chunk through the dense re-run (container
@@ -101,7 +114,10 @@ and how it was timed (``plain_timed``), bound and library time; the last line is
 The K12 entry also holds its time at the sparse transfer's shape and its
 launches on that path (``sparse``); sched_virtual's the two cube launches
 together (``fused``: the K5 + K6 function), sched_table's its times on the
-2D fields (``2d``) and its launches in phase 10 (``launches_2d``).
+2D fields (``2d``) and its launches in phase 10 (``launches_2d``); each walk
+kernel's its launches per call (``launches_per_call``), walk_rows's (the
+whole walk) its tier-1 time (``tier1``), the radix sort's its launches in
+phases 9 and 10 (``launches_table``, ``launches_2d``).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -587,11 +603,11 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
     w, h = runs["wave"], runs["host"]
     print(f"[table] launches during the timed wave encode: {w['launches']}")
     for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
-                 "sched_table"):
+                 "sched_table", "radix_sort"):
         _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
     _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
-    sched_launches = {"sched_table": w["launches"]["sched_table"]}
+    sched_launches = {"sched_table": w["launches"]["sched_table"], "radix_sort": w["launches"]["radix_sort"]}
     _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
     print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
           f"({8.0 * len(w['stream']) / vol.size:.5f} bpp), wave = host byte for byte, "
@@ -697,7 +713,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     with the most device time and its bound.  Phase 8's 1800 x 3600 field
     at PWE 1e-2, PSNR 80 and rate 2.0, and a noisy 256 x 256 field that
     climbs the tier ladder: every wave stream equal to its host one.
-    Returns sched_table's launches in the first timed wave encode."""
+    Returns sched_table's and the radix sort's launches in the first timed
+    wave encode."""
     import numpy as np
     import torch
 
@@ -742,7 +759,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
     for name in ("quantize", "dwt2d_full", "idwt2d_full", "transpose_bits32", "masked_pack",
-                 "compact_flags_rows", "sched_table"):
+                 "compact_flags_rows", "sched_table", "radix_sort"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
     _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
@@ -825,7 +842,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return launches["sched_table"]
+    return {k: launches[k] for k in ("sched_table", "radix_sort")}
 
 
 def _cli(tool: str, *args: str) -> str:
@@ -1281,7 +1298,7 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
 
     want = {"host": ("quantize", "cdf97_lift", "compact_flags_rows"),
             "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "transpose_bits32", "masked_pack",
-                     "sched_boxmax", "sched_virtual")}
+                     "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort")}
     launches = {}
     walls = {}
     for entropy, phase in (("host", 4), ("wave", 6)):
@@ -1525,6 +1542,185 @@ def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         rows[name]["max_abs_err"] = err[name]
     print(f"[kernels] schedule kernels took {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
+    """Phase 3's walk kernels (kernels/walk.cu) bit for bit against their
+    plain versions on the card: the child value table (``walk_vtab``), K7
+    (``anchor_ranks``: ``dense_anchor_ranks`` against
+    ``dense_anchor_ranks_ref``), the whole walk (``_lis_items_virtual``
+    against ``_lis_items_virtual_ref``, padding items included) and every
+    radix sort the walk ran (against ``torch.sort(stable=True)`` on the same
+    keys), on headline chunk 0 at tiers 0, 1 and the widest, an all-zero, a
+    one-pixel and a 2^31 - 1 256^3 chunk, 16^3 and 2^3 cubes; then
+    ``lexsort`` (the radix sort) against its plain version on the keys of a
+    table walk (64, 64, 25) and of a 2D wave encode (256^2).  The table,
+    K7, the walk at tiers 0 and 1 and the tier-1 walk sort timed on the
+    device and as the host issues them, beside their plain versions, their
+    bounds and, for the sort, torch.sort.  Returns each kernel's row of the
+    result line."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_lis as sl
+    from sperr_tpu_torch.ops import speck_lis2 as sl2
+    from sperr_tpu_torch.ops import speck_virtual as sv
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D
+    from sperr_tpu_torch.runtime.device_bench import time_ms
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    names = ("walk_vtab", "anchor_ranks", "walk_rows", "radix_sort")
+    err = {k: 0 for k in names}
+
+    def equal(name, got, want, what):
+        for k, (a, b) in enumerate(zip(got, want)):
+            a, b = a.reshape(-1), b.reshape(-1)
+            same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            err[name] = max(err[name], _int_err(a, b) if a.shape == b.shape else 2**31)
+            _check(same, f"{name}: output {k} differs from the plain version on {what}")
+
+    def sort_ref(keys, vals):
+        idx = torch.sort(keys, stable=True).indices
+        return keys[idx], (idx.to(torch.int32) if vals is None else vals[idx])
+
+    x = torch.from_numpy(np.ascontiguousarray(vol512[:256, :256, :256])[None]).to(dev)
+    front = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_)
+    mags0 = front["mags"][0].reshape(-1).contiguous()
+    signs0 = front["signs"][0].reshape(-1).contiguous()
+    del x, front
+    n = mags0.numel()
+    vf256 = sv.virtual_lis_index((256, 256, 256), dev)
+    tiers = tb.wave_tiers_for(n)
+    cap = {t: tb._wave_caps(vf256, (256, 256, 256), tiers[t], 34)["node_cap"] for t in (0, 1, len(tiers) - 1)}
+    one = torch.zeros_like(mags0)
+    one[n // 3] = 5
+    big = mags0.clone()
+    big[n // 2] = 2**31 - 1
+    cases = [("headline chunk 0", mags0, signs0, [(f"tier {t}", c) for t, c in cap.items()]),
+             ("all zero 256^3", torch.zeros_like(mags0), torch.zeros_like(signs0), [("tier 0", cap[0])]),
+             ("one pixel 256^3", one, signs0, [("tier 0", cap[0])]),
+             ("256^3 with 2^31 - 1", big, signs0, [("tier 0", cap[0]), ("tier 1", cap[1])])]
+    for N in (16, 2):
+        m = rng.integers(0, 1 << 20, N**3) * (rng.random(N**3) < 0.4)
+        vfN = sv.virtual_lis_index((N, N, N), dev)
+        cases.append((f"{N}^3", torch.from_numpy(m.astype(np.int32)).to(dev),
+                      torch.from_numpy(rng.random(N**3) < 0.5).to(dev),
+                      [("nn", vfN.nn), ("nn / 20", max(1, vfN.nn // 20))]))
+    rows = {}
+    keep = {}
+    for label, mags, signs, caps in cases:
+        N = round(mags.numel() ** (1 / 3))
+        vf = sv.virtual_lis_index((N, N, N), dev)
+        nb, s, _, nm = sv.schedule_virtual(mags, vf)
+        node_s = torch.where(nm > 0, nb - nm, 0x7FFF).to(torch.int32)
+        for mg in (None, mags):
+            equal("walk_vtab", (sv.child_value_table(vf, s, signs, node_s, mg),),
+                  (sv.child_value_table_ref(vf, s, signs, node_s, mg),),
+                  f"{label}, mags {'packed' if mg is not None else 'apart'}")
+        equal("anchor_ranks", sv.dense_anchor_ranks(node_s, vf), sv.dense_anchor_ranks_ref(node_s, vf), label)
+        vtab = sv.child_value_table(vf, s, signs, node_s)
+        nsorts = 0
+        for clabel, c in caps:
+            with _capture(kernels, ["radix_sort"]) as rc:
+                got = sl._lis_items_virtual(node_s, s, signs, nb, vf, c, vtab)
+            with _capture(sl, ["lexsort"]) as lc:
+                want = sl._lis_items_virtual_ref(node_s, s, signs, nb, vf, c, vtab)
+            equal("walk_rows", got, want, f"{label}, {clabel} (node cap {c})")
+            for keys, bits, vals in rc["radix_sort"]:
+                equal("radix_sort", kernels.radix_sort(keys, bits, vals), sort_ref(keys, vals),
+                      f"{label}, {clabel}: a sort of {keys.numel()} keys")
+                nsorts += 1
+            for (keys,) in lc["lexsort"]:
+                equal("radix_sort", (sl.lexsort(keys),), (sl._lexsort_ref(keys),),
+                      f"{label}, {clabel}: the plain walk's lexsort of {keys[0].numel()} keys")
+                nsorts += 1
+            if label == "headline chunk 0" and clabel in ("tier 0", "tier 1"):
+                keep[clabel] = (node_s, s, signs, nb, vf, c, vtab, rc["radix_sort"], lc["lexsort"])
+        print(f"[kernels] walk, {label}: num_bp {int(nb)}, {int((node_s < 0x7FFF).sum())} significant sets; "
+              f"walk_vtab (mags packed and apart), anchor_ranks (J, R) and the walk's payload words at "
+              f"{', '.join(f'{cl} ({c})' for cl, c in caps)} equal to the plain versions bit for bit, and "
+              f"{nsorts} sorts equal to torch.sort(stable=True)")
+        del vtab, got, want
+    del cases, one, big
+
+    # lexsort (the radix sort) on the table walk's and the 2D walk's keys
+    dims_t = (64, 64, 25)
+    nt_ = dims_t[0] * dims_t[1] * dims_t[2]
+    ti, li_t = spk.tree_index(dims_t, dev), sl.lis_index(dims_t, dev)
+    mt = torch.from_numpy((rng.integers(0, 1 << 16, nt_) * (rng.random(nt_) < 0.3)).astype(np.int32)).to(dev)
+    nbt, _, st, _, nmt = spk.schedule_table(mt, ti)
+    node_st = torch.where(nmt > 0, nbt - nmt, 0x7FFF).to(torch.int32)
+    with _capture(sl, ["lexsort"]) as lt:
+        sl._lis_items_table(node_st, st, torch.from_numpy(rng.random(nt_) < 0.5).to(dev), nbt, li_t, li_t.nn)
+    field = _turbulence_like(256, 256, 3)
+    with _capture(sl, ["lexsort"]) as l2a, _capture(sl2, ["lexsort"]) as l2b:
+        TorchCompressor2D((256, 256), device=dev, entropy="wave").compress(field, "pwe", 1e-2)
+    for what, calls in (("table walk (64, 64, 25)", lt["lexsort"]),
+                        ("2D walk 256^2", l2a["lexsort"] + l2b["lexsort"])):
+        _check(len(calls) > 0, f"the {what} called no lexsort")
+        for (keys,) in calls:
+            got = kernels.radix_lexsort(keys).long()
+            equal("radix_sort", (got,), (sl._lexsort_ref(keys),), f"the {what}'s lexsort")
+        print(f"[kernels] lexsort on the {what}'s keys ({len(calls)} calls, "
+              f"{', '.join(str(len(k)) for (k,) in calls)} keys each): the radix sort equal to the chained "
+              "torch.sort bit for bit")
+
+    # timings at the main path's shapes: headline chunk 0
+    node_s, s, signs, nb, vf, c1, vtab, sorts1, plain_sorts1 = keep["tier 1"]
+    nn, nt = vf.nn, vf.nt
+    # vtab: s, signs, mags read; the table written.  K7: node_s read; J, R
+    # written.  The walk: node_s and the table read; the payload words and
+    # n_sig written.  The sort: keys and values read, both written.
+    rows["walk_vtab"] = {"fn": lambda: sv.child_value_table(vf, s, signs, node_s, mags0),
+                         "plain": lambda: sv.child_value_table_ref(vf, s, signs, node_s, mags0),
+                         "bytes": 4 * n + n + 4 * n + 4 * nn + 4 * nt}
+    rows["anchor_ranks"] = {"fn": lambda: sv.dense_anchor_ranks(node_s, vf),
+                            "plain": lambda: sv.dense_anchor_ranks_ref(node_s, vf), "bytes": 12 * nn}
+    walk_sort = max(sorts1, key=lambda a: a[0].numel())
+    wk, wb, wv = walk_sort
+    plain_keys = max(plain_sorts1, key=lambda a: a[0][0].numel())[0]
+    rows["radix_sort"] = {"fn": lambda: kernels.radix_sort(wk, wb, wv),
+                          "plain": lambda: sl._lexsort_ref(plain_keys),
+                          "library": lambda: torch.sort(wk, stable=True),
+                          "bytes": 2 * (wk.element_size() + 4) * wk.numel()}
+    for t in ("tier 0", "tier 1"):
+        node_s_, s_, signs_, nb_, vf_, c_, vtab_, _, _ = keep[t]
+        T = sl.lis_item_count(vf_, c_)
+        rows[f"walk_rows {t}"] = {
+            "fn": (lambda a=(node_s_, s_, signs_, nb_, vf_, c_, vtab_): sl._lis_items_virtual(*a)),
+            "plain": (lambda a=(node_s_, s_, signs_, nb_, vf_, c_, vtab_): sl._lis_items_virtual_ref(*a)),
+            "bytes": 4 * nn + 4 * nt + 4 * T + 4, "T": T}
+    for name, r in rows.items():
+        before = dict(kernels.launches)
+        r["fn"]()
+        torch.cuda.synchronize()
+        per_call = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        r["ms"] = time_ms(r["fn"], 10, "device")[0]
+        r["host_ms"] = time_ms(r["fn"], 10, "host-issued")[0]
+        r["plain_ms"], r["plain_timed"] = time_ms(r["plain"], 3)
+        r["library_ms"] = time_ms(r["library"], 10, "device")[0] if "library" in r else None
+        r["bound_ms"] = _bound_ms(r["bytes"])
+        r["launches_per_call"] = per_call
+        print(f"[kernels] {name} 256^3 (headline chunk 0" + (f", {r['T']} items" if "T" in r else "")
+              + f"; launches per call {per_call}): kernels {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host "
+              f"issues them), plain {r['plain_ms']:.4f} ms ({r['plain_timed']})"
+              + (f", torch.sort(stable=True) {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share "
+              f"{r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    out = {}
+    for name in names:
+        src = rows["walk_rows tier 0"] if name == "walk_rows" else rows[name]
+        out[name] = {k: src[k] for k in ("ms", "host_ms", "plain_ms", "plain_timed", "bound_ms", "library_ms",
+                                          "launches_per_call")}
+        out[name]["max_abs_err"] = err[name]
+    out["walk_rows"]["tier1"] = {k: rows["walk_rows tier 1"][k]
+                                 for k in ("ms", "host_ms", "plain_ms", "bound_ms", "launches_per_call")}
+    print(f"[kernels] walk kernels took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1880,6 +2076,7 @@ def main() -> int:
                              or "not measured") + f" -- {smi}")
     del args3, args1, full
     sched = _sched_kernels(kernels, smi, dev, vol512, vol11)
+    walk = _walk_kernels(kernels, smi, dev, vol512)
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
@@ -1887,7 +2084,8 @@ def main() -> int:
             ("K13 reconstruct_mags (1, 256^3)", k13_one["ms"], k13_one["host_ms"], k13_one["bound_ms"]),
             *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
               for shape, t in plane_ms.items() for k in ("K2", "K3")),
-            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items())):
+            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items()),
+            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in walk.items())):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
@@ -2038,7 +2236,7 @@ def main() -> int:
     peak_w = torch.cuda.max_memory_allocated()
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
     for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
-                 "sched_boxmax", "sched_virtual"):
+                 "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
     _check(launches_w["sched_boxmax"] == launches_w["sched_virtual"],
            "the cube schedule's two launches do not pair up")
@@ -2190,7 +2388,8 @@ def main() -> int:
     launches_tab = _table_phase(kernels, smi, dev, hurricane, pyr_chunk)
 
     # -- 10. the 2D device entropy path --------------------------------------
-    launches_tab["sched_table_2d"] = _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
+    launches_2d = _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
+    launches_tab["sched_table_2d"] = launches_2d["sched_table"]
 
     # -- 11. the command-line tools and the stage timer ----------------------
     _cli_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields[0], streams2[0], f7,
@@ -2242,6 +2441,19 @@ def main() -> int:
                      r["bound_ms"], None))
         plain_timed[name] = r["plain_timed"]
     sched["sched_table"]["launches_2d"] = launches_tab["sched_table_2d"]
+    # the walk kernels: launches in phase 6's timed wave encode; the radix
+    # sort's also in phase 9 (the table walk) and phase 10 (the 2D walk)
+    for name in ("walk_vtab", "anchor_ranks", "walk_rows", "radix_sort"):
+        r = walk[name]
+        rows.append((name, "walk.cu", {"walk_vtab": "sperr_tpu/ops/speck_virtual.py:310",
+                                       "anchor_ranks": "sperr_tpu/ops/speck_virtual.py:457",
+                                       "walk_rows": "sperr_tpu/ops/speck_lis_jax.py:175",
+                                       "radix_sort": "sperr_tpu/ops/speck_lis_jax.py:175"}[name],
+                     launches_w[name], r["max_abs_err"], r["ms"], r["host_ms"], r["plain_ms"], r["bound_ms"],
+                     r["library_ms"]))
+        plain_timed[name] = r["plain_timed"]
+    walk["radix_sort"]["launches_table"] = launches_tab["radix_sort"]
+    walk["radix_sort"]["launches_2d"] = launches_2d["radix_sort"]
     # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
     sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
     # "ms" is the device's time alone, "host_ms" as the host issues the
@@ -2252,7 +2464,9 @@ def main() -> int:
          "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
          "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {}),
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
-            else {})}
+            else {}),
+         **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
+                                                           "launches_2d")} if name in walk else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

@@ -11,7 +11,7 @@ There is no fallback.  A missing ``nvcc``, a failed build or load, a device
 that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
 ``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``,
-``ops/speck_virtual.py``, ``ops/speck.py``) and run only
+``ops/speck_virtual.py``, ``ops/speck.py``, ``ops/speck_lis.py``) and run only
 for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` for each kernel it launches,
@@ -39,7 +39,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
     os.path.join(_DIR, f)
     for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu",
-              "schedule.cu")
+              "schedule.cu", "walk.cu")
 )
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
@@ -54,6 +54,7 @@ launches = {
     "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
+    "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -174,6 +175,25 @@ def load(device=None) -> ct.CDLL:
                     vp, ll, vp, ct.c_int, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, ll, vp, vp,
                     vp, vp, vp,
                 ]),
+                ("sperr_walk_vtab", [vp, vp, vp, vp, vp, ct.c_int, ll, vp, vp]),
+                ("sperr_anchor_ranks", [
+                    vp, vp, ll, vp, vp, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                    vp, vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_radix_sort", [
+                    vp, ct.c_int, vp, ll, ct.POINTER(ct.c_int), ct.c_int, vp, vp, vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_gather", [vp, ct.c_int, vp, vp, ll, vp]),
+                ("sperr_walk_rows", [vp, ct.c_int, vp, vp, vp, ll, vp, vp, vp]),
+                ("sperr_walk_born", [
+                    vp, ct.c_int, vp, ll, vp, vp, vp, vp, ll, ct.c_int, ct.c_int, ct.c_int, vp, vp,
+                    vp, vp, vp,
+                ]),
+                ("sperr_walk_entries", [
+                    vp, vp, vp, ct.c_int, vp, ll, vp, vp, vp, vp, ll, ct.c_int, ct.c_int, ct.c_int,
+                    vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_walk_rowkeys", [vp, ct.c_int, ll, vp, vp, vp, ct.c_int, ct.c_int, vp, vp, vp]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
@@ -821,3 +841,307 @@ def sched_pyramid(mags: torch.Tensor, deep_idx: torch.Tensor, levels: int,
     _check(lib, err, "sched_pyramid")
     _count("sched_pyramid", 2 + L)
     return num_bp, s, e, nm
+
+
+# ---------------------------------------------------------------------------
+# K7, K8: the 3D set walk, and the stable radix sort (kernels/walk.cu).  The
+# forest descriptor and the rank plan are int32 arrays that
+# ops/speck_virtual.py lays out (walk_forest, rank_plan).
+# ---------------------------------------------------------------------------
+SORT_TILE = 4096  # keys per block of the radix sort (kTile in walk.cu)
+RANK_SPANS = 16  # id spans per level of the rank plan (kMaxSpans)
+RANK_LEVEL_INTS = 3 + 2 * RANK_SPANS  # words per level (kLevelInts)
+RANK_SMALL_MAX = 4096  # nodes of a level ranked in one block (kSmallMax)
+FOREST_DEPTHS = 14  # entries of the forest's per-depth tables (kMaxDepth)
+FOREST_ROOTS = 64  # roots the forest descriptor holds (kMaxRoots)
+
+
+def radix_shifts(bits: int):
+    """The digit passes (shifts of 8-bit digits) that sort keys of ``bits``
+    significant bits: digits above them are equal for every key."""
+    bits = int(bits)
+    return [8 * p for p in range(-(-bits // 8))]
+
+
+def _sort_scratch(n: int, key_dtype, dev):
+    nb = -(-n // SORT_TILE)
+    return (torch.empty(n, dtype=key_dtype, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(256 * nb, dtype=torch.int32, device=dev),
+            torch.empty(256, dtype=torch.int32, device=dev))
+
+
+def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[torch.Tensor] = None):
+    """The stable LSD radix sort: keys (n,) int32 or int64, read as signed,
+    with vals (n,) int32 (None: 0 .. n-1) -> (sorted keys, the values in the
+    same order).  ``bits``: every key's bits above this many are equal
+    (nonnegative keys below 2^bits), so only the digits below are sorted;
+    None sorts every digit.  3 launches per 8-bit digit."""
+    if not keys.is_cuda or keys.dtype not in (torch.int32, torch.int64) or not keys.is_contiguous():
+        raise ValueError(f"keys must be a contiguous int32 or int64 CUDA tensor; got {keys.dtype} "
+                         f"on {keys.device}")
+    if keys.dim() != 1 or keys.numel() == 0 or keys.numel() >= 2**31:
+        raise ValueError(f"keys must be (n,) with 0 < n < 2^31; got {tuple(keys.shape)}")
+    n = keys.numel()
+    if vals is not None:
+        _require_cuda(vals, torch.int32, "vals")
+        if vals.shape != keys.shape or vals.device != keys.device:
+            raise ValueError(f"vals must be (n,) on {keys.device}; got {tuple(vals.shape)} on {vals.device}")
+    width = 8 * keys.element_size()
+    bits = width if bits is None else int(bits)
+    if not 1 <= bits <= width:
+        raise ValueError(f"bits must be in [1, {width}]; got {bits}")
+    shifts = radix_shifts(bits)
+    dev = keys.device
+    kbuf, vbuf, counts, totals = _sort_scratch(n, keys.dtype, dev)
+    kout = torch.empty_like(keys)
+    vout = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(keys):
+        err = lib.sperr_radix_sort(
+            keys.data_ptr(), keys.element_size(), None if vals is None else vals.data_ptr(), n,
+            (ct.c_int * len(shifts))(*shifts), len(shifts), kbuf.data_ptr(), vbuf.data_ptr(),
+            kout.data_ptr(), vout.data_ptr(), counts.data_ptr(), totals.data_ptr(), _stream(keys),
+        )
+    _check(lib, err, "radix_sort")
+    _count("radix_sort", 3 * len(shifts))
+    return kout, vout
+
+
+def gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src[idx] for src (n,) int32 or int64 and idx (m,) int32 on one CUDA
+    device (one launch, counted with the radix sort it serves)."""
+    if not src.is_cuda or src.dtype not in (torch.int32, torch.int64) or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous int32 or int64 CUDA tensor; got {src.dtype} "
+                         f"on {src.device}")
+    _require_cuda(idx, torch.int32, "idx")
+    if idx.device != src.device or src.dim() != 1 or idx.dim() != 1 or idx.numel() == 0:
+        raise ValueError(f"src and idx must be non-empty (n,) tensors on one device; got "
+                         f"{tuple(src.shape)} on {src.device}, {tuple(idx.shape)} on {idx.device}")
+    out = torch.empty(idx.numel(), dtype=src.dtype, device=src.device)
+    lib = load(src.device)
+    with _on_device(src):
+        err = lib.sperr_gather(src.data_ptr(), src.element_size(), idx.data_ptr(), out.data_ptr(),
+                               idx.numel(), _stream(src))
+    _check(lib, err, "gather")
+    _count("radix_sort")
+    return out
+
+
+def radix_lexsort(keys, bits=None) -> torch.Tensor:
+    """Permutation (int32) that sorts stably by keys[0], then keys[1], ...:
+    LSD over the keys, the last first (``bits``: each key's width, as
+    ``radix_sort``); between keys one gather carries the next key into the
+    order so far."""
+    keys = list(keys)
+    bits = [None] * len(keys) if bits is None else list(bits)
+    if not keys or len(bits) != len(keys):
+        raise ValueError(f"one width per key; got {len(keys)} keys, {len(bits)} widths")
+    if keys[0].numel() == 0:
+        return torch.empty(0, dtype=torch.int32, device=keys[0].device)
+    perm = None
+    for k, b in zip(reversed(keys), reversed(bits)):
+        k = k.contiguous() if perm is None else gather(k.contiguous(), perm)
+        perm = radix_sort(k, b, perm)[1]
+    return perm
+
+
+def _forest_check(forest: torch.Tensor, dev) -> None:
+    _require_cuda(forest, torch.int32, "forest")
+    if forest.device != dev:
+        raise ValueError(f"the forest descriptor is on {forest.device}, the tensors on {dev}")
+
+
+def walk_vtab(s: torch.Tensor, signs: torch.Tensor, mags: Optional[torch.Tensor],
+              node_s: torch.Tensor, forest: torch.Tensor, N: int, nt: int) -> torch.Tensor:
+    """The walk's 8-aligned child value table of an N^3 cube (nt int32): the
+    pixels' clip(s, 0, 127) | sign << 7 [| min(mag, 2^23 - 1) << 8] in
+    2x2x2-box-major order, then each depth's node_s, padded with NEVER to a
+    multiple of 8.  One launch."""
+    for t, dtype, what in ((s, torch.int32, "s"), (signs, torch.bool, "signs"),
+                           (node_s, torch.int32, "node_s")) + (
+                               () if mags is None else ((mags, torch.int32, "mags"),)):
+        _require_cuda(t, dtype, what)
+        if t.device != s.device:
+            raise ValueError(f"{what} is on {t.device}, s on {s.device}")
+    N, nt = int(N), int(nt)
+    n = N ** 3
+    if N < 2 or N & (N - 1) or s.shape != (n,) or signs.shape != (n,) or (
+            mags is not None and mags.shape != (n,)) or nt < n:
+        raise ValueError(f"s, signs and mags must be ({n},) for N = {N}, nt >= n; got {tuple(s.shape)}, "
+                         f"{tuple(signs.shape)}, nt {nt}")
+    if any(t.data_ptr() % 8 for t in (s, signs) + (() if mags is None else (mags,))):
+        raise ValueError("s, signs and mags must be 8-byte aligned (the kernel loads pixel pairs)")
+    _forest_check(forest, s.device)
+    vtab = torch.empty(nt, dtype=torch.int32, device=s.device)
+    lib = load(s.device)
+    with _on_device(s):
+        err = lib.sperr_walk_vtab(s.data_ptr(), signs.data_ptr(), None if mags is None else mags.data_ptr(),
+                                  node_s.data_ptr(), forest.data_ptr(), N, nt, vtab.data_ptr(), _stream(s))
+    _check(lib, err, "walk_vtab")
+    _count("walk_vtab")
+    return vtab
+
+
+class AnchorRanks(NamedTuple):
+    J: torch.Tensor     # (nn,) int32: each node's same-pass chain top
+    R: torch.Tensor     # (nn,) int32: its string rank in its level (0 on leaf levels)
+    sigf: Optional[torch.Tensor]  # (nn,) uint8: node_s < NEVER (the walk's flags)
+    wbuf: Optional[torch.Tensor]  # (nn + 1,) int32, BIG: the walk's rank table
+
+
+def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
+                 plan_host: np.ndarray, nsmall: int, walk: bool = False) -> AnchorRanks:
+    """K7: the chain tops J and string ranks R of every node from node_s
+    (nn,) int32.  ``plan``: the ranked levels (RANK_LEVEL_INTS words each,
+    ascending), the first ``nsmall`` of them ranked in one block, each other
+    by its keys, the radix sort and two rank launches.  With ``walk``, also
+    the walk's significance flags and its rank table (set to BIG)."""
+    _require_cuda(node_s, torch.int32, "node_s")
+    dev = node_s.device
+    _forest_check(forest, dev)
+    _require_cuda(plan, torch.int32, "plan")
+    nn = node_s.numel()
+    plan_host = np.ascontiguousarray(plan_host, dtype=np.int32)
+    nlev = plan_host.size // RANK_LEVEL_INTS
+    if (node_s.dim() != 1 or nn == 0 or plan.numel() != plan_host.size
+            or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev):
+        raise ValueError(f"node_s (nn > 0,) and a plan of {RANK_LEVEL_INTS}-word levels; got "
+                         f"{tuple(node_s.shape)}, {plan.numel()} words, nsmall {nsmall}")
+    levels = plan_host.reshape(nlev, RANK_LEVEL_INTS)
+    big = levels[nsmall:]
+    if (levels[:nsmall, 0] > RANK_SMALL_MAX).any() or (12 + levels[:nsmall, 1] > 31).any():
+        raise ValueError("a level ranked in one block has more than "
+                         f"{RANK_SMALL_MAX} nodes or keys wider than 31 bits")
+    J = torch.empty(nn, dtype=torch.int32, device=dev)
+    R = torch.empty(nn, dtype=torch.int32, device=dev)
+    u = torch.empty(nn, dtype=torch.int32, device=dev)
+    jp = torch.empty(nn, dtype=torch.int32, device=dev)
+    sigf = torch.empty(nn, dtype=torch.uint8, device=dev) if walk else None
+    wbuf = torch.empty(nn + 1, dtype=torch.int32, device=dev) if walk else None
+    m = int(big[:, 0].max()) if len(big) else 1
+    wide = bool(len(big)) and bool((12 + big[:, 1] > 31).any())
+    kd = torch.int64 if wide else torch.int32
+    keys = torch.empty(m, dtype=kd, device=dev)
+    ids = torch.empty(m, dtype=torch.int32, device=dev)
+    kbuf, vbuf, counts, totals = _sort_scratch(m, kd, dev)
+    kout, vout = torch.empty_like(keys), torch.empty_like(ids)
+    bsum = torch.empty(-(-m // SORT_TILE), dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(node_s):
+        err = lib.sperr_anchor_ranks(
+            node_s.data_ptr(), forest.data_ptr(), nn, plan.data_ptr(),
+            plan_host.ctypes.data_as(ct.c_void_p), int(nsmall), nlev, J.data_ptr(), R.data_ptr(),
+            u.data_ptr(), jp.data_ptr(), None if sigf is None else sigf.data_ptr(),
+            None if wbuf is None else wbuf.data_ptr(), keys.data_ptr(), ids.data_ptr(),
+            kbuf.data_ptr(), vbuf.data_ptr(), kout.data_ptr(), vout.data_ptr(), counts.data_ptr(),
+            totals.data_ptr(), bsum.data_ptr(), _stream(node_s),
+        )
+    _check(lib, err, "anchor_ranks")
+    _count("anchor_ranks", 1 + (1 if nsmall else 0) + 3 * len(big))
+    _count("radix_sort", 3 * sum(len(radix_shifts(12 + int(w))) for w in big[:, 1]))
+    return AnchorRanks(J, R, sigf, wbuf)
+
+
+def _walk_args(sid: torch.Tensor, idxE: Optional[torch.Tensor], tensors, forest: torch.Tensor):
+    dev = sid.device
+    _require_cuda(sid, torch.int32, "sid")
+    if idxE is not None:
+        _require_cuda(idxE, torch.int32, "idxE")
+    for t, what in tensors:
+        _require_cuda(t, torch.int32, what)
+        if t.device != dev:
+            raise ValueError(f"{what} is on {t.device}, sid on {dev}")
+    _forest_check(forest, dev)
+
+
+def walk_rows(sid: torch.Tensor, node_s: torch.Tensor, vtab: torch.Tensor, forest: torch.Tensor,
+              C: int, pay: torch.Tensor) -> torch.Tensor:
+    """The child rows of the compacted parents sid (take,) int32 (ascending,
+    the sentinel nn past the significant sets; slots take .. C-1 are none):
+    their payload words into pay (8 C,) int32, a view of the walk's item
+    words; returns each parent's eligibility (node children) (C,) uint8.
+    One launch."""
+    _walk_args(sid, None, ((node_s, "node_s"), (vtab, "vtab"), (pay, "pay")), forest)
+    C = int(C)
+    if C < 1 or pay.shape != (8 * C,) or vtab.data_ptr() % 32:
+        raise ValueError(f"pay must be ({8 * C},) and vtab 32-byte aligned; got {tuple(pay.shape)}")
+    elig = torch.empty(C, dtype=torch.uint8, device=sid.device)
+    lib = load(sid.device)
+    with _on_device(sid):
+        err = lib.sperr_walk_rows(sid.data_ptr(), sid.numel(), node_s.data_ptr(), vtab.data_ptr(),
+                                  forest.data_ptr(), C, pay.data_ptr(), elig.data_ptr(), _stream(sid))
+    _check(lib, err, "walk_rows")
+    _count("walk_rows")
+    return elig
+
+
+def walk_born(sid: torch.Tensor, idxE: Optional[torch.Tensor], C: int, node_s: torch.Tensor,
+              J: torch.Tensor, R: torch.Tensor, forest: torch.Tensor, CB: int, nlev: int,
+              wa: int, pw: int, path_words: int):
+    """The born entries (CB, 8 per eligible parent: idxE (CB // 8,) int32,
+    the compacted eligible parents with the sentinel C, or None when every
+    parent slot has its own) -> (their insertion keys: [int64 key] when
+    ``pw`` > 0 (path packed below the rank), else [int64 key, path word 0
+    (, path word 1)], the valid entries per level (nlev + 1,) int32).  One
+    launch."""
+    _walk_args(sid, idxE, ((node_s, "node_s"), (J, "J"), (R, "R")), forest)
+    dev = sid.device
+    CB = int(CB)
+    key0 = torch.empty(CB, dtype=torch.int64, device=dev)
+    kp = [torch.empty(CB, dtype=torch.int32, device=dev) for _ in range(0 if pw else path_words)]
+    counts = torch.empty(nlev + 1, dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(sid):
+        err = lib.sperr_walk_born(
+            sid.data_ptr(), sid.numel(), None if idxE is None else idxE.data_ptr(), int(C),
+            node_s.data_ptr(), J.data_ptr(), R.data_ptr(), forest.data_ptr(), CB, int(nlev), int(wa),
+            int(pw), key0.data_ptr(), kp[0].data_ptr() if kp else None,
+            kp[1].data_ptr() if len(kp) > 1 else None, counts.data_ptr(), _stream(sid),
+        )
+    _check(lib, err, "walk_born")
+    _count("walk_rows", 1 if CB else 0)
+    return [key0] + kp, counts
+
+
+def walk_entries(perm: torch.Tensor, counts: torch.Tensor, sid: torch.Tensor,
+                 idxE: Optional[torch.Tensor], C: int, node_s: torch.Tensor, J: torch.Tensor,
+                 R: torch.Tensor, forest: torch.Tensor, CB: int, nroots: int, tcap: int, pw0: int,
+                 wbuf: torch.Tensor, pay: torch.Tensor, key0: torch.Tensor,
+                 key1: Optional[torch.Tensor]) -> None:
+    """After the insertion sort (perm (CB,) int32): each list entry's walk
+    rank into wbuf, its payload word into pay[: CB + nroots], its walk-sort
+    key into key0 (and key1).  One launch."""
+    _walk_args(sid, idxE, ((perm, "perm"), (counts, "counts"), (node_s, "node_s"), (J, "J"),
+                           (R, "R"), (wbuf, "wbuf"), (pay, "pay")), forest)
+    if (key0.dtype != torch.int64 or not key0.is_contiguous()
+            or (key1 is not None and key1.dtype != torch.int32)):
+        raise ValueError("key0 must be contiguous int64, key1 int32")
+    lib = load(sid.device)
+    with _on_device(sid):
+        err = lib.sperr_walk_entries(
+            perm.data_ptr(), counts.data_ptr(), sid.data_ptr(), sid.numel(),
+            None if idxE is None else idxE.data_ptr(), int(C), node_s.data_ptr(), J.data_ptr(),
+            R.data_ptr(), forest.data_ptr(), int(CB), int(nroots), int(tcap), int(pw0),
+            wbuf.data_ptr(), pay.data_ptr(), key0.data_ptr(), None if key1 is None else key1.data_ptr(),
+            _stream(sid),
+        )
+    _check(lib, err, "walk_entries")
+    _count("walk_rows")
+
+
+def walk_rowkeys(sid: torch.Tensor, C: int, J: torch.Tensor, wbuf: torch.Tensor,
+                 forest: torch.Tensor, tcap: int, pw0: int, key0: torch.Tensor,
+                 key1: Optional[torch.Tensor]) -> None:
+    """The child rows' walk-sort keys into key0 (8 C,) int64 (and key1):
+    their chain top's walk rank and the child path.  One launch."""
+    _walk_args(sid, None, ((J, "J"), (wbuf, "wbuf")), forest)
+    C = int(C)
+    if key0.dtype != torch.int64 or key0.shape != (8 * C,) or (key1 is not None and key1.shape != (8 * C,)):
+        raise ValueError(f"key0 must be ({8 * C},) int64; got {key0.dtype} {tuple(key0.shape)}")
+    lib = load(sid.device)
+    with _on_device(sid):
+        err = lib.sperr_walk_rowkeys(sid.data_ptr(), sid.numel(), C, J.data_ptr(), wbuf.data_ptr(),
+                                     forest.data_ptr(), int(tcap), int(pw0), key0.data_ptr(),
+                                     None if key1 is None else key1.data_ptr(), _stream(sid))
+    _check(lib, err, "walk_rowkeys")
+    _count("walk_rows")

@@ -17,6 +17,13 @@ rank-doubling ladder for their string ranks).  Multi-key sorts are one int64
 key where the key widths fit, chained stable sorts otherwise.  Wherever full
 keys tie, the tied items emit no bits, so the stream does not depend on
 their order.
+
+On a CUDA tensor the virtual walk (``_lis_items_virtual``) runs the hand
+kernels of kernels/walk.cu (K7, the row, born-entry and key kernels, and
+the stable radix sort, with K12 for its compactions), and ``lexsort`` runs
+the radix sort, which the table walk and the 2D walk (ops/speck_lis2.py)
+reach through it; on a CPU tensor their plain versions
+(``_lis_items_virtual_ref``, chained ``torch.sort``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..codec.speck_sorted import sorted_tree
 from ..codec.speck_wave import build_tree
 from . import packemit as pe
@@ -184,18 +192,116 @@ def _pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Permutation that sorts by keys[0], then keys[1], ... (chained stable
-    sorts from the last key; ties keep their input order)."""
+    """Permutation (int64) that sorts by keys[0], then keys[1], ... (ties
+    keep their input order): on a CUDA tensor the stable radix sort of
+    kernels/walk.cu over every digit of each key, on a CPU tensor
+    ``_lexsort_ref``."""
+    if pe._dispatch(keys[0], "lexsort"):
+        return kernels.radix_lexsort(keys).long()
+    return _lexsort_ref(keys)
+
+
+def _lexsort_ref(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain ``lexsort``: chained stable sorts from the last key."""
     perm = torch.sort(keys[-1], stable=True).indices
     for k in reversed(keys[:-1]):
         perm = perm[torch.sort(k[perm], stable=True).indices]
     return perm
 
 
+class WalkLayout(NamedTuple):
+    """The virtual walk's static sizes and sort-key widths at a node cap.
+    Items: the born entries (CB), the roots, then the child rows (8 C), T in
+    all.  The walk sort's first key packs (walk rank, path word 0) as
+    rank << pw0 | path, the rank of an unused entry or anchor mapped from
+    BIG to tcap (every walk rank is below it); the insertion sort's first
+    key packs (level, birth pass, anchor level; anchor rank) and, when
+    ``ins_pw`` > 0, the path below them."""
+
+    C: int                  # node cap: parent slots
+    take: int               # the significant-set compaction's take, min(C, nn)
+    C2: int                 # born parent slots, min(C, nn_inner)
+    CB: int                 # born entries, 8 C2
+    E: int                  # list entries, CB + nroots
+    T: int                  # items
+    path_words: int         # 1 (4-bit digits, depth_max <= 6) or 2 (5-bit digits)
+    pw0: int                # bits of path word 0 (4 (depth_max + 1), or 30)
+    tcap: int               # the walk rank of "none" in the keys (E)
+    walk_bits: Tuple[int, ...]  # widths of the walk sort's keys
+    wa: int                 # bits of an anchor rank
+    lba_bits: int           # bits of (level, pass, anchor level), nlev << 11 for none
+    ins_pw: int             # path bits packed into the insertion key (0: apart)
+    ins_bits: Tuple[int, ...]   # widths of the insertion sort's keys
+
+
+def walk_layout(vf, node_cap: int) -> WalkLayout:
+    """The ``WalkLayout`` of the virtual walk at ``node_cap``: every key
+    below 2^bits of its width (tests hold the widths against the keys)."""
+    C = int(node_cap)
+    C2 = min(C, int(vf.nn_inner))
+    CB = 8 * C2
+    E = CB + int(vf.nroots)
+    one = vf.depth_max <= 6
+    pw0 = 4 * (vf.depth_max + 1) if one else 30
+    more = () if one else (30,)
+    wa = max(1, max(vf.rank_plan().counts, default=0).bit_length())
+    lba_bits = (vf.nlev << 11).bit_length()
+    pack = one and lba_bits + wa + pw0 <= 63
+    ins_bits = (lba_bits + wa + pw0,) if pack else (lba_bits + wa, pw0) + more
+    return WalkLayout(C, min(C, vf.nn), C2, CB, E, E + 8 * C, 1 if one else 2, pw0, E,
+                      (E.bit_length() + pw0,) + more, wa, lba_bits, pw0 if pack else 0, ins_bits)
+
+
 def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     """Walk-ordered emission items for the virtual (power-of-two cube)
     forest: (payload words [T] int32, n_sig int32), the words as
-    ``_walk_order`` lays them out."""
+    ``_walk_order`` lays them out (``_lis_items_virtual_ref``).  On a CUDA
+    tensor the kernels of kernels/walk.cu (``_lis_items_virtual_cuda``); on
+    a CPU tensor the plain version."""
+    if pe._dispatch(node_s, "lis_items_virtual"):
+        return _lis_items_virtual_cuda(node_s, s_lin, signs, vf, node_cap, vtab)
+    return _lis_items_virtual_ref(node_s, s_lin, signs, num_bp, vf, node_cap, vtab)
+
+
+def _lis_items_virtual_cuda(node_s, s_lin, signs, vf, node_cap, vtab=None):
+    """The virtual walk on the card, as ``_lis_items_virtual_ref`` computes
+    it: K7 (chain tops, ranks, the significance flags), K12 (the significant
+    sets; the eligible parents when the born slots are fewer than the
+    parent slots), the rows' payloads, the born entries' insertion keys,
+    their radix sort, the entries' walk ranks, payloads and keys, the rows'
+    keys, and the walk sort carrying the payloads.  No host wait."""
+    lay = walk_layout(vf, node_cap)
+    nn = vf.nn
+    dev = node_s.device
+    forest = vf.walk_forest()
+    if vtab is None:
+        vtab = svirt.child_value_table(vf, s_lin, signs, node_s)
+    plan = vf.rank_plan()
+    anc = kernels.anchor_ranks(node_s, forest, plan.dev, plan.host, plan.nsmall, walk=True)
+    sid, cnt = pe.compact_flags_rows(anc.sigf.view(torch.bool).reshape(1, nn), lay.take)
+    sid, n_sig = sid[0], cnt[0]
+    pay = torch.empty(lay.T, dtype=_I32, device=dev)
+    key0 = torch.empty(lay.T, dtype=torch.int64, device=dev)
+    key1 = torch.empty(lay.T, dtype=_I32, device=dev) if lay.path_words == 2 else None
+    elig = kernels.walk_rows(sid, node_s, vtab, forest, lay.C, pay[lay.E:])
+    idxE = None
+    if 0 < lay.C2 < lay.C:
+        idxE = pe.compact_flags_rows(elig.view(torch.bool).reshape(1, lay.C), lay.C2)[0][0]
+    ins_keys, counts = kernels.walk_born(sid, idxE, lay.C, node_s, anc.J, anc.R, forest, lay.CB,
+                                         vf.nlev, lay.wa, lay.ins_pw, lay.path_words)
+    perm = (kernels.radix_lexsort(ins_keys, lay.ins_bits) if lay.CB
+            else torch.empty(0, dtype=_I32, device=dev))
+    kernels.walk_entries(perm, counts, sid, idxE, lay.C, node_s, anc.J, anc.R, forest, lay.CB,
+                         vf.nroots, lay.tcap, lay.pw0, anc.wbuf, pay, key0, key1)
+    kernels.walk_rowkeys(sid, lay.C, anc.J, anc.wbuf, forest, lay.tcap, lay.pw0, key0[lay.E:],
+                         None if key1 is None else key1[lay.E:])
+    if key1 is None:
+        return kernels.radix_sort(key0, lay.walk_bits[0], pay)[1], n_sig
+    return kernels.gather(pay, kernels.radix_lexsort([key0, key1], lay.walk_bits)), n_sig
+
+
+def _lis_items_virtual_ref(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
+    """Plain version of ``_lis_items_virtual``."""
     nn = vf.nn
     MC = 8
     C = node_cap
@@ -219,19 +325,14 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     # pixel table values pack clip(s, 0, 127) | sign << 7 [| higher bits];
     # node sections hold raw node_s
     if vtab is None:
-        vtab = vf.build_vtab(
-            torch.clamp(s_lin, 0, 127) | (signs.to(_I32) << 7), node_s
-        )
+        vtab = svirt.child_value_table_ref(vf, s_lin, signs, node_s)
     cnt, rvalid, ispx, isnd, vidx, v = vf.children_rows(q, svalid, slot, vtab)
     rowpass = torch.where(svalid, node_s[q.long()], never)
     row_s = torch.where(rvalid, torch.where(ispx, v & 127, v & _NEVER), never)
     row_sign = ((v >> 7) & 1) == 1
 
     sig_now = (row_s == rowpass[:, None]) & rvalid
-    sig_i = sig_now.to(_I32)
-    prev_any = torch.cumsum(sig_i, dim=1) - sig_i
-    last = slot[None, :] == cnt[:, None] - 1
-    emitted = ((prev_any > 0) | ~last) & rvalid
+    emitted = (_earlier_sibling(sig_now, slot) | (slot[None, :] != cnt[:, None] - 1)) & rvalid
 
     # ---- anchors (dense, leaf levels unranked) --------------------------
     J_full, R_full = svirt.dense_anchor_ranks(node_s, vf)
@@ -277,15 +378,17 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     bok_s = k_s < _BIG
     iota_cb = torch.arange(CB, dtype=_I32, device=dev)
     ls_lev = torch.where(bok_s, k_s >> 11, nlev)
-    newblk = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ls_lev[1:] != ls_lev[:-1]])
-    bstart = torch.cummax(torch.where(newblk, iota_cb, zero), dim=0).values
     lev_c = torch.clamp(ls_lev, max=nlev - 1)
-    o_val = _tiny_lookup(vf.off0, lev_c) + (iota_cb - bstart)
+    # the sorted entries run level by level: each level starts at the
+    # exclusive prefix of the per-level counts (the unused entries, last,
+    # never read their start)
+    counts_lev = _level_counts(ls_lev, nlev)
+    lstart = torch.cumsum(counts_lev, dim=0, dtype=_I32) - counts_lev
+    o_val = _tiny_lookup(vf.off0, lev_c) + (iota_cb - _tiny_lookup(lstart, lev_c))
 
     # per-level totals -> suffix above -> walk ranks: O ranks are dense per
     # level (roots 0.., born off0..), so the walk position (levels desc, O
     # asc) is suffix_total(level) + O
-    counts_lev = _level_counts(ls_lev, nlev)
     totals = vf.off0 + counts_lev
     rev = torch.cumsum(totals.flip(0), dim=0, dtype=_I32)
     suffix_above = torch.cat([rev.flip(0)[1:], torch.zeros(1, dtype=_I32, device=dev)])
@@ -309,6 +412,14 @@ def _lis_items_virtual(node_s, s_lin, signs, num_bp, vf, node_cap, vtab=None):
     pay_s = _walk_order(kw_ent, ent_pw, ent_from, ent_s, ent_ok, w_top, rp, rowpass,
                         sig_now, emitted, ispx, row_sign)
     return pay_s, n_sig
+
+
+def _earlier_sibling(sig_now: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """[C, MC] bool: an earlier slot of the row turned significant, as a bit
+    test on each row's significance mask (MC <= 31 slots)."""
+    mask = (sig_now.to(_I32) << slot[None, :]).sum(dim=1, dtype=_I32)
+    below = (torch.ones_like(slot) << slot) - 1
+    return (mask[:, None] & below[None, :]) != 0
 
 
 def _level_counts(lev: torch.Tensor, nlev: int) -> torch.Tensor:
@@ -398,10 +509,7 @@ def _parent_rows(node_s, s_lin, signs, li, C: int) -> _ParentRows:
     v = sval[torch.where(rvalid, vidx, 0).long()]
     row_s = torch.where(rvalid, v & _NEVER, never)
     sig_now = (row_s == rowpass[:, None]) & rvalid
-    sig_i = sig_now.to(_I32)
-    prev_any = torch.cumsum(sig_i, dim=1, dtype=_I32) - sig_i
-    last = slot[None, :] == cnt[:, None] - 1
-    emitted = ((prev_any > 0) | ~last) & rvalid
+    emitted = (_earlier_sibling(sig_now, slot) | (slot[None, :] != cnt[:, None] - 1)) & rvalid
     return _ParentRows(n_sig, svalid, q, slot, ispx, isnd, vidx, rowpass, ((v >> 15) & 1) == 1,
                        sig_now, emitted)
 
@@ -617,4 +725,4 @@ def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
     return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total, return_events)
 
 
-__all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort"]
+__all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort", "walk_layout"]

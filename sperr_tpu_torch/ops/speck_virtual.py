@@ -19,15 +19,18 @@ the device it was made for (cached per dims and device);
 pixel's exposure pass e and each node's maximum nm from one morton max
 pyramid, and ``schedule_virtual`` (K5 and K6 fused) gives num_bp with them;
 ``dense_anchor_ranks`` (K7) gives the set walk's chain anchors and their
-string ranks.  Integer results equal the JAX package's bit for bit.  On a
-CUDA tensor the schedule runs the hand kernels of kernels/schedule.cu
-(``sched_boxmax``, ``sched_virtual``); on a CPU tensor, and everywhere else
-in this module, torch ops run on the tensors' device.
+string ranks, and ``child_value_table`` the walk's box-major table of child
+values.  Integer results equal the JAX package's bit for bit.  On a CUDA
+tensor the schedule runs the hand kernels of kernels/schedule.cu
+(``sched_boxmax``, ``sched_virtual``), K7 and the table those of
+kernels/walk.cu (``anchor_ranks``, ``walk_vtab``); on a CPU tensor their
+plain versions, and everywhere else in this module, torch ops run on the
+tensors' device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +183,8 @@ class VirtualLisIndex:
             starts.append(int(np.argmax(slog >= v)))
         self.h_slog_starts = (int(slog[0]), tuple(starts))
         self._anchor_plan = None
+        self._walk_forest = None
+        self._rank_plan = None
 
         # nm in BFS-id order as slices of the morton pyramid's grids: rows
         # (grid g, lo, hi, output offset), one per depth and run of roots of
@@ -344,9 +349,6 @@ class VirtualLisIndex:
                 parts.append(torch.full((pad,), _NEVER, dtype=node_s.dtype, device=node_s.device))
         return torch.cat(parts)
 
-    def build_vtab(self, pixel_vals, node_s):
-        return self.vtab_from(self.box_major_pixels(pixel_vals), node_s)
-
     def children_rows(self, q, svalid, slot, vtab):
         """Child resolution with the values fetched as row gathers from the
         8-aligned table: (cnt, rvalid, ispx, isnd, vidx, v) where v[c, k] is
@@ -469,10 +471,126 @@ class VirtualLisIndex:
             self._anchor_plan = (lev_d, spans)
         return self._anchor_plan
 
+    def walk_forest(self) -> torch.Tensor:
+        """The forest's constants as the walk kernels read them (struct
+        Forest of kernels/walk.cu), an int32 tensor on the index's device,
+        made once."""
+        if self._walk_forest is None:
+            D, R = self.depth_max, self.nroots
+            nd, nr = kernels.FOREST_DEPTHS, kernels.FOREST_ROOTS
+            if D + 2 > nd or R > nr or self.nlev > 32:
+                raise ValueError(f"the walk kernels take depth_max <= {nd - 2} and at most {nr} "
+                                 f"roots; got {D}, {R}")
+
+            def pad(a, k):
+                out = np.zeros(k, dtype=np.int64)
+                out[: len(a)] = a
+                return out
+
+            org = self.h_org
+            host = np.concatenate([
+                [self.K, self.dims[0], self.n, self.nn, D, R, self.nlev, D + 1],
+                pad(self.h_depth_base, nd), pad(self.h_r0, nd), pad(self.h_A8[: D + 1], nd),
+                *(pad(a, nr) for a in (self.h_slog, org[:, 0], org[:, 1], org[:, 2], self.h_rlev,
+                                       self.h_O0_head)),
+                pad(self.h_off0, 32),
+            ])
+            self._walk_forest = _i32(host, self.device)
+        return self._walk_forest
+
+    def rank_plan(self) -> "RankPlan":
+        """The levels K7 ranks (every level but the leaves'), ascending, as
+        the kernel reads them: per level its node count, the bit width of
+        the parent ranks in its keys (the largest count of the levels below)
+        and its id spans; the leading levels of at most 4,096 nodes go to
+        one block.  Made once."""
+        if self._rank_plan is None:
+            _, spans = self.anchor_plan()
+            db = self.h_depth_base
+            ns = kernels.RANK_SPANS
+            rows, counts, wks = [], [], []
+            below = 0
+            for L in sorted(spans):
+                if self.K - L // 3 == 1:
+                    continue
+                sp = [(int(db[d]) + a, int(db[d]) + b) for d, a, b in spans[L]]
+                if len(sp) > ns:
+                    raise ValueError(f"level {L} has {len(sp)} spans; the plan holds {ns}")
+                row = np.zeros(kernels.RANK_LEVEL_INTS, dtype=np.int32)
+                row[0] = sum(hi - lo for lo, hi in sp)
+                row[1] = below.bit_length()
+                row[2] = len(sp)
+                for k, (lo, hi) in enumerate(sp):
+                    row[3 + k], row[3 + ns + k] = lo, hi
+                rows.append(row)
+                counts.append(int(row[0]))
+                wks.append(int(row[1]))
+                below = max(below, int(row[0]))
+            nsmall = 0
+            while (nsmall < len(rows) and counts[nsmall] <= kernels.RANK_SMALL_MAX
+                   and 12 + wks[nsmall] <= 31):
+                nsmall += 1
+            host = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int32)
+            self._rank_plan = RankPlan(host, _i32(host, self.device), nsmall, tuple(counts),
+                                       tuple(wks))
+        return self._rank_plan
+
+
+class RankPlan(NamedTuple):
+    host: np.ndarray     # int32, kernels.RANK_LEVEL_INTS words per ranked level
+    dev: torch.Tensor    # the same on the index's device
+    nsmall: int          # leading levels ranked in one block
+    counts: Tuple[int, ...]  # nodes per ranked level
+    wks: Tuple[int, ...]     # bits of (parent rank + 1) in each level's keys
+
+
+def child_value_table(vf: VirtualLisIndex, s: torch.Tensor, signs: torch.Tensor,
+                      node_s: torch.Tensor, mags=None) -> torch.Tensor:
+    """The walk's combined 8-aligned child value table: the pixels'
+    clip(s, 0, 127) | sign << 7 (| min(mag, 2^23 - 1) << 8 with mags) in
+    2x2x2-box-major order, then the per-depth node_s sections.  On a CUDA
+    tensor one launch (``walk_vtab``); on a CPU tensor the plain version."""
+    if _dispatch(s, "child_value_table"):
+        return kernels.walk_vtab(s, signs.to(torch.bool), mags, node_s, vf.walk_forest(),
+                                 vf.dims[0], vf.nt)
+    return child_value_table_ref(vf, s, signs, node_s, mags)
+
+
+def child_value_table_ref(vf: VirtualLisIndex, s: torch.Tensor, signs: torch.Tensor,
+                          node_s: torch.Tensor, mags=None) -> torch.Tensor:
+    """Plain ``child_value_table``: ``vtab_from(box_major_pixels(...))``."""
+    pv = torch.clamp(s, 0, 127) | (signs.to(_I32) << 7)
+    if mags is not None:
+        pv = pv | (torch.clamp(mags, max=(1 << 23) - 1) << 8)
+    return vf.vtab_from(vf.box_major_pixels(pv), node_s)
+
 
 def dense_anchor_ranks(node_s: torch.Tensor, vf: VirtualLisIndex) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7: same-pass chain anchors and their string ranks, computed densely
-    on the forest's per-depth slices.
+    """K7: (J, R), each node's same-pass chain anchor and its string rank
+    (``dense_anchor_ranks_ref`` defines them).  On a CUDA tensor the hand
+    kernels of kernels/walk.cu (``anchor_ranks``); on a CPU tensor the plain
+    version."""
+    if _dispatch(node_s, "dense_anchor_ranks"):
+        plan = vf.rank_plan()
+        got = kernels.anchor_ranks(node_s, vf.walk_forest(), plan.dev, plan.host, plan.nsmall)
+        return got.J, got.R
+    return dense_anchor_ranks_ref(node_s, vf)
+
+
+def _level_ranks(key: torch.Tensor) -> torch.Tensor:
+    """Dense ranks of one level's int64 keys (0 for the smallest key; equal
+    keys, equal ranks): a sort, the key changes and their running count."""
+    dev = key.device
+    ks, perm = torch.sort(key)
+    diff = torch.cat([torch.zeros(1, dtype=_I32, device=dev), (ks[1:] != ks[:-1]).to(_I32)])
+    rank = torch.empty_like(diff)
+    rank[perm] = torch.cumsum(diff, dim=0, dtype=_I32)
+    return rank
+
+
+def dense_anchor_ranks_ref(node_s: torch.Tensor, vf: VirtualLisIndex) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7, plain version: same-pass chain anchors and their string ranks,
+    computed densely on the forest's per-depth slices.
 
       J(z) = topmost ancestor reachable through nodes with the same node_s;
       R(z) = rank, among the nodes of z's level, of the hop-word string
@@ -545,11 +663,7 @@ def dense_anchor_ranks(node_s: torch.Tensor, vf: VirtualLisIndex) -> Tuple[torch
         u_all = torch.cat(u_parts)
         k2_all = torch.cat(k2_parts)
         # one int64 key (u, k2): u < 2^12 and -1 <= k2 < 2^31
-        key = (u_all.to(torch.int64) << 32) | (k2_all.to(torch.int64) + 1)
-        ks, perm = torch.sort(key)
-        diff = torch.cat([torch.zeros(1, dtype=_I32, device=dev), (ks[1:] != ks[:-1]).to(_I32)])
-        rank = torch.empty_like(diff)
-        rank[perm] = torch.cumsum(diff, dim=0, dtype=_I32)
+        rank = _level_ranks((u_all.to(torch.int64) << 32) | (k2_all.to(torch.int64) + 1))
         off = 0
         for d, a, b in sp:
             rpart = rank[off : off + (b - a)]
@@ -690,7 +804,10 @@ __all__ = [
     "pixel_schedule_virtual",
     "pixel_schedule_virtual_ref",
     "schedule_virtual",
+    "child_value_table",
+    "child_value_table_ref",
     "dense_anchor_ranks",
+    "dense_anchor_ranks_ref",
     "msbp1_device",
     "_is_pow2_cube",
 ]

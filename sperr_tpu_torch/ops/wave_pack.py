@@ -28,7 +28,7 @@ import torch
 
 from . import packemit as pe
 from .speck_lis import lis_segments_device
-from .speck_virtual import box_reduce_min
+from .speck_virtual import box_reduce_min, child_value_table
 
 _NEVER = 0x7FFF
 _I32 = torch.int32
@@ -179,11 +179,9 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     pack_mag = P <= 23
     vtab = pv_bm = mg_bm = None
     if uniform:
-        pv = torch.clamp(s, 0, 127) | (sgn << 7)
-        if pack_mag:
-            pv = pv | (torch.clamp(mags, max=(1 << 23) - 1) << 8)
-        pv_bm = li.box_major_pixels(pv)
-        vtab = li.vtab_from(pv_bm, node_s)
+        # one launch on the card (walk_vtab); its pixel section is pv_bm
+        vtab = child_value_table(li, s, signs, node_s, mags if pack_mag else None)
+        pv_bm = vtab[:n]
         mg_bm = li.box_major_pixels(mags) if (not pack_mag and compact) else None
 
     # --- LIS items: the set walk, as walk-ordered payload words ----------

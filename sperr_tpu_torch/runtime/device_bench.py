@@ -494,8 +494,10 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     Substages: quantize (condition -> DWT -> K1) -> schedule (``_schedule``:
     num_bp, s, e and node maxima by the virtual forest's kernels, or
     ``ops/speck.py``'s for a chunk that is not a power-of-two cube) -> the
-    set walk's LIS items -> the full emission (``wave_emit_3d``: masks, K10,
-    K11).
+    set walk's LIS items (on the card the walk kernels of kernels/walk.cu
+    for a power-of-two cube: a few dozen launches, which the sleep kernel
+    covers, so the delta is timed "device" where the chains allow it) ->
+    the full emission (``wave_emit_3d``: masks, K10, K11).
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
     the walk plus the refinement class's masks, bit transposes (K10), pext
     and popcounts."""

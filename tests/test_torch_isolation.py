@@ -428,10 +428,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.reconstruct_mags(torch.zeros((1, 64), dtype=torch.uint8), w.reshape(1, 64), r, r,
                                  torch.zeros(1, dtype=torch.int32), 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.radix_sort(w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.walk_vtab(w, w.bool(), None, w, w, 4, 72)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.anchor_ranks(w, w, w, np.zeros(0, np.int32), 0)
     assert set(kernels.launches) == {
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
-        "sched_table", "sched_pyramid",
+        "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
     }
     assert not any(kernels.launches.values())
 
