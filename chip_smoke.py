@@ -33,9 +33,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ran (against torch.sort(stable=True)) on headline chunk 0 at tiers 0,
      1 and the widest, an all-zero, a one-pixel and a 2^31 - 1 256^3 chunk,
      16^3 and 2^3 cubes, and lexsort (the radix sort) against the chained
-     torch.sort on a table walk's and a 2D walk's keys; the table, K7, the
-     walk at tiers 0 and 1 and the tier-1 walk sort timed, the sort beside
-     torch.sort);
+     torch.sort on a table walk's and a 2D walk's keys; the one-sweep sort
+     against torch.sort(stable=True) at 1 key, a tile's worth - 1, + 0 and
+     + 1, 3 tiles + 1, on int32 and int64 keys of both signs, of full and
+     reduced widths and all equal, and one walk's two sorts repeated 20
+     times (a race check on the look-back); the table, K7 (beside
+     torch.unique on its largest level's keys), the walk at tiers 0 and 1
+     and the tier-1 walk sort timed, the sort beside torch.sort, and the
+     launches per walk call (at most 40, no radix pass in K7) checked);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
      parse on the host, K13 on the card), checked against the host f64
@@ -117,7 +122,8 @@ together (``fused``: the K5 + K6 function), sched_table's its times on the
 2D fields (``2d``) and its launches in phase 10 (``launches_2d``); each walk
 kernel's its launches per call (``launches_per_call``), walk_rows's (the
 whole walk) its tier-1 time (``tier1``), the radix sort's its launches in
-phases 9 and 10 (``launches_table``, ``launches_2d``).
+phases 9 and 10 (``launches_table``, ``launches_2d``) and its LSD floor
+(``lsd_floor_ms``: its passes' bytes over the memory rate).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -265,6 +271,13 @@ def _capture(module, names):
 # HBM rate of one H100 SXM (NVIDIA's data sheet); a kernel's bound is the
 # bytes it must move (each input read once, each output written once) over it
 _HBM_BYTES_PER_S = 3.35e12
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its namespace, template
+    arguments and parameters ("Memset" for a memset)."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
 def _bound_ms(nbytes: float) -> float:
@@ -1554,11 +1567,15 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     keys), on headline chunk 0 at tiers 0, 1 and the widest, an all-zero, a
     one-pixel and a 2^31 - 1 256^3 chunk, 16^3 and 2^3 cubes; then
     ``lexsort`` (the radix sort) against its plain version on the keys of a
-    table walk (64, 64, 25) and of a 2D wave encode (256^2).  The table,
-    K7, the walk at tiers 0 and 1 and the tier-1 walk sort timed on the
-    device and as the host issues them, beside their plain versions, their
-    bounds and, for the sort, torch.sort.  Returns each kernel's row of the
-    result line."""
+    table walk (64, 64, 25) and of a 2D wave encode (256^2); the sort at
+    the tile's edges and on all-equal keys, and one walk's two sorts 20
+    times over.  The table, K7, the walk at tiers 0 and 1 and the tier-1
+    walk sort timed on the device and as the host issues them, beside their
+    plain versions, their bounds (the sort also beside its LSD floor: its
+    passes' bytes) and one PyTorch call (torch.sort; torch.unique for K7's
+    largest level), with the earlier design's times (three launches a
+    digit, K7's levels sorted) printed beside them; the launches
+    per call checked.  Returns each kernel's row of the result line."""
     import numpy as np
     import torch
 
@@ -1569,7 +1586,7 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     from sperr_tpu_torch.ops import speck_virtual as sv
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D
-    from sperr_tpu_torch.runtime.device_bench import time_ms
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(14)
@@ -1669,6 +1686,26 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
               f"{', '.join(str(len(k)) for (k,) in calls)} keys each): the radix sort equal to the chained "
               "torch.sort bit for bit")
 
+    # the one-sweep sort at a tile's edges, on int32 and int64 keys of both
+    # signs, full and reduced widths, and all-equal keys
+    T = kernels.SORT_TILE
+    nedge = 0
+    for ne in (1, T - 1, T, T + 1, 3 * T + 1):
+        for dt, width in ((torch.int32, 32), (torch.int64, 64)):
+            lo, hi = (-(2**31), 2**31 - 1) if width == 32 else (-(2**62), 2**62)
+            full = rng.integers(lo, hi, ne)
+            full[rng.random(ne) < 0.3] = full[0]
+            for knp, bits in ((full, None), (rng.integers(0, 2**13, ne), 13), (np.full(ne, -5), None),
+                              (np.full(ne, 7), 3)):
+                keys = torch.from_numpy(knp).to(dt).to(dev)
+                for vals in (None, torch.from_numpy(rng.integers(0, 2**31 - 1, ne)).to(torch.int32).to(dev)):
+                    equal("radix_sort", kernels.radix_sort(keys, bits, vals), sort_ref(keys, vals),
+                          f"{ne} {dt} keys (bits {bits}, {'with' if vals is not None else 'no'} values)")
+                    nedge += 1
+    print(f"[kernels] radix sort at 1, tile - 1, tile, tile + 1 and 3 tiles + 1 keys (tile {T}), int32 and "
+          f"int64, both signs, full and reduced widths, all-equal keys: {nedge} sorts equal to "
+          "torch.sort(stable=True)")
+
     # timings at the main path's shapes: headline chunk 0
     node_s, s, signs, nb, vf, c1, vtab, sorts1, plain_sorts1 = keep["tier 1"]
     nn, nt = vf.nn, vf.nt
@@ -1678,22 +1715,41 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     rows["walk_vtab"] = {"fn": lambda: sv.child_value_table(vf, s, signs, node_s, mags0),
                          "plain": lambda: sv.child_value_table_ref(vf, s, signs, node_s, mags0),
                          "bytes": 4 * n + n + 4 * n + 4 * nn + 4 * nt}
+    with _capture(sv, ["_level_ranks"]) as lr:
+        sv.dense_anchor_ranks_ref(node_s, vf)
+    lkey = max((a[0] for a in lr["_level_ranks"]), key=lambda k: k.numel())
     rows["anchor_ranks"] = {"fn": lambda: sv.dense_anchor_ranks(node_s, vf),
-                            "plain": lambda: sv.dense_anchor_ranks_ref(node_s, vf), "bytes": 12 * nn}
+                            "plain": lambda: sv.dense_anchor_ranks_ref(node_s, vf), "bytes": 12 * nn,
+                            "library": lambda: torch.unique(lkey, sorted=True, return_inverse=True),
+                            "library_what": f"torch.unique(sorted=True, return_inverse=True) on the "
+                                            f"{lkey.numel()}-node level's keys", "earlier": "0.2728-0.2781"}
+    # the look-back's race check: the tier-1 walk's two sorts, 20 times each
+    for keys, bits, vals in sorts1:
+        first = kernels.radix_sort(keys, bits, vals)
+        for _ in range(20):
+            again = kernels.radix_sort(keys, bits, vals)
+            _check(torch.equal(again[0], first[0]) and torch.equal(again[1], first[1]),
+                   f"a repeated sort of {keys.numel()} keys gave another order")
+    print(f"[kernels] the tier-1 walk's {len(sorts1)} sorts ({', '.join(str(k.numel()) for k, _, _ in sorts1)} "
+          "keys) repeated 20 times each: every output identical")
     walk_sort = max(sorts1, key=lambda a: a[0].numel())
     wk, wb, wv = walk_sort
     plain_keys = max(plain_sorts1, key=lambda a: a[0][0].numel())[0]
     rows["radix_sort"] = {"fn": lambda: kernels.radix_sort(wk, wb, wv),
                           "plain": lambda: sl._lexsort_ref(plain_keys),
-                          "library": lambda: torch.sort(wk, stable=True),
-                          "bytes": 2 * (wk.element_size() + 4) * wk.numel()}
+                          "library": lambda: torch.sort(wk, stable=True), "library_how": "device",
+                          "library_what": "torch.sort(stable=True)",
+                          "bytes": 2 * (wk.element_size() + 4) * wk.numel(), "earlier": "0.7958-0.7985",
+                          "lsd_bytes": len(kernels.radix_shifts(wb)) * 2 * (wk.element_size() + 4) * wk.numel()
+                          + wk.element_size() * wk.numel()}
     for t in ("tier 0", "tier 1"):
         node_s_, s_, signs_, nb_, vf_, c_, vtab_, _, _ = keep[t]
         T = sl.lis_item_count(vf_, c_)
         rows[f"walk_rows {t}"] = {
             "fn": (lambda a=(node_s_, s_, signs_, nb_, vf_, c_, vtab_): sl._lis_items_virtual(*a)),
             "plain": (lambda a=(node_s_, s_, signs_, nb_, vf_, c_, vtab_): sl._lis_items_virtual_ref(*a)),
-            "bytes": 4 * nn + 4 * nt + 4 * T + 4, "T": T}
+            "bytes": 4 * nn + 4 * nt + 4 * T + 4, "T": T,
+            "earlier": {"tier 0": "0.8094-0.8190", "tier 1": "1.6134-1.6246"}[t]}
     for name, r in rows.items():
         before = dict(kernels.launches)
         r["fn"]()
@@ -1702,20 +1758,38 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
         r["ms"] = time_ms(r["fn"], 10, "device")[0]
         r["host_ms"] = time_ms(r["fn"], 10, "host-issued")[0]
         r["plain_ms"], r["plain_timed"] = time_ms(r["plain"], 3)
-        r["library_ms"] = time_ms(r["library"], 10, "device")[0] if "library" in r else None
+        r["library_ms"], lib_timed = (time_ms(r["library"], 10, r.get("library_how")) if "library" in r
+                                      else (None, None))
         r["bound_ms"] = _bound_ms(r["bytes"])
         r["launches_per_call"] = per_call
+        if "lsd_bytes" in r:
+            r["lsd_floor_ms"] = _bound_ms(r["lsd_bytes"])
         print(f"[kernels] {name} 256^3 (headline chunk 0" + (f", {r['T']} items" if "T" in r else "")
               + f"; launches per call {per_call}): kernels {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host "
-              f"issues them), plain {r['plain_ms']:.4f} ms ({r['plain_timed']})"
-              + (f", torch.sort(stable=True) {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
-              + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share "
-              f"{r['bound_ms'] / r['ms']:.3f} -- {smi}")
+              f"issues them)"
+              + (f" (the earlier design on an H100 80GB HBM3 at 700 W: {r['earlier']} ms)" if "earlier" in r else "")
+              + f", plain {r['plain_ms']:.4f} ms ({r['plain_timed']})"
+              + (f", {r['library_what']} {r['library_ms']:.4f} ms ({lib_timed}), kernels / library "
+                 f"{r['ms'] / r['library_ms']:.3f}" if r["library_ms"] is not None else "")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share {r['bound_ms'] / r['ms']:.3f}"
+              + (f", LSD floor {r['lsd_floor_ms']:.4f} ms ({r['lsd_bytes']} bytes: its passes' reads and "
+                 f"writes and the histogram's read), share {r['lsd_floor_ms'] / r['ms']:.3f}"
+                 if "lsd_bytes" in r else "") + f" -- {smi}")
+    # where the device time goes: each kernel's busy time per call (profiler)
+    for name in ("anchor_ranks", "radix_sort", "walk_rows tier 0", "walk_rows tier 1"):
+        tot, per = busy_ms(rows[name]["fn"], 10)
+        print(f"[kernels] {name}: device busy {tot:.4f} ms per call; by kernel: "
+              + ", ".join(f"{_kernel_name(k)} {v:.4f}" for k, v in sorted(per.items(), key=lambda kv: -kv[1]))
+              + f" -- {smi}")
+    for t in ("tier 0", "tier 1"):
+        per_call = rows[f"walk_rows {t}"]["launches_per_call"]
+        _check(sum(per_call.values()) <= 40, f"the walk at {t} issued {per_call} launches (at most 40)")
+    _check("radix_sort" not in rows["anchor_ranks"]["launches_per_call"], "K7 launched a radix pass")
     out = {}
     for name in names:
         src = rows["walk_rows tier 0"] if name == "walk_rows" else rows[name]
         out[name] = {k: src[k] for k in ("ms", "host_ms", "plain_ms", "plain_timed", "bound_ms", "library_ms",
-                                          "launches_per_call")}
+                                          "launches_per_call", "lsd_floor_ms") if k in src}
         out[name]["max_abs_err"] = err[name]
     out["walk_rows"]["tier1"] = {k: rows["walk_rows tier 1"][k]
                                  for k in ("ms", "host_ms", "plain_ms", "bound_ms", "launches_per_call")}
@@ -2241,6 +2315,8 @@ def main() -> int:
     _check(launches_w["sched_boxmax"] == launches_w["sched_virtual"],
            "the cube schedule's two launches do not pair up")
     _check(launches_w["masked_pack"] % 3 == 0, "K11 did not launch three kernels per call")
+    _check(launches_w["radix_sort"] <= 400,
+           f"{launches_w['radix_sort']} radix sort launches in one 512^3 wave encode (at most 400)")
     _check(stream_w == stream2, "the wave container differs from the host-entropy container")
     _check(len(stream_w) == 1012155, f"the 512^3 wave container is {len(stream_w)} bytes, not 1,012,155")
     _check(wave.last_wave_chunks == 8, f"{wave.last_wave_chunks} of 8 chunks on the device path")
@@ -2466,7 +2542,7 @@ def main() -> int:
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
-                                                           "launches_2d")} if name in walk else {})}
+                                                           "launches_2d", "lsd_floor_ms")} if name in walk else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

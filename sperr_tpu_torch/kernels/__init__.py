@@ -177,11 +177,10 @@ def load(device=None) -> ct.CDLL:
                 ]),
                 ("sperr_walk_vtab", [vp, vp, vp, vp, vp, ct.c_int, ll, vp, vp]),
                 ("sperr_anchor_ranks", [
-                    vp, vp, ll, vp, vp, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                    vp, vp, vp, vp, vp, vp,
+                    vp, vp, ll, vp, vp, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp, vp, vp, ll, vp,
                 ]),
                 ("sperr_radix_sort", [
-                    vp, ct.c_int, vp, ll, ct.POINTER(ct.c_int), ct.c_int, vp, vp, vp, vp, vp, vp, vp,
+                    vp, ct.c_int, vp, ll, ct.POINTER(ct.c_int), ct.c_int, vp, vp, vp, vp, vp, ll, vp,
                 ]),
                 ("sperr_gather", [vp, ct.c_int, vp, vp, ll, vp]),
                 ("sperr_walk_rows", [vp, ct.c_int, vp, vp, vp, ll, vp, vp, vp]),
@@ -848,10 +847,15 @@ def sched_pyramid(mags: torch.Tensor, deep_idx: torch.Tensor, levels: int,
 # forest descriptor and the rank plan are int32 arrays that
 # ops/speck_virtual.py lays out (walk_forest, rank_plan).
 # ---------------------------------------------------------------------------
-SORT_TILE = 4096  # keys per block of the radix sort (kTile in walk.cu)
+SORT_THREADS = 256  # threads per tile of the radix sort (kSortThreads in walk.cu)
+SORT_ITEMS = 16  # keys per thread (kSortItems)
+SORT_TILE = SORT_THREADS * SORT_ITEMS  # keys per tile (kTile)
+SORT_PASSES = 8  # digit passes a sort may take (kSortPasses)
 RANK_SPANS = 16  # id spans per level of the rank plan (kMaxSpans)
 RANK_LEVEL_INTS = 3 + 2 * RANK_SPANS  # words per level (kLevelInts)
 RANK_SMALL_MAX = 4096  # nodes of a level ranked in one block (kSmallMax)
+RANK_SMALL_BITS = 21  # key bits of a level ranked in one block (kSmallBits)
+RANK_SCAN_GROUPS = 256 * 4  # 8-word groups per block of a larger level's scan (kScanGroups)
 FOREST_DEPTHS = 14  # entries of the forest's per-depth tables (kMaxDepth)
 FOREST_ROOTS = 64  # roots the forest descriptor holds (kMaxRoots)
 
@@ -863,11 +867,11 @@ def radix_shifts(bits: int):
     return [8 * p for p in range(-(-bits // 8))]
 
 
-def _sort_scratch(n: int, key_dtype, dev):
-    nb = -(-n // SORT_TILE)
-    return (torch.empty(n, dtype=key_dtype, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(256 * nb, dtype=torch.int32, device=dev),
-            torch.empty(256, dtype=torch.int32, device=dev))
+def sort_scratch_words(n: int) -> int:
+    """8-byte words of the radix sort's zeroed scratch for n keys
+    (sort_scratch_words in walk.cu): 256 status words per tile, the digit
+    counts of every pass, the counters."""
+    return -(-int(n) // SORT_TILE) * 256 + SORT_PASSES * 256 // 2 + SORT_PASSES
 
 
 def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[torch.Tensor] = None):
@@ -875,7 +879,8 @@ def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[to
     with vals (n,) int32 (None: 0 .. n-1) -> (sorted keys, the values in the
     same order).  ``bits``: every key's bits above this many are equal
     (nonnegative keys below 2^bits), so only the digits below are sorted;
-    None sorts every digit.  3 launches per 8-bit digit."""
+    None sorts every digit.  One histogram launch, then one launch per
+    8-bit digit."""
     if not keys.is_cuda or keys.dtype not in (torch.int32, torch.int64) or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous int32 or int64 CUDA tensor; got {keys.dtype} "
                          f"on {keys.device}")
@@ -892,7 +897,9 @@ def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[to
         raise ValueError(f"bits must be in [1, {width}]; got {bits}")
     shifts = radix_shifts(bits)
     dev = keys.device
-    kbuf, vbuf, counts, totals = _sort_scratch(n, keys.dtype, dev)
+    kbuf = torch.empty_like(keys)
+    vbuf = torch.empty(n, dtype=torch.int32, device=dev)
+    zbuf = torch.empty(sort_scratch_words(n), dtype=torch.int64, device=dev)
     kout = torch.empty_like(keys)
     vout = torch.empty(n, dtype=torch.int32, device=dev)
     lib = load(dev)
@@ -900,10 +907,10 @@ def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[to
         err = lib.sperr_radix_sort(
             keys.data_ptr(), keys.element_size(), None if vals is None else vals.data_ptr(), n,
             (ct.c_int * len(shifts))(*shifts), len(shifts), kbuf.data_ptr(), vbuf.data_ptr(),
-            kout.data_ptr(), vout.data_ptr(), counts.data_ptr(), totals.data_ptr(), _stream(keys),
+            kout.data_ptr(), vout.data_ptr(), zbuf.data_ptr(), zbuf.numel(), _stream(keys),
         )
     _check(lib, err, "radix_sort")
-    _count("radix_sort", 3 * len(shifts))
+    _count("radix_sort", 1 + len(shifts))
     return kout, vout
 
 
@@ -989,13 +996,46 @@ class AnchorRanks(NamedTuple):
     wbuf: Optional[torch.Tensor]  # (nn + 1,) int32, BIG: the walk's rank table
 
 
+class RankLayout(NamedTuple):
+    """K7's scratch for a rank plan (as sperr_anchor_ranks lays it out)."""
+
+    bits: Tuple[int, ...]        # key bits of each level, 12 + wk
+    words: Tuple[int, ...]       # 4-byte words of each level's bitmap, 2^(bits - 5)
+    scan_blocks: Tuple[int, ...]  # blocks of each larger level's group scan (0: one block)
+    zwords: int                  # 4-byte words zeroed per call: the bitmaps, then per larger
+                                 # level its groups' counts, scan blocks' sums and a counter
+    keys: int                    # keys of the largest larger level
+
+
+def rank_layout(plan_host: np.ndarray, nsmall: int) -> RankLayout:
+    """The bitmaps and scan blocks of a rank plan; raises where a level's
+    keys are wider than 32 bits, or where a level ranked in one block has
+    more than RANK_SMALL_MAX nodes or RANK_SMALL_BITS key bits."""
+    levels = np.asarray(plan_host, dtype=np.int64).reshape(-1, RANK_LEVEL_INTS)
+    bits = tuple(12 + int(w) for w in levels[:, 1])
+    if any(b > 32 for b in bits):
+        raise ValueError(f"rank keys of {max(bits)} bits: the bitmap route takes at most 32")
+    if (levels[:nsmall, 0] > RANK_SMALL_MAX).any() or any(b > RANK_SMALL_BITS for b in bits[:nsmall]):
+        raise ValueError(f"a level ranked in one block has more than {RANK_SMALL_MAX} nodes or "
+                         f"keys wider than {RANK_SMALL_BITS} bits")
+    words = tuple(1 << (b - 5) for b in bits)
+    blocks = tuple(0 if k < nsmall else -(-(w // 8) // RANK_SCAN_GROUPS) for k, w in enumerate(words))
+    big = range(nsmall, len(bits))
+    # per larger level: its groups' counts, then its blocks' sums and their
+    # counter padded to 16 bytes
+    return RankLayout(bits, words, blocks,
+                      sum(words) + sum(words[k] // 8 + -(-(blocks[k] + 1) // 4) * 4 for k in big),
+                      max((int(levels[k, 0]) for k in big), default=1))
+
+
 def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
                  plan_host: np.ndarray, nsmall: int, walk: bool = False) -> AnchorRanks:
     """K7: the chain tops J and string ranks R of every node from node_s
     (nn,) int32.  ``plan``: the ranked levels (RANK_LEVEL_INTS words each,
     ascending), the first ``nsmall`` of them ranked in one block, each other
-    by its keys, the radix sort and two rank launches.  With ``walk``, also
-    the walk's significance flags and its rank table (set to BIG)."""
+    by a presence bitmap of its keys in three launches (``rank_layout``).
+    With ``walk``, also the walk's significance flags and its rank table
+    (set to BIG)."""
     _require_cuda(node_s, torch.int32, "node_s")
     dev = node_s.device
     _forest_check(forest, dev)
@@ -1007,38 +1047,26 @@ def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
             or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev):
         raise ValueError(f"node_s (nn > 0,) and a plan of {RANK_LEVEL_INTS}-word levels; got "
                          f"{tuple(node_s.shape)}, {plan.numel()} words, nsmall {nsmall}")
-    levels = plan_host.reshape(nlev, RANK_LEVEL_INTS)
-    big = levels[nsmall:]
-    if (levels[:nsmall, 0] > RANK_SMALL_MAX).any() or (12 + levels[:nsmall, 1] > 31).any():
-        raise ValueError("a level ranked in one block has more than "
-                         f"{RANK_SMALL_MAX} nodes or keys wider than 31 bits")
+    lay = rank_layout(plan_host, nsmall)
     J = torch.empty(nn, dtype=torch.int32, device=dev)
     R = torch.empty(nn, dtype=torch.int32, device=dev)
     u = torch.empty(nn, dtype=torch.int32, device=dev)
     jp = torch.empty(nn, dtype=torch.int32, device=dev)
     sigf = torch.empty(nn, dtype=torch.uint8, device=dev) if walk else None
     wbuf = torch.empty(nn + 1, dtype=torch.int32, device=dev) if walk else None
-    m = int(big[:, 0].max()) if len(big) else 1
-    wide = bool(len(big)) and bool((12 + big[:, 1] > 31).any())
-    kd = torch.int64 if wide else torch.int32
-    keys = torch.empty(m, dtype=kd, device=dev)
-    ids = torch.empty(m, dtype=torch.int32, device=dev)
-    kbuf, vbuf, counts, totals = _sort_scratch(m, kd, dev)
-    kout, vout = torch.empty_like(keys), torch.empty_like(ids)
-    bsum = torch.empty(-(-m // SORT_TILE), dtype=torch.int32, device=dev)
+    keys = torch.empty(lay.keys, dtype=torch.int32, device=dev)
+    zbuf = torch.empty(lay.zwords, dtype=torch.int32, device=dev)
     lib = load(dev)
     with _on_device(node_s):
         err = lib.sperr_anchor_ranks(
             node_s.data_ptr(), forest.data_ptr(), nn, plan.data_ptr(),
             plan_host.ctypes.data_as(ct.c_void_p), int(nsmall), nlev, J.data_ptr(), R.data_ptr(),
             u.data_ptr(), jp.data_ptr(), None if sigf is None else sigf.data_ptr(),
-            None if wbuf is None else wbuf.data_ptr(), keys.data_ptr(), ids.data_ptr(),
-            kbuf.data_ptr(), vbuf.data_ptr(), kout.data_ptr(), vout.data_ptr(), counts.data_ptr(),
-            totals.data_ptr(), bsum.data_ptr(), _stream(node_s),
+            None if wbuf is None else wbuf.data_ptr(), keys.data_ptr(), zbuf.data_ptr(), lay.zwords,
+            _stream(node_s),
         )
     _check(lib, err, "anchor_ranks")
-    _count("anchor_ranks", 1 + (1 if nsmall else 0) + 3 * len(big))
-    _count("radix_sort", 3 * sum(len(radix_shifts(12 + int(w))) for w in big[:, 1]))
+    _count("anchor_ranks", 1 + (1 if nsmall else 0) + 3 * (nlev - nsmall))
     return AnchorRanks(J, R, sigf, wbuf)
 
 

@@ -29,12 +29,20 @@
 //     it also writes the significance flags K12 compacts and sets the walk
 //     rank table to BIG.
 //   * the ranks, level by level (each level's key reads its parent chain's
-//     rank): the levels of at most 4,096 nodes in one block of 1,024
-//     threads (a bitonic sort of 32-bit keys in shared memory, a scan of
-//     the distinct keys, a binary search per node); each larger level by
-//     its keys, the radix sort and two rank launches.  (One block sorting
-//     the 32,768-node level as well took 0.70 ms on an H100 80GB HBM3; with
-//     that level on the grid route all of K7 takes 0.27 ms.)
+//     rank), without a sort: a dense rank is the number of distinct keys
+//     below a key, so each level sets one bit per key in a presence bitmap
+//     of 2^(12 + wk) bits and counts the distinct keys of each 8-word
+//     group (the first lane of a warp's equal keys tries, only if the bit
+//     reads unset, and counts only if its atomicOr set it: many nodes share
+//     a key), takes the exclusive prefix of the groups' counts, and ranks
+//     each node by its group's prefix and the popcounts below its bit.  The
+//     levels of at most 4,096 nodes and 21 key bits in one block of 1,024
+//     threads (group counts in shared memory); each larger level in three
+//     launches (mark; the group prefixes within blocks of 1,024 groups and
+//     the blocks' prefixes, from the last block to finish; rank).  The
+//     bitmaps, counts and block sums are zeroed by one memset per call.
+//     At 256^3 the largest bitmap is 2^28 bits (32 MB), which stays in the
+//     H100's 50 MB L2.
 //   * walk_rows: a thread per compacted parent decodes its id, loads its
 //     8-value row in one 32-byte load, and writes the row items' payloads;
 //     the skip rule's "an earlier sibling turned significant" is a bit test
@@ -44,14 +52,26 @@
 //     then after their sort the level starts as an exclusive prefix of the
 //     counts, the walk ranks as arithmetic, the walk rank table, and the
 //     walk-sort keys of every item.
-//   * the radix sort: 8-bit digits, three launches per pass (block
-//     histograms; one scan per digit over the blocks; a stable scatter whose
-//     block-local ranks come from __match_any_sync within a warp and a
-//     per-digit prefix over the warps), passes only over the digits that the
-//     keys' static widths leave nonzero, the sign bit flipped so that int32
-//     and int64 keys sort as torch.sort sorts them.  Keys are packed so that
+//   * the radix sort: a one-sweep LSD sort of 8-bit digits over only the
+//     digits that the keys' static widths leave nonzero, the sign bit
+//     flipped so that int32 and int64 keys sort as torch.sort sorts them.
+//     One launch reads the keys once for the counts of every digit it will
+//     pass over (the counts do not depend on the order; each thread adds a
+//     run of equal digits in its 16 consecutive keys once), and its last
+//     block turns them into each digit's start.  Then one launch per digit:
+//     a block takes its tile number from an atomic counter, holds 16 keys
+//     and their values a thread in registers (two blocks an SM: loading the
+//     values with the keys measured faster than three blocks an SM that
+//     load them later), ranks them stably (warp, then round, then lane:
+//     the load order) with __match_any_sync and per-warp counters,
+//     publishes its per-digit counts, stages keys and values in shared
+//     memory in digit order, looks back over the earlier tiles' status
+//     words (one thread per digit, four words in flight), and writes each
+//     digit's run out contiguously.  Status words carry the pass number, so
+//     one memset per sort serves all its passes.  Keys are packed so that
 //     one 64-bit key holds what the plain version sorts as (hi, lo) pairs
-//     and path words, where the widths fit.
+//     and path words, where the widths fit.  Bound: each pass reads and
+//     writes every key and value once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,11 +87,23 @@ constexpr int kMaxDepth = 14;  // entries of the per-depth tables
 constexpr int kMaxSpans = 16;
 constexpr int kLevelInts = 3 + 2 * kMaxSpans;
 constexpr int kSmallMax = 4096;  // nodes of a level ranked in one block
-constexpr int kSmallShared = kSmallMax * 4 + kSmallMax * 2;
-// radix sort: 256 threads, 16 rounds of one item each per block
+constexpr int kSmallBits = 21;   // key bits of a level ranked in one block
+constexpr int kSmallGroups = 1 << (kSmallBits - 8);  // its 8-word groups
+constexpr int kSmallShared = kSmallMax * 4 + kSmallGroups * 4;
+// a larger level's group scan: 4 groups' counts (one int4) per thread
+constexpr int kScanThreads = 256;
+constexpr int kScanGroups = kScanThreads * 4;
+// radix sort: 256 threads of 16 keys each per tile; at most 8 digit passes
 constexpr int kSortThreads = 256;
 constexpr int kSortWarps = kSortThreads / 32;
-constexpr int kTile = 4096;
+constexpr int kSortItems = 16;
+constexpr int kTile = kSortThreads * kSortItems;
+constexpr int kSortPasses = 8;
+constexpr int kHistThreads = 256;
+constexpr int kHistItems = 16;  // consecutive keys a histogram thread reads at a time
+constexpr int kHistBlocks = 1024;  // the histogram's grid, at most (grid-stride beyond)
+// the sort's status words: pass tag << 34 | state << 32 | count
+constexpr unsigned long long kStateAggregate = 1, kStatePrefix = 2;
 
 }  // namespace
 
@@ -114,27 +146,37 @@ __device__ __forceinline__ int level_of(const WalkForest* f, int r, int d) {
 
 __device__ __forceinline__ int clamp63(int v) { return v < 0 ? 0 : (v > 63 ? 63 : v); }
 
-// Walk-key path words of the node (d, m): one word of 4-bit digits (depth j
-// at 4 (S - 1 - j)) when S <= 7, else two words of 5-bit digits (depth j at
-// 5 (5 - j), then 5 (11 - j)), as codec/speck_sorted.py lays them out.
+__device__ __forceinline__ int pow9(int e) {
+  int p = 1;
+  for (int k = 0; k < e; ++k) p *= 9;
+  return p;
+}
+
+// Walk-key path words of the node (d, m), its digits 1 .. 8 (0 past its
+// depth) in depth order: one base-9 word (depth j's digit times
+// 9^(S - 1 - j), 23 bits at S = 7 where 4-bit digits take 28) when S <= 7,
+// else two words of 5-bit digits (depth j at 5 (5 - j), then 5 (11 - j)),
+// as codec/speck_sorted.py lays them out.  Either orders as the digit
+// strings do.
 __device__ __forceinline__ void path_words(int S, int d, int m, int& w0, int& w1) {
   w0 = w1 = 0;
   for (int j = 0; j < d; ++j) {
     const int dig = ((m >> (3 * (d - 1 - j))) & 7) + 1;
     if (S <= 7)
-      w0 |= dig << (4 * (S - 1 - j));
+      w0 = 9 * w0 + dig;
     else if (j < 6)
       w0 |= dig << (5 * (5 - j));
     else
       w1 |= dig << (5 * (11 - j));
   }
+  if (S <= 7) w0 *= pow9(S - d);
 }
 
 // The path words of child slot k of the node (d, m).
 __device__ __forceinline__ void child_path_words(int S, int d, int m, int k, int& w0, int& w1) {
   path_words(S, d, m, w0, w1);
   if (S <= 7)
-    w0 += (k + 1) << (4 * (S - 1 - d));
+    w0 += (k + 1) * pow9(S - 1 - d);
   else if (d < 6)
     w0 += (k + 1) << (5 * (5 - d));
   else if (d < 12)
@@ -273,124 +315,155 @@ __device__ __forceinline__ int level_node(const int32_t* __restrict__ L, int i) 
   return -1;
 }
 
-// Levels of at most kSmallMax nodes, in order, in one block of 1,024
-// threads: key (u << wk) | (rank of the parent's chain top + 1, or 0 at a
-// root), bitonic sort, distinct-key prefix, a binary search per node.  R is
-// written and read across levels (no read-only loads).
+// A level's key: the node's hop word above the rank of its parent's chain
+// top + 1 (0 at a root).
+__device__ __forceinline__ uint32_t level_key(const int32_t* __restrict__ L, int i,
+                                              const int32_t* __restrict__ u,
+                                              const int32_t* __restrict__ jp, const int32_t* R,
+                                              int& z) {
+  z = level_node(L, i);
+  const int j = jp[z];
+  return ((uint32_t)u[z] << L[1]) | (j < 0 ? 0u : (uint32_t)(R[j] + 1));
+}
+
+__device__ __forceinline__ int popc8(uint4 a, uint4 b) {
+  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w) + __popc(b.x) + __popc(b.y) +
+         __popc(b.z) + __popc(b.w);
+}
+
+// The set bits of a bitmap below bit `key`, within the key's 8-word group.
+__device__ __forceinline__ int bits_below_in_group(const uint32_t* bm, uint32_t key) {
+  const uint4* g = reinterpret_cast<const uint4*>(bm + ((size_t)(key >> 8) << 3));
+  const uint4 a = __ldcg(g), b = __ldcg(g + 1);
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int k = (key >> 5) & 7;
+  const uint32_t below = (1u << (key & 31)) - 1u;
+  int c = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) c += __popc(w[q] & (q < k ? 0xffffffffu : (q == k ? below : 0u)));
+  return c;
+}
+
+// Sets the bit of `key` in bm and, where this thread set it, adds one to
+// its group's count: only the first lane of the warp's equal keys (act:
+// the lanes that call) tries, and only if the bit reads unset.
+__device__ __forceinline__ void mark_key(uint32_t* bm, int* gcnt, uint32_t key, unsigned act) {
+  const unsigned peers = __match_any_sync(act, key);
+  if ((threadIdx.x & 31) != __ffs(peers) - 1) return;
+  uint32_t* w = bm + (key >> 5);
+  const uint32_t bit = 1u << (key & 31);
+  if (!(__ldcg(w) & bit) && !(atomicOr(w, bit) & bit)) atomicAdd(gcnt + (key >> 8), 1);
+}
+
+// Levels of at most kSmallMax nodes and kSmallBits key bits, in order, in
+// one block of 1,024 threads: each level's bits set in its bitmap (global,
+// zeroed by the caller, read past L1) with its groups' counts in shared
+// memory, their exclusive scan, then R = the group's prefix + the bits
+// below in the group.  R is written and read across levels (no read-only
+// loads).
 __global__ void __launch_bounds__(1024) anchor_small(const int32_t* __restrict__ plan, int nlv,
                                                      const int32_t* __restrict__ u,
-                                                     const int32_t* __restrict__ jp, int32_t* R) {
+                                                     const int32_t* __restrict__ jp, int32_t* R,
+                                                     uint32_t* __restrict__ bm) {
   extern __shared__ uint32_t smem[];
   __shared__ int ws[32];
-  uint32_t* S = smem;
-  uint16_t* Dc = reinterpret_cast<uint16_t*>(smem + kSmallMax);
+  uint32_t* K = smem;
+  int* G = reinterpret_cast<int*>(smem + kSmallMax);
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int l = 0; l < nlv; ++l) {
     const int32_t* L = plan + l * kLevelInts;
-    const int cnt = L[0], wk = L[1];
-    int P = 1;
-    while (P < cnt) P <<= 1;
-    for (int i = tid; i < P; i += nt) {
-      uint32_t key = 0xFFFFFFFFu;
+    const int cnt = L[0], groups = 1 << (4 + L[1]);
+    for (int g = tid; g < groups; g += nt) G[g] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < cnt; i0 += nt) {
+      const int i = i0 + tid;
+      const unsigned act = __ballot_sync(0xffffffffu, i < cnt);
       if (i < cnt) {
-        const int z = level_node(L, i), j = jp[z];
-        key = ((uint32_t)u[z] << wk) | (j < 0 ? 0u : (uint32_t)(R[j] + 1));
+        int z;
+        const uint32_t key = level_key(L, i, u, jp, R, z);
+        K[i] = key;
+        mark_key(bm, G, key, act);
       }
-      S[i] = key;
     }
     __syncthreads();
-    for (int k = 2; k <= P; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < P; i += nt) {
-          const int ixj = i ^ j;
-          if (ixj > i) {
-            const uint32_t a = S[i], b = S[ixj];
-            if (((i & k) == 0) ? a > b : a < b) {
-              S[i] = b;
-              S[ixj] = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-    const int per = (cnt + nt - 1) / nt;
-    const int lo = min(tid * per, cnt), hi = min(lo + per, cnt);
+    const int per = (groups + nt - 1) / nt;
+    const int lo = min(tid * per, groups), hi = min(lo + per, groups);
     int c = 0;
-    for (int i = lo; i < hi; ++i) c += (i == 0 || S[i] != S[i - 1]);
+    for (int g = lo; g < hi; ++g) c += G[g];
     int run = block_excl_scan(c, ws, nullptr);
-    for (int i = lo; i < hi; ++i) {
-      run += (i == 0 || S[i] != S[i - 1]);
-      Dc[i] = (uint16_t)run;
+    for (int g = lo; g < hi; ++g) {
+      const int v = G[g];
+      G[g] = run;
+      run += v;
     }
     __syncthreads();
     for (int i = tid; i < cnt; i += nt) {
-      const int z = level_node(L, i), j = jp[z];
-      const uint32_t key = ((uint32_t)u[z] << wk) | (j < 0 ? 0u : (uint32_t)(R[j] + 1));
-      int a = 0, b = cnt;
-      while (a < b) {
-        const int mid = (a + b) >> 1;
-        if (S[mid] < key)
-          a = mid + 1;
-        else
-          b = mid;
-      }
-      R[z] = (int)Dc[a] - 1;
+      const uint32_t key = K[i];
+      R[level_node(L, i)] = G[key >> 8] + bits_below_in_group(bm, key);
     }
     __syncthreads();
+    bm += 8 * groups;
   }
 }
 
-// A larger level: its keys and node ids, for the radix sort.
-template <typename KT>
-__global__ void rank_keys(const int32_t* __restrict__ L, const int32_t* __restrict__ u,
+// A larger level, launch 1 of 3: each node's key kept, its bit set, its
+// group's count of distinct keys (gcnt, zeroed by the caller) raised.
+__global__ void rank_mark(const int32_t* __restrict__ L, const int32_t* __restrict__ u,
                           const int32_t* __restrict__ jp, const int32_t* __restrict__ R,
-                          KT* __restrict__ keys, int32_t* __restrict__ ids) {
+                          uint32_t* __restrict__ keys, uint32_t* __restrict__ bm,
+                          int32_t* __restrict__ gcnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned act = __ballot_sync(0xffffffffu, i < L[0]);
+  if (i >= L[0]) return;
+  int z;
+  const uint32_t key = level_key(L, i, u, jp, R, z);
+  keys[i] = key;
+  mark_key(bm, gcnt, key, act);
+}
+
+// Launch 2 of 3: the groups' counts turned in place into exclusive prefixes
+// within scan blocks of kScanGroups groups (4 a thread), and the blocks'
+// sums; the last block to finish (done, zeroed by the caller) turns the
+// sums into the blocks' exclusive prefixes.
+__global__ void __launch_bounds__(kScanThreads) rank_scan(int32_t* __restrict__ gcnt, long long groups,
+                                                          int32_t* bsum, unsigned* done) {
+  __shared__ int ws[32];
+  __shared__ bool s_last;
+  const long long g0 = (long long)blockIdx.x * kScanGroups + (long long)threadIdx.x * 4;
+  const int4 c = g0 < groups ? *reinterpret_cast<const int4*>(gcnt + g0) : make_int4(0, 0, 0, 0);
+  int agg;
+  const int run = block_excl_scan(c.x + c.y + c.z + c.w, ws, &agg);
+  if (g0 < groups)
+    *reinterpret_cast<int4*>(gcnt + g0) =
+        make_int4(run, run + c.x, run + c.x + c.y, run + c.x + c.y + c.z);
+  if (threadIdx.x == 0) bsum[blockIdx.x] = agg;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  int carry = 0;
+  for (int b0 = 0; b0 < (int)gridDim.x; b0 += kScanThreads) {
+    const int b = b0 + threadIdx.x;
+    const int v = b < (int)gridDim.x ? __ldcg(&bsum[b]) : 0;
+    int t;
+    const int e = block_excl_scan(v, ws, &t);
+    if (b < (int)gridDim.x) bsum[b] = carry + e;
+    carry += t;
+  }
+}
+
+// Launch 3 of 3: R = the distinct keys below the node's key (its scan
+// block's prefix, its group's prefix in the block, the bits below it in
+// the group).
+__global__ void rank_bits(const int32_t* __restrict__ L, const uint32_t* __restrict__ keys,
+                          const uint32_t* __restrict__ bm, const int32_t* __restrict__ gpre,
+                          const int32_t* __restrict__ bsum, int32_t* __restrict__ R) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= L[0]) return;
-  const int z = level_node(L, i), j = jp[z];
-  keys[i] = ((KT)(uint32_t)u[z] << L[1]) | (j < 0 ? (KT)0 : (KT)(uint32_t)(R[j] + 1));
-  ids[i] = z;
-}
-
-// Per tile of sorted keys: the positions where the key changes.
-template <typename KT>
-__global__ void __launch_bounds__(kSortThreads) rank_count(const KT* __restrict__ ks, long long n,
-                                                           int32_t* __restrict__ bsum) {
-  __shared__ int ws[32];
-  const long long t0 = (long long)blockIdx.x * kTile;
-  int c = 0;
-  for (int r = 0; r < kTile / kSortThreads; ++r) {
-    const long long i = t0 + (long long)r * kSortThreads + threadIdx.x;
-    if (i > 0 && i < n) c += ks[i] != ks[i - 1];
-  }
-  int tot;
-  block_excl_scan(c, ws, &tot);
-  if (threadIdx.x == 0) bsum[blockIdx.x] = tot;
-}
-
-// Dense ranks: the changes before each sorted position, scattered to the
-// node ids.
-template <typename KT>
-__global__ void __launch_bounds__(kSortThreads) rank_scatter(const KT* __restrict__ ks,
-                                                             const int32_t* __restrict__ ids,
-                                                             long long n,
-                                                             const int32_t* __restrict__ bsum,
-                                                             int32_t* __restrict__ R) {
-  __shared__ int ws[32];
-  int p = 0;
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += kSortThreads) p += bsum[b];
-  int carry;
-  block_excl_scan(p, ws, &carry);
-  const long long t0 = (long long)blockIdx.x * kTile;
-  for (int r = 0; r < kTile / kSortThreads; ++r) {
-    const long long i = t0 + (long long)r * kSortThreads + threadIdx.x;
-    const int fl = (i > 0 && i < n) ? (ks[i] != ks[i - 1]) : 0;
-    int tot;
-    const int ex = block_excl_scan(fl, ws, &tot);
-    if (i < n) R[ids[i]] = carry + ex + fl;
-    carry += tot;
-  }
+  const uint32_t key = keys[i];
+  R[level_node(L, i)] = bsum[(key >> 8) / kScanGroups] + gpre[key >> 8] + bits_below_in_group(bm, key);
 }
 
 // -- the radix sort ---------------------------------------------------------------
@@ -400,90 +473,193 @@ __device__ __forceinline__ int digit_of(KT k, int shift) {
   return (int)(((k ^ flip) >> shift) & 255);
 }
 
-// Block histograms: counts[digit * nblocks + block].
-template <typename KT>
-__global__ void __launch_bounds__(kSortThreads) radix_hist(const KT* __restrict__ keys, long long n,
-                                                           int shift, int32_t* __restrict__ counts,
-                                                           int nblocks) {
-  __shared__ int h[256];
-  const int tid = threadIdx.x, lane = tid & 31;
-  h[tid] = 0;
-  __syncthreads();
-  const unsigned lt = (1u << lane) - 1;
-  const long long t0 = (long long)blockIdx.x * kTile;
-  for (int r = 0; r < kTile / kSortThreads; ++r) {
-    const long long i = t0 + (long long)r * kSortThreads + tid;
-    const int dg = i < n ? digit_of(keys[i], shift) : 256;
-    const unsigned peers = __match_any_sync(0xffffffffu, dg);
-    if (dg < 256 && (peers & lt) == 0) atomicAdd(&h[dg], __popc(peers));
-  }
-  __syncthreads();
-  counts[(long long)tid * nblocks + blockIdx.x] = h[tid];
+struct Shifts {
+  int s[kSortPasses];
+};
+
+__device__ __forceinline__ unsigned long long sort_status(int pass, unsigned long long state,
+                                                          unsigned count) {
+  return ((unsigned long long)(pass + 1) << 34) | (state << 32) | count;
 }
 
-// One block per digit: the exclusive scan of its row over the blocks, and
-// the digit's total.
-__global__ void __launch_bounds__(1024) radix_scan(int32_t* __restrict__ counts, int nblocks,
-                                                   int32_t* __restrict__ totals) {
+// kHistItems consecutive keys from k0 (16-byte loads where aligned and
+// whole); keys past n are never read.
+template <typename KT>
+__device__ __forceinline__ void load_run(const KT* __restrict__ keys, long long k0, long long n,
+                                         KT (&k)[kHistItems]) {
+  if (k0 + kHistItems <= n && (reinterpret_cast<uintptr_t>(keys + k0) & 15) == 0) {
+    const uint4* p = reinterpret_cast<const uint4*>(keys + k0);
+    uint4 v[kHistItems * sizeof(KT) / 16];
+#pragma unroll
+    for (int q = 0; q < (int)(kHistItems * sizeof(KT) / 16); ++q) v[q] = p[q];
+#pragma unroll
+    for (int j = 0; j < kHistItems; ++j) k[j] = reinterpret_cast<const KT*>(v)[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kHistItems; ++j) k[j] = k0 + j < n ? keys[k0 + j] : (KT)0;
+  }
+}
+
+// Launch 1: the counts of every digit of every pass (hist[pass * 256 +
+// digit], zeroed by the caller) from one read of the keys.  A thread takes
+// kHistItems consecutive keys and adds each run of one digit once to a
+// shared-memory counter (the walk's keys hold long runs in their high
+// digits), then integer atomics.  The last block to finish turns each
+// pass's counts into the digits' exclusive starts.
+template <typename KT>
+__global__ void __launch_bounds__(kHistThreads) radix_hist(const KT* __restrict__ keys, long long n,
+                                                           Shifts sh, int nshift, int32_t* hist,
+                                                           unsigned* done) {
+  __shared__ int h[kSortPasses * 256];
   __shared__ int ws[32];
-  int32_t* row = counts + (long long)blockIdx.x * nblocks;
-  int carry = 0;
-  for (int base = 0; base < nblocks; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < nblocks ? row[i] : 0;
-    int tot;
-    const int ex = block_excl_scan(v, ws, &tot);
-    if (i < nblocks) row[i] = carry + ex;
-    carry += tot;
+  __shared__ bool s_last;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < nshift * 256; i += kHistThreads) h[i] = 0;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kHistThreads * kHistItems;
+  for (long long k0 = ((long long)blockIdx.x * kHistThreads + tid) * kHistItems; k0 < n; k0 += stride) {
+    KT k[kHistItems];
+    load_run(keys, k0, n, k);
+    const int m = (int)min((long long)kHistItems, n - k0);
+    for (int p = 0; p < nshift; ++p) {
+      int* hp = h + p * 256;
+      int cur = digit_of(k[0], sh.s[p]), run = 1;
+#pragma unroll
+      for (int j = 1; j < kHistItems; ++j) {
+        if (j < m) {
+          const int d = digit_of(k[j], sh.s[p]);
+          if (d == cur) {
+            ++run;
+          } else {
+            atomicAdd(hp + cur, run);
+            cur = d;
+            run = 1;
+          }
+        }
+      }
+      atomicAdd(hp + cur, run);
+    }
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+  __syncthreads();
+  for (int i = tid; i < nshift * 256; i += kHistThreads)
+    if (h[i]) atomicAdd(&hist[i], h[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int p = 0; p < nshift; ++p) {
+    const int v = __ldcg(&hist[p * 256 + tid]);
+    hist[p * 256 + tid] = block_excl_scan(v, ws, nullptr);
+  }
 }
 
-// Stable scatter: each round of 256 items, the rank among the warp's items
-// of the same digit (__match_any_sync) plus the digit's count in earlier
-// warps and rounds and the block's base.  vin null: the values are the
-// items' indices.
+// One launch per digit: a tile of kTile keys per block (lane l of warp w
+// holds keys w * 32 * kSortItems + 32 j + l, j < kSortItems).  Stable ranks
+// within the warp from __match_any_sync and per-warp digit counters (round
+// j after round j - 1), the warps' offsets per digit, the tile's counts
+// published, keys and values staged in shared memory in digit order, the
+// earlier tiles looked back over (thread d for digit d), and the staged
+// keys written out as one run per digit.  dbase: the digits' starts; vin
+// null: the values are the input positions.
 template <typename KT>
-__global__ void __launch_bounds__(kSortThreads) radix_scatter(
+__global__ void __launch_bounds__(kSortThreads, 2) radix_onesweep(
     const KT* __restrict__ kin, const int32_t* __restrict__ vin, KT* __restrict__ kout,
-    int32_t* __restrict__ vout, long long n, int shift, const int32_t* __restrict__ counts,
-    const int32_t* __restrict__ totals, int nblocks) {
-  __shared__ int s_base[256];
-  __shared__ int s_cnt[kSortWarps][256];
-  __shared__ int s_off[kSortWarps][256];
-  __shared__ int ws[32];
+    int32_t* __restrict__ vout, long long n, int shift, int pass, const int32_t* __restrict__ dbase,
+    unsigned long long* status, unsigned* tiles) {
+  extern __shared__ __align__(16) unsigned char sort_smem[];
+  KT* sk = reinterpret_cast<KT*>(sort_smem);
+  int32_t* sv = reinterpret_cast<int32_t*>(sk + kTile);
+  int* wh = reinterpret_cast<int*>(sv + kTile);  // [kSortWarps][256]
+  __shared__ int s_bex[256], s_gofs[256], ws[32];
+  __shared__ int s_tile;
+  static_assert(kSortThreads == 256, "one thread per digit");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int dbase = block_excl_scan(totals[tid], ws, nullptr);
-  s_base[tid] = dbase + counts[(long long)tid * nblocks + blockIdx.x];
-#pragma unroll
-  for (int w = 0; w < kSortWarps; ++w) s_cnt[w][tid] = 0;
+  if (tid == 0) s_tile = (int)atomicAdd(tiles, 1u);
+  for (int i = tid; i < kSortWarps * 256; i += kSortThreads) wh[i] = 0;
   __syncthreads();
-  const unsigned lt = (1u << lane) - 1;
-  const long long t0 = (long long)blockIdx.x * kTile;
-  for (int r = 0; r < kTile / kSortThreads; ++r) {
-    const long long i = t0 + (long long)r * kSortThreads + tid;
-    const bool ok = i < n;
-    const KT key = ok ? kin[i] : (KT)0;
-    const int dg = ok ? digit_of(key, shift) : 256;
-    const unsigned peers = __match_any_sync(0xffffffffu, dg);
-    const int rank = __popc(peers & lt);
-    if (ok && rank == 0) s_cnt[warp][dg] = __popc(peers);
-    __syncthreads();
-    int run = s_base[tid];
+  // n < 2^31: positions fit 32 bits unsigned, also past n in the last tile
+  const unsigned tile = s_tile, t0 = tile * kTile, un = (unsigned)n;
+  const unsigned b0 = t0 + warp * (32 * kSortItems) + lane;
+  KT key[kSortItems];
+  int32_t val[kSortItems];
+  int dr[kSortItems];  // rank in the warp << 9 | digit (256: past n)
 #pragma unroll
-    for (int w = 0; w < kSortWarps; ++w) {
-      const int c = s_cnt[w][tid];
-      s_off[w][tid] = run;
-      s_cnt[w][tid] = 0;
-      run += c;
+  for (int j = 0; j < kSortItems; ++j) {
+    const unsigned i = b0 + 32 * j;
+    key[j] = i < un ? kin[i] : (KT)0;
+    val[j] = i < un ? (vin ? vin[i] : (int32_t)i) : 0;
+  }
+  int* mine = wh + warp * 256;
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int d = b0 + 32 * j < un ? digit_of(key[j], shift) : 256;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int before = d < 256 ? mine[d] : 0;
+    __syncwarp();
+    if (d < 256 && lane == 31 - __clz(peers)) mine[d] = before + __popc(peers);
+    __syncwarp();
+    dr[j] = ((before + __popc(peers & lt)) << 9) | d;
+  }
+  __syncthreads();
+  int cnt = 0;
+#pragma unroll
+  for (int w = 0; w < kSortWarps; ++w) {
+    const int c = wh[w * 256 + tid];
+    wh[w * 256 + tid] = cnt;
+    cnt += c;
+  }
+  unsigned long long* st = status + (size_t)tile * 256 + tid;
+  atomicExch(st, sort_status(pass, tile == 0 ? kStatePrefix : kStateAggregate, (unsigned)cnt));
+  const int bex = block_excl_scan(cnt, ws, nullptr);
+  s_bex[tid] = bex;
+  __syncthreads();
+  // staged in digit order while the earlier tiles finish
+#pragma unroll
+  for (int j = 0; j < kSortItems; ++j) {
+    const int d = dr[j] & 511;
+    if (d < 256) {
+      const int pos = s_bex[d] + wh[warp * 256 + d] + (dr[j] >> 9);
+      sk[pos] = key[j];
+      sv[pos] = val[j];
     }
-    s_base[tid] = run;
-    __syncthreads();
-    if (ok) {
-      const int pos = s_off[warp][dg] + rank;
-      kout[pos] = key;
-      vout[pos] = vin ? vin[i] : (int32_t)i;
+  }
+  // the look-back: four status words in flight; a word not yet published
+  // in this pass is read again
+  long long excl = 0;
+  if (tile > 0) {
+    const unsigned long long tag = (unsigned long long)(pass + 1);
+    for (int t = (int)tile - 1;;) {
+      unsigned long long w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w[q] = t - q >= 0
+                   ? *reinterpret_cast<volatile unsigned long long*>(status + (size_t)(t - q) * 256 + tid)
+                   : sort_status(pass, kStatePrefix, 0u);
+      int used = 0;
+      bool fin = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (fin || used < q || (w[q] >> 34) != tag) continue;
+        excl += w[q] & 0xffffffffull;
+        ++used;
+        fin = ((w[q] >> 32) & 3) == kStatePrefix;
+      }
+      if (fin) break;
+      t -= used;
     }
+    atomicExch(st, sort_status(pass, kStatePrefix, (unsigned)(excl + cnt)));
+  }
+  s_gofs[tid] = dbase[tid] + (int)excl - bex;
+  __syncthreads();
+  const int m = (int)min((unsigned)kTile, un - t0);
+  for (int i = tid; i < m; i += kSortThreads) {
+    const KT k = sk[i];
+    const unsigned g = (unsigned)(s_gofs[digit_of(k, shift)] + i);
+    kout[g] = k;
+    vout[g] = sv[i];
   }
 }
 
@@ -494,35 +670,50 @@ __global__ void gather_kernel(const T* __restrict__ src, const int32_t* __restri
   if (i < n) dst[i] = src[idx[i]];
 }
 
+// The sort's scratch, in 8-byte words: the status words (256 per tile),
+// the counts (kSortPasses x 256 int32), the counters (the histogram's
+// blocks done, then one tile counter per pass).
+long long sort_scratch_words(long long n) {
+  return (n + kTile - 1) / kTile * 256 + kSortPasses * 256 / 2 + kSortPasses;
+}
+
 // nshift passes over the digits at shifts[]; the last pass writes kout and
 // vout, the others alternate with kbuf and vbuf.  vals null: the values are
-// the input positions.
+// the input positions.  zbuf: sort_scratch_words(n), zeroed here.
 template <typename KT>
 cudaError_t radix_passes(const KT* keys, const int32_t* vals, long long n, const int* shifts,
                          int nshift, KT* kbuf, int32_t* vbuf, KT* kout, int32_t* vout,
-                         int32_t* counts, int32_t* totals, cudaStream_t st) {
-  const int nb = (int)((n + kTile - 1) / kTile);
+                         unsigned long long* zbuf, cudaStream_t st) {
+  const long long ntiles = (n + kTile - 1) / kTile;
+  unsigned long long* status = zbuf;
+  int32_t* hist = reinterpret_cast<int32_t*>(zbuf + ntiles * 256);
+  unsigned* ctr = reinterpret_cast<unsigned*>(hist + kSortPasses * 256);
+  cudaError_t err = cudaMemsetAsync(zbuf, 0, sizeof(unsigned long long) * sort_scratch_words(n), st);
+  if (err != cudaSuccess) return err;
+  Shifts sh = {};
+  for (int p = 0; p < nshift; ++p) sh.s[p] = shifts[p];
+  const long long hb = (n + kHistItems * kHistThreads - 1) / (kHistItems * kHistThreads);
+  radix_hist<KT><<<(unsigned)(hb < kHistBlocks ? hb : kHistBlocks), kHistThreads, 0, st>>>(
+      keys, n, sh, nshift, hist, ctr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = kTile * (int)(sizeof(KT) + sizeof(int32_t)) + kSortWarps * 256 * (int)sizeof(int);
+  err = cudaFuncSetAttribute(radix_onesweep<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   const KT* ks = keys;
   const int32_t* vs = vals;
   for (int p = 0; p < nshift; ++p) {
     const bool last = (nshift - 1 - p) % 2 == 0;
     KT* kd = last ? kout : kbuf;
     int32_t* vd = last ? vout : vbuf;
-    radix_hist<KT><<<nb, kSortThreads, 0, st>>>(ks, n, shifts[p], counts, nb);
-    radix_scan<<<256, 1024, 0, st>>>(counts, nb, totals);
-    radix_scatter<KT><<<nb, kSortThreads, 0, st>>>(ks, vs, kd, vd, n, shifts[p], counts, totals, nb);
-    const cudaError_t err = cudaGetLastError();
+    radix_onesweep<KT><<<(unsigned)ntiles, kSortThreads, smem, st>>>(
+        ks, vs, kd, vd, n, shifts[p], p, hist + p * 256, status, ctr + 1 + p);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ks = kd;
     vs = vd;
   }
   return cudaSuccess;
-}
-
-int shifts_for(int bits, int* shifts) {
-  const int ns = (bits + 7) / 8;
-  for (int p = 0; p < ns; ++p) shifts[p] = 8 * p;
-  return ns;
 }
 
 // -- K8: the walk --------------------------------------------------------------------
@@ -754,6 +945,10 @@ __global__ void walk_rowkeys(const int32_t* __restrict__ sid, int take, long lon
   }
 }
 
+// A larger level's scan blocks' sums and their counter, in 4-byte words
+// padded to 16 bytes (the next level's counts are read as int4).
+long long sums_words(long long nblk) { return (nblk + 1 + 3) & ~3LL; }
+
 }  // namespace
 
 // The child value table: vtab (nt int32) from s, signs (bytes) and, with
@@ -771,77 +966,86 @@ extern "C" int sperr_walk_vtab(const int32_t* s, const uint8_t* sg, const int32_
 // K7: J, R (nn int32 each) and the scratch u, jp (nn int32); with sigf
 // (nn bytes) and wbuf (nn + 1 int32), the walk's flags and rank table.
 // plan: nlevels levels of kLevelInts words on the device (plan_host the
-// same on the host), the first nsmall ranked in one block.  keys, ids,
-// kbuf, vbuf, kout, vout, counts, totals, bsum: the larger levels' sort.
+// same on the host), the first nsmall ranked in one block.  keys: the
+// largest count of the other levels; zbuf (zwords 4-byte words, zeroed
+// here in one memset): every level's bitmap of 2^(12 + wk) bits in plan
+// order, then per larger level its 8-word groups' counts (then their
+// prefixes), its scan blocks' sums and their counter (16-byte aligned).  A level of
+// more than 32 key bits, or one ranked in one block beyond kSmallMax nodes
+// or kSmallBits, is refused.
 extern "C" int sperr_anchor_ranks(const int32_t* node_s, const WalkForest* f, long long nn,
                                   const int32_t* plan, const int32_t* plan_host, int nsmall,
                                   int nlevels, int32_t* J, int32_t* R, int32_t* u, int32_t* jp,
-                                  uint8_t* sigf, int32_t* wbuf, void* keys, int32_t* ids,
-                                  void* kbuf, int32_t* vbuf, void* kout, int32_t* vout,
-                                  int32_t* counts, int32_t* totals, int32_t* bsum,
-                                  cudaStream_t stream) {
+                                  uint8_t* sigf, int32_t* wbuf, uint32_t* keys, uint32_t* zbuf,
+                                  long long zwords, cudaStream_t stream) {
   if (nn < 1 || nsmall < 0 || nsmall > nlevels) return (int)cudaErrorInvalidValue;
-  anchor_chain<<<blocks_for(nn), kThreads, 0, stream>>>(node_s, f, nn, J, R, u, jp, sigf, wbuf);
-  cudaError_t err = cudaGetLastError();
+  long long need = 0;
+  for (int l = 0; l < nlevels; ++l) {
+    const int32_t* Lh = plan_host + l * kLevelInts;
+    const int bits = 12 + Lh[1];
+    if (Lh[1] < 0 || bits > 32 || (l < nsmall && (bits > kSmallBits || Lh[0] > kSmallMax)))
+      return (int)cudaErrorInvalidValue;
+    const long long words = 1LL << (bits - 5), groups = words >> 3;
+    need += words + (l < nsmall ? 0 : groups + sums_words((groups + kScanGroups - 1) / kScanGroups));
+  }
+  if (zwords < need) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(zbuf, 0, sizeof(uint32_t) * need, stream);
   if (err != cudaSuccess) return (int)err;
+  anchor_chain<<<blocks_for(nn), kThreads, 0, stream>>>(node_s, f, nn, J, R, u, jp, sigf, wbuf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  long long boff = 0;
+  for (int l = 0; l < nsmall; ++l) boff += 1LL << (7 + plan_host[l * kLevelInts + 1]);
   if (nsmall > 0) {
     err = cudaFuncSetAttribute(anchor_small, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmallShared);
     if (err != cudaSuccess) return (int)err;
-    anchor_small<<<1, 1024, kSmallShared, stream>>>(plan, nsmall, u, jp, R);
+    anchor_small<<<1, 1024, kSmallShared, stream>>>(plan, nsmall, u, jp, R, zbuf);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  long long soff = boff;
+  for (int l = nsmall; l < nlevels; ++l) soff += 1LL << (7 + plan_host[l * kLevelInts + 1]);
   for (int l = nsmall; l < nlevels; ++l) {
-    const int32_t* Lh = plan_host + l * kLevelInts;
     const int32_t* Ld = plan + l * kLevelInts;
-    const long long cnt = Lh[0];
-    const int bits = 12 + Lh[1];
-    int shifts[8];
-    const int ns = shifts_for(bits, shifts);
-    const unsigned nb = blocks_for(cnt, kTile);
-    if (bits <= 31) {
-      rank_keys<uint32_t><<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, u, jp, R, (uint32_t*)keys, ids);
-      err = radix_passes<uint32_t>((const uint32_t*)keys, ids, cnt, shifts, ns, (uint32_t*)kbuf, vbuf,
-                                   (uint32_t*)kout, vout, counts, totals, stream);
-      if (err != cudaSuccess) return (int)err;
-      rank_count<uint32_t><<<nb, kSortThreads, 0, stream>>>((const uint32_t*)kout, cnt, bsum);
-      rank_scatter<uint32_t><<<nb, kSortThreads, 0, stream>>>((const uint32_t*)kout, vout, cnt, bsum, R);
-    } else {
-      typedef unsigned long long u64;
-      rank_keys<u64><<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, u, jp, R, (u64*)keys, ids);
-      err = radix_passes<u64>((const u64*)keys, ids, cnt, shifts, ns, (u64*)kbuf, vbuf, (u64*)kout,
-                              vout, counts, totals, stream);
-      if (err != cudaSuccess) return (int)err;
-      rank_count<u64><<<nb, kSortThreads, 0, stream>>>((const u64*)kout, cnt, bsum);
-      rank_scatter<u64><<<nb, kSortThreads, 0, stream>>>((const u64*)kout, vout, cnt, bsum, R);
-    }
+    const long long cnt = plan_host[l * kLevelInts];
+    const long long words = 1LL << (7 + plan_host[l * kLevelInts + 1]), groups = words >> 3;
+    const long long nblk = (groups + kScanGroups - 1) / kScanGroups;
+    int32_t* gcnt = reinterpret_cast<int32_t*>(zbuf + soff);
+    int32_t* bsum = gcnt + groups;
+    rank_mark<<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, u, jp, R, keys, zbuf + boff, gcnt);
+    rank_scan<<<(unsigned)nblk, kScanThreads, 0, stream>>>(gcnt, groups, bsum,
+                                                           reinterpret_cast<unsigned*>(bsum + nblk));
+    rank_bits<<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, keys, zbuf + boff, gcnt, bsum, R);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    boff += words;
+    soff += groups + sums_words(nblk);
   }
   return (int)cudaSuccess;
 }
 
 // The stable radix sort of n keys (4 or 8 bytes, read as signed) with int32
 // values (vals null: 0 .. n-1) over the digits at shifts[]: sorted keys in
-// kout, values in vout; kbuf, vbuf: n more of each; counts: 256 per block
-// of kTile keys; totals: 256.
+// kout, values in vout; kbuf, vbuf: n more of each; zbuf: zwords 8-byte
+// words, at least sort_scratch_words(n), zeroed here.
 extern "C" int sperr_radix_sort(const void* keys, int key_bytes, const int32_t* vals, long long n,
                                 const int* shifts, int nshift, void* kbuf, int32_t* vbuf,
-                                void* kout, int32_t* vout, int32_t* counts, int32_t* totals,
-                                cudaStream_t stream) {
-  if (n < 1 || n > 0x7fffffffLL || nshift < 1 || nshift > 8 || (key_bytes != 4 && key_bytes != 8))
+                                void* kout, int32_t* vout, unsigned long long* zbuf,
+                                long long zwords, cudaStream_t stream) {
+  if (n < 1 || n > 0x7fffffffLL || nshift < 1 || nshift > kSortPasses ||
+      (key_bytes != 4 && key_bytes != 8) || zwords < sort_scratch_words(n))
     return (int)cudaErrorInvalidValue;
   for (int p = 0; p < nshift; ++p)
     if (shifts[p] < 0 || shifts[p] > 8 * key_bytes - 8) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (key_bytes == 4)
     err = radix_passes<uint32_t>((const uint32_t*)keys, vals, n, shifts, nshift, (uint32_t*)kbuf,
-                                 vbuf, (uint32_t*)kout, vout, counts, totals, stream);
+                                 vbuf, (uint32_t*)kout, vout, zbuf, stream);
   else
     err = radix_passes<unsigned long long>(
         (const unsigned long long*)keys, vals, n, shifts, nshift, (unsigned long long*)kbuf, vbuf,
-        (unsigned long long*)kout, vout, counts, totals, stream);
+        (unsigned long long*)kout, vout, zbuf, stream);
   return (int)err;
 }
 

@@ -224,8 +224,8 @@ class WalkLayout(NamedTuple):
     CB: int                 # born entries, 8 C2
     E: int                  # list entries, CB + nroots
     T: int                  # items
-    path_words: int         # 1 (4-bit digits, depth_max <= 6) or 2 (5-bit digits)
-    pw0: int                # bits of path word 0 (4 (depth_max + 1), or 30)
+    path_words: int         # 1 (base-9 digits, depth_max <= 6) or 2 (5-bit digits)
+    pw0: int                # bits of path word 0 (of 9^(depth_max + 1) - 1, or 30)
     tcap: int               # the walk rank of "none" in the keys (E)
     walk_bits: Tuple[int, ...]  # widths of the walk sort's keys
     wa: int                 # bits of an anchor rank
@@ -242,7 +242,7 @@ def walk_layout(vf, node_cap: int) -> WalkLayout:
     CB = 8 * C2
     E = CB + int(vf.nroots)
     one = vf.depth_max <= 6
-    pw0 = 4 * (vf.depth_max + 1) if one else 30
+    pw0 = (9 ** (vf.depth_max + 1) - 1).bit_length() if one else 30
     more = () if one else (30,)
     wa = max(1, max(vf.rank_plan().counts, default=0).bit_length())
     lba_bits = (vf.nlev << 11).bit_length()

@@ -502,8 +502,8 @@ class VirtualLisIndex:
         """The levels K7 ranks (every level but the leaves'), ascending, as
         the kernel reads them: per level its node count, the bit width of
         the parent ranks in its keys (the largest count of the levels below)
-        and its id spans; the leading levels of at most 4,096 nodes go to
-        one block.  Made once."""
+        and its id spans; the leading levels of at most 4,096 nodes and 21
+        key bits go to one block.  Made once."""
         if self._rank_plan is None:
             _, spans = self.anchor_plan()
             db = self.h_depth_base
@@ -528,7 +528,7 @@ class VirtualLisIndex:
                 below = max(below, int(row[0]))
             nsmall = 0
             while (nsmall < len(rows) and counts[nsmall] <= kernels.RANK_SMALL_MAX
-                   and 12 + wks[nsmall] <= 31):
+                   and 12 + wks[nsmall] <= kernels.RANK_SMALL_BITS):
                 nsmall += 1
             host = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int32)
             self._rank_plan = RankPlan(host, _i32(host, self.device), nsmall, tuple(counts),

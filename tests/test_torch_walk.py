@@ -5,19 +5,27 @@ as far as the CPU can hold them: their plain versions against sperr_tpu
 at N = 16, 32 and 64, and numpy emulations of what the kernels compute
 against the plain versions:
 
-  * the radix sort's passes (block histograms, a scan per digit over the
-    blocks, the stable scatter) with the digits that the static widths
-    (``walk_layout``, ``rank_plan``) leave, on the real keys of the walk's
-    two sorts and of K7's level sorts as the kernels pack them, against
+  * the one-sweep radix sort (one histogram of every digit, then per digit
+    pass and tile the in-warp stable ranks, the warps' offsets, the
+    look-back's exclusive prefix, the staging in digit order) with the
+    digits that the static widths (``walk_layout``) leave, on the real keys
+    of the walk's two sorts as the kernels pack them, against
     ``np.lexsort`` of the plain version's keys; the widths against the
-    largest key each sort sees; the sign flip on keys of both signs;
+    largest key each sort sees; the sign flip on keys of both signs; one,
+    a tile's worth and tiles of one repeated key;
+  * K7's bitmap ranks (the presence bitmap, its 8-word group prefixes, the
+    bits below a key) on the real keys of every ranked level against
+    ``_level_ranks``, and the bitmaps' widths (``rank_layout``);
   * the walk kernels' arithmetic (chain walk, ranks, rows, born entries,
     walk ranks, keys) against ``_lis_items_virtual_ref`` bit for bit;
-  * ``walk_rows``' significance-mask bit test against the scan form.
+  * ``walk_rows``' significance-mask bit test against the scan form;
+  * walk.cu's tile and thread constants against their Python mirrors.
 
 The kernels themselves run only on the card (``chip_smoke.py`` phase 3)."""
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -101,35 +109,62 @@ def test_plain_walk_and_anchor_ranks_equal_jax(N, seed, density, frac):
 # the radix sort, emulated
 # ---------------------------------------------------------------------------
 def _radix_emulate(keys: np.ndarray, width: int, shifts, vals=None) -> np.ndarray:
-    """What kernels/walk.cu's passes compute, in numpy: per pass, the block
-    histograms of the digit ((key ^ sign bit) >> shift) & 255 over tiles of
-    SORT_TILE keys, the exclusive scan of each digit's row over the blocks,
-    the digits' bases, and the scatter of each key to base + block prefix +
-    the keys of its digit before it in its block.  Returns the values (the
-    positions when vals is None) in sorted order."""
+    """What kernels/walk.cu's one-sweep sort computes, in numpy.  The
+    histogram launch: the counts of every digit ((key ^ sign bit) >> shift)
+    & 255 of every pass, from the input keys (the counts do not depend on
+    the order), and each digit's start.  Then per pass and tile of SORT_TILE
+    keys (lane l of warp w holds key w * 32 * SORT_ITEMS + 32 j + l of the
+    tile, round j < SORT_ITEMS): a key's rank among its warp's keys of its
+    digit (the per-warp counter after the earlier rounds, plus the lanes
+    below it in its round), the warps' offsets per digit, the tile's
+    exclusive prefix per digit as the look-back returns it, the staging slot
+    in digit order, and the write of staged slot i to the digit's start +
+    the prefix + i - the digit's offset in the tile.  Returns the values
+    (the positions when vals is None) in sorted order."""
     ut = np.uint64 if width == 64 else np.uint32
     k = keys.astype(np.int64 if width == 64 else np.int32).view(ut)
     v = np.arange(k.size, dtype=np.int64) if vals is None else np.asarray(vals, np.int64)
-    tile = kernels.SORT_TILE
-    nb = -(-k.size // tile)
+    n, T, I = k.size, kernels.SORT_TILE, kernels.SORT_ITEMS
+    W = kernels.SORT_THREADS // 32
     flip = ut(1) << ut(width - 1)
-    blk = np.arange(k.size) // tile
+
+    def digit(x, shift):
+        return (((x ^ flip) >> ut(shift)) & ut(255)).astype(np.int64)
+
+    def counts(idx, size):
+        return np.bincount(idx, minlength=size)
+
+    starts = []
     for shift in shifts:
-        dg = (((k ^ flip) >> ut(shift)) & ut(255)).astype(np.int64)
-        counts = np.zeros((256, nb), np.int64)
-        np.add.at(counts, (dg, blk), 1)
-        row_excl = np.cumsum(counts, axis=1) - counts
-        totals = counts.sum(axis=1)
-        dbase = np.cumsum(totals) - totals
-        # the keys of the same digit before each key in its block
-        order = np.lexsort((np.arange(k.size), dg, blk))
-        grp = blk[order] * 256 + dg[order]
-        first = np.r_[True, grp[1:] != grp[:-1]]
-        start = np.maximum.accumulate(np.where(first, np.arange(k.size), 0))
-        before = np.empty(k.size, np.int64)
-        before[order] = np.arange(k.size) - start
-        pos = dbase[dg] + row_excl[dg, blk] + before
-        assert np.array_equal(np.sort(pos), np.arange(k.size))
+        h = counts(digit(k, shift), 256)
+        starts.append(np.cumsum(h) - h)
+    i = np.arange(n)
+    tile, off = i // T, i % T
+    warp, rnd, lane = off // (32 * I), (off % (32 * I)) // 32, off % 32
+    nt = -(-n // T)
+    for p, shift in enumerate(shifts):
+        dg = digit(k, shift)
+        # in the warp: the counter after the earlier rounds, the lanes below in the round
+        twr = (tile * W + warp) * I + rnd
+        c_round = counts(twr * 256 + dg, nt * W * I * 256).reshape(nt * W, I, 256)
+        before_rounds = (np.cumsum(c_round, axis=1) - c_round).reshape(-1)
+        grp = twr * 256 + dg
+        order = np.lexsort((lane, grp))
+        first = np.r_[True, grp[order][1:] != grp[order][:-1]]
+        start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+        in_round = np.empty(n, np.int64)
+        in_round[order] = np.arange(n) - start
+        rank = before_rounds[twr * 256 + dg] + in_round
+        # the warps' offsets, the tile's counts, the look-back's prefix
+        c_warp = c_round.reshape(nt, W, I, 256).sum(axis=2)
+        warp_off = np.cumsum(c_warp, axis=1) - c_warp
+        c_tile = c_warp.sum(axis=1)
+        lookback = np.cumsum(c_tile, axis=0) - c_tile
+        bex = np.cumsum(c_tile, axis=1) - c_tile
+        slot = bex[tile, dg] + warp_off[tile, warp, dg] + rank
+        assert np.array_equal(np.sort(slot + tile * T), np.arange(n))
+        pos = starts[p][dg] + lookback[tile, dg] + slot - bex[tile, dg]
+        assert np.array_equal(np.sort(pos), np.arange(n))
         k2, v2 = np.empty_like(k), np.empty_like(v)
         k2[pos], v2[pos] = k, v
         k, v = k2, v2
@@ -158,6 +193,43 @@ def test_radix_shifts_skip_the_zero_digits():
     keys = np.random.default_rng(0).integers(0, 2**20, 9_000)
     np.testing.assert_array_equal(_radix_emulate(keys, 64, kernels.radix_shifts(20)),
                                   np.argsort(keys, kind="stable"))
+
+
+_T = 4096  # kernels.SORT_TILE, checked in test_walk_cu_constants_match_their_mirrors
+
+
+@pytest.mark.parametrize("n", [1, _T - 1, _T, _T + 1, 3 * _T + 1])
+@pytest.mark.parametrize("width", [32, 64])
+def test_radix_emulation_small_and_tile_edges(n, width):
+    rng = np.random.default_rng(n + width)
+    lo, hi = (-(2**31), 2**31) if width == 32 else (-(2**62), 2**62)
+    keys = rng.integers(lo, hi, n)
+    keys[rng.random(n) < 0.2] = keys[0]
+    np.testing.assert_array_equal(_radix_emulate(keys, width, kernels.radix_shifts(width)),
+                                  np.argsort(keys, kind="stable"))
+    small = rng.integers(0, 2**13, n)  # reduced bits: 2 digits
+    vals = rng.integers(0, 2**31, n)
+    np.testing.assert_array_equal(_radix_emulate(small, width, kernels.radix_shifts(13), vals),
+                                  vals[np.argsort(small, kind="stable")])
+
+
+@pytest.mark.parametrize("width,key", [(32, -7), (64, 2**40 + 3), (64, 0)])
+def test_radix_emulation_tiles_of_one_repeated_key(width, key):
+    n = 5 * _T + 17
+    keys = np.full(n, key)
+    np.testing.assert_array_equal(_radix_emulate(keys, width, kernels.radix_shifts(width)), np.arange(n))
+
+
+def _base9(w: np.ndarray, S: int) -> np.ndarray:
+    """A one-word path of 4-bit digits (depth j at 4 (S - 1 - j)), as the
+    plain walk keeps it, in base 9 (depth j's digit times 9^(S - 1 - j)), as
+    the walk kernels pack it; the digits are 0 .. 8."""
+    out = np.zeros_like(w)
+    for j in range(S):
+        dig = (w >> (4 * (S - 1 - j))) & 15
+        assert int(dig.max()) <= 8
+        out += dig * 9 ** (S - 1 - j)
+    return out
 
 
 def _radix_chain(keys, bits) -> np.ndarray:
@@ -194,22 +266,60 @@ def test_walk_sort_keys_fit_their_widths_and_sort_as_lexsort(N, seed, density, f
     lba = np.where(k_lba == _BIG, vf.nlev << 11, k_lba)
     assert int(lba.max()) < 2**lay.lba_bits
     head = (lba << lay.wa) | arank
+    # the kernels' path word 0: base-9 digits where the plain walk has 4-bit ones
+    ins = ins[:1] + [_base9(ins[1], vf.depth_max + 1)] + ins[2:] if lay.path_words == 1 else ins
     packed = [(head << lay.ins_pw) | ins[1]] + ins[2:] if lay.ins_pw else [head] + ins[1:]
     np.testing.assert_array_equal(_radix_chain(packed, lay.ins_bits), np.lexsort(ins[::-1]))
     # walk sort: [pack2(walk rank, path 0)] + more path words; BIG -> tcap
     kw, p0 = walk[0] >> 32, walk[0] & 0xFFFFFFFF
     assert int(kw[kw != _BIG].max()) < lay.tcap
     kwp = np.where(kw == _BIG, lay.tcap, kw)
+    p0 = _base9(p0, vf.depth_max + 1) if lay.path_words == 1 else p0
     assert int(p0.max()) < 2**lay.pw0
     packed = [(kwp << lay.pw0) | p0] + walk[1:]
     np.testing.assert_array_equal(_radix_chain(packed, lay.walk_bits), np.lexsort(walk[::-1]))
     assert walk[0].size == lay.T and ins[0].size == lay.CB
 
 
-@pytest.mark.parametrize("N,seed,density", [(16, 0, 0.4), (32, 3, 0.3), (64, 5, 0.2)])
-def test_level_sort_keys_fit_their_widths(N, seed, density, monkeypatch):
-    vf, node_s, *_ = _inputs(N, seed, density)
-    plan = vf.rank_plan()
+def _bitmap_ranks(key: np.ndarray, bits: int, small: bool) -> np.ndarray:
+    """K7's dense ranks as kernels/walk.cu computes them: each key's bit set
+    in a presence bitmap of 2^bits bits (32-bit words), each 8-word group's
+    count of distinct keys (one per bit that a mark set), the exclusive
+    prefix of the counts (one block: a scan over the groups; a larger level:
+    the prefix within its scan block of RANK_SCAN_GROUPS groups, 4 a
+    thread, and the blocks' prefixes), and R = the key's group prefix + the
+    set bits below it in its group."""
+    key = np.asarray(key, np.int64)
+    assert key.min() >= 0 and int(key.max()) < 2**bits
+    words = np.zeros(2 ** (bits - 5), np.uint32)
+    np.bitwise_or.at(words, key >> 5, (np.int64(1) << (key & 31)).astype(np.uint32))
+    pc = np.bitwise_count(words).astype(np.int64)
+    grp = np.bincount(np.unique(key) >> 8, minlength=words.size // 8)  # the marks' counts
+    assert np.array_equal(grp, pc.reshape(-1, 8).sum(axis=1))
+    if small:
+        gpre = np.cumsum(grp) - grp
+    else:
+        per_block = kernels.RANK_SCAN_GROUPS
+        nblk = -(-grp.size // per_block)
+        padded = np.zeros(nblk * per_block, np.int64)
+        padded[: grp.size] = grp
+        blocks = padded.reshape(nblk, per_block)
+        agg = blocks.sum(axis=1)
+        bsum = np.cumsum(agg) - agg  # the last block's scan of the sums
+        thread = blocks.reshape(nblk, -1, 4)  # 4 groups per thread
+        tsum = thread.sum(axis=2)
+        ex = ((np.cumsum(tsum, axis=1) - tsum)[:, :, None] + np.cumsum(thread, axis=2) - thread).reshape(-1)
+        gpre = bsum[np.arange(grp.size) // per_block] + ex[: grp.size]
+    g, w, b = key >> 8, (key >> 5) & 7, key & 31
+    within = np.bitwise_count(words[key >> 5] & ((np.int64(1) << b) - 1).astype(np.uint32)).astype(np.int64)
+    for q in range(7):
+        within += np.where(q < w, pc[np.minimum(g * 8 + q, pc.size - 1)], 0)
+    return gpre[g] + within
+
+
+def _level_keys(vf, node_s, monkeypatch):
+    """The real keys of every ranked level (the plain K7's _level_ranks
+    calls) and their ranks."""
     seen = []
     orig = tsv._level_ranks
 
@@ -220,17 +330,81 @@ def test_level_sort_keys_fit_their_widths(N, seed, density, monkeypatch):
 
     monkeypatch.setattr(tsv, "_level_ranks", rec)
     tsv.dense_anchor_ranks(node_s, vf)
+    monkeypatch.undo()
+    return seen
+
+
+@pytest.mark.parametrize("N,seed,density", [(16, 0, 0.4), (32, 3, 0.3), (64, 5, 0.2)])
+def test_level_sort_keys_fit_their_widths(N, seed, density, monkeypatch):
+    vf, node_s, *_ = _inputs(N, seed, density)
+    plan = vf.rank_plan()
+    seen = _level_keys(vf, node_s, monkeypatch)
     assert [k.size for k, _ in seen] == list(plan.counts)
-    for (key, rank), wk in zip(seen, plan.wks):
+    for lvl, ((key, rank), wk) in enumerate(zip(seen, plan.wks)):
         u, k1 = key >> 32, key & 0xFFFFFFFF
         assert int(u.max()) < 2**12 and int(k1.max()) < 2**wk
         packed = (u << wk) | k1
-        bits = 12 + wk
-        perm = _radix_emulate(packed, 32 if bits <= 31 else 64, kernels.radix_shifts(bits))
-        ks = packed[perm]
-        dense = np.empty(key.size, np.int64)
-        dense[perm] = np.cumsum(np.r_[0, ks[1:] != ks[:-1]])
-        np.testing.assert_array_equal(dense, rank)
+        np.testing.assert_array_equal(_bitmap_ranks(packed, 12 + wk, lvl < plan.nsmall), rank)
+
+
+@pytest.mark.parametrize("N,seed,density", [(64, 7, 0.3), (64, 8, 0.02), (128, 9, 0.1), (128, 10, 0.6)])
+def test_bitmap_ranks_equal_level_ranks(N, seed, density, monkeypatch):
+    """Every ranked level's real keys, on the route the plan gives it (one
+    block, or the three launches); the 32,768-node level (wk 13) first
+    appears at N = 128."""
+    vf, node_s, *_ = _inputs(N, seed, density)
+    plan = vf.rank_plan()
+    lay = kernels.rank_layout(plan.host, plan.nsmall)
+    seen = _level_keys(vf, node_s, monkeypatch)
+    routes = []
+    for lvl, ((key, rank), wk) in enumerate(zip(seen, plan.wks)):
+        packed = ((key >> 32) << wk) | (key & 0xFFFFFFFF)
+        small = lvl < plan.nsmall
+        assert lay.bits[lvl] == 12 + wk and lay.words[lvl] == 2 ** (7 + wk)
+        np.testing.assert_array_equal(_bitmap_ranks(packed, 12 + wk, small), rank)
+        routes.append((key.size, "block" if small else "grid"))
+    if N == 128:
+        assert (32768, "grid") in routes and plan.wks[routes.index((32768, "grid"))] == 13
+
+
+def test_bitmap_widths_at_256():
+    vf = tsv.virtual_lis_index((256, 256, 256), "cpu")
+    plan = vf.rank_plan()
+    assert plan.counts == (7, 63, 511, 4095, 32768, 262144) and plan.wks == (0, 3, 6, 9, 12, 16)
+    lay = kernels.rank_layout(plan.host, plan.nsmall)
+    assert lay.bits == (12, 15, 18, 21, 24, 28) and plan.nsmall == 4
+    # the two levels of the three launches: 2^24 and 2^28 bits (2 MB, 32 MB)
+    assert [2 ** b for b in lay.bits[plan.nsmall:]] == [2**24, 2**28]
+    assert [4 * w for w in lay.words[plan.nsmall:]] == [2 * 2**20, 32 * 2**20]
+    assert lay.scan_blocks[plan.nsmall:] == (2**16 // kernels.RANK_SCAN_GROUPS, 2**20 // kernels.RANK_SCAN_GROUPS)
+    assert lay.zwords == sum(lay.words) + (2**16 + 68) + (2**20 + 1028)  # sums + counter, 16-byte padded
+    assert lay.keys == 262144
+    # the one-block levels' group prefixes fit its shared memory
+    assert max(lay.words[: plan.nsmall]) // 8 <= 2 ** (kernels.RANK_SMALL_BITS - 8)
+    with pytest.raises(ValueError):
+        kernels.rank_layout(plan.host, 5)  # the 32,768-node level in one block
+    wide = plan.host.reshape(-1, kernels.RANK_LEVEL_INTS).copy()
+    wide[-1, 1] = 21  # 33 key bits
+    with pytest.raises(ValueError):
+        kernels.rank_layout(wide.reshape(-1), plan.nsmall)
+
+
+def test_walk_cu_constants_match_their_mirrors():
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "walk.cu")).read()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    mirrors = {"kSortThreads": kernels.SORT_THREADS, "kSortItems": kernels.SORT_ITEMS,
+               "kTile": kernels.SORT_TILE, "kSortPasses": kernels.SORT_PASSES,
+               "kMaxSpans": kernels.RANK_SPANS, "kLevelInts": kernels.RANK_LEVEL_INTS,
+               "kSmallMax": kernels.RANK_SMALL_MAX, "kSmallBits": kernels.RANK_SMALL_BITS,
+               "kScanGroups": kernels.RANK_SCAN_GROUPS, "kMaxDepth": kernels.FOREST_DEPTHS,
+               "kMaxRoots": kernels.FOREST_ROOTS}
+    assert {k: consts[k] for k in mirrors} == mirrors
+    assert kernels.SORT_TILE == _T
+    # the sort's 8-byte scratch words: 256 status words per tile, the counts, the counters
+    assert kernels.sort_scratch_words(1) == 256 + 1024 + 8
+    assert kernels.sort_scratch_words(7_190_220) == 1756 * 256 + 1024 + 8
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +443,7 @@ class _Forest:
         for j in range(self.S):
             dig = np.where(j < d, ((m >> np.maximum(3 * (d - 1 - j), 0)) & 7) + 1, 0)
             if self.S <= 7:
-                w0 |= dig << (4 * (self.S - 1 - j))
+                w0 += dig * 9 ** (self.S - 1 - j)
             elif j < 6:
                 w0 |= dig << (5 * (5 - j))
             else:
@@ -279,14 +453,13 @@ class _Forest:
     def child_paths(self, d, m, k):
         w0, w1 = self.paths(d, m)
         if self.S <= 7:
-            return w0 + ((k + 1) << (4 * (self.S - 1 - d))), w1
+            return w0 + (k + 1) * 9 ** np.maximum(self.S - 1 - d, 0), w1
         return (w0 + np.where(d < 6, (k + 1) << np.clip(5 * (5 - d), 0, 25), 0),
                 w1 + np.where((d >= 6) & (d < 12), (k + 1) << np.clip(5 * (11 - d), 0, 25), 0))
 
 
 def _emulate_anchor_ranks(F, vf, node_s):
-    """anchor_chain, then the ranks level by level (small levels and larger
-    ones compute the same dense rank)."""
+    """anchor_chain, then the bitmap ranks level by level."""
     nn = F.nn
     z = np.arange(nn)
     r, d, m = F.decode(z)
@@ -315,8 +488,7 @@ def _emulate_anchor_ranks(F, vf, node_s):
         ids = np.concatenate([np.arange(row[3 + k], row[3 + kernels.RANK_SPANS + k]) for k in range(ns)])
         assert ids.size == cnt and ranked[ids].all()
         key = (u[ids] << wk) | np.where(jp[ids] < 0, 0, R[np.maximum(jp[ids], 0)] + 1)
-        assert int(key.max()) < 2 ** (12 + wk)
-        R[ids] = np.unique(key, return_inverse=True)[1]
+        R[ids] = _bitmap_ranks(key, 12 + wk, cnt <= kernels.RANK_SMALL_MAX and 12 + wk <= kernels.RANK_SMALL_BITS)
     return J, R
 
 
@@ -484,7 +656,8 @@ def test_rank_plan_and_layout_at_256():
     assert plan.counts == (7, 63, 511, 4095, 32768, 262144) and plan.nsmall == 4
     lay = tsl.walk_layout(vf, 599_185)
     assert (lay.CB, lay.T) == (2_396_704, 7_190_220) and lay.C2 == vf.nn_inner
-    assert lay.walk_bits == (22 + 28,) and lay.ins_bits == (16 + 19 + 28,) and lay.ins_pw == 28
+    # base-9 paths of 7 digits: 23 bits where 4-bit digits take 28
+    assert lay.walk_bits == (22 + 23,) and lay.ins_bits == (16 + 19 + 23,) and lay.ins_pw == 23
     lay0 = tsl.walk_layout(vf, 119_837)
     assert (lay0.CB, lay0.T, lay0.C2) == (958_696, 1_917_428, 119_837)
 
