@@ -14,9 +14,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the per-axis lifting path, level by level and partial inverses against
      the full one, timed per call and per launch at (16, 1024^2) and
      (1, 1800, 3600);
-     the bit transpose K10, the masked pack K11 and the flag compaction K12
-     bit for bit on the inputs that one 256^3 chunk's schedule and walk give
-     them, at the first tier and at the widest, and K12 at the sparse
+     the bit transpose K10 (on the masks of every window of each class, as
+     the plain K9b builds them), the masked pack K11 and the flag compaction
+     K12 bit for bit on the inputs that one 256^3 chunk's schedule and walk
+     give them, at the first tier and at the widest, and K12 at the sparse
      transfer's shape (that chunk's nonzero flags, take n/2, beside
      torch.nonzero); the hybrid decode's K13 bit
      for bit on the control parse of one 256^3 chunk's stream, that stream
@@ -40,7 +41,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      times (a race check on the look-back); the table, K7 (beside
      torch.unique on its largest level's keys), the walk at tiers 0 and 1
      and the tier-1 walk sort timed, the sort beside torch.sort, and the
-     launches per walk call (at most 40, no radix pass in K7) checked);
+     launches per walk call (at most 40, no radix pass in K7) checked; the
+     emission kernels of kernels/emit.cu (K9: the exposed-pixel compaction
+     emit_exposed, the planes emit_planes) bit for bit, every output, on
+     each call the emission makes: headline chunk 0 at tiers 0, 1, the
+     widest (P = 34, every pixel), P = 34 compacted (magnitudes apart) and
+     an exposure forced to overflow; an all-zero, a one-pixel, a 2^31 - 1
+     and an all-2^31 - 1 256^3 chunk; 16^3 and 2^3 cubes; a Hurricane
+     packet chunk (K12's compaction) and a 1024^2 field (K14's pixel half);
+     each timed at tiers 0 and 1 beside its plain version and bound, and
+     the launches between the walk and K11 counted (K9's 6 only));
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
      parse on the host, K13 on the card), checked against the host f64
@@ -53,11 +63,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte (1,012,155 bytes) with
-     every chunk on the device and K1, the lifting kernel, K10, K11, K12,
-     the schedule's sched_boxmax and sched_virtual and the walk's
-     walk_vtab, anchor_ranks, walk_rows and radix sort launched; phase 5's
-     PSNR and rate streams; one noisy 256^3 chunk that drives the tier
-     ladder into its dense tiers;
+     every chunk on the device and K1, the lifting kernel, K9 (emit_exposed,
+     emit_planes once per class of each emission), K11, K12, the schedule's
+     sched_boxmax and sched_virtual and the walk's walk_vtab, anchor_ranks,
+     walk_rows and radix sort launched, K10 not at all; the volume as one
+     512^3 chunk, its wave container equal to its host one with the walk on
+     two path words; phase 5's PSNR and rate streams; one noisy 256^3 chunk
+     that drives the tier ladder into its dense tiers;
   7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
      TorchCompressor2D and TorchDecompressor2D, checked against the host f64
      decoder, with the launch counters read around the timed encode and
@@ -70,18 +82,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
      SDRBench Hurricane ISABEL's shape (100 x 500 x 500, cut from phase 4's
      field) in 256^3 chunks, four wavelet-packet chunks (child-table
      schedule and table walk, K15), whose wave container must equal the
-     host one byte for byte (87,959 bytes) with K1, the lifting kernel, K10,
-     K11, K12, sched_table and the radix sort launched, decoded on both
+     host one byte for byte (87,959 bytes) with K1, the lifting kernel,
+     emit_planes, K11, K12, sched_table and the radix sort launched (K10
+     not), decoded on both
      routes; one dyadic
      chunk, whose wave container must equal the host one, with
      sched_pyramid launched;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
      streams must equal phase 7's (167,627 bytes) with every field on the
-     device and K1, K2, K3, K10, K11, K12, sched_table and the radix sort
-     launched, decoded
-     within the bound, the encode
+     device and K1, K2, K3, emit_planes, K11, K12, sched_table and the
+     radix sort launched (K10 not), decoded within the bound, the encode
      timed on both routes; one field's device program (device-busy and
-     host-issued time, host waits, its K10-K12 calls bit for bit); phase 8's
+     host-issued time, host waits, its K9b, K11 and K12 calls bit for bit,
+     K10 on K9b's masks); phase 8's
      field at PWE, PSNR and rate and a noisy field that climbs the tier
      ladder, each wave stream equal to its host one;
  11. the command-line tools (--exec cuda), as new processes: sperr3d on
@@ -105,7 +118,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
  13. the sparse transfer (transfer="sparse", the default; phases 4-12 pass
      transfer="dense"): phase 4's volume with host and wave entropy, each
      container equal to phase 4's byte for byte and each decode phase 4's,
-     K1, the lifting kernel and K12 launched (the wave route also K10,
+     K1, the lifting kernel and K12 launched (the wave route also K9,
      K11, sched_boxmax, sched_virtual and the walk kernels), the bound
      under the port's
      decoder and the host f64 decoder;
@@ -123,7 +136,15 @@ together (``fused``: the K5 + K6 function), sched_table's its times on the
 kernel's its launches per call (``launches_per_call``), walk_rows's (the
 whole walk) its tier-1 time (``tier1``), the radix sort's its launches in
 phases 9 and 10 (``launches_table``, ``launches_2d``) and its LSD floor
-(``lsd_floor_ms``: its passes' bytes over the memory rate).
+(``lsd_floor_ms``: its passes' bytes over the memory rate); K9's rows
+(emit_exposed, emit_planes: the three classes summed) are timed at tier 1,
+emit_exposed's also at tier 0 (``tier0``), emit_planes's by class
+(``per_class``), with its launches in phases 9 and 10 and the K9 stage at
+tiers 0 and 1 with its launches between the walk and K11 (``k9_stage``),
+and emit_exposed's the 512^3 chunk's bytes, walls, peaks and tiers
+(``chunk512``);
+K10's row says that its transpose runs inside emit_planes on the wave
+paths (``merged_into``: its launches there are 0).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -312,6 +333,87 @@ def _lift_per_launch(kernels, cdf97, x, levels: int, smi: str):
     return out
 
 
+def _chunk512(kernels, smi: str, vol) -> dict:
+    """Phase 6's 512^3 chunk: phase 4's volume as one chunk
+    (``TorchCompressor3D((512,) * 3, (512,) * 3)``, the default transfer),
+    first on the wave route, then on the host route: the containers must
+    be equal byte for byte, the chunk on the device, the walk's layout two
+    path words (the two-word walk: a forest deeper than base-9 paths of one
+    word hold), K9a and the walk launched.  Returns the walls, peaks and
+    launches."""
+    import torch
+
+    from sperr_tpu_torch.ops import speck_lis
+    from sperr_tpu_torch.parallel.batched import TorchCompressor3D
+
+    dims = (512, 512, 512)
+    layouts = []
+    orig = speck_lis.walk_layout
+
+    def record(vf, node_cap):
+        lay = orig(vf, node_cap)
+        layouts.append((tuple(vf.dims), lay))
+        return lay
+
+    res = {"wall_s": {}, "peak": {}, "tiers": {}}
+    streams = {}
+    speck_lis.walk_layout = record
+    try:
+        for entropy in ("wave", "host"):
+            comp = TorchCompressor3D(dims, dims, device="cuda", entropy=entropy)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            streams[entropy] = comp.compress(vol, "pwe", 1e-2)
+            torch.cuda.synchronize()
+            res["wall_s"][entropy] = time.perf_counter() - t0
+            res["peak"][entropy] = torch.cuda.max_memory_allocated()
+            _check(comp.last_uncertified_chunks == 0, f"512^3 chunk, {entropy}: uncertified")
+            if entropy == "wave":
+                res["launches"] = {k: v for k, v in kernels.launches.items() if v}
+                res["tiers"] = comp.last_wave_tiers
+                _check(comp.last_wave_chunks == 1, "the 512^3 chunk took host entropy on the wave route")
+    finally:
+        speck_lis.walk_layout = orig
+    for name in ("emit_exposed", "emit_planes", "walk_rows", "radix_sort", "sched_virtual"):
+        _check(res["launches"].get(name, 0) > 0, f"{name} was not launched on the 512^3 chunk")
+    words = sorted({lay.path_words for d, lay in layouts if d == dims})
+    _check(words == [2], f"the 512^3 walk took path words {words}, not 2")
+    _check(streams["wave"] == streams["host"], "the 512^3 chunk's wave container differs from the host one")
+    res["bytes"] = len(streams["wave"])
+    print(f"[wave] one 512^3 chunk: wave container = host container byte for byte ({res['bytes']} bytes), "
+          f"tiers {res['tiers']}, the walk on two path words ({len(layouts)} walk calls, key widths "
+          f"{sorted({lay.walk_bits for d, lay in layouts if d == dims})}); encode {res['wall_s']['wave']:.3f} s "
+          f"wave, {res['wall_s']['host']:.3f} s host (first calls: the 512^3 index built); peak device memory "
+          f"{res['peak']['wave']} bytes ({res['peak']['wave'] / 2**30:.3f} GiB) wave, {res['peak']['host']} "
+          f"host; launches on the wave route {res['launches']} -- {smi}")
+    return res
+
+
+def _k10_calls(wave_pack, planes_calls):
+    """K10's calls on the masks of the captured K9b calls (``emit_planes``
+    arguments): each class's per-item masks for every 32-pass window, as
+    the plain K9b builds them, each pair or single form into a (P, W)
+    buffer at rows base .. base + take - 1 (the arguments the emission gave
+    K10 before K9b).  Returns {"transpose_bits32_pair": [...],
+    "transpose_bits32": [...]}."""
+    import torch
+
+    out = {"transpose_bits32_pair": [], "transpose_bits32": []}
+    for kind, fields, num_bp, P, items in planes_calls:
+        masks_fn, pair = wave_pack.plane_masks(kind, fields, num_bp, items)
+        dst = torch.empty((P, items // (16 if pair else 32)), dtype=torch.int32, device=fields[0].device)
+        for base in range(0, P, 32):
+            take = min(32, P - base)
+            m = masks_fn(base)
+            if pair:
+                out["transpose_bits32_pair"] += [(m[0], m[2], dst, base, take), (m[1], m[3], dst, base, take)]
+            else:
+                out["transpose_bits32"] += [(m[0], dst, base, take), (m[1], dst, base, take)]
+    return out
+
+
 def _bits_equal(kernels, packemit, calls, label: str):
     """Hold every captured call of K10-K12 against its plain version bit for
     bit; returns the largest difference of each (0)."""
@@ -354,8 +456,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
 
     out = {}
     errs = _bits_equal(kernels, packemit, calls, label)
-    # the three shapes of one emission: the first 32-plane window of the LIP
-    # pair, the LIS pair and the refinement single form (each called twice,
+    # the three shapes of one emission's masks: the first 32-plane window of
+    # the LIP pair, the LIS pair and the refinement single form (each twice,
     # for the valid and the bit masks)
     pairs, singles = calls["transpose_bits32_pair"], calls["transpose_bits32"]
     lis_args = pairs[len(pairs) // 2]
@@ -374,7 +476,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
           f"bound ms / bound of all 32 planes ms): "
           + ", ".join(f"{k} ({v['items']}, {v['take']}) {v['ms']:.4f}/{v['host_ms']:.4f}/"
                       f"{v['bound_ms']:.4f}/{v['bound32_ms']:.4f}" for k, v in k10.items())
-          + f"; per emission ({len(pairs)} pair and {len(singles)} single calls) "
+          + f"; on one emission's masks ({len(pairs)} pair and {len(singles)} single calls; K9b "
+          f"transposes them in registers on the main path) "
           f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
     lis = k10["LIS pair"]
     plain = time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5)
@@ -615,12 +718,13 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
         _check(comp.last_uncertified_chunks == 0, f"{entropy}: uncertified chunks {comp.last_uncertified_ids}")
     w, h = runs["wave"], runs["host"]
     print(f"[table] launches during the timed wave encode: {w['launches']}")
-    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
+    for name in ("quantize", "cdf97_lift", "emit_planes", "masked_pack", "compact_flags_rows",
                  "sched_table", "radix_sort"):
         _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
+    _check(w["launches"]["transpose_bits32"] == 0, "K10 was launched on the table-form wave path")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
     _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
-    sched_launches = {"sched_table": w["launches"]["sched_table"], "radix_sort": w["launches"]["radix_sort"]}
+    sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_planes")}
     _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
     print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
           f"({8.0 * len(w['stream']) / vol.size:.5f} bpp), wave = host byte for byte, "
@@ -718,10 +822,12 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     """Phase 10: the 2D device entropy path (TorchCompressor2D(entropy=
     "wave"), K14).  Phase 7's 16 fields at PWE 1e-2: the wave streams must
     equal phase 7's byte for byte with every field on the device, K1, K2,
-    K3 and K10-K12 launched in the first timed wave encode, and decode
+    K3, K9b (emit_planes), K11 and K12 launched in the first timed wave
+    encode (K10 not), and decode
     within the bound under the port's decoder and the host f64 codec; the
     encode timed on both routes, alternating, three times each.  One field's
-    device program at tier 0, with its K10-K12 calls held against their
+    device program at tier 0, with its K9b, K11 and K12 calls (and K10 on
+    K9b's masks) held against their
     plain versions: device-busy time, host-issued time, host waits, the ops
     with the most device time and its bound.  Phase 8's 1800 x 3600 field
     at PWE 1e-2, PSNR 80 and rate 2.0, and a noisy 256 x 256 field that
@@ -732,7 +838,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     import torch
 
     from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
-    from sperr_tpu_torch.ops import cdf97, packemit
+    from sperr_tpu_torch.ops import cdf97, packemit, wave_pack
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel import batched2d as tb2
     from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
@@ -771,9 +877,10 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
         _check(comp.last_uncertified_chunks == 0, f"{route}: {comp.last_uncertified_chunks} uncertified fields")
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
-    for name in ("quantize", "dwt2d_full", "idwt2d_full", "transpose_bits32", "masked_pack",
+    for name in ("quantize", "dwt2d_full", "idwt2d_full", "emit_planes", "masked_pack",
                  "compact_flags_rows", "sched_table", "radix_sort"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
+    _check(launches["transpose_bits32"] == 0, "K10 was launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
     _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
     dec = tb2.TorchDecompressor2D((nx, ny), device=dev)
@@ -804,12 +911,17 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     def prog():
         return tb2._wave_emit_field(mags, signs, index, caps, wave.num_bp_cap)
 
-    with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack",
-                             "compact_flags_rows"]) as calls:
+    with _capture(packemit, ["masked_pack", "compact_flags_rows"]) as calls, \
+            _capture(wave_pack, ["emit_planes"]) as k9b:
         w = wave._fetch_wave(prog(), caps, n)
     _check(wave._wave_fits(w, 0, n), "field 0 does not fit tier 0")
+    for args in k9b["emit_planes"]:
+        _check(all(torch.equal(a, b) for a, b in zip(wave_pack.emit_planes(*args),
+                                                      wave_pack.emit_planes_ref(*args))),
+               f"K9b ({args[0]}) differs from its plain version on 2D field 0")
+    calls.update(_k10_calls(wave_pack, k9b["emit_planes"]))
     _bits_equal(kernels, packemit, calls, "2D field 0, tier 0")
-    ncalls = {k: len(v) for k, v in calls.items()}
+    ncalls = dict({k: len(v) for k, v in calls.items()}, emit_planes=len(k9b["emit_planes"]))
     ms, how = time_ms(prog, 3)
     host_ms = time_ms(prog, 3, "host-issued")[0]
     syncs = host_waits(prog)
@@ -818,12 +930,13 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     stream = int(w["px_total"][0]) + int(w["lis_total"][0])
     bound = _bound_ms(5 * n + stream)
     print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
-          f"{stream} segment bytes; K10-K12 calls {ncalls}, equal to their plain versions bit for bit")
+          f"{stream} segment bytes; K9b, K11 and K12 calls (K10 on K9b's masks) {ncalls}, equal to their "
+          "plain versions bit for bit")
     print(f"[wave2d] field 0 device program: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues it, device "
           f"busy {busy:.4f} ms, {syncs} host waits per call; bound "
           f"{bound:.4f} ms ({5 * n + stream} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
           f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
-    del front, mags, signs, w, calls
+    del front, mags, signs, w, calls, k9b
 
     # the CESM-ATM shape at PWE, PSNR and rate, and a noisy field
     ny7, nx7 = f7.shape
@@ -855,7 +968,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: launches[k] for k in ("sched_table", "radix_sort")}
+    return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_planes")}
 
 
 def _cli(tool: str, *args: str) -> str:
@@ -1177,7 +1290,7 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
     # -- (a) in one process -------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     for entropy, need in (("host", ("quantize", "cdf97_lift")),
-                          ("wave", ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack",
+                          ("wave", ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
                                     "compact_flags_rows"))):
         comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), devices=devs, entropy=entropy,
                                  transfer="dense")
@@ -1258,7 +1371,8 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
         k1 = sum(rec["launches"][name].get("quantize", 0) for rec in recs)
         _check(k1 == k1_phase6, f"K1 launched {k1} times over both ranks ({name}), phase 6 {k1_phase6}")
         for rec in recs:
-            for kname in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows"):
+            for kname in ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
+                          "compact_flags_rows"):
                 _check(rec["launches"][name].get(kname, 0) > 0, f"rank {rec['rank']} did not launch {kname}")
     got = np.load(os.path.join(out_dir, "decode.npy"), mmap_mode="r")
     _check(np.array_equal(got, out4), "the distributed decode differs from phase 4's")
@@ -1278,7 +1392,7 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
     4's 512^3 volume at PWE 1e-2, host and wave entropy.  Each route's
     containers must equal phase 4's byte for byte and their decodes phase
     4's decode, with K1, the lifting kernel and K12 (the wave route also
-    K10, K11 and the schedule's sched_boxmax and sched_virtual) launched
+    K9, K11 and the schedule's sched_boxmax and sched_virtual) launched
     between the counts set to 0 and read; the bound is
     checked under the port's decoder and the host f64 decoder.  Warm
     encodes of both transfers alternate on each route (``dense``: phases 4
@@ -1310,7 +1424,7 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
         return ours
 
     want = {"host": ("quantize", "cdf97_lift", "compact_flags_rows"),
-            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "transpose_bits32", "masked_pack",
+            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "emit_exposed", "emit_planes", "masked_pack",
                      "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort")}
     launches = {}
     walls = {}
@@ -1797,6 +1911,228 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     return out
 
 
+# the kernels of K9 (kernels/emit.cu), as torch.profiler names them
+_K9_KERNELS = ("exposed_rows", "exposed_scan", "exposed_place", "emit_planes_kernel")
+_K9A_FIELDS = ("exp_idx", "exp_ll", "n_exp", "overflow", "s_p", "e_p", "g_i", "m_p")
+
+
+def _tail_launches(fn):
+    """The device operations between the set walk's last kernel (a radix
+    sort pass or the payload gather) and K11's first (its count) in one
+    call of fn, after a warm-up, by torch.profiler: (their names, the walk's
+    last kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [_kernel_name(e.name) for e in evs]
+    _check("pack_count_kernel" in names, "no K11 count kernel in the emission's trace")
+    i1 = names.index("pack_count_kernel")
+    walk = [i for i in range(i1) if names[i].startswith(("radix_", "gather_kernel"))]
+    _check(bool(walk), "no walk kernel before K11 in the emission's trace")
+    return names[walk[-1] + 1:i1], names[walk[-1]]
+
+
+def _k9a_bytes(args, out) -> int:
+    """K9a's bound bytes: the box-major table read once, the magnitudes of
+    the placed pixels (when they are apart), every output written once."""
+    pv_bm, _, _, _, N, wexp_cap, pack_mag = args
+    take_b = max(1, wexp_cap // 8)
+    Lv = min(8 * take_b, wexp_cap)
+    npad = -(-wexp_cap // 256) * 256
+    placed = min(8 * min(int(out[2]) // 8, take_b), Lv)
+    return 4 * N**3 + (0 if pack_mag else 4 * placed) + 16 * npad + 4 * Lv + 4 * wexp_cap + 5
+
+
+def _k9b_bytes(args) -> int:
+    """K9b's bound bytes: each field read once, the (P, W) valid and bit
+    planes written once."""
+    kind, fields, _, P, items = args
+    return sum(f.numel() * f.element_size() for f in fields) + 8 * P * (items // (32 if kind == "ref" else 16))
+
+
+def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
+    """Phase 3's emission kernels (kernels/emit.cu, K9) bit for bit against
+    their plain versions on the card, every output: each call of K9a
+    (``emit_exposed``) and K9b (``emit_planes``) that the emission makes on
+    headline chunk 0 at tiers 0 and 1, at the widest tier (P = 34, two
+    windows, every pixel) and at P = 34 with the compaction (magnitudes
+    apart from the box-major table), with the exposure forced to overflow;
+    on an all-zero, a one-pixel, a 2^31 - 1 and an all-2^31 - 1 256^3 chunk;
+    on 16^3 and 2^3 cubes (every pixel); on a Hurricane packet chunk (100,
+    256, 256: the table walk's K12 compaction) and on a 1024^2 field (K14's
+    pixel half).  At tiers 0 and 1 each kernel and the K9 stage are timed
+    on the device and as the host issues them, beside their plain versions
+    and bounds, and the launches between the walk's return and K11 are
+    counted in a torch.profiler trace (K9's only, at most 6).  Returns the
+    two kernels' rows of the result line."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97, wave_pack
+    from sperr_tpu_torch.ops import speck_virtual as sv
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel import batched2d as tb2
+    from sperr_tpu_torch.runtime.device_bench import time_ms
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    err = {"emit_exposed": 0, "emit_planes": 0}
+
+    def same(name, got, want, fields, what):
+        for field, a, b in zip(fields, got, want):
+            ok = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            err[name] = max(err[name], _int_err(a, b) if a.shape == b.shape else 2**31)
+            _check(ok, f"{name} {field} differs from its plain version on {what}")
+
+    def held(calls, what):
+        for args in calls["emit_exposed"]:
+            same("emit_exposed", wave_pack.emit_exposed(*args), wave_pack.emit_exposed_ref(*args),
+                 _K9A_FIELDS, what)
+        for args in calls["emit_planes"]:
+            same("emit_planes", wave_pack.emit_planes(*args), wave_pack.emit_planes_ref(*args),
+                 ("valid", "bits"), f"{what} ({args[0]}, P {args[3]}, {args[4]} items)")
+
+    def front3(field):
+        x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
+        f = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_,
+                                  out_cap=max(1024, x.numel() // 1024))
+        return f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
+
+    d256 = (256, 256, 256)
+    n = 256**3
+    mags0, signs0 = front3(vol512[:256, :256, :256])
+    li = sv.virtual_lis_index(d256, dev)
+    tiers = tb.wave_tiers_for(n)
+    caps = {f"tier {t}": tb._wave_caps(li, d256, tiers[t], 34) for t in (0, 1)}
+    caps["widest"] = tb._wave_caps(li, d256, tiers[-1], 34)
+    caps["P 34, compacted"] = tb._wave_caps(li, d256, (1.0, 1.0, 1.0, 34, 0.25), 34)
+    caps["overflow"] = dict(caps["tier 0"], wexp_cap=8192)
+    one = torch.zeros_like(mags0)
+    one[n // 3] = 5
+    big = mags0.clone()
+    big[n // 2] = 2**31 - 1
+    t01 = ("tier 0", "tier 1")
+    cases = [("headline chunk 0", mags0, signs0, li, None, caps, list(caps)),
+             ("all zero 256^3", torch.zeros_like(mags0), torch.zeros_like(signs0), li, None, caps, t01),
+             ("one pixel 256^3", one, signs0, li, None, caps, t01),
+             ("256^3 with 2^31 - 1", big, signs0, li, None, caps, t01),
+             ("256^3 all 2^31 - 1", torch.full_like(mags0, 2**31 - 1), signs0, li, None, caps, ("tier 1",))]
+    for N in (16, 2):
+        m = rng.integers(0, 1 << 20, N**3) * (rng.random(N**3) < 0.4)
+        liN = sv.virtual_lis_index((N, N, N), dev)
+        tN = tb.wave_tiers_for(N**3)
+        cases.append((f"{N}^3", torch.from_numpy(m.astype(np.int32)).to(dev),
+                      torch.from_numpy(rng.random(N**3) < 0.5).to(dev), liN, None,
+                      {f"tier {t}": tb._wave_caps(liN, (N, N, N), tN[t], 34) for t in (0, 1)}, t01))
+    s3 = (256, 256, 100)
+    mh, sh = front3(vol512[:100, :256, :256])
+    li_h, si_h = tb._wave_index(s3, dev)
+    th = tb.wave_tiers_for(256 * 256 * 100)
+    cases.append(("Hurricane packet chunk (100, 256, 256)", mh, sh, li_h, si_h,
+                  {f"tier {t}": tb._wave_caps(li_h, s3, th[t], 34) for t in (0, 1)}, t01))
+    stats = {}
+    for label, mags, signs, li_c, si_c, caps_c, use in cases:
+        seen = []
+        for cl in use:
+            c = caps_c[cl]
+            with _capture(wave_pack, ["emit_exposed", "emit_planes"]) as calls:
+                em, fits = tb._wave_emit_chunk(mags, signs, li_c, c, si_c)
+            compact = bool(c["wexp_cap"]) and c["wexp_cap"] < mags.numel()
+            want_9a = int(compact and isinstance(li_c, sv.VirtualLisIndex))
+            _check(len(calls["emit_exposed"]) == want_9a and
+                   [a[0] for a in calls["emit_planes"]] == ["lip", "ref", "lis"],
+                   f"{label}, {cl}: the emission called emit_exposed {len(calls['emit_exposed'])} times "
+                   f"and emit_planes for {[a[0] for a in calls['emit_planes']]}")
+            held(calls, f"{label}, {cl}")
+            seen.append(f"{cl} (P {c['P']}, wexp_cap {c['wexp_cap']}: "
+                        + (f"n_exp {int(em.n_exp)}, " if want_9a else "")
+                        + f"overflow {bool(em.overflow)}, fits {bool(fits)})")
+            if label == "headline chunk 0" and cl in t01:
+                stats[cl] = (calls, lambda m=mags, s=signs, c=c: tb._wave_emit_chunk(m, s, li, c))
+            if label == "headline chunk 0" and cl == "overflow":
+                _check(bool(em.overflow) and int(em.n_exp) > 8192, "the forced exposure did not overflow")
+        print(f"[kernels] K9, {label}: emit_exposed and emit_planes equal to their plain versions bit "
+              f"for bit, every output, at {'; '.join(seen)}")
+    # K14's pixel half: a 1024^2 field's program
+    ny = nx = 1024
+    x2 = torch.from_numpy(_turbulence_like(ny, nx, 0)[None]).to(dev)
+    f2 = tb._dense_encode_rows(x2, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d, out_cap=nx * ny)
+    comp2 = tb2.TorchCompressor2D((nx, ny), device=dev, entropy="wave")
+    index2 = tb2._wave_index2((nx, ny), dev)
+    caps2 = tb2._wave_caps2(nx * ny, comp2.num_bp_cap, index2[1].nn,
+                            max(4096, int(comp2.wave_event_tiers[0] * nx * ny)))
+    with _capture(wave_pack, ["emit_exposed", "emit_planes"]) as calls:
+        tb2._wave_emit_field(f2["mags"][0], f2["signs"][0], index2, caps2, comp2.num_bp_cap)
+    _check(not calls["emit_exposed"] and [a[0] for a in calls["emit_planes"]] == ["lip", "ref"],
+           f"the 2D field's program called emit_planes for {[a[0] for a in calls['emit_planes']]}")
+    held(calls, "a 1024^2 field (K14's pixel half)")
+    print("[kernels] K9, a 1024^2 field's pixel emission (K14): emit_planes (LIP, refinement) equal to "
+          "its plain version bit for bit")
+    del cases, one, big, mh, sh, x2, f2, calls
+
+    # timed at tiers 0 and 1: each kernel, the K9 stage, the launches
+    # between the walk's return and K11
+    out = {}
+    for cl, (calls, emit) in stats.items():
+        (a9,) = calls["emit_exposed"]
+        planes = calls["emit_planes"]
+        exposed = wave_pack.emit_exposed(*a9)
+        row = {}
+        for key, fn, ref, nbytes in (
+                [("emit_exposed", lambda: wave_pack.emit_exposed(*a9), lambda: wave_pack.emit_exposed_ref(*a9),
+                  _k9a_bytes(a9, exposed))]
+                + [(f"emit_planes {a[0]}", lambda a=a: wave_pack.emit_planes(*a),
+                    lambda a=a: wave_pack.emit_planes_ref(*a), _k9b_bytes(a)) for a in planes]):
+            plain, how = time_ms(ref, 3)
+            row[key] = dict(ms=time_ms(fn, 20, "device")[0], host_ms=time_ms(fn, 20, "host-issued")[0],
+                            plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(nbytes), bytes=nbytes)
+
+        def k9():
+            wave_pack.emit_exposed(*a9)
+            for a in planes:
+                wave_pack.emit_planes(*a)
+
+        names, last = _tail_launches(emit)
+        _check(len(names) <= 6 and all(nm in _K9_KERNELS for nm in names),
+               f"{cl}: the device ran {names} between the walk ({last}) and K11, not K9's kernels alone")
+        k9_bytes = sum(r["bytes"] for r in row.values())
+        row["K9"] = dict(ms=time_ms(k9, 20, "device")[0], host_ms=time_ms(k9, 20, "host-issued")[0],
+                         plain_ms=sum(r["plain_ms"] for r in row.values()), bound_ms=_bound_ms(k9_bytes),
+                         bytes=k9_bytes, launches=len(names))
+        out[cl] = row
+        print(f"[kernels] K9 at headline chunk 0 {cl}: the device ran {len(names)} launches between the "
+              f"walk's last kernel ({last}) and K11: {', '.join(names)}")
+        for key, r in row.items():
+            print(f"[kernels] K9 {cl} {key}: {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host issues it), "
+                  f"plain {r['plain_ms']:.4f} ms" + (f" ({r['plain_timed']})" if "plain_timed" in r else
+                                                      " (sum of the plain versions)")
+                  + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share "
+                  f"{r['bound_ms'] / r['ms']:.3f} -- {smi}")
+        del calls, exposed
+    print(f"[kernels] emission kernels took {time.perf_counter() - t_phase:.1f} s")
+    t1 = out["tier 1"]
+    planes1 = [k for k in t1 if k.startswith("emit_planes ")]
+    return {
+        "emit_exposed": dict(t1["emit_exposed"], max_abs_err=err["emit_exposed"],
+                             tier0={k: out["tier 0"]["emit_exposed"][k] for k in ("ms", "host_ms", "bound_ms")}),
+        "emit_planes": dict(
+            ms=sum(t1[k]["ms"] for k in planes1), host_ms=sum(t1[k]["host_ms"] for k in planes1),
+            plain_ms=sum(t1[k]["plain_ms"] for k in planes1), plain_timed=t1[planes1[0]]["plain_timed"],
+            bound_ms=sum(t1[k]["bound_ms"] for k in planes1), max_abs_err=err["emit_planes"],
+            per_class={k.split()[1]: {f: t1[k][f] for f in ("ms", "host_ms", "bound_ms")} for k in planes1}),
+        "K9": {cl: {f: out[cl]["K9"][f] for f in ("ms", "host_ms", "plain_ms", "bound_ms", "launches")}
+               for cl in out},
+    }
+
+
 def main() -> int:
     if "--rank" in sys.argv[1:]:
         return _rank_main(sys.argv[1:])
@@ -1810,7 +2146,7 @@ def main() -> int:
 
     from sperr_tpu_torch import kernels
     from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
-    from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual, wave_unpack
+    from sperr_tpu_torch.ops import cdf97, packemit, quantize, speck_virtual, wave_pack, wave_unpack
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D, TorchDecompressor3D
     from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
@@ -2007,7 +2343,8 @@ def main() -> int:
     plain_timed.update({"dwt2d_full": plane_timed[(16, 1024, 1024)]["K2 plain"],
                         "idwt2d_full": plane_timed[(16, 1024, 1024)]["K3 plain"]})
 
-    # K10-K12: the inputs the wave path gives them.  The headline volume's
+    # K10-K12: the inputs the wave path gives them (K10: the masks K9b
+    # builds in registers, as its plain version builds them).  The headline volume's
     # first 256^3 chunk (smooth_field_3d(512, seed=7), PWE 1e-2) at tiers 0
     # and 1, the two tiers its chunks run on the main path; the outlier
     # compaction of its front (K12); and the widest tier of
@@ -2028,9 +2365,12 @@ def main() -> int:
             front = tb._dense_encode_rows(chunk, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_,
                                           out_cap=max(1024, 256**3 // 1024))
         caps = tb._wave_caps(li, dims256, tiers[tier], 34)
-        with _capture(packemit, ["transpose_bits32", "transpose_bits32_pair", "masked_pack",
-                                 "compact_flags_rows"]) as calls:
+        with _capture(packemit, ["masked_pack", "compact_flags_rows"]) as calls, \
+                _capture(wave_pack, ["emit_planes"]) as k9b:
             em, fits = tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
+        # K10 on the masks of every window of each class, as the plain K9b
+        # builds them (K9b transposes them in registers on the main path)
+        calls.update(_k10_calls(wave_pack, k9b["emit_planes"]))
         print(f"[kernels] wave inputs, {label}: caps {caps}, fits {bool(fits)}")
         if label == "widest":
             _check(bool(fits), "the widest tier does not hold the smooth 256^3 chunk")
@@ -2038,8 +2378,8 @@ def main() -> int:
             calls["compact_flags_rows"] += cap_front["compact_flags_rows"]
         bits[label] = _bits_case(kernels, packemit, calls, smi, label)
         if label != "widest":
-            # the whole emission stage of one chunk (schedule, walk, masks,
-            # K10-K12), as the main path runs it at this tier
+            # the whole emission stage of one chunk (schedule, walk, K9,
+            # K11), as the main path runs it at this tier
             def emit():
                 return tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
             host_ms = time_ms(emit, 3, "host-issued")[0]
@@ -2050,7 +2390,7 @@ def main() -> int:
                   f"{busy:.4f} ms (kernels and copies), "
                   f"{host_ms:.4f} ms as the host issues it, {syncs} host waits for the device per "
                   f"call; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
-        del chunk, front, em, fits, calls, cap_front
+        del chunk, front, em, fits, calls, cap_front, k9b
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
     # K16, the PSNR-mode q search (torch ops; each step synchronizes on its
@@ -2151,6 +2491,7 @@ def main() -> int:
     del args3, args1, full
     sched = _sched_kernels(kernels, smi, dev, vol512, vol11)
     walk = _walk_kernels(kernels, smi, dev, vol512)
+    emit = _emit_kernels(kernels, smi, dev, vol512)
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
@@ -2159,7 +2500,8 @@ def main() -> int:
             *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
               for shape, t in plane_ms.items() for k in ("K2", "K3")),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items()),
-            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in walk.items())):
+            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in walk.items()),
+            *((f"K9 {tier} (K9a and K9b)", r["ms"], r["host_ms"], r["bound_ms"]) for tier, r in emit["K9"].items())):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
@@ -2309,9 +2651,14 @@ def main() -> int:
     launches_w = dict(kernels.launches)
     peak_w = torch.cuda.max_memory_allocated()
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
-    for name in ("quantize", "cdf97_lift", "transpose_bits32", "masked_pack", "compact_flags_rows",
-                 "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort"):
+    for name in ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
+                 "compact_flags_rows", "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks",
+                 "walk_rows", "radix_sort"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
+    # each emission: one K9b launch per class, K11's three; K10 only inside K9b
+    _check(launches_w["emit_planes"] == launches_w["masked_pack"],
+           "emit_planes did not launch once per class of each emission")
+    _check(launches_w["transpose_bits32"] == 0, "K10 was launched on the wave path")
     _check(launches_w["sched_boxmax"] == launches_w["sched_virtual"],
            "the cube schedule's two launches do not pair up")
     _check(launches_w["masked_pack"] % 3 == 0, "K11 did not launch three kernels per call")
@@ -2328,6 +2675,7 @@ def main() -> int:
     print(f"[wave] encode {encw_s:.3f} s wave, {enc_s:.3f} s host (phase 4), after one warm-up; "
           f"device to host {wave.last_d2h_bytes} bytes wave, {d2h_host} bytes host; peak device "
           f"memory {peak_w} bytes ({peak_w / 2**30:.3f} GiB) wave, {peak} host -- {smi}")
+    chunk512 = _chunk512(kernels, smi, vol512)
     # phase 9's volume: SDRBench Hurricane ISABEL's shape, 100 x 500 x 500
     hurricane = np.ascontiguousarray(vol512[:100, :500, :500])
     del vol512, vol
@@ -2530,6 +2878,18 @@ def main() -> int:
         plain_timed[name] = r["plain_timed"]
     walk["radix_sort"]["launches_table"] = launches_tab["radix_sort"]
     walk["radix_sort"]["launches_2d"] = launches_2d["radix_sort"]
+    # K9: launches in phase 6's timed wave encode, emit_planes's also in
+    # phases 9 and 10; times at tier 1 (emit_planes: its three classes
+    # summed), the K9 stage at tiers 0 and 1 in "k9_stage"
+    for name, where in (("emit_exposed", "sperr_tpu/ops/wave_pack.py:195"),
+                        ("emit_planes", "sperr_tpu/ops/wave_pack.py:102")):
+        r = emit[name]
+        rows.append((name, "emit.cu", where, launches_w[name], r["max_abs_err"], r["ms"], r["host_ms"],
+                     r["plain_ms"], r["bound_ms"], None))
+        plain_timed[name] = r["plain_timed"]
+    emit["emit_planes"].update(launches_table=launches_tab["emit_planes"], launches_2d=launches_2d["emit_planes"],
+                               k9_stage=emit["K9"])
+    emit["emit_exposed"]["chunk512"] = {k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")}
     # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
     sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
     # "ms" is the device's time alone, "host_ms" as the host issues the
@@ -2542,7 +2902,11 @@ def main() -> int:
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
-                                                           "launches_2d", "lsd_floor_ms")} if name in walk else {})}
+                                                           "launches_2d", "lsd_floor_ms")} if name in walk else {}),
+         **({k: v for k, v in emit[name].items() if k in ("tier0", "per_class", "launches_table", "launches_2d",
+                                                           "k9_stage", "chunk512")} if name in emit else {}),
+         # K10's transpose runs inside emit_planes on the wave paths since K9b
+         **({"merged_into": "emit_planes"} if name == "transpose_bits32" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

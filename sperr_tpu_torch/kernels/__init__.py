@@ -11,7 +11,8 @@ There is no fallback.  A missing ``nvcc``, a failed build or load, a device
 that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
 ``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``,
-``ops/speck_virtual.py``, ``ops/speck.py``, ``ops/speck_lis.py``) and run only
+``ops/speck_virtual.py``, ``ops/speck.py``, ``ops/speck_lis.py``,
+``ops/wave_pack.py``) and run only
 for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` for each kernel it launches,
@@ -39,8 +40,10 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
     os.path.join(_DIR, f)
     for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu",
-              "schedule.cu", "walk.cu")
+              "schedule.cu", "walk.cu", "emit.cu")
 )
+# headers the sources include: an edited header rebuilds the library too
+HEADERS = (os.path.join(_DIR, "bits.cuh"),)
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,6 +58,7 @@ launches = {
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
+    "emit_exposed": 0, "emit_planes": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -89,11 +93,11 @@ def _find_nvcc() -> str:
 
 def build(out_dir: str = BUILD_DIR) -> str:
     """Compile the kernel sources into ``out_dir`` if the library is missing
-    or older than a source; return the library's path."""
+    or older than a source or a header; return the library's path."""
     global build_log
     lib = os.path.join(out_dir, _LIB_NAME)
     if os.path.exists(lib) and all(
-        os.path.getmtime(lib) >= os.path.getmtime(s) for s in SOURCES
+        os.path.getmtime(lib) >= os.path.getmtime(s) for s in SOURCES + HEADERS
     ):
         return lib
     nvcc = _find_nvcc()
@@ -193,6 +197,10 @@ def load(device=None) -> ct.CDLL:
                     vp, vp, vp, vp, vp,
                 ]),
                 ("sperr_walk_rowkeys", [vp, ct.c_int, ll, vp, vp, vp, ct.c_int, ct.c_int, vp, vp, vp]),
+                ("sperr_emit_exposed", [
+                    vp, vp, vp, vp, ct.c_int, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                ]),
+                ("sperr_emit_planes", [ct.c_int, vp, vp, vp, ct.c_int, ll, ll, vp, ct.c_int, vp, vp, vp]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
@@ -1173,3 +1181,117 @@ def walk_rowkeys(sid: torch.Tensor, C: int, J: torch.Tensor, wbuf: torch.Tensor,
                                      None if key1 is None else key1.data_ptr(), _stream(sid))
     _check(lib, err, "walk_rowkeys")
     _count("walk_rows")
+
+
+# ---------------------------------------------------------------------------
+# K9: the emission's pixel stage (kernels/emit.cu)
+# ---------------------------------------------------------------------------
+def _num_bp_word(num_bp: torch.Tensor, dev) -> torch.Tensor:
+    _require_cuda(num_bp, torch.int32, "num_bp")
+    if num_bp.numel() != 1 or num_bp.device != dev:
+        raise ValueError(f"num_bp must be one int32 on {dev}; got {tuple(num_bp.shape)} on {num_bp.device}")
+    return num_bp
+
+
+class Exposed(NamedTuple):
+    exp_idx: torch.Tensor  # (min(8 take_b, wexp_cap),) int32 ascending pixel indices, sentinel n
+    exp_ll: torch.Tensor   # (wexp_cap,) int32 signed magnitudes, 0 past the kept pixels
+    n_exp: torch.Tensor    # () int32, 8 x the exposed boxes
+    overflow: torch.Tensor  # () bool, more exposed boxes than take_b
+    s_p: torch.Tensor      # (npad,) int32 each: the kept pixels' s, e, sign and magnitude
+    e_p: torch.Tensor
+    g_i: torch.Tensor
+    m_p: torch.Tensor
+
+
+def emit_exposed(pv_bm: torch.Tensor, mags: Optional[torch.Tensor], s: torch.Tensor,
+                 num_bp: torch.Tensor, N: int, wexp_cap: int) -> Exposed:
+    """K9a: the exposed-pixel compaction of an N^3 cube from its box-major
+    pixel table pv_bm (n,) int32 (clip(s, 0, 127) | sign << 7, with
+    min(mag, 2^23 - 1) << 8 when ``mags`` is None; else mags (n,) int32 in
+    linear order), the linear schedule s (n,) (read only when num_bp is
+    outside [1, 127]) and num_bp (one int32), keeping the first
+    max(1, wexp_cap // 8) exposed boxes; the fields as
+    ``ops/wave_pack.emit_exposed_ref`` defines them.  Three launches (rows,
+    scan, place), no host synchronisation."""
+    N, wexp_cap = int(N), int(wexp_cap)
+    n = N ** 3
+    dev = pv_bm.device
+    for t, what in ((pv_bm, "pv_bm"), (s, "s")) + (() if mags is None else ((mags, "mags"),)):
+        _require_cuda(t, torch.int32, what)
+        if t.shape != (n,) or t.device != dev:
+            raise ValueError(f"{what} must be ({n},) on {dev}; got {tuple(t.shape)} on {t.device}")
+    if N < 2 or N & (N - 1) or not 0 < wexp_cap < n:
+        raise ValueError(f"N must be a power of two >= 2 and 0 < wexp_cap < N^3; got {N}, {wexp_cap}")
+    if pv_bm.data_ptr() % 16:
+        raise ValueError("pv_bm must be 16-byte aligned (the kernel loads boxes of 32 bytes)")
+    nb = _num_bp_word(num_bp, dev)
+    take_b = max(1, wexp_cap // 8)
+    Lv = min(8 * take_b, wexp_cap)
+    npad = -(-wexp_cap // 256) * 256
+    Nh = N // 2
+    NR = Nh * Nh
+    # the four pixel fields, the indices, the signed values and n_exp in one
+    # int32 buffer; the row flags, counts and bases in another
+    out = torch.empty(4 * npad + Lv + wexp_cap + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(NR * -(-Nh // 32) + 2 * NR + 1, dtype=torch.int32, device=dev)
+    over = torch.empty((), dtype=torch.bool, device=dev)
+    s_p, e_p, g_i, m_p = (out[k * npad:(k + 1) * npad] for k in range(4))
+    exp_idx = out[4 * npad:4 * npad + Lv]
+    exp_ll = out[4 * npad + Lv:4 * npad + Lv + wexp_cap]
+    n_exp = out[-1]
+    lib = load(dev)
+    with _on_device(pv_bm):
+        err = lib.sperr_emit_exposed(
+            pv_bm.data_ptr(), None if mags is None else mags.data_ptr(), s.data_ptr(), nb.data_ptr(),
+            N, take_b, Lv, wexp_cap, npad, scratch.data_ptr(), exp_idx.data_ptr(), exp_ll.data_ptr(),
+            n_exp.data_ptr(), over.data_ptr(), s_p.data_ptr(), e_p.data_ptr(), g_i.data_ptr(),
+            m_p.data_ptr(), _stream(pv_bm),
+        )
+    _check(lib, err, "emit_exposed")
+    _count("emit_exposed", 3)
+    return Exposed(exp_idx, exp_ll, n_exp, over, s_p, e_p, g_i, m_p)
+
+
+EMIT_CLASSES = {"lip": (0, 16, 3), "lis": (1, 16, 1), "ref": (2, 32, 2)}  # id, items per word, fields
+
+
+def emit_planes(kind: str, fields, num_bp: torch.Tensor, P: int, items: int):
+    """K9b: the (P, items // per_word) int32 valid and bit planes of one
+    emission class, as ``ops/wave_pack.emit_planes_ref`` defines them:
+    kind "lip" (fields s, e, sign: the sign int32 or bool; 16 items per
+    word), "lis" (the payload words; 16) or "ref" (s, magnitudes; 32).
+    The fields may be shorter than ``items``: the items past them take the
+    padding.  One launch."""
+    if kind not in EMIT_CLASSES:
+        raise ValueError(f"kind must be one of {sorted(EMIT_CLASSES)}; got {kind!r}")
+    cls, per_word, nf = EMIT_CLASSES[kind]
+    if len(fields) != nf:
+        raise ValueError(f"{kind} takes {nf} fields; got {len(fields)}")
+    dev = fields[0].device
+    n_real = fields[0].numel()
+    for k, t in enumerate(fields):
+        dtype = torch.bool if (kind == "lip" and k == 2 and t.dtype == torch.bool) else torch.int32
+        _require_cuda(t, dtype, f"{kind} field {k}")
+        if t.dim() != 1 or t.numel() != n_real or t.device != dev:
+            raise ValueError(f"the {kind} fields must be 1-D, of one length, on {dev}")
+    P, items = int(P), int(items)
+    if P < 1 or items % per_word or items < n_real:
+        raise ValueError(f"P >= 1 and {n_real} <= items, a multiple of {per_word}; got {P}, {items}")
+    nb = _num_bp_word(num_bp, dev)
+    W = items // per_word
+    planes = torch.empty((2, P, W), dtype=torch.int32, device=dev)
+    if W == 0:
+        return planes[0], planes[1]
+    f = list(fields) + [None] * (3 - nf)
+    g_bytes = 1 if f[2] is not None and f[2].dtype == torch.bool else 4
+    lib = load(dev)
+    with _on_device(fields[0]):
+        err = lib.sperr_emit_planes(
+            cls, f[0].data_ptr(), None if f[1] is None else f[1].data_ptr(),
+            None if f[2] is None else f[2].data_ptr(), g_bytes, n_real, W, nb.data_ptr(), P,
+            planes[0].data_ptr(), planes[1].data_ptr(), _stream(fields[0]),
+        )
+    _check(lib, err, "emit_planes")
+    _count("emit_planes")
+    return planes[0], planes[1]

@@ -23,7 +23,9 @@
 //        not its bytes: with these stores and only the kept planes it ran
 //        4x slower than the shuffles at the second tier.  Stores of one
 //        word per plane row (out[p * W + w] from lane p) fill 4 bytes of
-//        each 32-byte sector.
+//        each 32-byte sector.  The wave paths run its shuffle stages
+//        (bits.cuh) inside K9b (emit.cu), which builds the masks in
+//        registers; this kernel stays an entry point of its own.
 //   K11  (redesigned for Hopper) three launches over all parts at once, no
 //        torch op between them.  A tile is 2048 words of one row.
 //        count: each block reads its tile's valid words (16-byte loads) and
@@ -62,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bits.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -81,21 +85,7 @@ long long grid_for(long long work, long long per_block) {
 constexpr int kTrWords = 32;                   // output words per block
 constexpr int kTrPerWarp = kTrWords / kWarps;  // 4
 
-// the 32x32 transpose of the warp's words by five shuffle stages: stage j
-// swaps the off-diagonal j-blocks (lanes l, l ^ j; bits with and without
-// bit j of their index set), so lane p ends with bit l = bit p of lane l
-__device__ __forceinline__ uint32_t transpose32_shfl(uint32_t x, int lane) {
-  constexpr uint32_t kMasks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u,
-                                  0x55555555u};
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int j = 16 >> s;
-    const uint32_t m = kMasks[s];
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
-    x = (lane & j) ? ((x & ~m) | ((y >> j) & m)) : ((x & m) | ((y & m) << j));
-  }
-  return x;
-}
+using sperr_bits::transpose32_shfl;  // bits.cuh
 
 template <bool kPair>
 __global__ void __launch_bounds__(kThreads)
@@ -262,33 +252,7 @@ pack_count_kernel(PackParts P, long long ntiles, int piece_words, int2* __restri
   }
 }
 
-// exclusive scan of one int64 per thread over a block of kScanThreads; the
-// block's total in *total (every thread)
-__device__ long long block_scan64(long long x, long long* total, long long* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long inc = x;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) sh[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    long long s = sh[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    sh[lane] = s;
-  }
-  __syncthreads();
-  const long long excl = (warp ? sh[warp - 1] : 0) + inc - x;
-  *total = sh[kScanThreads / 32 - 1];
-  __syncthreads();
-  return excl;
-}
+using sperr_bits::block_scan64;  // bits.cuh
 
 // the part of global row r; its first tile in *first
 __device__ __forceinline__ int row_part(const PackParts& P, long long r, long long* first) {
@@ -337,7 +301,7 @@ pack_scan_kernel(PackParts P, const int2* __restrict__ tile_cnt, long long ntile
       nz += c.y;
     }
     long long total;
-    long long run = carry + block_scan64(sum, &total, sh);  // its syncs end the reads
+    long long run = carry + block_scan64<kScanThreads>(sum, &total, sh);  // its syncs end the reads
 #pragma unroll
     for (int k = 0; k < kScanRun; ++k) {
       stage[kScanRun * tid + k] = run;
@@ -353,7 +317,7 @@ pack_scan_kernel(PackParts P, const int2* __restrict__ tile_cnt, long long ntile
     __syncthreads();
   }
   long long n_nz;
-  block_scan64(nz, &n_nz, sh);
+  block_scan64<kScanThreads>(nz, &n_nz, sh);
 
   const long long ipr = (nrows + kScanThreads - 1) / kScanThreads;
   const long long b0 = min((long long)threadIdx.x * ipr, nrows), b1 = min(b0 + ipr, nrows);
@@ -370,7 +334,7 @@ pack_scan_kernel(PackParts P, const int2* __restrict__ tile_cnt, long long ntile
     bytes += (c + 7) >> 3;
   }
   long long total_bytes;
-  long long rb = block_scan64(bytes, &total_bytes, sh);
+  long long rb = block_scan64<kScanThreads>(bytes, &total_bytes, sh);
   for (long long r = b0; r < b1; ++r) {
     long long f;
     const int p = row_part(P, r, &f);

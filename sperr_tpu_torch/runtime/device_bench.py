@@ -497,10 +497,10 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     set walk's LIS items (on the card the walk kernels of kernels/walk.cu
     for a power-of-two cube: a few dozen launches, which the sleep kernel
     covers, so the delta is timed "device" where the chains allow it) ->
-    the full emission (``wave_emit_3d``: masks, K10, K11).
+    the full emission (``wave_emit_3d``: K9a, K9b, K11).
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
-    the walk plus the refinement class's masks, bit transposes (K10), pext
-    and popcounts."""
+    the walk plus the refinement class's planes (``emit_planes``, K9b, as
+    the emission runs it over every pixel), pext and popcounts."""
     dev = _resolve_device(device)
     vol = _smooth_field(n)
     x = torch.from_numpy(vol).to(dev)
@@ -531,9 +531,7 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
 
     def to_words(y):
         mags, signs, s, e, num_bp = to_items(y)[:5]
-        s_p, e_p, g_i, m_p = wp._full_width(mags, signs.to(torch.int32), s, e)
-        _, ref_masks = wp._pixel_masks(s_p, e_p, g_i, m_p, num_bp)
-        vw, bw = wp._emit_words(ref_masks, P)
+        vw, bw = wp.emit_planes("ref", (s, mags), num_bp, P, -(-nelems // 256) * 256)
         return pe.pext32(bw, vw), pe.popcount32(vw)
 
     def to_full(y):

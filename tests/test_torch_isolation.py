@@ -438,6 +438,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
+        "emit_exposed", "emit_planes",
     }
     assert not any(kernels.launches.values())
 
