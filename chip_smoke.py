@@ -34,7 +34,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ran (against torch.sort(stable=True)) on headline chunk 0 at tiers 0,
      1 and the widest, an all-zero, a one-pixel and a 2^31 - 1 256^3 chunk,
      16^3 and 2^3 cubes, and lexsort (the radix sort) against the chained
-     torch.sort on a table walk's and a 2D walk's keys; the one-sweep sort
+     torch.sort on the plain table walk's and 2D walk's keys; the one-sweep sort
      against torch.sort(stable=True) at 1 key, a tile's worth - 1, + 0 and
      + 1, 3 tiles + 1, on int32 and int64 keys of both signs, of full and
      reduced widths and all equal, and one walk's two sorts repeated 20
@@ -48,9 +48,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
      widest (P = 34, every pixel), P = 34 compacted (magnitudes apart) and
      an exposure forced to overflow; an all-zero, a one-pixel, a 2^31 - 1
      and an all-2^31 - 1 256^3 chunk; 16^3 and 2^3 cubes; a Hurricane
-     packet chunk (K12's compaction) and a 1024^2 field (K14's pixel half);
+     packet chunk (K12's compaction) and a 1024^2 field (K14: its pixel
+     classes and its walk's LIS class);
      each timed at tiers 0 and 1 beside its plain version and bound, and
-     the launches between the walk and K11 counted (K9's 6 only));
+     the launches between the walk and K11 counted (K9's 6 only); the
+     table and 2D walks' kernels of kernels/walk_table.cu bit for bit,
+     every output: node_passes, table_anchors (J, R, u, jp, alone and in
+     the walk), the whole walk (payload words, padding included, and n_sig)
+     with every radix sort it ran, iset_max, and the 2D LIS segments
+     through K9b and K11 against the plain event form at three caps, on a
+     Hurricane packet chunk at tiers 0, 1 and a node cap of nn / 20, its
+     all-zero, one-pixel and 2^31 - 1 forms, the dyadic chunk, a 1024^2
+     and the 1800x3600 field, 33x57 random and edge fields; each timed
+     beside its plain version and bound, with its launches, its peak
+     memory, and no torch or CUB sort, scan or cummax among its kernels);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
      TorchCompressor3D and TorchDecompressor3D (the hybrid decode: control
      parse on the host, K13 on the card), checked against the host f64
@@ -83,18 +94,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
      field) in 256^3 chunks, four wavelet-packet chunks (child-table
      schedule and table walk, K15), whose wave container must equal the
      host one byte for byte (87,959 bytes) with K1, the lifting kernel,
-     emit_planes, K11, K12, sched_table and the radix sort launched (K10
-     not), decoded on both
+     emit_planes, K11, K12, sched_table, the radix sort, node_passes,
+     table_anchors and table_walk launched (K10 not), decoded on both
      routes; one dyadic
      chunk, whose wave container must equal the host one, with
-     sched_pyramid launched;
+     sched_pyramid launched; the first chunk's schedule and walk (K15) at
+     tiers 0 and 1 with its launches by name and no torch or CUB sort,
+     scan or cummax;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
      streams must equal phase 7's (167,627 bytes) with every field on the
-     device and K1, K2, K3, emit_planes, K11, K12, sched_table and the
-     radix sort launched (K10 not), decoded within the bound, the encode
-     timed on both routes; one field's device program (device-busy and
-     host-issued time, host waits, its K9b, K11 and K12 calls bit for bit,
-     K10 on K9b's masks); phase 8's
+     device and K1, K2, K3, emit_planes, K11, K12, sched_table, the
+     radix sort, node_passes, table_anchors, table_walk and iset_max
+     launched (K10 not), decoded within the bound, the encode timed on both
+     routes; one field's device program (device-busy and host-issued time,
+     host waits, its K9b, K11 and K12 calls bit for bit, K10 on K9b's
+     masks, its launches by name, and every device operation from its
+     schedule's first kernel to K11's last one of the repo's kernels or a
+     memset); phase 8's
      field at PWE, PSNR and rate and a noisy field that climbs the tier
      ladder, each wave stream equal to its host one;
  11. the command-line tools (--exec cuda), as new processes: sperr3d on
@@ -652,7 +668,7 @@ def _tensor_bytes(obj) -> int:
     import torch
 
     total = 0
-    stack = [getattr(obj, name) for name in obj.__slots__ if hasattr(obj, name)]
+    stack = [getattr(obj, name) for name in obj.__slots__ if hasattr(obj, name) and not name.startswith("_")]
     while stack:
         v = stack.pop()
         if isinstance(v, torch.Tensor):
@@ -719,12 +735,13 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
     w, h = runs["wave"], runs["host"]
     print(f"[table] launches during the timed wave encode: {w['launches']}")
     for name in ("quantize", "cdf97_lift", "emit_planes", "masked_pack", "compact_flags_rows",
-                 "sched_table", "radix_sort"):
+                 "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk"):
         _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
     _check(w["launches"]["transpose_bits32"] == 0, "K10 was launched on the table-form wave path")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
     _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
-    sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_planes")}
+    sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_planes", "node_passes",
+                                                    "table_anchors", "table_walk")}
     _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
     print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
           f"({8.0 * len(w['stream']) / vol.size:.5f} bpp), wave = host byte for byte, "
@@ -765,9 +782,8 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
 
         def k15():
             num_bp, s, e, nm = tb._schedule(mags, si)
-            node_s = torch.where(nm > 0, num_bp - nm, 0x7FFF).to(torch.int32)
-            return speck_lis.lis_segments_device(node_s, s, signs, num_bp, li, caps["P"], caps["node_cap"],
-                                                 return_events="items")
+            return speck_lis.lis_segments_device(spk.node_passes(nm, num_bp), s, signs, num_bp, li, caps["P"],
+                                                 caps["node_cap"], return_events="items")
 
         def emit():
             return tb._wave_emit_chunk(mags, signs, li, caps, si)
@@ -780,14 +796,24 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
         k15_bytes = (_tensor_bytes(si) + _tensor_bytes(li) + 4 * n + n + 3 * 4 * n + 2 * 4 * li.nn
                      + 4 * T)
         for label, fn in (("K15 schedule and table walk", k15), ("_wave_emit_chunk", emit)):
+            before = dict(kernels.launches)
+            fn()
+            torch.cuda.synchronize()
+            per_call = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
             ms, how = time_ms(fn, 3)
             host_ms = time_ms(fn, 3, "host-issued")[0]
             syncs = host_waits(fn)
             busy, per_name = busy_ms(fn, 3)
             bound = f", bound {_bound_ms(k15_bytes):.4f} ms ({k15_bytes} bytes)" if fn is k15 else ""
+            bad = _sorts_and_scans(kernels, per_name)
+            if fn is k15:
+                _check(not bad, f"the table walk ran {bad}")
+                _check(per_call.get("table_walk", 0) == 4 and per_call.get("table_anchors", 0) > 0,
+                       f"the table walk's launches {per_call}")
             print(f"[table] {s3} tier {t} {label}: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues "
                   f"it, device busy {busy:.4f} ms, {syncs} host "
-                  f"waits per call{bound}; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
+                  f"waits per call{bound}; launches per call {per_call}; torch or CUB sorts, scans or cummax: "
+                  f"{bad or 'none'}; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
         print(f"[table] {s3} tier {t}: caps {caps}, n_sig {int(em.n_sig)}, fits {bool(fits)}, "
               f"{T} walk items")
         del em, fits
@@ -838,7 +864,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     import torch
 
     from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
-    from sperr_tpu_torch.ops import cdf97, packemit, wave_pack
+    from sperr_tpu_torch.ops import cdf97, packemit, speck_lis, wave_pack
     from sperr_tpu_torch.parallel import batched as tb
     from sperr_tpu_torch.parallel import batched2d as tb2
     from sperr_tpu_torch.runtime.device_bench import busy_ms, host_waits, time_ms
@@ -878,7 +904,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
     for name in ("quantize", "dwt2d_full", "idwt2d_full", "emit_planes", "masked_pack",
-                 "compact_flags_rows", "sched_table", "radix_sort"):
+                 "compact_flags_rows", "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk",
+                 "iset_max"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
     _check(launches["transpose_bits32"] == 0, "K10 was launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
@@ -922,19 +949,44 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     calls.update(_k10_calls(wave_pack, k9b["emit_planes"]))
     _bits_equal(kernels, packemit, calls, "2D field 0, tier 0")
     ncalls = dict({k: len(v) for k, v in calls.items()}, emit_planes=len(k9b["emit_planes"]))
+    before = dict(kernels.launches)
+    prog()
+    torch.cuda.synchronize()
+    per_call = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+    # every device operation from the schedule's first kernel to K11's last is
+    # one of the repo's kernels or a memset
+    ours = _our_kernels(kernels)
+    names = _device_names(prog, 2)
+    _check("table_msb" in names and "pack_tile_kernel" in names, f"the program's trace: {names}")
+    i0 = max(i for i, nm in enumerate(names) if nm == "table_msb")  # the second call's schedule
+    i1 = max(i for i, nm in enumerate(names) if nm.startswith("pack_"))
+    window = names[i0:i1 + 1]
+    for nm in ("node_passes_kernel", "iset_max_kernel", "table_anchors", "table_rows", "emit_planes_kernel"):
+        _check(nm in window, f"{nm} is missing from the second call's trace: {window}")
+    foreign = sorted({nm for nm in window if nm not in ours})
+    _check(not foreign, f"the 2D program ran torch ops between its schedule and K11: {foreign}")
+    sorts = _sorts_and_scans(kernels, names)
+    _check(not sorts, f"the 2D program ran {sorts}")
+    print(f"[wave2d] field 0 program: launches per call {per_call}; {len(window)} device operations from the "
+          f"schedule's first kernel to K11's last, every one the repo's kernels or a memset "
+          f"({sum(nm == 'Memset' for nm in window)} memsets); torch or CUB sorts, scans or cummax: none")
     ms, how = time_ms(prog, 3)
     host_ms = time_ms(prog, 3, "host-issued")[0]
     syncs = host_waits(prog)
     busy, per_name = busy_ms(prog, 3)
-    # bound: the magnitudes (int32) and signs read once, the segments written once
+    # bound: the magnitudes (int32), the signs and the index's static tables
+    # (schedule and walk) read once, the segments written once
     stream = int(w["px_total"][0]) + int(w["lis_total"][0])
-    bound = _bound_ms(5 * n + stream)
+    ti2 = index[0]
+    tables = [ti2.ch_src, ti2.ch_bounds, ti2.px_parent32] + list(speck_lis.table_static(li2).tables.values())
+    prog_bytes = 5 * n + sum(t.numel() * t.element_size() for t in tables) + stream
+    bound = _bound_ms(prog_bytes)
     print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
           f"{stream} segment bytes; K9b, K11 and K12 calls (K10 on K9b's masks) {ncalls}, equal to their "
           "plain versions bit for bit")
     print(f"[wave2d] field 0 device program: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues it, device "
           f"busy {busy:.4f} ms, {syncs} host waits per call; bound "
-          f"{bound:.4f} ms ({5 * n + stream} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
+          f"{bound:.4f} ms ({prog_bytes} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
           f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
     del front, mags, signs, w, calls, k9b
 
@@ -968,7 +1020,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_planes")}
+    return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_planes", "node_passes", "table_anchors",
+                                     "table_walk", "iset_max")}
 
 
 def _cli(tool: str, *args: str) -> str:
@@ -1104,6 +1157,7 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
     for name, kw in (("pipeline_stages", dict(n=256)),
                      ("container_decode_stages", dict(n=256, chunks=8)),
                      ("wave_entropy_breakdown", dict(n=256)),
+                     ("wave_entropy_breakdown", dict(n=256, dims=(256, 256, 100))),
                      ("wave2d_stage", dict(nx=1024, ny=1024, batch=16)),
                      ("wave_entropy_stage", dict(n=256, regime="smooth")),
                      ("wave_entropy_stage", dict(n=256, regime="dense"))):
@@ -1111,7 +1165,7 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
         r = getattr(db, name)(**kw)
         print(f"[bench] {name}({', '.join(f'{k}={v}' for k, v in kw.items())}), "
               f"{time.perf_counter() - t0:.1f} s: {json.dumps(r)}")
-        results[name + kw.get("regime", "")] = r
+        results[name + kw.get("regime", "") + ("_table" if "dims" in kw else "")] = r
         stages = {k: v for k, v in r.items() if k.endswith("_s")}
         stages.update({f"hybrid {k}": v for k, v in r.get("hybrid", {}).items() if k.endswith("_s")})
         bad = {k: v for k, v in stages.items() if not v > 0}
@@ -1123,11 +1177,19 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
             # each delta subtracts two chains timed by the one method named for it
             _check(set(r["timed"]) == {"quantize", "schedule", "lis_items", "full_pack", "ref_words_abs"},
                    f"{name}: timed {r['timed']}")
-            print(f"[bench] wave_entropy_breakdown 256^3 schedule (K5 + K6 kernels): {r['schedule_s'] * 1e3:.4f} "
+            what = (f"{tuple(r['dims'])} (sched_table, node_passes)" if "dims" in kw
+                    else "256^3 schedule (K5 + K6 kernels, node_passes)")
+            print(f"[bench] wave_entropy_breakdown {what}: {r['schedule_s'] * 1e3:.4f} "
                   f"ms ({r['timed']['schedule']}); quantize {r['quantize_s'] * 1e3:.4f} ms "
                   f"({r['timed']['quantize']}), LIS items {r['lis_items_s'] * 1e3:.4f} ms "
                   f"({r['timed']['lis_items']}), the rest of the emission {r['full_pack_s'] * 1e3:.4f} ms "
                   f"({r['timed']['full_pack']}) -- {smi}")
+        if name == "wave2d_stage":
+            pg = r["program"]
+            print(f"[bench] wave2d_stage one 1024^2 field's program, ms (deltas of chains, each pair one "
+                  f"method: {pg['timed']}): schedule {pg['schedule_ms']:.4f}, pixel classes "
+                  f"{pg['pixels_ms']:.4f}, walk (node passes, I-set, table walk) {pg['walk_ms']:.4f}, LIS planes "
+                  f"and K11 {pg['lis_pack_ms']:.4f}; total {pg['total_ms']:.4f} -- {smi}")
         _check(r["device"].startswith(torch.cuda.get_device_name(0)) and "power limit" in r["device"],
                f"{name}: device {r['device']!r}")
     _check("reason" not in results["container_decode_stages"]["hybrid"],
@@ -1680,8 +1742,8 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     radix sort the walk ran (against ``torch.sort(stable=True)`` on the same
     keys), on headline chunk 0 at tiers 0, 1 and the widest, an all-zero, a
     one-pixel and a 2^31 - 1 256^3 chunk, 16^3 and 2^3 cubes; then
-    ``lexsort`` (the radix sort) against its plain version on the keys of a
-    table walk (64, 64, 25) and of a 2D wave encode (256^2); the sort at
+    ``lexsort`` (the radix sort) against its plain version on the keys of the
+    plain table walk (64, 64, 25) and the plain 2D walk (256^2); the sort at
     the tile's edges and on all-equal keys, and one walk's two sorts 20
     times over.  The table, K7, the walk at tiers 0 and 1 and the tier-1
     walk sort timed on the device and as the host issues them, beside their
@@ -1693,13 +1755,13 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     import numpy as np
     import torch
 
+    from sperr_tpu_torch.codec import speck_wave as sw
     from sperr_tpu_torch.ops import cdf97
     from sperr_tpu_torch.ops import speck as spk
     from sperr_tpu_torch.ops import speck_lis as sl
     from sperr_tpu_torch.ops import speck_lis2 as sl2
     from sperr_tpu_torch.ops import speck_virtual as sv
     from sperr_tpu_torch.parallel import batched as tb
-    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D
     from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
 
     t_phase = time.perf_counter()
@@ -1785,13 +1847,21 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     mt = torch.from_numpy((rng.integers(0, 1 << 16, nt_) * (rng.random(nt_) < 0.3)).astype(np.int32)).to(dev)
     nbt, _, st, _, nmt = spk.schedule_table(mt, ti)
     node_st = torch.where(nmt > 0, nbt - nmt, 0x7FFF).to(torch.int32)
+    # the plain walks' lexsorts (the walks themselves run walk_table.cu's kernels
+    # and sort their packed keys, held in _table_walk_kernels)
     with _capture(sl, ["lexsort"]) as lt:
-        sl._lis_items_table(node_st, st, torch.from_numpy(rng.random(nt_) < 0.5).to(dev), nbt, li_t, li_t.nn)
+        sl._lis_items_table_ref(node_st, st, torch.from_numpy(rng.random(nt_) < 0.5).to(dev), nbt, li_t, li_t.nn)
     field = _turbulence_like(256, 256, 3)
+    fr2 = tb._dense_encode_rows(torch.from_numpy(field[None]).to(dev), "pwe", 1e-2, "dual", cdf97.dwt2d,
+                                cdf97.idwt2d)
+    ti2, li2 = spk.tree_index((256, 256), dev), sl2.lis2_index((256, 256), dev)
+    nb2, pm2, s2, _, nm2 = spk.schedule_table(fr2["mags"][0].reshape(-1).contiguous(), ti2)
+    iset2 = sl2.iset_significance_device(pm2.reshape(256, 256), sw.build_tree2((256, 256)), nb2)
     with _capture(sl, ["lexsort"]) as l2a, _capture(sl2, ["lexsort"]) as l2b:
-        TorchCompressor2D((256, 256), device=dev, entropy="wave").compress(field, "pwe", 1e-2)
-    for what, calls in (("table walk (64, 64, 25)", lt["lexsort"]),
-                        ("2D walk 256^2", l2a["lexsort"] + l2b["lexsort"])):
+        sl2._lis2_items_ref(spk.node_passes(nm2, nb2), s2, fr2["signs"][0].reshape(-1).contiguous(), nb2, iset2,
+                            li2, li2.nn)
+    for what, calls in (("plain table walk (64, 64, 25)", lt["lexsort"]),
+                        ("plain 2D walk 256^2", l2a["lexsort"] + l2b["lexsort"])):
         _check(len(calls) > 0, f"the {what} called no lexsort")
         for (keys,) in calls:
             got = kernels.radix_lexsort(keys).long()
@@ -1908,6 +1978,300 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     out["walk_rows"]["tier1"] = {k: rows["walk_rows tier 1"][k]
                                  for k in ("ms", "host_ms", "plain_ms", "bound_ms", "launches_per_call")}
     print(f"[kernels] walk kernels took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _our_kernels(kernels) -> set:
+    """The names of the repo's kernels, as torch.profiler shows them
+    (``_kernel_name``), read from the sources; and "Memset"."""
+    import re
+
+    names = {"Memset"}
+    for path in kernels.SOURCES + kernels.HEADERS:
+        with open(path) as f:
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                    f.read()))
+    return names
+
+
+def _device_names(fn, calls: int = 1) -> list:
+    """The device operations of ``calls`` calls of fn, in order, by
+    torch.profiler after a warm-up: their kernel names (``_kernel_name``).
+    A trace can miss its first operations (seen on an H100): read the last
+    call's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [_kernel_name(e.name) for e in evs]
+
+
+def _sorts_and_scans(kernels, names) -> list:
+    """The operations among ``names`` (profiler keys or kernel names) that
+    are not the repo's kernels and sort, scan or take a running maximum:
+    torch's and CUB's sorts, scans and cummax."""
+    ours = _our_kernels(kernels)
+    short = {_kernel_name(n) for n in names} - ours
+    return sorted(n for n in short if any(w in n.lower() for w in ("sort", "cub", "cummax", "scan")))
+
+
+def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
+    """Phase 3's table and 2D walk kernels (kernels/walk_table.cu) bit for
+    bit against their plain versions on the card, every output of each:
+    ``node_passes`` (node_s), ``table_anchors`` (J, R, u, jp against
+    ``table_anchors_ref``, alone and inside the walk), the whole walk
+    (``_table_items_cuda`` against ``_lis_items_table_ref`` or
+    ``_lis2_items_ref``: payload words, padding included, and n_sig) and
+    every radix sort it ran (against torch.sort(stable=True)), and
+    ``iset_max`` (against ``iset_significance_ref``); the 2D walk's LIS
+    planes through K9b and K11 against the plain event form (buffer, counts,
+    total and n_sig; at the tier-0 caps, an event cap of 700 and a byte cap
+    of 100).  Inputs: a Hurricane ISABEL packet chunk (100, 256, 256) at
+    tiers 0 and 1 and at a node cap of nn / 20, its all-zero, one-pixel and
+    2^31 - 1 forms, the dyadic chunk (118, 128, 97); a 1024^2 and the
+    1800 x 3600 field, 33 x 57 random, an all-zero and a 2^31 - 1 1024^2,
+    a one-pixel 33 x 57.  Each kernel timed at the main path's shapes on
+    the device and as the host issues it, beside its plain version, its
+    bound and, for the anchors, torch.unique on the largest ranked level's
+    keys.  Returns each kernel's row of the result line."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.codec.speck_wave import build_tree2
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_lis as sl
+    from sperr_tpu_torch.ops import speck_lis2 as sl2
+    from sperr_tpu_torch.ops import wave_pack as wp
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel import batched2d as tb2
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
+
+    t_phase = time.perf_counter()
+    names = ("node_passes", "table_anchors", "table_walk", "iset_max")
+    err = {k: 0 for k in names}
+    nsorts = 0
+    big = 2**31 - 1
+
+    def equal(name, got, want, what):
+        for k, (a, b) in enumerate(zip(got, want)):
+            a, b = a.reshape(-1), b.reshape(-1)
+            same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            err[name] = max(err[name], _int_err(a, b) if a.shape == b.shape else 2**31)
+            _check(same, f"{name}: output {k} differs from the plain version on {what}")
+
+    def front(field, two_d=False):
+        x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
+        fwd, inv = (cdf97.dwt2d, cdf97.idwt2d) if two_d else (cdf97.dwt3d, cdf97.idwt3d_)
+        fr = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", fwd, inv)
+        return fr["mags"][0].reshape(-1).contiguous(), fr["signs"][0].reshape(-1).contiguous()
+
+    def sorts_equal(calls, what):
+        for keys, bits, vals in calls:
+            idx = torch.sort(keys, stable=True).indices
+            want = (keys[idx], idx.to(torch.int32) if vals is None else vals[idx])
+            equal("table_walk", kernels.radix_sort(keys, bits, vals), want, f"{what}: a sort of {keys.numel()} keys")
+        return len(calls)
+
+    def edge(m, kind):
+        out = torch.zeros_like(m) if kind != "big" else m.clone()
+        if kind == "one":
+            out[m.numel() // 3] = 5
+        if kind == "big":
+            out[m.numel() // 2] = big
+        return out
+
+    timing = {}
+    # -- 3D chunks on the table walk ---------------------------------------------
+    dims_h = (256, 256, 100)
+    hur = front(vol512[:100, :256, :256])
+    li_h, _ = tb._wave_index(dims_h, dev)
+    tiers = tb.wave_tiers_for(256 * 256 * 100)
+    cap_h = {t: tb._wave_caps(li_h, dims_h, tiers[t], 34)["node_cap"] for t in (0, 1)}
+    cases3 = [("Hurricane packet chunk (100, 256, 256)", dims_h, hur,
+               [("tier 0", cap_h[0]), ("tier 1", cap_h[1]), ("node cap nn / 20", li_h.nn // 20)]),
+              ("all zero (100, 256, 256)", dims_h, (edge(hur[0], "zero"), hur[1]), [("tier 0", cap_h[0])]),
+              ("one pixel (100, 256, 256)", dims_h, (edge(hur[0], "one"), hur[1]), [("tier 0", cap_h[0])]),
+              ("(100, 256, 256) with 2^31 - 1", dims_h, (edge(hur[0], "big"), hur[1]),
+               [("tier 0", cap_h[0]), ("tier 1", cap_h[1])]),
+              ("dyadic chunk (118, 128, 97)", (97, 128, 118), front(vol11[:118, :128, :97]), [("node cap nn", None)])]
+    for label, dims, (m, sg), caps in cases3:
+        li, si = tb._wave_index(dims, dev)
+        nb, s, _, nm = tb._schedule(m, si)
+        ns = spk.node_passes(nm, nb)
+        equal("node_passes", (ns,), (spk.node_passes_ref(nm, nb),), label)
+        want_anc = sl.table_anchors_ref(ns, li)
+        equal("table_anchors", sl.table_anchors(ns, li), want_anc, label)
+        for clabel, c in caps:
+            c = li.nn if c is None else c
+            keep = {}
+            with _capture(kernels, ["radix_sort"]) as rc:
+                got = sl._table_items_cuda(ns, s, sg, li, c, keep=keep)
+            equal("table_walk", got, sl._lis_items_table_ref(ns, s, sg, nb, li, c), f"{label}, {clabel} (node cap {c})")
+            equal("table_anchors", [keep[k] for k in ("J", "R", "u", "jp")], want_anc, f"{label}, {clabel} (in the walk)")
+            nsorts += sorts_equal(rc["radix_sort"], f"{label}, {clabel}")
+            if label.startswith("Hurricane") and clabel.startswith("tier"):
+                timing[f"K15 {clabel}"] = dict(fn=(lambda a=(ns, s, sg, li, c): sl._table_items_cuda(*a)),
+                                               plain=(lambda a=(ns, s, sg, nb, li, c): sl._lis_items_table_ref(*a)),
+                                               li=li, n=m.numel(), T=got[0].numel())
+        if label.startswith("Hurricane"):
+            timing["node_passes"] = dict(fn=lambda a=(nm, nb): spk.node_passes(*a),
+                                         plain=lambda a=(nm, nb): spk.node_passes_ref(*a),
+                                         bytes=8 * li.nn + 4)
+            timing["anchors K15"] = dict(fn=lambda a=(ns, li): sl.table_anchors(*a),
+                                         plain=lambda a=(ns, li): sl.table_anchors_ref(*a), li=li, ns=ns)
+        print(f"[kernels] table walk, {label}: num_bp {int(nb)}, {int((ns < 0x7FFF).sum())} significant sets; "
+              f"node_passes, table_anchors (J, R, u, jp, alone and in the walk) and the walk's payload words and "
+              f"n_sig at {', '.join(f'{cl} ({li.nn if c is None else c})' for cl, c in caps)} equal to the plain "
+              f"versions bit for bit")
+
+    # -- 2D fields on the 2D walk ----------------------------------------------------
+    rng = np.random.default_rng(19)
+    f1024 = front(_turbulence_like(1024, 1024, 0), True)
+    n57 = 33 * 57
+    r57 = (torch.from_numpy((rng.integers(0, 1 << 14, n57) * (rng.random(n57) < 0.4)).astype(np.int32)).to(dev),
+           torch.from_numpy(rng.random(n57) < 0.5).to(dev))
+    cases2 = [("1024^2 field", (1024, 1024), f1024),
+              ("1800x3600 field", (3600, 1800), front(_turbulence_like(1800, 3600, 16), True)),
+              ("33x57 random", (33, 57), r57),
+              ("all zero 1024^2", (1024, 1024), (edge(f1024[0], "zero"), f1024[1])),
+              ("1024^2 with 2^31 - 1", (1024, 1024), (edge(f1024[0], "big"), f1024[1])),
+              ("one pixel 33x57", (33, 57), (edge(r57[0], "one"), r57[1]))]
+    for label, (nx, ny), (m, sg) in cases2:
+        n = nx * ny
+        ti, li = spk.tree_index((nx, ny), dev), sl2.lis2_index((nx, ny), dev)
+        tree = build_tree2((nx, ny))
+        nb, pm, s, _, nm = spk.schedule_table(m, ti)
+        ns = spk.node_passes(nm, nb)
+        equal("node_passes", (ns,), (spk.node_passes_ref(nm, nb),), label)
+        pm2 = pm.reshape(ny, nx)
+        iset = sl2.iset_significance_device(pm2, tree, nb)
+        equal("iset_max", (iset,), (sl2.iset_significance_ref(pm2, tree, nb),), label)
+        want_anc = sl.table_anchors_ref(ns, li, iset)
+        equal("table_anchors", sl.table_anchors(ns, li, iset), want_anc, label)
+        keep = {}
+        with _capture(kernels, ["radix_sort"]) as rc:
+            got = sl._table_items_cuda(ns, s, sg, li, li.nn, iset, nb, keep=keep)
+        want = sl2._lis2_items_ref(ns, s, sg, nb, iset, li, li.nn)
+        equal("table_walk", got, want, label)
+        equal("table_anchors", [keep[k] for k in ("J", "R", "u", "jp")], want_anc, f"{label} (in the walk)")
+        nsorts += sorts_equal(rc["radix_sort"], label)
+        caps = tb2._wave_caps2(n, 34, li.nn, max(4096, int(1.25 * n)))
+        fits = []
+        for ev_cap, cap_total, what in ((caps["ev_cap"], caps["cap_total"], "tier 0"),
+                                        (700, caps["cap_total"], "event cap 700"),
+                                        (caps["ev_cap"], 100, "byte cap 100")):
+            a = wp.wave_emit_2d_lis(got[0], got[1], nb, 34, ev_cap, cap_total)
+            b = sl._event_tail(want[0], want[1], nb, 34, ev_cap, cap_total)
+            _check(int(a[3]) == int(b[3]), f"{label}, {what}: n_sig {int(a[3])} after K9b and K11, {int(b[3])} in "
+                                           f"the event form")
+            if int(a[1].sum()) <= ev_cap and int(a[2]) <= cap_total:
+                equal("table_walk", (a[0], a[1], a[2].to(torch.int32)), b[:3], f"{label}, {what}: the LIS segments")
+                fits.append(what)
+        if label == "1024^2 field":
+            timing["K14 1024^2"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
+                                        plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
+                                        li=li, n=n, T=got[0].numel())
+            timing["iset_max"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
+                                      plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
+                                      bytes=4 * n + 4 * (tree.xf + 1) + 4)
+            timing["anchors K14 1024^2"] = dict(fn=lambda a=(ns, li, iset): sl.table_anchors(*a),
+                                                plain=lambda a=(ns, li, iset): sl.table_anchors_ref(*a),
+                                                li=li, ns=ns, iset=iset)
+        if label == "1800x3600 field":
+            timing["K14 1800x3600"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
+                                           plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
+                                           li=li, n=n, T=got[0].numel())
+            timing["iset_max 1800x3600"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
+                                                plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
+                                                bytes=4 * n + 4 * (tree.xf + 1) + 4)
+        print(f"[kernels] 2D walk, {label}: num_bp {int(nb)}, n_sig {int(got[1])}; node_passes, iset_max, "
+              f"table_anchors and the walk's payload words equal to the plain versions bit for bit; the LIS "
+              f"segments through K9b and K11 equal to the event form at {', '.join(fits) or 'no cap'}, n_sig "
+              "equal at every cap")
+    print(f"[kernels] the table and 2D walks ran {nsorts} radix sorts, each equal to torch.sort(stable=True)")
+
+    # -- times at the main path's shapes ------------------------------------------------
+    def table_bytes(li):
+        st = sl.table_static(li)
+        return sum(t.numel() * t.element_size() for t in st.tables.values())
+
+    rows = {}
+    for key, r in timing.items():
+        if "bytes" not in r and "T" in r:
+            # inputs read once (node_s, s, signs, the index's tables), the payload words and n_sig written
+            r["bytes"] = 4 * r["li"].nn + 5 * r["n"] + table_bytes(r["li"]) + 4 * r["T"] + 4
+        elif "bytes" not in r:
+            # node_s and the anchor tables read once, J and R written
+            st = sl.table_static(r["li"])
+            tabs = ("parent", "level", "O0") if st.form == 0 else ("parent", "level", "is_group", "k_of", "irank_of")
+            r["bytes"] = 4 * r["li"].nn + sum(st.tables[k].numel() * st.tables[k].element_size() for k in tabs) \
+                + 8 * r["li"].nn
+            # torch.unique on the largest ranked level's keys
+            Jr, Rr, u, jp = sl.table_anchors_ref(r["ns"], r["li"], r.get("iset"))
+            row = max(st.plan.host.reshape(-1, kernels.RANK_LEVEL_INTS), key=lambda x: int(x[0]))
+            ids = torch.cat([torch.arange(int(row[3 + k]), int(row[3 + kernels.RANK_SPANS + k]), device=dev)
+                             for k in range(int(row[2]))])
+            j = jp[ids]
+            lkey = (u[ids].to(torch.int64) << int(row[1])) | torch.where(
+                j < 0, -1 - j, Rr[torch.clamp(j, min=0).long()] + 1).to(torch.int64)
+            r["library"] = lambda k=lkey: torch.unique(k, sorted=True, return_inverse=True)
+            r["library_what"] = f"torch.unique(sorted=True, return_inverse=True) on the {lkey.numel()}-node level's keys"
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r["fn"]()
+        torch.cuda.synchronize()
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() - base  # the call's own working set
+        per_call = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        r["ms"], r["timed"] = time_ms(r["fn"], 10)
+        r["host_ms"] = time_ms(r["fn"], 10, "host-issued")[0]
+        r["plain_ms"], r["plain_timed"] = time_ms(r["plain"], 3)
+        r["library_ms"], lib_how = time_ms(r["library"], 10) if "library" in r else (None, None)
+        r["bound_ms"] = _bound_ms(r["bytes"])
+        r["launches_per_call"] = per_call
+        # a profile of the calls that launch more than one kernel: where the
+        # device time goes, and no torch or CUB sort, scan or cummax among them
+        # (a single launch's wrapper runs its kernel alone)
+        busy, per_name = busy_ms(r["fn"], 5) if sum(per_call.values()) > 1 else (None, {})
+        r["busy_ms"] = busy
+        bad = _sorts_and_scans(kernels, per_name)
+        _check(not bad, f"{key}: the card ran {bad}")
+        print(f"[kernels] {key}: {r['ms']:.4f} ms ({r['timed']}), {r['host_ms']:.4f} ms as the host issues it, "
+              + (f"device busy {busy:.4f} ms" if busy is not None else "one launch")
+              + f"; plain {r['plain_ms']:.4f} ms ({r['plain_timed']})"
+              + (f", {r['library_what']} {r['library_ms']:.4f} ms ({lib_how})" if "library" in r else "")
+              + f"; bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share {r['bound_ms'] / r['ms']:.4f}; "
+              f"launches per call {per_call}; peak device memory of one call {r['peak_bytes']} bytes"
+              + (f"; no torch or CUB sort, scan or cummax; the most device time, ms per call: {_top(per_name, 6)}"
+                 if per_name else "") + f" -- {smi}")
+        rows[key] = r
+    for key in ("K15 tier 0", "K15 tier 1", "K14 1024^2"):
+        lp = rows[key]["launches_per_call"]
+        _check(sum(lp.values()) <= 80, f"the walk {key} issued {lp} launches (at most 80)")
+    keys = ("ms", "timed", "host_ms", "plain_ms", "plain_timed", "bound_ms", "library_ms", "launches_per_call",
+            "busy_ms", "peak_bytes")
+    pick = lambda r: {k: r.get(k) for k in keys}  # noqa: E731
+    out = {
+        "node_passes": pick(rows["node_passes"]),
+        "table_anchors": dict(pick(rows["anchors K15"]), **{"2d": pick(rows["anchors K14 1024^2"])}),
+        "table_walk": dict(pick(rows["K15 tier 0"]), **{"tier1": pick(rows["K15 tier 1"]),
+                                                         "2d": pick(rows["K14 1024^2"]),
+                                                         "2d_1800x3600": pick(rows["K14 1800x3600"])}),
+        "iset_max": dict(pick(rows["iset_max"]), **{"1800x3600": pick(rows["iset_max 1800x3600"])}),
+    }
+    for name in names:
+        out[name]["max_abs_err"] = err[name]
+    print(f"[kernels] table and 2D walk kernels took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2071,10 +2435,11 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
                             max(4096, int(comp2.wave_event_tiers[0] * nx * ny)))
     with _capture(wave_pack, ["emit_exposed", "emit_planes"]) as calls:
         tb2._wave_emit_field(f2["mags"][0], f2["signs"][0], index2, caps2, comp2.num_bp_cap)
-    _check(not calls["emit_exposed"] and [a[0] for a in calls["emit_planes"]] == ["lip", "ref"],
+    # the pixel classes, then (since the 2D walk's items go through K9b) the LIS class
+    _check(not calls["emit_exposed"] and [a[0] for a in calls["emit_planes"]] == ["lip", "ref", "lis"],
            f"the 2D field's program called emit_planes for {[a[0] for a in calls['emit_planes']]}")
-    held(calls, "a 1024^2 field (K14's pixel half)")
-    print("[kernels] K9, a 1024^2 field's pixel emission (K14): emit_planes (LIP, refinement) equal to "
+    held(calls, "a 1024^2 field (K14)")
+    print("[kernels] K9, a 1024^2 field's emission (K14): emit_planes (LIP, refinement, LIS) equal to "
           "its plain version bit for bit")
     del cases, one, big, mh, sh, x2, f2, calls
 
@@ -2492,6 +2857,7 @@ def main() -> int:
     sched = _sched_kernels(kernels, smi, dev, vol512, vol11)
     walk = _walk_kernels(kernels, smi, dev, vol512)
     emit = _emit_kernels(kernels, smi, dev, vol512)
+    twalk = _table_walk_kernels(kernels, smi, dev, vol512, vol11)
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
@@ -2501,7 +2867,8 @@ def main() -> int:
               for shape, t in plane_ms.items() for k in ("K2", "K3")),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items()),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in walk.items()),
-            *((f"K9 {tier} (K9a and K9b)", r["ms"], r["host_ms"], r["bound_ms"]) for tier, r in emit["K9"].items())):
+            *((f"K9 {tier} (K9a and K9b)", r["ms"], r["host_ms"], r["bound_ms"]) for tier, r in emit["K9"].items()),
+            *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in twalk.items())):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
     if "--kernels-only" in sys.argv[1:]:
@@ -2653,8 +3020,10 @@ def main() -> int:
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
     for name in ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
                  "compact_flags_rows", "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks",
-                 "walk_rows", "radix_sort"):
+                 "walk_rows", "radix_sort", "node_passes"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
+    for name in ("table_anchors", "table_walk", "iset_max"):
+        _check(launches_w[name] == 0, f"{name} was launched on the cube form's wave path")
     # each emission: one K9b launch per class, K11's three; K10 only inside K9b
     _check(launches_w["emit_planes"] == launches_w["masked_pack"],
            "emit_planes did not launch once per class of each emission")
@@ -2814,6 +3183,7 @@ def main() -> int:
     # -- 10. the 2D device entropy path --------------------------------------
     launches_2d = _wave2d_phase(kernels, smi, dev, fields, streams2, f7, streams8)
     launches_tab["sched_table_2d"] = launches_2d["sched_table"]
+    _check(launches_w["node_passes"] > 0, "node_passes was not launched on the cube form's wave path")
 
     # -- 11. the command-line tools and the stage timer ----------------------
     _cli_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields[0], streams2[0], f7,
@@ -2890,6 +3260,20 @@ def main() -> int:
     emit["emit_planes"].update(launches_table=launches_tab["emit_planes"], launches_2d=launches_2d["emit_planes"],
                                k9_stage=emit["K9"])
     emit["emit_exposed"]["chunk512"] = {k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")}
+    # the table and 2D walks' kernels: launches in phase 9's timed wave encode
+    # (node_passes also runs on the cube form's path, phase 6), and in phase 10's
+    # first timed 2D encode in "launches_2d" (iset_max: only there)
+    for name, where in (("node_passes", "sperr_tpu/parallel/batched.py:490"),
+                        ("table_anchors", "sperr_tpu/ops/speck_lis_jax.py:375"),
+                        ("table_walk", "sperr_tpu/ops/speck_lis_jax.py:375"),
+                        ("iset_max", "sperr_tpu/ops/speck_lis2_jax.py:134")):
+        r = twalk[name]
+        nl = launches_2d[name] if name == "iset_max" else launches_tab[name]
+        rows.append((name, "walk_table.cu", where, nl, r["max_abs_err"], r["ms"], r["host_ms"], r["plain_ms"],
+                     r["bound_ms"], r["library_ms"]))
+        plain_timed[name] = r["plain_timed"]
+        r["launches_2d"] = launches_2d[name]
+        r["launches_cube_path"] = launches_w["node_passes"] if name == "node_passes" else 0
     # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
     sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
     # "ms" is the device's time alone, "host_ms" as the host issues the
@@ -2905,6 +3289,10 @@ def main() -> int:
                                                            "launches_2d", "lsd_floor_ms")} if name in walk else {}),
          **({k: v for k, v in emit[name].items() if k in ("tier0", "per_class", "launches_table", "launches_2d",
                                                            "k9_stage", "chunk512")} if name in emit else {}),
+         **({k: v for k, v in twalk[name].items() if k in ("tier1", "2d", "2d_1800x3600", "1800x3600", "timed",
+                                                            "busy_ms", "launches_per_call", "launches_2d",
+                                                            "launches_cube_path")}
+            if name in twalk else {}),
          # K10's transpose runs inside emit_planes on the wave paths since K9b
          **({"merged_into": "emit_planes"} if name == "transpose_bits32" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows

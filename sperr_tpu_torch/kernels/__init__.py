@@ -12,7 +12,7 @@ that is not compute capability 9.0, or a refused launch raises.  The plain
 PyTorch versions live beside the callers (``ops/quantize.py``,
 ``ops/cdf97.py``, ``ops/packemit.py``, ``ops/wave_unpack.py``,
 ``ops/speck_virtual.py``, ``ops/speck.py``, ``ops/speck_lis.py``,
-``ops/wave_pack.py``) and run only
+``ops/speck_lis2.py``, ``ops/wave_pack.py``) and run only
 for tensors on the CPU.
 
 Each wrapper adds one to ``launches[name]`` for each kernel it launches,
@@ -40,10 +40,10 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = tuple(
     os.path.join(_DIR, f)
     for f in ("quantize.cu", "cdf97_lift.cu", "cdf97_2d.cu", "bits.cu", "unpack.cu",
-              "schedule.cu", "walk.cu", "emit.cu")
+              "schedule.cu", "walk.cu", "emit.cu", "walk_table.cu")
 )
 # headers the sources include: an edited header rebuilds the library too
-HEADERS = (os.path.join(_DIR, "bits.cuh"),)
+HEADERS = tuple(os.path.join(_DIR, f) for f in ("bits.cuh", "rank.cuh"))
 _LIB_NAME = "libsperr_torch_kernels.so"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -59,6 +59,7 @@ launches = {
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
     "emit_exposed": 0, "emit_planes": 0,
+    "table_anchors": 0, "table_walk": 0, "iset_max": 0, "node_passes": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -201,6 +202,13 @@ def load(device=None) -> ct.CDLL:
                     vp, vp, vp, vp, ct.c_int, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                 ]),
                 ("sperr_emit_planes", [ct.c_int, vp, vp, vp, ct.c_int, ll, ll, vp, ct.c_int, vp, vp, vp]),
+                ("sperr_table_anchors", [vp, vp, vp, ct.c_int, ct.c_int, vp, vp, ll, vp]),
+                ("sperr_table_rows", [vp, vp]),
+                ("sperr_table_born", [vp, vp]),
+                ("sperr_table_entries", [vp, vp]),
+                ("sperr_table_rowkeys", [vp, vp]),
+                ("sperr_node_passes", [vp, vp, ll, vp, vp]),
+                ("sperr_iset_max", [vp, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
@@ -249,9 +257,13 @@ def _stream(t: torch.Tensor) -> int:
 def _on_device(t: torch.Tensor):
     """Make t's device current for a launch (no switch when it already is:
     the switch costs more host time than a small kernel runs)."""
-    if t.device.index == torch.cuda.current_device():
+    return _on_index(t.device)
+
+
+def _on_index(dev: torch.device):
+    if dev.index == torch.cuda.current_device():
         return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
+    return torch.cuda.device(dev)
 
 
 _consts_arrays = {}
@@ -636,7 +648,7 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     B, n = flags.shape
     idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
     count = torch.empty((B,), dtype=torch.int32, device=flags.device)
-    status = torch.zeros(B * -(-n // _FLAG_TILE), dtype=torch.int64, device=flags.device)
+    status = torch.empty(B * -(-n // _FLAG_TILE), dtype=torch.int64, device=flags.device)  # zeroed by the call
     lib = load(flags.device)
     with _on_device(flags):
         err = lib.sperr_flag_compact_rows(
@@ -1295,3 +1307,116 @@ def emit_planes(kind: str, fields, num_bp: torch.Tensor, P: int, items: int):
     _check(lib, err, "emit_planes")
     _count("emit_planes")
     return planes[0], planes[1]
+
+
+# ---------------------------------------------------------------------------
+# K15 and K14: the table and 2D walks (kernels/walk_table.cu).  The walk's
+# tables, buffers and sizes travel in one structure (TableArgs in the
+# source: every field a pointer or a long long), which ops/speck_lis.py
+# fills; the rank plan is K7's (RANK_LEVEL_INTS words per level).
+# ---------------------------------------------------------------------------
+TABLE_MAX_LEVELS = 30  # tree levels the walk takes (kMaxLevels - 2: the 2D class codes)
+TABLE_MAX_CHILDREN = 8  # child slots of a node (kMaxChildren)
+TABLE_PATH_WORDS = 4  # path words (kMaxPathWords)
+ISET_MAX_LEVELS = 16  # I levels of a 2D field (kMaxIset)
+
+TABLE_POINTERS = (
+    "parent", "level", "depth", "pw", "ch_start", "ch_count", "ctab", "O0", "off0", "root_ids",
+    "root_levels", "is_group", "k_of", "irank_of", "block_rank_of", "group_ids", "group_k", "gbit_rank",
+    "lev_ranked", "node_s", "s_lin", "signs", "iset_s", "num_bp", "J", "R", "u", "jp", "sigf", "wbuf",
+    "sid", "sid_count", "bflag", "born_idx", "born_count", "counts", "n_sig_out", "ikey0",
+)
+TABLE_SIZES = (
+    "form", "nn", "n", "nrows", "MC", "nlev", "W", "xf", "G", "nroots", "C", "take", "CB", "NE", "E",
+    "rows", "tcap", "wbase", "wa", "ipack", "wpack",
+)
+
+
+class TableArgs(ct.Structure):
+    """kernels/walk_table.cu's struct TableArgs, field for field."""
+
+    _fields_ = ([(k, ct.c_void_p) for k in TABLE_POINTERS] + [("ipw", ct.c_void_p * TABLE_PATH_WORDS)]
+                + [("perm", ct.c_void_p), ("pay", ct.c_void_p), ("wkey0", ct.c_void_p),
+                   ("wpw", ct.c_void_p * TABLE_PATH_WORDS)]
+                + [(k, ct.c_longlong) for k in TABLE_SIZES] + [("pwz", ct.c_longlong * TABLE_PATH_WORDS)])
+
+
+def table_anchors(args: TableArgs, dev, plan: torch.Tensor, plan_host: np.ndarray, nsmall: int) -> None:
+    """The table or 2D walk's anchors and string ranks: J, R, u, jp, the
+    significance flags and the walk rank table of ``args`` from its node
+    passes, then the levels of the rank plan (K7's bitmaps, ``rank_layout``).
+    1 + (1 if nsmall) + 3 per other level launches."""
+    _require_cuda(plan, torch.int32, "plan")
+    plan_host = np.ascontiguousarray(plan_host, dtype=np.int32)
+    nlev = plan_host.size // RANK_LEVEL_INTS
+    if plan.numel() != plan_host.size or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev:
+        raise ValueError(f"a plan of {RANK_LEVEL_INTS}-word levels; got {plan.numel()} words, nsmall {nsmall}")
+    lay = rank_layout(plan_host, nsmall)
+    keys = torch.empty(lay.keys, dtype=torch.int32, device=dev)
+    zbuf = torch.empty(max(1, lay.zwords), dtype=torch.int32, device=dev)
+    lib = load(dev)
+    with _on_device(plan):
+        err = lib.sperr_table_anchors(ct.byref(args), plan.data_ptr(), plan_host.ctypes.data_as(ct.c_void_p),
+                                      int(nsmall), nlev, keys.data_ptr(), zbuf.data_ptr(), zbuf.numel(),
+                                      _stream(plan))
+    _check(lib, err, "table_anchors")
+    _count("table_anchors", 1 + (1 if nsmall else 0) + 3 * (nlev - nsmall))
+
+
+def table_stage(stage: str, args: TableArgs, dev) -> None:
+    """One launch of the table walk: ``stage`` "rows" (the child rows'
+    payloads and born flags), "born" (the entries' insertion keys, the
+    per-level counts and n_sig), "entries" (after the insertion sort: the
+    walk ranks, the entries' payloads and walk keys) or "rowkeys" (the rows'
+    walk keys, and the 2D walk's I items)."""
+    if stage not in ("rows", "born", "entries", "rowkeys"):
+        raise ValueError(f"no table walk stage {stage!r}")
+    dev = torch.device(dev)
+    lib = load(dev)
+    with _on_index(dev):
+        err = getattr(lib, f"sperr_table_{stage}")(ct.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, err, f"table_{stage}")
+    _count("table_walk")
+
+
+def node_passes(nm: torch.Tensor, num_bp: torch.Tensor) -> torch.Tensor:
+    """The node passes of a schedule: nm (nn,) int32 node maxima and num_bp
+    (one int32) -> node_s (nn,) int32, num_bp - nm where nm > 0, else
+    NEVER.  One launch."""
+    _require_cuda(nm, torch.int32, "nm")
+    if nm.dim() != 1 or nm.numel() == 0:
+        raise ValueError(f"nm must be (nn > 0,); got {tuple(nm.shape)}")
+    nb = _num_bp_word(num_bp, nm.device)
+    node_s = torch.empty_like(nm)
+    lib = load(nm.device)
+    with _on_device(nm):
+        err = lib.sperr_node_passes(nm.data_ptr(), nb.data_ptr(), nm.numel(), node_s.data_ptr(), _stream(nm))
+    _check(lib, err, "node_passes")
+    _count("node_passes")
+    return node_s
+
+
+def iset_max(pm: torch.Tensor, regions, num_bp: torch.Tensor) -> torch.Tensor:
+    """The 2D walk's I-set passes: pm (ny, nx) int32 msb+1 map, regions
+    [(ax_k, ay_k) for k = 0 .. xf] (level k's region: every pixel past the
+    corner, y >= ay_k or x >= ax_k), num_bp (one int32) -> iset_s (xf + 1,)
+    int32: NEVER at 0 and for a region with no significant pixel, else
+    num_bp - its maximum.  One launch."""
+    _require_cuda(pm, torch.int32, "pm")
+    if pm.dim() != 2 or pm.numel() == 0:
+        raise ValueError(f"pm must be (ny, nx) with pixels; got {tuple(pm.shape)}")
+    xf = len(regions) - 1
+    if not 0 <= xf <= ISET_MAX_LEVELS:
+        raise ValueError(f"0 to {ISET_MAX_LEVELS} I levels; got {xf}")
+    nb = _num_bp_word(num_bp, pm.device)
+    ax = (ct.c_int * (xf + 1))(*(int(r[0]) for r in regions))
+    ay = (ct.c_int * (xf + 1))(*(int(r[1]) for r in regions))
+    scratch = torch.empty(ISET_MAX_LEVELS + 2, dtype=torch.int32, device=pm.device)
+    iset_s = torch.empty(xf + 1, dtype=torch.int32, device=pm.device)
+    lib = load(pm.device)
+    with _on_device(pm):
+        err = lib.sperr_iset_max(pm.data_ptr(), pm.shape[0], pm.shape[1], xf, ax, ay, nb.data_ptr(),
+                                 scratch.data_ptr(), iset_s.data_ptr(), _stream(pm))
+    _check(lib, err, "iset_max")
+    _count("iset_max")
+    return iset_s

@@ -637,6 +637,10 @@ extern "C" int sperr_flag_compact_rows(const uint8_t* flags, int32_t* idx,
     return (int)cudaErrorInvalidValue;
   const long long nblk = (n + kFlagTile - 1) / kFlagTile;
   if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the status words, zeroed here: no torch op runs between the launches
+  // of a walk that compacts
+  cudaError_t zerr = cudaMemsetAsync(status, 0, sizeof(unsigned long long) * B * nblk, stream);
+  if (zerr != cudaSuccess) return (int)zerr;
   flag_compact_kernel<<<dim3((unsigned)nblk, (unsigned)B), kThreads, 0, stream>>>(
       flags, idx, count, status, n, nblk, take);
   cudaError_t err = cudaGetLastError();

@@ -29,7 +29,8 @@
 //     it also writes the significance flags K12 compacts and sets the walk
 //     rank table to BIG.
 //   * the ranks, level by level (each level's key reads its parent chain's
-//     rank), without a sort: a dense rank is the number of distinct keys
+//     rank), without a sort (rank.cuh, shared with the table and 2D walks
+//     of walk_table.cu): a dense rank is the number of distinct keys
 //     below a key, so each level sets one bit per key in a presence bitmap
 //     of 2^(12 + wk) bits and counts the distinct keys of each 8-word
 //     group (the first lane of a warp's equal keys tries, only if the bit
@@ -76,6 +77,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rank.cuh"
+
 namespace {
 
 constexpr int kNever = 0x7FFF;
@@ -83,16 +86,6 @@ constexpr int kBig = 0x7FFFFFFF;
 constexpr int kThreads = 256;
 constexpr int kMaxRoots = 64;
 constexpr int kMaxDepth = 14;  // entries of the per-depth tables
-// a level of the rank plan: count, key width of the parent ranks, spans
-constexpr int kMaxSpans = 16;
-constexpr int kLevelInts = 3 + 2 * kMaxSpans;
-constexpr int kSmallMax = 4096;  // nodes of a level ranked in one block
-constexpr int kSmallBits = 21;   // key bits of a level ranked in one block
-constexpr int kSmallGroups = 1 << (kSmallBits - 8);  // its 8-word groups
-constexpr int kSmallShared = kSmallMax * 4 + kSmallGroups * 4;
-// a larger level's group scan: 4 groups' counts (one int4) per thread
-constexpr int kScanThreads = 256;
-constexpr int kScanGroups = kScanThreads * 4;
 // radix sort: 256 threads of 16 keys each per tile; at most 8 digit passes
 constexpr int kSortThreads = 256;
 constexpr int kSortWarps = kSortThreads / 32;
@@ -123,6 +116,8 @@ struct WalkForest {
 };
 
 namespace {
+
+using sperr_rank::block_excl_scan;
 
 unsigned blocks_for(long long count, int threads = kThreads) {
   return (unsigned)((count + threads - 1) / threads);
@@ -181,34 +176,6 @@ __device__ __forceinline__ void child_path_words(int S, int d, int m, int k, int
     w0 += (k + 1) << (5 * (5 - d));
   else if (d < 12)
     w1 += (k + 1) << (5 * (11 - d));
-}
-
-// Exclusive scan of one int per thread over the block (all threads call
-// it); *total gets the block's sum.
-__device__ int block_excl_scan(int v, int* ws, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) ws[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? ws[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nw) ws[lane] = w;
-  }
-  __syncthreads();
-  const int out = (warp ? ws[warp - 1] : 0) + x - v;
-  if (total) *total = ws[nw - 1];
-  __syncthreads();
-  return out;
 }
 
 // -- the child value table ----------------------------------------------------
@@ -302,168 +269,6 @@ __global__ void anchor_chain(const int32_t* __restrict__ node_s, const WalkFores
   }
   J[z] = Jz;
   if (!ranked) R[z] = 0;
-}
-
-// The i-th node of a level of the rank plan.
-__device__ __forceinline__ int level_node(const int32_t* __restrict__ L, int i) {
-  const int ns = L[2];
-  for (int k = 0; k < ns; ++k) {
-    const int lo = L[3 + k], len = L[3 + kMaxSpans + k] - lo;
-    if (i < len) return lo + i;
-    i -= len;
-  }
-  return -1;
-}
-
-// A level's key: the node's hop word above the rank of its parent's chain
-// top + 1 (0 at a root).
-__device__ __forceinline__ uint32_t level_key(const int32_t* __restrict__ L, int i,
-                                              const int32_t* __restrict__ u,
-                                              const int32_t* __restrict__ jp, const int32_t* R,
-                                              int& z) {
-  z = level_node(L, i);
-  const int j = jp[z];
-  return ((uint32_t)u[z] << L[1]) | (j < 0 ? 0u : (uint32_t)(R[j] + 1));
-}
-
-__device__ __forceinline__ int popc8(uint4 a, uint4 b) {
-  return __popc(a.x) + __popc(a.y) + __popc(a.z) + __popc(a.w) + __popc(b.x) + __popc(b.y) +
-         __popc(b.z) + __popc(b.w);
-}
-
-// The set bits of a bitmap below bit `key`, within the key's 8-word group.
-__device__ __forceinline__ int bits_below_in_group(const uint32_t* bm, uint32_t key) {
-  const uint4* g = reinterpret_cast<const uint4*>(bm + ((size_t)(key >> 8) << 3));
-  const uint4 a = __ldcg(g), b = __ldcg(g + 1);
-  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int k = (key >> 5) & 7;
-  const uint32_t below = (1u << (key & 31)) - 1u;
-  int c = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) c += __popc(w[q] & (q < k ? 0xffffffffu : (q == k ? below : 0u)));
-  return c;
-}
-
-// Sets the bit of `key` in bm and, where this thread set it, adds one to
-// its group's count: only the first lane of the warp's equal keys (act:
-// the lanes that call) tries, and only if the bit reads unset.
-__device__ __forceinline__ void mark_key(uint32_t* bm, int* gcnt, uint32_t key, unsigned act) {
-  const unsigned peers = __match_any_sync(act, key);
-  if ((threadIdx.x & 31) != __ffs(peers) - 1) return;
-  uint32_t* w = bm + (key >> 5);
-  const uint32_t bit = 1u << (key & 31);
-  if (!(__ldcg(w) & bit) && !(atomicOr(w, bit) & bit)) atomicAdd(gcnt + (key >> 8), 1);
-}
-
-// Levels of at most kSmallMax nodes and kSmallBits key bits, in order, in
-// one block of 1,024 threads: each level's bits set in its bitmap (global,
-// zeroed by the caller, read past L1) with its groups' counts in shared
-// memory, their exclusive scan, then R = the group's prefix + the bits
-// below in the group.  R is written and read across levels (no read-only
-// loads).
-__global__ void __launch_bounds__(1024) anchor_small(const int32_t* __restrict__ plan, int nlv,
-                                                     const int32_t* __restrict__ u,
-                                                     const int32_t* __restrict__ jp, int32_t* R,
-                                                     uint32_t* __restrict__ bm) {
-  extern __shared__ uint32_t smem[];
-  __shared__ int ws[32];
-  uint32_t* K = smem;
-  int* G = reinterpret_cast<int*>(smem + kSmallMax);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int l = 0; l < nlv; ++l) {
-    const int32_t* L = plan + l * kLevelInts;
-    const int cnt = L[0], groups = 1 << (4 + L[1]);
-    for (int g = tid; g < groups; g += nt) G[g] = 0;
-    __syncthreads();
-    for (int i0 = 0; i0 < cnt; i0 += nt) {
-      const int i = i0 + tid;
-      const unsigned act = __ballot_sync(0xffffffffu, i < cnt);
-      if (i < cnt) {
-        int z;
-        const uint32_t key = level_key(L, i, u, jp, R, z);
-        K[i] = key;
-        mark_key(bm, G, key, act);
-      }
-    }
-    __syncthreads();
-    const int per = (groups + nt - 1) / nt;
-    const int lo = min(tid * per, groups), hi = min(lo + per, groups);
-    int c = 0;
-    for (int g = lo; g < hi; ++g) c += G[g];
-    int run = block_excl_scan(c, ws, nullptr);
-    for (int g = lo; g < hi; ++g) {
-      const int v = G[g];
-      G[g] = run;
-      run += v;
-    }
-    __syncthreads();
-    for (int i = tid; i < cnt; i += nt) {
-      const uint32_t key = K[i];
-      R[level_node(L, i)] = G[key >> 8] + bits_below_in_group(bm, key);
-    }
-    __syncthreads();
-    bm += 8 * groups;
-  }
-}
-
-// A larger level, launch 1 of 3: each node's key kept, its bit set, its
-// group's count of distinct keys (gcnt, zeroed by the caller) raised.
-__global__ void rank_mark(const int32_t* __restrict__ L, const int32_t* __restrict__ u,
-                          const int32_t* __restrict__ jp, const int32_t* __restrict__ R,
-                          uint32_t* __restrict__ keys, uint32_t* __restrict__ bm,
-                          int32_t* __restrict__ gcnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned act = __ballot_sync(0xffffffffu, i < L[0]);
-  if (i >= L[0]) return;
-  int z;
-  const uint32_t key = level_key(L, i, u, jp, R, z);
-  keys[i] = key;
-  mark_key(bm, gcnt, key, act);
-}
-
-// Launch 2 of 3: the groups' counts turned in place into exclusive prefixes
-// within scan blocks of kScanGroups groups (4 a thread), and the blocks'
-// sums; the last block to finish (done, zeroed by the caller) turns the
-// sums into the blocks' exclusive prefixes.
-__global__ void __launch_bounds__(kScanThreads) rank_scan(int32_t* __restrict__ gcnt, long long groups,
-                                                          int32_t* bsum, unsigned* done) {
-  __shared__ int ws[32];
-  __shared__ bool s_last;
-  const long long g0 = (long long)blockIdx.x * kScanGroups + (long long)threadIdx.x * 4;
-  const int4 c = g0 < groups ? *reinterpret_cast<const int4*>(gcnt + g0) : make_int4(0, 0, 0, 0);
-  int agg;
-  const int run = block_excl_scan(c.x + c.y + c.z + c.w, ws, &agg);
-  if (g0 < groups)
-    *reinterpret_cast<int4*>(gcnt + g0) =
-        make_int4(run, run + c.x, run + c.x + c.y, run + c.x + c.y + c.z);
-  if (threadIdx.x == 0) bsum[blockIdx.x] = agg;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  int carry = 0;
-  for (int b0 = 0; b0 < (int)gridDim.x; b0 += kScanThreads) {
-    const int b = b0 + threadIdx.x;
-    const int v = b < (int)gridDim.x ? __ldcg(&bsum[b]) : 0;
-    int t;
-    const int e = block_excl_scan(v, ws, &t);
-    if (b < (int)gridDim.x) bsum[b] = carry + e;
-    carry += t;
-  }
-}
-
-// Launch 3 of 3: R = the distinct keys below the node's key (its scan
-// block's prefix, its group's prefix in the block, the bits below it in
-// the group).
-__global__ void rank_bits(const int32_t* __restrict__ L, const uint32_t* __restrict__ keys,
-                          const uint32_t* __restrict__ bm, const int32_t* __restrict__ gpre,
-                          const int32_t* __restrict__ bsum, int32_t* __restrict__ R) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= L[0]) return;
-  const uint32_t key = keys[i];
-  R[level_node(L, i)] = bsum[(key >> 8) / kScanGroups] + gpre[key >> 8] + bits_below_in_group(bm, key);
 }
 
 // -- the radix sort ---------------------------------------------------------------
@@ -945,10 +750,6 @@ __global__ void walk_rowkeys(const int32_t* __restrict__ sid, int take, long lon
   }
 }
 
-// A larger level's scan blocks' sums and their counter, in 4-byte words
-// padded to 16 bytes (the next level's counts are read as int4).
-long long sums_words(long long nblk) { return (nblk + 1 + 3) & ~3LL; }
-
 }  // namespace
 
 // The child value table: vtab (nt int32) from s, signs (bytes) and, with
@@ -978,51 +779,14 @@ extern "C" int sperr_anchor_ranks(const int32_t* node_s, const WalkForest* f, lo
                                   int nlevels, int32_t* J, int32_t* R, int32_t* u, int32_t* jp,
                                   uint8_t* sigf, int32_t* wbuf, uint32_t* keys, uint32_t* zbuf,
                                   long long zwords, cudaStream_t stream) {
-  if (nn < 1 || nsmall < 0 || nsmall > nlevels) return (int)cudaErrorInvalidValue;
-  long long need = 0;
-  for (int l = 0; l < nlevels; ++l) {
-    const int32_t* Lh = plan_host + l * kLevelInts;
-    const int bits = 12 + Lh[1];
-    if (Lh[1] < 0 || bits > 32 || (l < nsmall && (bits > kSmallBits || Lh[0] > kSmallMax)))
-      return (int)cudaErrorInvalidValue;
-    const long long words = 1LL << (bits - 5), groups = words >> 3;
-    need += words + (l < nsmall ? 0 : groups + sums_words((groups + kScanGroups - 1) / kScanGroups));
-  }
-  if (zwords < need) return (int)cudaErrorInvalidValue;
+  const long long need = sperr_rank::plan_words(plan_host, nsmall, nlevels);
+  if (nn < 1 || need < 0 || zwords < need) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(zbuf, 0, sizeof(uint32_t) * need, stream);
   if (err != cudaSuccess) return (int)err;
   anchor_chain<<<blocks_for(nn), kThreads, 0, stream>>>(node_s, f, nn, J, R, u, jp, sigf, wbuf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  long long boff = 0;
-  for (int l = 0; l < nsmall; ++l) boff += 1LL << (7 + plan_host[l * kLevelInts + 1]);
-  if (nsmall > 0) {
-    err = cudaFuncSetAttribute(anchor_small, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmallShared);
-    if (err != cudaSuccess) return (int)err;
-    anchor_small<<<1, 1024, kSmallShared, stream>>>(plan, nsmall, u, jp, R, zbuf);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  long long soff = boff;
-  for (int l = nsmall; l < nlevels; ++l) soff += 1LL << (7 + plan_host[l * kLevelInts + 1]);
-  for (int l = nsmall; l < nlevels; ++l) {
-    const int32_t* Ld = plan + l * kLevelInts;
-    const long long cnt = plan_host[l * kLevelInts];
-    const long long words = 1LL << (7 + plan_host[l * kLevelInts + 1]), groups = words >> 3;
-    const long long nblk = (groups + kScanGroups - 1) / kScanGroups;
-    int32_t* gcnt = reinterpret_cast<int32_t*>(zbuf + soff);
-    int32_t* bsum = gcnt + groups;
-    rank_mark<<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, u, jp, R, keys, zbuf + boff, gcnt);
-    rank_scan<<<(unsigned)nblk, kScanThreads, 0, stream>>>(gcnt, groups, bsum,
-                                                           reinterpret_cast<unsigned*>(bsum + nblk));
-    rank_bits<<<blocks_for(cnt), kThreads, 0, stream>>>(Ld, keys, zbuf + boff, gcnt, bsum, R);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    boff += words;
-    soff += groups + sums_words(nblk);
-  }
-  return (int)cudaSuccess;
+  return (int)sperr_rank::rank_levels(plan, plan_host, nsmall, nlevels, u, jp, R, keys, zbuf, stream);
 }
 
 // The stable radix sort of n keys (4 or 8 bytes, read as signed) with int32

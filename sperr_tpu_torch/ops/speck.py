@@ -295,6 +295,20 @@ def pixel_schedule_pyramid_ref(mags: torch.Tensor, pi: PyramidIndex, num_bp):
     return s, e, nm
 
 
+def node_passes(nm: torch.Tensor, num_bp) -> torch.Tensor:
+    """The walks' node passes from a schedule's node maxima: num_bp - nm
+    where nm > 0, else NEVER (int32).  On a CUDA tensor one launch
+    (``kernels.node_passes``); on a CPU tensor the plain version."""
+    if _dispatch(nm, "node_passes"):
+        return kernels.node_passes(_words32(nm), _words32(num_bp))
+    return node_passes_ref(nm, num_bp)
+
+
+def node_passes_ref(nm: torch.Tensor, num_bp) -> torch.Tensor:
+    """Plain ``node_passes``."""
+    return torch.where(nm > 0, num_bp - nm, _NEVER).to(_I32)
+
+
 # ---------------------------------------------------------------------------
 # Event form (the walks' event tail, ops/speck_lis._event_tail)
 # ---------------------------------------------------------------------------
@@ -436,5 +450,6 @@ __all__ = [
     "pixel_schedule_pyramid",
     "pixel_schedule_pyramid_ref",
     "schedule_pyramid",
+    "node_passes",
     "events_to_segments",
 ]

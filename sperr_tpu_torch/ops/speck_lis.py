@@ -20,10 +20,14 @@ their order.
 
 On a CUDA tensor the virtual walk (``_lis_items_virtual``) runs the hand
 kernels of kernels/walk.cu (K7, the row, born-entry and key kernels, and
-the stable radix sort, with K12 for its compactions), and ``lexsort`` runs
-the radix sort, which the table walk and the 2D walk (ops/speck_lis2.py)
-reach through it; on a CPU tensor their plain versions
-(``_lis_items_virtual_ref``, chained ``torch.sort``).
+the stable radix sort, with K12 for its compactions), the table walk
+(``_lis_items_table``) and the 2D walk (ops/speck_lis2.py) the kernels of
+kernels/walk_table.cu (``_table_items_cuda``: the anchors with K7's
+per-level bitmap ranks in place of the rank-doubling ladder, the rows, the
+born entries and their walk ranks by arithmetic in place of a sort, the
+keys) around the same radix sort, and ``lexsort`` runs the radix sort; on a
+CPU tensor their plain versions (``_lis_items_virtual_ref``,
+``_lis_items_table_ref``, chained ``torch.sort``).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ class LisIndex:
         "dims", "device", "nn", "n", "nrows", "max_ch", "depth_max", "nlev", "nroots",
         "parent", "level", "depth", "pw",
         "ch_start", "ch_count", "ctab",
-        "root_ids", "root_levels", "O0", "off0", "root_from", "shallow",
+        "root_ids", "root_levels", "O0", "off0", "root_from", "shallow", "_walk_static",
     )
 
     def __init__(self, dims, device):
@@ -109,6 +113,7 @@ class LisIndex:
         self.O0 = _i32(O0, dev)
         self.off0 = _i32(off0, dev)
         self.root_from = torch.zeros(rids.size, dtype=_I32, device=dev)
+        self._walk_static = None
 
     # -- walk interface (mirrored by speck_virtual.VirtualLisIndex) ---------
     def children(self, q, svalid, slot):
@@ -591,7 +596,16 @@ def _walk_ranks(ent_ok, ent_id, ent_lev, O_buf, nlev: int):
 def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
     """Walk-ordered emission items for a table-backed tree (``LisIndex``,
     any dims): (payload words [T] int32, n_sig int32), the words as
-    ``_walk_order`` lays them out.
+    ``_walk_order`` lays them out.  On a CUDA tensor the kernels of
+    kernels/walk_table.cu (``_table_items_cuda``); on a CPU tensor the plain
+    version."""
+    if pe._dispatch(node_s, "lis_items_table"):
+        return _table_items_cuda(node_s, s_lin, signs, li, node_cap)
+    return _lis_items_table_ref(node_s, s_lin, signs, num_bp, li, node_cap)
+
+
+def _lis_items_table_ref(node_s, s_lin, signs, num_bp, li, node_cap):
+    """Plain version of ``_lis_items_table``.
 
     Chain anchors by pointer doubling (J = J[J]), their string ranks by a
     rank-doubling ladder of (rank, rank of next) sorts, the born rows'
@@ -663,6 +677,328 @@ def _lis_items_table(node_s, s_lin, signs, num_bp, li, node_cap):
                        rows.sig_now, rows.emitted, rows.ispx, rows.row_sign), n_sig
 
 
+class TableStatic(NamedTuple):
+    """The table and 2D walks' static data on the card (made once per
+    index): the rank plan (K7's format: the levels that hold a node with node
+    children, coarse first, every node of each ranked), which levels it
+    ranks, the bits of the path words that some node or child row sets
+    (trailing zero bits, widths), and the index's tables as the kernels read
+    them."""
+
+    form: int                      # 0: table (3D), 1: 2D
+    plan: "svirt.RankPlan"
+    lev_ranked: torch.Tensor       # uint8 [nlev]
+    pwz: Tuple[int, ...]           # trailing zero bits of each path word
+    pwb: Tuple[int, ...]           # bits above them (0: the word is always 0)
+    lba_bits: int                  # bits of the insertion key's (level, pass, class) field
+    wa: int                        # bits of an anchor rank (or a 2D group's static rank)
+    itop: int                      # 2D: past every static I rank, 8 (xf - k) + {0; 1 + 2j; 2 + 2j}
+    tables: Dict[str, torch.Tensor]
+    layouts: Dict[int, "TableLayout"]  # by node cap, made once each
+
+
+def table_static(li) -> TableStatic:
+    """The ``TableStatic`` of a ``LisIndex`` or a 2D ``Lis2Index``, made once
+    and cached on the index.  Raises ValueError for a tree the kernels do not
+    take (more than 30 levels or 8 child slots, a ranked level in more than
+    16 id spans, rank keys past 32 bits)."""
+    if li._walk_static is not None:
+        return li._walk_static
+    form = 1 if hasattr(li, "xf") else 0
+    dev = li.device
+    nn, nlev = li.nn, li.nlev
+    if nlev > kernels.TABLE_MAX_LEVELS or li.max_ch > kernels.TABLE_MAX_CHILDREN:
+        raise ValueError(f"the walk kernels take at most {kernels.TABLE_MAX_LEVELS} levels and "
+                         f"{kernels.TABLE_MAX_CHILDREN} child slots; got {nlev}, {li.max_ch}")
+    lev = li.level.cpu().numpy().astype(np.int64)
+    cnt = li.ch_count.cpu().numpy().astype(np.int64)
+    ctab = li.ctab.cpu().numpy().astype(np.int64)
+    start = li.ch_start.cpu().numpy().astype(np.int64)
+    # nodes with a node child: the anchors and the nodes of their strings
+    row_par = np.repeat(np.arange(nn), cnt)
+    inner = np.zeros(nn, bool)
+    inner[row_par[(ctab & 1) == 0]] = True
+    G = int(getattr(li, "G", 0))
+    ns = kernels.RANK_SPANS
+    rows, counts, wks = [], [], []
+    below = 0
+    ranked = np.zeros(nlev, np.uint8)
+    for L in sorted(set(lev[inner].tolist())):
+        ids = np.flatnonzero(lev == L)
+        cut = np.flatnonzero(np.diff(ids) != 1) + 1
+        sp = [(int(a[0]), int(a[-1]) + 1) for a in np.split(ids, cut)]
+        if len(sp) > ns:
+            raise ValueError(f"level {L} has {len(sp)} id spans; the rank plan holds {ns}")
+        row = np.zeros(kernels.RANK_LEVEL_INTS, dtype=np.int32)
+        row[0] = ids.size
+        # the low field: the next string's rank + 1, or a 2D group's static rank
+        row[1] = max(below.bit_length(), max(G - 1, 0).bit_length())
+        row[2] = len(sp)
+        for k, (lo, hi) in enumerate(sp):
+            row[3 + k], row[3 + ns + k] = lo, hi
+        rows.append(row)
+        counts.append(int(ids.size))
+        wks.append(int(row[1]))
+        below = max(below, int(ids.size))
+        ranked[L] = 1
+    nsmall = 0
+    while (nsmall < len(rows) and counts[nsmall] <= kernels.RANK_SMALL_MAX
+           and 12 + wks[nsmall] <= kernels.RANK_SMALL_BITS):
+        nsmall += 1
+    host = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int32)
+    plan = svirt.RankPlan(host, _i32(host, dev), nsmall, tuple(counts), tuple(wks))
+    kernels.rank_layout(plan.host, plan.nsmall)  # raises for keys past 32 bits
+    # the bits any path word takes: the nodes' paths and their child rows'
+    # digits (slot + 1 at the parent's depth)
+    pw = li.pw.cpu().numpy().astype(np.int64)
+    depth = li.depth.cpu().numpy().astype(np.int64)
+    W = pw.shape[1]
+    masks = [int(np.bitwise_or.reduce(pw[:, k])) if nn else 0 for k in range(W)]
+    slots = (1 << int(cnt.max()).bit_length()) - 1 if nn else 0
+    for d in np.unique(depth[cnt > 0]).tolist():
+        if d // 6 < W:
+            masks[d // 6] |= slots << (5 * (5 - d % 6))
+    pwz = tuple(((m & -m).bit_length() - 1) if m else 0 for m in masks)
+    pwb = tuple((m.bit_length() - z) if m else 0 for m, z in zip(masks, pwz))
+    names = ("parent", "level", "depth", "pw", "ch_start", "ch_count", "ctab")
+    names += ("O0", "off0", "root_ids", "root_levels") if form == 0 else (
+        "k_of", "irank_of", "block_rank_of", "group_ids", "group_k", "gbit_rank")
+    tables = {k: getattr(li, k).contiguous() for k in names}
+    if form == 1:
+        tables["is_group"] = li.is_group.to(torch.uint8).contiguous()
+        if tables["group_ids"].numel() == 0:  # the kernels read no group; a valid pointer all the same
+            for k in ("group_ids", "group_k", "gbit_rank"):
+                tables[k] = torch.zeros(1, dtype=_I32, device=dev)
+    tables["lev_ranked"] = torch.as_tensor(ranked, device=dev)
+    wa = max(max(counts, default=0), G).bit_length()
+    lba = (nlev << 12) if form else (nlev << 11)
+    itop = 0
+    if form:
+        ranks = [li.gbit_rank.cpu().numpy(), li.block_rank_of.cpu().numpy()]
+        itop = max([8 * int(li.xf)] + [int(r.max()) + 1 for r in ranks if r.size])
+    li._walk_static = TableStatic(form, plan, tables["lev_ranked"], pwz, pwb, lba.bit_length(), max(1, wa),
+                                  itop, tables, {})
+    return li._walk_static
+
+
+class TableLayout(NamedTuple):
+    """The table or 2D walk's static sizes and sort-key widths at a node cap.
+    Items: the list entries (E: the born entries in insertion order, then
+    the roots; in 2D the born entries, the walk root and the G group heads,
+    all in insertion order), the child rows (R = C MC), and the 2D walk's
+    xf pending-I and G arrival items: T in all.  The insertion sort's first
+    key packs (level, pass, class; anchor rank) and, where it fits, path word
+    0 below them; the walk sort's packs (walk rank, tcap for none) above path
+    word 0; each other path word that some item sets is a key of its own,
+    its trailing zero bits shifted out."""
+
+    C: int
+    take: int             # the significant-set compaction's take, min(C, nn)
+    MC: int
+    R: int                # child rows
+    CB: int               # born entries, min(R, nn)
+    NE: int               # entries of the insertion sort
+    E: int                # list entries
+    T: int                # items
+    tcap: int             # the walk rank of "none" (past every walk and I rank)
+    wbase: int            # 2D: the I item space's first rank (E)
+    ipack: int            # bits of path word 0 in the insertion key (0: apart)
+    ins_words: Tuple[int, ...]  # path words that are insertion keys of their own
+    ins_bits: Tuple[int, ...]
+    wpack: int            # bits of path word 0 in the walk key (0: apart)
+    walk_words: Tuple[int, ...]
+    walk_bits: Tuple[int, ...]
+
+
+def table_layout(li, node_cap: int) -> TableLayout:
+    """The ``TableLayout`` of the table or 2D walk at ``node_cap``: every key
+    below 2^bits of its width (tests hold the widths against the keys)."""
+    st = table_static(li)
+    C = int(node_cap)
+    if C in st.layouts:
+        return st.layouts[C]
+    MC = int(li.max_ch)
+    R = C * MC
+    CB = min(R, li.nn)
+    if st.form:
+        xf, G = int(li.xf), int(li.G)
+        NE = E = CB + 1 + G
+        T = E + R + xf + G
+        tcap, wbase = E + st.itop, E
+    else:
+        NE, E = CB, CB + int(li.nroots)
+        T = E + R
+        tcap, wbase = E, E
+    pw0 = st.pwb[0]
+    ipack = pw0 if 0 < pw0 and st.lba_bits + st.wa + pw0 <= 63 else 0
+    ins_words = tuple(k for k, b in enumerate(st.pwb) if b and not (k == 0 and ipack))
+    wpack = pw0 if 0 < pw0 and tcap.bit_length() + pw0 <= 63 else 0
+    walk_words = tuple(k for k, b in enumerate(st.pwb) if b and not (k == 0 and wpack))
+    lay = st.layouts[C] = TableLayout(
+        C, min(C, li.nn), MC, R, CB, NE, E, T, tcap, wbase, ipack, ins_words,
+        (st.lba_bits + st.wa + ipack,) + tuple(st.pwb[k] for k in ins_words), wpack, walk_words,
+        (tcap.bit_length() + wpack,) + tuple(st.pwb[k] for k in walk_words))
+    return lay
+
+
+def table_anchors_ref(node_s, li, iset_s=None):
+    """Plain version of the anchors stage of the table and 2D walks
+    (``kernels.table_anchors``): (J, R, u, jp), each node's chain top, its
+    dense rank among its level's keys (u << wk | the next string's rank + 1,
+    or -1 - jp where jp < 0; 0 on the levels the plan does not rank), its
+    hop word and the next node of its string, as kernels/walk_table.cu
+    table_anchors and rank.cuh write them."""
+    st = table_static(li)
+    nn, nlev = li.nn, li.nlev
+    dev = node_s.device
+    z = torch.arange(nn, dtype=_I32, device=dev)
+    parent = li.parent
+    has = parent >= 0
+    sp = torch.where(has, node_s[torch.clamp(parent, min=0).long()], 0)
+    cur = torch.where(has, parent, z)
+    act = has
+    for _ in range(li.depth_max + 1):
+        g = parent[cur.long()]
+        same = act & (g >= 0) & (node_s[torch.clamp(g, min=0).long()] == sp)
+        cur = torch.where(same, g, cur)
+        act = same
+    J = torch.where(has & (sp == node_s), cur, z)
+    lev_cur = li.level[cur.long()]
+    if st.form == 0:
+        u = torch.where(has, (1 << 11) | (torch.clamp(sp, 0, 63) << 5) | (31 - lev_cur), li.O0)
+        jp = torch.where(has, cur, -1)
+    else:
+        grp = li.is_group
+        ar = torch.where(grp | ~has, z, cur).long()
+        kp = iset_s[torch.clamp(li.k_of[ar], 0, li.xf).long()]
+        ganc = li.is_group[ar] & ((z == ar) | (kp == node_s[ar]))
+        ranc = ar == 0
+        bn = torch.where(grp, iset_s[torch.clamp(li.k_of, 0, li.xf).long()], torch.where(has, sp, 0))
+        acode = torch.where(ganc, nlev + 1, nlev - li.level[ar])
+        u = torch.where(z == 0, 0, (torch.clamp(bn, 0, 63) << 6) | (acode << 1) | (~ranc).to(_I32))
+        jp = torch.where(ganc, -1 - torch.clamp(li.irank_of[ar], 0, 2047), torch.where(ranc | ~has, -1, ar.to(_I32)))
+        jp = torch.where(z == 0, -1, jp)
+    u, jp = u.to(_I32), jp.to(_I32)
+    R = torch.zeros(nn, dtype=_I32, device=dev)
+    rows = st.plan.host.reshape(-1, kernels.RANK_LEVEL_INTS)
+    for row in rows:
+        wk, ns = int(row[1]), int(row[2])
+        ids = torch.cat([torch.arange(int(row[3 + k]), int(row[3 + kernels.RANK_SPANS + k]), device=dev)
+                         for k in range(ns)])
+        j = jp[ids]
+        low = torch.where(j < 0, -1 - j, R[torch.clamp(j, min=0).long()] + 1).to(torch.int64)
+        key = (u[ids].to(torch.int64) << wk) | low
+        R[ids] = torch.unique(key, sorted=True, return_inverse=True)[1].to(_I32)
+    return J.to(_I32), R, u, jp
+
+
+def table_anchors(node_s, li, iset_s=None):
+    """The anchors stage of the table and 2D walks: (J, R, u, jp) as
+    ``table_anchors_ref`` defines them.  On a CUDA tensor the anchors kernel
+    and the rank levels (``kernels.table_anchors``); on a CPU tensor the
+    plain version."""
+    if pe._dispatch(node_s, "table_anchors"):
+        st = table_static(li)
+        a, bufs, _, _ = _table_args(li, table_layout(li, 1), st, node_s, None, None, iset_s, None)
+        kernels.table_anchors(a, node_s.device, st.plan.dev, st.plan.host, st.plan.nsmall)
+        return bufs["J"], bufs["R"], bufs["u"], bufs["jp"]
+    return table_anchors_ref(node_s, li, iset_s)
+
+
+def _table_args(li, lay, st, node_s, s_lin, signs, iset_s, num_bp):
+    """The kernels' structure for one call (``kernels.TableArgs``), with the
+    buffers it points at: (args, {name: tensor}, the insertion keys' path
+    words, the walk keys' path words).  s_lin and signs may be None for the
+    anchors stage alone."""
+    dev = node_s.device
+    nn = li.nn
+    inputs = {"node_s": node_s}
+    if s_lin is not None:
+        inputs["s_lin"] = s_lin
+    if st.form:
+        inputs["iset_s"] = iset_s
+        if num_bp is not None:
+            inputs["num_bp"] = num_bp.reshape(1)
+    for k, t in inputs.items():
+        kernels._require_cuda(t, _I32, k)
+        if t.device != dev:
+            raise ValueError(f"{k} is on {t.device}, node_s on {dev}")
+    if node_s.shape != (nn,):
+        raise ValueError(f"node_s must be ({nn},); got {tuple(node_s.shape)}")
+    if s_lin is not None:
+        kernels._require_cuda(signs, torch.bool, "signs")
+        if s_lin.shape != (li.n,) or signs.shape != (li.n,) or signs.device != dev:
+            raise ValueError(f"s_lin and signs must be ({li.n},) on {dev}; got {tuple(s_lin.shape)}, "
+                             f"{tuple(signs.shape)} on {signs.device}")
+        inputs["signs"] = signs.view(torch.uint8)
+    i32 = dict(dtype=_I32, device=dev)
+    bufs = dict(st.tables, **inputs,
+                J=torch.empty(nn, **i32), R=torch.empty(nn, **i32), u=torch.empty(nn, **i32),
+                jp=torch.empty(nn, **i32), sigf=torch.empty(nn, dtype=torch.uint8, device=dev),
+                wbuf=torch.empty(nn + 1, **i32), bflag=torch.empty(lay.R, dtype=torch.uint8, device=dev),
+                counts=torch.empty(li.nlev + 1, **i32), n_sig_out=torch.empty(1, **i32),
+                ikey0=torch.empty(lay.NE, dtype=torch.int64, device=dev), pay=torch.empty(lay.T, **i32),
+                wkey0=torch.empty(lay.T, dtype=torch.int64, device=dev))
+    ins = [torch.empty(lay.NE, **i32) for _ in lay.ins_words]
+    wks = [torch.empty(lay.T, **i32) for _ in lay.walk_words]
+    a = kernels.TableArgs()
+    for k, t in bufs.items():
+        setattr(a, k, t.data_ptr())
+    for k, t in zip(lay.ins_words, ins):
+        a.ipw[k] = t.data_ptr()
+    for k, t in zip(lay.walk_words, wks):
+        a.wpw[k] = t.data_ptr()
+    for k in ("nn", "n", "nrows", "nlev"):
+        setattr(a, k, int(getattr(li, k)))
+    a.form, a.MC, a.W = st.form, lay.MC, li.pw.shape[1]
+    a.xf, a.G = (int(li.xf), int(li.G)) if st.form else (0, 0)
+    a.nroots = 0 if st.form else int(li.nroots)
+    for k in ("C", "take", "CB", "NE", "E", "tcap", "wbase", "ipack", "wpack"):
+        setattr(a, k, getattr(lay, k))
+    a.rows = lay.R
+    a.wa = st.wa
+    for k, z in enumerate(st.pwz):
+        a.pwz[k] = z
+    return a, bufs, ins, wks
+
+
+def _table_items_cuda(node_s, s_lin, signs, li, node_cap, iset_s=None, num_bp=None, keep=None):
+    """The table walk (``LisIndex``) or the 2D walk (``Lis2Index``, with its
+    I-set passes and num_bp) on the card, as the plain versions compute it:
+    the anchors and the string ranks (``table_anchors``), K12 (the
+    significant sets), the child rows, K12 (the born rows), the entries'
+    insertion keys, their radix sort, the walk ranks, the entries' and rows'
+    walk keys, and the walk sort carrying the payloads.  Returns (payload
+    words [T] int32, n_sig int32 ()).  No host wait.  ``keep``, a dict,
+    receives the stages' buffers (J, R, u, jp, sid, ...) for inspection."""
+    st = table_static(li)
+    lay = table_layout(li, node_cap)
+    dev = node_s.device
+    a, bufs, ins, wks = _table_args(li, lay, st, node_s, s_lin, signs, iset_s, num_bp)
+
+    def point(**tensors):
+        for k, t in tensors.items():
+            bufs[k] = t
+            setattr(a, k, t.data_ptr())
+
+    kernels.table_anchors(a, dev, st.plan.dev, st.plan.host, st.plan.nsmall)
+    sid, cnt = pe.compact_flags_rows(bufs["sigf"].view(torch.bool).reshape(1, li.nn), lay.take)
+    point(sid=sid[0], sid_count=cnt)
+    kernels.table_stage("rows", a, dev)
+    bidx, bcnt = pe.compact_flags_rows(bufs["bflag"].view(torch.bool).reshape(1, lay.R), lay.CB)
+    point(born_idx=bidx[0], born_count=bcnt)
+    kernels.table_stage("born", a, dev)
+    point(perm=kernels.radix_lexsort([bufs["ikey0"]] + ins, lay.ins_bits))
+    kernels.table_stage("entries", a, dev)
+    kernels.table_stage("rowkeys", a, dev)
+    n_sig = bufs["n_sig_out"].reshape(())
+    if keep is not None:
+        keep.update(bufs, ins=ins, wks=wks)
+    if not wks:
+        return kernels.radix_sort(bufs["wkey0"], lay.walk_bits[0], bufs["pay"])[1], n_sig
+    return kernels.gather(bufs["pay"], kernels.radix_lexsort([bufs["wkey0"]] + wks, lay.walk_bits)), n_sig
+
+
 def _event_tail(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int,
                 return_events=False):
     """The walk's items in walk order -> emission events -> per-pass
@@ -725,4 +1061,5 @@ def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
     return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total, return_events)
 
 
-__all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort", "walk_layout"]
+__all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort", "walk_layout",
+           "table_anchors", "table_anchors_ref", "table_layout", "table_static"]

@@ -9,10 +9,16 @@ for the walk ranks, one for the items.  The I-set adds three item classes
 with computed ranks after every level-walk item: a pending I(k) membership
 bit per level, each group's arrival bit, and the rows of a group that
 partitions at its own birth pass, re-keyed into the I item space (static
-rank 8 (xf - k) + {0; 1 + 2j; 2 + 2j} for k = xf .. 1).  The items then
-go through the 3D walk's event tail (``ops/speck_lis._event_tail``): they
-expand into events and pack into byte-aligned per-pass segments, byte for
-byte those of codec.speck_sorted.lis_segments_sorted_2d.
+rank 8 (xf - k) + {0; 1 + 2j; 2 + 2j} for k = xf .. 1).  The items'
+payload words go to the emission (``return_events="items"``: on the card
+K9b's LIS planes and K11, ops/wave_pack.wave_emit_2d_lis, as the 3D walk's
+do), or through the 3D walk's event tail (``ops/speck_lis._event_tail``,
+the plain form): they expand into events and pack into byte-aligned
+per-pass segments, byte for byte those of
+codec.speck_sorted.lis_segments_sorted_2d.  On a CUDA tensor the walk runs
+the kernels of kernels/walk_table.cu (``speck_lis._table_items_cuda``) and
+the I-set passes ``iset_max``; on a CPU tensor the plain versions
+(``_lis2_items_ref``, ``iset_significance_ref``).
 
 As in the table walk, the compactions of the significant sets and of the
 born rows are K12 (ascending indices with a sentinel, as the reference's
@@ -31,9 +37,11 @@ import torch
 
 from ..codec.speck_sorted import sorted_tree
 from ..codec.speck_wave import build_tree2
+from .. import kernels
+from .packemit import _dispatch, _words32
 from .speck_lis import (
     LisIndex, _bcast8, _born_rows, _chain_anchors, _event_tail, _i32, _level_counts, _pack2,
-    _parent_rows, _string_ranks, _walk_order, _walk_ranks, lexsort,
+    _parent_rows, _string_ranks, _table_items_cuda, _walk_order, _walk_ranks, lexsort,
 )
 
 _NEVER = 0x7FFF
@@ -53,7 +61,7 @@ class Lis2Index:
         "dims", "device", "nn", "n", "nrows", "max_ch", "depth_max", "nlev", "xf", "G",
         "parent", "level", "depth", "pw", "ch_start", "ch_count", "ctab",
         "is_group", "k_of", "irank_of", "block_rank_of",
-        "group_ids", "group_k", "gbit_rank", "gsel", "ks",
+        "group_ids", "group_k", "gbit_rank", "gsel", "ks", "_walk_static",
     )
 
     def __init__(self, dims, device):
@@ -119,6 +127,7 @@ class Lis2Index:
             gsel[k, i] = True
         self.gsel = torch.as_tensor(gsel, device=dev)
         self.ks = _i32(np.arange(self.xf, 0, -1), dev)  # the I levels, k = xf .. 1
+        self._walk_static = None
 
     # the table walk's child and path lookups
     children = LisIndex.children
@@ -142,8 +151,16 @@ def lis2_index(dims, device) -> Lis2Index:
 def iset_significance_device(pm2d: torch.Tensor, tree, num_bp) -> torch.Tensor:
     """iset_s[k] for k = 0 .. xf from the (ny, nx) msb+1 map: the pass at
     which the level-k I region (everything outside the corner (ax_k, ay_k))
-    turns significant; index 0 is unused (NEVER).  xf reductions over
-    static slices."""
+    turns significant; index 0 is unused (NEVER).  On a CUDA tensor one
+    launch (``kernels.iset_max``); on a CPU tensor the plain version."""
+    if _dispatch(pm2d, "iset_significance_device"):
+        return kernels.iset_max(_words32(pm2d), tree.iset_regions[: tree.xf + 1], _words32(num_bp))
+    return iset_significance_ref(pm2d, tree, num_bp)
+
+
+def iset_significance_ref(pm2d: torch.Tensor, tree, num_bp) -> torch.Tensor:
+    """Plain ``iset_significance_device``: xf reductions over static
+    slices."""
     ny, nx = pm2d.shape
     never = torch.full((), _NEVER, dtype=_I32, device=pm2d.device)
     vals = [never]
@@ -159,13 +176,31 @@ def iset_significance_device(pm2d: torch.Tensor, tree, num_bp) -> torch.Tensor:
 
 
 def lis2_segments_device(node_s, s_lin, signs, num_bp, iset_s, li: Lis2Index, num_bp_cap: int,
-                         node_cap: int, ev_cap: int, cap_total: int):
-    """Every 2D LIS bit on the device, in the event form.
+                         node_cap: int, ev_cap: int, cap_total: int, return_events=False):
+    """Every 2D LIS bit on the device.
 
-    Returns (buf uint8 [cap_total], counts int32 [num_bp_cap], total_bytes
-    int32, n_sig int32): buf is the byte-aligned concatenation of the
-    per-pass segments.  On an event, byte or born-row cap overflow n_sig is
-    raised past any node cap, so the caller takes the host engine."""
+    ``return_events="items"`` (the emission's form, ops/wave_pack.py):
+    (walk-ordered payload words, n_sig), the born-row cap folded into n_sig.
+    False (the event form): (buf uint8 [cap_total], counts int32
+    [num_bp_cap], total_bytes int32, n_sig int32), buf the byte-aligned
+    concatenation of the per-pass segments (``_event_tail``); True: the
+    events.  On an event, byte or born-row cap overflow n_sig is raised past
+    any node cap, so the caller takes the host engine.  The items come from
+    the kernels of kernels/walk_table.cu on a CUDA tensor
+    (``speck_lis._table_items_cuda``), from ``_lis2_items_ref`` on a CPU
+    tensor."""
+    if _dispatch(node_s, "lis2_segments_device"):
+        pay_s, n_sig = _table_items_cuda(node_s, s_lin, signs, li, node_cap, iset_s, num_bp)
+    else:
+        pay_s, n_sig = _lis2_items_ref(node_s, s_lin, signs, num_bp, iset_s, li, node_cap)
+    if return_events == "items":
+        return pay_s, n_sig
+    return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total, return_events)
+
+
+def _lis2_items_ref(node_s, s_lin, signs, num_bp, iset_s, li: Lis2Index, node_cap: int):
+    """The 2D walk's items, plain version: (walk-ordered payload words [T]
+    int32, n_sig int32), the born-row cap folded into n_sig."""
     nn = li.nn
     MC = li.max_ch
     C = node_cap
@@ -300,8 +335,8 @@ def lis2_segments_device(node_s, s_lin, signs, num_bp, iset_s, li: Lis2Index, nu
         ]
     pay_s = _walk_order(w_of_ent, c_pw, ent_from, ent_s, bok, kw_row, rp, rows.rowpass,
                         rows.sig_now, rows.emitted, rows.ispx, rows.row_sign, extra)
+    return pay_s, n_sig
 
-    return _event_tail(pay_s, n_sig, num_bp, num_bp_cap, ev_cap, cap_total)
 
-
-__all__ = ["Lis2Index", "lis2_index", "iset_significance_device", "lis2_segments_device"]
+__all__ = ["Lis2Index", "lis2_index", "iset_significance_device", "iset_significance_ref",
+           "lis2_segments_device"]

@@ -387,10 +387,31 @@ def wave_emit_2d_pixels(mags, signs, s, e, num_bp, px_bp_cap: int, evb_cap: int,
     mags = mags.to(_I32)
     if wexp_cap and wexp_cap < mags.shape[0]:
         exposed = _compact_exposed(mags, signs, s, e, num_bp, wexp_cap)
-    else:
-        exposed = _every_pixel(mags, signs, s, e)
-    res = pe.masked_pack(_pixel_planes(*exposed[4:], num_bp, px_bp_cap), evb_cap, out_cap_bytes)
-    return pe.words_to_bytes(res.out_words), res.counts, res.total_bytes, res.overflow | exposed[3]
+        pixels, exp_over = exposed[4:], exposed[3]
+    else:  # every pixel, no torch op besides the kernels
+        pixels, exp_over = (s, e, signs, mags), None
+    res = pe.masked_pack(_pixel_planes(*pixels, num_bp, px_bp_cap), evb_cap, out_cap_bytes)
+    over = res.overflow if exp_over is None else res.overflow | exp_over
+    return pe.words_to_bytes(res.out_words), res.counts, res.total_bytes, over
 
 
-__all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "WaveEmit", "emit_exposed", "emit_planes"]
+def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int):
+    """The LIS bits of one 2D field from its walk's payload words (K14's set
+    half): the planes of K9b, packed by K11, as ``wave_emit_3d`` packs the
+    3D walk's.  Returns (buf uint8 [cap_total], counts int32 [num_bp_cap],
+    total_bytes int64, n_sig int32), the event form's layout
+    (``speck_lis._event_tail``): the byte-aligned per-pass segments, zero
+    past the total.  n_sig is raised past any node cap where the event form
+    raises it: more bits than ``ev_cap``, or more bytes than ``cap_total``.
+    K11's piece cap never binds (every piece may be non-empty) and its
+    buffer holds cap_total bytes, so a stream that fits is never cut."""
+    Tp = -(-pay_s.shape[0] // 128) * 128
+    planes = emit_planes("lis", (pay_s,), num_bp, num_bp_cap, Tp)
+    res = pe.masked_pack([planes], num_bp_cap * Tp // 16 // 8, -(-cap_total // 4) * 4)
+    over = (res.counts.sum() > ev_cap) | (res.total_bytes > cap_total)
+    n_sig = torch.where(over, torch.full_like(n_sig, 2**31 - 1), n_sig)
+    return pe.words_to_bytes(res.out_words)[:cap_total], res.counts, res.total_bytes, n_sig
+
+
+__all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "wave_emit_2d_lis", "WaveEmit", "emit_exposed",
+           "emit_planes"]

@@ -505,7 +505,7 @@ def _wave_emit_chunk(mags: torch.Tensor, signs: torch.Tensor, li, caps: Dict[str
     honoured, no overflow, num_bp <= the tier's bitplane cap), all on the
     device."""
     num_bp, s, e, nm = _schedule(mags, li if si is None else si)
-    node_s = torch.where(nm > 0, num_bp - nm, _WAVE_NEVER).to(torch.int32)
+    node_s = spk.node_passes(nm, num_bp)
     em = wp.wave_emit_3d(
         mags, signs, s, e, node_s, num_bp, li, caps["P"], caps["node_cap"],
         caps["evb_cap"], caps["out_cap_bytes"], caps["wexp_cap"],

@@ -39,11 +39,12 @@ from ..codec import speck_int_np as sp
 from ..ops import cdf97, cdf97_np
 from ..ops import packemit as pe
 from ..ops import quantize as qz
+from ..ops import speck as spk
 from ..ops import speck_lis as sl
+from ..ops import speck_lis2 as sl2
 from ..ops import wave_pack as wp
 from ..ops import wave_unpack as wup
 from ..parallel.batched import (
-    _WAVE_NEVER,
     TorchCompressor3D,
     _dense_decode,
     _dense_encode,
@@ -483,7 +484,7 @@ def container_decode_stages(n: int = 256, tol: float = 1e-2, iters: int = 4,
 
 
 def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
-                           device="cuda") -> Dict:
+                           device="cuda", dims=None) -> Dict:
     """Per-substage device seconds for the wave-entropy encode of one n^3
     chunk at the compressor's first tier: cumulative chains are timed (every
     chain re-runs all earlier substages), and the reported per-substage cost
@@ -493,19 +494,23 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
 
     Substages: quantize (condition -> DWT -> K1) -> schedule (``_schedule``:
     num_bp, s, e and node maxima by the virtual forest's kernels, or
-    ``ops/speck.py``'s for a chunk that is not a power-of-two cube) -> the
-    set walk's LIS items (on the card the walk kernels of kernels/walk.cu
-    for a power-of-two cube: a few dozen launches, which the sleep kernel
-    covers, so the delta is timed "device" where the chains allow it) ->
-    the full emission (``wave_emit_3d``: K9a, K9b, K11).
+    ``ops/speck.py``'s for a chunk that is not a power-of-two cube; then the
+    node passes, ``node_passes``) -> the set walk's LIS items (on the card
+    the walk kernels of kernels/walk.cu for a power-of-two cube, of
+    kernels/walk_table.cu for any other chunk: a few dozen launches, which
+    the sleep kernel covers, so the delta is timed "device" where the chains
+    allow it) -> the full emission (``wave_emit_3d``: K9a or K12, K9b,
+    K11).  ``dims`` = (nx, ny, nz) breaks down a chunk of those dims (cut
+    from the smooth field of the largest) in place of the n^3 cube.
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
     the walk plus the refinement class's planes (``emit_planes``, K9b, as
     the emission runs it over every pixel), pext and popcounts."""
     dev = _resolve_device(device)
-    vol = _smooth_field(n)
+    dims3 = (n, n, n) if dims is None else tuple(int(d) for d in dims)
+    nx3, ny3, nz3 = dims3
+    vol = np.ascontiguousarray(_smooth_field(max(dims3))[:, :nz3, :ny3, :nx3])
     x = torch.from_numpy(vol).to(dev)
-    dims3 = (n, n, n)
-    nelems = n * n * n
+    nelems = nx3 * ny3 * nz3
     li, si = _wave_index(dims3, dev)
     num_bp_cap = TorchCompressor3D(dims3, dims3, device=dev, entropy="wave").num_bp_cap
     caps = _wave_caps(li, dims3, wave_tiers_for(nelems)[0], num_bp_cap)
@@ -520,8 +525,7 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     def to_sched(y):
         mags, signs = to_ll(y)
         num_bp, s, e, nm = _schedule(mags, si)
-        node_s = torch.where(nm > 0, num_bp - nm, _WAVE_NEVER).to(torch.int32)
-        return mags, signs, s, e, node_s, num_bp
+        return mags, signs, s, e, spk.node_passes(nm, num_bp), num_bp
 
     def to_items(y):
         mags, signs, s, e, node_s, num_bp = to_sched(y)
@@ -549,7 +553,7 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     }
     # each substage is the difference of two adjacent chains timed by one
     # method
-    out: Dict = {"n": n}
+    out: Dict = {"n": n, "dims": dims3}
     timed: Dict[str, str] = {}
     names = list(chains)
     for i, name in enumerate(names):
@@ -575,8 +579,14 @@ def wave2d_stage(nx: int = 1024, ny: int = 1024, batch: int = 4,
     ``_dense_encode2``) and the whole device entropy encode at the first
     tier of ``TorchCompressor2D(entropy="wave")`` (the front with its
     outlier compaction, then each field's program ``_wave_emit_field``).
-    The reference's 2D rows (BASELINE.md Turbulence1024: 241-881 ms/field at
-    0.25-4 bpp on one core) are the comparison."""
+    ``program`` breaks field 0's program down, per field, as chains timed
+    by one method a pair (the delta of two adjacent chains): the
+    child-table schedule (``sched_table``), the pixel classes (K9b, K11),
+    the walk's items (``node_passes``, ``iset_max``, the table walk's
+    kernels and sorts, K12) and its LIS planes packed (K9b, K11); its
+    ``timed`` names each delta's method.  The reference's 2D rows
+    (BASELINE.md Turbulence1024: 241-881 ms/field at 0.25-4 bpp on one
+    core) are the comparison."""
     dev = _resolve_device(device)
     fields = _turbulence_fields(nx, ny, batch)
     x = torch.from_numpy(fields).to(dev)
@@ -594,12 +604,54 @@ def wave2d_stage(nx: int = 1024, ny: int = 1024, batch: int = 4,
 
     td, how_d = time_stage(lambda y: _dense_encode2(y, "pwe", float(tol), "dual"), x, iters=iters)
     tw, how_w = time_stage(wave, x, iters=iters)
+    front = _dense_encode_rows(x[:1], "pwe", float(tol), "dual", cdf97.dwt2d, cdf97.idwt2d, out_cap=n)
+    signs = front["signs"][0]
+    ti, li2, tree2 = index
+    P = comp.num_bp_cap
+
+    def to_sched(m):
+        return spk.schedule_table(m, ti)
+
+    def to_pixels(m):
+        num_bp, pm, s, e, nm = to_sched(m)
+        wp.wave_emit_2d_pixels(m, signs, s, e, num_bp, caps["px_bp"], caps["px_evb"], caps["px_out"],
+                               caps["wexp_px"])
+        return num_bp, pm, s, nm
+
+    def to_walk(m):
+        num_bp, pm, s, nm = to_pixels(m)
+        iset_s = sl2.iset_significance_device(pm.reshape(ny, nx), tree2, num_bp)
+        return num_bp, sl2.lis2_segments_device(spk.node_passes(nm, num_bp), s, signs, num_bp, iset_s, li2, P,
+                                                caps["node_cap"], caps["ev_cap"], caps["cap_total"],
+                                                return_events="items")
+
+    def to_lis(m):
+        num_bp, (pay, n_sig) = to_walk(m)
+        return wp.wave_emit_2d_lis(pay, n_sig, num_bp, P, caps["ev_cap"], caps["cap_total"])
+
+    chains = {"schedule": to_sched, "pixels": to_pixels, "walk": to_walk, "lis_pack": to_lis}
+    program: Dict = {}
+    ptimed: Dict[str, str] = {}
+    names = list(chains)
+    m0 = front["mags"][0]
+    for i, name in enumerate(names):
+        if i == 0:
+            cum, ptimed[name] = time_stage(chains[name], m0, iters)
+            prev = 0.0
+        else:
+            secs, ptimed[name] = _time_together({names[i - 1]: chains[names[i - 1]], name: chains[name]},
+                                                m0, iters)
+            cum, prev = secs[name], secs[names[i - 1]]
+        program[name + "_ms"] = (cum - prev) * 1e3
+    program["total_ms"] = cum * 1e3
+    program["timed"] = ptimed
     return {
         "nx": nx, "ny": ny, "batch": batch,
         "dense_core_s": td,
         "wave_total_s": tw,
         "per_field_ms": tw / batch * 1e3,
         "wave_encode_gbps": fields.nbytes / tw / 1e9,
+        "program": program,
         "timed": {"dense_core": how_d, "wave_total": how_w},
         "device": device_label(dev),
     }

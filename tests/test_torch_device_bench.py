@@ -116,7 +116,8 @@ def test_device_bench_keys_and_times(name, monkeypatch):
     ours = getattr(tdb, name)(device="cpu", **_CASES[name])
     ref = _jax_result(monkeypatch, name)
     want = set(ref)
-    extra = {"device", "timed"} | ({"tier"} if name == "wave_entropy_stage" else set())
+    extra = {"device", "timed"} | {"wave_entropy_stage": {"tier"}, "wave_entropy_breakdown": {"dims"},
+                                   "wave2d_stage": {"program"}}.get(name, set())
     assert set(ours) == want | extra
     assert ours["device"] == "cpu"
     if name in ("container_decode_stages", "wave_entropy_stage"):
@@ -141,6 +142,10 @@ def test_device_bench_keys_and_times(name, monkeypatch):
                                              ours["hybrid"]["decode_total_s"])
     if name == "wave_entropy_stage":
         assert ours["regime"] == ref["regime"] == "smooth(tier 0)" and ours["fits"]
+    if name == "wave2d_stage":
+        prog = ours["program"]
+        assert set(prog["timed"]) == {"schedule", "pixels", "walk", "lis_pack"}
+        assert set(prog["timed"].values()) == {"cpu"} and prog["total_ms"] > 0
 
 
 @pytest.mark.parametrize("n,regime", [(32, "smooth"), (32, "dense"), (16, "noisy")])

@@ -434,11 +434,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.walk_vtab(w, w.bool(), None, w, w, 4, 72)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.anchor_ranks(w, w, w, np.zeros(0, np.int32), 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.node_passes(w, w[:1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.iset_max(w.reshape(8, 8), [(0, 0), (4, 4)], w[:1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.table_anchors(kernels.TableArgs(), "cpu", w, np.zeros(0, np.int32), 0)
     assert set(kernels.launches) == {
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
-        "emit_exposed", "emit_planes",
+        "emit_exposed", "emit_planes", "table_anchors", "table_walk", "iset_max", "node_passes",
     }
     assert not any(kernels.launches.values())
 

@@ -390,7 +390,9 @@ def test_bitmap_widths_at_256():
 
 
 def test_walk_cu_constants_match_their_mirrors():
-    src = open(os.path.join(os.path.dirname(kernels.__file__), "walk.cu")).read()
+    # the ranks' constants live in rank.cuh, which walk.cu includes
+    src = "".join(open(os.path.join(os.path.dirname(kernels.__file__), f)).read()
+                  for f in ("rank.cuh", "walk.cu"))
     consts = {}
     for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
         consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
