@@ -58,8 +58,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      with every radix sort it ran, iset_max, and the 2D LIS segments
      through K9b and K11 against the plain event form at three caps, on a
      Hurricane packet chunk at tiers 0, 1 and a node cap of nn / 20, its
-     all-zero, one-pixel and 2^31 - 1 forms, the dyadic chunk, a 1024^2
-     and the 1800x3600 field, 33x57 random and edge fields; each timed
+     all-zero, one-pixel and 2^31 - 1 forms, the dyadic chunk, a 1024^2,
+     the 1800x3600 and a 3600x7200 field (its finest rank level too wide
+     for a bitmap: the sorted route), 33x57 random and edge fields, the
+     anchors also with every level past 16 key bits sorted (as K7 on the
+     cube chunks), and node_passes also on headline chunk 0's schedule;
+     each timed
      beside its plain version and bound, with its launches, its peak
      memory, and no torch or CUB sort, scan or cummax among its kernels);
   4. the 3D path: a 512^3 f32 field, 8 chunks of 256^3, PWE 1e-2, through
@@ -111,8 +115,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      masks, its launches by name, and every device operation from its
      schedule's first kernel to K11's last one of the repo's kernels or a
      memset); phase 8's
-     field at PWE, PSNR and rate and a noisy field that climbs the tier
-     ladder, each wave stream equal to its host one;
+     field at PWE, PSNR and rate, a 3600x7200 field at PWE (its finest
+     rank level sorted) and a noisy field that climbs the tier ladder, each
+     wave stream equal to its host one;
  11. the command-line tools (--exec cuda), as new processes: sperr3d on
      phase 4's volume (container and decode equal to phase 4's),
      sperr3d_trunc, sperr2d on field 0 of phase 7 (stream equal to the
@@ -1010,6 +1015,33 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     _check(wave7.last_wave_tiers[0] is None, "rate 2.0 fit the device (more than 18 bitplanes expected)")
     print(f"[wave2d] {ny7}x{nx7} (index build {build7:.3f} s): " + "; ".join(routes)
           + "; every wave stream equal to its host one")
+    # a field past the rank bitmaps' 32 key bits: its finest rank level sorted
+    ny8, nx8 = 3600, 7200
+    f8 = _turbulence_like(ny8, nx8, 17)
+    t0 = time.perf_counter()
+    li8 = tb2._wave_index2((nx8, ny8), dev)[1]
+    build8 = time.perf_counter() - t0
+    st8 = speck_lis.table_static(li8)
+    rl8 = kernels.rank_layout(st8.plan.host, st8.plan.nsmall)
+    _check(rl8.nbitmap < len(rl8.bits), f"{ny8}x{nx8}: no rank level past the bitmaps ({rl8.bits} key bits)")
+    want = tb2.TorchCompressor2D((nx8, ny8), device=dev).compress(f8, "pwe", tol)
+    w8 = tb2.TorchCompressor2D((nx8, ny8), device=dev, entropy="wave")
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = w8.compress(f8, "pwe", tol)
+    wall = time.perf_counter() - t0
+    l8 = {k: v for k, v in kernels.launches.items() if v}
+    _check(got == want, f"{ny8}x{nx8} pwe: the wave stream differs from the host one")
+    _check(w8.last_wave_chunks == 1, f"{ny8}x{nx8}: the field did not stay on the device")
+    for name in ("sched_table", "node_passes", "iset_max", "table_anchors", "table_walk", "radix_sort",
+                 "emit_planes", "masked_pack"):
+        _check(l8.get(name, 0) > 0, f"{ny8}x{nx8}: {name} was not launched")
+    print(f"[wave2d] {ny8}x{nx8} PWE {tol} (index build {build8:.3f} s; rank levels of {rl8.bits} key bits, "
+          f"{len(rl8.bits) - rl8.nbitmap} sorted): {len(got)} bytes, equal to the host stream, tier "
+          f"{w8.last_wave_tiers[0]}, wave {wall:.3f} s (first call at this shape); launches {l8}; peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes")
+    del f8, w8, li8, st8
     noisy = np.random.default_rng(3).normal(size=(256, 256)).astype(np.float32)
     want = tb2.TorchCompressor2D((256, 256), device=dev).compress(noisy, "pwe", tol)
     wn = tb2.TorchCompressor2D((256, 256), device=dev, entropy="wave")
@@ -1814,7 +1846,10 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
             equal("walk_vtab", (sv.child_value_table(vf, s, signs, node_s, mg),),
                   (sv.child_value_table_ref(vf, s, signs, node_s, mg),),
                   f"{label}, mags {'packed' if mg is not None else 'apart'}")
-        equal("anchor_ranks", sv.dense_anchor_ranks(node_s, vf), sv.dense_anchor_ranks_ref(node_s, vf), label)
+        want_k7 = sv.dense_anchor_ranks_ref(node_s, vf)
+        equal("anchor_ranks", sv.dense_anchor_ranks(node_s, vf), want_k7, label)
+        equal("anchor_ranks", sv.dense_anchor_ranks(node_s, vf, bitmap_bits=16), want_k7,
+              f"{label}, the levels past 16 key bits sorted")
         vtab = sv.child_value_table(vf, s, signs, node_s)
         nsorts = 0
         for clabel, c in caps:
@@ -1828,13 +1863,14 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
                       f"{label}, {clabel}: a sort of {keys.numel()} keys")
                 nsorts += 1
             for (keys,) in lc["lexsort"]:
-                equal("radix_sort", (sl.lexsort(keys),), (sl._lexsort_ref(keys),),
+                equal("radix_sort", (kernels.radix_lexsort(keys).long(),), (sl.lexsort(keys),),
                       f"{label}, {clabel}: the plain walk's lexsort of {keys[0].numel()} keys")
                 nsorts += 1
             if label == "headline chunk 0" and clabel in ("tier 0", "tier 1"):
                 keep[clabel] = (node_s, s, signs, nb, vf, c, vtab, rc["radix_sort"], lc["lexsort"])
         print(f"[kernels] walk, {label}: num_bp {int(nb)}, {int((node_s < 0x7FFF).sum())} significant sets; "
-              f"walk_vtab (mags packed and apart), anchor_ranks (J, R) and the walk's payload words at "
+              f"walk_vtab (mags packed and apart), anchor_ranks (J, R; bitmaps and sorted levels) and the walk's "
+              f"payload words at "
               f"{', '.join(f'{cl} ({c})' for cl, c in caps)} equal to the plain versions bit for bit, and "
               f"{nsorts} sorts equal to torch.sort(stable=True)")
         del vtab, got, want
@@ -1865,7 +1901,7 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
         _check(len(calls) > 0, f"the {what} called no lexsort")
         for (keys,) in calls:
             got = kernels.radix_lexsort(keys).long()
-            equal("radix_sort", (got,), (sl._lexsort_ref(keys),), f"the {what}'s lexsort")
+            equal("radix_sort", (got,), (sl.lexsort(keys),), f"the {what}'s lexsort")
         print(f"[kernels] lexsort on the {what}'s keys ({len(calls)} calls, "
               f"{', '.join(str(len(k)) for (k,) in calls)} keys each): the radix sort equal to the chained "
               "torch.sort bit for bit")
@@ -1920,7 +1956,7 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     wk, wb, wv = walk_sort
     plain_keys = max(plain_sorts1, key=lambda a: a[0][0].numel())[0]
     rows["radix_sort"] = {"fn": lambda: kernels.radix_sort(wk, wb, wv),
-                          "plain": lambda: sl._lexsort_ref(plain_keys),
+                          "plain": lambda: sl.lexsort(plain_keys),
                           "library": lambda: torch.sort(wk, stable=True), "library_how": "device",
                           "library_what": "torch.sort(stable=True)",
                           "bytes": 2 * (wk.element_size() + 4) * wk.numel(), "earlier": "0.7958-0.7985",
@@ -2036,9 +2072,12 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     total and n_sig; at the tier-0 caps, an event cap of 700 and a byte cap
     of 100).  Inputs: a Hurricane ISABEL packet chunk (100, 256, 256) at
     tiers 0 and 1 and at a node cap of nn / 20, its all-zero, one-pixel and
-    2^31 - 1 forms, the dyadic chunk (118, 128, 97); a 1024^2 and the
-    1800 x 3600 field, 33 x 57 random, an all-zero and a 2^31 - 1 1024^2,
-    a one-pixel 33 x 57.  Each kernel timed at the main path's shapes on
+    2^31 - 1 forms, the dyadic chunk (118, 128, 97); a 1024^2, the
+    1800 x 3600 and a 3600 x 7200 field (its finest rank level past the
+    bitmaps' 32 bits: sorted), 33 x 57 random, an all-zero and a 2^31 - 1
+    1024^2, a one-pixel 33 x 57; the anchors also with every level past 16
+    key bits sorted; node_passes also on headline chunk 0's schedule (the
+    256^3 cube path's).  Each kernel timed at the main path's shapes on
     the device and as the host issues it, beside its plain version, its
     bound and, for the anchors, torch.unique on the largest ranked level's
     keys.  Returns each kernel's row of the result line."""
@@ -2110,6 +2149,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         equal("node_passes", (ns,), (spk.node_passes_ref(nm, nb),), label)
         want_anc = sl.table_anchors_ref(ns, li)
         equal("table_anchors", sl.table_anchors(ns, li), want_anc, label)
+        equal("table_anchors", sl.table_anchors(ns, li, bitmap_bits=16), want_anc, f"{label}, levels sorted")
         for clabel, c in caps:
             c = li.nn if c is None else c
             keep = {}
@@ -2133,6 +2173,14 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
               f"n_sig at {', '.join(f'{cl} ({li.nn if c is None else c})' for cl, c in caps)} equal to the plain "
               f"versions bit for bit")
 
+    # node_passes on the 256^3 cube path's node maxima (headline chunk 0)
+    m0, _ = front(vol512[:256, :256, :256])
+    nb0, _, _, nm0 = tb._schedule(m0, tb._wave_index((256, 256, 256), dev)[1])
+    equal("node_passes", (spk.node_passes(nm0, nb0),), (spk.node_passes_ref(nm0, nb0),),
+          f"headline chunk 0 (256^3 cube, {nm0.numel()} nodes)")
+    print(f"[kernels] node_passes on headline chunk 0's {nm0.numel()} cube nodes equal to the plain version")
+    del m0, nm0
+
     # -- 2D fields on the 2D walk ----------------------------------------------------
     rng = np.random.default_rng(19)
     f1024 = front(_turbulence_like(1024, 1024, 0), True)
@@ -2141,6 +2189,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
            torch.from_numpy(rng.random(n57) < 0.5).to(dev))
     cases2 = [("1024^2 field", (1024, 1024), f1024),
               ("1800x3600 field", (3600, 1800), front(_turbulence_like(1800, 3600, 16), True)),
+              ("3600x7200 field", (7200, 3600), front(_turbulence_like(3600, 7200, 17), True)),
               ("33x57 random", (33, 57), r57),
               ("all zero 1024^2", (1024, 1024), (edge(f1024[0], "zero"), f1024[1])),
               ("1024^2 with 2^31 - 1", (1024, 1024), (edge(f1024[0], "big"), f1024[1])),
@@ -2157,6 +2206,11 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         equal("iset_max", (iset,), (sl2.iset_significance_ref(pm2, tree, nb),), label)
         want_anc = sl.table_anchors_ref(ns, li, iset)
         equal("table_anchors", sl.table_anchors(ns, li, iset), want_anc, label)
+        equal("table_anchors", sl.table_anchors(ns, li, iset, bitmap_bits=16), want_anc, f"{label}, levels sorted")
+        st = sl.table_static(li)
+        rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)
+        nsorted = len(rl.bits) - rl.nbitmap
+        _check(nsorted == (label == "3600x7200 field"), f"{label}: {nsorted} rank levels sorted ({rl.bits} key bits)")
         keep = {}
         with _capture(kernels, ["radix_sort"]) as rc:
             got = sl._table_items_cuda(ns, s, sg, li, li.nn, iset, nb, keep=keep)
@@ -2193,8 +2247,14 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
             timing["iset_max 1800x3600"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
                                                 plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
                                                 bytes=4 * n + 4 * (tree.xf + 1) + 4)
-        print(f"[kernels] 2D walk, {label}: num_bp {int(nb)}, n_sig {int(got[1])}; node_passes, iset_max, "
-              f"table_anchors and the walk's payload words equal to the plain versions bit for bit; the LIS "
+        if label == "3600x7200 field":
+            timing["anchors K14 3600x7200"] = dict(fn=lambda a=(ns, li, iset): sl.table_anchors(*a),
+                                                   plain=lambda a=(ns, li, iset): sl.table_anchors_ref(*a),
+                                                   li=li, ns=ns, iset=iset)
+        print(f"[kernels] 2D walk, {label}: num_bp {int(nb)}, n_sig {int(got[1])}, rank levels of {rl.bits} key "
+              f"bits, {nsorted} sorted; node_passes, iset_max, "
+              f"table_anchors (also with the levels past 16 bits sorted) and the walk's payload words equal to "
+              f"the plain versions bit for bit; the LIS "
               f"segments through K9b and K11 equal to the event form at {', '.join(fits) or 'no cap'}, n_sig "
               "equal at every cap")
     print(f"[kernels] the table and 2D walks ran {nsorts} radix sorts, each equal to torch.sort(stable=True)")
@@ -2263,7 +2323,8 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     pick = lambda r: {k: r.get(k) for k in keys}  # noqa: E731
     out = {
         "node_passes": pick(rows["node_passes"]),
-        "table_anchors": dict(pick(rows["anchors K15"]), **{"2d": pick(rows["anchors K14 1024^2"])}),
+        "table_anchors": dict(pick(rows["anchors K15"]), **{"2d": pick(rows["anchors K14 1024^2"]),
+                                                             "2d_3600x7200": pick(rows["anchors K14 3600x7200"])}),
         "table_walk": dict(pick(rows["K15 tier 0"]), **{"tier1": pick(rows["K15 tier 1"]),
                                                          "2d": pick(rows["K14 1024^2"]),
                                                          "2d_1800x3600": pick(rows["K14 1800x3600"])}),
@@ -3289,7 +3350,7 @@ def main() -> int:
                                                            "launches_2d", "lsd_floor_ms")} if name in walk else {}),
          **({k: v for k, v in emit[name].items() if k in ("tier0", "per_class", "launches_table", "launches_2d",
                                                            "k9_stage", "chunk512")} if name in emit else {}),
-         **({k: v for k, v in twalk[name].items() if k in ("tier1", "2d", "2d_1800x3600", "1800x3600", "timed",
+         **({k: v for k, v in twalk[name].items() if k in ("tier1", "2d", "2d_1800x3600", "2d_3600x7200", "1800x3600", "timed",
                                                             "busy_ms", "launches_per_call", "launches_2d",
                                                             "launches_cube_path")}
             if name in twalk else {}),

@@ -207,12 +207,16 @@ def load(device=None) -> ct.CDLL:
                 ("sperr_table_born", [vp, vp]),
                 ("sperr_table_entries", [vp, vp]),
                 ("sperr_table_rowkeys", [vp, vp]),
+                ("sperr_rank_keys", [vp, ll, vp, vp, vp, vp, vp]),
+                ("sperr_rank_sorted", [vp, ll, vp, vp, vp, ll, vp, vp]),
                 ("sperr_node_passes", [vp, vp, ll, vp, vp]),
                 ("sperr_iset_max", [vp, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
                 fn.argtypes = args
+            lib.sperr_rank_scratch_words.restype = ll
+            lib.sperr_rank_scratch_words.argtypes = [ll]
             lib.sperr_cuda_error_string.restype = ct.c_char_p
             lib.sperr_cuda_error_string.argtypes = [ct.c_int]
             _lib = lib
@@ -876,6 +880,7 @@ RANK_LEVEL_INTS = 3 + 2 * RANK_SPANS  # words per level (kLevelInts)
 RANK_SMALL_MAX = 4096  # nodes of a level ranked in one block (kSmallMax)
 RANK_SMALL_BITS = 21  # key bits of a level ranked in one block (kSmallBits)
 RANK_SCAN_GROUPS = 256 * 4  # 8-word groups per block of a larger level's scan (kScanGroups)
+RANK_BITMAP_BITS = 32  # widest keys a level ranks by its presence bitmap; wider ones sort (kBitmapBits)
 FOREST_DEPTHS = 14  # entries of the forest's per-depth tables (kMaxDepth)
 FOREST_ROOTS = 64  # roots the forest descriptor holds (kMaxRoots)
 
@@ -1017,43 +1022,79 @@ class AnchorRanks(NamedTuple):
 
 
 class RankLayout(NamedTuple):
-    """K7's scratch for a rank plan (as sperr_anchor_ranks lays it out)."""
+    """K7's scratch for a rank plan (as sperr_anchor_ranks lays it out):
+    its first ``nbitmap`` levels ranked by their presence bitmaps, the rest
+    by sorting their keys."""
 
     bits: Tuple[int, ...]        # key bits of each level, 12 + wk
-    words: Tuple[int, ...]       # 4-byte words of each level's bitmap, 2^(bits - 5)
-    scan_blocks: Tuple[int, ...]  # blocks of each larger level's group scan (0: one block)
+    nbitmap: int                 # leading levels ranked by bitmaps (keys within bitmap_bits)
+    nsmall: int                  # of them, the leading ones ranked in one block
+    words: Tuple[int, ...]       # 4-byte words of each bitmap level's bitmap, 2^(bits - 5)
+    scan_blocks: Tuple[int, ...]  # blocks of each larger bitmap level's group scan (0: one block)
     zwords: int                  # 4-byte words zeroed per call: the bitmaps, then per larger
                                  # level its groups' counts, scan blocks' sums and a counter
-    keys: int                    # keys of the largest larger level
+    keys: int                    # keys of the largest larger bitmap level
 
 
-def rank_layout(plan_host: np.ndarray, nsmall: int) -> RankLayout:
-    """The bitmaps and scan blocks of a rank plan; raises where a level's
-    keys are wider than 32 bits, or where a level ranked in one block has
-    more than RANK_SMALL_MAX nodes or RANK_SMALL_BITS key bits."""
+def rank_layout(plan_host: np.ndarray, nsmall: int, bitmap_bits: int = RANK_BITMAP_BITS) -> RankLayout:
+    """The bitmaps and scan blocks of a rank plan: the levels before the
+    first whose keys are wider than ``bitmap_bits`` (at most 32) take the
+    bitmaps, that level and the rest sort their keys (``_rank_sorted``);
+    the one-block levels are the first min(nsmall, nbitmap).  Raises where
+    a level ranked in one block has more than RANK_SMALL_MAX nodes or
+    RANK_SMALL_BITS key bits."""
+    if not 12 <= bitmap_bits <= RANK_BITMAP_BITS:
+        raise ValueError(f"bitmap_bits must be in [12, {RANK_BITMAP_BITS}]; got {bitmap_bits}")
     levels = np.asarray(plan_host, dtype=np.int64).reshape(-1, RANK_LEVEL_INTS)
     bits = tuple(12 + int(w) for w in levels[:, 1])
-    if any(b > 32 for b in bits):
-        raise ValueError(f"rank keys of {max(bits)} bits: the bitmap route takes at most 32")
+    if any(not 12 <= b <= 43 for b in bits):  # u < 2^12 above a rank + 1 < 2^31
+        raise ValueError(f"rank keys of {bits} bits")
+    nbm = next((k for k, b in enumerate(bits) if b > bitmap_bits), len(bits))
+    nsmall = min(nsmall, nbm)
     if (levels[:nsmall, 0] > RANK_SMALL_MAX).any() or any(b > RANK_SMALL_BITS for b in bits[:nsmall]):
         raise ValueError(f"a level ranked in one block has more than {RANK_SMALL_MAX} nodes or "
                          f"keys wider than {RANK_SMALL_BITS} bits")
-    words = tuple(1 << (b - 5) for b in bits)
+    words = tuple(1 << (b - 5) for b in bits[:nbm])
     blocks = tuple(0 if k < nsmall else -(-(w // 8) // RANK_SCAN_GROUPS) for k, w in enumerate(words))
-    big = range(nsmall, len(bits))
+    big = range(nsmall, nbm)
     # per larger level: its groups' counts, then its blocks' sums and their
     # counter padded to 16 bytes
-    return RankLayout(bits, words, blocks,
+    return RankLayout(bits, nbm, nsmall, words, blocks,
                       sum(words) + sum(words[k] // 8 + -(-(blocks[k] + 1) // 4) * 4 for k in big),
                       max((int(levels[k, 0]) for k in big), default=1))
 
 
+def _rank_sorted(lib, plan: torch.Tensor, plan_host: np.ndarray, lay: RankLayout, u: int, jp: int,
+                 R: int, dev) -> int:
+    """The plan's levels past ``lay.nbitmap``, coarse first, ranked by
+    sorting their keys (u, jp, R: the (nn,) int32 buffers' addresses on
+    dev): per level its keys packed in 64 bits, the radix sort over their
+    12 + wk bits carrying their positions, then the heads and their ranks
+    (rank.cuh).  Returns the launches besides the sort's."""
+    levels = plan_host.reshape(-1, RANK_LEVEL_INTS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for l in range(lay.nbitmap, levels.shape[0]):
+        cnt, wk = int(levels[l, 0]), int(levels[l, 1])
+        L = plan.data_ptr() + 4 * RANK_LEVEL_INTS * l
+        keys = torch.empty(cnt, dtype=torch.int64, device=dev)
+        err = lib.sperr_rank_keys(L, cnt, u, jp, R, keys.data_ptr(), stream)
+        _check(lib, err, "rank_keys")
+        sk, sv = radix_sort(keys, 12 + wk, None)  # the values: each key's position in the level
+        scratch = torch.empty(lib.sperr_rank_scratch_words(cnt), dtype=torch.int32, device=dev)
+        err = lib.sperr_rank_sorted(L, cnt, sk.data_ptr(), sv.data_ptr(), scratch.data_ptr(), scratch.numel(), R,
+                                    stream)
+        _check(lib, err, "rank_sorted")
+    return 4 * (levels.shape[0] - lay.nbitmap)
+
+
 def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
-                 plan_host: np.ndarray, nsmall: int, walk: bool = False) -> AnchorRanks:
+                 plan_host: np.ndarray, nsmall: int, walk: bool = False,
+                 bitmap_bits: int = RANK_BITMAP_BITS) -> AnchorRanks:
     """K7: the chain tops J and string ranks R of every node from node_s
     (nn,) int32.  ``plan``: the ranked levels (RANK_LEVEL_INTS words each,
     ascending), the first ``nsmall`` of them ranked in one block, each other
-    by a presence bitmap of its keys in three launches (``rank_layout``).
+    by a presence bitmap of its keys in three launches, or where its keys
+    are wider than ``bitmap_bits`` by sorting them (``rank_layout``).
     With ``walk``, also the walk's significance flags and its rank table
     (set to BIG)."""
     _require_cuda(node_s, torch.int32, "node_s")
@@ -1067,7 +1108,7 @@ def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
             or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev):
         raise ValueError(f"node_s (nn > 0,) and a plan of {RANK_LEVEL_INTS}-word levels; got "
                          f"{tuple(node_s.shape)}, {plan.numel()} words, nsmall {nsmall}")
-    lay = rank_layout(plan_host, nsmall)
+    lay = rank_layout(plan_host, nsmall, bitmap_bits)
     J = torch.empty(nn, dtype=torch.int32, device=dev)
     R = torch.empty(nn, dtype=torch.int32, device=dev)
     u = torch.empty(nn, dtype=torch.int32, device=dev)
@@ -1075,18 +1116,19 @@ def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
     sigf = torch.empty(nn, dtype=torch.uint8, device=dev) if walk else None
     wbuf = torch.empty(nn + 1, dtype=torch.int32, device=dev) if walk else None
     keys = torch.empty(lay.keys, dtype=torch.int32, device=dev)
-    zbuf = torch.empty(lay.zwords, dtype=torch.int32, device=dev)
+    zbuf = torch.empty(max(1, lay.zwords), dtype=torch.int32, device=dev)
     lib = load(dev)
     with _on_device(node_s):
         err = lib.sperr_anchor_ranks(
             node_s.data_ptr(), forest.data_ptr(), nn, plan.data_ptr(),
-            plan_host.ctypes.data_as(ct.c_void_p), int(nsmall), nlev, J.data_ptr(), R.data_ptr(),
+            plan_host.ctypes.data_as(ct.c_void_p), lay.nsmall, lay.nbitmap, J.data_ptr(), R.data_ptr(),
             u.data_ptr(), jp.data_ptr(), None if sigf is None else sigf.data_ptr(),
-            None if wbuf is None else wbuf.data_ptr(), keys.data_ptr(), zbuf.data_ptr(), lay.zwords,
+            None if wbuf is None else wbuf.data_ptr(), keys.data_ptr(), zbuf.data_ptr(), zbuf.numel(),
             _stream(node_s),
         )
-    _check(lib, err, "anchor_ranks")
-    _count("anchor_ranks", 1 + (1 if nsmall else 0) + 3 * (nlev - nsmall))
+        _check(lib, err, "anchor_ranks")
+        sorted_launches = _rank_sorted(lib, plan, plan_host, lay, u.data_ptr(), jp.data_ptr(), R.data_ptr(), dev)
+    _count("anchor_ranks", 1 + (1 if lay.nsmall else 0) + 3 * (lay.nbitmap - lay.nsmall) + sorted_launches)
     return AnchorRanks(J, R, sigf, wbuf)
 
 
@@ -1341,26 +1383,30 @@ class TableArgs(ct.Structure):
                 + [(k, ct.c_longlong) for k in TABLE_SIZES] + [("pwz", ct.c_longlong * TABLE_PATH_WORDS)])
 
 
-def table_anchors(args: TableArgs, dev, plan: torch.Tensor, plan_host: np.ndarray, nsmall: int) -> None:
+def table_anchors(args: TableArgs, dev, plan: torch.Tensor, plan_host: np.ndarray, nsmall: int,
+                  bitmap_bits: int = RANK_BITMAP_BITS) -> None:
     """The table or 2D walk's anchors and string ranks: J, R, u, jp, the
     significance flags and the walk rank table of ``args`` from its node
-    passes, then the levels of the rank plan (K7's bitmaps, ``rank_layout``).
-    1 + (1 if nsmall) + 3 per other level launches."""
+    passes, then the levels of the rank plan (K7's bitmaps; a level whose
+    keys are wider than ``bitmap_bits`` sorted, ``rank_layout``).  1 + (1
+    if nsmall) + 3 per other bitmap level + 4 per sorted level launches,
+    and each sorted level's radix sort."""
     _require_cuda(plan, torch.int32, "plan")
     plan_host = np.ascontiguousarray(plan_host, dtype=np.int32)
     nlev = plan_host.size // RANK_LEVEL_INTS
     if plan.numel() != plan_host.size or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev:
         raise ValueError(f"a plan of {RANK_LEVEL_INTS}-word levels; got {plan.numel()} words, nsmall {nsmall}")
-    lay = rank_layout(plan_host, nsmall)
+    lay = rank_layout(plan_host, nsmall, bitmap_bits)
     keys = torch.empty(lay.keys, dtype=torch.int32, device=dev)
     zbuf = torch.empty(max(1, lay.zwords), dtype=torch.int32, device=dev)
     lib = load(dev)
     with _on_device(plan):
         err = lib.sperr_table_anchors(ct.byref(args), plan.data_ptr(), plan_host.ctypes.data_as(ct.c_void_p),
-                                      int(nsmall), nlev, keys.data_ptr(), zbuf.data_ptr(), zbuf.numel(),
+                                      lay.nsmall, lay.nbitmap, keys.data_ptr(), zbuf.data_ptr(), zbuf.numel(),
                                       _stream(plan))
-    _check(lib, err, "table_anchors")
-    _count("table_anchors", 1 + (1 if nsmall else 0) + 3 * (nlev - nsmall))
+        _check(lib, err, "table_anchors")
+        sorted_launches = _rank_sorted(lib, plan, plan_host, lay, args.u, args.jp, args.R, plan.device)
+    _count("table_anchors", 1 + (1 if lay.nsmall else 0) + 3 * (lay.nbitmap - lay.nsmall) + sorted_launches)
 
 
 def table_stage(stage: str, args: TableArgs, dev) -> None:

@@ -17,6 +17,17 @@
 // blocks' prefixes, from the last block to finish; rank).  The bitmaps,
 // counts and block sums are zeroed by one memset per call.
 //
+// A level whose keys are wider than kBitmapBits (a bitmap of 2^(12 + wk)
+// bits would pass 512 MB: the 2D walk's finest levels from about 26M pixels
+// on) is ranked by sorting its keys instead: they are packed in 64 bits
+// (rank_sort_keys), the stable radix sort carries each key's position in the
+// level, a bitmap over the sorted positions marks the heads (a key unlike
+// the one before it: rank_heads, a warp's ballot a word, a block's count a
+// group), rank_scan takes the groups' prefixes, and a node's rank is the
+// heads at or before its sorted position, less one (rank_sorted).  The
+// plan's bitmap levels come first (wk grows along the plan), the sorted
+// levels after them, each in its own call.
+//
 // A level of the plan (kLevelInts words): its node count, the bit width wk of
 // the low field of its keys, its number of id spans, their starts and ends.
 // The low field is R[jp] + 1 for jp >= 0, and -1 - jp for jp < 0 (0 for a
@@ -39,6 +50,7 @@ constexpr int kSmallShared = kSmallMax * 4 + kSmallGroups * 4;
 constexpr int kScanThreads = 256;
 constexpr int kScanGroups = kScanThreads * 4;
 constexpr int kRankThreads = 256;
+constexpr int kBitmapBits = 32;  // widest keys a level ranks by its presence bitmap
 
 namespace {
 
@@ -227,6 +239,45 @@ __global__ void rank_bits(const int32_t* __restrict__ L, const uint32_t* __restr
   R[level_node(L, i)] = bsum[(key >> 8) / kScanGroups] + gpre[key >> 8] + bits_below_in_group(bm, key);
 }
 
+// A sorted level, launch 1 of 4: each node's key packed in 64 bits, in
+// level order (u < 2^12 above a low field of wk <= 31 bits).
+__global__ void rank_sort_keys(const int32_t* __restrict__ L, const int32_t* __restrict__ u,
+                               const int32_t* __restrict__ jp, const int32_t* __restrict__ R,
+                               long long* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L[0]) return;
+  const int z = level_node(L, i);
+  const int j = jp[z];
+  keys[i] = ((long long)u[z] << L[1]) | (j < 0 ? (long long)(-1 - j) : (long long)R[j] + 1);
+}
+
+// Launch 2 of 4, after the sort (sk: the sorted keys): bit i of hb set where
+// sk[i] is a head.  One block of 256 threads per 8-word group writes the
+// group's words and its count of heads (every word of the padded groups
+// written: no memset).
+__global__ void __launch_bounds__(256) rank_heads(const long long* __restrict__ sk, long long cnt,
+                                                  uint32_t* __restrict__ hb, int32_t* __restrict__ gcnt) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  const bool h = i < cnt && (i == 0 || sk[i] != sk[i - 1]);
+  const unsigned w = __ballot_sync(0xffffffffu, h);
+  if ((threadIdx.x & 31) == 0) hb[i >> 5] = w;
+  const int c = __syncthreads_count(h);
+  if (threadIdx.x == 0) gcnt[blockIdx.x] = c;
+}
+
+// Launch 4 of 4 (after rank_scan on the groups' counts): the node at sorted
+// position i (sv: the sort's positions in the level) takes the heads at or
+// before i, less one: equal keys, equal ranks, dense from 0.
+__global__ void rank_sorted(const int32_t* __restrict__ L, const int32_t* __restrict__ sv,
+                            const uint32_t* __restrict__ hb, const int32_t* __restrict__ gpre,
+                            const int32_t* __restrict__ bsum, int32_t* __restrict__ R) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= L[0]) return;
+  const uint32_t k = (uint32_t)i;
+  const int head = (int)((__ldcg(hb + (k >> 5)) >> (k & 31)) & 1u);
+  R[level_node(L, sv[i])] = bsum[(k >> 8) / kScanGroups] + gpre[k >> 8] + bits_below_in_group(hb, k) + head - 1;
+}
+
 // A larger level's scan blocks' sums and their counter, in 4-byte words
 // padded to 16 bytes (the next level's counts are read as int4).
 long long sums_words(long long nblk) { return (nblk + 1 + 3) & ~3LL; }
@@ -234,24 +285,25 @@ long long sums_words(long long nblk) { return (nblk + 1 + 3) & ~3LL; }
 // The 4-byte words of the zeroed scratch of a plan (every level's bitmap of
 // 2^(12 + wk) bits in plan order, then per larger level its 8-word groups'
 // counts, its scan blocks' sums and their counter), or -1 for a plan the
-// kernels refuse: a level of more than 32 key bits, or one ranked in one
-// block beyond kSmallMax nodes or kSmallBits.
+// bitmaps refuse: a level of more than kBitmapBits key bits (its caller
+// sorts those), or one ranked in one block beyond kSmallMax nodes or
+// kSmallBits.
 long long plan_words(const int32_t* plan_host, int nsmall, int nlevels) {
   if (nsmall < 0 || nsmall > nlevels) return -1;
   long long need = 0;
   for (int l = 0; l < nlevels; ++l) {
     const int32_t* Lh = plan_host + l * kLevelInts;
     const int bits = 12 + Lh[1];
-    if (Lh[1] < 0 || bits > 32 || (l < nsmall && (bits > kSmallBits || Lh[0] > kSmallMax))) return -1;
+    if (Lh[1] < 0 || bits > kBitmapBits || (l < nsmall && (bits > kSmallBits || Lh[0] > kSmallMax))) return -1;
     const long long words = 1LL << (bits - 5), groups = words >> 3;
     need += words + (l < nsmall ? 0 : groups + sums_words((groups + kScanGroups - 1) / kScanGroups));
   }
   return need;
 }
 
-// Ranks the levels of a plan (u and jp written by the caller's earlier
-// launch on the stream; zbuf zeroed by the caller): the first nsmall in one
-// block, each other in three launches.
+// Ranks the bitmap levels of a plan (u and jp written by the caller's
+// earlier launch on the stream; zbuf zeroed by the caller): the first
+// nsmall in one block, each other in three launches.
 cudaError_t rank_levels(const int32_t* plan, const int32_t* plan_host, int nsmall, int nlevels,
                         const int32_t* u, const int32_t* jp, int32_t* R, uint32_t* keys,
                         uint32_t* zbuf, cudaStream_t stream) {
@@ -285,6 +337,46 @@ cudaError_t rank_levels(const int32_t* plan, const int32_t* plan_host, int nsmal
     soff += groups + sums_words(nblk);
   }
   return cudaSuccess;
+}
+
+// The scratch of a sorted level of cnt nodes, in 4-byte words: the heads'
+// bitmap over 8-word groups padded to a multiple of 4 groups, the groups'
+// counts (then prefixes), the scan blocks' sums and their counter.
+long long sorted_words(long long cnt, long long* groups_out) {
+  const long long groups = (((cnt + 255) >> 8) + 3) & ~3LL;
+  if (groups_out) *groups_out = groups;
+  return groups * 9 + sums_words((groups + kScanGroups - 1) / kScanGroups);
+}
+
+// A sorted level's keys (L: the level's plan words on the device; cnt: its
+// nodes).
+cudaError_t sort_keys_level(const int32_t* L, long long cnt, const int32_t* u, const int32_t* jp,
+                            const int32_t* R, long long* keys, cudaStream_t stream) {
+  if (cnt < 1) return cudaErrorInvalidValue;
+  rank_sort_keys<<<(unsigned)((cnt + kRankThreads - 1) / kRankThreads), kRankThreads, 0, stream>>>(
+      L, u, jp, R, keys);
+  return cudaGetLastError();
+}
+
+// A sorted level's ranks from its sorted keys sk and their positions sv
+// (scratch: sorted_words(cnt) 4-byte words, 16-byte aligned; its counter
+// zeroed here).
+cudaError_t sorted_level(const int32_t* L, long long cnt, const long long* sk, const int32_t* sv,
+                         uint32_t* scratch, long long words, int32_t* R, cudaStream_t stream) {
+  long long groups;
+  if (cnt < 1 || words < sorted_words(cnt, &groups) || reinterpret_cast<uintptr_t>(scratch) % 16)
+    return cudaErrorInvalidValue;
+  const long long nblk = (groups + kScanGroups - 1) / kScanGroups;
+  uint32_t* hb = scratch;
+  int32_t* gcnt = reinterpret_cast<int32_t*>(scratch + groups * 8);
+  int32_t* bsum = gcnt + groups;
+  cudaError_t err = cudaMemsetAsync(bsum + nblk, 0, sizeof(int32_t), stream);
+  if (err != cudaSuccess) return err;
+  rank_heads<<<(unsigned)groups, 256, 0, stream>>>(sk, cnt, hb, gcnt);
+  rank_scan<<<(unsigned)nblk, kScanThreads, 0, stream>>>(gcnt, groups, bsum, reinterpret_cast<unsigned*>(bsum + nblk));
+  rank_sorted<<<(unsigned)((cnt + kRankThreads - 1) / kRankThreads), kRankThreads, 0, stream>>>(L, sv, hb, gcnt,
+                                                                                              bsum, R);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -772,8 +772,10 @@ extern "C" int sperr_walk_vtab(const int32_t* s, const uint8_t* sg, const int32_
 // here in one memset): every level's bitmap of 2^(12 + wk) bits in plan
 // order, then per larger level its 8-word groups' counts (then their
 // prefixes), its scan blocks' sums and their counter (16-byte aligned).  A level of
-// more than 32 key bits, or one ranked in one block beyond kSmallMax nodes
-// or kSmallBits, is refused.
+// more than kBitmapBits key bits, or one ranked in one block beyond
+// kSmallMax nodes or kSmallBits, is refused: the caller passes the plan's
+// bitmap levels and ranks the wider ones after them by sorting
+// (sperr_rank_keys, the radix sort, sperr_rank_sorted).
 extern "C" int sperr_anchor_ranks(const int32_t* node_s, const WalkForest* f, long long nn,
                                   const int32_t* plan, const int32_t* plan_host, int nsmall,
                                   int nlevels, int32_t* J, int32_t* R, int32_t* u, int32_t* jp,

@@ -26,7 +26,9 @@
 //     hop word (the table form's u; the 2D form's class word, packed to 12
 //     bits in the same order); the ranks of the strings then come level by
 //     level, coarse levels first, from rank.cuh's presence bitmaps (the
-//     virtual walk's K7 method), with no sort.  Ranks are compared only
+//     virtual walk's K7 method), with no sort (a level whose keys pass the
+//     bitmaps' 32 bits, the 2D walk's finest from about 26M pixels on, sorts
+//     them with the radix sort and ranks their heads).  Ranks are compared only
 //     between anchors of one level (the insertion key holds the anchor's
 //     level or class first), and equal hop words continue on one level (the
 //     word holds the next node's level), so a rank per level orders the
@@ -559,6 +561,25 @@ extern "C" int sperr_table_anchors(const TableArgs* a, const int32_t* plan, cons
   if (err != cudaSuccess) return (int)err;
   return (int)sperr_rank::rank_levels(plan, plan_host, nsmall, nlevels, a->u, a->jp, a->R, keys, zbuf, stream);
 }
+
+// A level of a rank plan ranked by sorting (keys past the bitmaps' 32
+// bits; the table and virtual walks both call it): its keys packed in 64
+// bits in level order (L: the level's plan words on the device, cnt its
+// nodes; u, jp and R of the coarser levels written earlier on the stream).
+extern "C" int sperr_rank_keys(const int32_t* L, long long cnt, const int32_t* u, const int32_t* jp,
+                               const int32_t* R, long long* keys, cudaStream_t stream) {
+  return (int)sperr_rank::sort_keys_level(L, cnt, u, jp, R, keys, stream);
+}
+
+// After the stable sort of those keys carrying their positions (sk, sv): the
+// level's dense ranks into R.  scratch: sperr_rank_scratch_words(cnt)
+// 4-byte words, 16-byte aligned.
+extern "C" int sperr_rank_sorted(const int32_t* L, long long cnt, const long long* sk, const int32_t* sv,
+                                 uint32_t* scratch, long long words, int32_t* R, cudaStream_t stream) {
+  return (int)sperr_rank::sorted_level(L, cnt, sk, sv, scratch, words, R, stream);
+}
+
+extern "C" long long sperr_rank_scratch_words(long long cnt) { return sperr_rank::sorted_words(cnt, nullptr); }
 
 // The child rows' payload words and born flags.
 extern "C" int sperr_table_rows(const TableArgs* a, cudaStream_t stream) {

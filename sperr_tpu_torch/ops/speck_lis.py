@@ -23,11 +23,12 @@ kernels of kernels/walk.cu (K7, the row, born-entry and key kernels, and
 the stable radix sort, with K12 for its compactions), the table walk
 (``_lis_items_table``) and the 2D walk (ops/speck_lis2.py) the kernels of
 kernels/walk_table.cu (``_table_items_cuda``: the anchors with K7's
-per-level bitmap ranks in place of the rank-doubling ladder, the rows, the
-born entries and their walk ranks by arithmetic in place of a sort, the
-keys) around the same radix sort, and ``lexsort`` runs the radix sort; on a
-CPU tensor their plain versions (``_lis_items_virtual_ref``,
-``_lis_items_table_ref``, chained ``torch.sort``).
+per-level bitmap ranks in place of the rank-doubling ladder, levels too
+wide for a bitmap sorted, the rows, the born entries and their walk ranks
+by arithmetic in place of a sort, the keys) around the same radix sort; on
+a CPU tensor their plain versions (``_lis_items_virtual_ref``,
+``_lis_items_table_ref``), which sort with ``lexsort`` (chained
+``torch.sort``) on every device.
 """
 
 from __future__ import annotations
@@ -198,16 +199,9 @@ def _pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """Permutation (int64) that sorts by keys[0], then keys[1], ... (ties
-    keep their input order): on a CUDA tensor the stable radix sort of
-    kernels/walk.cu over every digit of each key, on a CPU tensor
-    ``_lexsort_ref``."""
-    if pe._dispatch(keys[0], "lexsort"):
-        return kernels.radix_lexsort(keys).long()
-    return _lexsort_ref(keys)
-
-
-def _lexsort_ref(keys: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain ``lexsort``: chained stable sorts from the last key."""
+    keep their input order): chained stable torch.sort calls from the last
+    key, on every device.  Only the plain walks call it; the walks' kernels
+    sort with ``kernels.radix_lexsort``."""
     perm = torch.sort(keys[-1], stable=True).indices
     for k in reversed(keys[:-1]):
         perm = perm[torch.sort(k[perm], stable=True).indices]
@@ -701,7 +695,7 @@ def table_static(li) -> TableStatic:
     """The ``TableStatic`` of a ``LisIndex`` or a 2D ``Lis2Index``, made once
     and cached on the index.  Raises ValueError for a tree the kernels do not
     take (more than 30 levels or 8 child slots, a ranked level in more than
-    16 id spans, rank keys past 32 bits)."""
+    16 id spans)."""
     if li._walk_static is not None:
         return li._walk_static
     form = 1 if hasattr(li, "xf") else 0
@@ -747,7 +741,6 @@ def table_static(li) -> TableStatic:
         nsmall += 1
     host = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int32)
     plan = svirt.RankPlan(host, _i32(host, dev), nsmall, tuple(counts), tuple(wks))
-    kernels.rank_layout(plan.host, plan.nsmall)  # raises for keys past 32 bits
     # the bits any path word takes: the nodes' paths and their child rows'
     # digits (slot + 1 at the parent's depth)
     pw = li.pw.cpu().numpy().astype(np.int64)
@@ -892,15 +885,16 @@ def table_anchors_ref(node_s, li, iset_s=None):
     return J.to(_I32), R, u, jp
 
 
-def table_anchors(node_s, li, iset_s=None):
+def table_anchors(node_s, li, iset_s=None, bitmap_bits=kernels.RANK_BITMAP_BITS):
     """The anchors stage of the table and 2D walks: (J, R, u, jp) as
     ``table_anchors_ref`` defines them.  On a CUDA tensor the anchors kernel
-    and the rank levels (``kernels.table_anchors``); on a CPU tensor the
-    plain version."""
+    and the rank levels (``kernels.table_anchors``; levels whose keys are
+    wider than ``bitmap_bits`` sorted: a lower value drives that route at
+    small sizes); on a CPU tensor the plain version."""
     if pe._dispatch(node_s, "table_anchors"):
         st = table_static(li)
         a, bufs, _, _ = _table_args(li, table_layout(li, 1), st, node_s, None, None, iset_s, None)
-        kernels.table_anchors(a, node_s.device, st.plan.dev, st.plan.host, st.plan.nsmall)
+        kernels.table_anchors(a, node_s.device, st.plan.dev, st.plan.host, st.plan.nsmall, bitmap_bits)
         return bufs["J"], bufs["R"], bufs["u"], bufs["jp"]
     return table_anchors_ref(node_s, li, iset_s)
 

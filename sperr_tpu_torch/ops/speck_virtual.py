@@ -565,14 +565,17 @@ def child_value_table_ref(vf: VirtualLisIndex, s: torch.Tensor, signs: torch.Ten
     return vf.vtab_from(vf.box_major_pixels(pv), node_s)
 
 
-def dense_anchor_ranks(node_s: torch.Tensor, vf: VirtualLisIndex) -> Tuple[torch.Tensor, torch.Tensor]:
+def dense_anchor_ranks(node_s: torch.Tensor, vf: VirtualLisIndex,
+                       bitmap_bits: int = kernels.RANK_BITMAP_BITS) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: (J, R), each node's same-pass chain anchor and its string rank
     (``dense_anchor_ranks_ref`` defines them).  On a CUDA tensor the hand
-    kernels of kernels/walk.cu (``anchor_ranks``); on a CPU tensor the plain
-    version."""
+    kernels of kernels/walk.cu (``anchor_ranks``; levels whose keys are
+    wider than ``bitmap_bits`` sorted: a lower value drives that route at
+    small sizes); on a CPU tensor the plain version."""
     if _dispatch(node_s, "dense_anchor_ranks"):
         plan = vf.rank_plan()
-        got = kernels.anchor_ranks(node_s, vf.walk_forest(), plan.dev, plan.host, plan.nsmall)
+        got = kernels.anchor_ranks(node_s, vf.walk_forest(), plan.dev, plan.host, plan.nsmall,
+                                   bitmap_bits=bitmap_bits)
         return got.J, got.R
     return dense_anchor_ranks_ref(node_s, vf)
 

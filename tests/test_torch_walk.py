@@ -317,6 +317,29 @@ def _bitmap_ranks(key: np.ndarray, bits: int, small: bool) -> np.ndarray:
     return gpre[g] + within
 
 
+def _sorted_ranks(key: np.ndarray, bits: int) -> np.ndarray:
+    """The dense ranks of a level too wide for a bitmap, as rank.cuh's
+    sorted route computes them: the stable radix sort of the keys carrying
+    their positions, the heads (a sorted key unlike the one before it) as
+    bits over the sorted positions in 8-word groups padded to a multiple of
+    4, each group's count (one block a group), their exclusive prefix, and
+    each node's rank = the heads at or before its sorted position - 1."""
+    key = np.asarray(key, np.int64)
+    assert key.min() >= 0 and int(key.max()) < 2**bits <= 2**43
+    cnt = key.size
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    groups = (((cnt + 255) >> 8) + 3) & ~3
+    head = np.zeros(groups * 256, np.int64)
+    head[:cnt] = np.r_[True, sk[1:] != sk[:-1]]
+    per = head.reshape(groups, 256)
+    gcnt = per.sum(axis=1)
+    below = ((np.cumsum(gcnt) - gcnt)[:, None] + np.cumsum(per, axis=1) - per).reshape(-1)
+    rank = np.empty(cnt, np.int64)
+    rank[order] = below[:cnt] + head[:cnt] - 1
+    return rank
+
+
 def _level_keys(vf, node_s, monkeypatch):
     """The real keys of every ranked level (the plain K7's _level_ranks
     calls) and their ranks."""
@@ -367,6 +390,20 @@ def test_bitmap_ranks_equal_level_ranks(N, seed, density, monkeypatch):
         assert (32768, "grid") in routes and plan.wks[routes.index((32768, "grid"))] == 13
 
 
+@pytest.mark.parametrize("N,seed,density", [(32, 3, 0.3), (64, 7, 0.3), (64, 8, 0.02)])
+def test_sorted_ranks_equal_level_ranks(N, seed, density, monkeypatch):
+    """Every ranked level's real keys through the sorted route (the one
+    the plan gives levels wider than the bitmaps take; here every level, as
+    a bitmap_bits of 12 makes it on the card) equal the plain ranks."""
+    vf, node_s, *_ = _inputs(N, seed, density)
+    plan = vf.rank_plan()
+    lay = kernels.rank_layout(plan.host, plan.nsmall, 12)
+    assert lay.nbitmap == sum(w == 0 for w in plan.wks) and lay.nsmall == min(plan.nsmall, lay.nbitmap)
+    for (key, rank), wk in zip(_level_keys(vf, node_s, monkeypatch), plan.wks):
+        packed = ((key >> 32) << wk) | (key & 0xFFFFFFFF)
+        np.testing.assert_array_equal(_sorted_ranks(packed, 12 + wk), rank)
+
+
 def test_bitmap_widths_at_256():
     vf = tsv.virtual_lis_index((256, 256, 256), "cpu")
     plan = vf.rank_plan()
@@ -383,8 +420,15 @@ def test_bitmap_widths_at_256():
     assert max(lay.words[: plan.nsmall]) // 8 <= 2 ** (kernels.RANK_SMALL_BITS - 8)
     with pytest.raises(ValueError):
         kernels.rank_layout(plan.host, 5)  # the 32,768-node level in one block
+    # a level of 33 key bits (the 2D walk's finest at 3600 x 7200) sorts its
+    # keys; the bitmaps before it keep their layout
     wide = plan.host.reshape(-1, kernels.RANK_LEVEL_INTS).copy()
-    wide[-1, 1] = 21  # 33 key bits
+    wide[-1, 1] = 21
+    lw = kernels.rank_layout(wide.reshape(-1), plan.nsmall)
+    assert lw.nbitmap == len(lay.bits) - 1 and lw.bits[-1] == 33 and lw.words == lay.words[:-1]
+    assert lw.zwords == sum(lw.words) + (2**16 + 68) and lw.keys == 32768
+    assert kernels.rank_layout(plan.host, plan.nsmall, 24).nbitmap == len(lay.bits) - 1
+    wide[-1, 1] = 32  # past a rank + 1 below 2^31
     with pytest.raises(ValueError):
         kernels.rank_layout(wide.reshape(-1), plan.nsmall)
 
@@ -400,7 +444,8 @@ def test_walk_cu_constants_match_their_mirrors():
                "kTile": kernels.SORT_TILE, "kSortPasses": kernels.SORT_PASSES,
                "kMaxSpans": kernels.RANK_SPANS, "kLevelInts": kernels.RANK_LEVEL_INTS,
                "kSmallMax": kernels.RANK_SMALL_MAX, "kSmallBits": kernels.RANK_SMALL_BITS,
-               "kScanGroups": kernels.RANK_SCAN_GROUPS, "kMaxDepth": kernels.FOREST_DEPTHS,
+               "kScanGroups": kernels.RANK_SCAN_GROUPS, "kBitmapBits": kernels.RANK_BITMAP_BITS,
+               "kMaxDepth": kernels.FOREST_DEPTHS,
                "kMaxRoots": kernels.FOREST_ROOTS}
     assert {k: consts[k] for k in mirrors} == mirrors
     assert kernels.SORT_TILE == _T
@@ -686,10 +731,11 @@ def test_meta_and_cuda_less_calls_raise():
     meta = torch.zeros(vf.nn, dtype=torch.int32, device="meta")
     for call in (lambda: tsv.dense_anchor_ranks(meta, vf),
                  lambda: tsl._lis_items_virtual(meta, meta, meta, 0, vf, vf.nn),
-                 lambda: tsl.lexsort([meta]),
                  lambda: tsv.child_value_table(vf, meta, meta, meta)):
         with pytest.raises(ValueError):
             call()
+    # lexsort is the plain chained torch.sort on every device, no dispatcher
+    assert tsl.lexsort([meta]).device.type == "meta"
     cpu = torch.zeros(64, dtype=torch.int32)
     for call in (lambda: kernels.radix_sort(cpu),
                  lambda: kernels.gather(cpu, cpu),

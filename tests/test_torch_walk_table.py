@@ -100,8 +100,29 @@ def _stable_order(keys, bits):
     return np.lexsort([np.asarray(k, np.int64) for k in keys[::-1]])
 
 
-def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None):
-    """The walk as kernels/walk_table.cu computes it, launch by launch."""
+def _sorted_ranks(key, bits):
+    """rank.cuh's sorted route for a level wider than the bitmaps: the
+    stable radix sort carrying each key's position, the heads (a sorted key
+    unlike the one before it) as bits over the sorted positions in 8-word
+    groups padded to a multiple of 4, one count a group, their exclusive
+    prefix, and rank = the heads at or before the sorted position - 1."""
+    cnt = key.size
+    order = _stable_order([key], [bits])
+    sk = key[order]
+    groups = (((cnt + 255) >> 8) + 3) & ~3
+    head = np.zeros(groups * 256, np.int64)
+    head[:cnt] = np.r_[True, sk[1:] != sk[:-1]]
+    per = head.reshape(groups, 256)
+    gcnt = per.sum(axis=1)
+    below = ((np.cumsum(gcnt) - gcnt)[:, None] + np.cumsum(per, axis=1) - per).reshape(-1)
+    rank = np.empty(cnt, np.int64)
+    rank[order] = below[:cnt] + head[:cnt] - 1
+    return rank
+
+
+def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=kernels.RANK_BITMAP_BITS):
+    """The walk as kernels/walk_table.cu computes it, launch by launch
+    (the rank levels whose keys are wider than ``bitmap_bits`` sorted)."""
     st = tsl.table_static(li)
     lay = tsl.table_layout(li, cap)
     form = st.form
@@ -144,11 +165,13 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None):
         jp = np.where(ganc, -1 - np.clip(T["irank_of"][ar], 0, 2047), np.where(ranc | ~has, -1, ar))
         jp[0] = -1
     assert u.min() >= 0 and int(u.max()) < 2**12
-    # -- rank.cuh: each ranked level's dense ranks, coarse levels first
+    # -- rank.cuh: each ranked level's dense ranks, coarse levels first (the
+    # bitmaps' ranks are the dense ranks of np.unique)
     R = np.zeros(nn, np.int64)
     rows = st.plan.host.reshape(-1, kernels.RANK_LEVEL_INTS)
+    nbitmap = kernels.rank_layout(st.plan.host, st.plan.nsmall, bitmap_bits).nbitmap
     ranked = np.zeros(nn, bool)
-    for row in rows:
+    for lvl, row in enumerate(rows):
         cnt, wk, ns = (int(x) for x in row[:3])
         ids = np.concatenate([np.arange(row[3 + k], row[3 + kernels.RANK_SPANS + k]) for k in range(ns)])
         assert ids.size == cnt and (level[ids] == level[ids[0]]).all()
@@ -157,7 +180,8 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None):
         assert low.max(initial=0) < 2**wk
         key = (u[ids] << wk) | low
         _check_width(key, 12 + wk)
-        R[ids] = np.unique(key, return_inverse=True)[1].reshape(-1)
+        R[ids] = (np.unique(key, return_inverse=True)[1].reshape(-1) if lvl < nbitmap
+                  else _sorted_ranks(key, 12 + wk))
         ranked[ids] = True
     # -- K12: the significant sets
     sig = np.flatnonzero(node_s < _NEVER)
@@ -395,6 +419,47 @@ def test_plain_anchor_stage_equals_the_emulation(case):
     assert u.dtype == jp.dtype == torch.int32 and int(u.min()) >= 0 and int(u.max()) < 2**12
 
 
+@pytest.mark.parametrize("case", ["table", "pyramid", "2d", "2d one", "2d dense"])
+def test_sorted_rank_levels_give_the_plain_walk(case):
+    """The rank levels through rank.cuh's sorted route (here every level
+    past 16 key bits, as bitmap_bits = 16 makes it on the card; by default
+    the levels past 32 bits, from about 3600 x 7200 on) give the bitmaps'
+    ranks and the plain walk's payload words bit for bit."""
+    if case in ("table", "pyramid"):
+        li, node_s, s, sgn, nb = _inputs3((24, 24, 16) if case == "table" else (23, 15, 13), 5, 0.3)
+        iset_s = None
+        want = tsl._lis_items_table_ref(node_s, s, sgn, nb, li, li.nn)
+    else:
+        nx, ny, density = {"2d": (64, 48, 0.3), "2d one": (33, 57, "one"), "2d dense": (128, 41, 0.9)}[case]
+        li, node_s, s, sgn, nb, iset_s, _ = _inputs2(nx, ny, 6, density)
+        want = tsl2._lis2_items_ref(node_s, s, sgn, nb, iset_s, li, li.nn)
+    st = tsl.table_static(li)
+    lay = kernels.rank_layout(st.plan.host, st.plan.nsmall, 16)
+    assert lay.nbitmap < len(st.plan.counts)  # the route is taken
+    pay, n_sig, J, R = _emulate(li, node_s, s, sgn, li.nn, iset_s, nb, bitmap_bits=16)
+    _, _, J0, R0 = _emulate(li, node_s, s, sgn, li.nn, iset_s, nb)
+    np.testing.assert_array_equal(R, R0)
+    np.testing.assert_array_equal(J, J0)
+    np.testing.assert_array_equal(pay, want[0].numpy())
+    assert n_sig == int(want[1])
+
+
+@pytest.mark.parametrize("dims", [(4096, 4096), (7200, 3600), (256, 256, 200)])
+def test_rank_plan_takes_fields_past_the_main_path_sizes(dims):
+    """The walks take fields and chunks wider than the main path's: every
+    key of the walk within its width (``_widths_hold``), and each rank level
+    on a route that takes it: the bitmaps up to 32 key bits, the sorted
+    route past them (at 3600 x 7200 the finest level's 33 bits)."""
+    # built apart from the index cache, so the worker does not keep it
+    li = tsl2.Lis2Index(dims, "cpu") if len(dims) == 2 else tsl.LisIndex(dims, "cpu")
+    st, lay = _widths_hold(li, li.nn)
+    rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)
+    assert all(b <= kernels.RANK_BITMAP_BITS for b in rl.bits[: rl.nbitmap])
+    assert all(kernels.RANK_BITMAP_BITS < b <= 43 for b in rl.bits[rl.nbitmap:])
+    assert rl.nbitmap == len(rl.bits) - (dims == (7200, 3600))
+    assert lay.T < 2**31
+
+
 def test_breakdown_of_a_table_chunk_runs_on_the_cpu():
     from sperr_tpu_torch.runtime import device_bench as tdb
     r = tdb.wave_entropy_breakdown(16, iters=1, device="cpu", dims=(16, 12, 10))
@@ -545,7 +610,8 @@ def test_node_passes_equal_the_schedule_form():
 def _widths_hold(li, cap):
     st = tsl.table_static(li)
     lay = tsl.table_layout(li, cap)
-    kernels.rank_layout(st.plan.host, st.plan.nsmall)  # every level's keys within 32 bits
+    rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)  # every level on a route that takes it
+    assert rl.bits == tuple(12 + w for w in st.plan.wks)
     assert sum(st.plan.counts) <= li.nn and max(st.plan.counts) < 2**st.wa
     assert st.lba_bits == ((li.nlev << (12 if st.form else 11))).bit_length() and li.nlev <= 30
     # the largest insertion and walk keys
