@@ -19,8 +19,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      K12 bit for bit on the inputs that one 256^3 chunk's schedule and walk
      give them, at the first tier and at the widest, and K12 at the sparse
      transfer's shape (that chunk's nonzero flags, take n/2, beside
-     torch.nonzero); the hybrid decode's K13 bit
-     for bit on the control parse of one 256^3 chunk's stream, that stream
+     torch.nonzero); the hybrid decode's K13 (two launches: count,
+     reconstruct) bit for bit on the control parse of one 256^3 chunk's stream, that stream
      truncated, an all-zero chunk, and a stream past a small active-word
      cap; the schedule kernels of kernels/schedule.cu bit for bit: the cube
      form (sched_boxmax, sched_virtual: K5 and K6) on chunk 0 of phase 4's
@@ -42,16 +42,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
      torch.unique on its largest level's keys), the walk at tiers 0 and 1
      and the tier-1 walk sort timed, the sort beside torch.sort, and the
      launches per walk call (at most 40, no radix pass in K7) checked; the
-     emission kernels of kernels/emit.cu (K9: the exposed-pixel compaction
-     emit_exposed, the planes emit_planes) bit for bit, every output, on
-     each call the emission makes: headline chunk 0 at tiers 0, 1, the
+     emission kernels of kernels/emit.cu bit for bit, every output, on
+     each call the emission makes (K9, emit_stage: a cube's exposure and
+     the three classes' planes in two launches, emit_cube; the other 3D
+     forms' planes in one, emit_fields; K9b, emit_planes: one class's
+     planes for the 2D program): headline chunk 0 at tiers 0, 1, the
      widest (P = 34, every pixel), P = 34 compacted (magnitudes apart) and
      an exposure forced to overflow; an all-zero, a one-pixel, a 2^31 - 1
-     and an all-2^31 - 1 256^3 chunk; 16^3 and 2^3 cubes; a Hurricane
-     packet chunk (K12's compaction) and a 1024^2 field (K14: its pixel
-     classes and its walk's LIS class);
-     each timed at tiers 0 and 1 beside its plain version and bound, and
-     the launches between the walk and K11 counted (K9's 6 only); the
+     and an all-2^31 - 1 256^3 chunk; 16^3 and 2^3 cubes and a 16^3 cube
+     capped below one box; a Hurricane packet chunk (K12's compaction) and
+     a 1024^2 field (K14: its pixel classes and its walk's LIS class); the
+     stage timed at tiers 0 and 1 (and per launch) beside its plain version
+     and its bound (inputs read once, outputs written once), K9b on the
+     1024^2 field's classes, and the launches between the walk and K11
+     counted (K9's two only); the tier-1 stage repeated 50 times, every
+     output of every call against the plain version's (a race check on the
+     look-back); the
      table and 2D walks' kernels of kernels/walk_table.cu bit for bit,
      every output: node_passes, table_anchors (J, R, u, jp, alone and in
      the walk), the whole walk (payload words, padding included, and n_sig)
@@ -74,16 +80,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (hybrid=False), timed after its own warm-up and alternating twice with
      the hybrid one, must equal it element for element; each route's time
      by stage; and K13 held against its plain version on the decode's own
-     input;
+     input, once and in 50 repeated calls (every output of each);
   5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte (1,012,155 bytes) with
-     every chunk on the device and K1, the lifting kernel, K9 (emit_exposed,
-     emit_planes once per class of each emission), K11, K12, the schedule's
+     every chunk on the device and K1, the lifting kernel, K9 (emit_stage,
+     two launches per emission; K9b not), K11, K12, the schedule's
      sched_boxmax and sched_virtual and the walk's walk_vtab, anchor_ranks,
      walk_rows and radix sort launched, K10 not at all; the volume as one
      512^3 chunk, its wave container equal to its host one with the walk on
-     two path words; phase 5's PSNR and rate streams; one noisy 256^3 chunk
+     two path words, its K9 calls repeated 50 times against the plain
+     version (the rows' look-back over four windows); phase 5's PSNR and rate streams; one noisy 256^3 chunk
      that drives the tier ladder into its dense tiers;
   7. the 2D path: 16 Turbulence1024-like 1024^2 fields, PWE 1e-2, through
      TorchCompressor2D and TorchDecompressor2D, checked against the host f64
@@ -98,7 +105,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      field) in 256^3 chunks, four wavelet-packet chunks (child-table
      schedule and table walk, K15), whose wave container must equal the
      host one byte for byte (87,959 bytes) with K1, the lifting kernel,
-     emit_planes, K11, K12, sched_table, the radix sort, node_passes,
+     emit_stage (one launch per emission), K11, K12, sched_table, the
+     radix sort, node_passes,
      table_anchors and table_walk launched (K10 not), decoded on both
      routes; one dyadic
      chunk, whose wave container must equal the host one, with
@@ -157,15 +165,20 @@ together (``fused``: the K5 + K6 function), sched_table's its times on the
 kernel's its launches per call (``launches_per_call``), walk_rows's (the
 whole walk) its tier-1 time (``tier1``), the radix sort's its launches in
 phases 9 and 10 (``launches_table``, ``launches_2d``) and its LSD floor
-(``lsd_floor_ms``: its passes' bytes over the memory rate); K9's rows
-(emit_exposed, emit_planes: the three classes summed) are timed at tier 1,
-emit_exposed's also at tier 0 (``tier0``), emit_planes's by class
-(``per_class``), with its launches in phases 9 and 10 and the K9 stage at
-tiers 0 and 1 with its launches between the walk and K11 (``k9_stage``),
-and emit_exposed's the 512^3 chunk's bytes, walls, peaks and tiers
-(``chunk512``);
-K10's row says that its transpose runs inside emit_planes on the wave
-paths (``merged_into``: its launches there are 0).
+(``lsd_floor_ms``: its passes' bytes over the memory rate); emit_stage's
+row is the K9 stage at tier 1, also at tier 0 (``tier0``), per launch
+(``per_launch``), with its launches in phase 9 (``launches_table``), the
+stage at tiers 0 and 1 with its launches between the walk and K11
+(``k9_stage``), the 512^3 chunk's bytes, walls, peaks and tiers
+(``chunk512``) and the repeated calls at tier 1 and on the 512^3 chunk
+(``repeats``: calls, each launch's least, median and largest device time);
+reconstruct_mags's row is the decode's (8, 256^3) call, per launch
+(``per_launch``), on one chunk (``one_chunk``) and repeated (``repeats``);
+emit_planes's (K9b) a 1024^2 field's three classes summed,
+by class (``per_class``), its launches those of phase 10's 2D encode (0 on
+the cube path, ``launches_cube_path``);
+K10's row says that its transpose runs inside K9 on the wave paths
+(``merged_into``: its launches there are 0).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
 result line; ``--rank R --port P --gather-port G --vol F --out D`` is one
 rank of phase 12, which the script starts itself.  Times come from sperr_tpu_torch.runtime.device_bench's timer.
@@ -360,11 +373,13 @@ def _chunk512(kernels, smi: str, vol) -> dict:
     first on the wave route, then on the host route: the containers must
     be equal byte for byte, the chunk on the device, the walk's layout two
     path words (the two-word walk: a forest deeper than base-9 paths of one
-    word hold), K9a and the walk launched.  Returns the walls, peaks and
-    launches."""
+    word hold), K9 and the walk launched; each K9 call of the wave route
+    repeated 50 times against the plain version (``_repeats``: the rows'
+    look-back over four windows of 256 tiles, where a 256^3 cube has one).
+    Returns the walls, peaks, launches and repeats."""
     import torch
 
-    from sperr_tpu_torch.ops import speck_lis
+    from sperr_tpu_torch.ops import speck_lis, wave_pack
     from sperr_tpu_torch.parallel.batched import TorchCompressor3D
 
     dims = (512, 512, 512)
@@ -376,7 +391,7 @@ def _chunk512(kernels, smi: str, vol) -> dict:
         layouts.append((tuple(vf.dims), lay))
         return lay
 
-    res = {"wall_s": {}, "peak": {}, "tiers": {}}
+    res = {"wall_s": {}, "peak": {}, "tiers": {}, "repeats": {}}
     streams = {}
     speck_lis.walk_layout = record
     try:
@@ -386,7 +401,8 @@ def _chunk512(kernels, smi: str, vol) -> dict:
             torch.cuda.reset_peak_memory_stats()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            streams[entropy] = comp.compress(vol, "pwe", 1e-2)
+            with _capture(wave_pack, ["emit_cube"]) as calls:
+                streams[entropy] = comp.compress(vol, "pwe", 1e-2)
             torch.cuda.synchronize()
             res["wall_s"][entropy] = time.perf_counter() - t0
             res["peak"][entropy] = torch.cuda.max_memory_allocated()
@@ -395,9 +411,15 @@ def _chunk512(kernels, smi: str, vol) -> dict:
                 res["launches"] = {k: v for k, v in kernels.launches.items() if v}
                 res["tiers"] = comp.last_wave_tiers
                 _check(comp.last_wave_chunks == 1, "the 512^3 chunk took host entropy on the wave route")
+                _check(len(calls["emit_cube"]) > 0, "the 512^3 chunk's emission made no emit_cube call")
+                for k, a in enumerate(calls["emit_cube"]):
+                    res["repeats"][f"call {k}"] = _repeats(
+                        kernels, lambda a=a: wave_pack.emit_cube(*a), wave_pack.emit_cube_ref(*a),
+                        f"K9 on the 512^3 chunk, call {k} (P {a[8]}, wexp_cap {a[5]})", smi)
+            del calls
     finally:
         speck_lis.walk_layout = orig
-    for name in ("emit_exposed", "emit_planes", "walk_rows", "radix_sort", "sched_virtual"):
+    for name in ("emit_stage", "walk_rows", "radix_sort", "sched_virtual"):
         _check(res["launches"].get(name, 0) > 0, f"{name} was not launched on the 512^3 chunk")
     words = sorted({lay.path_words for d, lay in layouts if d == dims})
     _check(words == [2], f"the 512^3 walk took path words {words}, not 2")
@@ -739,13 +761,18 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
         _check(comp.last_uncertified_chunks == 0, f"{entropy}: uncertified chunks {comp.last_uncertified_ids}")
     w, h = runs["wave"], runs["host"]
     print(f"[table] launches during the timed wave encode: {w['launches']}")
-    for name in ("quantize", "cdf97_lift", "emit_planes", "masked_pack", "compact_flags_rows",
+    for name in ("quantize", "cdf97_lift", "emit_stage", "masked_pack", "compact_flags_rows",
                  "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk"):
         _check(w["launches"][name] > 0, f"kernel {name} was not launched on the table-form wave path")
     _check(w["launches"]["transpose_bits32"] == 0, "K10 was launched on the table-form wave path")
+    # each emission of a chunk that is not a power-of-two cube: K9's planes
+    # launch once (the pixel fields from K12's compaction), K11's three
+    _check(3 * w["launches"]["emit_stage"] == w["launches"]["masked_pack"] and w["launches"]["emit_planes"] == 0,
+           f"K9 launched {w['launches']['emit_stage']} times for {w['launches']['masked_pack'] // 3} emissions "
+           f"(K9b {w['launches']['emit_planes']})")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
     _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
-    sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_planes", "node_passes",
+    sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_stage", "node_passes",
                                                     "table_anchors", "table_walk")}
     _check(w["comp"].last_wave_chunks == 4, f"{w['comp'].last_wave_chunks} of 4 chunks on the device")
     print(f"[table] PWE {tol}: container {len(w['stream'])} bytes "
@@ -1384,7 +1411,7 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
     # -- (a) in one process -------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     for entropy, need in (("host", ("quantize", "cdf97_lift")),
-                          ("wave", ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
+                          ("wave", ("quantize", "cdf97_lift", "emit_stage", "masked_pack",
                                     "compact_flags_rows"))):
         comp = TorchCompressor3D((512, 512, 512), (256, 256, 256), devices=devs, entropy=entropy,
                                  transfer="dense")
@@ -1465,8 +1492,7 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
         k1 = sum(rec["launches"][name].get("quantize", 0) for rec in recs)
         _check(k1 == k1_phase6, f"K1 launched {k1} times over both ranks ({name}), phase 6 {k1_phase6}")
         for rec in recs:
-            for kname in ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
-                          "compact_flags_rows"):
+            for kname in ("quantize", "cdf97_lift", "emit_stage", "masked_pack", "compact_flags_rows"):
                 _check(rec["launches"][name].get(kname, 0) > 0, f"rank {rec['rank']} did not launch {kname}")
     got = np.load(os.path.join(out_dir, "decode.npy"), mmap_mode="r")
     _check(np.array_equal(got, out4), "the distributed decode differs from phase 4's")
@@ -1518,7 +1544,7 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
         return ours
 
     want = {"host": ("quantize", "cdf97_lift", "compact_flags_rows"),
-            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "emit_exposed", "emit_planes", "masked_pack",
+            "wave": ("quantize", "cdf97_lift", "compact_flags_rows", "emit_stage", "masked_pack",
                      "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort")}
     launches = {}
     walls = {}
@@ -2337,8 +2363,8 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
 
 
 # the kernels of K9 (kernels/emit.cu), as torch.profiler names them
-_K9_KERNELS = ("exposed_rows", "exposed_scan", "exposed_place", "emit_planes_kernel")
-_K9A_FIELDS = ("exp_idx", "exp_ll", "n_exp", "overflow", "s_p", "e_p", "g_i", "m_p")
+_K9_KERNELS = ("exposed_rows", "emit_stage_planes")
+_K9_VIEW = ("exp_idx", "exp_ll", "n_exp", "overflow")
 
 
 def _tail_launches(fn):
@@ -2365,15 +2391,21 @@ def _tail_launches(fn):
     return names[walk[-1] + 1:i1], names[walk[-1]]
 
 
-def _k9a_bytes(args, out) -> int:
-    """K9a's bound bytes: the box-major table read once, the magnitudes of
-    the placed pixels (when they are apart), every output written once."""
-    pv_bm, _, _, _, N, wexp_cap, pack_mag = args
+def _k9_bytes(args, out) -> int:
+    """The bound bytes of K9 on a cube, the stage's inputs read once and its
+    outputs written once: the box-major table, the magnitudes of the kept
+    pixels (when they are apart) and the walk's payloads read; the exposure
+    view (indices, signed values, n_exp, the flag) and the three classes'
+    (P, W) valid and bit planes written.  No pixel field: none leaves the
+    stage."""
+    pv_bm, _, _, _, N, wexp_cap, pack_mag, pay, P = args
     take_b = max(1, wexp_cap // 8)
     Lv = min(8 * take_b, wexp_cap)
     npad = -(-wexp_cap // 256) * 256
-    placed = min(8 * min(int(out[2]) // 8, take_b), Lv)
-    return 4 * N**3 + (0 if pack_mag else 4 * placed) + 16 * npad + 4 * Lv + 4 * wexp_cap + 5
+    kept = min(8 * min(int(out[2]) // 8, take_b), Lv)
+    W_lis = -(-pay.numel() // 128) * 128 // 16
+    return (4 * N**3 + (0 if pack_mag else 4 * kept) + 4 * pay.numel() + 4 * Lv + 4 * wexp_cap + 5
+            + 8 * P * (npad // 16 + W_lis + npad // 32))
 
 
 def _k9b_bytes(args) -> int:
@@ -2383,21 +2415,75 @@ def _k9b_bytes(args) -> int:
     return sum(f.numel() * f.element_size() for f in fields) + 8 * P * (items // (32 if kind == "ref" else 16))
 
 
+def _flat(out):
+    """The tensors of an emit_cube or emit_fields result, in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in _flat(x)]
+
+
+def _repeats(kernels, fn, want, label: str, smi: str, calls: int = 50) -> dict:
+    """fn() called ``calls`` times back to back, each call's outputs
+    compared on the device with ``want`` (the plain version's, computed
+    once) and the unequal elements counted without a host wait; every count
+    must be 0, and the look-backs' zeroed buffer zero after the calls.  A
+    race in a decoupled look-back shows only now and then, so one equal call
+    proves little.  The calls run in a torch.profiler trace: each kernel of
+    the repo's least, median and largest device time over its launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    want = _flat(want)
+    ours = _our_kernels(kernels)
+    bad = torch.zeros(calls, dtype=torch.int64, device=want[0].device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            got = _flat(fn())
+            _check(len(got) == len(want), f"{label}: {len(got)} outputs, the plain version {len(want)}")
+            bad[i] = sum((a != b).sum() for a, b in zip(got, want))
+        torch.cuda.synchronize()
+    counts = bad.tolist()
+    _check(not any(counts), f"{label}: unequal elements in the repeated calls {counts}")
+    left = [int(b.count_nonzero()) for b in getattr(kernels._zeroed_local, "bufs", {}).values()]
+    _check(not any(left), f"{label}: the look-backs' zeroed buffer holds {left} nonzero words after the calls")
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and _kernel_name(e.name) in ours - {"Memset"}:
+            per.setdefault(_kernel_name(e.name), []).append(e.time_range.elapsed_us() / 1e3)
+    spread = {k: {"launches": len(v), "min": min(v), "median": sorted(v)[len(v) // 2], "max": max(v)}
+              for k, v in sorted(per.items())}
+    print(f"[kernels] {label}: {calls} calls back to back, every output of each equal to the plain "
+          f"version's, the zeroed buffer zero after; device ms per launch (least / median / largest, "
+          f"launches in the trace) " + ", ".join(
+              f"{k} {r['min']:.4f} / {r['median']:.4f} / {r['max']:.4f} ({r['launches']})"
+              for k, r in spread.items()) + f" -- {smi}")
+    return {"calls": calls, "per_launch": spread}
+
+
 def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
     """Phase 3's emission kernels (kernels/emit.cu, K9) bit for bit against
-    their plain versions on the card, every output: each call of K9a
-    (``emit_exposed``) and K9b (``emit_planes``) that the emission makes on
+    their plain versions on the card, every output: each call of K9 on a
+    cube (``emit_cube``: the exposure and the three classes' planes, two
+    launches), on the other 3D forms (``emit_fields``: one launch) and of
+    K9b (``emit_planes``, the 2D program) that the emissions make on
     headline chunk 0 at tiers 0 and 1, at the widest tier (P = 34, two
     windows, every pixel) and at P = 34 with the compaction (magnitudes
     apart from the box-major table), with the exposure forced to overflow;
-    on an all-zero, a one-pixel, a 2^31 - 1 and an all-2^31 - 1 256^3 chunk;
-    on 16^3 and 2^3 cubes (every pixel); on a Hurricane packet chunk (100,
-    256, 256: the table walk's K12 compaction) and on a 1024^2 field (K14's
-    pixel half).  At tiers 0 and 1 each kernel and the K9 stage are timed
-    on the device and as the host issues them, beside their plain versions
-    and bounds, and the launches between the walk's return and K11 are
-    counted in a torch.profiler trace (K9's only, at most 6).  Returns the
-    two kernels' rows of the result line."""
+    on an all-zero, a one-pixel, a 2^31 - 1 and an all-2^31 - 1 256^3
+    chunk; on 16^3 and 2^3 cubes (every pixel) and a 16^3 cube with a cap
+    below one box; on a Hurricane packet chunk (100, 256, 256: the table
+    walk's K12 compaction) and on a 1024^2 field (K14's pixel and LIS
+    classes).  At tiers 0 and 1 the stage is timed on the device and as the
+    host issues it, per launch, beside its plain version and its bound, and
+    the launches between the walk's return and K11 are counted in a
+    torch.profiler trace (K9's two only); K9b on the 1024^2 field's three
+    classes.  The tier-1 stage is repeated 50 times against the plain
+    version (``_repeats``).  Returns the two kernels' rows of the result
+    line."""
     import numpy as np
     import torch
 
@@ -2409,21 +2495,26 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(16)
-    err = {"emit_exposed": 0, "emit_planes": 0}
+    err = {"emit_stage": 0, "emit_planes": 0}
 
-    def same(name, got, want, fields, what):
-        for field, a, b in zip(fields, got, want):
+    def same(name, got, want, what):
+        got, want = _flat(got), _flat(want)
+        _check(len(got) == len(want), f"{name} gave {len(got)} tensors, its plain version {len(want)} ({what})")
+        for k, (a, b) in enumerate(zip(got, want)):
             ok = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
             err[name] = max(err[name], _int_err(a, b) if a.shape == b.shape else 2**31)
+            field = _K9_VIEW[k] if k < 4 and name == "emit_stage" and len(got) == 10 else f"output {k}"
             _check(ok, f"{name} {field} differs from its plain version on {what}")
 
     def held(calls, what):
-        for args in calls["emit_exposed"]:
-            same("emit_exposed", wave_pack.emit_exposed(*args), wave_pack.emit_exposed_ref(*args),
-                 _K9A_FIELDS, what)
-        for args in calls["emit_planes"]:
+        for args in calls.get("emit_cube", []):
+            same("emit_stage", wave_pack.emit_cube(*args), wave_pack.emit_cube_ref(*args), f"{what} (cube)")
+        for args in calls.get("emit_fields", []):
+            same("emit_stage", wave_pack.emit_fields(*args), wave_pack.emit_fields_ref(*args),
+                 f"{what} (fields, {args[0][0].numel()} items)")
+        for args in calls.get("emit_planes", []):
             same("emit_planes", wave_pack.emit_planes(*args), wave_pack.emit_planes_ref(*args),
-                 ("valid", "bits"), f"{what} ({args[0]}, P {args[3]}, {args[4]} items)")
+                 f"{what} ({args[0]}, P {args[3]}, {args[4]} items)")
 
     def front3(field):
         x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
@@ -2454,9 +2545,13 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
         m = rng.integers(0, 1 << 20, N**3) * (rng.random(N**3) < 0.4)
         liN = sv.virtual_lis_index((N, N, N), dev)
         tN = tb.wave_tiers_for(N**3)
+        capsN = {f"tier {t}": tb._wave_caps(liN, (N, N, N), tN[t], 34) for t in (0, 1)}
+        use = t01
+        if N == 16:
+            capsN["cap below one box"] = dict(capsN["tier 0"], wexp_cap=5)
+            use = t01 + ("cap below one box",)
         cases.append((f"{N}^3", torch.from_numpy(m.astype(np.int32)).to(dev),
-                      torch.from_numpy(rng.random(N**3) < 0.5).to(dev), liN, None,
-                      {f"tier {t}": tb._wave_caps(liN, (N, N, N), tN[t], 34) for t in (0, 1)}, t01))
+                      torch.from_numpy(rng.random(N**3) < 0.5).to(dev), liN, None, capsN, use))
     s3 = (256, 256, 100)
     mh, sh = front3(vol512[:100, :256, :256])
     li_h, si_h = tb._wave_index(s3, dev)
@@ -2464,29 +2559,29 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
     cases.append(("Hurricane packet chunk (100, 256, 256)", mh, sh, li_h, si_h,
                   {f"tier {t}": tb._wave_caps(li_h, s3, th[t], 34) for t in (0, 1)}, t01))
     stats = {}
+    names = ["emit_cube", "emit_fields", "emit_planes"]
     for label, mags, signs, li_c, si_c, caps_c, use in cases:
         seen = []
         for cl in use:
             c = caps_c[cl]
-            with _capture(wave_pack, ["emit_exposed", "emit_planes"]) as calls:
+            with _capture(wave_pack, names) as calls:
                 em, fits = tb._wave_emit_chunk(mags, signs, li_c, c, si_c)
             compact = bool(c["wexp_cap"]) and c["wexp_cap"] < mags.numel()
-            want_9a = int(compact and isinstance(li_c, sv.VirtualLisIndex))
-            _check(len(calls["emit_exposed"]) == want_9a and
-                   [a[0] for a in calls["emit_planes"]] == ["lip", "ref", "lis"],
-                   f"{label}, {cl}: the emission called emit_exposed {len(calls['emit_exposed'])} times "
-                   f"and emit_planes for {[a[0] for a in calls['emit_planes']]}")
+            cube = int(compact and isinstance(li_c, sv.VirtualLisIndex))
+            got = {k: len(v) for k, v in calls.items()}
+            _check(got == {"emit_cube": cube, "emit_fields": 1 - cube, "emit_planes": 0},
+                   f"{label}, {cl}: the emission made the calls {got}")
             held(calls, f"{label}, {cl}")
             seen.append(f"{cl} (P {c['P']}, wexp_cap {c['wexp_cap']}: "
-                        + (f"n_exp {int(em.n_exp)}, " if want_9a else "")
+                        + (f"cube, n_exp {int(em.n_exp)}, " if cube else "fields, ")
                         + f"overflow {bool(em.overflow)}, fits {bool(fits)})")
             if label == "headline chunk 0" and cl in t01:
-                stats[cl] = (calls, lambda m=mags, s=signs, c=c: tb._wave_emit_chunk(m, s, li, c))
+                stats[cl] = (calls["emit_cube"][0], lambda m=mags, s=signs, c=c: tb._wave_emit_chunk(m, s, li, c))
             if label == "headline chunk 0" and cl == "overflow":
                 _check(bool(em.overflow) and int(em.n_exp) > 8192, "the forced exposure did not overflow")
-        print(f"[kernels] K9, {label}: emit_exposed and emit_planes equal to their plain versions bit "
-              f"for bit, every output, at {'; '.join(seen)}")
-    # K14's pixel half: a 1024^2 field's program
+        print(f"[kernels] K9, {label}: every call equal to its plain version bit for bit, every output, at "
+              f"{'; '.join(seen)}")
+    # K14's classes: a 1024^2 field's program (K9b, one launch per class)
     ny = nx = 1024
     x2 = torch.from_numpy(_turbulence_like(ny, nx, 0)[None]).to(dev)
     f2 = tb._dense_encode_rows(x2, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d, out_cap=nx * ny)
@@ -2494,68 +2589,69 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
     index2 = tb2._wave_index2((nx, ny), dev)
     caps2 = tb2._wave_caps2(nx * ny, comp2.num_bp_cap, index2[1].nn,
                             max(4096, int(comp2.wave_event_tiers[0] * nx * ny)))
-    with _capture(wave_pack, ["emit_exposed", "emit_planes"]) as calls:
+    with _capture(wave_pack, names) as calls2:
         tb2._wave_emit_field(f2["mags"][0], f2["signs"][0], index2, caps2, comp2.num_bp_cap)
     # the pixel classes, then (since the 2D walk's items go through K9b) the LIS class
-    _check(not calls["emit_exposed"] and [a[0] for a in calls["emit_planes"]] == ["lip", "ref", "lis"],
-           f"the 2D field's program called emit_planes for {[a[0] for a in calls['emit_planes']]}")
-    held(calls, "a 1024^2 field (K14)")
-    print("[kernels] K9, a 1024^2 field's emission (K14): emit_planes (LIP, refinement, LIS) equal to "
+    _check(not calls2["emit_cube"] and not calls2["emit_fields"]
+           and [a[0] for a in calls2["emit_planes"]] == ["lip", "ref", "lis"],
+           f"the 2D field's program called emit_planes for {[a[0] for a in calls2['emit_planes']]}")
+    held(calls2, "a 1024^2 field (K14)")
+    print("[kernels] K9b, a 1024^2 field's emission (K14): emit_planes (LIP, refinement, LIS) equal to "
           "its plain version bit for bit")
-    del cases, one, big, mh, sh, x2, f2, calls
+    del cases, one, big, mh, sh, x2, f2
 
-    # timed at tiers 0 and 1: each kernel, the K9 stage, the launches
-    # between the walk's return and K11
+    # timed at tiers 0 and 1: the stage, its launches, the launches between
+    # the walk's return and K11
     out = {}
-    for cl, (calls, emit) in stats.items():
-        (a9,) = calls["emit_exposed"]
-        planes = calls["emit_planes"]
-        exposed = wave_pack.emit_exposed(*a9)
-        row = {}
-        for key, fn, ref, nbytes in (
-                [("emit_exposed", lambda: wave_pack.emit_exposed(*a9), lambda: wave_pack.emit_exposed_ref(*a9),
-                  _k9a_bytes(a9, exposed))]
-                + [(f"emit_planes {a[0]}", lambda a=a: wave_pack.emit_planes(*a),
-                    lambda a=a: wave_pack.emit_planes_ref(*a), _k9b_bytes(a)) for a in planes]):
-            plain, how = time_ms(ref, 3)
-            row[key] = dict(ms=time_ms(fn, 20, "device")[0], host_ms=time_ms(fn, 20, "host-issued")[0],
-                            plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(nbytes), bytes=nbytes)
-
-        def k9():
-            wave_pack.emit_exposed(*a9)
-            for a in planes:
-                wave_pack.emit_planes(*a)
-
-        names, last = _tail_launches(emit)
-        _check(len(names) <= 6 and all(nm in _K9_KERNELS for nm in names),
-               f"{cl}: the device ran {names} between the walk ({last}) and K11, not K9's kernels alone")
-        k9_bytes = sum(r["bytes"] for r in row.values())
-        row["K9"] = dict(ms=time_ms(k9, 20, "device")[0], host_ms=time_ms(k9, 20, "host-issued")[0],
-                         plain_ms=sum(r["plain_ms"] for r in row.values()), bound_ms=_bound_ms(k9_bytes),
-                         bytes=k9_bytes, launches=len(names))
+    for cl, (a9, emit) in stats.items():
+        got = wave_pack.emit_cube(*a9)
+        nbytes = _k9_bytes(a9, got)
+        plain, how = time_ms(lambda: wave_pack.emit_cube_ref(*a9), 3)
+        fn = lambda: wave_pack.emit_cube(*a9)
+        row = dict(ms=time_ms(fn, 20, "device")[0], host_ms=time_ms(fn, 20, "host-issued")[0],
+                   plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(nbytes), bytes=nbytes,
+                   per_launch={_kernel_name(k): m for k, (m, _) in _kernel_means(fn, "", 10).items()})
+        names_t, last = _tail_launches(emit)
+        _check(len(names_t) == 2 and all(nm in _K9_KERNELS for nm in names_t),
+               f"{cl}: the device ran {names_t} between the walk ({last}) and K11, not K9's two kernels")
+        row["launches"] = len(names_t)
+        print(f"[kernels] K9 at headline chunk 0 {cl}: the device ran {len(names_t)} launches between the "
+              f"walk's last kernel ({last}) and K11: {', '.join(names_t)}")
+        print(f"[kernels] K9 {cl} (P {a9[8]}, wexp_cap {a9[5]}, n_exp {int(got[2])}, {a9[7].numel()} payload "
+              f"words): {row['ms']:.4f} ms ({row['host_ms']:.4f} as the host issues it), per launch "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["per_launch"].items())
+              + f"; plain {row['plain_ms']:.4f} ms ({how}), bound {row['bound_ms']:.4f} ms ({nbytes} bytes, "
+              f"share {row['bound_ms'] / row['ms']:.3f}) -- {smi}")
         out[cl] = row
-        print(f"[kernels] K9 at headline chunk 0 {cl}: the device ran {len(names)} launches between the "
-              f"walk's last kernel ({last}) and K11: {', '.join(names)}")
-        for key, r in row.items():
-            print(f"[kernels] K9 {cl} {key}: {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host issues it), "
-                  f"plain {r['plain_ms']:.4f} ms" + (f" ({r['plain_timed']})" if "plain_timed" in r else
-                                                      " (sum of the plain versions)")
-                  + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share "
-                  f"{r['bound_ms'] / r['ms']:.3f} -- {smi}")
-        del calls, exposed
+        if cl == "tier 1":
+            row["repeats"] = _repeats(kernels, lambda: wave_pack.emit_cube(*a9), wave_pack.emit_cube_ref(*a9),
+                                      "K9 at headline chunk 0 tier 1", smi)
+        del got
+    # K9b on the 1024^2 field's three classes
+    k9b = {}
+    for a in calls2["emit_planes"]:
+        plain, how = time_ms(lambda a=a: wave_pack.emit_planes_ref(*a), 3)
+        k9b[a[0]] = dict(ms=time_ms(lambda a=a: wave_pack.emit_planes(*a), 20, "device")[0],
+                         host_ms=time_ms(lambda a=a: wave_pack.emit_planes(*a), 20, "host-issued")[0],
+                         plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(_k9b_bytes(a)))
+    print("[kernels] K9b on a 1024^2 field, per class: " + ", ".join(
+        f"{k} {r['ms']:.4f} ms ({r['host_ms']:.4f} host-issued, plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f})" for k, r in k9b.items()) + f" -- {smi}")
     print(f"[kernels] emission kernels took {time.perf_counter() - t_phase:.1f} s")
     t1 = out["tier 1"]
-    planes1 = [k for k in t1 if k.startswith("emit_planes ")]
     return {
-        "emit_exposed": dict(t1["emit_exposed"], max_abs_err=err["emit_exposed"],
-                             tier0={k: out["tier 0"]["emit_exposed"][k] for k in ("ms", "host_ms", "bound_ms")}),
+        "emit_stage": dict({k: t1[k] for k in ("ms", "host_ms", "plain_ms", "plain_timed", "bound_ms",
+                                               "per_launch")},
+                           max_abs_err=err["emit_stage"],
+                           tier0={k: out["tier 0"][k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "per_launch")},
+                           k9_stage={c: {f: out[c][f] for f in ("ms", "host_ms", "bound_ms", "launches")}
+                                     for c in out},
+                           repeats={"tier 1": t1["repeats"]}),
         "emit_planes": dict(
-            ms=sum(t1[k]["ms"] for k in planes1), host_ms=sum(t1[k]["host_ms"] for k in planes1),
-            plain_ms=sum(t1[k]["plain_ms"] for k in planes1), plain_timed=t1[planes1[0]]["plain_timed"],
-            bound_ms=sum(t1[k]["bound_ms"] for k in planes1), max_abs_err=err["emit_planes"],
-            per_class={k.split()[1]: {f: t1[k][f] for f in ("ms", "host_ms", "bound_ms")} for k in planes1}),
-        "K9": {cl: {f: out[cl]["K9"][f] for f in ("ms", "host_ms", "plain_ms", "bound_ms", "launches")}
-               for cl in out},
+            ms=sum(r["ms"] for r in k9b.values()), host_ms=sum(r["host_ms"] for r in k9b.values()),
+            plain_ms=sum(r["plain_ms"] for r in k9b.values()), plain_timed=k9b["lis"]["plain_timed"],
+            bound_ms=sum(r["bound_ms"] for r in k9b.values()), max_abs_err=err["emit_planes"],
+            per_class={k: {f: r[f] for f in ("ms", "host_ms", "bound_ms")} for k, r in k9b.items()}),
     }
 
 
@@ -2792,11 +2888,17 @@ def main() -> int:
                                           out_cap=max(1024, 256**3 // 1024))
         caps = tb._wave_caps(li, dims256, tiers[tier], 34)
         with _capture(packemit, ["masked_pack", "compact_flags_rows"]) as calls, \
-                _capture(wave_pack, ["emit_planes"]) as k9b:
+                _capture(wave_pack, ["emit_cube", "emit_fields"]) as k9:
             em, fits = tb._wave_emit_chunk(front["mags"][0], front["signs"][0], li, caps)
-        # K10 on the masks of every window of each class, as the plain K9b
-        # builds them (K9b transposes them in registers on the main path)
-        calls.update(_k10_calls(wave_pack, k9b["emit_planes"]))
+        # K10 on the masks of every window of each class, as the plain
+        # versions build them (K9 transposes them in registers on the main
+        # path): the classes' planes arguments, the cube's pixels from the
+        # plain exposure
+        planes_args = [a for f in k9["emit_fields"] for a in wave_pack.stage_plane_args(*f)]
+        for a in k9["emit_cube"]:
+            pixels = wave_pack.emit_exposed_ref(*a[:7])[4:]
+            planes_args += wave_pack.stage_plane_args(pixels, a[7], a[3], a[8])
+        calls.update(_k10_calls(wave_pack, planes_args))
         print(f"[kernels] wave inputs, {label}: caps {caps}, fits {bool(fits)}")
         if label == "widest":
             _check(bool(fits), "the widest tier does not hold the smooth 256^3 chunk")
@@ -2816,7 +2918,7 @@ def main() -> int:
                   f"{busy:.4f} ms (kernels and copies), "
                   f"{host_ms:.4f} ms as the host issues it, {syncs} host waits for the device per "
                   f"call; the most device time, ms per call: {_top(per_name, 8)} -- {smi}")
-        del chunk, front, em, fits, calls, cap_front, k9b
+        del chunk, front, em, fits, calls, cap_front, k9, planes_args
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
     # K16, the PSNR-mode q search (torch ops; each step synchronizes on its
@@ -2928,7 +3030,8 @@ def main() -> int:
               for shape, t in plane_ms.items() for k in ("K2", "K3")),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in sched.items()),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in walk.items()),
-            *((f"K9 {tier} (K9a and K9b)", r["ms"], r["host_ms"], r["bound_ms"]) for tier, r in emit["K9"].items()),
+            *((f"K9 {tier} (both launches)", r["ms"], r["host_ms"], r["bound_ms"])
+              for tier, r in emit["emit_stage"]["k9_stage"].items()),
             *((name, r["ms"], r["host_ms"], r["bound_ms"]) for name, r in twalk.items())):
         print(f"[kernels] {name}: {ms:.4f} ms ({host_ms:.4f} as the host issues it), bound "
               f"{bound:.4f} ms, share {bound / ms:.3f} -- {smi}")
@@ -3026,10 +3129,19 @@ def main() -> int:
     }
     k13["plain_ms"], plain_timed["reconstruct_mags"] = time_ms(
         lambda: wave_unpack.reconstruct_mags_batched_ref(*k13_args, k13_p, k13_evw), 2)
+    k13["per_launch"] = {_kernel_name(k): m for k, (m, _) in _kernel_means(
+        lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw), "k13_", 10).items()}
+    # no chunk of the decode overflows: the plain version defines every output
+    k13_want = wave_unpack.reconstruct_mags_batched_ref(*k13_args, k13_p, k13_evw)
+    _check(not bool(k13_want[1].any()), "a chunk of the 512^3 decode's K13 input overflows")
+    k13["repeats"] = _repeats(kernels, lambda: wave_unpack.reconstruct_mags_batched(*k13_args, k13_p, k13_evw),
+                              k13_want, "K13 on the decode's input", smi)
+    del k13_want
     print(f"[main] K13 on the decode's input {tuple(k13_args[0].shape)}: kernel {k13['ms']:.4f} ms "
           f"({k13['host_ms']:.4f} as the host issues it), plain {k13['plain_ms']:.4f} ms "
           f"({plain_timed['reconstruct_mags']}), bound "
-          f"{k13['bound_ms']:.4f} ms (share {k13['bound_ms'] / k13['ms']:.3f}) -- {smi}")
+          f"{k13['bound_ms']:.4f} ms (share {k13['bound_ms'] / k13['ms']:.3f}); per launch (device ms) "
+          + ", ".join(f"{k} {m:.4f}" for k, m in sorted(k13["per_launch"].items())) + f" -- {smi}")
     d2h_host = comp.last_d2h_bytes
     vol512 = vol
     # phase 11 runs the command-line tools on this volume, container and decode
@@ -3079,15 +3191,17 @@ def main() -> int:
     launches_w = dict(kernels.launches)
     peak_w = torch.cuda.max_memory_allocated()
     print(f"[wave] launches during the 512^3 wave encode: {launches_w}")
-    for name in ("quantize", "cdf97_lift", "emit_exposed", "emit_planes", "masked_pack",
+    for name in ("quantize", "cdf97_lift", "emit_stage", "masked_pack",
                  "compact_flags_rows", "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks",
                  "walk_rows", "radix_sort", "node_passes"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
-    for name in ("table_anchors", "table_walk", "iset_max"):
+    for name in ("table_anchors", "table_walk", "iset_max", "emit_planes"):
         _check(launches_w[name] == 0, f"{name} was launched on the cube form's wave path")
-    # each emission: one K9b launch per class, K11's three; K10 only inside K9b
-    _check(launches_w["emit_planes"] == launches_w["masked_pack"],
-           "emit_planes did not launch once per class of each emission")
+    # each emission of a cube chunk: K9's two launches, K11's three; K10
+    # only inside K9
+    _check(3 * launches_w["emit_stage"] == 2 * launches_w["masked_pack"],
+           f"K9 launched {launches_w['emit_stage']} times for {launches_w['masked_pack'] // 3} emissions, "
+           f"not twice for each")
     _check(launches_w["transpose_bits32"] == 0, "K10 was launched on the wave path")
     _check(launches_w["sched_boxmax"] == launches_w["sched_virtual"],
            "the cube schedule's two launches do not pair up")
@@ -3309,18 +3423,20 @@ def main() -> int:
         plain_timed[name] = r["plain_timed"]
     walk["radix_sort"]["launches_table"] = launches_tab["radix_sort"]
     walk["radix_sort"]["launches_2d"] = launches_2d["radix_sort"]
-    # K9: launches in phase 6's timed wave encode, emit_planes's also in
-    # phases 9 and 10; times at tier 1 (emit_planes: its three classes
-    # summed), the K9 stage at tiers 0 and 1 in "k9_stage"
-    for name, where in (("emit_exposed", "sperr_tpu/ops/wave_pack.py:195"),
-                        ("emit_planes", "sperr_tpu/ops/wave_pack.py:102")):
+    # K9: emit_stage's launches in phase 6's timed wave encode (also phase
+    # 9's in "launches_table"), its times the stage at tier 1 (tier 0 in
+    # "tier0"); emit_planes (K9b) runs on the 2D program: its launches in
+    # phase 10's first timed encode, its times a 1024^2 field's three classes
+    for name, where, nl in (("emit_stage", "sperr_tpu/ops/wave_pack.py:102", launches_w["emit_stage"]),
+                            ("emit_planes", "sperr_tpu/ops/wave_pack.py:339", launches_2d["emit_planes"])):
         r = emit[name]
-        rows.append((name, "emit.cu", where, launches_w[name], r["max_abs_err"], r["ms"], r["host_ms"],
+        rows.append((name, "emit.cu", where, nl, r["max_abs_err"], r["ms"], r["host_ms"],
                      r["plain_ms"], r["bound_ms"], None))
         plain_timed[name] = r["plain_timed"]
-    emit["emit_planes"].update(launches_table=launches_tab["emit_planes"], launches_2d=launches_2d["emit_planes"],
-                               k9_stage=emit["K9"])
-    emit["emit_exposed"]["chunk512"] = {k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")}
+    emit["emit_stage"].update(launches_table=launches_tab["emit_stage"],
+                              chunk512={k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")})
+    emit["emit_stage"]["repeats"].update({f"512^3 chunk, {k}": v for k, v in chunk512["repeats"].items()})
+    emit["emit_planes"]["launches_cube_path"] = launches_w["emit_planes"]
     # the table and 2D walks' kernels: launches in phase 9's timed wave encode
     # (node_passes also runs on the cube form's path, phase 6), and in phase 10's
     # first timed 2D encode in "launches_2d" (iset_max: only there)
@@ -3344,18 +3460,22 @@ def main() -> int:
          "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
          "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
          "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {}),
+         **({"per_launch": k13["per_launch"], "one_chunk": k13_one, "repeats": k13["repeats"]}
+            if name == "reconstruct_mags" else {}),
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
                                                            "launches_2d", "lsd_floor_ms")} if name in walk else {}),
-         **({k: v for k, v in emit[name].items() if k in ("tier0", "per_class", "launches_table", "launches_2d",
-                                                           "k9_stage", "chunk512")} if name in emit else {}),
+         **({k: v for k, v in emit[name].items() if k in ("tier0", "per_launch", "per_class", "launches_table",
+                                                           "launches_cube_path", "k9_stage", "chunk512",
+                                                           "repeats")}
+            if name in emit else {}),
          **({k: v for k, v in twalk[name].items() if k in ("tier1", "2d", "2d_1800x3600", "2d_3600x7200", "1800x3600", "timed",
                                                             "busy_ms", "launches_per_call", "launches_2d",
                                                             "launches_cube_path")}
             if name in twalk else {}),
-         # K10's transpose runs inside emit_planes on the wave paths since K9b
-         **({"merged_into": "emit_planes"} if name == "transpose_bits32" else {})}
+         # K10's transpose runs inside K9 (and K9b) on the wave paths
+         **({"merged_into": "emit_stage"} if name == "transpose_bits32" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

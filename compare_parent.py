@@ -1,0 +1,162 @@
+"""Time this checkout's K9 stage and K13 beside the parent commit's, in one
+process on one card.
+
+    mkdir -p _checkout/parent
+    git archive <parent> sperr_tpu_torch | tar -x -C _checkout/parent
+    python3 compare_parent.py _checkout/parent
+
+The parent's port is imported from DIR as the package ``sperr_parent`` and
+builds its kernels from its own sources into its own build directory, so
+both kernels run on the same card, inputs and clocks.  Each pair is first
+held equal, output for output, then timed in turns (parent, new, new,
+parent) on the device alone and as the host issues the calls, by
+sperr_tpu_torch.runtime.device_bench's timer, and each kernel's launches
+are timed by torch.profiler:
+
+- K9 on headline chunk 0 (the first 256^3 chunk of smooth_field_3d(512,
+  seed=7), as in chip_smoke.py phase 3) at tiers 0 and 1: this checkout's
+  ``wave_pack.emit_cube`` against the parent's exposure
+  (``wave_pack.emit_exposed``) followed by its LIP, refinement and LIS
+  planes (``_pixel_planes``, ``emit_planes("lis")``);
+- K13 (``kernels.reconstruct_mags``) on that chunk's control parse, (1,
+  256^3), and on the 8 chunks' control parses, (8, 256^3), as the 512^3
+  decode batches them.
+
+The card's name and power limit end every line of times.  Exits non-zero
+without a CUDA device or when a pair differs.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import itertools
+import os
+import sys
+import time
+
+
+def _load_parent(parent_dir: str):
+    """The parent's kernels, ops.wave_pack and ops.wave_unpack modules,
+    imported from parent_dir as the package ``sperr_parent``, its kernels
+    built."""
+    root = os.path.join(os.path.abspath(parent_dir), "sperr_tpu_torch")
+    if not os.path.isfile(os.path.join(root, "kernels", "emit.cu")):
+        raise SystemExit(f"compare_parent: no port under {parent_dir}")
+    spec = importlib.util.spec_from_file_location("sperr_parent", os.path.join(root, "__init__.py"),
+                                                  submodule_search_locations=[root])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["sperr_parent"] = mod
+    spec.loader.exec_module(mod)
+    mods = [importlib.import_module(f"sperr_parent.{m}") for m in ("kernels", "ops.wave_pack", "ops.wave_unpack")]
+    t0 = time.perf_counter()
+    mods[0].build()
+    print(f"[parent] the parent's kernels built from {parent_dir} in {time.perf_counter() - t0:.1f} s")
+    return mods
+
+
+def _turns(fns, how: str, calls: int = 20):
+    """Each of fns (label -> fn) timed in turns, a, b, b, a: {label: [ms, ms]}."""
+    from sperr_tpu_torch.runtime.device_bench import time_ms
+
+    labels = list(fns)
+    out = {k: [] for k in labels}
+    for k in labels + labels[::-1]:
+        out[k].append(time_ms(fns[k], calls, how)[0])
+    return out
+
+
+def _compare(cs, label: str, fns, smi: str) -> None:
+    """fns: {"parent": fn, "new": fn}, equal outputs; their turns and each
+    one's launches (device ms per launch over 20 calls)."""
+    import torch
+
+    a, b = (cs._flat(f()) for f in fns.values())
+    cs._check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"the parent's {label} differs from the new one")
+    dev_t, host_t = _turns(fns, "device"), _turns(fns, "host-issued")
+    per = {k: cs._kernel_means(f, "", 20) for k, f in fns.items()}
+    print(f"[compare] {label}: equal; device ms (parent, new, new, parent) {dev_t['parent'][0]:.4f}, "
+          f"{dev_t['new'][0]:.4f}, {dev_t['new'][1]:.4f}, {dev_t['parent'][1]:.4f}; host-issued "
+          f"{host_t['parent'][0]:.4f}, {host_t['new'][0]:.4f}, {host_t['new'][1]:.4f}, {host_t['parent'][1]:.4f}; "
+          + "; ".join(f"{k} per launch " + ", ".join(f"{cs._kernel_name(n)} {m:.4f}" for n, (m, _) in p.items())
+                      for k, p in per.items())
+          + f" -- {smi}")
+
+
+def main(argv) -> int:
+    import torch
+
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("compare_parent: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import chip_smoke as cs
+    import numpy as np
+
+    from sperr_tpu_torch import kernels
+    from sperr_tpu_torch.ops import cdf97, wave_pack
+    from sperr_tpu_torch.ops import speck_virtual as sv
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.runtime import device_bench
+    from sperr_tpu_torch.runtime.engine import default_engine
+    from sperr_tpu_torch.utils.testdata import smooth_field_3d
+
+    smi = cs._smi()
+    print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    dev = torch.device("cuda", 0)
+    kernels.load()
+    pk, pwp, _ = _load_parent(argv[0])
+    vol = smooth_field_3d(512, seed=7)
+    d256 = (256, 256, 256)
+    n = 256**3
+
+    # K9: the emission's emit_cube calls at tiers 0 and 1 of headline chunk 0
+    x = torch.from_numpy(np.ascontiguousarray(vol[:256, :256, :256])[None]).to(dev)
+    f = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_, out_cap=max(1024, n // 1024))
+    mags, signs = f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
+    li = sv.virtual_lis_index(d256, dev)
+    tiers = tb.wave_tiers_for(n)
+    for t in (0, 1):
+        with cs._capture(wave_pack, ["emit_cube"]) as calls:
+            tb._wave_emit_chunk(mags, signs, li, tb._wave_caps(li, d256, tiers[t], 34))
+        (a9,) = calls["emit_cube"]
+        pv, m9, s9, nb, N, wc, pm, pay, P = a9
+        Tp = -(-pay.numel() // 128) * 128
+
+        def parent_stage(pv=pv, m9=m9, s9=s9, nb=nb, N=N, wc=wc, pm=pm, pay=pay, P=P, Tp=Tp):
+            ex = pwp.emit_exposed(pv, m9, s9, nb, N, wc, pm)
+            lip, ref = pwp._pixel_planes(*ex[4:], nb, P)
+            return list(ex[:4]) + [lip, pwp.emit_planes("lis", (pay,), nb, P, Tp), ref]
+
+        _compare(cs, f"K9 stage, headline chunk 0 tier {t} (P {P}, wexp_cap {wc})",
+                 {"parent": parent_stage, "new": lambda a9=a9: wave_pack.emit_cube(*a9)}, smi)
+    del x, f, mags, signs, calls, a9, pv, m9, s9, pay
+
+    # K13: the control parses of chunk 0, and of the 8 chunks as the decode batches them
+    engine = default_engine()
+    bodies = []
+    for z, y, x0 in itertools.product((0, 256), repeat=3):
+        c = torch.from_numpy(np.ascontiguousarray(vol[z:z + 256, y:y + 256, x0:x0 + 256])[None]).to(dev)
+        d = tb._dense_encode(c, "pwe", 1e-2, "dual")
+        bodies.append(engine.encode(3, d["mags"][0].cpu().numpy(), d["signs"][0].cpu().numpy(), d256,
+                                    tb._width_for(int(d["maxmag"][0])), 0))
+    evw = tb._evw_cap(n)
+    for label, parts in (("(1, 256^3)", bodies[:1]), ("(8, 256^3)", bodies)):
+        args, _, p = device_bench._control_inputs(engine, parts, d256, dev)
+        sp = args[0].to(torch.uint8).contiguous()
+        _compare(cs, f"K13 {label}", {
+            "parent": lambda sp=sp, args=args, p=p: pk.reconstruct_mags(sp, *args[1:], p, evw),
+            "new": lambda sp=sp, args=args, p=p: kernels.reconstruct_mags(sp, *args[1:], p, evw),
+        }, smi)
+        del args, sp
+    print(f"[compare] done -- {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

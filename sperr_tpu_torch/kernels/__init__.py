@@ -58,7 +58,7 @@ launches = {
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
-    "emit_exposed": 0, "emit_planes": 0,
+    "emit_stage": 0, "emit_planes": 0,
     "table_anchors": 0, "table_walk": 0, "iset_max": 0, "node_passes": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
@@ -170,7 +170,7 @@ def load(device=None) -> ct.CDLL:
                     ct.c_int, ll, ll, vp, vp, vp, vp, vp,
                 ]),
                 ("sperr_flag_compact_rows", [vp, vp, vp, vp, ll, ll, ll, vp]),
-                ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
+                ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
                 ("sperr_sched_boxmax", [vp, vp, vp, vp, ct.c_int, vp]),
                 ("sperr_sched_virtual", [vp, vp, vp, vp, ct.c_int, vp, vp, vp, ct.c_int, ll, vp]),
                 ("sperr_sched_table", [
@@ -198,9 +198,11 @@ def load(device=None) -> ct.CDLL:
                     vp, vp, vp, vp, vp,
                 ]),
                 ("sperr_walk_rowkeys", [vp, ct.c_int, ll, vp, vp, vp, ct.c_int, ct.c_int, vp, vp, vp]),
-                ("sperr_emit_exposed", [
-                    vp, vp, vp, vp, ct.c_int, ll, ll, ll, ll, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                ("sperr_emit_cube", [
+                    vp, vp, vp, vp, ct.c_int, ll, ll, ll, ll, vp, ll, ll, ct.c_int, vp, vp, vp, vp, vp,
+                    vp, vp, vp,
                 ]),
+                ("sperr_emit_fields", [vp, vp, vp, ct.c_int, vp, ll, ll, vp, ll, ll, vp, ct.c_int, vp, vp]),
                 ("sperr_emit_planes", [ct.c_int, vp, vp, vp, ct.c_int, ll, ll, vp, ct.c_int, vp, vp, vp]),
                 ("sperr_table_anchors", [vp, vp, vp, ct.c_int, ct.c_int, vp, vp, ll, vp]),
                 ("sperr_table_rows", [vp, vp]),
@@ -217,6 +219,10 @@ def load(device=None) -> ct.CDLL:
                 fn.argtypes = args
             lib.sperr_rank_scratch_words.restype = ll
             lib.sperr_rank_scratch_words.argtypes = [ll]
+            lib.sperr_emit_status_words.restype = ll
+            lib.sperr_emit_status_words.argtypes = [ct.c_int]
+            lib.sperr_reconstruct_status_words.restype = ll
+            lib.sperr_reconstruct_status_words.argtypes = [ll, ll]
             lib.sperr_cuda_error_string.restype = ct.c_char_p
             lib.sperr_cuda_error_string.argtypes = [ct.c_int]
             _lib = lib
@@ -268,6 +274,30 @@ def _on_index(dev: torch.device):
     if dev.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(dev)
+
+
+# Buffers that the kernels leave zeroed for their next call (the look-back
+# status words and tickets of K9's and K13's scans): one per host thread,
+# device and stream, so that calls issued by two threads into one stream
+# never share one.
+_zeroed_local = threading.local()
+
+
+@contextlib.contextmanager
+def _zeroed(dev: torch.device, words: int):
+    """A zeroed int64 buffer of at least ``words`` words on ``dev`` for
+    launches that leave it zeroed again.  It goes back to the cache only
+    when the block ends without an exception: after a refused launch it may
+    not be zero, and is dropped."""
+    cache = getattr(_zeroed_local, "bufs", None)
+    if cache is None:
+        cache = _zeroed_local.bufs = {}
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = cache.pop(key, None)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(int(words), 1024), dtype=torch.int64, device=dev)
+    yield buf
+    cache[key] = buf
 
 
 _consts_arrays = {}
@@ -672,12 +702,11 @@ _SEG_PIXELS = 1024  # pixels per warp segment (kSegPixels in unpack.cu)
 
 def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Tensor,
                      ref_avail: torch.Tensor, num_bp: torch.Tensor, p_cap: int, evw_cap: int):
-    """K13: spass (B, n) uint8, words (B, W) int32, ref_off and ref_avail
-    (B, 32) int32, num_bp (B,) int32 with num_bp <= p_cap <= 32 -> (mags
-    int32 (B, n), overflow bool (B,)): more than ``evw_cap`` active (pass,
-    word) slots in a chunk set its overflow, as ops/wave_unpack.py defines
-    it.  Three launches (count, scan, reconstruct), no host
-    synchronisation."""
+    """K13: spass (B, n) uint8 with n < 2^30, words (B, W) int32, ref_off and
+    ref_avail (B, 32) int32, num_bp (B,) int32 with num_bp <= p_cap <= 32 ->
+    (mags int32 (B, n), overflow bool (B,)): more than ``evw_cap`` active
+    (pass, word) slots in a chunk set its overflow, as ops/wave_unpack.py
+    defines it.  Two launches (count, reconstruct), no host synchronisation."""
     _require_cuda(spass, torch.uint8, "spass")
     for t, what in ((words, "words"), (ref_off, "ref_off"), (ref_avail, "ref_avail"),
                     (num_bp, "num_bp")):
@@ -685,8 +714,9 @@ def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Te
         if t.device != spass.device:
             raise ValueError(f"{what} is on {t.device}, spass on {spass.device}")
     p_cap, evw_cap = int(p_cap), int(evw_cap)
-    if spass.dim() != 2 or spass.shape[1] == 0 or not 0 < spass.shape[0] <= 65535:
-        raise ValueError(f"spass must be (B, n), 0 < B <= 65535, n > 0; got {tuple(spass.shape)}")
+    if spass.dim() != 2 or not 0 < spass.shape[1] < 2**30 or not 0 < spass.shape[0] <= 65535:
+        raise ValueError(f"spass must be (B, n), 0 < B <= 65535, 0 < n < 2^30 (the look-back's "
+                         f"counts); got {tuple(spass.shape)}")
     B, n = spass.shape
     if (words.dim() != 2 or words.shape[0] != B or words.shape[1] == 0
             or ref_off.shape != (B, 32) or ref_avail.shape != (B, 32) or num_bp.shape != (B,)):
@@ -703,14 +733,15 @@ def reconstruct_mags(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Te
     overflow = torch.empty((B,), dtype=torch.bool, device=spass.device)
     scratch = torch.empty(B * (32 * nseg + 33), dtype=torch.int32, device=spass.device)
     lib = load(spass.device)
-    with _on_device(spass):
+    status_words = -(-lib.sperr_reconstruct_status_words(B, n) // 2)
+    with _on_device(spass), _zeroed(spass.device, status_words) as status:
         err = lib.sperr_reconstruct_mags(
             spass.data_ptr(), words.data_ptr(), words.shape[1], ref_off.data_ptr(),
-            ref_avail.data_ptr(), num_bp.data_ptr(), scratch.data_ptr(), mags.data_ptr(),
-            overflow.data_ptr(), B, n, take, _stream(spass),
+            ref_avail.data_ptr(), num_bp.data_ptr(), scratch.data_ptr(), status.data_ptr(),
+            mags.data_ptr(), overflow.data_ptr(), B, n, take, _stream(spass),
         )
-    _check(lib, err, "reconstruct_mags")
-    _count("reconstruct_mags", 3)
+        _check(lib, err, "reconstruct_mags")
+    _count("reconstruct_mags", 2)
     return mags, overflow
 
 
@@ -1247,64 +1278,123 @@ def _num_bp_word(num_bp: torch.Tensor, dev) -> torch.Tensor:
     return num_bp
 
 
-class Exposed(NamedTuple):
+class CubeStage(NamedTuple):
     exp_idx: torch.Tensor  # (min(8 take_b, wexp_cap),) int32 ascending pixel indices, sentinel n
     exp_ll: torch.Tensor   # (wexp_cap,) int32 signed magnitudes, 0 past the kept pixels
     n_exp: torch.Tensor    # () int32, 8 x the exposed boxes
     overflow: torch.Tensor  # () bool, more exposed boxes than take_b
-    s_p: torch.Tensor      # (npad,) int32 each: the kept pixels' s, e, sign and magnitude
-    e_p: torch.Tensor
-    g_i: torch.Tensor
-    m_p: torch.Tensor
+    parts: list            # [(valid, bits)] of LIP, LIS and REF: (P, W) int32 planes each
 
 
-def emit_exposed(pv_bm: torch.Tensor, mags: Optional[torch.Tensor], s: torch.Tensor,
-                 num_bp: torch.Tensor, N: int, wexp_cap: int) -> Exposed:
-    """K9a: the exposed-pixel compaction of an N^3 cube from its box-major
+STAGE_ITEMS = 1024  # LIP/REF items per pixel block of the planes launch (kStageItems)
+STAGE_LIS_WORDS = 64  # LIS words per LIS block (kStageLis)
+
+
+def _stage_parts(dev, P: int, widths):
+    """The (valid, bits) (P, W) planes of LIP, LIS and REF, one after the
+    other in one int32 buffer (the order the kernel writes them)."""
+    buf = torch.empty(2 * P * sum(widths), dtype=torch.int32, device=dev)
+    parts, o = [], 0
+    for W in widths:
+        pl = buf[o:o + 2 * P * W].view(2, P, W)
+        parts.append((pl[0], pl[1]))
+        o += 2 * P * W
+    return buf, parts
+
+
+def _stage_common(pay: torch.Tensor, num_bp: torch.Tensor, P: int, dev):
+    """The payload's word count and LIS width (the payloads padded to 128),
+    after the checks the two forms share."""
+    _require_cuda(pay, torch.int32, "pay")
+    if pay.dim() != 1 or pay.device != dev:
+        raise ValueError(f"pay must be 1-D on {dev}; got {tuple(pay.shape)} on {pay.device}")
+    if P < 1:
+        raise ValueError(f"P must be >= 1; got {P}")
+    _num_bp_word(num_bp, dev)
+    n_pay = pay.numel()
+    return n_pay, -(-n_pay // 128) * 128 // 16
+
+
+def emit_cube(pv_bm: torch.Tensor, mags: Optional[torch.Tensor], s: torch.Tensor,
+              num_bp: torch.Tensor, N: int, wexp_cap: int, pay: torch.Tensor, P: int) -> CubeStage:
+    """K9 on an N^3 cube: the exposed-pixel compaction from its box-major
     pixel table pv_bm (n,) int32 (clip(s, 0, 127) | sign << 7, with
     min(mag, 2^23 - 1) << 8 when ``mags`` is None; else mags (n,) int32 in
     linear order), the linear schedule s (n,) (read only when num_bp is
     outside [1, 127]) and num_bp (one int32), keeping the first
-    max(1, wexp_cap // 8) exposed boxes; the fields as
-    ``ops/wave_pack.emit_exposed_ref`` defines them.  Three launches (rows,
-    scan, place), no host synchronisation."""
-    N, wexp_cap = int(N), int(wexp_cap)
+    max(1, wexp_cap // 8) exposed boxes, then the LIP and refinement planes
+    of the kept pixels (padded to a multiple of 256) and the LIS planes of
+    the walk's payload words ``pay`` (padded to a multiple of 128), P
+    passes: as ``ops/wave_pack.emit_cube_ref`` defines them.  Two launches
+    (rows, planes), no host synchronisation; no pixel field is stored."""
+    N, wexp_cap, P = int(N), int(wexp_cap), int(P)
     n = N ** 3
     dev = pv_bm.device
     for t, what in ((pv_bm, "pv_bm"), (s, "s")) + (() if mags is None else ((mags, "mags"),)):
         _require_cuda(t, torch.int32, what)
         if t.shape != (n,) or t.device != dev:
             raise ValueError(f"{what} must be ({n},) on {dev}; got {tuple(t.shape)} on {t.device}")
-    if N < 2 or N & (N - 1) or not 0 < wexp_cap < n:
-        raise ValueError(f"N must be a power of two >= 2 and 0 < wexp_cap < N^3; got {N}, {wexp_cap}")
+    if not 2 <= N <= 1024 or N & (N - 1) or not 0 < wexp_cap < n:
+        raise ValueError(f"N must be a power of two in [2, 1024] and 0 < wexp_cap < N^3; got {N}, {wexp_cap}")
     if pv_bm.data_ptr() % 16:
         raise ValueError("pv_bm must be 16-byte aligned (the kernel loads boxes of 32 bytes)")
-    nb = _num_bp_word(num_bp, dev)
+    n_pay, W_lis = _stage_common(pay, num_bp, P, dev)
     take_b = max(1, wexp_cap // 8)
     Lv = min(8 * take_b, wexp_cap)
     npad = -(-wexp_cap // 256) * 256
     Nh = N // 2
     NR = Nh * Nh
-    # the four pixel fields, the indices, the signed values and n_exp in one
-    # int32 buffer; the row flags, counts and bases in another
-    out = torch.empty(4 * npad + Lv + wexp_cap + 1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(NR * -(-Nh // 32) + 2 * NR + 1, dtype=torch.int32, device=dev)
+    # the indices, the signed values and n_exp in one int32 buffer; the row
+    # flags and bases in another
+    out = torch.empty(Lv + wexp_cap + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(NR * -(-Nh // 32) + NR + 1, dtype=torch.int32, device=dev)
     over = torch.empty((), dtype=torch.bool, device=dev)
-    s_p, e_p, g_i, m_p = (out[k * npad:(k + 1) * npad] for k in range(4))
-    exp_idx = out[4 * npad:4 * npad + Lv]
-    exp_ll = out[4 * npad + Lv:4 * npad + Lv + wexp_cap]
-    n_exp = out[-1]
+    exp_idx, exp_ll, n_exp = out[:Lv], out[Lv:Lv + wexp_cap], out[-1]
+    planes, parts = _stage_parts(dev, P, (npad // 16, W_lis, npad // 32))
     lib = load(dev)
-    with _on_device(pv_bm):
-        err = lib.sperr_emit_exposed(
-            pv_bm.data_ptr(), None if mags is None else mags.data_ptr(), s.data_ptr(), nb.data_ptr(),
-            N, take_b, Lv, wexp_cap, npad, scratch.data_ptr(), exp_idx.data_ptr(), exp_ll.data_ptr(),
-            n_exp.data_ptr(), over.data_ptr(), s_p.data_ptr(), e_p.data_ptr(), g_i.data_ptr(),
-            m_p.data_ptr(), _stream(pv_bm),
+    with _on_device(pv_bm), _zeroed(dev, lib.sperr_emit_status_words(N)) as status:
+        err = lib.sperr_emit_cube(
+            pv_bm.data_ptr(), None if mags is None else mags.data_ptr(), s.data_ptr(),
+            num_bp.data_ptr(), N, take_b, Lv, wexp_cap, npad, pay.data_ptr(), n_pay, W_lis, P,
+            scratch.data_ptr(), status.data_ptr(), exp_idx.data_ptr(), exp_ll.data_ptr(),
+            n_exp.data_ptr(), over.data_ptr(), planes.data_ptr(), _stream(pv_bm),
         )
-    _check(lib, err, "emit_exposed")
-    _count("emit_exposed", 3)
-    return Exposed(exp_idx, exp_ll, n_exp, over, s_p, e_p, g_i, m_p)
+        _check(lib, err, "emit_stage")
+    _count("emit_stage", 2)
+    return CubeStage(exp_idx, exp_ll, n_exp, over, parts)
+
+
+def emit_fields(pixels, pay: torch.Tensor, num_bp: torch.Tensor, P: int):
+    """K9's planes launch for the 3D forms that hand their pixel fields:
+    pixels = (s, e, sign, magnitude) of the LIP/REF items (int32; the sign
+    int32 or bool), padded to a multiple of 256 items with (NEVER, NEVER,
+    0, 0), and the walk's payload words ``pay`` -> [(valid, bits)] of LIP,
+    LIS and REF, as ``ops/wave_pack.emit_fields_ref`` defines them.  One
+    launch."""
+    P = int(P)
+    dev = pixels[0].device
+    n_real = pixels[0].numel()
+    for k, t in enumerate(pixels):
+        dtype = torch.bool if (k == 2 and t.dtype == torch.bool) else torch.int32
+        _require_cuda(t, dtype, f"pixel field {k}")
+        if t.dim() != 1 or t.numel() != n_real or t.device != dev:
+            raise ValueError(f"the pixel fields must be 1-D, of one length, on {dev}")
+    n_pay, W_lis = _stage_common(pay, num_bp, P, dev)
+    items = -(-n_real // 256) * 256
+    planes, parts = _stage_parts(dev, P, (items // 16, W_lis, items // 32))
+    if items + W_lis == 0:
+        return parts
+    g = pixels[2]
+    lib = load(dev)
+    with _on_device(pixels[0]):
+        err = lib.sperr_emit_fields(
+            pixels[0].data_ptr(), pixels[1].data_ptr(), g.data_ptr(), 1 if g.dtype == torch.bool else 4,
+            pixels[3].data_ptr(), n_real, items, pay.data_ptr(), n_pay, W_lis, num_bp.data_ptr(), P,
+            planes.data_ptr(), _stream(pixels[0]),
+        )
+    _check(lib, err, "emit_stage")
+    _count("emit_stage")
+    return parts
 
 
 EMIT_CLASSES = {"lip": (0, 16, 3), "lis": (1, 16, 1), "ref": (2, 32, 2)}  # id, items per word, fields

@@ -13,15 +13,17 @@ bit of a chunk:
 
 SPECK's within-pass order is ascending position, so the row-major order of
 each matrix is stream order.  Each class's packed per-pass words are its
-items' 32-pass masks bit-transposed (K9b, ``emit_planes``: the masks and
-K10's transpose in one kernel on the card), and the masked pack (K11)
-writes the byte-aligned (class, pass) segments, class-major, that the host
-stitches into a stream byte-identical to the host engines'.  The optional
-exposure compaction keeps only the exposed 2x2x2 boxes of a power-of-two
-cube (K9a, ``emit_exposed``), or the exposed pixels of any other chunk
-(K12).  On a CUDA tensor K9a and K9b launch their kernels
-(kernels/emit.cu); on a CPU tensor they run their plain versions (the
-``_ref`` functions, today's masks, sort and plain K10).
+items' 32-pass masks bit-transposed, and the masked pack (K11) writes the
+byte-aligned (class, pass) segments, class-major, that the host stitches
+into a stream byte-identical to the host engines'.  The optional exposure
+compaction keeps only the exposed 2x2x2 boxes of a power-of-two cube, or
+the exposed pixels of any other chunk (K12).  On a CUDA tensor a 3D
+emission's pixel stage is K9 (kernels/emit.cu): two launches on a cube
+(``emit_cube``: the exposure's rows and scan, then the planes of the three
+classes with each kept pixel's fields from its emission rank), one for the
+other forms (``emit_fields``); the 2D program builds one class's planes per
+launch (K9b, ``emit_planes``).  On a CPU tensor they run their plain
+versions (the ``_ref`` functions: today's masks, sort and plain K10).
 """
 
 from __future__ import annotations
@@ -100,7 +102,8 @@ def _emit_words_pair(masks_fn, P: int):
 
 
 # ---------------------------------------------------------------------------
-# K9b: the LIP, LIS and refinement planes
+# K9b: one class's LIP, LIS or refinement planes (the 2D program); their
+# plain version is also K9's
 # ---------------------------------------------------------------------------
 def _nb32(num_bp: torch.Tensor) -> torch.Tensor:
     """num_bp as int32 (itself when it already is)."""
@@ -203,16 +206,17 @@ def emit_planes(kind: str, fields, num_bp, P: int, items: int):
 
 
 # ---------------------------------------------------------------------------
-# K9a: the exposed-pixel compaction of a power-of-two cube
+# K9: the exposed-pixel compaction of a power-of-two cube and the planes
 # ---------------------------------------------------------------------------
 def emit_exposed_ref(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bool):
-    """Plain K9a: exposure is a 2x2x2-box property (every pixel's parent is
-    its aligned box): compact the exposed boxes at n/8 scale (plain K12),
-    fetch their pixels as rows of the box-major table ``pv_bm``, and restore
-    ascending-pixel (emission) order with one sort.  Returns (exp_idx,
-    exp_ll, n_exp, overflow, s_p, e_p, g_i, m_p), ``kernels.Exposed``'s
-    fields; the magnitudes come from pv_bm's high bits when ``pack_mag``,
-    else from ``mags`` at the pixels' linear indices."""
+    """The plain exposure of K9 on a cube: exposure is a 2x2x2-box property
+    (every pixel's parent is its aligned box): compact the exposed boxes at
+    n/8 scale (plain K12), fetch their pixels as rows of the box-major table
+    ``pv_bm``, and restore ascending-pixel (emission) order with one sort.
+    Returns (exp_idx, exp_ll, n_exp, overflow, s_p, e_p, g_i, m_p) (the
+    kernel keeps the four pixel fields out of device memory); the
+    magnitudes come from pv_bm's high bits when ``pack_mag``, else from
+    ``mags`` at the pixels' linear indices."""
     n = N ** 3
     dev = pv_bm.device
     zero = torch.zeros((), dtype=_I32, device=dev)
@@ -262,23 +266,60 @@ def emit_exposed_ref(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bo
     return exp_idx, exp_ll, n_exp, exp_over, s_p, e_p, g_i, m_p
 
 
-def emit_exposed(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bool):
-    """K9a: the exposed pixels of a power-of-two cube (the first
-    max(1, wexp_cap // 8) exposed 2x2x2 boxes' pixels, ascending), from its
-    box-major pixel table: (exp_idx, exp_ll, n_exp, overflow, s_p, e_p, g_i,
-    m_p) as ``emit_exposed_ref`` computes them.  On a CUDA tensor three
-    launches with no sort (``kernels.emit_exposed``: each pixel's emission
-    rank from its box row's and slab's counts of kept boxes); on a CPU
-    tensor the plain version."""
-    if pe._dispatch(pv_bm, "emit_exposed"):
-        return kernels.emit_exposed(pv_bm, None if pack_mag else pe._words32(mags), pe._words32(s),
-                                    _nb32(num_bp), N, wexp_cap)
-    return emit_exposed_ref(pv_bm, mags, s, num_bp, N, wexp_cap, pack_mag)
+def stage_plane_args(pixels, pay_s, num_bp, P: int):
+    """The three classes' ``emit_planes`` arguments of a 3D emission, in
+    masked_pack's order (LIP, LIS, REF): the pixel items (s, e, sign,
+    magnitude) padded to a multiple of 256 (a part's words must be a
+    multiple of K11's piece), the walk's payload words to one of 128."""
+    s_p, e_p, g_i, m_p = pixels
+    items = -(-s_p.shape[0] // 256) * 256
+    Tp = -(-pay_s.shape[0] // 128) * 128
+    return [("lip", (s_p, e_p, g_i), num_bp, P, items), ("lis", (pay_s,), num_bp, P, Tp),
+            ("ref", (s_p, m_p), num_bp, P, items)]
+
+
+def emit_fields_ref(pixels, pay_s, num_bp, P: int):
+    """Plain K9 planes of the 3D forms that hand their pixel fields: each
+    class through ``emit_planes_ref``."""
+    return [emit_planes_ref(*a) for a in stage_plane_args(pixels, pay_s, num_bp, P)]
+
+
+def emit_cube_ref(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bool, pay_s, P: int):
+    """Plain K9 on a power-of-two cube: ``emit_exposed_ref``, then each
+    class's planes -> (exp_idx, exp_ll, n_exp, overflow, [(valid, bits)] of
+    LIP, LIS and REF)."""
+    exp_idx, exp_ll, n_exp, over, *pixels = emit_exposed_ref(pv_bm, mags, s, num_bp, N, wexp_cap,
+                                                             pack_mag)
+    return exp_idx, exp_ll, n_exp, over, emit_fields_ref(pixels, pay_s, num_bp, P)
+
+
+def emit_cube(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bool, pay_s, P: int):
+    """K9 on a power-of-two cube: the exposed pixels (the first
+    max(1, wexp_cap // 8) exposed 2x2x2 boxes' pixels, ascending) from its
+    box-major pixel table, and the LIP, LIS and REF planes, as
+    ``emit_cube_ref`` computes them.  On a CUDA tensor two launches
+    (``kernels.emit_cube``: the rows and their scan, then the planes, each
+    pixel's fields from its emission rank); on a CPU tensor the plain
+    version."""
+    if pe._dispatch(pv_bm, "emit_stage"):
+        return tuple(kernels.emit_cube(pv_bm, None if pack_mag else pe._words32(mags), pe._words32(s),
+                                       _nb32(num_bp), N, wexp_cap, pe._words32(pay_s), P))
+    return emit_cube_ref(pv_bm, mags, s, num_bp, N, wexp_cap, pack_mag, pay_s, P)
+
+
+def emit_fields(pixels, pay_s, num_bp, P: int):
+    """K9's planes of the 3D forms that hand their pixel fields (s, e, sign,
+    magnitude): [(valid, bits)] of LIP, LIS and REF as ``emit_fields_ref``
+    computes them; one launch on a CUDA tensor."""
+    if pe._dispatch(pixels[0], "emit_stage"):
+        return kernels.emit_fields([pe._words32(f) if f.dtype != torch.bool else f.contiguous()
+                                    for f in pixels], pe._words32(pay_s), _nb32(num_bp), P)
+    return emit_fields_ref(pixels, pay_s, num_bp, P)
 
 
 def _compact_exposed(mags, signs, s, e, num_bp, wexp_cap: int):
     """The exposed pixels (e < num_bp), the only ones that emit LIP or
-    refinement bits, compacted by K12, in ``emit_exposed``'s order:
+    refinement bits, compacted by K12, in ``emit_exposed_ref``'s order:
     their indices in ascending (emission) order with the sentinel n, as the
     reference's one-key sort over unique keys gives them, their signed
     values, their count, the overflow flag, and their (s, e, sign,
@@ -303,8 +344,8 @@ def _compact_exposed(mags, signs, s, e, num_bp, wexp_cap: int):
 
 
 def _every_pixel(mags, signs, s, e):
-    """No compaction, in ``emit_exposed``'s order: an empty coefficient view,
-    no overflow, and every pixel's (s, e, sign, magnitude)."""
+    """No compaction, in ``emit_exposed_ref``'s order: an empty coefficient
+    view, no overflow, and every pixel's (s, e, sign, magnitude)."""
     dev = mags.device
     empty = torch.zeros(0, dtype=_I32, device=dev)
     return (empty, empty, torch.zeros((), dtype=_I32, device=dev),
@@ -312,8 +353,9 @@ def _every_pixel(mags, signs, s, e):
 
 
 def _pixel_planes(s_p, e_p, g_i, m_p, num_bp, P: int):
-    """The LIP and refinement planes (K9b) of the pixel items, padded to a
-    multiple of 256 (a part's words must be a multiple of K11's piece)."""
+    """The LIP and refinement planes (K9b) of a 2D field's pixel items,
+    padded to a multiple of 256 (a part's words must be a multiple of K11's
+    piece)."""
     items = -(-s_p.shape[0] // 256) * 256
     return [emit_planes("lip", (s_p, e_p, g_i), num_bp, P, items),
             emit_planes("ref", (s_p, m_p), num_bp, P, items)]
@@ -329,11 +371,12 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     ``pixel_schedule_pyramid``), the per-node significance passes node_s,
     num_bp (an int32 0-d tensor) and the walk index ``li``
     (``VirtualLisIndex`` or ``LisIndex``).  ``wexp_cap`` > 0 (and < n)
-    compacts the exposed pixels first (K9a for a power-of-two cube, K12
+    compacts the exposed pixels first (K9 for a power-of-two cube, K12
     otherwise), so the LIP and refinement matrices shrink to the exposed
     neighbourhood; exposure overflow sets the overflow flag (tier retry).
     Between the walk and K11 a power-of-two cube on a CUDA tensor runs hand
-    kernels only: K9a and one K9b launch per class."""
+    kernels only: K9's two launches (``emit_cube``); the other forms make
+    one (``emit_fields``)."""
     n = mags.shape[0]
     P = num_bp_cap
     mags = mags.to(_I32)
@@ -354,17 +397,14 @@ def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
     pay_s, n_sig = lis_segments_device(
         node_s, s, signs, num_bp, li, num_bp_cap, node_cap, return_events="items", vtab=vtab,
     )
-    Tp = -(-pay_s.shape[0] // 128) * 128
-
     if compact and uniform:
-        exposed = emit_exposed(vtab[:n], mags, s, num_bp, li.dims[0], wexp_cap, pack_mag)
-    elif compact:
-        exposed = _compact_exposed(mags, signs, s, e, num_bp, wexp_cap)
+        exp_idx, exp_ll, n_exp, exp_over, parts = emit_cube(vtab[:n], mags, s, num_bp, li.dims[0],
+                                                            wexp_cap, pack_mag, pay_s, P)
     else:
-        exposed = _every_pixel(mags, signs, s, e)
-    exp_idx, exp_ll, n_exp, exp_over, *pixels = exposed
-    lip, ref = _pixel_planes(*pixels, num_bp, P)
-    parts = [lip, emit_planes("lis", (pay_s,), num_bp, P, Tp), ref]
+        exposed = (_compact_exposed(mags, signs, s, e, num_bp, wexp_cap) if compact
+                   else _every_pixel(mags, signs, s, e))
+        exp_idx, exp_ll, n_exp, exp_over, *pixels = exposed
+        parts = emit_fields(pixels, pay_s, num_bp, P)
     res = pe.masked_pack(parts, evb_cap, out_cap_bytes)
     return WaveEmit(
         num_bp.to(_I32), pe.words_to_bytes(res.out_words), res.counts,
@@ -398,7 +438,7 @@ def wave_emit_2d_pixels(mags, signs, s, e, num_bp, px_bp_cap: int, evb_cap: int,
 def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int):
     """The LIS bits of one 2D field from its walk's payload words (K14's set
     half): the planes of K9b, packed by K11, as ``wave_emit_3d`` packs the
-    3D walk's.  Returns (buf uint8 [cap_total], counts int32 [num_bp_cap],
+    3D walk's planes.  Returns (buf uint8 [cap_total], counts int32 [num_bp_cap],
     total_bytes int64, n_sig int32), the event form's layout
     (``speck_lis._event_tail``): the byte-aligned per-pass segments, zero
     past the total.  n_sig is raised past any node cap where the event form
@@ -413,5 +453,5 @@ def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_tot
     return pe.words_to_bytes(res.out_words)[:cap_total], res.counts, res.total_bytes, n_sig
 
 
-__all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "wave_emit_2d_lis", "WaveEmit", "emit_exposed",
-           "emit_planes"]
+__all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "wave_emit_2d_lis", "WaveEmit", "emit_cube",
+           "emit_fields", "emit_planes"]

@@ -205,7 +205,7 @@ def reconstruct_mags_batched_ref(spass, words, ref_off, ref_avail, num_bp, p_cap
 def reconstruct_mags_batched(spass: torch.Tensor, words: torch.Tensor, ref_off: torch.Tensor,
                              ref_avail: torch.Tensor, num_bp: torch.Tensor, p_cap: int,
                              evw_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K13 on CUDA tensors (three launches: count, scan, reconstruct), the
+    """K13 on CUDA tensors (two launches: count, reconstruct), the
     plain version on CPU tensors; arguments as for
     ``reconstruct_mags_batched_ref``.  Rows whose overflow is set hold no
     defined magnitudes: the caller parses those chunks in full."""

@@ -499,12 +499,12 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     the walk kernels of kernels/walk.cu for a power-of-two cube, of
     kernels/walk_table.cu for any other chunk: a few dozen launches, which
     the sleep kernel covers, so the delta is timed "device" where the chains
-    allow it) -> the full emission (``wave_emit_3d``: K9a or K12, K9b,
-    K11).  ``dims`` = (nx, ny, nz) breaks down a chunk of those dims (cut
+    allow it) -> the full emission (``wave_emit_3d``: K9's two launches on
+    a cube, else K12 and K9's planes launch; K11).  ``dims`` = (nx, ny, nz) breaks down a chunk of those dims (cut
     from the smooth field of the largest) in place of the n^3 cube.
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
-    the walk plus the refinement class's planes (``emit_planes``, K9b, as
-    the emission runs it over every pixel), pext and popcounts."""
+    the walk plus the refinement class's planes over every pixel
+    (``emit_planes``, K9b), pext and popcounts."""
     dev = _resolve_device(device)
     dims3 = (n, n, n) if dims is None else tuple(int(d) for d in dims)
     nx3, ny3, nz3 = dims3

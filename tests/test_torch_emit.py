@@ -5,11 +5,14 @@ kernels/emit.cu) on the CPU.
 tests leave out (an exposure that overflows, all-zero and one-pixel chunks,
 N = 64 at P = 16 and P = 34), exactly.  The kernels cannot run here, so
 their index arithmetic is emulated in numpy as the CUDA code does it and
-held against the plain versions bit for bit: K9a's row counts, clamped
-scan, ballot ranks and rank formula against the plain sort, and K9b's lane
-mapping, register masks and shuffle transpose against the plain masks
-through the plain K10.  The 512^3 walk's static layout (two path words) is
-checked here too."""
+held against the plain versions bit for bit: the cube's rows launch (flag
+words, row counts, the look-back with the tiles' steps interleaved in a
+random order, the clamped bases), the planes launch's inversion of the rank
+formula (slab and row searches, the select in the flag words), its
+sentinels, its block -> class mapping and its LIS loads, against
+``emit_cube_ref``; and K9b's lane mapping, register masks and shuffle
+transpose against the plain masks through the plain K10.  The 512^3 walk's
+static layout (two path words) is checked here too."""
 
 import functools
 
@@ -131,7 +134,7 @@ def test_wave_emit_matches_jax_on_edge_chunks(N, P, wexp_cap, kind):
 
 
 # ---------------------------------------------------------------------------
-# K9a: the kernels' index arithmetic, emulated
+# K9 on a cube: the kernels' index arithmetic, emulated
 # ---------------------------------------------------------------------------
 def _box_major(x, N):
     h = N // 2
@@ -145,88 +148,242 @@ def _pv_table(s, sgn, mags, N, pack_mag):
     return _box_major(pv.astype(np.int32), N)
 
 
-def _exposed_emulated(pv, mags, s, nb, N, wexp_cap, pack_mag):
-    """kernels/emit.cu's three launches in numpy: the rows kernel's flag
-    words and counts (ballots), the scan's clamped row bases, and the place
-    kernel's popcount ranks, rank formula and sentinel fill."""
-    n = N**3
+def _popc(x):
+    x = np.asarray(x, np.int64) & _FULL
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _FULL) >> 24
+
+
+def _run_actors(starts, rng):
+    """Run the look-back's actors with their steps interleaved in a random
+    order.  ``starts`` are generator functions in ticket order: actor i
+    starts only after actor i - 1 has (the ticket); each yield is a point
+    where another actor may run (a publish, a read, or a wait on a status
+    word not yet published)."""
+    live, nxt = [], 0
+    while live or nxt < len(starts):
+        k = int(rng.integers(len(live) + (nxt < len(starts))))
+        if k == len(live):
+            live.append(starts[nxt]())
+            nxt += 1
+        try:
+            next(live[k])
+        except StopIteration:
+            live.pop(k)
+
+
+_AGG, _PREFIX = 1, 2
+
+
+def _lookback_tile(t, agg, state, val, excl):
+    """The rows kernel's look-back for tile t: publish the aggregate (tile
+    0 its inclusive prefix), read 256 predecessors a step (thread i the
+    i-th nearest; a word not yet published is waited for) to the nearest
+    inclusive prefix, publish its own."""
+    if t == 0:
+        state[0], val[0], excl[0] = _PREFIX, agg[0], 0
+        return
+    state[t], val[t] = _AGG, agg[t]
+    yield
+    prefix, j = 0, t - 1
+    while True:
+        q = j - np.arange(256)
+        while any(state[x] == 0 for x in q if x >= 0):
+            yield
+        st = np.array([state[x] if x >= 0 else _PREFIX for x in q])
+        v = np.array([val[x] if x >= 0 else 0 for x in q])
+        pm = st == _PREFIX
+        first = int(np.argmax(pm)) if pm.any() else 256
+        prefix += int(v[:first + 1].sum())
+        if pm.any():
+            break
+        j -= 256
+        yield
+    state[t], val[t], excl[t] = _PREFIX, prefix + agg[t], prefix
+
+
+def _rows_emulated(pv, s, nb, N, take_b, rng):
+    """exposed_rows in numpy: the flag words (ballots) and row counts of
+    each 64-row tile, its look-back with the tiles' steps interleaved in a
+    random order, and the clamped row bases, n_exp and the overflow flag.
+    The flag is read from s itself when num_bp is outside [1, 127]."""
     Nh = N // 2
     NR = Nh * Nh
     fw = -(-Nh // 32)
-    take_b = max(1, wexp_cap // 8)
-    Lv = min(8 * take_b, wexp_cap)
-    npad = -(-wexp_cap // 256) * 256
     boxes = pv.reshape(NR, Nh, 8)
-    # rows: the flag from the s field's box minimum, or from s itself when
-    # num_bp is outside [1, 127]
     if 1 <= nb <= 127:
         flag = (boxes & 127).min(axis=2) < nb
     else:
         sv = np.where(s < _NEVER, s, _NEVER)
         flag = _box_major(sv, N).reshape(NR, Nh, 8).min(axis=2) < nb
-    words = np.zeros((NR, fw), np.uint64)
+    words = np.zeros((NR, fw), np.int64)
     for c in range(fw):
         for lane in range(32):
-            b = 32 * c + lane
-            if b < Nh:
-                words[:, c] |= flag[:, b].astype(np.uint64) << np.uint64(lane)
-    kraw = np.array([sum(bin(int(w)).count("1") for w in row) for row in words], np.int64)
-    # scan: the clamped exclusive prefix, one more entry for the total
-    incl = np.concatenate([[0], np.cumsum(kraw)])
-    base = np.minimum(incl, take_b)
-    carry = int(incl[-1])
-    n_exp = 8 * carry
-    # place
-    out = {k: np.zeros(npad, np.int64) for k in ("s", "e", "g", "m")}
+            if 32 * c + lane < Nh:
+                words[:, c] |= flag[:, 32 * c + lane].astype(np.int64) << lane
+    cnt = _popc(words).sum(axis=1)
+    ntiles = -(-NR // 64)
+    tcnt = np.zeros(ntiles * 64, np.int64)
+    tcnt[:NR] = cnt
+    tcnt = tcnt.reshape(ntiles, 64)
+    agg = tcnt.sum(axis=1)
+    state, val, excl = np.zeros(ntiles, int), np.zeros(ntiles, np.int64), np.zeros(ntiles, np.int64)
+    _run_actors([lambda t=t: _lookback_tile(t, agg, state, val, excl) for t in range(ntiles)], rng)
+    e = (excl[:, None] + np.cumsum(tcnt, axis=1) - tcnt).reshape(-1)[:NR]
+    total = int(excl[-1] + agg[-1])
+    base = np.minimum(np.append(e, total), take_b)
+    return words, base, 8 * total, total > take_b
+
+
+def _search_base(at, cnt, off, scale, r):
+    """search_bases on arrays of ranks: the largest i in [0, cnt) (a power
+    of two) with scale * (at(i) - off) <= r, by steps of cnt / 2, cnt / 4,
+    .., 1."""
+    idx, step = np.zeros_like(r), cnt >> 1
+    while step:
+        idx = np.where(scale * (at(idx + step) - off) <= r, idx + step, idx)
+        step >>= 1
+    return idx
+
+
+def _select32(w, j):
+    """select32: the position of the j-th set bit of w, by halving."""
+    w, j, pos = np.asarray(w, np.int64), np.asarray(j, np.int64), np.zeros(np.shape(j), np.int64)
+    for sh in (16, 8, 4, 2, 1):
+        c = _popc(w & ((1 << sh) - 1))
+        mv = j >= c
+        j = np.where(mv, j - c, j)
+        w = np.where(mv, w >> sh, w)
+        pos = pos + np.where(mv, sh, 0)
+    return pos
+
+
+def _rank_inverse(words, base, N, r):
+    """The planes launch's inversion of the rank formula for ranks r:
+    (zb, dz, yb, dy, xb, dx) by the slab search, the row search, arithmetic
+    and the select in the row's flag words."""
+    Nh = N // 2
+    fw = words.shape[1]
+    zb = _search_base(lambda m: base[m * Nh], Nh, 0, 8, r)
+    B = base[zb * Nh]
+    K = base[(zb + 1) * Nh] - B
+    q = r - 8 * B
+    dz = (q >= 4 * K).astype(np.int64)
+    q = q - dz * 4 * K
+    yb = _search_base(lambda m: base[zb * Nh + m], Nh, B, 4, q)
+    row = zb * Nh + yb
+    b0 = base[row]
+    k = base[row + 1] - b0
+    q = q - 4 * (b0 - B)
+    dy = (q >= 2 * k).astype(np.int64)
+    q = q - dy * 2 * k
+    j, dx = q >> 1, q & 1
+    xb = np.full_like(r, -1)
+    for c in range(fw):
+        f = words[row, c]
+        pc = _popc(f)
+        hit = (xb < 0) & (j < pc)
+        xb = np.where(hit, 32 * c + _select32(f, np.where(hit, j, 0)), xb)
+        j = np.where((xb < 0), j - pc, j)
+    assert (xb >= 0).all()
+    return zb, dz, yb, dy, xb, dx
+
+
+def _cube_fields_emulated(pv, mags, words, base, n_exp, N, wexp_cap, pack_mag):
+    """The planes launch's pixel blocks on a cube: each rank's (s, e, sign,
+    magnitude) from its box, exp_idx and exp_ll at the kept ranks, and past
+    them the sentinels."""
+    n = N**3
+    Nh = N // 2
+    take_b = max(1, wexp_cap // 8)
+    Lv = min(8 * take_b, wexp_cap)
+    npad = -(-wexp_cap // 256) * 256
+    Rk = 8 * int(base[-1])
+    lo = min(Rk, Lv)
+    r = np.arange(lo, dtype=np.int64)
+    zb, dz, yb, dy, xb, dx = _rank_inverse(words, base, N, r)
+    box = pv.reshape(-1, 8)[(zb * Nh + yb) * Nh + xb].astype(np.int64)
+    slot = 4 * dz + 2 * dy + dx
+    val = box[np.arange(lo), slot]
+    lin = ((2 * zb + dz) * N + 2 * yb + dy) * N + 2 * xb + dx
+    f = {"s": np.full(npad, _NEVER, np.int64), "e": np.full(npad, _NEVER, np.int64),
+         "g": np.zeros(npad, np.int64), "m": np.zeros(npad, np.int64)}
+    f["s"][:lo], f["e"][:lo], f["g"][:lo] = val & 127, (box & 127).min(axis=1), (val >> 7) & 1
+    f["m"][:lo] = (val >> 8) if pack_mag else mags[lin]
+    rt = np.arange(lo, npad)
+    f["s"][lo:] = f["e"][lo:] = np.where(rt < n_exp, 0, _NEVER)
     exp_idx = np.zeros(Lv, np.int64)
     exp_ll = np.zeros(wexp_cap, np.int64)
-    placed = np.zeros(npad, bool)
-    for row in range(NR):
-        b0, k = int(base[row]), int(base[row + 1] - base[row])
-        if k == 0:
-            continue
-        zb, yb = divmod(row, Nh)
-        B = int(base[zb * Nh])
-        K = int(base[(zb + 1) * Nh]) - B
-        R = b0 - B
-        seen = 0
-        for c in range(fw):
-            if seen >= k:
-                break
-            m = int(words[row, c])
-            for lane in range(32):
-                j = seen + bin(m & ((1 << lane) - 1)).count("1")
-                if not (m >> lane) & 1 or j >= k:
-                    continue
-                xb = 32 * c + lane
-                v = boxes[row, xb].astype(np.int64)
-                eb = int((v & 127).min())
-                for slot in range(8):
-                    dz, dy, dx = slot >> 2, (slot >> 1) & 1, slot & 1
-                    rank = 8 * B + dz * 4 * K + 4 * R + dy * 2 * k + 2 * j + dx
-                    if rank >= Lv:
-                        continue
-                    lin = ((2 * zb + dz) * N + 2 * yb + dy) * N + 2 * xb + dx
-                    g = (v[slot] >> 7) & 1
-                    mag = int(mags[lin]) if not pack_mag else int(v[slot] >> 8)
-                    assert not placed[rank]
-                    placed[rank] = True
-                    out["s"][rank], out["e"][rank], out["g"][rank], out["m"][rank] = v[slot] & 127, eb, g, mag
-                    exp_idx[rank] = lin
-                    exp_ll[rank] = mag if g == 1 else -mag
-            seen += bin(m).count("1")
-    Rk = 8 * int(base[NR])
-    lo = min(Rk, Lv)
-    assert placed[:lo].all() and not placed[lo:].any()
-    r = np.arange(lo, npad)
-    z = r < n_exp
-    for key in ("s", "e"):
-        out[key][lo:] = np.where(z, 0, _NEVER)
-    out["g"][lo:] = 0
-    out["m"][lo:] = 0
-    exp_ll[lo:] = 0
+    exp_idx[:lo], exp_ll[:lo] = lin, np.where(f["g"][:lo] == 1, f["m"][:lo], -f["m"][:lo])
     exp_idx[Rk:Lv] = n
-    return (exp_idx, exp_ll, n_exp, carry > take_b, out["s"], out["e"], out["g"], out["m"])
+    return exp_idx, exp_ll, f
+
+
+def _stage_blocks(items, W_lis):
+    """The planes launch's blocks: pixel block b owns LIP words [64 b, 64 b
+    + 64) and REF words [32 b, 32 b + 32) of the items' (1024 a block), the
+    rest 64 LIS words each.  Returns {class: [(block, first word, words)]}."""
+    nbp = -(-items // kernels.STAGE_ITEMS)
+    nbl = -(-W_lis // kernels.STAGE_LIS_WORDS)
+    out = {"lip": [], "lis": [], "ref": []}
+    for blk in range(nbp + nbl):
+        if blk < nbp:
+            for kind, per in (("lip", 64), ("ref", 32)):
+                W = items // (1024 // per)
+                w0 = blk * per
+                out[kind].append((blk, w0, min(per, W - w0)))
+        else:
+            w0 = (blk - nbp) * kernels.STAGE_LIS_WORDS
+            out["lis"].append((blk, w0, min(kernels.STAGE_LIS_WORDS, W_lis - w0)))
+    return out
+
+
+def _lis_items_loaded(pay, w0, aligned=True):
+    """lis_block's loads for the block at LIS word w0: lane l of warp v
+    loads items 2 l, 2 l + 1 and 64 + 2 l, 65 + 2 l of the warp's 128 (one
+    8-byte load each when aligned and in range), then word i's lane l takes
+    item 16 i + l / 2 from lane 8 (i & 3) + l / 4 by shuffle.  Returns the
+    (64 words, 32 lanes) payload the lanes hold."""
+    n_pay = pay.shape[0]
+    get = lambda i: int(pay[i]) if i < n_pay else 0
+    out = np.zeros((64, 32), np.int64)
+    for v in range(8):
+        x = np.zeros((32, 4), np.int64)
+        for lane in range(32):
+            for h in range(2):
+                i = 16 * (w0 + 8 * v) + 2 * lane + 64 * h
+                x[lane, 2 * h], x[lane, 2 * h + 1] = get(i), get(i + 1)
+        for i in range(8):
+            for lane in range(32):
+                src = 8 * (i & 3) + (lane >> 2)
+                ya, yb = x[src, 0 if i < 4 else 2], x[src, 1 if i < 4 else 3]
+                out[8 * v + i, lane] = yb if lane & 2 else ya
+    return out
+
+
+def _stage_emulated(pv, mags, s, nb, N, wexp_cap, pack_mag, pay, P, rng):
+    """emit_cube's two launches in numpy: the rows launch (flags, counts,
+    out-of-order look-back, clamped bases), the planes launch's rank
+    inversion and sentinels, and the three classes' planes built word by
+    word with the blocks' lane mapping.  Returns emit_cube_ref's outputs."""
+    take_b = max(1, wexp_cap // 8)
+    words, base, n_exp, over = _rows_emulated(pv, s, nb, N, take_b, rng)
+    exp_idx, exp_ll, f = _cube_fields_emulated(pv, mags, words, base, n_exp, N, wexp_cap, pack_mag)
+    npad = f["s"].shape[0]
+    W_lis = -(-pay.shape[0] // 128) * 128 // 16
+    blocks = _stage_blocks(npad, W_lis)
+    lip = _planes_emulated("lip", (f["s"], f["e"], f["g"]), nb, P, npad)
+    ref = _planes_emulated("ref", (f["s"], f["m"]), nb, P, npad)
+    lis = np.zeros((2, P, W_lis), np.int64)
+    for _, w0, nw in blocks["lis"]:
+        held = _lis_items_loaded(pay, w0)[:nw]
+        want = np.array([[pay[i] if i < pay.shape[0] else 0 for i in 16 * (w0 + w) + np.arange(32) // 2]
+                         for w in range(nw)], np.int64)
+        np.testing.assert_array_equal(held, want)
+        lis[:, :, w0:w0 + nw] = _planes_emulated("lis", (want.reshape(-1)[::2],), nb, P, 16 * nw)
+    return exp_idx, exp_ll, n_exp, over, [lip, tuple(lis), ref]
 
 
 def _exposed_inputs(N, density, seed, nb=14):
@@ -242,23 +399,48 @@ def _exposed_boxes(s, nb, N):
     return int(((_box_major(np.where(s < _NEVER, s, _NEVER), N).reshape(-1, 8).min(axis=1)) < nb).sum())
 
 
-@pytest.mark.parametrize("N", [4, 8, 16, 32, 64])
+def _payload(rng, n_pay):
+    return rng.integers(-(1 << 31), 1 << 31, size=n_pay, dtype=np.int64).astype(np.int32)
+
+
+def _stage_check(pv, mags, s, nb, N, wexp_cap, pack_mag, pay, P, rng):
+    """The emulation against emit_cube_ref, every output bit for bit (the
+    refinement class where num_bp is in [0, 32]: the plain version's
+    logical shift by 32 - num_bp is defined on [0, 32] only)."""
+    want = twp.emit_cube_ref(torch.from_numpy(pv), torch.from_numpy(mags), torch.from_numpy(s),
+                             torch.tensor(nb, dtype=torch.int32), N, wexp_cap, pack_mag,
+                             torch.from_numpy(pay), P)
+    got = _stage_emulated(pv, mags, s, nb, N, wexp_cap, pack_mag, pay, P, rng)
+    for name, a, b in zip(("exp_idx", "exp_ll", "n_exp", "overflow"), got, want):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy().astype(np.int64), name)
+    for kind, (gv, gb), (wv, wb) in zip(("lip", "lis", "ref"), got[4], want[4]):
+        if kind == "ref" and not 0 <= nb <= 32:
+            continue
+        np.testing.assert_array_equal(gv, _as_u32(wv), f"{kind} valid")
+        np.testing.assert_array_equal(gb, _as_u32(wb), f"{kind} bits")
+    return want
+
+
+@pytest.mark.parametrize("N", [2, 4, 8, 16, 32, 64])
 @pytest.mark.parametrize("density", [0.02, 0.3, 0.9])
 @pytest.mark.parametrize("cut", ["one", "middle", "none"])
 def test_exposed_emulation_matches_the_plain_sort(N, density, cut):
-    s, sgn, mags = _exposed_inputs(N, density, N * 7 + int(density * 100))
+    """The cube's two launches, emulated, against the plain version (the
+    plain K12 over the boxes, the sort, the masks through the plain K10):
+    both magnitude layouts, P = 16 with packed magnitudes and P = 34 (two
+    windows) with magnitudes apart."""
+    seed = N * 7 + int(density * 100)
+    s, sgn, mags = _exposed_inputs(N, density, seed)
     nb = 14
     nbox = _exposed_boxes(s, nb, N)
     n = N**3
     wexp_cap = {"one": 8, "middle": max(8, 8 * (nbox // 2) + 3), "none": n - 1}[cut]
-    for pack_mag in (True, False):
+    wexp_cap = min(wexp_cap, n - 1)
+    rng = np.random.default_rng(seed)
+    for pack_mag, P in ((True, 16), (False, 34)):
         pv = _pv_table(s, sgn, mags, N, pack_mag)
-        want = twp.emit_exposed_ref(torch.from_numpy(pv), torch.from_numpy(mags), torch.from_numpy(s),
-                                    torch.tensor(nb, dtype=torch.int32), N, wexp_cap, pack_mag)
-        got = _exposed_emulated(pv, mags, s, nb, N, wexp_cap, pack_mag)
-        names = ("exp_idx", "exp_ll", "n_exp", "overflow", "s_p", "e_p", "g_i", "m_p")
-        for name, a, b in zip(names, got, want):
-            np.testing.assert_array_equal(np.asarray(a), b.numpy().astype(np.int64), name)
+        pay = _payload(rng, int(rng.integers(1, 3000)))
+        want = _stage_check(pv, mags, s, nb, N, wexp_cap, pack_mag, pay, P, rng)
         if cut == "one" and nbox > 1:
             assert bool(want[3])
 
@@ -277,11 +459,7 @@ def test_exposed_emulation_reads_s_outside_the_clipped_range(nb):
     mags = rng.integers(0, 1 << 20, size=n).astype(np.int32)
     pv = _pv_table(s, sgn, mags, N, True)
     for wexp_cap in (8, 200, n - 1):
-        want = twp.emit_exposed_ref(torch.from_numpy(pv), torch.from_numpy(mags), torch.from_numpy(s),
-                                    torch.tensor(nb, dtype=torch.int32), N, wexp_cap, True)
-        got = _exposed_emulated(pv, mags, s, nb, N, wexp_cap, True)
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(np.asarray(a), b.numpy().astype(np.int64))
+        _stage_check(pv, mags, s, nb, N, wexp_cap, True, _payload(rng, 300), 16, rng)
 
 
 @pytest.mark.parametrize("wexp_cap", [1, 5, 7])
@@ -291,12 +469,92 @@ def test_exposed_caps_below_one_box(wexp_cap):
     N = 8
     s, sgn, mags = _exposed_inputs(N, 0.3, wexp_cap)
     pv = _pv_table(s, sgn, mags, N, False)
-    want = twp.emit_exposed_ref(torch.from_numpy(pv), torch.from_numpy(mags), torch.from_numpy(s),
-                                torch.tensor(14, dtype=torch.int32), N, wexp_cap, False)
-    got = _exposed_emulated(pv, mags, s, 14, N, wexp_cap, False)
-    assert want[0].shape == (wexp_cap,) and want[1].shape == (wexp_cap,) and want[4].shape == (256,)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(np.asarray(a), b.numpy().astype(np.int64))
+    rng = np.random.default_rng(wexp_cap)
+    want = _stage_check(pv, mags, s, 14, N, wexp_cap, False, _payload(rng, 100), 16, rng)
+    assert want[0].shape == (wexp_cap,) and want[1].shape == (wexp_cap,) and want[4][0][0].shape == (16, 16)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 33, 300, 700])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rows_lookback_out_of_order(tiles, seed):
+    """The rows launch's look-back gives every tile its exclusive prefix
+    whatever order the tiles' steps interleave in (windows of 256
+    predecessors, aggregates and prefixes mixed), and the clamped bases
+    equal the plain clamped prefix at every take_b."""
+    rng = np.random.default_rng(tiles * 10 + seed)
+    agg = rng.integers(0, 50, size=tiles) * (rng.random(tiles) < 0.7)
+    state, val, excl = np.zeros(tiles, int), np.zeros(tiles, np.int64), np.zeros(tiles, np.int64)
+    _run_actors([lambda t=t: _lookback_tile(t, agg, state, val, excl) for t in range(tiles)], rng)
+    np.testing.assert_array_equal(excl, np.cumsum(agg) - agg)
+    assert (state == _PREFIX).all() and (val == np.cumsum(agg)).all()
+    # whole rows launches on an N = 32 cube (256 rows: 4 tiles) and N = 64 (16)
+    for N in (32, 64):
+        s, sgn, mags = _exposed_inputs(N, 0.1, seed + N)
+        pv = _pv_table(s, sgn, mags, N, True)
+        flag = (pv.reshape(-1, 8) & 127).min(axis=1) < 14
+        incl = np.concatenate([[0], np.cumsum(flag.reshape(-1, N // 2).sum(axis=1))])
+        for take_b in (1, int(incl[-1]) // 3 + 1, int(incl[-1]) + 5):
+            _, base, n_exp, over = _rows_emulated(pv, s, 14, N, take_b, rng)
+            np.testing.assert_array_equal(base, np.minimum(incl, take_b))
+            assert n_exp == 8 * incl[-1] and over == (incl[-1] > take_b)
+
+
+@pytest.mark.parametrize("N", [2, 8, 32])
+@pytest.mark.parametrize("density", [0.05, 0.5])
+def test_rank_inversion_inverts_the_rank_formula(N, density):
+    """Every kept slot's rank 8 B + dz 4 K + 4 R + dy 2 k + 2 j + dx, from the
+    kept boxes enumerated in box order, inverts to its (zb, dz, yb, dy, xb,
+    dx), with the cut inside a row, a slab and nowhere."""
+    s, sgn, mags = _exposed_inputs(N, density, N + int(density * 10))
+    pv = _pv_table(s, sgn, mags, N, True)
+    Nh = N // 2
+    flag = ((pv.reshape(-1, 8) & 127).min(axis=1) < 14).reshape(Nh, Nh, Nh)
+    kept_all = np.argwhere(flag)  # (zb, yb, xb), box order
+    rng = np.random.default_rng(N)
+    for take_b in sorted({1, max(1, len(kept_all) // 2 + 1), len(kept_all) + 3}):
+        words, base, _, _ = _rows_emulated(pv, s, 14, N, take_b, rng)
+        kept = kept_all[:take_b]
+        if not len(kept):
+            continue
+        want = []
+        for zb, yb, xb in kept:
+            row = zb * Nh + yb
+            B, K = base[zb * Nh], base[(zb + 1) * Nh] - base[zb * Nh]
+            R, k = base[row] - B, base[row + 1] - base[row]
+            j = int(np.sum((kept[:, 0] == zb) & (kept[:, 1] == yb) & (kept[:, 2] < xb)))
+            for dz in (0, 1):
+                for dy in (0, 1):
+                    for dx in (0, 1):
+                        want.append((8 * B + dz * 4 * K + 4 * R + dy * 2 * k + 2 * j + dx, zb, dz, yb, dy, xb, dx))
+        want = np.array(sorted(want))
+        np.testing.assert_array_equal(want[:, 0], np.arange(8 * len(kept)))  # a bijection onto [0, 8 kept)
+        got = np.stack(_rank_inverse(words, base, N, want[:, 0]), axis=1)
+        np.testing.assert_array_equal(got, want[:, 1:])
+
+
+@pytest.mark.parametrize("items,n_pay", [(256, 1), (1024, 128), (1280, 1000), (4096, 4097), (256, 0)])
+def test_stage_blocks_cover_each_class_once(items, n_pay):
+    """The planes launch's block -> class mapping: every LIP, REF and LIS
+    word is made by exactly one block, the pixel blocks first; the LIS
+    loads (8-byte pairs, then the shuffle) give each lane its item, aligned
+    and not, with the payload's end inside a pair."""
+    W_lis = -(-n_pay // 128) * 128 // 16
+    blocks = _stage_blocks(items, W_lis)
+    for kind, W in (("lip", items // 16), ("ref", items // 32), ("lis", W_lis)):
+        seen = np.zeros(W, int)
+        for _, w0, nw in blocks[kind]:
+            assert nw > 0
+            seen[w0:w0 + nw] += 1
+        assert (seen == 1).all(), kind
+    nbp = -(-items // 1024)
+    assert [b for b, _, _ in blocks["lip"]] == list(range(nbp))
+    assert [b for b, _, _ in blocks["lis"]] == list(range(nbp, nbp + -(-W_lis // 64)))
+    pay = _payload(np.random.default_rng(n_pay), n_pay)
+    for _, w0, nw in blocks["lis"]:
+        held = _lis_items_loaded(pay, w0)
+        item = 16 * (w0 + np.arange(64))[:, None] + np.arange(32)[None, :] // 2
+        want = np.where(item < n_pay, pay[np.minimum(item, max(n_pay - 1, 0))] if n_pay else 0, 0)
+        np.testing.assert_array_equal(held, want)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +585,10 @@ def _srl(x, k):
 
 def _brev(x):
     x = np.asarray(x, np.int64) & _FULL
-    return np.array([int(f"{int(v):032b}"[::-1], 2) for v in x.reshape(-1)], np.int64).reshape(x.shape)
+    out = np.zeros_like(x)
+    for i in range(32):
+        out |= ((x >> i) & 1) << (31 - i)
+    return out
 
 
 def _cell_masks(kind, a, b, c, odd, nb, base):
@@ -451,7 +712,7 @@ def test_cpu_tensors_never_load_the_emit_kernels(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel library")
 
     monkeypatch.setattr(kernels, "load", refuse)
-    before = {k: kernels.launches[k] for k in ("emit_exposed", "emit_planes")}
+    before = {k: kernels.launches[k] for k in ("emit_stage", "emit_planes")}
     mags, sgn = _chunk(16, (0.3, 1 << 12), 5)
     vt, nb, s, e, node_s = _schedule(16, mags)
     for wexp_cap in (0, 1024):
@@ -464,12 +725,14 @@ def test_emit_kernels_raise_off_cpu_and_cuda():
     meta = torch.zeros(512, dtype=torch.int32, device="meta")
     nb = torch.zeros((), dtype=torch.int32, device="meta")
     for call in (lambda: twp.emit_planes("ref", (meta, meta), nb, 14, 512),
-                 lambda: twp.emit_exposed(meta, meta, meta, nb, 8, 64, True)):
+                 lambda: twp.emit_cube(meta, meta, meta, nb, 8, 64, True, meta, 16),
+                 lambda: twp.emit_fields((meta,) * 4, meta, nb, 16)):
         with pytest.raises(ValueError, match="no .* kernel for tensors on meta"):
             call()
     cpu = torch.zeros(512, dtype=torch.int32)
     for call in (lambda: kernels.emit_planes("ref", (cpu, cpu), cpu[:1], 14, 512),
-                 lambda: kernels.emit_exposed(cpu, None, cpu, cpu[:1], 8, 64)):
+                 lambda: kernels.emit_cube(cpu, None, cpu, cpu[:1], 8, 64, cpu, 16),
+                 lambda: kernels.emit_fields((cpu,) * 4, cpu, cpu[:1], 16)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     with pytest.raises(ValueError, match="kind"):

@@ -29,7 +29,7 @@ _PORT_FILES = sorted(
     for d, _, fs in os.walk(os.path.join(ROOT, "sperr_tpu_torch"))
     for f in fs
     if f.endswith(".py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "compare_parent.py"]
 _BANNED = ("sperr_tpu", "jax", "jaxlib")
 
 
@@ -444,7 +444,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
-        "emit_exposed", "emit_planes", "table_anchors", "table_walk", "iset_max", "node_passes",
+        "emit_stage", "emit_planes", "table_anchors", "table_walk", "iset_max", "node_passes",
     }
     assert not any(kernels.launches.values())
 

@@ -159,6 +159,226 @@ def test_plain_reconstruct_equals_jax(dims, dens, seed, trunc, evw_cap):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# ---------------------------------------------------------------------------
+# K13's launches (kernels/unpack.cu), emulated in numpy
+# ---------------------------------------------------------------------------
+_FULL32 = 0xFFFFFFFF
+_AGG, _PREFIX = 1, 2
+
+
+def _run_actors(starts, rng):
+    """Run generator actors with their steps interleaved in a random order;
+    actor i starts only after actor i - 1 has (the tiles' ticket)."""
+    live, nxt = [], 0
+    while live or nxt < len(starts):
+        k = int(rng.integers(len(live) + (nxt < len(starts))))
+        if k == len(live):
+            live.append(starts[nxt]())
+            nxt += 1
+        try:
+            next(live[k])
+        except StopIteration:
+            live.pop(k)
+
+
+def _warp_passes(t, w, agg, state, val, excl):
+    """k13_count's warp w in tile t, which takes passes w, w + 8, w + 16 and
+    w + 24 together: publish the tile's count of each (tile 0 its inclusive
+    prefix), walk back 32 predecessors a step (lane l the l-th nearest; a
+    word not yet published is waited for), each pass to its nearest
+    inclusive prefix, and publish each pass's own."""
+    ps = [w + 8 * i for i in range(4)]
+    for p in ps:
+        state[t, p], val[t, p] = (_PREFIX if t == 0 else _AGG), agg[t, p]
+    if t == 0:
+        excl[0, ps] = 0
+        return
+    yield
+    e = {p: 0 for p in ps}
+    done = {p: False for p in ps}
+    j = t - 1
+    while not all(done.values()):
+        q = j - np.arange(32)
+        for p in ps:
+            if done[p]:
+                continue
+            while any(state[x, p] == 0 for x in q if x >= 0):
+                yield
+            st = np.array([state[x, p] if x >= 0 else _PREFIX for x in q])
+            v = np.array([val[x, p] if x >= 0 else 0 for x in q])
+            pm = st == _PREFIX
+            first = int(np.argmax(pm)) if pm.any() else 32
+            e[p] += int(v[:first + 1].sum())
+            done[p] = bool(pm.any())
+        j -= 32
+        yield
+    for p in ps:
+        state[t, p], val[t, p], excl[t, p] = _PREFIX, e[p] + agg[t, p], e[p]
+
+
+_COUNT_TILE = 32  # segments of a count tile (kCountTileSegs)
+
+
+def _k13_count_emulated(spass, nb, rng):
+    """k13_count on one chunk: each segment's histogram of s (s < 32; pairs
+    of consecutive segments packed in the halves of one count), its
+    exclusive prefix over the bins (#{s < p}), the tiles of 32 segments,
+    the per-pass look-back with every warp's steps interleaved in a random
+    order.  Returns rank0 (32, nseg) and mc (32,)."""
+    n = spass.size
+    nseg = -(-n // 1024)
+    ntiles = -(-nseg // _COUNT_TILE)
+    sp = np.full(ntiles * _COUNT_TILE * 1024, 255, np.int64)
+    sp[:n] = spass
+    seg = sp.reshape(ntiles * _COUNT_TILE // 2, 2, 1024)
+    packed = np.stack([((seg[:, 0] == b).sum(axis=1) | ((seg[:, 1] == b).sum(axis=1) << 16))
+                       for b in range(32)], axis=1)
+    hist = np.stack([packed & 0xFFFF, packed >> 16], axis=1).reshape(ntiles * _COUNT_TILE, 32)
+    c = (np.cumsum(hist, axis=1) - hist).reshape(ntiles, _COUNT_TILE, 32)
+    agg = c.sum(axis=1)
+    within = np.cumsum(c, axis=1) - c
+    state = np.zeros((ntiles, 32), int)
+    val, excl = np.zeros((ntiles, 32), np.int64), np.zeros((ntiles, 32), np.int64)
+    _run_actors([lambda t=t, w=w: _warp_passes(t, w, agg, state, val, excl)
+                 for t in range(ntiles) for w in range(8)], rng)
+    assert (state == _PREFIX).all()
+    rank0 = (excl[:, None, :] + within).reshape(ntiles * _COUNT_TILE, 32)[:nseg].T
+    mc = np.where(np.arange(32) < min(nb, 32), excl[-1] + agg[-1], 0)
+    return rank0, mc
+
+
+def _ballot_counts(spass, nb):
+    """The per-pass ballot counts of the design before (a ballot and a
+    popcount for every pass past each word's smallest s): rank0 (32, nseg)
+    for the passes below nb and the chunk totals mc."""
+    n = spass.size
+    nseg = -(-n // 1024)
+    sp = np.full(nseg * 1024, 255, np.int64)
+    sp[:n] = spass
+    words = sp.reshape(nseg, 32, 32)
+    smin = words.min(axis=2)
+    cnt = np.zeros((32, nseg), np.int64)
+    for p in range(min(nb, 32)):
+        c = (words < p).sum(axis=2) * (p > smin)
+        cnt[p] = c.sum(axis=1)
+    return np.cumsum(cnt, axis=1) - cnt, cnt.sum(axis=1)
+
+
+def _k13_mags_emulated(spass, words, roff, ravail, nb, rank0, mc, take):
+    """k13_mags on one chunk, word by word in numpy: the chunk's scalars,
+    lane p's aligned word (the two body words at ref_off[p] + rank, funnel
+    shifted), each member lane's bit k of it by shuffle where rank + k <
+    ref_avail[p], the active slots, and the closed form.  Returns (mags,
+    overflow)."""
+    n = spass.size
+    nseg = rank0.shape[1]
+    sp = np.full(nseg * 1024, 255, np.int64)
+    sp[:n] = spass
+    s = sp.reshape(nseg, 32, 32)
+    W = words.size
+    wd = words.astype(np.int64) & _FULL32
+    nb = min(int(nb), 32)
+    av = ravail.astype(np.int64)
+    lanes = np.arange(32)
+    full = (lanes < nb) & (av >= mc)
+    lead = 32 if full.all() else int(np.argmin(full))
+    pF, pstar = lead - 1, lead
+    has_star = pstar < nb - 1
+    T_star = 1 << min(max(nb - 1 - pstar, 0), 30) if has_star else 0
+    star_on = has_star and int(av[pstar]) > 0
+    F = min(pF, nb - 2)
+    apw = np.zeros(s.shape, np.int64)
+    pa = np.zeros(s.shape, bool)
+    nact = 0
+    for p in range(nb):
+        member = s < p
+        c = member.sum(axis=2)
+        rank = rank0[p][:, None] + np.cumsum(c, axis=1) - c
+        k = np.cumsum(member, axis=2) - member
+        bi = int(roff[p]) + rank
+        q, r = bi >> 5, bi & 31
+        w0, w1 = wd[np.minimum(q, W - 1)], wd[np.minimum(q + 1, W - 1)]
+        xw = np.where(r == 0, w0, ((w0 >> r) | (w1 << (32 - r))) & _FULL32)
+        got = member & (rank[..., None] + k < av[p])
+        apw |= np.where(got, ((xw[..., None] >> k) & 1) << p, 0)
+        nact += int(((c > 0) & (rank < av[p])).sum())
+        if p == pstar:
+            pa = got
+    sc = s
+    sig = sc < nb
+    sh = np.clip(nb - 1 - sc, 0, 30)
+    Ts = np.int64(1) << sh
+    init = (2 * Ts - (Ts >> 1) - 1) & _FULL32
+    if nb >= 1:
+        amask = (1 << (nb - 1)) - 1
+        A = np.zeros_like(apw)
+        x = apw & amask
+        for i in range(32):
+            A |= ((x >> i) & 1) << (31 - i)
+        A >>= 32 - nb
+    else:
+        A = np.zeros_like(apw)
+    last = (apw >> (nb - 1)) & 1 if nb >= 2 else np.zeros_like(apw)
+    M = np.where(F >= sc + 1, (np.int64(1) << sh) - (1 << min(max(nb - 1 - F, 0), 30)), 0)
+    M = M + np.where(star_on & pa, T_star, 0)
+    d = (2 * A - M) & _FULL32
+    d = np.where(d >= 1 << 31, d - (1 << 32), d) >> 1
+    val = (init + d + last) & _FULL32
+    val = np.where(val >= 1 << 31, val - (1 << 32), val)
+    return np.where(sig, val, 0).reshape(-1)[:n], nact > take
+
+
+@pytest.mark.parametrize("case", _CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[4]}")
+def test_k13_count_emulation_matches_the_ballot_counts(case):
+    """The count launch's histogram counts and its per-pass look-back, the
+    lanes' steps interleaved in a random order, give the first ranks and
+    pass totals that the per-pass ballots of the design before gave."""
+    _, dims, dens, seed, trunc, scale = case
+    args, _, _, n = _case(dims, dens, seed, trunc, scale)
+    spass, nbp = args[0].numpy(), int(args[4])
+    want_r, want_mc = _ballot_counts(spass, nbp)
+    for k in range(2):
+        rank0, mc = _k13_count_emulated(spass, nbp, np.random.default_rng(seed * 10 + k))
+        np.testing.assert_array_equal(rank0[:nbp], want_r[:nbp])
+        np.testing.assert_array_equal(mc, want_mc)
+
+
+@pytest.mark.parametrize("n,nb", [(2**22 + 77, 20), (1000, 7), (32769, 32)])
+def test_k13_count_lookback_over_many_tiles(n, nb):
+    """The count launch on a synthetic chunk of 129 tiles (five windows of
+    32 predecessors), a chunk of one partial segment and one a pixel past a
+    tile: the first ranks and totals equal the per-pass ballot counts."""
+    rng = np.random.default_rng(n)
+    spass = np.where(rng.random(n) < 0.4, rng.integers(0, 40, n), 255).astype(np.uint8)
+    want_r, want_mc = _ballot_counts(spass, nb)
+    rank0, mc = _k13_count_emulated(spass, nb, rng)
+    np.testing.assert_array_equal(rank0[:nb], want_r[:nb])
+    np.testing.assert_array_equal(mc, want_mc)
+
+
+@pytest.mark.parametrize("case", _CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[4]}")
+def test_k13_mags_emulation_matches_the_plain_version(case):
+    """Both launches emulated, the aligned words handed out by shuffle,
+    against reconstruct_mags_batched_ref: every magnitude with all slots
+    allowed, and the overflow flag (magnitudes unchanged) at a cap just
+    below the chunk's active slots."""
+    _, dims, dens, seed, trunc, scale = case
+    args, p_cap, m_ref, n = _case(dims, dens, seed, trunc, scale)
+    spass, words, ro, ra, nbp = (a.numpy() if isinstance(a, torch.Tensor) else a for a in args)
+    rank0, mc = _k13_count_emulated(spass, int(nbp), np.random.default_rng(seed))
+    acts = _n_active(spass, ra, int(nbp))
+    for cap in (_all_slots(p_cap, n), max(acts - 1, 0)):
+        take = min(cap, p_cap * (-(-n // 128) * 4))
+        got, over = _k13_mags_emulated(spass, words, ro, ra, nbp, rank0, mc, take)
+        want, want_over = wu.reconstruct_mags_batched_ref(
+            args[0][None], args[1][None], args[2][None], args[3][None],
+            torch.tensor([int(nbp)], dtype=torch.int32), p_cap, cap)
+        assert over == bool(want_over[0]) == (cap < acts)
+        np.testing.assert_array_equal(got, m_ref.astype(np.int64))
+        if not over:
+            np.testing.assert_array_equal(got, want[0].numpy())
+
+
 def _vol32():
     rng = np.random.default_rng(0)
     t = np.linspace(0, 1, 32, dtype=np.float32)
