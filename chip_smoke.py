@@ -295,9 +295,10 @@ def _top(per_name, k: int) -> str:
     return ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in top)
 
 
-def _capture(module, names):
+def _capture(module, names, clone=False):
     """Record the arguments of every call of module.<name> for each name
-    (a context manager); the calls still run."""
+    (a context manager); the calls still run.  ``clone``: record copies of
+    the tensor arguments, for calls that write over their inputs."""
     import contextlib
 
     calls = {name: [] for name in names}
@@ -307,9 +308,9 @@ def _capture(module, names):
         orig = {name: getattr(module, name) for name in names}
 
         def wrap(name):
-            def rec(*args):
-                calls[name].append(args)
-                return orig[name](*args)
+            def rec(*args, **kw):  # the positional arguments recorded
+                calls[name].append(tuple(a.clone() if clone and hasattr(a, "clone") else a for a in args))
+                return orig[name](*args, **kw)
             return rec
 
         for name in names:
@@ -1049,8 +1050,9 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     li8 = tb2._wave_index2((nx8, ny8), dev)[1]
     build8 = time.perf_counter() - t0
     st8 = speck_lis.table_static(li8)
-    rl8 = kernels.rank_layout(st8.plan.host, st8.plan.nsmall)
-    _check(rl8.nbitmap < len(rl8.bits), f"{ny8}x{nx8}: no rank level past the bitmaps ({rl8.bits} key bits)")
+    rl8 = kernels.table_rank_layout(st8.plan.host, st8.plan.nsmall)
+    bits8 = tuple(12 + w for w in st8.plan.wks)
+    _check(rl8.gated and max(bits8) > 32, f"{ny8}x{nx8}: rank levels of {bits8} static key bits, gated {rl8.gated}")
     want = tb2.TorchCompressor2D((nx8, ny8), device=dev).compress(f8, "pwe", tol)
     w8 = tb2.TorchCompressor2D((nx8, ny8), device=dev, entropy="wave")
     kernels.reset_launch_counts()
@@ -1064,8 +1066,13 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     for name in ("sched_table", "node_passes", "iset_max", "table_anchors", "table_walk", "radix_sort",
                  "emit_planes", "masked_pack"):
         _check(l8.get(name, 0) > 0, f"{ny8}x{nx8}: {name} was not launched")
-    print(f"[wave2d] {ny8}x{nx8} PWE {tol} (index build {build8:.3f} s; rank levels of {rl8.bits} key bits, "
-          f"{len(rl8.bits) - rl8.nbitmap} sorted): {len(got)} bytes, equal to the host stream, tier "
+    rs8 = [_rank_state(kernels, speck_lis, li8, c.views) for k, (_, c) in st8.calls.items()
+           if k[1] == kernels.RANK_CAP_BITS]  # the walk's own calls (not phase 3's forced routes)
+    _check(rs8 and all(not r["overflowed"] and r["widest_used_bits"] <= 2**26 and r["left_zero"] for r in rs8),
+           f"{ny8}x{nx8}: rank levels {rs8}")
+    print(f"[wave2d] {ny8}x{nx8} PWE {tol} (index build {build8:.3f} s; rank levels of {bits8} static key bits, "
+          f"none sorted, gated {rl8.gated}, their keys spanning {rs8[0]['used_bits']} bits, none overflowed): "
+          f"{len(got)} bytes, equal to the host stream, tier "
           f"{w8.last_wave_tiers[0]}, wave {wall:.3f} s (first call at this shape); launches {l8}; peak device "
           f"memory {torch.cuda.max_memory_allocated()} bytes")
     del f8, w8, li8, st8
@@ -2085,6 +2092,45 @@ def _sorts_and_scans(kernels, names) -> list:
     return sorted(n for n in short if any(w in n.lower() for w in ("sort", "cub", "cummax", "scan")))
 
 
+def _rank_state(kernels, sl, li, views) -> dict:
+    """The rank levels of a table or 2D walk call, read from its buffer
+    (``keep`` or a cached call's views): per level its route and the bits
+    its keys spanned (groups of 256; the small levels' exact span), the
+    plan's widest region, the levels that overflowed to their gated sorted
+    route, and whether the hop-word bitmaps and the scans' counters were
+    left zero."""
+    st = sl.table_static(li)
+    rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall)
+    nlv = len(st.plan.counts)
+    rst = views["rst"][: nlv * kernels.RANK_STATE].reshape(nlv, kernels.RANK_STATE).cpu().numpy()
+    used = []
+    D = st.dlow0
+    for l in range(nlv):
+        nu, d, groups, over, nd = (int(x) for x in rst[l, :5])
+        if l < rl.nsmall:
+            used.append(nu * D)  # the one block's span: nu D bits
+            D = max(D, nd + 1)
+        else:
+            used.append(None if over else 256 * groups)
+    return {"used_bits": used, "widest_used_bits": max((u for u in used if u is not None), default=0),
+            "widest_region_bits": max([1 << c for c in rl.cap_bits] + [1 << kernels.RANK_SMALL_BITS] * bool(rl.nsmall)),
+            "overflowed": [l for l, u in enumerate(used) if u is None], "gated": list(rl.gated),
+            "left_zero": not views["ubm"].any().item() and not views["rst"].reshape(-1, kernels.RANK_STATE)[:, 5].any().item()}
+
+
+def _static_build(sl, li, index_s: float) -> dict:
+    """Host seconds of a walk index: its build (``index_s``, measured by the
+    caller; about 0 where it was cached), its ``table_static`` (None where
+    an earlier phase made it) and ``path_ranks`` alone (a fresh call)."""
+    fresh = li._walk_static is None
+    t0 = time.perf_counter()
+    sl.table_static(li)
+    static_s = round(time.perf_counter() - t0, 4) if fresh else None
+    t0 = time.perf_counter()
+    sl.path_ranks(li)
+    return {"index_s": index_s, "table_static_s": static_s, "path_ranks_s": time.perf_counter() - t0}
+
+
 def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     """Phase 3's table and 2D walk kernels (kernels/walk_table.cu) bit for
     bit against their plain versions on the card, every output of each:
@@ -2154,7 +2200,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
             out[m.numel() // 2] = big
         return out
 
-    timing = {}
+    timing, ranks, builds = {}, {}, {}
     # -- 3D chunks on the table walk ---------------------------------------------
     dims_h = (256, 256, 100)
     hur = front(vol512[:100, :256, :256])
@@ -2169,35 +2215,52 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
                [("tier 0", cap_h[0]), ("tier 1", cap_h[1])]),
               ("dyadic chunk (118, 128, 97)", (97, 128, 118), front(vol11[:118, :128, :97]), [("node cap nn", None)])]
     for label, dims, (m, sg), caps in cases3:
+        t0 = time.perf_counter()
         li, si = tb._wave_index(dims, dev)
+        if label.startswith("Hurricane"):
+            builds[label] = _static_build(sl, li, time.perf_counter() - t0)
         nb, s, _, nm = tb._schedule(m, si)
         ns = spk.node_passes(nm, nb)
         equal("node_passes", (ns,), (spk.node_passes_ref(nm, nb),), label)
         want_anc = sl.table_anchors_ref(ns, li)
         equal("table_anchors", sl.table_anchors(ns, li), want_anc, label)
-        equal("table_anchors", sl.table_anchors(ns, li, bitmap_bits=16), want_anc, f"{label}, levels sorted")
+        equal("table_anchors", sl.table_anchors(ns, li, cap_bits=16), want_anc, f"{label}, levels past 16 bits gated")
+        equal("table_anchors", sl.table_anchors(ns, li, cap_bits=8), want_anc, f"{label}, levels gated to sorting")
         for clabel, c in caps:
             c = li.nn if c is None else c
             keep = {}
-            with _capture(kernels, ["radix_sort"]) as rc:
+            with _capture(kernels, ["radix_sort"], clone=True) as rc:  # the walk's sorts write over their keys
                 got = sl._table_items_cuda(ns, s, sg, li, c, keep=keep)
-            equal("table_walk", got, sl._lis_items_table_ref(ns, s, sg, nb, li, c), f"{label}, {clabel} (node cap {c})")
+            want_w = sl._lis_items_table_ref(ns, s, sg, nb, li, c)
+            equal("table_walk", got, want_w, f"{label}, {clabel} (node cap {c})")
             equal("table_anchors", [keep[k] for k in ("J", "R", "u", "jp")], want_anc, f"{label}, {clabel} (in the walk)")
+            ranks[f"{label}, {clabel}"] = rs = _rank_state(kernels, sl, li, keep)
+            _check(not rs["overflowed"] and rs["widest_used_bits"] <= 2**26 and rs["left_zero"],
+                   f"{label}, {clabel}: rank levels {rs}")
             nsorts += sorts_equal(rc["radix_sort"], f"{label}, {clabel}")
+            if clabel == caps[0][0]:
+                equal("table_walk", sl._table_items_cuda(ns, s, sg, li, c, cap_bits=8), want_w,
+                      f"{label}, {clabel}, every larger rank level gated to sorting")
             if label.startswith("Hurricane") and clabel.startswith("tier"):
                 timing[f"K15 {clabel}"] = dict(fn=(lambda a=(ns, s, sg, li, c): sl._table_items_cuda(*a)),
                                                plain=(lambda a=(ns, s, sg, nb, li, c): sl._lis_items_table_ref(*a)),
-                                               li=li, n=m.numel(), T=got[0].numel())
+                                               li=li, n=m.numel(), T=got[0].numel(), cap=c)
         if label.startswith("Hurricane"):
             timing["node_passes"] = dict(fn=lambda a=(nm, nb): spk.node_passes(*a),
                                          plain=lambda a=(nm, nb): spk.node_passes_ref(*a),
                                          bytes=8 * li.nn + 4)
             timing["anchors K15"] = dict(fn=lambda a=(ns, li): sl.table_anchors(*a),
                                          plain=lambda a=(ns, li): sl.table_anchors_ref(*a), li=li, ns=ns)
+        st = sl.table_static(li)
+        rs = ranks[f"{label}, {caps[0][0]}"]
         print(f"[kernels] table walk, {label}: num_bp {int(nb)}, {int((ns < 0x7FFF).sum())} significant sets; "
-              f"node_passes, table_anchors (J, R, u, jp, alone and in the walk) and the walk's payload words and "
+              f"node_passes, table_anchors (J, R, u, jp, alone, in the walk, with the levels past 16 bits gated "
+              f"and with every larger level gated to sorting) and the walk's payload words and "
               f"n_sig at {', '.join(f'{cl} ({li.nn if c is None else c})' for cl, c in caps)} equal to the plain "
-              f"versions bit for bit")
+              f"versions bit for bit; rank levels' key spans {rs['used_bits']} bits (widest "
+              f"{rs['widest_used_bits']}; the plan's widest region {rs['widest_region_bits']} bits; gated "
+              f"{rs['gated']}, none overflowed); path ranks {st.path_values} values ({st.pb} bits), static "
+              f"tables {st.path_bytes} bytes (8 nn + 4 n = {8 * li.nn + 4 * li.n})")
 
     # node_passes on the 256^3 cube path's node maxima (headline chunk 0)
     m0, _ = front(vol512[:256, :256, :256])
@@ -2222,7 +2285,10 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
               ("one pixel 33x57", (33, 57), (edge(r57[0], "one"), r57[1]))]
     for label, (nx, ny), (m, sg) in cases2:
         n = nx * ny
+        t0 = time.perf_counter()
         ti, li = spk.tree_index((nx, ny), dev), sl2.lis2_index((nx, ny), dev)
+        if label in ("1024^2 field", "1800x3600 field"):
+            builds[label] = _static_build(sl, li, time.perf_counter() - t0)
         tree = build_tree2((nx, ny))
         nb, pm, s, _, nm = spk.schedule_table(m, ti)
         ns = spk.node_passes(nm, nb)
@@ -2232,17 +2298,23 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         equal("iset_max", (iset,), (sl2.iset_significance_ref(pm2, tree, nb),), label)
         want_anc = sl.table_anchors_ref(ns, li, iset)
         equal("table_anchors", sl.table_anchors(ns, li, iset), want_anc, label)
-        equal("table_anchors", sl.table_anchors(ns, li, iset, bitmap_bits=16), want_anc, f"{label}, levels sorted")
+        equal("table_anchors", sl.table_anchors(ns, li, iset, cap_bits=16), want_anc,
+              f"{label}, levels past 16 bits gated")
+        equal("table_anchors", sl.table_anchors(ns, li, iset, cap_bits=8), want_anc,
+              f"{label}, levels gated to sorting")
         st = sl.table_static(li)
-        rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)
-        nsorted = len(rl.bits) - rl.nbitmap
-        _check(nsorted == (label == "3600x7200 field"), f"{label}: {nsorted} rank levels sorted ({rl.bits} key bits)")
+        bits = tuple(12 + w for w in st.plan.wks)
         keep = {}
-        with _capture(kernels, ["radix_sort"]) as rc:
+        with _capture(kernels, ["radix_sort"], clone=True) as rc:
             got = sl._table_items_cuda(ns, s, sg, li, li.nn, iset, nb, keep=keep)
         want = sl2._lis2_items_ref(ns, s, sg, nb, iset, li, li.nn)
         equal("table_walk", got, want, label)
         equal("table_anchors", [keep[k] for k in ("J", "R", "u", "jp")], want_anc, f"{label} (in the walk)")
+        ranks[label] = rs = _rank_state(kernels, sl, li, keep)
+        _check(not rs["overflowed"] and rs["widest_used_bits"] <= 2**26 and rs["left_zero"],
+               f"{label}: rank levels {rs}")
+        equal("table_walk", sl._table_items_cuda(ns, s, sg, li, li.nn, iset, nb, cap_bits=8), want,
+              f"{label}, every larger rank level gated to sorting")
         nsorts += sorts_equal(rc["radix_sort"], label)
         caps = tb2._wave_caps2(n, 34, li.nn, max(4096, int(1.25 * n)))
         fits = []
@@ -2259,7 +2331,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         if label == "1024^2 field":
             timing["K14 1024^2"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
                                         plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
-                                        li=li, n=n, T=got[0].numel())
+                                        li=li, n=n, T=got[0].numel(), cap=li.nn)
             timing["iset_max"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
                                       plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
                                       bytes=4 * n + 4 * (tree.xf + 1) + 4)
@@ -2269,7 +2341,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         if label == "1800x3600 field":
             timing["K14 1800x3600"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
                                            plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
-                                           li=li, n=n, T=got[0].numel())
+                                           li=li, n=n, T=got[0].numel(), cap=li.nn)
             timing["iset_max 1800x3600"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
                                                 plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
                                                 bytes=4 * n + 4 * (tree.xf + 1) + 4)
@@ -2277,10 +2349,13 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
             timing["anchors K14 3600x7200"] = dict(fn=lambda a=(ns, li, iset): sl.table_anchors(*a),
                                                    plain=lambda a=(ns, li, iset): sl.table_anchors_ref(*a),
                                                    li=li, ns=ns, iset=iset)
-        print(f"[kernels] 2D walk, {label}: num_bp {int(nb)}, n_sig {int(got[1])}, rank levels of {rl.bits} key "
-              f"bits, {nsorted} sorted; node_passes, iset_max, "
-              f"table_anchors (also with the levels past 16 bits sorted) and the walk's payload words equal to "
-              f"the plain versions bit for bit; the LIS "
+        print(f"[kernels] 2D walk, {label}: num_bp {int(nb)}, n_sig {int(got[1])}, rank levels of {bits} static "
+              f"key bits, none sorted, their keys spanning {rs['used_bits']} bits (widest "
+              f"{rs['widest_used_bits']}; the plan's widest region {rs['widest_region_bits']} bits; gated "
+              f"{rs['gated']}, none overflowed); path ranks {st.path_values} values ({st.pb} bits), static tables "
+              f"{st.path_bytes} bytes (8 nn + 4 n = {8 * li.nn + 4 * li.n}); node_passes, iset_max, "
+              f"table_anchors (also with the levels past 16 bits gated, and every larger level gated to "
+              f"sorting) and the walk's payload words (also gated) equal to the plain versions bit for bit; the LIS "
               f"segments through K9b and K11 equal to the event form at {', '.join(fits) or 'no cap'}, n_sig "
               "equal at every cap")
     print(f"[kernels] the table and 2D walks ran {nsorts} radix sorts, each equal to torch.sort(stable=True)")
@@ -2318,6 +2393,9 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         r["fn"]()
         torch.cuda.synchronize()
         r["peak_bytes"] = torch.cuda.max_memory_allocated() - base  # the call's own working set
+        if "li" in r:  # and the walk's cached buffer at this cap (the anchors alone: cap 1)
+            r["buffer_bytes"] = sum(c.buf.numel() for k, (_, c) in sl.table_static(r["li"]).calls.items()
+                                    if k[:2] == (r.get("cap", 1), kernels.RANK_CAP_BITS))
         per_call = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
         r["ms"], r["timed"] = time_ms(r["fn"], 10)
         r["host_ms"] = time_ms(r["fn"], 10, "host-issued")[0]
@@ -2338,26 +2416,51 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
               + (f", {r['library_what']} {r['library_ms']:.4f} ms ({lib_how})" if "library" in r else "")
               + f"; bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), share {r['bound_ms'] / r['ms']:.4f}; "
               f"launches per call {per_call}; peak device memory of one call {r['peak_bytes']} bytes"
+              + (f" besides the walk's cached buffer ({r['buffer_bytes']} bytes)" if "li" in r else "")
               + (f"; no torch or CUB sort, scan or cummax; the most device time, ms per call: {_top(per_name, 6)}"
                  if per_name else "") + f" -- {smi}")
         rows[key] = r
-    for key in ("K15 tier 0", "K15 tier 1", "K14 1024^2"):
+    for key in ("K15 tier 0", "K15 tier 1", "K14 1024^2", "K14 1800x3600"):
         lp = rows[key]["launches_per_call"]
         _check(sum(lp.values()) <= 80, f"the walk {key} issued {lp} launches (at most 80)")
+        # one int64 key per sort, no gather: a histogram and the digit passes of each
+        lay = sl.table_layout(rows[key]["li"], rows[key]["cap"])
+        radix = 2 + len(kernels.radix_shifts(lay.ins_bits)) + len(kernels.radix_shifts(lay.walk_bits))
+        _check(lp.get("radix_sort", 0) == radix and radix <= (15 if key.startswith("K15") else 16)
+               and (key != "K14 1024^2" or radix <= 14),
+               f"the walk {key} ran {lp.get('radix_sort', 0)} radix launches ({radix} expected)")
+        print(f"[kernels] {key}: {radix} radix launches per call (insertion key {lay.ins_bits} bits, walk key "
+              f"{lay.walk_bits} bits, no gather), {lp.get('table_anchors', 0)} anchor and rank launches")
+    # the walk's cached buffer (its rank levels' bitmaps and counters left zero
+    # for the next call) over 50 calls back to back
+    for key in ("K15 tier 1", "K14 1024^2"):
+        r = rows[key]
+        r["repeats"] = _repeats(kernels, r["fn"], r["plain"](), f"{key} walk", smi)
+        for _, call in sl.table_static(r["li"]).calls.values():
+            _check(not call.views["ubm"].any().item()
+                   and not call.views["rst"].reshape(-1, kernels.RANK_STATE)[:, 5].any().item(),
+                   f"{key}: the walk's cached bitmaps or counters are not zero after the repeats")
     keys = ("ms", "timed", "host_ms", "plain_ms", "plain_timed", "bound_ms", "library_ms", "launches_per_call",
-            "busy_ms", "peak_bytes")
+            "busy_ms", "peak_bytes", "buffer_bytes", "repeats")
     pick = lambda r: {k: r.get(k) for k in keys}  # noqa: E731
     out = {
         "node_passes": pick(rows["node_passes"]),
         "table_anchors": dict(pick(rows["anchors K15"]), **{"2d": pick(rows["anchors K14 1024^2"]),
-                                                             "2d_3600x7200": pick(rows["anchors K14 3600x7200"])}),
+                                                             "2d_3600x7200": pick(rows["anchors K14 3600x7200"])},
+                              rank_levels={k: {x: v[x] for x in ("widest_used_bits", "widest_region_bits", "gated",
+                                                                 "overflowed")} for k, v in ranks.items()}),
         "table_walk": dict(pick(rows["K15 tier 0"]), **{"tier1": pick(rows["K15 tier 1"]),
                                                          "2d": pick(rows["K14 1024^2"]),
                                                          "2d_1800x3600": pick(rows["K14 1800x3600"])}),
         "iset_max": dict(pick(rows["iset_max"]), **{"1800x3600": pick(rows["iset_max 1800x3600"])}),
     }
+    out["table_walk"]["host_builds"] = builds
     for name in names:
         out[name]["max_abs_err"] = err[name]
+    print("[kernels] walk indexes on the host, s (the index, ~0 where an earlier phase built it; its "
+          "table_static, path_ranks included; path_ranks alone): "
+          + "; ".join(f"{k}: {v['index_s']:.3f}, {v['table_static_s']}, {v['path_ranks_s']:.3f}"
+                      for k, v in builds.items()))
     print(f"[kernels] table and 2D walk kernels took {time.perf_counter() - t_phase:.1f} s")
     return out
 

@@ -1,5 +1,5 @@
-"""Time this checkout's K9 stage and K13 beside the parent commit's, in one
-process on one card.
+"""Time this checkout's K9 stage, K13 and the K15 and K14 walks beside the
+parent commit's, in one process on one card.
 
     mkdir -p _checkout/parent
     git archive <parent> sperr_tpu_torch | tar -x -C _checkout/parent
@@ -14,13 +14,19 @@ sperr_tpu_torch.runtime.device_bench's timer, and each kernel's launches
 are timed by torch.profiler:
 
 - K9 on headline chunk 0 (the first 256^3 chunk of smooth_field_3d(512,
-  seed=7), as in chip_smoke.py phase 3) at tiers 0 and 1: this checkout's
-  ``wave_pack.emit_cube`` against the parent's exposure
-  (``wave_pack.emit_exposed``) followed by its LIP, refinement and LIS
-  planes (``_pixel_planes``, ``emit_planes("lis")``);
+  seed=7), as in chip_smoke.py phase 3) at tiers 0 and 1: each package's
+  ``wave_pack.emit_cube`` (the parent of this checkout has K9's two-launch
+  form too);
+- K7 (``ops.speck_virtual.dense_anchor_ranks``) on that chunk's node
+  passes, whose bitmap levels share kernels/rank.cuh with the table walks;
 - K13 (``kernels.reconstruct_mags``) on that chunk's control parse, (1,
   256^3), and on the 8 chunks' control parses, (8, 256^3), as the 512^3
-  decode batches them.
+  decode batches them;
+- the K15 walk (``ops.speck_lis._table_items_cuda`` on the table index) on
+  the Hurricane ISABEL packet chunk (100, 256, 256) cut from that volume, at
+  the node caps of tiers 0 and 1, and the K14 walk (the 2D index) on one
+  1024^2 Turbulence1024-like field (``chip_smoke._turbulence_like``, seed
+  0), each index built by its own package.
 
 The card's name and power limit end every line of times.  Exits non-zero
 without a CUDA device or when a pair differs.
@@ -48,7 +54,9 @@ def _load_parent(parent_dir: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["sperr_parent"] = mod
     spec.loader.exec_module(mod)
-    mods = [importlib.import_module(f"sperr_parent.{m}") for m in ("kernels", "ops.wave_pack", "ops.wave_unpack")]
+    mods = [importlib.import_module(f"sperr_parent.{m}")
+            for m in ("kernels", "ops.wave_pack", "ops.wave_unpack", "ops.speck_lis", "ops.speck_lis2",
+                      "ops.speck_virtual")]
     t0 = time.perf_counter()
     mods[0].build()
     print(f"[parent] the parent's kernels built from {parent_dir} in {time.perf_counter() - t0:.1f} s")
@@ -66,17 +74,19 @@ def _turns(fns, how: str, calls: int = 20):
     return out
 
 
-def _compare(cs, label: str, fns, smi: str) -> None:
+def _compare(cs, label: str, fns, smi: str, dev_how: str = "device") -> None:
     """fns: {"parent": fn, "new": fn}, equal outputs; their turns and each
-    one's launches (device ms per launch over 20 calls)."""
+    one's launches (device ms per launch over 20 calls).  ``dev_how``: the
+    device-side method ("device-busy" for calls of more launches than the
+    timer's sleep kernel covers, the walks)."""
     import torch
 
     a, b = (cs._flat(f()) for f in fns.values())
     cs._check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
               f"the parent's {label} differs from the new one")
-    dev_t, host_t = _turns(fns, "device"), _turns(fns, "host-issued")
+    dev_t, host_t = _turns(fns, dev_how), _turns(fns, "host-issued")
     per = {k: cs._kernel_means(f, "", 20) for k, f in fns.items()}
-    print(f"[compare] {label}: equal; device ms (parent, new, new, parent) {dev_t['parent'][0]:.4f}, "
+    print(f"[compare] {label}: equal; {dev_how} ms (parent, new, new, parent) {dev_t['parent'][0]:.4f}, "
           f"{dev_t['new'][0]:.4f}, {dev_t['new'][1]:.4f}, {dev_t['parent'][1]:.4f}; host-issued "
           f"{host_t['parent'][0]:.4f}, {host_t['new'][0]:.4f}, {host_t['new'][1]:.4f}, {host_t['parent'][1]:.4f}; "
           + "; ".join(f"{k} per launch " + ", ".join(f"{cs._kernel_name(n)} {m:.4f}" for n, (m, _) in p.items())
@@ -110,7 +120,7 @@ def main(argv) -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     dev = torch.device("cuda", 0)
     kernels.load()
-    pk, pwp, _ = _load_parent(argv[0])
+    pk, pwp, _, psl, psl2, psv = _load_parent(argv[0])
     vol = smooth_field_3d(512, seed=7)
     d256 = (256, 256, 256)
     n = 256**3
@@ -125,17 +135,15 @@ def main(argv) -> int:
         with cs._capture(wave_pack, ["emit_cube"]) as calls:
             tb._wave_emit_chunk(mags, signs, li, tb._wave_caps(li, d256, tiers[t], 34))
         (a9,) = calls["emit_cube"]
-        pv, m9, s9, nb, N, wc, pm, pay, P = a9
-        Tp = -(-pay.numel() // 128) * 128
-
-        def parent_stage(pv=pv, m9=m9, s9=s9, nb=nb, N=N, wc=wc, pm=pm, pay=pay, P=P, Tp=Tp):
-            ex = pwp.emit_exposed(pv, m9, s9, nb, N, wc, pm)
-            lip, ref = pwp._pixel_planes(*ex[4:], nb, P)
-            return list(ex[:4]) + [lip, pwp.emit_planes("lis", (pay,), nb, P, Tp), ref]
-
-        _compare(cs, f"K9 stage, headline chunk 0 tier {t} (P {P}, wexp_cap {wc})",
-                 {"parent": parent_stage, "new": lambda a9=a9: wave_pack.emit_cube(*a9)}, smi)
-    del x, f, mags, signs, calls, a9, pv, m9, s9, pay
+        _compare(cs, f"K9 stage, headline chunk 0 tier {t} (P {a9[-1]}, wexp_cap {a9[5]})",
+                 {"parent": lambda a9=a9: pwp.emit_cube(*a9), "new": lambda a9=a9: wave_pack.emit_cube(*a9)}, smi)
+    # K7 on the same chunk: its bitmap levels share kernels/rank.cuh with the table walks
+    nb, _, _, nm = sv.schedule_virtual(mags, li)
+    ns = torch.where(nm > 0, nb - nm, 0x7FFF).to(torch.int32)
+    pvf = psv.virtual_lis_index(d256, dev)
+    _compare(cs, "K7 anchor_ranks, headline chunk 0", {
+        "parent": lambda: psv.dense_anchor_ranks(ns, pvf), "new": lambda: sv.dense_anchor_ranks(ns, li)}, smi)
+    del x, f, mags, signs, calls, a9, ns, nm
 
     # K13: the control parses of chunk 0, and of the 8 chunks as the decode batches them
     engine = default_engine()
@@ -154,6 +162,41 @@ def main(argv) -> int:
             "new": lambda sp=sp, args=args, p=p: kernels.reconstruct_mags(sp, *args[1:], p, evw),
         }, smi)
         del args, sp
+
+    # K15: the table walk on the Hurricane packet chunk at tiers 0 and 1; K14: the 2D walk on a 1024^2 field
+    from sperr_tpu_torch.codec.speck_wave import build_tree2
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_lis as sl
+    from sperr_tpu_torch.ops import speck_lis2 as sl2
+
+    dims_h = (256, 256, 100)
+    x = torch.from_numpy(np.ascontiguousarray(vol[:100, :256, :256])[None]).to(dev)
+    f = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_)
+    m, sg = f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
+    li, si = tb._wave_index(dims_h, dev)
+    pli = psl.lis_index(dims_h, dev)
+    nb, s, _, nm = tb._schedule(m, si)
+    ns = spk.node_passes(nm, nb)
+    tiers = tb.wave_tiers_for(256 * 256 * 100)
+    for t in (0, 1):
+        cap = tb._wave_caps(li, dims_h, tiers[t], 34)["node_cap"]
+        _compare(cs, f"K15 walk, Hurricane packet chunk (100, 256, 256) tier {t} (node cap {cap})", {
+            "parent": lambda cap=cap: psl._table_items_cuda(ns, s, sg, pli, cap),
+            "new": lambda cap=cap: sl._table_items_cuda(ns, s, sg, li, cap),
+        }, smi, "device-busy")
+    del x, f, m, sg, s, ns
+    nx = ny = 1024
+    x = torch.from_numpy(cs._turbulence_like(ny, nx, 0)[None]).to(dev)
+    f = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d)
+    m, sg = f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
+    nb, pm, s, _, nm = spk.schedule_table(m, spk.tree_index((nx, ny), dev))
+    ns = spk.node_passes(nm, nb)
+    iset = sl2.iset_significance_device(pm.reshape(ny, nx), build_tree2((nx, ny)), nb)
+    li2, pli2 = sl2.lis2_index((nx, ny), dev), psl2.lis2_index((nx, ny), dev)
+    _compare(cs, "K14 walk, 1024^2 field", {
+        "parent": lambda: psl._table_items_cuda(ns, s, sg, pli2, pli2.nn, iset, nb),
+        "new": lambda: sl._table_items_cuda(ns, s, sg, li2, li2.nn, iset, nb),
+    }, smi, "device-busy")
     print(f"[compare] done -- {smi}")
     return 0
 

@@ -204,7 +204,7 @@ def load(device=None) -> ct.CDLL:
                 ]),
                 ("sperr_emit_fields", [vp, vp, vp, ct.c_int, vp, ll, ll, vp, ll, ll, vp, ct.c_int, vp, vp]),
                 ("sperr_emit_planes", [ct.c_int, vp, vp, vp, ct.c_int, ll, ll, vp, ct.c_int, vp, vp, vp]),
-                ("sperr_table_anchors", [vp, vp, vp, ct.c_int, ct.c_int, vp, vp, ll, vp]),
+                ("sperr_table_anchors", [vp, vp, vp, ct.c_int, vp]),
                 ("sperr_table_rows", [vp, vp]),
                 ("sperr_table_born", [vp, vp]),
                 ("sperr_table_entries", [vp, vp]),
@@ -665,14 +665,16 @@ def masked_pack(parts, evb_cap: int, out_cap_bytes: int, piece_words: int = 8):
     return i32[:out_words], i32[out_words : out_words + nrows], i64[0], overflow, i64[1]
 
 
-_FLAG_TILE = 16384  # flags per block of K12 (kFlagTile in bits.cu)
+FLAG_TILE = 16384  # flags per block of K12 (kFlagTile in bits.cu)
 
 
-def compact_flags_rows(flags: torch.Tensor, take: int):
+def compact_flags_rows(flags: torch.Tensor, take: int, out=None):
     """K12: flags (B, n) bool -> (idx (B, take) int32, the ascending indices
     of the set flags with the sentinel n in unused slots; count (B,) int32).
     One pass with a decoupled look-back over status words zeroed for the
-    call, then a small launch that writes the sentinels."""
+    call, then a small launch that writes the sentinels.  ``out`` (idx,
+    count, B ceil(n / 16384) int64 status words), where given, is written in
+    place of new tensors."""
     _require_cuda(flags, torch.bool, "flags")
     if flags.dim() != 2 or flags.shape[1] == 0 or not 0 < flags.shape[0] <= 65535:
         raise ValueError(f"flags must be (B, n), 0 < B <= 65535, n > 0; got {tuple(flags.shape)}")
@@ -680,9 +682,14 @@ def compact_flags_rows(flags: torch.Tensor, take: int):
     if take <= 0:
         raise ValueError(f"take must be positive; got {take}")
     B, n = flags.shape
-    idx = torch.empty((B, take), dtype=torch.int32, device=flags.device)
-    count = torch.empty((B,), dtype=torch.int32, device=flags.device)
-    status = torch.empty(B * -(-n // _FLAG_TILE), dtype=torch.int64, device=flags.device)  # zeroed by the call
+    if out is None:
+        out = (torch.empty((B, take), dtype=torch.int32, device=flags.device),
+               torch.empty((B,), dtype=torch.int32, device=flags.device),
+               torch.empty(B * -(-n // FLAG_TILE), dtype=torch.int64, device=flags.device))  # zeroed by the call
+    idx, count, status = out
+    if (idx.shape != (B, take) or count.shape != (B,) or status.numel() < B * -(-n // FLAG_TILE)
+            or any(t.device != flags.device or not t.is_contiguous() for t in out)):
+        raise ValueError(f"out must hold ({B}, {take}) and ({B},) int32 and the status words on {flags.device}")
     lib = load(flags.device)
     with _on_device(flags):
         err = lib.sperr_flag_compact_rows(
@@ -930,13 +937,16 @@ def sort_scratch_words(n: int) -> int:
     return -(-int(n) // SORT_TILE) * 256 + SORT_PASSES * 256 // 2 + SORT_PASSES
 
 
-def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[torch.Tensor] = None):
+def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[torch.Tensor] = None,
+               out=None, scratch=None):
     """The stable LSD radix sort: keys (n,) int32 or int64, read as signed,
     with vals (n,) int32 (None: 0 .. n-1) -> (sorted keys, the values in the
     same order).  ``bits``: every key's bits above this many are equal
     (nonnegative keys below 2^bits), so only the digits below are sorted;
     None sorts every digit.  One histogram launch, then one launch per
-    8-bit digit."""
+    8-bit digit.  ``out`` (sorted keys, values) and ``scratch`` (n keys, n
+    int32, ``sort_scratch_words(n)`` int64), where given, are written in
+    place of new tensors (a caller that keeps its buffers)."""
     if not keys.is_cuda or keys.dtype not in (torch.int32, torch.int64) or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous int32 or int64 CUDA tensor; got {keys.dtype} "
                          f"on {keys.device}")
@@ -953,11 +963,19 @@ def radix_sort(keys: torch.Tensor, bits: Optional[int] = None, vals: Optional[to
         raise ValueError(f"bits must be in [1, {width}]; got {bits}")
     shifts = radix_shifts(bits)
     dev = keys.device
-    kbuf = torch.empty_like(keys)
-    vbuf = torch.empty(n, dtype=torch.int32, device=dev)
-    zbuf = torch.empty(sort_scratch_words(n), dtype=torch.int64, device=dev)
-    kout = torch.empty_like(keys)
-    vout = torch.empty(n, dtype=torch.int32, device=dev)
+    if scratch is None:
+        scratch = (torch.empty_like(keys), torch.empty(n, dtype=torch.int32, device=dev),
+                   torch.empty(sort_scratch_words(n), dtype=torch.int64, device=dev))
+    if out is None:
+        out = (torch.empty_like(keys), torch.empty(n, dtype=torch.int32, device=dev))
+    kbuf, vbuf, zbuf = scratch
+    kout, vout = out
+    for t, dtype, m, what in ((kbuf, keys.dtype, n, "scratch keys"), (vbuf, torch.int32, n, "scratch values"),
+                              (zbuf, torch.int64, sort_scratch_words(n), "scratch words"),
+                              (kout, keys.dtype, n, "out keys"), (vout, torch.int32, n, "out values")):
+        if t.dtype != dtype or t.device != dev or t.numel() < m or not t.is_contiguous():
+            raise ValueError(f"{what} must be {m} contiguous {dtype} on {dev}; got {t.numel()} {t.dtype} "
+                             f"on {t.device}")
     lib = load(dev)
     with _on_device(keys):
         err = lib.sperr_radix_sort(
@@ -1095,16 +1113,16 @@ def rank_layout(plan_host: np.ndarray, nsmall: int, bitmap_bits: int = RANK_BITM
                       max((int(levels[k, 0]) for k in big), default=1))
 
 
-def _rank_sorted(lib, plan: torch.Tensor, plan_host: np.ndarray, lay: RankLayout, u: int, jp: int,
+def _rank_sorted(lib, plan: torch.Tensor, plan_host: np.ndarray, first: int, u: int, jp: int,
                  R: int, dev) -> int:
-    """The plan's levels past ``lay.nbitmap``, coarse first, ranked by
+    """The plan's levels from ``first`` on, coarse first, ranked by
     sorting their keys (u, jp, R: the (nn,) int32 buffers' addresses on
     dev): per level its keys packed in 64 bits, the radix sort over their
     12 + wk bits carrying their positions, then the heads and their ranks
     (rank.cuh).  Returns the launches besides the sort's."""
     levels = plan_host.reshape(-1, RANK_LEVEL_INTS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for l in range(lay.nbitmap, levels.shape[0]):
+    for l in range(first, levels.shape[0]):
         cnt, wk = int(levels[l, 0]), int(levels[l, 1])
         L = plan.data_ptr() + 4 * RANK_LEVEL_INTS * l
         keys = torch.empty(cnt, dtype=torch.int64, device=dev)
@@ -1115,7 +1133,7 @@ def _rank_sorted(lib, plan: torch.Tensor, plan_host: np.ndarray, lay: RankLayout
         err = lib.sperr_rank_sorted(L, cnt, sk.data_ptr(), sv.data_ptr(), scratch.data_ptr(), scratch.numel(), R,
                                     stream)
         _check(lib, err, "rank_sorted")
-    return 4 * (levels.shape[0] - lay.nbitmap)
+    return 4 * (levels.shape[0] - first)
 
 
 def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
@@ -1158,7 +1176,8 @@ def anchor_ranks(node_s: torch.Tensor, forest: torch.Tensor, plan: torch.Tensor,
             _stream(node_s),
         )
         _check(lib, err, "anchor_ranks")
-        sorted_launches = _rank_sorted(lib, plan, plan_host, lay, u.data_ptr(), jp.data_ptr(), R.data_ptr(), dev)
+        sorted_launches = _rank_sorted(lib, plan, plan_host, lay.nbitmap, u.data_ptr(), jp.data_ptr(), R.data_ptr(),
+                                       dev)
     _count("anchor_ranks", 1 + (1 if lay.nsmall else 0) + 3 * (lay.nbitmap - lay.nsmall) + sorted_launches)
     return AnchorRanks(J, R, sigf, wbuf)
 
@@ -1449,54 +1468,115 @@ def emit_planes(kind: str, fields, num_bp: torch.Tensor, P: int, items: int):
 # ---------------------------------------------------------------------------
 TABLE_MAX_LEVELS = 30  # tree levels the walk takes (kMaxLevels - 2: the 2D class codes)
 TABLE_MAX_CHILDREN = 8  # child slots of a node (kMaxChildren)
-TABLE_PATH_WORDS = 4  # path words (kMaxPathWords)
 ISET_MAX_LEVELS = 16  # I levels of a 2D field (kMaxIset)
+RANK_U_WORDS = 128  # words of a level's hop-word bitmap (kUWords in rank.cuh)
+RANK_ULAY = 8  # int32 words per level of a u-rank layout (kULay)
+RANK_STATE = 8  # int32 state words per level (kStInts)
+RANK_CAP_BITS = 27  # widest region a larger level's keys mark (2^27 bits, 16 MB); wider keys overflow to the
+                    # level's sorted route, gated on the device
 
 TABLE_POINTERS = (
-    "parent", "level", "depth", "pw", "ch_start", "ch_count", "ctab", "O0", "off0", "root_ids",
-    "root_levels", "is_group", "k_of", "irank_of", "block_rank_of", "group_ids", "group_k", "gbit_rank",
-    "lev_ranked", "node_s", "s_lin", "signs", "iset_s", "num_bp", "J", "R", "u", "jp", "sigf", "wbuf",
-    "sid", "sid_count", "bflag", "born_idx", "born_count", "counts", "n_sig_out", "ikey0",
+    "parent", "level", "pidx", "ptab", "ch_start", "ch_count", "ctab", "O0", "off0", "root_ids", "root_levels",
+    "is_group", "k_of", "irank_of", "block_rank_of", "group_ids", "group_k", "gbit_rank", "lev_plan", "plan",
+    "ulay", "node_s", "s_lin", "signs", "iset_s", "num_bp", "J", "R", "u", "jp", "sigf", "wbuf", "ubm", "uw",
+    "upre", "rst", "sbm", "rbm", "rgc", "rbs", "rkeys", "gkeys", "gkbuf", "gvbuf", "gvout", "gzbuf", "gscr", "sid",
+    "sid_count", "bflag", "born_idx", "born_count", "counts", "n_sig_out", "ikey", "perm", "pay", "wkey",
 )
 TABLE_SIZES = (
-    "form", "nn", "n", "nrows", "MC", "nlev", "W", "xf", "G", "nroots", "C", "take", "CB", "NE", "E",
-    "rows", "tcap", "wbase", "wa", "ipack", "wpack",
+    "form", "nn", "n", "nrows", "MC", "nlev", "xf", "G", "nroots", "C", "take", "CB", "NE", "E", "rows", "tcap",
+    "wbase", "wa", "pb", "nsmall", "dlow0", "gzwords", "gswords",
 )
 
 
 class TableArgs(ct.Structure):
     """kernels/walk_table.cu's struct TableArgs, field for field."""
 
-    _fields_ = ([(k, ct.c_void_p) for k in TABLE_POINTERS] + [("ipw", ct.c_void_p * TABLE_PATH_WORDS)]
-                + [("perm", ct.c_void_p), ("pay", ct.c_void_p), ("wkey0", ct.c_void_p),
-                   ("wpw", ct.c_void_p * TABLE_PATH_WORDS)]
-                + [(k, ct.c_longlong) for k in TABLE_SIZES] + [("pwz", ct.c_longlong * TABLE_PATH_WORDS)])
+    _fields_ = [(k, ct.c_void_p) for k in TABLE_POINTERS] + [(k, ct.c_longlong) for k in TABLE_SIZES]
 
 
-def table_anchors(args: TableArgs, dev, plan: torch.Tensor, plan_host: np.ndarray, nsmall: int,
-                  bitmap_bits: int = RANK_BITMAP_BITS) -> None:
+class TableRankLayout(NamedTuple):
+    """The table and 2D walks' rank levels (walk_table.cu, rank.cuh's u-rank
+    route): every level of the plan ranked on a bitmap after its hop words
+    are ranked (the first ``nsmall`` in one block, the others in three
+    launches over a region of 2^min(12 + wk, cap) bits, two regions used in
+    turn; a cap below RANK_SMALL_BITS also ranks the levels past it apart).
+    ``gated``: the larger levels whose 12 + wk bits pass the cap, whose keys
+    may overflow their region and then take their sorted route (its
+    launches issued every call, run only on overflow).  Sizes in 4-byte
+    words unless named."""
+
+    nsmall: int
+    lay: np.ndarray              # int32 [levels, RANK_ULAY] (rank.cuh kLay*)
+    cap_bits: Tuple[int, ...]    # per larger bitmap level, log2 of its region's bits
+    gated: Tuple[int, ...]       # plan indices of the gated levels
+    region_words: int            # bitmap words of the two regions
+    region_groups: int           # their group counts
+    bsum_words: int              # every larger level's scan block sums
+    keys: int                    # nodes of the largest larger level
+    gated_keys: int              # nodes of the largest gated level
+    launches: int                # per call, the anchors launch included
+
+
+def table_rank_layout(plan_host: np.ndarray, nsmall: int, cap_bits: int = RANK_CAP_BITS) -> TableRankLayout:
+    """The ``TableRankLayout`` of a table or 2D walk's rank plan; a
+    ``cap_bits`` below RANK_CAP_BITS (the walks' own) drives the gated
+    sorted route at small sizes."""
+    levels = np.asarray(plan_host, dtype=np.int64).reshape(-1, RANK_LEVEL_INTS)
+    bits = [12 + int(w) for w in levels[:, 1]]
+    if not 8 <= cap_bits <= 31:  # 8: regions of one group, which every larger level's keys pass
+        raise ValueError(f"cap_bits must be in [8, 31]; got {cap_bits}")
+    # a cap below the one block's bits takes the levels past it out of the block too
+    nsmall = min(int(nsmall), next((k for k, b in enumerate(bits) if b > cap_bits), len(bits)))
+    if (levels[:nsmall, 0] > RANK_SMALL_MAX).any() or any(b > RANK_SMALL_BITS for b in bits[:nsmall]):
+        raise ValueError(f"a level ranked in one block has more than {RANK_SMALL_MAX} nodes or "
+                         f"keys wider than {RANK_SMALL_BITS} bits")
+    lay = np.zeros((len(bits), RANK_ULAY), dtype=np.int32)
+    caps = tuple(min(b, cap_bits) for b in bits[nsmall:])
+    gw = max([4] + [(1 << c) // 256 for c in caps])  # a region's groups, at least 4 (16-byte stores)
+    bs = 0
+    for k, c in enumerate(caps):
+        l = nsmall + k
+        groups = (1 << c) // 256
+        scan = -(-groups // RANK_SCAN_GROUPS)
+        lay[l] = (groups, (k % 2) * 8 * gw, (k % 2) * gw, bs, scan, int(bits[l] > cap_bits), 0, 0)
+        bs += scan
+    gated = tuple(nsmall + k for k, b in enumerate(bits[nsmall:]) if b > cap_bits)
+    nshift = [len(radix_shifts(bits[l])) for l in gated]
+    launches = (1 + (1 if len(bits) else 0) + (1 if nsmall else 0) + 3 * (len(bits) - nsmall)
+                + sum(5 + n for n in nshift))
+    nreg = min(len(caps), 2)  # two regions, used in turn
+    return TableRankLayout(nsmall, lay, caps, gated, nreg * 8 * gw, nreg * gw, bs,
+                           max((int(levels[l, 0]) for l in range(nsmall, len(bits))), default=0),
+                           max((int(levels[l, 0]) for l in gated), default=0), launches)
+
+
+def rank_scratch_words(cnt: int) -> int:
+    """4-byte words of a sorted rank level's scratch (rank.cuh sorted_words):
+    the heads' bitmap over 8-word groups padded to a multiple of 4 groups,
+    their counts, the scan blocks' sums and their counter."""
+    groups = ((-(-int(cnt) // 256)) + 3) & ~3
+    return groups * 9 + ((-(-groups // RANK_SCAN_GROUPS) + 1 + 3) & ~3)
+
+
+def table_anchors(args: TableArgs, dev, plan: torch.Tensor, plan_host: np.ndarray, lay: TableRankLayout) -> None:
     """The table or 2D walk's anchors and string ranks: J, R, u, jp, the
     significance flags and the walk rank table of ``args`` from its node
-    passes, then the levels of the rank plan (K7's bitmaps; a level whose
-    keys are wider than ``bitmap_bits`` sorted, ``rank_layout``).  1 + (1
-    if nsmall) + 3 per other bitmap level + 4 per sorted level launches,
-    and each sorted level's radix sort."""
+    passes, the hop words ranked per level, then the levels of the rank
+    plan (``lay``).  ``args`` points at the plan, its layout and the
+    scratch ``lay`` sizes.  ``lay.launches`` launches."""
     _require_cuda(plan, torch.int32, "plan")
     plan_host = np.ascontiguousarray(plan_host, dtype=np.int32)
     nlev = plan_host.size // RANK_LEVEL_INTS
-    if plan.numel() != plan_host.size or plan_host.size % RANK_LEVEL_INTS or not 0 <= nsmall <= nlev:
-        raise ValueError(f"a plan of {RANK_LEVEL_INTS}-word levels; got {plan.numel()} words, nsmall {nsmall}")
-    lay = rank_layout(plan_host, nsmall, bitmap_bits)
-    keys = torch.empty(lay.keys, dtype=torch.int32, device=dev)
-    zbuf = torch.empty(max(1, lay.zwords), dtype=torch.int32, device=dev)
+    if plan.numel() != plan_host.size or plan_host.size % RANK_LEVEL_INTS or lay.lay.shape[0] != nlev:
+        raise ValueError(f"a plan of {RANK_LEVEL_INTS}-word levels and its layout; got {plan.numel()} words, "
+                         f"{lay.lay.shape[0]} layout rows")
+    lay_host = np.ascontiguousarray(lay.lay, dtype=np.int32)
     lib = load(dev)
     with _on_device(plan):
-        err = lib.sperr_table_anchors(ct.byref(args), plan.data_ptr(), plan_host.ctypes.data_as(ct.c_void_p),
-                                      lay.nsmall, lay.nbitmap, keys.data_ptr(), zbuf.data_ptr(), zbuf.numel(),
-                                      _stream(plan))
-        _check(lib, err, "table_anchors")
-        sorted_launches = _rank_sorted(lib, plan, plan_host, lay, args.u, args.jp, args.R, plan.device)
-    _count("table_anchors", 1 + (1 if lay.nsmall else 0) + 3 * (lay.nbitmap - lay.nsmall) + sorted_launches)
+        err = lib.sperr_table_anchors(ct.byref(args), plan_host.ctypes.data_as(ct.c_void_p),
+                                      lay_host.ctypes.data_as(ct.c_void_p), nlev, _stream(plan))
+    _check(lib, err, "table_anchors")
+    _count("table_anchors", lay.launches)
 
 
 def table_stage(stage: str, args: TableArgs, dev) -> None:

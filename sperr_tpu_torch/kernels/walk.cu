@@ -314,10 +314,11 @@ __device__ __forceinline__ void load_run(const KT* __restrict__ keys, long long 
 template <typename KT>
 __global__ void __launch_bounds__(kHistThreads) radix_hist(const KT* __restrict__ keys, long long n,
                                                            Shifts sh, int nshift, int32_t* hist,
-                                                           unsigned* done) {
+                                                           unsigned* done, const int32_t* __restrict__ gate) {
   __shared__ int h[kSortPasses * 256];
   __shared__ int ws[32];
   __shared__ bool s_last;
+  if (gate && !*gate) return;
   const int tid = threadIdx.x;
   for (int i = tid; i < nshift * 256; i += kHistThreads) h[i] = 0;
   __syncthreads();
@@ -372,8 +373,9 @@ template <typename KT>
 __global__ void __launch_bounds__(kSortThreads, 2) radix_onesweep(
     const KT* __restrict__ kin, const int32_t* __restrict__ vin, KT* __restrict__ kout,
     int32_t* __restrict__ vout, long long n, int shift, int pass, const int32_t* __restrict__ dbase,
-    unsigned long long* status, unsigned* tiles) {
+    unsigned long long* status, unsigned* tiles, const int32_t* __restrict__ gate) {
   extern __shared__ __align__(16) unsigned char sort_smem[];
+  if (gate && !*gate) return;
   KT* sk = reinterpret_cast<KT*>(sort_smem);
   int32_t* sv = reinterpret_cast<int32_t*>(sk + kTile);
   int* wh = reinterpret_cast<int*>(sv + kTile);  // [kSortWarps][256]
@@ -484,11 +486,12 @@ long long sort_scratch_words(long long n) {
 
 // nshift passes over the digits at shifts[]; the last pass writes kout and
 // vout, the others alternate with kbuf and vbuf.  vals null: the values are
-// the input positions.  zbuf: sort_scratch_words(n), zeroed here.
+// the input positions.  zbuf: sort_scratch_words(n), zeroed here.  gate: a
+// device word, the launches sort only where it is nonzero (null: always).
 template <typename KT>
 cudaError_t radix_passes(const KT* keys, const int32_t* vals, long long n, const int* shifts,
                          int nshift, KT* kbuf, int32_t* vbuf, KT* kout, int32_t* vout,
-                         unsigned long long* zbuf, cudaStream_t st) {
+                         unsigned long long* zbuf, cudaStream_t st, const int32_t* gate) {
   const long long ntiles = (n + kTile - 1) / kTile;
   unsigned long long* status = zbuf;
   int32_t* hist = reinterpret_cast<int32_t*>(zbuf + ntiles * 256);
@@ -499,7 +502,7 @@ cudaError_t radix_passes(const KT* keys, const int32_t* vals, long long n, const
   for (int p = 0; p < nshift; ++p) sh.s[p] = shifts[p];
   const long long hb = (n + kHistItems * kHistThreads - 1) / (kHistItems * kHistThreads);
   radix_hist<KT><<<(unsigned)(hb < kHistBlocks ? hb : kHistBlocks), kHistThreads, 0, st>>>(
-      keys, n, sh, nshift, hist, ctr);
+      keys, n, sh, nshift, hist, ctr, gate);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = kTile * (int)(sizeof(KT) + sizeof(int32_t)) + kSortWarps * 256 * (int)sizeof(int);
@@ -512,7 +515,7 @@ cudaError_t radix_passes(const KT* keys, const int32_t* vals, long long n, const
     KT* kd = last ? kout : kbuf;
     int32_t* vd = last ? vout : vbuf;
     radix_onesweep<KT><<<(unsigned)ntiles, kSortThreads, smem, st>>>(
-        ks, vs, kd, vd, n, shifts[p], p, hist + p * 256, status, ctr + 1 + p);
+        ks, vs, kd, vd, n, shifts[p], p, hist + p * 256, status, ctr + 1 + p, gate);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ks = kd;
@@ -794,11 +797,13 @@ extern "C" int sperr_anchor_ranks(const int32_t* node_s, const WalkForest* f, lo
 // The stable radix sort of n keys (4 or 8 bytes, read as signed) with int32
 // values (vals null: 0 .. n-1) over the digits at shifts[]: sorted keys in
 // kout, values in vout; kbuf, vbuf: n more of each; zbuf: zwords 8-byte
-// words, at least sort_scratch_words(n), zeroed here.
-extern "C" int sperr_radix_sort(const void* keys, int key_bytes, const int32_t* vals, long long n,
-                                const int* shifts, int nshift, void* kbuf, int32_t* vbuf,
-                                void* kout, int32_t* vout, unsigned long long* zbuf,
-                                long long zwords, cudaStream_t stream) {
+// words, at least sort_scratch_words(n), zeroed here.  The gated form sorts
+// only where the device word *gate is nonzero (its launches leave at once
+// otherwise): the table walk's rank levels that may overflow their bitmaps.
+extern "C" int sperr_radix_sort_gated(const int32_t* gate, const void* keys, int key_bytes,
+                                      const int32_t* vals, long long n, const int* shifts, int nshift,
+                                      void* kbuf, int32_t* vbuf, void* kout, int32_t* vout,
+                                      unsigned long long* zbuf, long long zwords, cudaStream_t stream) {
   if (n < 1 || n > 0x7fffffffLL || nshift < 1 || nshift > kSortPasses ||
       (key_bytes != 4 && key_bytes != 8) || zwords < sort_scratch_words(n))
     return (int)cudaErrorInvalidValue;
@@ -807,12 +812,20 @@ extern "C" int sperr_radix_sort(const void* keys, int key_bytes, const int32_t* 
   cudaError_t err;
   if (key_bytes == 4)
     err = radix_passes<uint32_t>((const uint32_t*)keys, vals, n, shifts, nshift, (uint32_t*)kbuf,
-                                 vbuf, (uint32_t*)kout, vout, zbuf, stream);
+                                 vbuf, (uint32_t*)kout, vout, zbuf, stream, gate);
   else
     err = radix_passes<unsigned long long>(
         (const unsigned long long*)keys, vals, n, shifts, nshift, (unsigned long long*)kbuf, vbuf,
-        (unsigned long long*)kout, vout, zbuf, stream);
+        (unsigned long long*)kout, vout, zbuf, stream, gate);
   return (int)err;
+}
+
+extern "C" int sperr_radix_sort(const void* keys, int key_bytes, const int32_t* vals, long long n,
+                                const int* shifts, int nshift, void* kbuf, int32_t* vbuf,
+                                void* kout, int32_t* vout, unsigned long long* zbuf,
+                                long long zwords, cudaStream_t stream) {
+  return sperr_radix_sort_gated(nullptr, keys, key_bytes, vals, n, shifts, nshift, kbuf, vbuf, kout, vout,
+                                zbuf, zwords, stream);
 }
 
 // dst[i] = src[idx[i]] for elements of 4 or 8 bytes.

@@ -6,10 +6,10 @@
 // Replaces the XLA programs of sperr_tpu/ops/speck_lis_jax.py
 // lis_segments_device (:375, the table form of its items) and
 // sperr_tpu/ops/speck_lis2_jax.py lis2_segments_device (:154) and
-// iset_significance_device (:134).  For a tree given by its tables (parent,
-// level, depth and path words per node; the packed child table) they give
-// one payload word per walk item (the born list entries, the roots or, in
-// 2D, the walk root and the I-set group heads, the child rows, and the 2D
+// iset_significance_device (:134).  For a tree given by its tables (parent
+// and level per node, the static path ranks, the packed child table) they
+// give one payload word per walk item (the born list entries, the roots or,
+// in 2D, the walk root and the I-set group heads, the child rows, and the 2D
 // walk's pending-I and group-arrival items), in walk order: sorted by (walk
 // rank, path), ties in the plain version's input order.  Every result is an
 // integer and equals the plain versions (ops/speck_lis.py
@@ -20,26 +20,37 @@
 // passes it reaches once and writes one word per item; the plain version
 // spends a ladder of int64 torch.sort calls on the string ranks, one more
 // sort for the walk ranks, and scatters.  The designs:
+//   * one int64 key per sort.  A path enters a key as its static path rank
+//     (ops/speck_lis.py path_ranks: a dense rank over every path value an
+//     item can carry, made once per index; values repeat across roots, so
+//     some 18-24 bits), read as ptab[pidx[z] (MC + 1)] for node z and
+//     ptab[pidx[q] (MC + 1) + 1 + k] for child slot k of parent q, padding
+//     slots included.  The insertion sort and the walk sort are then one
+//     radix sort each (7 and 5-6 digit passes), the walk sort carrying the
+//     payload words: no second key, no gather.
 //   * table_anchors: one thread per node walks its parent chain (at most
 //     depth_max hops, through L1) for its chain top J and the top of its
 //     parent's chain, the next node of its hop-word string, and forms its
 //     hop word (the table form's u; the 2D form's class word, packed to 12
-//     bits in the same order); the ranks of the strings then come level by
-//     level, coarse levels first, from rank.cuh's presence bitmaps (the
-//     virtual walk's K7 method), with no sort (a level whose keys pass the
-//     bitmaps' 32 bits, the 2D walk's finest from about 26M pixels on, sorts
-//     them with the radix sort and ranks their heads).  Ranks are compared only
-//     between anchors of one level (the insertion key holds the anchor's
-//     level or class first), and equal hop words continue on one level (the
-//     word holds the next node's level), so a rank per level orders the
-//     strings as the plain version's global ladder does.
+//     bits in the same order), whose bit it sets in its level's 4,096-bit
+//     hop-word bitmap; the ranks of the strings then come level by level,
+//     coarse levels first, from rank.cuh's presence bitmaps over keys of
+//     each level's hop-word rank times D plus the next string's rank field
+//     (the u-rank route: the keys of the walks' fields span a few thousand
+//     bits, not 2^(12 + wk)), with no sort and no memset.  A larger level
+//     whose keys could pass its region (2^27 bits) has its sorted route
+//     issued behind it, gated on the device by its overflow word.  Ranks
+//     are compared only between anchors of one level (the insertion key
+//     holds the anchor's level or class first), and equal hop words continue
+//     on one level (the word holds the next node's level), so a rank per
+//     level orders the strings as the plain version's global ladder does.
 //   * table_rows: a thread per compacted parent (K12: ascending ids) reads
 //     its child rows from the child table and the passes they point at,
 //     tests the sibling rule on the row's significance bits and writes the
 //     rows' payload words and the born-row flags K12 compacts.
 //   * table_born / table_entries: the born entries' insertion keys (level,
-//     birth pass, anchor level or class, anchor rank and path over the
-//     widths the tree allows) and per-level counts (shared-memory histogram,
+//     birth pass, anchor level or class; anchor rank; path rank) and
+//     per-level counts (shared-memory histogram,
 //     integer atomics); after the one-sweep radix sort, each entry's
 //     insertion rank O and its walk rank are arithmetic: the level's start
 //     is an exclusive prefix of the counts, and the walk runs levels
@@ -67,21 +78,21 @@ constexpr int kBig = 0x7FFFFFFF;
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 32;   // tree levels (per-level counts in shared memory)
 constexpr int kMaxChildren = 8;  // child slots of a node
-constexpr int kMaxPathWords = 4;
 constexpr int kMaxIset = 16;     // I levels of a 2D field
 constexpr int kIsetBlocks = 1024;
 
 }  // namespace
 
-// The walk's tables, buffers and sizes, as ops/speck_lis.py _TableArgs lays
-// them out: every field 8 bytes (a pointer or a long long), so the host's
-// ctypes structure and this one agree field for field.
+// The walk's tables, buffers and sizes, as kernels/__init__.py TableArgs
+// lays them out: every field 8 bytes (a pointer or a long long), so the
+// host's ctypes structure and this one agree field for field.  The host
+// fills one per cached call buffer and sets only the inputs per call.
 struct TableArgs {
   // the index's static tables
   const int32_t* parent;
   const int32_t* level;
-  const int32_t* depth;
-  const int32_t* pw;  // [nn, W] path words
+  const int32_t* pidx;  // [nn] the node's distinct path value
+  const int32_t* ptab;  // [values][MC + 1]: the value's path rank, then its MC child slots' path ranks
   const int32_t* ch_start;
   const int32_t* ch_count;
   const int32_t* ctab;  // child rows: (pixel linear id, or n + node id) << 1 | is pixel
@@ -96,7 +107,9 @@ struct TableArgs {
   const int32_t* group_ids;
   const int32_t* group_k;
   const int32_t* gbit_rank;
-  const uint8_t* lev_ranked;  // [nlev]: the levels the rank plan ranks
+  const uint8_t* lev_plan;  // [nlev]: 1 + the level's index in the rank plan, 0 where it is not ranked
+  const int32_t* plan;      // the rank plan (rank.cuh's kLevelInts per level)
+  const int32_t* ulay;      // its u-rank layout (kULay per level)
   // the call's inputs
   const int32_t* node_s;
   const int32_t* s_lin;
@@ -110,30 +123,45 @@ struct TableArgs {
   int32_t* jp;
   uint8_t* sigf;
   int32_t* wbuf;  // [nn + 1] walk ranks by node id
+  // the rank levels' scratch (rank.cuh URank), and the sorted route's of the
+  // levels that may overflow their bitmaps
+  uint32_t* ubm;
+  uint32_t* uw;
+  int32_t* upre;
+  int32_t* rst;
+  uint32_t* sbm;
+  uint32_t* rbm;
+  int32_t* rgc;
+  int32_t* rbs;
+  uint32_t* rkeys;
+  long long* gkeys;  // a gated level's keys, then its sort's output or scratch (the passes' parity)
+  long long* gkbuf;
+  int32_t* gvbuf;
+  int32_t* gvout;
+  unsigned long long* gzbuf;
+  uint32_t* gscr;
   // the compactions (K12) and the born entries
   const int32_t* sid;
   const int32_t* sid_count;
   uint8_t* bflag;  // [R] born rows
   const int32_t* born_idx;
   const int32_t* born_count;
-  int32_t* counts;     // [nlev + 1] valid entries per level
-  int32_t* n_sig_out;  // [1]
-  long long* ikey0;    // [NE] insertion keys
-  int32_t* ipw[kMaxPathWords];
+  int32_t* counts;      // [nlev + 1] valid entries per level
+  int32_t* n_sig_out;   // [1]
+  long long* ikey;      // [NE] insertion keys
   const int32_t* perm;  // [NE] sorted position -> entry
   int32_t* pay;         // [T] payload words
-  long long* wkey0;     // [T] walk keys
-  int32_t* wpw[kMaxPathWords];
+  long long* wkey;      // [T] walk keys
   // sizes
   long long form;  // 0: table (3D), 1: 2D
-  long long nn, n, nrows, MC, nlev, W, xf, G, nroots;
+  long long nn, n, nrows, MC, nlev, xf, G, nroots;
   long long C, take, CB, NE, E, rows;  // rows: the child rows, C MC
   long long tcap;   // the walk rank of "none" in the walk keys
   long long wbase;  // 2D form: the I item space's first rank
   long long wa;     // bits of the anchor rank in the insertion key
-  long long ipack;  // path word 0 packed into the insertion key (its width), or 0
-  long long wpack;  // path word 0 packed into the walk key (its width), or 0
-  long long pwz[kMaxPathWords];  // trailing zero bits of each path word (shifted out of the keys)
+  long long pb;     // bits of a path rank (the low field of both keys)
+  long long nsmall, dlow0;  // the rank plan's levels ranked in one block; 1 + the largest end field
+  long long gzwords, gswords;        // the sorted route's sort and rank scratch
 };
 
 namespace {
@@ -153,8 +181,9 @@ __device__ __forceinline__ int kpass(const TableArgs& a, int k) {
 // -- the anchors -----------------------------------------------------------------
 // For each node z: J[z], its hop word u[z] and the next node of its string
 // jp[z] (-1 - t where the string ends: t = 0, or a 2D group anchor's static
-// rank), sigf[z] = node_s[z] < NEVER, wbuf = BIG, and R[z] = 0 on the
-// levels that are not ranked.
+// rank), sigf[z] = node_s[z] < NEVER, wbuf = BIG, R[z] = 0 on the levels
+// that are not ranked, and on a ranked level u's bit in the level's hop-word
+// bitmap.
 //   table form: u = O0 at a root, else 1 << 11 | clip(pass of the parent) << 5
 //               | 31 - level of the parent's chain top (the next node);
 //   2D form:    0 at the walk root, else clip(birth pass) << 6 | class << 1 |
@@ -211,7 +240,16 @@ __global__ void table_anchors(TableArgs a) {
   }
   a.u[z] = u;
   a.jp[z] = jp;
-  if (!a.lev_ranked[a.level[z]]) a.R[z] = 0;
+  const int pl = a.lev_plan[a.level[z]];
+  if (!pl) {
+    a.R[z] = 0;
+    return;
+  }
+  // the hop word's bit in its level's presence bitmap (tried only where it
+  // reads unset: a level holds few hop words)
+  uint32_t* w = a.ubm + (pl - 1) * sperr_rank::kUWords + (u >> 5);
+  const uint32_t bit = 1u << (u & 31);
+  if (!(__ldcg(w) & bit)) atomicOr(w, bit);
 }
 
 // -- the child rows ---------------------------------------------------------------
@@ -302,10 +340,9 @@ __device__ __forceinline__ void classes2d(const TableArgs& a, const Entry& e, bo
   ranc = e.an == 0 && !rself;
 }
 
-__device__ __forceinline__ void write_paths(int32_t* const* keys, long long i, const int32_t* pw,
-                                            int W, const long long* pwz, int from) {
-  for (int w = from; w < W; ++w)
-    if (keys[w]) keys[w][i] = (int32_t)((uint32_t)pw[w] >> pwz[w]);
+// The path rank of node z (its path value's dense rank; the zero path's is 0).
+__device__ __forceinline__ long long path_rank(const TableArgs& a, int z) {
+  return a.ptab[(long long)a.pidx[z] * (a.MC + 1)];
 }
 
 // A thread per entry of the insertion sort: its key(s) and the per-level
@@ -318,7 +355,7 @@ __device__ __forceinline__ void write_paths(int32_t* const* keys, long long i, c
 // An unused entry takes nlev above the fields, after every valid one.
 __global__ void table_born(TableArgs a) {
   __shared__ int h[kMaxLevels + 1];
-  const int nlev = (int)a.nlev, nn = (int)a.nn, W = (int)a.W;
+  const int nlev = (int)a.nlev, nn = (int)a.nn;
   if (threadIdx.x <= kMaxLevels) h[threadIdx.x] = 0;
   __syncthreads();
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -342,19 +379,11 @@ __global__ void table_born(TableArgs a) {
                  : ((long long)nlev << 12);
       if (e.ok) arank = ganc ? a.irank_of[arl] : ((rself || ranc) ? 0 : a.R[e.an]);
     }
-    const int32_t* pw = a.pw + (long long)bidc * W;
-    long long k0 = (lba << a.wa) | (long long)arank;
-    if (a.ipack) k0 = (k0 << a.ipack) | (long long)((uint32_t)pw[0] >> a.pwz[0]);
-    a.ikey0[b] = k0;
-    write_paths(a.ipw, b, pw, W, a.pwz, a.ipack ? 1 : 0);
+    a.ikey[b] = (((lba << a.wa) | (long long)arank) << a.pb) | path_rank(a, bidc);
     if (e.ok) atomicAdd(&h[lev], 1);
   }
   __syncthreads();
   if (threadIdx.x < nlev && h[threadIdx.x]) atomicAdd(&a.counts[threadIdx.x], h[threadIdx.x]);
-}
-
-__device__ __forceinline__ long long walk_key0(const TableArgs& a, long long w, const int32_t* pw) {
-  return a.wpack ? ((w << a.wpack) | (long long)((uint32_t)pw[0] >> a.pwz[0])) : w;
 }
 
 // After the insertion sort (perm: sorted position -> entry): a thread per
@@ -365,7 +394,7 @@ __device__ __forceinline__ long long walk_key0(const TableArgs& a, long long w, 
 // its place after every valid entry.
 __global__ void table_entries(TableArgs a) {
   __shared__ int s_start[kMaxLevels + 1], s_suffix[kMaxLevels + 1];
-  const int nlev = (int)a.nlev, nn = (int)a.nn, W = (int)a.W;
+  const int nlev = (int)a.nlev, nn = (int)a.nn;
   if (threadIdx.x == 0) {
     int run = 0;
     for (int L = 0; L < nlev; ++L) {
@@ -382,9 +411,8 @@ __global__ void table_entries(TableArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nroots = a.form == 0 ? a.nroots : 0;
   if (i >= a.NE + nroots) return;
-  const int32_t kZero[kMaxPathWords] = {0, 0, 0, 0};
   int w, from, s, ok;
-  const int32_t* pw;
+  long long pr;
   if (i < a.NE) {
     const Entry e = entry_of(a, a.perm[i]);
     const int bidc = e.bid < nn ? e.bid : nn - 1;
@@ -400,7 +428,7 @@ __global__ void table_entries(TableArgs a) {
     // clips to 0, as the 2D walk root's 0
     from = (e.ok && !(a.form == 1 && e.bid == 0)) ? e.bn + 1 : 0;
     s = a.node_s[bidc];
-    pw = a.pw + (long long)bidc * W;
+    pr = path_rank(a, bidc);
   } else {
     const int r = (int)(i - a.NE);
     const int id = a.root_ids[r];
@@ -409,11 +437,10 @@ __global__ void table_entries(TableArgs a) {
     ok = 1;
     from = 0;
     s = a.node_s[id];
-    pw = kZero;
+    pr = 0;  // a root's path is the zero path
   }
   a.pay[i] = 1 | (clamp63(from) << 1) | (clamp63(s) << 7) | (ok << 17);
-  a.wkey0[i] = walk_key0(a, w, pw);
-  write_paths(a.wpw, i, pw, W, a.pwz, a.wpack ? 1 : 0);
+  a.wkey[i] = ((long long)w << a.pb) | pr;
 }
 
 // A thread per parent slot c < C: the walk keys of its MC child rows (the
@@ -423,7 +450,7 @@ __global__ void table_entries(TableArgs a) {
 // level k = xf .. 1, then each group's arrival bit.
 __global__ void table_rowkeys(TableArgs a) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int nn = (int)a.nn, MC = (int)a.MC, W = (int)a.W;
+  const int nn = (int)a.nn, MC = (int)a.MC;
   if (c < a.C) {
     const int sd = c < a.take ? a.sid[c] : nn;
     const bool ok = sd < nn;
@@ -436,16 +463,11 @@ __global__ void table_rowkeys(TableArgs a) {
       w = a.wbuf[anc];
       if (w > a.tcap) w = a.tcap;
     }
-    const int dq = a.depth[q];
-    const int wd = dq / 6, sh = 5 * (5 - dq % 6);
-    const int32_t* pq = a.pw + (long long)q * W;
-    for (int k = 0; k < MC; ++k) {
-      int32_t cp[kMaxPathWords];
-      for (int x = 0; x < W; ++x) cp[x] = pq[x] + (x == wd ? ((k + 1) << sh) : 0);
-      const long long i = a.E + c * MC + k;
-      a.wkey0[i] = walk_key0(a, w, cp);
-      write_paths(a.wpw, i, cp, W, a.pwz, a.wpack ? 1 : 0);
-    }
+    // the child slots' path ranks follow the parent's value's own (padding
+    // slots included)
+    const int32_t* pr = a.ptab + (long long)a.pidx[q] * (MC + 1) + 1;
+    long long* wk = a.wkey + a.E + c * MC;
+    for (int k = 0; k < MC; ++k) wk[k] = (w << a.pb) | (long long)pr[k];
     return;
   }
   if (a.form != 1) return;
@@ -453,7 +475,6 @@ __global__ void table_rowkeys(TableArgs a) {
   if (j >= a.xf + a.G) return;
   const int xf = (int)a.xf, G = (int)a.G;
   const int nb = *a.num_bp;
-  const int32_t kZero[kMaxPathWords] = {0, 0, 0, 0};
   const long long i = a.E + a.rows + j;
   long long w;
   if (j < xf) {
@@ -473,8 +494,7 @@ __global__ void table_rowkeys(TableArgs a) {
     a.pay[i] = (clamp63(gbn) << 1) | (gsig << 14) | ((gbn < nb ? 1 : 0) << 16);
     w = a.wbase + a.gbit_rank[g];
   }
-  a.wkey0[i] = walk_key0(a, w, kZero);
-  write_paths(a.wpw, i, kZero, W, a.pwz, a.wpack ? 1 : 0);
+  a.wkey[i] = w << a.pb;  // the I items' paths are the zero path
 }
 
 // -- the node passes and the I-set maxima ------------------------------------------
@@ -540,26 +560,66 @@ cudaError_t launch(void (*k)(TableArgs), long long count, const TableArgs* a, cu
 
 bool args_ok(const TableArgs* a) {
   return a && a->nn >= 1 && a->MC >= 1 && a->MC <= kMaxChildren && a->nlev >= 1 &&
-         a->nlev <= kMaxLevels - 2 && a->W >= 1 && a->W <= kMaxPathWords && (a->form == 0 || a->form == 1) &&
-         a->C >= 1 && a->take >= 1 && a->rows == a->C * a->MC;
+         a->nlev <= kMaxLevels - 2 && (a->form == 0 || a->form == 1) && a->C >= 1 && a->take >= 1 &&
+         a->rows == a->C * a->MC && a->pb >= 0 && a->nsmall >= 0;
 }
 
 }  // namespace
 
+extern "C" int sperr_radix_sort_gated(const int32_t* gate, const void* keys, int key_bytes,
+                                      const int32_t* vals, long long n, const int* shifts, int nshift,
+                                      void* kbuf, int32_t* vbuf, void* kout, int32_t* vout,
+                                      unsigned long long* zbuf, long long zwords, cudaStream_t stream);
+
 // The anchors and the string ranks: J, R, u, jp, sigf, wbuf of a (node_s
-// in), then the levels of the rank plan (plan on the device, plan_host on
-// the host; keys: the largest count of the levels ranked apart; zbuf: zwords
-// 4-byte words, zeroed here).
-extern "C" int sperr_table_anchors(const TableArgs* a, const int32_t* plan, const int32_t* plan_host,
-                                   int nsmall, int nlevels, uint32_t* keys, uint32_t* zbuf, long long zwords,
-                                   cudaStream_t stream) {
-  const long long need = sperr_rank::plan_words(plan_host, nsmall, nlevels);
-  if (!args_ok(a) || need < 0 || zwords < need) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(zbuf, 0, sizeof(uint32_t) * (need > 0 ? need : 1), stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch(table_anchors, a->nn, a, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)sperr_rank::rank_levels(plan, plan_host, nsmall, nlevels, a->u, a->jp, a->R, keys, zbuf, stream);
+// in), the hop words ranked per level (urank_prep), then the rank plan's
+// levels: the first nsmall in one block, each other in three launches,
+// and after each level that may overflow its bitmap (its u-rank layout's
+// kLayGated word) that level's sorted route, gated on its overflow word.
+// plan_host and lay_host: the plan (nlevels levels) and its layout on the
+// host.  Leaves the hop-word bitmaps and the scans' counters zero.
+extern "C" int sperr_table_anchors(const TableArgs* a, const int32_t* plan_host, const int32_t* lay_host,
+                                   int nlevels, cudaStream_t stream) {
+  using namespace sperr_rank;
+  if (!args_ok(a) || nlevels < a->nsmall || nlevels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch(table_anchors, a->nn, a, stream);
+  if (err != cudaSuccess || nlevels == 0) return (int)err;
+  const URank r{a->plan, a->ulay, a->ubm, a->uw, a->upre, a->rst, a->sbm, a->rbm, a->rgc, a->rbs, a->rkeys,
+                a->u, a->jp, a->R, (int)a->nsmall, nlevels, (int)a->dlow0};
+  urank_prep<<<nlevels, kUWords, 0, stream>>>(r);
+  if (a->nsmall > 0) {
+    err = cudaFuncSetAttribute(urank_small, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmallShared);
+    if (err != cudaSuccess) return (int)err;
+    urank_small<<<1, 1024, kSmallShared, stream>>>(r);
+  }
+  for (int l = (int)a->nsmall; l < nlevels; ++l) {
+    const int32_t* Lh = plan_host + l * kLevelInts;
+    const int32_t* Ly = lay_host + l * kULay;
+    const long long cnt = Lh[0];
+    const unsigned nb = (unsigned)((cnt + kRankThreads - 1) / kRankThreads);
+    urank_mark<<<nb, kRankThreads, 0, stream>>>(r, l);
+    urank_scan<<<(unsigned)Ly[kLayScan], kScanThreads, 0, stream>>>(r, l);
+    urank_bits<<<nb, kRankThreads, 0, stream>>>(r, l);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (!Ly[kLayGated]) continue;
+    // the level's sorted route, run only where its keys overflowed the bitmap
+    const int32_t* gate = a->rst + l * kStInts + kStOver;
+    const int32_t* L = a->plan + l * kLevelInts;
+    err = sort_keys_level(L, cnt, a->u, a->jp, a->R, a->gkeys, stream, gate);
+    if (err != cudaSuccess) return (int)err;
+    int shifts[8], nshift = 0;
+    for (int sh = 0; sh < 12 + Lh[1]; sh += 8) shifts[nshift++] = sh;
+    // only the first pass reads the keys: they take turns with the scratch
+    long long* kout = nshift % 2 ? a->gkbuf : a->gkeys;
+    long long* kbuf = nshift % 2 ? a->gkeys : a->gkbuf;
+    const int e = sperr_radix_sort_gated(gate, a->gkeys, 8, nullptr, cnt, shifts, nshift, kbuf, a->gvbuf, kout,
+                                         a->gvout, a->gzbuf, a->gzwords, stream);
+    if (e != 0) return e;
+    err = sorted_level(L, cnt, kout, a->gvout, a->gscr, a->gswords, a->R, stream, gate);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 // A level of a rank plan ranked by sorting (keys past the bitmaps' 32

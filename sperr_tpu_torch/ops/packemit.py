@@ -274,10 +274,11 @@ def compact_flags_rows_ref(flags: torch.Tensor, take: int) -> Tuple[torch.Tensor
     return out[:, :take].contiguous(), incl[:, -1].to(_I32)
 
 
-def compact_flags_rows(flags: torch.Tensor, take: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K12 on a CUDA tensor, the plain version on a CPU tensor."""
+def compact_flags_rows(flags: torch.Tensor, take: int, out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12 on a CUDA tensor (into ``out``, as ``kernels.compact_flags_rows``
+    takes it, where given), the plain version on a CPU tensor."""
     if _dispatch(flags, "compact_flags_rows"):
-        return kernels.compact_flags_rows(flags.to(torch.bool).contiguous(), take)
+        return kernels.compact_flags_rows(flags.to(torch.bool).contiguous(), take, out)
     return compact_flags_rows_ref(flags.to(torch.bool), take)
 
 

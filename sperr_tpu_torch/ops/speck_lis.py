@@ -23,9 +23,11 @@ kernels of kernels/walk.cu (K7, the row, born-entry and key kernels, and
 the stable radix sort, with K12 for its compactions), the table walk
 (``_lis_items_table``) and the 2D walk (ops/speck_lis2.py) the kernels of
 kernels/walk_table.cu (``_table_items_cuda``: the anchors with K7's
-per-level bitmap ranks in place of the rank-doubling ladder, levels too
-wide for a bitmap sorted, the rows, the born entries and their walk ranks
-by arithmetic in place of a sort, the keys) around the same radix sort; on
+per-level bitmap ranks, each level's hop words ranked first, in place of the
+rank-doubling ladder, the rows, the born entries and their walk ranks by
+arithmetic in place of a sort, one int64 key per sort with the static path
+ranks of ``path_ranks`` in place of the path words) around the same radix
+sort, in one cached buffer per index and node cap; on
 a CPU tensor their plain versions (``_lis_items_virtual_ref``,
 ``_lis_items_table_ref``), which sort with ``lexsort`` (chained
 ``torch.sort``) on every device.
@@ -33,6 +35,7 @@ a CPU tensor their plain versions (``_lis_items_virtual_ref``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -671,24 +674,81 @@ def _lis_items_table_ref(node_s, s_lin, signs, num_bp, li, node_cap):
                        rows.sig_now, rows.emitted, rows.ispx, rows.row_sign), n_sig
 
 
+def _dense_rows(cols):
+    """Dense ranks of rows given as int64 columns (the first the most
+    significant), in lexicographic order, equal rows equal ranks: (ranks,
+    the number of distinct rows)."""
+    if len(cols) == 1:
+        vals, inv = np.unique(cols[0], return_inverse=True)
+        return inv.reshape(-1).astype(np.int64), vals.size
+    order = np.lexsort(cols[::-1])
+    head = np.zeros(order.size, dtype=bool)
+    head[:1] = True
+    for c in cols:
+        cs = c[order]
+        head[1:] |= cs[1:] != cs[:-1]
+    rs = np.cumsum(head) - 1
+    ranks = np.empty_like(rs)
+    ranks[order] = rs
+    return ranks, int(rs[-1]) + 1 if rs.size else 0
+
+
+def path_ranks(li):
+    """The static path ranks of a ``LisIndex`` or ``Lis2Index``: a dense rank
+    over every path value an item of the walk can carry (each node's path,
+    each child slot's path, pw[q] + (k + 1) << sh for every k < max_ch,
+    padding slots included, and the zero path of the roots and the 2D I
+    items), in the order of the path words, equal values equal ranks.
+    Returns (pidx int32 [nn]: each node's distinct path value, ptab int32
+    [values, max_ch + 1]: a value's path rank, then its child slots', the
+    number of distinct values ranked).  The zero path ranks 0."""
+    pw = li.pw.cpu().numpy().astype(np.int64)
+    depth = li.depth.cpu().numpy().astype(np.int64)
+    MC = int(li.max_ch)
+    W = pw.shape[1]
+
+    def packed(words):  # the 30-bit words in pairs, one int64 each: the order kept
+        return [(words[:, k] << 30) | (words[:, k + 1] if k + 1 < W else 0) for k in range(0, W, 2)]
+
+    pidx, npv = _dense_rows(packed(pw))
+    rep = np.zeros(npv, dtype=np.int64)
+    rep[pidx] = np.arange(li.nn)
+    pv, dv = pw[rep], depth[rep]
+    vals = [packed(pv)]
+    for k in range(MC):  # the child slots: digit k + 1 at the value's depth
+        c = pv.copy()
+        wd, sh = dv // 6, 5 * (5 - dv % 6)
+        for x in range(W):
+            c[:, x] += np.where(wd == x, (k + 1) << sh, 0)
+        vals.append(packed(c))
+    cols = [np.concatenate([v[j] for v in vals] + [np.zeros(1, np.int64)]) for j in range(len(vals[0]))]
+    ranks, nvals = _dense_rows(cols)
+    ptab = ranks[:-1].reshape(MC + 1, npv).T
+    assert ranks[-1] == 0  # the zero path comes first
+    return pidx.astype(np.int32), np.ascontiguousarray(ptab, dtype=np.int32), nvals
+
+
 class TableStatic(NamedTuple):
     """The table and 2D walks' static data on the card (made once per
     index): the rank plan (K7's format: the levels that hold a node with node
-    children, coarse first, every node of each ranked), which levels it
-    ranks, the bits of the path words that some node or child row sets
-    (trailing zero bits, widths), and the index's tables as the kernels read
-    them."""
+    children, coarse first, every node of each ranked), each level's place in
+    it, the static path ranks (``path_ranks``: one int32 per node and max_ch
+    + 1 per distinct path value), the widths of the keys' fields, and the
+    index's tables as the kernels read them."""
 
     form: int                      # 0: table (3D), 1: 2D
     plan: "svirt.RankPlan"
-    lev_ranked: torch.Tensor       # uint8 [nlev]
-    pwz: Tuple[int, ...]           # trailing zero bits of each path word
-    pwb: Tuple[int, ...]           # bits above them (0: the word is always 0)
+    pb: int                        # bits of a path rank
+    path_values: int               # distinct path values ranked
+    path_bytes: int                # the path ranks' tables (pidx, ptab)
+    dlow0: int                     # 1 + the largest rank field of a string that ends with its node
     lba_bits: int                  # bits of the insertion key's (level, pass, class) field
     wa: int                        # bits of an anchor rank (or a 2D group's static rank)
     itop: int                      # 2D: past every static I rank, 8 (xf - k) + {0; 1 + 2j; 2 + 2j}
     tables: Dict[str, torch.Tensor]
     layouts: Dict[int, "TableLayout"]  # by node cap, made once each
+    ranks: Dict[int, tuple]            # by cap_bits: (TableRankLayout, its device rows)
+    calls: Dict[tuple, tuple]          # by (node cap, cap_bits, device): (stream, its _TableCall)
 
 
 def table_static(li) -> TableStatic:
@@ -707,7 +767,6 @@ def table_static(li) -> TableStatic:
     lev = li.level.cpu().numpy().astype(np.int64)
     cnt = li.ch_count.cpu().numpy().astype(np.int64)
     ctab = li.ctab.cpu().numpy().astype(np.int64)
-    start = li.ch_start.cpu().numpy().astype(np.int64)
     # nodes with a node child: the anchors and the nodes of their strings
     row_par = np.repeat(np.arange(nn), cnt)
     inner = np.zeros(nn, bool)
@@ -716,7 +775,7 @@ def table_static(li) -> TableStatic:
     ns = kernels.RANK_SPANS
     rows, counts, wks = [], [], []
     below = 0
-    ranked = np.zeros(nlev, np.uint8)
+    lev_plan = np.zeros(nlev, np.uint8)
     for L in sorted(set(lev[inner].tolist())):
         ids = np.flatnonzero(lev == L)
         cut = np.flatnonzero(np.diff(ids) != 1) + 1
@@ -734,43 +793,34 @@ def table_static(li) -> TableStatic:
         counts.append(int(ids.size))
         wks.append(int(row[1]))
         below = max(below, int(ids.size))
-        ranked[L] = 1
+        lev_plan[L] = len(rows)
     nsmall = 0
     while (nsmall < len(rows) and counts[nsmall] <= kernels.RANK_SMALL_MAX
            and 12 + wks[nsmall] <= kernels.RANK_SMALL_BITS):
         nsmall += 1
     host = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int32)
     plan = svirt.RankPlan(host, _i32(host, dev), nsmall, tuple(counts), tuple(wks))
-    # the bits any path word takes: the nodes' paths and their child rows'
-    # digits (slot + 1 at the parent's depth)
-    pw = li.pw.cpu().numpy().astype(np.int64)
-    depth = li.depth.cpu().numpy().astype(np.int64)
-    W = pw.shape[1]
-    masks = [int(np.bitwise_or.reduce(pw[:, k])) if nn else 0 for k in range(W)]
-    slots = (1 << int(cnt.max()).bit_length()) - 1 if nn else 0
-    for d in np.unique(depth[cnt > 0]).tolist():
-        if d // 6 < W:
-            masks[d // 6] |= slots << (5 * (5 - d % 6))
-    pwz = tuple(((m & -m).bit_length() - 1) if m else 0 for m in masks)
-    pwb = tuple((m.bit_length() - z) if m else 0 for m, z in zip(masks, pwz))
-    names = ("parent", "level", "depth", "pw", "ch_start", "ch_count", "ctab")
+    pidx, ptab, nvals = path_ranks(li)
+    names = ("parent", "level", "ch_start", "ch_count", "ctab")
     names += ("O0", "off0", "root_ids", "root_levels") if form == 0 else (
         "k_of", "irank_of", "block_rank_of", "group_ids", "group_k", "gbit_rank")
     tables = {k: getattr(li, k).contiguous() for k in names}
+    tables["pidx"], tables["ptab"] = _i32(pidx, dev), _i32(ptab, dev)
     if form == 1:
         tables["is_group"] = li.is_group.to(torch.uint8).contiguous()
         if tables["group_ids"].numel() == 0:  # the kernels read no group; a valid pointer all the same
             for k in ("group_ids", "group_k", "gbit_rank"):
                 tables[k] = torch.zeros(1, dtype=_I32, device=dev)
-    tables["lev_ranked"] = torch.as_tensor(ranked, device=dev)
+    tables["lev_plan"] = torch.as_tensor(lev_plan, device=dev)
+    tables["plan"] = plan.dev if host.size else torch.zeros(1, dtype=_I32, device=dev)
     wa = max(max(counts, default=0), G).bit_length()
     lba = (nlev << 12) if form else (nlev << 11)
     itop = 0
     if form:
         ranks = [li.gbit_rank.cpu().numpy(), li.block_rank_of.cpu().numpy()]
         itop = max([8 * int(li.xf)] + [int(r.max()) + 1 for r in ranks if r.size])
-    li._walk_static = TableStatic(form, plan, tables["lev_ranked"], pwz, pwb, lba.bit_length(), max(1, wa),
-                                  itop, tables, {})
+    li._walk_static = TableStatic(form, plan, max(nvals - 1, 0).bit_length(), nvals, 4 * (pidx.size + ptab.size),
+                                  max(1, min(G, 2048)), lba.bit_length(), max(1, wa), itop, tables, {}, {}, {})
     return li._walk_static
 
 
@@ -779,11 +829,9 @@ class TableLayout(NamedTuple):
     Items: the list entries (E: the born entries in insertion order, then
     the roots; in 2D the born entries, the walk root and the G group heads,
     all in insertion order), the child rows (R = C MC), and the 2D walk's
-    xf pending-I and G arrival items: T in all.  The insertion sort's first
-    key packs (level, pass, class; anchor rank) and, where it fits, path word
-    0 below them; the walk sort's packs (walk rank, tcap for none) above path
-    word 0; each other path word that some item sets is a key of its own,
-    its trailing zero bits shifted out."""
+    xf pending-I and G arrival items: T in all.  Each sort has one int64
+    key: the insertion key packs (level, pass, class; anchor rank; path
+    rank), the walk key (walk rank, tcap for none; path rank)."""
 
     C: int
     take: int             # the significant-set compaction's take, min(C, nn)
@@ -795,17 +843,14 @@ class TableLayout(NamedTuple):
     T: int                # items
     tcap: int             # the walk rank of "none" (past every walk and I rank)
     wbase: int            # 2D: the I item space's first rank (E)
-    ipack: int            # bits of path word 0 in the insertion key (0: apart)
-    ins_words: Tuple[int, ...]  # path words that are insertion keys of their own
-    ins_bits: Tuple[int, ...]
-    wpack: int            # bits of path word 0 in the walk key (0: apart)
-    walk_words: Tuple[int, ...]
-    walk_bits: Tuple[int, ...]
+    ins_bits: int         # width of the insertion key
+    walk_bits: int        # width of the walk key
 
 
 def table_layout(li, node_cap: int) -> TableLayout:
     """The ``TableLayout`` of the table or 2D walk at ``node_cap``: every key
-    below 2^bits of its width (tests hold the widths against the keys)."""
+    below 2^bits of its width (tests hold the widths against the keys).
+    Raises ValueError where a key would not fit one int64 (2^63)."""
     st = table_static(li)
     C = int(node_cap)
     if C in st.layouts:
@@ -822,15 +867,13 @@ def table_layout(li, node_cap: int) -> TableLayout:
         NE, E = CB, CB + int(li.nroots)
         T = E + R
         tcap, wbase = E, E
-    pw0 = st.pwb[0]
-    ipack = pw0 if 0 < pw0 and st.lba_bits + st.wa + pw0 <= 63 else 0
-    ins_words = tuple(k for k, b in enumerate(st.pwb) if b and not (k == 0 and ipack))
-    wpack = pw0 if 0 < pw0 and tcap.bit_length() + pw0 <= 63 else 0
-    walk_words = tuple(k for k, b in enumerate(st.pwb) if b and not (k == 0 and wpack))
-    lay = st.layouts[C] = TableLayout(
-        C, min(C, li.nn), MC, R, CB, NE, E, T, tcap, wbase, ipack, ins_words,
-        (st.lba_bits + st.wa + ipack,) + tuple(st.pwb[k] for k in ins_words), wpack, walk_words,
-        (tcap.bit_length() + wpack,) + tuple(st.pwb[k] for k in walk_words))
+    ins_bits = st.lba_bits + st.wa + st.pb
+    walk_bits = tcap.bit_length() + st.pb
+    if ins_bits > 63 or walk_bits > 63:
+        raise ValueError(f"the walk's keys take one int64 each: insertion key {st.lba_bits} + {st.wa} + {st.pb} "
+                         f"bits (level field, anchor rank, path rank), walk key {tcap.bit_length()} + {st.pb}; "
+                         f"at most 63")
+    lay = st.layouts[C] = TableLayout(C, min(C, li.nn), MC, R, CB, NE, E, T, tcap, wbase, ins_bits, walk_bits)
     return lay
 
 
@@ -885,112 +928,197 @@ def table_anchors_ref(node_s, li, iset_s=None):
     return J.to(_I32), R, u, jp
 
 
-def table_anchors(node_s, li, iset_s=None, bitmap_bits=kernels.RANK_BITMAP_BITS):
+def table_anchors(node_s, li, iset_s=None, cap_bits=kernels.RANK_CAP_BITS):
     """The anchors stage of the table and 2D walks: (J, R, u, jp) as
     ``table_anchors_ref`` defines them.  On a CUDA tensor the anchors kernel
-    and the rank levels (``kernels.table_anchors``; levels whose keys are
-    wider than ``bitmap_bits`` sorted: a lower value drives that route at
-    small sizes); on a CPU tensor the plain version."""
+    and the rank levels (``kernels.table_anchors``: each level's hop words
+    ranked first, then its keys on a bitmap; ``cap_bits`` sets the larger
+    levels' regions, past which a level's keys take its gated sorted route:
+    a lower value drives that route at small sizes); on a CPU tensor the
+    plain version.  The results are new tensors."""
     if pe._dispatch(node_s, "table_anchors"):
-        st = table_static(li)
-        a, bufs, _, _ = _table_args(li, table_layout(li, 1), st, node_s, None, None, iset_s, None)
-        kernels.table_anchors(a, node_s.device, st.plan.dev, st.plan.host, st.plan.nsmall, bitmap_bits)
-        return bufs["J"], bufs["R"], bufs["u"], bufs["jp"]
+        with _table_call(li, 1, node_s.device, cap_bits) as call:
+            return call.run_anchors(node_s, iset_s)
     return table_anchors_ref(node_s, li, iset_s)
 
 
-def _table_args(li, lay, st, node_s, s_lin, signs, iset_s, num_bp):
-    """The kernels' structure for one call (``kernels.TableArgs``), with the
-    buffers it points at: (args, {name: tensor}, the insertion keys' path
-    words, the walk keys' path words).  s_lin and signs may be None for the
-    anchors stage alone."""
-    dev = node_s.device
-    nn = li.nn
-    inputs = {"node_s": node_s}
-    if s_lin is not None:
-        inputs["s_lin"] = s_lin
-    if st.form:
-        inputs["iset_s"] = iset_s
-        if num_bp is not None:
-            inputs["num_bp"] = num_bp.reshape(1)
-    for k, t in inputs.items():
-        kernels._require_cuda(t, _I32, k)
-        if t.device != dev:
-            raise ValueError(f"{k} is on {t.device}, node_s on {dev}")
-    if node_s.shape != (nn,):
-        raise ValueError(f"node_s must be ({nn},); got {tuple(node_s.shape)}")
-    if s_lin is not None:
-        kernels._require_cuda(signs, torch.bool, "signs")
-        if s_lin.shape != (li.n,) or signs.shape != (li.n,) or signs.device != dev:
-            raise ValueError(f"s_lin and signs must be ({li.n},) on {dev}; got {tuple(s_lin.shape)}, "
-                             f"{tuple(signs.shape)} on {signs.device}")
-        inputs["signs"] = signs.view(torch.uint8)
-    i32 = dict(dtype=_I32, device=dev)
-    bufs = dict(st.tables, **inputs,
-                J=torch.empty(nn, **i32), R=torch.empty(nn, **i32), u=torch.empty(nn, **i32),
-                jp=torch.empty(nn, **i32), sigf=torch.empty(nn, dtype=torch.uint8, device=dev),
-                wbuf=torch.empty(nn + 1, **i32), bflag=torch.empty(lay.R, dtype=torch.uint8, device=dev),
-                counts=torch.empty(li.nlev + 1, **i32), n_sig_out=torch.empty(1, **i32),
-                ikey0=torch.empty(lay.NE, dtype=torch.int64, device=dev), pay=torch.empty(lay.T, **i32),
-                wkey0=torch.empty(lay.T, dtype=torch.int64, device=dev))
-    ins = [torch.empty(lay.NE, **i32) for _ in lay.ins_words]
-    wks = [torch.empty(lay.T, **i32) for _ in lay.walk_words]
-    a = kernels.TableArgs()
-    for k, t in bufs.items():
-        setattr(a, k, t.data_ptr())
-    for k, t in zip(lay.ins_words, ins):
-        a.ipw[k] = t.data_ptr()
-    for k, t in zip(lay.walk_words, wks):
-        a.wpw[k] = t.data_ptr()
-    for k in ("nn", "n", "nrows", "nlev"):
-        setattr(a, k, int(getattr(li, k)))
-    a.form, a.MC, a.W = st.form, lay.MC, li.pw.shape[1]
-    a.xf, a.G = (int(li.xf), int(li.G)) if st.form else (0, 0)
-    a.nroots = 0 if st.form else int(li.nroots)
-    for k in ("C", "take", "CB", "NE", "E", "tcap", "wbase", "ipack", "wpack"):
-        setattr(a, k, getattr(lay, k))
-    a.rows = lay.R
-    a.wa = st.wa
-    for k, z in enumerate(st.pwz):
-        a.pwz[k] = z
-    return a, bufs, ins, wks
+def _table_ranks(st, cap_bits):
+    """The rank layout of a ``TableStatic`` at ``cap_bits``, with its rows on
+    the card, made once each."""
+    if cap_bits not in st.ranks:
+        rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall, cap_bits)
+        st.ranks[cap_bits] = (rl, _i32(rl.lay.reshape(-1) if rl.lay.size else np.zeros(1), st.plan.dev.device))
+    return st.ranks[cap_bits]
 
 
-def _table_items_cuda(node_s, s_lin, signs, li, node_cap, iset_s=None, num_bp=None, keep=None):
+class _TableCall:
+    """The device buffer of the table or 2D walk at one node cap, rank
+    layout and device: one zeroed allocation carved
+    into views (the anchors, the walk rank table, the rank levels' scratch,
+    the compactions, the keys, the unsorted payloads, the sorts' scratch),
+    and the kernels' ``TableArgs`` filled once; a call sets only its inputs.
+    The rank levels leave their hop-word bitmaps and counters zero for the
+    next call, so a call that raises drops its buffer (``_table_call``)."""
+
+    def __init__(self, li, st, lay, rl, rows, dev):
+        nn = li.nn
+        nlv = len(st.plan.counts)
+        gk = rl.gated_keys
+        i32, i64, u8 = torch.int32, torch.int64, torch.uint8
+        spec = [("J", i32, nn), ("R", i32, nn), ("u", i32, nn), ("jp", i32, nn), ("sigf", u8, nn),
+                ("wbuf", i32, nn + 1), ("ubm", i32, nlv * kernels.RANK_U_WORDS), ("uw", i32, nlv * kernels.RANK_U_WORDS),
+                ("upre", i32, nlv * kernels.RANK_U_WORDS), ("rst", i32, nlv * kernels.RANK_STATE),
+                ("sbm", i32, (1 << (kernels.RANK_SMALL_BITS - 5)) if rl.nsmall else 4),
+                ("rbm", i32, max(rl.region_words, 4)), ("rgc", i32, max(rl.region_groups, 4)),
+                ("rbs", i32, max(rl.bsum_words, 4)), ("rkeys", i32, max(rl.keys, 1)),
+                ("gkeys", i64, max(gk, 1)), ("gkbuf", i64, max(gk, 1)), ("gvbuf", i32, max(gk, 1)), ("gvout", i32, max(gk, 1)),
+                ("gzbuf", i64, kernels.sort_scratch_words(gk) if gk else 1),
+                ("gscr", i32, kernels.rank_scratch_words(gk) if gk else 4),
+                ("sid", i32, lay.take), ("sid_count", i32, 1), ("sid_status", i64, -(-nn // kernels.FLAG_TILE)),
+                ("bflag", u8, lay.R), ("born_idx", i32, lay.CB), ("born_count", i32, 1),
+                ("born_status", i64, -(-lay.R // kernels.FLAG_TILE)), ("counts", i32, li.nlev + 1),
+                ("ikey", i64, lay.NE), ("perm", i32, lay.NE), ("pay", i32, lay.T), ("wkey", i64, lay.T),
+                ("skbuf", i64, lay.T), ("svbuf", i32, lay.T), ("szbuf", i64, kernels.sort_scratch_words(lay.T))]
+        offs, total = [], 0
+        for _, dtype, n in spec:
+            offs.append(total)
+            total += -(-n * torch.empty((), dtype=dtype).element_size() // 16) * 16
+        self.buf = torch.zeros(total, dtype=u8, device=dev)
+        self.views = {name: self.buf[o:o + n * torch.empty((), dtype=dtype).element_size()].view(dtype)
+                      for (name, dtype, n), o in zip(spec, offs)}
+        v = self.views
+        a = self.args = kernels.TableArgs()
+        for k, t in list(st.tables.items()) + list(v.items()):
+            if k in kernels.TABLE_POINTERS:
+                setattr(a, k, t.data_ptr())
+        a.ulay = rows.data_ptr()
+        for k in ("nn", "n", "nrows", "nlev"):
+            setattr(a, k, int(getattr(li, k)))
+        a.form, a.MC = st.form, lay.MC
+        a.xf, a.G = (int(li.xf), int(li.G)) if st.form else (0, 0)
+        a.nroots = 0 if st.form else int(li.nroots)
+        for k in ("C", "take", "CB", "NE", "E", "tcap", "wbase"):
+            setattr(a, k, getattr(lay, k))
+        a.rows = lay.R
+        a.wa, a.pb, a.dlow0 = st.wa, st.pb, st.dlow0
+        a.nsmall = rl.nsmall
+        a.gzwords, a.gswords = v["gzbuf"].numel(), v["gscr"].numel()
+        self.li, self.st, self.lay, self.rl, self.dev = li, st, lay, rl, dev
+
+    def inputs(self, node_s, s_lin=None, signs=None, iset_s=None, num_bp=None):
+        """Points the structure at one call's inputs (checked)."""
+        li, dev, a = self.li, self.dev, self.args
+        ins = {"node_s": node_s}
+        if s_lin is not None:
+            ins["s_lin"] = s_lin
+        if self.st.form:
+            ins["iset_s"] = iset_s
+            if num_bp is not None:
+                ins["num_bp"] = num_bp.reshape(1)
+        for k, t in ins.items():
+            kernels._require_cuda(t, _I32, k)
+            if t.device != dev:
+                raise ValueError(f"{k} is on {t.device}, the walk's buffers on {dev}")
+        if node_s.shape != (li.nn,):
+            raise ValueError(f"node_s must be ({li.nn},); got {tuple(node_s.shape)}")
+        if s_lin is not None:
+            kernels._require_cuda(signs, torch.bool, "signs")
+            if s_lin.shape != (li.n,) or signs.shape != (li.n,) or signs.device != dev:
+                raise ValueError(f"s_lin and signs must be ({li.n},) on {dev}; got {tuple(s_lin.shape)}, "
+                                 f"{tuple(signs.shape)} on {signs.device}")
+            ins["signs"] = signs
+        for k, t in ins.items():
+            setattr(a, k, t.data_ptr())
+
+    def run_anchors(self, node_s, iset_s=None):
+        """The anchors stage alone: (J, R, u, jp), new tensors (the structure
+        copied with them in place of the buffer's)."""
+        self.inputs(node_s, iset_s=iset_s)
+        a = kernels.TableArgs.from_buffer_copy(self.args)
+        out = tuple(torch.empty(self.li.nn, dtype=_I32, device=self.dev) for _ in range(4))
+        a.J, a.R, a.u, a.jp = (t.data_ptr() for t in out)
+        kernels.table_anchors(a, self.dev, self.st.plan.dev, self.st.plan.host, self.rl)
+        return out
+
+    def run(self, node_s, s_lin, signs, iset_s, num_bp):
+        """The whole walk: (payload words [T], n_sig), both new tensors."""
+        lay, v, a, dev = self.lay, self.views, self.args, self.dev
+        self.inputs(node_s, s_lin, signs, iset_s, num_bp)
+        n_sig = torch.empty((), dtype=_I32, device=dev)
+        a.n_sig_out = n_sig.data_ptr()
+        kernels.table_anchors(a, dev, self.st.plan.dev, self.st.plan.host, self.rl)
+        pe.compact_flags_rows(v["sigf"].view(torch.bool).reshape(1, -1), lay.take,
+                              out=(v["sid"].reshape(1, -1), v["sid_count"], v["sid_status"]))
+        kernels.table_stage("rows", a, dev)
+        pe.compact_flags_rows(v["bflag"].view(torch.bool).reshape(1, -1), lay.CB,
+                              out=(v["born_idx"].reshape(1, -1), v["born_count"], v["born_status"]))
+        kernels.table_stage("born", a, dev)
+        self._sort(v["ikey"], lay.ins_bits, None, v["perm"])
+        kernels.table_stage("entries", a, dev)
+        kernels.table_stage("rowkeys", a, dev)
+        pay = torch.empty(lay.T, dtype=_I32, device=dev)
+        self._sort(v["wkey"], lay.walk_bits, v["pay"], pay)
+        return pay, n_sig
+
+    def _sort(self, keys, bits, vals, vout):
+        """One radix sort of the walk's keys into vout.  Only the first pass
+        reads the keys, so they take turns with the one scratch key buffer
+        as the passes' outputs: the last pass writes into the keys when the
+        passes are even, the second when they are odd."""
+        v = self.views
+        kbuf = v["skbuf"][:keys.numel()]
+        kbuf, kout = (kbuf, keys) if len(kernels.radix_shifts(bits)) % 2 == 0 else (keys, kbuf)
+        kernels.radix_sort(keys, bits, vals, out=(kout, vout), scratch=(kbuf, v["svbuf"], v["szbuf"]))
+
+
+@contextlib.contextmanager
+def _cached(cache, key, stream, make):
+    """One cached item per ``key``, with the stream it was last used on.
+    The item leaves the cache while the block runs, so no two users share
+    it (a second concurrent user makes its own, and the one put back last
+    stays), and goes back with ``stream`` only when the block ends without
+    an exception.  An item held for another stream is dropped and made
+    anew: the caching allocator reuses its memory on that stream only, so
+    the new stream never overtakes work queued on the old one."""
+    held = cache.pop(key, None)
+    item = held[1] if held is not None and held[0] == stream else make()
+    yield item
+    cache[key] = (stream, item)
+
+
+def _table_call(li, node_cap, dev, cap_bits=kernels.RANK_CAP_BITS):
+    """The cached ``_TableCall`` of this index, node cap, rank layout and
+    device (``_cached``: one each, whatever the thread or stream), made on
+    first use.  After a refused launch it is dropped: its bitmaps and
+    counters may not be zero."""
+    if dev.type != "cuda":
+        raise ValueError(f"the walk's kernels run on a CUDA device; got tensors on {dev}")
+    st = table_static(li)
+
+    def make():
+        rl, rows = _table_ranks(st, cap_bits)
+        return _TableCall(li, st, table_layout(li, node_cap), rl, rows, dev)
+
+    return _cached(st.calls, (int(node_cap), cap_bits, dev.index), torch.cuda.current_stream(dev).cuda_stream, make)
+
+
+def _table_items_cuda(node_s, s_lin, signs, li, node_cap, iset_s=None, num_bp=None, keep=None,
+                      cap_bits=kernels.RANK_CAP_BITS):
     """The table walk (``LisIndex``) or the 2D walk (``Lis2Index``, with its
     I-set passes and num_bp) on the card, as the plain versions compute it:
     the anchors and the string ranks (``table_anchors``), K12 (the
     significant sets), the child rows, K12 (the born rows), the entries'
     insertion keys, their radix sort, the walk ranks, the entries' and rows'
-    walk keys, and the walk sort carrying the payloads.  Returns (payload
-    words [T] int32, n_sig int32 ()).  No host wait.  ``keep``, a dict,
-    receives the stages' buffers (J, R, u, jp, sid, ...) for inspection."""
-    st = table_static(li)
-    lay = table_layout(li, node_cap)
-    dev = node_s.device
-    a, bufs, ins, wks = _table_args(li, lay, st, node_s, s_lin, signs, iset_s, num_bp)
-
-    def point(**tensors):
-        for k, t in tensors.items():
-            bufs[k] = t
-            setattr(a, k, t.data_ptr())
-
-    kernels.table_anchors(a, dev, st.plan.dev, st.plan.host, st.plan.nsmall)
-    sid, cnt = pe.compact_flags_rows(bufs["sigf"].view(torch.bool).reshape(1, li.nn), lay.take)
-    point(sid=sid[0], sid_count=cnt)
-    kernels.table_stage("rows", a, dev)
-    bidx, bcnt = pe.compact_flags_rows(bufs["bflag"].view(torch.bool).reshape(1, lay.R), lay.CB)
-    point(born_idx=bidx[0], born_count=bcnt)
-    kernels.table_stage("born", a, dev)
-    point(perm=kernels.radix_lexsort([bufs["ikey0"]] + ins, lay.ins_bits))
-    kernels.table_stage("entries", a, dev)
-    kernels.table_stage("rowkeys", a, dev)
-    n_sig = bufs["n_sig_out"].reshape(())
-    if keep is not None:
-        keep.update(bufs, ins=ins, wks=wks)
-    if not wks:
-        return kernels.radix_sort(bufs["wkey0"], lay.walk_bits[0], bufs["pay"])[1], n_sig
-    return kernels.gather(bufs["pay"], kernels.radix_lexsort([bufs["wkey0"]] + wks, lay.walk_bits)), n_sig
+    walk keys, and the walk sort carrying the payloads: one int64 key per
+    sort, in the buffers of ``_table_call``.  Returns (payload words [T]
+    int32, n_sig int32 ()), new tensors.  No host wait.  ``keep``, a dict,
+    receives the call's buffers (J, R, u, jp, sid, ...: views that the next
+    call at this node cap and device overwrites) for inspection."""
+    with _table_call(li, node_cap, node_s.device, cap_bits) as call:
+        out = call.run(node_s, s_lin, signs, iset_s, num_bp)
+        if keep is not None:
+            keep.update(call.views)
+        return out
 
 
 def _event_tail(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int,
@@ -1056,4 +1184,4 @@ def lis_segments_device(node_s, s_lin, signs, num_bp, li, num_bp_cap, node_cap,
 
 
 __all__ = ["LisIndex", "lis_index", "lis_item_count", "lis_segments_device", "lexsort", "walk_layout",
-           "table_anchors", "table_anchors_ref", "table_layout", "table_static"]
+           "path_ranks", "table_anchors", "table_anchors_ref", "table_layout", "table_static"]

@@ -1,14 +1,17 @@
 """The table and 2D walks' kernels (kernels/walk_table.cu: K15's and K14's
 walks, the I-set maxima and the node passes) on the CPU, where the card is
 absent: a numpy emulation of the kernels' arithmetic (the anchors' chain
-walk and hop words, the per-level ranks of rank.cuh, the rows, the entries'
-insertion keys, the walk ranks by arithmetic, the walk keys and both sorts
-as stable sorts over the packed keys) against the plain versions and
-sperr_tpu, bit for bit; the 2D items through the plain K9b and K11 against
-sperr_tpu's event form, caps included; TorchCompressor2D(entropy="wave")'s
-streams and tiers; the I-set maxima; the static key widths at the main
-path's sizes; the kernels' C structure and constants against their
-mirrors; and dispatch.  Every result is an integer and compared exactly."""
+walk and hop words, the per-level ranks of rank.cuh with each level's hop
+words ranked first, its gated sorted route, the rows, the entries'
+insertion keys, the walk ranks by arithmetic, the walk keys from the static
+path ranks and both sorts as stable sorts of their one int64 key) against
+the plain versions and sperr_tpu, bit for bit; the 2D items through the
+plain K9b and K11 against sperr_tpu's event form, caps included;
+TorchCompressor2D(entropy="wave")'s streams and tiers; the I-set maxima;
+the path ranks against the path words; the static key widths and the rank
+levels' key spans at the main path's sizes; the kernels' C structure and
+constants against their mirrors; and dispatch.  Every result is an integer
+and compared exactly."""
 
 import functools
 import os
@@ -120,20 +123,58 @@ def _sorted_ranks(key, bits):
     return rank
 
 
-def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=kernels.RANK_BITMAP_BITS):
-    """The walk as kernels/walk_table.cu computes it, launch by launch
-    (the rank levels whose keys are wider than ``bitmap_bits`` sorted)."""
+def _urank_level(u, low, D, cap_bits, small):
+    """rank.cuh's u-ranked route for one level: each hop word's dense rank
+    ur among the level's (its bitmap's popcounts), the keys ur D + low, the
+    groups they span (a multiple of 4), the presence bitmap's group counts,
+    their prefixes within scan blocks of RANK_SCAN_GROUPS groups and the
+    blocks' prefixes, and rank = the distinct keys below the key; None
+    where a larger level's groups pass its region (2^cap_bits bits: the
+    gated sorted route takes it).  Returns (ranks, distinct keys, groups)."""
+    words = np.zeros(kernels.RANK_U_WORDS, np.int64)
+    np.bitwise_or.at(words, u >> 5, 1 << (u & 31))
+    pop = np.array([bin(int(w)).count("1") for w in words])
+    upre = np.cumsum(pop) - pop
+    x = np.arange(32 * kernels.RANK_U_WORDS)
+    below = np.array([bin(int(words[v >> 5]) & ((1 << (v & 31)) - 1)).count("1") for v in x], np.int64)
+    ur = upre[u >> 5] + below[u]  # the word's prefix and the popcount below the bit
+    assert (low < D).all() and (ur < pop.sum()).all()
+    key = ur * D + low
+    groups = (((int(pop.sum()) * D + 255) >> 8) + 3) & ~3
+    if small:
+        groups = (int(pop.sum()) * D + 255) >> 8
+        assert groups <= 1 << (kernels.RANK_SMALL_BITS - 8)
+    elif groups > (1 << cap_bits) // 256:
+        return None, None, groups
+    bm = np.zeros(groups * 256, bool)
+    bm[key] = True
+    gcnt = bm.reshape(groups, 256).sum(axis=1)
+    blk = np.arange(groups) // kernels.RANK_SCAN_GROUPS
+    gpre = np.zeros(groups, np.int64)
+    bsum = np.zeros(blk[-1] + 1, np.int64)
+    for b in range(blk[-1] + 1):
+        g = gcnt[blk == b]
+        gpre[blk == b] = np.cumsum(g) - g
+        bsum[b] = g.sum()
+    bpre = np.cumsum(bsum) - bsum
+    below = np.cumsum(bm) - bm  # within a group: the bits below
+    gstart = np.repeat(np.cumsum(gcnt) - gcnt, 256)
+    rank = bpre[blk[key >> 8]] + gpre[key >> 8] + (below[key] - gstart[key])
+    np.testing.assert_array_equal(rank, np.unique(key, return_inverse=True)[1].reshape(-1))
+    return rank, int(bm.sum()), groups
+
+
+def _emulate_ranks(li, node_s, iset, cap_bits=kernels.RANK_CAP_BITS, info=None):
+    """table_anchors and rank.cuh, emulated (the larger levels' regions of
+    at most 2^cap_bits bits, an overflowing level ranked by its sorted
+    route): (J, R, u, jp, the ranked nodes).  ``info``, a dict, receives
+    each level's route and the groups its keys span."""
     st = tsl.table_static(li)
-    lay = tsl.table_layout(li, cap)
     form = st.form
     T = {k: _np(v) for k, v in st.tables.items()}
-    parent, level, depth, pw = T["parent"], T["level"], T["depth"], T["pw"].reshape(li.nn, -1)
-    W = pw.shape[1]
-    nn, n, MC, nlev = li.nn, li.n, lay.MC, li.nlev
-    node_s, s_lin, sgn = _np(node_s_t), _np(s_t), _np(sgn_t)
+    parent, level = T["parent"], T["level"]
+    nn, nlev = li.nn, li.nlev
     xf = li.xf if form else 0
-    iset = _np(iset_t) if form else None
-    nbp = int(nb_t) if form else 0
 
     def kpass(k):
         return iset[np.clip(k, 0, xf)]
@@ -165,24 +206,59 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=
         jp = np.where(ganc, -1 - np.clip(T["irank_of"][ar], 0, 2047), np.where(ranc | ~has, -1, ar))
         jp[0] = -1
     assert u.min() >= 0 and int(u.max()) < 2**12
-    # -- rank.cuh: each ranked level's dense ranks, coarse levels first (the
-    # bitmaps' ranks are the dense ranks of np.unique)
+    # -- rank.cuh: each ranked level's hop words ranked first, then its keys
+    # ur D + low on a bitmap (D: the running bound on the low fields), coarse
+    # levels first; a larger level that overflows its region by the sorted
+    # route
     R = np.zeros(nn, np.int64)
     rows = st.plan.host.reshape(-1, kernels.RANK_LEVEL_INTS)
-    nbitmap = kernels.rank_layout(st.plan.host, st.plan.nsmall, bitmap_bits).nbitmap
+    rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall, cap_bits)
     ranked = np.zeros(nn, bool)
+    D = st.dlow0
     for lvl, row in enumerate(rows):
         cnt, wk, ns = (int(x) for x in row[:3])
         ids = np.concatenate([np.arange(row[3 + k], row[3 + kernels.RANK_SPANS + k]) for k in range(ns)])
         assert ids.size == cnt and (level[ids] == level[ids[0]]).all()
         assert ranked[jp[ids][jp[ids] >= 0]].all()  # the next strings are ranked first
         low = np.where(jp[ids] < 0, -1 - jp[ids], R[np.maximum(jp[ids], 0)] + 1)
-        assert low.max(initial=0) < 2**wk
+        assert low.max(initial=0) < 2**wk and D <= 2**wk
         key = (u[ids] << wk) | low
         _check_width(key, 12 + wk)
-        R[ids] = (np.unique(key, return_inverse=True)[1].reshape(-1) if lvl < nbitmap
-                  else _sorted_ranks(key, 12 + wk))
+        r, nd, groups = _urank_level(u[ids], low, D, cap_bits, lvl < rl.nsmall)
+        route = "bitmap" if r is not None else "gated"
+        assert r is not None or lvl in rl.gated  # only a gated level overflows
+        # the next level's multiplier: past this level's distinct keys, or
+        # after an overflow the static bound 2^wk of the next level
+        D = max(D, nd + 1) if r is not None else 2 ** int(rows[min(lvl + 1, len(rows) - 1)][1])
+        if r is None:
+            r = _sorted_ranks(key, 12 + wk)
+        R[ids] = r
         ranked[ids] = True
+        if info is not None:
+            info[lvl] = (route, groups)
+    return J, R, u, jp, ranked
+
+
+def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, cap_bits=kernels.RANK_CAP_BITS, info=None):
+    """The walk as kernels/walk_table.cu computes it, launch by launch (the
+    rank stage as ``_emulate_ranks``; both sorts as stable sorts of their
+    one int64 key, widths checked)."""
+    st = tsl.table_static(li)
+    lay = tsl.table_layout(li, cap)
+    form = st.form
+    T = {k: _np(v) for k, v in st.tables.items()}
+    level = T["level"]
+    pidx, ptab = T["pidx"], T["ptab"].reshape(-1, li.max_ch + 1)
+    nn, n, MC, nlev = li.nn, li.n, lay.MC, li.nlev
+    node_s, s_lin, sgn = _np(node_s_t), _np(s_t), _np(sgn_t)
+    xf = li.xf if form else 0
+    iset = _np(iset_t) if form else None
+    nbp = int(nb_t) if form else 0
+
+    def kpass(k):
+        return iset[np.clip(k, 0, xf)]
+
+    J, R, u, jp, ranked = _emulate_ranks(li, node_s, iset, cap_bits, info)
     # -- K12: the significant sets
     sig = np.flatnonzero(node_s < _NEVER)
     take, C = lay.take, lay.C
@@ -262,12 +338,10 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=
         arank = np.where(e_ok, np.where(ganc, T["irank_of"][arl], np.where(rself | ranc, 0, R[arl])), 0)
     if form == 0:
         assert (~e_ok | ranked[arl]).all()  # every valid entry's anchor is ranked
-    key0 = (lba << st.wa) | arank
-    pws = [pw[bidc, w] >> st.pwz[w] for w in range(W)]
-    if lay.ipack:
-        key0 = (key0 << lay.ipack) | pws[0]
+    assert arank.max(initial=0) < 2**st.wa and lba.max() < 2**st.lba_bits
+    ikey = (((lba << st.wa) | arank) << st.pb) | ptab[pidx[bidc], 0]
     counts = np.bincount(lev[e_ok], minlength=nlev + 1)
-    perm = _stable_order([key0] + [pws[w] for w in lay.ins_words], lay.ins_bits)
+    perm = _stable_order([ikey], [lay.ins_bits])
     # -- table_entries: the walk ranks by arithmetic
     start = np.cumsum(counts[:nlev]) - counts[:nlev]
     off0 = T["off0"] if form == 0 else np.zeros(nlev, np.int64)
@@ -284,32 +358,27 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=
     frm = np.where(e_ok & ~((form == 1) & (bid == 0)), bn + 1, 0)
     pay[: lay.NE] = (1 | (np.clip(frm, 0, 63) << 1) | (np.clip(node_s[bidc], 0, 63) << 7)
                      | (e_ok.astype(np.int64) << 17))
-    wk0 = np.zeros(lay.T, np.int64)
-    wpw = [np.zeros(lay.T, np.int64) for _ in range(W)]
+    wkey = np.zeros(lay.T, np.int64)
 
-    def put(idx, wr, paths):
-        wk0[idx] = (wr << lay.wpack) | (paths[0] >> st.pwz[0]) if lay.wpack else wr
-        for x in range(W):
-            wpw[x][idx] = paths[x] >> st.pwz[x]
+    def put(idx, wr, prank):
+        assert np.max(wr, initial=0) <= lay.tcap
+        wkey[idx] = (wr << st.pb) | prank
 
-    put(slice(0, lay.NE), w, [pw[bidc, x] for x in range(W)])
+    put(slice(0, lay.NE), w, ptab[pidx[bidc], 0])
     if form == 0:
         r = np.arange(li.nroots)
         rid = T["root_ids"]
         wr = suffix[T["root_levels"]] + T["O0"][rid]
         wbuf[rid] = wr
         pay[lay.NE: lay.E] = 1 | (np.clip(node_s[rid], 0, 63) << 7) | (1 << 17)
-        put(slice(lay.NE, lay.E), wr, [np.zeros(r.size, np.int64)] * W)
+        put(slice(lay.NE, lay.E), wr, 0)  # the roots' zero path
     # -- table_rowkeys: the rows' walk keys, the 2D I items
     anc = np.where(ok, J[q], q)
     wr = np.minimum(wbuf[anc], lay.tcap)
     if form:
         crit = ok & (T["is_group"][anc] == 1) & (kpass(T["k_of"][anc]) == node_s[anc])
         wr = np.where(crit, lay.wbase + T["block_rank_of"][anc], wr)
-    dq = depth[q]
-    cp = [pw[q, x][:, None] + np.where((dq // 6 == x)[:, None], (k + 1)[None, :] << (5 * (5 - dq % 6))[:, None], 0)
-          for x in range(W)]
-    put(slice(lay.E, lay.E + lay.R), np.repeat(wr, MC), [a.reshape(-1) for a in cp])
+    put(slice(lay.E, lay.E + lay.R), np.repeat(wr, MC), ptab[pidx[q], 1:].reshape(-1))  # padding slots too
     if form:
         G = li.G
         kj = xf - np.arange(xf)
@@ -321,14 +390,11 @@ def _emulate(li, node_s_t, s_t, sgn_t, cap, iset_t=None, nb_t=None, bitmap_bits=
         okp = (birth < _NEVER) & (lo < nbp)
         o = lay.E + lay.R
         pay[o: o + xf] = 1 | (np.clip(lo, 0, 63) << 1) | (np.clip(kpass(kj), 0, 63) << 7) | (okp << 17)
-        put(slice(o, o + xf), lay.wbase + 8 * (xf - kj), [np.zeros(xf, np.int64)] * W)
+        put(slice(o, o + xf), lay.wbase + 8 * (xf - kj), 0)
         gbn = kpass(gk)
         pay[o + xf: o + xf + G] = (np.clip(gbn, 0, 63) << 1) | (gsig << 14) | ((gbn < nbp) << 16)
-        put(slice(o + xf, o + xf + G), lay.wbase + T["gbit_rank"][:G], [np.zeros(G, np.int64)] * W)
-    perm = _stable_order([wk0] + [wpw[x] for x in lay.walk_words], lay.walk_bits)
-    for x in range(W):  # a path word with no key is 0 everywhere
-        if x not in lay.walk_words and not (x == 0 and lay.wpack):
-            assert not wpw[x].any()
+        put(slice(o + xf, o + xf + G), lay.wbase + T["gbit_rank"][:G], 0)
+    perm = _stable_order([wkey], [lay.walk_bits])
     return pay[perm], n_sig_out, J, R
 
 
@@ -419,12 +485,18 @@ def test_plain_anchor_stage_equals_the_emulation(case):
     assert u.dtype == jp.dtype == torch.int32 and int(u.min()) >= 0 and int(u.max()) < 2**12
 
 
-@pytest.mark.parametrize("case", ["table", "pyramid", "2d", "2d one", "2d dense"])
+@pytest.mark.parametrize("case", ["table", "pyramid", "2d", "2d one", "2d dense", "table gated", "pyramid gated",
+                                  "2d gated", "2d one gated", "2d dense gated"])
 def test_sorted_rank_levels_give_the_plain_walk(case):
-    """The rank levels through rank.cuh's sorted route (here every level
-    past 16 key bits, as bitmap_bits = 16 makes it on the card; by default
-    the levels past 32 bits, from about 3600 x 7200 on) give the bitmaps'
-    ranks and the plain walk's payload words bit for bit."""
+    """The rank levels under a lower cap give the walks' own ranks and the
+    plain walk's payload words bit for bit: every level past 16 key bits
+    gated on regions of 2^16 bits (``cap_bits = 16``: the levels within
+    them ranked as the walks rank them, the others on the smaller region
+    or by their sorted route), or every level on regions of 2^8 bits
+    (``cap_bits = 8``: none ranked in one block, every key set past its
+    region), each through its gated sorted route."""
+    gated = case.endswith(" gated")
+    case = case.removesuffix(" gated")
     if case in ("table", "pyramid"):
         li, node_s, s, sgn, nb = _inputs3((24, 24, 16) if case == "table" else (23, 15, 13), 5, 0.3)
         iset_s = None
@@ -434,9 +506,16 @@ def test_sorted_rank_levels_give_the_plain_walk(case):
         li, node_s, s, sgn, nb, iset_s, _ = _inputs2(nx, ny, 6, density)
         want = tsl2._lis2_items_ref(node_s, s, sgn, nb, iset_s, li, li.nn)
     st = tsl.table_static(li)
-    lay = kernels.rank_layout(st.plan.host, st.plan.nsmall, 16)
-    assert lay.nbitmap < len(st.plan.counts)  # the route is taken
-    pay, n_sig, J, R = _emulate(li, node_s, s, sgn, li.nn, iset_s, nb, bitmap_bits=16)
+    cap_bits = 8 if gated else 16
+    rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall, cap_bits)
+    info = {}
+    pay, n_sig, J, R = _emulate(li, node_s, s, sgn, li.nn, iset_s, nb, cap_bits=cap_bits, info=info)
+    bits = [12 + w for w in st.plan.wks]
+    if not gated:  # the levels past 16 bits gated, those within them not
+        assert rl.gated == tuple(k for k, b in enumerate(bits) if b > 16) and rl.gated
+        assert all(info[k][0] == "bitmap" for k, b in enumerate(bits) if b <= 16)
+    else:
+        assert rl.nsmall == 0 and {r for r, _ in info.values()} == {"gated"}
     _, _, J0, R0 = _emulate(li, node_s, s, sgn, li.nn, iset_s, nb)
     np.testing.assert_array_equal(R, R0)
     np.testing.assert_array_equal(J, J0)
@@ -447,16 +526,18 @@ def test_sorted_rank_levels_give_the_plain_walk(case):
 @pytest.mark.parametrize("dims", [(4096, 4096), (7200, 3600), (256, 256, 200)])
 def test_rank_plan_takes_fields_past_the_main_path_sizes(dims):
     """The walks take fields and chunks wider than the main path's: every
-    key of the walk within its width (``_widths_hold``), and each rank level
-    on a route that takes it: the bitmaps up to 32 key bits, the sorted
-    route past them (at 3600 x 7200 the finest level's 33 bits)."""
+    key of the walk within its width (``_widths_hold``), every rank level on
+    a bitmap (none sorted), and a larger level on a region of 2^27 bits at
+    most, gated to its sorted route where its static 12 + wk bits pass that
+    (at 3600 x 7200 the finest level's 33)."""
     # built apart from the index cache, so the worker does not keep it
     li = tsl2.Lis2Index(dims, "cpu") if len(dims) == 2 else tsl.LisIndex(dims, "cpu")
     st, lay = _widths_hold(li, li.nn)
-    rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)
-    assert all(b <= kernels.RANK_BITMAP_BITS for b in rl.bits[: rl.nbitmap])
-    assert all(kernels.RANK_BITMAP_BITS < b <= 43 for b in rl.bits[rl.nbitmap:])
-    assert rl.nbitmap == len(rl.bits) - (dims == (7200, 3600))
+    rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall)
+    bits = [12 + w for w in st.plan.wks]
+    assert len(rl.cap_bits) == len(bits) - rl.nsmall and max(rl.cap_bits) <= kernels.RANK_CAP_BITS
+    assert rl.gated == tuple(k for k, b in enumerate(bits) if b > kernels.RANK_CAP_BITS and k >= rl.nsmall)
+    assert (dims == (7200, 3600)) <= (max(bits) == 33)
     assert lay.T < 2**31
 
 
@@ -610,27 +691,20 @@ def test_node_passes_equal_the_schedule_form():
 def _widths_hold(li, cap):
     st = tsl.table_static(li)
     lay = tsl.table_layout(li, cap)
-    rl = kernels.rank_layout(st.plan.host, st.plan.nsmall)  # every level on a route that takes it
-    assert rl.bits == tuple(12 + w for w in st.plan.wks)
+    rl = kernels.table_rank_layout(st.plan.host, st.plan.nsmall)  # every level on a bitmap
+    assert len(rl.cap_bits) == len(st.plan.counts) - rl.nsmall and all(c <= kernels.RANK_CAP_BITS for c in rl.cap_bits)
     assert sum(st.plan.counts) <= li.nn and max(st.plan.counts) < 2**st.wa
     assert st.lba_bits == ((li.nlev << (12 if st.form else 11))).bit_length() and li.nlev <= 30
-    # the largest insertion and walk keys
-    top_ins = ((((li.nlev << (12 if st.form else 11)) << st.wa) | (2**st.wa - 1)) << lay.ipack)
-    assert top_ins < 2**lay.ins_bits[0] <= 2**63
-    assert (lay.tcap << lay.wpack) < 2**lay.walk_bits[0] <= 2**63
-    assert lay.tcap >= lay.E and lay.wpack == st.pwb[0]
-    # every path word, of a node or a child row, within its shifted width
-    pw = li.pw.numpy().astype(np.int64)
-    depth = li.depth.numpy().astype(np.int64)
-    cnt = li.ch_count.numpy().astype(np.int64)
-    for w in range(pw.shape[1]):
-        vals = [pw[:, w]]
-        for kk in range(int(cnt.max())):
-            d = depth[cnt > kk]
-            vals.append(pw[cnt > kk, w] + np.where(d // 6 == w, (kk + 1) << (5 * (5 - d % 6)), 0))
-        v = np.concatenate(vals)
-        assert (v & ((1 << st.pwz[w]) - 1) == 0).all()
-        _check_width(v >> st.pwz[w], st.pwb[w])
+    # the largest insertion and walk keys, one int64 each
+    top_ins = (((li.nlev << (12 if st.form else 11)) << st.wa) | (2**st.wa - 1)) << st.pb | (2**st.pb - 1)
+    assert top_ins < 2**lay.ins_bits <= 2**63
+    assert (lay.tcap << st.pb | (2**st.pb - 1)) < 2**lay.walk_bits <= 2**63
+    assert lay.tcap >= lay.E
+    # every path rank within its width; the static tables under 8 bytes a
+    # node and 4 a pixel
+    ptab = st.tables["ptab"]
+    assert int(ptab.max()) == st.path_values - 1 < 2**st.pb and int(ptab.min()) == 0
+    assert st.path_bytes == 4 * (li.nn + ptab.numel()) < 8 * li.nn + 4 * li.n
     return st, lay
 
 
@@ -640,8 +714,10 @@ def test_2d_key_widths_hold_at_the_main_path_sizes(dims):
     st, lay = _widths_hold(li, li.nn)
     R = li.nn * li.max_ch
     assert lay.T == min(R, li.nn) + 1 + 2 * li.G + R + li.xf
-    # the walk key packs path word 0; the rank bitmaps stay within 2^31 bits
-    assert lay.wpack and max(12 + w for w in st.plan.wks) <= 31
+    # one key per sort: at 1024^2 the two sorts take 12 digit passes, two
+    # histograms with them (the walk call's radix launches, at most 14)
+    passes = len(kernels.radix_shifts(lay.ins_bits)) + len(kernels.radix_shifts(lay.walk_bits))
+    assert passes + 2 <= (14 if dims == (1024, 1024) else 16)
 
 
 @pytest.mark.parametrize("dims", [(256, 256, 100), (256, 244, 100), (118, 128, 97)])
@@ -649,7 +725,95 @@ def test_table_key_widths_hold_at_the_main_path_sizes(dims):
     li = tsl.lis_index(dims, "cpu")
     st, lay = _widths_hold(li, li.nn)
     assert lay.T == tsl.lis_item_count(li, li.nn)
-    assert lay.ipack and lay.wpack  # both first keys hold path word 0
+    passes = len(kernels.radix_shifts(lay.ins_bits)) + len(kernels.radix_shifts(lay.walk_bits))
+    assert passes + 2 <= 15  # the walk call's radix launches
+
+
+def _path_values(li):
+    """Every path value an item of the walk carries, as (path word tuples
+    [m, W], their path ranks [m]): each node's, each node's max_ch child
+    slots' (padding slots included), and the zero path (rank 0)."""
+    st = tsl.table_static(li)
+    pw = li.pw.numpy().astype(np.int64)
+    depth = li.depth.numpy().astype(np.int64)
+    pidx, ptab = _np(st.tables["pidx"]), _np(st.tables["ptab"]).reshape(-1, li.max_ch + 1)
+    vals, ranks = [pw], [ptab[pidx, 0]]
+    for k in range(li.max_ch):
+        c = pw.copy()
+        for x in range(pw.shape[1]):
+            c[:, x] += np.where(depth // 6 == x, (k + 1) << (5 * (5 - depth % 6)), 0)
+        vals.append(c)
+        ranks.append(ptab[pidx, 1 + k])
+    vals.append(np.zeros((1, pw.shape[1]), np.int64))
+    ranks.append(np.zeros(1, np.int64))
+    return np.concatenate(vals), np.concatenate(ranks)
+
+
+@pytest.mark.parametrize("dims", [(24, 24, 16), (23, 15, 13), (64, 64, 25), (20, 20, 20), (118, 128, 97),
+                                  (33, 57), (64, 48), (128, 41), (200, 150)])
+def test_path_ranks_order_and_tie_as_the_path_words(dims):
+    """The static path ranks order every path value as its path words do
+    and give equal values equal ranks, dense from 0: each node, each child
+    slot below max_ch (padding included) and the zero path, on forests of
+    several roots (the 3D shapes' 8-18 roots share the zero path, the 2D
+    walk root and group heads too)."""
+    li = tsl2.lis2_index(dims, "cpu") if len(dims) == 2 else tsl.lis_index(dims, "cpu")
+    vals, ranks = _path_values(li)
+    order = np.lexsort(vals.T[::-1])
+    v, r = vals[order], ranks[order]
+    new = np.r_[True, (v[1:] != v[:-1]).any(axis=1)]
+    np.testing.assert_array_equal(r, np.cumsum(new) - 1)  # ascending with the words, equal for equal
+    st = tsl.table_static(li)
+    assert st.path_values == int(new.sum()) and st.pb == (st.path_values - 1).bit_length()
+    assert (li.pw.numpy() == 0).all(axis=1).sum() >= (3 if len(dims) == 2 else 8)  # roots on the zero path
+
+
+def _smooth(shape, seed):
+    """A smooth field: 24 random separable sine modes and a little noise
+    (the recipe of chip_smoke.py's Turbulence1024-like fields)."""
+    rng = np.random.default_rng(seed)
+    f = np.zeros(shape, np.float32)
+    for _ in range(24):
+        term = np.float32(rng.normal(scale=0.4))
+        for ax, n in enumerate(shape):
+            t = np.linspace(0.0, 1.0, n, dtype=np.float32)
+            fr, ph = rng.uniform(0.5, 8.0), rng.uniform(0, 2 * np.pi)
+            term = term * np.sin(2 * np.pi * fr * t + ph).reshape([-1 if a == ax else 1 for a in range(len(shape))])
+        f += term
+    return f + rng.normal(scale=0.001, size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (100, 256, 256)])
+def test_hop_word_ranks_keep_every_bitmap_small(shape):
+    """At the smoke's 1024^2 field and Hurricane packet chunk shapes, on a
+    smooth field's node passes, each rank level's keys (its hop-word rank
+    times D, plus the low field) span at most 2^26 bits, so every level ranks
+    on a bitmap of 8 MB or less and none overflows to its sorted route; the
+    ranks equal the plain anchors stage's."""
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.parallel import batched as tb
+
+    x = torch.from_numpy(_smooth(shape, 3)[None])
+    two_d = len(shape) == 2
+    fwd, inv = (cdf97.dwt2d, cdf97.idwt2d) if two_d else (cdf97.dwt3d, cdf97.idwt3d_)
+    mags = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", fwd, inv)["mags"][0].reshape(-1).contiguous()
+    if two_d:
+        ny, nx = shape
+        nb, pm, _, _, nm = tspk.schedule_table(mags, tspk.tree_index((nx, ny), "cpu"))
+        li = tsl2.lis2_index((nx, ny), "cpu")
+        iset = tsl2.iset_significance_device(pm.reshape(ny, nx), jsw.build_tree2((nx, ny)), nb)
+    else:
+        li, si = tb._wave_index(shape[::-1], "cpu")
+        nb, _, _, nm = tb._schedule(mags, si)
+        iset = None
+    node_s = tspk.node_passes(nm, nb)
+    info = {}
+    J, R, _, _, _ = _emulate_ranks(li, _np(node_s), None if iset is None else _np(iset), info=info)
+    assert {r for r, _ in info.values()} == {"bitmap"}
+    assert max(g for _, g in info.values()) * 256 <= 2**26
+    Jr, Rr, _, _ = tsl.table_anchors_ref(node_s, li, iset)
+    np.testing.assert_array_equal(R, Rr.numpy())
+    np.testing.assert_array_equal(J, Jr.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -675,10 +839,13 @@ def test_table_args_fields_match_the_source():
     consts = dict((k, v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["kMaxLevels"]) - 2 == kernels.TABLE_MAX_LEVELS
     assert int(consts["kMaxChildren"]) == kernels.TABLE_MAX_CHILDREN
-    assert int(consts["kMaxPathWords"]) == kernels.TABLE_PATH_WORDS
     assert int(consts["kMaxIset"]) == kernels.ISET_MAX_LEVELS
+    rank = _source("rank.cuh")
+    rc = dict((k, v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", rank))
+    assert int(rc["kUWords"]) == kernels.RANK_U_WORDS and int(rc["kULay"]) == kernels.RANK_ULAY
+    assert "kStInts = %d" % kernels.RANK_STATE in rank
     import ctypes
-    assert ctypes.sizeof(kernels.TableArgs) == 8 * (len(names) + 3 * 3)
+    assert ctypes.sizeof(kernels.TableArgs) == 8 * len(names)
 
 
 def test_cpu_tensors_never_load_the_kernels(monkeypatch):
@@ -713,13 +880,48 @@ def test_meta_and_cuda_less_calls_raise():
     with pytest.raises(ValueError):
         kernels.iset_max(cpu.reshape(8, 8), [(0, 0), (4, 4)], cpu[:1])
     with pytest.raises(ValueError):
-        kernels.table_anchors(kernels.TableArgs(), "cpu", cpu, np.zeros(0, np.int32), 0)
+        kernels.table_anchors(kernels.TableArgs(), "cpu", cpu, np.zeros(0, np.int32),
+                              kernels.table_rank_layout(np.zeros(0, np.int32), 0))
     with pytest.raises((ValueError, RuntimeError)):
         kernels.table_stage("rows", kernels.TableArgs(), "cpu")
     with pytest.raises(ValueError):
         kernels.table_stage("nowhere", kernels.TableArgs(), "cpu")
     with pytest.raises(ValueError):  # a CPU tensor is not the card's
         tsl._table_items_cuda(li.level, cpu, cpu.bool(), li, li.nn, cpu, cpu[0])
+
+
+def test_walk_buffer_cache_keeps_one_per_cap_and_device():
+    """The walk's buffer cache (``speck_lis._cached``, keyed by node cap,
+    cap_bits and device): calls from two short-lived threads on one stream
+    leave one cached buffer; a concurrent second user makes its own and one
+    of the two stays; a call on another stream makes a new one and leaves
+    one, held for that stream; a call that raises leaves none."""
+    import threading
+
+    cache, made, key = {}, [], (5, kernels.RANK_CAP_BITS, 0)
+
+    def make():
+        made.append(object())
+        return made[-1]
+
+    def use(stream):
+        with tsl._cached(cache, key, stream, make) as item:
+            return item
+
+    got = []
+    for _ in range(2):
+        t = threading.Thread(target=lambda: got.append(use(7)))
+        t.start()
+        t.join()
+    assert len(made) == 1 and got == [made[0], made[0]] and cache == {key: (7, made[0])}
+    with tsl._cached(cache, key, 7, make) as first, tsl._cached(cache, key, 7, make) as second:
+        assert first is made[0] and second is made[1]
+    assert len(cache) == 1 and cache[key][0] == 7
+    assert use(8) is made[2] and cache == {key: (8, made[2])}
+    with pytest.raises(RuntimeError):
+        with tsl._cached(cache, key, 8, make):
+            raise RuntimeError("a refused launch")
+    assert cache == {}
 
 
 def test_launch_names_are_registered():
