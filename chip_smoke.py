@@ -25,8 +25,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      cap; the schedule kernels of kernels/schedule.cu bit for bit: the cube
      form (sched_boxmax, sched_virtual: K5 and K6) on chunk 0 of phase 4's
      quantized field, an all-zero and a 2^31 - 1 256^3 chunk, 16^3 and 2^3
-     cubes, the child-table form (sched_table) on a Hurricane packet chunk
-     (100, 256, 256), a 1024^2 and a 1800x3600 field, the pyramid form
+     cubes, the child-table form (sched_table, and with the 2D I-set
+     passes; at most 3 launches a call) on a Hurricane packet chunk (100,
+     256, 256), its edge chunk (100, 244, 244), a 1024^2 and a 1800x3600
+     field, with the int64 leaf table and on a 70000 x 16 field (one cut,
+     rows past the grid's 65535), the pyramid form
      (sched_pyramid) on the dyadic (97, 128, 118) chunk, each timed; the
      walk kernels of kernels/walk.cu bit for bit: the child value table
      (walk_vtab), K7 (anchor_ranks), the whole 3D walk (walk_rows and the
@@ -61,7 +64,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
      table and 2D walks' kernels of kernels/walk_table.cu bit for bit,
      every output: node_passes, table_anchors (J, R, u, jp, alone and in
      the walk), the whole walk (payload words, padding included, and n_sig)
-     with every radix sort it ran, iset_max, and the 2D LIS segments
+     with every radix sort it ran, and the 2D LIS segments
      through K9b and K11 against the plain event form at three caps, on a
      Hurricane packet chunk at tiers 0, 1 and a node cap of nn / 20, its
      all-zero, one-pixel and 2^31 - 1 forms, the dyadic chunk, a 1024^2,
@@ -115,9 +118,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      scan or cummax;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
      streams must equal phase 7's (167,627 bytes) with every field on the
-     device and K1, K2, K3, emit_planes, K11, K12, sched_table, the
-     radix sort, node_passes, table_anchors, table_walk and iset_max
-     launched (K10 not), decoded within the bound, the encode timed on both
+     device and K1, K2, K3, emit_planes, K11, K12, sched_table (with the
+     I-set passes), the radix sort, node_passes, table_anchors and
+     table_walk launched (K10 not), decoded within the bound, the encode timed on both
      routes; one field's device program (device-busy and host-issued time,
      host waits, its K9b, K11 and K12 calls bit for bit, K10 on K9b's
      masks, its launches by name, and every device operation from its
@@ -161,7 +164,8 @@ and how it was timed (``plain_timed``), bound and library time; the last line is
 The K12 entry also holds its time at the sparse transfer's shape and its
 launches on that path (``sparse``); sched_virtual's the two cube launches
 together (``fused``: the K5 + K6 function), sched_table's its times on the
-2D fields (``2d``) and its launches in phase 10 (``launches_2d``); each walk
+edge chunk and 2D fields (``edge``, ``2d``), its plan, launches per call
+and per-launch times and its launches in phase 10 (``launches_2d``); each walk
 kernel's its launches per call (``launches_per_call``), walk_rows's (the
 whole walk) its tier-1 time (``tier1``), the radix sort's its launches in
 phases 9 and 10 (``launches_table``, ``launches_2d``) and its LSD floor
@@ -937,9 +941,9 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
     for name in ("quantize", "dwt2d_full", "idwt2d_full", "emit_planes", "masked_pack",
-                 "compact_flags_rows", "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk",
-                 "iset_max"):
+                 "compact_flags_rows", "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
+    _check("iset_max" not in launches, "the 2D wave batch counts I-set launches apart from its schedule's")
     _check(launches["transpose_bits32"] == 0, "K10 was launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
     _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
@@ -989,12 +993,15 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     # every device operation from the schedule's first kernel to K11's last is
     # one of the repo's kernels or a memset
     ours = _our_kernels(kernels)
-    names = _device_names(prog, 2)
-    _check("table_msb" in names and "pack_tile_kernel" in names, f"the program's trace: {names}")
-    i0 = max(i for i, nm in enumerate(names) if nm == "table_msb")  # the second call's schedule
+    names = _device_names(prog, 2, ("table_subtrees", "pack_tile_kernel"))
+    _check("table_subtrees" in names and "pack_tile_kernel" in names, f"the program's trace: {names}")
+    starts = [i for i, nm in enumerate(names) if nm == "table_subtrees"]
+    i0 = starts[len(starts) // 2]  # the second call's schedule
     i1 = max(i for i, nm in enumerate(names) if nm.startswith("pack_"))
     window = names[i0:i1 + 1]
-    for nm in ("node_passes_kernel", "iset_max_kernel", "table_anchors", "table_rows", "emit_planes_kernel"):
+    _check(per_call.get("sched_table", 0) <= 3 and window[:2] == ["table_subtrees", "table_pixels"],
+           f"the 2D program's schedule: {per_call.get('sched_table')} launches, {window[:8]}")
+    for nm in ("table_pixels", "node_passes_kernel", "table_anchors", "table_rows", "emit_planes_kernel"):
         _check(nm in window, f"{nm} is missing from the second call's trace: {window}")
     foreign = sorted({nm for nm in window if nm not in ours})
     _check(not foreign, f"the 2D program ran torch ops between its schedule and K11: {foreign}")
@@ -1063,7 +1070,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     l8 = {k: v for k, v in kernels.launches.items() if v}
     _check(got == want, f"{ny8}x{nx8} pwe: the wave stream differs from the host one")
     _check(w8.last_wave_chunks == 1, f"{ny8}x{nx8}: the field did not stay on the device")
-    for name in ("sched_table", "node_passes", "iset_max", "table_anchors", "table_walk", "radix_sort",
+    for name in ("sched_table", "node_passes", "table_anchors", "table_walk", "radix_sort",
                  "emit_planes", "masked_pack"):
         _check(l8.get(name, 0) > 0, f"{ny8}x{nx8}: {name} was not launched")
     rs8 = [_rank_state(kernels, speck_lis, li8, c.views) for k, (_, c) in st8.calls.items()
@@ -1087,7 +1094,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_planes", "node_passes", "table_anchors",
-                                     "table_walk", "iset_max")}
+                                     "table_walk")}
 
 
 def _cli(tool: str, *args: str) -> str:
@@ -1631,19 +1638,27 @@ def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     all-zero 256^3 chunk, a 256^3 chunk with a 2^31 - 1 magnitude, 16^3 and
     2^3 cubes; each launch alone (the pyramid levels it writes), the fused
     entry point and a given num_bp; the child-table form (sched_table) on a
-    Hurricane ISABEL packet chunk (100, 256, 256), a 1024^2 and a 1800 x
-    3600 field (with pm, as the 2D route takes it); the pyramid form
+    Hurricane ISABEL packet chunk (100, 256, 256) and edge chunk (100, 244,
+    244), a 1024^2 and a 1800 x 3600 field, alone and (2D) with the I-set
+    passes against iset_significance_ref, its launches per call (at most
+    3), each shape again with its leaf table widened to int64, and a
+    70000 x 16 random field (a plan of one cut; more rows than a grid's
+    65535, so the pixel pass's blocks take several); the pyramid form
     (sched_pyramid) on the dyadic (97, 128, 118) chunk.  Each kernel timed
-    on the device and as the host issues it, beside its plain version and
-    its bound.  Returns each kernel's row of the result line."""
+    on the device and as the host issues it (sched_table in its routes'
+    form: no pm, the I-set passes on a 2D field; per launch by the
+    profiler), beside its plain version and its bound.  Returns each
+    kernel's row of the result line."""
     import numpy as np
     import torch
 
+    from sperr_tpu_torch.codec.speck_wave import build_tree2
     from sperr_tpu_torch.ops import cdf97
     from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.ops import speck_lis2 as sl2
     from sperr_tpu_torch.ops import speck_virtual as sv
     from sperr_tpu_torch.parallel import batched as tb
-    from sperr_tpu_torch.runtime.device_bench import time_ms
+    from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(13)
@@ -1730,43 +1745,89 @@ def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
                                       "plain_timed": fused_plain[1], "bound_ms": _bound_ms(fused_bytes)}
     del cubes, big, pm8, M
 
-    # -- the child-table form: a packet chunk, a 1024^2 and a 1800 x 3600 field ----------------
-    def tab_bytes(ti, n_, with_pm):
-        # mags, the child rows, bounds and parents read; num_bp, s, e, nm written, and pm where the
-        # route reads it (the 2D route's iset_significance_device; the 3D route drops it)
-        return (4 * n_ + 4 * ti.ch_src.numel() + 4 * ti.ch_bounds.numel() + 4 * n_ + 4 + 8 * n_
-                + 4 * ti.nn + (4 * n_ if with_pm else 0))
+    # -- the child-table form: the Hurricane packet and edge chunks, a 1024^2 and a 1800 x 3600 field ----
+    def tab_bytes(ti, n_, xf=None):
+        # what this design must move: mags, the parents and the child rows and row starts of every node
+        # but the leaves read, each leaf's box from the leaf table (not its rows); num_bp, s, e, nm
+        # written, and iset_s on a 2D field (the routes take no pm)
+        lo = ti.plan.depth_lo[-2]
+        inner_rows = int(ti.ch_bounds[lo])
+        return (4 * n_ + 4 * n_ + 4 * inner_rows + 4 * (lo + 1) + ti.plan.leaf.element_size() * (ti.nn - lo)
+                + 4 + 8 * n_ + 4 * ti.nn + (0 if xf is None else 4 * (xf + 1)))
 
+    def wide(ti, m, regions):
+        # the same call with the leaf table widened to int64 (a field with boxes past pixel 2^28)
+        return kernels.sched_table(m, ti.ch_src, ti.ch_bounds, ti.px_parent32,
+                                   ti.plan._replace(leaf=ti.plan.leaf.to(torch.int64)), ti.grid, regions)
+
+    tall = rng.integers(0, 1 << 20, 16 * 70000) * (rng.random(16 * 70000) < 0.3)
     tables = [("Hurricane packet chunk (100, 256, 256)", (256, 256, 100), front(vol512[:100, :256, :256])),
+              ("Hurricane edge chunk (100, 244, 244)", (244, 244, 100), front(vol512[:100, :244, :244])),
               ("1024^2 field", (1024, 1024), front(_turbulence_like(1024, 1024, 0), True)),
-              ("1800x3600 field", (3600, 1800), front(_turbulence_like(1800, 3600, 16), True))]
+              ("1800x3600 field", (3600, 1800), front(_turbulence_like(1800, 3600, 16), True)),
+              ("70000x16 random field", (16, 70000), torch.from_numpy(tall.astype(np.int32)).to(dev))]
     table_times = {}
     for label, dims, m in tables:
-        with_pm = len(dims) == 2
         t0 = time.perf_counter()
         ti = spk.tree_index(dims, dev)
         build = time.perf_counter() - t0
         pm = sv.msbp1_device(m)
         nbm = pm.max()
-        want = (nbm, pm) + spk.pixel_schedule_ref(m, ti, nbm)
-        kernels.reset_launch_counts()
-        got = spk.schedule_table(m, ti)
-        per_call = kernels.launches["sched_table"]
-        equal("sched_table", got, want, label)
+        want = (nbm,) + spk.pixel_schedule_ref(m, ti, nbm)
+        regions = None
+        if len(dims) == 2:
+            tree = build_tree2(dims)
+            regions = tree.iset_regions[: tree.xf + 1]
+            want = want + (sl2.iset_significance_ref(pm.reshape(dims[1], dims[0]), tree, nbm),)
+        per_call = []
+        for form, kw in (("alone", {}), ("with the I-set passes", dict(iset_regions=regions))):
+            if regions is None and kw:
+                continue
+            before = kernels.launches["sched_table"]
+            got = spk.schedule_table(m, ti, **kw)
+            per_call.append(kernels.launches["sched_table"] - before)
+            equal("sched_table", got, want[:len(got)], f"{label}, {form}")
+            _check(len(got) == 4 + len(kw), f"sched_table {form} returned {len(got)} outputs on {label}")
+        equal("sched_table", wide(ti, m, regions), want, f"{label}, int64 leaf table")
+        _check(max(per_call) <= 3 and min(per_call) == 2,
+               f"sched_table made {per_call} launches per call on {label} (two expected, at most 3)")
+        if label.startswith("70000"):
+            _check(len(ti.plan.cuts) == 1 and dims[1] > 65535,
+                   f"the 70000 x 16 field's plan is {ti.plan.cuts} (one cut expected)")
+            print(f"[kernels] sched_table, {label} (cuts {ti.plan.cuts}, {ti.grid[0]} rows): equal to the plain "
+                  "version bit for bit (num_bp, s, e, nm, iset_s), alone, with the I-set passes and with the int64 "
+                  "leaf table")
+            continue
+        # the route's own form: on a 2D field the I-set passes with the schedule
+        kw = {} if regions is None else dict(iset_regions=regions)
+        nbytes = tab_bytes(ti, m.numel(), None if regions is None else len(regions) - 1)
         r = table_times[label] = {
-            "ms": time_ms(lambda: spk.schedule_table(m, ti), 10, "device")[0],
-            "host_ms": time_ms(lambda: spk.schedule_table(m, ti), 10, "host-issued")[0],
-            "bound_ms": _bound_ms(tab_bytes(ti, m.numel(), with_pm)), "launches_per_call": per_call,
+            "ms": time_ms(lambda: spk.schedule_table(m, ti, **kw), 10, "device")[0],
+            "host_ms": time_ms(lambda: spk.schedule_table(m, ti, **kw), 10, "host-issued")[0],
+            "bound_ms": _bound_ms(nbytes), "bytes": nbytes, "launches_per_call": per_call[-1],
+            "cuts": list(ti.plan.cuts), "blocks": [int(t.shape[2]) - 1 for t in ti.plan.sub],
+            "smem": ti.plan.smem,
         }
-        r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_ref(m, ti, nbm), 3)
-        print(f"[kernels] sched_table, {label} {dims} (index {build:.3f} s, {ti.nn} nodes, {len(ti.depths)} "
-              f"depths, {per_call} launches per call): equal to the plain version bit for bit (num_bp "
-              f"{int(nbm)}, pm, s, e, nm); kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host issues "
-              f"it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms "
-              f"({tab_bytes(ti, m.numel(), with_pm)} bytes, pm {'counted' if with_pm else 'not counted'}), "
-              f"share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
-    rows["sched_table"] = dict(table_times[tables[0][0]], **{"2d": {k: v for k, v in table_times.items()
-                                                                     if k != tables[0][0]}})
+        if regions is None:
+            r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_ref(m, ti, nbm), 3)
+        else:
+            r["plain_ms"], r["plain_timed"] = time_ms(lambda: (
+                spk.pixel_schedule_ref(m, ti, nbm), sl2.iset_significance_ref(pm.reshape(dims[1], dims[0]), tree,
+                                                                               nbm)), 3)
+        _, per_name = busy_ms(lambda: spk.schedule_table(m, ti, **kw), 5)
+        r["per_launch"] = {_kernel_name(k): v for k, v in per_name.items()}
+        print(f"[kernels] sched_table, {label} {dims} (index {build:.3f} s, {ti.nn} nodes, {len(ti.plan.depth_lo) - 1} "
+              f"depths; cuts {ti.plan.cuts}, {r['blocks']} blocks and groups, {ti.plan.smem} shared bytes; launches "
+              f"per call {per_call} alone, with the I-set passes): equal to the plain version bit for bit (num_bp "
+              f"{int(nbm)}, s, e, nm" + (", iset_s" if regions is not None else "")
+              + f"; also with the int64 leaf table); the route's form {r['ms']:.4f} ms ({r['host_ms']:.4f} as the "
+              f"host issues it; per launch " + ", ".join(f"{k} {v:.4f}" for k, v in r["per_launch"].items())
+              + f"), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms ({nbytes} "
+              "bytes: the leaves' boxes, not their rows" + (", iset_s" if regions is not None else "")
+              + f"), share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    rows["sched_table"] = dict(table_times[tables[0][0]], **{"edge": table_times[tables[1][0]],
+                                                             "2d": {k: v for k, v in table_times.items()
+                                                                    if k not in (tables[0][0], tables[1][0])}})
     del tables
 
     # -- the pyramid form: the dyadic chunk ---------------------------------------------------
@@ -1914,7 +1975,7 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     nt_ = dims_t[0] * dims_t[1] * dims_t[2]
     ti, li_t = spk.tree_index(dims_t, dev), sl.lis_index(dims_t, dev)
     mt = torch.from_numpy((rng.integers(0, 1 << 16, nt_) * (rng.random(nt_) < 0.3)).astype(np.int32)).to(dev)
-    nbt, _, st, _, nmt = spk.schedule_table(mt, ti)
+    nbt, st, _, nmt = spk.schedule_table(mt, ti)
     node_st = torch.where(nmt > 0, nbt - nmt, 0x7FFF).to(torch.int32)
     # the plain walks' lexsorts (the walks themselves run walk_table.cu's kernels
     # and sort their packed keys, held in _table_walk_kernels)
@@ -1924,8 +1985,9 @@ def _walk_kernels(kernels, smi: str, dev, vol512) -> dict:
     fr2 = tb._dense_encode_rows(torch.from_numpy(field[None]).to(dev), "pwe", 1e-2, "dual", cdf97.dwt2d,
                                 cdf97.idwt2d)
     ti2, li2 = spk.tree_index((256, 256), dev), sl2.lis2_index((256, 256), dev)
-    nb2, pm2, s2, _, nm2 = spk.schedule_table(fr2["mags"][0].reshape(-1).contiguous(), ti2)
-    iset2 = sl2.iset_significance_device(pm2.reshape(256, 256), sw.build_tree2((256, 256)), nb2)
+    tree2 = sw.build_tree2((256, 256))
+    nb2, s2, _, nm2, iset2 = spk.schedule_table(fr2["mags"][0].reshape(-1).contiguous(), ti2,
+                                                iset_regions=tree2.iset_regions[: tree2.xf + 1])
     with _capture(sl, ["lexsort"]) as l2a, _capture(sl2, ["lexsort"]) as l2b:
         sl2._lis2_items_ref(spk.node_passes(nm2, nb2), s2, fr2["signs"][0].reshape(-1).contiguous(), nb2, iset2,
                             li2, li2.nn)
@@ -2063,24 +2125,31 @@ def _our_kernels(kernels) -> set:
     return names
 
 
-def _device_names(fn, calls: int = 1) -> list:
+def _device_names(fn, calls: int = 1, need=()) -> list:
     """The device operations of ``calls`` calls of fn, in order, by
     torch.profiler after a warm-up: their kernel names (``_kernel_name``).
     A trace can miss its first operations (seen on an H100): read the last
-    call's."""
+    call's.  It can also lose some or all of them (seen on an H100, as
+    busy_ms notes): a trace with no device operation, or without one of
+    the kernel names ``need``, is taken again, twice at most, and the last
+    one returned (the caller checks it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    return [_kernel_name(e.name) for e in evs]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        names = [_kernel_name(e.name) for e in evs]
+        if names and all(k in names for k in need):
+            break
+    return names
 
 
 def _sorts_and_scans(kernels, names) -> list:
@@ -2138,9 +2207,8 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     ``table_anchors_ref``, alone and inside the walk), the whole walk
     (``_table_items_cuda`` against ``_lis_items_table_ref`` or
     ``_lis2_items_ref``: payload words, padding included, and n_sig) and
-    every radix sort it ran (against torch.sort(stable=True)), and
-    ``iset_max`` (against ``iset_significance_ref``); the 2D walk's LIS
-    planes through K9b and K11 against the plain event form (buffer, counts,
+    every radix sort it ran (against torch.sort(stable=True)); the 2D walk's
+    LIS planes through K9b and K11 against the plain event form (buffer, counts,
     total and n_sig; at the tier-0 caps, an event cap of 700 and a byte cap
     of 100).  Inputs: a Hurricane ISABEL packet chunk (100, 256, 256) at
     tiers 0 and 1 and at a node cap of nn / 20, its all-zero, one-pixel and
@@ -2167,7 +2235,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     from sperr_tpu_torch.runtime.device_bench import busy_ms, time_ms
 
     t_phase = time.perf_counter()
-    names = ("node_passes", "table_anchors", "table_walk", "iset_max")
+    names = ("node_passes", "table_anchors", "table_walk")
     err = {k: 0 for k in names}
     nsorts = 0
     big = 2**31 - 1
@@ -2290,12 +2358,10 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         if label in ("1024^2 field", "1800x3600 field"):
             builds[label] = _static_build(sl, li, time.perf_counter() - t0)
         tree = build_tree2((nx, ny))
-        nb, pm, s, _, nm = spk.schedule_table(m, ti)
+        # the I-set passes come with the schedule (phase 3's _sched_kernels holds them)
+        nb, s, _, nm, iset = spk.schedule_table(m, ti, iset_regions=tree.iset_regions[: tree.xf + 1])
         ns = spk.node_passes(nm, nb)
         equal("node_passes", (ns,), (spk.node_passes_ref(nm, nb),), label)
-        pm2 = pm.reshape(ny, nx)
-        iset = sl2.iset_significance_device(pm2, tree, nb)
-        equal("iset_max", (iset,), (sl2.iset_significance_ref(pm2, tree, nb),), label)
         want_anc = sl.table_anchors_ref(ns, li, iset)
         equal("table_anchors", sl.table_anchors(ns, li, iset), want_anc, label)
         equal("table_anchors", sl.table_anchors(ns, li, iset, cap_bits=16), want_anc,
@@ -2332,9 +2398,6 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
             timing["K14 1024^2"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
                                         plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
                                         li=li, n=n, T=got[0].numel(), cap=li.nn)
-            timing["iset_max"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
-                                      plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
-                                      bytes=4 * n + 4 * (tree.xf + 1) + 4)
             timing["anchors K14 1024^2"] = dict(fn=lambda a=(ns, li, iset): sl.table_anchors(*a),
                                                 plain=lambda a=(ns, li, iset): sl.table_anchors_ref(*a),
                                                 li=li, ns=ns, iset=iset)
@@ -2342,9 +2405,6 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
             timing["K14 1800x3600"] = dict(fn=lambda a=(ns, s, sg, li, li.nn, iset, nb): sl._table_items_cuda(*a),
                                            plain=lambda a=(ns, s, sg, nb, iset, li, li.nn): sl2._lis2_items_ref(*a),
                                            li=li, n=n, T=got[0].numel(), cap=li.nn)
-            timing["iset_max 1800x3600"] = dict(fn=lambda a=(pm2, tree, nb): sl2.iset_significance_device(*a),
-                                                plain=lambda a=(pm2, tree, nb): sl2.iset_significance_ref(*a),
-                                                bytes=4 * n + 4 * (tree.xf + 1) + 4)
         if label == "3600x7200 field":
             timing["anchors K14 3600x7200"] = dict(fn=lambda a=(ns, li, iset): sl.table_anchors(*a),
                                                    plain=lambda a=(ns, li, iset): sl.table_anchors_ref(*a),
@@ -2353,7 +2413,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
               f"key bits, none sorted, their keys spanning {rs['used_bits']} bits (widest "
               f"{rs['widest_used_bits']}; the plan's widest region {rs['widest_region_bits']} bits; gated "
               f"{rs['gated']}, none overflowed); path ranks {st.path_values} values ({st.pb} bits), static tables "
-              f"{st.path_bytes} bytes (8 nn + 4 n = {8 * li.nn + 4 * li.n}); node_passes, iset_max, "
+              f"{st.path_bytes} bytes (8 nn + 4 n = {8 * li.nn + 4 * li.n}); node_passes, "
               f"table_anchors (also with the levels past 16 bits gated, and every larger level gated to "
               f"sorting) and the walk's payload words (also gated) equal to the plain versions bit for bit; the LIS "
               f"segments through K9b and K11 equal to the event form at {', '.join(fits) or 'no cap'}, n_sig "
@@ -2452,7 +2512,6 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
         "table_walk": dict(pick(rows["K15 tier 0"]), **{"tier1": pick(rows["K15 tier 1"]),
                                                          "2d": pick(rows["K14 1024^2"]),
                                                          "2d_1800x3600": pick(rows["K14 1800x3600"])}),
-        "iset_max": dict(pick(rows["iset_max"]), **{"1800x3600": pick(rows["iset_max 1800x3600"])}),
     }
     out["table_walk"]["host_builds"] = builds
     for name in names:
@@ -2473,20 +2532,9 @@ _K9_VIEW = ("exp_idx", "exp_ll", "n_exp", "overflow")
 def _tail_launches(fn):
     """The device operations between the set walk's last kernel (a radix
     sort pass or the payload gather) and K11's first (its count) in one
-    call of fn, after a warm-up, by torch.profiler: (their names, the walk's
-    last kernel)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    names = [_kernel_name(e.name) for e in evs]
+    call of fn, after a warm-up, by torch.profiler (``_device_names``):
+    (their names, the walk's last kernel)."""
+    names = _device_names(fn, 1, ("pack_count_kernel",))
     _check("pack_count_kernel" in names, "no K11 count kernel in the emission's trace")
     i1 = names.index("pack_count_kernel")
     walk = [i for i in range(i1) if names[i].startswith(("radix_", "gather_kernel"))]
@@ -3298,7 +3346,7 @@ def main() -> int:
                  "compact_flags_rows", "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks",
                  "walk_rows", "radix_sort", "node_passes"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
-    for name in ("table_anchors", "table_walk", "iset_max", "emit_planes"):
+    for name in ("table_anchors", "table_walk", "sched_table", "emit_planes"):
         _check(launches_w[name] == 0, f"{name} was launched on the cube form's wave path")
     # each emission of a cube chunk: K9's two launches, K11's three; K10
     # only inside K9
@@ -3513,6 +3561,10 @@ def main() -> int:
                      r["bound_ms"], None))
         plain_timed[name] = r["plain_timed"]
     sched["sched_table"]["launches_2d"] = launches_tab["sched_table_2d"]
+    # since the I-set passes are its pixel pass's, sched_table also replaces
+    # the 2D iset_significance_device
+    sched["sched_table"]["also_replaces"] = ["sperr_tpu/ops/speck_jax.py:98",
+                                             "sperr_tpu/ops/speck_lis2_jax.py:134"]
     # the walk kernels: launches in phase 6's timed wave encode; the radix
     # sort's also in phase 9 (the table walk) and phase 10 (the 2D walk)
     for name in ("walk_vtab", "anchor_ranks", "walk_rows", "radix_sort"):
@@ -3542,13 +3594,12 @@ def main() -> int:
     emit["emit_planes"]["launches_cube_path"] = launches_w["emit_planes"]
     # the table and 2D walks' kernels: launches in phase 9's timed wave encode
     # (node_passes also runs on the cube form's path, phase 6), and in phase 10's
-    # first timed 2D encode in "launches_2d" (iset_max: only there)
+    # first timed 2D encode in "launches_2d"
     for name, where in (("node_passes", "sperr_tpu/parallel/batched.py:490"),
                         ("table_anchors", "sperr_tpu/ops/speck_lis_jax.py:375"),
-                        ("table_walk", "sperr_tpu/ops/speck_lis_jax.py:375"),
-                        ("iset_max", "sperr_tpu/ops/speck_lis2_jax.py:134")):
+                        ("table_walk", "sperr_tpu/ops/speck_lis_jax.py:375")):
         r = twalk[name]
-        nl = launches_2d[name] if name == "iset_max" else launches_tab[name]
+        nl = launches_tab[name]
         rows.append((name, "walk_table.cu", where, nl, r["max_abs_err"], r["ms"], r["host_ms"], r["plain_ms"],
                      r["bound_ms"], r["library_ms"]))
         plain_timed[name] = r["plain_timed"]
@@ -3565,7 +3616,9 @@ def main() -> int:
          "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {}),
          **({"per_launch": k13["per_launch"], "one_chunk": k13_one, "repeats": k13["repeats"]}
             if name == "reconstruct_mags" else {}),
-         **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "launches_2d")} if name in sched
+         **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "edge", "launches_2d", "also_replaces",
+                                                            "launches_per_call", "cuts", "blocks", "per_launch")}
+            if name in sched
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
                                                            "launches_2d", "lsd_floor_ms")} if name in walk else {}),

@@ -1,5 +1,6 @@
-"""Time this checkout's K9 stage, K13 and the K15 and K14 walks beside the
-parent commit's, in one process on one card.
+"""Time this checkout's K9 stage, K13, the K15 and K14 walks and the
+child-table schedule beside the parent commit's, in one process on one
+card.
 
     mkdir -p _checkout/parent
     git archive <parent> sperr_tpu_torch | tar -x -C _checkout/parent
@@ -26,7 +27,18 @@ are timed by torch.profiler:
   the Hurricane ISABEL packet chunk (100, 256, 256) cut from that volume, at
   the node caps of tiers 0 and 1, and the K14 walk (the 2D index) on one
   1024^2 Turbulence1024-like field (``chip_smoke._turbulence_like``, seed
-  0), each index built by its own package.
+  0), each index built by its own package;
+- the child-table schedule (``ops.speck.schedule_table``, each package's
+  index) on that packet chunk as the 3D route calls it (the parent's with
+  pm, which the route dropped; the new one without), and on that 1024^2
+  field and a 1800 x 3600 one (seed 16) as the 2D route calls it: the
+  parent's schedule and then its ``iset_significance_device`` on pm,
+  against the new schedule with the I-set passes and no pm; compared on
+  num_bp, s, e, nm (and iset_s);
+- one 1024^2 field's whole 2D device program at tier 0 (each package's
+  ``parallel.batched2d._wave_emit_field`` on its own index and caps, as
+  the wave encode runs it), device-busy and host-issued, compared on
+  every output.
 
 The card's name and power limit end every line of times.  Exits non-zero
 without a CUDA device or when a pair differs.
@@ -43,7 +55,8 @@ import time
 
 
 def _load_parent(parent_dir: str):
-    """The parent's kernels, ops.wave_pack and ops.wave_unpack modules,
+    """The parent's kernels, ops (wave_pack, wave_unpack, speck_lis,
+    speck_lis2, speck_virtual, speck) and parallel.batched2d modules,
     imported from parent_dir as the package ``sperr_parent``, its kernels
     built."""
     root = os.path.join(os.path.abspath(parent_dir), "sperr_tpu_torch")
@@ -56,7 +69,7 @@ def _load_parent(parent_dir: str):
     spec.loader.exec_module(mod)
     mods = [importlib.import_module(f"sperr_parent.{m}")
             for m in ("kernels", "ops.wave_pack", "ops.wave_unpack", "ops.speck_lis", "ops.speck_lis2",
-                      "ops.speck_virtual")]
+                      "ops.speck_virtual", "ops.speck", "parallel.batched2d")]
     t0 = time.perf_counter()
     mods[0].build()
     print(f"[parent] the parent's kernels built from {parent_dir} in {time.perf_counter() - t0:.1f} s")
@@ -74,17 +87,17 @@ def _turns(fns, how: str, calls: int = 20):
     return out
 
 
-def _compare(cs, label: str, fns, smi: str, dev_how: str = "device") -> None:
-    """fns: {"parent": fn, "new": fn}, equal outputs; their turns and each
-    one's launches (device ms per launch over 20 calls).  ``dev_how``: the
-    device-side method ("device-busy" for calls of more launches than the
-    timer's sleep kernel covers, the walks)."""
+def _compare(cs, label: str, fns, smi: str, dev_how: str = "device", calls: int = 20) -> None:
+    """fns: {"parent": fn, "new": fn}, equal outputs; their turns (``calls``
+    calls a time) and each one's launches (device ms per launch over 20
+    calls).  ``dev_how``: the device-side method ("device-busy" for calls of
+    more launches than the timer's sleep kernel covers, the walks)."""
     import torch
 
     a, b = (cs._flat(f()) for f in fns.values())
     cs._check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
               f"the parent's {label} differs from the new one")
-    dev_t, host_t = _turns(fns, dev_how), _turns(fns, "host-issued")
+    dev_t, host_t = _turns(fns, dev_how, calls), _turns(fns, "host-issued", calls)
     per = {k: cs._kernel_means(f, "", 20) for k, f in fns.items()}
     print(f"[compare] {label}: equal; {dev_how} ms (parent, new, new, parent) {dev_t['parent'][0]:.4f}, "
           f"{dev_t['new'][0]:.4f}, {dev_t['new'][1]:.4f}, {dev_t['parent'][1]:.4f}; host-issued "
@@ -120,7 +133,7 @@ def main(argv) -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     dev = torch.device("cuda", 0)
     kernels.load()
-    pk, pwp, _, psl, psl2, psv = _load_parent(argv[0])
+    pk, pwp, _, psl, psl2, psv, pspk, pb2 = _load_parent(argv[0])
     vol = smooth_field_3d(512, seed=7)
     d256 = (256, 256, 256)
     n = 256**3
@@ -175,6 +188,13 @@ def main(argv) -> int:
     m, sg = f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
     li, si = tb._wave_index(dims_h, dev)
     pli = psl.lis_index(dims_h, dev)
+    # the child-table schedule as the 3D route calls it
+    psi = pspk.tree_index(dims_h, dev)
+    _compare(cs, f"sched_table, Hurricane packet chunk (100, 256, 256) (cuts {si.plan.cuts})", {
+        "parent": lambda: (lambda r: r[:1] + r[2:])(pspk.schedule_table(m, psi)),
+        "new": lambda: spk.schedule_table(m, si),
+    }, smi, calls=10)
+    del psi
     nb, s, _, nm = tb._schedule(m, si)
     ns = spk.node_passes(nm, nb)
     tiers = tb.wave_tiers_for(256 * 256 * 100)
@@ -189,14 +209,48 @@ def main(argv) -> int:
     x = torch.from_numpy(cs._turbulence_like(ny, nx, 0)[None]).to(dev)
     f = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d)
     m, sg = f["mags"][0].reshape(-1).contiguous(), f["signs"][0].reshape(-1).contiguous()
-    nb, pm, s, _, nm = spk.schedule_table(m, spk.tree_index((nx, ny), dev))
+    tree = build_tree2((nx, ny))
+    nb, s, _, nm, iset = spk.schedule_table(m, spk.tree_index((nx, ny), dev),
+                                            iset_regions=tree.iset_regions[: tree.xf + 1])
     ns = spk.node_passes(nm, nb)
-    iset = sl2.iset_significance_device(pm.reshape(ny, nx), build_tree2((nx, ny)), nb)
     li2, pli2 = sl2.lis2_index((nx, ny), dev), psl2.lis2_index((nx, ny), dev)
     _compare(cs, "K14 walk, 1024^2 field", {
         "parent": lambda: psl._table_items_cuda(ns, s, sg, pli2, pli2.nn, iset, nb),
         "new": lambda: sl._table_items_cuda(ns, s, sg, li2, li2.nn, iset, nb),
     }, smi, "device-busy")
+
+    # the child-table schedule as the 2D route calls it: the parent's schedule, then its I-set launch on pm;
+    # the new schedule with the I-set passes
+    for label, (fy, fx, seed), mm in (("1024^2 field", (ny, nx, 0), m), ("1800x3600 field", (1800, 3600, 16), None)):
+        if mm is None:
+            x = torch.from_numpy(cs._turbulence_like(fy, fx, seed)[None]).to(dev)
+            mm = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d)["mags"][0]
+            mm = mm.reshape(-1).contiguous()
+        tree = build_tree2((fx, fy))
+        ti, pti = spk.tree_index((fx, fy), dev), pspk.tree_index((fx, fy), dev)
+        regions = tree.iset_regions[: tree.xf + 1]
+
+        def parent(mm=mm, pti=pti, tree=tree, fy=fy, fx=fx):
+            r = pspk.schedule_table(mm, pti)
+            return r[:1] + r[2:] + (psl2.iset_significance_device(r[1].reshape(fy, fx), tree, r[0]),)
+
+        def new(mm=mm, ti=ti, regions=regions):
+            return spk.schedule_table(mm, ti, iset_regions=regions)
+
+        _compare(cs, f"sched_table with the I-set passes, {label} (cuts {ti.plan.cuts})",
+                 {"parent": parent, "new": new}, smi, calls=10)
+    # one 1024^2 field's whole 2D program at tier 0, each package's on its own index and caps
+    from sperr_tpu_torch.parallel import batched2d as tb2
+
+    comp = tb2.TorchCompressor2D((nx, ny), device=dev, entropy="wave")
+    ev_cap = max(4096, int(comp.wave_event_tiers[0] * nx * ny))
+    progs = {}
+    for key, mod in (("parent", pb2), ("new", tb2)):
+        index = mod._wave_index2((nx, ny), dev)
+        caps = mod._wave_caps2(nx * ny, comp.num_bp_cap, index[1].nn, ev_cap)
+        progs[key] = (lambda mod=mod, index=index, caps=caps: (
+            lambda r: [r[k] for k in sorted(r)])(mod._wave_emit_field(m, sg, index, caps, comp.num_bp_cap)))
+    _compare(cs, "2D field program (_wave_emit_field), 1024^2 field, tier 0", progs, smi, "device-busy")
     print(f"[compare] done -- {smi}")
     return 0
 

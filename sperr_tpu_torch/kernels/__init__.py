@@ -59,7 +59,7 @@ launches = {
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
     "emit_stage": 0, "emit_planes": 0,
-    "table_anchors": 0, "table_walk": 0, "iset_max": 0, "node_passes": 0,
+    "table_anchors": 0, "table_walk": 0, "node_passes": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
 build_log = ""
@@ -173,9 +173,7 @@ def load(device=None) -> ct.CDLL:
                 ("sperr_reconstruct_mags", [vp, vp, ll, vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, vp]),
                 ("sperr_sched_boxmax", [vp, vp, vp, vp, ct.c_int, vp]),
                 ("sperr_sched_virtual", [vp, vp, vp, vp, ct.c_int, vp, vp, vp, ct.c_int, ll, vp]),
-                ("sperr_sched_table", [
-                    vp, ll, vp, vp, ct.POINTER(ll), ct.c_int, vp, vp, vp, vp, vp, vp, vp,
-                ]),
+                ("sperr_sched_table", [ct.POINTER(SchedTable), vp]),
                 ("sperr_sched_pyramid", [
                     vp, ll, vp, ct.c_int, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, ll, vp, vp,
                     vp, vp, vp,
@@ -212,7 +210,6 @@ def load(device=None) -> ct.CDLL:
                 ("sperr_rank_keys", [vp, ll, vp, vp, vp, vp, vp]),
                 ("sperr_rank_sorted", [vp, ll, vp, vp, vp, ll, vp, vp]),
                 ("sperr_node_passes", [vp, vp, ll, vp, vp]),
-                ("sperr_iset_max", [vp, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp]),
             ):
                 fn = getattr(lib, name)
                 fn.restype = ct.c_int
@@ -824,46 +821,120 @@ def sched_virtual(pm8: torch.Tensor, M: torch.Tensor, num_bp: torch.Tensor, segs
     return s, e, nm
 
 
-@functools.lru_cache(maxsize=256)
-def _depth_array(depths: Tuple[Tuple[int, int], ...]):
-    flat = [v for lo_hi in depths for v in lo_hi]
-    return (ct.c_longlong * max(1, len(flat)))(*flat)
+SCHED_MAX_DEPTH = 32  # depths of a child-table schedule's tree (kMaxDepth)
+SCHED_MAX_CHILDREN = 8  # child rows of one of its nodes (kMaxChildren)
+SCHED_MAX_GROUPS = 32  # upper groups one block of its deep cut reaches (kMaxGroups)
+SCHED_NODE_MARK = 64  # a staged row at or past it is a node child (kNodeMark)
+SCHED_PIX_TILE = 1024  # pixels a block of its pixel pass takes from one row (kPixTile)
+SCHED_ZERO_WORDS = 19  # zeroed int32 words it takes before the groups' counters (kZeroWords)
+ISET_MAX_LEVELS = 16  # I levels of a 2D field (kMaxIset)
 
 
-def sched_table(mags: torch.Tensor, ch_src: torch.Tensor, ch_bounds: torch.Tensor,
-                depths: Tuple[Tuple[int, int], ...], px_parent: torch.Tensor):
-    """The child-table schedule: mags (n,) int32; ch_src (rows,) int32, each
-    child row's pixel (its linear index) or node (-(id + 1)); ch_bounds
-    (nn + 1,) int32, node k's rows ch_bounds[k] .. ch_bounds[k+1]-1;
-    depths, node ranges (lo, hi) deepest first that cover 0 .. nn-1;
-    px_parent (n,) int32 -> (num_bp () int32, pm, s, e (n,) int32, nm
-    (nn,) int32).  2 + len(depths) launches."""
-    for t, what in ((mags, "mags"), (ch_src, "ch_src"), (ch_bounds, "ch_bounds"),
-                    (px_parent, "px_parent")):
-        _require_cuda(t, torch.int32, what)
+class SchedTable(ct.Structure):
+    """kernels/schedule.cu's SchedTable, field for field."""
+
+    _fields_ = [(f, ct.c_void_p) for f in ("mags", "ch_src", "ch_bounds", "px_parent")] + [
+        ("sub", ct.c_void_p * 2)] + [(f, ct.c_void_p) for f in ("links", "leaf", "nm", "num_bp", "s", "e", "iset_s",
+                                                                "zw")] + [
+        ("n", ct.c_longlong), ("levels", ct.c_int)] + [(f, ct.c_int * 2) for f in ("cut", "nblk", "nsub")] + [
+        (f, ct.c_int) for f in ("smem", "nroots", "ny", "nx", "xf", "depth", "row", "plane", "leaf64")] + [
+        ("depth_lo", ct.c_int * (SCHED_MAX_DEPTH + 1)), ("ax", ct.c_int * (ISET_MAX_LEVELS + 1)),
+        ("ay", ct.c_int * (ISET_MAX_LEVELS + 1))]
+
+
+class SubtreePlan(NamedTuple):
+    """The static plan of a child-table schedule (ops/speck.py
+    ``subtree_plan``): ``cuts``, its cut depths (one, or two with the
+    second shallower: its groups' subtrees end where the first cut's
+    begin); ``depth_lo``, the first node id of each depth and nn;
+    ``nroots``; ``smem``, a block's dynamic shared bytes; ``sub``, per cut
+    a (2, nsub, nblk + 1) int32 tensor on the device: at depth cut + j, the
+    first node and the first child row of each block's (or group's) run of
+    the cut's nodes, the ends last; ``links`` (two cuts), int32 on the
+    device: each block's first and last group, then each group's blocks;
+    ``leaf``, on the device, each node of the deepest depth (a box of at
+    most 2 x 2 x 2 pixels): its first pixel's linear index << 3 | its sides
+    - 1 (x, y << 1, z << 2), int32, or int64 where a box starts at or past
+    pixel 2^28; ``strides``, a pixel's y and z strides."""
+
+    cuts: Tuple[int, ...]
+    depth_lo: Tuple[int, ...]
+    nroots: int
+    smem: int
+    sub: Tuple[torch.Tensor, ...]
+    links: Optional[torch.Tensor]
+    leaf: torch.Tensor
+    strides: Tuple[int, int]
+
+
+def _aligned(words: int) -> int:
+    return -(-int(words) // 32) * 32
+
+
+def sched_table(mags: torch.Tensor, ch_src: torch.Tensor, ch_bounds: torch.Tensor, px_parent: torch.Tensor,
+                plan: SubtreePlan, grid: Optional[Tuple[int, int]] = None, regions=None):
+    """The child-table schedule: mags (n,) int32; ch_src (rows,) int32,
+    each child row's pixel (its linear index) or node (-(id + 1));
+    ch_bounds (nn + 1,) int32, node k's rows ch_bounds[k] ..
+    ch_bounds[k+1]-1; px_parent (n,) int32; the plan; grid (ny, nx), the
+    pixels' rows (default (1, n)); ``regions`` [(ax_k, ay_k) for k = 0 ..
+    xf], a 2D field's I levels (level k's region: every pixel with y >= ay_k
+    or x >= ax_k) -> (num_bp () int32, s, e (n,) int32, nm (nn,) int32),
+    and iset_s (xf + 1,) int32 after them with ``regions``: NEVER at 0 and
+    for a region with no significant pixel, else num_bp - its maximum.  Two
+    launches (the subtrees, the pixel pass); no fill, and no pm."""
+    L = len(plan.cuts)
+    for t, what in ((mags, "mags"), (ch_src, "ch_src"), (ch_bounds, "ch_bounds"), (px_parent, "px_parent"),
+                    (plan.leaf, "plan.leaf"), *((sub, "plan.sub") for sub in plan.sub),
+                    *(((plan.links, "plan.links"),) if L == 2 else ())):
+        _require_cuda(t, torch.int64 if t is plan.leaf and t.dtype == torch.int64 else torch.int32, what)
         if t.device != mags.device:
             raise ValueError(f"{what} is on {t.device}, mags on {mags.device}")
     n, nn = mags.numel(), ch_bounds.numel() - 1
-    if mags.dim() != 1 or n == 0 or px_parent.shape != (n,) or nn < 1:
-        raise ValueError(f"mags and px_parent must be (n > 0,), ch_bounds (nn + 1 > 1,); got "
-                         f"{tuple(mags.shape)}, {tuple(px_parent.shape)}, {tuple(ch_bounds.shape)}")
-    depths = tuple((int(lo), int(hi)) for lo, hi in depths)
+    ny, nx = (1, n) if grid is None else (int(grid[0]), int(grid[1]))
+    if mags.dim() != 1 or n == 0 or px_parent.shape != (n,) or nn < 1 or ny * nx != n:
+        raise ValueError(f"mags and px_parent must be (n > 0,) = grid, ch_bounds (nn + 1 > 1,); got "
+                         f"{tuple(mags.shape)}, {tuple(px_parent.shape)}, {tuple(ch_bounds.shape)}, grid {grid}")
+    if (not 1 <= L <= 2 or len(plan.sub) != L
+            or any(sub.dim() != 3 or sub.shape[0] != 2 or sub.shape[2] < 2 for sub in plan.sub)
+            or not 2 <= len(plan.depth_lo) <= SCHED_MAX_DEPTH + 1 or plan.depth_lo[-1] != nn
+            or plan.leaf.shape != (nn - plan.depth_lo[-2],)
+            or (L == 2 and plan.links.shape != (2 * (plan.sub[0].shape[2] - 1) + plan.sub[1].shape[2] - 1,))):
+        raise ValueError(f"a plan of one or two cuts over at most {SCHED_MAX_DEPTH} depths of the {nn} nodes; "
+                         f"got cuts {plan.cuts}, depth starts {plan.depth_lo}")
+    xf = -1 if regions is None else len(regions) - 1
+    if regions is not None and not 0 <= xf <= ISET_MAX_LEVELS:
+        raise ValueError(f"0 to {ISET_MAX_LEVELS} I levels; got {xf}")
     dev = mags.device
-    num_bp = torch.zeros((), dtype=torch.int32, device=dev)
-    pm = torch.empty(n, dtype=torch.int32, device=dev)
-    s = torch.empty(n, dtype=torch.int32, device=dev)
-    e = torch.empty(n, dtype=torch.int32, device=dev)
-    nm = torch.empty(nn, dtype=torch.int32, device=dev)
+    # one allocation: s, e, nm, num_bp, then iset_s where asked (each 128-byte aligned)
+    sizes = [n, n, nn, 1] + ([xf + 1] if regions is not None else [])
+    offs = np.cumsum([0] + [_aligned(w) for w in sizes])
+    buf = torch.empty(int(offs[-1]), dtype=torch.int32, device=dev)
+    parts = [buf[int(o):int(o) + w] for o, w in zip(offs, sizes)]
+    s, e, nm, num_bp = parts[:4]
+    iset_s = parts[-1] if regions is not None else None
+    a = SchedTable(
+        mags=mags.data_ptr(), ch_src=ch_src.data_ptr(), ch_bounds=ch_bounds.data_ptr(),
+        px_parent=px_parent.data_ptr(), links=plan.links.data_ptr() if L == 2 else None, nm=nm.data_ptr(),
+        num_bp=num_bp.data_ptr(), s=s.data_ptr(), e=e.data_ptr(),
+        iset_s=None if iset_s is None else iset_s.data_ptr(), n=n, levels=L, smem=plan.smem, nroots=plan.nroots,
+        ny=ny, nx=nx, xf=max(xf, 0), leaf=plan.leaf.data_ptr(), depth=len(plan.depth_lo) - 1,
+        row=plan.strides[0], plane=plan.strides[1], leaf64=int(plan.leaf.dtype == torch.int64))
+    for v, (cut, sub) in enumerate(zip(plan.cuts, plan.sub)):
+        a.sub[v] = sub.data_ptr()
+        a.cut[v], a.nsub[v], a.nblk[v] = cut, sub.shape[1], sub.shape[2] - 1
+    a.depth_lo[:len(plan.depth_lo)] = plan.depth_lo
+    for k in range(1, xf + 1):
+        a.ax[k], a.ay[k] = int(regions[k][0]), int(regions[k][1])
+    words = SCHED_ZERO_WORDS + (a.nblk[1] if L == 2 else 0)
     lib = load(dev)
-    with _on_device(mags):
-        err = lib.sperr_sched_table(
-            mags.data_ptr(), n, ch_src.data_ptr(), ch_bounds.data_ptr(), _depth_array(depths),
-            len(depths), px_parent.data_ptr(), num_bp.data_ptr(), pm.data_ptr(), nm.data_ptr(),
-            s.data_ptr(), e.data_ptr(), _stream(mags),
-        )
-    _check(lib, err, "sched_table")
-    _count("sched_table", 2 + len(depths))
-    return num_bp, pm, s, e, nm
+    with _on_device(mags), _zeroed(dev, -(-words // 2)) as zw:
+        a.zw = zw.data_ptr()
+        err = lib.sperr_sched_table(ct.byref(a), _stream(mags))
+        _check(lib, err, "sched_table")
+    _count("sched_table", 2)
+    out = (num_bp.reshape(()), s, e, nm)
+    return out if regions is None else out + (iset_s,)
 
 
 def sched_pyramid(mags: torch.Tensor, deep_idx: torch.Tensor, levels: int,
@@ -1468,7 +1539,6 @@ def emit_planes(kind: str, fields, num_bp: torch.Tensor, P: int, items: int):
 # ---------------------------------------------------------------------------
 TABLE_MAX_LEVELS = 30  # tree levels the walk takes (kMaxLevels - 2: the 2D class codes)
 TABLE_MAX_CHILDREN = 8  # child slots of a node (kMaxChildren)
-ISET_MAX_LEVELS = 16  # I levels of a 2D field (kMaxIset)
 RANK_U_WORDS = 128  # words of a level's hop-word bitmap (kUWords in rank.cuh)
 RANK_ULAY = 8  # int32 words per level of a u-rank layout (kULay)
 RANK_STATE = 8  # int32 state words per level (kStInts)
@@ -1610,29 +1680,3 @@ def node_passes(nm: torch.Tensor, num_bp: torch.Tensor) -> torch.Tensor:
     _check(lib, err, "node_passes")
     _count("node_passes")
     return node_s
-
-
-def iset_max(pm: torch.Tensor, regions, num_bp: torch.Tensor) -> torch.Tensor:
-    """The 2D walk's I-set passes: pm (ny, nx) int32 msb+1 map, regions
-    [(ax_k, ay_k) for k = 0 .. xf] (level k's region: every pixel past the
-    corner, y >= ay_k or x >= ax_k), num_bp (one int32) -> iset_s (xf + 1,)
-    int32: NEVER at 0 and for a region with no significant pixel, else
-    num_bp - its maximum.  One launch."""
-    _require_cuda(pm, torch.int32, "pm")
-    if pm.dim() != 2 or pm.numel() == 0:
-        raise ValueError(f"pm must be (ny, nx) with pixels; got {tuple(pm.shape)}")
-    xf = len(regions) - 1
-    if not 0 <= xf <= ISET_MAX_LEVELS:
-        raise ValueError(f"0 to {ISET_MAX_LEVELS} I levels; got {xf}")
-    nb = _num_bp_word(num_bp, pm.device)
-    ax = (ct.c_int * (xf + 1))(*(int(r[0]) for r in regions))
-    ay = (ct.c_int * (xf + 1))(*(int(r[1]) for r in regions))
-    scratch = torch.empty(ISET_MAX_LEVELS + 2, dtype=torch.int32, device=pm.device)
-    iset_s = torch.empty(xf + 1, dtype=torch.int32, device=pm.device)
-    lib = load(pm.device)
-    with _on_device(pm):
-        err = lib.sperr_iset_max(pm.data_ptr(), pm.shape[0], pm.shape[1], xf, ax, ay, nb.data_ptr(),
-                                 scratch.data_ptr(), iset_s.data_ptr(), _stream(pm))
-    _check(lib, err, "iset_max")
-    _count("iset_max")
-    return iset_s

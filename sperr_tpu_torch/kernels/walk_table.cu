@@ -1,20 +1,20 @@
 // The table walks of the device SPECK encoder for Hopper: K15's set walk
 // over a child table (3D chunks that are not power-of-two cubes) and K14's
-// quad/I-set walk (2D fields), with the 2D walk's I-set maxima and the node
-// passes of both.
+// quad/I-set walk (2D fields), with the node passes of both.
 //
 // Replaces the XLA programs of sperr_tpu/ops/speck_lis_jax.py
 // lis_segments_device (:375, the table form of its items) and
-// sperr_tpu/ops/speck_lis2_jax.py lis2_segments_device (:154) and
-// iset_significance_device (:134).  For a tree given by its tables (parent
+// sperr_tpu/ops/speck_lis2_jax.py lis2_segments_device (:154).  (Its
+// iset_significance_device (:134), the I-set maxima, is a part of the
+// child-table schedule's pixel pass, kernels/schedule.cu.)  For a tree given by its tables (parent
 // and level per node, the static path ranks, the packed child table) they
 // give one payload word per walk item (the born list entries, the roots or,
 // in 2D, the walk root and the I-set group heads, the child rows, and the 2D
 // walk's pending-I and group-arrival items), in walk order: sorted by (walk
 // rank, path), ties in the plain version's input order.  Every result is an
 // integer and equals the plain versions (ops/speck_lis.py
-// _lis_items_table_ref, ops/speck_lis2.py _lis2_items_ref,
-// iset_significance_ref) bit for bit, padding items included.
+// _lis_items_table_ref, ops/speck_lis2.py _lis2_items_ref) bit for bit,
+// padding items included.
 //
 // Bound: the walk reads the node passes, the child table and the pixel
 // passes it reaches once and writes one word per item; the plain version
@@ -60,11 +60,6 @@
 //   * table_rowkeys: the rows' walk keys from their anchor's walk rank (in
 //     2D the I-space block rank for a group anchor that partitions at its
 //     own birth), and the 2D walk's pending-I and arrival items.
-//   * iset_max: a grid-stride pass over the (ny, nx) msb+1 map; each thread
-//     keeps one maximum per I level in registers (a pixel lies in the level-k
-//     region when it is past the corner (ax_k, ay_k)), warp and block
-//     reductions, integer atomics, and the last block writes each level's
-//     pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,8 +73,6 @@ constexpr int kBig = 0x7FFFFFFF;
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 32;   // tree levels (per-level counts in shared memory)
 constexpr int kMaxChildren = 8;  // child slots of a node
-constexpr int kMaxIset = 16;     // I levels of a 2D field
-constexpr int kIsetBlocks = 1024;
 
 }  // namespace
 
@@ -497,59 +490,13 @@ __global__ void table_rowkeys(TableArgs a) {
   a.wkey[i] = w << a.pb;  // the I items' paths are the zero path
 }
 
-// -- the node passes and the I-set maxima ------------------------------------------
+// -- the node passes ---------------------------------------------------------------
 __global__ void node_passes_kernel(const int32_t* __restrict__ nm, const int32_t* __restrict__ num_bp,
                                    long long nn, int32_t* __restrict__ node_s) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nn) return;
   const int m = nm[i];
   node_s[i] = m > 0 ? *num_bp - m : kNever;
-}
-
-struct IsetRegions {
-  int ax[kMaxIset + 1], ay[kMaxIset + 1];
-};
-
-// gmax: xf + 1 maxima and a counter, zeroed by the caller.
-__global__ void __launch_bounds__(kThreads) iset_max_kernel(const int32_t* __restrict__ pm, int ny, int nx,
-                                                            int xf, IsetRegions reg,
-                                                            const int32_t* __restrict__ num_bp,
-                                                            int32_t* gmax, int32_t* __restrict__ iset_s) {
-  __shared__ int sm[kMaxIset + 1];
-  __shared__ bool s_last;
-  if (threadIdx.x <= kMaxIset) sm[threadIdx.x] = 0;
-  __syncthreads();
-  int m[kMaxIset + 1];
-#pragma unroll
-  for (int k = 0; k <= kMaxIset; ++k) m[k] = 0;
-  const long long n = (long long)ny * nx;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int y = (int)(i / nx), x = (int)(i - (long long)y * nx);
-    const int v = pm[i];
-#pragma unroll
-    for (int k = 1; k <= kMaxIset; ++k)
-      if (k <= xf && (y >= reg.ay[k] || x >= reg.ax[k])) m[k] = max(m[k], v);
-  }
-#pragma unroll
-  for (int k = 1; k <= kMaxIset; ++k) {
-    if (k > xf) break;
-    const int r = __reduce_max_sync(0xffffffffu, m[k]);
-    if ((threadIdx.x & 31) == 0 && r) atomicMax(&sm[k], r);
-  }
-  __syncthreads();
-  if (threadIdx.x >= 1 && threadIdx.x <= xf && sm[threadIdx.x]) atomicMax(&gmax[threadIdx.x], sm[threadIdx.x]);
-  __threadfence();
-  __syncthreads();
-  unsigned* done = reinterpret_cast<unsigned*>(gmax + kMaxIset + 1);
-  if (threadIdx.x == 0) s_last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  if (threadIdx.x <= xf) {
-    const int g = threadIdx.x == 0 ? 0 : __ldcg(&gmax[threadIdx.x]);
-    iset_s[threadIdx.x] = g > 0 ? *num_bp - g : kNever;
-  }
 }
 
 cudaError_t launch(void (*k)(TableArgs), long long count, const TableArgs* a, cudaStream_t st) {
@@ -672,24 +619,5 @@ extern "C" int sperr_node_passes(const int32_t* nm, const int32_t* num_bp, long 
                                  cudaStream_t stream) {
   if (nn < 1) return (int)cudaErrorInvalidValue;
   node_passes_kernel<<<blocks_for(nn), kThreads, 0, stream>>>(nm, num_bp, nn, node_s);
-  return (int)cudaGetLastError();
-}
-
-// iset_s[0 .. xf] from the (ny, nx) msb+1 map; ax, ay: the corners of
-// levels 1 .. xf at [1 ..]; scratch: kMaxIset + 2 int32, zeroed here.
-extern "C" int sperr_iset_max(const int32_t* pm, int ny, int nx, int xf, const int* ax, const int* ay,
-                              const int32_t* num_bp, int32_t* scratch, int32_t* iset_s, cudaStream_t stream) {
-  if (ny < 1 || nx < 1 || xf < 0 || xf > kMaxIset) return (int)cudaErrorInvalidValue;
-  IsetRegions reg = {};
-  for (int k = 1; k <= xf; ++k) {
-    reg.ax[k] = ax[k];
-    reg.ay[k] = ay[k];
-  }
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int32_t) * (kMaxIset + 2), stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)ny * nx;
-  const long long nb = (n + kThreads * 8 - 1) / (kThreads * 8);
-  iset_max_kernel<<<(unsigned)(nb < kIsetBlocks ? nb : kIsetBlocks), kThreads, 0, stream>>>(
-      pm, ny, nx, xf, reg, num_bp, scratch, iset_s);
   return (int)cudaGetLastError();
 }

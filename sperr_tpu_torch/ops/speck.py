@@ -20,13 +20,15 @@ The indices are static per dims: their host tables come from the partition
 tree (codec/speck_wave.py) and, for the pyramid form, ops/pyramid.py; their
 device tensors are made once per (dims, device) and cached.  Integer results
 equal the JAX package's bit for bit.  ``schedule_table`` and
-``schedule_pyramid`` (num_bp with the schedule, and pm for the table form)
-run the hand kernels of kernels/schedule.cu (``sched_table``,
-``sched_pyramid``) on a CUDA tensor and their plain versions
-(``pixel_schedule_ref``, ``pixel_schedule_pyramid_ref``) on a CPU tensor;
-``pixel_schedule`` and ``pixel_schedule_pyramid``, which take a given
-num_bp, are those plain versions and take CPU tensors only.  The rest of
-the module runs as torch ops on the tensors' device.
+``schedule_pyramid`` (num_bp with the schedule; for the table form pm where
+asked and, on a 2D field, the I-set passes of
+speck_lis2.iset_significance_device where asked) run the hand kernels of
+kernels/schedule.cu (``sched_table``, ``sched_pyramid``) on a CUDA tensor
+and their plain versions (``pixel_schedule_ref`` with
+speck_lis2.iset_significance_ref, ``pixel_schedule_pyramid_ref``) on a CPU
+tensor; ``pixel_schedule`` and ``pixel_schedule_pyramid``, which take a
+given num_bp, are those plain versions and take CPU tensors only.  The rest
+of the module runs as torch ops on the tensors' device.
 """
 
 from __future__ import annotations
@@ -65,17 +67,193 @@ def _pixel_parent(tree) -> np.ndarray:
     return par
 
 
+SCHED_SMEM = 48 * 1024  # shared bytes a block of sched_table may stage (no opt-in needed)
+SCHED_ROWS = 4096  # child rows a run of cut nodes, a block of sched_table's subtree launch, takes at most
+SCHED_CUT_ROWS = 12288  # child rows of one cut node's subtree at most, by default (the leaves' unstaged)
+SCHED_TOP_ROWS = 512  # child rows above the top cut, which one block reduces, by default
+SCHED_MIN_ROWS = 1024  # child rows a block is filled to, where the launch has enough of them
+SCHED_BLOCKS = 1056  # blocks a launch aims at: 8 of 256 threads on each of the H100's 132 SMs
+SCHED_LEAF32 = 1 << 28  # boxes that start below this pixel fit the int32 leaf table (else int64)
+
+
+def _groups(rows: np.ndarray, target: int) -> np.ndarray:
+    """Runs of consecutive cut nodes, each of at most ``target`` rows (or
+    one node): the index of each run's first node, then len(rows)."""
+    starts, acc = [0], 0
+    for i, r in enumerate(rows.tolist()):
+        if acc and acc + r > target:
+            starts.append(i)
+            acc = 0
+        acc += r
+    return np.asarray(starts + [rows.size], dtype=np.int64)
+
+
+def subtree_plan(tree, cuts=None):
+    """The child-table schedule's static plan for ``tree`` (a partition tree
+    of codec/speck_wave.py): (cuts, depth_lo, nroots, smem, sub, links,
+    leaf), as kernels.SubtreePlan holds them, ``sub`` numpy (2, nsub, nblk
+    + 1) int32 arrays, ``links`` an int32 array or None and ``leaf`` the
+    deepest depth's boxes (int32, or int64 where a box starts at or past
+    pixel SCHED_LEAF32; raises ValueError where one is not a box of at most
+    2 x 2 x 2 pixels).
+
+    The kernel's premise, checked here: the depths tile the node ids in
+    order, and the node children, row by row, are the nodes past the roots
+    in id order.  So each depth is ordered by parent, and the descendants
+    of a run of consecutive nodes at any deeper depth are one id range and
+    their child rows one row range.  A block takes a run of the first cut's
+    nodes, down to the leaves; a group (with two cuts) a run of the second
+    cut's nodes, down to the first cut: ``sub[v][0, j]`` holds each block's
+    or group's first descendant id at depth cuts[v] + j (its end the next
+    one's first), ``sub[v][1, j]`` their first child row.  Runs are cut
+    greedily to at most max(SCHED_MIN_ROWS, the cut's rows / SCHED_BLOCKS)
+    rows, at most SCHED_ROWS (or one node).  ``links``: each block's first
+    and last group (the groups whose first-cut descendants it holds; a
+    group without any, the block where they would start), then each
+    group's blocks.  A block stages its rows (2 bytes each) and each node's
+    first row (2 bytes) but the leaves', and every node's maximum (1 byte),
+    in shared memory, and so do a group and the depths above the top cut,
+    which the last block reduces; ``smem`` is the most of them.
+
+    ``cuts`` (deepest first): the shallowest depth whose nodes' subtrees
+    hold at most SCHED_CUT_ROWS rows each, and, where more than
+    SCHED_TOP_ROWS rows lie above it, the deepest depth with at most that
+    many above (the deepest whose groups fit); or the given ones.  Raises
+    ValueError where the premise fails or a block would not fit
+    SCHED_SMEM."""
+    ranges = list(tree.node_depth_ranges)
+    nn = int(tree.node_ch_start.size)
+    D = len(ranges)
+    counts = np.asarray(tree.node_ch_count, dtype=np.int64)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    if [lo for lo, _ in ranges] != [0] + [hi for _, hi in ranges[:-1]] or ranges[-1][1] != nn:
+        raise ValueError(f"the depth ranges of {tree.dims} do not tile the nodes in order")
+    if D > kernels.SCHED_MAX_DEPTH or counts.max() > kernels.SCHED_MAX_CHILDREN:
+        raise ValueError(f"{D} depths and up to {counts.max()} child rows a node in the tree of {tree.dims}; the "
+                         f"schedule takes {kernels.SCHED_MAX_DEPTH} and {kernels.SCHED_MAX_CHILDREN}")
+    nroots = int(ranges[0][1])
+    is_node = ~np.asarray(tree.ch_is_pixel, dtype=bool)
+    if not np.array_equal(np.asarray(tree.ch_ref)[is_node], np.arange(nroots, nn)):
+        raise ValueError(f"a depth of {tree.dims} is not ordered by parent: the node children, row by row, "
+                         "are not the nodes past the roots in id order")
+    # first child id of each node (nn + 1 entries): the roots plus the node rows before its rows
+    first = nroots + np.concatenate([[0], np.cumsum(is_node)])[bounds]
+    depth_lo = [lo for lo, _ in ranges] + [nn]
+    for d in range(D):
+        if first[depth_lo[d]] != depth_lo[min(d + 1, D)] or first[depth_lo[d + 1]] != depth_lo[min(d + 2, D)]:
+            raise ValueError(f"depth {d} of {tree.dims} has node children outside depth {d + 1}")
+
+    # the deepest depth's nodes: boxes of at most 2 x 2 x 2 pixels, each its first pixel << 3 | sides - 1
+    nx, ny = int(tree.dims[0]), int(tree.dims[1])
+    lo = depth_lo[D - 1]
+    rows = np.arange(bounds[lo], bounds[nn])
+    if not np.asarray(tree.ch_is_pixel)[rows].all():
+        raise ValueError(f"the deepest depth of {tree.dims} has node children")
+    px = np.asarray(tree.px_linear)[np.asarray(tree.ch_ref)[rows]].astype(np.int64)
+    starts = bounds[lo:nn] - bounds[lo]
+    corner = np.minimum.reduceat(px, starts)
+    sides, box = [], corner << 3
+    for k, coord in enumerate((px % nx, px // nx % ny, px // (nx * ny))):
+        side = np.maximum.reduceat(coord, starts) - np.minimum.reduceat(coord, starts) + 1
+        if (side > 2).any():
+            raise ValueError(f"a node of the deepest depth of {tree.dims} is wider than 2 pixels")
+        sides.append(side)
+        box |= (side - 1) << k
+    if (sides[0] * sides[1] * sides[2] != counts[lo:nn]).any():
+        raise ValueError(f"the deepest depth of {tree.dims} is not a set of boxes")
+    leaf = box.astype(np.int32 if int(corner.max(initial=0)) < SCHED_LEAF32 else np.int64)
+
+    def subtrees(c, stop):
+        """Each depth-c node's descendants at depths c .. stop: their first
+        ids and first rows (2, stop - c + 1, nodes + 1); the last depth's
+        rows are not the subtrees'."""
+        tn = [np.arange(depth_lo[c], depth_lo[c + 1] + 1, dtype=np.int64)]
+        for _ in range(c + 1, stop + 1):
+            tn.append(first[tn[-1]])
+        tn = np.stack(tn)
+        return np.stack([tn, bounds[tn]])
+
+    def plan_at(cuts):
+        """The plan at the given cuts; ValueError where it does not fit."""
+
+        def need(nodes, rows):
+            return 2 * rows + 2 * (nodes + 1) + nodes
+
+        if not 1 <= len(cuts) <= 2 or not 0 <= cuts[-1] or cuts[0] >= D or list(cuts) != sorted(set(cuts))[::-1]:
+            raise ValueError(f"one or two cut depths, deepest first, within 0 .. {D - 1}; got {cuts}")
+        subs, nbytes, firsts = [], [], []
+        for v, c in enumerate(cuts):
+            stop = cuts[v - 1] if v else D
+            per = subtrees(c, min(stop, D - 1))
+            node_rows = np.diff(per[1, : stop - c], axis=1).sum(axis=0)
+            target = min(SCHED_ROWS, max(SCHED_MIN_ROWS, -(-int(node_rows.sum()) // SCHED_BLOCKS)))
+            cols = _groups(node_rows, target)
+            sub = per[:, : stop - c][:, :, cols]
+            firsts.append(per[0, -1, cols])  # each run's first descendant at the depth below it
+            nodes, rows = np.diff(sub[0], axis=1).sum(axis=0), np.diff(sub[1], axis=1).sum(axis=0)
+            staged_nodes, staged_rows = nodes, rows
+            if v == 0:  # the leaves' rows and row starts are not staged
+                staged_nodes, staged_rows = nodes - np.diff(sub[0, -1]), rows - np.diff(sub[1, -1])
+            nbytes.append(int((2 * staged_rows + 2 * (staged_nodes + 1) + nodes).max()))
+            subs.append(sub.astype(np.int32))
+        top = cuts[-1]
+        nbytes.append(need(depth_lo[top], int(bounds[depth_lo[top]])) if top else 0)
+        links = None
+        if len(cuts) == 2:
+            # the blocks' first nodes, and the groups' first descendants at the first cut
+            starts, gfirst = subs[0][0, 0, :-1].astype(np.int64), firsts[1]
+            nblk, ngrp = starts.size, gfirst.size - 1
+            glo, ghi = np.full(nblk, ngrp, np.int64), np.full(nblk, -1, np.int64)
+            for g in range(ngrp):
+                lo, hi = int(gfirst[g]), int(gfirst[g + 1])
+                b0 = min(int(np.searchsorted(starts, lo, "right")) - 1, nblk - 1)
+                b1 = int(np.searchsorted(starts, hi - 1, "right")) - 1 if hi > lo else b0
+                glo[b0:b1 + 1] = np.minimum(glo[b0:b1 + 1], g)
+                ghi[b0:b1 + 1] = np.maximum(ghi[b0:b1 + 1], g)
+            if (ghi < glo).any() or (ghi - glo + 1).max() > kernels.SCHED_MAX_GROUPS:
+                raise ValueError(f"the cuts {cuts} of {tree.dims} leave a block reaching no group or more than "
+                                 f"{kernels.SCHED_MAX_GROUPS}")
+            per_group = np.zeros(ngrp, np.int64)
+            for b in range(nblk):
+                per_group[glo[b]:ghi[b] + 1] += 1
+            links = np.concatenate([glo, ghi, per_group]).astype(np.int32)
+        smem = max(nbytes)
+        big_rows = max(int(np.diff(sb[1], axis=1).sum(axis=0).max()) for sb in subs)
+        big_nodes = max(int(np.diff(sb[0], axis=1).sum(axis=0).max()) for sb in subs)
+        if (smem > SCHED_SMEM or max(big_rows, int(bounds[depth_lo[top]])) >= 1 << 16
+                or max(big_nodes, depth_lo[top]) + kernels.SCHED_NODE_MARK >= 1 << 16):
+            raise ValueError(f"the cuts {cuts} of {tree.dims} need {smem} bytes of shared memory in a block; at "
+                             f"most {SCHED_SMEM}")
+        return cuts, tuple(int(v) for v in depth_lo), nroots, -(-smem // 16) * 16, tuple(subs), links, leaf
+
+    if cuts is None:
+        # the deepest cut whose subtrees fit a block; a second, shallower one where the depths above
+        # hold too many rows for the last block, the deepest such that reaches few enough groups
+        c2 = next(c for c in range(D) if np.diff(subtrees(c, D - 1)[1], axis=1).sum(axis=0).max() <= SCHED_CUT_ROWS)
+        tries = [(c2,)] if bounds[depth_lo[c2]] <= SCHED_TOP_ROWS else \
+            [(c2, c) for c in range(c2 - 1, -1, -1) if bounds[depth_lo[c]] <= SCHED_TOP_ROWS] + [(c2,)]
+    else:
+        tries = [tuple(int(c) for c in cuts)]
+    for k, cuts in enumerate(tries):
+        try:
+            return plan_at(cuts)
+        except ValueError:
+            if k + 1 == len(tries):
+                raise
+
+
 class TreeIndex:
     """Static device tensors of the child-table schedule: per depth (deepest
     first) the child rows' value sources and parent rows, and each pixel's
     parent node; and the int32 tables of the kernel: each child row's source
     (a pixel's linear index, or -(node id + 1)), each node's first child row
-    (nn + 1 bounds), the depth ranges and each pixel's parent."""
+    (nn + 1 bounds), each pixel's parent, and the subtree plan
+    (``subtree_plan``; ``cuts`` overrides its cut depths)."""
 
     __slots__ = ("dims", "device", "n", "nn", "depth_slices", "px_parent_lin", "ch_src", "ch_bounds",
-                 "depths", "px_parent32")
+                 "px_parent32", "plan", "sub_host", "links_host", "leaf_host", "grid")
 
-    def __init__(self, dims, device):
+    def __init__(self, dims, device, cuts=None):
         dev = torch.device(device)
         key = tuple(int(d) for d in dims)
         tree = build_tree2(key) if len(key) == 2 else build_tree(key)
@@ -83,6 +261,8 @@ class TreeIndex:
         self.device = dev
         self.n = tree.n
         self.nn = tree.node_ch_start.size
+        # the pixels' rows as the pixel pass walks them: a 2D field is (ny, nx)
+        self.grid = (key[1], key[0]) if len(key) == 2 else (1, self.n)
         # per depth: child value = msbp1[px_linear[ref]] if pixel else
         # node_max[ref], reduced into the parent's row
         self.depth_slices = []
@@ -101,13 +281,14 @@ class TreeIndex:
             ))
         par = _pixel_parent(tree)
         self.px_parent_lin = _long(par, dev)
-        # the kernel's tables; the depth ranges must cover every node once
-        self.depths = tuple((int(lo), int(hi)) for lo, hi in reversed(tree.node_depth_ranges))
-        rng = sorted(self.depths)
-        if [lo for lo, _ in rng] != [0] + [hi for _, hi in rng[:-1]] or rng[-1][1] != self.nn:
-            raise ValueError(f"the depth ranges of {self.dims} do not cover the nodes")
+        # the kernels' tables
         if self.nn + tree.ch_ref.size >= 2**31:
             raise ValueError(f"the tree of {self.dims} is too large for int32 tables")
+        cuts_, depth_lo, nroots, smem, self.sub_host, self.links_host, self.leaf_host = subtree_plan(tree, cuts)
+        nx, ny = key[0], key[1]
+        self.plan = kernels.SubtreePlan(cuts_, depth_lo, nroots, smem, tuple(_int(t, dev) for t in self.sub_host),
+                                        None if self.links_host is None else _int(self.links_host, dev),
+                                        torch.as_tensor(self.leaf_host, device=dev), (nx, nx * ny))
         pix = tree.px_linear[np.where(tree.ch_is_pixel, tree.ch_ref, 0)]
         self.ch_src = _int(np.where(tree.ch_is_pixel, pix, -(tree.ch_ref + 1)), dev)
         self.ch_bounds = _int(np.append(tree.node_ch_start, tree.node_ch_start[-1] + tree.node_ch_count[-1]),
@@ -138,17 +319,41 @@ def node_max(msbp1: torch.Tensor, ti: TreeIndex) -> torch.Tensor:
     return nm
 
 
-def schedule_table(mags: torch.Tensor, ti: TreeIndex):
-    """(num_bp, pm, s, e, node maxima) of the child-table schedule (any 3D
-    dims and 2D dims), num_bp an int32 0-d tensor on the device and pm the
-    msb+1 of each pixel.  On a CUDA tensor the ``sched_table`` kernels (2 +
-    depths launches); on a CPU tensor the plain version."""
+def schedule_table(mags: torch.Tensor, ti: TreeIndex, iset_regions=None):
+    """(num_bp, s, e, node maxima) of the child-table schedule (any 3D dims
+    and 2D dims), num_bp an int32 0-d tensor on the device; pm, the msb+1
+    of each pixel, is ``msbp1_device(mags)``.  With ``iset_regions`` (a 2D
+    field's [(ax_k, ay_k) for k = 0 .. xf], the tree's ``iset_regions[: xf
+    + 1]``) iset_s follows, as speck_lis2.iset_significance_device gives
+    it.  On a CUDA tensor the ``sched_table`` kernels (two launches); on a
+    CPU tensor the plain version."""
     if _dispatch(mags, "schedule_table"):
-        return kernels.sched_table(_words32(mags).reshape(-1), ti.ch_src, ti.ch_bounds, ti.depths,
-                                   ti.px_parent32)
+        return kernels.sched_table(_words32(mags).reshape(-1), ti.ch_src, ti.ch_bounds, ti.px_parent32,
+                                   ti.plan, ti.grid, iset_regions)
     pm_ = msbp1_device(mags)
     num_bp = pm_.max()
-    return (num_bp, pm_) + pixel_schedule_ref(mags, ti, num_bp)
+    out = (num_bp,) + pixel_schedule_ref(mags, ti, num_bp)
+    if iset_regions is None:
+        return out
+    return out + (iset_maxima_ref(pm_.reshape(ti.grid), iset_regions, num_bp),)
+
+
+def iset_maxima_ref(pm2d: torch.Tensor, regions, num_bp) -> torch.Tensor:
+    """The I-set passes of a (ny, nx) msb+1 map: for k = 1 .. xf the pass at
+    which level k's region (every pixel outside the corner (ax_k, ay_k) of
+    regions[k]) turns significant, NEVER at 0 and where none is; by static
+    slices (speck_lis2.iset_significance_ref)."""
+    ny, nx = pm2d.shape
+    never = torch.full((), _NEVER, dtype=_I32, device=pm2d.device)
+    vals = [never]
+    for ax, ay in regions[1:]:
+        m = torch.zeros((), dtype=_I32, device=pm2d.device)
+        if ay < ny:
+            m = torch.maximum(m, pm2d[ay:, :].amax().to(_I32))
+        if ax < nx and ay > 0:
+            m = torch.maximum(m, pm2d[:ay, ax:].amax().to(_I32))
+        vals.append(torch.where(m > 0, num_bp - m, never).to(_I32))
+    return torch.stack(vals)
 
 
 def pixel_schedule(mags: torch.Tensor, ti: TreeIndex, num_bp) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -445,6 +650,8 @@ __all__ = [
     "pixel_schedule",
     "pixel_schedule_ref",
     "schedule_table",
+    "iset_maxima_ref",
+    "subtree_plan",
     "PyramidIndex",
     "pyramid_index",
     "pixel_schedule_pyramid",

@@ -16,9 +16,10 @@ do), or through the 3D walk's event tail (``ops/speck_lis._event_tail``,
 the plain form): they expand into events and pack into byte-aligned
 per-pass segments, byte for byte those of
 codec.speck_sorted.lis_segments_sorted_2d.  On a CUDA tensor the walk runs
-the kernels of kernels/walk_table.cu (``speck_lis._table_items_cuda``) and
-the I-set passes ``iset_max``; on a CPU tensor the plain versions
-(``_lis2_items_ref``, ``iset_significance_ref``).
+the kernels of kernels/walk_table.cu (``speck_lis._table_items_cuda``),
+and its I-set passes come with the schedule (``speck.schedule_table`` with
+``iset_regions``: the child-table schedule's pixel pass); on a CPU tensor
+the plain versions (``_lis2_items_ref``, ``iset_significance_ref``).
 
 As in the table walk, the compactions of the significant sets and of the
 born rows are K12 (ascending indices with a sentinel, as the reference's
@@ -37,8 +38,8 @@ import torch
 
 from ..codec.speck_sorted import sorted_tree
 from ..codec.speck_wave import build_tree2
-from .. import kernels
-from .packemit import _dispatch, _words32
+from . import speck as spk
+from .packemit import _dispatch
 from .speck_lis import (
     LisIndex, _bcast8, _born_rows, _chain_anchors, _event_tail, _i32, _level_counts, _pack2,
     _parent_rows, _string_ranks, _table_items_cuda, _walk_order, _walk_ranks, lexsort,
@@ -151,28 +152,20 @@ def lis2_index(dims, device) -> Lis2Index:
 def iset_significance_device(pm2d: torch.Tensor, tree, num_bp) -> torch.Tensor:
     """iset_s[k] for k = 0 .. xf from the (ny, nx) msb+1 map: the pass at
     which the level-k I region (everything outside the corner (ax_k, ay_k))
-    turns significant; index 0 is unused (NEVER).  On a CUDA tensor one
-    launch (``kernels.iset_max``); on a CPU tensor the plain version."""
+    turns significant; index 0 is unused (NEVER).  The plain version, for a
+    CPU tensor.  A CUDA tensor raises: on the card the I-set passes come
+    with the schedule (``speck.schedule_table(..., iset_regions=...)``,
+    kernels/schedule.cu's pixel pass)."""
     if _dispatch(pm2d, "iset_significance_device"):
-        return kernels.iset_max(_words32(pm2d), tree.iset_regions[: tree.xf + 1], _words32(num_bp))
+        raise ValueError("iset_significance_device takes CPU tensors; on the card call speck.schedule_table "
+                         "with iset_regions")
     return iset_significance_ref(pm2d, tree, num_bp)
 
 
 def iset_significance_ref(pm2d: torch.Tensor, tree, num_bp) -> torch.Tensor:
     """Plain ``iset_significance_device``: xf reductions over static
     slices."""
-    ny, nx = pm2d.shape
-    never = torch.full((), _NEVER, dtype=_I32, device=pm2d.device)
-    vals = [never]
-    for k in range(1, tree.xf + 1):
-        ax, ay = tree.iset_regions[k]
-        m = torch.zeros((), dtype=_I32, device=pm2d.device)
-        if ay < ny:
-            m = torch.maximum(m, pm2d[ay:, :].amax().to(_I32))
-        if ax < nx and ay > 0:
-            m = torch.maximum(m, pm2d[:ay, ax:].amax().to(_I32))
-        vals.append(torch.where(m > 0, num_bp - m, never).to(_I32))
-    return torch.stack(vals)
+    return spk.iset_maxima_ref(pm2d, tree.iset_regions[: tree.xf + 1], num_bp)
 
 
 def lis2_segments_device(node_s, s_lin, signs, num_bp, iset_s, li: Lis2Index, num_bp_cap: int,

@@ -493,8 +493,7 @@ def _schedule(mags: torch.Tensor, si):
         return svirt.schedule_virtual(mags, si)
     if isinstance(si, spk.PyramidIndex):
         return spk.schedule_pyramid(mags, si)
-    num_bp, _, s, e, nm = spk.schedule_table(mags, si)
-    return num_bp, s, e, nm
+    return spk.schedule_table(mags, si)
 
 
 def _wave_emit_chunk(mags: torch.Tensor, signs: torch.Tensor, li, caps: Dict[str, int], si=None):

@@ -108,21 +108,19 @@ def _wave_emit_field(mags: torch.Tensor, signs: torch.Tensor, index, caps: Dict[
                      num_bp_cap: int) -> Dict[str, torch.Tensor]:
     """The 2D device entropy program of one field at one tier (sperr_tpu's
     ``_dense_encode2_wave`` per field): the child-table schedule with num_bp
-    and pm (``sched_table``) -> LIP and refinement emission (K9b, K11) ->
-    node passes and I-set significance (``node_passes``, ``iset_max``) ->
-    quad/I-set walk (kernels/walk_table.cu, K12 compactions, the radix
-    sort) -> its payload words' LIS planes (K9b) packed by K11.  On a CUDA
-    tensor every launch from the schedule to K11's last is a hand kernel.
-    Every result stays on the device; ``px_over`` includes num_bp past the
-    pixel classes' bitplane cap."""
+    and the I-set passes (``sched_table``, no pm) -> LIP and refinement
+    emission (K9b, K11) -> node passes (``node_passes``) -> quad/I-set walk
+    (kernels/walk_table.cu, K12 compactions, the radix sort) -> its payload
+    words' LIS planes (K9b) packed by K11.  On a CUDA tensor every launch
+    from the schedule to K11's last is a hand kernel.  Every result stays
+    on the device; ``px_over`` includes num_bp past the pixel classes'
+    bitplane cap."""
     ti, li2, tree2 = index
-    nx, ny = tree2.dims
-    num_bp, pm, s, e, nm = spk.schedule_table(mags, ti)
+    num_bp, s, e, nm, iset_s = spk.schedule_table(mags, ti, iset_regions=tree2.iset_regions[: tree2.xf + 1])
     px, px_c, px_total, px_over = wp.wave_emit_2d_pixels(
         mags, signs, s, e, num_bp, caps["px_bp"], caps["px_evb"], caps["px_out"], caps["wexp_px"]
     )
     node_s = spk.node_passes(nm, num_bp)
-    iset_s = sl2.iset_significance_device(pm.reshape(ny, nx), tree2, num_bp)
     pay_s, n_sig = sl2.lis2_segments_device(
         node_s, s, signs, num_bp, iset_s, li2, num_bp_cap, caps["node_cap"], caps["ev_cap"],
         caps["cap_total"], return_events="items",

@@ -581,9 +581,9 @@ def wave2d_stage(nx: int = 1024, ny: int = 1024, batch: int = 4,
     outlier compaction, then each field's program ``_wave_emit_field``).
     ``program`` breaks field 0's program down, per field, as chains timed
     by one method a pair (the delta of two adjacent chains): the
-    child-table schedule (``sched_table``), the pixel classes (K9b, K11),
-    the walk's items (``node_passes``, ``iset_max``, the table walk's
-    kernels and sorts, K12) and its LIS planes packed (K9b, K11); its
+    child-table schedule with the I-set passes (``sched_table``), the
+    pixel classes (K9b, K11), the walk's items (``node_passes``, the table
+    walk's kernels and sorts, K12) and its LIS planes packed (K9b, K11); its
     ``timed`` names each delta's method.  The reference's 2D rows
     (BASELINE.md Turbulence1024: 241-881 ms/field at 0.25-4 bpp on one
     core) are the comparison."""
@@ -610,17 +610,16 @@ def wave2d_stage(nx: int = 1024, ny: int = 1024, batch: int = 4,
     P = comp.num_bp_cap
 
     def to_sched(m):
-        return spk.schedule_table(m, ti)
+        return spk.schedule_table(m, ti, iset_regions=tree2.iset_regions[: tree2.xf + 1])
 
     def to_pixels(m):
-        num_bp, pm, s, e, nm = to_sched(m)
+        num_bp, s, e, nm, iset_s = to_sched(m)
         wp.wave_emit_2d_pixels(m, signs, s, e, num_bp, caps["px_bp"], caps["px_evb"], caps["px_out"],
                                caps["wexp_px"])
-        return num_bp, pm, s, nm
+        return num_bp, iset_s, s, nm
 
     def to_walk(m):
-        num_bp, pm, s, nm = to_pixels(m)
-        iset_s = sl2.iset_significance_device(pm.reshape(ny, nx), tree2, num_bp)
+        num_bp, iset_s, s, nm = to_pixels(m)
         return num_bp, sl2.lis2_segments_device(spk.node_passes(nm, num_bp), s, signs, num_bp, iset_s, li2, P,
                                                 caps["node_cap"], caps["ev_cap"], caps["cap_total"],
                                                 return_events="items")

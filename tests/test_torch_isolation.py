@@ -402,6 +402,8 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
+    from sperr_tpu_torch.ops import speck as tspk
+
     c = torch.zeros((2, 8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.quantize(c, torch.ones(2))
@@ -437,14 +439,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.node_passes(w, w[:1])
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.iset_max(w.reshape(8, 8), [(0, 0), (4, 4)], w[:1])
+        kernels.sched_table(w, w, w[:2], w, tspk.tree_index((8, 8), "cpu").plan, (8, 8),
+                            regions=[(0, 0), (4, 4)])
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.table_anchors(kernels.TableArgs(), "cpu", w, np.zeros(0, np.int32), 0)
     assert set(kernels.launches) == {
         "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
-        "emit_stage", "emit_planes", "table_anchors", "table_walk", "iset_max", "node_passes",
+        "emit_stage", "emit_planes", "table_anchors", "table_walk", "node_passes",
     }
     assert not any(kernels.launches.values())
 

@@ -2,18 +2,23 @@
 ``schedule_virtual``, ops/speck.py ``schedule_table`` and
 ``schedule_pyramid``, the kernels of kernels/schedule.cu) against
 sperr_tpu's ``msbp1_device``, ``pixel_schedule_virtual``,
-``pixel_schedule`` and ``pixel_schedule_pyramid`` on the same integer
-inputs, on the CPU (the kernels' plain versions).  Every comparison is bit
-for bit: all results are integers.
+``pixel_schedule``, ``pixel_schedule_pyramid`` and, for 2D fields,
+``iset_significance_device`` on the same integer inputs, on the CPU (the
+kernels' plain versions).  Every comparison is bit for bit: all results
+are integers.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` phase 3 holds them
 against these plain versions there).  What can be checked here: the static
 tables they read (the cube schedule's nm segments, the child tables' int32
-rows, the pyramid's int32 copies), a numpy emulation of the cube kernels'
-index arithmetic (morton slots, the block cubes' pyramid levels, the
-segment search), and that a CPU tensor never reaches the kernel library."""
+rows and subtree plans, the pyramid's int32 copies), numpy emulations of
+the cube kernels' index arithmetic (morton slots, the block cubes' pyramid
+levels, the segment search) and of the child-table kernels (the subtree
+launches' staged rows and slots, the last block's depths above the cut,
+the pixel pass with its I-level maxima), and that a CPU tensor never
+reaches the kernel library."""
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +26,14 @@ import numpy as np
 import pytest
 import torch
 
+from sperr_tpu.codec import speck_wave as jsw
 from sperr_tpu.ops import speck_jax as sj
+from sperr_tpu.ops import speck_lis2_jax as jsl2
 from sperr_tpu.ops import speck_virtual as jsv
 from sperr_tpu_torch import kernels
+from sperr_tpu_torch.codec import speck_wave as tsw
 from sperr_tpu_torch.ops import speck as tspk
+from sperr_tpu_torch.ops import speck_lis2 as tsl2
 from sperr_tpu_torch.ops import speck_virtual as tsv
 
 _NEVER = 0x7FFF
@@ -226,8 +235,8 @@ def test_table_pyramid_2d_equal_jax(dims, form, case):
     if form == "pyramid":
         got = tspk.schedule_pyramid(mt, tspk.pyramid_index(dims, "cpu"))
     else:
-        nb, pm, *rest = tspk.schedule_table(mt, tspk.tree_index(dims, "cpu"))
-        np.testing.assert_array_equal(pm.numpy(), np.asarray(pmj), "pm")
+        nb, *rest = tspk.schedule_table(mt, tspk.tree_index(dims, "cpu"))
+        np.testing.assert_array_equal(tsv.msbp1_device(mt).numpy(), np.asarray(pmj), "pm")
         got = (nb, *rest)
     _equal(got, (nbj, *want), ("num_bp", "s", "e", "nm"))
     # a given num_bp, past the largest: every pass shifts
@@ -245,8 +254,9 @@ def test_table_int32_rows(dims):
     the plain version's per-depth slices."""
     ti = tspk.tree_index(dims, "cpu")
     assert ti.ch_bounds.numel() == ti.nn + 1 and int(ti.ch_bounds[0]) == 0
-    assert [(lo, hi) for *_, lo, hi in ti.depth_slices] == list(ti.depths)
     np.testing.assert_array_equal(ti.px_parent32.numpy(), ti.px_parent_lin.numpy())
+    lo_hi = list(zip(ti.plan.depth_lo[:-1], ti.plan.depth_lo[1:]))[::-1]  # deepest first
+    assert [(lo, hi) for *_, lo, hi in ti.depth_slices] == lo_hi
     src = ti.ch_src.numpy()
     bounds = ti.ch_bounds.numpy()
     for ispx, src_px, src_nd, parent_rows, lo, hi in ti.depth_slices:
@@ -256,6 +266,293 @@ def test_table_int32_rows(dims):
         np.testing.assert_array_equal(np.where(rows < 0, -(rows + 1), 0), np.where(ispx.numpy(), 0, src_nd.numpy()))
         np.testing.assert_array_equal(np.repeat(np.arange(hi - lo), np.diff(bounds[lo:hi + 1])),
                                       parent_rows.numpy())
+
+
+def _emulate_table_kernels(mags: np.ndarray, ti, regions=None, seed=0):
+    """kernels/schedule.cu's child-table schedule as numpy: the subtree
+    launch's blocks in a random order, each staging its rows (a pixel
+    child's msb+1 read as it is staged, a node child past gfrom from nm,
+    the others as their slot + kNodeMark) and its nodes' row starts in
+    16-bit slots, then reducing its depths deepest first (a thread per node,
+    at most kMaxChildren rows); with two cuts, each group's done counter,
+    and the block that ends last among a group's reduces the group; the
+    last block to end its units, the depths above the top cut and num_bp;
+    the pixel pass in blocks of kPixTile pixels of one row, with the I
+    levels' region maxima (the row's test uniform in a block, and the
+    column's but in the block that holds the corner's edge).  Returns
+    (num_bp, s, e, nm, iset_s or None)."""
+    rng = np.random.default_rng(seed)
+    mark, tile = kernels.SCHED_NODE_MARK, kernels.SCHED_PIX_TILE
+    cuts, depth_lo, nroots, smem, _, _, _, (row, plane) = ti.plan
+    src, bounds = ti.ch_src.numpy().astype(np.int64), ti.ch_bounds.numpy().astype(np.int64)
+    pmv = np.array([int(v).bit_length() for v in mags], np.int64)
+    nm = np.full(ti.nn, -1, np.int64)
+
+    def reduce_depths(nlo, nhi, rlo, rhi, gfrom, leaves=False):
+        nb = np.concatenate([[0], np.cumsum(np.subtract(nhi, nlo))])
+        rb = np.concatenate([[0], np.cumsum(np.subtract(rhi, rlo))])
+        nodes, rows = int(nb[-1]), int(rb[-1])
+        staged_nodes, staged_rows = (int(nb[-2]), int(rb[-2])) if leaves else (nodes, rows)
+        assert 2 * staged_rows + 2 * (staged_nodes + 1) + nodes <= smem and rows < 1 << 16
+        srow = np.empty(rows, np.int64)
+        for j in range(len(nlo)):
+            c = src[rlo[j]:rhi[j]]
+            ids = -(c + 1)
+            glob = (c < 0) & (ids >= gfrom)
+            own = (c < 0) & ~glob
+            if own.any():  # a node child staged here: the next depth's
+                assert j + 1 < len(nlo) and (ids[own] >= nlo[j + 1]).all() and (ids[own] < nhi[j + 1]).all()
+            assert (nm[ids[glob]] >= 0).all()  # written by a block that ended before
+            v = np.where(c >= 0, pmv[np.maximum(c, 0)], np.where(glob, nm[np.maximum(ids, 0)], 0))
+            if own.any():
+                v[own] = mark + nb[j + 1] + ids[own] - nlo[j + 1]
+            srow[rb[j]:rb[j + 1]] = v
+        srow_px = np.concatenate([src[rlo[j]:rhi[j]] for j in range(len(nlo))])  # the leaves' rows, checked
+        sstart = np.concatenate([rb[j] + bounds[nlo[j]:nhi[j]] - rlo[j] for j in range(len(nlo))] + [[rows]])
+        assert (sstart < 1 << 16).all() and (srow < 1 << 16).all()
+        assert (np.diff(sstart) <= kernels.SCHED_MAX_CHILDREN).all()
+        snm = np.empty(nodes, np.int64)
+        for j in range(len(nlo) - 1, -1, -1):
+            for L in range(nb[j], nb[j + 1]):
+                if leaves and j == len(nlo) - 1:  # a leaf: its box, from the leaf table
+                    box = int(ti.leaf_host[nlo[j] - depth_lo[-2] + L - nb[j]])
+                    base = box >> 3
+                    px = [base + ((k >> 2) & 1) * plane + ((k >> 1) & 1) * row + (k & 1)
+                          for k in range(8) if not k & ~box & 7]
+                    assert sorted(px) == sorted(srow_px[sstart[L]:sstart[L + 1]].tolist())
+                    snm[L] = pmv[px].max()
+                    continue
+                x = srow[sstart[L]:sstart[L + 1]]
+                snm[L] = np.where(x < mark, x, snm[np.maximum(x - mark, 0)]).max()
+            nm[nlo[j]:nhi[j]] = snm[nb[j]:nb[j + 1]]
+        return snm
+
+    def unit(sub, b, gfrom, leaves=False):
+        reduce_depths(sub[0, :, b], sub[0, :, b + 1], sub[1, :, b], sub[1, :, b + 1], gfrom, leaves)
+
+    sub0 = ti.sub_host[0]
+    nblk = sub0.shape[2] - 1
+    if len(cuts) == 2:
+        links = ti.links_host
+        ngrp = ti.sub_host[1].shape[2] - 1
+        glo, ghi, need = links[:nblk], links[nblk:2 * nblk], links[2 * nblk:]
+        assert links.size == 2 * nblk + ngrp and (ghi - glo + 1).max() <= kernels.SCHED_MAX_GROUPS
+        cnt = np.zeros(ngrp, np.int64)
+    done = 0
+    for b in rng.permutation(nblk):
+        unit(sub0, b, 1 << 62, True)
+        if len(cuts) == 1:
+            done += 1
+            continue
+        for g in range(glo[b], ghi[b] + 1):
+            cnt[g] += 1
+            if cnt[g] == need[g]:  # this block ends the group's last
+                unit(ti.sub_host[1], g, depth_lo[cuts[0]])
+                done += 1
+    assert done == (nblk if len(cuts) == 1 else ngrp)
+    top = cuts[-1]
+    if top:
+        snm = reduce_depths(depth_lo[:top], depth_lo[1:top + 1], bounds[list(depth_lo[:top])],
+                            bounds[list(depth_lo[1:top + 1])], depth_lo[top])
+        num_bp = int(snm[:nroots].max())
+    else:
+        num_bp = int(nm[:nroots].max())
+    assert (nm >= 0).all()
+
+    def sched_of(v):
+        return np.where(v > 0, num_bp - v, _NEVER)
+
+    ny, nx = ti.grid
+    px_parent = ti.px_parent32.numpy()
+    s = sched_of(pmv)
+    e = sched_of(nm[px_parent])
+    iset_s = None
+    if regions is not None:
+        g = np.zeros(len(regions), np.int64)
+        p2 = pmv.reshape(ny, nx)
+        for y in range(ny):
+            for x0 in range(0, nx, tile):
+                blk = p2[y, x0:x0 + tile]
+                xs = np.arange(x0, x0 + blk.size)
+                for k in range(1, len(regions)):
+                    ax, ay = regions[k]
+                    r = blk.max() if y >= ay or x0 >= ax else np.where(xs >= ax, blk, 0).max()
+                    g[k] = max(g[k], r)
+        iset_s = sched_of(g)
+        iset_s[0] = _NEVER
+    return num_bp, s, e, nm, iset_s
+
+
+# packet chunks (3D shapes of tests/test_torch_wave_table.py), an uneven edge
+# chunk, a dyadic chunk and 2D fields; each with the default plan and a
+# forced one of the other form (one subtree launch, or two)
+_EMU_CASES = [((64, 64, 25), None), ((64, 64, 25), (3, 1)), ((61, 61, 25), None), ((61, 64, 25), (2, 0)),
+              ((23, 16, 16), None), ((23, 16, 16), (2, 1)), ((33, 57), None), ((33, 57), (3, 1)),
+              ((40, 24), (2,)), ((64, 64), None), ((100, 70), (4, 2))]
+
+
+@pytest.mark.parametrize("dims,cuts", _EMU_CASES)
+@pytest.mark.parametrize("case", ["sparse", "single pixel", "2^31 - 1"])
+def test_table_kernels_emulated_equal_jax(dims, cuts, case):
+    """The child-table kernels' arithmetic, emulated: equal to sperr_tpu's
+    pixel_schedule (and, for a 2D field, iset_significance_device) and to
+    the plain version."""
+    n = int(np.prod(dims))
+    mags = _mags(n, case, seed=sum(dims))
+    ti = tspk.TreeIndex(dims, "cpu", cuts=cuts)
+    if cuts is not None:
+        assert ti.plan.cuts == cuts
+    regions = tsw.build_tree2(dims).iset_regions if len(dims) == 2 else None
+    got = _emulate_table_kernels(mags, ti, regions, seed=n)
+    nbj, pmj, *want = _jax_table(dims, "tree")(jnp.asarray(mags))
+    assert got[0] == int(nbj)
+    for name, a, b in zip(("s", "e", "nm"), got[1:4], want):
+        np.testing.assert_array_equal(a, np.asarray(b), name)
+    plain = tspk.schedule_table(torch.from_numpy(mags), ti, iset_regions=regions)
+    for name, a, b in zip(("num_bp", "s", "e", "nm"), plain, got):
+        np.testing.assert_array_equal(a.numpy(), b, name)
+    if regions is not None:
+        nx, ny = dims
+        tree = jsw.build_tree2(dims)
+        jset = jsl2.iset_significance_device(jnp.asarray(pmj).reshape(ny, nx), tree, nbj)
+        np.testing.assert_array_equal(got[4], np.asarray(jset), "iset_s")
+        np.testing.assert_array_equal(plain[4].numpy(), np.asarray(jset), "iset_s")
+
+
+@pytest.mark.parametrize("dims", [(61, 64, 25), (33, 57), (100, 70)])
+def test_int64_leaf_table_emulated_equal_jax(dims, monkeypatch):
+    """A field whose boxes start at or past pixel SCHED_LEAF32 takes the
+    int64 leaf table: forced here at a small size, the same boxes (the
+    kernel's leaf64 route), and the schedule equal to sperr_tpu's."""
+    n = int(np.prod(dims))
+    mags = _mags(n, "sparse", seed=n)
+    narrow = tspk.TreeIndex(dims, "cpu")
+    monkeypatch.setattr(tspk, "SCHED_LEAF32", 0)
+    ti = tspk.TreeIndex(dims, "cpu")
+    assert narrow.leaf_host.dtype == np.int32 and ti.leaf_host.dtype == np.int64
+    assert ti.plan.leaf.dtype == torch.int64
+    np.testing.assert_array_equal(ti.leaf_host, narrow.leaf_host)
+    got = _emulate_table_kernels(mags, ti, seed=1)
+    nbj, _, *want = _jax_table(dims, "tree")(jnp.asarray(mags))
+    assert got[0] == int(nbj)
+    for name, a, b in zip(("s", "e", "nm"), got[1:4], want):
+        np.testing.assert_array_equal(a, np.asarray(b), name)
+
+
+@pytest.mark.parametrize("dims", [(40, 24), (33, 57), (64, 64)] + _TREE_DIMS[:1])
+def test_schedule_table_keywords(dims):
+    """The I-set passes with the schedule: the 4-tuple unchanged, then
+    iset_s = iset_significance_ref on pm (msbp1_device); a 3D index has
+    the 4-tuple alone."""
+    n = int(np.prod(dims))
+    mt = torch.from_numpy(_mags(n, "sparse", seed=3))
+    ti = tspk.tree_index(dims, "cpu")
+    base = tspk.schedule_table(mt, ti)
+    assert len(base) == 4 and all(t.dtype == torch.int32 for t in base)
+    np.testing.assert_array_equal(base[0].numpy(), tsv.msbp1_device(mt).max().numpy())
+    if len(dims) == 2:
+        tree = tsw.build_tree2(dims)
+        nx, ny = dims
+        pm = tsv.msbp1_device(mt).reshape(ny, nx)
+        got = tspk.schedule_table(mt, ti, iset_regions=tree.iset_regions[: tree.xf + 1])
+        assert len(got) == 5
+        for a, b in zip(base, got[:4]):
+            assert torch.equal(a, b)
+        want = tsl2.iset_significance_ref(pm, tree, base[0])
+        assert got[4].dtype == torch.int32 and torch.equal(got[4], want)
+        assert torch.equal(tsl2.iset_significance_device(pm, tree, base[0]), want)
+
+
+def test_subtree_plan_raises_on_a_depth_not_ordered_by_parent():
+    """The subtree plan's premise: two node children of different parents
+    swapped at depth 1 leave the depth unordered by parent."""
+    tree = tsw.build_tree2((16, 16))
+    fake = types.SimpleNamespace(**{k: getattr(tree, k) for k in tree.__slots__})
+    ref = tree.ch_ref.copy()
+    rows = np.flatnonzero(~tree.ch_is_pixel)
+    lo, hi = tree.node_depth_ranges[1]
+    a, b = rows[(ref[rows] >= lo) & (ref[rows] < hi)][[0, -1]]  # depth 1's first and last nodes
+    ref[a], ref[b] = ref[b], ref[a]
+    fake.ch_ref = ref
+    with pytest.raises(ValueError, match="not ordered by parent"):
+        tspk.subtree_plan(fake)
+    tspk.subtree_plan(types.SimpleNamespace(**{k: getattr(tree, k) for k in tree.__slots__}))
+
+
+@pytest.mark.parametrize("dims", [(256, 256, 100), (244, 244, 100), (256, 244, 100), (1024, 1024),
+                                  (3600, 1800)])
+def test_subtree_plans_at_the_main_path_sizes(dims):
+    """The Hurricane packet and edge chunks', a 1024^2 and the 1800 x 3600
+    field's plans: at most two subtree launches, each depth's ranges tiled
+    by the blocks in order, the rows their nodes' own, every block a run of
+    whole subtrees within SCHED_ROWS rows (or one node within
+    SCHED_CUT_ROWS) and its shared bytes, the depths above the top cut
+    within SCHED_TOP_ROWS rows, and the leaves' boxes."""
+    tree = tsw.build_tree2(dims) if len(dims) == 2 else tsw.build_tree(dims)
+    cuts, depth_lo, nroots, smem, subs, links, leaf = tspk.subtree_plan(tree)
+    bounds = np.concatenate([[0], np.cumsum(tree.node_ch_count)])
+    assert 1 <= len(cuts) <= 2 and nroots == depth_lo[1] and depth_lo[-1] == tree.node_ch_start.size
+    assert bounds[depth_lo[cuts[-1]]] <= tspk.SCHED_TOP_ROWS and smem <= tspk.SCHED_SMEM
+    stops = (len(depth_lo) - 1,) + cuts[:1]
+    for c, stop, sub in zip(cuts, stops, subs):
+        assert sub.shape[:2] == (2, stop - c) and 2 <= sub.shape[2] <= depth_lo[c + 1] - depth_lo[c] + 1
+        for j in range(stop - c):
+            assert sub[0, j, 0] == depth_lo[c + j] and sub[0, j, -1] == depth_lo[c + j + 1]
+            assert (np.diff(sub[0, j]) >= 0).all()
+            np.testing.assert_array_equal(sub[1, j], bounds[sub[0, j]])
+        assert (np.diff(sub[0, 0]) > 0).all()  # each block or group at least one node of its cut
+        nodes = np.diff(sub[0], axis=1).sum(axis=0)
+        rows = np.diff(sub[1], axis=1).sum(axis=0)
+        one = np.diff(sub[0, 0]) == 1  # a block or group of one node may pass SCHED_ROWS
+        assert (rows[~one] <= tspk.SCHED_ROWS).all()
+        if c == cuts[0]:
+            assert rows.max() <= max(tspk.SCHED_ROWS, tspk.SCHED_CUT_ROWS)
+        staged_nodes, staged_rows = nodes, rows
+        if c == cuts[0]:  # the leaves' rows and row starts are not staged
+            staged_nodes, staged_rows = nodes - np.diff(sub[0, -1]), rows - np.diff(sub[1, -1])
+        assert (2 * staged_rows + 2 * staged_nodes + 2 + nodes).max() <= smem
+    # the leaves: boxes of at most 2 x 2 x 2 pixels whose sizes are their rows'
+    assert leaf.size == depth_lo[-1] - depth_lo[-2] and leaf.dtype == np.int32
+    sides = [((leaf >> k) & 1) + 1 for k in range(3)]
+    np.testing.assert_array_equal(sides[0] * sides[1] * sides[2], tree.node_ch_count[depth_lo[-2]:])
+    if len(cuts) == 2:
+        nblk, ngrp = subs[0].shape[2] - 1, subs[1].shape[2] - 1
+        glo, ghi, need = links[:nblk], links[nblk:2 * nblk], links[2 * nblk:]
+        assert links.size == 2 * nblk + ngrp and (glo <= ghi).all() and (np.diff(glo) >= 0).all()
+        assert (ghi - glo + 1).max() <= kernels.SCHED_MAX_GROUPS
+        # each group's blocks hold its descendants at the first cut, which end where the next group's begin
+        reach = np.zeros(ngrp, np.int64)
+        for b in range(nblk):
+            reach[glo[b]:ghi[b] + 1] += 1
+        np.testing.assert_array_equal(reach, need)
+        assert (need >= 1).all()
+    else:
+        assert links is None
+
+
+def test_sched_table_struct_and_constants_match_the_source():
+    """kernels.SchedTable against schedule.cu's struct, field for field,
+    and the constants the host mirrors."""
+    import ctypes
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "schedule.cu")).read()
+    body = src[src.index("struct SchedTable {"):src.index("};", src.index("struct SchedTable {"))]
+    names = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            names += [re.search(r"(\w+)(\[[^\]]*\])?\s*$", part.strip()).group(1) for part in decl.split(",")]
+    assert names == [f[0] for f in kernels.SchedTable._fields_]
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kMaxDepth"] == kernels.SCHED_MAX_DEPTH and consts["kMaxIset"] == kernels.ISET_MAX_LEVELS
+    assert consts["kNodeMark"] == kernels.SCHED_NODE_MARK and consts["kPixTile"] == kernels.SCHED_PIX_TILE
+    assert consts["kMaxChildren"] == kernels.SCHED_MAX_CHILDREN
+    assert consts["kMaxGroups"] == kernels.SCHED_MAX_GROUPS
+    assert "kZeroWords = 2 + kMaxIset + 1;" in src and kernels.SCHED_ZERO_WORDS == 2 + kernels.ISET_MAX_LEVELS + 1
+    # 14 pointers, n, levels, three pairs, nine ints, the depth starts and the corners, to 8 bytes
+    assert ctypes.sizeof(kernels.SchedTable) == -(-(14 * 8 + 8 + 4 * (1 + 6 + 9 + 33 + 34)) // 8) * 8
 
 
 def test_cpu_tensors_never_load_the_kernels(monkeypatch):
@@ -308,7 +605,7 @@ def test_schedule_kernels_registered_and_refuse_cpu_tensors():
         kernels.sched_virtual(b, torch.zeros(9, dtype=torch.uint8), w[:1],
                               torch.zeros((1, 4), dtype=torch.int32), 2, 9)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.sched_table(w, w, w[:2], ((0, 1),), w)
+        kernels.sched_table(w, w, w[:2], w, tspk.tree_index(_DIMS_2D[0], "cpu").plan)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.sched_pyramid(w, w, 3, (2, 2, 2), w, w[:9])
     assert kernels.pyramid_cells(1) == 1 and kernels.pyramid_cells(8) == sum(8**g for g in range(8))

@@ -7,7 +7,8 @@ insertion keys, the walk ranks by arithmetic, the walk keys from the static
 path ranks and both sorts as stable sorts of their one int64 key) against
 the plain versions and sperr_tpu, bit for bit; the 2D items through the
 plain K9b and K11 against sperr_tpu's event form, caps included;
-TorchCompressor2D(entropy="wave")'s streams and tiers; the I-set maxima;
+TorchCompressor2D(entropy="wave")'s streams and tiers; the I-set maxima
+(since they come with the child-table schedule, its pixel pass's blocks);
 the path ranks against the path words; the static key widths and the rank
 levels' key spans at the main path's sizes; the kernels' C structure and
 constants against their mirrors; and dispatch.  Every result is an integer
@@ -77,7 +78,8 @@ def _inputs2(nx, ny, seed, density):
     """(li, node_s, s, signs, num_bp, iset_s, pm) of a 2D field."""
     mags, sgn = _mags(nx * ny, seed, density)
     mt = torch.from_numpy(mags)
-    nb, pm, s, _, nm = tspk.schedule_table(mt, tspk.tree_index((nx, ny), "cpu"))
+    nb, s, _, nm = tspk.schedule_table(mt, tspk.tree_index((nx, ny), "cpu"))
+    pm = tsv.msbp1_device(mt)
     tree = jsw.build_tree2((nx, ny))
     iset_s = tsl2.iset_significance_device(pm.reshape(ny, nx), tree, nb)
     return (tsl2.lis2_index((nx, ny), "cpu"), tspk.node_passes(nm, nb), s, torch.from_numpy(sgn), nb,
@@ -589,7 +591,8 @@ def _event_program(mags, signs, index, caps, num_bp_cap):
     the K9b and K11 route)."""
     ti, li2, tree2 = index
     nx, ny = tree2.dims
-    num_bp, pm, s, e, nm = tspk.schedule_table(mags, ti)
+    num_bp, s, e, nm = tspk.schedule_table(mags, ti)
+    pm = tsv.msbp1_device(mags)
     px, px_c, px_total, px_over = twp.wave_emit_2d_pixels(
         mags, signs, s, e, num_bp, caps["px_bp"], caps["px_evb"], caps["px_out"], caps["wexp_px"])
     node_s = tspk.node_passes(nm, num_bp)
@@ -664,15 +667,24 @@ def test_iset_max_equals_jax(nx, ny, seed, density):
     np.testing.assert_array_equal(iset_s.numpy(), want)
     ref = tsl2.iset_significance_ref(pm.reshape(ny, nx), tree, nb)
     np.testing.assert_array_equal(ref.numpy(), want)
-    # the kernel's arithmetic: a pixel counts for level k when it is past the
-    # corner (y >= ay_k or x >= ax_k); the maxima, then num_bp - max or NEVER
+    # the schedule's pixel pass: blocks of kPixTile pixels of one row (the
+    # row's test uniform in a block); a pixel counts for level k when it is
+    # past the corner (y >= ay_k or x >= ax_k); the maxima, then num_bp - max
+    # or NEVER
+    fused = tspk.schedule_table(torch.from_numpy(_mags(nx * ny, seed, density)[0]),
+                                tspk.tree_index((nx, ny), "cpu"), iset_regions=tree.iset_regions[: tree.xf + 1])
+    np.testing.assert_array_equal(fused[4].numpy(), want)
     pmn = pm.numpy().reshape(ny, nx).astype(np.int64)
-    yy, xx = np.mgrid[0:ny, 0:nx]
-    emu = [_NEVER]
-    for k in range(1, tree.xf + 1):
-        ax, ay = tree.iset_regions[k]
-        m = int(np.where((yy >= ay) | (xx >= ax), pmn, 0).max())
-        emu.append(int(nb) - m if m > 0 else _NEVER)
+    tile = kernels.SCHED_PIX_TILE
+    g = [0] * (tree.xf + 1)
+    for y in range(ny):
+        for x0 in range(0, nx, tile):
+            blk = pmn[y, x0:x0 + tile]
+            xs = np.arange(x0, x0 + blk.size)
+            for k in range(1, tree.xf + 1):
+                ax, ay = tree.iset_regions[k]
+                g[k] = max(g[k], int(blk.max() if y >= ay or x0 >= ax else np.where(xs >= ax, blk, 0).max()))
+    emu = [_NEVER] + [int(nb) - m if m > 0 else _NEVER for m in g[1:]]
     np.testing.assert_array_equal(np.asarray(emu), want)
     assert tree.xf <= kernels.ISET_MAX_LEVELS
 
@@ -799,7 +811,8 @@ def test_hop_word_ranks_keep_every_bitmap_small(shape):
     mags = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", fwd, inv)["mags"][0].reshape(-1).contiguous()
     if two_d:
         ny, nx = shape
-        nb, pm, _, _, nm = tspk.schedule_table(mags, tspk.tree_index((nx, ny), "cpu"))
+        nb, _, _, nm = tspk.schedule_table(mags, tspk.tree_index((nx, ny), "cpu"))
+        pm = tsv.msbp1_device(mags)
         li = tsl2.lis2_index((nx, ny), "cpu")
         iset = tsl2.iset_significance_device(pm.reshape(ny, nx), jsw.build_tree2((nx, ny)), nb)
     else:
@@ -839,7 +852,8 @@ def test_table_args_fields_match_the_source():
     consts = dict((k, v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["kMaxLevels"]) - 2 == kernels.TABLE_MAX_LEVELS
     assert int(consts["kMaxChildren"]) == kernels.TABLE_MAX_CHILDREN
-    assert int(consts["kMaxIset"]) == kernels.ISET_MAX_LEVELS
+    sched = dict(re.findall(r"constexpr int (\w+) = (\d+);", _source("schedule.cu")))
+    assert int(sched["kMaxIset"]) == kernels.ISET_MAX_LEVELS
     rank = _source("rank.cuh")
     rc = dict((k, v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", rank))
     assert int(rc["kUWords"]) == kernels.RANK_U_WORDS and int(rc["kULay"]) == kernels.RANK_ULAY
@@ -853,7 +867,7 @@ def test_cpu_tensors_never_load_the_kernels(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel library")
 
     monkeypatch.setattr(kernels, "load", refuse)
-    names = ("table_anchors", "table_walk", "iset_max", "node_passes", "radix_sort", "emit_planes")
+    names = ("table_anchors", "table_walk", "sched_table", "node_passes", "radix_sort", "emit_planes")
     before = {k: kernels.launches[k] for k in names}
     li, node_s, s, sgn, nb = _inputs3((24, 24, 16), 0, 0.3)
     tsl.lis_segments_device(node_s, s, sgn, nb, li, 34, li.nn, return_events="items")
@@ -862,6 +876,7 @@ def test_cpu_tensors_never_load_the_kernels(monkeypatch):
                                            return_events="items")
     twp.wave_emit_2d_lis(pay, n_sig, nb2, 34, 10**5, 10**5)
     tsl2.iset_significance_device(pm.reshape(57, 33), jsw.build_tree2((33, 57)), nb2)
+    tspk.schedule_table(pm, tspk.tree_index((33, 57), "cpu"), iset_regions=jsw.build_tree2((33, 57)).iset_regions)
     assert {k: kernels.launches[k] for k in names} == before
 
 
@@ -878,7 +893,8 @@ def test_meta_and_cuda_less_calls_raise():
     with pytest.raises(ValueError):
         kernels.node_passes(cpu, cpu[:1])
     with pytest.raises(ValueError):
-        kernels.iset_max(cpu.reshape(8, 8), [(0, 0), (4, 4)], cpu[:1])
+        kernels.sched_table(cpu, cpu, cpu[:2], cpu, tspk.tree_index((8, 8), "cpu").plan, (8, 8),
+                            regions=[(0, 0), (4, 4)])
     with pytest.raises(ValueError):
         kernels.table_anchors(kernels.TableArgs(), "cpu", cpu, np.zeros(0, np.int32),
                               kernels.table_rank_layout(np.zeros(0, np.int32), 0))
@@ -925,8 +941,9 @@ def test_walk_buffer_cache_keeps_one_per_cap_and_device():
 
 
 def test_launch_names_are_registered():
-    for name in ("table_anchors", "table_walk", "iset_max", "node_passes"):
+    for name in ("table_anchors", "table_walk", "sched_table", "node_passes"):
         assert name in kernels.launches
+    assert "iset_max" not in kernels.launches  # the I-set passes are the schedule's pixel pass
     assert any(src.endswith("walk_table.cu") for src in kernels.SOURCES)
     assert any(h.endswith("rank.cuh") for h in kernels.HEADERS)
     kernels.reset_launch_counts()
