@@ -29,8 +29,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      passes; at most 3 launches a call) on a Hurricane packet chunk (100,
      256, 256), its edge chunk (100, 244, 244), a 1024^2 and a 1800x3600
      field, with the int64 leaf table and on a 70000 x 16 field (one cut,
-     rows past the grid's 65535), the pyramid form
-     (sched_pyramid) on the dyadic (97, 128, 118) chunk, each timed; the
+     rows past the grid's 65535), the pyramid form (sched_pyramid, two
+     launches, no memset) on the dyadic (97, 128, 118) chunk, a 244^3
+     chunk and a (65, 17, 17) chunk of unequal axis depths, each also
+     against the child-table form, each timed; the PSNR search K16
+     (psnr_q) on the inputs the PSNR fronts give it at PSNR 80 (phase 5's
+     chunk, the headline volume's 8 chunks in one call, phase 7's 16
+     fields, phase 8's field), with second rounds forced and a target f32
+     cannot reach raising on both sides; the
      walk kernels of kernels/walk.cu bit for bit: the child value table
      (walk_vtab), K7 (anchor_ranks), the whole 3D walk (walk_rows and the
      key kernels, payload words padding included) and every radix sort it
@@ -84,7 +90,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the hybrid one, must equal it element for element; each route's time
      by stage; and K13 held against its plain version on the decode's own
      input, once and in 50 repeated calls (every output of each);
-  5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk;
+  5. PSNR 80 and rate 2.0 bpp on one 256^3 chunk, the counts read around
+     each encode (K16 launched at PSNR 80 only), each stream's sha256;
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte (1,012,155 bytes) with
      every chunk on the device and K1, the lifting kernel, K9 (emit_stage,
@@ -99,7 +106,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      TorchCompressor2D and TorchDecompressor2D, checked against the host f64
      decoder, with the launch counters read around the timed encode and
      decode, as in phase 4;
-  8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0,
+  8. one 1800x3600 field (the CESM-ATM 2D shape) at PSNR 80 and rate 2.0
+     (the counts read around each encode, each stream's sha256),
      its multi-resolution decode, and the 3D multi-resolution decode of
      phase 5's stream (through the hybrid decode), each against the host f64
      decoder;
@@ -162,7 +170,11 @@ path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time
 and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
 The K12 entry also holds its time at the sparse transfer's shape and its
-launches on that path (``sparse``); sched_virtual's the two cube launches
+launches on that path (``sparse``); psnr_q's (K16) row is phase 5's chunk at
+PSNR 80, its launches phase 5's PSNR encode's (phase 8's in
+``launches_2d``), every checked input's q, chosen j, launches and host
+waits in ``cases``; sched_pyramid's the dyadic chunk, the 244^3 and
+(65, 17, 17) chunks in ``s3d_244`` and ``uneven_65x17x17``; sched_virtual's the two cube launches
 together (``fused``: the K5 + K6 function), sched_table's its times on the
 edge chunk and 2D fields (``edge``, ``2d``), its plan, launches per call
 and per-launch times and its launches in phase 10 (``launches_2d``); each walk
@@ -192,12 +204,17 @@ prints no result and exits non-zero.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -1631,6 +1648,114 @@ def _morton_pyramid_ref(pm, K: int):
     return torch.cat(grids[::-1]).to(torch.uint8)
 
 
+def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
+    """Phase 3's K16 (kernels.psnr_q, kernels/quantize.cu) bit for bit
+    against its plain version on the inputs the PSNR front gives it at PSNR
+    80 (each captured from ``_dense_encode_rows``): phase 5's 256^3 chunk,
+    the headline volume's 8 chunks in one call, phase 7's 16 x 1024^2 batch
+    and phase 8's 1800 x 3600 field; second rounds forced (one and two
+    candidates a round) on four normal(scale 100) rows of 2^20 at PSNR 105
+    and 110 (5 and 7 evaluations); the same rows at PSNR 120, which f32
+    cannot meet, raising on both sides with one message.  Each call's q and
+    chosen j per row, its launches and host waits; timed: the kernel's
+    device ms per launch (torch.profiler), host-issued ms per call, the
+    plain version; bound: one read of the coefficients a round.  Returns
+    the kernel's row of the result line."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97, quantize
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.runtime.device_bench import host_waits, time_ms
+
+    t_phase = time.perf_counter()
+    shrink = np.float32(kernels.PSNR_SHRINK)
+
+    def chosen(q0, q):
+        # each row's candidate index: q = q0 shrunk j times in f32
+        out = []
+        for a, b in zip(q0.tolist(), q.tolist()):
+            v, j = np.float32(a), 0
+            while v != np.float32(b) and j < 4096:
+                v, j = np.float32(v * shrink), j + 1
+            out.append(j)
+        return out
+
+    def front(x, fwd, inv):
+        with _capture(kernels, ["psnr_q"]) as k16:
+            tb._dense_encode_rows(x, "psnr", 80.0, "none", fwd, inv)
+        (args,) = k16["psnr_q"]
+        return args
+
+    err = 0.0
+    cases = {}
+
+    def held(label, args, candidates=kernels.PSNR_CANDIDATES, timed=False):
+        nonlocal err
+        before = kernels.launches["psnr_q"]
+        got = kernels.psnr_q(*args, candidates)
+        launches = kernels.launches["psnr_q"] - before
+        want = quantize.psnr_q_ref(*args)
+        err = max(err, float((got - want).abs().max()))
+        _check(got.dtype == want.dtype and torch.equal(got, want), f"K16 differs from its plain version on {label}")
+        j = chosen(args[1], got)
+        rounds = -(-(max(j) + 1) // candidates)
+        _check(launches == rounds, f"K16 made {launches} launches on {label} ({rounds} rounds expected)")
+        waits = host_waits(lambda: kernels.psnr_q(*args, candidates))
+        _check(waits <= rounds, f"K16 waited {waits} times for the card on {label} ({rounds} rounds)")
+        B, n = args[0].shape
+        r = cases[label] = {"q": got.tolist(), "j": j, "candidates": candidates, "launches_per_call": launches,
+                            "host_waits": waits, "bound_ms": _bound_ms(rounds * 4 * B * n + 12 * B)}
+        if timed:
+            per = _kernel_means(lambda: kernels.psnr_q(*args, candidates), "psnr_q", 10)
+            r["ms"] = sum(m for m, _ in per.values()) * launches  # its one kernel's mean launch
+            r["host_ms"] = time_ms(lambda: kernels.psnr_q(*args, candidates), 10, "host-issued")[0]
+            r["plain_ms"], r["plain_timed"] = time_ms(lambda: quantize.psnr_q_ref(*args), 5)
+        print(f"[kernels] K16 psnr_q, {label} ({B} x {n}, {candidates} candidates a round): equal to the plain "
+              f"version bit for bit; q {[f'{v:.9g}' for v in r['q'][:16]]}, j {j[:16]}; {launches} launches, "
+              f"{waits} host waits a call" + (f"; kernel {r['ms']:.4f} ms a call on the device (profiler), "
+                                              f"{r['host_ms']:.4f} as the host issues it, plain "
+                                              f"{r['plain_ms']:.4f} ({r['plain_timed']}), bound "
+                                              f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}"
+                                              if timed else "") + f" -- {smi}")
+        return got
+
+    c256 = front(torch.from_numpy(np.ascontiguousarray(vol11)[None]).to(dev), cdf97.dwt3d, cdf97.idwt3d_)
+    held("phase 5's 256^3 chunk, PSNR 80", c256, timed=True)
+    held("phase 5's 256^3 chunk, PSNR 80, one candidate a round", c256, 1)
+    del c256
+    x8 = torch.from_numpy(np.stack([vol512[z:z + 256, y:y + 256, x:x + 256]
+                                    for z in (0, 256) for y in (0, 256) for x in (0, 256)])).to(dev)
+    held("the headline volume's 8 chunks, PSNR 80", front(x8, cdf97.dwt3d, cdf97.idwt3d_), timed=True)
+    del x8
+    f16 = torch.from_numpy(np.stack([_turbulence_like(1024, 1024, seed) for seed in range(16)])).to(dev)
+    held("phase 7's 16 x 1024^2 fields, PSNR 80", front(f16, cdf97.dwt2d, cdf97.idwt2d), timed=True)
+    del f16
+    f8 = torch.from_numpy(_turbulence_like(1800, 3600, 16)[None]).to(dev)
+    held("phase 8's 1800 x 3600 field, PSNR 80", front(f8, cdf97.dwt2d, cdf97.idwt2d), timed=True)
+    del f8
+    rows = torch.from_numpy(np.random.default_rng(0).normal(scale=100.0, size=(4, 1 << 20)).astype(np.float32)).to(dev)
+    ones = torch.ones(4, device=dev)
+    for psnr in (105.0, 110.0):
+        t_mse, q0 = quantize.psnr_start(ones, psnr)
+        for cand in (kernels.PSNR_CANDIDATES, 2, 1):
+            held(f"4 normal rows, PSNR {psnr:g}", (rows, q0, t_mse), cand)
+    t_mse, q0 = quantize.psnr_start(ones, 120.0)
+    said = []
+    for fn in (lambda: kernels.psnr_q(rows, q0, t_mse), lambda: quantize.psnr_q_ref(rows, q0, t_mse)):
+        try:
+            fn()
+        except ValueError as e:
+            said.append(str(e))
+    _check(len(said) == 2 and said[0] == said[1], f"PSNR 120 on the normal rows: {said}")
+    print(f"[kernels] K16 psnr_q, 4 normal rows, PSNR 120: both versions raise ValueError: {said[0]}")
+    del rows
+    one = cases["phase 5's 256^3 chunk, PSNR 80"]
+    print(f"[kernels] K16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"ms": one["ms"], "host_ms": one["host_ms"], "plain_ms": one["plain_ms"],
+            "plain_timed": one["plain_timed"], "bound_ms": one["bound_ms"], "max_abs_err": err, "cases": cases}
+
+
 def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     """Phase 3's schedule kernels (kernels/schedule.cu) bit for bit against
     their plain versions on the card: the cube form (sched_boxmax, then
@@ -1644,7 +1769,10 @@ def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     3), each shape again with its leaf table widened to int64, and a
     70000 x 16 random field (a plan of one cut; more rows than a grid's
     65535, so the pixel pass's blocks take several); the pyramid form
-    (sched_pyramid) on the dyadic (97, 128, 118) chunk.  Each kernel timed
+    (sched_pyramid: two launches, no memset, by the profiler's names) on the
+    dyadic (97, 128, 118) chunk, SDRBench S3D 500^3's (244, 244, 244) edge
+    chunk and a (65, 17, 17) random chunk of axis depths 5, 5, 7, each also
+    against the child-table form, with its host index builds.  Each kernel timed
     on the device and as the host issues it (sched_table in its routes'
     form: no pm, the I-set passes on a 2D field; per launch by the
     profiler), beside its plain version and its bound.  Returns each
@@ -1830,29 +1958,58 @@ def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
                                                                     if k not in (tables[0][0], tables[1][0])}})
     del tables
 
-    # -- the pyramid form: the dyadic chunk ---------------------------------------------------
-    dims = (97, 128, 118)
-    m = front(vol11[:118, :128, :97])
-    pi = spk.pyramid_index(dims, dev)
-    nbm = sv.msbp1_device(m).max()
-    want = (nbm,) + spk.pixel_schedule_pyramid_ref(m, pi, nbm)
-    equal("sched_pyramid", spk.schedule_pyramid(m, pi), want, "(97, 128, 118)")
-    ti = spk.tree_index(dims, dev)
-    equal("sched_pyramid", spk.schedule_pyramid(m, pi), (nbm,) + spk.pixel_schedule_ref(m, ti, nbm),
-          "(97, 128, 118) against the child-table form")
-    npx = m.numel()
-    # mags, deep slots, parent boxes, node boxes read; num_bp, s, e, nm written
-    pyr_bytes = 4 * npx * 3 + 4 * pi.nn + 4 + 8 * npx + 4 * pi.nn
-    r = rows["sched_pyramid"] = {
-        "ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "device")[0],
-        "host_ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "host-issued")[0],
-        "bound_ms": _bound_ms(pyr_bytes),
-    }
-    r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_pyramid_ref(m, pi, nbm), 5)
-    print(f"[kernels] sched_pyramid {dims} ({pi.levels} levels): equal to the plain version and to the "
-          f"child-table form bit for bit; kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the "
-          f"host issues it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms, "
-          f"share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+    # -- the pyramid form: the dyadic chunk, SDRBench S3D's 244^3 chunk, axes of unequal depths ----
+    def pyr_bytes(plan, n_, nn_):
+        # what this design must move: mags read; s, e, nm, num_bp written; nm_src and the axes' tables
+        # read; each level a node or a pixel's parent lies on written once and read once
+        cells = plan.off[plan.lmax + 1]
+        return 4 * n_ + 8 * n_ + 4 * nn_ + 4 + 4 * nn_ + plan.axes.numel() * 4 + 2 * cells
+
+    uneven = rng.integers(0, 1 << 20, 65 * 17 * 17) * (rng.random(65 * 17 * 17) < 0.3)
+    pyr_times = {}
+    for label, dims, m in (("dyadic chunk", (97, 128, 118), front(vol11[:118, :128, :97])),
+                           ("S3D 500^3's edge chunk", (244, 244, 244), front(vol512[:244, :244, :244])),
+                           ("axes of depths 5, 5, 7 (z, y, x)", (65, 17, 17),
+                            torch.from_numpy(uneven.astype(np.int32)).to(dev))):
+        t0 = time.perf_counter()
+        pi = spk.pyramid_index(dims, dev)
+        build = time.perf_counter() - t0
+        nbm = sv.msbp1_device(m).max()
+        want = (nbm,) + spk.pixel_schedule_pyramid_ref(m, pi, nbm)
+        before = kernels.launches["sched_pyramid"]
+        equal("sched_pyramid", spk.schedule_pyramid(m, pi), want, f"{label} {dims}")
+        per_call = kernels.launches["sched_pyramid"] - before
+        _check(per_call == 2, f"sched_pyramid made {per_call} launches a call on {dims} (two expected)")
+        t0 = time.perf_counter()
+        ti = spk.tree_index(dims, dev)
+        t_build = time.perf_counter() - t0
+        equal("sched_pyramid", spk.schedule_pyramid(m, pi), (nbm,) + spk.pixel_schedule_ref(m, ti, nbm),
+              f"{label} {dims} against the child-table form")
+        del ti
+        names = _device_names(lambda: spk.schedule_pyramid(m, pi), 2, need=("pyramid_tiles", "pyramid_finish"))
+        _check(names[-2:] == ["pyramid_tiles", "pyramid_finish"] and set(names) == {"pyramid_tiles", "pyramid_finish"},
+               f"sched_pyramid's device operations on {dims}: {names} (its two kernels, no memset, expected)")
+        npx, p = m.numel(), pi.plan
+        nbytes = pyr_bytes(p, npx, pi.nn)
+        r = pyr_times[dims] = {
+            "ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "device")[0],
+            "host_ms": time_ms(lambda: spk.schedule_pyramid(m, pi), 10, "host-issued")[0],
+            "bound_ms": _bound_ms(nbytes), "bytes": nbytes, "launches_per_call": per_call, "index_s": build,
+            "levels": p.levels, "top": p.top, "lmax": p.lmax, "nodes": pi.nn,
+        }
+        r["plain_ms"], r["plain_timed"] = time_ms(lambda: spk.pixel_schedule_pyramid_ref(m, pi, nbm), 5)
+        r["per_launch"] = {_kernel_name(k): v[0]
+                           for k, v in _kernel_means(lambda: spk.schedule_pyramid(m, pi), "pyramid_", 10).items()}
+        print(f"[kernels] sched_pyramid, {label} {dims} (pyramid index {build:.3f} s on the host, the child "
+              f"table's {t_build:.3f} s; {pi.nn} nodes, {p.levels} levels, tiles at level {p.top}, levels "
+              f"0 .. {p.lmax} written; {per_call} launches a call, no memset): equal to the plain version and "
+              f"to the child-table form bit for bit; kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host "
+              f"issues it; per launch " + ", ".join(f"{k} {v:.4f}" for k, v in r["per_launch"].items())
+              + f"), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms ({nbytes} "
+              f"bytes), share {r['bound_ms'] / r['ms']:.3f} -- {smi}")
+        del pi, m, want
+    rows["sched_pyramid"] = dict(pyr_times[(97, 128, 118)], **{
+        "s3d_244": pyr_times[(244, 244, 244)], "uneven_65x17x17": pyr_times[(65, 17, 17)]})
     for name in rows:
         rows[name]["max_abs_err"] = err[name]
     print(f"[kernels] schedule kernels took {time.perf_counter() - t_phase:.1f} s")
@@ -3072,20 +3229,7 @@ def main() -> int:
         del chunk, front, em, fits, calls, cap_front, k9, planes_args
     bit_err = {k: max(b[k]["max_abs_err"] for b in bits.values() if k in b)
                for k in ("transpose_bits32", "masked_pack", "compact_flags_rows")}
-    # K16, the PSNR-mode q search (torch ops; each step synchronizes on its
-    # test, so it is timed as the host issues it): phase 5's chunk at PSNR 80
-    x16 = torch.from_numpy(vol11[None]).to(dev)
-    x16 = x16 - x16.mean()
-    r16 = (x16.max() - x16.min()).reshape(1)
-    c16 = cdf97.dwt3d(x16).reshape(1, -1)
-    q16 = quantize.estimate_q_psnr_batched(c16, r16, 80.0)
-    q_first = 2.0 * np.sqrt(3.0 * float(r16[0]) ** 2 * float(np.float32(1e-8)))
-    k16_evals = 1 + round(np.log(float(q16[0]) / q_first) / np.log(2.0**-0.25))
-    k16_ms = time_ms(lambda: quantize.estimate_q_psnr_batched(c16, r16, 80.0), 5, "host-issued")[0]
-    k16_bound = _bound_ms(k16_evals * 4 * c16.numel())  # each step reads the coefficients
-    print(f"[kernels] K16 estimate_q_psnr_batched (1, 256^3), PSNR 80, {k16_evals} steps: "
-          f"{k16_ms:.4f} ms as the host issues it, bound {k16_bound:.4f} ms -- {smi}")
-    del x16, c16
+    k16 = _psnr_kernel(kernels, smi, dev, vol512, vol11)
     # K12 on ragged shapes: rows that are not whole tiles, several rows, a
     # short take, empty and full rows, and a view that is not 16-byte aligned
     flag_rng = np.random.default_rng(12)
@@ -3175,6 +3319,7 @@ def main() -> int:
     k23_bound = k23["bound"]
     for name, ms, host_ms, bound in (
             ("K1 quantize (1, 256^3)", q_ms, q_host_ms, q_bound),
+            ("K16 psnr_q (1, 256^3), PSNR 80", k16["ms"], k16["host_ms"], k16["bound_ms"]),
             ("K4 dwt3d 256^3", l_ms, l_host_ms, l_bound), ("K4 idwt3d 256^3", li_ms, li_host_ms, l_bound),
             ("K13 reconstruct_mags (1, 256^3)", k13_one["ms"], k13_one["host_ms"], k13_one["bound_ms"]),
             *((f"{k} {shape}", t[k], t[f"{k} host"], t["bound"])
@@ -3306,9 +3451,17 @@ def main() -> int:
     vol = vol11
     vrange = float(vol.max() - vol.min())
     one_chunk = TorchCompressor3D((256, 256, 256), (256, 256, 256), device="cuda", transfer="dense")
-    streams5 = {}
+    streams5, launches5 = {}, {}
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
+        kernels.reset_launch_counts()
         s = streams5[mode] = one_chunk.compress(vol, mode, quality)
+        torch.cuda.synchronize()
+        launches5[mode] = dict(kernels.launches)
+        _check(launches5[mode]["quantize"] > 0, f"K1 was not launched in the {mode} encode")
+        _check((launches5[mode]["psnr_q"] > 0) == (mode == "psnr"),
+               f"K16 launched {launches5[mode]['psnr_q']} times in the {mode} encode")
+        print(f"[modes] {mode} {quality}: launches {_nonzero(launches5[mode])}; stream sha256 "
+              f"{hashlib.sha256(s).hexdigest()}")
         ours, _ = dec.decompress(s)
         host, _ = Sperr3DDecompressor().decompress(s)
         host = host.reshape(vol.shape)
@@ -3458,9 +3611,16 @@ def main() -> int:
     comp7 = TorchCompressor2D((nx7, ny7), device="cuda")
     dec7 = TorchDecompressor2D((nx7, ny7), device="cuda")
     host7 = SpeckFloatCodec(2, (nx7, ny7, 1))
-    streams8 = {}
+    streams8, launches8 = {}, {}
     for mode, quality in (("psnr", 80.0), ("rate", 2.0)):
+        kernels.reset_launch_counts()
         s = streams8[mode] = comp7.compress(f7, mode, quality)
+        torch.cuda.synchronize()
+        launches8[mode] = dict(kernels.launches)
+        _check((launches8[mode]["psnr_q"] > 0) == (mode == "psnr"),
+               f"K16 launched {launches8[mode]['psnr_q']} times in the 2D {mode} encode")
+        print(f"[2d modes] {mode} {quality}: launches {_nonzero(launches8[mode])}; stream sha256 "
+              f"{hashlib.sha256(bytes(s)).hexdigest()}")
         ours = dec7.decompress(s)
         h, _ = host7.decompress(bytes(s))
         h = h.reshape(ny7, nx7)
@@ -3532,6 +3692,8 @@ def main() -> int:
     rows = [
         ("quantize", "quantize.cu", "sperr_tpu/ops/pallas_kernels.py:244", launches["quantize"],
          q_err, q_ms, q_host_ms, q_plain_ms, q_bound, None),
+        ("psnr_q", "quantize.cu", "sperr_tpu/ops/quantize_jax.py:19", launches5["psnr"]["psnr_q"],
+         k16["max_abs_err"], k16["ms"], k16["host_ms"], k16["plain_ms"], k16["bound_ms"], None),
         ("cdf97_lift", "cdf97_lift.cu", "sperr_tpu/ops/cdf97_jax.py:230", launches["cdf97_lift"],
          lift_err, l_ms, l_host_ms, l_plain_ms, l_bound, None),
         ("dwt2d_full", "cdf97_2d.cu", "sperr_tpu/ops/pallas_kernels.py:217", launches2["dwt2d_full"],
@@ -3549,6 +3711,10 @@ def main() -> int:
     ]
     plain_timed.update({name: t1[name]["plain_timed"]
                         for name in ("transpose_bits32", "masked_pack", "compact_flags_rows")})
+    plain_timed["psnr_q"] = k16["plain_timed"]
+    # K16 on the 3D PSNR path (phase 5's chunk) and the 2D one (phase 8's field); its checks' inputs
+    k16_extra = {"launches_2d": launches8["psnr"]["psnr_q"], "cases": k16["cases"],
+                 "timed": "ms: the kernel's device time a call by torch.profiler (the call waits for its status)"}
     # the schedule kernels: launches on their paths (phase 6 for the cube form, phase 9 for the
     # child-table and pyramid forms; phase 10's 2D encode in "launches_2d")
     for name, where, nl in (
@@ -3617,7 +3783,8 @@ def main() -> int:
          **({"per_launch": k13["per_launch"], "one_chunk": k13_one, "repeats": k13["repeats"]}
             if name == "reconstruct_mags" else {}),
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "edge", "launches_2d", "also_replaces",
-                                                            "launches_per_call", "cuts", "blocks", "per_launch")}
+                                                            "launches_per_call", "cuts", "blocks", "per_launch",
+                                                            "s3d_244", "uneven_65x17x17", "bytes", "index_s")}
             if name in sched
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
@@ -3631,7 +3798,8 @@ def main() -> int:
                                                             "launches_cube_path")}
             if name in twalk else {}),
          # K10's transpose runs inside K9 (and K9b) on the wave paths
-         **({"merged_into": "emit_stage"} if name == "transpose_bits32" else {})}
+         **({"merged_into": "emit_stage"} if name == "transpose_bits32" else {}),
+         **(k16_extra if name == "psnr_q" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows
     ]}))
     print(_smi())

@@ -1,6 +1,6 @@
-"""Time this checkout's K9 stage, K13, the K15 and K14 walks and the
-child-table schedule beside the parent commit's, in one process on one
-card.
+"""Time this checkout's K9 stage, K13, the K15 and K14 walks, the
+child-table and pyramid schedules and K16 beside the parent commit's, in
+one process on one card.
 
     mkdir -p _checkout/parent
     git archive <parent> sperr_tpu_torch | tar -x -C _checkout/parent
@@ -29,16 +29,22 @@ are timed by torch.profiler:
   1024^2 Turbulence1024-like field (``chip_smoke._turbulence_like``, seed
   0), each index built by its own package;
 - the child-table schedule (``ops.speck.schedule_table``, each package's
-  index) on that packet chunk as the 3D route calls it (the parent's with
-  pm, which the route dropped; the new one without), and on that 1024^2
-  field and a 1800 x 3600 one (seed 16) as the 2D route calls it: the
-  parent's schedule and then its ``iset_significance_device`` on pm,
-  against the new schedule with the I-set passes and no pm; compared on
-  num_bp, s, e, nm (and iset_s);
+  index) on that packet chunk as the 3D route calls it, and on that 1024^2
+  field and a 1800 x 3600 one (seed 16) as the 2D route calls it, with the
+  I-set passes; compared on num_bp, s, e, nm (and iset_s);
 - one 1024^2 field's whole 2D device program at tier 0 (each package's
   ``parallel.batched2d._wave_emit_field`` on its own index and caps, as
   the wave encode runs it), device-busy and host-issued, compared on
-  every output.
+  every output;
+- K16, the PSNR search, on the inputs each front gives it at PSNR 80 (the
+  parent's row by row, the new one batched): phase 5's 256^3 chunk, the
+  headline volume's 8 chunks, phase 7's 16 x 1024^2 fields and phase 8's
+  1800 x 3600 field, q compared row by row (a moved row printed with its
+  MSE under the f32 and the f64 sum), host-issued and device-busy; then
+  phase 5's and phase 8's PSNR streams from each package's compressor,
+  byte for byte;
+- the pyramid schedule (``ops.speck.schedule_pyramid``) on the dyadic
+  (97, 128, 118) chunk and SDRBench S3D 500^3's (244, 244, 244) edge chunk.
 
 The card's name and power limit end every line of times.  Exits non-zero
 without a CUDA device or when a pair differs.
@@ -56,7 +62,8 @@ import time
 
 def _load_parent(parent_dir: str):
     """The parent's kernels, ops (wave_pack, wave_unpack, speck_lis,
-    speck_lis2, speck_virtual, speck) and parallel.batched2d modules,
+    speck_lis2, speck_virtual, speck, quantize), parallel.batched2d and
+    parallel.batched modules,
     imported from parent_dir as the package ``sperr_parent``, its kernels
     built."""
     root = os.path.join(os.path.abspath(parent_dir), "sperr_tpu_torch")
@@ -69,7 +76,7 @@ def _load_parent(parent_dir: str):
     spec.loader.exec_module(mod)
     mods = [importlib.import_module(f"sperr_parent.{m}")
             for m in ("kernels", "ops.wave_pack", "ops.wave_unpack", "ops.speck_lis", "ops.speck_lis2",
-                      "ops.speck_virtual", "ops.speck", "parallel.batched2d")]
+                      "ops.speck_virtual", "ops.speck", "parallel.batched2d", "ops.quantize", "parallel.batched")]
     t0 = time.perf_counter()
     mods[0].build()
     print(f"[parent] the parent's kernels built from {parent_dir} in {time.perf_counter() - t0:.1f} s")
@@ -107,6 +114,108 @@ def _compare(cs, label: str, fns, smi: str, dev_how: str = "device", calls: int 
           + f" -- {smi}")
 
 
+def _psnr(cs, pq, pb, pb2, vol, smi: str) -> None:
+    """K16 against the parent's PSNR search, as each package's front calls
+    it at PSNR 80 (the parent's row by row, the f32 mean, a host wait a
+    step; the new one batched, the f64 mean): phase 5's 256^3 chunk, the
+    headline volume's 8 chunks, phase 7's 16 x 1024^2 fields and phase 8's
+    1800 x 3600 field.  Each row's q compared; a row whose q moved is
+    printed with its MSE under both sums against t_mse.  Timed in turns,
+    host-issued (the parent's synchronizes every step) and device-busy.
+    Then phase 5's and phase 8's PSNR streams from each package's
+    compressor, compared byte for byte."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch import kernels
+    from sperr_tpu_torch.ops import cdf97, quantize
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D
+    from sperr_tpu_torch.utils.testdata import smooth_field_3d
+
+    dev = torch.device("cuda", 0)
+    vol11 = smooth_field_3d(256, seed=11)
+    f8 = cs._turbulence_like(1800, 3600, 16)
+    inputs = (
+        ("phase 5's 256^3 chunk", lambda: torch.from_numpy(vol11[None]).to(dev), cdf97.dwt3d, cdf97.idwt3d_),
+        ("the headline volume's 8 chunks", lambda: torch.from_numpy(np.stack(
+            [vol[z:z + 256, y:y + 256, x:x + 256] for z in (0, 256) for y in (0, 256) for x in (0, 256)])).to(dev),
+         cdf97.dwt3d, cdf97.idwt3d_),
+        ("phase 7's 16 x 1024^2 fields", lambda: torch.from_numpy(np.stack(
+            [cs._turbulence_like(1024, 1024, seed) for seed in range(16)])).to(dev), cdf97.dwt2d, cdf97.idwt2d),
+        ("phase 8's 1800 x 3600 field", lambda: torch.from_numpy(f8[None]).to(dev), cdf97.dwt2d, cdf97.idwt2d),
+    )
+    for label, make, fwd, inv in inputs:
+        with cs._capture(quantize, ["estimate_q_psnr_batched"]) as calls:
+            tb._dense_encode_rows(make(), "psnr", 80.0, "none", fwd, inv)
+        ((c, rng, _),) = calls["estimate_q_psnr_batched"]
+        fns = {"parent": lambda c=c, rng=rng: pb._per_row(lambda a, r: pq.estimate_q_psnr_batched(a, r, 80.0), c, rng),
+               "new": lambda c=c, rng=rng: quantize.estimate_q_psnr_batched(c, rng, 80.0)}
+        q_old, q_new = fns["parent"](), fns["new"]()
+        moved = torch.nonzero(q_old != q_new).reshape(-1).tolist()
+        t_mse, _ = quantize.psnr_start(rng, 80.0)
+        for b in moved:
+            for who, q in (("parent", q_old), ("new", q_new)):
+                d = c[b] - q[b] * torch.round(c[b] * (1.0 / q[b]))
+                print(f"[compare] K16 {label}: row {b} MOVED; at the {who}'s q {float(q[b])!r}: f32 mean "
+                      f"{float(torch.mean(d * d))!r}, f64 mean {float(d.double().square().mean())!r}, t_mse "
+                      f"{float(t_mse[b])!r}")
+        host_t = _turns(fns, "host-issued", 10)
+        busy_t = _turns(fns, "device-busy", 10)
+        print(f"[compare] K16 {label} ({c.shape[0]} x {c.shape[1]}): q of {c.shape[0] - len(moved)} of "
+              f"{c.shape[0]} rows equal ({q_new.tolist()[:16]}); host-issued ms (parent, new, new, parent) "
+              f"{host_t['parent'][0]:.4f}, {host_t['new'][0]:.4f}, {host_t['new'][1]:.4f}, {host_t['parent'][1]:.4f}; "
+              f"device-busy {busy_t['parent'][0]:.4f}, {busy_t['new'][0]:.4f}, {busy_t['new'][1]:.4f}, "
+              f"{busy_t['parent'][1]:.4f} -- {smi}")
+        del c, rng, calls
+    # the PSNR streams of phases 5 and 8, each package's compressor
+    for label, old_c, new_c, data in (
+            ("phase 5: 256^3 PSNR 80", pb.TorchCompressor3D((256,) * 3, (256,) * 3, device="cuda", transfer="dense"),
+             tb.TorchCompressor3D((256,) * 3, (256,) * 3, device="cuda", transfer="dense"), vol11),
+            ("phase 8: 1800 x 3600 PSNR 80", pb2.TorchCompressor2D((3600, 1800), device="cuda"),
+             TorchCompressor2D((3600, 1800), device="cuda"), f8)):
+        a, b = bytes(old_c.compress(data, "psnr", 80.0)), bytes(new_c.compress(data, "psnr", 80.0))
+        print(f"[compare] {label}: parent {len(a)} bytes, new {len(b)} bytes, "
+              + ("equal byte for byte" if a == b else "DIFFERENT") + f" -- {smi}")
+    kernels.reset_launch_counts()
+
+
+def _pyramid(cs, pspk, vol, smi: str) -> None:
+    """sched_pyramid against the parent's (2 + levels launches and a memset)
+    on the dyadic (97, 128, 118) chunk and SDRBench S3D 500^3's edge chunk
+    (244, 244, 244), PWE 1e-2 fronts of the smooth fields.  The parent's
+    index is given the new index's host tables (the same deep slots, node
+    and parent boxes: tests/test_torch_schedule.py holds them equal),
+    which saves its host build (tens of seconds at 244^3)."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.ops import speck as spk
+    from sperr_tpu_torch.parallel import batched as tb
+    from sperr_tpu_torch.utils.testdata import smooth_field_3d
+
+    dev = torch.device("cuda", 0)
+    vol11 = smooth_field_3d(256, seed=11)
+    for dims, field in (((97, 128, 118), vol11[:118, :128, :97]), ((244, 244, 244), vol[:244, :244, :244])):
+        x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
+        m = tb._dense_encode_rows(x, "pwe", 1e-2, "dual", cdf97.dwt3d, cdf97.idwt3d_)["mags"][0]
+        m = m.reshape(-1).contiguous()
+        t0 = time.perf_counter()
+        pi = spk.pyramid_index(dims, dev)
+        build = time.perf_counter() - t0
+        ppi = object.__new__(pspk.PyramidIndex)
+        for k in ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn"):
+            setattr(ppi, k, getattr(pi, k))
+        for k in ("deep_idx", "nm_src", "e_src"):
+            setattr(ppi, f"{k}32", getattr(pi, k).to(torch.int32))
+        _compare(cs, f"sched_pyramid {dims} (index {build:.3f} s on the host; the parent: {2 + pi.levels} "
+                     "launches and a memset; new: 2)",
+                 {"parent": lambda m=m, ppi=ppi: pspk.schedule_pyramid(m, ppi),
+                  "new": lambda m=m, pi=pi: spk.schedule_pyramid(m, pi)}, smi, calls=20)
+        del x, m, pi, ppi
+
+
 def main(argv) -> int:
     import torch
 
@@ -133,7 +242,7 @@ def main(argv) -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     dev = torch.device("cuda", 0)
     kernels.load()
-    pk, pwp, _, psl, psl2, psv, pspk, pb2 = _load_parent(argv[0])
+    pk, pwp, _, psl, psl2, psv, pspk, pb2, pq, pb = _load_parent(argv[0])
     vol = smooth_field_3d(512, seed=7)
     d256 = (256, 256, 256)
     n = 256**3
@@ -191,7 +300,7 @@ def main(argv) -> int:
     # the child-table schedule as the 3D route calls it
     psi = pspk.tree_index(dims_h, dev)
     _compare(cs, f"sched_table, Hurricane packet chunk (100, 256, 256) (cuts {si.plan.cuts})", {
-        "parent": lambda: (lambda r: r[:1] + r[2:])(pspk.schedule_table(m, psi)),
+        "parent": lambda: pspk.schedule_table(m, psi),
         "new": lambda: spk.schedule_table(m, si),
     }, smi, calls=10)
     del psi
@@ -219,8 +328,7 @@ def main(argv) -> int:
         "new": lambda: sl._table_items_cuda(ns, s, sg, li2, li2.nn, iset, nb),
     }, smi, "device-busy")
 
-    # the child-table schedule as the 2D route calls it: the parent's schedule, then its I-set launch on pm;
-    # the new schedule with the I-set passes
+    # the child-table schedule as the 2D route calls it, with the I-set passes
     for label, (fy, fx, seed), mm in (("1024^2 field", (ny, nx, 0), m), ("1800x3600 field", (1800, 3600, 16), None)):
         if mm is None:
             x = torch.from_numpy(cs._turbulence_like(fy, fx, seed)[None]).to(dev)
@@ -230,9 +338,8 @@ def main(argv) -> int:
         ti, pti = spk.tree_index((fx, fy), dev), pspk.tree_index((fx, fy), dev)
         regions = tree.iset_regions[: tree.xf + 1]
 
-        def parent(mm=mm, pti=pti, tree=tree, fy=fy, fx=fx):
-            r = pspk.schedule_table(mm, pti)
-            return r[:1] + r[2:] + (psl2.iset_significance_device(r[1].reshape(fy, fx), tree, r[0]),)
+        def parent(mm=mm, pti=pti, regions=regions):
+            return pspk.schedule_table(mm, pti, iset_regions=regions)
 
         def new(mm=mm, ti=ti, regions=regions):
             return spk.schedule_table(mm, ti, iset_regions=regions)
@@ -251,6 +358,10 @@ def main(argv) -> int:
         progs[key] = (lambda mod=mod, index=index, caps=caps: (
             lambda r: [r[k] for k in sorted(r)])(mod._wave_emit_field(m, sg, index, caps, comp.num_bp_cap)))
     _compare(cs, "2D field program (_wave_emit_field), 1024^2 field, tier 0", progs, smi, "device-busy")
+    del comp, progs, m, sg
+
+    _psnr(cs, pq, pb, pb2, vol, smi)
+    _pyramid(cs, pspk, vol, smi)
     print(f"[compare] done -- {smi}")
     return 0
 

@@ -54,7 +54,7 @@ NVCC_LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 LIFT_MAX_SHARED_BYTES = 96 * 1024
 
 launches = {
-    "quantize": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
+    "quantize": 0, "psnr_q": 0, "cdf97_lift": 0, "dwt2d_full": 0, "idwt2d_full": 0,
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
@@ -151,6 +151,12 @@ def load(device=None) -> ct.CDLL:
                 ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
                 ct.c_longlong, ct.c_longlong, ct.c_void_p,
             ]
+            lib.sperr_psnr_q.restype = ct.c_int
+            lib.sperr_psnr_q.argtypes = [
+                ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+                ct.c_void_p, ct.c_void_p, ct.c_longlong, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
+                ct.c_void_p,
+            ]
             lib.sperr_cdf97_lift.restype = ct.c_int
             lib.sperr_cdf97_lift.argtypes = [
                 ct.c_void_p, ct.c_longlong, ct.c_int, ct.c_int, ct.c_int,
@@ -174,10 +180,7 @@ def load(device=None) -> ct.CDLL:
                 ("sperr_sched_boxmax", [vp, vp, vp, vp, ct.c_int, vp]),
                 ("sperr_sched_virtual", [vp, vp, vp, vp, ct.c_int, vp, vp, vp, ct.c_int, ll, vp]),
                 ("sperr_sched_table", [ct.POINTER(SchedTable), vp]),
-                ("sperr_sched_pyramid", [
-                    vp, ll, vp, ct.c_int, ct.c_int, ct.c_int, ct.c_int, vp, vp, vp, ll, vp, vp,
-                    vp, vp, vp,
-                ]),
+                ("sperr_sched_pyramid", [ct.POINTER(SchedPyramid), vp]),
                 ("sperr_walk_vtab", [vp, vp, vp, vp, vp, ct.c_int, ll, vp, vp]),
                 ("sperr_anchor_ranks", [
                     vp, vp, ll, vp, vp, ct.c_int, ct.c_int, vp, vp, vp, vp, vp, vp, vp, vp, ll, vp,
@@ -337,6 +340,68 @@ def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
     _check(lib, err, "quantize")
     _count("quantize")
     return mags, signs, maxmag
+
+
+PSNR_CANDIDATES = 8  # candidates one round of K16 tests (kPsnrCand in quantize.cu)
+PSNR_SHRINK = float(np.float32(1.0 / 2.0**0.25))  # q's step, f32 (kShrink)
+
+
+def psnr_blocks(n: int) -> int:
+    """K16's blocks per row: a function of n alone, so that a row's sums
+    run in one order whatever batch the row comes in."""
+    return max(1, min(1024, -(-int(n) // (256 * 4 * 8))))
+
+
+def psnr_unreachable(row: int, t_mse: float, q: float) -> str:
+    """The message of a PSNR search that cannot meet its target."""
+    return (f"row {row}: the PSNR target's MSE {t_mse!r} cannot be reached in f32: q stops "
+            f"shrinking at {q!r}")
+
+
+def psnr_q(coeffs: torch.Tensor, q0: torch.Tensor, t_mse: torch.Tensor,
+           candidates: int = PSNR_CANDIDATES) -> torch.Tensor:
+    """K16: coeffs (B, n) f32, q0 and t_mse (B,) f32 on one CUDA device ->
+    q (B,) f32, each row's first q of q0, q0 s, q0 s^2, ... (s = 2^(-1/4)
+    in f32) whose MSE, an f64 mean of (c - q rint(c / q))^2, is not above
+    t_mse.  Each round is one launch that tests ``candidates`` q's of every
+    open row, then one host wait for the rows' status; a row that no round
+    of J has met starts the next round at q_J.  A row whose q no longer
+    shrinks raises ValueError."""
+    for t, what in ((coeffs, "coeffs"), (q0, "q0"), (t_mse, "t_mse")):
+        _require_cuda_f32(t, what)
+        if t.device != coeffs.device:
+            raise ValueError(f"{what} is on {t.device}, coeffs on {coeffs.device}")
+    if coeffs.dim() != 2 or coeffs.shape[1] == 0 or q0.shape != (coeffs.shape[0],) or t_mse.shape != q0.shape:
+        raise ValueError(f"coeffs must be (B, n > 0), q0 and t_mse (B,); got {tuple(coeffs.shape)}, "
+                         f"{tuple(q0.shape)} and {tuple(t_mse.shape)}")
+    B, n = coeffs.shape
+    J = int(candidates)
+    if not 0 < B <= 65535 or not 1 <= J <= PSNR_CANDIDATES:
+        raise ValueError(f"1 to 65535 rows and 1 to {PSNR_CANDIDATES} candidates; got {B}, {J}")
+    dev = coeffs.device
+    blocks = psnr_blocks(n)
+    lib = load(dev)
+    # one allocation: the blocks' f64 sums, then q, the next rounds' starts and the status words
+    nslot = B * blocks * PSNR_CANDIDATES
+    buf = torch.empty(8 * nslot + 12 * B, dtype=torch.uint8, device=dev)
+    slots = buf[: 8 * nslot].view(torch.float64)
+    words = buf[8 * nslot:].view(torch.int32)
+    q, q_next, status = words[:B].view(torch.float32), words[B:2 * B].view(torch.float32), words[2 * B:]
+    q_in, first = q0, 1
+    with _on_device(coeffs), _zeroed(dev, -(-B // 2)) as zw:
+        while True:
+            err = lib.sperr_psnr_q(coeffs.data_ptr(), q_in.data_ptr(), t_mse.data_ptr(), q.data_ptr(),
+                                   q_next.data_ptr(), status.data_ptr(), slots.data_ptr(), zw.data_ptr(), B,
+                                   n, blocks, J, first, _stream(coeffs))
+            _check(lib, err, "psnr_q")
+            _count("psnr_q")
+            st = status.tolist()  # the round's one host wait
+            if 2 in st:
+                r = st.index(2)
+                raise ValueError(psnr_unreachable(r, float(t_mse[r]), float(q_next[r])))
+            if 0 not in st:
+                return q
+            q_in, first = q_next, 0
 
 
 def cdf97_lift(
@@ -937,42 +1002,86 @@ def sched_table(mags: torch.Tensor, ch_src: torch.Tensor, ch_bounds: torch.Tenso
     return out if regions is None else out + (iset_s,)
 
 
-def sched_pyramid(mags: torch.Tensor, deep_idx: torch.Tensor, levels: int,
-                  ax_depth: Tuple[int, int, int], e_src: torch.Tensor, nm_src: torch.Tensor):
-    """The pyramid schedule: mags (n,) int32, deep_idx (n,) int32 (each
-    pixel's cell of the deepest level), levels L, ax_depth (az, ay, ax):
-    level d is 2^min(d, az) x 2^min(d, ay) x 2^min(d, ax), the levels
-    concatenated depth 0 first; e_src (n,), nm_src (nn,) int32 cells of that
-    concatenation -> (num_bp () int32, s, e (n,) int32, nm (nn,) int32).
-    2 + L launches."""
-    for t, what in ((mags, "mags"), (deep_idx, "deep_idx"), (e_src, "e_src"), (nm_src, "nm_src")):
+PYR_LEVELS = 30  # levels of a pyramid (kPyrLevels in schedule.cu)
+PYR_TILE_CELLS = 4096  # deep cells of a pyramid tile (kPyrTileCells)
+
+
+class SchedPyramid(ct.Structure):
+    """kernels/schedule.cu's SchedPyramid, field for field."""
+
+    _fields_ = [(f, ct.c_void_p) for f in ("mags", "axes", "nm_src", "flat", "pm", "num_bp", "s", "e", "nm",
+                                           "zw")] + [
+        ("n", ct.c_longlong), ("nn", ct.c_longlong), ("off", ct.c_longlong * (PYR_LEVELS + 2))] + [
+        (f, ct.c_int * 3) for f in ("inv", "px", "dims", "depth")] + [(f, ct.c_int) for f in ("levels", "top", "lmax")]
+
+
+class PyramidPlan(NamedTuple):
+    """The static plan of a pyramid schedule (ops/speck.py ``PyramidIndex``):
+    ``dims`` (nz, ny, nx); ``depth``, each axis's depth (az, ay, ax), whose
+    largest is ``levels``; ``top``, the tiles' level (``pyramid_top``);
+    ``lmax``, the deepest level a node or a pixel's parent lies on; ``off``,
+    the first cell of each level 0 .. max(lmax, top) + 1 in the
+    concatenation; ``axes``, int32 on the device: per axis (z, y, x) its
+    slots' pixel coordinates (-1 for none; at ``inv``) and its pixels' slot
+    << 8 | single depth (at ``px``); ``nm_src`` (nn,) int32, each node's
+    cell."""
+
+    dims: Tuple[int, int, int]
+    depth: Tuple[int, int, int]
+    levels: int
+    top: int
+    lmax: int
+    off: Tuple[int, ...]
+    axes: torch.Tensor
+    inv: Tuple[int, int, int]
+    px: Tuple[int, int, int]
+    nm_src: torch.Tensor
+
+
+def pyramid_top(depth: Tuple[int, int, int]) -> int:
+    """The shallowest level whose cells hold at most PYR_TILE_CELLS deep
+    cells: a tile of the pyramid schedule's first launch is one of them."""
+    limit = PYR_TILE_CELLS.bit_length() - 1
+    return next(d for d in range(max(depth) + 1) if sum(a - min(d, a) for a in depth) <= limit)
+
+
+def sched_pyramid(mags: torch.Tensor, plan: PyramidPlan):
+    """The pyramid schedule: mags (n,) int32 of a (nz, ny, nx) chunk, the
+    plan -> (num_bp () int32, s, e (n,) int32, nm (nn,) int32).  Two launches
+    (the tiles, whose last block pools the levels above them; then s, e and
+    nm); one allocation, no fill."""
+    for t, what in ((mags, "mags"), (plan.axes, "plan.axes"), (plan.nm_src, "plan.nm_src")):
         _require_cuda(t, torch.int32, what)
         if t.device != mags.device:
             raise ValueError(f"{what} is on {t.device}, mags on {mags.device}")
-    n, nn, L = mags.numel(), nm_src.numel(), int(levels)
-    az, ay, ax = (int(v) for v in ax_depth)
-    if (mags.dim() != 1 or n == 0 or deep_idx.shape != (n,) or e_src.shape != (n,) or nn == 0
-            or not 0 <= L <= 30 or max(az, ay, ax) > L):
-        raise ValueError(f"mags, deep_idx, e_src (n > 0,), nm_src (nn > 0,), 0 <= depths <= L <= 30; got "
-                         f"{tuple(mags.shape)}, {tuple(deep_idx.shape)}, {tuple(e_src.shape)}, "
-                         f"{tuple(nm_src.shape)}, L {L}, {ax_depth}")
+    n, nn = mags.numel(), plan.nm_src.numel()
+    L, top, lmax = int(plan.levels), int(plan.top), int(plan.lmax)
+    if (mags.dim() != 1 or n != int(np.prod(plan.dims)) or not 0 < n < 2**31 or nn == 0
+            or not 0 <= L <= PYR_LEVELS or max(plan.depth) != L or top != pyramid_top(plan.depth)
+            or not 0 <= lmax <= L or len(plan.off) != max(lmax, top) + 2):
+        raise ValueError(f"mags ({int(np.prod(plan.dims))},) for dims {plan.dims} and a plan of at most "
+                         f"{PYR_LEVELS} levels; got {tuple(mags.shape)}, depths {plan.depth}, top {top}, "
+                         f"lmax {lmax}")
     dev = mags.device
-    cells = sum(1 << (min(d, az) + min(d, ay) + min(d, ax)) for d in range(L + 1))
-    flat = torch.empty(cells, dtype=torch.uint8, device=dev)
-    num_bp = torch.zeros((), dtype=torch.int32, device=dev)
-    s = torch.empty(n, dtype=torch.int32, device=dev)
-    e = torch.empty(n, dtype=torch.int32, device=dev)
-    nm = torch.empty(nn, dtype=torch.int32, device=dev)
+    # one allocation: s, e, nm, num_bp, then the levels' bytes and the pixels' msb+1 bytes (each
+    # 128-byte aligned)
+    sizes = [n, n, nn, 1, -(-plan.off[-1] // 4), -(-n // 4)]
+    offs = np.cumsum([0] + [_aligned(w) for w in sizes])
+    buf = torch.empty(int(offs[-1]), dtype=torch.int32, device=dev)
+    s, e, nm, num_bp = (buf[int(o):int(o) + w] for o, w in zip(offs[:4], sizes[:4]))
+    a = SchedPyramid(
+        mags=mags.data_ptr(), axes=plan.axes.data_ptr(), nm_src=plan.nm_src.data_ptr(),
+        flat=buf[int(offs[4]):].data_ptr(), pm=buf[int(offs[5]):].data_ptr(), num_bp=num_bp.data_ptr(),
+        s=s.data_ptr(), e=e.data_ptr(), nm=nm.data_ptr(), n=n, nn=nn, levels=L, top=top, lmax=lmax)
+    a.off[:len(plan.off)] = plan.off
+    a.inv[:], a.px[:], a.dims[:], a.depth[:] = plan.inv, plan.px, plan.dims, plan.depth
     lib = load(dev)
-    with _on_device(mags):
-        err = lib.sperr_sched_pyramid(
-            mags.data_ptr(), n, deep_idx.data_ptr(), L, az, ay, ax, flat.data_ptr(), e_src.data_ptr(),
-            nm_src.data_ptr(), nn, num_bp.data_ptr(), s.data_ptr(), e.data_ptr(), nm.data_ptr(),
-            _stream(mags),
-        )
-    _check(lib, err, "sched_pyramid")
-    _count("sched_pyramid", 2 + L)
-    return num_bp, s, e, nm
+    with _on_device(mags), _zeroed(dev, 1) as zw:
+        a.zw = zw.data_ptr()
+        err = lib.sperr_sched_pyramid(ct.byref(a), _stream(mags))
+        _check(lib, err, "sched_pyramid")
+    _count("sched_pyramid", 2)
+    return num_bp.reshape(()), s, e, nm
 
 
 # ---------------------------------------------------------------------------

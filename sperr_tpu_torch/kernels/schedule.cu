@@ -6,7 +6,7 @@
 // box_reduce_max and _morton_flatten), and speck_jax.py node_max +
 // pixel_schedule (K15's child-table form, and every 2D field of K14, with
 // sperr_tpu/ops/speck_lis2_jax.py iset_significance_device, the 2D I-set
-// maxima) and pixel_schedule_pyramid (K15's pyramid form).  For magnitudes
+// maxima) and pixel_schedule_pyramid (K15's pyramid form, :638).  For magnitudes
 // mags they give
 //   pm  = msb position + 1 of each magnitude (0 for zero),
 //   num_bp = max pm,
@@ -57,8 +57,27 @@
 //     field it also takes each I level's region maximum (a block takes part
 //     of one row at a time, so the rows' test is uniform), reduced by warp,
 //     block and guarded integer atomics, and its last block writes iset_s;
-//   * pyramids (1 + levels + 1 launches): pm scattered into the deep box,
-//     one max-pool launch per level, then s, e and nm by gathers.
+//   * pyramids (two launches, no fill): the pixels embed in a box of
+//     2^depth slots per axis (static per-axis slot tables), and the
+//     partition's boxes at depth d are the cells of level d, a max-pool of
+//     level d + 1 along the axes still halving.  pyramid_tiles takes one
+//     cell of a static level ("top", at most 4,096 deep cells) per block:
+//     each of its deep cells finds its pixel through three small per-axis
+//     tables (slot -> coordinate or none; no n-entry index), takes msb+1
+//     (empty cells 0, so nothing is zeroed first), the block pools its
+//     levels down to top in shared memory and writes the levels that a node
+//     or a pixel's parent lies on (the deepest one never holds either).
+//     The launch waits on its loads and its per-cell arithmetic, not on
+//     bytes: a cube tile's thread keeps one (y, x) column, so only its z
+//     lookup is per cell, and all its loads are issued before the first
+//     use.  The tiles also leave each pixel's msb+1 as a byte (n bytes in
+//     place of mags' 4n read again).  The last block to end (a done counter
+//     in a zeroed word it resets) pools the levels above top and writes
+//     num_bp, level 0's one cell.  pyramid_finish writes s from the tiles'
+//     bytes, e (each pixel's parent box from its axes' slots and single
+//     depths, three more small tables, so no n-entry table of boxes is
+//     read; four pixels a thread, 16-byte stores) and nm (a gather through
+//     the nodes' cells, four a thread).
 // The pyramids are kept as bytes (values <= 32).
 
 #include <cuda_runtime.h>
@@ -217,6 +236,8 @@ constexpr int kRowBatch = 4;       // child rows a thread has in flight
 constexpr int kSubtreeBlocks = 8;  // blocks of table_subtrees an SM holds (its registers' cap)
 constexpr int kPixTile = 1024;     // pixels a block of the pixel pass takes from one row
 constexpr int kZeroWords = 2 + kMaxIset + 1;  // the done counters, the I maxima at [2 + k]; then the groups'
+constexpr int kPyrLevels = 30;       // levels of a pyramid
+constexpr int kPyrTileCells = 4096;  // deep cells of a pyramid tile
 
 }  // namespace
 
@@ -252,6 +273,31 @@ struct SchedTable {
   int leaf64;                // the leaf table's entries are int64
   int depth_lo[kMaxDepth + 1];             // the first node of each depth
   int ax[kMaxIset + 1], ay[kMaxIset + 1];  // level k's corner: its region is y >= ay[k] or x >= ax[k]
+};
+
+// The pyramid schedule's arguments, as kernels/__init__.py SchedPyramid lays
+// them out (the host fills one per call; by value to each kernel).
+struct SchedPyramid {
+  const int32_t* mags;    // (n,): x fastest, then y, then z
+  const int32_t* axes;    // per axis (z, y, x): inv, its slots' pixel coordinates (-1: none), 2^depth;
+                          // px, its pixels' slot << 8 | the depth where the pixel's interval is single
+  const int32_t* nm_src;  // (nn,): each node's cell in flat
+  uint8_t* flat;          // the levels 0 .. max(lmax, top), depth 0 first; level d is 2^min(d, depth[k])
+                          // cells along axis k
+  uint8_t* pm;            // (n,): each pixel's msb+1, from the tiles to the finish
+  int32_t* num_bp;        // one word
+  int32_t* s;             // (n,)
+  int32_t* e;             // (n,)
+  int32_t* nm;            // (nn,)
+  int32_t* zw;            // a zeroed word (the tiles' done counter), left zeroed
+  long long n, nn;
+  long long off[kPyrLevels + 2];  // level d's first cell in flat
+  int inv[3], px[3];      // each axis's two tables in axes
+  int dims[3];            // nz, ny, nx
+  int depth[3];           // each axis's depth (its intervals single at it)
+  int levels;             // L, the largest depth: the deepest level
+  int top;                // the tiles' level: a tile is one of its cells, at most kPyrTileCells deep cells
+  int lmax;               // the deepest level a node or a pixel's parent lies on
 };
 
 namespace {
@@ -539,55 +585,199 @@ __global__ void __launch_bounds__(kThreads) table_pixels(SchedTable a) {
 }
 
 // -- pyramids ------------------------------------------------------------------
-__global__ void pyramid_scatter(const int32_t* __restrict__ mags, const int32_t* __restrict__ deep_idx,
-                                uint8_t* __restrict__ deep, int32_t* __restrict__ num_bp, long long n) {
-  int m = 0;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int p = msbp1(mags[i]);
-    deep[deep_idx[i]] = (uint8_t)p;
-    m = max(m, p);
+// The global index of cell c (local sides 2^cb[k]) of a tile whose origin at
+// level d is tile coordinate o[k] << cb[k], in level d's array.
+__device__ __forceinline__ long long pyr_cell(const SchedPyramid& a, int d, const int* o, const int* cb,
+                                              int c) {
+  const int gy = min(d, a.depth[1]), gx = min(d, a.depth[2]);
+  const long long cx = c & ((1 << cb[2]) - 1), cy = (c >> cb[2]) & ((1 << cb[1]) - 1), cz = c >> (cb[1] + cb[2]);
+  const long long z = ((long long)o[0] << cb[0]) + cz, y = ((long long)o[1] << cb[1]) + cy,
+                  x = ((long long)o[2] << cb[2]) + cx;
+  return a.off[d] + ((z << (gy + gx)) | (y << gx) | x);
+}
+
+// The maximum of a cell's children in a level of (2^fb[0], 2^fb[1],
+// 2^fb[2]) cells, the axes with f[k] = 1 halving: eight reads at fixed
+// offsets (an axis that does not halve reads its child twice).
+template <typename Load>
+__device__ __forceinline__ int pool8(Load ld, const int* fb, const int* f, int cz, int cy, int cx) {
+  const int base = ((((cz << f[0]) << fb[1]) | (cy << f[1])) << fb[2]) | (cx << f[2]);
+  const int ox = f[2], oy = f[1] << fb[2], oz = f[0] << (fb[1] + fb[2]);
+  return max(max(max(ld(base), ld(base + ox)), max(ld(base + oy), ld(base + oy + ox))),
+             max(max(ld(base + oz), ld(base + oz + ox)), max(ld(base + oz + oy), ld(base + oz + oy + ox))));
+}
+
+// Launch 1: a block per tile, one cell of level top: its cells of the
+// deepest level from the pixels the axes' slot tables name (empty cells 0),
+// each pixel's msb+1 byte, then its levels L-1 .. top pooled in shared
+// memory; the levels a node or a pixel's parent lies on (<= lmax) and level
+// top written.  The last block to end pools levels top-1 .. 0 from level
+// top; num_bp is level 0's one cell, the whole box's maximum.
+__global__ void __launch_bounds__(kThreads, 4) pyramid_tiles(const SchedPyramid a) {
+  __shared__ uint8_t cell[2 * kPyrTileCells];  // the tile's levels, the deepest first
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  int tb[3], fb[3], o[3];
+  for (int k = 0; k < 3; ++k) {
+    tb[k] = min(a.top, a.depth[k]);
+    fb[k] = a.depth[k] - tb[k];
   }
-  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-  __shared__ int warp_max[kThreads / 32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) warp_max[warp] = m;
+  const unsigned tile = blockIdx.x;
+  o[2] = tile & ((1u << tb[2]) - 1);
+  o[1] = (tile >> tb[2]) & ((1u << tb[1]) - 1);
+  o[0] = tile >> (tb[1] + tb[2]);
+  const int32_t* iz = a.axes + a.inv[0] + (o[0] << fb[0]);
+  const int32_t* iy = a.axes + a.inv[1] + (o[1] << fb[1]);
+  const int32_t* ix = a.axes + a.inv[2] + (o[2] << fb[2]);
+  const int xy = fb[1] + fb[2], cells = 1 << (fb[0] + xy);
+  const int plane = a.dims[1] * a.dims[2];
+  // every magnitude of the thread's cells loaded before any is used: the
+  // loads are the latency this launch waits on.  Where a plane of the tile
+  // has at most a block's threads of cells (a cube tile: 16 x 16), each
+  // thread keeps one (y, x) column, so its y and x lookups are made once.
+  constexpr int kPer = kPyrTileCells / kThreads;
+  int v[kPer], pix[kPer];  // each cell's magnitude and pixel (n < 2^31; -1: none)
+  if (xy <= 8) {
+    const int col = t & ((1 << xy) - 1);
+    const int py = __ldg(iy + (col >> fb[2])), px = __ldg(ix + (col & ((1 << fb[2]) - 1)));
+    const int at = py * a.dims[2] + px;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = t + u * kThreads;
+      const int pz = c < cells ? __ldg(iz + (c >> xy)) : -1;
+      pix[u] = (pz | py | px) >= 0 ? pz * plane + at : -1;
+      v[u] = pix[u] >= 0 ? __ldg(a.mags + pix[u]) : 0;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int c = t + u * kThreads;
+      pix[u] = -1;
+      if (c < cells) {
+        const int pz = __ldg(iz + (c >> xy)), py = __ldg(iy + ((c >> fb[2]) & ((1 << fb[1]) - 1))),
+                  px = __ldg(ix + (c & ((1 << fb[2]) - 1)));
+        if ((pz | py | px) >= 0) pix[u] = pz * plane + py * a.dims[2] + px;
+      }
+      v[u] = pix[u] >= 0 ? __ldg(a.mags + pix[u]) : 0;
+    }
+  }
+  const bool keep_deep = a.levels <= a.lmax || a.levels == a.top;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int c = t + u * kThreads;
+    if (c < cells) {
+      const int p = msbp1(v[u]);
+      cell[c] = (uint8_t)p;
+      if (pix[u] >= 0) a.pm[pix[u]] = (uint8_t)p;
+      if (keep_deep) a.flat[pyr_cell(a, a.levels, o, fb, c)] = (uint8_t)p;
+    }
+  }
+  uint8_t* fine = cell;
+  for (int d = a.levels - 1; d >= a.top; --d) {
+    int cb[3], f[3];
+    for (int k = 0; k < 3; ++k) {
+      cb[k] = min(d, a.depth[k]) - tb[k];
+      f[k] = fb[k] - cb[k];  // 1 where the axis halves
+    }
+    uint8_t* coarse = fine + (1 << (fb[0] + fb[1] + fb[2]));
+    const bool keep = d <= a.lmax || d == a.top;
+    __syncthreads();
+    for (int c = t; c < 1 << (cb[0] + cb[1] + cb[2]); c += kThreads) {
+      const int v = pool8([&](int i) { return (int)fine[i]; }, fb, f, c >> (cb[1] + cb[2]),
+                          (c >> cb[2]) & ((1 << cb[1]) - 1), c & ((1 << cb[2]) - 1));
+      coarse[c] = (uint8_t)v;
+      if (keep) a.flat[pyr_cell(a, d, o, cb, c)] = (uint8_t)v;
+    }
+    fine = coarse;
+    for (int k = 0; k < 3; ++k) fb[k] = cb[k];
+  }
+  // the done counter, as a grid barrier takes it: the block's writes, then
+  // one thread's fence and atomic
   __syncthreads();
-  if (warp == 0) {
-    m = lane < kThreads / 32 ? warp_max[lane] : 0;
-    for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-    if (lane == 0) atomicMax(num_bp, m);
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(reinterpret_cast<unsigned*>(a.zw), 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block: levels top-1 .. 0 from level top, each read from device memory
+  for (int d = a.top - 1; d >= 0; --d) {
+    int cb[3], f[3], gb[3];
+    for (int k = 0; k < 3; ++k) {
+      cb[k] = min(d, a.depth[k]);
+      gb[k] = min(d + 1, a.depth[k]);
+      f[k] = gb[k] - cb[k];
+    }
+    const uint8_t* src = a.flat + a.off[d + 1];
+    for (int c = t; c < 1 << (cb[0] + cb[1] + cb[2]); c += kThreads) {
+      const int v = pool8([&](int i) { return (int)__ldcg(src + i); }, gb, f, c >> (cb[1] + cb[2]),
+                          (c >> cb[2]) & ((1 << cb[1]) - 1), c & ((1 << cb[2]) - 1));
+      a.flat[a.off[d] + c] = (uint8_t)v;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    *a.num_bp = __ldcg(a.flat + a.off[0]);
+    a.zw[0] = 0;
   }
 }
 
-// level d (2^dz, 2^dy, 2^dx cells) from level d + 1, per-axis factors 1 or 2
-__global__ void pyramid_pool(const uint8_t* __restrict__ fine, uint8_t* __restrict__ coarse,
-                             int dz, int dy, int dx, int z2, int y2, int x2) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >> (dz + dy + dx)) return;
-  const long long cx = c & ((1LL << dx) - 1), cy = (c >> dx) & ((1LL << dy) - 1), cz = c >> (dx + dy);
-  const int fy = dy + (y2 - 1), fx = dx + (x2 - 1);  // log2 of the finer level's y and x sides
-  int v = 0;
-  for (int a = 0; a < z2; ++a)
-    for (int b = 0; b < y2; ++b)
-      for (int k = 0; k < x2; ++k)
-        v = max(v, (int)fine[(((cz * z2 + a) << fy) | (cy * y2 + b)) << fx | (cx * x2 + k)]);
-  coarse[c] = (uint8_t)v;
-}
-
-// threads 0 .. n-1: s and e of a pixel; n .. n+nn-1: a node's maximum
-__global__ void pyramid_finish(const int32_t* __restrict__ mags, const uint8_t* __restrict__ flat,
-                               const int32_t* __restrict__ e_src, const int32_t* __restrict__ nm_src,
-                               const int32_t* __restrict__ num_bp, int32_t* __restrict__ s,
-                               int32_t* __restrict__ e, int32_t* __restrict__ nm, long long n,
-                               long long nn) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int nb = *num_bp;
-    s[i] = sched_of(msbp1(mags[i]), nb);
-    e[i] = sched_of(flat[e_src[i]], nb);
-  } else if (i < n + nn) {
-    nm[i - n] = flat[nm_src[i - n]];
+// Launch 2: thread k < ceil(n / 4) takes pixels 4k .. 4k+3: s from the
+// tiles' msb+1 bytes, e from the level and box of each pixel's parent (its
+// axes' slots and single depths), with 16-byte stores where the rows
+// allow; the threads past them four nodes' maxima each, through nm_src.
+__global__ void __launch_bounds__(kThreads) pyramid_finish(const SchedPyramid a) {
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long quads = (a.n + 3) >> 2;
+  if (k < quads) {
+    const int nb = *a.num_bp;
+    const unsigned nx = a.dims[2], ny = a.dims[1];
+    const long long i0 = 4 * k;
+    unsigned r = (unsigned)i0 / nx, x = (unsigned)i0 - r * nx, z = r / ny, y = r - z * ny;
+    int wz = __ldg(a.axes + a.px[0] + z), wy = __ldg(a.axes + a.px[1] + y);
+    const bool whole = i0 + 4 <= a.n;
+    unsigned pw = 0;  // the four pixels' msb+1, a byte each
+    if (whole) {
+      pw = *reinterpret_cast<const unsigned*>(a.pm + i0);
+    } else {
+      for (int j = 0; j < 4; ++j) pw |= i0 + j < a.n ? (unsigned)a.pm[i0 + j] << (8 * j) : 0u;
+    }
+    int sv[4], ev[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int wx = __ldg(a.axes + a.px[2] + x);
+      const int pd = max(wz & 255, max(wy & 255, wx & 255));
+      const int p = pd > 0 ? pd - 1 : 0;  // the parent's level
+      const int dz = min(p, a.depth[0]), dy = min(p, a.depth[1]), dx = min(p, a.depth[2]);
+      const long long bz = (wz >> 8) >> (a.depth[0] - dz), by = (wy >> 8) >> (a.depth[1] - dy),
+                      bx = (wx >> 8) >> (a.depth[2] - dx);
+      sv[j] = sched_of((pw >> (8 * j)) & 255, nb);
+      ev[j] = sched_of(a.flat[a.off[p] + ((bz << (dy + dx)) | (by << dx) | bx)], nb);
+      if (j < 3 && ++x == nx) {  // the next pixel starts a row
+        x = 0;
+        if (++y == ny) y = 0, ++z;
+        if (i0 + j + 1 < a.n) {
+          wz = __ldg(a.axes + a.px[0] + z);
+          wy = __ldg(a.axes + a.px[1] + y);
+        }
+      }
+    }
+    if (whole) {
+      *reinterpret_cast<int4*>(a.s + i0) = make_int4(sv[0], sv[1], sv[2], sv[3]);
+      *reinterpret_cast<int4*>(a.e + i0) = make_int4(ev[0], ev[1], ev[2], ev[3]);
+    } else {
+      for (int j = 0; j < 4; ++j)
+        if (i0 + j < a.n) a.s[i0 + j] = sv[j], a.e[i0 + j] = ev[j];
+    }
+  } else if (4 * (k - quads) < a.nn) {
+    const long long j0 = 4 * (k - quads);
+    if (j0 + 4 <= a.nn && (reinterpret_cast<uintptr_t>(a.nm_src) & 15) == 0) {
+      const int4 src = __ldg(reinterpret_cast<const int4*>(a.nm_src + j0));
+      *reinterpret_cast<int4*>(a.nm + j0) = make_int4(a.flat[src.x], a.flat[src.y], a.flat[src.z], a.flat[src.w]);
+    } else {
+      for (long long j = j0; j < j0 + 4 && j < a.nn; ++j) a.nm[j] = a.flat[__ldg(a.nm_src + j)];
+    }
   }
 }
 
@@ -644,37 +834,21 @@ extern "C" int sperr_sched_table(const SchedTable* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The pyramid schedule: flat holds levels 0 .. L (level d: 2^min(d, az) x
-// 2^min(d, ay) x 2^min(d, ax) bytes, depth 0 first); num_bp zeroed by the
-// caller.  Launches: the scatter into level L (which this call zeroes
-// first), one pool per level, the finish.
-extern "C" int sperr_sched_pyramid(const int32_t* mags, long long n, const int32_t* deep_idx,
-                                   int L, int az, int ay, int ax, uint8_t* flat,
-                                   const int32_t* e_src, const int32_t* nm_src, long long nn,
-                                   int32_t* num_bp, int32_t* s, int32_t* e,
-                                   int32_t* nm, cudaStream_t stream) {
-  if (n < 1 || L < 0 || L > 30) return (int)cudaErrorInvalidValue;
-  long long off[32];
-  off[0] = 0;
-  for (int d = 0; d <= L; ++d) {
-    const int dz = d < az ? d : az, dy = d < ay ? d : ay, dx = d < ax ? d : ax;
-    off[d + 1] = off[d] + (1LL << (dz + dy + dx));
+// The pyramid schedule: two launches (the tiles, then s, e and nm), no fill.
+extern "C" int sperr_sched_pyramid(const SchedPyramid* a, cudaStream_t stream) {
+  bool ok = a->n >= 1 && a->n < 0x7FFFFFFFLL && a->nn >= 1 && a->levels >= 0 && a->levels <= kPyrLevels
+            && a->top >= 0 && a->top <= a->levels && a->lmax >= 0 && a->lmax <= a->levels;
+  int tile_bits = 0, top_bits = 0;
+  for (int k = 0; k < 3 && ok; ++k) {
+    ok = a->depth[k] >= 0 && a->depth[k] <= a->levels && a->dims[k] >= 1;
+    const int tb = a->top < a->depth[k] ? a->top : a->depth[k];
+    top_bits += tb;
+    tile_bits += a->depth[k] - tb;
   }
-  cudaError_t err = cudaMemsetAsync(flat + off[L], 0, (size_t)(off[L + 1] - off[L]), stream);
+  if (!ok || (1 << tile_bits) > kPyrTileCells || top_bits > 30) return (int)cudaErrorInvalidValue;
+  pyramid_tiles<<<1u << top_bits, kThreads, 0, stream>>>(*a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  long long grid = blocks_for(n);
-  pyramid_scatter<<<(unsigned)(grid < 4096 ? grid : 4096), kThreads, 0, stream>>>(
-      mags, deep_idx, flat + off[L], num_bp, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  for (int d = L - 1; d >= 0; --d) {
-    const int dz = d < az ? d : az, dy = d < ay ? d : ay, dx = d < ax ? d : ax;
-    pyramid_pool<<<blocks_for(off[d + 1] - off[d]), kThreads, 0, stream>>>(
-        flat + off[d + 1], flat + off[d], dz, dy, dx, d < az ? 2 : 1, d < ay ? 2 : 1, d < ax ? 2 : 1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  pyramid_finish<<<blocks_for(n + nn), kThreads, 0, stream>>>(
-      mags, flat, e_src, nm_src, num_bp, s, e, nm, n, nn);
+  pyramid_finish<<<blocks_for((a->n + 3) / 4 + (a->nn + 3) / 4), kThreads, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -377,14 +377,16 @@ def pixel_schedule_ref(mags: torch.Tensor, ti: TreeIndex, num_bp) -> Tuple[torch
 
 class PyramidIndex:
     """Static device tensors of the pyramid-form schedule (3D dyadic dims):
-    the per-axis slot tables that embed the pixels in a power-of-two box,
-    and, as flat indices into the concatenated pyramid levels, each node's
-    box (in node order) and each pixel's parent box.  Raises ValueError for
-    dims the pyramid cannot serve (wavelet-packet dims), as the original
-    does."""
+    for the plain version, each pixel's cell of the deepest level
+    (``deep_idx``) and, as flat indices into the concatenated pyramid
+    levels, each node's box (``nm_src``, in node order) and each pixel's
+    parent box (``e_src``); for the kernels, ``plan``
+    (``kernels.PyramidPlan``): per-axis tables in place of the n-entry ones
+    (each axis's slots' pixels, its pixels' slots and single depths), the
+    tiles' level and the deepest level read.  Raises ValueError for dims
+    the pyramid cannot serve (wavelet-packet dims), as the original does."""
 
-    __slots__ = ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn",
-                 "deep_idx32", "nm_src32", "e_src32")
+    __slots__ = ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn", "plan")
 
     def __init__(self, dims, device):
         dev = torch.device(device)
@@ -434,12 +436,20 @@ class PyramidIndex:
                                 | bx[None, None, :])
             e_src[mask] = flat[mask]
         self.e_src = _long(e_src.reshape(-1), dev)
-        # the kernel's int32 copies
-        if off[-1] >= 2**31:
+        # the kernels' plan: the n-entry deep_idx and e_src give way to per-axis tables
+        if off[-1] >= 2**31 or max(self.ax_depth) > 23:
             raise ValueError(f"the pyramid of {self.dims} is too large for int32 tables")
-        self.deep_idx32 = self.deep_idx.to(torch.int32)
-        self.nm_src32 = self.nm_src.to(torch.int32)
-        self.e_src32 = self.e_src.to(torch.int32)
+        lmax = max(max(perm), max(int(pd.max()) - 1, 0))
+        top = kernels.pyramid_top(self.ax_depth)
+        tabs = []
+        for t in (pyr.az, pyr.ay, pyr.ax):
+            tabs += [t.inv, (t.slot << 8) | t.d_single]
+        starts = np.cumsum([0] + [len(a) for a in tabs])
+        self.plan = kernels.PyramidPlan(
+            dims=(nz, ny, nx), depth=self.ax_depth, levels=self.levels, top=top, lmax=lmax,
+            off=tuple(int(v) for v in off[:max(lmax, top) + 2]), axes=_int(np.concatenate(tabs), dev),
+            inv=tuple(int(v) for v in starts[0:6:2]), px=tuple(int(v) for v in starts[1:6:2]),
+            nm_src=self.nm_src.to(torch.int32))
 
 
 _PYR_INDEXES: Dict[Tuple[Tuple[int, ...], str], PyramidIndex] = {}
@@ -458,11 +468,10 @@ def pyramid_index(dims, device) -> PyramidIndex:
 def schedule_pyramid(mags: torch.Tensor, pi: PyramidIndex):
     """(num_bp, s, e, node maxima in tree order) of the pyramid schedule (3D
     dyadic dims), num_bp an int32 0-d tensor on the device.  On a CUDA
-    tensor the ``sched_pyramid`` kernels (2 + levels launches); on a CPU
-    tensor the plain version."""
+    tensor the ``sched_pyramid`` kernels (two launches); on a CPU tensor the
+    plain version."""
     if _dispatch(mags, "schedule_pyramid"):
-        return kernels.sched_pyramid(_words32(mags).reshape(-1), pi.deep_idx32, pi.levels, pi.ax_depth,
-                                     pi.e_src32, pi.nm_src32)
+        return kernels.sched_pyramid(_words32(mags).reshape(-1), pi.plan)
     num_bp = msbp1_device(mags).max()
     return (num_bp,) + pixel_schedule_pyramid_ref(mags, pi, num_bp)
 

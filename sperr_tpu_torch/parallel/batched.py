@@ -164,9 +164,10 @@ def _dense_encode_rows(batch: torch.Tensor, mode: str, quality: float, residual:
                        forward, inverse_, out_cap: Optional[int] = None):
     """The dense front on batch (B, ...): condition -> ``forward`` -> q ->
     quantize (K1) [PWE: inverse quantize -> ``inverse_`` (its result is
-    used; it may transform in place or out of place) -> residual].  Float
-    reductions run row by row; the transforms and K1 take the whole batch,
-    and every line of them is computed on its own.
+    used; it may transform in place or out of place) -> residual].  The
+    mean runs row by row; the transforms, the PSNR search (K16: its sums'
+    order depends on n alone) and K1 take the whole batch, and every line
+    of them is computed on its own.
 
     ``out_cap`` set is the wave program's front (sperr_tpu
     ``_encode_core_wave``): the "margin" residual scans at max(tol - eta, 0)
@@ -189,7 +190,7 @@ def _dense_encode_rows(batch: torch.Tensor, mode: str, quality: float, residual:
     coeffs = forward(conditioned.reshape(batch.shape)).reshape(B, n)
 
     if mode == "psnr":
-        q = _per_row(lambda c, r: qz.estimate_q_psnr_batched(c, r, quality), coeffs, rng)
+        q = qz.estimate_q_psnr_batched(coeffs, rng, quality)
     elif mode == "pwe":
         q = torch.full((B,), quality * 1.5, dtype=batch.dtype, device=batch.device)
     else:  # rate: magnitudes must stay exactly representable in f32

@@ -69,9 +69,9 @@ def _dense_encode2(batch: torch.Tensor, mode: str, quality: float, residual: str
     """batch (B, ny, nx) f32 on the device -> dict of per-field results
     (dense ``mags``/``signs``, and for PWE ``diff``/``outlier_mask``).
 
-    The means and the PSNR search run field by field and K2, K1 and K3 take
-    the whole batch, computing each line on its own, so a field's results
-    do not depend on the batch it came in."""
+    The means run field by field; K2, the PSNR search (K16), K1 and K3
+    take the whole batch, computing each field or line on its own, so a
+    field's results do not depend on the batch it came in."""
     return _dense_encode_rows(batch, mode, quality, residual, cdf97.dwt2d, cdf97.idwt2d)
 
 

@@ -408,6 +408,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.quantize(c, torch.ones(2))
     with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.psnr_q(c, torch.ones(2), torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.cdf97_lift(torch.zeros((1, 4, 4, 4)), -1, (4, 4, 4), False, np.ones(6))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.dwt2d_full(torch.zeros((2, 16, 16)), np.ones(6))
@@ -444,7 +446,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.table_anchors(kernels.TableArgs(), "cpu", w, np.zeros(0, np.int32), 0)
     assert set(kernels.launches) == {
-        "quantize", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
+        "quantize", "psnr_q", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
         "emit_stage", "emit_planes", "table_anchors", "table_walk", "node_passes",

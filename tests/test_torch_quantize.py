@@ -1,7 +1,11 @@
-"""The port's quantizer (sperr_tpu_torch/ops/quantize.py) against sperr_tpu's.
+"""The port's quantizer and PSNR search (sperr_tpu_torch/ops/quantize.py)
+against sperr_tpu's.
 
-On the CPU the port runs the plain version of kernel K1; the CUDA kernel is
-held against the same plain version on the card by chip_smoke.py."""
+On the CPU the port runs the plain versions of kernels K1 and K16; the CUDA
+kernels are held against the same plain versions on the card by
+chip_smoke.py.  K16's rounds are emulated in numpy here."""
+
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +14,7 @@ import torch
 
 from sperr_tpu.ops import pallas_kernels as pk
 from sperr_tpu.ops import quantize_jax as qzj
+from sperr_tpu_torch import kernels
 from sperr_tpu_torch.ops import quantize as qz
 
 
@@ -74,3 +79,164 @@ def test_estimate_q_psnr_matches_jax(psnr):
 
 def test_rate_constant_matches_jax():
     assert qz.RATE_MAX_MAG_DEVICE == qzj.RATE_MAX_MAG_DEVICE
+
+
+# ---------------------------------------------------------------------------
+# K16, the PSNR search: the plain version's f64 MSE and its stop, the batch,
+# and a numpy emulation of the kernel's rounds (kernels/quantize.cu psnr_q)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def one_thread():
+    """The searches' many small ops wait for threads that the other test
+    workers hold; one thread keeps a search to its own time."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _normal_row(seed, n=65536):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(scale=100.0, size=(1, n)).astype(np.float32))
+
+
+def _loop_q(c: np.ndarray, q0: np.float32, t_mse: np.float32):
+    """The search as a plain loop in numpy: (q, evaluations)."""
+    shrink = np.float32(kernels.PSNR_SHRINK)
+    q, evals = np.float32(q0), 0
+    while True:  # q past f32's range gives inf and nan, as in the kernel
+        evals += 1
+        d = c - q * np.rint(c * (np.float32(1.0) / q))
+        if not np.sum(d.astype(np.float64) ** 2) / c.size > np.float64(t_mse):
+            return q, evals
+        q = np.float32(q * shrink)
+
+
+def test_psnr_search_raises_where_f32_cannot_reach_the_target(one_thread):
+    """PSNR 120 on normal(scale 100) coefficients with a data range of 1:
+    q shrinks to a subnormal that no longer moves; the loop would not end."""
+    c = _normal_row(0)
+    t0 = time.perf_counter()
+    with pytest.raises(ValueError, match=r"row 0: .*cannot be reached in f32"):
+        qz.estimate_q_psnr_batched(c, torch.ones(1), 120.0)
+    assert time.perf_counter() - t0 < 10.0
+
+
+def test_psnr_search_takes_the_loops_q_after_seven_evaluations(one_thread):
+    c = _normal_row(0)
+    q = qz.estimate_q_psnr_batched(c, torch.ones(1), 110.0)
+    t_mse, q0 = qz.psnr_start(torch.ones(1), 110.0)
+    want, evals = _loop_q(c[0].numpy(), q0.numpy()[0], t_mse.numpy()[0])
+    assert evals == 7
+    assert q.dtype == torch.float32 and q.numpy()[0] == want == np.float32(3.8729836e-06)
+
+
+def test_psnr_search_row_alone_equals_row_in_a_batch():
+    """The dense front searches the whole batch at once: each chunk's q is
+    the one it gets alone."""
+    from sperr_tpu_torch.ops import cdf97
+    from sperr_tpu_torch.parallel import batched as tb
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(size=(3, 12, 16, 16)).astype(np.float32) * np.float32([1, 40, 0.01])[:, None, None, None])
+    for psnr in (60.0, 95.0):
+        batch = tb._dense_encode_rows(x, "psnr", psnr, "none", cdf97.dwt3d, cdf97.idwt3d_)["q"]
+        alone = torch.cat([tb._dense_encode_rows(x[b:b + 1], "psnr", psnr, "none", cdf97.dwt3d,
+                                                 cdf97.idwt3d_)["q"] for b in range(3)])
+        np.testing.assert_array_equal(batch.numpy(), alone.numpy())
+
+
+def _emulate_psnr_kernel(c: np.ndarray, q0: np.ndarray, t_mse: np.ndarray, J: int):
+    """kernels/quantize.cu psnr_q's rounds in numpy: each block's f64 sums
+    over its share of the row (16-byte loads by grid stride where n % 4 ==
+    0), the last block's parts of the blocks in order, the first met of J
+    candidates; open rows resume from q_J.  Returns (q, rounds) or raises
+    as the kernel's wrapper does."""
+    B, n = c.shape
+    blocks = kernels.psnr_blocks(n)
+    parts = 256 // kernels.PSNR_CANDIDATES
+    shrink = np.float32(kernels.PSNR_SHRINK)
+    # which block takes each element: vector v (4 floats) or element i, by grid stride
+    unit = np.arange(n) // 4 if n % 4 == 0 else np.arange(n)
+    blk = (unit % (blocks * 256)) // 256
+    q_out = np.zeros(B, np.float32)
+    start = q0.astype(np.float32).copy()
+    status = np.zeros(B, np.int32)
+    rounds = 0
+    while True:
+        rounds += 1
+        for b in np.flatnonzero(status == 0):
+            qs = [start[b]]
+            for _ in range(J):
+                qs.append(np.float32(qs[-1] * shrink))
+            met = -1
+            for j in range(J):
+                d = c[b] - qs[j] * np.rint(c[b] * (np.float32(1.0) / qs[j]))
+                sq = d.astype(np.float64) ** 2
+                per_block = np.bincount(blk, weights=sq, minlength=blocks)
+                total = sum(sum(per_block[p::parts]) for p in range(parts))
+                if not total / n > np.float64(t_mse[b]):
+                    met = j
+                    break
+            if met >= 0:
+                q_out[b], status[b] = qs[met], 1
+            else:
+                start[b] = qs[J]
+                status[b] = 2 if qs[J] == qs[J - 1] else 0
+        stuck = np.flatnonzero(status == 2)
+        if stuck.size:
+            raise ValueError(kernels.psnr_unreachable(int(stuck[0]), float(t_mse[stuck[0]]),
+                                                      float(start[stuck[0]])))
+        if not (status == 0).any():
+            return q_out, rounds
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered:RuntimeWarning")
+@pytest.mark.parametrize("J", [8, 2, 1])
+@pytest.mark.parametrize("n", [4096, 3001])
+def test_psnr_kernel_rounds_emulated_equal_plain(J, n, one_thread):
+    """Rows that need 1 to 7 evaluations, several rounds where J is small,
+    and the rows met early take no part in later rounds."""
+    rng = np.random.default_rng(n + J)
+    c = rng.normal(scale=100.0, size=(4, n)).astype(np.float32)
+    c[3] *= np.float32(1e-3)
+    data_range = np.float32([1.0, 3.0, 1.0, 50.0])
+    for psnr in (80.0, 105.0, 110.0):
+        t_mse, q0 = qz.psnr_start(torch.from_numpy(data_range), psnr)
+        want = qz.psnr_q_ref(torch.from_numpy(c), q0, t_mse).numpy()
+        got, rounds = _emulate_psnr_kernel(c, q0.numpy(), t_mse.numpy(), J)
+        np.testing.assert_array_equal(got, want)
+        evals = [_loop_q(c[b], q0.numpy()[b], t_mse.numpy()[b])[1] for b in range(4)]
+        assert rounds == -(-max(evals) // J)
+    assert max(evals) > 2  # the J = 1 and 2 cases took more than one round
+    t_mse, q0 = qz.psnr_start(torch.ones(4), 120.0)
+    with pytest.raises(ValueError, match="cannot be reached") as plain:
+        qz.psnr_q_ref(torch.from_numpy(c[:1]), q0[:1], t_mse[:1])
+    with pytest.raises(ValueError, match="cannot be reached") as emulated:
+        _emulate_psnr_kernel(c[:1], q0.numpy()[:1], t_mse.numpy()[:1], J)
+    assert str(plain.value) == str(emulated.value)
+
+
+def test_psnr_kernel_constants_match_the_source():
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "quantize.cu")).read()
+    assert int(re.search(r"constexpr int kPsnrCand = (\d+);", src).group(1)) == kernels.PSNR_CANDIDATES >= 8
+    shrink = re.search(r"constexpr float kShrink = ([0-9.]+)f;", src).group(1)
+    assert np.float32(shrink) == np.float32(kernels.PSNR_SHRINK) == np.float32(1.0 / 2.0**0.25)
+    assert float(shrink) == kernels.PSNR_SHRINK  # the f32 value written out exactly
+    assert kernels.psnr_blocks(1) == 1 and kernels.psnr_blocks(256**3) == 1024
+    assert "psnr_q" in kernels.launches
+
+
+def test_psnr_search_cpu_tensors_never_load_the_kernels(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(kernels, "load", refuse)
+    qz.estimate_q_psnr_batched(_normal_row(1, 1024), torch.ones(1), 80.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.psnr_q(_normal_row(1, 1024), torch.ones(1), torch.ones(1))
+    with pytest.raises(ValueError, match="no PSNR search for tensors on meta"):
+        qz.estimate_q_psnr_batched(torch.zeros((1, 8), device="meta"), torch.ones(1, device="meta"), 80.0)

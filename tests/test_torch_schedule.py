@@ -555,6 +555,159 @@ def test_sched_table_struct_and_constants_match_the_source():
     assert ctypes.sizeof(kernels.SchedTable) == -(-(14 * 8 + 8 + 4 * (1 + 6 + 9 + 33 + 34)) // 8) * 8
 
 
+def _emulate_pyramid_kernels(mags: np.ndarray, pi, top=None, seed=0):
+    """kernels/schedule.cu's pyramid schedule as numpy: pyramid_tiles' blocks
+    in a random order, each one cell of level ``top`` (the plan's, or a
+    deeper one: smaller tiles), its deep cells' pixels through the per-axis
+    slot tables, its levels pooled down to top in its own buffer and written
+    where a node or a pixel's parent lies (<= lmax) or at top, into levels
+    prefilled with a filler (an unwritten cell read shows); the last block
+    pools levels top-1 .. 0 from level top and takes num_bp from level 0;
+    then pyramid_finish: s, e from each pixel's axes' slots and single
+    depths, nm through nm_src."""
+    p = pi.plan
+    top = p.top if top is None else top
+    nz, ny, nx = p.dims
+    depth = p.depth
+    axes = p.axes.numpy()
+    inv = [axes[p.inv[k]:p.inv[k] + (1 << depth[k])] for k in range(3)]
+    px = [axes[p.px[k]:p.px[k] + p.dims[k]] for k in range(3)]
+    cells = [1 << sum(min(d, a) for a in depth) for d in range(p.levels + 1)]
+    off = np.concatenate([[0], np.cumsum(cells)])
+    np.testing.assert_array_equal(off[:len(p.off)], p.off)
+    flat = np.full(off[max(p.lmax, top) + 1], 0xEE, np.int64)
+    pm = np.array([int(v).bit_length() for v in mags], np.int64)
+    tb = [min(top, a) for a in depth]
+
+    def store(d, o, cb, vals):
+        gy, gx = min(d, depth[1]), min(d, depth[2])
+        c = np.arange(vals.size)
+        cx, cy, cz = c & ((1 << cb[2]) - 1), (c >> cb[2]) & ((1 << cb[1]) - 1), c >> (cb[1] + cb[2])
+        z, y, x = (o[0] << cb[0]) + cz, (o[1] << cb[1]) + cy, (o[2] << cb[2]) + cx
+        flat[off[d] + ((z << (gy + gx)) | (y << gx) | x)] = vals
+
+    order = np.random.default_rng(seed).permutation(1 << sum(tb))
+    for tile in order:
+        o = [tile >> (tb[1] + tb[2]), (tile >> tb[2]) & ((1 << tb[1]) - 1), tile & ((1 << tb[2]) - 1)]
+        fb = [a - t for a, t in zip(depth, tb)]
+        c = np.arange(1 << sum(fb))
+        pz = inv[0][(o[0] << fb[0]) + (c >> (fb[1] + fb[2]))]
+        py = inv[1][(o[1] << fb[1]) + ((c >> fb[2]) & ((1 << fb[1]) - 1))]
+        px_ = inv[2][(o[2] << fb[2]) + (c & ((1 << fb[2]) - 1))]
+        ok = (pz | py | px_) >= 0
+        fine = np.where(ok, pm[np.where(ok, (pz * ny + py) * nx + px_, 0)], 0)
+        if p.levels <= p.lmax or p.levels == top:
+            store(p.levels, o, fb, fine)
+        for d in range(p.levels - 1, top - 1, -1):
+            cb = [min(d, a) - t for a, t in zip(depth, tb)]
+            f = [a - b for a, b in zip(fb, cb)]
+            fine = fine.reshape(1 << cb[0], 1 << f[0], 1 << cb[1], 1 << f[1], 1 << cb[2], 1 << f[2]).max(
+                axis=(1, 3, 5)).reshape(-1)
+            if d <= p.lmax or d == top:
+                store(d, o, cb, fine)
+            fb = cb
+    # the last block: levels top-1 .. 0 from level top
+    for d in range(top - 1, -1, -1):
+        cb = [min(d, a) for a in depth]
+        f = [min(d + 1, a) - b for a, b in zip(depth, cb)]
+        src = flat[off[d + 1]:off[d + 2]]
+        flat[off[d]:off[d + 1]] = src.reshape(1 << cb[0], 1 << f[0], 1 << cb[1], 1 << f[1], 1 << cb[2],
+                                              1 << f[2]).max(axis=(1, 3, 5)).reshape(-1)
+    num_bp = int(flat[0])  # level 0's one cell: the whole box's maximum
+
+    def sched(v):
+        return np.where(v > 0, num_bp - v, _NEVER)
+
+    i = np.arange(nz * ny * nx)
+    x, r = i % nx, i // nx
+    y, z = r % ny, r // ny
+    wz, wy, wx = px[0][z], px[1][y], px[2][x]
+    pd = np.maximum(wz & 255, np.maximum(wy & 255, wx & 255))
+    lev = np.maximum(pd - 1, 0)
+    dz, dy, dx = (np.minimum(lev, a) for a in depth)
+    box = ((wz >> 8) >> (depth[0] - dz) << (dy + dx)) | ((wy >> 8) >> (depth[1] - dy) << dx) | ((wx >> 8) >> (depth[2] - dx))
+    ebox = flat[off[lev] + box]
+    nm = flat[p.nm_src.numpy()]
+    assert (ebox != 0xEE).all() and (nm != 0xEE).all()
+    return num_bp, sched(pm), sched(ebox), nm
+
+
+@pytest.mark.parametrize("dims", _PYRAMID_DIMS + [(12, 16, 16), (9, 65, 10), (65, 17, 17)])
+@pytest.mark.parametrize("case", ["sparse", "single pixel", "2^31 - 1"])
+def test_pyramid_kernels_emulated_equal_jax(dims, case):
+    """The pyramid schedule's two launches, emulated with the plan's tile
+    level and with the next deeper one (smaller tiles): equal to the plain version and to
+    sperr_tpu's pixel_schedule_pyramid.  (23, 16, 16), (9, 65, 10) and
+    (65, 17, 17) have axes of unequal depths (z, y, x: 4, 4, 5; 4, 7, 4;
+    5, 5, 7)."""
+    n = int(np.prod(dims))
+    mags = _mags(n, case, seed=n)
+    pi = tspk.pyramid_index(dims, "cpu")
+    plain = tspk.schedule_pyramid(torch.from_numpy(mags), pi)
+    nbj, _, *want = _jax_table(dims, "pyramid")(jnp.asarray(mags))
+    _equal(plain, (nbj, *want), ("num_bp", "s", "e", "nm"))
+    for top in range(pi.plan.top, min(pi.plan.top + 2, pi.plan.levels + 1)):
+        got = _emulate_pyramid_kernels(mags, pi, top, seed=top)
+        assert got[0] == int(nbj)
+        for name, a, b in zip(("s", "e", "nm"), got[1:], want):
+            np.testing.assert_array_equal(a, np.asarray(b), f"{name}, tiles at level {top}")
+
+
+@pytest.mark.parametrize("dims", _PYRAMID_DIMS + [(97, 128, 118)])
+def test_pyramid_plan_tables(dims):
+    """The plan's per-axis tables against the n-entry tables they replace:
+    the deep cell of every pixel (deep_idx) from the slot tables' inverse,
+    and each pixel's parent box (e_src) from its slots and single depths;
+    the tile level's bound, and no node or parent box below lmax."""
+    pi = tspk.pyramid_index(dims, "cpu")
+    p = pi.plan
+    assert max(p.depth) == p.levels and p.top == kernels.pyramid_top(p.depth)
+    assert sum(a - min(p.top, a) for a in p.depth) <= 12 and (
+        p.top == 0 or sum(a - min(p.top - 1, a) for a in p.depth) > 12)
+    axes = p.axes.numpy()
+    nz, ny, nx = p.dims
+    slot, single = [], []
+    for k in range(3):
+        inv = axes[p.inv[k]:p.inv[k] + (1 << p.depth[k])]
+        w = axes[p.px[k]:p.px[k] + p.dims[k]]
+        slot.append(w >> 8)
+        single.append(w & 255)
+        np.testing.assert_array_equal(inv[w >> 8], np.arange(p.dims[k]))
+        assert (inv >= 0).sum() == p.dims[k]
+    deep = (slot[0][:, None, None] << (p.depth[1] + p.depth[2])) | (slot[1][None, :, None] << p.depth[2]) | slot[2]
+    np.testing.assert_array_equal(deep.reshape(-1), pi.deep_idx.numpy())
+    lev = np.maximum(np.maximum.outer(np.maximum.outer(single[0], single[1]), single[2]) - 1, 0)
+    dz, dy, dx = (np.minimum(lev, a) for a in p.depth)
+    box = ((slot[0][:, None, None] >> (p.depth[0] - dz)) << (dy + dx)) | (
+        (slot[1][None, :, None] >> (p.depth[1] - dy)) << dx) | (slot[2][None, None, :] >> (p.depth[2] - dx))
+    off = np.asarray(p.off)
+    np.testing.assert_array_equal((off[lev] + box).reshape(-1), pi.e_src.numpy())
+    assert lev.max() <= p.lmax < len(off) - 1 and int(p.nm_src.max()) < off[p.lmax + 1]
+    assert p.lmax < p.levels  # the deepest level holds neither: the tiles keep it in shared memory
+    np.testing.assert_array_equal(p.nm_src.numpy(), pi.nm_src.numpy())
+
+
+def test_sched_pyramid_struct_and_constants_match_the_source():
+    """kernels.SchedPyramid against schedule.cu's struct, field for field,
+    and the pyramid constants the host mirrors."""
+    import ctypes
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "schedule.cu")).read()
+    body = src[src.index("struct SchedPyramid {"):src.index("};", src.index("struct SchedPyramid {"))]
+    names = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            names += [re.search(r"(\w+)(\[[^\]]*\])?\s*$", part.strip()).group(1) for part in decl.split(",")]
+    assert names == [f[0] for f in kernels.SchedPyramid._fields_]
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["kPyrLevels"] == kernels.PYR_LEVELS and consts["kPyrTileCells"] == kernels.PYR_TILE_CELLS
+    # 10 pointers, n, nn, the level starts, four triples and three ints, to 8 bytes
+    assert ctypes.sizeof(kernels.SchedPyramid) == -(-(10 * 8 + 16 + 8 * (kernels.PYR_LEVELS + 2) + 4 * 15) // 8) * 8
+
+
 def test_cpu_tensors_never_load_the_kernels(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CPU tensor reached the kernel library")
@@ -607,5 +760,5 @@ def test_schedule_kernels_registered_and_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.sched_table(w, w, w[:2], w, tspk.tree_index(_DIMS_2D[0], "cpu").plan)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.sched_pyramid(w, w, 3, (2, 2, 2), w, w[:9])
+        kernels.sched_pyramid(w, tspk.pyramid_index(_PYRAMID_DIMS[0], "cpu").plan)
     assert kernels.pyramid_cells(1) == 1 and kernels.pyramid_cells(8) == sum(8**g for g in range(8))
