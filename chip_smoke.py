@@ -15,7 +15,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the full one, timed per call and per launch at (16, 1024^2) and
      (1, 1800, 3600);
      the bit transpose K10 (on the masks of every window of each class, as
-     the plain K9b builds them), the masked pack K11 and the flag compaction
+     the plain planes launch builds them), the masked pack K11 and the flag compaction
      K12 bit for bit on the inputs that one 256^3 chunk's schedule and walk
      give them, at the first tier and at the widest, and K12 at the sparse
      transfer's shape (that chunk's nonzero flags, take n/2, beside
@@ -36,7 +36,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (psnr_q) on the inputs the PSNR fronts give it at PSNR 80 (phase 5's
      chunk, the headline volume's 8 chunks in one call, phase 7's 16
      fields, phase 8's field), with second rounds forced and a target f32
-     cannot reach raising on both sides; the
+     cannot reach raising on both sides, each call's two launches a round
+     (a lean launch of 3 candidates, a full one of 8 queued behind it) and
+     each input's shrink counts; the
      walk kernels of kernels/walk.cu bit for bit: the child value table
      (walk_vtab), K7 (anchor_ranks), the whole 3D walk (walk_rows and the
      key kernels, payload words padding included) and every radix sort it
@@ -54,24 +56,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
      emission kernels of kernels/emit.cu bit for bit, every output, on
      each call the emission makes (K9, emit_stage: a cube's exposure and
      the three classes' planes in two launches, emit_cube; the other 3D
-     forms' planes in one, emit_fields; K9b, emit_planes: one class's
-     planes for the 2D program): headline chunk 0 at tiers 0, 1, the
+     forms' planes in one, emit_fields; the 2D program's emission in two,
+     emit_fields with no payload, then with no pixel field): headline
+     chunk 0 at tiers 0, 1, the
      widest (P = 34, every pixel), P = 34 compacted (magnitudes apart) and
      an exposure forced to overflow; an all-zero, a one-pixel, a 2^31 - 1
      and an all-2^31 - 1 256^3 chunk; 16^3 and 2^3 cubes and a 16^3 cube
      capped below one box; a Hurricane packet chunk (K12's compaction) and
-     a 1024^2 field (K14: its pixel classes and its walk's LIS class); the
+     a 1024^2 field (K14: its pixel half and its walk's LIS half); the
      stage timed at tiers 0 and 1 (and per launch) beside its plain version
-     and its bound (inputs read once, outputs written once), K9b on the
-     1024^2 field's classes, and the launches between the walk and K11
-     counted (K9's two only); the tier-1 stage repeated 50 times, every
+     and its bound (inputs read once, outputs written once), the 1024^2
+     field's two halves each timed beside its plain version and bound, and
+     the launches between the walk and K11 counted (K9's two only); the
+     tier-1 stage repeated 50 times, every
      output of every call against the plain version's (a race check on the
      look-back); the
      table and 2D walks' kernels of kernels/walk_table.cu bit for bit,
      every output: node_passes, table_anchors (J, R, u, jp, alone and in
      the walk), the whole walk (payload words, padding included, and n_sig)
      with every radix sort it ran, and the 2D LIS segments
-     through K9b and K11 against the plain event form at three caps, on a
+     through K9's planes launch and K11 against the plain event form at
+     three caps, on a
      Hurricane packet chunk at tiers 0, 1 and a node cap of nn / 20, its
      all-zero, one-pixel and 2^31 - 1 forms, the dyadic chunk, a 1024^2,
      the 1800x3600 and a 3600x7200 field (its finest rank level too wide
@@ -95,7 +100,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
   6. the device entropy path (entropy="wave"): phase 4's volume, whose
      container must equal phase 4's byte for byte (1,012,155 bytes) with
      every chunk on the device and K1, the lifting kernel, K9 (emit_stage,
-     two launches per emission; K9b not), K11, K12, the schedule's
+     two launches per emission), K11, K12, the schedule's
      sched_boxmax and sched_virtual and the walk's walk_vtab, anchor_ranks,
      walk_rows and radix sort launched, K10 not at all; the volume as one
      512^3 chunk, its wave container equal to its host one with the walk on
@@ -126,12 +131,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      scan or cummax;
  10. the 2D device entropy path (entropy="wave"): phase 7's fields, whose
      streams must equal phase 7's (167,627 bytes) with every field on the
-     device and K1, K2, K3, emit_planes, K11, K12, sched_table (with the
-     I-set passes), the radix sort, node_passes, table_anchors and
-     table_walk launched (K10 not), decoded within the bound, the encode timed on both
-     routes; one field's device program (device-busy and host-issued time,
-     host waits, its K9b, K11 and K12 calls bit for bit, K10 on K9b's
-     masks, its launches by name, and every device operation from its
+     device and K1, K2, K3, emit_stage (two launches a field program), K11,
+     K12, sched_table (with the I-set passes), the radix sort, node_passes,
+     table_anchors and table_walk launched (K10 not), decoded within the
+     bound, the encode timed on both routes; one field's device program
+     (device-busy and host-issued time, host waits, its two planes launches,
+     K11 and K12 calls bit for bit, K10 on the planes' masks, its launches
+     by name, and every device operation from its
      schedule's first kernel to K11's last one of the repo's kernels or a
      memset); phase 8's
      field at PWE, PSNR and rate, a 3600x7200 field at PWE (its finest
@@ -190,9 +196,8 @@ stage at tiers 0 and 1 with its launches between the walk and K11
 (``repeats``: calls, each launch's least, median and largest device time);
 reconstruct_mags's row is the decode's (8, 256^3) call, per launch
 (``per_launch``), on one chunk (``one_chunk``) and repeated (``repeats``);
-emit_planes's (K9b) a 1024^2 field's three classes summed,
-by class (``per_class``), its launches those of phase 10's 2D encode (0 on
-the cube path, ``launches_cube_path``);
+with its launches in phase 10's first timed 2D encode (``launches_2d``) and
+a 1024^2 field's two planes launches, each timed (``2d_field``);
 K10's row says that its transpose runs inside K9 on the wave paths
 (``merged_into``: its launches there are 0).
 ``python3 chip_smoke.py --kernels-only`` stops after phase 3 and prints no
@@ -457,16 +462,19 @@ def _chunk512(kernels, smi: str, vol) -> dict:
 
 
 def _k10_calls(wave_pack, planes_calls):
-    """K10's calls on the masks of the captured K9b calls (``emit_planes``
-    arguments): each class's per-item masks for every 32-pass window, as
-    the plain K9b builds them, each pair or single form into a (P, W)
-    buffer at rows base .. base + take - 1 (the arguments the emission gave
-    K10 before K9b).  Returns {"transpose_bits32_pair": [...],
+    """K10's calls on the masks of the classes of captured planes launches
+    (``emit_planes_ref`` arguments, ``stage_plane_args``): each class's
+    per-item masks for every 32-pass window, as the plain version builds
+    them, each pair or single form into a (P, W) buffer at rows base ..
+    base + take - 1 (the arguments the emission gave K10 before K9).
+    Returns {"transpose_bits32_pair": [...],
     "transpose_bits32": [...]}."""
     import torch
 
     out = {"transpose_bits32_pair": [], "transpose_bits32": []}
     for kind, fields, num_bp, P, items in planes_calls:
+        if not items:  # the empty half of a 2D emission's launch
+            continue
         masks_fn, pair = wave_pack.plane_masks(kind, fields, num_bp, items)
         dst = torch.empty((P, items // (16 if pair else 32)), dtype=torch.int32, device=fields[0].device)
         for base in range(0, P, 32):
@@ -541,8 +549,8 @@ def _bits_case(kernels, packemit, calls, smi: str, label: str):
           f"bound ms / bound of all 32 planes ms): "
           + ", ".join(f"{k} ({v['items']}, {v['take']}) {v['ms']:.4f}/{v['host_ms']:.4f}/"
                       f"{v['bound_ms']:.4f}/{v['bound32_ms']:.4f}" for k, v in k10.items())
-          + f"; on one emission's masks ({len(pairs)} pair and {len(singles)} single calls; K9b "
-          f"transposes them in registers on the main path) "
+          + f"; on one emission's masks ({len(pairs)} pair and {len(singles)} single calls; K9's "
+          f"planes launch transposes them in registers on the main path) "
           f"{sum(v['ms'] for v in k10.values()) * len(singles):.4f} ms device -- {smi}")
     lis = k10["LIS pair"]
     plain = time_ms(lambda: packemit.transpose_bits32_pair_ref(*lis_args), 5)
@@ -789,9 +797,8 @@ def _table_phase(kernels, smi: str, dev, vol, pvol, chunk=(256, 256, 256)) -> di
     _check(w["launches"]["transpose_bits32"] == 0, "K10 was launched on the table-form wave path")
     # each emission of a chunk that is not a power-of-two cube: K9's planes
     # launch once (the pixel fields from K12's compaction), K11's three
-    _check(3 * w["launches"]["emit_stage"] == w["launches"]["masked_pack"] and w["launches"]["emit_planes"] == 0,
-           f"K9 launched {w['launches']['emit_stage']} times for {w['launches']['masked_pack'] // 3} emissions "
-           f"(K9b {w['launches']['emit_planes']})")
+    _check(3 * w["launches"]["emit_stage"] == w["launches"]["masked_pack"],
+           f"K9 launched {w['launches']['emit_stage']} times for {w['launches']['masked_pack'] // 3} emissions")
     _check(w["stream"] == h["stream"], "the table-form wave container differs from the host one")
     _check(len(w["stream"]) == 87959, f"the table-form container is {len(w['stream'])} bytes, not 87,959")
     sched_launches = {k: w["launches"][k] for k in ("sched_table", "radix_sort", "emit_stage", "node_passes",
@@ -902,12 +909,13 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     """Phase 10: the 2D device entropy path (TorchCompressor2D(entropy=
     "wave"), K14).  Phase 7's 16 fields at PWE 1e-2: the wave streams must
     equal phase 7's byte for byte with every field on the device, K1, K2,
-    K3, K9b (emit_planes), K11 and K12 launched in the first timed wave
+    K3, K9's planes launch (emit_stage, two a field program: its pixel
+    half, then its LIS half), K11 and K12 launched in the first timed wave
     encode (K10 not), and decode
     within the bound under the port's decoder and the host f64 codec; the
     encode timed on both routes, alternating, three times each.  One field's
-    device program at tier 0, with its K9b, K11 and K12 calls (and K10 on
-    K9b's masks) held against their
+    device program at tier 0, with its two planes launches, K11 and K12
+    calls (and K10 on the planes' masks) held against their
     plain versions: device-busy time, host-issued time, host waits, the ops
     with the most device time and its bound.  Phase 8's 1800 x 3600 field
     at PWE 1e-2, PSNR 80 and rate 2.0, and a noisy 256 x 256 field that
@@ -957,12 +965,16 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
         _check(comp.last_uncertified_chunks == 0, f"{route}: {comp.last_uncertified_chunks} uncertified fields")
     wave = comps["wave"]
     print(f"[wave2d] launches during the first timed 2D wave encode: {launches}")
-    for name in ("quantize", "dwt2d_full", "idwt2d_full", "emit_planes", "masked_pack",
+    for name in ("quantize", "dwt2d_full", "idwt2d_full", "emit_stage", "masked_pack",
                  "compact_flags_rows", "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk"):
         _check(launches[name] > 0, f"kernel {name} was not launched on the 2D wave path")
     _check("iset_max" not in launches, "the 2D wave batch counts I-set launches apart from its schedule's")
     _check(launches["transpose_bits32"] == 0, "K10 was launched on the 2D wave path")
     _check(launches["cdf97_lift"] == 0, "the 2D wave path launched the per-axis lifting kernel")
+    # a field program: the planes launch and K11's three for each half
+    _check(3 * launches["emit_stage"] == launches["masked_pack"] and launches["emit_stage"] % 2 == 0,
+           f"the 2D wave batch made {launches['emit_stage']} planes launches and {launches['masked_pack']} K11 "
+           "launches, not one and three for each half of each field program")
     _check(wave.last_wave_chunks == B, f"{wave.last_wave_chunks} of {B} fields on the device")
     dec = tb2.TorchDecompressor2D((nx, ny), device=dev)
     host = SpeckFloatCodec(2, (nx, ny, 1))
@@ -993,16 +1005,18 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
         return tb2._wave_emit_field(mags, signs, index, caps, wave.num_bp_cap)
 
     with _capture(packemit, ["masked_pack", "compact_flags_rows"]) as calls, \
-            _capture(wave_pack, ["emit_planes"]) as k9b:
+            _capture(wave_pack, ["emit_fields"]) as k9:
         w = wave._fetch_wave(prog(), caps, n)
     _check(wave._wave_fits(w, 0, n), "field 0 does not fit tier 0")
-    for args in k9b["emit_planes"]:
-        _check(all(torch.equal(a, b) for a, b in zip(wave_pack.emit_planes(*args),
-                                                      wave_pack.emit_planes_ref(*args))),
-               f"K9b ({args[0]}) differs from its plain version on 2D field 0")
-    calls.update(_k10_calls(wave_pack, k9b["emit_planes"]))
+    _check(len(k9["emit_fields"]) == 2, f"field 0's program made {len(k9['emit_fields'])} planes launches, not 2")
+    for args in k9["emit_fields"]:
+        _check(all(torch.equal(a, b) for a, b in zip(_flat(wave_pack.emit_fields(*args)),
+                                                      _flat(wave_pack.emit_fields_ref(*args)))),
+               f"K9's planes launch ({args[0][0].numel()} pixels, {args[1].numel()} payloads) differs from "
+               "its plain version on 2D field 0")
+    calls.update(_k10_calls(wave_pack, [a for f in k9["emit_fields"] for a in wave_pack.stage_plane_args(*f)]))
     _bits_equal(kernels, packemit, calls, "2D field 0, tier 0")
-    ncalls = dict({k: len(v) for k, v in calls.items()}, emit_planes=len(k9b["emit_planes"]))
+    ncalls = dict({k: len(v) for k, v in calls.items()}, emit_fields=len(k9["emit_fields"]))
     before = dict(kernels.launches)
     prog()
     torch.cuda.synchronize()
@@ -1018,7 +1032,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     window = names[i0:i1 + 1]
     _check(per_call.get("sched_table", 0) <= 3 and window[:2] == ["table_subtrees", "table_pixels"],
            f"the 2D program's schedule: {per_call.get('sched_table')} launches, {window[:8]}")
-    for nm in ("table_pixels", "node_passes_kernel", "table_anchors", "table_rows", "emit_planes_kernel"):
+    for nm in ("table_pixels", "node_passes_kernel", "table_anchors", "table_rows", "emit_stage_planes"):
         _check(nm in window, f"{nm} is missing from the second call's trace: {window}")
     foreign = sorted({nm for nm in window if nm not in ours})
     _check(not foreign, f"the 2D program ran torch ops between its schedule and K11: {foreign}")
@@ -1039,13 +1053,13 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     prog_bytes = 5 * n + sum(t.numel() * t.element_size() for t in tables) + stream
     bound = _bound_ms(prog_bytes)
     print(f"[wave2d] field 0, tier 0 ({caps}): num_bp {int(w['num_bp'][0])}, n_sig {int(w['n_sig'][0])}, "
-          f"{stream} segment bytes; K9b, K11 and K12 calls (K10 on K9b's masks) {ncalls}, equal to their "
+          f"{stream} segment bytes; K9, K11 and K12 calls (K10 on the planes' masks) {ncalls}, equal to their "
           "plain versions bit for bit")
     print(f"[wave2d] field 0 device program: {ms:.4f} ms ({how}), {host_ms:.4f} ms as the host issues it, device "
           f"busy {busy:.4f} ms, {syncs} host waits per call; bound "
           f"{bound:.4f} ms ({prog_bytes} bytes), share {bound / (busy or ms):.4f} of the busy time; the most "
           f"device time, ms per call: {_top(per_name, 5)} -- {smi}")
-    del front, mags, signs, w, calls, k9b
+    del front, mags, signs, w, calls, k9
 
     # the CESM-ATM shape at PWE, PSNR and rate, and a noisy field
     ny7, nx7 = f7.shape
@@ -1088,7 +1102,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     _check(got == want, f"{ny8}x{nx8} pwe: the wave stream differs from the host one")
     _check(w8.last_wave_chunks == 1, f"{ny8}x{nx8}: the field did not stay on the device")
     for name in ("sched_table", "node_passes", "table_anchors", "table_walk", "radix_sort",
-                 "emit_planes", "masked_pack"):
+                 "emit_stage", "masked_pack"):
         _check(l8.get(name, 0) > 0, f"{ny8}x{nx8}: {name} was not launched")
     rs8 = [_rank_state(kernels, speck_lis, li8, c.views) for k, (_, c) in st8.calls.items()
            if k[1] == kernels.RANK_CAP_BITS]  # the walk's own calls (not phase 3's forced routes)
@@ -1110,7 +1124,7 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           + ("host engine past the last tier" if tier is None else f"device at tier {tier}")
           + f" ({wn.last_wave_chunks} field on the device)")
     print(f"[wave2d] phase 10 took {time.perf_counter() - t_phase:.1f} s")
-    return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_planes", "node_passes", "table_anchors",
+    return {k: launches[k] for k in ("sched_table", "radix_sort", "emit_stage", "node_passes", "table_anchors",
                                      "table_walk")}
 
 
@@ -1653,14 +1667,19 @@ def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
     against its plain version on the inputs the PSNR front gives it at PSNR
     80 (each captured from ``_dense_encode_rows``): phase 5's 256^3 chunk,
     the headline volume's 8 chunks in one call, phase 7's 16 x 1024^2 batch
-    and phase 8's 1800 x 3600 field; second rounds forced (one and two
-    candidates a round) on four normal(scale 100) rows of 2^20 at PSNR 105
-    and 110 (5 and 7 evaluations); the same rows at PSNR 120, which f32
-    cannot meet, raising on both sides with one message.  Each call's q and
-    chosen j per row, its launches and host waits; timed: the kernel's
-    device ms per launch (torch.profiler), host-issued ms per call, the
-    plain version; bound: one read of the coefficients a round.  Returns
-    the kernel's row of the result line."""
+    and phase 8's 1800 x 3600 field, each row's shrink count (its chosen
+    candidate j: the counts that set the lean launch's PSNR_LEAN
+    candidates) printed; later rounds forced (rounds of one and one, and of
+    two and two candidates) on phase 5's chunk and on four normal(scale
+    100) rows of 2^20 at PSNR 105 and 110 (5 and 7 evaluations); the same
+    rows at PSNR 120, which f32 cannot meet, raising on both sides with one
+    message.  Each call makes two launches a round (the lean launch, then
+    the full one queued behind it) and at most one host wait a round.  Each
+    call's q and chosen j per row, its launches and host waits; timed: the
+    kernel's device ms a call and per launch (torch.profiler), host-issued
+    ms per call, the plain version; bound: one read of a row by each launch
+    that has it open (the lean launch reads every row).  Returns the
+    kernel's row of the result line."""
     import numpy as np
     import torch
 
@@ -1681,6 +1700,11 @@ def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
             out.append(j)
         return out
 
+    def reads(j, rnd):
+        # the launches that a row met at candidate j takes part in (each reads the row once)
+        whole, left = divmod(j, sum(rnd))
+        return 2 * whole + (1 if left < rnd[0] else 2)
+
     def front(x, fwd, inv):
         with _capture(kernels, ["psnr_q"]) as k16:
             tb._dense_encode_rows(x, "psnr", 80.0, "none", fwd, inv)
@@ -1690,39 +1714,50 @@ def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
     err = 0.0
     cases = {}
 
-    def held(label, args, candidates=kernels.PSNR_CANDIDATES, timed=False):
+    def held(label, args, rnd=kernels.PSNR_ROUND, timed=False):
         nonlocal err
         before = kernels.launches["psnr_q"]
-        got = kernels.psnr_q(*args, candidates)
+        got = kernels.psnr_q(*args, rnd)
         launches = kernels.launches["psnr_q"] - before
         want = quantize.psnr_q_ref(*args)
         err = max(err, float((got - want).abs().max()))
         _check(got.dtype == want.dtype and torch.equal(got, want), f"K16 differs from its plain version on {label}")
         j = chosen(args[1], got)
-        rounds = -(-(max(j) + 1) // candidates)
-        _check(launches == rounds, f"K16 made {launches} launches on {label} ({rounds} rounds expected)")
-        waits = host_waits(lambda: kernels.psnr_q(*args, candidates))
+        rounds = -(-(max(j) + 1) // sum(rnd))
+        _check(launches == 2 * rounds, f"K16 made {launches} launches on {label} ({rounds} rounds of two expected)")
+        waits = host_waits(lambda: kernels.psnr_q(*args, rnd))
         _check(waits <= rounds, f"K16 waited {waits} times for the card on {label} ({rounds} rounds)")
         B, n = args[0].shape
-        r = cases[label] = {"q": got.tolist(), "j": j, "candidates": candidates, "launches_per_call": launches,
-                            "host_waits": waits, "bound_ms": _bound_ms(rounds * 4 * B * n + 12 * B)}
+        shrinks = {k: j.count(k) for k in sorted(set(j))}
+        r = cases[label] = {"q": got.tolist(), "j": j, "shrinks": shrinks, "round": list(rnd), "rounds": rounds,
+                            "met_in_first_launch": sum(x < rnd[0] for x in j), "launches_per_call": launches,
+                            "host_waits": waits,
+                            "bound_ms": _bound_ms(4 * n * sum(reads(x, rnd) for x in j) + 12 * B)}
         if timed:
-            per = _kernel_means(lambda: kernels.psnr_q(*args, candidates), "psnr_q", 10)
-            r["ms"] = sum(m for m, _ in per.values()) * launches  # its one kernel's mean launch
-            r["host_ms"] = time_ms(lambda: kernels.psnr_q(*args, candidates), 10, "host-issued")[0]
+            per = _kernel_means(lambda: kernels.psnr_q(*args, rnd), "psnr_q", 10)
+            r["per_launch"] = {("lean" if f"<{kernels.PSNR_LEAN}>" in k else "full"): m for k, (m, _) in per.items()}
+            # the call's launches: each kernel's mean launch times its launches a call (a trace may drop events)
+            lean = sum(j <= kernels.PSNR_LEAN for j in rnd)
+            r["ms"] = rounds * (lean * r["per_launch"].get("lean", 0.0) + (2 - lean) * r["per_launch"].get("full", 0.0))
+            r["lean_bound_ms"] = _bound_ms(4 * B * n + 12 * B)  # the lean launch reads every row
+            r["host_ms"] = time_ms(lambda: kernels.psnr_q(*args, rnd), 10, "host-issued")[0]
             r["plain_ms"], r["plain_timed"] = time_ms(lambda: quantize.psnr_q_ref(*args), 5)
-        print(f"[kernels] K16 psnr_q, {label} ({B} x {n}, {candidates} candidates a round): equal to the plain "
-              f"version bit for bit; q {[f'{v:.9g}' for v in r['q'][:16]]}, j {j[:16]}; {launches} launches, "
-              f"{waits} host waits a call" + (f"; kernel {r['ms']:.4f} ms a call on the device (profiler), "
-                                              f"{r['host_ms']:.4f} as the host issues it, plain "
-                                              f"{r['plain_ms']:.4f} ({r['plain_timed']}), bound "
-                                              f"{r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}"
-                                              if timed else "") + f" -- {smi}")
+        print(f"[kernels] K16 psnr_q, {label} ({B} x {n}, rounds of {rnd[0]} + {rnd[1]} candidates): equal to the "
+              f"plain version bit for bit; q {[f'{v:.9g}' for v in r['q'][:16]]}, j {j[:16]}; shrinks per row "
+              f"(count: rows) {shrinks}, {r['met_in_first_launch']} of {B} rows met in the first launch; "
+              f"{launches} launches, {waits} host waits a call"
+              + (f"; kernel {r['ms']:.4f} ms a call on the device (profiler; per launch "
+                 + ", ".join(f"{k} {m:.4f}" for k, m in r["per_launch"].items())
+                 + f"), {r['host_ms']:.4f} as the host issues it, plain {r['plain_ms']:.4f} ({r['plain_timed']}), "
+                 f"bound {r['bound_ms']:.4f} ms, share {r['bound_ms'] / r['ms']:.3f}; the lean launch's bound "
+                 f"{r['lean_bound_ms']:.4f} ms, share "
+                 f"{r['lean_bound_ms'] / r['per_launch'].get('lean', float('inf')):.3f}" if timed else "")
+              + f" -- {smi}")
         return got
 
     c256 = front(torch.from_numpy(np.ascontiguousarray(vol11)[None]).to(dev), cdf97.dwt3d, cdf97.idwt3d_)
     held("phase 5's 256^3 chunk, PSNR 80", c256, timed=True)
-    held("phase 5's 256^3 chunk, PSNR 80, one candidate a round", c256, 1)
+    held("phase 5's 256^3 chunk, PSNR 80, rounds of one and one", c256, (1, 1))
     del c256
     x8 = torch.from_numpy(np.stack([vol512[z:z + 256, y:y + 256, x:x + 256]
                                     for z in (0, 256) for y in (0, 256) for x in (0, 256)])).to(dev)
@@ -1734,12 +1769,18 @@ def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
     f8 = torch.from_numpy(_turbulence_like(1800, 3600, 16)[None]).to(dev)
     held("phase 8's 1800 x 3600 field, PSNR 80", front(f8, cdf97.dwt2d, cdf97.idwt2d), timed=True)
     del f8
+    # the shrink counts of the inputs the PSNR fronts give K16: the lean launch's candidates cover them
+    real = [x for c in cases.values() if c["round"] == list(kernels.PSNR_ROUND) for x in c["j"]]
+    counts = {k: real.count(k) for k in sorted(set(real))}
+    print(f"[kernels] K16: the PSNR 80 inputs' shrink counts (count: rows) {counts}, the most {max(real)}; the "
+          f"lean launch tests {kernels.PSNR_LEAN} candidates (shrinks 0 to {kernels.PSNR_LEAN - 1}) and met "
+          f"{sum(x < kernels.PSNR_LEAN for x in real)} of {len(real)} rows")
     rows = torch.from_numpy(np.random.default_rng(0).normal(scale=100.0, size=(4, 1 << 20)).astype(np.float32)).to(dev)
     ones = torch.ones(4, device=dev)
     for psnr in (105.0, 110.0):
         t_mse, q0 = quantize.psnr_start(ones, psnr)
-        for cand in (kernels.PSNR_CANDIDATES, 2, 1):
-            held(f"4 normal rows, PSNR {psnr:g}", (rows, q0, t_mse), cand)
+        for rnd in (kernels.PSNR_ROUND, (2, 2), (1, 1)):
+            held(f"4 normal rows, PSNR {psnr:g}, rounds of {rnd[0]} + {rnd[1]}", (rows, q0, t_mse), rnd)
     t_mse, q0 = quantize.psnr_start(ones, 120.0)
     said = []
     for fn in (lambda: kernels.psnr_q(rows, q0, t_mse), lambda: quantize.psnr_q_ref(rows, q0, t_mse)):
@@ -1753,7 +1794,8 @@ def _psnr_kernel(kernels, smi: str, dev, vol512, vol11) -> dict:
     one = cases["phase 5's 256^3 chunk, PSNR 80"]
     print(f"[kernels] K16 took {time.perf_counter() - t_phase:.1f} s")
     return {"ms": one["ms"], "host_ms": one["host_ms"], "plain_ms": one["plain_ms"],
-            "plain_timed": one["plain_timed"], "bound_ms": one["bound_ms"], "max_abs_err": err, "cases": cases}
+            "plain_timed": one["plain_timed"], "bound_ms": one["bound_ms"], "max_abs_err": err, "cases": cases,
+            "per_launch": one["per_launch"], "lean_bound_ms": one["lean_bound_ms"]}
 
 
 def _sched_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
@@ -2365,10 +2407,11 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
     (``_table_items_cuda`` against ``_lis_items_table_ref`` or
     ``_lis2_items_ref``: payload words, padding included, and n_sig) and
     every radix sort it ran (against torch.sort(stable=True)); the 2D walk's
-    LIS planes through K9b and K11 against the plain event form (buffer, counts,
-    total and n_sig; at the tier-0 caps, an event cap of 700 and a byte cap
-    of 100).  Inputs: a Hurricane ISABEL packet chunk (100, 256, 256) at
-    tiers 0 and 1 and at a node cap of nn / 20, its all-zero, one-pixel and
+    LIS planes through K9's planes launch and K11 against the plain event
+    form (buffer, counts, total and n_sig; at the tier-0 caps, an event cap
+    of 700 and a byte cap of 100).  Inputs: a Hurricane ISABEL packet
+    chunk (100, 256, 256) at tiers 0 and 1 and at a node cap of nn / 20,
+    its all-zero, one-pixel and
     2^31 - 1 forms, the dyadic chunk (118, 128, 97); a 1024^2, the
     1800 x 3600 and a 3600 x 7200 field (its finest rank level past the
     bitmaps' 32 bits: sorted), 33 x 57 random, an all-zero and a 2^31 - 1
@@ -2546,7 +2589,7 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
                                         (caps["ev_cap"], 100, "byte cap 100")):
             a = wp.wave_emit_2d_lis(got[0], got[1], nb, 34, ev_cap, cap_total)
             b = sl._event_tail(want[0], want[1], nb, 34, ev_cap, cap_total)
-            _check(int(a[3]) == int(b[3]), f"{label}, {what}: n_sig {int(a[3])} after K9b and K11, {int(b[3])} in "
+            _check(int(a[3]) == int(b[3]), f"{label}, {what}: n_sig {int(a[3])} after K9 and K11, {int(b[3])} in "
                                            f"the event form")
             if int(a[1].sum()) <= ev_cap and int(a[2]) <= cap_total:
                 equal("table_walk", (a[0], a[1], a[2].to(torch.int32)), b[:3], f"{label}, {what}: the LIS segments")
@@ -2573,8 +2616,8 @@ def _table_walk_kernels(kernels, smi: str, dev, vol512, vol11) -> dict:
               f"{st.path_bytes} bytes (8 nn + 4 n = {8 * li.nn + 4 * li.n}); node_passes, "
               f"table_anchors (also with the levels past 16 bits gated, and every larger level gated to "
               f"sorting) and the walk's payload words (also gated) equal to the plain versions bit for bit; the LIS "
-              f"segments through K9b and K11 equal to the event form at {', '.join(fits) or 'no cap'}, n_sig "
-              "equal at every cap")
+              f"segments through K9's planes launch and K11 equal to the event form at "
+              f"{', '.join(fits) or 'no cap'}, n_sig equal at every cap")
     print(f"[kernels] the table and 2D walks ran {nsorts} radix sorts, each equal to torch.sort(stable=True)")
 
     # -- times at the main path's shapes ------------------------------------------------
@@ -2716,11 +2759,15 @@ def _k9_bytes(args, out) -> int:
             + 8 * P * (npad // 16 + W_lis + npad // 32))
 
 
-def _k9b_bytes(args) -> int:
-    """K9b's bound bytes: each field read once, the (P, W) valid and bit
-    planes written once."""
-    kind, fields, _, P, items = args
-    return sum(f.numel() * f.element_size() for f in fields) + 8 * P * (items // (32 if kind == "ref" else 16))
+def _fields_bytes(args) -> int:
+    """The bound bytes of K9's planes launch on handed fields (an
+    ``emit_fields`` call): each pixel field and payload word read once, the
+    three classes' (P, W) valid and bit planes written once."""
+    pixels, pay, _, P = args
+    items = -(-pixels[0].numel() // 256) * 256
+    W_lis = -(-pay.numel() // 128) * 128 // 16
+    return (sum(f.numel() * f.element_size() for f in pixels) + pay.numel() * pay.element_size()
+            + 8 * P * (items // 16 + W_lis + items // 32))
 
 
 def _flat(out):
@@ -2776,22 +2823,24 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
     """Phase 3's emission kernels (kernels/emit.cu, K9) bit for bit against
     their plain versions on the card, every output: each call of K9 on a
     cube (``emit_cube``: the exposure and the three classes' planes, two
-    launches), on the other 3D forms (``emit_fields``: one launch) and of
-    K9b (``emit_planes``, the 2D program) that the emissions make on
+    launches) and on the forms that hand their fields (``emit_fields``: one
+    launch; the other 3D forms, and each half of the 2D program's emission)
+    that the emissions make on
     headline chunk 0 at tiers 0 and 1, at the widest tier (P = 34, two
     windows, every pixel) and at P = 34 with the compaction (magnitudes
     apart from the box-major table), with the exposure forced to overflow;
     on an all-zero, a one-pixel, a 2^31 - 1 and an all-2^31 - 1 256^3
     chunk; on 16^3 and 2^3 cubes (every pixel) and a 16^3 cube with a cap
     below one box; on a Hurricane packet chunk (100, 256, 256: the table
-    walk's K12 compaction) and on a 1024^2 field (K14's pixel and LIS
-    classes).  At tiers 0 and 1 the stage is timed on the device and as the
-    host issues it, per launch, beside its plain version and its bound, and
-    the launches between the walk's return and K11 are counted in a
-    torch.profiler trace (K9's two only); K9b on the 1024^2 field's three
-    classes.  The tier-1 stage is repeated 50 times against the plain
-    version (``_repeats``).  Returns the two kernels' rows of the result
-    line."""
+    walk's K12 compaction) and on a 1024^2 field (K14: two launches, the
+    pixel half with no payload, then the LIS half with no pixel field).  At
+    tiers 0 and 1 the stage is timed on the device and as the host issues
+    it, per launch, beside its plain version and its bound, and the
+    launches between the walk's return and K11 are counted in a
+    torch.profiler trace (K9's two only); the 1024^2 field's two launches
+    likewise, each beside its bound (``_fields_bytes``).  The tier-1 stage
+    is repeated 50 times against the plain version (``_repeats``).  Returns
+    the kernel's row of the result line."""
     import numpy as np
     import torch
 
@@ -2803,7 +2852,7 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(16)
-    err = {"emit_stage": 0, "emit_planes": 0}
+    err = {"emit_stage": 0}
 
     def same(name, got, want, what):
         got, want = _flat(got), _flat(want)
@@ -2820,9 +2869,6 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
         for args in calls.get("emit_fields", []):
             same("emit_stage", wave_pack.emit_fields(*args), wave_pack.emit_fields_ref(*args),
                  f"{what} (fields, {args[0][0].numel()} items)")
-        for args in calls.get("emit_planes", []):
-            same("emit_planes", wave_pack.emit_planes(*args), wave_pack.emit_planes_ref(*args),
-                 f"{what} ({args[0]}, P {args[3]}, {args[4]} items)")
 
     def front3(field):
         x = torch.from_numpy(np.ascontiguousarray(field)[None]).to(dev)
@@ -2867,7 +2913,7 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
     cases.append(("Hurricane packet chunk (100, 256, 256)", mh, sh, li_h, si_h,
                   {f"tier {t}": tb._wave_caps(li_h, s3, th[t], 34) for t in (0, 1)}, t01))
     stats = {}
-    names = ["emit_cube", "emit_fields", "emit_planes"]
+    names = ["emit_cube", "emit_fields"]
     for label, mags, signs, li_c, si_c, caps_c, use in cases:
         seen = []
         for cl in use:
@@ -2877,7 +2923,7 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
             compact = bool(c["wexp_cap"]) and c["wexp_cap"] < mags.numel()
             cube = int(compact and isinstance(li_c, sv.VirtualLisIndex))
             got = {k: len(v) for k, v in calls.items()}
-            _check(got == {"emit_cube": cube, "emit_fields": 1 - cube, "emit_planes": 0},
+            _check(got == {"emit_cube": cube, "emit_fields": 1 - cube},
                    f"{label}, {cl}: the emission made the calls {got}")
             held(calls, f"{label}, {cl}")
             seen.append(f"{cl} (P {c['P']}, wexp_cap {c['wexp_cap']}: "
@@ -2889,7 +2935,7 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
                 _check(bool(em.overflow) and int(em.n_exp) > 8192, "the forced exposure did not overflow")
         print(f"[kernels] K9, {label}: every call equal to its plain version bit for bit, every output, at "
               f"{'; '.join(seen)}")
-    # K14's classes: a 1024^2 field's program (K9b, one launch per class)
+    # K14's classes: a 1024^2 field's program (two planes launches)
     ny = nx = 1024
     x2 = torch.from_numpy(_turbulence_like(ny, nx, 0)[None]).to(dev)
     f2 = tb._dense_encode_rows(x2, "pwe", 1e-2, "dual", cdf97.dwt2d, cdf97.idwt2d, out_cap=nx * ny)
@@ -2899,13 +2945,14 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
                             max(4096, int(comp2.wave_event_tiers[0] * nx * ny)))
     with _capture(wave_pack, names) as calls2:
         tb2._wave_emit_field(f2["mags"][0], f2["signs"][0], index2, caps2, comp2.num_bp_cap)
-    # the pixel classes, then (since the 2D walk's items go through K9b) the LIS class
-    _check(not calls2["emit_cube"] and not calls2["emit_fields"]
-           and [a[0] for a in calls2["emit_planes"]] == ["lip", "ref", "lis"],
-           f"the 2D field's program called emit_planes for {[a[0] for a in calls2['emit_planes']]}")
+    # the pixel half (no payload), then the LIS half of the walk's items (no pixel field)
+    halves = [(a[0][0].numel(), a[1].numel()) for a in calls2["emit_fields"]]
+    _check(not calls2["emit_cube"] and len(halves) == 2 and halves[0][0] == nx * ny and halves[0][1] == 0
+           and halves[1][0] == 0 and halves[1][1] > 0,
+           f"the 2D field's program made the planes launches (pixels, payloads) {halves}")
     held(calls2, "a 1024^2 field (K14)")
-    print("[kernels] K9b, a 1024^2 field's emission (K14): emit_planes (LIP, refinement, LIS) equal to "
-          "its plain version bit for bit")
+    print(f"[kernels] K9, a 1024^2 field's emission (K14): two planes launches, (pixels, payloads) {halves}, "
+          "each equal to its plain version bit for bit, every output")
     del cases, one, big, mh, sh, x2, f2
 
     # timed at tiers 0 and 1: the stage, its launches, the launches between
@@ -2935,16 +2982,27 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
             row["repeats"] = _repeats(kernels, lambda: wave_pack.emit_cube(*a9), wave_pack.emit_cube_ref(*a9),
                                       "K9 at headline chunk 0 tier 1", smi)
         del got
-    # K9b on the 1024^2 field's three classes
-    k9b = {}
-    for a in calls2["emit_planes"]:
-        plain, how = time_ms(lambda a=a: wave_pack.emit_planes_ref(*a), 3)
-        k9b[a[0]] = dict(ms=time_ms(lambda a=a: wave_pack.emit_planes(*a), 20, "device")[0],
-                         host_ms=time_ms(lambda a=a: wave_pack.emit_planes(*a), 20, "host-issued")[0],
-                         plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(_k9b_bytes(a)))
-    print("[kernels] K9b on a 1024^2 field, per class: " + ", ".join(
-        f"{k} {r['ms']:.4f} ms ({r['host_ms']:.4f} host-issued, plain {r['plain_ms']:.4f}, bound "
-        f"{r['bound_ms']:.4f})" for k, r in k9b.items()) + f" -- {smi}")
+    # the 1024^2 field's two planes launches, each alone and both as the program issues them
+    k2d = {}
+    for half, a in zip(("pixels", "lis"), calls2["emit_fields"]):
+        plain, how = time_ms(lambda a=a: wave_pack.emit_fields_ref(*a), 3)
+        nbytes = _fields_bytes(a)
+        k2d[half] = dict(ms=time_ms(lambda a=a: wave_pack.emit_fields(*a), 20, "device")[0],
+                         host_ms=time_ms(lambda a=a: wave_pack.emit_fields(*a), 20, "host-issued")[0],
+                         plain_ms=plain, plain_timed=how, bound_ms=_bound_ms(nbytes), bytes=nbytes,
+                         P=a[3], items=a[0][0].numel(), payloads=a[1].numel())
+
+    def both():
+        return [wave_pack.emit_fields(*a) for a in calls2["emit_fields"]]
+
+    k2d.update(ms=time_ms(both, 20, "device")[0], host_ms=time_ms(both, 20, "host-issued")[0],
+               bound_ms=k2d["pixels"]["bound_ms"] + k2d["lis"]["bound_ms"], launches=2)
+    print("[kernels] K9 on a 1024^2 field, per launch: " + ", ".join(
+        f"{k} (P {r['P']}, {r['items']} pixels, {r['payloads']} payloads) {r['ms']:.4f} ms ({r['host_ms']:.4f} "
+        f"host-issued, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, {r['bytes']} bytes, share "
+        f"{r['bound_ms'] / r['ms']:.3f})" for k, r in k2d.items() if isinstance(r, dict))
+        + f"; both launches {k2d['ms']:.4f} ms ({k2d['host_ms']:.4f} host-issued), bound {k2d['bound_ms']:.4f}, "
+        f"share {k2d['bound_ms'] / k2d['ms']:.3f} -- {smi}")
     print(f"[kernels] emission kernels took {time.perf_counter() - t_phase:.1f} s")
     t1 = out["tier 1"]
     return {
@@ -2954,12 +3012,10 @@ def _emit_kernels(kernels, smi: str, dev, vol512) -> dict:
                            tier0={k: out["tier 0"][k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "per_launch")},
                            k9_stage={c: {f: out[c][f] for f in ("ms", "host_ms", "bound_ms", "launches")}
                                      for c in out},
-                           repeats={"tier 1": t1["repeats"]}),
-        "emit_planes": dict(
-            ms=sum(r["ms"] for r in k9b.values()), host_ms=sum(r["host_ms"] for r in k9b.values()),
-            plain_ms=sum(r["plain_ms"] for r in k9b.values()), plain_timed=k9b["lis"]["plain_timed"],
-            bound_ms=sum(r["bound_ms"] for r in k9b.values()), max_abs_err=err["emit_planes"],
-            per_class={k: {f: r[f] for f in ("ms", "host_ms", "bound_ms")} for k, r in k9b.items()}),
+                           repeats={"tier 1": t1["repeats"]},
+                           **{"2d_field": {k: ({f: r[f] for f in ("ms", "host_ms", "plain_ms", "bound_ms", "P",
+                                                                   "items", "payloads")}
+                                               if isinstance(r, dict) else r) for k, r in k2d.items()}}),
     }
 
 
@@ -3173,12 +3229,13 @@ def main() -> int:
     plain_timed.update({"dwt2d_full": plane_timed[(16, 1024, 1024)]["K2 plain"],
                         "idwt2d_full": plane_timed[(16, 1024, 1024)]["K3 plain"]})
 
-    # K10-K12: the inputs the wave path gives them (K10: the masks K9b
-    # builds in registers, as its plain version builds them).  The headline volume's
-    # first 256^3 chunk (smooth_field_3d(512, seed=7), PWE 1e-2) at tiers 0
-    # and 1, the two tiers its chunks run on the main path; the outlier
-    # compaction of its front (K12); and the widest tier of
-    # smooth_field_3d(256, seed=11), the largest emission of this run
+    # K10-K12: the inputs the wave path gives them (K10: the masks K9's
+    # planes launch builds in registers, as its plain version builds
+    # them).  The headline volume's first 256^3 chunk (smooth_field_3d(512,
+    # seed=7), PWE 1e-2) at tiers 0 and 1, the two tiers its chunks run on
+    # the main path; the outlier compaction of its front (K12); and the
+    # widest tier of smooth_field_3d(256, seed=11), the largest emission of
+    # this run
     dims256 = (256, 256, 256)
     li = speck_virtual.virtual_lis_index(dims256, dev)
     tiers = tb.wave_tiers_for(256**3)
@@ -3458,8 +3515,8 @@ def main() -> int:
         torch.cuda.synchronize()
         launches5[mode] = dict(kernels.launches)
         _check(launches5[mode]["quantize"] > 0, f"K1 was not launched in the {mode} encode")
-        _check((launches5[mode]["psnr_q"] > 0) == (mode == "psnr"),
-               f"K16 launched {launches5[mode]['psnr_q']} times in the {mode} encode")
+        _check((launches5[mode]["psnr_q"] > 0) == (mode == "psnr") and launches5[mode]["psnr_q"] % 2 == 0,
+               f"K16 launched {launches5[mode]['psnr_q']} times in the {mode} encode (two a round)")
         print(f"[modes] {mode} {quality}: launches {_nonzero(launches5[mode])}; stream sha256 "
               f"{hashlib.sha256(s).hexdigest()}")
         ours, _ = dec.decompress(s)
@@ -3499,7 +3556,7 @@ def main() -> int:
                  "compact_flags_rows", "sched_boxmax", "sched_virtual", "walk_vtab", "anchor_ranks",
                  "walk_rows", "radix_sort", "node_passes"):
         _check(launches_w[name] > 0, f"kernel {name} was not launched on the wave path")
-    for name in ("table_anchors", "table_walk", "sched_table", "emit_planes"):
+    for name in ("table_anchors", "table_walk", "sched_table"):
         _check(launches_w[name] == 0, f"{name} was launched on the cube form's wave path")
     # each emission of a cube chunk: K9's two launches, K11's three; K10
     # only inside K9
@@ -3617,8 +3674,8 @@ def main() -> int:
         s = streams8[mode] = comp7.compress(f7, mode, quality)
         torch.cuda.synchronize()
         launches8[mode] = dict(kernels.launches)
-        _check((launches8[mode]["psnr_q"] > 0) == (mode == "psnr"),
-               f"K16 launched {launches8[mode]['psnr_q']} times in the 2D {mode} encode")
+        _check((launches8[mode]["psnr_q"] > 0) == (mode == "psnr") and launches8[mode]["psnr_q"] % 2 == 0,
+               f"K16 launched {launches8[mode]['psnr_q']} times in the 2D {mode} encode (two a round)")
         print(f"[2d modes] {mode} {quality}: launches {_nonzero(launches8[mode])}; stream sha256 "
               f"{hashlib.sha256(bytes(s)).hexdigest()}")
         ours = dec7.decompress(s)
@@ -3714,6 +3771,7 @@ def main() -> int:
     plain_timed["psnr_q"] = k16["plain_timed"]
     # K16 on the 3D PSNR path (phase 5's chunk) and the 2D one (phase 8's field); its checks' inputs
     k16_extra = {"launches_2d": launches8["psnr"]["psnr_q"], "cases": k16["cases"],
+                 "per_launch": k16["per_launch"], "lean_bound_ms": k16["lean_bound_ms"],
                  "timed": "ms: the kernel's device time a call by torch.profiler (the call waits for its status)"}
     # the schedule kernels: launches on their paths (phase 6 for the cube form, phase 9 for the
     # child-table and pyramid forms; phase 10's 2D encode in "launches_2d")
@@ -3745,19 +3803,17 @@ def main() -> int:
     walk["radix_sort"]["launches_table"] = launches_tab["radix_sort"]
     walk["radix_sort"]["launches_2d"] = launches_2d["radix_sort"]
     # K9: emit_stage's launches in phase 6's timed wave encode (also phase
-    # 9's in "launches_table"), its times the stage at tier 1 (tier 0 in
-    # "tier0"); emit_planes (K9b) runs on the 2D program: its launches in
-    # phase 10's first timed encode, its times a 1024^2 field's three classes
-    for name, where, nl in (("emit_stage", "sperr_tpu/ops/wave_pack.py:102", launches_w["emit_stage"]),
-                            ("emit_planes", "sperr_tpu/ops/wave_pack.py:339", launches_2d["emit_planes"])):
-        r = emit[name]
-        rows.append((name, "emit.cu", where, nl, r["max_abs_err"], r["ms"], r["host_ms"],
-                     r["plain_ms"], r["bound_ms"], None))
-        plain_timed[name] = r["plain_timed"]
-    emit["emit_stage"].update(launches_table=launches_tab["emit_stage"],
-                              chunk512={k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")})
-    emit["emit_stage"]["repeats"].update({f"512^3 chunk, {k}": v for k, v in chunk512["repeats"].items()})
-    emit["emit_planes"]["launches_cube_path"] = launches_w["emit_planes"]
+    # 9's in "launches_table" and phase 10's 2D encode in "launches_2d"),
+    # its times the stage at tier 1 (tier 0 in "tier0", a 1024^2 field's two
+    # launches in "2d_field")
+    r = emit["emit_stage"]
+    rows.append(("emit_stage", "emit.cu", "sperr_tpu/ops/wave_pack.py:102", launches_w["emit_stage"],
+                 r["max_abs_err"], r["ms"], r["host_ms"], r["plain_ms"], r["bound_ms"], None))
+    plain_timed["emit_stage"] = r["plain_timed"]
+    r.update(launches_table=launches_tab["emit_stage"], launches_2d=launches_2d["emit_stage"],
+             also_replaces=["sperr_tpu/ops/wave_pack.py:339"],
+             chunk512={k: chunk512[k] for k in ("bytes", "wall_s", "peak", "tiers")})
+    r["repeats"].update({f"512^3 chunk, {k}": v for k, v in chunk512["repeats"].items()})
     # the table and 2D walks' kernels: launches in phase 9's timed wave encode
     # (node_passes also runs on the cube form's path, phase 6), and in phase 10's
     # first timed 2D encode in "launches_2d"
@@ -3789,15 +3845,15 @@ def main() -> int:
             else {}),
          **({k: v for k, v in walk[name].items() if k in ("tier1", "launches_per_call", "launches_table",
                                                            "launches_2d", "lsd_floor_ms")} if name in walk else {}),
-         **({k: v for k, v in emit[name].items() if k in ("tier0", "per_launch", "per_class", "launches_table",
-                                                           "launches_cube_path", "k9_stage", "chunk512",
-                                                           "repeats")}
+         **({k: v for k, v in emit[name].items() if k in ("tier0", "per_launch", "launches_table", "launches_2d",
+                                                           "also_replaces", "k9_stage", "chunk512", "repeats",
+                                                           "2d_field")}
             if name in emit else {}),
          **({k: v for k, v in twalk[name].items() if k in ("tier1", "2d", "2d_1800x3600", "2d_3600x7200", "1800x3600", "timed",
                                                             "busy_ms", "launches_per_call", "launches_2d",
                                                             "launches_cube_path")}
             if name in twalk else {}),
-         # K10's transpose runs inside K9 (and K9b) on the wave paths
+         # K10's transpose runs inside K9 on the wave paths
          **({"merged_into": "emit_stage"} if name == "transpose_bits32" else {}),
          **(k16_extra if name == "psnr_q" else {})}
         for name, src, where, nl, err, ms, host_ms, plain, bound, lib in rows

@@ -1,6 +1,6 @@
 """Time this checkout's K9 stage, K13, the K15 and K14 walks, the
-child-table and pyramid schedules and K16 beside the parent commit's, in
-one process on one card.
+child-table and pyramid schedules, the 2D emission's planes and K16 beside
+the parent commit's, in one process on one card.
 
     mkdir -p _checkout/parent
     git archive <parent> sperr_tpu_torch | tar -x -C _checkout/parent
@@ -36,13 +36,17 @@ are timed by torch.profiler:
   ``parallel.batched2d._wave_emit_field`` on its own index and caps, as
   the wave encode runs it), device-busy and host-issued, compared on
   every output;
-- K16, the PSNR search, on the inputs each front gives it at PSNR 80 (the
-  parent's row by row, the new one batched): phase 5's 256^3 chunk, the
-  headline volume's 8 chunks, phase 7's 16 x 1024^2 fields and phase 8's
-  1800 x 3600 field, q compared row by row (a moved row printed with its
-  MSE under the f32 and the f64 sum), host-issued and device-busy; then
-  phase 5's and phase 8's PSNR streams from each package's compressor,
-  byte for byte;
+- that program's emission planes: the calls each package's program makes
+  (the parent's ``wave_pack.emit_planes`` where it has one: three
+  launches, one a class; the new ``wave_pack.emit_fields``, two: the
+  pixel half, then the LIS half), compared plane for plane;
+- K16, the PSNR search, on the inputs each front gives it at PSNR 80
+  (each package's ``ops.quantize.estimate_q_psnr_batched``): phase 5's
+  256^3 chunk, the headline volume's 8 chunks, phase 7's 16 x 1024^2
+  fields and phase 8's 1800 x 3600 field, q compared row by row (a moved
+  row printed with its MSE under the f32 and the f64 sum), host-issued
+  and device-busy, and per launch; then phase 5's and phase 8's PSNR
+  streams from each package's compressor, byte for byte;
 - the pyramid schedule (``ops.speck.schedule_pyramid``) on the dyadic
   (97, 128, 118) chunk and SDRBench S3D 500^3's (244, 244, 244) edge chunk.
 
@@ -116,14 +120,13 @@ def _compare(cs, label: str, fns, smi: str, dev_how: str = "device", calls: int 
 
 def _psnr(cs, pq, pb, pb2, vol, smi: str) -> None:
     """K16 against the parent's PSNR search, as each package's front calls
-    it at PSNR 80 (the parent's row by row, the f32 mean, a host wait a
-    step; the new one batched, the f64 mean): phase 5's 256^3 chunk, the
-    headline volume's 8 chunks, phase 7's 16 x 1024^2 fields and phase 8's
-    1800 x 3600 field.  Each row's q compared; a row whose q moved is
-    printed with its MSE under both sums against t_mse.  Timed in turns,
-    host-issued (the parent's synchronizes every step) and device-busy.
-    Then phase 5's and phase 8's PSNR streams from each package's
-    compressor, compared byte for byte."""
+    it at PSNR 80: phase 5's 256^3 chunk, the headline volume's 8 chunks,
+    phase 7's 16 x 1024^2 fields and phase 8's 1800 x 3600 field.  Each
+    row's q compared; a row whose q moved is printed with its MSE under
+    both sums against t_mse.  Then the pair held equal and timed in turns
+    (``_compare``: device-busy, as the call waits for its status words,
+    host-issued, and per launch).  Then phase 5's and phase 8's PSNR
+    streams from each package's compressor, compared byte for byte."""
     import numpy as np
     import torch
 
@@ -149,7 +152,7 @@ def _psnr(cs, pq, pb, pb2, vol, smi: str) -> None:
         with cs._capture(quantize, ["estimate_q_psnr_batched"]) as calls:
             tb._dense_encode_rows(make(), "psnr", 80.0, "none", fwd, inv)
         ((c, rng, _),) = calls["estimate_q_psnr_batched"]
-        fns = {"parent": lambda c=c, rng=rng: pb._per_row(lambda a, r: pq.estimate_q_psnr_batched(a, r, 80.0), c, rng),
+        fns = {"parent": lambda c=c, rng=rng: pq.estimate_q_psnr_batched(c, rng, 80.0),
                "new": lambda c=c, rng=rng: quantize.estimate_q_psnr_batched(c, rng, 80.0)}
         q_old, q_new = fns["parent"](), fns["new"]()
         moved = torch.nonzero(q_old != q_new).reshape(-1).tolist()
@@ -160,13 +163,9 @@ def _psnr(cs, pq, pb, pb2, vol, smi: str) -> None:
                 print(f"[compare] K16 {label}: row {b} MOVED; at the {who}'s q {float(q[b])!r}: f32 mean "
                       f"{float(torch.mean(d * d))!r}, f64 mean {float(d.double().square().mean())!r}, t_mse "
                       f"{float(t_mse[b])!r}")
-        host_t = _turns(fns, "host-issued", 10)
-        busy_t = _turns(fns, "device-busy", 10)
         print(f"[compare] K16 {label} ({c.shape[0]} x {c.shape[1]}): q of {c.shape[0] - len(moved)} of "
-              f"{c.shape[0]} rows equal ({q_new.tolist()[:16]}); host-issued ms (parent, new, new, parent) "
-              f"{host_t['parent'][0]:.4f}, {host_t['new'][0]:.4f}, {host_t['new'][1]:.4f}, {host_t['parent'][1]:.4f}; "
-              f"device-busy {busy_t['parent'][0]:.4f}, {busy_t['new'][0]:.4f}, {busy_t['new'][1]:.4f}, "
-              f"{busy_t['parent'][1]:.4f} -- {smi}")
+              f"{c.shape[0]} rows equal ({q_new.tolist()[:16]})")
+        _compare(cs, f"K16 {label} ({c.shape[0]} x {c.shape[1]}, PSNR 80)", fns, smi, "device-busy", 10)
         del c, rng, calls
     # the PSNR streams of phases 5 and 8, each package's compressor
     for label, old_c, new_c, data in (
@@ -181,12 +180,12 @@ def _psnr(cs, pq, pb, pb2, vol, smi: str) -> None:
 
 
 def _pyramid(cs, pspk, vol, smi: str) -> None:
-    """sched_pyramid against the parent's (2 + levels launches and a memset)
-    on the dyadic (97, 128, 118) chunk and SDRBench S3D 500^3's edge chunk
-    (244, 244, 244), PWE 1e-2 fronts of the smooth fields.  The parent's
-    index is given the new index's host tables (the same deep slots, node
-    and parent boxes: tests/test_torch_schedule.py holds them equal),
-    which saves its host build (tens of seconds at 244^3)."""
+    """sched_pyramid against the parent's on the dyadic (97, 128, 118) chunk
+    and SDRBench S3D 500^3's edge chunk (244, 244, 244), PWE 1e-2 fronts of
+    the smooth fields.  The parent's index is given the new index's host
+    tables and plan (the same fields in both packages: the same deep
+    slots, node and parent boxes), which saves its host build (tens of
+    seconds at 244^3)."""
     import numpy as np
     import torch
 
@@ -205,12 +204,9 @@ def _pyramid(cs, pspk, vol, smi: str) -> None:
         pi = spk.pyramid_index(dims, dev)
         build = time.perf_counter() - t0
         ppi = object.__new__(pspk.PyramidIndex)
-        for k in ("dims", "device", "levels", "ax_depth", "deep_idx", "nm_src", "e_src", "nn"):
+        for k in pspk.PyramidIndex.__slots__:
             setattr(ppi, k, getattr(pi, k))
-        for k in ("deep_idx", "nm_src", "e_src"):
-            setattr(ppi, f"{k}32", getattr(pi, k).to(torch.int32))
-        _compare(cs, f"sched_pyramid {dims} (index {build:.3f} s on the host; the parent: {2 + pi.levels} "
-                     "launches and a memset; new: 2)",
+        _compare(cs, f"sched_pyramid {dims} (index {build:.3f} s on the host; two launches each)",
                  {"parent": lambda m=m, ppi=ppi: pspk.schedule_pyramid(m, ppi),
                   "new": lambda m=m, pi=pi: spk.schedule_pyramid(m, pi)}, smi, calls=20)
         del x, m, pi, ppi
@@ -358,7 +354,33 @@ def main(argv) -> int:
         progs[key] = (lambda mod=mod, index=index, caps=caps: (
             lambda r: [r[k] for k in sorted(r)])(mod._wave_emit_field(m, sg, index, caps, comp.num_bp_cap)))
     _compare(cs, "2D field program (_wave_emit_field), 1024^2 field, tier 0", progs, smi, "device-busy")
-    del comp, progs, m, sg
+    # its emission planes: each package's planes calls, as its program makes them
+    calls = {}
+    for key, mod, wp, names in (("parent", pb2, pwp, ["emit_planes", "emit_fields"]),
+                                ("new", tb2, wave_pack, ["emit_fields"])):
+        index = mod._wave_index2((nx, ny), dev)
+        caps = mod._wave_caps2(nx * ny, comp.num_bp_cap, index[1].nn, ev_cap)
+        with cs._capture(wp, [nm for nm in names if hasattr(wp, nm)]) as got:
+            mod._wave_emit_field(m, sg, index, caps, comp.num_bp_cap)
+        calls[key] = {k: v for k, v in got.items() if v}
+    pcalls, ncalls = calls["parent"], calls["new"]
+    cs._check(list(ncalls) == ["emit_fields"] and len(ncalls["emit_fields"]) == 2,
+              f"the new 2D program's planes calls: { {k: len(v) for k, v in ncalls.items()} }")
+
+    def parent_planes():
+        if "emit_planes" in pcalls:  # one launch a class: LIP, REF, then LIS
+            return [pwp.emit_planes(*a) for a in pcalls["emit_planes"]]
+        px, lis = (pwp.emit_fields(*a) for a in pcalls["emit_fields"])
+        return [px[0], px[2], lis[1]]
+
+    def new_planes():
+        px, lis = (wave_pack.emit_fields(*a) for a in ncalls["emit_fields"])
+        return [px[0], px[2], lis[1]]
+
+    _compare(cs, "2D emission planes, 1024^2 field, tier 0 (the parent's "
+             + ", ".join(f"{len(v)} {k}" for k, v in pcalls.items()) + "; new: 2 emit_fields, pixel half then "
+             "LIS half; outputs LIP, REF, LIS)", {"parent": parent_planes, "new": new_planes}, smi)
+    del comp, progs, m, sg, calls, pcalls, ncalls
 
     _psnr(cs, pq, pb, pb2, vol, smi)
     _pyramid(cs, pspk, vol, smi)

@@ -58,7 +58,7 @@ launches = {
     "transpose_bits32": 0, "masked_pack": 0, "compact_flags_rows": 0, "reconstruct_mags": 0,
     "sched_boxmax": 0, "sched_virtual": 0, "sched_table": 0, "sched_pyramid": 0,
     "walk_vtab": 0, "anchor_ranks": 0, "walk_rows": 0, "radix_sort": 0,
-    "emit_stage": 0, "emit_planes": 0,
+    "emit_stage": 0,
     "table_anchors": 0, "table_walk": 0, "node_passes": 0,
 }
 # nvcc's output of the last build (register and shared-memory use per kernel)
@@ -204,7 +204,6 @@ def load(device=None) -> ct.CDLL:
                     vp, vp, vp,
                 ]),
                 ("sperr_emit_fields", [vp, vp, vp, ct.c_int, vp, ll, ll, vp, ll, ll, vp, ct.c_int, vp, vp]),
-                ("sperr_emit_planes", [ct.c_int, vp, vp, vp, ct.c_int, ll, ll, vp, ct.c_int, vp, vp, vp]),
                 ("sperr_table_anchors", [vp, vp, vp, ct.c_int, vp]),
                 ("sperr_table_rows", [vp, vp]),
                 ("sperr_table_born", [vp, vp]),
@@ -342,7 +341,9 @@ def quantize(coeffs: torch.Tensor, inv_q: torch.Tensor):
     return mags, signs, maxmag
 
 
-PSNR_CANDIDATES = 8  # candidates one round of K16 tests (kPsnrCand in quantize.cu)
+PSNR_CANDIDATES = 8  # candidates of a round's full launch, the most a launch tests (kPsnrCand)
+PSNR_LEAN = 3  # candidates of a round's lean first launch (kPsnrLean): real coefficients meet in 0-2 shrinks
+PSNR_ROUND = (PSNR_LEAN, PSNR_CANDIDATES)  # a round's two launches
 PSNR_SHRINK = float(np.float32(1.0 / 2.0**0.25))  # q's step, f32 (kShrink)
 
 
@@ -359,14 +360,16 @@ def psnr_unreachable(row: int, t_mse: float, q: float) -> str:
 
 
 def psnr_q(coeffs: torch.Tensor, q0: torch.Tensor, t_mse: torch.Tensor,
-           candidates: int = PSNR_CANDIDATES) -> torch.Tensor:
+           candidates: Tuple[int, int] = PSNR_ROUND) -> torch.Tensor:
     """K16: coeffs (B, n) f32, q0 and t_mse (B,) f32 on one CUDA device ->
     q (B,) f32, each row's first q of q0, q0 s, q0 s^2, ... (s = 2^(-1/4)
     in f32) whose MSE, an f64 mean of (c - q rint(c / q))^2, is not above
-    t_mse.  Each round is one launch that tests ``candidates`` q's of every
-    open row, then one host wait for the rows' status; a row that no round
-    of J has met starts the next round at q_J.  A row whose q no longer
-    shrinks raises ValueError."""
+    t_mse.  Each round is two launches with no host wait between them: the
+    first tests ``candidates[0]`` q's of every open row, the second,
+    queued behind it, the next ``candidates[1]`` of the rows it left open;
+    then one host wait for the rows' status.  A row that no round has met
+    starts the next round where the last launch stopped.  A row whose q no
+    longer shrinks raises ValueError."""
     for t, what in ((coeffs, "coeffs"), (q0, "q0"), (t_mse, "t_mse")):
         _require_cuda_f32(t, what)
         if t.device != coeffs.device:
@@ -375,13 +378,14 @@ def psnr_q(coeffs: torch.Tensor, q0: torch.Tensor, t_mse: torch.Tensor,
         raise ValueError(f"coeffs must be (B, n > 0), q0 and t_mse (B,); got {tuple(coeffs.shape)}, "
                          f"{tuple(q0.shape)} and {tuple(t_mse.shape)}")
     B, n = coeffs.shape
-    J = int(candidates)
-    if not 0 < B <= 65535 or not 1 <= J <= PSNR_CANDIDATES:
-        raise ValueError(f"1 to 65535 rows and 1 to {PSNR_CANDIDATES} candidates; got {B}, {J}")
+    js = tuple(int(j) for j in candidates)
+    if not 0 < B <= 65535 or len(js) != 2 or not all(1 <= j <= PSNR_CANDIDATES for j in js):
+        raise ValueError(f"1 to 65535 rows and two launches of 1 to {PSNR_CANDIDATES} candidates; "
+                         f"got {B}, {candidates}")
     dev = coeffs.device
     blocks = psnr_blocks(n)
     lib = load(dev)
-    # one allocation: the blocks' f64 sums, then q, the next rounds' starts and the status words
+    # one allocation: the blocks' f64 sums, then q, the next launches' starts and the status words
     nslot = B * blocks * PSNR_CANDIDATES
     buf = torch.empty(8 * nslot + 12 * B, dtype=torch.uint8, device=dev)
     slots = buf[: 8 * nslot].view(torch.float64)
@@ -390,18 +394,19 @@ def psnr_q(coeffs: torch.Tensor, q0: torch.Tensor, t_mse: torch.Tensor,
     q_in, first = q0, 1
     with _on_device(coeffs), _zeroed(dev, -(-B // 2)) as zw:
         while True:
-            err = lib.sperr_psnr_q(coeffs.data_ptr(), q_in.data_ptr(), t_mse.data_ptr(), q.data_ptr(),
-                                   q_next.data_ptr(), status.data_ptr(), slots.data_ptr(), zw.data_ptr(), B,
-                                   n, blocks, J, first, _stream(coeffs))
-            _check(lib, err, "psnr_q")
-            _count("psnr_q")
+            for J in js:  # the round's two launches, the second resuming at the first's q_next
+                err = lib.sperr_psnr_q(coeffs.data_ptr(), q_in.data_ptr(), t_mse.data_ptr(), q.data_ptr(),
+                                       q_next.data_ptr(), status.data_ptr(), slots.data_ptr(), zw.data_ptr(),
+                                       B, n, blocks, J, first, _stream(coeffs))
+                _check(lib, err, "psnr_q")
+                _count("psnr_q")
+                q_in, first = q_next, 0
             st = status.tolist()  # the round's one host wait
             if 2 in st:
                 r = st.index(2)
                 raise ValueError(psnr_unreachable(r, float(t_mse[r]), float(q_next[r])))
             if 0 not in st:
                 return q
-            q_in, first = q_next, 0
 
 
 def cdf97_lift(
@@ -1564,12 +1569,14 @@ def emit_cube(pv_bm: torch.Tensor, mags: Optional[torch.Tensor], s: torch.Tensor
 
 
 def emit_fields(pixels, pay: torch.Tensor, num_bp: torch.Tensor, P: int):
-    """K9's planes launch for the 3D forms that hand their pixel fields:
+    """K9's planes launch for the forms that hand their pixel fields:
     pixels = (s, e, sign, magnitude) of the LIP/REF items (int32; the sign
     int32 or bool), padded to a multiple of 256 items with (NEVER, NEVER,
     0, 0), and the walk's payload words ``pay`` -> [(valid, bits)] of LIP,
     LIS and REF, as ``ops/wave_pack.emit_fields_ref`` defines them.  One
-    launch."""
+    launch.  Either half may be empty (the 2D program's two launches):
+    empty pixel fields launch LIS blocks only, an empty ``pay`` pixel
+    blocks only."""
     P = int(P)
     dev = pixels[0].device
     n_real = pixels[0].numel()
@@ -1584,60 +1591,17 @@ def emit_fields(pixels, pay: torch.Tensor, num_bp: torch.Tensor, P: int):
     if items + W_lis == 0:
         return parts
     g = pixels[2]
+    px = [t.data_ptr() if n_real else None for t in pixels]
     lib = load(dev)
     with _on_device(pixels[0]):
         err = lib.sperr_emit_fields(
-            pixels[0].data_ptr(), pixels[1].data_ptr(), g.data_ptr(), 1 if g.dtype == torch.bool else 4,
-            pixels[3].data_ptr(), n_real, items, pay.data_ptr(), n_pay, W_lis, num_bp.data_ptr(), P,
+            px[0], px[1], px[2], 1 if g.dtype == torch.bool else 4, px[3], n_real, items,
+            pay.data_ptr() if n_pay else None, n_pay, W_lis, num_bp.data_ptr(), P,
             planes.data_ptr(), _stream(pixels[0]),
         )
     _check(lib, err, "emit_stage")
     _count("emit_stage")
     return parts
-
-
-EMIT_CLASSES = {"lip": (0, 16, 3), "lis": (1, 16, 1), "ref": (2, 32, 2)}  # id, items per word, fields
-
-
-def emit_planes(kind: str, fields, num_bp: torch.Tensor, P: int, items: int):
-    """K9b: the (P, items // per_word) int32 valid and bit planes of one
-    emission class, as ``ops/wave_pack.emit_planes_ref`` defines them:
-    kind "lip" (fields s, e, sign: the sign int32 or bool; 16 items per
-    word), "lis" (the payload words; 16) or "ref" (s, magnitudes; 32).
-    The fields may be shorter than ``items``: the items past them take the
-    padding.  One launch."""
-    if kind not in EMIT_CLASSES:
-        raise ValueError(f"kind must be one of {sorted(EMIT_CLASSES)}; got {kind!r}")
-    cls, per_word, nf = EMIT_CLASSES[kind]
-    if len(fields) != nf:
-        raise ValueError(f"{kind} takes {nf} fields; got {len(fields)}")
-    dev = fields[0].device
-    n_real = fields[0].numel()
-    for k, t in enumerate(fields):
-        dtype = torch.bool if (kind == "lip" and k == 2 and t.dtype == torch.bool) else torch.int32
-        _require_cuda(t, dtype, f"{kind} field {k}")
-        if t.dim() != 1 or t.numel() != n_real or t.device != dev:
-            raise ValueError(f"the {kind} fields must be 1-D, of one length, on {dev}")
-    P, items = int(P), int(items)
-    if P < 1 or items % per_word or items < n_real:
-        raise ValueError(f"P >= 1 and {n_real} <= items, a multiple of {per_word}; got {P}, {items}")
-    nb = _num_bp_word(num_bp, dev)
-    W = items // per_word
-    planes = torch.empty((2, P, W), dtype=torch.int32, device=dev)
-    if W == 0:
-        return planes[0], planes[1]
-    f = list(fields) + [None] * (3 - nf)
-    g_bytes = 1 if f[2] is not None and f[2].dtype == torch.bool else 4
-    lib = load(dev)
-    with _on_device(fields[0]):
-        err = lib.sperr_emit_planes(
-            cls, f[0].data_ptr(), None if f[1] is None else f[1].data_ptr(),
-            None if f[2] is None else f[2].data_ptr(), g_bytes, n_real, W, nb.data_ptr(), P,
-            planes[0].data_ptr(), planes[1].data_ptr(), _stream(fields[0]),
-        )
-    _check(lib, err, "emit_planes")
-    _count("emit_planes")
-    return planes[0], planes[1]
 
 
 # ---------------------------------------------------------------------------

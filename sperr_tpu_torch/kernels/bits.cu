@@ -24,8 +24,9 @@
 //        4x slower than the shuffles at the second tier.  Stores of one
 //        word per plane row (out[p * W + w] from lane p) fill 4 bytes of
 //        each 32-byte sector.  The wave paths run its shuffle stages
-//        (bits.cuh) inside K9b (emit.cu), which builds the masks in
-//        registers; this kernel stays an entry point of its own.
+//        (bits.cuh) inside K9's planes launch (emit.cu), which builds
+//        the masks in registers; this kernel stays an entry point of its
+//        own.
 //   K11  (redesigned for Hopper) three launches over all parts at once, no
 //        torch op between them.  A tile is 2048 words of one row.
 //        count: each block reads its tile's valid words (16-byte loads) and

@@ -1,7 +1,8 @@
-// The 3D emission's pixel stage (K9) for Hopper: the exposed-pixel
-// compaction of a power-of-two cube and the LIP, LIS and refinement planes
-// of every 3D emission in two launches (emit_stage), and one class's planes
-// for the 2D program (emit_planes, K9b).
+// The emission's pixel stage (K9) for Hopper: the exposed-pixel compaction
+// of a power-of-two cube and the LIP, LIS and refinement planes of every
+// emission (emit_stage): two launches on a cube, one for the other 3D forms,
+// and one for each half of the 2D program's emission (its pixel classes,
+// then its walk's LIS class).
 //
 // Replaces the XLA program of sperr_tpu/ops/wave_pack.py wave_emit_3d
 // (:102) between the set walk and the masked pack: the uniform forest's
@@ -9,10 +10,10 @@
 // gathers and a sort of 8 take_b keys back into pixel order) and the
 // per-class 32-pass masks (lis_masks :177, lip_masks :303, ref_masks :316)
 // with their bit transposes (_emit_words :66, _emit_words_pair :85); the
-// same masks serve wave_emit_2d_pixels (:339).  Every result is an integer
-// and equals the plain versions (ops/wave_pack.py emit_cube_ref,
-// emit_fields_ref, emit_planes_ref) bit for bit, sentinels and padding
-// included.
+// same masks serve wave_emit_2d_pixels (:339) and the 2D walk's LIS class.
+// Every result is an integer and equals the plain versions
+// (ops/wave_pack.py emit_cube_ref, emit_fields_ref) bit for bit, sentinels
+// and padding included.
 //
 // Bound: device memory.  The stage reads its inputs once (the box-major
 // table, the walk's payloads) and writes its outputs once (the exposure
@@ -47,7 +48,11 @@
 //         e (its minimum), s, sign and magnitude (or mags[lin] when they are
 //         apart).  The block writes exp_idx and exp_ll at its ranks, and
 //         past the kept pixels the sentinels (the plain version's pad rule).
-//         The other 3D forms hand the four fields in device memory.
+//         The other forms hand the four fields in device memory: the 3D
+//         forms that are not cubes both halves in one launch; the 2D
+//         program its pixel fields (no LIS block), then its walk's
+//         payloads (no pixel block), each half in a launch of its own, so
+//         that s is read once for LIP and REF together.
 //         The fields go to shared memory; each warp builds its words' 32-pass
 //         valid and bit masks in registers (K10's lane mapping: pair form,
 //         word w holds items 16 w .. 16 w + 15, lane l the decision (even
@@ -59,8 +64,6 @@
 //         loads) and hand it to its two lanes by shuffle.
 //   The look-back's status words and ticket live in a buffer the caller
 //   keeps zeroed: the planes launch zeroes them again for the next call.
-// K9b (emit_planes, the 2D program) builds one class's planes from its
-// fields, 32 words a block, as the planes launch does.
 // Shifts are spelt out for counts at and past 32 (undefined in C++): the
 // plain version's _safe_rsh and ones_low32 give 0 and all ones there.
 
@@ -77,13 +80,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int32_t kNever = 0x7FFF;
 constexpr unsigned kFull = 0xffffffffu;
-
-long long grid_for(long long work, long long per_block) {
-  long long g = (work + per_block - 1) / per_block;
-  if (g < 1) g = 1;
-  if (g > 65535LL * 32) g = 65535LL * 32;
-  return g;
-}
 
 // ---------------------------------------------------------------------------
 // The cube's exposure: rows, flags and clamped row bases in one launch
@@ -648,65 +644,6 @@ emit_stage_planes(const CubeSrc c, const FieldSrc f, const StageOut o) {
     lis_block(sm, o, blk - o.nbp, nb);
 }
 
-// ---------------------------------------------------------------------------
-// K9b: one class's planes (the 2D program)
-// ---------------------------------------------------------------------------
-constexpr int kPlWords = 32;                   // output words per block
-constexpr int kPlPerWarp = kPlWords / kWarps;  // 4
-
-// f0, f1, f2: LIP s, e, sign (int32, or bytes when g_bytes == 1); LIS the
-// payloads; REF s, magnitudes.  Items from n_real on take the padding
-// (NEVER, NEVER, 0) / 0 / (NEVER, 0).  vw, bw: (P, W) planes.
-template <int kClass>
-__global__ void __launch_bounds__(kThreads)
-emit_planes_kernel(const int32_t* __restrict__ f0, const int32_t* __restrict__ f1,
-                   const void* __restrict__ f2, int g_bytes, long long n_real, long long W,
-                   const int32_t* __restrict__ num_bp, int P, uint32_t* __restrict__ vw,
-                   uint32_t* __restrict__ bw) {
-  __shared__ uint32_t tv[32][33], tb[32][33];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool odd = kClass != kRef && (lane & 1);
-  const int nb = __ldg(num_bp);
-  for (long long w0 = (long long)blockIdx.x * kPlWords; w0 < W;
-       w0 += (long long)gridDim.x * kPlWords) {
-    int a[kPlPerWarp], b[kPlPerWarp], c[kPlPerWarp];
-#pragma unroll
-    for (int i = 0; i < kPlPerWarp; ++i) {
-      const long long w = w0 + warp + i * kWarps;
-      const long long item = kClass == kRef ? 32 * w + lane : 16 * w + (lane >> 1);
-      a[i] = kClass == kLis ? 0 : kNever;
-      b[i] = kClass == kLip ? kNever : 0;
-      c[i] = 0;
-      if (w < W && item < n_real) {
-        a[i] = __ldg(f0 + item);
-        if (kClass != kLis) b[i] = __ldg(f1 + item);
-        if (kClass == kLip)
-          c[i] = g_bytes == 1 ? (int)__ldg(static_cast<const uint8_t*>(f2) + item)
-                              : __ldg(static_cast<const int32_t*>(f2) + item);
-      }
-    }
-    for (int base = 0; base < P; base += 32) {
-      const int take = P - base < 32 ? P - base : 32;
-#pragma unroll
-      for (int i = 0; i < kPlPerWarp; ++i) {
-        uint32_t mv, mb;
-        cell_masks<kClass>(a[i], b[i], c[i], odd, nb, base, mv, mb);
-        tv[lane][warp + i * kWarps] = transpose32_shfl(mv, lane);  // plane lane, word warp + 8 i
-        tb[lane][warp + i * kWarps] = transpose32_shfl(mb, lane);
-      }
-      __syncthreads();
-      const long long w = w0 + lane;
-      if (w < W) {
-        for (int p = warp; p < take; p += kWarps) {
-          vw[(long long)(base + p) * W + w] = tv[p][lane];
-          bw[(long long)(base + p) * W + w] = tb[p][lane];
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 cudaError_t stage_planes(bool cube, const CubeSrc& c, const FieldSrc& f, const StageOut& o,
                          cudaStream_t stream) {
   const long long nbl = (o.W_lis + kStageLis - 1) / kStageLis;
@@ -771,41 +708,25 @@ extern "C" int sperr_emit_cube(const int32_t* pv, const int32_t* mags, const int
   return (int)stage_planes(true, c, f, o, stream);
 }
 
-// The planes of the other 3D forms, one launch: the fields s, e, sign
-// (int32, or bytes when g_bytes == 1) and magnitudes of n_real items, padded
-// to items (a multiple of 256); pay, W_lis, P and planes as for
-// sperr_emit_cube.
+// The planes of the forms that hand their pixel fields (the other 3D forms,
+// and each half of a 2D emission), one launch: the fields s, e, sign (int32,
+// or bytes when g_bytes == 1) and magnitudes of n_real items, padded to
+// items (a multiple of 256); pay, W_lis, P and planes as for
+// sperr_emit_cube.  Either half may be empty: n_real = items = 0 (the field
+// pointers may be null) launches LIS blocks only, n_pay = W_lis = 0 (pay may
+// be null) pixel blocks only.
 extern "C" int sperr_emit_fields(const int32_t* s_p, const int32_t* e_p, const void* g_p,
                                  int g_bytes, const int32_t* m_p, long long n_real,
                                  long long items, const int32_t* pay, long long n_pay,
                                  long long W_lis, const int32_t* num_bp, int P, uint32_t* planes,
                                  cudaStream_t stream) {
   if (!stage_ok(items, n_pay, W_lis, P) || n_real < 0 || n_real > items ||
-      !(g_bytes == 1 || g_bytes == 4))
+      !(g_bytes == 1 || g_bytes == 4) || (n_real > 0 && !(s_p && e_p && g_p && m_p)) ||
+      (n_pay > 0 && !pay) || !num_bp || (items + W_lis > 0 && !planes))
     return (int)cudaErrorInvalidValue;
   const CubeSrc c = {};
   const FieldSrc f = {s_p, e_p, g_p, m_p, n_real, g_bytes};
   const StageOut o = {planes, planes + 2LL * P * (items / 16), planes + 2LL * P * (items / 16 + W_lis),
                       pay, num_bp, items, n_pay, W_lis, (items + kStageItems - 1) / kStageItems, P};
   return (int)stage_planes(false, c, f, o, stream);
-}
-
-// K9b: one class's (P, W) valid and bit planes (cls 0 LIP, 1 LIS, 2 REF;
-// W words of 16 items for LIP and LIS, of 32 for REF).  One launch.
-extern "C" int sperr_emit_planes(int cls, const int32_t* f0, const int32_t* f1, const void* f2,
-                                 int g_bytes, long long n_real, long long W, const int32_t* num_bp,
-                                 int P, uint32_t* vw, uint32_t* bw, cudaStream_t stream) {
-  if (cls < 0 || cls > 2 || W < 1 || P < 1 || n_real < 0 || !(g_bytes == 1 || g_bytes == 4))
-    return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)grid_for(W, kPlWords);
-  if (cls == kLip)
-    emit_planes_kernel<kLip><<<grid, kThreads, 0, stream>>>(f0, f1, f2, g_bytes, n_real, W, num_bp,
-                                                            P, vw, bw);
-  else if (cls == kLis)
-    emit_planes_kernel<kLis><<<grid, kThreads, 0, stream>>>(f0, f1, f2, g_bytes, n_real, W, num_bp,
-                                                            P, vw, bw);
-  else
-    emit_planes_kernel<kRef><<<grid, kThreads, 0, stream>>>(f0, f1, f2, g_bytes, n_real, W, num_bp,
-                                                            P, vw, bw);
-  return (int)cudaGetLastError();
 }

@@ -17,10 +17,10 @@
 // K16 replaces the XLA while_loop of sperr_tpu/ops/quantize_jax.py
 // estimate_q_psnr_batched: q starts at q0 and shrinks by 2^(-1/4) until the
 // row's MSE of c - q rint(c / q) meets t_mse.  The loop as torch ops waits
-// on the host for every step's test.  psnr_q tests kPsnrCand candidates in
-// one pass over the coefficients instead: each block forms the loop's own
-// q_j (q_j = q_{j-1} * shrink in f32, inv_j = 1 / q_j by IEEE division),
-// reads each coefficient once and, for every candidate, takes
+// on the host for every step's test.  psnr_q tests J candidates in one pass
+// over the coefficients instead: each block forms the loop's own q_j
+// (q_j = q_{j-1} * shrink in f32, inv_j = 1 / q_j by IEEE division), reads
+// each coefficient once and, for every candidate, takes
 // d = c - q_j rint(c inv_j) as rounded f32 operations and adds d * d
 // (exact in f64) to an f64 sum.  An f64 sum of exact squares is the same to
 // about 1e-16 relative in any order, so the test against t_mse does not flip
@@ -29,15 +29,28 @@
 // reset by that block) sums the blocks' partial sums in block order and
 // takes the first candidate with !(mse > t_mse), the loop's own test (a NaN
 // MSE ends it).  A row with no candidate met gets its next start q_J and
-// status 0 (another round), a row that can no longer shrink (q_J == q_{J-1}
-// in f32) status 2; the host reads the status words once per round.  In
-// exact arithmetic MSE(q) <= q^2 / 4 meets the target by the fifth
-// candidate, so one round of eight is the rule.
+// status 0 (open), a row that can no longer shrink (q_J == q_{J-1} in f32)
+// status 2.
 //
-// Bound: device memory, one read of the coefficients a round (the
-// candidates' arithmetic is about 4 f32 operations and one f64 FMA each,
-// below the card's balance); the f32 -> f64 conversions are the busiest
-// unit.
+// A round is two launches on one stream, with no host wait between them:
+// the lean launch tests the first kPsnrLean candidates of every open row,
+// then the full launch, queued behind it, resumes each row it left open at
+// its q_next and tests kPsnrCand more; the blocks of a row that the lean
+// launch met or found stuck exit at entry on the row's status word (stream
+// order gives them the lean launch's status, q_next and zeroed counter).
+// The host reads the status words once a round.  On real coefficients the
+// search meets in 0-2 shrinks (q0 = 2 sqrt(3 t_mse) puts the uniform
+// error's q^2 / 12 at the target), so the lean launch meets nearly every
+// row, and its registers hold only kPsnrLean candidates' q, reciprocals and
+// f64 sums: the candidate count is a template parameter.  In exact
+// arithmetic MSE(q) <= q^2 / 4 meets the target by the fifth candidate, so
+// one round of 3 + 8 is the rule.
+//
+// Bound: device memory, one read of the coefficients a launch that has the
+// row open (the candidates' arithmetic is about 4 f32 operations and one
+// f64 FMA each, below the card's balance); the f32 -> f64 conversions are
+// the busiest unit, so a launch that tests fewer candidates comes nearer
+// its bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,21 +94,27 @@ __global__ void quantize_kernel(const float* __restrict__ coeffs,
 
 
 // -- K16 ----------------------------------------------------------------------
-constexpr int kPsnrCand = 8;     // candidates a round tests (the most; the caller may ask fewer)
+constexpr int kPsnrCand = 8;     // the full launch's candidates: the most a launch tests
+constexpr int kPsnrLean = 3;     // the lean launch's candidates (0-2 shrinks meet)
 constexpr int kPsnrParts = kThreads / kPsnrCand;  // partial sums per candidate in the last block
 constexpr float kShrink = 0.840896427631378173828125f;  // f32(2^(-1/4)), as the plain loop's
 constexpr float kRound = 12582912.0f;  // 1.5 2^23
 
+// kCand: the candidates a thread keeps in registers (J <= kCand are
+// tested).  A block's slots and the last block's parts keep the layout of
+// kPsnrCand candidates whatever kCand is, so the sums' order does not
+// depend on the launch.
+template <int kCand>
 __global__ void __launch_bounds__(kThreads) psnr_q_kernel(
     const float* __restrict__ coeffs, const float* q_in, const float* __restrict__ t_mse,
     float* __restrict__ q_out, float* q_next, int32_t* status, double* __restrict__ slots,
     unsigned* __restrict__ counters, long long n, int J, int first) {
   const int b = blockIdx.y;
-  // rows met in an earlier round take no part (status is written by a row's
-  // last block only after every block of the row has read it)
+  // rows met or stuck in an earlier launch take no part (status is written
+  // by a row's last block only after every block of the row has read it)
   if (!first && status[b] != 0) return;
-  __shared__ float s_q[kPsnrCand + 1];
-  __shared__ double s_warp[kThreads / 32][kPsnrCand];
+  __shared__ float s_q[kCand + 1];
+  __shared__ double s_warp[kThreads / 32][kCand];
   __shared__ double s_part[kPsnrParts][kPsnrCand];
   __shared__ bool s_last;
   const int t = threadIdx.x;
@@ -107,10 +126,10 @@ __global__ void __launch_bounds__(kThreads) psnr_q_kernel(
     }
   }
   __syncthreads();
-  float qj[kPsnrCand], inv[kPsnrCand];
-  double acc[kPsnrCand];
+  float qj[kCand], inv[kCand];
+  double acc[kCand];
 #pragma unroll
-  for (int j = 0; j < kPsnrCand; ++j) {
+  for (int j = 0; j < kCand; ++j) {
     qj[j] = s_q[j < J ? j : 0];
     inv[j] = __fdiv_rn(1.0f, qj[j]);
     acc[j] = 0.0;
@@ -125,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) psnr_q_kernel(
   const float small = __fdiv_rn(0x1p21f, inv[J - 1]);
   auto add = [&](float c, bool fast) {
 #pragma unroll
-    for (int j = 0; j < kPsnrCand; ++j) {
+    for (int j = 0; j < kCand; ++j) {
       if (j < J) {
         const float p = __fmul_rn(c, inv[j]);
         const float r = fast ? __fsub_rn(__fadd_rn(p, kRound), kRound) : rintf(p);
@@ -163,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) psnr_q_kernel(
   // the block's sums, in a fixed order: warp shuffles, then the warps in turn
   const int lane = t & 31, warp = t >> 5;
 #pragma unroll
-  for (int j = 0; j < kPsnrCand; ++j) {
+  for (int j = 0; j < kCand; ++j) {
     double v = acc[j];
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) s_warp[warp][j] = v;
@@ -228,20 +247,27 @@ extern "C" int sperr_quantize(const float* coeffs, const float* inv_q,
   return (int)cudaGetLastError();
 }
 
-// One round of K16 over the rows of coeffs (B, n) f32 whose status is 0
-// (every row when first != 0): q_in (B,) each row's first candidate; a
+// One launch of K16 over the rows of coeffs (B, n) f32 whose status is 0
+// (every row when first != 0), J candidates each (the lean kernel for J <=
+// kPsnrLean, the full one above): q_in (B,) each row's first candidate; a
 // met row gets q_out and status 1, an open one q_next and status 0, a row
 // that can no longer shrink status 2.  slots: B * blocks * kPsnrCand
-// doubles; counters: B zeroed words, left zeroed.  q_in may be q_next.
-// blocks: per row, a function of n alone (the sums' order does not
-// depend on the batch).  Returns the cudaError_t of the launch.
+// doubles; counters: B zeroed words, left zeroed.  q_in may be q_next, so
+// a round's second launch, queued behind the first, resumes its open rows.
+// blocks: per row, a function of n alone (the sums' order does not depend
+// on the batch).  Returns the cudaError_t of the launch.
 extern "C" int sperr_psnr_q(const float* coeffs, const float* q_in, const float* t_mse, float* q_out,
                             float* q_next, int32_t* status, double* slots, unsigned* counters,
                             long long B, long long n, int blocks, int J, int first,
                             cudaStream_t stream) {
   if (B <= 0 || n <= 0 || B > 65535 || blocks < 1 || J < 1 || J > kPsnrCand)
     return (int)cudaErrorInvalidValue;
-  psnr_q_kernel<<<dim3((unsigned)blocks, (unsigned)B), kThreads, 0, stream>>>(
-      coeffs, q_in, t_mse, q_out, q_next, status, slots, counters, n, J, first);
+  const dim3 grid((unsigned)blocks, (unsigned)B);
+  if (J <= kPsnrLean)
+    psnr_q_kernel<kPsnrLean><<<grid, kThreads, 0, stream>>>(coeffs, q_in, t_mse, q_out, q_next, status,
+                                                            slots, counters, n, J, first);
+  else
+    psnr_q_kernel<kPsnrCand><<<grid, kThreads, 0, stream>>>(coeffs, q_in, t_mse, q_out, q_next, status,
+                                                            slots, counters, n, J, first);
   return (int)cudaGetLastError();
 }

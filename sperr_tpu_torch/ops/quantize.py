@@ -95,8 +95,9 @@ def estimate_q_psnr_batched(
     coeffs: torch.Tensor, data_range: torch.Tensor, psnr_target: float
 ) -> torch.Tensor:
     """Per-chunk q for a PSNR target; coeffs (B, n) f32, data_range (B,).
-    K16 (``kernels.psnr_q``: every candidate of a round in one pass) on a
-    CUDA tensor, the plain version on a CPU tensor; the same q."""
+    K16 (``kernels.psnr_q``: a round of candidates in a lean launch and a
+    full one queued behind it, one host wait) on a CUDA tensor, the plain
+    version on a CPU tensor; the same q."""
     t_mse, q0 = psnr_start(data_range, psnr_target)
     if coeffs.is_cuda:
         return kernels.psnr_q(coeffs, q0, t_mse)

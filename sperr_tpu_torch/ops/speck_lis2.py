@@ -11,7 +11,7 @@ bit per level, each group's arrival bit, and the rows of a group that
 partitions at its own birth pass, re-keyed into the I item space (static
 rank 8 (xf - k) + {0; 1 + 2j; 2 + 2j} for k = xf .. 1).  The items'
 payload words go to the emission (``return_events="items"``: on the card
-K9b's LIS planes and K11, ops/wave_pack.wave_emit_2d_lis, as the 3D walk's
+K9's planes launch (no pixel field) and K11, ops/wave_pack.wave_emit_2d_lis, as the 3D walk's
 do), or through the 3D walk's event tail (``ops/speck_lis._event_tail``,
 the plain form): they expand into events and pack into byte-aligned
 per-pass segments, byte for byte those of

@@ -21,9 +21,10 @@ the exposed pixels of any other chunk (K12).  On a CUDA tensor a 3D
 emission's pixel stage is K9 (kernels/emit.cu): two launches on a cube
 (``emit_cube``: the exposure's rows and scan, then the planes of the three
 classes with each kept pixel's fields from its emission rank), one for the
-other forms (``emit_fields``); the 2D program builds one class's planes per
-launch (K9b, ``emit_planes``).  On a CPU tensor they run their plain
-versions (the ``_ref`` functions: today's masks, sort and plain K10).
+other forms (``emit_fields``).  A 2D emission is ``emit_fields`` in two
+halves: its pixel classes (no payload), then its walk's LIS class (no pixel
+field).  On a CPU tensor they run their plain versions (the ``_ref``
+functions: today's masks, sort and plain K10).
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ def _emit_words(masks_fn, P: int):
     """Packed (valid, bit) emission words [P, M//32] from per-cell pass
     masks: ``masks_fn(base)`` returns (mask_v, mask_b) int32 [M] for the pass
     window [base, base+32).  The plain K10 writes each window's planes
-    straight into the two (P, W) buffers (K9b's plain version)."""
+    straight into the two (P, W) buffers (the planes launch's plain
+    version)."""
     vw = bw = None
     for base in range(0, P, 32):
         mv, mb = masks_fn(base)
@@ -102,8 +104,7 @@ def _emit_words_pair(masks_fn, P: int):
 
 
 # ---------------------------------------------------------------------------
-# K9b: one class's LIP, LIS or refinement planes (the 2D program); their
-# plain version is also K9's
+# The plain planes of one class (LIP, LIS or refinement): K9's plain version
 # ---------------------------------------------------------------------------
 def _nb32(num_bp: torch.Tensor) -> torch.Tensor:
     """num_bp as int32 (itself when it already is)."""
@@ -184,25 +185,15 @@ def plane_masks(kind: str, fields, num_bp, items: int):
 
 
 def emit_planes_ref(kind: str, fields, num_bp, P: int, items: int):
-    """Plain K9b: the per-item 32-pass masks of ``plane_masks`` through the
-    plain K10, window by window, into the (P, W) valid and bit planes."""
+    """The (P, W) int32 valid and bit planes of one emission class, which
+    K11 packs: the per-item 32-pass masks of ``plane_masks`` through the
+    plain K10, window by window.  kind "lip": fields (s, e, sign), W =
+    items // 16, the pixels' (decision, sign) cell pairs; "lis": (payload
+    words,), W = items // 16; "ref": (s, magnitudes), W = items // 32.
+    Fields shorter than ``items`` are padded (s and e with NEVER, the rest
+    with 0)."""
     masks_fn, pair = plane_masks(kind, fields, num_bp, items)
     return (_emit_words_pair if pair else _emit_words)(masks_fn, P)
-
-
-def emit_planes(kind: str, fields, num_bp, P: int, items: int):
-    """K9b: the (P, W) int32 valid and bit planes of one emission class,
-    which K11 packs.  kind "lip": fields (s, e, sign), W = items // 16, the
-    pixels' (decision, sign) cell pairs; "lis": (payload words,), W = items
-    // 16; "ref": (s, magnitudes), W = items // 32.  Fields shorter than
-    ``items`` are padded (s and e with NEVER, the rest with 0).  On a CUDA
-    tensor one launch (``kernels.emit_planes``: the masks are built in
-    registers and transposed by K10's shuffle stages); on a CPU tensor the
-    plain version."""
-    if pe._dispatch(fields[0], "emit_planes"):
-        return kernels.emit_planes(kind, [pe._words32(f) if f.dtype != torch.bool else f.contiguous()
-                                          for f in fields], _nb32(num_bp), P, items)
-    return emit_planes_ref(kind, fields, num_bp, P, items)
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +258,7 @@ def emit_exposed_ref(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bo
 
 
 def stage_plane_args(pixels, pay_s, num_bp, P: int):
-    """The three classes' ``emit_planes`` arguments of a 3D emission, in
+    """The three classes' ``emit_planes_ref`` arguments of an emission, in
     masked_pack's order (LIP, LIS, REF): the pixel items (s, e, sign,
     magnitude) padded to a multiple of 256 (a part's words must be a
     multiple of K11's piece), the walk's payload words to one of 128."""
@@ -308,9 +299,11 @@ def emit_cube(pv_bm, mags, s, num_bp, N: int, wexp_cap: int, pack_mag: bool, pay
 
 
 def emit_fields(pixels, pay_s, num_bp, P: int):
-    """K9's planes of the 3D forms that hand their pixel fields (s, e, sign,
+    """K9's planes of the forms that hand their pixel fields (s, e, sign,
     magnitude): [(valid, bits)] of LIP, LIS and REF as ``emit_fields_ref``
-    computes them; one launch on a CUDA tensor."""
+    computes them; one launch on a CUDA tensor.  Either half may be empty
+    (a 2D emission's two launches): its planes have no column and no block
+    of the launch makes them."""
     if pe._dispatch(pixels[0], "emit_stage"):
         return kernels.emit_fields([pe._words32(f) if f.dtype != torch.bool else f.contiguous()
                                     for f in pixels], pe._words32(pay_s), _nb32(num_bp), P)
@@ -350,15 +343,6 @@ def _every_pixel(mags, signs, s, e):
     empty = torch.zeros(0, dtype=_I32, device=dev)
     return (empty, empty, torch.zeros((), dtype=_I32, device=dev),
             torch.zeros((), dtype=torch.bool, device=dev), s, e, signs, mags)
-
-
-def _pixel_planes(s_p, e_p, g_i, m_p, num_bp, P: int):
-    """The LIP and refinement planes (K9b) of a 2D field's pixel items,
-    padded to a multiple of 256 (a part's words must be a multiple of K11's
-    piece)."""
-    items = -(-s_p.shape[0] // 256) * 256
-    return [emit_planes("lip", (s_p, e_p, g_i), num_bp, P, items),
-            emit_planes("ref", (s_p, m_p), num_bp, P, items)]
 
 
 def wave_emit_3d(mags, signs, s, e, node_s, num_bp, li, num_bp_cap: int,
@@ -418,9 +402,12 @@ def wave_emit_2d_pixels(mags, signs, s, e, num_bp, px_bp_cap: int, evb_cap: int,
     """LIP and refinement emission of one 2D field, prefix-pack form (K14's
     pixel half).  A pixel's bits do not depend on the set geometry (a
     membership bit per pass in (e, s], its sign at s, magnitude bits below
-    s), so this is the LIP and refinement part of ``wave_emit_3d``: the
-    planes of K9b, packed by K11.  ``wexp_cap`` > 0 (and < n) compacts the
-    exposed pixels first (K12); exposure overflow sets the overflow flag.
+    s), so this is the LIP and refinement part of ``wave_emit_3d``: K9's
+    planes launch with no payload (each field read once for both classes;
+    the items padded to a multiple of 256, as a part's words must be a
+    multiple of K11's piece), packed by K11.  ``wexp_cap`` > 0 (and < n)
+    compacts the exposed pixels first (K12); exposure overflow sets the
+    overflow flag.
 
     Returns (seg uint8 [out_cap_bytes], counts int32 [2 * px_bp_cap], the
     LIP rows then the refinement rows, total_bytes, overflow)."""
@@ -430,15 +417,16 @@ def wave_emit_2d_pixels(mags, signs, s, e, num_bp, px_bp_cap: int, evb_cap: int,
         pixels, exp_over = exposed[4:], exposed[3]
     else:  # every pixel, no torch op besides the kernels
         pixels, exp_over = (s, e, signs, mags), None
-    res = pe.masked_pack(_pixel_planes(*pixels, num_bp, px_bp_cap), evb_cap, out_cap_bytes)
+    lip, _, ref = emit_fields(pixels, mags[:0], num_bp, px_bp_cap)  # no payload
+    res = pe.masked_pack([lip, ref], evb_cap, out_cap_bytes)
     over = res.overflow if exp_over is None else res.overflow | exp_over
     return pe.words_to_bytes(res.out_words), res.counts, res.total_bytes, over
 
 
 def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_total: int):
     """The LIS bits of one 2D field from its walk's payload words (K14's set
-    half): the planes of K9b, packed by K11, as ``wave_emit_3d`` packs the
-    3D walk's planes.  Returns (buf uint8 [cap_total], counts int32 [num_bp_cap],
+    half): K9's planes launch with no pixel field, packed by K11, as
+    ``wave_emit_3d`` packs the 3D walk's planes.  Returns (buf uint8 [cap_total], counts int32 [num_bp_cap],
     total_bytes int64, n_sig int32), the event form's layout
     (``speck_lis._event_tail``): the byte-aligned per-pass segments, zero
     past the total.  n_sig is raised past any node cap where the event form
@@ -446,7 +434,7 @@ def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_tot
     K11's piece cap never binds (every piece may be non-empty) and its
     buffer holds cap_total bytes, so a stream that fits is never cut."""
     Tp = -(-pay_s.shape[0] // 128) * 128
-    planes = emit_planes("lis", (pay_s,), num_bp, num_bp_cap, Tp)
+    planes = emit_fields((pay_s[:0],) * 4, pay_s, num_bp, num_bp_cap)[1]  # no pixel field
     res = pe.masked_pack([planes], num_bp_cap * Tp // 16 // 8, -(-cap_total // 4) * 4)
     over = (res.counts.sum() > ev_cap) | (res.total_bytes > cap_total)
     n_sig = torch.where(over, torch.full_like(n_sig, 2**31 - 1), n_sig)
@@ -454,4 +442,4 @@ def wave_emit_2d_lis(pay_s, n_sig, num_bp, num_bp_cap: int, ev_cap: int, cap_tot
 
 
 __all__ = ["wave_emit_3d", "wave_emit_2d_pixels", "wave_emit_2d_lis", "WaveEmit", "emit_cube",
-           "emit_fields", "emit_planes"]
+           "emit_fields"]

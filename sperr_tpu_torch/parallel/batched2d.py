@@ -109,12 +109,13 @@ def _wave_emit_field(mags: torch.Tensor, signs: torch.Tensor, index, caps: Dict[
     """The 2D device entropy program of one field at one tier (sperr_tpu's
     ``_dense_encode2_wave`` per field): the child-table schedule with num_bp
     and the I-set passes (``sched_table``, no pm) -> LIP and refinement
-    emission (K9b, K11) -> node passes (``node_passes``) -> quad/I-set walk
-    (kernels/walk_table.cu, K12 compactions, the radix sort) -> its payload
-    words' LIS planes (K9b) packed by K11.  On a CUDA tensor every launch
-    from the schedule to K11's last is a hand kernel.  Every result stays
-    on the device; ``px_over`` includes num_bp past the pixel classes'
-    bitplane cap."""
+    emission (K9's planes launch with no payload, K11) -> node passes
+    (``node_passes``) -> quad/I-set walk (kernels/walk_table.cu, K12
+    compactions, the radix sort) -> its payload words' LIS planes (K9's
+    planes launch with no pixel field) packed by K11.  On a CUDA tensor
+    every launch from the schedule to K11's last is a hand kernel.  Every
+    result stays on the device; ``px_over`` includes num_bp past the pixel
+    classes' bitplane cap."""
     ti, li2, tree2 = index
     num_bp, s, e, nm, iset_s = spk.schedule_table(mags, ti, iset_regions=tree2.iset_regions[: tree2.xf + 1])
     px, px_c, px_total, px_over = wp.wave_emit_2d_pixels(

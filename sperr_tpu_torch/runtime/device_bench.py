@@ -503,8 +503,9 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
     a cube, else K12 and K9's planes launch; K11).  ``dims`` = (nx, ny, nz) breaks down a chunk of those dims (cut
     from the smooth field of the largest) in place of the n^3 cube.
     ``ref_words_abs_s`` times, outside the chains, one class's word fold:
-    the walk plus the refinement class's planes over every pixel
-    (``emit_planes``, K9b), pext and popcounts."""
+    the walk plus the refinement class's planes over every pixel (K9's
+    planes launch in its field form, ``emit_fields`` with no payload, which
+    builds the LIP planes beside them), pext and popcounts."""
     dev = _resolve_device(device)
     dims3 = (n, n, n) if dims is None else tuple(int(d) for d in dims)
     nx3, ny3, nz3 = dims3
@@ -535,7 +536,7 @@ def wave_entropy_breakdown(n: int = 64, tol: float = 1e-2, iters: int = 4,
 
     def to_words(y):
         mags, signs, s, e, num_bp = to_items(y)[:5]
-        vw, bw = wp.emit_planes("ref", (s, mags), num_bp, P, -(-nelems // 256) * 256)
+        vw, bw = wp.emit_fields((s, e, signs, mags), mags[:0], num_bp, P)[2]
         return pe.pext32(bw, vw), pe.popcount32(vw)
 
     def to_full(y):
@@ -582,8 +583,9 @@ def wave2d_stage(nx: int = 1024, ny: int = 1024, batch: int = 4,
     ``program`` breaks field 0's program down, per field, as chains timed
     by one method a pair (the delta of two adjacent chains): the
     child-table schedule with the I-set passes (``sched_table``), the
-    pixel classes (K9b, K11), the walk's items (``node_passes``, the table
-    walk's kernels and sorts, K12) and its LIS planes packed (K9b, K11); its
+    pixel classes (K9's planes launch with no payload, K11), the walk's
+    items (``node_passes``, the table walk's kernels and sorts, K12) and its
+    LIS planes packed (K9's planes launch with no pixel field, K11); its
     ``timed`` names each delta's method.  The reference's 2D rows
     (BASELINE.md Turbulence1024: 241-881 ms/field at 0.25-4 bpp on one
     core) are the comparison."""

@@ -10,9 +10,11 @@ words, row counts, the look-back with the tiles' steps interleaved in a
 random order, the clamped bases), the planes launch's inversion of the rank
 formula (slab and row searches, the select in the flag words), its
 sentinels, its block -> class mapping and its LIS loads, against
-``emit_cube_ref``; and K9b's lane mapping, register masks and shuffle
-transpose against the plain masks through the plain K10.  The 512^3 walk's
-static layout (two path words) is checked here too."""
+``emit_cube_ref``; and the planes launch's field form (the 3D forms that
+are not cubes, and each half of a 2D emission: pixel blocks only, LIS
+blocks only), block by block with its lane mapping, register masks and
+shuffle transpose, against the plain masks through the plain K10.  The
+512^3 walk's static layout (two path words) is checked here too."""
 
 import functools
 
@@ -366,24 +368,14 @@ def _lis_items_loaded(pay, w0, aligned=True):
 def _stage_emulated(pv, mags, s, nb, N, wexp_cap, pack_mag, pay, P, rng):
     """emit_cube's two launches in numpy: the rows launch (flags, counts,
     out-of-order look-back, clamped bases), the planes launch's rank
-    inversion and sentinels, and the three classes' planes built word by
-    word with the blocks' lane mapping.  Returns emit_cube_ref's outputs."""
+    inversion and sentinels, and the three classes' planes built block by
+    block with the blocks' lane mapping (``_fields_emulated`` on the ranks'
+    fields).  Returns emit_cube_ref's outputs."""
     take_b = max(1, wexp_cap // 8)
     words, base, n_exp, over = _rows_emulated(pv, s, nb, N, take_b, rng)
     exp_idx, exp_ll, f = _cube_fields_emulated(pv, mags, words, base, n_exp, N, wexp_cap, pack_mag)
-    npad = f["s"].shape[0]
-    W_lis = -(-pay.shape[0] // 128) * 128 // 16
-    blocks = _stage_blocks(npad, W_lis)
-    lip = _planes_emulated("lip", (f["s"], f["e"], f["g"]), nb, P, npad)
-    ref = _planes_emulated("ref", (f["s"], f["m"]), nb, P, npad)
-    lis = np.zeros((2, P, W_lis), np.int64)
-    for _, w0, nw in blocks["lis"]:
-        held = _lis_items_loaded(pay, w0)[:nw]
-        want = np.array([[pay[i] if i < pay.shape[0] else 0 for i in 16 * (w0 + w) + np.arange(32) // 2]
-                         for w in range(nw)], np.int64)
-        np.testing.assert_array_equal(held, want)
-        lis[:, :, w0:w0 + nw] = _planes_emulated("lis", (want.reshape(-1)[::2],), nb, P, 16 * nw)
-    return exp_idx, exp_ll, n_exp, over, [lip, tuple(lis), ref]
+    planes = _fields_emulated((f["s"], f["e"], f["g"], f["m"]), pay, nb, P)
+    return exp_idx, exp_ll, n_exp, over, planes
 
 
 def _exposed_inputs(N, density, seed, nb=14):
@@ -558,7 +550,8 @@ def test_stage_blocks_cover_each_class_once(items, n_pay):
 
 
 # ---------------------------------------------------------------------------
-# K9b: the masks in registers and the shuffle transpose, emulated
+# The planes launch's blocks: the masks in registers and the shuffle
+# transpose, emulated
 # ---------------------------------------------------------------------------
 def _wrap(x):
     return ((np.asarray(x, np.int64) + (1 << 31)) % (1 << 32)) - (1 << 31)
@@ -625,83 +618,127 @@ def _shfl_transpose(x):
     return x
 
 
-_FILLS = {"lip": (_NEVER, _NEVER, 0), "lis": (0, 0, 0), "ref": (_NEVER, 0, 0)}
-
-
-def _planes_emulated(kind, fields, nb, P, items):
-    """emit_planes_kernel in numpy: each word's lanes load their items
-    (pair form: item 16 w + l / 2, the odd lane the sign cell; single form:
-    32 w + l), padding past the fields, then each 32-pass window's masks
-    are transposed and plane p of word w is lane p's value."""
-    per_word = 32 if kind == "ref" else 16
-    W = items // per_word
-    n_real = fields[0].shape[0]
-    w = np.arange(W)[:, None]
-    lane = np.arange(32)[None, :]
-    item = 32 * w + lane if kind == "ref" else 16 * w + (lane >> 1)
-    odd = np.zeros_like(item, bool) if kind == "ref" else (lane & 1) == 1
-    vals = []
-    for k in range(3):
-        f = fields[k] if k < len(fields) else None
-        v = np.full(item.shape, _FILLS[kind][k], np.int64)
-        if f is not None:
-            ok = item < n_real
-            v[ok] = np.asarray(f, np.int64)[item[ok]]
-        vals.append(v)
+def _words_emulated(kind, a, b, c, odd, nb, P):
+    """One class's words, (words, 32 lanes) of lane values, into (P, words)
+    valid and bit planes: each 32-pass window's masks (cell_masks),
+    transposed by the shuffle stages, plane p of word w lane p's value.  A
+    word whose masks are all zero skips the transposes (tile_word): zero
+    either way."""
+    W = np.shape(a)[0]
     vw = np.zeros((P, W), np.int64)
     bw = np.zeros((P, W), np.int64)
     for base in range(0, P, 32):
         take = min(32, P - base)
-        mv, mb = _cell_masks(kind, *vals, odd, nb, base)
-        tv, tbits = _shfl_transpose(mv & _FULL), _shfl_transpose(mb & _FULL)
+        mv, mb = (np.broadcast_to(m, (W, 32)) & _FULL for m in _cell_masks(kind, a, b, c, odd, nb, base))
+        any_ = ((mv | mb) != 0).any(axis=1, keepdims=True)
+        tv, tbits = np.where(any_, _shfl_transpose(mv), 0), np.where(any_, _shfl_transpose(mb), 0)
         vw[base:base + take] = tv[:, :take].T
         bw[base:base + take] = tbits[:, :take].T
     return vw, bw
+
+
+_PIXEL_FILLS = (_NEVER, _NEVER, 0, 0)  # s, e, sign, magnitude past the real items
+
+
+def _fields_emulated(pixels, pay, nb, P):
+    """emit_stage_planes on the field form in numpy, block by block: pixel
+    block b stages items [1024 b, 1024 b + 1024) (padding past n_real),
+    builds its 64 LIP words in the pair form (lane l: item 16 w + l / 2, the
+    odd lane the sign cell) and its 32 REF words in the single form (lane l:
+    item 32 w + l), and writes the words its class has; each LIS block
+    holds its 64 words' payloads as its loads and shuffles hand them out
+    (``_lis_items_loaded``).  Either half may be empty: no pixel (the LIS
+    half of a 2D emission) or no payload (its pixel half).  Returns
+    [(valid, bits)] of LIP, LIS and REF."""
+    n_real = pixels[0].shape[0]
+    items = -(-n_real // 256) * 256
+    W_lis = -(-pay.shape[0] // 128) * 128 // 16
+    blocks = _stage_blocks(items, W_lis)
+    out = {"lip": np.zeros((2, P, items // 16), np.int64), "lis": np.zeros((2, P, W_lis), np.int64),
+           "ref": np.zeros((2, P, items // 32), np.int64)}
+    lane = np.arange(32)[None, :]
+    odd = (lane & 1) == 1
+    for (blk, wl0, nlw), (_, wr0, nrw) in zip(blocks["lip"], blocks["ref"]):
+        r = kernels.STAGE_ITEMS * blk + np.arange(kernels.STAGE_ITEMS)
+        f = [np.where(r < n_real, np.asarray(x, np.int64)[np.minimum(r, n_real - 1)], fill)
+             for x, fill in zip(pixels, _PIXEL_FILLS)]
+        it = 16 * np.arange(64)[:, None] + (lane >> 1)
+        v, bits = _words_emulated("lip", f[0][it], f[1][it], f[2][it], odd, nb, P)
+        out["lip"][:, :, wl0:wl0 + nlw] = v[:, :nlw], bits[:, :nlw]
+        it = 32 * np.arange(32)[:, None] + lane
+        v, bits = _words_emulated("ref", f[0][it], f[3][it], 0, False, nb, P)
+        out["ref"][:, :, wr0:wr0 + nrw] = v[:, :nrw], bits[:, :nrw]
+    for _, w0, nw in blocks["lis"]:
+        v, bits = _words_emulated("lis", _lis_items_loaded(pay, w0), 0, 0, odd, nb, P)
+        out["lis"][:, :, w0:w0 + nw] = v[:, :nw], bits[:, :nw]
+    return [tuple(out[k]) for k in ("lip", "lis", "ref")]
 
 
 def _as_u32(t):
     return t.numpy().astype(np.int64) & _FULL
 
 
+def _random_pixels(rng, n_real):
+    s = rng.integers(0, 36, size=n_real).astype(np.int32)
+    s[rng.random(n_real) < 0.2] = _NEVER
+    e = np.minimum(s, rng.integers(0, 36, size=n_real)).astype(np.int32)
+    e[rng.random(n_real) < 0.1] = _NEVER
+    g = (rng.random(n_real) < 0.5).astype(np.int32)
+    m = rng.integers(0, 1 << 31, size=n_real, dtype=np.int64).astype(np.int32)
+    return s, e, g, m
+
+
 @pytest.mark.parametrize("kind", ["lip", "lis", "ref"])
 @pytest.mark.parametrize("P,nb", [(34, 31), (34, 0), (14, 14), (22, 9)])
 def test_planes_emulation_matches_the_plain_masks_and_k10(kind, P, nb):
+    """The planes launch's field form, emulated block by block, against
+    emit_fields_ref (the plain masks through the plain K10), every class:
+    "lip" the pixel half of a 2D emission (pixel blocks only, the last one
+    partial), "lis" its LIS half (LIS blocks only), "ref" a 3D form that is
+    not a cube (both)."""
     rng = np.random.default_rng(P * 3 + nb + len(kind))
-    n_real = 1000 if kind != "lis" else 700
-    items = 1024 if kind != "lis" else 768
-    if kind == "lis":
-        fields = (rng.integers(-(1 << 31), 1 << 31, size=n_real, dtype=np.int64).astype(np.int32),)
-    else:
-        s = rng.integers(0, 36, size=n_real).astype(np.int32)
-        s[rng.random(n_real) < 0.2] = _NEVER
-        if kind == "lip":
-            e = np.minimum(s, rng.integers(0, 36, size=n_real)).astype(np.int32)
-            e[rng.random(n_real) < 0.1] = _NEVER
-            fields = (s, e, (rng.random(n_real) < 0.5).astype(np.int32))
-        else:
-            m = rng.integers(0, 1 << 31, size=n_real, dtype=np.int64).astype(np.int32)
-            fields = (s, m)
+    n_real = 0 if kind == "lis" else 2500
+    n_pay = 0 if kind == "lip" else 1500
+    pixels = _random_pixels(rng, n_real)
+    pay = _payload(rng, n_pay)
     nb_t = torch.tensor(nb, dtype=torch.int32)
-    want_v, want_b = twp.emit_planes_ref(kind, [torch.from_numpy(f) for f in fields], nb_t, P, items)
-    got_v, got_b = _planes_emulated(kind, fields, nb, P, items)
-    np.testing.assert_array_equal(got_v, _as_u32(want_v))
-    np.testing.assert_array_equal(got_b, _as_u32(want_b))
+    want = twp.emit_fields_ref([torch.from_numpy(f) for f in pixels], torch.from_numpy(pay), nb_t, P)
+    got = _fields_emulated(pixels, pay, nb, P)
+    widths = (-(-n_real // 256) * 16, -(-n_pay // 128) * 8, -(-n_real // 256) * 8)
+    for name, (gv, gb), (wv, wb), W in zip(("lip", "lis", "ref"), got, want, widths):
+        assert wv.shape == (P, W), name
+        np.testing.assert_array_equal(gv, _as_u32(wv), f"{name} valid")
+        np.testing.assert_array_equal(gb, _as_u32(wb), f"{name} bits")
+
+
+def test_planes_launch_constants_match_the_source():
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "emit.cu")).read()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kStageItems"]) == kernels.STAGE_ITEMS
+    assert int(consts["kStageLis"]) == kernels.STAGE_LIS_WORDS
+    # the planes launch's entry takes an empty half (the 2D emission's two launches)
+    assert "n_real > 0 && !(s_p && e_p && g_p && m_p)" in src and "n_pay > 0 && !pay" in src
 
 
 def test_planes_take_a_bool_sign_and_pad_the_full_width():
-    """The full-width branch hands the chunk's own (s, e, bool signs) and
-    (s, mags), n items, padded to the 256-cell multiple: equal to the int32
-    signs padded by hand."""
+    """The 2D pixel half hands the field's own (s, e, bool signs,
+    magnitudes), n items, padded to the 256-cell multiple: equal to the
+    int32 signs padded by hand, and no LIS column."""
     rng = np.random.default_rng(11)
     n = 300
     s = torch.from_numpy(rng.integers(0, 20, size=n).astype(np.int32))
     e = torch.minimum(s, torch.from_numpy(rng.integers(0, 20, size=n).astype(np.int32)))
     g = torch.from_numpy(rng.random(n) < 0.5)
+    m = torch.from_numpy(rng.integers(0, 1 << 20, size=n).astype(np.int32))
     nb = torch.tensor(18, dtype=torch.int32)
-    a = twp.emit_planes("lip", (s, e, g), nb, 18, 512)
+    a = twp.emit_fields((s, e, g, m), m[:0], nb, 18)
     pad = lambda t, fill: torch.cat([t, torch.full((512 - n,), fill, dtype=torch.int32)])
-    b = twp.emit_planes("lip", (pad(s, _NEVER), pad(e, _NEVER), pad(g.to(torch.int32), 0)), nb, 18, 512)
-    assert a[0].shape == (18, 32) and all(torch.equal(x, y) for x, y in zip(a, b))
+    b = twp.emit_fields((pad(s, _NEVER), pad(e, _NEVER), pad(g.to(torch.int32), 0), pad(m, 0)), m[:0], nb, 18)
+    assert a[0][0].shape == (18, 32) and a[1][0].shape == (18, 0) and a[2][0].shape == (18, 16)
+    assert all(torch.equal(x, y) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
 
 
 # ---------------------------------------------------------------------------
@@ -712,31 +749,40 @@ def test_cpu_tensors_never_load_the_emit_kernels(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel library")
 
     monkeypatch.setattr(kernels, "load", refuse)
-    before = {k: kernels.launches[k] for k in ("emit_stage", "emit_planes")}
+    before = dict(kernels.launches)
     mags, sgn = _chunk(16, (0.3, 1 << 12), 5)
     vt, nb, s, e, node_s = _schedule(16, mags)
     for wexp_cap in (0, 1024):
         twp.wave_emit_3d(torch.from_numpy(mags), torch.from_numpy(sgn), s, e, node_s, nb, vt, 16,
                          vt.nn, 1 << 20, 8 * 16**3, wexp_cap)
-    assert {k: kernels.launches[k] for k in before} == before
+    # a 2D emission's two halves, with and without the compaction
+    for wexp_cap in (0, 1024):
+        twp.wave_emit_2d_pixels(torch.from_numpy(mags), torch.from_numpy(sgn), s, e, nb, 18, 1 << 12,
+                                1 << 16, wexp_cap)
+    twp.wave_emit_2d_lis(torch.from_numpy(_payload(np.random.default_rng(5), 300)), torch.tensor(7),
+                         nb, 34, 1 << 16, 1 << 16)
+    assert kernels.launches == before
 
 
 def test_emit_kernels_raise_off_cpu_and_cuda():
     meta = torch.zeros(512, dtype=torch.int32, device="meta")
     nb = torch.zeros((), dtype=torch.int32, device="meta")
-    for call in (lambda: twp.emit_planes("ref", (meta, meta), nb, 14, 512),
+    for call in (lambda: twp.emit_fields((meta,) * 4, meta[:0], nb, 14),
+                 lambda: twp.emit_fields((meta[:0],) * 4, meta, nb, 34),
                  lambda: twp.emit_cube(meta, meta, meta, nb, 8, 64, True, meta, 16),
                  lambda: twp.emit_fields((meta,) * 4, meta, nb, 16)):
         with pytest.raises(ValueError, match="no .* kernel for tensors on meta"):
             call()
     cpu = torch.zeros(512, dtype=torch.int32)
-    for call in (lambda: kernels.emit_planes("ref", (cpu, cpu), cpu[:1], 14, 512),
+    for call in (lambda: kernels.emit_fields((cpu,) * 4, cpu[:0], cpu[:1], 14),
+                 lambda: kernels.emit_fields((cpu[:0],) * 4, cpu, cpu[:1], 34),
                  lambda: kernels.emit_cube(cpu, None, cpu, cpu[:1], 8, 64, cpu, 16),
                  lambda: kernels.emit_fields((cpu,) * 4, cpu, cpu[:1], 16)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
-    with pytest.raises(ValueError, match="kind"):
-        kernels.emit_planes("sig", (cpu,), cpu[:1], 14, 512)
+    # the one-class entry of the 2D program is gone: its halves take the field form
+    assert not hasattr(kernels, "emit_planes") and not hasattr(twp, "emit_planes")
+    assert "emit_planes" not in kernels.launches
 
 
 def test_walk_layout_at_512_takes_two_path_words():

@@ -449,7 +449,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         "quantize", "psnr_q", "cdf97_lift", "dwt2d_full", "idwt2d_full", "transpose_bits32",
         "masked_pack", "compact_flags_rows", "reconstruct_mags", "sched_boxmax", "sched_virtual",
         "sched_table", "sched_pyramid", "walk_vtab", "anchor_ranks", "walk_rows", "radix_sort",
-        "emit_stage", "emit_planes", "table_anchors", "table_walk", "node_passes",
+        "emit_stage", "table_anchors", "table_walk", "node_passes",
     }
     assert not any(kernels.launches.values())
 

@@ -6,7 +6,7 @@ words ranked first, its gated sorted route, the rows, the entries'
 insertion keys, the walk ranks by arithmetic, the walk keys from the static
 path ranks and both sorts as stable sorts of their one int64 key) against
 the plain versions and sperr_tpu, bit for bit; the 2D items through the
-plain K9b and K11 against sperr_tpu's event form, caps included;
+plain planes launch and K11 against sperr_tpu's event form, caps included;
 TorchCompressor2D(entropy="wave")'s streams and tiers; the I-set maxima
 (since they come with the child-table schedule, its pixel pass's blocks);
 the path ranks against the path words; the static key widths and the rank
@@ -550,7 +550,8 @@ def test_breakdown_of_a_table_chunk_runs_on_the_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the 2D LIS bits through K9b and K11 (plain versions)
+# the 2D LIS bits through K9's planes launch (no pixel field) and K11
+# (plain versions)
 # ---------------------------------------------------------------------------
 # (shape, seed, density, node cap: None = nn, ev_cap: None = 6 n + 4096,
 # cap_total: None = 2 n + 64): fitting fields, the event cap (700, as
@@ -588,7 +589,7 @@ def test_2d_items_through_k9b_and_k11_equal_the_event_form(nx, ny, seed, density
 
 def _event_program(mags, signs, index, caps, num_bp_cap):
     """The 2D program with the LIS bits in the event form (as it ran before
-    the K9b and K11 route)."""
+    the planes launch and K11 route)."""
     ti, li2, tree2 = index
     nx, ny = tree2.dims
     num_bp, s, e, nm = tspk.schedule_table(mags, ti)
@@ -867,7 +868,7 @@ def test_cpu_tensors_never_load_the_kernels(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel library")
 
     monkeypatch.setattr(kernels, "load", refuse)
-    names = ("table_anchors", "table_walk", "sched_table", "node_passes", "radix_sort", "emit_planes")
+    names = ("table_anchors", "table_walk", "sched_table", "node_passes", "radix_sort", "emit_stage")
     before = {k: kernels.launches[k] for k in names}
     li, node_s, s, sgn, nb = _inputs3((24, 24, 16), 0, 0.3)
     tsl.lis_segments_device(node_s, s, sgn, nb, li, 34, li.nn, return_events="items")
