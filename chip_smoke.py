@@ -18,7 +18,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the plain planes launch builds them), the masked pack K11 and the flag compaction
      K12 bit for bit on the inputs that one 256^3 chunk's schedule and walk
      give them, at the first tier and at the widest, and K12 at the sparse
-     transfer's shape (that chunk's nonzero flags, take n/2, beside
+     transfer's shapes (that chunk's nonzero flags, take n/2, and phase 7's
+     16 x 1024^2 fields' nonzero flags, take n, each beside
      torch.nonzero); the hybrid decode's K13 (two launches: count,
      reconstruct) bit for bit on the control parse of one 256^3 chunk's stream, that stream
      truncated, an all-zero chunk, and a stream past a small active-word
@@ -170,13 +171,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
      decoder and the host f64 decoder;
      warm encodes of both transfers alternating on each route with their
      device to host bytes; every chunk through the dense re-run (container
-     equal to phase 4's); pwe_strict="device" (bound under both decoders).
+     equal to phase 4's); pwe_strict="device" (bound under both decoders);
+     then phase 7's 16 fields through TorchCompressor2D on both routes,
+     each stream equal to phase 7's byte for byte and decoded within the
+     bound, K1, K2, K3 and K12 launched (the wave route also the 2D
+     program's kernels), at most 8 MB copied to the host a batch, and warm
+     encodes of both transfers alternating on each route with their device
+     to host bytes.
 The line before the last is a JSON object with each kernel's launches on its
 path, error, time on the device (``ms``, the calls queued behind a sleep
 kernel) and as the host issues the calls (``host_ms``), plain version's time
 and how it was timed (``plain_timed``), bound and library time; the last line is {"ok": true, "device": {...}}.
-The K12 entry also holds its time at the sparse transfer's shape and its
-launches on that path (``sparse``); psnr_q's (K16) row is phase 5's chunk at
+The K12 entry also holds its time at the 3D sparse transfer's shape and its
+launches on that path (``sparse``), and at the 2D one with its launches on
+each 2D sparse route and their device to host bytes (``sparse_2d``); psnr_q's (K16) row is phase 5's chunk at
 PSNR 80, its launches phase 5's PSNR encode's (phase 8's in
 ``launches_2d``), every checked input's q, chosen j, launches and host
 waits in ``cases``; sched_pyramid's the dyadic chunk, the 244^3 and
@@ -940,7 +948,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     li2 = index[1]
     print(f"[wave2d] {ny}x{nx} index build on the host {time.perf_counter() - t0:.3f} s: {li2.nn} nodes, "
           f"{li2.nrows} child rows, depth {li2.depth_max}, {li2.xf} I levels, {li2.G} groups")
-    comps = {route: tb2.TorchCompressor2D((nx, ny), device=dev, entropy=route) for route in ("host", "wave")}
+    comps = {route: tb2.TorchCompressor2D((nx, ny), device=dev, entropy=route, transfer="dense")
+             for route in ("host", "wave")}
     for route, comp in comps.items():  # warm-up
         _check(comp.compress_batch(fields, "pwe", tol) == streams7, f"{route}: streams differ from phase 7's")
     walls = {"host": [], "wave": []}
@@ -1066,8 +1075,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     t0 = time.perf_counter()
     tb2._wave_index2((nx7, ny7), dev)
     build7 = time.perf_counter() - t0
-    host7 = tb2.TorchCompressor2D((nx7, ny7), device=dev)
-    wave7 = tb2.TorchCompressor2D((nx7, ny7), device=dev, entropy="wave")
+    host7 = tb2.TorchCompressor2D((nx7, ny7), device=dev, transfer="dense")
+    wave7 = tb2.TorchCompressor2D((nx7, ny7), device=dev, entropy="wave", transfer="dense")
     routes = []
     for mode, quality in (("pwe", tol), ("psnr", 80.0), ("rate", 2.0)):
         want = streams8.get(mode) or host7.compress(f7, mode, quality)
@@ -1091,8 +1100,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
     rl8 = kernels.table_rank_layout(st8.plan.host, st8.plan.nsmall)
     bits8 = tuple(12 + w for w in st8.plan.wks)
     _check(rl8.gated and max(bits8) > 32, f"{ny8}x{nx8}: rank levels of {bits8} static key bits, gated {rl8.gated}")
-    want = tb2.TorchCompressor2D((nx8, ny8), device=dev).compress(f8, "pwe", tol)
-    w8 = tb2.TorchCompressor2D((nx8, ny8), device=dev, entropy="wave")
+    want = tb2.TorchCompressor2D((nx8, ny8), device=dev, transfer="dense").compress(f8, "pwe", tol)
+    w8 = tb2.TorchCompressor2D((nx8, ny8), device=dev, entropy="wave", transfer="dense")
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1115,8 +1124,8 @@ def _wave2d_phase(kernels, smi: str, dev, fields, streams7, f7, streams8) -> int
           f"memory {torch.cuda.max_memory_allocated()} bytes")
     del f8, w8, li8, st8
     noisy = np.random.default_rng(3).normal(size=(256, 256)).astype(np.float32)
-    want = tb2.TorchCompressor2D((256, 256), device=dev).compress(noisy, "pwe", tol)
-    wn = tb2.TorchCompressor2D((256, 256), device=dev, entropy="wave")
+    want = tb2.TorchCompressor2D((256, 256), device=dev, transfer="dense").compress(noisy, "pwe", tol)
+    wn = tb2.TorchCompressor2D((256, 256), device=dev, entropy="wave", transfer="dense")
     _check(wn.compress(noisy, "pwe", tol) == want, "noisy 256x256: the wave stream differs from the host one")
     tier = wn.last_wave_tiers[0]
     _check(tier is None or tier >= 1, f"the noisy field did not climb the ladder: tier {tier}")
@@ -1231,7 +1240,8 @@ def _cli_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out4,
     err2 = float(np.abs(np.fromfile(path("f0.out"), np.float32).astype(np.float64) - field0.ravel()).max())
     print(f"[cli] 1024^2 decode of the tool (-d --exec cuda): max|err| {err2:.6e} (bound {tol})")
     _check(err2 <= tol, f"the 2D tool's decode misses the bound: {err2}")
-    for name in ("quantize", "dwt2d_full", "idwt2d_full"):
+    # the tool takes the sparse transfer, the default: K12 compacts the nonzeros and outliers
+    for name in ("quantize", "dwt2d_full", "idwt2d_full", "compact_flags_rows"):
         _check(l2c.get(name, 0) > 0, f"the 2D tool's compress did not launch {name}")
     _check(l2d.get("idwt2d_full", 0) > 0, "the 2D tool's decompress did not launch idwt2d_full")
     ny7, nx7 = f7.shape
@@ -1479,7 +1489,7 @@ def _multi_phase(kernels, smi: str, tmp: str, vol_path: str, stream4: bytes, out
           f"cards; host to device {dec.last_h2d_bytes} bytes -- {smi}")
     del out
     ny2, nx2 = fields.shape[1:]
-    comp2 = TorchCompressor2D((nx2, ny2), devices=devs)
+    comp2 = TorchCompressor2D((nx2, ny2), devices=devs, transfer="dense")
     s2, wall_e = run(lambda: comp2.compress_batch(fields, "pwe", tol), "2D encode",
                      ("quantize", "dwt2d_full", "idwt2d_full"))
     _check(s2 == streams7, f"the 2D streams over {devs} differ from phase 7's")
@@ -1645,6 +1655,122 @@ def _sparse_phase(kernels, smi: str, vol_path: str, stream4: bytes, out4, dense:
                  f"call), device to host {margin.last_d2h_bytes} bytes")
     print(f"[sparse] phase 13 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
     return launches["host"]
+
+
+def _k12_sparse_2d(kernels, smi: str, dev) -> dict:
+    """Phase 3's K12 at the 2D sparse transfer's shape: phase 7's 16 x 1024^2
+    fields' nonzero flags after the PWE 1e-2 front, take n (the reference's
+    2D cap at sparse_cap_frac 1.0), held against its plain version bit for
+    bit; timed beside its bound (the flags read, the indices and counts
+    written) and torch.nonzero on the same flags."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.ops import packemit
+    from sperr_tpu_torch.parallel import batched2d as tb2
+    from sperr_tpu_torch.runtime.device_bench import time_ms
+
+    x = torch.from_numpy(np.stack([_turbulence_like(1024, 1024, seed) for seed in range(16)])).to(dev)
+    d = tb2._dense_encode2(x, "pwe", 1e-2, "dual")
+    B, n = d["mags"].shape
+    flags = (d["mags"] != 0).contiguous()
+    del x, d
+    got, ref = kernels.compact_flags_rows(flags, n), packemit.compact_flags_rows_ref(flags, n)
+    _check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+           "K12 differs from its plain version at the 2D sparse transfer's shape")
+    counts = got[1].tolist()
+    r = {
+        "shape": f"({B}, {n}) take {n}, {min(counts)}-{max(counts)} nonzeros a row, {sum(counts)} in all",
+        "max_abs_err": max(_int_err(a, b) for a, b in zip(got, ref)),
+        "ms": time_ms(lambda: kernels.compact_flags_rows(flags, n), 20, "device")[0],
+        "host_ms": time_ms(lambda: kernels.compact_flags_rows(flags, n), 20, "host-issued")[0],
+        # flags read, indices and counts written
+        "bound_ms": _bound_ms(B * n + 4 * B * n + 4 * B),
+        # torch.nonzero synchronizes: timed as the host issues it
+        "library_ms": time_ms(lambda: torch.nonzero(flags), 20, "host-issued")[0],
+    }
+    r["plain_ms"], r["plain_timed"] = time_ms(lambda: packemit.compact_flags_rows_ref(flags, n), 5)
+    print(f"[kernels] K12 at the 2D sparse transfer's shape, phase 7's fields' nonzero flags {r['shape']}: "
+          f"equal to the plain version bit for bit; kernel {r['ms']:.4f} ms ({r['host_ms']:.4f} as the host "
+          f"issues it), plain {r['plain_ms']:.4f} ms ({r['plain_timed']}), bound {r['bound_ms']:.4f} ms (share "
+          f"{r['bound_ms'] / r['ms']:.3f}), torch.nonzero {r['library_ms']:.4f} ms (host-issued) -- {smi}")
+    return r
+
+
+def _sparse2d_phase(kernels, smi: str, fields, streams7) -> dict:
+    """13, 2D.  Phase 7's 16 fields with ``transfer="sparse"`` (the default)
+    on both entropy routes, PWE 1e-2: each route's streams must equal phase
+    7's byte for byte and decode within the bound under the port's decoder
+    and the host f64 decoder, with K1, K2, K3 and K12 (the wave route also
+    the 2D program's kernels) launched in the first timed sparse encode, and
+    the sparse transfer must copy at most 8 MB a batch.  Warm encodes of
+    both transfers in turns (dense, sparse, sparse, dense) on each route,
+    with their device to host bytes.  Returns each route's launches, walls
+    and device to host bytes."""
+    import numpy as np
+    import torch
+
+    from sperr_tpu_torch.codec.speck_flt import SpeckFloatCodec
+    from sperr_tpu_torch.parallel.batched2d import TorchCompressor2D, TorchDecompressor2D
+
+    t_phase = time.perf_counter()
+    tol = 1e-2
+    B, ny, nx = fields.shape
+    dec = TorchDecompressor2D((nx, ny), device="cuda")
+    host = SpeckFloatCodec(2, (nx, ny, 1))
+    want = {"host": ("quantize", "dwt2d_full", "idwt2d_full", "compact_flags_rows"),
+            "wave": ("quantize", "dwt2d_full", "idwt2d_full", "compact_flags_rows", "emit_stage", "masked_pack",
+                     "sched_table", "radix_sort", "node_passes", "table_anchors", "table_walk")}
+    launches, result = {}, {}
+    for entropy in ("host", "wave"):
+        comps = {t: TorchCompressor2D((nx, ny), device="cuda", entropy=entropy, transfer=t)
+                 for t in ("dense", "sparse")}
+        _check(TorchCompressor2D((nx, ny), device="cuda", entropy=entropy).transfer == "sparse",
+               "the sparse transfer is not the 2D default")
+        for t, c in comps.items():  # warm-up
+            _check(c.compress_batch(fields, "pwe", tol) == streams7, f"2D {entropy} {t}: streams differ from phase 7's")
+        sp = comps["sparse"]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        s = sp.compress_batch(fields, "pwe", tol)
+        torch.cuda.synchronize()
+        launches[entropy] = dict(kernels.launches)
+        for name in want[entropy]:
+            _check(launches[entropy][name] > 0, f"{name} was not launched on the 2D sparse {entropy} route")
+        _check(s == streams7, f"the 2D sparse {entropy} streams differ from phase 7's")
+        _check(sp.last_uncertified_chunks == 0, f"2D sparse {entropy}: {sp.last_uncertified_chunks} uncertified")
+        if entropy == "wave":
+            _check(sp.last_wave_chunks == B, f"2D sparse wave: {sp.last_wave_chunks} of {B} fields on the device")
+        err_port = err_host = 0.0
+        for f, out, st in zip(fields, dec.decompress_batch(s), s):
+            _check(out.shape == (ny, nx) and np.isfinite(out).all(), "2D sparse decode shape or finiteness")
+            err_port = max(err_port, float(np.abs(out.astype(np.float64) - f).max()))
+            h, _ = host.decompress(bytes(st))
+            err_host = max(err_host, float(np.abs(h.reshape(ny, nx) - f).max()))
+        _check(err_port <= tol and err_host <= tol, f"2D sparse {entropy}: the bound does not hold")
+        print(f"[sparse2d] {entropy} entropy: {B} x {ny}x{nx} streams equal to phase 7's byte for byte "
+              f"({sum(len(x) for x in s)} bytes); max|err| port decoder {err_port:.6e}, host f64 decoder "
+              f"{err_host:.6e} (bound {tol}); launches {_nonzero(launches[entropy])}; K12 launches "
+              f"{launches[entropy]['compact_flags_rows']} -- {smi}")
+        walls = {"dense": [], "sparse": []}
+        d2h = {}
+        for t in ("dense", "sparse", "sparse", "dense"):
+            c = comps[t]
+            t0 = time.perf_counter()
+            st = c.compress_batch(fields, "pwe", tol)
+            torch.cuda.synchronize()
+            walls[t].append(time.perf_counter() - t0)
+            d2h[t] = c.last_d2h_bytes
+            _check(st == streams7, f"a timed 2D {t} {entropy} encode differs from phase 7's streams")
+        _check(d2h["sparse"] <= 8_000_000 and d2h["sparse"] < d2h["dense"],
+               f"2D {entropy}: the sparse transfer copied {d2h['sparse']} bytes (dense {d2h['dense']})")
+        result[entropy] = {"launches": launches[entropy], "walls": walls, "d2h": d2h}
+        print(f"[sparse2d] {entropy} entropy, warm encode walls, s (in the order run: dense, sparse, sparse, "
+              f"dense): " + "; ".join(f"{t} {', '.join(f'{w:.4f}' for w in ws)}" for t, ws in walls.items())
+              + f"; device to host {d2h['sparse']} bytes sparse, {d2h['dense']} dense -- {smi}")
+        del comps, sp
+    print(f"[sparse2d] the 2D part of phase 13 took {time.perf_counter() - t_phase:.1f} s -- {smi}")
+    return result
 
 
 def _morton_pyramid_ref(pm, K: int):
@@ -3340,6 +3466,7 @@ def main() -> int:
           f"{k12s['bound_ms'] / k12s['ms']:.3f}), torch.nonzero {k12s['library_ms']:.4f} ms (host-issued) "
           f"-- {smi}")
     del chunk, d0, nzf, got, ref
+    k12s2 = _k12_sparse_2d(kernels, smi, dev)
     s_half = s0[: len(s0) // 2]
     s_zero = engine.encode(3, np.zeros(n, np.uint32), np.ones(n, bool), dims256, 8, 0)
     full = torch.stack([torch.from_numpy(engine.decode(3, s, dims256, width0)[0].astype(np.int32))
@@ -3614,7 +3741,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fields = np.stack([_turbulence_like(ny2, nx2, seed) for seed in range(16)])
     print(f"[2d] 16 Turbulence1024-like fields made in {time.perf_counter() - t0:.2f} s")
-    comp2 = TorchCompressor2D((nx2, ny2), device="cuda")
+    comp2 = TorchCompressor2D((nx2, ny2), device="cuda", transfer="dense")
     dec2 = TorchDecompressor2D((nx2, ny2), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3665,7 +3792,7 @@ def main() -> int:
     nx7, ny7 = 3600, 1800
     f7 = _turbulence_like(ny7, nx7, 16)
     r7 = float(f7.max() - f7.min())
-    comp7 = TorchCompressor2D((nx7, ny7), device="cuda")
+    comp7 = TorchCompressor2D((nx7, ny7), device="cuda", transfer="dense")
     dec7 = TorchDecompressor2D((nx7, ny7), device="cuda")
     host7 = SpeckFloatCodec(2, (nx7, ny7, 1))
     streams8, launches8 = {}, {}
@@ -3736,11 +3863,13 @@ def main() -> int:
     _multi_phase(kernels, smi, tmp.name, vol_path, stream4, out4, fields, streams2, outs7,
                  launches_w["quantize"],
                  {"host": enc_s, "wave": encw_s, "decode": dec_s, "enc2": enc2_s, "dec2": dec2_s})
-    del fields, streams2, f7, outs7
+    del f7, outs7
 
     # -- 13. the sparse transfer ------------------------------------------------
     launches_sp = _sparse_phase(kernels, smi, vol_path, stream4, out4, {"host": comp, "wave": wave},
                                 {"host": d2h_host, "wave": d2h_wave})
+    launches_sp2 = _sparse2d_phase(kernels, smi, fields, streams2)
+    del fields, streams2
     tmp.cleanup()
     del out4
 
@@ -3829,13 +3958,18 @@ def main() -> int:
         r["launches_cube_path"] = launches_w["node_passes"] if name == "node_passes" else 0
     # K12 at the sparse transfer's shape, with its launches on that path (phase 13, host entropy)
     sparse_k12 = dict(k12s, launches=launches_sp["compact_flags_rows"])
+    # and at the 2D one, with its launches on the 2D sparse routes (phase 13)
+    sparse_k12_2d = dict(k12s2, launches=launches_sp2["host"]["launches"]["compact_flags_rows"],
+                         launches_wave=launches_sp2["wave"]["launches"]["compact_flags_rows"],
+                         d2h={e: r["d2h"] for e, r in launches_sp2.items()})
     # "ms" is the device's time alone, "host_ms" as the host issues the
     # calls; "plain_timed" says how "plain_ms" was timed
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"sperr_tpu_torch/kernels/{src}",
          "replaces": where, "launches": nl, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
          "plain_ms": plain, "plain_timed": plain_timed[name], "bound_ms": bound, "bound_by": "bytes",
-         "library_ms": lib, **({"sparse": sparse_k12} if name == "compact_flags_rows" else {}),
+         "library_ms": lib,
+         **({"sparse": sparse_k12, "sparse_2d": sparse_k12_2d} if name == "compact_flags_rows" else {}),
          **({"per_launch": k13["per_launch"], "one_chunk": k13_one, "repeats": k13["repeats"]}
             if name == "reconstruct_mags" else {}),
          **({k: v for k, v in sched[name].items() if k in ("fused", "2d", "edge", "launches_2d", "also_replaces",

@@ -289,6 +289,15 @@ def _dense_encode_sparse(batch: torch.Tensor, mode: str, quality: float, cap: in
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
+def _trim(to_host, t: torch.Tensor, counts: np.ndarray, capn: int, rows=None) -> np.ndarray:
+    """The first columns of t (B, cap), as many as the largest of ``counts``
+    rounded up to 1024 and at most ``capn`` (sperr_tpu's ``_trim_rows``), of
+    ``rows`` (None: all), on the host through ``to_host``."""
+    m = int(counts.max()) if counts.size else 0
+    t = t[:, : min(capn, -(-m // 1024) * 1024)]
+    return to_host(t if rows is None else t[rows])
+
+
 def _inverse(shape, multi_res: bool):
     if len(shape) == 3:
         return cdf97.idwt3d_multi_res if multi_res else cdf97.idwt3d_
@@ -680,14 +689,6 @@ class TorchCompressor3D:
             self.last_d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
 
-    def _trim(self, t: torch.Tensor, counts: np.ndarray, capn: int, rows=None) -> np.ndarray:
-        """The first columns of t (B, cap), as many as the largest of
-        ``counts`` rounded up to 1024 and at most ``capn`` (sperr_tpu's
-        ``_trim_rows``), of ``rows`` (None: all), on the host."""
-        m = int(counts.max()) if counts.size else 0
-        t = t[:, : min(capn, -(-m // 1024) * 1024)]
-        return self._to_host(t if rows is None else t[rows])
-
     def _sparse_caps(self, n: int) -> Tuple[int, int]:
         """(cap, out_cap) of the sparse program for n-voxel chunks, as the
         reference sizes them."""
@@ -874,12 +875,12 @@ class TorchCompressor3D:
         if good.size:
             rows = None if good.size == over.size else torch.from_numpy(good).to(dev.device)
             nnz = small["nnz"][good]
-            idx = self._trim(sp["idx"], nnz, cap, rows)
-            vals = self._trim(sp["vals"], nnz, cap, rows)
+            idx = _trim(self._to_host, sp["idx"], nnz, cap, rows)
+            vals = _trim(self._to_host, sp["vals"], nnz, cap, rows)
             if scanned:
                 n_out = small["n_out"][good]
-                oi = self._trim(sp["out_idx"], n_out, out_cap, rows)
-                ov = self._trim(sp["out_vals"], n_out, out_cap, rows)
+                oi = _trim(self._to_host, sp["out_idx"], n_out, out_cap, rows)
+                ov = _trim(self._to_host, sp["out_vals"], n_out, out_cap, rows)
             for j, k in enumerate(good):
                 views[k] = (idx[j, : nnz[j]], vals[j, : nnz[j]])
                 if scanned:

@@ -7,9 +7,12 @@ PyTorch port of sperr_tpu/parallel/batched2d.py (``TpuCompressor2D`` with
     condition (mean) -> dwt2d (K2) -> q -> fused midtread quantize (K1)
     [PWE: inverse quantize -> idwt2d (K3) -> residual scan]
 
-as one batch on the device.  With ``entropy="host"`` the dense quantized
-arrays return to the host, where the shared C++ engine encodes each field
-with SPECK2D on a thread pool.  With ``entropy="wave"`` the device also
+as one batch on the device.  With ``entropy="host"`` the quantized values
+return to the host, where the shared C++ engine encodes each field with
+SPECK2D on a thread pool: the sparse transfer (the default, as the
+reference's only one) compacts each field's nonzeros and outliers on the
+device first (K12) and copies only those, the dense transfer copies the
+dense arrays.  With ``entropy="wave"`` the device also
 computes every SPECK bit of each field (K14: the child-table schedule,
 ops/speck.py; the pixel emission, ops/wave_pack.wave_emit_2d_pixels; the
 quad/I-set walk, ops/speck_lis2.py) through a ladder of event caps, and the
@@ -55,10 +58,13 @@ from .batched import (
     _dense_encode_rows,
     _device_list,
     _index_lock,
+    _nonzeros,
     _on_devices,
     _placement,
     _residual_outliers,
     _split,
+    _trim,
+    _views,
     _width_for,
 )
 
@@ -73,6 +79,23 @@ def _dense_encode2(batch: torch.Tensor, mode: str, quality: float, residual: str
     take the whole batch, computing each field or line on its own, so a
     field's results do not depend on the batch it came in."""
     return _dense_encode_rows(batch, mode, quality, residual, cdf97.dwt2d, cdf97.idwt2d)
+
+
+def _dense_encode2_sparse(batch: torch.Tensor, mode: str, quality: float, cap: int, out_cap: int,
+                          residual: str = "dual"):
+    """The sparse program on batch (B, ny, nx) (sperr_tpu ``_dense_encode2``):
+    the front with the outliers' first min(out_cap, n) indices, their values
+    and ``n_out`` (K12), then the nonzero compaction (``_nonzeros``, K12:
+    ``idx``, ``vals``, ``nnz``) in place of the dense magnitudes and signs.
+    The whole batch goes through each stage, as in ``_dense_encode2``.  A
+    constant field has no nonzeros, as in the reference: its values are never
+    read, and in PSNR and rate modes its zero range leaves q = 0."""
+    n = batch[0].numel()
+    out = _dense_encode_rows(batch, mode, quality, residual, cdf97.dwt2d, cdf97.idwt2d,
+                             out_cap=min(out_cap, n))
+    mags = torch.where(out["is_const"][:, None], 0, out.pop("mags"))
+    out["idx"], out["vals"], out["nnz"] = _nonzeros(mags, out.pop("signs"), cap)
+    return out
 
 
 def _resid_mode(mode: str, pwe_strict) -> str:
@@ -155,6 +178,20 @@ class TorchCompressor2D:
     and fields past the last tier take the host engine; both routes write
     the same bytes.
 
+    ``transfer``: how the quantized values reach the host.  "sparse" (the
+    default; sperr_tpu's ``TpuCompressor2D`` always compacts) compacts each
+    field's nonzeros (at most ``cap`` = max(1024, min(n, n *
+    ``sparse_cap_frac``))) and its device-scanned outliers (at most
+    ``out_cap``: n at ``sparse_cap_frac`` >= 1, else max(256, n / 16)) on the
+    device (K12) and copies them trimmed to the part's largest counts; on
+    the wave route only the fields whose values the host needs (those that
+    take the host engine, and PWE fields under the dual or f64 certificate)
+    are compacted and copied.  A field past a cap raises ``ValueError``, as
+    the reference does; at the default ``sparse_cap_frac`` of 1.0 none can
+    be.  "dense" copies the dense magnitudes, signs, outlier mask and
+    residual of every field (host route) or each such field's dense signed
+    row (wave route).  Both transfers write the same streams.
+
     After each compress, ``last_uncertified_chunks`` counts the PWE fields
     whose f32-decoder bound was not certified (the f64 bound holds for
     them); ``last_wave_chunks`` counts the fields the device entropy path
@@ -172,9 +209,12 @@ class TorchCompressor2D:
         with_header: bool = False,
         num_threads: Optional[int] = None,
         entropy: str = "host",
+        transfer: str = "sparse",
     ):
         if entropy not in ("host", "wave"):
             raise ValueError(f"entropy must be 'host' or 'wave'; got {entropy!r}")
+        if transfer not in ("sparse", "dense"):
+            raise ValueError(f"transfer must be 'sparse' or 'dense'; got {transfer!r}")
         if pwe_strict not in (True, False, "f64"):
             raise ValueError(f"pwe_strict must be True, False or 'f64'; got {pwe_strict!r}")
         self.dims = (int(dims[0]), int(dims[1]))
@@ -186,6 +226,10 @@ class TorchCompressor2D:
         self._count_lock = threading.Lock()
         self.with_header = with_header
         self.entropy = entropy
+        self.transfer = transfer
+        # the sparse transfer's caps, as a fraction of n (the reference's:
+        # exact, no field can pass them)
+        self.sparse_cap_frac = 1.0
         # device working set bound, in elements per sub-batch
         self.elem_budget = 1 << 25
         self.num_bp_cap = 34
@@ -199,15 +243,18 @@ class TorchCompressor2D:
     @classmethod
     def from_jax(cls, tpu_compressor2d, device) -> "TorchCompressor2D":
         """Settings of a ``sperr_tpu`` ``TpuCompressor2D`` (either entropy,
-        f32).  ``device``: one device, or a list of devices that its mesh, if
-        it has one, maps onto (``devices=``)."""
+        f32; the sparse transfer, its only one).  ``device``: one device, or
+        a list of devices that its mesh, if it has one, maps onto
+        (``devices=``).  Its ``pwe_strict="device"``, which it certifies as
+        the dual certificate, maps to True."""
         t = tpu_compressor2d
         if np.dtype(t.dtype) != np.float32:
             raise NotImplementedError(f"dtype {np.dtype(t.dtype)} is not ported")
         out = cls(
-            t.dims, **_placement(device), pwe_strict=t.pwe_strict, with_header=t.with_header,
-            num_threads=t.num_threads, entropy=t.entropy,
+            t.dims, **_placement(device), pwe_strict=True if t.pwe_strict == "device" else t.pwe_strict,
+            with_header=t.with_header, num_threads=t.num_threads, entropy=t.entropy,
         )
+        out.sparse_cap_frac = t.sparse_cap_frac
         out.elem_budget = t.elem_budget
         out.num_bp_cap = t.num_bp_cap
         out.wave_event_tiers = tuple(t.wave_event_tiers)
@@ -217,6 +264,24 @@ class TorchCompressor2D:
         with self._count_lock:
             self.last_d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
+
+    def _sparse_caps(self, n: int) -> Tuple[int, int]:
+        """(cap, out_cap) of the sparse transfer for n-pixel fields, as the
+        reference sizes them."""
+        frac = self.sparse_cap_frac
+        return max(1024, min(n, int(n * frac))), (n if frac >= 1.0 else max(256, n // 16))
+
+    @staticmethod
+    def _check_caps(small, cap: int, out_cap: int) -> None:
+        """The reference's refusal of a part with a field past a cap."""
+        nnz = small["nnz"]
+        n_out = small.get("n_out")
+        if (nnz > cap).any() or (n_out is not None and (n_out > out_cap).any()):
+            raise ValueError(
+                "2D compaction capacity exceeded; raise sparse_cap_frac "
+                f"(nnz max {int(nnz.max())} > cap {cap} or outliers "
+                f"{int(n_out.max()) if n_out is not None else 0} > {out_cap})"
+            )
 
     def _wave_fits(self, wave, k: int, n: int) -> bool:
         """True when field row k's device emission fit every cap."""
@@ -330,6 +395,8 @@ class TorchCompressor2D:
         x = torch.from_numpy(fields).to(device)
         if self.entropy == "wave":
             return self._wave_group(x, mode, quality, resid_mode)
+        if self.transfer == "sparse":
+            return self._sparse_group(x, mode, quality, resid_mode)
         return self._dense_group(x, mode, quality, resid_mode)
 
     def _dense_group(self, x, mode: str, quality: float, resid_mode: str) -> _Group:
@@ -345,6 +412,32 @@ class TorchCompressor2D:
             mags_signs=lambda k: (dense["mags"][k], dense["signs"][k]),
             ll=lambda k: np.where(dense["signs"][k], 1, -1) * dense["mags"][k].astype(np.int64),
             dev_scan=dev_scan,
+            host_resid=lambda k: resid_mode == "none",
+        )
+
+    def _sparse_group(self, x, mode: str, quality: float, resid_mode: str) -> _Group:
+        """Host entropy, sparse transfer: the sparse program's scalars, then
+        its compactions trimmed to the part's largest counts; a field past a
+        cap raises."""
+        n = x[0].numel()
+        cap, out_cap = self._sparse_caps(n)
+        sp = _dense_encode2_sparse(x, mode, quality, cap, out_cap, resid_mode)
+        small = {k: self._to_host(v) for k, v in sp.items() if v.dim() == 1}
+        self._check_caps(small, cap, out_cap)
+        nnz = small["nnz"]
+        idx = _trim(self._to_host, sp["idx"], nnz, cap)
+        vals = _trim(self._to_host, sp["vals"], nnz, cap)
+        views = {k: (idx[k, : nnz[k]], vals[k, : nnz[k]]) for k in range(len(nnz))}
+        scans: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        if "n_out" in small:
+            n_out = small["n_out"]
+            oi = _trim(self._to_host, sp["out_idx"], n_out, out_cap)
+            ov = _trim(self._to_host, sp["out_vals"], n_out, out_cap)
+            scans = {k: (oi[k, : n_out[k]].astype(np.int64), ov[k, : n_out[k]].astype(np.float64))
+                     for k in range(len(n_out))}
+        mags_signs, ll = _views(n, views)
+        return _Group(
+            small, mags_signs=mags_signs, ll=ll, dev_scan=scans.__getitem__,
             host_resid=lambda k: resid_mode == "none",
         )
 
@@ -371,11 +464,17 @@ class TorchCompressor2D:
         outliers compacted on the device, K12), every field's program at
         the first tier, then the retry ladder over the fields that overflowed
         (the front is kept, not recomputed).  A tier's programs are all
-        issued before their results are read."""
+        issued before their results are read.  The host then gets the
+        quantized values of the fields that need them: with the sparse
+        transfer their nonzeros, compacted in one K12 call and copied
+        trimmed, with the dense transfer each one's dense signed row."""
         B = x.shape[0]
         nx, ny = self.dims
         n = nx * ny
-        front = _dense_encode_rows(x, mode, quality, resid_mode, cdf97.dwt2d, cdf97.idwt2d, out_cap=n)
+        sparse = self.transfer == "sparse"
+        cap, out_cap = self._sparse_caps(n)
+        front = _dense_encode_rows(x, mode, quality, resid_mode, cdf97.dwt2d, cdf97.idwt2d,
+                                   out_cap=min(out_cap, n) if sparse else n)
         mags, signs = front["mags"], front["signs"]
         index = _wave_index2(self.dims, x.device)
         node_cap = index[1].nn  # exact: the walk never overflows on nodes
@@ -403,24 +502,41 @@ class TorchCompressor2D:
             keys.append("n_out")
         if resid_mode == "dual":
             keys += ["eta_sim", "kappa"]
+        if sparse:
+            # every field's nonzero count (none in a constant field, as in
+            # the sparse program): a part with a field past a cap is
+            # refused, as the reference refuses it
+            front["nnz"] = torch.where(front["is_const"], 0, (mags != 0).sum(dim=1, dtype=torch.int32))
+            keys.append("nnz")
         small = {key: self._to_host(front[key]) for key in keys}
-        ll_h: Dict[int, np.ndarray] = {}
+        if sparse:
+            self._check_caps(small, cap, out_cap)
+        need = [k for k in range(B) if not bool(small["is_const"][k])
+                and (not self._wave_fits(waves[k], 0, n) or resid_mode in ("dual", "none"))]
+        if sparse and need:
+            rows = None if len(need) == B else torch.tensor(need, device=x.device)
+            idx, vals, _ = _nonzeros(mags if rows is None else mags[rows],
+                                     signs if rows is None else signs[rows], cap)
+            nnz = small["nnz"][need]
+            idx, vals = (_trim(self._to_host, t, nnz, cap) for t in (idx, vals))
+            views = {k: (idx[j, : nnz[j]], vals[j, : nnz[j]]) for j, k in enumerate(need)}
+        else:
+            views = {k: self._to_host(torch.where(signs[k], mags[k], -mags[k])) for k in need}
         scans: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        for k in range(B):
-            if bool(small["is_const"][k]):
-                continue
-            if not self._wave_fits(waves[k], 0, n) or resid_mode in ("dual", "none"):
-                ll_h[k] = self._to_host(torch.where(signs[k], mags[k], -mags[k]))
-            if "n_out" in small:
+        if "n_out" in small:
+            for k in range(B):
+                if bool(small["is_const"][k]):
+                    continue
                 m = int(small["n_out"][k])
                 scans[k] = (
                     self._to_host(front["out_idx"][k, :m]).astype(np.int64),
                     self._to_host(front["out_vals"][k, :m]).astype(np.float64),
                 )
+        mags_signs, ll = _views(n, views)
         return _Group(
             small,
-            mags_signs=lambda k: (np.abs(ll_h[k]), ll_h[k] >= 0),
-            ll=lambda k: ll_h[k].astype(np.int64),
+            mags_signs=mags_signs,
+            ll=ll,
             dev_scan=scans.__getitem__,
             host_resid=lambda k: resid_mode == "none",
             waves=waves,
